@@ -1,0 +1,12 @@
+"""sageattention_tpu_torch: the SageAttention forward in PyTorch, with
+hand-written CUDA kernels for NVIDIA Hopper (H100, sm_90a).
+
+The port of the JAX package ``sageattention_tpu``, which stays the
+reference.  Importing this package builds nothing and needs no GPU: the
+kernels are compiled with ``nvcc`` on their first use on a CUDA tensor.
+"""
+
+from sageattention_tpu_torch import models
+from sageattention_tpu_torch.core import sageattn, sageattn_qk_int8_pv_bf16
+
+__all__ = ["sageattn", "sageattn_qk_int8_pv_bf16", "models"]

@@ -1,0 +1,171 @@
+"""Public API: ``sageattn`` and ``sageattn_qk_int8_pv_bf16``.
+
+The default forward of the JAX package's ``sageattn`` (int8 Q.K^T with
+per-row Q scales and per-group K scales, K mean-smoothing, bf16 P.V),
+on ``torch.Tensor``s.  It runs where its inputs live: CUDA tensors go
+through the hand-written kernels (``ops/quant_cuda.py``,
+``ops/attention_cuda.py``), CPU tensors through their plain versions,
+which compute the same numbers.
+
+Layouts HND ([b, h, s, d]) and NHD ([b, s, h, d]); GQA (hq a multiple of
+hkv); top-left causal masking; any sq / sk; ``return_lse`` gives the
+natural-log LSE with the smooth-k correction.  Head dims below 64, or
+between 64 and 128, are zero-padded to 64 or 128; above 128 they raise.
+Every other option of the JAX ``sageattn`` raises ``NotImplementedError``
+naming the ROADMAP item that ports it.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from sageattention_tpu_torch.ops import attention_cuda, quant_cuda
+
+LOG2E = 1.4426950408889634
+K_GROUP = attention_cuda.K_GROUP
+
+# option -> ROADMAP item that lifts the restriction
+_LATER = {
+    "smooth_q": "kernel row 1 slice (h), smooth_q",
+    "smooth_v": "kernel rows 5-6 (quantized V) and row 1 slice (b)",
+    "q_segment_ids": "kernel row 1 slice (c), segment ids / varlen",
+    "kv_segment_ids": "kernel row 1 slice (c), segment ids / varlen",
+    "q_positions": "kernel row 1 slice (g), positions",
+    "kv_positions": "kernel row 1 slice (g), positions",
+    "attn_mask": "kernel row 1 slice (d), bool masks",
+    "attn_bias": "kernel row 1 slice (e), additive bias",
+    "window": "kernel row 1 slice (f), sliding window",
+}
+
+
+def _to_hnd(x: torch.Tensor, layout: str) -> torch.Tensor:
+    if layout == "HND":
+        return x
+    if layout == "NHD":
+        return x.transpose(1, 2)
+    raise ValueError(f"tensor_layout must be 'HND' or 'NHD', got {layout!r}")
+
+
+def _pad_head_dim(d: int) -> int:
+    """The kernel's head dim for d <= 128: 64 or 128."""
+    return 64 if d <= 64 else 128
+
+
+def _pad_d(x: torch.Tensor, d_pad: int) -> torch.Tensor:
+    return F.pad(x, (0, d_pad - x.shape[-1])).contiguous()
+
+
+def _sageattn_hnd(q, k, v, *, is_causal: bool, sm_scale: float | None,
+                  smooth_k: bool, return_lse: bool):
+    """Quantize K, then one fused attention call, on HND tensors."""
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(
+            f"q, k, v must be [b,h,s,d] with v shaped like k; got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    b, hq, sq, d_og = q.shape
+    hkv = k.shape[1]
+    if k.shape[0] != b or k.shape[3] != d_og or hq % hkv:
+        raise ValueError(f"incompatible q {tuple(q.shape)} and k {tuple(k.shape)}")
+    if sm_scale is None:
+        sm_scale = d_og**-0.5
+    if d_og > 128:
+        raise NotImplementedError(
+            f"head_dim {d_og} > 128 is not ported (ROADMAP: kernel row 1, "
+            f"head dims above 128)"
+        )
+    out_dtype = q.dtype
+    # the kernels read bf16 or fp32; fp16 widens to fp32 exactly
+    work = q.dtype if q.dtype in (torch.bfloat16, torch.float32) else torch.float32
+    d_pad = _pad_head_dim(d_og)
+    qp = _pad_d(q.to(work), d_pad)
+    kp = _pad_d(k.to(work), d_pad)
+    # bf16 P.V: V is bf16 whatever the input dtype
+    vp = _pad_d(v.to(torch.bfloat16), d_pad)
+    k_i8, k_scale, km = quant_cuda.quant_k_fused_mean(kp, group=K_GROUP, smooth=smooth_k)
+    out = attention_cuda.sage_attention_fwd(
+        qp, k_i8, k_scale, vp, is_causal=is_causal,
+        q_fold=sm_scale * LOG2E, return_lse=return_lse,
+    )
+    o, lse2 = out if return_lse else (out, None)
+    o = o[..., :d_og].to(out_dtype)
+    if not return_lse:
+        return o
+    lse = lse2 / LOG2E
+    if smooth_k:
+        # smoothing shifted every logit of row i by q_i . km
+        km_q = km[..., :d_og].repeat_interleave(hq // hkv, dim=1)
+        lse = lse + torch.einsum("bhqd,bhd->bhq", q.float(), km_q) * sm_scale
+    return o, lse
+
+
+def _refuse(kwargs: dict, pv_dtype: str, qk_quant_gran: str, qk_bits: int) -> None:
+    if pv_dtype != "bf16":
+        raise NotImplementedError(
+            f"pv_dtype={pv_dtype!r}: only 'bf16' is ported (ROADMAP: kernel "
+            f"rows 5-6 and row 1 slice (b), quantized V)"
+        )
+    if qk_quant_gran != "auto":
+        raise NotImplementedError(
+            f"qk_quant_gran={qk_quant_gran!r}: only 'auto' is ported "
+            f"(ROADMAP: kernel row 4, quant_q_per_token)"
+        )
+    if qk_bits != 8:
+        raise NotImplementedError(
+            "qk_bits=4 is not ported (ROADMAP: kernel row 1 slice (i))"
+        )
+    for name, value in kwargs.items():
+        if name in _LATER:
+            if value is None or value is False:
+                continue
+            raise NotImplementedError(
+                f"{name} is not ported yet (ROADMAP: {_LATER[name]})"
+            )
+        if name in ("block_q", "block_k", "impl"):
+            raise NotImplementedError(
+                f"{name}: the port picks its own H100 launch configuration"
+            )
+        raise TypeError(f"unexpected keyword argument {name!r}")
+
+
+def sageattn_qk_int8_pv_bf16(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    tensor_layout: str = "HND",
+    is_causal: bool = False,
+    sm_scale: float | None = None,
+    return_lse: bool = False,
+    *,
+    smooth_k: bool = True,
+    pv_dtype: str = "bf16",
+    qk_quant_gran: str = "auto",
+    qk_bits: int = 8,
+    **kwargs,
+):
+    """int8 Q.K^T + bf16 P.V (fp32 accumulate).
+
+    Returns o in q's layout and dtype and, with ``return_lse``, the
+    natural-log LSE [b, hq, sq] fp32.  Forward only: gradients are not
+    ported (ROADMAP: kernel rows 7-8) and inputs that require grad raise."""
+    _refuse(kwargs, pv_dtype, qk_quant_gran, qk_bits)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise NotImplementedError(
+            "gradients are not ported (ROADMAP: kernel rows 7-8, backward)"
+        )
+    qh, kh, vh = (_to_hnd(x, tensor_layout) for x in (q, k, v))
+    out = _sageattn_hnd(qh, kh, vh, is_causal=is_causal, sm_scale=sm_scale,
+                        smooth_k=smooth_k, return_lse=return_lse)
+    if return_lse:
+        return _to_hnd(out[0], tensor_layout), out[1]
+    return _to_hnd(out, tensor_layout)
+
+
+def sageattn(q, k, v, tensor_layout: str = "HND", is_causal: bool = False,
+             sm_scale: float | None = None, return_lse: bool = False, **kwargs):
+    """Drop-in attention: the default SageAttention forward (int8 Q.K^T,
+    smoothed K, bf16 P.V).  See :func:`sageattn_qk_int8_pv_bf16`."""
+    return sageattn_qk_int8_pv_bf16(
+        q, k, v, tensor_layout, is_causal, sm_scale, return_lse, **kwargs
+    )

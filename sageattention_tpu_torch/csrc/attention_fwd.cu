@@ -1,0 +1,329 @@
+// Fused SageAttention forward for Hopper (sm_90a): int8 Q.K^T, bf16 P.V.
+//
+// Replaces the TPU kernel attention_pallas.py:sage_attention_fused
+// (_kernel / _kernel_single, bodies _compute_parts, _merge_parts,
+// _merge_into_scratch) for bf16 V: non-causal and causal (top-left,
+// col <= row), GQA, the base-2 LSE, per-row Q quantization inside the
+// kernel and ragged sq / sk.
+//
+// One CTA of four warps per (b, hq, 64-row Q tile); each warp owns 16 Q
+// rows.  The CTA
+//   1. quantizes its Q rows into shared memory: amax per row, the spec's
+//      scale = max(amax,1e-30)*(1/127), r = 1/scale, roundf(x*r), with
+//      sm_scale*log2(e) folded into the row scale as
+//      max(amax,1e-30) * qs_mul, qs_mul = f32(1/127) * f32(sm_scale*log2e)
+//      (the form XLA compiles the spec's fold into);
+//   2. loops over KV tiles of 128 columns, which is also the K-scale group
+//      (one k_scale per tile).  K rows >= sk are zero-filled in shared
+//      memory and their columns masked;
+//   3. per tile: S = Q.K^T on the int8 tensor cores
+//      (mma.sync.m16n8k32.s32.s8.s8.s32, K's rows are the "col" operand),
+//      dequantized by q_scale[row] * k_scale[tile]; base-2 online softmax
+//      with the finite initial max NEG_INIT = -1e30 (masked scores are
+//      -inf, so exp2 gives 0 and no inf - inf arises); P rounded to bf16
+//      and P.V on the bf16 tensor cores (mma.sync.m16n8k16, fp32
+//      accumulate, V fragments by ldmatrix.trans);
+//   4. writes o = acc / l in q's dtype and, if asked, lse2 = log2(l) + m.
+//      Rows >= sq are not written.  When causal, KV tiles wholly above the
+//      diagonal of the Q tile are skipped.
+//
+// Bound: operations.  At the CogVideoX-2B layer shape (b=1, h=30,
+// s=17,776, d=64) Q.K^T is 1.21e12 int8 ops and P.V 1.21e12 bf16 FLOP,
+// about 1.84 ms on an H100 SXM's data-sheet peaks, while the bytes (Q, K,
+// V, O once each) take about 0.03 ms.  This first kernel is written to be
+// right: mma.sync (not wgmma), plain synchronous tile loads (no TMA, no
+// cp.async pipeline) and no warp specialisation; those are later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int BM = 64;    // Q rows per CTA
+constexpr int BN = 128;   // KV columns per tile == K-scale group
+constexpr int NWARPS = 4;
+constexpr int NTHREADS = NWARPS * 32;
+constexpr int NT = BN / 8;  // 8-column n-tiles of S per warp
+constexpr float NEG_INIT = -1e30f;
+constexpr float kInvQmax = (float)(1.0 / 127.0);
+
+template <int D>
+struct Layout {
+  static constexpr int QS = D + 16;  // int8 row stride of Q and K (bytes)
+  static constexpr int VS = D + 8;   // bf16 row stride of V (elements)
+  static constexpr int q_off = 0;
+  static constexpr int k_off = q_off + BM * QS;
+  static constexpr int v_off = k_off + BN * QS;
+  static constexpr int qs_off = v_off + BN * VS * 2;
+  static constexpr int bytes = qs_off + BM * 4;
+};
+
+__device__ inline void mma_s8(int* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ inline void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ inline void ldsm_x4_trans(uint32_t* r, const void* p) {
+  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ inline uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+__device__ inline float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ inline float to_f32(float x) { return x; }
+
+__device__ inline void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ inline void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+template <int D, bool CAUSAL, typename T>
+__global__ void __launch_bounds__(NTHREADS)
+sage_attn_fwd_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
+                     const float* __restrict__ k_scale,
+                     const __nv_bfloat16* __restrict__ v, T* __restrict__ o,
+                     float* __restrict__ lse2, int hq, int hkv, int sq, int sk,
+                     float qs_mul) {
+  using L = Layout<D>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  int8_t* sQ = reinterpret_cast<int8_t*>(smem + L::q_off);
+  int8_t* sK = reinterpret_cast<int8_t*>(smem + L::k_off);
+  __nv_bfloat16* sV = reinterpret_cast<__nv_bfloat16*>(smem + L::v_off);
+  float* sQs = reinterpret_cast<float*>(smem + L::qs_off);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;  // mma groupID, thread in group
+  const int q0 = blockIdx.x * BM;
+  const int h = blockIdx.y, bi = blockIdx.z;
+  const int hk = h / (hq / hkv);
+  const size_t q_base = (((size_t)bi * hq + h) * sq) * D;
+  const size_t kv_base = (((size_t)bi * hkv + hk) * sk) * D;
+  const int n_tiles_all = (sk + BN - 1) / BN;
+  const float* ks_row = k_scale + ((size_t)bi * hkv + hk) * n_tiles_all;
+
+  // ---- 1. per-row int8 Q quantization (each warp its 16 rows) ----------
+  for (int rr = 0; rr < 16; ++rr) {
+    const int row = warp * 16 + rr;
+    const int gr = q0 + row;
+    float x[D / 32];
+    float amax = 0.f;
+#pragma unroll
+    for (int e = 0; e < D / 32; ++e) {
+      x[e] = gr < sq ? to_f32(q[q_base + (size_t)gr * D + lane + 32 * e]) : 0.f;
+      amax = fmaxf(amax, fabsf(x[e]));
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+    const float scale = fmaxf(amax, 1e-30f) * kInvQmax;
+    const float r = 1.0f / scale;
+#pragma unroll
+    for (int e = 0; e < D / 32; ++e)
+      sQ[row * L::QS + lane + 32 * e] = (int8_t)fminf(fmaxf(roundf(x[e] * r), -127.f), 127.f);
+    if (lane == 0) sQs[row] = fmaxf(amax, 1e-30f) * qs_mul;
+  }
+  __syncwarp();
+  const float qs0 = sQs[warp * 16 + g], qs1 = sQs[warp * 16 + g + 8];
+  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;  // this thread's rows
+
+  float m0 = NEG_INIT, m1 = NEG_INIT;  // running max (base 2)
+  float l0 = 0.f, l1 = 0.f;            // this thread's partial row sums
+  float acc[D / 8][4];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+
+  int n_tiles = n_tiles_all;
+  if (CAUSAL) n_tiles = min(n_tiles, (q0 + BM - 1) / BN + 1);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int kv0 = j * BN;
+    __syncthreads();  // the previous tile's K/V are no longer read
+    // ---- 2. K and V tiles into shared memory, zero past sk ---------------
+    for (int i = tid; i < BN * (D / 16); i += NTHREADS) {
+      const int r = i / (D / 16), c = i % (D / 16);
+      uint4 val = make_uint4(0, 0, 0, 0);
+      if (kv0 + r < sk) val = *reinterpret_cast<const uint4*>(k + kv_base + (size_t)(kv0 + r) * D + c * 16);
+      *reinterpret_cast<uint4*>(sK + r * L::QS + c * 16) = val;
+    }
+    for (int i = tid; i < BN * (D / 8); i += NTHREADS) {
+      const int r = i / (D / 8), c = i % (D / 8);
+      uint4 val = make_uint4(0, 0, 0, 0);
+      if (kv0 + r < sk) val = *reinterpret_cast<const uint4*>(v + kv_base + (size_t)(kv0 + r) * D + c * 8);
+      *reinterpret_cast<uint4*>(sV + r * L::VS + c * 8) = val;
+    }
+    __syncthreads();
+
+    // ---- 3a. S = Q.K^T, int8 in, int32 out --------------------------------
+    int s_i[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) s_i[n][0] = s_i[n][1] = s_i[n][2] = s_i[n][3] = 0;
+#pragma unroll
+    for (int kk = 0; kk < D / 32; ++kk) {
+      const int8_t* qa = sQ + (warp * 16 + g) * L::QS + kk * 32 + t * 4;
+      uint32_t a[4];
+      a[0] = *reinterpret_cast<const uint32_t*>(qa);
+      a[1] = *reinterpret_cast<const uint32_t*>(qa + 8 * L::QS);
+      a[2] = *reinterpret_cast<const uint32_t*>(qa + 16);
+      a[3] = *reinterpret_cast<const uint32_t*>(qa + 8 * L::QS + 16);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const int8_t* kb = sK + (n * 8 + g) * L::QS + kk * 32 + t * 4;
+        mma_s8(s_i[n], a, *reinterpret_cast<const uint32_t*>(kb),
+               *reinterpret_cast<const uint32_t*>(kb + 16));
+      }
+    }
+
+    // ---- 3b. dequantize, mask, online softmax (base 2) --------------------
+    const float ks = ks_row[j];
+    const float rs0 = qs0 * ks, rs1 = qs1 * ks;
+    const bool need_mask = (kv0 + BN > sk) || (CAUSAL && kv0 + BN - 1 > q0);
+    float s[NT][4];
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float val = (float)s_i[n][e] * (e < 2 ? rs0 : rs1);
+        if (need_mask) {
+          const int col = kv0 + n * 8 + t * 2 + (e & 1);
+          const int row = e < 2 ? row0 : row1;
+          if (col >= sk || (CAUSAL && col > row)) val = -INFINITY;
+        }
+        s[n][e] = val;
+      }
+      mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float al0 = exp2f(m0 - mn0), al1 = exp2f(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      s[n][0] = exp2f(s[n][0] - mn0);
+      s[n][1] = exp2f(s[n][1] - mn0);
+      s[n][2] = exp2f(s[n][2] - mn1);
+      s[n][3] = exp2f(s[n][3] - mn1);
+      sum0 += s[n][0] + s[n][1];
+      sum1 += s[n][2] + s[n][3];
+    }
+    l0 = l0 * al0 + sum0;
+    l1 = l1 * al1 + sum1;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      acc[i][0] *= al0;
+      acc[i][1] *= al0;
+      acc[i][2] *= al1;
+      acc[i][3] *= al1;
+    }
+
+    // ---- 3c. O += P.V, P rounded to bf16, fp32 accumulate -----------------
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      uint32_t a[4];
+      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      const int vr = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+      for (int np = 0; np < D / 16; ++np) {
+        uint32_t b[4];
+        ldsm_x4_trans(b, sV + vr * L::VS + np * 16 + (lane >> 4) * 8);
+        mma_bf16(acc[2 * np], a, b[0], b[1]);
+        mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+      }
+    }
+  }
+
+  // ---- 4. epilogue: o = acc / l, lse2 = log2(l) + m ------------------------
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    const int col = i * 8 + t * 2;
+    if (row0 < sq) store2(o + q_base + (size_t)row0 * D + col, acc[i][0] / l0, acc[i][1] / l0);
+    if (row1 < sq) store2(o + q_base + (size_t)row1 * D + col, acc[i][2] / l1, acc[i][3] / l1);
+  }
+  if (lse2 != nullptr && t == 0) {
+    const size_t lbase = ((size_t)bi * hq + h) * sq;
+    if (row0 < sq) lse2[lbase + row0] = log2f(l0) + m0;
+    if (row1 < sq) lse2[lbase + row1] = log2f(l1) + m1;
+  }
+}
+
+template <int D, bool CAUSAL, typename T>
+int launch(const void* q, const void* k, const void* ks, const void* v, void* o,
+           void* lse, int b, int hq, int hkv, int sq, int sk, float qs_mul,
+           cudaStream_t st) {
+  auto kern = sage_attn_fwd_kernel<D, CAUSAL, T>;
+  const int smem = Layout<D>::bytes;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((sq + BM - 1) / BM, hq, b);
+  kern<<<grid, NTHREADS, smem, st>>>((const T*)q, (const int8_t*)k, (const float*)ks,
+                                     (const __nv_bfloat16*)v, (T*)o, (float*)lse, hq, hkv,
+                                     sq, sk, qs_mul);
+  return (int)cudaGetLastError();
+}
+
+template <int D, typename T>
+int launch_c(bool causal, const void* q, const void* k, const void* ks, const void* v,
+             void* o, void* lse, int b, int hq, int hkv, int sq, int sk, float qs_mul,
+             cudaStream_t st) {
+  return causal ? launch<D, true, T>(q, k, ks, v, o, lse, b, hq, hkv, sq, sk, qs_mul, st)
+                : launch<D, false, T>(q, k, ks, v, o, lse, b, hq, hkv, sq, sk, qs_mul, st);
+}
+
+}  // namespace
+
+// q: [b,hq,sq,d] (fp32 if q_is_f32 else bf16), unquantized; k: int8
+// [b,hkv,sk,d]; k_scale: fp32 [b,hkv,ceil(sk/group)]; v: bf16 [b,hkv,sk,d];
+// o: [b,hq,sq,d] in q's dtype; lse2: fp32 [b,hq,sq] or NULL.  All
+// contiguous; d in {64, 128}; group must be 128 (the kernel's KV tile);
+// qs_mul = f32(1/127) * f32(sm_scale * log2(e)).
+extern "C" int sage_attn_fwd(const void* q, const void* k, const void* k_scale,
+                             const void* v, void* o, void* lse2, int b, int hq,
+                             int hkv, int sq, int sk, int d, int causal,
+                             int q_is_f32, int want_lse, int group, float qs_mul,
+                             void* stream) {
+  if (group != BN || hkv <= 0 || hq % hkv != 0 || (d != 64 && d != 128))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  void* lse = want_lse ? lse2 : nullptr;
+  if (d == 64)
+    return q_is_f32 ? launch_c<64, float>(causal, q, k, k_scale, v, o, lse, b, hq, hkv, sq, sk, qs_mul, st)
+                    : launch_c<64, __nv_bfloat16>(causal, q, k, k_scale, v, o, lse, b, hq, hkv, sq, sk, qs_mul, st);
+  return q_is_f32 ? launch_c<128, float>(causal, q, k, k_scale, v, o, lse, b, hq, hkv, sq, sk, qs_mul, st)
+                  : launch_c<128, __nv_bfloat16>(causal, q, k, k_scale, v, o, lse, b, hq, hkv, sq, sk, qs_mul, st);
+}

@@ -1,0 +1,23 @@
+"""Model zoo of the port: the video DiT and its attention backends."""
+
+from sageattention_tpu_torch.models.attention import (
+    SageAttnProcessor,
+    attention,
+    get_attention_backend,
+    register_backend,
+    set_attention_backend,
+)
+from sageattention_tpu_torch.models.configs import MODEL_CONFIGS, DiTConfig, LLMConfig
+from sageattention_tpu_torch.models.dit import VideoDiT
+
+__all__ = [
+    "attention",
+    "register_backend",
+    "set_attention_backend",
+    "get_attention_backend",
+    "SageAttnProcessor",
+    "MODEL_CONFIGS",
+    "DiTConfig",
+    "LLMConfig",
+    "VideoDiT",
+]

@@ -1,0 +1,63 @@
+"""Carry the JAX package's VideoDiT parameters across to the port.
+
+``params_from_jax`` takes the flax parameter tree as nested dicts of numpy
+arrays (``{"params": {...}}`` or the inner dict) and returns a state dict
+for :class:`models.dit.VideoDiT`:
+
+* a flax ``Dense`` kernel [in, out] becomes a Linear ``weight`` [out, in];
+* a flax ``LayerNorm`` ``scale`` becomes ``weight``;
+* ``pos_embed`` is copied as it is.
+
+The flax names, read from a real ``VideoDiT.init`` tree, and their torch
+counterparts:
+
+    patch_embed, text_embed, unpatchify, final_norm   same names
+    pos_embed                                         pos_embed
+    t_embed/Dense_0, t_embed/Dense_1                  t_embed.mlp.0, .2
+    block_i/adaln                                     blocks.i.adaln
+    block_i/attn/{qkv, q_norm, k_norm, out}           blocks.i.attn.*
+    block_i/Dense_0, block_i/Dense_1                  blocks.i.mlp.0, .2
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+
+_RENAME = {"Dense_0": "mlp.0", "Dense_1": "mlp.2"}
+
+
+def _torch_name(path: list[str]) -> str:
+    out = []
+    for part in path:
+        if part.startswith("block_"):
+            out += ["blocks", part[len("block_"):]]
+        else:
+            out.append(_RENAME.get(part, part))
+    return ".".join(out)
+
+
+def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
+    """flax VideoDiT parameters (numpy leaves) -> torch state dict (fp32)."""
+    tree = tree.get("params", tree)
+    sd: dict[str, torch.Tensor] = {}
+
+    def walk(node, path):
+        if isinstance(node, Mapping):
+            for key, child in node.items():
+                walk(child, path + [key])
+            return
+        arr = np.asarray(node, dtype=np.float32)
+        *mod, leaf = path
+        if leaf == "kernel":
+            name, arr = _torch_name(mod) + ".weight", arr.T
+        elif leaf == "scale":
+            name = _torch_name(mod) + ".weight"
+        else:  # bias, pos_embed
+            name = _torch_name(path)
+        sd[name] = torch.tensor(np.ascontiguousarray(arr))
+
+    walk(tree, [])
+    return sd

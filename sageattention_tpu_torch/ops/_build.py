@@ -1,0 +1,112 @@
+"""Build the CUDA sources under ``csrc/`` on first use and load them.
+
+Each ``csrc/<name>.cu`` becomes ``build/lib<name>-<hash>.so`` at the repo
+root (``$SAGEATTN_TORCH_BUILD`` overrides the directory), compiled by
+``nvcc`` for ``sm_90a`` with a plain C interface and loaded with
+``ctypes``.  The hash covers the sources and the flags, so an edited
+kernel is rebuilt and a built one is reused.
+
+No ``--use_fast_math``: it turns ``1/scale`` into an approximate divide
+and flushes denormals, and the quantizers must match the spec bit for
+bit.  Nothing here runs at import time, so the package imports on a
+machine without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+
+_PKG = pathlib.Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+# every source's entry points, with their ctypes signatures: pointers and
+# the stream are c_void_p (a bare int would be cut to 32 bits)
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SIGNATURES = {
+    "quant_k": {
+        "k_channel_mean": [P, P, I, I, I, I, P],
+        "quant_k_chunked": [P, P, P, P, I, I, I, I, I, P],
+    },
+    "attention_fwd": {
+        "sage_attn_fwd": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, F, P],
+    },
+}
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+# one lock per library, so that threads loading different libraries
+# compile them in parallel
+_LOCKS = {name: threading.Lock() for name in SIGNATURES}
+
+
+def build_dir() -> pathlib.Path:
+    return pathlib.Path(
+        os.environ.get("SAGEATTN_TORCH_BUILD", _PKG.parent / "build")
+    )
+
+
+def _nvcc() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (looked on PATH and in $CUDA_HOME/bin): the CUDA "
+        "kernels of sageattention_tpu_torch cannot be built"
+    )
+
+
+def _target(name: str) -> pathlib.Path:
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):
+        # headers are shared, so every library hashes all of them
+        if src.suffix == ".cuh" or src.stem == name:
+            h.update(src.name.encode())
+            h.update(src.read_bytes())
+    return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def _compile(name: str) -> None:
+    out = _target(name)
+    if out.exists():
+        return
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [_nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        capture_output=True, text=True,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed for csrc/{name}.cu:\n{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, out)
+
+
+def lib(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    with _LOCKS[name]:
+        if name not in _LIBS:
+            _compile(name)
+            so = ctypes.CDLL(str(_target(name)))
+            for fn, argtypes in SIGNATURES[name].items():
+                getattr(so, fn).argtypes = argtypes
+                getattr(so, fn).restype = ctypes.c_int
+            _LIBS[name] = so
+        return _LIBS[name]
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a nonzero ``cudaGetLastError()`` from a launch."""
+    if err != 0:
+        raise RuntimeError(f"CUDA launch of {what} failed: cudaError {err}")

@@ -1,0 +1,108 @@
+"""Reference attention in plain PyTorch: the CPU path and the oracle.
+
+* :func:`attention_reference`: exact fp32 attention, the accuracy target.
+* :func:`quantized_attention_reference`: the arithmetic of the fused
+  kernel written out unfused (int8 QK^T dequantized by per-row scales,
+  base-2 softmax, P.V), the correctness target.
+
+Both loop over (batch, head) slabs so that one slab's [sq, sk] score
+matrix is the largest temporary: at CogVideoX-2B's 17,776 tokens that is
+1.26 GB in fp32, where all 30 heads at once would not fit on the card.
+Causal masking is top-left aligned (``col <= row``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+LOG2E = 1.4426950408889634
+# finite mask value: exp(MASK_VALUE - m) is 0 without an inf - inf
+MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
+
+
+def _build_mask(sq: int, sk: int, *, is_causal: bool, device) -> torch.Tensor | None:
+    """[sq, sk] bool mask (True = attend); only the causal part is ported."""
+    if not is_causal:
+        return None
+    row = torch.arange(sq, device=device)[:, None]
+    col = torch.arange(sk, device=device)[None, :]
+    return col <= row
+
+
+def _kv_head(h: int, hq: int, hkv: int) -> int:
+    """GQA: query head h reads kv head h // (hq // hkv) (``jnp.repeat``)."""
+    return h // (hq // hkv)
+
+
+def attention_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    is_causal: bool = False,
+    sm_scale: float | None = None,
+    return_lse: bool = False,
+):
+    """Exact fp32 attention on HND [b, h, s, d] tensors; GQA when k/v have
+    fewer heads.  Returns o in q's dtype and, if asked, the natural-log
+    LSE [b, hq, sq] in fp32."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    if sm_scale is None:
+        sm_scale = d**-0.5
+    mask = _build_mask(sq, sk, is_causal=is_causal, device=q.device)
+    o = torch.empty(b, hq, sq, v.shape[-1], dtype=q.dtype, device=q.device)
+    lse = torch.empty(b, hq, sq, dtype=torch.float32, device=q.device)
+    for bi in range(b):
+        for h in range(hq):
+            hk = _kv_head(h, hq, hkv)
+            s = (q[bi, h].float() @ k[bi, hk].float().T) * sm_scale
+            if mask is not None:
+                s = torch.where(mask, s, MASK_VALUE)
+            m = s.amax(dim=-1, keepdim=True)
+            p = torch.exp(s - m)
+            l = p.sum(dim=-1, keepdim=True)
+            o[bi, h] = ((p / l) @ v[bi, hk].float()).to(q.dtype)
+            lse[bi, h] = (m + torch.log(l))[:, 0]
+    return (o, lse) if return_lse else o
+
+
+def quantized_attention_reference(
+    q_i8: torch.Tensor,
+    q_scale: torch.Tensor,
+    k_i8: torch.Tensor,
+    k_scale: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    is_causal: bool = False,
+    return_lse: bool = False,
+    out_dtype=torch.bfloat16,
+):
+    """Unfused spec of the fused kernel's arithmetic.
+
+    ``q_scale`` [b,hq,sq] and ``k_scale`` [b,hkv,sk] are per-row fp32
+    scales, with ``sm_scale * log2(e)`` folded into ``q_scale``; ``v`` is
+    the bf16 (or fp32) V.  Returns o and, if asked, the base-2 LSE
+    ``log2(l) + m`` as the kernel stores it.
+
+    The int8 product runs as an fp32 matmul of the codes, which is exact:
+    |sum| <= 127^2 * d < 2^24 for d <= 1024.  P stays fp32 here, where the
+    kernel rounds it to bf16 before P.V."""
+    b, hq, sq, d = q_i8.shape
+    hkv, sk = k_i8.shape[1], k_i8.shape[2]
+    mask = _build_mask(sq, sk, is_causal=is_causal, device=q_i8.device)
+    o = torch.empty(b, hq, sq, v.shape[-1], dtype=out_dtype, device=q_i8.device)
+    lse2 = torch.empty(b, hq, sq, dtype=torch.float32, device=q_i8.device)
+    for bi in range(b):
+        for h in range(hq):
+            hk = _kv_head(h, hq, hkv)
+            s_i = q_i8[bi, h].float() @ k_i8[bi, hk].float().T
+            s = s_i * q_scale[bi, h, :, None] * k_scale[bi, hk, None, :]
+            if mask is not None:
+                s = torch.where(mask, s, MASK_VALUE)
+            m = s.amax(dim=-1, keepdim=True)
+            p = torch.exp2(s - m)
+            l = p.sum(dim=-1, keepdim=True)
+            o[bi, h] = ((p @ v[bi, hk].float()) / l).to(out_dtype)
+            lse2[bi, h] = (torch.log2(l) + m)[:, 0]
+    return (o, lse2) if return_lse else o

@@ -1,0 +1,89 @@
+"""Numerical spec of the quantizers, in PyTorch.
+
+A copy of the JAX package's ``quant.py`` for the functions the default
+``sageattn`` forward needs.  The CUDA kernels (``ops/quant_cuda.py``,
+``ops/attention_cuda.py``) compute exactly this chain, so the CPU tests
+check the same numbers the card produces:
+
+* ``inv_scale``: ``scale = max(amax, 1e-30) * (1/qmax)``, then ``1/scale``,
+  in that order, in fp32;
+* codes: ``round_half_away(x * (1/scale))``, clipped to ``[-qmax, qmax]``.
+
+``sm_scale * log2(e)`` is folded into the Q scales so the attention
+softmax runs in base 2.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+LOG2E = 1.4426950408889634
+INT8_QMAX = 127.0
+
+
+def round_half_away(x: torch.Tensor) -> torch.Tensor:
+    """Round half away from zero.
+
+    ``torch.round`` rounds exact .5 ties to even; those ties are moved to
+    ``trunc(x) + sign(x)``.  ``floor(|x| + 0.5)`` is not used: the add
+    rounds 0.49999997 up to 1.0 in fp32."""
+    r = torch.round(x)
+    tie = (x - torch.trunc(x)).abs() == 0.5
+    return torch.where(tie, torch.trunc(x) + torch.sign(x), r)
+
+
+def inv_scale(amax: torch.Tensor, qmax: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """(scale, 1/scale) from an fp32 amax, in the spec's order."""
+    scale = torch.clamp_min(amax, 1e-30) * torch.tensor(
+        1.0 / qmax, dtype=torch.float32, device=amax.device
+    )
+    return scale, 1.0 / scale
+
+
+def fold_multiplier(scale_fold: float, qmax: float = INT8_QMAX) -> float:
+    """The fp32 product ``f32(1/qmax) * f32(scale_fold)``.
+
+    The spec writes the folded scale as ``(max(amax,1e-30) * (1/qmax)) *
+    scale_fold``; XLA compiles that constant chain as ``max(amax,1e-30) *
+    ((1/qmax) * scale_fold)``, which can differ in the last bit.  The port
+    computes the compiled form, on the CPU and in the kernel, so that its
+    scales equal the JAX function's bit for bit."""
+    return float(np.float32(1.0 / qmax) * np.float32(scale_fold))
+
+
+def quant_int8(x: torch.Tensor, *, scale_fold: float = 1.0):
+    """Per-row (``per_token``) int8: [b,h,s,d] -> (int8 [b,h,s,d], f32
+    scales [b,h,s] with ``scale_fold`` multiplied in)."""
+    x = x.float()
+    amax = x.abs().amax(dim=-1)
+    scale, r = inv_scale(amax, INT8_QMAX)
+    q = round_half_away(x * r[..., None])
+    q = q.clamp(-INT8_QMAX, INT8_QMAX).to(torch.int8)
+    folded = torch.clamp_min(amax, 1e-30) * torch.tensor(
+        fold_multiplier(scale_fold), dtype=torch.float32, device=x.device
+    )
+    return q, folded
+
+
+def quant_int8_block_scales(x: torch.Tensor, *, group: int):
+    """One scale per ``group`` rows: [b,h,s,d] -> (int8 [b,h,s,d], f32
+    scales [b,h,ceil(s/group)]).  A ragged last group takes its amax over
+    its live rows only (the spec zero-pads, and zeros never raise amax)."""
+    x = x.float()
+    b, h, s, d = x.shape
+    pad = (-s) % group
+    xp = torch.nn.functional.pad(x, (0, 0, 0, pad))
+    g = xp.reshape(b, h, -1, group, d)
+    amax = g.abs().amax(dim=(-1, -2))
+    scale, r = inv_scale(amax, INT8_QMAX)
+    q = round_half_away(g * r[..., None, None])
+    q = q.clamp(-INT8_QMAX, INT8_QMAX).to(torch.int8)
+    return q.reshape(b, h, s + pad, d)[:, :, :s], scale
+
+
+def sub_mean(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Subtract the per-(b,h,d) mean over the sequence axis, in fp32."""
+    x = x.float()
+    mean = x.mean(dim=-2)
+    return x - mean[..., None, :], mean

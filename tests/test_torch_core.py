@@ -1,0 +1,130 @@
+"""The port's ``sageattn`` against the JAX package's quantize-then-attend
+pipeline ``core._sageattn_hnd(impl="xla", chunk_k=G)`` (CPU), with G the
+port's K-scale group.  ``core._entry`` (behind the JAX ``sageattn``)
+raises at this revision, so the tests call ``_sageattn_hnd`` directly.
+
+Both sides quantize the same inputs to the same codes, so they agree up
+to fp32 round-off: fp32 inputs within atol 1e-5, bf16 inputs within one
+bf16 ulp at unit scale (atol 1e-2), natural-log LSE within atol 1e-4.
+Against exact fp32 attention the cosine stays above 0.999.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sageattention_tpu import core as jcore
+from sageattention_tpu_torch import core, sageattn, sageattn_qk_int8_pv_bf16
+from sageattention_tpu_torch.ops import reference
+from sageattention_tpu_torch.utils.compare import cosine_similarity
+
+G = core.K_GROUP
+
+
+def _jax_sageattn(q, k, v, *, causal, lse, smooth_k, sm_scale=None):
+    return jcore._sageattn_hnd(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        None, None, None, None, None, None,
+        impl="xla", chunk_k=G, qk_quant_gran="auto", pv_dtype="bf16",
+        smooth_k=smooth_k, smooth_v=False, return_lse=lse, is_causal=causal,
+        sm_scale=sm_scale, block_q=128, block_k=128,
+    )
+
+
+def _qkv(b, hq, hkv, sq, sk, d, seed, mean=0.0):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, hq, sq, d)).astype(np.float32)
+    k = (rng.standard_normal((b, hkv, sk, d)) + mean).astype(np.float32)
+    v = rng.standard_normal((b, hkv, sk, d)).astype(np.float32)
+    return q, k, v
+
+
+CASES = {
+    # name: (b, hq, hkv, sq, sk, d, causal)
+    "square": (1, 2, 2, 256, 256, 64, False),
+    "gqa": (1, 4, 2, 256, 256, 64, False),
+    "causal_sq_ne_sk": (1, 2, 2, 200, 333, 64, True),
+    "ragged": (2, 2, 1, 200, 333, 64, False),
+    "d128_causal": (1, 2, 2, 256, 256, 128, True),
+    "d80_padded": (1, 2, 2, 130, 130, 80, False),
+}
+
+
+@pytest.mark.parametrize("smooth_k", [True, False])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_sageattn_matches_jax_fp32(name, smooth_k):
+    b, hq, hkv, sq, sk, d, causal = CASES[name]
+    q, k, v = _qkv(b, hq, hkv, sq, sk, d, seed=len(name), mean=0.5)
+    o_t, lse_t = sageattn(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                          is_causal=causal, return_lse=True, smooth_k=smooth_k)
+    o_j, lse_j = _jax_sageattn(q, k, v, causal=causal, lse=True, smooth_k=smooth_k)
+    assert o_t.dtype == torch.float32 and o_t.shape == (b, hq, sq, d)
+    np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), atol=1e-5)
+    np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse_j), atol=1e-4)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_sageattn_nhd_bf16_matches_jax(causal):
+    b, hq, hkv, s, d = 1, 4, 2, 200, 64
+    q, k, v = _qkv(b, hq, hkv, s, s, d, seed=11)
+    q_b, k_b, v_b = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    o_t = sageattn(q_b.transpose(1, 2), k_b.transpose(1, 2), v_b.transpose(1, 2),
+                   tensor_layout="NHD", is_causal=causal)
+    assert o_t.dtype == torch.bfloat16 and o_t.shape == (b, s, hq, d)
+    as_j = [jnp.asarray(x.float().numpy()).astype(jnp.bfloat16) for x in (q_b, k_b, v_b)]
+    o_j = _jax_sageattn(*as_j, causal=causal, lse=False, smooth_k=True)
+    np.testing.assert_allclose(
+        o_t.transpose(1, 2).float().numpy(), np.asarray(o_j.astype(jnp.float32)), atol=1e-2)
+
+
+def test_sm_scale_is_passed_through():
+    q, k, v = _qkv(1, 2, 2, 128, 128, 64, seed=12)
+    o_t = sageattn_qk_int8_pv_bf16(torch.from_numpy(q), torch.from_numpy(k),
+                                   torch.from_numpy(v), sm_scale=0.3)
+    o_j = _jax_sageattn(q, k, v, causal=False, lse=False, smooth_k=True, sm_scale=0.3)
+    np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), atol=1e-5)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_sageattn_close_to_exact_attention(causal):
+    q, k, v = _qkv(1, 4, 2, 300, 300, 64, seed=13, mean=1.0)
+    qt, kt, vt = (torch.from_numpy(x) for x in (q, k, v))
+    o, lse = sageattn(qt, kt, vt, is_causal=causal, return_lse=True)
+    o_r, lse_r = reference.attention_reference(qt, kt, vt, is_causal=causal, return_lse=True)
+    assert cosine_similarity(o, o_r) > 0.999
+    np.testing.assert_allclose(lse.numpy(), lse_r.numpy(), atol=5e-2)
+
+
+@pytest.mark.parametrize(
+    "kwargs",
+    [
+        {"pv_dtype": "int8"},
+        {"pv_dtype": "fp8"},
+        {"smooth_q": True},
+        {"smooth_v": True},
+        {"attn_mask": torch.ones(128, 128, dtype=torch.bool)},
+        {"attn_bias": torch.zeros(128, 128)},
+        {"q_segment_ids": torch.zeros(1, 128, dtype=torch.int32)},
+        {"q_positions": torch.arange(128)[None]},
+        {"window": 16},
+        {"qk_bits": 4},
+        {"qk_quant_gran": "per_block"},
+    ],
+    ids=lambda kw: next(iter(kw)),
+)
+def test_unsupported_options_raise(kwargs):
+    x = torch.zeros(1, 1, 128, 64)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        sageattn(x, x, x, **kwargs)
+
+
+def test_gradients_and_large_head_dims_raise():
+    x = torch.zeros(1, 1, 128, 64, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        sageattn(x, x, x)
+    y = torch.zeros(1, 1, 128, 192)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        sageattn(y, y, y)
+    with pytest.raises(TypeError):
+        sageattn(y, y, y, not_an_option=1)

@@ -1,0 +1,100 @@
+"""The port stands alone and hides no fallback.
+
+* No file of ``sageattention_tpu_torch/`` nor ``chip_smoke.py`` imports
+  ``jax``, ``flax`` or ``sageattention_tpu`` (the JAX package).
+* The kernel wrappers, the build module and the op contain no ``try``, so no
+  failed build or launch is swallowed.
+* Every launch in a kernel wrapper runs under ``torch.cuda.device`` of its
+  tensors, so a launch never goes to another device than its data's.
+* Importing the package builds nothing; a build without ``nvcc`` raises.
+"""
+
+import ast
+import pathlib
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PKG = ROOT / "sageattention_tpu_torch"
+FORBIDDEN = ("jax", "flax", "sageattention_tpu")
+WRAPPERS = ("ops/quant_cuda.py", "ops/attention_cuda.py")
+NO_TRY = ("ops/_build.py", *WRAPPERS, "core.py")
+
+
+def _port_files():
+    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [m for m in _imported_modules(tree) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+@pytest.mark.parametrize("rel", NO_TRY)
+def test_no_try_around_builds_or_launches(rel):
+    tree = ast.parse((PKG / rel).read_text())
+    tries = [n.lineno for n in ast.walk(tree) if isinstance(n, ast.Try)]
+    assert not tries, f"{rel}: try statements at lines {tries}"
+
+
+def _is_build_lib(node):
+    f = node.func if isinstance(node, ast.Call) else None
+    return (isinstance(f, ast.Attribute) and f.attr == "lib"
+            and isinstance(f.value, ast.Name) and f.value.id == "_build")
+
+
+def _is_cuda_device_guard(item):
+    f = item.context_expr.func if isinstance(item.context_expr, ast.Call) else None
+    return isinstance(f, ast.Attribute) and ast.unparse(f) == "torch.cuda.device"
+
+
+@pytest.mark.parametrize("rel", WRAPPERS)
+def test_launches_run_under_their_tensors_device(rel):
+    tree = ast.parse((PKG / rel).read_text())
+    guarded = {
+        id(n)
+        for w in ast.walk(tree)
+        if isinstance(w, ast.With) and any(map(_is_cuda_device_guard, w.items))
+        for stmt in w.body for n in ast.walk(stmt)
+    }
+    launches = [n for n in ast.walk(tree) if _is_build_lib(n)]
+    assert launches, f"{rel}: no kernel launch found"
+    bare = [n.lineno for n in launches if id(n) not in guarded]
+    assert not bare, f"{rel}: launches outside torch.cuda.device(...) at lines {bare}"
+
+
+def test_import_builds_nothing():
+    from sageattention_tpu_torch.ops import _build
+
+    import sageattention_tpu_torch  # noqa: F401
+
+    assert _build._LIBS == {}
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    from sageattention_tpu_torch.ops import _build
+
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("SAGEATTN_TORCH_BUILD", str(tmp_path / "build"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.lib("quant_k")
+    assert "quant_k" not in _build._LIBS
+
+
+def test_failed_launch_raises():
+    from sageattention_tpu_torch.ops import _build
+
+    _build.check(0, "ok")
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        _build.check(1, "a kernel")
