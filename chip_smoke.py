@@ -2,7 +2,8 @@
 """Smoke run of sageattention_tpu_torch on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py            # everything, one card
-    python3 chip_smoke.py --profile  # and device time by kernel of one step
+    python3 chip_smoke.py --profile  # and device time by kernel of one
+                                     # denoise step and one training step
 
 Phases, each of which raises (and so exits non-zero) when it fails:
 
@@ -10,16 +11,25 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    versions, and every kernel built from ``sageattention_tpu_torch/csrc``
    (one ``nvcc`` per source, all at once) into ``build/``;
 2. each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it, and the op against exact fp32 attention;
+   shapes the main paths give it, and the op's output and gradients
+   against exact fp32 attention;
 3. the server: the CogVideoX-2B VideoDiT at full width (seq 17,776,
    hidden 1920, 30 heads x 64) in bf16 with seeded random weights,
    answering 2 requests x 2 denoise steps; the launch counts of every
-   kernel are zeroed just before and read just after, and must equal
-   layers x steps; one step's eps is checked against exact attention at
-   depth 2;
-4. each kernel's time at the model shape (CUDA events, median of 10+
+   kernel are zeroed just before and read just after, and those of the
+   forward kernels must equal layers x steps; one step's eps is checked
+   against exact attention at depth 2;
+4. the trainer: the same model at full width and depth 8 (fp32
+   parameters, bf16 compute, AdamW), one warm-up step and 4 timed steps
+   on one fixed batch and (t, eps); the counts are zeroed just before the
+   timed steps and every kernel, forward and backward, must launch layers
+   x steps times; the loss must be finite and fall; the parameter
+   gradients with sage attention are checked against exact attention's
+   at depth 2 and a sequence of 4,276;
+5. each kernel's time at the model shape (CUDA events, median of several
    after warm-up) beside its bound, its plain version's time and, where
-   one PyTorch call computes the same function, that call's time.
+   one PyTorch call computes the same function, that call's time; and one
+   layer's attention forward + backward against SDPA's.
 
 It prints one ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside the
@@ -31,6 +41,10 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -44,6 +58,12 @@ PEAK_BF16_FLOP_S = 989e12
 
 COG = dict(b=1, h=30, s=17776, d=64)  # one CogVideoX-2B attention layer
 COG_DEPTH = 30  # the server runs all of CogVideoX-2B's layers
+# the trainer's depth: saved activations (about 3 GB a layer at 17,776
+# tokens) and 16 bytes a parameter of fp32 weights, gradients and AdamW
+# state would not fit 80 GB at all 30 layers
+TRAIN_DEPTH = 8
+TRAIN_STEPS = 4
+LOG2E = 1.4426950408889634
 
 
 def log(msg: str) -> None:
@@ -79,6 +99,34 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def resource_usage() -> None:
+    """Registers a thread and spill (stack) bytes of every built kernel, as
+    ``cuobjdump -res-usage`` reads them from the libraries."""
+    from sageattention_tpu_torch.ops import _build
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        log("resource usage: cuobjdump not found")
+        return
+    for lib in _build.SIGNATURES:
+        out = subprocess.run([tool, "-res-usage", str(_build._target(lib))],
+                             capture_output=True, text=True, timeout=120)
+        fn = None
+        for line in out.stdout.splitlines():
+            m = re.search(r"Function (\S+):", line)
+            if m:
+                fn = m.group(1)
+                continue
+            m = re.search(r"REG:(\d+) STACK:(\d+)", line)
+            k = re.search(r"\d((?:sage_attn|quant|channel)[a-z_]*_kernel)I", fn or "")
+            if m and k:
+                targs = [a or b for a, b in re.findall(r"Li(\d+)E|Lb(\d)E", fn)]
+                dtype = " bf16" if "nv_bfloat16E" in fn else ""
+                log(f"resources {k.group(1)}<{','.join(targs)}>{dtype}: {m.group(1)} "
+                    f"registers, {m.group(2)} bytes of stack")
 
 
 # --------------------------------------------------------------------------
@@ -199,41 +247,167 @@ def check_attention(gen, results):
     require(lerr < 5e-2, "sageattn LSE vs exact attention")
 
 
+def check_quant_q(gen, results):
+    import torch
+    from sageattention_tpu_torch.ops import quant_cuda
+
+    # the backward's shapes: CogVideoX-2B's layer, and the causal GQA case
+    for (b, h, s, d), dtype in (((1, 30, 17776, 64), torch.bfloat16),
+                                ((1, 32, 2048, 128), torch.bfloat16),
+                                ((1, 4, 1000, 64), torch.float32)):
+        q = torch.randn(b, h, s, d, generator=gen, device="cuda").to(dtype) * 3
+        fold = d**-0.5 * LOG2E
+        qi, qs = quant_cuda.quant_q_per_token(q, scale_fold=fold)
+        qi_p, qs_p = quant_cuda.quant_q_per_token_plain(q, scale_fold=fold)
+        torch.cuda.synchronize()
+        exact = torch.equal(qi, qi_p) and torch.equal(qs, qs_p)
+        log(f"quant_q_per_token {(b, h, s, d)} {dtype}: bit-exact {exact}")
+        require(exact, "quant_q_per_token is not bit-exact with the spec")
+        if (b, h, s, d) == (1, 30, 17776, 64):
+            results["quant_q_per_token"]["max_abs_err"] = float(
+                (qi.int() - qi_p.int()).abs().max().item())
+
+
+def backward_case(gen, b, hq, hkv, sq, sk, d, causal):
+    """Random bf16 q, k, v, dO; the forward's residuals and the backward
+    kernels' operands, built as the op builds them."""
+    import torch
+    from sageattention_tpu_torch import core
+    from sageattention_tpu_torch.ops import autodiff
+
+    q = torch.randn(b, hq, sq, d, generator=gen, device="cuda").to(torch.bfloat16)
+    k = (torch.randn(b, hkv, sk, d, generator=gen, device="cuda") + 0.5).to(torch.bfloat16)
+    v = torch.randn(b, hkv, sk, d, generator=gen, device="cuda").to(torch.bfloat16)
+    do = torch.randn(b, hq, sq, d, generator=gen, device="cuda").to(torch.bfloat16)
+    f = core._forward(q, k, v, is_causal=causal, sm_scale=None, smooth_k=True,
+                      return_lse=True)
+    ops = autodiff.backward_operands(q, k, v, do, o=f.o, k_i8=f.k_i8, km=f.km, dlse=None,
+                                     sm_scale=f.sm_scale)
+    ops.update(k_i8=f.k_i8, k_scale=f.k_scale, lse2=f.lse2)
+    return ops, f.sm_scale
+
+
+def dq_args(ops):
+    return [ops[n] for n in ("q_i8", "q_scale", "k_i8", "k_scale", "k_sm", "v", "do",
+                             "lse2", "dvec")]
+
+
+def dkv_args(ops):
+    return [ops[n] for n in ("q_i8", "q_scale", "q_bf", "k_i8", "k_scale", "v", "do",
+                             "lse2", "dvec")]
+
+
+def check_backward(gen, results):
+    import torch
+    from sageattention_tpu_torch import core
+    from sageattention_tpu_torch.ops import attention_bwd_cuda as bwd
+    from sageattention_tpu_torch.ops import reference
+    from sageattention_tpu_torch.utils.compare import cosine_similarity
+
+    cases = [
+        # as check_attention; at the model shape a few heads, whose plain
+        # [s,s] scores are computed one head at a time
+        ("cogvideox layer", 1, 30, 30, 17776, 17776, 64, False, (0, 15, 29)),
+        ("causal gqa", 1, 32, 8, 2048, 2048, 128, True, None),
+        ("ragged causal", 1, 4, 4, 1000, 1000, 64, True, None),
+        ("rectangular", 2, 4, 2, 300, 1111, 64, False, None),
+    ]
+    for name, b, hq, hkv, sq, sk, d, causal, heads in cases:
+        ops, sm = backward_case(gen, b, hq, hkv, sq, sk, d, causal)
+        kw = dict(is_causal=causal, sm_scale=sm)
+        dq = bwd.sage_attention_bwd_dq(*dq_args(ops), **kw)
+        dk, dv = bwd.sage_attention_bwd_dkv(*dkv_args(ops), **kw)
+        torch.cuda.synchronize()
+        if heads is not None:  # q head h with kv head h (no GQA here)
+            hs = list(heads)
+            ops = {n: x[:, hs].contiguous() for n, x in ops.items()}
+            dq, dk, dv = (x[:, hs] for x in (dq, dk, dv))
+        dq_p = bwd.sage_attention_bwd_dq_plain(*dq_args(ops), **kw)
+        dk_p, dv_p = bwd.sage_attention_bwd_dkv_plain(*dkv_args(ops), **kw)
+        errs = []
+        for gname, g, gp in (("dq", dq, dq_p), ("dk", dk, dk_p), ("dv", dv, dv_p)):
+            cos = cosine_similarity(g.cpu(), gp.cpu())
+            rel = ((g - gp).abs().max() / gp.abs().max()).item()
+            finite = bool(torch.isfinite(g).all())
+            errs.append((gname, cos, rel, (g - gp).abs().max().item()))
+            log(f"backward {name} {(b, hq, hkv, sq, sk, d)} causal={causal} {gname}: cos "
+                f"{cos:.7f}, max abs / max|g| {rel:.3e}, finite {finite} (heads "
+                f"{heads if heads is not None else 'all'})")
+            require(finite and cos >= 0.9999 and rel <= 1e-2,
+                    f"backward {name}: {gname} kernel disagrees with its plain version")
+        if name == "cogvideox layer":
+            results["sage_attn_bwd_dq"]["max_abs_err"] = errs[0][3]
+            results["sage_attn_bwd_dkv"]["max_abs_err"] = max(errs[1][3], errs[2][3])
+        del ops, dq, dk, dv, dq_p, dk_p, dv_p
+        torch.cuda.empty_cache()
+
+    # the op's gradients (through the LSE too) against exact fp32 attention's
+    b, hq, hkv, s, d = 1, 32, 8, 2048, 128
+    q = torch.randn(b, s, hq, d, generator=gen, device="cuda").to(torch.bfloat16)
+    k = torch.randn(b, s, hkv, d, generator=gen, device="cuda").to(torch.bfloat16)
+    v = torch.randn(b, s, hkv, d, generator=gen, device="cuda").to(torch.bfloat16)
+    do = torch.randn(b, s, hq, d, generator=gen, device="cuda")
+    w = torch.randn(b, hq, s, generator=gen, device="cuda")
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+    o, lse = core.sageattn(*xs, tensor_layout="NHD", is_causal=True, return_lse=True)
+    g_s = torch.autograd.grad((o.float() * do).sum() + (lse * w).sum(), xs)
+    xr = [x.float().transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
+    o_r, lse_r = reference.attention_reference(*xr, is_causal=True, return_lse=True)
+    g_r = torch.autograd.grad((o_r * do.transpose(1, 2)).sum() + (lse_r * w).sum(), xr)
+    coss = [cosine_similarity(a.transpose(1, 2).float().cpu(), r.cpu())
+            for a, r in zip(g_s, g_r)]
+    log(f"sageattn grads vs exact fp32 (NHD, GQA 32/8, causal, 2048, d128, through o and "
+        f"lse): cos dq {coss[0]:.6f} dk {coss[1]:.6f} dv {coss[2]:.6f}")
+    require(min(coss) >= 0.999, "sageattn gradients vs exact attention: cosine < 0.999")
+
+
 # --------------------------------------------------------------------------
 # phase 3: the CogVideoX-2B denoise server
 # --------------------------------------------------------------------------
 
-COUNTED = ("k_channel_mean", "quant_k_chunked", "sage_attn_fwd")
+FORWARD = ("k_channel_mean", "quant_k_chunked", "sage_attn_fwd")
+BACKWARD = ("quant_q_per_token", "sage_attn_bwd_dq", "sage_attn_bwd_dkv")
 
 
 def counters():
-    from sageattention_tpu_torch.ops import attention_cuda, quant_cuda
+    from sageattention_tpu_torch.ops import attention_bwd_cuda, attention_cuda, quant_cuda
 
     return {"k_channel_mean": quant_cuda.k_channel_mean,
             "quant_k_chunked": quant_cuda.quant_k_chunked,
-            "sage_attn_fwd": attention_cuda.sage_attention_fwd}
+            "sage_attn_fwd": attention_cuda.sage_attention_fwd,
+            "quant_q_per_token": quant_cuda.quant_q_per_token,
+            "sage_attn_bwd_dq": attention_bwd_cuda.sage_attention_bwd_dq,
+            "sage_attn_bwd_dkv": attention_bwd_cuda.sage_attention_bwd_dkv}
 
 
-def profile_step(model, request) -> dict:
-    """Device time by kernel over one denoise step (``torch.profiler``),
-    and the device's idle share of the step's wall time."""
+def zero_counts():
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in counters().items()}
+
+
+def profile_device(fn, out_name: str, what: str) -> dict:
+    """Device time by kernel over one call of ``fn`` (``torch.profiler``),
+    and the device's idle share of its wall time, into chiprun_out/."""
     import pathlib
 
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from sageattention_tpu_torch import serve
 
-    t = torch.tensor([500], device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        serve.denoise_step(model, *request, t)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side events only (kernels, copies, sets), by name
+    # device-side events only (kernels, copies, sets), by name; user
+    # annotations (such as the optimizer's step) span kernels counted already
     spans, by_name = [], {}
     for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.is_user_annotation:
             continue
         spans.append((e.time_range.start, e.time_range.end))
         ms, n = by_name.get(e.name, (0.0, 0))
@@ -247,26 +421,29 @@ def profile_step(model, request) -> dict:
         elif b > end:
             busy += (b - end) / 1e3
             end = b
-    groups = {"sage_attn_fwd": 0.0, "quant_k": 0.0, "gemm": 0.0, "other": 0.0}
+    groups = {"sage_attn_fwd": 0.0, "sage_attn_bwd": 0.0, "quant": 0.0, "gemm": 0.0,
+              "other": 0.0}
     for name, ms, _ in rows:
         low = name.lower()
         if "sage_attn_fwd" in low:
             groups["sage_attn_fwd"] += ms
-        elif "quant_k" in low or "channel_mean" in low:
-            groups["quant_k"] += ms
+        elif "sage_attn_bwd" in low:
+            groups["sage_attn_bwd"] += ms
+        elif "quant_k" in low or "channel_mean" in low or "quant_q" in low:
+            groups["quant"] += ms
         elif any(w in low for w in ("gemm", "cutlass", "nvjet", "sm90_xmma")):
             groups["gemm"] += ms
         else:
             groups["other"] += ms
     out = {"wall_ms": wall_ms, "device_busy_ms": busy,
            "idle_share": max(0.0, 1 - busy / wall_ms), "groups_ms": groups,
-           "top": [{"kernel": n[:120], "ms": ms, "count": c} for n, ms, c in rows[:15]]}
+           "top": [{"kernel": n[:120], "ms": ms, "count": c} for n, ms, c in rows[:20]]}
     path = pathlib.Path("chiprun_out")
     path.mkdir(exist_ok=True)
-    (path / "profile_step.json").write_text(json.dumps(out, indent=1))
-    log(f"profile of one step: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms, "
+    (path / out_name).write_text(json.dumps(out, indent=1))
+    log(f"profile of {what}: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms, "
         f"idle share {out['idle_share']:.4f}, by group {json.dumps(groups)}")
-    for r in out["top"][:8]:
+    for r in out["top"][:10]:
         log(f"  {r['ms']:9.3f} ms x{r['count']:4d}  {r['kernel']}")
     return out
 
@@ -290,10 +467,9 @@ def run_server(results, profile: bool) -> dict:
     log(f"server set-up + warm-up step: {time.perf_counter() - t0:.1f} s")
 
     steps = 2
-    for fn in counters().values():
-        fn.launches = 0
+    zero_counts()
     out = serve.serve(model, requests, steps)
-    launches = {name: fn.launches for name, fn in counters().items()}
+    launches = read_counts()
     n_steps = len(requests) * steps
     for lat in out["outputs"]:
         require(lat.shape == requests[0][0].shape and bool(torch.isfinite(lat).all()),
@@ -302,11 +478,15 @@ def run_server(results, profile: bool) -> dict:
     log(f"server: {len(requests)} requests x {steps} steps, ms per step "
         f"{[round(x, 3) for x in ms]}, median {statistics.median(ms):.3f}")
     log(f"server launches: {launches} (layers x steps = {depth * n_steps})")
-    for name in COUNTED:
-        require(launches[name] == depth * n_steps,
-                f"{name} launched {launches[name]} times, want {depth * n_steps}")
-        results[name]["launches"] = launches[name]
-    prof = profile_step(model, requests[0]) if profile else None
+    for name, n in launches.items():
+        want = depth * n_steps if name in FORWARD else 0
+        require(n == want, f"server: {name} launched {n} times, want {want}")
+        results[name]["launches_by_path"] = {"server": n}
+    prof = None
+    if profile:
+        t = torch.tensor([500], device="cuda")
+        prof = profile_device(lambda: serve.denoise_step(model, *requests[0], t),
+                              "profile_step.json", "one denoise step")
     del model
     torch.cuda.empty_cache()
 
@@ -330,7 +510,108 @@ def run_server(results, profile: bool) -> dict:
 
 
 # --------------------------------------------------------------------------
-# phase 4: times at the model shape
+# phase 4: the CogVideoX-2B trainer
+# --------------------------------------------------------------------------
+
+
+def grads_vs_exact(cfg) -> dict:
+    """Parameter gradients of one flow-matching loss with sage attention
+    against exact attention, same weights, batch and (t, eps)."""
+    import torch
+    from sageattention_tpu_torch import models, serve, train
+    from sageattention_tpu_torch.utils.compare import cosine_similarity
+
+    tr = train.load_trainer(cfg, device="cuda", seed=2)
+    x0, txt = serve.make_requests(cfg, 1, device="cuda", seed=3)[0]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    t, eps = train.draw_t_eps(x0, gen)
+    grads = {}
+    for backend in ("sage", "reference"):
+        models.set_attention_backend(backend)
+        tr.model.zero_grad(set_to_none=True)
+        train.flow_loss(tr.model, x0, txt, t, eps).backward()
+        grads[backend] = {n: p.grad.float().cpu() for n, p in tr.model.named_parameters()}
+    models.set_attention_backend("sage")
+    coss, worst = {}, 0.0
+    for name, g in grads["sage"].items():
+        ref = grads["reference"][name]
+        if name.endswith("k_norm.bias"):
+            # exactly 0 in exact arithmetic (a bias on every key shifts each
+            # row of logits by a constant): round-off on both sides, held to
+            # be negligible beside the scale's gradient
+            scale = grads["reference"][name.replace("bias", "weight")].norm().item()
+            worst = max(worst, max(g.norm().item(), ref.norm().item()) / scale)
+            continue
+        coss[name] = cosine_similarity(g, ref)
+    name_min = min(coss, key=coss.get)
+    del tr
+    torch.cuda.empty_cache()
+    return {"seq": cfg.seq_len, "depth": cfg.depth, "params": len(grads["sage"]),
+            "min_cosine": coss[name_min], "min_cosine_param": name_min,
+            "k_norm_bias_over_weight": worst}
+
+
+def run_train(results, profile: bool) -> dict:
+    import torch
+    from sageattention_tpu_torch import models, serve, train
+
+    depth, steps = TRAIN_DEPTH, TRAIN_STEPS
+    cfg = models.MODEL_CONFIGS["cogvideox-2b"].scaled(depth=depth)
+    log(f"trainer: {cfg.name} seq {cfg.seq_len} hidden {cfg.hidden} heads "
+        f"{cfg.heads}x{cfg.head_dim} depth {depth}, fp32 parameters, bf16 compute, AdamW")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = train.load_trainer(cfg, device="cuda", seed=0)
+    n_params = sum(p.numel() for p in tr.model.parameters())
+    x0, txt = serve.make_requests(cfg, 1, device="cuda", seed=5)[0]
+    models.set_attention_backend("sage")
+    # warm-up step (allocator, cuBLAS), not counted; the same (t, eps) as
+    # the timed steps (one generator seed, fixed_noise)
+    warm = train.train(tr, x0, txt, 1, seed=6, fixed_noise=True)
+    log(f"trainer set-up + warm-up step: {time.perf_counter() - t0:.1f} s, "
+        f"{n_params / 1e9:.3f} B parameters, warm-up loss {warm['losses'][0]:.6f}")
+    zero_counts()
+    out = train.train(tr, x0, txt, steps, seed=6, fixed_noise=True)
+    launches = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses, ms = warm["losses"] + out["losses"], out["step_ms"]
+    log(f"trainer: losses {[round(x, 6) for x in losses]}; ms per step "
+        f"{[round(x, 3) for x in ms]}, median {statistics.median(ms):.3f}; peak memory "
+        f"{peak_gb:.2f} GB")
+    log(f"trainer launches: {launches} (layers x steps = {depth * steps})")
+    for name, n in launches.items():
+        require(n == depth * steps, f"trainer: {name} launched {n} times, want {depth * steps}")
+        results[name]["launches_by_path"]["train"] = n
+    require(all(map(math.isfinite, losses)), "trainer: a loss is not finite")
+    require(losses[-1] < losses[0], "trainer: the loss did not fall")
+    prof = None
+    if profile:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(6)
+        t, eps = train.draw_t_eps(x0, gen)
+        prof = profile_device(lambda: train.train_step(tr, x0, txt, t, eps),
+                              "profile_train_step.json", "one training step")
+    del tr
+    torch.cuda.empty_cache()
+
+    # gradients: sage against exact attention, depth 2, full width, 3
+    # latent frames (seq 4,276), where the exact attention's saved [s,s]
+    # scores of 30 heads fit
+    g = grads_vs_exact(cfg.scaled(depth=2, latent_frames=3))
+    log(f"trainer grads, sage vs exact attention (depth {g['depth']}, seq {g['seq']}, full "
+        f"width, {g['params']} parameters): min cosine {g['min_cosine']:.6f} "
+        f"({g['min_cosine_param']}); k_norm.bias |g| / |g(k_norm.weight)| "
+        f"{g['k_norm_bias_over_weight']:.2e}")
+    require(g["min_cosine"] >= 0.999, "trainer gradients disagree with exact attention")
+    require(g["k_norm_bias_over_weight"] <= 1e-2, "k_norm.bias gradient is not negligible")
+    return {"depth": depth, "seq": cfg.seq_len, "params": n_params, "losses": losses,
+            "step_ms": ms, "median_step_ms": statistics.median(ms), "peak_memory_gb": peak_gb,
+            "grads_vs_exact": g, "profile": prof}
+
+
+# --------------------------------------------------------------------------
+# phase 5: times at the model shape
 # --------------------------------------------------------------------------
 
 
@@ -381,16 +662,85 @@ def time_kernels(gen, results):
                + q.numel() * 2) / PEAK_BYTES_S * 1e3
     r["bound_ms"] = max(t_ops, t_bytes)
     r["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+
+
+def time_backward(gen, results) -> dict:
+    """Kernels 4, 7 and 8 at the model shape, and one layer's attention
+    forward + backward against SDPA's."""
+    import torch
+    import torch.nn.functional as F
+    from sageattention_tpu_torch import core
+    from sageattention_tpu_torch.ops import attention_bwd_cuda as bwd
+    from sageattention_tpu_torch.ops import quant_cuda
+
+    b, h, s, d = COG["b"], COG["h"], COG["s"], COG["d"]
+    ops, sm = backward_case(gen, b, h, h, s, s, d, False)
+    kw = dict(is_causal=False, sm_scale=sm)
+    q = ops["q_bf"]
+    fold = sm * LOG2E
+
+    r = results["quant_q_per_token"]
+    r["ms"] = cuda_ms(lambda: quant_cuda.quant_q_per_token(q, scale_fold=fold))
+    r["plain_ms"] = cuda_ms(lambda: quant_cuda.quant_q_per_token_plain(q, scale_fold=fold))
+    r["library_ms"] = None
+    r["bound_ms"] = (q.numel() * 3 + b * h * s * 4) / PEAK_BYTES_S * 1e3
+    r["bound_by"] = "bytes"
+
+    # SDPA's bf16 backward at the same shape: (fwd + bwd) - fwd, autograd
+    v, do = ops["v"], ops["do"]
+    k = torch.randn(b, h, s, d, generator=gen, device="cuda").to(torch.bfloat16)
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(*xs)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa_fwd(), xs, do)
+
+    def sage_fwd_bwd():
+        torch.autograd.grad(core.sageattn(*xs), xs, do)
+
+    sdpa_f = cuda_ms(sdpa_fwd, reps=10)
+    sdpa_fb = cuda_ms(sdpa_fwd_bwd, reps=10)
+    sage_fb = cuda_ms(sage_fwd_bwd, reps=5)
+    sdpa_bwd = sdpa_fb - sdpa_f
+
+    pairs = b * h * s * s
+    t_int8 = 2 * pairs * d / PEAK_INT8_OPS_S * 1e3
+    row_bytes = b * h * s * 4  # one fp32 per row (scales, lse2, dvec)
+    common_bytes = (ops["q_i8"].numel() + ops["k_i8"].numel() + ops["k_scale"].numel() * 4
+                    + 3 * row_bytes + ops["v"].numel() * 2 + ops["do"].numel() * 2)
+    for name, n_bf16, extra_in, out_elems in (
+            ("sage_attn_bwd_dq", 4, ops["k_sm"].numel() * 2, b * h * s * d),
+            ("sage_attn_bwd_dkv", 6, q.numel() * 2, 2 * b * h * s * d)):
+        fn = bwd.sage_attention_bwd_dq if name.endswith("dq") else bwd.sage_attention_bwd_dkv
+        plain = (bwd.sage_attention_bwd_dq_plain if name.endswith("dq")
+                 else bwd.sage_attention_bwd_dkv_plain)
+        args = dq_args(ops) if name.endswith("dq") else dkv_args(ops)
+        r = results[name]
+        r["ms"] = cuda_ms(lambda: fn(*args, **kw), reps=10)
+        r["plain_ms"] = cuda_ms(lambda: plain(*args, **kw), reps=3, warmup=1)
+        r["library_ms"] = sdpa_bwd  # the yardstick of kernels 7 + 8 together
+        t_ops = t_int8 + n_bf16 * pairs * d / PEAK_BF16_FLOP_S * 1e3
+        t_bytes = (common_bytes + extra_in + out_elems * 4) / PEAK_BYTES_S * 1e3
+        r["bound_ms"] = max(t_ops, t_bytes)
+        r["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    layer = {"shape": list(COG.values()), "sage_fwd_bwd_ms": sage_fb,
+             "sdpa_fwd_bwd_ms": sdpa_fb, "sdpa_fwd_ms": sdpa_f, "sdpa_bwd_ms": sdpa_bwd}
+    log(f"one layer's attention at {tuple(COG.values())}: sage fwd+bwd {sage_fb:.3f} ms, "
+        f"SDPA fwd+bwd {sdpa_fb:.3f} ms (fwd {sdpa_f:.3f}, bwd {sdpa_bwd:.3f})")
     for name, r in results.items():
         log(f"time {name} at {tuple(COG.values())}: {r['ms']:.4f} ms (bound "
             f"{r['bound_ms']:.4f} ms, {r['bound_by']}), plain {r['plain_ms']:.4f} ms, "
             f"library {r['library_ms']} ms")
+    return layer
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one denoise step into chiprun_out/")
+                    help="also profile one denoise step and one training step into "
+                         "chiprun_out/")
     args = ap.parse_args()
 
     import torch
@@ -411,6 +761,7 @@ def main() -> int:
         list(pool.map(_build.lib, _build.SIGNATURES))
     log(f"build: {list(_build.SIGNATURES)} in {time.perf_counter() - t0:.1f} s wall, "
         f"into {_build.build_dir()}")
+    resource_usage()
 
     src = "sageattention_tpu_torch/csrc/"
     results = {
@@ -420,19 +771,42 @@ def main() -> int:
                             "replaces": "sageattention_tpu/ops/quant_pallas.py:143"},
         "sage_attn_fwd": {"route": "cuda", "source": src + "attention_fwd.cu",
                           "replaces": "sageattention_tpu/ops/attention_pallas.py:1412"},
+        "quant_q_per_token": {"route": "cuda", "source": src + "quant_q.cu",
+                              "replaces": "sageattention_tpu/ops/quant_pallas.py:76"},
+        "sage_attn_bwd_dq": {"route": "cuda", "source": src + "attention_bwd.cu",
+                             "replaces": "sageattention_tpu/ops/attention_bwd_pallas.py:82"},
+        "sage_attn_bwd_dkv": {"route": "cuda", "source": src + "attention_bwd.cu",
+                              "replaces": "sageattention_tpu/ops/attention_bwd_pallas.py:238"},
     }
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
+    t_phase = time.perf_counter()
     check_quant(gen, results)
     check_attention(gen, results)
+    check_quant_q(gen, results)
+    check_backward(gen, results)
+    log(f"kernel checks: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
     server = run_server(results, args.profile)
+    log(f"server phase: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    trainer = run_train(results, args.profile)
+    log(f"trainer phase: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
     time_kernels(gen, results)
+    layer = time_backward(gen, results)
+    log(f"timing phase: {time.perf_counter() - t_phase:.1f} s")
 
     kernels = []
     for name, r in results.items():
-        r.setdefault("launches", 0)
+        # each kernel's launches on the path that runs it: the server's for
+        # the forward kernels, the trainer's for the backward ones (the
+        # trainer runs the forward kernels too: launches_by_path)
+        r["launches"] = r["launches_by_path"]["train" if name in BACKWARD else "server"]
         kernels.append({"name": name, **r, "max_err": r["max_abs_err"]})
     log(json.dumps({"server": server}))
+    log(json.dumps({"train": trainer}))
+    log(json.dumps({"layer": layer}))
     log(json.dumps({"kernels": kernels}))
     log(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

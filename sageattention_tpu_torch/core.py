@@ -1,11 +1,16 @@
 """Public API: ``sageattn`` and ``sageattn_qk_int8_pv_bf16``.
 
-The default forward of the JAX package's ``sageattn`` (int8 Q.K^T with
-per-row Q scales and per-group K scales, K mean-smoothing, bf16 P.V),
-on ``torch.Tensor``s.  It runs where its inputs live: CUDA tensors go
-through the hand-written kernels (``ops/quant_cuda.py``,
-``ops/attention_cuda.py``), CPU tensors through their plain versions,
-which compute the same numbers.
+The default ``sageattn`` of the JAX package (int8 Q.K^T with per-row Q
+scales and per-group K scales, K mean-smoothing, bf16 P.V), on
+``torch.Tensor``s, forward and backward.  It runs where its inputs live:
+CUDA tensors go through the hand-written kernels (``ops/quant_cuda.py``,
+``ops/attention_cuda.py``, ``ops/attention_bwd_cuda.py``), CPU tensors
+through their plain versions, which compute the same numbers.
+
+Differentiable: when grad is enabled and an input requires it, the call
+goes through ``ops.autodiff.SageAttnFunction``, whose backward is the
+straight-through gradient of the quantized forward (the JAX package's
+fused backward), for q, k and v, and through the LSE with ``return_lse``.
 
 Layouts HND ([b, h, s, d]) and NHD ([b, s, h, d]); GQA (hq a multiple of
 hkv); top-left causal masking; any sq / sk; ``return_lse`` gives the
@@ -17,10 +22,12 @@ naming the ROADMAP item that ports it.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
-from sageattention_tpu_torch.ops import attention_cuda, quant_cuda
+from sageattention_tpu_torch.ops import attention_cuda, autodiff, quant_cuda
 
 LOG2E = 1.4426950408889634
 K_GROUP = attention_cuda.K_GROUP
@@ -56,8 +63,24 @@ def _pad_d(x: torch.Tensor, d_pad: int) -> torch.Tensor:
     return F.pad(x, (0, d_pad - x.shape[-1])).contiguous()
 
 
-def _sageattn_hnd(q, k, v, *, is_causal: bool, sm_scale: float | None,
-                  smooth_k: bool, return_lse: bool):
+def _work_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The kernels read bf16 or fp32; fp16 widens to fp32 exactly."""
+    return dtype if dtype in (torch.bfloat16, torch.float32) else torch.float32
+
+
+class Forward(NamedTuple):
+    """The forward's output and what its backward reuses."""
+
+    o: torch.Tensor               # [b,hq,sq,d] in q's dtype
+    lse2: torch.Tensor | None     # base-2 LSE [b,hq,sq] fp32, as the kernel gives it
+    k_i8: torch.Tensor            # int8 K codes [b,hkv,sk,d_pad]
+    k_scale: torch.Tensor         # fp32 [b,hkv,ceil(sk/K_GROUP)]
+    km: torch.Tensor | None       # fp32 [b,hkv,d_pad] smooth-k mean, or None
+    sm_scale: float
+
+
+def _forward(q, k, v, *, is_causal: bool, sm_scale: float | None,
+             smooth_k: bool, return_lse: bool) -> Forward:
     """Quantize K, then one fused attention call, on HND tensors."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(
@@ -75,9 +98,7 @@ def _sageattn_hnd(q, k, v, *, is_causal: bool, sm_scale: float | None,
             f"head_dim {d_og} > 128 is not ported (ROADMAP: kernel row 1, "
             f"head dims above 128)"
         )
-    out_dtype = q.dtype
-    # the kernels read bf16 or fp32; fp16 widens to fp32 exactly
-    work = q.dtype if q.dtype in (torch.bfloat16, torch.float32) else torch.float32
+    work = _work_dtype(q.dtype)
     d_pad = _pad_head_dim(d_og)
     qp = _pad_d(q.to(work), d_pad)
     kp = _pad_d(k.to(work), d_pad)
@@ -89,15 +110,28 @@ def _sageattn_hnd(q, k, v, *, is_causal: bool, sm_scale: float | None,
         q_fold=sm_scale * LOG2E, return_lse=return_lse,
     )
     o, lse2 = out if return_lse else (out, None)
-    o = o[..., :d_og].to(out_dtype)
-    if not return_lse:
-        return o
+    return Forward(o[..., :d_og].to(q.dtype), lse2, k_i8, k_scale, km, sm_scale)
+
+
+def _lse_nat(lse2, q, km, sm_scale: float):
+    """The public natural-log LSE from the kernel's base-2 one."""
     lse = lse2 / LOG2E
-    if smooth_k:
+    if km is not None:
         # smoothing shifted every logit of row i by q_i . km
-        km_q = km[..., :d_og].repeat_interleave(hq // hkv, dim=1)
+        hq, d_og = q.shape[1], q.shape[-1]
+        km_q = km[..., :d_og].repeat_interleave(hq // km.shape[1], dim=1)
         lse = lse + torch.einsum("bhqd,bhd->bhq", q.float(), km_q) * sm_scale
-    return o, lse
+    return lse
+
+
+def _sageattn_hnd(q, k, v, *, is_causal: bool, sm_scale: float | None,
+                  smooth_k: bool, return_lse: bool):
+    """The forward alone on HND tensors: o, or (o, lse)."""
+    f = _forward(q, k, v, is_causal=is_causal, sm_scale=sm_scale,
+                 smooth_k=smooth_k, return_lse=return_lse)
+    if not return_lse:
+        return f.o
+    return f.o, _lse_nat(f.lse2, q, f.km, f.sm_scale)
 
 
 def _refuse(kwargs: dict, pv_dtype: str, qk_quant_gran: str, qk_bits: int) -> None:
@@ -147,16 +181,19 @@ def sageattn_qk_int8_pv_bf16(
     """int8 Q.K^T + bf16 P.V (fp32 accumulate).
 
     Returns o in q's layout and dtype and, with ``return_lse``, the
-    natural-log LSE [b, hq, sq] fp32.  Forward only: gradients are not
-    ported (ROADMAP: kernel rows 7-8) and inputs that require grad raise."""
+    natural-log LSE [b, hq, sq] fp32.  Differentiable in q, k and v (and
+    through the LSE): with grad enabled and an input that requires it, the
+    call runs through ``autodiff.SageAttnFunction``, whose backward is
+    the fused quantized backward (kernels ``quant_q_per_token``,
+    ``sage_attn_bwd_dq``, ``sage_attn_bwd_dkv`` on the card)."""
     _refuse(kwargs, pv_dtype, qk_quant_gran, qk_bits)
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        raise NotImplementedError(
-            "gradients are not ported (ROADMAP: kernel rows 7-8, backward)"
-        )
     qh, kh, vh = (_to_hnd(x, tensor_layout) for x in (q, k, v))
-    out = _sageattn_hnd(qh, kh, vh, is_causal=is_causal, sm_scale=sm_scale,
-                        smooth_k=smooth_k, return_lse=return_lse)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        out = autodiff.SageAttnFunction.apply(qh, kh, vh, is_causal, sm_scale,
+                                              smooth_k, return_lse)
+    else:
+        out = _sageattn_hnd(qh, kh, vh, is_causal=is_causal, sm_scale=sm_scale,
+                            smooth_k=smooth_k, return_lse=return_lse)
     if return_lse:
         return _to_hnd(out[0], tensor_layout), out[1]
     return _to_hnd(out, tensor_layout)
@@ -164,8 +201,8 @@ def sageattn_qk_int8_pv_bf16(
 
 def sageattn(q, k, v, tensor_layout: str = "HND", is_causal: bool = False,
              sm_scale: float | None = None, return_lse: bool = False, **kwargs):
-    """Drop-in attention: the default SageAttention forward (int8 Q.K^T,
-    smoothed K, bf16 P.V).  See :func:`sageattn_qk_int8_pv_bf16`."""
+    """Drop-in attention: the default SageAttention (int8 Q.K^T, smoothed
+    K, bf16 P.V), differentiable.  See :func:`sageattn_qk_int8_pv_bf16`."""
     return sageattn_qk_int8_pv_bf16(
         q, k, v, tensor_layout, is_causal, sm_scale, return_lse, **kwargs
     )

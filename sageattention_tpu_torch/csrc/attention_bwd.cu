@@ -1,0 +1,501 @@
+// SageAttention backward for Hopper (sm_90a): the straight-through gradient
+// of the quantized forward (attention_fwd.cu), in two kernels.
+//
+// Replaces the TPU kernels attention_bwd_pallas.py:sage_attention_bwd ->
+// _dq_kernel and _dkv_kernel.  Both recompute the base-2 logits from the
+// same int8 codes as the forward, l2 = s_i32 * (q_scale * k_scale) in the
+// forward's operand order, and P = exp2(l2 - lse2) from the forward's saved
+// LSE; there is no online softmax, so every (Q tile, KV tile) pair is
+// independent work.  With D = rowsum(dO * O) - dlse (computed outside):
+//
+//   dP = dO.V^T     dS = bf16(P * (dP - D))     dQ = dS.K_sm * sm_scale
+//   dV = bf16(P)^T.dO                           dK = dS^T.Q * sm_scale
+//
+// rounded to bf16 where the TPU kernels round (P before P^T.dO, dS before
+// both products; dO, V, K_sm = bf16(K - km) and Q in bf16), fp32 sums.
+//
+// sage_attn_bwd_dq: one CTA of 4 warps per (b, hq, 64-row Q tile), 16 rows a
+//   warp.  It loops over KV tiles of 128 columns (the K-scale group, one
+//   k_scale a tile) as the forward does; this loop replaces the TPU's
+//   sequential n_kv grid axis and its VMEM accumulator, and dQ accumulates
+//   in registers.  Each tile is computed in column chunks (64 at d=64, 32
+//   at d=128) to bound the live S/dP registers.  Causal: stops at the
+//   diagonal tile.
+// sage_attn_bwd_dkv: one CTA of 4 warps per (b, hkv, 64-row KV tile), 16 KV
+//   rows a warp.  It loops over every q head of its GQA group and every
+//   64-row Q tile (causal: from the diagonal), so dK and dV sum over the
+//   group in registers, with no atomics and no repeat of K/V: the port's
+//   form of the TPU's rep*n_q fourth grid axis.  It works on the transposed
+//   scores S^T = K.Q^T so that a KV row is an MMA row.  64 KV rows, not
+//   128: the fp32 dK and dV accumulators of 16 rows a warp take 2*D/2 = D
+//   registers a thread (128 at d=128), and 32 rows a warp would not fit
+//   beside the score chunk in 255 registers.  A 64-row KV tile lies inside
+//   one 128-row K-scale group, so it reads one k_scale.
+//
+// Ragged edges: K/V rows past sk and Q rows past sq are zero-filled in
+// shared memory, their P is set to 0 by a select (no inf - inf and no
+// inf * 0: the exp2 of a masked entry is never used), and no row past
+// sq (dQ) or sk (dK, dV) is stored.  No padding of the sequence in memory.
+//
+// Bound: operations.  Per score pair dQ does one int8 Q.K^T (2d ops) and
+// three bf16 products' worth of 4d FLOP (dO.V^T, dS.K), dKV 2d int8 and 6d
+// bf16 (dO.V^T, P^T.dO, dS^T.Q).  At the CogVideoX-2B layer shape (b=1,
+// h=30, s=17,776, d=64; 9.48e9 pairs) that is about 3.1 ms for dQ and 4.3 ms
+// for dKV on the H100 SXM's data-sheet peaks; the bytes take well under
+// 0.1 ms, and the two exp2 passes (2 x 9.48e9 MUFU operations) are a second
+// floor of a few ms.  Like the forward, this first version is written to
+// be right: mma.sync, synchronous tile loads, no pipeline.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "mma_sm90.cuh"
+
+namespace {
+
+constexpr int NWARPS = 4;
+constexpr int NTHREADS = NWARPS * 32;
+constexpr int KGROUP = 128;  // K-scale group
+constexpr int DQ_BM = 64;    // dq: Q rows per CTA
+constexpr int DQ_BN = 128;   // dq: KV columns per tile (== KGROUP)
+constexpr int KV_BM = 64;    // dkv: KV rows per CTA
+constexpr int KV_BQ = 64;    // dkv: Q rows per tile
+
+template <int D>
+struct Cfg {
+  static constexpr int QS = D + 16;  // int8 row stride (bytes)
+  static constexpr int HS = D + 8;   // bf16 row stride (elements)
+  static constexpr int CH = D == 128 ? 32 : 64;  // score columns a chunk
+};
+
+// the operands of both kernels (shapes at the extern "C" entry points)
+struct BwdArgs {
+  const int8_t* q_i8;
+  const float* q_scale;
+  const __nv_bfloat16* q_bf;
+  const int8_t* k_i8;
+  const float* k_scale;
+  const __nv_bfloat16* k_sm;
+  const __nv_bfloat16* v;
+  const __nv_bfloat16* dout;
+  const float* lse2;
+  const float* dvec;
+  float* dq;
+  float* dk;
+  float* dv;
+  int hq, hkv, sq, sk;
+  float sm_scale;
+};
+
+// rows [r0, r0 + n) of a [*, D] row-major tensor into shared memory with
+// row stride `stride_bytes`, 16 bytes a thread, zero past row `limit`
+template <int D, int ELEM>
+__device__ inline void load_rows(unsigned char* dst, const unsigned char* src, int r0,
+                                 int n, int limit, int stride_bytes) {
+  constexpr int VECS = D * ELEM / 16;  // 16-byte vectors a row
+  for (int i = threadIdx.x; i < n * VECS; i += NTHREADS) {
+    const int r = i / VECS, c = i % VECS;
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (r0 + r < limit)
+      val = *reinterpret_cast<const uint4*>(src + ((size_t)(r0 + r) * D) * ELEM + c * 16);
+    *reinterpret_cast<uint4*>(dst + r * stride_bytes + c * 16) = val;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dQ
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct DqLayout {
+  using C = Cfg<D>;
+  static constexpr int q_off = 0;                                // int8 [BM][QS]
+  static constexpr int do_off = q_off + DQ_BM * C::QS;           // bf16 [BM][HS]
+  static constexpr int k_off = do_off + DQ_BM * C::HS * 2;       // int8 [BN][QS]
+  static constexpr int ksm_off = k_off + DQ_BN * C::QS;          // bf16 [BN][HS]
+  static constexpr int v_off = ksm_off + DQ_BN * C::HS * 2;      // bf16 [BN][HS]
+  static constexpr int bytes = v_off + DQ_BN * C::HS * 2;
+};
+
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(NTHREADS)
+sage_attn_bwd_dq_kernel(const BwdArgs a) {
+  const int8_t* __restrict__ q_i8 = a.q_i8;
+  const float* __restrict__ q_scale = a.q_scale;
+  const int8_t* __restrict__ k_i8 = a.k_i8;
+  const float* __restrict__ k_scale = a.k_scale;
+  const __nv_bfloat16* __restrict__ k_sm = a.k_sm;
+  const __nv_bfloat16* __restrict__ v = a.v;
+  const __nv_bfloat16* __restrict__ dout = a.dout;
+  const float* __restrict__ lse2 = a.lse2;
+  const float* __restrict__ dvec = a.dvec;
+  float* __restrict__ dq = a.dq;
+  const int hq = a.hq, hkv = a.hkv, sq = a.sq, sk = a.sk;
+  const float sm_scale = a.sm_scale;
+  using C = Cfg<D>;
+  using L = DqLayout<D>;
+  constexpr int CH = C::CH, NT = CH / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* sQ = smem + L::q_off;
+  unsigned char* sDo = smem + L::do_off;
+  unsigned char* sK = smem + L::k_off;
+  unsigned char* sKsm = smem + L::ksm_off;
+  unsigned char* sV = smem + L::v_off;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int q0 = blockIdx.x * DQ_BM;
+  const int h = blockIdx.y, bi = blockIdx.z;
+  const int hk = h / (hq / hkv);
+  const size_t row_base = ((size_t)bi * hq + h) * sq;
+  const size_t kv_base = (((size_t)bi * hkv + hk) * sk) * D;
+  const int n_tiles_all = (sk + DQ_BN - 1) / DQ_BN;
+  const float* ks_row = k_scale + ((size_t)bi * hkv + hk) * n_tiles_all;
+
+  load_rows<D, 1>(sQ, (const unsigned char*)q_i8 + row_base * D, q0, DQ_BM, sq, C::QS);
+  load_rows<D, 2>(sDo, (const unsigned char*)(dout + row_base * D), q0, DQ_BM, sq, C::HS * 2);
+  __syncthreads();
+
+  // this thread's two rows; rows past sq get neutral values (P = 1 there,
+  // but dO = 0 makes their dS 0, and they are never stored)
+  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
+  const float qs0 = row0 < sq ? q_scale[row_base + row0] : 0.f;
+  const float qs1 = row1 < sq ? q_scale[row_base + row1] : 0.f;
+  const float ls0 = row0 < sq ? lse2[row_base + row0] : 0.f;
+  const float ls1 = row1 < sq ? lse2[row_base + row1] : 0.f;
+  const float dv0 = row0 < sq ? dvec[row_base + row0] : 0.f;
+  const float dv1 = row1 < sq ? dvec[row_base + row1] : 0.f;
+
+  // the warp's A fragments of Q (int8) and dO (bf16), kept for all tiles
+  uint32_t qa[D / 32][4], da[D / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 32; ++kk)
+    load_a(qa[kk], sQ + (warp * 16 + g) * C::QS + kk * 32 + t * 4, C::QS);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    load_a(da[kk], sDo + (warp * 16 + g) * C::HS * 2 + (kk * 16 + t * 2) * 2, C::HS * 2);
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+
+  int n_tiles = n_tiles_all;
+  if (CAUSAL) n_tiles = min(n_tiles, (q0 + DQ_BM - 1) / DQ_BN + 1);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int kv0 = j * DQ_BN;
+    __syncthreads();  // the previous tile is no longer read
+    load_rows<D, 1>(sK, (const unsigned char*)(k_i8 + kv_base), kv0, DQ_BN, sk, C::QS);
+    load_rows<D, 2>(sKsm, (const unsigned char*)(k_sm + kv_base), kv0, DQ_BN, sk, C::HS * 2);
+    load_rows<D, 2>(sV, (const unsigned char*)(v + kv_base), kv0, DQ_BN, sk, C::HS * 2);
+    __syncthreads();
+
+    const float ks = ks_row[j];
+    const float rs0 = qs0 * ks, rs1 = qs1 * ks;  // the forward's order
+    const bool need_mask = (kv0 + DQ_BN > sk) || (CAUSAL && kv0 + DQ_BN - 1 > q0);
+
+#pragma unroll
+    for (int c = 0; c < DQ_BN / CH; ++c) {
+      const int c0 = c * CH;  // first column of the chunk within the tile
+      // S = Q.K^T (int8 -> int32)
+      int s_i[NT][4];
+#pragma unroll
+      for (int n = 0; n < NT; ++n) s_i[n][0] = s_i[n][1] = s_i[n][2] = s_i[n][3] = 0;
+#pragma unroll
+      for (int kk = 0; kk < D / 32; ++kk) {
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const unsigned char* kb = sK + (c0 + n * 8 + g) * C::QS + kk * 32 + t * 4;
+          mma_s8(s_i[n], qa[kk], ld32(kb), ld32(kb + 16));
+        }
+      }
+      // dP = dO.V^T (bf16 -> fp32)
+      float dp[NT][4];
+#pragma unroll
+      for (int n = 0; n < NT; ++n) dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const unsigned char* vb = sV + (c0 + n * 8 + g) * C::HS * 2 + (kk * 16 + t * 2) * 2;
+          mma_bf16(dp[n], da[kk], ld32(vb), ld32(vb + 16));
+        }
+      }
+      // P = exp2(l2 - lse2), masked; dS = P * (dP - D), kept in dp
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool lo = e < 2;
+          float p = exp2f((float)s_i[n][e] * (lo ? rs0 : rs1) - (lo ? ls0 : ls1));
+          if (need_mask) {
+            const int col = kv0 + c0 + n * 8 + t * 2 + (e & 1);
+            if (col >= sk || (CAUSAL && col > (lo ? row0 : row1))) p = 0.f;
+          }
+          dp[n][e] = p * (dp[n][e] - (lo ? dv0 : dv1));
+        }
+      }
+      // dQ += bf16(dS) . K_sm
+#pragma unroll
+      for (int kk = 0; kk < CH / 16; ++kk) {
+        uint32_t a[4];
+        c_to_a(a, dp[2 * kk], dp[2 * kk + 1]);
+        mma_a_rows<D>(acc, a, reinterpret_cast<const __nv_bfloat16*>(sKsm), c0 + kk * 16,
+                      C::HS, lane);
+      }
+    }
+  }
+
+  // epilogue: dq = acc * sm_scale, rows < sq
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    const int col = i * 8 + t * 2;
+    if (row0 < sq)
+      *reinterpret_cast<float2*>(dq + (row_base + row0) * D + col) =
+          make_float2(acc[i][0] * sm_scale, acc[i][1] * sm_scale);
+    if (row1 < sq)
+      *reinterpret_cast<float2*>(dq + (row_base + row1) * D + col) =
+          make_float2(acc[i][2] * sm_scale, acc[i][3] * sm_scale);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dK, dV
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct DkvLayout {
+  using C = Cfg<D>;
+  static constexpr int k_off = 0;                               // int8 [KV_BM][QS]
+  static constexpr int v_off = k_off + KV_BM * C::QS;           // bf16 [KV_BM][HS]
+  static constexpr int q_off = v_off + KV_BM * C::HS * 2;       // int8 [KV_BQ][QS]
+  static constexpr int qb_off = q_off + KV_BQ * C::QS;          // bf16 [KV_BQ][HS]
+  static constexpr int do_off = qb_off + KV_BQ * C::HS * 2;     // bf16 [KV_BQ][HS]
+  static constexpr int qs_off = do_off + KV_BQ * C::HS * 2;     // fp32 [KV_BQ]
+  static constexpr int lse_off = qs_off + KV_BQ * 4;            // fp32 [KV_BQ]
+  static constexpr int dv_off = lse_off + KV_BQ * 4;            // fp32 [KV_BQ]
+  static constexpr int bytes = dv_off + KV_BQ * 4;
+};
+
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(NTHREADS)
+sage_attn_bwd_dkv_kernel(const BwdArgs a) {
+  const int8_t* __restrict__ q_i8 = a.q_i8;
+  const float* __restrict__ q_scale = a.q_scale;
+  const __nv_bfloat16* __restrict__ q_bf = a.q_bf;
+  const int8_t* __restrict__ k_i8 = a.k_i8;
+  const float* __restrict__ k_scale = a.k_scale;
+  const __nv_bfloat16* __restrict__ v = a.v;
+  const __nv_bfloat16* __restrict__ dout = a.dout;
+  const float* __restrict__ lse2 = a.lse2;
+  const float* __restrict__ dvec = a.dvec;
+  float* __restrict__ dk = a.dk;
+  float* __restrict__ dv = a.dv;
+  const int hq = a.hq, hkv = a.hkv, sq = a.sq, sk = a.sk;
+  const float sm_scale = a.sm_scale;
+  using C = Cfg<D>;
+  using L = DkvLayout<D>;
+  constexpr int CH = C::CH, NT = CH / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* sK = smem + L::k_off;
+  unsigned char* sV = smem + L::v_off;
+  unsigned char* sQ = smem + L::q_off;
+  unsigned char* sQb = smem + L::qb_off;
+  unsigned char* sDo = smem + L::do_off;
+  float* sQs = reinterpret_cast<float*>(smem + L::qs_off);
+  float* sLse = reinterpret_cast<float*>(smem + L::lse_off);
+  float* sDv = reinterpret_cast<float*>(smem + L::dv_off);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int kv0 = blockIdx.x * KV_BM;
+  const int hk = blockIdx.y, bi = blockIdx.z;
+  const int rep = hq / hkv;
+  const size_t kv_row_base = ((size_t)bi * hkv + hk) * sk;
+  const int n_groups = (sk + KGROUP - 1) / KGROUP;
+  const float ks = k_scale[((size_t)bi * hkv + hk) * n_groups + kv0 / KGROUP];
+
+  load_rows<D, 1>(sK, (const unsigned char*)(k_i8 + kv_row_base * D), kv0, KV_BM, sk, C::QS);
+  load_rows<D, 2>(sV, (const unsigned char*)(v + kv_row_base * D), kv0, KV_BM, sk, C::HS * 2);
+
+  const int kr0 = kv0 + warp * 16 + g, kr1 = kr0 + 8;  // this thread's KV rows
+  const unsigned char* ka_row = sK + (warp * 16 + g) * C::QS + t * 4;
+  const unsigned char* va_row = sV + (warp * 16 + g) * C::HS * 2 + t * 4;
+
+  float acc_k[D / 8][4], acc_v[D / 8][4];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[i][e] = acc_v[i][e] = 0.f;
+
+  const int n_qt = (sq + KV_BQ - 1) / KV_BQ;
+  const int qt0 = CAUSAL ? kv0 / KV_BQ : 0;  // causal: from the diagonal
+
+  for (int hh = 0; hh < rep; ++hh) {
+    const size_t row_base = ((size_t)bi * hq + hk * rep + hh) * sq;
+    for (int qt = qt0; qt < n_qt; ++qt) {
+      const int q0 = qt * KV_BQ;
+      __syncthreads();  // the previous Q tile is no longer read
+      load_rows<D, 1>(sQ, (const unsigned char*)q_i8 + row_base * D, q0, KV_BQ, sq, C::QS);
+      load_rows<D, 2>(sQb, (const unsigned char*)(q_bf + row_base * D), q0, KV_BQ, sq, C::HS * 2);
+      load_rows<D, 2>(sDo, (const unsigned char*)(dout + row_base * D), q0, KV_BQ, sq, C::HS * 2);
+      for (int i = tid; i < KV_BQ; i += NTHREADS) {
+        const bool live = q0 + i < sq;
+        sQs[i] = live ? q_scale[row_base + q0 + i] : 0.f;
+        sLse[i] = live ? lse2[row_base + q0 + i] : 0.f;
+        sDv[i] = live ? dvec[row_base + q0 + i] : 0.f;
+      }
+      __syncthreads();
+
+      const bool need_mask =
+          (q0 + KV_BQ > sq) || (kv0 + KV_BM > sk) || (CAUSAL && kv0 + KV_BM - 1 > q0);
+
+#pragma unroll
+      for (int c = 0; c < KV_BQ / CH; ++c) {
+        const int c0 = c * CH;  // first Q row of the chunk within the tile
+        // S^T = K.Q^T (int8 -> int32): rows are KV rows, columns Q rows
+        int s_i[NT][4];
+#pragma unroll
+        for (int n = 0; n < NT; ++n) s_i[n][0] = s_i[n][1] = s_i[n][2] = s_i[n][3] = 0;
+#pragma unroll
+        for (int kk = 0; kk < D / 32; ++kk) {
+          uint32_t a[4];
+          load_a(a, ka_row + kk * 32, C::QS);
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            const unsigned char* qb = sQ + (c0 + n * 8 + g) * C::QS + kk * 32 + t * 4;
+            mma_s8(s_i[n], a, ld32(qb), ld32(qb + 16));
+          }
+        }
+        // P^T = exp2(l2 - lse2), masked, in fp32
+        float p[NT][4];
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int ql = c0 + n * 8 + t * 2 + (e & 1);  // Q row within the tile
+            float pv = exp2f((float)s_i[n][e] * (sQs[ql] * ks) - sLse[ql]);
+            if (need_mask) {
+              const int qr = q0 + ql, kr = e < 2 ? kr0 : kr1;
+              if (qr >= sq || kr >= sk || (CAUSAL && kr > qr)) pv = 0.f;
+            }
+            p[n][e] = pv;
+          }
+        }
+        // dV += bf16(P^T) . dO
+#pragma unroll
+        for (int kk = 0; kk < CH / 16; ++kk) {
+          uint32_t a[4];
+          c_to_a(a, p[2 * kk], p[2 * kk + 1]);
+          mma_a_rows<D>(acc_v, a, reinterpret_cast<const __nv_bfloat16*>(sDo), c0 + kk * 16,
+                        C::HS, lane);
+        }
+        // dP^T = V.dO^T (bf16 -> fp32)
+        float dp[NT][4];
+#pragma unroll
+        for (int n = 0; n < NT; ++n) dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          uint32_t a[4];
+          load_a(a, va_row + kk * 32, C::HS * 2);
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            const unsigned char* ob = sDo + (c0 + n * 8 + g) * C::HS * 2 + (kk * 16 + t * 2) * 2;
+            mma_bf16(dp[n], a, ld32(ob), ld32(ob + 16));
+          }
+        }
+        // dS^T = P^T * (dP^T - D), kept in dp
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dp[n][e] = p[n][e] * (dp[n][e] - sDv[c0 + n * 8 + t * 2 + (e & 1)]);
+        }
+        // dK += bf16(dS^T) . Q
+#pragma unroll
+        for (int kk = 0; kk < CH / 16; ++kk) {
+          uint32_t a[4];
+          c_to_a(a, dp[2 * kk], dp[2 * kk + 1]);
+          mma_a_rows<D>(acc_k, a, reinterpret_cast<const __nv_bfloat16*>(sQb), c0 + kk * 16,
+                        C::HS, lane);
+        }
+      }
+    }
+  }
+
+  // epilogue: dk = acc_k * sm_scale, dv = acc_v, rows < sk
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    const int col = i * 8 + t * 2;
+    if (kr0 < sk) {
+      const size_t o = (kv_row_base + kr0) * D + col;
+      *reinterpret_cast<float2*>(dk + o) = make_float2(acc_k[i][0] * sm_scale, acc_k[i][1] * sm_scale);
+      *reinterpret_cast<float2*>(dv + o) = make_float2(acc_v[i][0], acc_v[i][1]);
+    }
+    if (kr1 < sk) {
+      const size_t o = (kv_row_base + kr1) * D + col;
+      *reinterpret_cast<float2*>(dk + o) = make_float2(acc_k[i][2] * sm_scale, acc_k[i][3] * sm_scale);
+      *reinterpret_cast<float2*>(dv + o) = make_float2(acc_v[i][2], acc_v[i][3]);
+    }
+  }
+}
+
+template <typename Kern>
+int launch(Kern kern, int smem, dim3 grid, cudaStream_t st, const BwdArgs& a) {
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<grid, NTHREADS, smem, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+bool bad_shape(int hq, int hkv, int d, int group) {
+  return group != KGROUP || hkv <= 0 || hq % hkv != 0 || (d != 64 && d != 128);
+}
+
+}  // namespace
+
+// Shapes (all contiguous, d in {64, 128}, hq a multiple of hkv):
+//   q_i8 int8 [b,hq,sq,d]; q_scale fp32 [b,hq,sq] (sm_scale*log2e folded);
+//   k_i8 int8 [b,hkv,sk,d]; k_scale fp32 [b,hkv,ceil(sk/group)], group 128;
+//   k_sm, v bf16 [b,hkv,sk,d]; q_bf, dout bf16 [b,hq,sq,d];
+//   lse2 (base 2), dvec fp32 [b,hq,sq]; dq fp32 [b,hq,sq,d]; dk, dv fp32
+//   [b,hkv,sk,d].
+extern "C" int sage_attn_bwd_dq(const void* q_i8, const void* q_scale, const void* k_i8,
+                                const void* k_scale, const void* k_sm, const void* v,
+                                const void* dout, const void* lse2, const void* dvec,
+                                void* dq, int b, int hq, int hkv, int sq, int sk, int d,
+                                int causal, int group, float sm_scale, void* stream) {
+  if (bad_shape(hq, hkv, d, group)) return (int)cudaErrorInvalidValue;
+  BwdArgs a{(const int8_t*)q_i8, (const float*)q_scale, nullptr, (const int8_t*)k_i8,
+            (const float*)k_scale, (const __nv_bfloat16*)k_sm, (const __nv_bfloat16*)v,
+            (const __nv_bfloat16*)dout, (const float*)lse2, (const float*)dvec,
+            (float*)dq, nullptr, nullptr, hq, hkv, sq, sk, sm_scale};
+  const dim3 grid((sq + DQ_BM - 1) / DQ_BM, hq, b);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (d == 64)
+    return causal ? launch(sage_attn_bwd_dq_kernel<64, true>, DqLayout<64>::bytes, grid, st, a)
+                  : launch(sage_attn_bwd_dq_kernel<64, false>, DqLayout<64>::bytes, grid, st, a);
+  return causal ? launch(sage_attn_bwd_dq_kernel<128, true>, DqLayout<128>::bytes, grid, st, a)
+                : launch(sage_attn_bwd_dq_kernel<128, false>, DqLayout<128>::bytes, grid, st, a);
+}
+
+extern "C" int sage_attn_bwd_dkv(const void* q_i8, const void* q_scale, const void* q_bf,
+                                 const void* k_i8, const void* k_scale, const void* v,
+                                 const void* dout, const void* lse2, const void* dvec,
+                                 void* dk, void* dv, int b, int hq, int hkv, int sq, int sk,
+                                 int d, int causal, int group, float sm_scale, void* stream) {
+  if (bad_shape(hq, hkv, d, group)) return (int)cudaErrorInvalidValue;
+  BwdArgs a{(const int8_t*)q_i8, (const float*)q_scale, (const __nv_bfloat16*)q_bf,
+            (const int8_t*)k_i8, (const float*)k_scale, nullptr, (const __nv_bfloat16*)v,
+            (const __nv_bfloat16*)dout, (const float*)lse2, (const float*)dvec, nullptr,
+            (float*)dk, (float*)dv, hq, hkv, sq, sk, sm_scale};
+  const dim3 grid((sk + KV_BM - 1) / KV_BM, hkv, b);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (d == 64)
+    return causal ? launch(sage_attn_bwd_dkv_kernel<64, true>, DkvLayout<64>::bytes, grid, st, a)
+                  : launch(sage_attn_bwd_dkv_kernel<64, false>, DkvLayout<64>::bytes, grid, st, a);
+  return causal ? launch(sage_attn_bwd_dkv_kernel<128, true>, DkvLayout<128>::bytes, grid, st, a)
+                : launch(sage_attn_bwd_dkv_kernel<128, false>, DkvLayout<128>::bytes, grid, st, a);
+}

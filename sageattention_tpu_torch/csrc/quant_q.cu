@@ -1,0 +1,97 @@
+// Per-token int8 Q quantizer for Hopper (sm_90a).
+//
+// Replaces the TPU kernel quant_pallas.py:quant_q_per_token
+// (_quant_rows_kernel): per-row amax, scale = max(amax,1e-30)*(1/127),
+// r = 1/scale, code = roundf(x * r) (half away from zero) clipped to
+// [-127, 127], and the row's scale with sm_scale*log2(e) folded in.
+//
+// The backward re-quantizes Q with it, and the forward kernel
+// (attention_fwd.cu) quantized the same rows inside the kernel; the saved
+// base-2 LSE was built from those scales, so P = exp2(l2 - lse2) only
+// normalises if both agree bit for bit.  This kernel therefore repeats the
+// forward's arithmetic exactly: the same fp32 chain for the codes, and the
+// folded scale as max(amax,1e-30) * qs_mul with qs_mul = f32(1/127) *
+// f32(sm_scale*log2e), the reassociated form XLA compiles the spec into.
+// Built without --use_fast_math so that 1/scale is an IEEE divide.
+//
+// Bound: bytes.  A few flops per element; the least time is reading Q and
+// writing the int8 codes and one fp32 scale a row.  One warp per row, each
+// lane one contiguous vector of D/32 elements (a 64-wide bf16 row is 128
+// bytes, one coalesced load for the warp); eight rows a CTA.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float kInvQmax = (float)(1.0 / 127.0);  // as the spec: f32(1/qmax)
+constexpr int kRowsPerCta = 8;
+
+template <typename T, int N>
+struct alignas(sizeof(T) * N) Vec {
+  T v[N];
+};
+
+template <int N>
+struct alignas(N) Codes {
+  int8_t v[N];
+};
+
+__device__ inline float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ inline float to_f32(float x) { return x; }
+
+template <int D, typename T>
+__global__ void __launch_bounds__(kRowsPerCta * 32)
+quant_q_kernel(const T* __restrict__ q, int8_t* __restrict__ out,
+               float* __restrict__ scales, long long rows, float qs_mul) {
+  constexpr int E = D / 32;  // elements a lane
+  const long long row = (long long)blockIdx.x * kRowsPerCta + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const Vec<T, E> raw = *reinterpret_cast<const Vec<T, E>*>(q + row * D + lane * E);
+  float x[E];
+  float amax = 0.f;
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    x[e] = to_f32(raw.v[e]);
+    amax = fmaxf(amax, fabsf(x[e]));
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  const float scale = fmaxf(amax, 1e-30f) * kInvQmax;
+  const float r = 1.0f / scale;
+  Codes<E> c;
+#pragma unroll
+  for (int e = 0; e < E; ++e)
+    c.v[e] = (int8_t)fminf(fmaxf(roundf(x[e] * r), -127.f), 127.f);
+  *reinterpret_cast<Codes<E>*>(out + row * D + lane * E) = c;
+  if (lane == 0) scales[row] = fmaxf(amax, 1e-30f) * qs_mul;
+}
+
+template <int D, typename T>
+int launch(const void* q, void* out, void* scales, long long rows, float qs_mul,
+           cudaStream_t st) {
+  const long long ctas = (rows + kRowsPerCta - 1) / kRowsPerCta;
+  quant_q_kernel<D, T><<<(unsigned)ctas, kRowsPerCta * 32, 0, st>>>(
+      (const T*)q, (int8_t*)out, (float*)scales, rows, qs_mul);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// q: [rows, d] contiguous (bf16 if q_is_f32 == 0, else fp32), d in {64,
+// 128}; out: int8 [rows, d]; scales: fp32 [rows];
+// qs_mul = f32(1/127) * f32(sm_scale * log2(e)).
+extern "C" int quant_q_per_token(const void* q, void* out, void* scales,
+                                 long long rows, int d, int q_is_f32,
+                                 float qs_mul, void* stream) {
+  if (rows <= 0 || (d != 64 && d != 128)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (d == 64)
+    return q_is_f32 ? launch<64, float>(q, out, scales, rows, qs_mul, st)
+                    : launch<64, __nv_bfloat16>(q, out, scales, rows, qs_mul, st);
+  return q_is_f32 ? launch<128, float>(q, out, scales, rows, qs_mul, st)
+                  : launch<128, __nv_bfloat16>(q, out, scales, rows, qs_mul, st);
+}

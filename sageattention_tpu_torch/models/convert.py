@@ -8,6 +8,9 @@ for :class:`models.dit.VideoDiT`:
 * a flax ``LayerNorm`` ``scale`` becomes ``weight``;
 * ``pos_embed`` is copied as it is.
 
+Every leaf stays fp32, as the port's parameters are (the layers that
+compute in bf16 cast their weights per call, as flax does).
+
 The flax names, read from a real ``VideoDiT.init`` tree, and their torch
 counterparts:
 

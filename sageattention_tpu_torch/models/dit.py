@@ -10,7 +10,10 @@ unpatchify head.
 Where flax and torch differ, this follows flax: LayerNorm has eps 1e-6
 and takes its statistics in fp32 as E[x^2] - E[x]^2; ``nn.gelu`` is the
 tanh approximation; ``adaln``, ``t_embed`` and the final norm and
-unpatchify run in fp32 and the rest in the model dtype.
+unpatchify run in fp32 and the rest in the model dtype.  Every parameter
+is fp32, as flax's default ``param_dtype``: the layers that compute in the
+model dtype cast their weights per call (:class:`Dense`), so a training
+step's small updates are not lost to bf16 rounding.
 """
 
 from __future__ import annotations
@@ -65,9 +68,9 @@ def embed_video_text(mdl: "VideoDiT", latents, text_emb):
     xv = xv.permute(0, 1, 3, 5, 2, 4, 6, 7).reshape(
         b, (Fr // pt) * (H // p) * (W // p), pt * p * p * C
     )
-    xv = mdl.patch_embed(xv.to(dtype))
+    xv = mdl.patch_embed(xv)
     xv = xv + mdl.pos_embed[:, : xv.shape[1]].to(dtype)
-    xt = mdl.text_embed(text_emb.to(dtype))
+    xt = mdl.text_embed(text_emb)
     return xt, xv
 
 
@@ -78,6 +81,19 @@ def finalize_video(mdl: "VideoDiT", xv, video_shape):
     out = mdl.unpatchify(mdl.final_norm(xv))
     out = out.reshape(b, Fr // pt, H // p, W // p, pt, p, p, C)
     return out.permute(0, 1, 4, 2, 5, 3, 6, 7).reshape(b, Fr, H, W, C)
+
+
+class Dense(nn.Linear):
+    """flax ``nn.Dense(dtype=...)``: fp32 parameters, and the input, weight
+    and bias cast to ``compute_dtype`` for each call (``promote_dtype``)."""
+
+    def __init__(self, d_in: int, d_out: int, compute_dtype, device=None):
+        super().__init__(d_in, d_out, device=device)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
 class TimestepEmbed(nn.Module):
@@ -109,10 +125,10 @@ class Attention(nn.Module):
         super().__init__()
         self.heads, self.head_dim = heads, head_dim
         inner = heads * head_dim
-        self.qkv = nn.Linear(hidden, 3 * inner, device=device, dtype=dtype)
+        self.qkv = Dense(hidden, 3 * inner, dtype, device=device)
         self.q_norm = LayerNorm(head_dim, dtype, device=device)
         self.k_norm = LayerNorm(head_dim, dtype, device=device)
-        self.out = nn.Linear(inner, hidden, device=device, dtype=dtype)
+        self.out = Dense(inner, hidden, dtype, device=device)
         self.processor = processor
 
     def forward(self, x):
@@ -139,9 +155,9 @@ class DiTBlock(nn.Module):
         self.attn = Attention(c.hidden, c.heads, c.head_dim, dtype, processor, device)
         mlp_hidden = int(c.hidden * c.mlp_ratio)
         self.mlp = nn.Sequential(
-            nn.Linear(c.hidden, mlp_hidden, device=device, dtype=dtype),
+            Dense(c.hidden, mlp_hidden, dtype, device=device),
             nn.GELU(approximate="tanh"),
-            nn.Linear(mlp_hidden, c.hidden, device=device, dtype=dtype),
+            Dense(mlp_hidden, c.hidden, dtype, device=device),
         )
 
     def forward(self, x, cond):
@@ -169,11 +185,11 @@ class VideoDiT(nn.Module):
         c = cfg
         self.cfg, self.dtype = cfg, dtype
         patch_dim = c.patch_t * c.patch * c.patch * latent_channels
-        self.patch_embed = nn.Linear(patch_dim, c.hidden, device=device, dtype=dtype)
+        self.patch_embed = Dense(patch_dim, c.hidden, dtype, device=device)
         self.pos_embed = nn.Parameter(
             torch.zeros(1, c.video_tokens, c.hidden, device=device)
         )
-        self.text_embed = nn.Linear(text_dim, c.hidden, device=device, dtype=dtype)
+        self.text_embed = Dense(text_dim, c.hidden, dtype, device=device)
         self.t_embed = TimestepEmbed(c.hidden, device=device)
         self.blocks = nn.ModuleList(
             DiTBlock(c, dtype, processor, device) for _ in range(c.depth)

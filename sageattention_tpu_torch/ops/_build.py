@@ -36,8 +36,15 @@ SIGNATURES = {
         "k_channel_mean": [P, P, I, I, I, I, P],
         "quant_k_chunked": [P, P, P, P, I, I, I, I, I, P],
     },
+    "quant_q": {
+        "quant_q_per_token": [P, P, P, ctypes.c_longlong, I, I, F, P],
+    },
     "attention_fwd": {
         "sage_attn_fwd": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, F, P],
+    },
+    "attention_bwd": {
+        "sage_attn_bwd_dq": [P] * 10 + [I] * 8 + [F, P],
+        "sage_attn_bwd_dkv": [P] * 11 + [I] * 8 + [F, P],
     },
 }
 

@@ -1,0 +1,99 @@
+"""Autograd for ``sageattn``: the quantized forward and its fused backward.
+
+The counterpart of the JAX package's ``ops/autodiff.py`` (``_cached``'s
+custom VJP) and ``attention_bwd_pallas.quantized_attention_vjp``.  The
+gradient is the straight-through gradient of the quantized forward (the
+quantizers' scales are constants): P is recomputed from the forward's own
+int8 codes and base-2 LSE, so it is the gradient of what the forward
+computed, not of a different kernel.
+
+* Forward: the forward of ``core`` with its LSE.  It saves q, k, v, o, the
+  base-2 LSE and the forward's K codes, K scales and smooth-k mean, so the
+  backward quantizes nothing but Q.
+* Backward: Q quantized again by ``quant_q_per_token`` (bit for bit the
+  forward kernel's in-kernel quantization, which the saved LSE was built
+  from), ``K_sm = bf16(K - km)``, ``dvec = rowsum(dO * O) - dlse`` in plain
+  PyTorch, then the dQ and dK/dV kernels and the smooth-k LSE term
+  ``dQ += dlse * km * sm_scale``.
+
+Every length is taken: the kernels mask the ragged edge.  (The JAX fused
+backward takes only multiples of 128 and falls back to an exact,
+unquantized recompute elsewhere; ROADMAP records the difference.)  The
+callers pass HND tensors: ``core`` normalises NHD first.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from sageattention_tpu_torch import core
+from sageattention_tpu_torch.ops import attention_bwd_cuda, quant_cuda
+
+LOG2E = 1.4426950408889634
+
+
+def backward_operands(q, k, v, do, *, o, k_i8, km, dlse, sm_scale: float) -> dict:
+    """The backward kernels' operands besides the forward's K codes, K
+    scales and LSE: the Q codes and scales (``quant_q_per_token``), bf16
+    Q, K - km, V and dO at the forward's padded head dim, and ``dvec`` =
+    rowsum(dO * O) - dlse in fp32."""
+    d_pad = k_i8.shape[-1]
+    qp = core._pad_d(q.to(core._work_dtype(q.dtype)), d_pad)
+    q_i8, q_scale = quant_cuda.quant_q_per_token(qp, scale_fold=sm_scale * LOG2E)
+    k_sm = core._pad_d(k.to(core._work_dtype(k.dtype)), d_pad).float()
+    if km is not None:
+        k_sm = k_sm - km[..., None, :]
+    q_bf, v_bf, do_bf = (core._pad_d(x.to(torch.bfloat16), d_pad) for x in (q, v, do))
+    dvec = (do.float() * o.float()).sum(dim=-1)
+    if dlse is not None:
+        dvec = dvec - dlse.float()
+    return dict(q_i8=q_i8, q_scale=q_scale, q_bf=q_bf, k_sm=k_sm.to(torch.bfloat16),
+                v=v_bf, do=do_bf, dvec=dvec.contiguous())
+
+
+def quantized_attention_vjp(q, k, v, do, *, o, lse2, k_i8, k_scale, km, dlse, is_causal: bool,
+                            sm_scale: float):
+    """(dq, dk, dv) in the dtypes of q, k, v, from the forward's residuals:
+    ``o`` (q's dtype), ``lse2`` (base 2), ``k_i8``/``k_scale``/``km`` (the
+    forward's K quantization, head dim padded).  ``dlse`` is the cotangent
+    of the natural-log LSE, or None."""
+    d_og = q.shape[-1]
+    ops = backward_operands(q, k, v, do, o=o, k_i8=k_i8, km=km, dlse=dlse, sm_scale=sm_scale)
+    common = dict(q_i8=ops["q_i8"], q_scale=ops["q_scale"], k_i8=k_i8, k_scale=k_scale,
+                  v=ops["v"], do=ops["do"], lse2=lse2, dvec=ops["dvec"],
+                  is_causal=is_causal, sm_scale=sm_scale)
+    dq = attention_bwd_cuda.sage_attention_bwd_dq(k_sm=ops["k_sm"], **common)
+    dk, dv = attention_bwd_cuda.sage_attention_bwd_dkv(q_bf=ops["q_bf"], **common)
+    if dlse is not None and km is not None:
+        # the smooth-k LSE correction q . km * sm_scale; its km pathway
+        # through K cancels in the LSE identity
+        km_q = km.repeat_interleave(q.shape[1] // k.shape[1], dim=1)
+        dq = dq + dlse[..., None].float() * (km_q[:, :, None, :] * sm_scale)
+    return (dq[..., :d_og].to(q.dtype), dk[..., :d_og].to(k.dtype),
+            dv[..., :d_og].to(v.dtype))
+
+
+class SageAttnFunction(torch.autograd.Function):
+    """``sageattn`` on HND tensors with the fused quantized backward.
+
+    ``apply(q, k, v, is_causal, sm_scale, smooth_k, return_lse)`` returns o,
+    or (o, lse) with ``return_lse``; both are differentiable."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, is_causal, sm_scale, smooth_k, return_lse):
+        f = core._forward(q, k, v, is_causal=is_causal, sm_scale=sm_scale,
+                          smooth_k=smooth_k, return_lse=True)
+        ctx.save_for_backward(q, k, v, f.o, f.lse2, f.k_i8, f.k_scale, f.km)
+        ctx.is_causal, ctx.sm_scale, ctx.return_lse = is_causal, f.sm_scale, return_lse
+        if return_lse:
+            return f.o, core._lse_nat(f.lse2, q, f.km, f.sm_scale)
+        return f.o
+
+    @staticmethod
+    def backward(ctx, do, dlse=None):
+        q, k, v, o, lse2, k_i8, k_scale, km = ctx.saved_tensors
+        dq, dk, dv = quantized_attention_vjp(
+            q, k, v, do, o=o, lse2=lse2, k_i8=k_i8, k_scale=k_scale, km=km,
+            dlse=dlse if ctx.return_lse else None, is_causal=ctx.is_causal,
+            sm_scale=ctx.sm_scale)
+        return dq, dk, dv, None, None, None, None

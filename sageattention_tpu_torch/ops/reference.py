@@ -4,6 +4,8 @@
 * :func:`quantized_attention_reference`: the arithmetic of the fused
   kernel written out unfused (int8 QK^T dequantized by per-row scales,
   base-2 softmax, P.V), the correctness target.
+* :func:`quantized_attention_bwd_reference`: the arithmetic of the two
+  backward kernels, the straight-through gradient of the quantized forward.
 
 Both loop over (batch, head) slabs so that one slab's [sq, sk] score
 matrix is the largest temporary: at CogVideoX-2B's 17,776 tokens that is
@@ -106,3 +108,65 @@ def quantized_attention_reference(
             o[bi, h] = ((p @ v[bi, hk].float()) / l).to(out_dtype)
             lse2[bi, h] = (torch.log2(l) + m)[:, 0]
     return (o, lse2) if return_lse else o
+
+
+def quantized_attention_bwd_reference(
+    q_i8: torch.Tensor,
+    q_scale: torch.Tensor,
+    k_i8: torch.Tensor,
+    k_scale: torch.Tensor,
+    k_sm: torch.Tensor | None,
+    q_bf: torch.Tensor | None,
+    v: torch.Tensor,
+    do: torch.Tensor,
+    lse2: torch.Tensor,
+    dvec: torch.Tensor,
+    *,
+    is_causal: bool,
+    sm_scale: float,
+):
+    """Unfused spec of the backward kernels: returns (dq, dk, dv) in fp32.
+
+    ``q_i8``/``q_scale`` and ``k_i8``/``k_scale`` (per-row scales [b,h,s],
+    ``sm_scale * log2(e)`` in ``q_scale``) are the forward's quantized
+    operands, ``lse2`` its base-2 LSE [b,hq,sq], ``dvec`` = rowsum(dO * O)
+    minus any LSE cotangent [b,hq,sq].  ``k_sm`` is bf16(K - km), ``q_bf``
+    bf16(Q), ``v`` and ``do`` bf16.  Per (b, q head):
+
+        P = exp2(l2 - lse2),  l2 = s_i32 * (q_scale * k_scale)
+        dV += bf16(P)^T . dO        dP = dO . V^T
+        dS = bf16(P * (dP - dvec))
+        dQ = dS . K_sm * sm_scale   dK += dS^T . Q * sm_scale
+
+    dK and dV sum over the GQA group.  The bf16 roundings sit where the
+    TPU kernels put them (``attention_bwd_pallas.py`` ``ds.astype`` and
+    ``pt.astype``); products of bf16 values are exact in fp32 and every sum
+    is fp32.  ``k_sm=None`` skips dQ and ``q_bf=None`` skips dK (returned
+    as None)."""
+    b, hq, sq, _ = q_i8.shape
+    hkv, sk = k_i8.shape[1], k_i8.shape[2]
+    mask = _build_mask(sq, sk, is_causal=is_causal, device=q_i8.device)
+    f32 = dict(dtype=torch.float32, device=q_i8.device)
+    dq = torch.zeros(q_i8.shape, **f32) if k_sm is not None else None
+    dk = torch.zeros(k_i8.shape, **f32) if q_bf is not None else None
+    dv = torch.zeros(k_i8.shape, **f32)
+    for bi in range(b):
+        for h in range(hq):
+            hk = _kv_head(h, hq, hkv)
+            s_i = q_i8[bi, h].float() @ k_i8[bi, hk].float().T
+            # the kernels' operand order: s * (q_scale * k_scale)
+            l2 = s_i * (q_scale[bi, h, :, None] * k_scale[bi, hk, None, :])
+            p = torch.exp2(l2 - lse2[bi, h, :, None])
+            if mask is not None:
+                p = torch.where(mask, p, 0.0)
+            do_h = do[bi, h].float()
+            dv[bi, hk] += p.to(torch.bfloat16).float().T @ do_h
+            dp = do_h @ v[bi, hk].float().T
+            ds = (p * (dp - dvec[bi, h, :, None])).to(torch.bfloat16).float()
+            if dq is not None:
+                dq[bi, h] = (ds @ k_sm[bi, hk].float()) * sm_scale
+            if dk is not None:
+                dk[bi, hk] += ds.T @ q_bf[bi, h].float()
+    if dk is not None:
+        dk *= sm_scale
+    return dq, dk, dv

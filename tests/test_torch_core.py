@@ -120,11 +120,15 @@ def test_unsupported_options_raise(kwargs):
 
 
 def test_gradients_and_large_head_dims_raise():
+    """Gradients are ported (tests/test_torch_autodiff.py): an input that
+    requires grad gives a differentiable output, and what the forward
+    refuses the differentiable path refuses too."""
     x = torch.zeros(1, 1, 128, 64, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sageattn(x, x, x)
+    assert sageattn(x, x, x).requires_grad
     y = torch.zeros(1, 1, 128, 192)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sageattn(y, y, y)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        sageattn(y.clone().requires_grad_(), y, y)
     with pytest.raises(TypeError):
         sageattn(y, y, y, not_an_option=1)
