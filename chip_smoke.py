@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py            # everything, one card
     python3 chip_smoke.py --profile  # and device time by kernel of one
-                                     # denoise step and one training step
+                                     # step of each server and one
+                                     # training step
 
 Phases, each of which raises (and so exits non-zero) when it fails:
 
@@ -11,25 +12,35 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    versions, and every kernel built from ``sageattention_tpu_torch/csrc``
    (one ``nvcc`` per source, all at once) into ``build/``;
 2. each kernel against its plain PyTorch version on the card, at the
-   shapes the main paths give it, and the op's output and gradients
-   against exact fp32 attention;
-3. the server: the CogVideoX-2B VideoDiT at full width (seq 17,776,
-   hidden 1920, 30 heads x 64) in bf16 with seeded random weights,
-   answering 2 requests x 2 denoise steps; the launch counts of every
+   shapes the main paths give it (the V quantizers for int8, e4m3 and
+   e5m2 codes, the forward kernel for every V type with and without the
+   smooth-v mean), and the ops' outputs and gradients against exact fp32
+   attention;
+3. the servers, each answering 2 requests x 2 denoise steps with seeded
+   random weights at full width and depth 30; the launch counts of every
    kernel are zeroed just before and read just after, and those of the
-   forward kernels must equal layers x steps; one step's eps is checked
-   against exact attention at depth 2;
-4. the trainer: the same model at full width and depth 8 (fp32
+   path's kernels must equal layers x steps, every other kernel's 0; one
+   step's eps is checked against exact attention at depth 2:
+   a. CogVideoX-2B (seq 17,776, hidden 1920, 30 heads x 64), backend
+      "sage" (bf16 V);
+   b. CogVideoX-2B, backend "sage_fp8" (fp8 V codes from the single-pass
+      V quantizer);
+   c. Wan2.1-T2V-1.3B (seq 33,272, hidden 1536, 12 heads x 128), backend
+      "sage_fp8", whose 8.5 MB V slabs take the two-pass V quantizer, and
+      two more steps with "sage" for the bf16 step time;
+4. the trainer: CogVideoX-2B at full width and depth 8 (fp32
    parameters, bf16 compute, AdamW), one warm-up step and 4 timed steps
    on one fixed batch and (t, eps); the counts are zeroed just before the
    timed steps and every kernel, forward and backward, must launch layers
    x steps times; the loss must be finite and fall; the parameter
-   gradients with sage attention are checked against exact attention's
-   at depth 2 and a sequence of 4,276;
+   gradients with "sage" and with "sage_fp8" are checked against exact
+   attention's at depth 2 and a sequence of 4,276, and the fp8 backward
+   must launch no V quantizer;
 5. each kernel's time at the model shape (CUDA events, median of several
    after warm-up) beside its bound, its plain version's time and, where
-   one PyTorch call computes the same function, that call's time; and one
-   layer's attention forward + backward against SDPA's.
+   one PyTorch call computes the same function, that call's time; the
+   forward kernel for every V type; and one layer's attention forward +
+   backward against SDPA's.
 
 It prints one ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside the
@@ -57,7 +68,8 @@ PEAK_INT8_OPS_S = 1979e12
 PEAK_BF16_FLOP_S = 989e12
 
 COG = dict(b=1, h=30, s=17776, d=64)  # one CogVideoX-2B attention layer
-COG_DEPTH = 30  # the server runs all of CogVideoX-2B's layers
+WAN = dict(b=1, h=12, s=33272, d=128)  # one Wan2.1-T2V-1.3B attention layer
+SERVER_DEPTH = 30  # the servers run all of their model's layers
 # the trainer's depth: saved activations (about 3 GB a layer at 17,776
 # tokens) and 16 bytes a parameter of fp32 weights, gradients and AdamW
 # state would not fit 80 GB at all 30 layers
@@ -124,7 +136,7 @@ def resource_usage() -> None:
             k = re.search(r"\d((?:sage_attn|quant|channel)[a-z_]*_kernel)I", fn or "")
             if m and k:
                 targs = [a or b for a, b in re.findall(r"Li(\d+)E|Lb(\d)E", fn)]
-                dtype = " bf16" if "nv_bfloat16E" in fn else ""
+                dtype = " bf16" if "nv_bfloat16" in fn else ""
                 log(f"resources {k.group(1)}<{','.join(targs)}>{dtype}: {m.group(1)} "
                     f"registers, {m.group(2)} bytes of stack")
 
@@ -167,6 +179,107 @@ def check_quant(gen, results):
                 (ki.int() - ki_ref.int()).abs().max().item())
 
 
+def random_v(gen, shape):
+    """bf16 V with a per-channel offset, so that smooth-v moves the codes."""
+    import torch
+
+    b, h, s, d = shape
+    v = torch.randn(b, h, s, d, generator=gen, device="cuda")
+    return (v + torch.randn(b, h, 1, d, generator=gen, device="cuda") * 3).to(torch.bfloat16)
+
+
+def check_quant_v(gen, results):
+    """Kernels 5 and 6 against their plain versions, for each code type.
+    Without smooth-v: codes and scales bit-exact.  With it: the mean to
+    1e-5 relative; given the kernel's own mean, kernel 5's codes and scales
+    bit-exact with the plain chain, and kernel 6's apply step bit-exact fed
+    the plain mean and 1/scale; against the plain version with its own
+    mean, codes differ on at most 1e-4 of the entries (int8 by one step;
+    an fp8 value within the means' difference of 0 may change sign, so fp8
+    steps are not compared)."""
+    import torch
+    from sageattention_tpu_torch import quant
+    from sageattention_tpu_torch.ops import quant_cuda as qc
+
+    def same(a, b):
+        return torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+    errs = {"quant_v_per_channel": 0.0, "v_channel_stats": 0.0, "quant_v_apply": 0.0}
+    cog = random_v(gen, tuple(COG.values()))
+    for kernel, v, plain in (("kernel 5", cog, qc.quant_v_per_channel_plain),
+                             ("kernel 6", random_v(gen, tuple(WAN.values())),
+                              qc.quant_v_blocked_plain)):
+        for pv, dtype in quant.V_DTYPES.items():
+            for smooth in (False, True):
+                # the dispatch picks the kernel by the slab's bytes
+                q, sc, m = qc.quant_v_per_channel(v, dtype=dtype, smooth=smooth)
+                q_p, sc_p, m_p = plain(v, dtype=dtype, smooth=smooth)
+                torch.cuda.synchronize()
+                off = q.view(torch.uint8) != q_p.view(torch.uint8)
+                frac = off.float().mean().item()
+                s_rel = ((sc - sc_p).abs() / sc_p).max().item()
+                what = f"{kernel} {tuple(v.shape)} {pv} smooth={smooth}"
+                line = f"quant_v {what}: codes off {frac:.2e}, scales max rel {s_rel:.2e}"
+                if not smooth:
+                    require(frac == 0 and s_rel == 0, f"{what}: not bit-exact with the plain version")
+                    log(line + "; bit-exact")
+                    continue
+                m_rel = ((m - m_p).abs() / (m_p.abs() + 1e-3)).max().item()
+                line += f", mean max rel {m_rel:.2e}"
+                require(m_rel <= 1e-5, f"{what}: the mean disagrees with the plain version")
+                require(s_rel <= 1e-5, f"{what}: the scales disagree with the plain version")
+                require(frac <= 1e-4, f"{what}: codes disagree on more than 1e-4 of the entries")
+                if dtype == torch.int8:
+                    step = (q.int() - q_p.int()).abs().max().item()
+                    require(step <= 1, f"{what}: codes more than one step apart")
+                    line += f", int8 codes at most {step} step apart"
+                if kernel == "kernel 5":
+                    # the plain chain from the kernel's own mean: bit-exact
+                    q_m, sc_m, _ = plain(v.float() - m[..., None, :], dtype=dtype, smooth=False)
+                    exact = same(q, q_m) and torch.equal(sc, sc_m)
+                    require(exact, f"{what}: not bit-exact given the kernel's mean")
+                    line += f"; given the kernel's mean bit-exact {exact}"
+                    errs["quant_v_per_channel"] = max(errs["quant_v_per_channel"],
+                                                      (m - m_p).abs().max().item())
+                else:
+                    # the apply step fed the plain mean and 1/scale: bit-exact
+                    gmax, gmin, mean = qc.v_channel_stats_plain(v, smooth=True)
+                    _, r = qc.v_scale_from_stats(gmax, gmin, mean, dtype)
+                    exact = same(qc.quant_v_apply(v, r, mean, dtype=dtype),
+                                 qc.quant_v_apply_plain(v, r, mean, dtype=dtype))
+                    require(exact, f"{what}: the apply step is not bit-exact")
+                    line += f"; apply with the plain mean bit-exact {exact}"
+                    errs["v_channel_stats"] = max(errs["v_channel_stats"],
+                                                  (m - m_p).abs().max().item())
+                log(line)
+    # kernel 6 called on the CogVideoX-2B slab: the same codes as kernel 5
+    for pv, dtype in quant.V_DTYPES.items():
+        q5, s5, _ = qc.quant_v_per_channel(cog, dtype=dtype)
+        q6, s6, _ = qc.quant_v_blocked(cog, dtype=dtype, smooth=False)
+        exact = same(q5, q6) and torch.equal(s5, s6)
+        log(f"quant_v kernel 6 vs kernel 5 on {tuple(cog.shape)} {pv}: bit-exact {exact}")
+        require(exact, f"kernel 6 and kernel 5 disagree on the CogVideoX slab ({pv})")
+    for name, e in errs.items():
+        results[name]["max_abs_err"] = e
+
+
+def v_operands(v):
+    """(name, V, v_scale, v_mean) for each V the forward kernel takes:
+    bf16 and the codes of each type, each without and with the smooth-v
+    mean, built as ``core`` builds them."""
+    import torch
+    from sageattention_tpu_torch import quant
+    from sageattention_tpu_torch.ops import quant_cuda
+
+    yield "bf16", v, None, None
+    v_c, mean = quant.sub_mean(v)
+    yield "bf16+mean", v_c.to(torch.bfloat16), None, mean
+    for pv, dtype in quant.V_DTYPES.items():
+        for smooth in (False, True):
+            vq, vs, vm = quant_cuda.quant_v_per_channel(v, dtype=dtype, smooth=smooth)
+            yield pv + ("+mean" if smooth else ""), vq, vs, vm
+
+
 def check_attention(gen, results):
     import torch
     from sageattention_tpu_torch import core
@@ -178,6 +291,9 @@ def check_attention(gen, results):
         # at the model shape a few heads across the range, so that the plain
         # version's [s,s] scores stay small
         ("cogvideox layer", 1, 30, 30, 17776, 17776, 64, False, (0, 15, 29)),
+        # the d128 non-causal instances the Wan2.1 server runs, with a
+        # ragged last tile (33,272 = 259 x 128 + 120)
+        ("wan layer", 1, 12, 12, 33272, 33272, 128, False, (0, 6, 11)),
         ("causal gqa lse", 1, 32, 8, 2048, 2048, 128, True, None),
         ("ragged causal", 1, 4, 4, 1000, 1000, 64, True, None),
         ("rectangular", 2, 4, 2, 300, 1111, 64, False, None),
@@ -188,63 +304,72 @@ def check_attention(gen, results):
         v = torch.randn(b, hkv, sk, d, generator=gen, device="cuda").to(torch.bfloat16)
         k_i8, k_sc, _ = quant_cuda.quant_k_fused_mean(k, group=128)
         fold = d**-0.5 * core.LOG2E
-        o, l2 = attention_cuda.sage_attention_fwd(q, k_i8, k_sc, v, is_causal=causal,
-                                                  q_fold=fold, return_lse=True)
         # each compared q head with its own kv head (GQA: h // (hq // hkv))
         hs = list(heads) if heads is not None else list(range(hq))
         kvs = [h // (hq // hkv) for h in hs]
-        o_p, l2_p = attention_cuda.sage_attention_plain(
-            q[:, hs].contiguous(), k_i8[:, kvs].contiguous(), k_sc[:, kvs].contiguous(),
-            v[:, kvs].contiguous(), is_causal=causal, q_fold=fold, return_lse=True)
-        torch.cuda.synchronize()
-        o_k, l2_k = o[:, hs].float(), l2[:, hs]
-        cos = cosine_similarity(o_k.cpu(), o_p.float().cpu())
-        err = (o_k - o_p.float()).abs().max().item()
-        lerr = (l2_k - l2_p).abs().max().item()
-        finite = bool(torch.isfinite(o).all()) and bool(torch.isfinite(l2).all())
-        log(f"attention {name} {(b, hq, hkv, sq, sk, d)} causal={causal}: cos "
-            f"{cos:.6f}, max abs {err:.3e}, lse2 max abs {lerr:.3e} (heads "
-            f"{heads if heads is not None else 'all'}); "
-            f"finite {finite}")
-        require(finite, f"attention {name}: non-finite output")
-        require(cos >= 0.9999 and err <= 2e-2 and lerr <= 1e-3,
-                f"attention {name} disagrees with its plain version")
-        if name == "cogvideox layer":
-            results["sage_attn_fwd"]["max_abs_err"] = err
 
-    # the op on the card against the same op on the CPU (the plain
+        def kv_heads(x):
+            return x[:, kvs].contiguous() if x is not None else None
+
+        for vname, vx, vs, vm in v_operands(v):
+            o, l2 = attention_cuda.sage_attention_fwd(q, k_i8, k_sc, vx, vs, vm,
+                                                      is_causal=causal, q_fold=fold,
+                                                      return_lse=True)
+            o_p, l2_p = attention_cuda.sage_attention_plain(
+                q[:, hs].contiguous(), kv_heads(k_i8), kv_heads(k_sc), kv_heads(vx),
+                kv_heads(vs), kv_heads(vm), is_causal=causal, q_fold=fold, return_lse=True)
+            torch.cuda.synchronize()
+            o_k, l2_k = o[:, hs].float(), l2[:, hs]
+            cos = cosine_similarity(o_k.cpu(), o_p.float().cpu())
+            err = (o_k - o_p.float()).abs().max().item()
+            lerr = (l2_k - l2_p).abs().max().item()
+            finite = bool(torch.isfinite(o).all()) and bool(torch.isfinite(l2).all())
+            log(f"attention {name} {(b, hq, hkv, sq, sk, d)} causal={causal} V {vname}: cos "
+                f"{cos:.6f}, max abs {err:.3e}, lse2 max abs {lerr:.3e} (heads "
+                f"{heads if heads is not None else 'all'}); "
+                f"finite {finite}")
+            require(finite, f"attention {name} V {vname}: non-finite output")
+            require(cos >= 0.9999 and err <= 2e-2 and lerr <= 1e-3,
+                    f"attention {name} V {vname} disagrees with its plain version")
+            if name == "cogvideox layer":
+                r = results["sage_attn_fwd"]
+                r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
+
+    # each op on the card against the same op on the CPU (the plain
     # versions), across input dtypes, a padded head dim and GQA
-    for dtype in (torch.float32, torch.float16, torch.bfloat16):
-        q = torch.randn(1, 4, 300, 96, generator=gen, device="cuda").to(dtype)
-        k = torch.randn(1, 2, 517, 96, generator=gen, device="cuda").to(dtype)
-        v = torch.randn(1, 2, 517, 96, generator=gen, device="cuda").to(dtype)
-        o, lse = core.sageattn(q, k, v, is_causal=True, return_lse=True)
-        o_c, lse_c = core.sageattn(q.cpu(), k.cpu(), v.cpu(), is_causal=True,
-                                   return_lse=True)
-        cos = cosine_similarity(o.float().cpu(), o_c.float())
-        err = max_abs_err(o.float().cpu(), o_c.float())
-        lerr = max_abs_err(lse.cpu(), lse_c)
-        log(f"sageattn cuda vs cpu ({dtype}, GQA 4/2, causal, 300x517, d96): cos "
-            f"{cos:.6f}, max abs {err:.3e}, lse max abs {lerr:.3e}")
-        require(o.dtype == dtype and o.shape == q.shape, "sageattn output dtype/shape")
-        require(cos >= 0.9999 and err <= 2e-2 and lerr <= 1e-3,
-                f"sageattn on the card disagrees with the CPU path ({dtype})")
+    ops = (core.sageattn, core.sageattn_qk_int8_pv_int8, core.sageattn_qk_int8_pv_fp8)
+    for op in ops:
+        for dtype in (torch.float32, torch.float16, torch.bfloat16):
+            q = torch.randn(1, 4, 300, 96, generator=gen, device="cuda").to(dtype)
+            k = torch.randn(1, 2, 517, 96, generator=gen, device="cuda").to(dtype)
+            v = torch.randn(1, 2, 517, 96, generator=gen, device="cuda").to(dtype)
+            o, lse = op(q, k, v, is_causal=True, return_lse=True)
+            o_c, lse_c = op(q.cpu(), k.cpu(), v.cpu(), is_causal=True, return_lse=True)
+            cos = cosine_similarity(o.float().cpu(), o_c.float())
+            err = max_abs_err(o.float().cpu(), o_c.float())
+            lerr = max_abs_err(lse.cpu(), lse_c)
+            log(f"{op.__name__} cuda vs cpu ({dtype}, GQA 4/2, causal, 300x517, d96): cos "
+                f"{cos:.6f}, max abs {err:.3e}, lse max abs {lerr:.3e}")
+            require(o.dtype == dtype and o.shape == q.shape, f"{op.__name__} output dtype/shape")
+            require(cos >= 0.9999 and err <= 2e-2 and lerr <= 1e-3,
+                    f"{op.__name__} on the card disagrees with the CPU path ({dtype})")
 
-    # the op (quantizer + kernel + LSE correction) against exact attention
+    # each op (quantizers + kernel + LSE correction) against exact attention
     b, hq, hkv, s, d = 1, 32, 8, 2048, 128
     q = torch.randn(b, s, hq, d, generator=gen, device="cuda").to(torch.bfloat16)
     k = torch.randn(b, s, hkv, d, generator=gen, device="cuda").to(torch.bfloat16)
     v = torch.randn(b, s, hkv, d, generator=gen, device="cuda").to(torch.bfloat16)
-    o, lse = core.sageattn(q, k, v, tensor_layout="NHD", is_causal=True, return_lse=True)
     o_r, lse_r = reference.attention_reference(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         is_causal=True, return_lse=True)
-    cos = cosine_similarity(o.float().cpu(), o_r.transpose(1, 2).float().cpu())
-    lerr = (lse - lse_r).abs().max().item()
-    log(f"sageattn vs exact fp32 (NHD, GQA 32/8, causal, 2048, d128): cos "
-        f"{cos:.6f}, lse max abs {lerr:.3e}")
-    require(cos > 0.999, "sageattn vs exact attention: cosine <= 0.999")
-    require(lerr < 5e-2, "sageattn LSE vs exact attention")
+    for op in ops:
+        o, lse = op(q, k, v, tensor_layout="NHD", is_causal=True, return_lse=True)
+        cos = cosine_similarity(o.float().cpu(), o_r.transpose(1, 2).float().cpu())
+        lerr = (lse - lse_r).abs().max().item()
+        log(f"{op.__name__} vs exact fp32 (NHD, GQA 32/8, causal, 2048, d128): cos "
+            f"{cos:.6f}, lse max abs {lerr:.3e}")
+        require(cos > 0.999, f"{op.__name__} vs exact attention: cosine <= 0.999")
+        require(lerr < 5e-2, f"{op.__name__} LSE vs exact attention")
 
 
 def check_quant_q(gen, results):
@@ -367,6 +492,11 @@ def check_backward(gen, results):
 
 FORWARD = ("k_channel_mean", "quant_k_chunked", "sage_attn_fwd")
 BACKWARD = ("quant_q_per_token", "sage_attn_bwd_dq", "sage_attn_bwd_dkv")
+V_QUANT = ("quant_v_per_channel", "v_channel_stats", "quant_v_apply")
+# the main path whose launches the kernels line reports for each kernel
+MAIN_PATH = {**{n: "server" for n in FORWARD}, **{n: "train" for n in BACKWARD},
+             "quant_v_per_channel": "server_fp8", "v_channel_stats": "server_wan",
+             "quant_v_apply": "server_wan"}
 
 
 def counters():
@@ -377,7 +507,10 @@ def counters():
             "sage_attn_fwd": attention_cuda.sage_attention_fwd,
             "quant_q_per_token": quant_cuda.quant_q_per_token,
             "sage_attn_bwd_dq": attention_bwd_cuda.sage_attention_bwd_dq,
-            "sage_attn_bwd_dkv": attention_bwd_cuda.sage_attention_bwd_dkv}
+            "sage_attn_bwd_dkv": attention_bwd_cuda.sage_attention_bwd_dkv,
+            "quant_v_per_channel": quant_cuda.quant_v_per_channel,
+            "v_channel_stats": quant_cuda.v_channel_stats,
+            "quant_v_apply": quant_cuda.quant_v_apply}
 
 
 def zero_counts():
@@ -429,7 +562,7 @@ def profile_device(fn, out_name: str, what: str) -> dict:
             groups["sage_attn_fwd"] += ms
         elif "sage_attn_bwd" in low:
             groups["sage_attn_bwd"] += ms
-        elif "quant_k" in low or "channel_mean" in low or "quant_q" in low:
+        elif "quant" in low or "channel_mean" in low:  # K, Q and V quantizers
             groups["quant"] += ms
         elif any(w in low for w in ("gemm", "cutlass", "nvjet", "sm90_xmma")):
             groups["gemm"] += ms
@@ -448,65 +581,83 @@ def profile_device(fn, out_name: str, what: str) -> dict:
     return out
 
 
-def run_server(results, profile: bool) -> dict:
+def run_server(results, profile: bool, *, model: str, backend: str, path: str,
+               launched: tuple, bf16_steps: int = 0) -> dict:
+    """One server cell: ``model`` at full width and depth 30 with
+    ``backend``, 2 requests x 2 denoise steps.  The kernels in
+    ``launched`` must run once a layer a step, every other kernel not at
+    all.  ``bf16_steps`` more steps are then timed with "sage" (bf16 V) on
+    the same model.  One step's eps is held against exact attention at
+    depth 2."""
     import torch
     from sageattention_tpu_torch import models, serve
     from sageattention_tpu_torch.utils.compare import cosine_similarity
 
-    depth = COG_DEPTH
-    cfg = models.MODEL_CONFIGS["cogvideox-2b"].scaled(depth=depth)
-    log(f"server: {cfg.name} seq {cfg.seq_len} hidden {cfg.hidden} heads "
-        f"{cfg.heads}x{cfg.head_dim} depth {cfg.depth} bf16")
+    depth = SERVER_DEPTH
+    cfg = models.MODEL_CONFIGS[model].scaled(depth=depth)
+    log(f"server {path}: {cfg.name} seq {cfg.seq_len} hidden {cfg.hidden} heads "
+        f"{cfg.heads}x{cfg.head_dim} depth {cfg.depth} bf16, backend {backend!r}")
     t0 = time.perf_counter()
-    model = serve.load_model(cfg, device="cuda", seed=0)
+    model_ = serve.load_model(cfg, device="cuda", seed=0)
     requests = serve.make_requests(cfg, 2, device="cuda", seed=1)
-    models.set_attention_backend("sage")
+    models.set_attention_backend(backend)
     # warm-up step (allocator, cuBLAS), not counted
-    serve.denoise_step(model, *requests[0], torch.tensor([999], device="cuda"))
+    serve.denoise_step(model_, *requests[0], torch.tensor([999], device="cuda"))
     torch.cuda.synchronize()
-    log(f"server set-up + warm-up step: {time.perf_counter() - t0:.1f} s")
+    log(f"server {path} set-up + warm-up step: {time.perf_counter() - t0:.1f} s")
 
     steps = 2
     zero_counts()
-    out = serve.serve(model, requests, steps)
+    out = serve.serve(model_, requests, steps)
     launches = read_counts()
     n_steps = len(requests) * steps
     for lat in out["outputs"]:
         require(lat.shape == requests[0][0].shape and bool(torch.isfinite(lat).all()),
-                "server output is not finite or has the wrong shape")
+                f"server {path}: output is not finite or has the wrong shape")
     ms = out["step_ms"]
-    log(f"server: {len(requests)} requests x {steps} steps, ms per step "
+    log(f"server {path}: {len(requests)} requests x {steps} steps, ms per step "
         f"{[round(x, 3) for x in ms]}, median {statistics.median(ms):.3f}")
-    log(f"server launches: {launches} (layers x steps = {depth * n_steps})")
+    log(f"server {path} launches: {launches} (layers x steps = {depth * n_steps})")
     for name, n in launches.items():
-        want = depth * n_steps if name in FORWARD else 0
-        require(n == want, f"server: {name} launched {n} times, want {want}")
-        results[name]["launches_by_path"] = {"server": n}
-    prof = None
+        want = depth * n_steps if name in launched else 0
+        require(n == want, f"server {path}: {name} launched {n} times, want {want}")
+        results[name].setdefault("launches_by_path", {})[path] = n
+    t = torch.tensor([500], device="cuda")
+    prof = {}
     if profile:
-        t = torch.tensor([500], device="cuda")
-        prof = profile_device(lambda: serve.denoise_step(model, *requests[0], t),
-                              "profile_step.json", "one denoise step")
-    del model
+        prof[backend] = profile_device(lambda: serve.denoise_step(model_, *requests[0], t),
+                                       f"profile_step_{path}.json", f"one {path} step")
+    cell = {"model": model, "backend": backend, "depth": depth, "seq": cfg.seq_len,
+            "step_ms": ms, "median_step_ms": statistics.median(ms)}
+    if bf16_steps:
+        models.set_attention_backend("sage")
+        ms16 = serve.serve(model_, requests[:1], bf16_steps)["step_ms"]
+        log(f"server {path} with 'sage' (bf16 V): ms per step {[round(x, 3) for x in ms16]}")
+        cell.update(sage_step_ms=ms16, sage_median_step_ms=statistics.median(ms16))
+        if profile:
+            prof["sage"] = profile_device(
+                lambda: serve.denoise_step(model_, *requests[0], t),
+                f"profile_step_{path}_sage.json", f"one {path} step with 'sage'")
+    del model_
     torch.cuda.empty_cache()
 
-    # one step's eps: sage against exact attention, depth 2, full width
+    # one step's eps: the backend against exact attention, depth 2, full width
     cfg2 = cfg.scaled(depth=2)
     model2 = serve.load_model(cfg2, device="cuda", seed=2)
     lat, txt = serve.make_requests(cfg2, 1, device="cuda", seed=3)[0]
-    t = torch.tensor([500], device="cuda")
     with torch.no_grad():
+        models.set_attention_backend(backend)
         eps_s = model2(lat, txt, t)
         models.set_attention_backend("reference")
         eps_r = model2(lat, txt, t)
         models.set_attention_backend("sage")
     cos = cosine_similarity(eps_s.float().cpu(), eps_r.float().cpu())
-    log(f"server eps, sage vs exact attention (depth 2, full width): cos {cos:.6f}")
-    require(cos >= 0.999, "server eps disagrees with exact attention")
+    log(f"server {path} eps, {backend!r} vs exact attention (depth 2, full width, seq "
+        f"{cfg2.seq_len}): cos {cos:.6f}")
+    require(cos >= 0.999, f"server {path}: eps disagrees with exact attention")
     del model2
     torch.cuda.empty_cache()
-    return {"depth": depth, "step_ms": ms, "median_step_ms": statistics.median(ms),
-            "eps_cosine_vs_exact": cos, "profile": prof}
+    return {**cell, "eps_cosine_vs_exact": cos, "profile": prof or None}
 
 
 # --------------------------------------------------------------------------
@@ -514,9 +665,10 @@ def run_server(results, profile: bool) -> dict:
 # --------------------------------------------------------------------------
 
 
-def grads_vs_exact(cfg) -> dict:
-    """Parameter gradients of one flow-matching loss with sage attention
-    against exact attention, same weights, batch and (t, eps)."""
+def grads_vs_exact(cfg, backend: str = "sage") -> dict:
+    """Parameter gradients of one flow-matching loss with ``backend``
+    against exact attention, same weights, batch and (t, eps); and the V
+    quantizers' launches in ``backend``'s forward and backward."""
     import torch
     from sageattention_tpu_torch import models, serve, train
     from sageattention_tpu_torch.utils.compare import cosine_similarity
@@ -527,14 +679,20 @@ def grads_vs_exact(cfg) -> dict:
     gen.manual_seed(4)
     t, eps = train.draw_t_eps(x0, gen)
     grads = {}
-    for backend in ("sage", "reference"):
-        models.set_attention_backend(backend)
+    for name in (backend, "reference"):
+        models.set_attention_backend(name)
         tr.model.zero_grad(set_to_none=True)
-        train.flow_loss(tr.model, x0, txt, t, eps).backward()
-        grads[backend] = {n: p.grad.float().cpu() for n, p in tr.model.named_parameters()}
+        zero_counts()
+        loss = train.flow_loss(tr.model, x0, txt, t, eps)
+        v_fwd = sum(read_counts()[n] for n in V_QUANT)
+        loss.backward()
+        v_bwd = sum(read_counts()[n] for n in V_QUANT) - v_fwd
+        if name == backend:
+            v_launches = {"forward": v_fwd, "backward": v_bwd}
+        grads[name] = {n: p.grad.float().cpu() for n, p in tr.model.named_parameters()}
     models.set_attention_backend("sage")
     coss, worst = {}, 0.0
-    for name, g in grads["sage"].items():
+    for name, g in grads[backend].items():
         ref = grads["reference"][name]
         if name.endswith("k_norm.bias"):
             # exactly 0 in exact arithmetic (a bias on every key shifts each
@@ -547,9 +705,10 @@ def grads_vs_exact(cfg) -> dict:
     name_min = min(coss, key=coss.get)
     del tr
     torch.cuda.empty_cache()
-    return {"seq": cfg.seq_len, "depth": cfg.depth, "params": len(grads["sage"]),
-            "min_cosine": coss[name_min], "min_cosine_param": name_min,
-            "k_norm_bias_over_weight": worst}
+    return {"backend": backend, "seq": cfg.seq_len, "depth": cfg.depth,
+            "params": len(grads[backend]), "min_cosine": coss[name_min],
+            "min_cosine_param": name_min, "k_norm_bias_over_weight": worst,
+            "v_quant_launches": v_launches}
 
 
 def run_train(results, profile: bool) -> dict:
@@ -581,7 +740,8 @@ def run_train(results, profile: bool) -> dict:
         f"{peak_gb:.2f} GB")
     log(f"trainer launches: {launches} (layers x steps = {depth * steps})")
     for name, n in launches.items():
-        require(n == depth * steps, f"trainer: {name} launched {n} times, want {depth * steps}")
+        want = depth * steps if name in FORWARD + BACKWARD else 0
+        require(n == want, f"trainer: {name} launched {n} times, want {want}")
         results[name]["launches_by_path"]["train"] = n
     require(all(map(math.isfinite, losses)), "trainer: a loss is not finite")
     require(losses[-1] < losses[0], "trainer: the loss did not fall")
@@ -595,19 +755,25 @@ def run_train(results, profile: bool) -> dict:
     del tr
     torch.cuda.empty_cache()
 
-    # gradients: sage against exact attention, depth 2, full width, 3
-    # latent frames (seq 4,276), where the exact attention's saved [s,s]
-    # scores of 30 heads fit
-    g = grads_vs_exact(cfg.scaled(depth=2, latent_frames=3))
-    log(f"trainer grads, sage vs exact attention (depth {g['depth']}, seq {g['seq']}, full "
-        f"width, {g['params']} parameters): min cosine {g['min_cosine']:.6f} "
-        f"({g['min_cosine_param']}); k_norm.bias |g| / |g(k_norm.weight)| "
-        f"{g['k_norm_bias_over_weight']:.2e}")
-    require(g["min_cosine"] >= 0.999, "trainer gradients disagree with exact attention")
-    require(g["k_norm_bias_over_weight"] <= 1e-2, "k_norm.bias gradient is not negligible")
+    # gradients: "sage" and "sage_fp8" against exact attention, depth 2, full
+    # width, 3 latent frames (seq 4,276), where the exact attention's saved
+    # [s,s] scores of 30 heads fit
+    gs = {}
+    for backend in ("sage", "sage_fp8"):
+        g = gs[backend] = grads_vs_exact(cfg.scaled(depth=2, latent_frames=3), backend)
+        log(f"trainer grads, {backend!r} vs exact attention (depth {g['depth']}, seq "
+            f"{g['seq']}, full width, {g['params']} parameters): min cosine "
+            f"{g['min_cosine']:.6f} ({g['min_cosine_param']}); k_norm.bias |g| / "
+            f"|g(k_norm.weight)| {g['k_norm_bias_over_weight']:.2e}; V quantizer launches "
+            f"{g['v_quant_launches']}")
+        require(g["min_cosine"] >= 0.999,
+                f"trainer gradients with {backend!r} disagree with exact attention")
+        require(g["k_norm_bias_over_weight"] <= 1e-2, "k_norm.bias gradient is not negligible")
+    require(gs["sage_fp8"]["v_quant_launches"] == {"forward": 2, "backward": 0},
+            "the fp8 trainer must quantize V once a layer in the forward, never in the backward")
     return {"depth": depth, "seq": cfg.seq_len, "params": n_params, "losses": losses,
             "step_ms": ms, "median_step_ms": statistics.median(ms), "peak_memory_gb": peak_gb,
-            "grads_vs_exact": g, "profile": prof}
+            "grads_vs_exact": gs, "profile": prof}
 
 
 # --------------------------------------------------------------------------
@@ -617,9 +783,8 @@ def run_train(results, profile: bool) -> dict:
 
 def time_kernels(gen, results):
     import torch
-    import torch.nn.functional as F
-    from sageattention_tpu_torch import core
-    from sageattention_tpu_torch.ops import attention_cuda, quant_cuda
+    from sageattention_tpu_torch import quant
+    from sageattention_tpu_torch.ops import quant_cuda
 
     b, h, s, d = COG["b"], COG["h"], COG["s"], COG["d"]
     q = torch.randn(b, h, s, d, generator=gen, device="cuda").to(torch.bfloat16)
@@ -642,26 +807,94 @@ def time_kernels(gen, results):
     r["bound_ms"] = (k.numel() * 3 + km.numel() * 4 + b * h * ng * 4) / PEAK_BYTES_S * 1e3
     r["bound_by"] = "bytes"
 
+    r = results["sage_attn_fwd"]
+    cog = attention_times(gen, (b, h, s, d), ("bf16", *quant.V_DTYPES), plain=True)
+    r.update(ms=cog["bf16"]["ms"], plain_ms=cog["plain_ms"], library_ms=cog["sdpa_ms"],
+             bound_ms=cog["bf16"]["bound_ms"], bound_by=cog["bf16"]["bound_by"])
+    r["ms_by_v_type"] = {pv: cog[pv]["ms"] for pv in ("bf16", *quant.V_DTYPES)}
+    wan = attention_times(gen, tuple(WAN.values()), ("bf16", "fp8"), plain=False)
+    r["wan_layer"] = {"shape": list(WAN.values()), "ms_bf16": wan["bf16"]["ms"],
+                      "ms_fp8": wan["fp8"]["ms"], "sdpa_ms": wan["sdpa_ms"],
+                      "bound_ms": wan["bf16"]["bound_ms"], "bound_by": wan["bf16"]["bound_by"]}
+    for shape, t in ((COG, cog), (WAN, wan)):
+        for pv, x in t.items():
+            if isinstance(x, dict):
+                log(f"time sage_attn_fwd at {tuple(shape.values())} V {pv}: {x['ms']:.4f} ms "
+                    f"(bound {x['bound_ms']:.4f} ms, {x['bound_by']})")
+        log(f"time SDPA fwd at {tuple(shape.values())}: {t['sdpa_ms']:.4f} ms")
+
+
+def attention_times(gen, shape, v_types, plain: bool) -> dict:
+    """The forward kernel's time at ``shape`` (b, h, s, d), non-causal, for
+    each V type in ``v_types`` ("bf16" or a ``pv_dtype``) with its bound;
+    SDPA's time on the bf16 inputs; with ``plain``, the plain version's."""
+    import torch
+    import torch.nn.functional as F
+    from sageattention_tpu_torch import core, quant
+    from sageattention_tpu_torch.ops import attention_cuda, quant_cuda
+
+    b, h, s, d = shape
+    q, k, v = (torch.randn(b, h, s, d, generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
     k_i8, k_sc, _ = quant_cuda.quant_k_fused_mean(k, group=128)
     fold = d**-0.5 * core.LOG2E
-
-    def kern():
-        attention_cuda.sage_attention_fwd(q, k_i8, k_sc, v, is_causal=False, q_fold=fold)
-
-    def plain():
-        attention_cuda.sage_attention_plain(q, k_i8, k_sc, v, is_causal=False, q_fold=fold,
-                                            return_lse=False)
-
-    r = results["sage_attn_fwd"]
-    r["ms"] = cuda_ms(kern, reps=20)
-    r["plain_ms"] = cuda_ms(plain, reps=10, warmup=1)
-    r["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), reps=20)
     pairs = b * h * s * s
     t_ops = (2 * pairs * d / PEAK_INT8_OPS_S + 2 * pairs * d / PEAK_BF16_FLOP_S) * 1e3
-    t_bytes = (q.numel() * 2 + k_i8.numel() + k_sc.numel() * 4 + v.numel() * 2
-               + q.numel() * 2) / PEAK_BYTES_S * 1e3
-    r["bound_ms"] = max(t_ops, t_bytes)
-    r["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    out = {"sdpa_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), reps=20)}
+    for pv in v_types:
+        if pv == "bf16":
+            vq, vs = v, None
+        else:
+            vq, vs, _ = quant_cuda.quant_v_per_channel(v, dtype=quant.V_DTYPES[pv])
+        ms = cuda_ms(lambda vq=vq, vs=vs: attention_cuda.sage_attention_fwd(
+            q, k_i8, k_sc, vq, vs, is_causal=False, q_fold=fold), reps=20)
+        t_bytes = (q.numel() * 2 + k_i8.numel() + k_sc.numel() * 4
+                   + vq.numel() * vq.element_size() + (vs.numel() * 4 if vs is not None else 0)
+                   + q.numel() * 2) / PEAK_BYTES_S * 1e3
+        out[pv] = {"ms": ms, "bound_ms": max(t_ops, t_bytes),
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    if plain:
+        out["plain_ms"] = cuda_ms(lambda: attention_cuda.sage_attention_plain(
+            q, k_i8, k_sc, v, is_causal=False, q_fold=fold, return_lse=False),
+            reps=10, warmup=1)
+    return out
+
+
+def time_quant_v(gen, results):
+    """Kernel 5 at the CogVideoX-2B layer shape and kernel 6's two launches
+    at the Wan2.1 one, with fp8 e4m3 codes and no smoothing, as the
+    "sage_fp8" servers run them.  No single PyTorch call computes them.
+    ``v_channel_stats`` is timed with its combine of the blocks."""
+    import torch
+    from sageattention_tpu_torch.ops import quant_cuda as qc
+
+    e4m3 = torch.float8_e4m3fn
+    for name, shape in (("quant_v_per_channel", COG), ("v_channel_stats", WAN),
+                        ("quant_v_apply", WAN)):
+        b, h, s, d = shape.values()
+        v = random_v(gen, (b, h, s, d))
+        n, vecs = v.numel(), b * h * d * 4  # elements; bytes of one [b,h,d] fp32
+        r = results[name]
+        if name == "quant_v_per_channel":
+            r["ms"] = cuda_ms(lambda: qc.quant_v_per_channel(v, dtype=e4m3))
+            r["plain_ms"] = cuda_ms(lambda: qc.quant_v_per_channel_plain(v, dtype=e4m3,
+                                                                         smooth=False))
+            moved = n * 2 + n + vecs  # V in, codes and scales out
+        elif name == "v_channel_stats":
+            r["ms"] = cuda_ms(lambda: qc.v_channel_stats(v, smooth=False))
+            r["plain_ms"] = cuda_ms(lambda: qc.v_channel_stats_plain(v, smooth=False))
+            moved = n * 2 + 2 * vecs  # V in, max and min out
+        else:
+            gmax, gmin, _ = qc.v_channel_stats(v, smooth=False)
+            _, rs = qc.v_scale_from_stats(gmax, gmin, None, e4m3)
+            r["ms"] = cuda_ms(lambda: qc.quant_v_apply(v, rs, None, dtype=e4m3))
+            r["plain_ms"] = cuda_ms(lambda: qc.quant_v_apply_plain(v, rs, None, dtype=e4m3))
+            moved = n * 2 + vecs + n  # V and 1/scale in, codes out
+        r["library_ms"] = None
+        r["bound_ms"] = moved / PEAK_BYTES_S * 1e3
+        r["bound_by"] = "bytes"
+        log(f"time {name} at {tuple(shape.values())} e4m3: {r['ms']:.4f} ms (bound "
+            f"{r['bound_ms']:.4f} ms, bytes), plain {r['plain_ms']:.4f} ms")
 
 
 def time_backward(gen, results) -> dict:
@@ -729,7 +962,8 @@ def time_backward(gen, results) -> dict:
              "sdpa_fwd_bwd_ms": sdpa_fb, "sdpa_fwd_ms": sdpa_f, "sdpa_bwd_ms": sdpa_bwd}
     log(f"one layer's attention at {tuple(COG.values())}: sage fwd+bwd {sage_fb:.3f} ms, "
         f"SDPA fwd+bwd {sdpa_fb:.3f} ms (fwd {sdpa_f:.3f}, bwd {sdpa_bwd:.3f})")
-    for name, r in results.items():
+    for name in FORWARD + BACKWARD:
+        r = results[name]
         log(f"time {name} at {tuple(COG.values())}: {r['ms']:.4f} ms (bound "
             f"{r['bound_ms']:.4f} ms, {r['bound_by']}), plain {r['plain_ms']:.4f} ms, "
             f"library {r['library_ms']} ms")
@@ -739,8 +973,8 @@ def time_backward(gen, results) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one denoise step and one training step into "
-                         "chiprun_out/")
+                    help="also profile one step of each server and one training step "
+                         "into chiprun_out/")
     args = ap.parse_args()
 
     import torch
@@ -777,34 +1011,48 @@ def main() -> int:
                              "replaces": "sageattention_tpu/ops/attention_bwd_pallas.py:82"},
         "sage_attn_bwd_dkv": {"route": "cuda", "source": src + "attention_bwd.cu",
                               "replaces": "sageattention_tpu/ops/attention_bwd_pallas.py:238"},
+        "quant_v_per_channel": {"route": "cuda", "source": src + "quant_v.cu",
+                                "replaces": "sageattention_tpu/ops/quant_pallas.py:512"},
+        "v_channel_stats": {"route": "cuda", "source": src + "quant_v.cu",
+                            "replaces": "sageattention_tpu/ops/quant_pallas.py:429"},
+        "quant_v_apply": {"route": "cuda", "source": src + "quant_v.cu",
+                          "replaces": "sageattention_tpu/ops/quant_pallas.py:429"},
     }
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     t_phase = time.perf_counter()
     check_quant(gen, results)
+    check_quant_v(gen, results)
     check_attention(gen, results)
     check_quant_q(gen, results)
     check_backward(gen, results)
     log(f"kernel checks: {time.perf_counter() - t_phase:.1f} s")
-    t_phase = time.perf_counter()
-    server = run_server(results, args.profile)
-    log(f"server phase: {time.perf_counter() - t_phase:.1f} s")
+    servers = {}
+    for path, model, backend, launched, bf16_steps in (
+            ("server", "cogvideox-2b", "sage", FORWARD, 0),
+            ("server_fp8", "cogvideox-2b", "sage_fp8", FORWARD + ("quant_v_per_channel",), 0),
+            ("server_wan", "wan2.1-t2v-1.3b", "sage_fp8",
+             FORWARD + ("v_channel_stats", "quant_v_apply"), 2)):
+        t_phase = time.perf_counter()
+        servers[path] = run_server(results, args.profile, model=model, backend=backend,
+                                   path=path, launched=launched, bf16_steps=bf16_steps)
+        log(f"server phase {path}: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     trainer = run_train(results, args.profile)
     log(f"trainer phase: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     time_kernels(gen, results)
+    time_quant_v(gen, results)
     layer = time_backward(gen, results)
     log(f"timing phase: {time.perf_counter() - t_phase:.1f} s")
 
     kernels = []
     for name, r in results.items():
-        # each kernel's launches on the path that runs it: the server's for
-        # the forward kernels, the trainer's for the backward ones (the
-        # trainer runs the forward kernels too: launches_by_path)
-        r["launches"] = r["launches_by_path"]["train" if name in BACKWARD else "server"]
+        # each kernel's launches on the main path that runs it (MAIN_PATH);
+        # launches_by_path has every path's
+        r["launches"] = r["launches_by_path"][MAIN_PATH[name]]
         kernels.append({"name": name, **r, "max_err": r["max_abs_err"]})
-    log(json.dumps({"server": server}))
+    log(json.dumps({"servers": servers}))
     log(json.dumps({"train": trainer}))
     log(json.dumps({"layer": layer}))
     log(json.dumps({"kernels": kernels}))

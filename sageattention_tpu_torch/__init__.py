@@ -1,4 +1,4 @@
-"""sageattention_tpu_torch: the SageAttention forward in PyTorch, with
+"""sageattention_tpu_torch: SageAttention in PyTorch, forward and backward, with
 hand-written CUDA kernels for NVIDIA Hopper (H100, sm_90a).
 
 The port of the JAX package ``sageattention_tpu``, which stays the
@@ -7,6 +7,12 @@ kernels are compiled with ``nvcc`` on their first use on a CUDA tensor.
 """
 
 from sageattention_tpu_torch import models
-from sageattention_tpu_torch.core import sageattn, sageattn_qk_int8_pv_bf16
+from sageattention_tpu_torch.core import (
+    sageattn,
+    sageattn_qk_int8_pv_bf16,
+    sageattn_qk_int8_pv_fp8,
+    sageattn_qk_int8_pv_int8,
+)
 
-__all__ = ["sageattn", "sageattn_qk_int8_pv_bf16", "models"]
+__all__ = ["sageattn", "sageattn_qk_int8_pv_bf16", "sageattn_qk_int8_pv_int8",
+           "sageattn_qk_int8_pv_fp8", "models"]

@@ -2,9 +2,15 @@
 //
 // Replaces the TPU kernel attention_pallas.py:sage_attention_fused
 // (_kernel / _kernel_single, bodies _compute_parts, _merge_parts,
-// _merge_into_scratch) for bf16 V: non-causal and causal (top-left,
-// col <= row), GQA, the base-2 LSE, per-row Q quantization inside the
-// kernel and ragged sq / sk.
+// _merge_into_scratch): non-causal and causal (top-left, col <= row), GQA,
+// the base-2 LSE, per-row Q quantization inside the kernel, ragged sq / sk,
+// and V stored as bf16 or as int8 / fp8 e4m3 / fp8 e5m2 codes with a
+// per-channel scale and the smooth-v mean in the epilogue (the TPU
+// kernel's default pv_compute="bf16").  Codes are widened to bf16 as the
+// V tile is stored to shared memory (every int8, e4m3 and e5m2 value is
+// exact in bf16), so P.V runs on the same bf16 tensor cores for every V
+// type.  Native fp8 P.V would round P to fp8, which the JAX kernel does
+// not do, so it is not this kernel's arithmetic.
 //
 // One CTA of four warps per (b, hq, 64-row Q tile); each warp owns 16 Q
 // rows.  The CTA
@@ -23,18 +29,21 @@
 //      -inf, so exp2 gives 0 and no inf - inf arises); P rounded to bf16
 //      and P.V on the bf16 tensor cores (mma.sync.m16n8k16, fp32
 //      accumulate, V fragments by ldmatrix.trans);
-//   4. writes o = acc / l in q's dtype and, if asked, lse2 = log2(l) + m.
-//      Rows >= sq are not written.  When causal, KV tiles wholly above the
-//      diagonal of the Q tile are skipped.
+//   4. writes o = (acc / l) * v_scale + v_mean (each if given) in q's
+//      dtype and, if asked, lse2 = log2(l) + m.  Rows >= sq are not
+//      written.  When causal, KV tiles wholly above the diagonal of the Q
+//      tile are skipped.
 //
-// Bound: operations.  At the CogVideoX-2B layer shape (b=1, h=30,
-// s=17,776, d=64) Q.K^T is 1.21e12 int8 ops and P.V 1.21e12 bf16 FLOP,
-// about 1.84 ms on an H100 SXM's data-sheet peaks, while the bytes (Q, K,
-// V, O once each) take about 0.03 ms.  This first kernel is written to be
+// Bound: operations, whatever V's type.  At the CogVideoX-2B layer shape
+// (b=1, h=30, s=17,776, d=64) Q.K^T is 1.21e12 int8 ops and P.V 1.21e12
+// bf16 FLOP, about 1.84 ms on an H100 SXM's data-sheet peaks, while the
+// bytes (Q, K, V, O once each) take about 0.03 ms.  This first kernel is written to be
 // right: mma.sync (not wgmma), plain synchronous tile loads (no TMA, no
 // cp.async pipeline) and no warp specialisation; those are later work.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -42,6 +51,9 @@
 #include "mma_sm90.cuh"
 
 namespace {
+
+// V storage: bf16, or codes of one byte
+enum VKind { kVBf16 = 0, kVInt8 = 1, kVE4M3 = 2, kVE5M2 = 3 };
 
 constexpr int BM = 64;    // Q rows per CTA
 constexpr int BN = 128;   // KV columns per tile == K-scale group
@@ -72,13 +84,35 @@ __device__ inline void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
-template <int D, bool CAUSAL, typename T>
+// one V code as fp32 (exact)
+template <int VK>
+__device__ inline float code_to_f32(uint8_t c) {
+  if constexpr (VK == kVInt8) {
+    return (float)(int8_t)c;
+  } else {
+    __half_raw h = __nv_cvt_fp8_to_halfraw(c, VK == kVE4M3 ? __NV_E4M3 : __NV_E5M2);
+    return __half2float(__half(h));
+  }
+}
+
+// eight V codes -> eight bf16 values (16 bytes)
+template <int VK>
+__device__ inline uint4 codes_to_bf16x8(uint2 raw) {
+  const uint8_t* c = reinterpret_cast<const uint8_t*>(&raw);
+  uint4 out;
+  uint32_t* w = reinterpret_cast<uint32_t*>(&out);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) w[j] = pack_bf16(code_to_f32<VK>(c[2 * j]), code_to_f32<VK>(c[2 * j + 1]));
+  return out;
+}
+
+template <int D, bool CAUSAL, typename T, int VK>
 __global__ void __launch_bounds__(NTHREADS)
 sage_attn_fwd_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
-                     const float* __restrict__ k_scale,
-                     const __nv_bfloat16* __restrict__ v, T* __restrict__ o,
-                     float* __restrict__ lse2, int hq, int hkv, int sq, int sk,
-                     float qs_mul) {
+                     const float* __restrict__ k_scale, const void* __restrict__ v,
+                     const float* __restrict__ v_scale, const float* __restrict__ v_mean,
+                     T* __restrict__ o, float* __restrict__ lse2, int hq, int hkv, int sq,
+                     int sk, float qs_mul) {
   using L = Layout<D>;
   extern __shared__ __align__(16) unsigned char smem[];
   int8_t* sQ = reinterpret_cast<int8_t*>(smem + L::q_off);
@@ -142,8 +176,15 @@ sage_attn_fwd_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
     }
     for (int i = tid; i < BN * (D / 8); i += NTHREADS) {
       const int r = i / (D / 8), c = i % (D / 8);
+      const size_t e = kv_base + (size_t)(kv0 + r) * D + c * 8;  // first element
       uint4 val = make_uint4(0, 0, 0, 0);
-      if (kv0 + r < sk) val = *reinterpret_cast<const uint4*>(v + kv_base + (size_t)(kv0 + r) * D + c * 8);
+      if constexpr (VK == kVBf16) {
+        if (kv0 + r < sk) val = *reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(v) + e);
+      } else {
+        uint2 raw = make_uint2(0, 0);  // code 0 is 0 in every type
+        if (kv0 + r < sk) raw = *reinterpret_cast<const uint2*>(static_cast<const uint8_t*>(v) + e);
+        val = codes_to_bf16x8<VK>(raw);
+      }
       *reinterpret_cast<uint4*>(sV + r * L::VS + c * 8) = val;
     }
     __syncthreads();
@@ -237,17 +278,31 @@ sage_attn_fwd_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
     }
   }
 
-  // ---- 4. epilogue: o = acc / l, lse2 = log2(l) + m ------------------------
+  // ---- 4. epilogue: o = (acc / l) * v_scale + v_mean, lse2 = log2(l) + m ---
 #pragma unroll
   for (int off = 1; off < 4; off <<= 1) {
     l0 += __shfl_xor_sync(0xffffffffu, l0, off);
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
+  const size_t vc = ((size_t)bi * hkv + hk) * D;  // this kv head's channels
 #pragma unroll
   for (int i = 0; i < D / 8; ++i) {
     const int col = i * 8 + t * 2;
-    if (row0 < sq) store2(o + q_base + (size_t)row0 * D + col, acc[i][0] / l0, acc[i][1] / l0);
-    if (row1 < sq) store2(o + q_base + (size_t)row1 * D + col, acc[i][2] / l1, acc[i][3] / l1);
+    float o0[2] = {acc[i][0] / l0, acc[i][1] / l0};
+    float o1[2] = {acc[i][2] / l1, acc[i][3] / l1};
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      if (v_scale != nullptr) {
+        o0[e] *= v_scale[vc + col + e];
+        o1[e] *= v_scale[vc + col + e];
+      }
+      if (v_mean != nullptr) {  // a row with l == 0 keeps 0
+        o0[e] += l0 > 0.f ? v_mean[vc + col + e] : 0.f;
+        o1[e] += l1 > 0.f ? v_mean[vc + col + e] : 0.f;
+      }
+    }
+    if (row0 < sq) store2(o + q_base + (size_t)row0 * D + col, o0[0], o0[1]);
+    if (row1 < sq) store2(o + q_base + (size_t)row1 * D + col, o1[0], o1[1]);
   }
   if (lse2 != nullptr && t == 0) {
     const size_t lbase = ((size_t)bi * hq + h) * sq;
@@ -256,48 +311,64 @@ sage_attn_fwd_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
   }
 }
 
-template <int D, bool CAUSAL, typename T>
-int launch(const void* q, const void* k, const void* ks, const void* v, void* o,
-           void* lse, int b, int hq, int hkv, int sq, int sk, float qs_mul,
-           cudaStream_t st) {
-  auto kern = sage_attn_fwd_kernel<D, CAUSAL, T>;
+// the launch's operands, as sage_attn_fwd takes them
+struct Args {
+  const void *q, *k, *k_scale, *v, *v_scale, *v_mean;
+  void *o, *lse2;
+  int b, hq, hkv, sq, sk;
+  float qs_mul;
+};
+
+template <int D, bool CAUSAL, typename T, int VK>
+int launch(const Args& a, cudaStream_t st) {
+  auto kern = sage_attn_fwd_kernel<D, CAUSAL, T, VK>;
   const int smem = Layout<D>::bytes;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((sq + BM - 1) / BM, hq, b);
-  kern<<<grid, NTHREADS, smem, st>>>((const T*)q, (const int8_t*)k, (const float*)ks,
-                                     (const __nv_bfloat16*)v, (T*)o, (float*)lse, hq, hkv,
-                                     sq, sk, qs_mul);
+  dim3 grid((a.sq + BM - 1) / BM, a.hq, a.b);
+  kern<<<grid, NTHREADS, smem, st>>>((const T*)a.q, (const int8_t*)a.k, (const float*)a.k_scale,
+                                     a.v, (const float*)a.v_scale, (const float*)a.v_mean,
+                                     (T*)a.o, (float*)a.lse2, a.hq, a.hkv, a.sq, a.sk, a.qs_mul);
   return (int)cudaGetLastError();
 }
 
+template <int D, bool CAUSAL, typename T>
+int launch_v(int v_kind, const Args& a, cudaStream_t st) {
+  switch (v_kind) {
+    case kVBf16: return launch<D, CAUSAL, T, kVBf16>(a, st);
+    case kVInt8: return launch<D, CAUSAL, T, kVInt8>(a, st);
+    case kVE4M3: return launch<D, CAUSAL, T, kVE4M3>(a, st);
+    default: return launch<D, CAUSAL, T, kVE5M2>(a, st);
+  }
+}
+
 template <int D, typename T>
-int launch_c(bool causal, const void* q, const void* k, const void* ks, const void* v,
-             void* o, void* lse, int b, int hq, int hkv, int sq, int sk, float qs_mul,
-             cudaStream_t st) {
-  return causal ? launch<D, true, T>(q, k, ks, v, o, lse, b, hq, hkv, sq, sk, qs_mul, st)
-                : launch<D, false, T>(q, k, ks, v, o, lse, b, hq, hkv, sq, sk, qs_mul, st);
+int launch_c(bool causal, int v_kind, const Args& a, cudaStream_t st) {
+  return causal ? launch_v<D, true, T>(v_kind, a, st) : launch_v<D, false, T>(v_kind, a, st);
 }
 
 }  // namespace
 
 // q: [b,hq,sq,d] (fp32 if q_is_f32 else bf16), unquantized; k: int8
-// [b,hkv,sk,d]; k_scale: fp32 [b,hkv,ceil(sk/group)]; v: bf16 [b,hkv,sk,d];
-// o: [b,hq,sq,d] in q's dtype; lse2: fp32 [b,hq,sq] or NULL.  All
-// contiguous; d in {64, 128}; group must be 128 (the kernel's KV tile);
-// qs_mul = f32(1/127) * f32(sm_scale * log2(e)).
+// [b,hkv,sk,d]; k_scale: fp32 [b,hkv,ceil(sk/group)]; v: [b,hkv,sk,d] of
+// v_kind (0 bf16, 1 int8, 2 fp8 e4m3, 3 fp8 e5m2); v_scale, v_mean: fp32
+// [b,hkv,d] or NULL; o: [b,hq,sq,d] in q's dtype; lse2: fp32 [b,hq,sq] or
+// NULL.  All contiguous; d in {64, 128}; group must be 128 (the kernel's
+// KV tile); qs_mul = f32(1/127) * f32(sm_scale * log2(e)).
 extern "C" int sage_attn_fwd(const void* q, const void* k, const void* k_scale,
-                             const void* v, void* o, void* lse2, int b, int hq,
-                             int hkv, int sq, int sk, int d, int causal,
-                             int q_is_f32, int want_lse, int group, float qs_mul,
-                             void* stream) {
-  if (group != BN || hkv <= 0 || hq % hkv != 0 || (d != 64 && d != 128))
+                             const void* v, const void* v_scale, const void* v_mean,
+                             void* o, void* lse2, int b, int hq, int hkv, int sq, int sk,
+                             int d, int causal, int q_is_f32, int v_kind, int want_lse,
+                             int group, float qs_mul, void* stream) {
+  if (group != BN || hkv <= 0 || hq % hkv != 0 || (d != 64 && d != 128) || v_kind < 0 ||
+      v_kind > 3)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  void* lse = want_lse ? lse2 : nullptr;
+  const Args a{q, k, k_scale, v, v_scale, v_mean, o, want_lse ? lse2 : nullptr,
+               b, hq, hkv, sq, sk, qs_mul};
   if (d == 64)
-    return q_is_f32 ? launch_c<64, float>(causal, q, k, k_scale, v, o, lse, b, hq, hkv, sq, sk, qs_mul, st)
-                    : launch_c<64, __nv_bfloat16>(causal, q, k, k_scale, v, o, lse, b, hq, hkv, sq, sk, qs_mul, st);
-  return q_is_f32 ? launch_c<128, float>(causal, q, k, k_scale, v, o, lse, b, hq, hkv, sq, sk, qs_mul, st)
-                  : launch_c<128, __nv_bfloat16>(causal, q, k, k_scale, v, o, lse, b, hq, hkv, sq, sk, qs_mul, st);
+    return q_is_f32 ? launch_c<64, float>(causal, v_kind, a, st)
+                    : launch_c<64, __nv_bfloat16>(causal, v_kind, a, st);
+  return q_is_f32 ? launch_c<128, float>(causal, v_kind, a, st)
+                  : launch_c<128, __nv_bfloat16>(causal, v_kind, a, st);
 }

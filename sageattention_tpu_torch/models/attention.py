@@ -7,6 +7,8 @@ passed to a module picks the backend for that module alone.
 Backends (HND [b, h, s, d] tensors):
   "sage"       -- the default ``sageattn`` (int8 Q.K^T, bf16 P.V)
   "sage_bf16"  -- ``sageattn_qk_int8_pv_bf16``, the same kernels
+  "sage_fp8"   -- ``sageattn_qk_int8_pv_fp8``: fp8 e4m3 V codes with
+                  per-channel scales (the V quantizer, then the same kernel)
   "reference"  -- exact fp32 attention (``ops.reference``)
 
 The registry is process-wide state, as in the JAX package: tests that
@@ -59,6 +61,12 @@ register_backend(
 register_backend(
     "sage_bf16",
     lambda q, k, v, *, is_causal, sm_scale, **kw: core.sageattn_qk_int8_pv_bf16(
+        q, k, v, is_causal=is_causal, sm_scale=sm_scale, **kw
+    ),
+)
+register_backend(
+    "sage_fp8",
+    lambda q, k, v, *, is_causal, sm_scale, **kw: core.sageattn_qk_int8_pv_fp8(
         q, k, v, is_causal=is_causal, sm_scale=sm_scale, **kw
     ),
 )

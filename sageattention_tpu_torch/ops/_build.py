@@ -39,8 +39,13 @@ SIGNATURES = {
     "quant_q": {
         "quant_q_per_token": [P, P, P, ctypes.c_longlong, I, I, F, P],
     },
+    "quant_v": {
+        "quant_v_per_channel": [P] * 4 + [I] * 6 + [P],
+        "quant_v_stats": [P] * 4 + [I] * 5 + [P],
+        "quant_v_apply": [P] * 4 + [I] * 6 + [P],
+    },
     "attention_fwd": {
-        "sage_attn_fwd": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, F, P],
+        "sage_attn_fwd": [P] * 8 + [I] * 11 + [F, P],
     },
     "attention_bwd": {
         "sage_attn_bwd_dq": [P] * 10 + [I] * 8 + [F, P],

@@ -8,13 +8,17 @@ int8 codes and base-2 LSE, so it is the gradient of what the forward
 computed, not of a different kernel.
 
 * Forward: the forward of ``core`` with its LSE.  It saves q, k, v, o, the
-  base-2 LSE and the forward's K codes, K scales and smooth-k mean, so the
-  backward quantizes nothing but Q.
+  base-2 LSE, the forward's K codes, K scales and smooth-k mean and, with
+  quantized V, the V codes, scales and smooth-v mean, so the backward
+  quantizes nothing but Q.
 * Backward: Q quantized again by ``quant_q_per_token`` (bit for bit the
   forward kernel's in-kernel quantization, which the saved LSE was built
-  from), ``K_sm = bf16(K - km)``, ``dvec = rowsum(dO * O) - dlse`` in plain
-  PyTorch, then the dQ and dK/dV kernels and the smooth-k LSE term
-  ``dQ += dlse * km * sm_scale``.
+  from), ``K_sm = bf16(K - km)``, the V the forward multiplied
+  (``bf16(v_q * v_scale + v_mean)`` from the saved codes, or ``bf16(V)``;
+  ``attention_bwd_pallas.py:506-532``), ``dvec = rowsum(dO * O) - dlse``
+  in plain PyTorch, then the dQ and dK/dV kernels and the smooth-k LSE
+  term ``dQ += dlse * km * sm_scale``.  dV is Pt.dO, straight through the
+  V quantizer.
 
 Every length is taken: the kernels mask the ragged edge.  (The JAX fused
 backward takes only multiples of 128 and falls back to an exact,
@@ -32,18 +36,33 @@ from sageattention_tpu_torch.ops import attention_bwd_cuda, quant_cuda
 LOG2E = 1.4426950408889634
 
 
-def backward_operands(q, k, v, do, *, o, k_i8, km, dlse, sm_scale: float) -> dict:
+def effective_v(v, v_q, v_scale, v_mean, d_pad: int) -> torch.Tensor:
+    """The V the forward multiplied, bf16 at the padded head dim: from the
+    saved codes ``bf16(v_q * v_scale + v_mean)``, or ``bf16(V)`` when V was
+    not quantized."""
+    if v_scale is None:
+        return core._pad_d(v.to(torch.bfloat16), d_pad)
+    v_eff = v_q.float() * v_scale[..., None, :]
+    if v_mean is not None:
+        v_eff = v_eff + v_mean[..., None, :]
+    return v_eff.to(torch.bfloat16)
+
+
+def backward_operands(q, k, v, do, *, o, k_i8, km, dlse, sm_scale: float, v_q=None,
+                      v_scale=None, v_mean=None) -> dict:
     """The backward kernels' operands besides the forward's K codes, K
     scales and LSE: the Q codes and scales (``quant_q_per_token``), bf16
-    Q, K - km, V and dO at the forward's padded head dim, and ``dvec`` =
-    rowsum(dO * O) - dlse in fp32."""
+    Q, K - km, the effective V (:func:`effective_v`) and dO at the
+    forward's padded head dim, and ``dvec`` = rowsum(dO * O) - dlse in
+    fp32."""
     d_pad = k_i8.shape[-1]
     qp = core._pad_d(q.to(core._work_dtype(q.dtype)), d_pad)
     q_i8, q_scale = quant_cuda.quant_q_per_token(qp, scale_fold=sm_scale * LOG2E)
     k_sm = core._pad_d(k.to(core._work_dtype(k.dtype)), d_pad).float()
     if km is not None:
         k_sm = k_sm - km[..., None, :]
-    q_bf, v_bf, do_bf = (core._pad_d(x.to(torch.bfloat16), d_pad) for x in (q, v, do))
+    q_bf, do_bf = (core._pad_d(x.to(torch.bfloat16), d_pad) for x in (q, do))
+    v_bf = effective_v(v, v_q, v_scale, v_mean, d_pad)
     dvec = (do.float() * o.float()).sum(dim=-1)
     if dlse is not None:
         dvec = dvec - dlse.float()
@@ -52,13 +71,15 @@ def backward_operands(q, k, v, do, *, o, k_i8, km, dlse, sm_scale: float) -> dic
 
 
 def quantized_attention_vjp(q, k, v, do, *, o, lse2, k_i8, k_scale, km, dlse, is_causal: bool,
-                            sm_scale: float):
+                            sm_scale: float, v_q=None, v_scale=None, v_mean=None):
     """(dq, dk, dv) in the dtypes of q, k, v, from the forward's residuals:
     ``o`` (q's dtype), ``lse2`` (base 2), ``k_i8``/``k_scale``/``km`` (the
-    forward's K quantization, head dim padded).  ``dlse`` is the cotangent
-    of the natural-log LSE, or None."""
+    forward's K quantization, head dim padded) and, with quantized V,
+    ``v_q``/``v_scale``/``v_mean`` (its V quantization, head dim padded).
+    ``dlse`` is the cotangent of the natural-log LSE, or None."""
     d_og = q.shape[-1]
-    ops = backward_operands(q, k, v, do, o=o, k_i8=k_i8, km=km, dlse=dlse, sm_scale=sm_scale)
+    ops = backward_operands(q, k, v, do, o=o, k_i8=k_i8, km=km, dlse=dlse, sm_scale=sm_scale,
+                            v_q=v_q, v_scale=v_scale, v_mean=v_mean)
     common = dict(q_i8=ops["q_i8"], q_scale=ops["q_scale"], k_i8=k_i8, k_scale=k_scale,
                   v=ops["v"], do=ops["do"], lse2=lse2, dvec=ops["dvec"],
                   is_causal=is_causal, sm_scale=sm_scale)
@@ -76,14 +97,18 @@ def quantized_attention_vjp(q, k, v, do, *, o, lse2, k_i8, k_scale, km, dlse, is
 class SageAttnFunction(torch.autograd.Function):
     """``sageattn`` on HND tensors with the fused quantized backward.
 
-    ``apply(q, k, v, is_causal, sm_scale, smooth_k, return_lse)`` returns o,
-    or (o, lse) with ``return_lse``; both are differentiable."""
+    ``apply(q, k, v, is_causal, sm_scale, smooth_k, return_lse, pv_dtype,
+    smooth_v)`` returns o, or (o, lse) with ``return_lse``; both are
+    differentiable."""
 
     @staticmethod
-    def forward(ctx, q, k, v, is_causal, sm_scale, smooth_k, return_lse):
-        f = core._forward(q, k, v, is_causal=is_causal, sm_scale=sm_scale,
-                          smooth_k=smooth_k, return_lse=True)
-        ctx.save_for_backward(q, k, v, f.o, f.lse2, f.k_i8, f.k_scale, f.km)
+    def forward(ctx, q, k, v, is_causal, sm_scale, smooth_k, return_lse, pv_dtype, smooth_v):
+        f = core._forward(q, k, v, is_causal=is_causal, sm_scale=sm_scale, smooth_k=smooth_k,
+                          return_lse=True, pv_dtype=pv_dtype, smooth_v=smooth_v)
+        # the V codes only when quantized: bf16 V is rebuilt from v
+        v_q = f.v_q if f.v_scale is not None else None
+        ctx.save_for_backward(q, k, v, f.o, f.lse2, f.k_i8, f.k_scale, f.km, v_q, f.v_scale,
+                              f.v_mean if v_q is not None else None)
         ctx.is_causal, ctx.sm_scale, ctx.return_lse = is_causal, f.sm_scale, return_lse
         if return_lse:
             return f.o, core._lse_nat(f.lse2, q, f.km, f.sm_scale)
@@ -91,9 +116,9 @@ class SageAttnFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do, dlse=None):
-        q, k, v, o, lse2, k_i8, k_scale, km = ctx.saved_tensors
+        q, k, v, o, lse2, k_i8, k_scale, km, v_q, v_scale, v_mean = ctx.saved_tensors
         dq, dk, dv = quantized_attention_vjp(
             q, k, v, do, o=o, lse2=lse2, k_i8=k_i8, k_scale=k_scale, km=km,
             dlse=dlse if ctx.return_lse else None, is_causal=ctx.is_causal,
-            sm_scale=ctx.sm_scale)
-        return dq, dk, dv, None, None, None, None
+            sm_scale=ctx.sm_scale, v_q=v_q, v_scale=v_scale, v_mean=v_mean)
+        return dq, dk, dv, None, None, None, None, None, None

@@ -1,12 +1,14 @@
-"""int8 quantizers: CUDA wrappers and plain versions.
+"""Quantizers: CUDA wrappers and plain versions.
 
 Replaces the TPU kernels ``sageattention_tpu/ops/quant_pallas.py``:
 ``quant_k_fused_mean`` (``_quant_k_fused_kernel``) and
 ``quant_k_chunked`` (``_quant_k_kernel``), in ``csrc/quant_k.cu``, which
-says what bounds them (bytes) and why K is read twice on this card; and
+says what bounds them (bytes) and why K is read twice on this card;
 ``quant_q_per_token`` (``_quant_rows_kernel``), in ``csrc/quant_q.cu``,
 which the backward uses to quantize Q again exactly as the forward kernel
-did inside itself.
+did inside itself; and the per-channel V quantizers ``quant_v_per_channel``
+(``_quant_v_kernel``) and ``_quant_v_blocked`` (``_v_stats_kernel``,
+``_v_apply_kernel``), in ``csrc/quant_v.cu``.
 
 On a CPU tensor every function here runs its plain PyTorch version; on a
 CUDA tensor it launches its kernel or raises.  Each wrapper counts its
@@ -16,11 +18,18 @@ launches in ``<function>.launches``.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from sageattention_tpu_torch import quant
 from sageattention_tpu_torch.ops import _build
 
 _KDTYPES = (torch.bfloat16, torch.float32)
+# the single-pass V kernel takes a (b,h) slab of at most this many bytes,
+# counted on the caller's V (s * d * itemsize); larger slabs take the
+# two-pass kernels, by the JAX package's rule (quant_pallas._V_VMEM_BYTES)
+V_SINGLE_PASS_BYTES = 4 * 2**20
+# rows of one CTA of the two-pass V kernels
+V_BLOCK_ROWS = 512
 
 
 def _check_input(x: torch.Tensor, what: str = "K quantizer") -> None:
@@ -129,3 +138,153 @@ def quant_k_fused_mean(k: torch.Tensor, *, group: int, smooth: bool = True):
     km = k_channel_mean(k) if smooth else None
     k_i8, scales = quant_k_chunked(k, km, group=group)
     return k_i8, scales, km
+
+
+# --------------------------------------------------------------------------
+# V: per-channel scales (+ the smooth-v mean); codes int8, e4m3 or e5m2
+# --------------------------------------------------------------------------
+
+
+def quant_v_per_channel_plain(v: torch.Tensor, *, dtype: torch.dtype, smooth: bool):
+    """The spec: ``quant.per_channel_quant``."""
+    return quant.per_channel_quant(v, dtype=dtype, smooth=smooth)
+
+
+def quant_v_per_channel(v: torch.Tensor, *, dtype: torch.dtype, smooth: bool = False,
+                        d_pad: int | None = None):
+    """Per-channel V quantization: (codes [b,h,s,d_pad] in ``dtype``,
+    scales [b,h,d_pad] fp32, the smooth-v mean [b,h,d_pad] fp32 or None).
+    V is zero-padded to ``d_pad`` channels (default its own d; the kernels
+    take 64 or 128), and pad channels get code 0 and mean 0.
+
+    ``v`` is the caller's [b,h,s,d].  A (b,h) slab of more than
+    ``V_SINGLE_PASS_BYTES`` (s * d * its itemsize) goes to the two-pass
+    :func:`quant_v_blocked`; a smaller one to the single-pass kernel,
+    whose launches this function counts."""
+    blocked = v.shape[-2] * v.shape[-1] * v.element_size() > V_SINGLE_PASS_BYTES
+    # bf16 or fp32, as the kernels read it (fp16 widens exactly)
+    x = v if v.dtype in _KDTYPES else v.float()
+    x = F.pad(x, (0, (d_pad or v.shape[-1]) - v.shape[-1])).contiguous()
+    if blocked:
+        return quant_v_blocked(x, dtype=dtype, smooth=smooth)
+    if x.device.type == "cpu":
+        return quant_v_per_channel_plain(x, dtype=dtype, smooth=smooth)
+    _check_input(x, "V quantizer")
+    b, h, s, d = x.shape
+    out = torch.empty(b, h, s, d, dtype=dtype, device=x.device)
+    scale = torch.empty(b, h, d, dtype=torch.float32, device=x.device)
+    mean = torch.empty_like(scale) if smooth else None
+    with torch.cuda.device(x.device):  # the launch goes to the current device
+        err = _build.lib("quant_v").quant_v_per_channel(
+            x.data_ptr(), out.data_ptr(), scale.data_ptr(),
+            mean.data_ptr() if smooth else None, b * h, s, d,
+            int(x.dtype == torch.bfloat16), quant.V_CODE_TYPES.index(dtype), int(smooth),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _build.check(err, "quant_v_per_channel")
+    quant_v_per_channel.launches += 1
+    return out, scale, mean
+
+
+quant_v_per_channel.launches = 0
+
+
+def v_channel_stats_plain(v: torch.Tensor, *, smooth: bool):
+    """(max, min, mean or None) of each channel over the sequence, [b,h,d]
+    fp32 each."""
+    x = v.float()
+    return x.amax(dim=-2), x.amin(dim=-2), x.mean(dim=-2) if smooth else None
+
+
+def v_channel_stats(v: torch.Tensor, *, smooth: bool):
+    """Pass 1 of the two-pass V quantizer: the kernel takes each block of
+    ``V_BLOCK_ROWS`` rows' max, min and sum; the blocks are combined here,
+    mean = sum / s (``quant_pallas.py:475-476``)."""
+    if v.device.type == "cpu":
+        return v_channel_stats_plain(v, smooth=smooth)
+    _check_input(v, "V statistics")
+    b, h, s, d = v.shape
+    parts = torch.empty(3, b * h, -(-s // V_BLOCK_ROWS), d, dtype=torch.float32,
+                        device=v.device)
+    with torch.cuda.device(v.device):  # the launch goes to the current device
+        err = _build.lib("quant_v").quant_v_stats(
+            v.data_ptr(), parts[0].data_ptr(), parts[1].data_ptr(), parts[2].data_ptr(),
+            b * h, s, d, V_BLOCK_ROWS, int(v.dtype == torch.bfloat16),
+            torch.cuda.current_stream(v.device).cuda_stream,
+        )
+    _build.check(err, "quant_v_stats")
+    v_channel_stats.launches += 1
+    gmax, gmin, gsum = (x.reshape(b, h, -1, d) for x in parts)
+    return gmax.amax(dim=2), gmin.amin(dim=2), gsum.sum(dim=2) / s if smooth else None
+
+
+v_channel_stats.launches = 0
+
+
+def v_scale_from_stats(gmax: torch.Tensor, gmin: torch.Tensor, mean: torch.Tensor | None,
+            dtype: torch.dtype):
+    """(scale, 1/scale) from the channel statistics: amax = max(gmax -
+    mean, mean - gmin), which equals max|x - mean| exactly (a rounded
+    subtraction is monotone), or max(gmax, -gmin) without the mean."""
+    if mean is None:
+        amax = torch.maximum(gmax, -gmin)
+    else:
+        amax = torch.maximum(gmax - mean, mean - gmin)
+    return quant.inv_scale(amax, quant.QMAX[dtype])
+
+
+def quant_v_apply_plain(v: torch.Tensor, r: torch.Tensor, mean: torch.Tensor | None, *,
+                        dtype: torch.dtype) -> torch.Tensor:
+    """Codes of ``(v - mean) * r`` (``_v_apply_kernel``): fp8 values are
+    clamped to +-qmax before the cast, int8 after rounding."""
+    x = v.float()
+    if mean is not None:
+        x = x - mean[..., None, :]
+    scaled = x * r[..., None, :]
+    if dtype != torch.int8:
+        scaled = scaled.clamp(-quant.QMAX[dtype], quant.QMAX[dtype])
+    return quant.v_codes(scaled, dtype)
+
+
+def quant_v_apply(v: torch.Tensor, r: torch.Tensor, mean: torch.Tensor | None, *,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """Pass 2 of the two-pass V quantizer: codes [b,h,s,d] in ``dtype``
+    from ``r`` = 1/scale and the mean (or None), both [b,h,d] fp32."""
+    if v.device.type == "cpu":
+        return quant_v_apply_plain(v, r, mean, dtype=dtype)
+    _check_input(v, "V quantizer")
+    b, h, s, d = v.shape
+    for name, x in (("r", r), ("mean", mean)):
+        if x is not None and (x.dtype != torch.float32 or x.shape != (b, h, d)
+                              or not x.is_contiguous() or x.device != v.device):
+            raise ValueError(f"{name} must be contiguous fp32 {(b, h, d)} on {v.device}")
+    out = torch.empty(b, h, s, d, dtype=dtype, device=v.device)
+    with torch.cuda.device(v.device):  # the launch goes to the current device
+        err = _build.lib("quant_v").quant_v_apply(
+            v.data_ptr(), r.data_ptr(), mean.data_ptr() if mean is not None else None,
+            out.data_ptr(), b * h, s, d, V_BLOCK_ROWS, int(v.dtype == torch.bfloat16),
+            quant.V_CODE_TYPES.index(dtype), torch.cuda.current_stream(v.device).cuda_stream,
+        )
+    _build.check(err, "quant_v_apply")
+    quant_v_apply.launches += 1
+    return out
+
+
+quant_v_apply.launches = 0
+
+
+def quant_v_blocked_plain(v: torch.Tensor, *, dtype: torch.dtype, smooth: bool):
+    """The two-pass quantizer in plain PyTorch: statistics, scales, codes."""
+    gmax, gmin, mean = v_channel_stats_plain(v, smooth=smooth)
+    scale, r = v_scale_from_stats(gmax, gmin, mean, dtype)
+    return quant_v_apply_plain(v, r, mean, dtype=dtype), scale, mean
+
+
+def quant_v_blocked(v: torch.Tensor, *, dtype: torch.dtype, smooth: bool):
+    """The two-pass V quantizer (``_quant_v_blocked``) on [b,h,s,d], d in
+    (64, 128): ``v_channel_stats``, the scales in PyTorch (the JAX
+    package's XLA combine), ``quant_v_apply``.  Returns (codes, scales,
+    mean or None)."""
+    gmax, gmin, mean = v_channel_stats(v, smooth=smooth)
+    scale, r = v_scale_from_stats(gmax, gmin, mean, dtype)
+    return quant_v_apply(v, r, mean, dtype=dtype), scale, mean

@@ -75,6 +75,8 @@ def quantized_attention_reference(
     k_i8: torch.Tensor,
     k_scale: torch.Tensor,
     v: torch.Tensor,
+    v_scale: torch.Tensor | None = None,
+    v_mean: torch.Tensor | None = None,
     *,
     is_causal: bool = False,
     return_lse: bool = False,
@@ -84,8 +86,11 @@ def quantized_attention_reference(
 
     ``q_scale`` [b,hq,sq] and ``k_scale`` [b,hkv,sk] are per-row fp32
     scales, with ``sm_scale * log2(e)`` folded into ``q_scale``; ``v`` is
-    the bf16 (or fp32) V.  Returns o and, if asked, the base-2 LSE
-    ``log2(l) + m`` as the kernel stores it.
+    the bf16 (or fp32) V, or its int8 / fp8 codes with the per-channel
+    ``v_scale`` [b,hkv,d]; ``v_mean`` [b,hkv,d], if given, is added back
+    (smooth-v).  The epilogue runs in the JAX order ``(pv * v_scale) / l +
+    v_mean``.  Returns o and, if asked, the base-2 LSE ``log2(l) + m`` as
+    the kernel stores it.
 
     The int8 product runs as an fp32 matmul of the codes, which is exact:
     |sum| <= 127^2 * d < 2^24 for d <= 1024.  P stays fp32 here, where the
@@ -105,7 +110,13 @@ def quantized_attention_reference(
             m = s.amax(dim=-1, keepdim=True)
             p = torch.exp2(s - m)
             l = p.sum(dim=-1, keepdim=True)
-            o[bi, h] = ((p @ v[bi, hk].float()) / l).to(out_dtype)
+            pv = p @ v[bi, hk].float()
+            if v_scale is not None:
+                pv = pv * v_scale[bi, hk]
+            oh = pv / l
+            if v_mean is not None:
+                oh = oh + v_mean[bi, hk]
+            o[bi, h] = oh.to(out_dtype)
             lse2[bi, h] = (torch.log2(l) + m)[:, 0]
     return (o, lse2) if return_lse else o
 

@@ -1,7 +1,7 @@
 """Numerical spec of the quantizers, in PyTorch.
 
-A copy of the JAX package's ``quant.py`` for the functions the default
-``sageattn`` forward needs.  The CUDA kernels (``ops/quant_cuda.py``,
+A copy of the JAX package's ``quant.py`` for the functions the port's
+``sageattn`` needs, quantized V among them.  The CUDA kernels (``ops/quant_cuda.py``,
 ``ops/attention_cuda.py``) compute exactly this chain, so the CPU tests
 check the same numbers the card produces:
 
@@ -87,3 +87,33 @@ def sub_mean(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     x = x.float()
     mean = x.mean(dim=-2)
     return x - mean[..., None, :], mean
+
+
+# pv_dtype -> V code type
+V_DTYPES = {"int8": torch.int8, "fp8": torch.float8_e4m3fn, "fp8_e5m2": torch.float8_e5m2}
+# the largest magnitude of each V code type; its position here is the
+# kernels' code for it (csrc/quant_v.cu; csrc/attention_fwd.cu counts bf16
+# V as 0 and these from 1)
+QMAX = {torch.int8: 127.0, torch.float8_e4m3fn: 448.0, torch.float8_e5m2: 57344.0}
+V_CODE_TYPES = tuple(QMAX)
+
+
+def v_codes(scaled: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """V codes from ``x * (1/scale)``: int8 ``round_half_away``, clipped to
+    +-127; fp8 the cast, which rounds to nearest even."""
+    if dtype == torch.int8:
+        return round_half_away(scaled).clamp(-INT8_QMAX, INT8_QMAX).to(torch.int8)
+    return scaled.to(dtype)
+
+
+def per_channel_quant(v: torch.Tensor, *, dtype=torch.int8, smooth: bool = False):
+    """Per-(b,h,d)-channel quantization of V [b,h,s,d]: (codes in
+    ``dtype``, scales [b,h,d] fp32, the smooth-v mean [b,h,d] or None).
+    ``dtype`` is int8, ``float8_e4m3fn`` or ``float8_e5m2``."""
+    v = v.float()
+    v_mean = None
+    if smooth:
+        v, v_mean = sub_mean(v)
+    amax = v.abs().amax(dim=-2)
+    scale, r = inv_scale(amax, QMAX[dtype])
+    return v_codes(v * r[..., None, :], dtype), scale, v_mean

@@ -15,8 +15,11 @@
 * At ragged lengths, where the JAX package falls back to its exact fp32
   recompute, the port's gradients against that exact VJP: cosine >= 0.999,
   the level ``tests/test_autodiff.py`` accepts between the two.
-* NHD gives HND's gradients, and the backward reuses the forward's K codes:
-  it quantizes Q once and K never.
+* With V codes (int8, fp8) or smooth-v, the gradients against
+  ``quantized_attention_vjp(pv_dtype=..., smooth_v=..., fwd_res=...)`` fed
+  the forward's V codes, scales and mean, at the bf16 tolerances.
+* NHD gives HND's gradients, and the backward reuses the forward's K codes
+  and V codes: it quantizes Q once and K and V never.
 """
 
 import jax
@@ -124,21 +127,30 @@ def test_plain_backward_matches_pallas(name):
     _assert_close_grads((dq, dk, dv), want, cos_min=0.99999, rel_max=1e-3)
 
 
-def _jax_fused_vjp(q, k, v, do, *, causal, dlse=None):
+V_CODES = {"int8": jnp.int8, "fp8": jnp.float8_e4m3fn, "fp8_e5m2": jnp.float8_e5m2}
+
+
+def _jax_fused_vjp(q, k, v, do, *, causal, dlse=None, pv_dtype="bf16", smooth_v=False):
     """The JAX fused backward on the forward of ``_sageattn_hnd(impl="xla")``
-    with that forward's K quantization as residuals."""
+    with that forward's K quantization and, for V codes, its V quantization
+    as residuals."""
     jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
     o, lse = jcore._sageattn_hnd(
         jq, jk, jv, None, None, None, None, None, None,
-        impl="xla", chunk_k=G, qk_quant_gran="auto", pv_dtype="bf16", smooth_k=True,
-        smooth_v=False, return_lse=True, is_causal=causal, sm_scale=None,
+        impl="xla", chunk_k=G, qk_quant_gran="auto", pv_dtype=pv_dtype, smooth_k=True,
+        smooth_v=smooth_v, return_lse=True, is_causal=causal, sm_scale=None,
         block_q=128, block_k=128)
     km = jnp.mean(jk, axis=-2)
     k_i8, k_scale = jquant.quant_int8_block_scales(jk - km[..., None, :], group=G)
+    fwd_res = {"k_i8": k_i8, "k_scale": k_scale, "km": km}
+    if pv_dtype in V_CODES:
+        v_q, v_scale, v_mean = jquant.per_channel_quant(jv, dtype=V_CODES[pv_dtype],
+                                                        smooth=smooth_v)
+        fwd_res.update(v_q=v_q, v_scale=v_scale, v_mean=v_mean)
     return attention_bwd_pallas.quantized_attention_vjp(
         jq, jk, jv, jnp.asarray(do), is_causal=causal, sm_scale=None, o=o, lse_nat=lse,
-        dlse=None if dlse is None else jnp.asarray(dlse),
-        fwd_res={"k_i8": k_i8, "k_scale": k_scale, "km": km}, interpret=True)
+        dlse=None if dlse is None else jnp.asarray(dlse), pv_dtype=pv_dtype,
+        smooth_v=smooth_v, fwd_res=fwd_res, interpret=True)
 
 
 @pytest.mark.parametrize("with_dlse", [False, True])
@@ -151,6 +163,30 @@ def test_sageattn_grad_matches_jax_fused_vjp(name, with_dlse):
     assert want is not None
     qt, kt, vt = (_t(x, True) for x in (q, k, v))
     out = sageattn(qt, kt, vt, is_causal=causal, return_lse=with_dlse)
+    loss = (out[0] * _t(do)).sum() + (out[1] * _t(dlse)).sum() if with_dlse \
+        else (out * _t(do)).sum()
+    got = torch.autograd.grad(loss, (qt, kt, vt))
+    _assert_close_grads(got, want, cos_min=0.99999, rel_max=2e-3)
+
+
+@pytest.mark.parametrize("with_dlse", [False, True])
+@pytest.mark.parametrize("pv_dtype,smooth_v", [("int8", False), ("fp8", False),
+                                               ("fp8", True), ("bf16", True)])
+@pytest.mark.parametrize("name", ["gqa_causal", "d128"])
+def test_quantized_v_grads_match_jax_fused_vjp(name, pv_dtype, smooth_v, with_dlse):
+    """V codes and smooth-v: both backwards multiply dO by the V the forward
+    multiplied (the saved codes dequantized; raw V for bf16), at the
+    tolerances of the bf16 case."""
+    b, hq, hkv, s, d, causal = BWD_CASES[name]
+    q, k, v, do = _qkv_do(b, hq, hkv, s, s, d, seed=60 + len(name))
+    v = v + _rand(5, (b, hkv, 1, d))  # channel offsets, for smooth-v
+    dlse = _rand(8, (b, hq, s)) if with_dlse else None
+    want = _jax_fused_vjp(q, k, v, do, causal=causal, dlse=dlse, pv_dtype=pv_dtype,
+                          smooth_v=smooth_v)
+    assert want is not None
+    qt, kt, vt = (_t(x, True) for x in (q, k, v))
+    out = sageattn(qt, kt, vt, is_causal=causal, return_lse=with_dlse, pv_dtype=pv_dtype,
+                   smooth_v=smooth_v)
     loss = (out[0] * _t(do)).sum() + (out[1] * _t(dlse)).sum() if with_dlse \
         else (out * _t(do)).sum()
     got = torch.autograd.grad(loss, (qt, kt, vt))
@@ -227,6 +263,29 @@ def test_backward_reuses_the_forward_quantization(monkeypatch):
     torch.autograd.grad((o * _t(do)).sum() + lse.sum(), (qt, kt, vt))
     assert calls == {"quant_q_per_token": 1, "sage_attention_bwd_dq": 1,
                      "sage_attention_bwd_dkv": 1}
+
+
+@pytest.mark.parametrize("pv_dtype", ["int8", "fp8"])
+def test_backward_launches_no_v_quantizer(monkeypatch, pv_dtype):
+    """The forward's V codes, scales and mean ride the residuals: the
+    forward quantizes V once, the backward never."""
+    calls = []
+    for name in ("quant_v_per_channel", "quant_v_blocked", "v_channel_stats",
+                 "quant_v_apply", "quant_v_per_channel_plain", "quant_v_blocked_plain"):
+        fn = getattr(quant_cuda, name)
+
+        def counted(*args, _fn=fn, _name=name, **kwargs):
+            calls.append(_name)
+            return _fn(*args, **kwargs)
+
+        monkeypatch.setattr(quant_cuda, name, counted)
+    q, k, v, do = _qkv_do(1, 2, 2, 128, 128, 64, seed=97)
+    qt, kt, vt = (_t(x, True) for x in (q, k, v))
+    o = sageattn(qt, kt, vt, pv_dtype=pv_dtype, smooth_v=True)
+    assert calls == ["quant_v_per_channel", "quant_v_per_channel_plain"]
+    calls.clear()
+    torch.autograd.grad((o * _t(do)).sum(), (qt, kt, vt))
+    assert calls == []
 
 
 def test_no_grad_path_builds_no_graph():

@@ -6,7 +6,9 @@ raises at this revision, so the tests call ``_sageattn_hnd`` directly.
 Both sides quantize the same inputs to the same codes, so they agree up
 to fp32 round-off: fp32 inputs within atol 1e-5, bf16 inputs within one
 bf16 ulp at unit scale (atol 1e-2), natural-log LSE within atol 1e-4.
-Against exact fp32 attention the cosine stays above 0.999.
+The quantized-V entry points (int8, fp8 e4m3 and e5m2 V codes, smooth-v)
+are held to the same pipeline with the same ``pv_dtype``.  Against exact
+fp32 attention the cosine stays above 0.999.
 """
 
 import jax.numpy as jnp
@@ -15,19 +17,27 @@ import pytest
 import torch
 
 from sageattention_tpu import core as jcore
-from sageattention_tpu_torch import core, sageattn, sageattn_qk_int8_pv_bf16
+from sageattention_tpu_torch import (
+    core,
+    quant,
+    sageattn,
+    sageattn_qk_int8_pv_bf16,
+    sageattn_qk_int8_pv_fp8,
+    sageattn_qk_int8_pv_int8,
+)
 from sageattention_tpu_torch.ops import reference
 from sageattention_tpu_torch.utils.compare import cosine_similarity
 
 G = core.K_GROUP
 
 
-def _jax_sageattn(q, k, v, *, causal, lse, smooth_k, sm_scale=None):
+def _jax_sageattn(q, k, v, *, causal, lse, smooth_k, sm_scale=None, pv_dtype="bf16",
+                  smooth_v=False):
     return jcore._sageattn_hnd(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
         None, None, None, None, None, None,
-        impl="xla", chunk_k=G, qk_quant_gran="auto", pv_dtype="bf16",
-        smooth_k=smooth_k, smooth_v=False, return_lse=lse, is_causal=causal,
+        impl="xla", chunk_k=G, qk_quant_gran="auto", pv_dtype=pv_dtype,
+        smooth_k=smooth_k, smooth_v=smooth_v, return_lse=lse, is_causal=causal,
         sm_scale=sm_scale, block_q=128, block_k=128,
     )
 
@@ -62,6 +72,67 @@ def test_sageattn_matches_jax_fp32(name, smooth_k):
     assert o_t.dtype == torch.float32 and o_t.shape == (b, hq, sq, d)
     np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), atol=1e-5)
     np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse_j), atol=1e-4)
+
+
+# (pv_dtype, smooth_v) -> the port's entry point and its extra options
+QUANT_V = {
+    ("int8", False): (sageattn_qk_int8_pv_int8, {}),
+    ("fp8", False): (sageattn_qk_int8_pv_fp8, {}),
+    ("fp8_e5m2", False): (sageattn_qk_int8_pv_fp8, {"pv_dtype": "fp8_e5m2"}),
+    ("int8", True): (sageattn_qk_int8_pv_int8, {"smooth_v": True}),
+    ("fp8", True): (sageattn_qk_int8_pv_fp8, {"smooth_v": True}),
+    ("bf16", True): (sageattn, {"smooth_v": True}),
+}
+# spacing of the code type at its largest values, in units of its scale
+TOP_STEP = {"int8": 1.0, "fp8": 32.0, "fp8_e5m2": 8192.0}
+
+
+def _one_code_step(v, pv_dtype):
+    """The most one code step can move V: one code at the top of the range
+    times the channel's scale; for bf16 V - mean, one bf16 ulp (2^-7
+    relative) of the largest |V - mean|."""
+    vt = torch.from_numpy(v)
+    if pv_dtype == "bf16":
+        return float(quant.sub_mean(vt)[0].abs().max()) * 2.0**-7
+    _, scale, _ = quant.per_channel_quant(vt, dtype=quant.V_DTYPES[pv_dtype], smooth=True)
+    return float(scale.max()) * TOP_STEP[pv_dtype]
+
+
+@pytest.mark.parametrize("pv_dtype,smooth_v", sorted(QUANT_V))
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_quantized_v_matches_jax_fp32(name, pv_dtype, smooth_v):
+    """The quantized-V entry points against the JAX pipeline with the same
+    ``pv_dtype`` / ``smooth_v``.  Without smooth-v both quantize V to the
+    same codes: atol 1e-5.  With it the two means differ in fp32 round-off
+    (another summation order), which can move a code by one step; o is a
+    convex combination of V rows (the weights sum to 1), so it moves by at
+    most one step of V: atol 1e-5 plus that step; and the cosine, which
+    such rare steps barely move, at least 0.99999."""
+    b, hq, hkv, sq, sk, d, causal = CASES[name]
+    # Q and K as in test_sageattn_matches_jax_fp32; V with channel offsets
+    q, k, v = _qkv(b, hq, hkv, sq, sk, d, seed=len(name), mean=0.5)
+    v = v + np.random.default_rng(7).standard_normal((b, hkv, 1, d)).astype(np.float32)
+    op, kw = QUANT_V[(pv_dtype, smooth_v)]
+    o_t, lse_t = op(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                    is_causal=causal, return_lse=True, **kw)
+    o_j, lse_j = _jax_sageattn(q, k, v, causal=causal, lse=True, smooth_k=True,
+                               pv_dtype=pv_dtype, smooth_v=smooth_v)
+    o_j = np.asarray(o_j)
+    assert o_t.dtype == torch.float32 and o_t.shape == (b, hq, sq, d)
+    np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse_j), atol=1e-4)
+    if not smooth_v:
+        np.testing.assert_allclose(o_t.numpy(), o_j, atol=1e-5)
+        return
+    assert np.abs(o_t.numpy() - o_j).max() <= 1e-5 + _one_code_step(v, pv_dtype)
+    assert cosine_similarity(o_t, o_j) >= 0.99999
+
+
+def test_unknown_pv_dtype_raises():
+    x = torch.zeros(1, 1, 128, 64)
+    with pytest.raises(ValueError, match="pv_dtype"):
+        sageattn(x, x, x, pv_dtype="fp4")
+    with pytest.raises(ValueError, match="pv_dtype"):
+        sageattn(x.clone().requires_grad_(), x, x, pv_dtype="int4")
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -99,10 +170,7 @@ def test_sageattn_close_to_exact_attention(causal):
 @pytest.mark.parametrize(
     "kwargs",
     [
-        {"pv_dtype": "int8"},
-        {"pv_dtype": "fp8"},
         {"smooth_q": True},
-        {"smooth_v": True},
         {"attn_mask": torch.ones(128, 128, dtype=torch.bool)},
         {"attn_bias": torch.zeros(128, 128)},
         {"q_segment_ids": torch.zeros(1, 128, dtype=torch.int32)},

@@ -10,7 +10,9 @@ raises at this revision).  The weights are carried across with
 Tolerances: fp32 eps cosine >= 0.9999 and max-abs <= 1e-3 (the two
 quantize the same activations, so the difference is fp32 round-off
 carried through 2 blocks); bf16 eps cosine >= 0.999 (the frameworks
-round bf16 activations at different places).
+round bf16 activations at different places).  The "sage_fp8" backend is
+held to the JAX model with fp8 V (``pv_dtype="fp8"``), and a
+Wan2.1-shaped model runs the two-pass V quantizer on the CPU.
 """
 
 import jax
@@ -26,16 +28,21 @@ from sageattention_tpu.models.configs import MODEL_CONFIGS as J_CONFIGS
 from sageattention_tpu_torch import models, serve
 from sageattention_tpu_torch.core import K_GROUP
 from sageattention_tpu_torch.models.convert import params_from_jax
+from sageattention_tpu_torch.ops import quant_cuda
 from sageattention_tpu_torch.utils.compare import cosine_similarity
 
 
-def _xla_sage(q, k, v, *, is_causal, sm_scale, **kw):
+def _xla_sage(q, k, v, *, is_causal, sm_scale, pv_dtype="bf16", **kw):
     return jcore._sageattn_hnd(
         q, k, v, None, None, None, None, None, None,
-        impl="xla", chunk_k=K_GROUP, qk_quant_gran="auto", pv_dtype="bf16",
+        impl="xla", chunk_k=K_GROUP, qk_quant_gran="auto", pv_dtype=pv_dtype,
         smooth_k=True, smooth_v=False, return_lse=False, is_causal=is_causal,
         sm_scale=sm_scale, block_q=128, block_k=128,
     )
+
+
+def _xla_sage_fp8(q, k, v, *, is_causal, sm_scale, **kw):
+    return _xla_sage(q, k, v, is_causal=is_causal, sm_scale=sm_scale, pv_dtype="fp8")
 
 
 def _tiny(cfgs):
@@ -48,6 +55,7 @@ def _tiny(cfgs):
 @pytest.fixture(scope="module")
 def jax_backend():
     j_register("torch_port_xla_sage", _xla_sage)
+    j_register("torch_port_xla_sage_fp8", _xla_sage_fp8)
     prev = jmodels.get_attention_backend()
     jmodels.set_attention_backend("torch_port_xla_sage")
     yield
@@ -101,6 +109,68 @@ def test_videodit_matches_jax(jax_backend, dtype_name):
         np.testing.assert_allclose(eps_t.numpy(), eps_j, atol=1e-3)
     else:
         assert cosine_similarity(eps_t, eps_j) >= 0.999
+
+
+def test_videodit_fp8_backend_matches_jax(jax_backend):
+    """The "sage_fp8" backend (fp8 e4m3 V codes) against the JAX VideoDiT
+    whose attention quantizes V the same way, fp32: both quantize the same
+    activations to the same codes, so the tolerances of the bf16-V fp32
+    comparison hold (cosine >= 0.9999, max-abs <= 1e-3)."""
+    jm, params, tm, jdt, tdt = _models("float32")
+    lat, txt, t = _inputs()
+    jmodels.set_attention_backend("torch_port_xla_sage_fp8")
+    try:
+        eps_j = np.asarray(jm.apply(params, jnp.asarray(lat), jnp.asarray(txt), t))
+    finally:
+        jmodels.set_attention_backend("torch_port_xla_sage")
+    models.set_attention_backend("sage_fp8")
+    try:
+        with torch.no_grad():
+            eps_t = tm(torch.from_numpy(lat), torch.from_numpy(txt), torch.from_numpy(t))
+    finally:
+        models.set_attention_backend("sage")
+    assert cosine_similarity(eps_t, eps_j) >= 0.9999
+    np.testing.assert_allclose(eps_t.numpy(), eps_j, atol=1e-3)
+
+
+def _wan_cut(cfgs):
+    """Wan2.1-T2V-1.3B at its width (hidden 1536, 12 heads x 128), cut to
+    one layer, one latent frame of 8 x 8 and 16 text tokens."""
+    return cfgs["wan2.1-t2v-1.3b"].scaled(depth=1, latent_frames=1, latent_height=8,
+                                          latent_width=8, text_len=16)
+
+
+def test_wan_shaped_model_runs_the_two_pass_v_quantizer(monkeypatch):
+    """The Wan2.1 width through the port on the CPU with "sage_fp8"; the
+    single-pass limit is lowered below this model's V slab, so that V
+    takes the two-pass quantizer as the full-size Wan2.1 server does.  eps
+    against exact attention: cosine >= 0.999."""
+    cfg = _wan_cut(models.MODEL_CONFIGS)
+    assert (cfg.hidden, cfg.heads, cfg.head_dim) == (1536, 12, 128)
+    slab = cfg.seq_len * cfg.head_dim * 4  # fp32
+    monkeypatch.setattr(quant_cuda, "V_SINGLE_PASS_BYTES", slab - 1)
+    calls = []
+    blocked = quant_cuda.quant_v_blocked
+
+    def counted(*args, **kwargs):
+        calls.append(args[0].shape)
+        return blocked(*args, **kwargs)
+
+    monkeypatch.setattr(quant_cuda, "quant_v_blocked", counted)
+    model = serve.load_model(cfg, device="cpu", dtype=torch.float32, seed=5)
+    lat, txt = serve.make_requests(cfg, 1, device="cpu", seed=6, dtype=torch.float32)[0]
+    t = torch.tensor([500])
+    try:
+        with torch.no_grad():
+            models.set_attention_backend("sage_fp8")
+            eps = model(lat, txt, t)
+            models.set_attention_backend("reference")
+            eps_r = model(lat, txt, t)
+    finally:
+        models.set_attention_backend("sage")
+    assert calls == [(1, 12, cfg.seq_len, 128)]
+    assert eps.shape == lat.shape and torch.isfinite(eps).all()
+    assert cosine_similarity(eps, eps_r) >= 0.999
 
 
 def test_denoise_step_matches_jax(jax_backend):

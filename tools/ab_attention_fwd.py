@@ -1,0 +1,151 @@
+#!/usr/bin/env python3
+"""A/B of the port's forward kernel with bf16 V: this tree against another.
+
+    mkdir -p scratch/other && git archive <rev> | tar -x -C scratch/other
+    python3 tools/ab_attention_fwd.py scratch/other
+
+Builds ``sageattention_tpu_torch/csrc/attention_fwd.cu`` of both trees,
+each with its own ``ops/_build.py`` (so with its own flags and C
+signature), feeds both the same bf16 Q, int8 K codes, K scales and bf16 V
+at the CogVideoX-2B layer shape (1, 30, 17,776, 64) and the
+Wan2.1-T2V-1.3B one (1, 12, 33,272, 128), non-causal, says whether the
+outputs are bit-identical, and times each with CUDA events in the order
+other, this, this, other (median of 20 calls after 3 warm-up calls each).
+It also prints the registers of every forward kernel instance of both
+libraries.  Needs one CUDA card; ends with one JSON line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import pathlib
+import re
+import shutil
+import statistics
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+LOG2E = 1.4426950408889634
+SHAPES = {"cogvideox-2b layer": (1, 30, 17776, 64), "wan2.1 layer": (1, 12, 33272, 128)}
+
+
+def load_build(tree: pathlib.Path, name: str):
+    """``ops/_build.py`` of ``tree`` as a module of its own."""
+    path = tree / "sageattention_tpu_torch" / "ops" / "_build.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def registers(build) -> list[str]:
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    out = subprocess.run([tool, "-res-usage", str(build._target("attention_fwd"))],
+                         capture_output=True, text=True, timeout=120).stdout
+    rows, fn = [], None
+    for line in out.splitlines():
+        m = re.search(r"Function (\S+):", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"REG:(\d+) STACK:(\d+)", line)
+        if m and fn and "sage_attn_fwd_kernel" in fn:
+            rows.append(f"{fn[:90]}: {m.group(1)} registers, {m.group(2)} bytes of stack")
+    return rows
+
+
+def launch(fn, q, k_i8, k_scale, v, o, fold_mul: float) -> None:
+    """One forward call through either C signature: before V codes (18
+    arguments) or with v_scale, v_mean and the V kind (21)."""
+    import torch
+
+    b, hq, sq, d = q.shape
+    hkv, sk = k_i8.shape[1], k_i8.shape[2]
+    stream = torch.cuda.current_stream().cuda_stream
+    head = (q.data_ptr(), k_i8.data_ptr(), k_scale.data_ptr(), v.data_ptr())
+    if len(fn.argtypes) == 18:
+        err = fn(*head, o.data_ptr(), None, b, hq, hkv, sq, sk, d, 0, 0, 0, 128, fold_mul,
+                 stream)
+    else:
+        err = fn(*head, None, None, o.data_ptr(), None, b, hq, hkv, sq, sk, d, 0, 0, 0, 0,
+                 128, fold_mul, stream)
+    if err:
+        raise RuntimeError(f"sage_attn_fwd launch failed: cudaError {err}")
+
+
+def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("other", type=pathlib.Path, help="root of the other tree")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("ab_attention_fwd: no CUDA device", file=sys.stderr)
+        return 1
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    print(f"card: {card}", flush=True)
+    builds = {"other": load_build(args.other.resolve(), "other_build"),
+              "this": load_build(ROOT, "this_build")}
+    with ThreadPoolExecutor(2) as pool:
+        libs = dict(zip(builds, pool.map(lambda b: b.lib("attention_fwd"), builds.values())))
+    for tree, build in builds.items():
+        for row in registers(build):
+            print(f"resources ({tree}) {row}", flush=True)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    result = {"card": card}
+    for cell, (b, h, s, d) in SHAPES.items():
+        q = torch.randn(b, h, s, d, generator=gen, device="cuda").to(torch.bfloat16)
+        k_i8 = torch.randint(-127, 128, (b, h, s, d), generator=gen, device="cuda",
+                             dtype=torch.int8)
+        k_scale = torch.full((b, h, -(-s // 128)), 2 / 127, device="cuda")
+        v = torch.randn(b, h, s, d, generator=gen, device="cuda").to(torch.bfloat16)
+        fold_mul = (torch.tensor(1 / 127, dtype=torch.float32)
+                    * torch.tensor(d**-0.5 * LOG2E, dtype=torch.float32)).item()
+        outs = {t: torch.empty_like(q) for t in libs}
+        calls = {t: (lambda t=t: launch(libs[t].sage_attn_fwd, q, k_i8, k_scale, v, outs[t],
+                                        fold_mul)) for t in libs}
+        times = {t: [] for t in libs}
+        for t in ("other", "this", "this", "other"):
+            times[t].append(cuda_ms(calls[t]))
+        torch.cuda.synchronize()
+        same = torch.equal(outs["other"], outs["this"])
+        diff = (outs["other"].float() - outs["this"].float()).abs().max().item()
+        result[cell] = {"shape": [b, h, s, d], "ms_other": times["other"],
+                        "ms_this": times["this"], "bit_identical": same, "max_abs_diff": diff}
+        print(f"{cell} {(b, h, s, d)} bf16 V: other {times['other']} ms, this "
+              f"{times['this']} ms; outputs bit-identical {same} (max abs diff {diff:.3e})",
+              flush=True)
+        del q, k_i8, k_scale, v, outs
+        torch.cuda.empty_cache()
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
