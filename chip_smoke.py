@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py            # everything, one card
     python3 chip_smoke.py --profile  # and device time by kernel of one
-                                     # step of each server and one
-                                     # training step
+                                     # step of each server, one training
+                                     # step and one LLM decode step
 
 Phases, each of which raises (and so exits non-zero) when it fails:
 
@@ -14,8 +14,9 @@ Phases, each of which raises (and so exits non-zero) when it fails:
 2. each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it (the V quantizers for int8, e4m3 and
    e5m2 codes, the forward kernel for every V type with and without the
-   smooth-v mean), and the ops' outputs and gradients against exact fp32
-   attention;
+   smooth-v mean; the decode kernels 9-12 for int8 and int4 caches, t_q
+   1, 4 and 512, ragged lengths, window 4096, pages of 16 and 1024), and
+   the ops' outputs and gradients against exact fp32 attention;
 3. the servers, each answering 2 requests x 2 denoise steps with seeded
    random weights at full width and depth 30; the launch counts of every
    kernel are zeroed just before and read just after, and those of the
@@ -36,11 +37,25 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    gradients with "sage" and with "sage_fp8" are checked against exact
    attention's at depth 2 and a sequence of 4,276, and the fp8 backward
    must launch no V quantizer;
-5. each kernel's time at the model shape (CUDA events, median of several
+5. the llm-8b-gqa decode servers at full width and depth 32 (fp32
+   weights, 32 GB), a prefill and 32 greedy decode steps each, timed with
+   CUDA events; the counts are zeroed before each phase and read after it
+   (a one-shot prefill runs kernels 1-3 once a layer, an extend block or a
+   decode step the path's decode kernel once a layer, nothing else runs);
+   the cached path's logits are checked against a one-shot exact-attention
+   refeed at depth 2:
+   a. dense int8 cache, b 4, a 4096-token prompt (kernel 9);
+   b. paged int8 cache, 1024-token pages, scrambled table (kernel 11);
+   c. dense packed int4 cache, calibrated on the prompt (kernel 9);
+   d. vocab 32000 and a 4096-token sliding window (the Mistral-7B
+      geometry), b 2, an 8192-token prompt in 512-token extend blocks,
+      dense (kernel 10) and paged (kernel 12);
+6. each kernel's time at the model shape (CUDA events, median of several
    after warm-up) beside its bound, its plain version's time and, where
    one PyTorch call computes the same function, that call's time; the
-   forward kernel for every V type; and one layer's attention forward +
-   backward against SDPA's.
+   forward kernel for every V type; one layer's attention forward +
+   backward against SDPA's; and the decode kernels at the servers' decode
+   and extend shapes, with the L2 flushed before each call.
 
 It prints one ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside the
@@ -75,6 +90,18 @@ SERVER_DEPTH = 30  # the servers run all of their model's layers
 # state would not fit 80 GB at all 30 layers
 TRAIN_DEPTH = 8
 TRAIN_STEPS = 4
+LLM_DEPTH = 32  # llm-8b-gqa's layers, all of them
+LLM_STEPS = 32
+LLM_PAGE = 1024
+# The refeed's cosine floor by cache width.  The decode numerics (the JAX
+# package's) quantize each chunk's P per row to int8 against the chunk's
+# largest p, and random weights give near-uniform attention over thousands
+# of keys, where the mean p is a few codes out of 127: the attention output
+# carries a few percent of rounding.  Measured on an H100 (NVIDIA H100 80GB
+# HBM3, 700 W): 0.99861 for the dense int8 cache (4096-token chunks),
+# 0.99911-0.99924 for the paged and windowed int8 paths (1024-1536-token P
+# units), 0.97459 for the packed int4 cache (+-7 levels).
+REFEED_FLOOR = {8: 0.998, 4: 0.97}
 LOG2E = 1.4426950408889634
 
 
@@ -90,14 +117,19 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median of ``reps`` single-call times from CUDA events."""
+def cuda_ms(fn, reps: int = 10, warmup: int = 2, cold: bool = False) -> float:
+    """Median of ``reps`` single-call times from CUDA events; with ``cold``,
+    the 50 MB L2 is flushed before each call (a decode step reads every
+    layer's cache cold)."""
     import torch
 
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda") if cold else None
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
+        if cold:
+            flush.zero_()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -133,7 +165,7 @@ def resource_usage() -> None:
                 fn = m.group(1)
                 continue
             m = re.search(r"REG:(\d+) STACK:(\d+)", line)
-            k = re.search(r"\d((?:sage_attn|quant|channel)[a-z_]*_kernel)I", fn or "")
+            k = re.search(r"\d((?:sage_|quant|channel)[a-z_]*_kernel)I", fn or "")
             if m and k:
                 targs = [a or b for a, b in re.findall(r"Li(\d+)E|Lb(\d)E", fn)]
                 dtype = " bf16" if "nv_bfloat16" in fn else ""
@@ -486,6 +518,250 @@ def check_backward(gen, results):
     require(min(coss) >= 0.999, "sageattn gradients vs exact attention: cosine < 0.999")
 
 
+def random_cache(gen, lead, S, d, packed):
+    """Seeded int8 (or packed) K/V codes and per-token scales on the card."""
+    import torch
+
+    rows = S // 2 if packed else S
+    lo = -128 if packed else -127  # a packed byte holds any two nibbles
+
+    def codes():
+        return torch.randint(lo, 128, (*lead, rows, d), generator=gen, device="cuda",
+                             dtype=torch.int8)
+
+    def scales(lo, width):
+        return torch.rand(*lead, S, generator=gen, device="cuda") * width + lo
+
+    # K scales give scores of a few units; V scales keep |v| below about 1,
+    # as the model's are, so that the bf16 outputs' step is near 2^-8
+    return codes(), scales(0.01, 0.05), codes(), scales(0.002, 0.005)
+
+
+def paged_from_dense(gen, cache, page):
+    """The dense cache's tokens in a page pool through a scrambled table:
+    (pool tensors, table)."""
+    import torch
+
+    k, ks, v, vs = cache
+    b, hkv, S = ks.shape
+    n = S // page
+    table = torch.randperm(b * n, generator=gen, device="cuda").reshape(b, n).int()
+    pool = []
+    for x in (k, ks, v, vs):
+        rpp = x.shape[2] // n  # rows a page (page/2 packed)
+        pages = x.reshape(b, hkv, n, rpp, *x.shape[3:]).transpose(1, 2).reshape(
+            b * n, hkv, rpp, *x.shape[3:])
+        out = torch.empty_like(pages)
+        out[table.reshape(-1).long()] = pages
+        pool.append(out)
+    return pool, table
+
+
+def compare_decode(name, res, res_p, results, key):
+    """A decode kernel's (o, m, l) against its plain version's: o cosine >=
+    0.9999 and max-abs <= 2e-2 (the forward's limits); m, a max of scores
+    both compute by the same fp32 chain, within 1e-5; l within 1e-4
+    relative (the kernel sums p in another order)."""
+    import torch
+    from sageattention_tpu_torch.utils.compare import cosine_similarity
+
+    o, m, l = res
+    o_p, m_p, l_p = res_p
+    torch.cuda.synchronize()
+    cos = cosine_similarity(o.float().cpu(), o_p.float().cpu())
+    err = (o.float() - o_p.float()).abs().max().item()
+    merr = (m - m_p).abs().max().item()
+    lrel = ((l - l_p).abs() / l_p.abs().clamp_min(1e-30)).max().item()
+    finite = bool(torch.isfinite(o).all())
+    log(f"decode {name}: o cos {cos:.7f}, max abs {err:.3e}; m max abs {merr:.3e}; l max rel "
+        f"{lrel:.3e}; finite {finite}")
+    require(finite and cos >= 0.9999 and err <= 2e-2 and merr <= 1e-5 and lrel <= 1e-4,
+            f"decode {name}: the kernel disagrees with its plain version")
+    r = results[key]
+    r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
+
+
+def check_decode(gen, results):
+    """Kernels 9-12 against their plain versions at the LLM servers' shapes
+    (GQA 32/8, d 128): int8 and packed int4; t_q 1, 4 and 512; ragged
+    lengths 0, 1, one off the chunk grid and S; return_state; window 4096;
+    pages of 16 and 1024 through scrambled tables; and the paged kernel
+    with page = chunk against the dense kernel on the same tokens."""
+    import torch
+    from sageattention_tpu_torch.ops import decode_cuda as dc
+
+    hq, hkv, d = 32, 8, 128
+
+    def q_of(b, t_q):
+        return torch.randn(b, hq, t_q, d, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def lens(x):
+        return torch.tensor(x, dtype=torch.int32, device="cuda")
+
+    dense = [
+        # name, b, t_q, S, lengths, window, packed
+        ("int8 t_q 1", 4, 1, 8192, [0, 1, 4123, 8192], None, False),
+        ("int4 t_q 1", 4, 1, 8192, [0, 1, 4123, 8192], None, True),
+        ("int8 t_q 4", 4, 4, 8192, [4, 4103, 8192, 300], None, False),
+        ("int4 t_q 4", 4, 4, 8192, [4, 4103, 8192, 300], None, True),
+        ("int8 t_q 512 extend", 2, 512, 9216, [512, 3000], None, False),
+        ("int8 window 4096 t_q 1", 2, 1, 9216, [8200, 1], 4096, False),
+        ("int4 window 4096 t_q 1", 2, 1, 9216, [8200, 5000], 4096, True),
+        ("int8 window 4096 t_q 512 extend", 2, 512, 9216, [4608, 8192], 4096, False),
+    ]
+    for name, b, t_q, S, ln, window, packed in dense:
+        cache = random_cache(gen, (b, hkv), S, d, packed)
+        q, L = q_of(b, t_q), lens(ln)
+        key = "sage_decode" if window is None else "sage_decode_window"
+        res = dc.sage_decode_attention(q, *cache, L, window=window, return_state=True)
+        res_p = dc.sage_decode_attention_plain(q, *cache, L, window=window, return_state=True)
+        compare_decode(f"dense {name} {tuple(ln)}", res, res_p, results, key)
+
+    paged = [
+        # name, b, t_q, page, S, lengths, window, packed
+        ("page 16 int8 t_q 1", 4, 1, 16, 8192, [0, 1, 4123, 8192], None, False),
+        ("page 16 int4 t_q 4", 4, 4, 16, 8192, [4, 17, 4123, 8192], None, True),
+        ("page 1024 int8 t_q 1", 4, 1, 1024, 8192, [0, 1, 4123, 8192], None, False),
+        ("page 1024 int4 t_q 1", 4, 1, 1024, 8192, [0, 1, 4123, 8192], None, True),
+        ("page 1024 int8 window 4096 t_q 1", 2, 1, 1024, 9216, [8200, 3], 4096, False),
+        ("page 1024 int8 window 4096 t_q 512 extend", 2, 512, 1024, 9216, [4608, 8192], 4096,
+         False),
+        ("page 16 int8 window 4096 t_q 1", 2, 1, 16, 9216, [8200, 4100], 4096, False),
+    ]
+    for name, b, t_q, page, S, ln, window, packed in paged:
+        pool, table = paged_from_dense(gen, random_cache(gen, (b, hkv), S, d, packed), page)
+        q, L = q_of(b, t_q), lens(ln)
+        key = "sage_paged_decode" if window is None else "sage_paged_decode_window"
+        res = dc.sage_paged_decode_attention(q, *pool, table, L, window=window,
+                                             return_state=True)
+        res_p = dc.sage_paged_decode_attention_plain(q, *pool, table, L, window=window,
+                                                     return_state=True)
+        compare_decode(f"paged {name} {tuple(ln)}", res, res_p, results, key)
+
+    # shapes off the LLM path that the kernels take: d 64, GQA 1 and 4,
+    # t_q 5 (20 rows, a padded 64-row tile), a 640-token chunk (a partial
+    # 256-token slab), 48-token pages
+    odd = [
+        # name, hq, hkv, d, b, t_q, S, page, lengths, window, packed
+        ("d64 gqa4 t_q 5 window 300 int4", 8, 2, 64, 2, 5, 1024, None, [1000, 37], 300, True),
+        ("d64 mha t_q 1 chunk 640", 4, 4, 64, 2, 1, 640, None, [640, 333], None, False),
+        ("d128 gqa4 t_q 5 page 48", 8, 2, 128, 2, 5, 960, 48, [900, 5], None, False),
+        ("d64 gqa4 t_q 1 page 48 window 100 int4", 8, 2, 64, 2, 1, 960, 48, [901, 60], 100,
+         True),
+    ]
+    for name, hq_, hkv_, d_, b, t_q, S, page, ln, window, packed in odd:
+        cache = random_cache(gen, (b, hkv_), S, d_, packed)
+        q = torch.randn(b, hq_, t_q, d_, generator=gen, device="cuda").to(torch.bfloat16)
+        L = lens(ln)
+        if page is None:
+            key = "sage_decode" if window is None else "sage_decode_window"
+            res = dc.sage_decode_attention(q, *cache, L, window=window, return_state=True)
+            res_p = dc.sage_decode_attention_plain(q, *cache, L, window=window,
+                                                   return_state=True)
+        else:
+            key = "sage_paged_decode" if window is None else "sage_paged_decode_window"
+            pool, table = paged_from_dense(gen, cache, page)
+            res = dc.sage_paged_decode_attention(q, *pool, table, L, window=window,
+                                                 return_state=True)
+            res_p = dc.sage_paged_decode_attention_plain(q, *pool, table, L, window=window,
+                                                         return_state=True)
+        compare_decode(f"{name} {tuple(ln)}", res, res_p, results, key)
+
+    # one page a chunk: the paged kernel walks the dense kernel's chunks
+    for packed in (False, True):
+        cache = random_cache(gen, (4, hkv), 8192, d, packed)
+        pool, table = paged_from_dense(gen, cache, 4096)
+        q, L = q_of(4, 1), lens([0, 1, 4123, 8192])
+        o_d = dc.sage_decode_attention(q, *cache, L, chunk=4096)
+        o_p = dc.sage_paged_decode_attention(q, *pool, table, L)
+        torch.cuda.synchronize()
+        same = torch.equal(o_d, o_p)
+        log(f"decode paged (page 4096) vs dense (chunk 4096) {'int4' if packed else 'int8'} on "
+            f"the same tokens: bit-identical {same}")
+        require(same, "the paged kernel with page = chunk disagrees with the dense kernel")
+
+
+def decode_bound(lengths, hq, hkv, t_q, d, packed, window):
+    """(bound_ms, bound_by) of one decode call: the live K/V codes and
+    scales each kv head's rows can see, read once, with Q in and O out
+    (bf16); against the int8 operations of the rows' visible keys."""
+    code = d // 2 if packed else d
+    tokens = 0
+    ops = 0
+    for length in lengths:
+        span = length if window is None else min(length, window + t_q - 1)
+        tokens += max(span, 0)
+        for t in range(t_q):
+            pos = length - t_q + t
+            lo = 0 if window is None else max(pos - window + 1, 0)
+            ops += max(pos + 1 - lo, 0) * hq
+    moved = tokens * hkv * (2 * code + 8) + 2 * len(lengths) * hq * t_q * d * 2
+    t_bytes = moved / PEAK_BYTES_S * 1e3
+    t_ops = 4 * ops * d / PEAK_INT8_OPS_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def time_decode(gen, results):
+    """Kernels 9-12 at the LLM servers' decode-step shapes (the cache of one
+    layer, cold in L2) beside their bounds and plain versions, and kernels
+    10 and 12 at the windowed server's 512-token extend blocks.  No PyTorch
+    call computes decode over an int8 cache: library_ms is null."""
+    from sageattention_tpu_torch.ops import decode_cuda as dc
+
+    hq, hkv, d = 32, 8, 128
+    import torch
+
+    def q_of(b, t_q):
+        return torch.randn(b, hq, t_q, d, generator=gen, device="cuda").to(torch.bfloat16)
+
+    # (kernel, b, t_q, S, page, length, window): the servers' mid-decode step
+    # (prompt + 16 tokens) and extend block
+    cells = [
+        ("sage_decode", 4, 1, 8192, None, 4096 + 16, None),
+        ("sage_decode_window", 2, 1, 9216, None, 8192 + 16, 4096),
+        ("sage_paged_decode", 4, 1, 8192, 1024, 4096 + 16, None),
+        ("sage_paged_decode_window", 2, 1, 9216, 1024, 8192 + 16, 4096),
+        ("sage_decode_window", 2, 512, 9216, None, 8192, 4096),
+        ("sage_paged_decode_window", 2, 512, 9216, 1024, 8192, 4096),
+    ]
+    for name, b, t_q, S, page, length, window in cells:
+        for packed in ((False, True) if t_q == 1 and window is None else (False,)):
+            cache = random_cache(gen, (b, hkv), S, d, packed)
+            q = q_of(b, t_q)
+            L = torch.full((b,), length, dtype=torch.int32, device="cuda")
+            if page is None:
+                def fn(q=q, cache=cache, L=L, window=window):
+                    return dc.sage_decode_attention(q, *cache, L, window=window)
+
+                def plain(q=q, cache=cache, L=L, window=window):
+                    return dc.sage_decode_attention_plain(q, *cache, L, window=window)
+            else:
+                pool, table = paged_from_dense(gen, cache, page)
+
+                def fn(q=q, pool=pool, table=table, L=L, window=window):
+                    return dc.sage_paged_decode_attention(q, *pool, table, L, window=window)
+
+                def plain(q=q, pool=pool, table=table, L=L, window=window):
+                    return dc.sage_paged_decode_attention_plain(q, *pool, table, L,
+                                                                window=window)
+            ms = cuda_ms(fn, reps=20, cold=True)
+            plain_ms = cuda_ms(plain, reps=3, warmup=1)
+            bound, by = decode_bound([length] * b, hq, hkv, t_q, d, packed, window)
+            what = f"t_q {t_q} {'int4' if packed else 'int8'}"
+            log(f"time {name} {what} at b {b}, length {length}, S {S}"
+                f"{'' if page is None else f', page {page}'}: {ms:.4f} ms (bound {bound:.4f} ms, "
+                f"{by}), plain {plain_ms:.4f} ms")
+            r = results[name]
+            if t_q == 1 and not packed:
+                r.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
+                         shape={"b": b, "hq": hq, "hkv": hkv, "t_q": 1, "d": d, "S": S,
+                                "length": length, "page": page, "window": window})
+            else:
+                r.setdefault("other_shapes", []).append(
+                    {"t_q": t_q, "bits": 4 if packed else 8, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound, "bound_by": by})
+
+
 # --------------------------------------------------------------------------
 # phase 3: the CogVideoX-2B denoise server
 # --------------------------------------------------------------------------
@@ -496,11 +772,14 @@ V_QUANT = ("quant_v_per_channel", "v_channel_stats", "quant_v_apply")
 # the main path whose launches the kernels line reports for each kernel
 MAIN_PATH = {**{n: "server" for n in FORWARD}, **{n: "train" for n in BACKWARD},
              "quant_v_per_channel": "server_fp8", "v_channel_stats": "server_wan",
-             "quant_v_apply": "server_wan"}
+             "quant_v_apply": "server_wan", "sage_decode": "llm_dense",
+             "sage_decode_window": "llm_window_dense", "sage_paged_decode": "llm_paged",
+             "sage_paged_decode_window": "llm_window_paged"}
 
 
 def counters():
-    from sageattention_tpu_torch.ops import attention_bwd_cuda, attention_cuda, quant_cuda
+    from sageattention_tpu_torch.ops import (attention_bwd_cuda, attention_cuda, decode_cuda,
+                                             quant_cuda)
 
     return {"k_channel_mean": quant_cuda.k_channel_mean,
             "quant_k_chunked": quant_cuda.quant_k_chunked,
@@ -510,7 +789,11 @@ def counters():
             "sage_attn_bwd_dkv": attention_bwd_cuda.sage_attention_bwd_dkv,
             "quant_v_per_channel": quant_cuda.quant_v_per_channel,
             "v_channel_stats": quant_cuda.v_channel_stats,
-            "quant_v_apply": quant_cuda.quant_v_apply}
+            "quant_v_apply": quant_cuda.quant_v_apply,
+            "sage_decode": decode_cuda.decode_kernel,
+            "sage_decode_window": decode_cuda.decode_window_kernel,
+            "sage_paged_decode": decode_cuda.paged_kernel,
+            "sage_paged_decode_window": decode_cuda.paged_window_kernel}
 
 
 def zero_counts():
@@ -554,14 +837,16 @@ def profile_device(fn, out_name: str, what: str) -> dict:
         elif b > end:
             busy += (b - end) / 1e3
             end = b
-    groups = {"sage_attn_fwd": 0.0, "sage_attn_bwd": 0.0, "quant": 0.0, "gemm": 0.0,
-              "other": 0.0}
+    groups = {"sage_attn_fwd": 0.0, "sage_attn_bwd": 0.0, "sage_decode": 0.0, "quant": 0.0,
+              "gemm": 0.0, "other": 0.0}
     for name, ms, _ in rows:
         low = name.lower()
         if "sage_attn_fwd" in low:
             groups["sage_attn_fwd"] += ms
         elif "sage_attn_bwd" in low:
             groups["sage_attn_bwd"] += ms
+        elif "decode_kernel" in low:  # kernels 9-12
+            groups["sage_decode"] += ms
         elif "quant" in low or "channel_mean" in low:  # K, Q and V quantizers
             groups["quant"] += ms
         elif any(w in low for w in ("gemm", "cutlass", "nvjet", "sm90_xmma")):
@@ -658,6 +943,190 @@ def run_server(results, profile: bool, *, model: str, backend: str, path: str,
     del model2
     torch.cuda.empty_cache()
     return {**cell, "eps_cosine_vs_exact": cos, "profile": prof or None}
+
+
+# --------------------------------------------------------------------------
+# phase 5: the llm-8b-gqa decode servers
+# --------------------------------------------------------------------------
+
+# which decode kernel each (cache, windowed) path runs
+DECODE_KERNEL = {("dense", False): "sage_decode", ("dense", True): "sage_decode_window",
+                 ("paged", False): "sage_paged_decode", ("paged", True): "sage_paged_decode_window"}
+
+
+def llm_refeed_cosine(cfg, *, cache, bits, b, prompt, steps, max_len, page_table,
+                      chunk) -> float:
+    """The server's path at depth 2, full width: the logits of the prefill's
+    last position and of ``steps`` teacher-forced decode steps through the
+    quantized cache, against one prefill of the whole sequence through the
+    "reference" backend (exact attention).  Returns their cosine."""
+    import torch
+    from sageattention_tpu_torch import generate, models
+    from sageattention_tpu_torch.utils.compare import cosine_similarity
+
+    model = generate.load_llm(cfg.scaled(depth=2), device="cuda", seed=2)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    seq = torch.randint(0, cfg.vocab, (b, prompt + steps), generator=gen, device="cuda")
+    caches = generate.make_caches(model, b, max_len, cache=cache, page_size=LLM_PAGE,
+                                  page_table=page_table, bits=bits)
+    logits, caches, lengths = generate.prefill(model, seq[:, :prompt], caches,
+                                               chunked_prefill=chunk)
+    outs = [logits[:, -1:].cpu()]
+    for i in range(steps):
+        logits, caches, lengths = generate.decode_step(model, seq[:, prompt + i:prompt + i + 1],
+                                                       caches, lengths)
+        outs.append(logits.cpu())
+    del caches, logits
+    models.set_attention_backend("reference")
+    with torch.inference_mode():
+        ref = model(seq)[:, prompt - 1:].cpu()
+    models.set_attention_backend("sage")
+    del model
+    torch.cuda.empty_cache()
+    return cosine_similarity(torch.cat(outs, dim=1), ref)
+
+
+def run_llm_server(results, model, profile: bool, *, path: str, cache: str, bits: int, b: int,
+                   prompt: int, steps: int, max_len: int, page_table=None, chunk: int = 0) -> dict:
+    """One LLM server cell: a seeded prompt of ``prompt`` tokens for each of
+    ``b`` sequences, prefilled (one shot, or ``chunk``-token extend blocks
+    through the decode kernel), then ``steps`` greedy decode steps.  The
+    launch counts are zeroed before each phase and read after it: a one-shot
+    prefill runs kernels 1-3 once a layer, an extend block and a decode
+    step the path's decode kernel once a layer, and no other kernel runs.
+    Then the accuracy of the path at depth 2 (:func:`llm_refeed_cosine`)."""
+    import torch
+    from sageattention_tpu_torch import generate
+
+    cfg = model.cfg
+    depth = cfg.depth
+    kern = DECODE_KERNEL[(cache, cfg.window is not None)]
+    log(f"llm server {path}: {cfg.name} hidden {cfg.hidden} heads {cfg.heads}/{cfg.kv_heads}x"
+        f"{cfg.head_dim} depth {depth} vocab {cfg.vocab} window {cfg.window}; {cache} int{bits} "
+        f"cache, b {b}, prompt {prompt}{f' in {chunk}-token extend blocks' if chunk else ''}, "
+        f"{steps} decode steps, max_len {max_len}")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    tokens = torch.randint(0, cfg.vocab, (b, prompt), generator=gen, device="cuda")
+    caches = generate.make_caches(model, b, max_len, cache=cache, page_size=LLM_PAGE,
+                                  page_table=page_table, bits=bits)
+    torch.cuda.synchronize()
+
+    def check(phase, want):
+        launches = read_counts()
+        log(f"llm server {path} {phase} launches: "
+            f"{ {n: c for n, c in launches.items() if c} }")
+        for name, n in launches.items():
+            require(n == want.get(name, 0),
+                    f"llm server {path} {phase}: {name} launched {n} times, want "
+                    f"{want.get(name, 0)}")
+        return launches
+
+    zero_counts()
+    a, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    logits, caches, lengths = generate.prefill(model, tokens, caches, chunked_prefill=chunk)
+    cur = logits[:, -1:].argmax(dim=-1)
+    e.record()
+    e.synchronize()
+    prefill_ms = a.elapsed_time(e)
+    pre = check("prefill", {kern: depth * (prompt // chunk)} if chunk
+                else {n: depth for n in FORWARD})
+    del logits
+
+    zero_counts()
+    step_ms, out = [], [cur]
+    for _ in range(steps):
+        a, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        logits, caches, lengths = generate.decode_step(model, cur, caches, lengths)
+        cur = logits[:, -1:].argmax(dim=-1)
+        e.record()
+        e.synchronize()
+        step_ms.append(a.elapsed_time(e))
+        out.append(cur)
+    dec = check("decode", {kern: depth * steps})
+    toks = torch.cat(out, dim=1)
+    require(bool(torch.isfinite(logits).all()) and toks.shape == (b, steps + 1)
+            and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab,
+            f"llm server {path}: logits not finite or tokens out of range")
+    require(lengths.tolist() == [prompt + steps] * b, f"llm server {path}: lengths")
+    results[kern].setdefault("launches_by_path", {})[path] = pre[kern] + dec[kern]
+    med = statistics.median(step_ms)
+    log(f"llm server {path}: prefill {prefill_ms:.3f} ms ({b * prompt / prefill_ms * 1e3:.1f} "
+        f"tokens/s); decode ms per step {[round(x, 3) for x in step_ms]}, median {med:.3f} "
+        f"({b / med * 1e3:.1f} tokens/s); first tokens {toks[0, :8].tolist()}")
+    prof = None
+    if profile:
+        prof = profile_device(lambda: generate.decode_step(model, cur, caches, lengths),
+                              f"profile_llm_step_{path}.json", f"one {path} decode step")
+    del caches, logits
+    torch.cuda.empty_cache()
+    cos = llm_refeed_cosine(cfg, cache=cache, bits=bits, b=b, prompt=prompt, steps=steps,
+                            max_len=max_len, page_table=page_table, chunk=chunk)
+    log(f"llm server {path} logits, cached path vs a one-shot exact-attention refeed "
+        f"(depth 2, full width, {steps + 1} positions): cos {cos:.6f}")
+    require(cos >= REFEED_FLOOR[bits], f"llm server {path}: logits disagree with the exact refeed")
+    return {"model": cfg.name, "depth": depth, "vocab": cfg.vocab, "window": cfg.window,
+            "cache": cache, "bits": bits, "b": b, "prompt": prompt, "steps": steps,
+            "max_len": max_len, "chunked_prefill": chunk, "prefill_ms": prefill_ms,
+            "prefill_tokens_per_s": b * prompt / prefill_ms * 1e3, "step_ms": step_ms,
+            "median_step_ms": med, "decode_tokens_per_s": b / med * 1e3,
+            "launches": {"prefill": {n: c for n, c in pre.items() if c},
+                         "decode": {n: c for n, c in dec.items() if c}},
+            "refeed_cosine_depth2": cos, "profile": prof}
+
+
+def run_llm(results, profile: bool) -> dict:
+    """The four LLM servers at full width and depth 32 (fp32 weights, 32 GB):
+    (a) dense int8, (b) paged int8 through a scrambled table of 1024-token
+    pages, (c) dense packed int4 calibrated on the prompt, b 4, a 4096-token
+    prompt and 32 decode steps; (d) the Mistral-7B geometry (vocab 32000,
+    window 4096), b 2, an 8192-token prompt in 512-token extend blocks and
+    32 decode steps, over the dense and the paged cache."""
+    import torch
+    from sageattention_tpu_torch import generate, models
+
+    models.set_attention_backend("sage")
+    cfg = models.MODEL_CONFIGS["llm-8b-gqa"].scaled(depth=LLM_DEPTH)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    t0 = time.perf_counter()
+    model = generate.load_llm(cfg, device="cuda", seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    # warm-up (allocator, cuBLAS), not counted: a short prompt and two steps
+    warm = torch.randint(0, cfg.vocab, (4, 1024), generator=gen, device="cuda")
+    generate.generate(model, warm, 2, max_len=2048)
+    torch.cuda.synchronize()
+    log(f"llm set-up + warm-up: {time.perf_counter() - t0:.1f} s, {n_params / 1e9:.3f} B "
+        f"parameters")
+    servers = {}
+    common = dict(b=4, prompt=4096, steps=LLM_STEPS, max_len=8192)
+    table = torch.randperm(4 * 8, generator=gen, device="cuda").reshape(4, 8).int()
+    for path, cache, bits, pt in (("llm_dense", "dense", 8, None),
+                                  ("llm_paged", "paged", 8, table),
+                                  ("llm_int4", "dense", 4, None)):
+        t_phase = time.perf_counter()
+        servers[path] = run_llm_server(results, model, profile, path=path, cache=cache,
+                                       bits=bits, page_table=pt, **common)
+        log(f"llm server phase {path}: {time.perf_counter() - t_phase:.1f} s")
+    del model
+    torch.cuda.empty_cache()
+
+    cfg_w = cfg.scaled(vocab=32000, window=4096)
+    model = generate.load_llm(cfg_w, device="cuda", seed=0)
+    common = dict(b=2, prompt=8192, steps=LLM_STEPS, max_len=9216, chunk=512)
+    table = torch.randperm(2 * 9, generator=gen, device="cuda").reshape(2, 9).int()
+    for path, cache, pt in (("llm_window_dense", "dense", None),
+                            ("llm_window_paged", "paged", table)):
+        t_phase = time.perf_counter()
+        servers[path] = run_llm_server(results, model, profile, path=path, cache=cache, bits=8,
+                                       page_table=pt, **common)
+        log(f"llm server phase {path}: {time.perf_counter() - t_phase:.1f} s")
+    del model
+    torch.cuda.empty_cache()
+    return servers
 
 
 # --------------------------------------------------------------------------
@@ -777,7 +1246,7 @@ def run_train(results, profile: bool) -> dict:
 
 
 # --------------------------------------------------------------------------
-# phase 5: times at the model shape
+# phase 6: times at the model shape
 # --------------------------------------------------------------------------
 
 
@@ -1017,6 +1486,15 @@ def main() -> int:
                             "replaces": "sageattention_tpu/ops/quant_pallas.py:429"},
         "quant_v_apply": {"route": "cuda", "source": src + "quant_v.cu",
                           "replaces": "sageattention_tpu/ops/quant_pallas.py:429"},
+        "sage_decode": {"route": "cuda", "source": src + "decode.cu",
+                        "replaces": "sageattention_tpu/ops/decode_pallas.py:222"},
+        "sage_decode_window": {"route": "cuda", "source": src + "decode.cu",
+                               "replaces": "sageattention_tpu/ops/decode_pallas.py:271"},
+        "sage_paged_decode": {"route": "cuda", "source": src + "paged_decode.cu",
+                              "replaces": "sageattention_tpu/ops/paged_decode_pallas.py:45"},
+        "sage_paged_decode_window": {
+            "route": "cuda", "source": src + "paged_decode.cu",
+            "replaces": "sageattention_tpu/ops/paged_decode_pallas.py:116"},
     }
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -1026,6 +1504,7 @@ def main() -> int:
     check_attention(gen, results)
     check_quant_q(gen, results)
     check_backward(gen, results)
+    check_decode(gen, results)
     log(f"kernel checks: {time.perf_counter() - t_phase:.1f} s")
     servers = {}
     for path, model, backend, launched, bf16_steps in (
@@ -1040,10 +1519,12 @@ def main() -> int:
     t_phase = time.perf_counter()
     trainer = run_train(results, args.profile)
     log(f"trainer phase: {time.perf_counter() - t_phase:.1f} s")
+    llm = run_llm(results, args.profile)
     t_phase = time.perf_counter()
     time_kernels(gen, results)
     time_quant_v(gen, results)
     layer = time_backward(gen, results)
+    time_decode(gen, results)
     log(f"timing phase: {time.perf_counter() - t_phase:.1f} s")
 
     kernels = []
@@ -1053,6 +1534,7 @@ def main() -> int:
         r["launches"] = r["launches_by_path"][MAIN_PATH[name]]
         kernels.append({"name": name, **r, "max_err": r["max_abs_err"]})
     log(json.dumps({"servers": servers}))
+    log(json.dumps({"llm_servers": llm}))
     log(json.dumps({"train": trainer}))
     log(json.dumps({"layer": layer}))
     log(json.dumps({"kernels": kernels}))

@@ -1,4 +1,4 @@
-"""Model zoo of the port: the video DiT and its attention backends."""
+"""Model zoo of the port: the video DiT, the causal LLM and their attention backends."""
 
 from sageattention_tpu_torch.models.attention import (
     SageAttnProcessor,
@@ -9,6 +9,7 @@ from sageattention_tpu_torch.models.attention import (
 )
 from sageattention_tpu_torch.models.configs import MODEL_CONFIGS, DiTConfig, LLMConfig
 from sageattention_tpu_torch.models.dit import VideoDiT
+from sageattention_tpu_torch.models.llm import CausalLM
 
 __all__ = [
     "attention",
@@ -20,4 +21,5 @@ __all__ = [
     "DiTConfig",
     "LLMConfig",
     "VideoDiT",
+    "CausalLM",
 ]

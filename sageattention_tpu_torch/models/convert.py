@@ -1,4 +1,4 @@
-"""Carry the JAX package's VideoDiT parameters across to the port.
+"""Carry the JAX package's VideoDiT and CausalLM parameters across to the port.
 
 ``params_from_jax`` takes the flax parameter tree as nested dicts of numpy
 arrays (``{"params": {...}}`` or the inner dict) and returns a state dict
@@ -20,6 +20,15 @@ counterparts:
     block_i/adaln                                     blocks.i.adaln
     block_i/attn/{qkv, q_norm, k_norm, out}           blocks.i.attn.*
     block_i/Dense_0, block_i/Dense_1                  blocks.i.mlp.0, .2
+
+``llm_params_from_jax`` does the same for :class:`models.llm.CausalLM`,
+whose flax names (from a real ``CausalLM.init`` tree) map as:
+
+    embed/embedding                                   embed.weight
+    layer_i/{attn_norm, mlp_norm}/scale               layers.i.*.weight
+    layer_i/Dense_0, Dense_1, Dense_2                 layers.i.q_proj, k_proj, v_proj
+    layer_i/{o_proj, gate, up, down}                  layers.i.*
+    final_norm, lm_head                               same names
 """
 
 from __future__ import annotations
@@ -30,20 +39,32 @@ import numpy as np
 import torch
 
 _RENAME = {"Dense_0": "mlp.0", "Dense_1": "mlp.2"}
+_LLM_RENAME = {"Dense_0": "q_proj", "Dense_1": "k_proj", "Dense_2": "v_proj"}
 
 
-def _torch_name(path: list[str]) -> str:
+def _torch_name(path: list[str], rename=_RENAME) -> str:
     out = []
     for part in path:
         if part.startswith("block_"):
             out += ["blocks", part[len("block_"):]]
+        elif part.startswith("layer_"):
+            out += ["layers", part[len("layer_"):]]
         else:
-            out.append(_RENAME.get(part, part))
+            out.append(rename.get(part, part))
     return ".".join(out)
 
 
 def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
     """flax VideoDiT parameters (numpy leaves) -> torch state dict (fp32)."""
+    return _from_jax(tree, _RENAME)
+
+
+def llm_params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
+    """flax CausalLM parameters (numpy leaves) -> torch state dict (fp32)."""
+    return _from_jax(tree, _LLM_RENAME)
+
+
+def _from_jax(tree: dict, rename: dict) -> dict[str, torch.Tensor]:
     tree = tree.get("params", tree)
     sd: dict[str, torch.Tensor] = {}
 
@@ -55,12 +76,13 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
         arr = np.asarray(node, dtype=np.float32)
         *mod, leaf = path
         if leaf == "kernel":
-            name, arr = _torch_name(mod) + ".weight", arr.T
-        elif leaf == "scale":
-            name = _torch_name(mod) + ".weight"
+            name, arr = _torch_name(mod, rename) + ".weight", arr.T
+        elif leaf in ("scale", "embedding"):
+            name = _torch_name(mod, rename) + ".weight"
         else:  # bias, pos_embed
-            name = _torch_name(path)
+            name = _torch_name(path, rename)
         sd[name] = torch.tensor(np.ascontiguousarray(arr))
 
     walk(tree, [])
     return sd
+

@@ -87,13 +87,14 @@ class Dense(nn.Linear):
     """flax ``nn.Dense(dtype=...)``: fp32 parameters, and the input, weight
     and bias cast to ``compute_dtype`` for each call (``promote_dtype``)."""
 
-    def __init__(self, d_in: int, d_out: int, compute_dtype, device=None):
-        super().__init__(d_in, d_out, device=device)
+    def __init__(self, d_in: int, d_out: int, compute_dtype, device=None, bias: bool = True):
+        super().__init__(d_in, d_out, bias=bias, device=device)
         self.compute_dtype = compute_dtype
 
     def forward(self, x):
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        bias = self.bias.to(dt) if self.bias is not None else None
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
 class TimestepEmbed(nn.Module):

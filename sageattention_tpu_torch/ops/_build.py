@@ -51,6 +51,14 @@ SIGNATURES = {
         "sage_attn_bwd_dq": [P] * 10 + [I] * 8 + [F, P],
         "sage_attn_bwd_dkv": [P] * 11 + [I] * 8 + [F, P],
     },
+    "decode": {
+        "sage_decode": [P] * 9 + [I] * 10 + [F, P],
+        "sage_decode_window": [P] * 9 + [I] * 10 + [F, P],
+    },
+    "paged_decode": {
+        "sage_paged_decode": [P] * 10 + [I] * 10 + [F, P],
+        "sage_paged_decode_window": [P] * 10 + [I] * 10 + [F, P],
+    },
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -1,0 +1,489 @@
+"""Decode attention over the quantized KV cache: CUDA wrappers and plain versions.
+
+Replaces the TPU kernels of ``sageattention_tpu/ops/decode_pallas.py``
+(``_decode_kernel``, ``_decode_kernel_window``) and
+``sageattention_tpu/ops/paged_decode_pallas.py`` (``_paged_kernel``,
+``_paged_kernel_window``), which share one chunk body,
+``decode_step_body``.  The kernels are ``csrc/decode.cu`` and
+``csrc/paged_decode.cu`` on the shared ``csrc/decode_body.cuh``; their
+headers say what bounds them and how they are laid out.
+
+What every version computes, chunk by chunk (a chunk of the dense cache
+comes from the host rules below, a chunk of the paged cache is a page):
+
+* per row of the packed (GQA group x query token) tile, Q quantized to
+  +-127 (+-119 for the packed 4-bit cache) with its scale times
+  ``sm_scale * log2(e)``;
+* ``sf = s_i32 * (qscale * sm_fold) * ks``, masked to ``NEG_INIT`` past the
+  length, the causal tail of t_q > 1 and the sliding window;
+* ``p = exp2(sf - m_c)``, ``pe = p * vs``, requantized per row with the
+  chunk's own ``pmax`` for an integer P.V, ``pv = int32(P_q . V) * psc``;
+* the base-2 online merge into (m, l, acc), and ``o = acc / l`` (0 where
+  ``l == 0``).
+
+The chunking is part of the numbers (the P quantization unit is the chunk),
+so the host rules are the JAX package's, copied exactly.  On a CPU tensor
+the wrappers run the plain versions; on a CUDA tensor they launch the
+kernels or raise.  ``decode_kernel``, ``decode_window_kernel``,
+``paged_kernel`` and ``paged_window_kernel`` launch kernels 9-12 and count
+their launches in ``.launches``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from sageattention_tpu_torch import quant
+from sageattention_tpu_torch.ops import _build
+
+LOG2E = quant.LOG2E
+NEG_INIT = -1e30
+# the score-tile budget of the extend-block rule (bytes of a fp32 [rows, chunk] tile)
+_TILE_BUDGET = 8 * 2**20
+
+
+# --------------------------------------------------------------------------
+# host-side chunk rules (decode_pallas.py:50-67, :379-384, :415-424;
+# paged_decode_pallas.py:228-240, :272-277)
+# --------------------------------------------------------------------------
+
+
+def _chunk_divisor(S: int, cap: int) -> int:
+    """Chunk width for a cache of length ``S`` under the cap: ``S`` itself
+    when it fits, else the largest divisor that is a multiple of 128."""
+    if S <= cap:
+        return S
+    c = cap // 128 * 128
+    while c > 128 and S % c:
+        c -= 128
+    if S % c:
+        raise ValueError(
+            f"cache length {S} larger than the chunk cap {cap} must have "
+            "a 128-multiple divisor (size max_len up to a multiple of 128)"
+        )
+    return c
+
+
+def _rows8(rows: int) -> int:
+    return max(8, -(-rows // 8) * 8)
+
+
+def dense_plan(S: int, rows: int, t_q: int, chunk: int, window: int | None):
+    """(chunk, n_kv, n_live) of the dense decode; ``n_live`` is None
+    without a window."""
+    rows8 = _rows8(rows)
+    if rows8 > 128:
+        # extend blocks: shrink the chunk so the score tile fits the budget
+        budget = (_TILE_BUDGET // 4) // rows8
+        chunk = min(chunk, max(128, 1 << (budget.bit_length() - 1)))
+    chunk = _chunk_divisor(S, chunk)
+    n_kv = S // chunk
+    if window is None:
+        return chunk, n_kv, None
+    span = window + t_q - 1
+    target = max(1024, 1 << max((span - 1).bit_length() - 1, 0))
+    if chunk > target:
+        chunk = _chunk_divisor(S, target)
+        n_kv = S // chunk
+    return chunk, n_kv, min(n_kv, -(-span // chunk) + 1)
+
+
+def paged_plan(page: int, max_pages: int, rows: int, group: int, t_q: int,
+               window: int | None):
+    """``n_live`` pages of the windowed paged decode (None without a
+    window); raises where the JAX package refuses the score tile."""
+    rows8 = _rows8(rows)
+    if rows8 * page * 4 > _TILE_BUDGET:
+        raise ValueError(
+            f"paged chunked-prefill tile too large: rows {rows8} x page "
+            f"{page} exceeds the ~8 MB score-tile budget; use smaller "
+            f"extend blocks (t_q <= {_TILE_BUDGET // (4 * page * group)}) "
+            f"or smaller pages, or the dense-cache path (its chunk "
+            f"width adapts to t_q)"
+        )
+    if window is None:
+        return None
+    span = window + t_q - 1
+    return min(max_pages, -(-span // page) + 1)
+
+
+def window_start(length: int, span: int, chunk: int, n_total: int, n_live: int) -> int:
+    """First chunk (or page) the window reaches, as each block computes it."""
+    return min(max((length - span) // chunk, 0), n_total - n_live)
+
+
+# --------------------------------------------------------------------------
+# plain versions
+# --------------------------------------------------------------------------
+
+
+def unpack_token_pairs(p: torch.Tensor) -> torch.Tensor:
+    """[..., t/2, d] token-pair-packed int8 -> [..., t, d] int8 in [-8, 7]:
+    token 2t is the low nibble, 2t+1 the high one, sign-extended."""
+    x = p.to(torch.int32)
+    lo = (x << 28) >> 28
+    hi = x >> 4
+    out = torch.stack([lo, hi], dim=-2)
+    return out.reshape(*p.shape[:-2], -1, p.shape[-1]).to(torch.int8)
+
+
+def _q_qmax(packed: bool) -> float:
+    return 119.0 if packed else 127.0
+
+
+def _quant_q(q_pack: torch.Tensor, packed: bool, sm_fold: float):
+    """Per-row Q codes and ``qscale * sm_fold``, as the kernels compute them:
+    XLA compiles the spec's ``(max(amax, 1e-30) * (1/qmax)) * sm_fold`` as
+    ``max(amax, 1e-30) * ((1/qmax) * sm_fold)``, which is what the JAX
+    kernel's numbers are (:func:`quant.fold_multiplier`)."""
+    qmax = _q_qmax(packed)
+    qf = q_pack.float()
+    amax = qf.abs().amax(dim=-1)
+    _, r = quant.inv_scale(amax, qmax)
+    q_int = quant.round_half_away(qf * r[..., None]).clamp(-qmax, qmax)
+    mul = quant.f32_scalar(quant.fold_multiplier(sm_fold, qmax), q_pack.device)
+    return q_int, torch.clamp_min(amax, 1e-30) * mul
+
+
+def _chunk_body(state, q_int, qsf, k, ks, v, vs, *, base_col: int, length: int,
+                t_q: int, window: int | None, packed: bool) -> None:
+    """One chunk of ``decode_step_body`` for one batch entry, all kv heads:
+    q_int [hkv, rows, d], k/v [hkv, C, d] int8 codes, ks/vs [hkv, C].
+    Updates ``state`` = [m, l, acc] in place."""
+    dev = q_int.device
+    rows, C = q_int.shape[1], k.shape[1]
+    s = torch.matmul(q_int.double(), k.double().transpose(-1, -2)).float()
+    sf = s * qsf[..., None] * ks[:, None, :]
+    col = torch.arange(C, device=dev)[None, :] + base_col
+    trow = (torch.arange(rows, device=dev) % t_q)[:, None]
+    valid = col < length
+    if t_q > 1:
+        valid = valid & (col < length - (t_q - 1) + trow)
+        if window is not None:
+            valid = valid & (col > length - t_q + trow - window)
+    elif window is not None:
+        valid = valid & (col > length - 1 - window)
+    sf = torch.where(valid, sf, NEG_INIT)
+    m_c = sf.amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp2(sf - m_c), 0.0)
+    l_c = p.sum(dim=-1, keepdim=True)
+    pe = p * vs[:, None, :]
+    pmax = pe.amax(dim=-1, keepdim=True)
+    p_qmax = 119.0 if packed else 127.0
+    psc, pr = quant.inv_scale(pmax, p_qmax)
+    p_int = quant.round_half_away(pe * pr).clamp(0.0, p_qmax)
+    # the integer P.V is exact in fp64 (|sum| < 2^31), as int32 on the card
+    pv = torch.matmul(p_int.double(), v.double()).float() * psc
+    m_prev, l_prev, acc = state
+    m_next = torch.maximum(m_prev, m_c)
+    alpha = torch.exp2(m_prev - m_next)
+    w = torch.exp2(m_c - m_next)
+    state[0] = m_next
+    state[1] = alpha * l_prev + w * l_c
+    state[2] = acc * alpha + pv * w
+
+
+def _decode_plain(q, chunks_of, lengths, *, packed: bool, sm_scale, window,
+                  out_dtype, return_state, hkv: int):
+    """The shared loop of the plain versions: ``chunks_of(bi, length)`` yields
+    (base_col, k, ks, v, vs) for each chunk the kernel visits, in order."""
+    b, hq, t_q, d = q.shape
+    group = hq // hkv
+    rows = group * t_q
+    if sm_scale is None:
+        sm_scale = d**-0.5
+    out_dtype = out_dtype or q.dtype
+    q_int, qsf = _quant_q(q.reshape(b, hkv, rows, d), packed, sm_scale * LOG2E)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    o = torch.zeros(b, hkv, rows, d, **f32)
+    m_out = torch.full((b, hkv, rows), NEG_INIT, **f32)
+    l_out = torch.zeros(b, hkv, rows, **f32)
+    for bi, length in enumerate(lengths.tolist()):
+        state = [torch.full((hkv, rows, 1), NEG_INIT, **f32),
+                 torch.zeros(hkv, rows, 1, **f32), torch.zeros(hkv, rows, d, **f32)]
+        for base_col, k, ks, v, vs in chunks_of(bi, length):
+            if packed:
+                k, v = unpack_token_pairs(k), unpack_token_pairs(v)
+            _chunk_body(state, q_int[bi], qsf[bi], k, ks.float(), v, vs.float(),
+                        base_col=base_col, length=length, t_q=t_q, window=window,
+                        packed=packed)
+        m, l, acc = state
+        l_inv = torch.where(l == 0.0, 0.0, 1.0 / l)
+        o[bi] = acc * l_inv
+        m_out[bi], l_out[bi] = m[..., 0], l[..., 0]
+
+    def heads(x):
+        return x.reshape(b, hq, t_q, *x.shape[3:])
+
+    o = heads(o).to(out_dtype)
+    return (o, heads(m_out), heads(l_out)) if return_state else o
+
+
+def _check_cache(q, k, k_scale, v, v_scale):
+    b, hq, t_q, d = q.shape
+    hkv, S = k.shape[1], k_scale.shape[2]
+    if k.shape[2] not in (S, S // 2) or k.shape[-1] != d or v.shape != k.shape:
+        raise ValueError(f"K/V {tuple(k.shape)} / {tuple(v.shape)} do not fit scales "
+                         f"{tuple(k_scale.shape)} and head dim {d}")
+    if hq % hkv:
+        raise ValueError(f"hq={hq} is not a multiple of hkv={hkv}")
+    return hkv, S, k.shape[2] != S
+
+
+def sage_decode_attention_plain(q, k_i8, k_scale, v_i8, v_scale, lengths, *,
+                                sm_scale=None, chunk: int = 4096, window=None,
+                                out_dtype=None, return_state: bool = False):
+    """Kernels 9 and 10 in plain PyTorch (see :func:`sage_decode_attention`)."""
+    b, hq, t_q, d = q.shape
+    hkv, S, packed = _check_cache(q, k_i8, k_scale, v_i8, v_scale)
+    C, n_kv, n_live = dense_plan(S, hq // hkv * t_q, t_q, chunk, window)
+    cb = C // 2 if packed else C  # data rows of one chunk
+
+    def chunks_of(bi, length):
+        start, count = 0, n_kv
+        if window is not None:
+            start = window_start(length, window + t_q - 1, C, n_kv, n_live)
+            count = n_live
+        for ci in range(start, start + count):
+            if ci * C >= length:
+                break
+            yield (ci * C, k_i8[bi, :, ci * cb:(ci + 1) * cb], k_scale[bi, :, ci * C:(ci + 1) * C],
+                   v_i8[bi, :, ci * cb:(ci + 1) * cb], v_scale[bi, :, ci * C:(ci + 1) * C])
+
+    return _decode_plain(q, chunks_of, lengths, packed=packed, sm_scale=sm_scale,
+                         window=window, out_dtype=out_dtype, return_state=return_state,
+                         hkv=hkv)
+
+
+def sage_paged_decode_attention_plain(q, pages_k, pages_k_scale, pages_v, pages_v_scale,
+                                      page_table, lengths, *, sm_scale=None, window=None,
+                                      out_dtype=None, return_state: bool = False):
+    """Kernels 11 and 12 in plain PyTorch (see
+    :func:`sage_paged_decode_attention`)."""
+    b, hq, t_q, d = q.shape
+    hkv, page, packed = _check_cache(q, pages_k, pages_k_scale, pages_v, pages_v_scale)
+    max_pages = page_table.shape[1]
+    n_live = paged_plan(page, max_pages, hq // hkv * t_q, hq // hkv, t_q, window)
+    table = page_table.tolist()
+
+    def chunks_of(bi, length):
+        start, count = 0, max_pages
+        if window is not None:
+            start = window_start(length, window + t_q - 1, page, max_pages, n_live)
+            count = n_live
+        for pi in range(start, start + count):
+            if pi * page >= length:
+                break
+            ph = table[bi][pi]
+            yield (pi * page, pages_k[ph], pages_k_scale[ph], pages_v[ph], pages_v_scale[ph])
+
+    return _decode_plain(q, chunks_of, lengths, packed=packed, sm_scale=sm_scale,
+                         window=window, out_dtype=out_dtype, return_state=return_state,
+                         hkv=hkv)
+
+
+def merge_decode_partials(o_parts, m_parts, l_parts, out_dtype=None):
+    """Exactly combine normalized partial decodes over disjoint cache shards
+    (``return_state=True`` outputs stacked on a leading axis):
+    ``o = sum_i w_i o_i / sum_i w_i`` with ``w_i = l_i * 2^(m_i - max m)``.
+    Empty shards (m = NEG_INIT, l = 0) weigh 0; a row empty everywhere is 0."""
+    out_dtype = out_dtype or o_parts.dtype
+    m_g = m_parts.amax(dim=0)
+    w = l_parts * torch.exp2(m_parts - m_g)
+    den = w.sum(dim=0)
+    den = torch.where(den == 0.0, 1.0, den)
+    num = (w[..., None] * o_parts.float()).sum(dim=0)
+    return (num / den[..., None]).to(out_dtype)
+
+
+# --------------------------------------------------------------------------
+# the kernels
+# --------------------------------------------------------------------------
+
+
+def _device_args(q, lengths, *tensors):
+    """q as fp32 [b, hkv, rows, d] and the int32 lengths, checked."""
+    for x in tensors:
+        if x.device != q.device:
+            raise ValueError(f"tensor on {x.device}, q on {q.device}")
+        if not x.is_contiguous():
+            raise ValueError("the decode kernels take contiguous tensors")
+    if q.shape[-1] not in (64, 128):
+        raise ValueError(f"head dim {q.shape[-1]}: the kernels take 64 or 128")
+    return q.float().contiguous(), lengths.to(device=q.device, dtype=torch.int32).contiguous()
+
+
+def _outputs(q, rows_shape, return_state):
+    f32 = dict(dtype=torch.float32, device=q.device)
+    o = torch.empty(*rows_shape, q.shape[-1], **f32)
+    m = torch.empty(*rows_shape, **f32) if return_state else None
+    l = torch.empty(*rows_shape, **f32) if return_state else None
+    return o, m, l
+
+
+def _ptr(x):
+    return x.data_ptr() if x is not None else None
+
+
+def _launch_dense(fn_name, q, k_i8, k_scale, v_i8, v_scale, lengths, *, chunk, window,
+                  n_live, qs_mul, return_state):
+    b, hq, t_q, d = q.shape
+    hkv, S = k_i8.shape[1], k_scale.shape[2]
+    rows = hq // hkv * t_q
+    qf, lens = _device_args(q, lengths, k_i8, k_scale, v_i8, v_scale)
+    o, m, l = _outputs(q, (b, hkv, rows), return_state)
+    with torch.cuda.device(q.device):
+        err = getattr(_build.lib("decode"), fn_name)(
+            qf.data_ptr(), k_i8.data_ptr(), k_scale.data_ptr(), v_i8.data_ptr(),
+            v_scale.data_ptr(), lens.data_ptr(), o.data_ptr(), _ptr(m), _ptr(l),
+            b, hkv, rows, t_q, S, d, int(k_i8.shape[2] != S), chunk, window or 0,
+            n_live or 0, qs_mul, torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _build.check(err, fn_name)
+    return o, m, l
+
+
+def decode_kernel(q, k_i8, k_scale, v_i8, v_scale, lengths, *, chunk, qs_mul,
+                  return_state):
+    """Launch kernel 9 (dense cache, every chunk below the length)."""
+    out = _launch_dense("sage_decode", q, k_i8, k_scale, v_i8, v_scale, lengths,
+                        chunk=chunk, window=None, n_live=None, qs_mul=qs_mul,
+                        return_state=return_state)
+    decode_kernel.launches += 1
+    return out
+
+
+def decode_window_kernel(q, k_i8, k_scale, v_i8, v_scale, lengths, *, chunk, window,
+                         n_live, qs_mul, return_state):
+    """Launch kernel 10 (dense cache, the ``n_live`` chunks the window reaches)."""
+    out = _launch_dense("sage_decode_window", q, k_i8, k_scale, v_i8, v_scale, lengths,
+                        chunk=chunk, window=window, n_live=n_live, qs_mul=qs_mul,
+                        return_state=return_state)
+    decode_window_kernel.launches += 1
+    return out
+
+
+def _launch_paged(fn_name, q, pages_k, pages_k_scale, pages_v, pages_v_scale, page_table,
+                  lengths, *, window, n_live, qs_mul, return_state):
+    b, hq, t_q, d = q.shape
+    hkv, page = pages_k.shape[1], pages_k_scale.shape[2]
+    rows = hq // hkv * t_q
+    table = page_table.to(device=q.device, dtype=torch.int32).contiguous()
+    qf, lens = _device_args(q, lengths, pages_k, pages_k_scale, pages_v, pages_v_scale)
+    o, m, l = _outputs(q, (b, hkv, rows), return_state)
+    with torch.cuda.device(q.device):
+        err = getattr(_build.lib("paged_decode"), fn_name)(
+            qf.data_ptr(), pages_k.data_ptr(), pages_k_scale.data_ptr(), pages_v.data_ptr(),
+            pages_v_scale.data_ptr(), table.data_ptr(), lens.data_ptr(), o.data_ptr(),
+            _ptr(m), _ptr(l), b, hkv, rows, t_q, page, table.shape[1], d,
+            int(pages_k.shape[2] != page), window or 0, n_live or 0, qs_mul,
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _build.check(err, fn_name)
+    return o, m, l
+
+
+def paged_kernel(q, pages_k, pages_k_scale, pages_v, pages_v_scale, page_table, lengths, *,
+                 qs_mul, return_state):
+    """Launch kernel 11 (paged cache, every page below the length)."""
+    out = _launch_paged("sage_paged_decode", q, pages_k, pages_k_scale, pages_v,
+                        pages_v_scale, page_table, lengths, window=None, n_live=None,
+                        qs_mul=qs_mul, return_state=return_state)
+    paged_kernel.launches += 1
+    return out
+
+
+def paged_window_kernel(q, pages_k, pages_k_scale, pages_v, pages_v_scale, page_table,
+                        lengths, *, window, n_live, qs_mul, return_state):
+    """Launch kernel 12 (paged cache, the ``n_live`` pages the window reaches)."""
+    out = _launch_paged("sage_paged_decode_window", q, pages_k, pages_k_scale, pages_v,
+                        pages_v_scale, page_table, lengths, window=window, n_live=n_live,
+                        qs_mul=qs_mul, return_state=return_state)
+    paged_window_kernel.launches += 1
+    return out
+
+
+for _fn in (decode_kernel, decode_window_kernel, paged_kernel, paged_window_kernel):
+    _fn.launches = 0
+
+
+def _finish(res, q, out_dtype, return_state):
+    """The kernels' fp32 [b, hkv, rows, ...] outputs in [b, hq, t_q, ...]."""
+    b, hq, t_q, _ = q.shape
+    o, m, l = res
+    o = o.reshape(b, hq, t_q, -1).to(out_dtype or q.dtype)
+    if not return_state:
+        return o
+    return o, m.reshape(b, hq, t_q), l.reshape(b, hq, t_q)
+
+
+def sage_decode_attention(q, k_i8, k_scale, v_i8, v_scale, lengths, *, sm_scale=None,
+                          chunk: int = 4096, window: int | None = None, out_dtype=None,
+                          return_state: bool = False):
+    """Decode attention of a few query tokens against the dense int8 (or
+    token-pair-packed int4) cache.
+
+    q [b, hq, t_q, d]; k_i8 / v_i8 [b, hkv, S, d] int8, or [b, hkv, S/2, d]
+    packed; k_scale / v_scale [b, hkv, S] fp32 per token; lengths [b] live
+    lengths including the t_q new tokens.  Values outside [0, S] are part of
+    the contract: a negative length gives 0 and (m, l) = (NEG_INIT, 0).
+    Query row t also sees the causal tail (keys < length - t_q + 1 + t);
+    ``window`` keeps each query's last ``window`` keys and reads only the
+    chunks they lie in.  Returns o [b, hq, t_q, d] in ``out_dtype``
+    (default q's) and, with ``return_state``, the base-2 (m, l) [b, hq,
+    t_q] fp32 for :func:`merge_decode_partials`."""
+    if q.device.type == "cpu":
+        return sage_decode_attention_plain(q, k_i8, k_scale, v_i8, v_scale, lengths,
+                                           sm_scale=sm_scale, chunk=chunk, window=window,
+                                           out_dtype=out_dtype, return_state=return_state)
+    if q.device.type != "cuda":
+        raise ValueError(f"sage_decode_attention: tensor on {q.device}")
+    b, hq, t_q, d = q.shape
+    hkv, S, _ = _check_cache(q, k_i8, k_scale, v_i8, v_scale)
+    C, _, n_live = dense_plan(S, hq // hkv * t_q, t_q, chunk, window)
+    packed = k_i8.shape[2] != S
+    qs_mul = quant.fold_multiplier((d**-0.5 if sm_scale is None else sm_scale) * LOG2E,
+                                    _q_qmax(packed))
+    args = (q, k_i8, k_scale, v_i8, v_scale, lengths)
+    if window is None:
+        res = decode_kernel(*args, chunk=C, qs_mul=qs_mul, return_state=return_state)
+    else:
+        res = decode_window_kernel(*args, chunk=C, window=window, n_live=n_live,
+                                   qs_mul=qs_mul, return_state=return_state)
+    return _finish(res, q, out_dtype, return_state)
+
+
+def sage_paged_decode_attention(q, pages_k, pages_k_scale, pages_v, pages_v_scale,
+                                page_table, lengths, *, owned=None, sm_scale=None,
+                                window: int | None = None, out_dtype=None,
+                                return_state: bool = False):
+    """Decode attention through a page table: logical chunk j of sequence b
+    is physical page ``page_table[b, j]`` of the pool (pages_k / pages_v
+    [P, hkv, page, d] int8 or [P, hkv, page/2, d] packed; scales [P, hkv,
+    page]).  Entries past the live length may hold any valid page id.  Same
+    query semantics and outputs as :func:`sage_decode_attention`, one page
+    per chunk."""
+    if owned is not None:
+        raise NotImplementedError(
+            "owned= (the sharded page pool) is not ported yet (ROADMAP: "
+            "parallelism, sharded decode)"
+        )
+    if q.device.type == "cpu":
+        return sage_paged_decode_attention_plain(
+            q, pages_k, pages_k_scale, pages_v, pages_v_scale, page_table, lengths,
+            sm_scale=sm_scale, window=window, out_dtype=out_dtype, return_state=return_state)
+    if q.device.type != "cuda":
+        raise ValueError(f"sage_paged_decode_attention: tensor on {q.device}")
+    b, hq, t_q, d = q.shape
+    hkv, page, _ = _check_cache(q, pages_k, pages_k_scale, pages_v, pages_v_scale)
+    n_live = paged_plan(page, page_table.shape[1], hq // hkv * t_q, hq // hkv, t_q, window)
+    packed = pages_k.shape[2] != page
+    qs_mul = quant.fold_multiplier((d**-0.5 if sm_scale is None else sm_scale) * LOG2E,
+                                    _q_qmax(packed))
+    args = (q, pages_k, pages_k_scale, pages_v, pages_v_scale, page_table, lengths)
+    if window is None:
+        res = paged_kernel(*args, qs_mul=qs_mul, return_state=return_state)
+    else:
+        res = paged_window_kernel(*args, window=window, n_live=n_live, qs_mul=qs_mul,
+                                  return_state=return_state)
+    return _finish(res, q, out_dtype, return_state)

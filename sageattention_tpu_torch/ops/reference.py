@@ -6,11 +6,14 @@
   base-2 softmax, P.V), the correctness target.
 * :func:`quantized_attention_bwd_reference`: the arithmetic of the two
   backward kernels, the straight-through gradient of the quantized forward.
+* :func:`decode_reference`: exact fp32 decode of a few query tokens
+  against unquantized K/V, the accuracy target of the decode kernels.
 
 Both loop over (batch, head) slabs so that one slab's [sq, sk] score
 matrix is the largest temporary: at CogVideoX-2B's 17,776 tokens that is
 1.26 GB in fp32, where all 30 heads at once would not fit on the card.
-Causal masking is top-left aligned (``col <= row``).
+Causal masking is top-left aligned (``col <= row``); a sliding ``window``
+keeps the keys ``col > row - window`` (:func:`window_band_mask`).
 """
 
 from __future__ import annotations
@@ -22,13 +25,27 @@ LOG2E = 1.4426950408889634
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
 
-def _build_mask(sq: int, sk: int, *, is_causal: bool, device) -> torch.Tensor | None:
-    """[sq, sk] bool mask (True = attend); only the causal part is ported."""
+def window_band_mask(sq: int, sk: int, window: int, device=None) -> torch.Tensor:
+    """[sq, sk] bool: key col within the last ``window`` positions of query
+    row (top-left aligned; the upper edge comes from ``is_causal``), the
+    JAX package's band convention."""
+    row = torch.arange(sq, device=device)[:, None]
+    return torch.arange(sk, device=device)[None, :] > row - window
+
+
+def _build_mask(sq: int, sk: int, *, is_causal: bool, device,
+                window: int | None = None) -> torch.Tensor | None:
+    """[sq, sk] bool mask (True = attend): causal and the sliding window."""
+    if window is not None and not is_causal:
+        raise ValueError("window requires is_causal=True")
     if not is_causal:
         return None
     row = torch.arange(sq, device=device)[:, None]
     col = torch.arange(sk, device=device)[None, :]
-    return col <= row
+    mask = col <= row
+    if window is not None:
+        mask = mask & window_band_mask(sq, sk, window, device)
+    return mask
 
 
 def _kv_head(h: int, hq: int, hkv: int) -> int:
@@ -44,15 +61,17 @@ def attention_reference(
     is_causal: bool = False,
     sm_scale: float | None = None,
     return_lse: bool = False,
+    window: int | None = None,
 ):
     """Exact fp32 attention on HND [b, h, s, d] tensors; GQA when k/v have
-    fewer heads.  Returns o in q's dtype and, if asked, the natural-log
+    fewer heads; ``window`` (with ``is_causal``) keeps each query's last
+    ``window`` keys.  Returns o in q's dtype and, if asked, the natural-log
     LSE [b, hq, sq] in fp32."""
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     if sm_scale is None:
         sm_scale = d**-0.5
-    mask = _build_mask(sq, sk, is_causal=is_causal, device=q.device)
+    mask = _build_mask(sq, sk, is_causal=is_causal, device=q.device, window=window)
     o = torch.empty(b, hq, sq, v.shape[-1], dtype=q.dtype, device=q.device)
     lse = torch.empty(b, hq, sq, dtype=torch.float32, device=q.device)
     for bi in range(b):
@@ -181,3 +200,31 @@ def quantized_attention_bwd_reference(
     if dk is not None:
         dk *= sm_scale
     return dq, dk, dv
+
+
+def decode_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     lengths, *, sm_scale: float | None = None,
+                     window: int | None = None) -> torch.Tensor:
+    """Exact fp32 decode of t_q query tokens against unquantized K/V.
+
+    q [b, hq, t_q, d]; k, v [b, hkv, S, d]; ``lengths`` [b] counts the live
+    keys including the t_q new ones.  Query token t sits at position
+    ``length - t_q + t`` and attends keys up to it (and, with ``window``,
+    after ``position - window``).  Returns fp32 [b, hq, t_q, d]."""
+    b, hq, t_q, d = q.shape
+    if sm_scale is None:
+        sm_scale = d**-0.5
+    out = torch.zeros(b, hq, t_q, v.shape[-1], dtype=torch.float32, device=q.device)
+    for bi, length in enumerate(torch.as_tensor(lengths).tolist()):
+        length = int(length)
+        pos = length - t_q + torch.arange(t_q, device=q.device)[:, None]
+        col = torch.arange(length, device=q.device)[None, :]
+        mask = col <= pos
+        if window is not None:
+            mask = mask & (col > pos - window)
+        kb = k[bi, :, :length].float().repeat_interleave(hq // k.shape[1], dim=0)
+        vb = v[bi, :, :length].float().repeat_interleave(hq // v.shape[1], dim=0)
+        s = torch.einsum("hqd,hkd->hqk", q[bi].float(), kb) * sm_scale
+        s = torch.where(mask, s, MASK_VALUE)
+        out[bi] = torch.einsum("hqk,hkd->hqd", torch.softmax(s, dim=-1), vb)
+    return out

@@ -33,11 +33,16 @@ def round_half_away(x: torch.Tensor) -> torch.Tensor:
     return torch.where(tie, torch.trunc(x) + torch.sign(x), r)
 
 
+def f32_scalar(value: float, device) -> torch.Tensor:
+    """``value`` rounded to fp32, as a 0-d tensor on ``device``.  Filled on
+    the device: ``torch.tensor(value, device=cuda)`` would copy from the
+    host and wait for the stream."""
+    return torch.full((), value, dtype=torch.float32, device=device)
+
+
 def inv_scale(amax: torch.Tensor, qmax: float) -> tuple[torch.Tensor, torch.Tensor]:
     """(scale, 1/scale) from an fp32 amax, in the spec's order."""
-    scale = torch.clamp_min(amax, 1e-30) * torch.tensor(
-        1.0 / qmax, dtype=torch.float32, device=amax.device
-    )
+    scale = torch.clamp_min(amax, 1e-30) * f32_scalar(1.0 / qmax, amax.device)
     return scale, 1.0 / scale
 
 
@@ -60,9 +65,7 @@ def quant_int8(x: torch.Tensor, *, scale_fold: float = 1.0):
     scale, r = inv_scale(amax, INT8_QMAX)
     q = round_half_away(x * r[..., None])
     q = q.clamp(-INT8_QMAX, INT8_QMAX).to(torch.int8)
-    folded = torch.clamp_min(amax, 1e-30) * torch.tensor(
-        fold_multiplier(scale_fold), dtype=torch.float32, device=x.device
-    )
+    folded = torch.clamp_min(amax, 1e-30) * f32_scalar(fold_multiplier(scale_fold), x.device)
     return q, folded
 
 

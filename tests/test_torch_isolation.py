@@ -17,8 +17,10 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "sageattention_tpu_torch"
 FORBIDDEN = ("jax", "flax", "sageattention_tpu")
-WRAPPERS = ("ops/quant_cuda.py", "ops/attention_cuda.py", "ops/attention_bwd_cuda.py")
-NO_TRY = ("ops/_build.py", *WRAPPERS, "ops/autodiff.py", "core.py", "train.py")
+WRAPPERS = ("ops/quant_cuda.py", "ops/attention_cuda.py", "ops/attention_bwd_cuda.py",
+            "ops/decode_cuda.py")
+NO_TRY = ("ops/_build.py", *WRAPPERS, "ops/autodiff.py", "core.py", "train.py", "kvcache.py",
+          "generate.py")
 
 
 def _port_files():
