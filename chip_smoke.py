@@ -16,7 +16,15 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    e5m2 codes, the forward kernel for every V type with and without the
    smooth-v mean; the decode kernels 9-12 for int8 and int4 caches, t_q
    1, 4 and 512, ragged lengths, window 4096, pages of 16 and 1024), and
-   the ops' outputs and gradients against exact fp32 attention;
+   the ops' outputs and gradients against exact fp32 attention; then the
+   masked forward kernel at the llm-8b-gqa layer (32/8 heads of 128):
+   ``sageattn_varlen`` over four causal prompts of 4096, 2048, 1536 and
+   512 tokens, and at 4096 tokens a padding mask with dead rows, an
+   ALiBi bias (causal and not), non-contiguous segment ids and zig-zag
+   positions, each against its plain version, against exact attention on
+   the live rows, and with dead rows exactly 0 and LSE -inf; and the
+   windowed backward (window 1024) against its plain version and exact
+   attention's gradients;
 3. the servers, each answering 2 requests x 2 denoise steps with seeded
    random weights at full width and depth 30; the launch counts of every
    kernel are zeroed just before and read just after, and those of the
@@ -48,14 +56,19 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    b. paged int8 cache, 1024-token pages, scrambled table (kernel 11);
    c. dense packed int4 cache, calibrated on the prompt (kernel 9);
    d. vocab 32000 and a 4096-token sliding window (the Mistral-7B
-      geometry), b 2, an 8192-token prompt in 512-token extend blocks,
-      dense (kernel 10) and paged (kernel 12);
+      geometry), b 2, an 8192-token prompt: dense in one windowed prefill
+      (the masked kernel 1 and kernels 2-3 once a layer, no decode
+      kernel), then kernel 10; paged in 512-token extend blocks through
+      kernel 12;
 6. each kernel's time at the model shape (CUDA events, median of several
    after warm-up) beside its bound, its plain version's time and, where
    one PyTorch call computes the same function, that call's time; the
    forward kernel for every V type; one layer's attention forward +
-   backward against SDPA's; and the decode kernels at the servers' decode
-   and extend shapes, with the L2 flushed before each call.
+   backward against SDPA's; the decode kernels at the servers' decode
+   and extend shapes, with the L2 flushed before each call; the masked
+   forward at the windowed prefill's layer and at the varlen shape, with
+   bounds from the live (row, col) pairs and SDPA with the same bool mask
+   as the library time, and the windowed dQ and dKV.
 
 It prints one ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside the
@@ -66,6 +79,7 @@ of JAX.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import math
 import os
@@ -103,6 +117,8 @@ LLM_PAGE = 1024
 # units), 0.97459 for the packed int4 cache (+-7 levels).
 REFEED_FLOOR = {8: 0.998, 4: 0.97}
 LOG2E = 1.4426950408889634
+LLM_LAYER = dict(hq=32, hkv=8, d=128)  # one llm-8b-gqa attention layer
+VARLEN_LENS = (4096, 2048, 1536, 512)  # four causal prompts packed, 8192 tokens
 
 
 def log(msg: str) -> None:
@@ -425,19 +441,20 @@ def check_quant_q(gen, results):
                 (qi.int() - qi_p.int()).abs().max().item())
 
 
-def backward_case(gen, b, hq, hkv, sq, sk, d, causal):
+def backward_case(gen, b, hq, hkv, sq, sk, d, causal, window=None):
     """Random bf16 q, k, v, dO; the forward's residuals and the backward
     kernels' operands, built as the op builds them."""
     import torch
     from sageattention_tpu_torch import core
     from sageattention_tpu_torch.ops import autodiff
+    from sageattention_tpu_torch.ops.attention_cuda import Masks
 
     q = torch.randn(b, hq, sq, d, generator=gen, device="cuda").to(torch.bfloat16)
     k = (torch.randn(b, hkv, sk, d, generator=gen, device="cuda") + 0.5).to(torch.bfloat16)
     v = torch.randn(b, hkv, sk, d, generator=gen, device="cuda").to(torch.bfloat16)
     do = torch.randn(b, hq, sq, d, generator=gen, device="cuda").to(torch.bfloat16)
     f = core._forward(q, k, v, is_causal=causal, sm_scale=None, smooth_k=True,
-                      return_lse=True)
+                      return_lse=True, masks=None if window is None else Masks(window=window))
     ops = autodiff.backward_operands(q, k, v, do, o=f.o, k_i8=f.k_i8, km=f.km, dlse=None,
                                      sm_scale=f.sm_scale)
     ops.update(k_i8=f.k_i8, k_scale=f.k_scale, lse2=f.lse2)
@@ -516,6 +533,279 @@ def check_backward(gen, results):
     log(f"sageattn grads vs exact fp32 (NHD, GQA 32/8, causal, 2048, d128, through o and "
         f"lse): cos dq {coss[0]:.6f} dk {coss[1]:.6f} dv {coss[2]:.6f}")
     require(min(coss) >= 0.999, "sageattn gradients vs exact attention: cosine < 0.999")
+
+
+# --------------------------------------------------------------------------
+# phase 2, masks: the masked forward, varlen and the windowed backward
+# --------------------------------------------------------------------------
+
+
+def layer_operands(gen, b, s, *, hq=LLM_LAYER["hq"], hkv=LLM_LAYER["hkv"], d=LLM_LAYER["d"]):
+    """Random bf16 q, k, v [b, h, s, d] and the K codes and scales the op
+    builds from k (smoothed)."""
+    import torch
+    from sageattention_tpu_torch.ops import quant_cuda
+
+    q = torch.randn(b, hq, s, d, generator=gen, device="cuda").to(torch.bfloat16)
+    k = (torch.randn(b, hkv, s, d, generator=gen, device="cuda") + 0.5).to(torch.bfloat16)
+    v = torch.randn(b, hkv, s, d, generator=gen, device="cuda").to(torch.bfloat16)
+    k_i8, k_sc, _ = quant_cuda.quant_k_fused_mean(k, group=128)
+    return q, k, v, k_i8, k_sc
+
+
+def live_pairs(masks, b: int, sq: int, sk: int, causal: bool, heads: int) -> int:
+    """The (row, col) pairs a window or varlen's ranges leave live, summed
+    over batch and the query heads (the work of a masked call), counted
+    from this run's masks on the card."""
+    from sageattention_tpu_torch.ops import reference
+
+    m = reference._build_mask(sq, sk, is_causal=causal, device="cuda", window=masks.window,
+                              q_kv_lo=masks.kv_lo, q_kv_hi=masks.kv_hi)
+    n = int(m.sum())  # [sq, sk], or [1, 1, sq, sk] from the ranges of batch 1
+    return n * heads * (b if m.dim() == 2 else 1)
+
+
+def masked_bound(pairs: int, d: int, moved: int) -> tuple[float, str]:
+    """(bound_ms, bound_by) of a forward over ``pairs`` live (row, col)
+    pairs, int8 Q.K^T and bf16 P.V at 2d operations each, that reads and
+    writes ``moved`` bytes, at the data-sheet peaks."""
+    t_ops = 2 * pairs * d * (1 / PEAK_INT8_OPS_S + 1 / PEAK_BF16_FLOP_S) * 1e3
+    t_bytes = moved / PEAK_BYTES_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def heads_of(masks, hs):
+    """The masks of the query heads ``hs``: a per-head mask or bias sliced."""
+    def pick(x):
+        return x[:, hs] if x is not None and x.shape[1] > 1 else x
+
+    return masks._replace(mask=pick(masks.mask), bias=pick(masks.bias))
+
+
+def compare_masked(name, q, k_i8, k_sc, v, masks, causal, hs, results) -> None:
+    """The masked kernel against its plain version on the query heads
+    ``hs`` (the plain version's [s, s] scores one head at a time): o
+    cosine >= 0.9999 and max-abs <= 2e-2, lse2 <= 1e-3 on live rows, and
+    the same dead rows, exactly 0 and -inf, on both sides."""
+    import torch
+    from sageattention_tpu_torch.ops import attention_cuda
+    from sageattention_tpu_torch.utils.compare import cosine_similarity
+
+    hq, hkv, d = q.shape[1], k_i8.shape[1], q.shape[-1]
+    fold = d**-0.5 * LOG2E
+    o, l2 = attention_cuda.sage_attention_fwd_masked(q, k_i8, k_sc, v, masks=masks,
+                                                     is_causal=causal, q_fold=fold,
+                                                     return_lse=True)
+    kvs = [h // (hq // hkv) for h in hs]
+    o_p, l2_p = attention_cuda.sage_attention_plain(
+        q[:, hs].contiguous(), k_i8[:, kvs].contiguous(), k_sc[:, kvs].contiguous(),
+        v[:, kvs].contiguous(), is_causal=causal, q_fold=fold, return_lse=True,
+        masks=heads_of(masks, hs))
+    torch.cuda.synchronize()
+    o_k, l2_k = o[:, hs].float(), l2[:, hs]
+    dead = torch.isneginf(l2_p)
+    same_dead = torch.equal(torch.isneginf(l2_k), dead)
+    zero = bool((o_k[dead] == 0).all()) and bool((o_p.float()[dead] == 0).all())
+    cos = cosine_similarity(o_k.cpu(), o_p.float().cpu())
+    err = (o_k - o_p.float()).abs().max().item()
+    lerr = (l2_k[~dead] - l2_p[~dead]).abs().max().item()
+    finite = bool(torch.isfinite(o).all()) and bool(torch.isfinite(l2[~torch.isneginf(l2)]).all())
+    log(f"masked attention {name} causal={causal}: cos {cos:.6f}, max abs {err:.3e}, lse2 max "
+        f"abs {lerr:.3e} (heads {list(hs)}); dead rows {int(dead.sum())}, the same and 0 / -inf "
+        f"{same_dead and zero}; finite {finite}")
+    require(finite and same_dead and zero, f"masked attention {name}: dead rows or non-finite")
+    require(cos >= 0.9999 and err <= 2e-2 and lerr <= 1e-3,
+            f"masked attention {name} disagrees with its plain version")
+    r = results["sage_attn_fwd_masked"]
+    r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
+
+
+def op_vs_exact(name, q, k, v, causal, kwargs, *, varlen_cu=None) -> float:
+    """``sageattn`` (or ``sageattn_varlen`` with ``varlen_cu``) with the masks
+    against exact fp32 attention with the same masks, on the rows with a
+    live key (cosine >= 0.999); its dead rows must be exactly 0 with LSE
+    -inf.  Returns the cosine."""
+    import torch
+    from sageattention_tpu_torch import core
+    from sageattention_tpu_torch.ops import reference
+    from sageattention_tpu_torch.utils.compare import cosine_similarity
+
+    if varlen_cu is None:
+        o, lse = core.sageattn(q, k, v, is_causal=causal, return_lse=True, **kwargs)
+    else:
+        o, lse = core.sageattn_varlen(*(x[0].transpose(0, 1) for x in (q, k, v)), varlen_cu,
+                                      varlen_cu, is_causal=causal, return_lse=True, **kwargs)
+        o, lse = o.transpose(0, 1)[None], lse[None]
+        seg = core.varlen_rows(varlen_cu, varlen_cu, q.shape[2], q.shape[2])[0][None]
+        kwargs = dict(q_segment_ids=seg, kv_segment_ids=seg)
+    ref = {n: x for n, x in kwargs.items() if n not in ("pv_dtype", "smooth_k_mode")}
+    o_r = reference.attention_reference(q, k, v, is_causal=causal, **ref)
+    live = torch.isfinite(lse)
+    cos = cosine_similarity(o.float()[live].cpu(), o_r.float()[live].cpu())
+    dead_ok = bool((o[~live] == 0).all()) and bool(torch.isneginf(lse[~live]).all())
+    log(f"{name} vs exact fp32 attention on the {int(live.sum())} live rows: cos {cos:.6f}; "
+        f"{int((~live).sum())} dead rows exactly 0 with LSE -inf {dead_ok}")
+    require(cos >= 0.999 and dead_ok, f"{name}: disagrees with exact attention")
+    return cos
+
+
+def varlen_masks():
+    """cu_seqlens of VARLEN_LENS, each packed token's sequence, and the
+    masked kernel's per-row key ranges, through ``sageattn_varlen``'s own
+    packing (``core.varlen_rows``)."""
+    import torch
+    from sageattention_tpu_torch import core
+    from sageattention_tpu_torch.ops.attention_cuda import Masks
+
+    s = sum(VARLEN_LENS)
+    cu = torch.tensor([0, *itertools.accumulate(VARLEN_LENS)], device="cuda")
+    seg, _, lo, hi = core.varlen_rows(cu, cu, s, s)
+    return cu, seg, Masks(kv_lo=lo[None], kv_hi=hi[None])
+
+
+def zigzag(s: int, parts: int = 4):
+    """Positions of a zig-zag ring split: chunk i beside chunk 2n-1-i."""
+    import torch
+
+    chunks = torch.arange(s, device="cuda").chunk(2 * parts)
+    return torch.cat([c for i in range(parts) for c in (chunks[i], chunks[2 * parts - 1 - i])])
+
+
+def alibi(hq: int, s: int):
+    """ALiBi-style fp32 bias [1, hq, s, s]: -slope_h * |row - col|."""
+    import torch
+
+    slopes = 2.0 ** (-8.0 * torch.arange(1, hq + 1, device="cuda") / hq)
+    idx = torch.arange(s, device="cuda")
+    return (-slopes[:, None, None] * (idx[:, None] - idx[None, :]).abs())[None].float()
+
+
+def check_masked(gen, results) -> dict:
+    """The masked forward kernel at the llm-8b-gqa layer, through
+    ``core`` (masks normalised as a user passes them) and directly."""
+    import torch
+    from sageattention_tpu_torch import core
+    from sageattention_tpu_torch.ops.attention_cuda import Masks
+    from sageattention_tpu_torch.utils.compare import cosine_similarity
+
+    hs = (0, 13, 31)  # compared query heads: kv heads 0, 3 and 7
+    out = {}
+    # (a) the window at the windowed prefill's layer (its main path), and a
+    # ragged one: lengths off the 64-row and 128-column tiles, a window off
+    # the 128-column tile
+    for b, s, w in ((2, 8192, 4096), (1, 3001, 1000)):
+        q, k, v, k_i8, k_sc = layer_operands(gen, b, s)
+        compare_masked(f"window {w} at {(b, s)}", q, k_i8, k_sc, v, Masks(window=w), True, hs,
+                       results)
+        if b == 1:  # exact fp32 scores of all 32 heads fit at this size
+            out[f"window {w} at {s} vs exact"] = op_vs_exact(
+                f"sageattn window {w} at {(b, s)}", q, k, v, True, dict(window=w))
+        del q, k, v, k_i8, k_sc
+    # (b) varlen: four causal prompts packed, the kernel's per-row ranges
+    s = sum(VARLEN_LENS)
+    q, k, v, k_i8, k_sc = layer_operands(gen, 1, s)
+    cu, _, masks = varlen_masks()
+    compare_masked(f"varlen {VARLEN_LENS}", q, k_i8, k_sc, v, masks, True, hs, results)
+    kw = dict(smooth_k_mode="per_segment", pv_dtype="bf16")
+    out["varlen_vs_exact"] = op_vs_exact("sageattn_varlen (per_segment, bf16 V)", q, k, v, True,
+                                         kw, varlen_cu=cu)
+    o_v = core.sageattn_varlen(*(x[0].transpose(0, 1) for x in (q, k, v)), cu, cu,
+                               is_causal=True, **kw)
+    # against one sageattn a sequence: on the K that per_segment quantizes,
+    # bf16(K - the sequence's mean) without further smoothing (the same
+    # codes, so >= 0.9999), and with sageattn's own smoothing, which
+    # subtracts the mean in fp32 and so quantizes other K codes (two
+    # independent quantizations: >= 0.999)
+    same, own = [], []
+    for i in range(len(VARLEN_LENS)):
+        r = slice(int(cu[i]), int(cu[i + 1]))
+        k_c = (k[:, :, r].float() - k[:, :, r].float().mean(dim=2, keepdim=True)).to(k.dtype)
+        o_v_i = o_v[r].transpose(0, 1)[None].float().cpu()
+        for cos, kk, smooth in ((same, k_c, False), (own, k[:, :, r], True)):
+            o_i = core.sageattn(q[:, :, r], kk, v[:, :, r], is_causal=True, smooth_k=smooth)
+            cos.append(cosine_similarity(o_v_i, o_i.float().cpu()))
+    log(f"sageattn_varlen vs four sageattn calls, one a sequence, on per_segment's centred bf16 "
+        f"K: cos {[round(c, 7) for c in same]}; with sageattn's own K smoothing: cos "
+        f"{[round(c, 7) for c in own]}")
+    require(min(same) >= 0.9999 and min(own) >= 0.999,
+            "sageattn_varlen disagrees with the per-sequence calls")
+    out["varlen_vs_per_sequence"] = {"same_k": same, "own_smoothing": own}
+    del q, k, v, k_i8, k_sc
+
+    # (c) the masks at 4096 tokens
+    s = 4096
+    q, k, v, k_i8, k_sc = layer_operands(gen, 1, s)
+    idx = torch.arange(s, device="cuda")
+    # keys from 3500 padded out; rows 1000-1063 (a whole Q tile) and the
+    # last 96 (a tile and a half) dead
+    pad = (idx[None, :] < 3500) & ~((idx[:, None] >= 1000) & (idx[:, None] < 1064))
+    pad[4000:] = False
+    bias = alibi(LLM_LAYER["hq"], s)
+    ids = ((idx // 512) % 3).int()[None]  # 0,1,2,0,1,2,0,1: non-contiguous
+    pos = zigzag(s).int()[None]
+    cases = [
+        ("padding mask [1,1,s,s] with dead rows", False, dict(attn_mask=pad[None, None])),
+        ("ALiBi bias [1,32,s,s]", False, dict(attn_bias=bias)),
+        ("ALiBi bias [1,32,s,s]", True, dict(attn_bias=bias)),
+        ("non-contiguous segment ids", False, dict(q_segment_ids=ids, kv_segment_ids=ids)),
+        ("zig-zag positions", False, dict(q_positions=pos, kv_positions=pos)),
+    ]
+    for name, causal, kwargs in cases:
+        masks = core._masks(q, k, is_causal=causal, **kwargs)
+        compare_masked(name, q, k_i8, k_sc, v, masks, causal, hs, results)
+        out[f"{name} causal={causal} vs exact"] = op_vs_exact(
+            f"sageattn {name} causal={causal}", q, k, v, causal, kwargs)
+    del q, k, v, k_i8, k_sc, bias
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_window_backward(gen, results) -> dict:
+    """(d) The windowed backward at (1, 32/8, 4096, 128, window 1024): dQ
+    and dK/dV against their plain versions, and ``sageattn``'s gradients
+    against exact attention's."""
+    import torch
+    from sageattention_tpu_torch import core
+    from sageattention_tpu_torch.ops import attention_bwd_cuda as bwd
+    from sageattention_tpu_torch.ops import reference
+    from sageattention_tpu_torch.utils.compare import cosine_similarity
+
+    b, s, w = 1, 4096, 1024
+    hq, hkv, d = LLM_LAYER.values()
+    ops, sm = backward_case(gen, b, hq, hkv, s, s, d, True, window=w)
+    kw = dict(is_causal=True, sm_scale=sm, window=w)
+    got = (bwd.sage_attention_bwd_dq(*dq_args(ops), **kw),
+           *bwd.sage_attention_bwd_dkv(*dkv_args(ops), **kw))
+    want = (bwd.sage_attention_bwd_dq_plain(*dq_args(ops), **kw),
+            *bwd.sage_attention_bwd_dkv_plain(*dkv_args(ops), **kw))
+    torch.cuda.synchronize()
+    for gname, g, gp, key in zip(("dq", "dk", "dv"), got, want,
+                                 ("sage_attn_bwd_dq", "sage_attn_bwd_dkv", "sage_attn_bwd_dkv")):
+        cos = cosine_similarity(g.cpu(), gp.cpu())
+        rel = ((g - gp).abs().max() / gp.abs().max()).item()
+        log(f"backward window {w} {(b, hq, hkv, s, d)} {gname}: cos {cos:.7f}, max abs / "
+            f"max|g| {rel:.3e}, finite {bool(torch.isfinite(g).all())}")
+        require(bool(torch.isfinite(g).all()) and cos >= 0.9999 and rel <= 1e-2,
+                f"windowed backward: {gname} kernel disagrees with its plain version")
+        r = results[key].setdefault("window", {})
+        r["max_abs_err"] = max(r.get("max_abs_err", 0.0), (g - gp).abs().max().item())
+    del ops, got, want
+    q, k, v = (torch.randn(b, h, s, d, generator=gen, device="cuda").to(torch.bfloat16)
+               for h in (hq, hkv, hkv))
+    do = torch.randn(b, hq, s, d, generator=gen, device="cuda")
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+    g_s = torch.autograd.grad((core.sageattn(*xs, is_causal=True, window=w).float() * do).sum(),
+                              xs)
+    xr = [x.float().detach().requires_grad_() for x in (q, k, v)]
+    g_r = torch.autograd.grad(
+        (reference.attention_reference(*xr, is_causal=True, window=w) * do).sum(), xr)
+    coss = [cosine_similarity(a.float().cpu(), r.cpu()) for a, r in zip(g_s, g_r)]
+    log(f"sageattn grads with window {w} vs exact fp32 (GQA 32/8, causal, {s}, d128): cos dq "
+        f"{coss[0]:.6f} dk {coss[1]:.6f} dv {coss[2]:.6f}")
+    require(min(coss) >= 0.999, "windowed gradients vs exact attention: cosine < 0.999")
+    del xs, xr, g_s, g_r
+    torch.cuda.empty_cache()
+    return {"shape": [b, hq, hkv, s, d], "window": w, "grad_cos_vs_exact": coss}
 
 
 def random_cache(gen, lead, S, d, packed):
@@ -767,6 +1057,8 @@ def time_decode(gen, results):
 # --------------------------------------------------------------------------
 
 FORWARD = ("k_channel_mean", "quant_k_chunked", "sage_attn_fwd")
+# the windowed one-shot prefill: kernels 2-3 and kernel 1's masked instantiation
+FORWARD_MASKED = ("k_channel_mean", "quant_k_chunked", "sage_attn_fwd_masked")
 BACKWARD = ("quant_q_per_token", "sage_attn_bwd_dq", "sage_attn_bwd_dkv")
 V_QUANT = ("quant_v_per_channel", "v_channel_stats", "quant_v_apply")
 # the main path whose launches the kernels line reports for each kernel
@@ -774,7 +1066,8 @@ MAIN_PATH = {**{n: "server" for n in FORWARD}, **{n: "train" for n in BACKWARD},
              "quant_v_per_channel": "server_fp8", "v_channel_stats": "server_wan",
              "quant_v_apply": "server_wan", "sage_decode": "llm_dense",
              "sage_decode_window": "llm_window_dense", "sage_paged_decode": "llm_paged",
-             "sage_paged_decode_window": "llm_window_paged"}
+             "sage_paged_decode_window": "llm_window_paged",
+             "sage_attn_fwd_masked": "llm_window_dense"}
 
 
 def counters():
@@ -784,6 +1077,7 @@ def counters():
     return {"k_channel_mean": quant_cuda.k_channel_mean,
             "quant_k_chunked": quant_cuda.quant_k_chunked,
             "sage_attn_fwd": attention_cuda.sage_attention_fwd,
+            "sage_attn_fwd_masked": attention_cuda.sage_attention_fwd_masked,
             "quant_q_per_token": quant_cuda.quant_q_per_token,
             "sage_attn_bwd_dq": attention_bwd_cuda.sage_attention_bwd_dq,
             "sage_attn_bwd_dkv": attention_bwd_cuda.sage_attention_bwd_dkv,
@@ -993,8 +1287,9 @@ def run_llm_server(results, model, profile: bool, *, path: str, cache: str, bits
     ``b`` sequences, prefilled (one shot, or ``chunk``-token extend blocks
     through the decode kernel), then ``steps`` greedy decode steps.  The
     launch counts are zeroed before each phase and read after it: a one-shot
-    prefill runs kernels 1-3 once a layer, an extend block and a decode
-    step the path's decode kernel once a layer, and no other kernel runs.
+    prefill runs kernels 1-3 once a layer (kernel 1's masked instantiation
+    with a window), an extend block and a decode step the path's decode
+    kernel once a layer, and no other kernel runs.
     Then the accuracy of the path at depth 2 (:func:`llm_refeed_cosine`)."""
     import torch
     from sageattention_tpu_torch import generate
@@ -1031,8 +1326,9 @@ def run_llm_server(results, model, profile: bool, *, path: str, cache: str, bits
     e.record()
     e.synchronize()
     prefill_ms = a.elapsed_time(e)
+    fwd = FORWARD_MASKED if cfg.window is not None else FORWARD
     pre = check("prefill", {kern: depth * (prompt // chunk)} if chunk
-                else {n: depth for n in FORWARD})
+                else {n: depth for n in fwd})
     del logits
 
     zero_counts()
@@ -1053,6 +1349,9 @@ def run_llm_server(results, model, profile: bool, *, path: str, cache: str, bits
             f"llm server {path}: logits not finite or tokens out of range")
     require(lengths.tolist() == [prompt + steps] * b, f"llm server {path}: lengths")
     results[kern].setdefault("launches_by_path", {})[path] = pre[kern] + dec[kern]
+    if not chunk:
+        for n in fwd:
+            results[n].setdefault("launches_by_path", {})[path] = pre[n]
     med = statistics.median(step_ms)
     log(f"llm server {path}: prefill {prefill_ms:.3f} ms ({b * prompt / prefill_ms * 1e3:.1f} "
         f"tokens/s); decode ms per step {[round(x, 3) for x in step_ms]}, median {med:.3f} "
@@ -1083,8 +1382,10 @@ def run_llm(results, profile: bool) -> dict:
     (a) dense int8, (b) paged int8 through a scrambled table of 1024-token
     pages, (c) dense packed int4 calibrated on the prompt, b 4, a 4096-token
     prompt and 32 decode steps; (d) the Mistral-7B geometry (vocab 32000,
-    window 4096), b 2, an 8192-token prompt in 512-token extend blocks and
-    32 decode steps, over the dense and the paged cache."""
+    window 4096), b 2, an 8192-token prompt and 32 decode steps: over the
+    dense cache after one windowed prefill (the JAX model's own), over the
+    paged cache after 512-token extend blocks, which keep kernel 12's
+    extend path on a server."""
     import torch
     from sageattention_tpu_torch import generate, models
 
@@ -1116,14 +1417,17 @@ def run_llm(results, profile: bool) -> dict:
 
     cfg_w = cfg.scaled(vocab=32000, window=4096)
     model = generate.load_llm(cfg_w, device="cuda", seed=0)
-    common = dict(b=2, prompt=8192, steps=LLM_STEPS, max_len=9216, chunk=512)
+    common = dict(b=2, prompt=8192, steps=LLM_STEPS, max_len=9216)
     table = torch.randperm(2 * 9, generator=gen, device="cuda").reshape(2, 9).int()
-    for path, cache, pt in (("llm_window_dense", "dense", None),
-                            ("llm_window_paged", "paged", table)):
+    for path, cache, pt, chunk in (("llm_window_dense", "dense", None, 0),
+                                   ("llm_window_paged", "paged", table, 512)):
         t_phase = time.perf_counter()
         servers[path] = run_llm_server(results, model, profile, path=path, cache=cache, bits=8,
-                                       page_table=pt, **common)
+                                       page_table=pt, chunk=chunk, **common)
         log(f"llm server phase {path}: {time.perf_counter() - t_phase:.1f} s")
+    log(f"windowed prefill of 2 x 8192 tokens: one shot (llm_window_dense) "
+        f"{servers['llm_window_dense']['prefill_ms']:.3f} ms, in 512-token extend blocks "
+        f"(llm_window_paged) {servers['llm_window_paged']['prefill_ms']:.3f} ms")
     del model
     torch.cuda.empty_cache()
     return servers
@@ -1439,6 +1743,127 @@ def time_backward(gen, results) -> dict:
     return layer
 
 
+def time_masked(gen, results) -> dict:
+    """The masked forward at the windowed prefill's layer (2, 32/8, 8192,
+    128, window 4096) and at the varlen shape (the four causal prompts),
+    each beside its bound over the live pairs, its plain version and SDPA
+    with the equivalent bool mask (K and V repeated to 32 heads); the
+    varlen call beside its four sequences' causal calls and one unskipped
+    causal call over all 8192 tokens; and the windowed dQ and dK/dV at (1,
+    32/8, 4096, 128, window 1024)."""
+    import torch
+    import torch.nn.functional as F
+    from sageattention_tpu_torch.ops import attention_bwd_cuda as bwd
+    from sageattention_tpu_torch.ops import attention_cuda, reference
+    from sageattention_tpu_torch.ops.attention_cuda import Masks
+
+    hq, hkv, d = LLM_LAYER.values()
+    fold = d**-0.5 * LOG2E
+    out = {}
+
+    def moved(q, k_i8, k_sc, v):  # Q, K codes and scales, V in; O out
+        return q.numel() * 4 + k_i8.numel() + k_sc.numel() * 4 + v.numel() * 2
+
+    def sdpa_ms(q, k, v, mask):
+        kr, vr = (x.repeat_interleave(hq // hkv, dim=1) for x in (k, v))
+        return cuda_ms(lambda: F.scaled_dot_product_attention(q, kr, vr, attn_mask=mask), reps=5)
+
+    def kernel(q, k_i8, k_sc, v, masks):
+        return lambda: attention_cuda.sage_attention_fwd_masked(q, k_i8, k_sc, v, masks=masks,
+                                                                 is_causal=True, q_fold=fold)
+
+    # the windowed prefill's layer
+    b, s, w = 2, 8192, 4096
+    q, k, v, k_i8, k_sc = layer_operands(gen, b, s)
+    masks = Masks(window=w)
+    pairs = live_pairs(masks, b, s, s, True, hq)
+    bound, by = masked_bound(pairs, d, moved(q, k_i8, k_sc, v))
+    r = results["sage_attn_fwd_masked"]
+    r.update(ms=cuda_ms(kernel(q, k_i8, k_sc, v, masks), reps=10), bound_ms=bound, bound_by=by,
+             plain_ms=cuda_ms(lambda: attention_cuda.sage_attention_plain(
+                 q, k_i8, k_sc, v, is_causal=True, q_fold=fold, return_lse=False,
+                 masks=masks), reps=2, warmup=1),
+             library_ms=sdpa_ms(q, k, v, reference._build_mask(s, s, is_causal=True,
+                                                                device="cuda", window=w)),
+             shape={"b": b, "hq": hq, "hkv": hkv, "s": s, "d": d, "window": w,
+                    "live_pairs_per_head": pairs // (b * hq)})
+    causal_ms = cuda_ms(lambda: attention_cuda.sage_attention_fwd(q, k_i8, k_sc, v,
+                                                                  is_causal=True, q_fold=fold))
+    log(f"time sage_attn_fwd_masked, window {w} at {(b, hq, hkv, s, d)}: {r['ms']:.4f} ms "
+        f"(bound {bound:.4f} ms over {pairs // (b * hq)} live pairs a head, {by}), plain "
+        f"{r['plain_ms']:.4f} ms, SDPA with the band mask {r['library_ms']:.4f} ms; the "
+        f"unmasked causal kernel {causal_ms:.4f} ms")
+    out["window_layer"] = {**r["shape"], "ms": r["ms"], "causal_unmasked_ms": causal_ms}
+    del q, k, v, k_i8, k_sc
+
+    # the varlen shape: per-row key ranges of four packed causal prompts
+    s = sum(VARLEN_LENS)
+    q, k, v, k_i8, k_sc = layer_operands(gen, 1, s)
+    cu, seg, masks = varlen_masks()
+    pairs = live_pairs(masks, 1, s, s, True, hq)
+    bound, by = masked_bound(pairs, d, moved(q, k_i8, k_sc, v) + 2 * s * 4)
+    ms = cuda_ms(kernel(q, k_i8, k_sc, v, masks), reps=20)
+    seq_ms = []
+    for i in range(len(VARLEN_LENS)):  # 128-row multiples: the same K groups
+        rows, g = slice(int(cu[i]), int(cu[i + 1])), slice(int(cu[i]) // 128, int(cu[i + 1]) // 128)
+        xs = [x[:, :, rows].contiguous() for x in (q, k_i8, v)]
+        ks = k_sc[:, :, g].contiguous()
+        seq_ms.append(cuda_ms(lambda xs=xs, ks=ks: attention_cuda.sage_attention_fwd(
+            xs[0], xs[1], ks, xs[2], is_causal=True, q_fold=fold), reps=20))
+    full_ms = cuda_ms(lambda: attention_cuda.sage_attention_fwd(q, k_i8, k_sc, v, is_causal=True,
+                                                                q_fold=fold))
+    block_diag = (seg[:, None] == seg[None, :]) & reference._build_mask(s, s, is_causal=True,
+                                                                        device="cuda")
+    lib = sdpa_ms(q, k, v, block_diag)
+    out["varlen"] = {"lengths": list(VARLEN_LENS), "ms": ms, "bound_ms": bound, "bound_by": by,
+                     "live_pairs_per_head": pairs // hq, "per_sequence_ms": seq_ms,
+                     "per_sequence_sum_ms": sum(seq_ms), "unskipped_causal_ms": full_ms,
+                     "sdpa_block_diagonal_ms": lib}
+    log(f"time sage_attn_fwd_masked, varlen {VARLEN_LENS} at {(1, hq, hkv, s, d)}: {ms:.4f} ms "
+        f"(bound {bound:.4f} ms over {pairs // hq} live pairs a head, {by}); the four "
+        f"sequences' causal calls {[round(x, 4) for x in seq_ms]} sum {sum(seq_ms):.4f} ms; one "
+        f"unskipped causal call over {s} tokens {full_ms:.4f} ms; SDPA with the block-diagonal "
+        f"mask {lib:.4f} ms")
+    del q, k, v, k_i8, k_sc, block_diag
+
+    # the windowed backward
+    b, s, w = 1, 4096, 1024
+    ops, sm = backward_case(gen, b, hq, hkv, s, s, d, True, window=w)
+    kw = dict(is_causal=True, sm_scale=sm, window=w)
+    pairs = live_pairs(Masks(window=w), b, s, s, True, hq)
+    band = reference._build_mask(s, s, is_causal=True, device="cuda", window=w)
+    xs = [x.clone().requires_grad_() for x in (ops["q_bf"], *(
+        x.repeat_interleave(hq // hkv, dim=1) for x in (ops["k_sm"], ops["v"])))]
+    sdpa_f = cuda_ms(lambda: F.scaled_dot_product_attention(*xs, attn_mask=band), reps=5)
+    sdpa_fb = cuda_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(*xs, attn_mask=band), xs, ops["do"]), reps=5)
+    common_bytes = (ops["q_i8"].numel() + ops["k_i8"].numel() + ops["k_scale"].numel() * 4
+                    + 3 * b * hq * s * 4 + ops["v"].numel() * 2 + ops["do"].numel() * 2)
+    for name, n_bf16, extra_in, out_elems in (
+            ("sage_attn_bwd_dq", 4, ops["k_sm"].numel() * 2, b * hq * s * d),
+            ("sage_attn_bwd_dkv", 6, ops["q_bf"].numel() * 2, 2 * b * hkv * s * d)):
+        dq = name.endswith("dq")
+        fn, plain = ((bwd.sage_attention_bwd_dq, bwd.sage_attention_bwd_dq_plain) if dq
+                     else (bwd.sage_attention_bwd_dkv, bwd.sage_attention_bwd_dkv_plain))
+        args = dq_args(ops) if dq else dkv_args(ops)
+        t_ops = (2 * pairs * d / PEAK_INT8_OPS_S + n_bf16 * pairs * d / PEAK_BF16_FLOP_S) * 1e3
+        t_bytes = (common_bytes + extra_in + out_elems * 4) / PEAK_BYTES_S * 1e3
+        r = results[name]["window"]
+        r.update(ms=cuda_ms(lambda: fn(*args, **kw), reps=10),
+                 plain_ms=cuda_ms(lambda: plain(*args, **kw), reps=2, warmup=1),
+                 bound_ms=max(t_ops, t_bytes),
+                 bound_by="operations" if t_ops >= t_bytes else "bytes",
+                 library_ms=sdpa_fb - sdpa_f,
+                 shape={"b": b, "hq": hq, "hkv": hkv, "s": s, "d": d, "window": w,
+                        "live_pairs_per_head": pairs // (b * hq)})
+        log(f"time {name}, window {w} at {(b, hq, hkv, s, d)}: {r['ms']:.4f} ms (bound "
+            f"{r['bound_ms']:.4f} ms, {r['bound_by']}), plain {r['plain_ms']:.4f} ms, SDPA bwd "
+            f"with the band mask (7 + 8) {r['library_ms']:.4f} ms")
+    del ops, xs
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -1459,11 +1884,14 @@ def main() -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     t0 = time.perf_counter()
+    def build(name):  # seconds from the start until this source is loaded
+        _build.lib(name)
+        return name, round(time.perf_counter() - t0, 1)
+
     # one nvcc per source, all started together
     with ThreadPoolExecutor(len(_build.SIGNATURES)) as pool:
-        list(pool.map(_build.lib, _build.SIGNATURES))
-    log(f"build: {list(_build.SIGNATURES)} in {time.perf_counter() - t0:.1f} s wall, "
-        f"into {_build.build_dir()}")
+        done = dict(pool.map(build, _build.SIGNATURES))
+    log(f"build: {done} s, {time.perf_counter() - t0:.1f} s wall, into {_build.build_dir()}")
     resource_usage()
 
     src = "sageattention_tpu_torch/csrc/"
@@ -1474,6 +1902,8 @@ def main() -> int:
                             "replaces": "sageattention_tpu/ops/quant_pallas.py:143"},
         "sage_attn_fwd": {"route": "cuda", "source": src + "attention_fwd.cu",
                           "replaces": "sageattention_tpu/ops/attention_pallas.py:1412"},
+        "sage_attn_fwd_masked": {"route": "cuda", "source": src + "attention_fwd_masked.cu",
+                                 "replaces": "sageattention_tpu/ops/attention_pallas.py:1412"},
         "quant_q_per_token": {"route": "cuda", "source": src + "quant_q.cu",
                               "replaces": "sageattention_tpu/ops/quant_pallas.py:76"},
         "sage_attn_bwd_dq": {"route": "cuda", "source": src + "attention_bwd.cu",
@@ -1504,6 +1934,8 @@ def main() -> int:
     check_attention(gen, results)
     check_quant_q(gen, results)
     check_backward(gen, results)
+    masked = check_masked(gen, results)
+    masked["window_backward"] = check_window_backward(gen, results)
     check_decode(gen, results)
     log(f"kernel checks: {time.perf_counter() - t_phase:.1f} s")
     servers = {}
@@ -1525,6 +1957,7 @@ def main() -> int:
     time_quant_v(gen, results)
     layer = time_backward(gen, results)
     time_decode(gen, results)
+    masked["times"] = time_masked(gen, results)
     log(f"timing phase: {time.perf_counter() - t_phase:.1f} s")
 
     kernels = []
@@ -1537,6 +1970,7 @@ def main() -> int:
     log(json.dumps({"llm_servers": llm}))
     log(json.dumps({"train": trainer}))
     log(json.dumps({"layer": layer}))
+    log(json.dumps({"masked": masked}))
     log(json.dumps({"kernels": kernels}))
     log(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,8 @@ from sageattention_tpu_torch.core import (
     sageattn_qk_int8_pv_bf16,
     sageattn_qk_int8_pv_fp8,
     sageattn_qk_int8_pv_int8,
+    sageattn_varlen,
 )
 
 __all__ = ["sageattn", "sageattn_qk_int8_pv_bf16", "sageattn_qk_int8_pv_int8",
-           "sageattn_qk_int8_pv_fp8", "models"]
+           "sageattn_qk_int8_pv_fp8", "sageattn_varlen", "models"]

@@ -1,4 +1,5 @@
-"""Public API: ``sageattn`` and ``sageattn_qk_int8_pv_{bf16,int8,fp8}``.
+"""Public API: ``sageattn``, ``sageattn_qk_int8_pv_{bf16,int8,fp8}`` and
+``sageattn_varlen``.
 
 The ``sageattn`` of the JAX package (int8 Q.K^T with per-row Q scales and
 per-group K scales, K mean-smoothing, P.V in bf16 with V stored as bf16
@@ -19,8 +20,19 @@ natural-log LSE with the smooth-k correction; ``pv_dtype`` bf16 / int8 /
 fp8 / fp8_e5m2 and ``smooth_v``.  V is quantized from the caller's V,
 before any head-dim padding, as in the JAX package.  Head dims below 64,
 or between 64 and 128, are zero-padded to 64 or 128; above 128 they
-raise.  Every other option of the JAX ``sageattn`` raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+raise.
+
+Masks, normalised as the JAX package does (:func:`_masks`), run in the
+masked kernel: ``q_segment_ids``/``kv_segment_ids`` [b, s] (equal ids
+attend), ``q_positions``/``kv_positions`` [b, s] (``kv_pos <= q_pos``), a
+bool ``attn_mask`` (True = attend), an additive ``attn_bias`` (a non-bool
+``attn_mask`` is one too, with torch's semantics) and a sliding ``window``
+(with ``is_causal``).  A row with no live key gives o = 0 and LSE -inf.
+Under grad only ``window`` is differentiable; the others raise
+``NotImplementedError``, as the JAX package has no gradient for them
+(the bias's is ROADMAP's next slice).  Every other option of the JAX
+``sageattn`` raises ``NotImplementedError`` naming the ROADMAP item that
+ports it.
 """
 
 from __future__ import annotations
@@ -32,21 +44,13 @@ import torch.nn.functional as F
 
 from sageattention_tpu_torch import quant
 from sageattention_tpu_torch.ops import attention_cuda, autodiff, quant_cuda
+from sageattention_tpu_torch.ops.attention_cuda import Masks
 
 LOG2E = 1.4426950408889634
 K_GROUP = attention_cuda.K_GROUP
 
 # option -> ROADMAP item that lifts the restriction
-_LATER = {
-    "smooth_q": "kernel row 1 slice (h), smooth_q",
-    "q_segment_ids": "kernel row 1 slice (c), segment ids / varlen",
-    "kv_segment_ids": "kernel row 1 slice (c), segment ids / varlen",
-    "q_positions": "kernel row 1 slice (g), positions",
-    "kv_positions": "kernel row 1 slice (g), positions",
-    "attn_mask": "kernel row 1 slice (d), bool masks",
-    "attn_bias": "kernel row 1 slice (e), additive bias",
-    "window": "kernel row 1 slice (f), sliding window",
-}
+_LATER = {"smooth_q": "kernel row 1 slice (h), smooth_q"}
 
 
 def _to_hnd(x: torch.Tensor, layout: str) -> torch.Tensor:
@@ -100,9 +104,66 @@ def _quant_v(v, *, pv_dtype: str, smooth_v: bool, d_pad: int):
     return _pad_d(v_c.to(torch.bfloat16), d_pad), None, _pad_d(v_mean, d_pad)
 
 
+def _mask4(x: torch.Tensor, name: str, b: int, hq: int, sq: int, sk: int) -> torch.Tensor:
+    """A mask or bias as a [b, 1 or hq, sq, sk] view (``core.py:177-236`` of
+    the JAX package): 2-D is [1, 1, sq, sk], 3-D [b, 1, sq, sk]; batch
+    broadcasts from 1, trailing dims of 1 broadcast to (sq, sk).  The view
+    is expanded, not copied."""
+    if x.dim() == 2:
+        x = x[None, None]
+    elif x.dim() == 3:
+        x = x[:, None]
+    elif x.dim() != 4:
+        raise ValueError(f"{name} must have 2, 3 or 4 dims, got {tuple(x.shape)}")
+    if x.shape[0] not in (1, b):
+        raise ValueError(f"{name} batch dim {x.shape[0]} must be 1 or {b}")
+    if x.shape[1] not in (1, hq):
+        raise ValueError(f"{name} head dim {x.shape[1]} must be 1 or {hq}")
+    if not all(ms in (1, full) for ms, full in zip(x.shape[-2:], (sq, sk))):
+        raise ValueError(f"{name} trailing dims {tuple(x.shape[-2:])} must be ({sq}, {sk}) "
+                         f"or broadcastable (size 1)")
+    return x.expand(b, x.shape[1], sq, sk)
+
+
+def _masks(q, k, *, is_causal: bool, q_segment_ids=None, kv_segment_ids=None, q_positions=None,
+           kv_positions=None, attn_mask=None, attn_bias=None, window=None) -> Masks | None:
+    """The masked kernel's operands from ``sageattn``'s options on HND q, k,
+    normalised as ``core.py:161-243, 396-398`` of the JAX package does: ids
+    and positions in pairs, a non-bool ``attn_mask`` added to ``attn_bias``,
+    masks and biases as [b, 1 or hq, sq, sk] views, a window only with
+    ``is_causal`` and >= 1.  None when no option is given."""
+    if attn_mask is not None and attn_mask.dtype != torch.bool:
+        # a float mask is an additive bias (torch's semantics)
+        attn_bias = attn_mask if attn_bias is None else attn_bias + attn_mask
+        attn_mask = None
+    if all(x is None for x in (q_segment_ids, kv_segment_ids, q_positions, kv_positions,
+                               attn_mask, attn_bias, window)):
+        return None
+    b, hq, sq = q.shape[:3]
+    sk = k.shape[2]
+    dev = q.device
+
+    def rows(x, s):  # int32 [b, s] on q's device, batch broadcast from 1
+        return None if x is None else x.to(dev, torch.int32).expand(b, s).contiguous()
+
+    if attn_mask is not None:
+        attn_mask = _mask4(attn_mask.to(dev), "attn_mask", b, hq, sq, sk)
+    if attn_bias is not None:
+        if attn_bias.dtype not in (torch.float32, torch.bfloat16):
+            attn_bias = attn_bias.float()
+        attn_bias = _mask4(attn_bias.to(dev), "attn_bias", b, hq, sq, sk)
+    masks = Masks(q_seg=rows(q_segment_ids, sq), kv_seg=rows(kv_segment_ids, sk),
+                  q_pos=rows(q_positions, sq), kv_pos=rows(kv_positions, sk),
+                  mask=attn_mask, bias=attn_bias, window=window)
+    attention_cuda.check_masks(masks, b, hq, sq, sk, dev, is_causal)
+    return masks
+
+
 def _forward(q, k, v, *, is_causal: bool, sm_scale: float | None, smooth_k: bool,
-             return_lse: bool, pv_dtype: str = "bf16", smooth_v: bool = False) -> Forward:
-    """Quantize K and V, then one fused attention call, on HND tensors."""
+             return_lse: bool, pv_dtype: str = "bf16", smooth_v: bool = False,
+             masks: Masks | None = None) -> Forward:
+    """Quantize K and V, then one fused attention call (the masked kernel
+    when ``masks`` is given), on HND tensors."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(
             f"q, k, v must be [b,h,s,d] with v shaped like k; got "
@@ -125,10 +186,12 @@ def _forward(q, k, v, *, is_causal: bool, sm_scale: float | None, smooth_k: bool
     kp = _pad_d(k.to(work), d_pad)
     v_q, v_scale, v_mean = _quant_v(v, pv_dtype=pv_dtype, smooth_v=smooth_v, d_pad=d_pad)
     k_i8, k_scale, km = quant_cuda.quant_k_fused_mean(kp, group=K_GROUP, smooth=smooth_k)
-    out = attention_cuda.sage_attention_fwd(
-        qp, k_i8, k_scale, v_q, v_scale, v_mean, is_causal=is_causal,
-        q_fold=sm_scale * LOG2E, return_lse=return_lse,
-    )
+    kw = dict(is_causal=is_causal, q_fold=sm_scale * LOG2E, return_lse=return_lse)
+    if masks is None:
+        out = attention_cuda.sage_attention_fwd(qp, k_i8, k_scale, v_q, v_scale, v_mean, **kw)
+    else:
+        out = attention_cuda.sage_attention_fwd_masked(qp, k_i8, k_scale, v_q, v_scale, v_mean,
+                                                       masks=masks, **kw)
     o, lse2 = out if return_lse else (out, None)
     return Forward(o[..., :d_og].to(q.dtype), lse2, k_i8, k_scale, km, v_q, v_scale, v_mean,
                    sm_scale)
@@ -146,10 +209,11 @@ def _lse_nat(lse2, q, km, sm_scale: float):
 
 
 def _sageattn_hnd(q, k, v, *, is_causal: bool, sm_scale: float | None,
-                  smooth_k: bool, return_lse: bool, pv_dtype: str, smooth_v: bool):
+                  smooth_k: bool, return_lse: bool, pv_dtype: str, smooth_v: bool,
+                  masks: Masks | None = None):
     """The forward alone on HND tensors: o, or (o, lse)."""
     f = _forward(q, k, v, is_causal=is_causal, sm_scale=sm_scale, smooth_k=smooth_k,
-                 return_lse=return_lse, pv_dtype=pv_dtype, smooth_v=smooth_v)
+                 return_lse=return_lse, pv_dtype=pv_dtype, smooth_v=smooth_v, masks=masks)
     if not return_lse:
         return f.o
     return f.o, _lse_nat(f.lse2, q, f.km, f.sm_scale)
@@ -179,6 +243,20 @@ def _refuse(kwargs: dict, qk_quant_gran: str, qk_bits: int) -> None:
         raise TypeError(f"unexpected keyword argument {name!r}")
 
 
+def _refuse_grad(masks: Masks | None) -> None:
+    """The masks that have no gradient under grad: all but the window."""
+    if masks is None:
+        return
+    if masks.bias is not None:
+        raise NotImplementedError(
+            "gradients through attn_bias (or a float attn_mask) are not ported yet (ROADMAP: "
+            "the bias VJP with blockwise dBias in kernels 7-8)")
+    if any(x is not None for x in (masks.q_seg, masks.kv_lo, masks.q_pos, masks.mask)):
+        raise NotImplementedError(
+            "segment ids, positions and bool masks have no gradient (nor in the JAX package, "
+            "core.py:798-800): call sageattn under torch.no_grad() with them")
+
+
 def sageattn_qk_int8_pv_bf16(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -193,6 +271,13 @@ def sageattn_qk_int8_pv_bf16(
     pv_dtype: str = "bf16",
     qk_quant_gran: str = "auto",
     qk_bits: int = 8,
+    q_segment_ids: torch.Tensor | None = None,
+    kv_segment_ids: torch.Tensor | None = None,
+    q_positions: torch.Tensor | None = None,
+    kv_positions: torch.Tensor | None = None,
+    attn_mask: torch.Tensor | None = None,
+    attn_bias: torch.Tensor | None = None,
+    window: int | None = None,
     **kwargs,
 ):
     """int8 Q.K^T + bf16 P.V (fp32 accumulate).
@@ -205,16 +290,24 @@ def sageattn_qk_int8_pv_bf16(
     (and through the LSE): with grad enabled and an input that requires
     it, the call runs through ``autodiff.SageAttnFunction``, whose backward
     is the fused quantized backward (kernels ``quant_q_per_token``,
-    ``sage_attn_bwd_dq``, ``sage_attn_bwd_dkv`` on the card)."""
+    ``sage_attn_bwd_dq``, ``sage_attn_bwd_dkv`` on the card), with the
+    ``window`` band.  The masks are those of the module docstring; they
+    are [b, s] (ids, positions) or [.., .., sq, sk] whatever the layout."""
     _refuse(kwargs, qk_quant_gran, qk_bits)
     qh, kh, vh = (_to_hnd(x, tensor_layout) for x in (q, k, v))
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+    masks = _masks(qh, kh, is_causal=is_causal, q_segment_ids=q_segment_ids,
+                   kv_segment_ids=kv_segment_ids, q_positions=q_positions,
+                   kv_positions=kv_positions, attn_mask=attn_mask, attn_bias=attn_bias,
+                   window=window)
+    if torch.is_grad_enabled() and any(
+            x is not None and x.requires_grad for x in (q, k, v, attn_mask, attn_bias)):
+        _refuse_grad(masks)
         out = autodiff.SageAttnFunction.apply(qh, kh, vh, is_causal, sm_scale,
-                                              smooth_k, return_lse, pv_dtype, smooth_v)
+                                              smooth_k, return_lse, pv_dtype, smooth_v, window)
     else:
         out = _sageattn_hnd(qh, kh, vh, is_causal=is_causal, sm_scale=sm_scale,
                             smooth_k=smooth_k, return_lse=return_lse, pv_dtype=pv_dtype,
-                            smooth_v=smooth_v)
+                            smooth_v=smooth_v, masks=masks)
     if return_lse:
         return _to_hnd(out[0], tensor_layout), out[1]
     return _to_hnd(out, tensor_layout)
@@ -250,3 +343,96 @@ def sageattn(q, k, v, tensor_layout: str = "HND", is_causal: bool = False,
     return sageattn_qk_int8_pv_bf16(
         q, k, v, tensor_layout, is_causal, sm_scale, return_lse, **kwargs
     )
+
+
+def varlen_rows(cu_q, cu_k, total_q: int, total_k: int):
+    """The packing of ``sageattn_varlen``: the segment of each packed query
+    and key token (1 for the first sequence) and each query row's key range
+    [kv_lo, kv_hi) (int32), from the int64 cumulative starts."""
+    dev = cu_q.device
+    seg_q = torch.searchsorted(cu_q, torch.arange(total_q, device=dev), right=True)
+    seg_k = torch.searchsorted(cu_k, torch.arange(total_k, device=dev), right=True)
+    last = cu_k.shape[0] - 1  # gathers clamp as the JAX package's do
+    kv_lo = cu_k[(seg_q - 1).clamp(0, last)].to(torch.int32)
+    kv_hi = cu_k[seg_q.clamp(0, last)].to(torch.int32)
+    return seg_q, seg_k, kv_lo, kv_hi
+
+
+def sageattn_varlen(q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q: int | None = None,
+                    max_seqlen_k: int | None = None, is_causal: bool = False,
+                    sm_scale: float | None = None, return_lse: bool = False, *,
+                    smooth_k_mode: str = "global", **kwargs):
+    """Attention over FlashAttention-style packed sequences (``core.py:904-1060``
+    of the JAX package).
+
+    q, k, v: [total_tokens, heads, head_dim]; ``cu_seqlens_q/k``: [batch+1]
+    int32 cumulative sequence starts.  Each query row attends the keys of
+    its own sequence, which the masked kernel takes as a per-row range
+    [kv_lo, kv_hi) and uses to skip every KV tile outside its Q tile's
+    rows' ranges.  Causal needs the same packing of q and k.  Returns o
+    [total_q, heads, head_dim] and, with ``return_lse``, the natural-log
+    LSE [heads, total_q].
+
+    ``smooth_k_mode``: "global", one K mean over all packed tokens (the
+    reference's); "per_segment", each sequence centred by its own K mean,
+    exact because no row attends across sequences (the LSE gets each
+    row's own correction).  ``pv_dtype`` defaults to "int8" here, as in
+    the JAX package; ``smooth_v`` and ``qk_quant_gran="auto"`` are taken.
+    ``max_seqlen_q/k`` are the JAX package's TPU block hints and are not
+    used.  ``smooth_q`` and ``qk_bits=4`` raise ``NotImplementedError``
+    naming their ROADMAP items, ``block_q``/``block_k``/``impl`` too (the
+    port picks its own launch configuration), anything else ``TypeError``.
+    Forward only, as in the JAX package."""
+    smooth_k = kwargs.pop("smooth_k", True)
+    pv_dtype = kwargs.pop("pv_dtype", "int8")
+    smooth_v = kwargs.pop("smooth_v", False)
+    gran, bits = kwargs.pop("qk_quant_gran", "auto"), kwargs.pop("qk_bits", 8)
+    _refuse(kwargs, gran, bits)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise NotImplementedError(
+            "sageattn_varlen has no gradient (nor in the JAX package): call it under "
+            "torch.no_grad()")
+    dev = q.device
+    cu_q = torch.as_tensor(cu_seqlens_q, device=dev).long()
+    cu_k = torch.as_tensor(cu_seqlens_k, device=dev).long()
+    if is_causal:
+        # causal masking orders rows by their packed position: the same
+        # packing of q and k, or a silently wrong mask
+        if q.shape[0] != k.shape[0]:
+            raise ValueError("causal varlen requires matching q/k packing")
+        if cu_q.shape != cu_k.shape:
+            raise ValueError(f"causal varlen requires cu_seqlens_q and cu_seqlens_k of the "
+                             f"same shape, got {tuple(cu_q.shape)} vs {tuple(cu_k.shape)}")
+        if not torch.equal(cu_q, cu_k):
+            raise ValueError("causal varlen requires cu_seqlens_q == cu_seqlens_k "
+                             "(mismatched packings would silently compute wrong causal masks)")
+    if smooth_k_mode not in ("global", "per_segment"):
+        raise ValueError(f"unknown smooth_k_mode {smooth_k_mode!r}")
+    total_q, hq, d = q.shape
+    total_k, hkv = k.shape[0], k.shape[1]
+    seg_q, seg_k, kv_lo, kv_hi = varlen_rows(cu_q, cu_k, total_q, total_k)
+    qh, kh, vh = (x.transpose(0, 1)[None] for x in (q, k, v))
+    lse_corr = None
+    if smooth_k and smooth_k_mode == "per_segment":
+        # centre each sequence's K by its own mean, then no global smoothing
+        n_seg = cu_k.shape[0] + 1
+        kf = k.float()
+        seg_sum = kf.new_zeros(n_seg, hkv, d).index_add_(0, seg_k, kf)
+        counts = kf.new_zeros(n_seg).index_add_(0, seg_k, kf.new_ones(total_k))
+        km_seg = seg_sum / counts.clamp_min(1.0)[:, None, None]
+        kh = (kf - km_seg[seg_k]).transpose(0, 1)[None].to(k.dtype)
+        smooth_k = False
+        if return_lse:
+            # each row's LSE correction q_i . km(segment of i) * sm_scale
+            sm = sm_scale if sm_scale is not None else d**-0.5
+            km_rows = km_seg[seg_q.clamp(max=n_seg - 1)].repeat_interleave(hq // hkv, dim=1)
+            lse_corr = torch.einsum("thd,thd->th", q.float(), km_rows).T[None] * sm
+    out = _sageattn_hnd(qh, kh, vh, is_causal=is_causal, sm_scale=sm_scale, smooth_k=smooth_k,
+                        return_lse=return_lse, pv_dtype=pv_dtype, smooth_v=smooth_v,
+                        masks=Masks(kv_lo=kv_lo[None], kv_hi=kv_hi[None]))
+    if not return_lse:
+        return out[0].transpose(0, 1)
+    o, lse = out
+    if lse_corr is not None:
+        lse = lse + lse_corr
+    return o[0].transpose(0, 1), lse[0]

@@ -20,10 +20,14 @@
 //   sequential n_kv grid axis and its VMEM accumulator, and dQ accumulates
 //   in registers.  Each tile is computed in column chunks (64 at d=64, 32
 //   at d=128) to bound the live S/dP registers.  Causal: stops at the
-//   diagonal tile.
+//   diagonal tile; with a sliding window (causal only) it starts at the
+//   window's first tile, (q0 - window + 1) / 128, the counterpart of the
+//   TPU's band grid (attention_bwd_pallas.py:117-143).
 // sage_attn_bwd_dkv: one CTA of 4 warps per (b, hkv, 64-row KV tile), 16 KV
 //   rows a warp.  It loops over every q head of its GQA group and every
-//   64-row Q tile (causal: from the diagonal), so dK and dV sum over the
+//   64-row Q tile (causal: from the diagonal; with a window, up to the
+//   last Q row that sees the tile, kv0 + 63 + window - 1,
+//   attention_bwd_pallas.py:274-287), so dK and dV sum over the
 //   group in registers, with no atomics and no repeat of K/V: the port's
 //   form of the TPU's rep*n_q fourth grid axis.  It works on the transposed
 //   scores S^T = K.Q^T so that a KV row is an MMA row.  64 KV rows, not
@@ -31,6 +35,9 @@
 //   registers a thread (128 at d=128), and 32 rows a warp would not fit
 //   beside the score chunk in 255 registers.  A 64-row KV tile lies inside
 //   one 128-row K-scale group, so it reads one k_scale.
+//
+// A window keeps col > row - window wherever causal keeps col <= row, in
+// instances of its own (WINDOW), so the others keep their registers.
 //
 // Ragged edges: K/V rows past sk and Q rows past sq are zero-filled in
 // shared memory, their P is set to 0 by a select (no inf - inf and no
@@ -87,6 +94,7 @@ struct BwdArgs {
   float* dv;
   int hq, hkv, sq, sk;
   float sm_scale;
+  int window;  // 0: none (causal only)
 };
 
 // rows [r0, r0 + n) of a [*, D] row-major tensor into shared memory with
@@ -119,7 +127,7 @@ struct DqLayout {
   static constexpr int bytes = v_off + DQ_BN * C::HS * 2;
 };
 
-template <int D, bool CAUSAL>
+template <int D, bool CAUSAL, bool WINDOW>
 __global__ void __launch_bounds__(NTHREADS)
 sage_attn_bwd_dq_kernel(const BwdArgs a) {
   const int8_t* __restrict__ q_i8 = a.q_i8;
@@ -134,6 +142,7 @@ sage_attn_bwd_dq_kernel(const BwdArgs a) {
   float* __restrict__ dq = a.dq;
   const int hq = a.hq, hkv = a.hkv, sq = a.sq, sk = a.sk;
   const float sm_scale = a.sm_scale;
+  const int window = WINDOW ? a.window : 0;
   using C = Cfg<D>;
   using L = DqLayout<D>;
   constexpr int CH = C::CH, NT = CH / 8;
@@ -183,8 +192,9 @@ sage_attn_bwd_dq_kernel(const BwdArgs a) {
 
   int n_tiles = n_tiles_all;
   if (CAUSAL) n_tiles = min(n_tiles, (q0 + DQ_BM - 1) / DQ_BN + 1);
+  const int j_first = window > 0 ? max(0, q0 - window + 1) / DQ_BN : 0;
 
-  for (int j = 0; j < n_tiles; ++j) {
+  for (int j = j_first; j < n_tiles; ++j) {
     const int kv0 = j * DQ_BN;
     __syncthreads();  // the previous tile is no longer read
     load_rows<D, 1>(sK, (const unsigned char*)(k_i8 + kv_base), kv0, DQ_BN, sk, C::QS);
@@ -194,7 +204,8 @@ sage_attn_bwd_dq_kernel(const BwdArgs a) {
 
     const float ks = ks_row[j];
     const float rs0 = qs0 * ks, rs1 = qs1 * ks;  // the forward's order
-    const bool need_mask = (kv0 + DQ_BN > sk) || (CAUSAL && kv0 + DQ_BN - 1 > q0);
+    const bool need_mask = (kv0 + DQ_BN > sk) || (CAUSAL && kv0 + DQ_BN - 1 > q0) ||
+                           (window > 0 && kv0 <= q0 + DQ_BM - 1 - window);
 
 #pragma unroll
     for (int c = 0; c < DQ_BN / CH; ++c) {
@@ -232,7 +243,9 @@ sage_attn_bwd_dq_kernel(const BwdArgs a) {
           float p = exp2f((float)s_i[n][e] * (lo ? rs0 : rs1) - (lo ? ls0 : ls1));
           if (need_mask) {
             const int col = kv0 + c0 + n * 8 + t * 2 + (e & 1);
-            if (col >= sk || (CAUSAL && col > (lo ? row0 : row1))) p = 0.f;
+            const int row = lo ? row0 : row1;
+            if (col >= sk || (CAUSAL && col > row) || (window > 0 && col <= row - window))
+              p = 0.f;
           }
           dp[n][e] = p * (dp[n][e] - (lo ? dv0 : dv1));
         }
@@ -279,7 +292,7 @@ struct DkvLayout {
   static constexpr int bytes = dv_off + KV_BQ * 4;
 };
 
-template <int D, bool CAUSAL>
+template <int D, bool CAUSAL, bool WINDOW>
 __global__ void __launch_bounds__(NTHREADS)
 sage_attn_bwd_dkv_kernel(const BwdArgs a) {
   const int8_t* __restrict__ q_i8 = a.q_i8;
@@ -295,6 +308,7 @@ sage_attn_bwd_dkv_kernel(const BwdArgs a) {
   float* __restrict__ dv = a.dv;
   const int hq = a.hq, hkv = a.hkv, sq = a.sq, sk = a.sk;
   const float sm_scale = a.sm_scale;
+  const int window = WINDOW ? a.window : 0;
   using C = Cfg<D>;
   using L = DkvLayout<D>;
   constexpr int CH = C::CH, NT = CH / 8;
@@ -330,8 +344,10 @@ sage_attn_bwd_dkv_kernel(const BwdArgs a) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc_k[i][e] = acc_v[i][e] = 0.f;
 
-  const int n_qt = (sq + KV_BQ - 1) / KV_BQ;
+  int n_qt = (sq + KV_BQ - 1) / KV_BQ;
   const int qt0 = CAUSAL ? kv0 / KV_BQ : 0;  // causal: from the diagonal
+  if (window > 0)  // up to the last Q row whose window reaches this tile
+    n_qt = min(n_qt, (kv0 + KV_BM - 1 + window - 1) / KV_BQ + 1);
 
   for (int hh = 0; hh < rep; ++hh) {
     const size_t row_base = ((size_t)bi * hq + hk * rep + hh) * sq;
@@ -349,8 +365,9 @@ sage_attn_bwd_dkv_kernel(const BwdArgs a) {
       }
       __syncthreads();
 
-      const bool need_mask =
-          (q0 + KV_BQ > sq) || (kv0 + KV_BM > sk) || (CAUSAL && kv0 + KV_BM - 1 > q0);
+      const bool need_mask = (q0 + KV_BQ > sq) || (kv0 + KV_BM > sk) ||
+                             (CAUSAL && kv0 + KV_BM - 1 > q0) ||
+                             (window > 0 && kv0 <= q0 + KV_BQ - 1 - window);
 
 #pragma unroll
       for (int c = 0; c < KV_BQ / CH; ++c) {
@@ -379,7 +396,9 @@ sage_attn_bwd_dkv_kernel(const BwdArgs a) {
             float pv = exp2f((float)s_i[n][e] * (sQs[ql] * ks) - sLse[ql]);
             if (need_mask) {
               const int qr = q0 + ql, kr = e < 2 ? kr0 : kr1;
-              if (qr >= sq || kr >= sk || (CAUSAL && kr > qr)) pv = 0.f;
+              if (qr >= sq || kr >= sk || (CAUSAL && kr > qr) ||
+                  (window > 0 && kr <= qr - window))
+                pv = 0.f;
             }
             p[n][e] = pv;
           }
@@ -450,8 +469,27 @@ int launch(Kern kern, int smem, dim3 grid, cudaStream_t st, const BwdArgs& a) {
   return (int)cudaGetLastError();
 }
 
-bool bad_shape(int hq, int hkv, int d, int group) {
-  return group != KGROUP || hkv <= 0 || hq % hkv != 0 || (d != 64 && d != 128);
+// The instance for (causal, window): the window band has instances of its
+// own, so the causal ones compile to the code they have without it.
+template <int D>
+int launch_dq(int causal, int window, dim3 grid, cudaStream_t st, const BwdArgs& a) {
+  constexpr int smem = DqLayout<D>::bytes;
+  if (window > 0) return launch(sage_attn_bwd_dq_kernel<D, true, true>, smem, grid, st, a);
+  return causal ? launch(sage_attn_bwd_dq_kernel<D, true, false>, smem, grid, st, a)
+                : launch(sage_attn_bwd_dq_kernel<D, false, false>, smem, grid, st, a);
+}
+
+template <int D>
+int launch_dkv(int causal, int window, dim3 grid, cudaStream_t st, const BwdArgs& a) {
+  constexpr int smem = DkvLayout<D>::bytes;
+  if (window > 0) return launch(sage_attn_bwd_dkv_kernel<D, true, true>, smem, grid, st, a);
+  return causal ? launch(sage_attn_bwd_dkv_kernel<D, true, false>, smem, grid, st, a)
+                : launch(sage_attn_bwd_dkv_kernel<D, false, false>, smem, grid, st, a);
+}
+
+bool bad_shape(int hq, int hkv, int d, int group, int causal, int window) {
+  return group != KGROUP || hkv <= 0 || hq % hkv != 0 || (d != 64 && d != 128) || window < 0 ||
+         (window > 0 && !causal);
 }
 
 }  // namespace
@@ -461,41 +499,37 @@ bool bad_shape(int hq, int hkv, int d, int group) {
 //   k_i8 int8 [b,hkv,sk,d]; k_scale fp32 [b,hkv,ceil(sk/group)], group 128;
 //   k_sm, v bf16 [b,hkv,sk,d]; q_bf, dout bf16 [b,hq,sq,d];
 //   lse2 (base 2), dvec fp32 [b,hq,sq]; dq fp32 [b,hq,sq,d]; dk, dv fp32
-//   [b,hkv,sk,d].
+//   [b,hkv,sk,d]; window > 0 (with causal only) keeps col > row - window.
 extern "C" int sage_attn_bwd_dq(const void* q_i8, const void* q_scale, const void* k_i8,
                                 const void* k_scale, const void* k_sm, const void* v,
                                 const void* dout, const void* lse2, const void* dvec,
                                 void* dq, int b, int hq, int hkv, int sq, int sk, int d,
-                                int causal, int group, float sm_scale, void* stream) {
-  if (bad_shape(hq, hkv, d, group)) return (int)cudaErrorInvalidValue;
+                                int causal, int window, int group, float sm_scale,
+                                void* stream) {
+  if (bad_shape(hq, hkv, d, group, causal, window)) return (int)cudaErrorInvalidValue;
   BwdArgs a{(const int8_t*)q_i8, (const float*)q_scale, nullptr, (const int8_t*)k_i8,
             (const float*)k_scale, (const __nv_bfloat16*)k_sm, (const __nv_bfloat16*)v,
             (const __nv_bfloat16*)dout, (const float*)lse2, (const float*)dvec,
-            (float*)dq, nullptr, nullptr, hq, hkv, sq, sk, sm_scale};
+            (float*)dq, nullptr, nullptr, hq, hkv, sq, sk, sm_scale, window};
   const dim3 grid((sq + DQ_BM - 1) / DQ_BM, hq, b);
   cudaStream_t st = (cudaStream_t)stream;
-  if (d == 64)
-    return causal ? launch(sage_attn_bwd_dq_kernel<64, true>, DqLayout<64>::bytes, grid, st, a)
-                  : launch(sage_attn_bwd_dq_kernel<64, false>, DqLayout<64>::bytes, grid, st, a);
-  return causal ? launch(sage_attn_bwd_dq_kernel<128, true>, DqLayout<128>::bytes, grid, st, a)
-                : launch(sage_attn_bwd_dq_kernel<128, false>, DqLayout<128>::bytes, grid, st, a);
+  return d == 64 ? launch_dq<64>(causal, window, grid, st, a)
+                 : launch_dq<128>(causal, window, grid, st, a);
 }
 
 extern "C" int sage_attn_bwd_dkv(const void* q_i8, const void* q_scale, const void* q_bf,
                                  const void* k_i8, const void* k_scale, const void* v,
                                  const void* dout, const void* lse2, const void* dvec,
                                  void* dk, void* dv, int b, int hq, int hkv, int sq, int sk,
-                                 int d, int causal, int group, float sm_scale, void* stream) {
-  if (bad_shape(hq, hkv, d, group)) return (int)cudaErrorInvalidValue;
+                                 int d, int causal, int window, int group, float sm_scale,
+                                 void* stream) {
+  if (bad_shape(hq, hkv, d, group, causal, window)) return (int)cudaErrorInvalidValue;
   BwdArgs a{(const int8_t*)q_i8, (const float*)q_scale, (const __nv_bfloat16*)q_bf,
             (const int8_t*)k_i8, (const float*)k_scale, nullptr, (const __nv_bfloat16*)v,
             (const __nv_bfloat16*)dout, (const float*)lse2, (const float*)dvec, nullptr,
-            (float*)dk, (float*)dv, hq, hkv, sq, sk, sm_scale};
+            (float*)dk, (float*)dv, hq, hkv, sq, sk, sm_scale, window};
   const dim3 grid((sk + KV_BM - 1) / KV_BM, hkv, b);
   cudaStream_t st = (cudaStream_t)stream;
-  if (d == 64)
-    return causal ? launch(sage_attn_bwd_dkv_kernel<64, true>, DkvLayout<64>::bytes, grid, st, a)
-                  : launch(sage_attn_bwd_dkv_kernel<64, false>, DkvLayout<64>::bytes, grid, st, a);
-  return causal ? launch(sage_attn_bwd_dkv_kernel<128, true>, DkvLayout<128>::bytes, grid, st, a)
-                : launch(sage_attn_bwd_dkv_kernel<128, false>, DkvLayout<128>::bytes, grid, st, a);
+  return d == 64 ? launch_dkv<64>(causal, window, grid, st, a)
+                 : launch_dkv<128>(causal, window, grid, st, a);
 }

@@ -30,14 +30,14 @@ FLAGS = (
 )
 # every source's entry points, with their ctypes signatures: pointers and
 # the stream are c_void_p (a bare int would be cut to 32 bits)
-P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 SIGNATURES = {
     "quant_k": {
         "k_channel_mean": [P, P, I, I, I, I, P],
         "quant_k_chunked": [P, P, P, P, I, I, I, I, I, P],
     },
     "quant_q": {
-        "quant_q_per_token": [P, P, P, ctypes.c_longlong, I, I, F, P],
+        "quant_q_per_token": [P, P, P, LL, I, I, F, P],
     },
     "quant_v": {
         "quant_v_per_channel": [P] * 4 + [I] * 6 + [P],
@@ -47,9 +47,14 @@ SIGNATURES = {
     "attention_fwd": {
         "sage_attn_fwd": [P] * 8 + [I] * 11 + [F, P],
     },
+    "attention_fwd_masked": {
+        # sage_attn_fwd's operands, the nine mask pointers, ten strides,
+        # the window and the bias type
+        "sage_attn_fwd_masked": [P] * 8 + [I] * 11 + [F, P] + [P] * 9 + [LL] * 10 + [I] * 2,
+    },
     "attention_bwd": {
-        "sage_attn_bwd_dq": [P] * 10 + [I] * 8 + [F, P],
-        "sage_attn_bwd_dkv": [P] * 11 + [I] * 8 + [F, P],
+        "sage_attn_bwd_dq": [P] * 10 + [I] * 9 + [F, P],
+        "sage_attn_bwd_dkv": [P] * 11 + [I] * 9 + [F, P],
     },
     "decode": {
         "sage_decode": [P] * 9 + [I] * 10 + [F, P],

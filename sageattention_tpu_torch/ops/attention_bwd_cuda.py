@@ -13,6 +13,9 @@ per ``K_GROUP`` rows, and ``dvec`` = rowsum(dO * O) minus any LSE
 cotangent.  The TPU launcher's fold grid, transposed (vt) accumulation and
 block heuristics are layout tricks that change no number and are not
 ported; every length is taken, the ragged edge masked inside the kernels.
+A sliding ``window`` (with causal) is applied as the forward applies it:
+``col > row - window``, and each kernel's loop covers only the tiles the
+band reaches (the TPU's band grids, ``attention_bwd_pallas.py:756-816``).
 
 On a CPU tensor a wrapper runs its plain version
 (:func:`reference.quantized_attention_bwd_reference`); on a CUDA tensor it
@@ -24,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from sageattention_tpu_torch.ops import _build, reference
-from sageattention_tpu_torch.ops.attention_cuda import K_GROUP
+from sageattention_tpu_torch.ops.attention_cuda import K_GROUP, window_arg
 
 
 def _k_rows(k_scale, sk: int):
@@ -33,20 +36,20 @@ def _k_rows(k_scale, sk: int):
 
 
 def sage_attention_bwd_dq_plain(q_i8, q_scale, k_i8, k_scale, k_sm, v, do, lse2, dvec, *,
-                                is_causal: bool, sm_scale: float):
+                                is_causal: bool, sm_scale: float, window: int | None = None):
     """dQ [b,hq,sq,d] fp32 in plain PyTorch."""
     return reference.quantized_attention_bwd_reference(
         q_i8, q_scale, k_i8, _k_rows(k_scale, k_i8.shape[2]), k_sm, None, v, do, lse2,
-        dvec, is_causal=is_causal, sm_scale=sm_scale,
+        dvec, is_causal=is_causal, sm_scale=sm_scale, window=window,
     )[0]
 
 
 def sage_attention_bwd_dkv_plain(q_i8, q_scale, q_bf, k_i8, k_scale, v, do, lse2, dvec, *,
-                                 is_causal: bool, sm_scale: float):
+                                 is_causal: bool, sm_scale: float, window: int | None = None):
     """(dK, dV) [b,hkv,sk,d] fp32 in plain PyTorch."""
     _, dk, dv = reference.quantized_attention_bwd_reference(
         q_i8, q_scale, k_i8, _k_rows(k_scale, k_i8.shape[2]), None, q_bf, v, do, lse2,
-        dvec, is_causal=is_causal, sm_scale=sm_scale,
+        dvec, is_causal=is_causal, sm_scale=sm_scale, window=window,
     )
     return dk, dv
 
@@ -80,11 +83,13 @@ def _check(q_i8, q_scale, k_i8, k_scale, lse2, dvec, **bf16):
 
 
 def sage_attention_bwd_dq(q_i8, q_scale, k_i8, k_scale, k_sm, v, do, lse2, dvec, *,
-                          is_causal: bool, sm_scale: float):
+                          is_causal: bool, sm_scale: float, window: int | None = None):
     """dQ [b,hq,sq,d] fp32 (``sm_scale`` applied) on HND tensors."""
+    win = window_arg(window, is_causal)
     if q_i8.device.type == "cpu":
         return sage_attention_bwd_dq_plain(q_i8, q_scale, k_i8, k_scale, k_sm, v, do, lse2,
-                                           dvec, is_causal=is_causal, sm_scale=sm_scale)
+                                           dvec, is_causal=is_causal, sm_scale=sm_scale,
+                                           window=window)
     if q_i8.device.type != "cuda":
         raise ValueError(f"sage_attention_bwd_dq: tensor on {q_i8.device}")
     _check(q_i8, q_scale, k_i8, k_scale, lse2, dvec, k_sm=k_sm, v=v, do=do)
@@ -95,7 +100,7 @@ def sage_attention_bwd_dq(q_i8, q_scale, k_i8, k_scale, k_sm, v, do, lse2, dvec,
         err = _build.lib("attention_bwd").sage_attn_bwd_dq(
             q_i8.data_ptr(), q_scale.data_ptr(), k_i8.data_ptr(), k_scale.data_ptr(),
             k_sm.data_ptr(), v.data_ptr(), do.data_ptr(), lse2.data_ptr(), dvec.data_ptr(),
-            dq.data_ptr(), b, hq, hkv, sq, sk, d, int(is_causal), K_GROUP, sm_scale,
+            dq.data_ptr(), b, hq, hkv, sq, sk, d, int(is_causal), win, K_GROUP, sm_scale,
             torch.cuda.current_stream(q_i8.device).cuda_stream,
         )
     _build.check(err, "sage_attn_bwd_dq")
@@ -107,12 +112,14 @@ sage_attention_bwd_dq.launches = 0
 
 
 def sage_attention_bwd_dkv(q_i8, q_scale, q_bf, k_i8, k_scale, v, do, lse2, dvec, *,
-                           is_causal: bool, sm_scale: float):
+                           is_causal: bool, sm_scale: float, window: int | None = None):
     """(dK, dV) [b,hkv,sk,d] fp32, summed over the GQA group, on HND
     tensors."""
+    win = window_arg(window, is_causal)
     if q_i8.device.type == "cpu":
         return sage_attention_bwd_dkv_plain(q_i8, q_scale, q_bf, k_i8, k_scale, v, do, lse2,
-                                            dvec, is_causal=is_causal, sm_scale=sm_scale)
+                                            dvec, is_causal=is_causal, sm_scale=sm_scale,
+                                            window=window)
     if q_i8.device.type != "cuda":
         raise ValueError(f"sage_attention_bwd_dkv: tensor on {q_i8.device}")
     _check(q_i8, q_scale, k_i8, k_scale, lse2, dvec, q_bf=q_bf, v=v, do=do)
@@ -125,7 +132,7 @@ def sage_attention_bwd_dkv(q_i8, q_scale, q_bf, k_i8, k_scale, v, do, lse2, dvec
             q_i8.data_ptr(), q_scale.data_ptr(), q_bf.data_ptr(), k_i8.data_ptr(),
             k_scale.data_ptr(), v.data_ptr(), do.data_ptr(), lse2.data_ptr(),
             dvec.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, hq, hkv, sq, sk, d,
-            int(is_causal), K_GROUP, sm_scale,
+            int(is_causal), win, K_GROUP, sm_scale,
             torch.cuda.current_stream(q_i8.device).cuda_stream,
         )
     _build.check(err, "sage_attn_bwd_dkv")

@@ -1,23 +1,31 @@
-"""Fused int8-QK^T / bf16-PV attention forward: CUDA wrapper and plain version.
+"""Fused int8-QK^T / bf16-PV attention forward: CUDA wrappers and plain version.
 
 Replaces the TPU kernel ``sageattention_tpu/ops/attention_pallas.py``:
 ``sage_attention_fused`` (``_kernel`` / ``_kernel_single``) for bf16 V and
 for int8 / fp8 V codes with per-channel scales and the smooth-v mean
-(its default ``pv_compute="bf16"``: codes widened to bf16, P.V in bf16).
-The kernel is ``csrc/attention_fwd.cu``; its header says what bounds it
-(tensor-core operations) and what this first version leaves for later.
+(its default ``pv_compute="bf16"``: codes widened to bf16, P.V in bf16),
+and with its masks (:class:`Masks`: segment ids and varlen's range form,
+positions, a bool mask, an additive bias, a sliding window).  Two
+wrappers, two libraries built from one kernel body
+(``csrc/attention_fwd_kernel.cuh``, which says what bounds it and what
+this first version leaves for later): :func:`sage_attention_fwd`
+(``csrc/attention_fwd.cu``, no masks) and :func:`sage_attention_fwd_masked`
+(``csrc/attention_fwd_masked.cu``).  A masked row with no live key gives
+o = 0 and lse2 = -inf, as the TPU kernel does.
 
 The H100 launch configuration is fixed: 64 Q rows per CTA, KV tiles of
 ``K_GROUP`` = 128 columns, which is also the K-scale group, so the kernel
 reads one K scale per tile.  It replaces the TPU's ``default_config`` and
 tuned table, which hold TPU block sizes only.
 
-On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
-launches the kernel or raises.  ``sage_attention_fwd.launches`` counts
-the launches.
+On a CPU tensor a wrapper runs the plain version; on a CUDA tensor it
+launches its kernel or raises.  ``<wrapper>.launches`` counts the
+launches.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -26,6 +34,8 @@ from sageattention_tpu_torch.ops import _build, reference
 
 # the K-scale group, shared by the CPU and CUDA paths: the kernel's KV tile
 K_GROUP = 128
+# the kernel's Q tile: rows of one CTA, and of one row of the liveness table
+Q_TILE = 64
 # the V storage types the kernel reads; the position of each is its code
 V_TYPES = (torch.bfloat16, *quant.V_CODE_TYPES)
 
@@ -39,11 +49,39 @@ def _check_v_scale(v, v_scale) -> None:
         )
 
 
+class Masks(NamedTuple):
+    """The masked kernel's operands, each optional.  Segment ids, the
+    varlen range form (row attends [kv_lo, kv_hi)) and positions are int32,
+    [b, sq] on the q side and [b, sk] on the kv side.  ``mask`` (bool, True
+    = attend) and ``bias`` (fp32 or bf16, added to the scores) have 4 dims
+    [b, 1 or hq, sq, sk] and may be broadcast views: the kernel reads them
+    through their strides.  ``window`` (with causal) keeps col > row -
+    window."""
+
+    q_seg: torch.Tensor | None = None
+    kv_seg: torch.Tensor | None = None
+    kv_lo: torch.Tensor | None = None
+    kv_hi: torch.Tensor | None = None
+    q_pos: torch.Tensor | None = None
+    kv_pos: torch.Tensor | None = None
+    mask: torch.Tensor | None = None
+    bias: torch.Tensor | None = None
+    window: int | None = None
+
+    def reference_kwargs(self) -> dict:
+        """The same masks as :func:`reference.quantized_attention_reference`
+        takes them."""
+        return dict(window=self.window, q_segment_ids=self.q_seg, kv_segment_ids=self.kv_seg,
+                    q_kv_lo=self.kv_lo, q_kv_hi=self.kv_hi, q_positions=self.q_pos,
+                    kv_positions=self.kv_pos, attn_mask=self.mask, attn_bias=self.bias)
+
+
 def sage_attention_plain(q, k_i8, k_scale, v, v_scale=None, v_mean=None, *,
-                         is_causal: bool, q_fold: float, return_lse: bool):
-    """The kernel's function in plain PyTorch: per-row int8 Q with
+                         is_causal: bool, q_fold: float, return_lse: bool,
+                         masks: Masks | None = None):
+    """The kernels' function in plain PyTorch: per-row int8 Q with
     ``q_fold`` in its scales, per-group K scales expanded per row, then
-    :func:`reference.quantized_attention_reference`."""
+    :func:`reference.quantized_attention_reference` with the ``masks``."""
     _check_v_scale(v, v_scale)
     sk = k_i8.shape[2]
     q_i8, q_scale = quant.quant_int8(q, scale_fold=q_fold)
@@ -51,7 +89,53 @@ def sage_attention_plain(q, k_i8, k_scale, v, v_scale=None, v_mean=None, *,
     return reference.quantized_attention_reference(
         q_i8, q_scale, k_i8, k_rows, v, v_scale, v_mean, is_causal=is_causal,
         return_lse=return_lse, out_dtype=q.dtype,
+        **(masks.reference_kwargs() if masks is not None else {}),
     )
+
+
+def tile_liveness(masks: Masks, sq: int, sk: int) -> torch.Tensor | None:
+    """uint8 [b, 1 or hq, ceil(sq/Q_TILE), ceil(sk/K_GROUP)] for the masked
+    kernel, from the segment ids and the bool mask: 0 where no element of
+    a (Q tile, KV tile) can be live, which the kernel skips; 2 where every
+    element in bounds is, which it computes without the element rule; 1
+    otherwise.  None without ids or a mask.  The counterpart of the TPU
+    kernel's ``msum`` liveness summary (``attention_pallas.py:1867-1923``),
+    computed outside the kernel as there: two tiles whose id ranges are
+    disjoint cannot attend (exact for sorted ids, conservative for others),
+    and two tiles of one id attend wholly."""
+    nq, nk = -(-sq // Q_TILE), -(-sk // K_GROUP)
+    any_ = all_ = None
+    if masks.q_seg is not None:
+        big = torch.iinfo(torch.int32).max
+
+        def span(ids, n, tile):  # per-tile (min, max) of the ids, pads ignored
+            pad = n * tile - ids.shape[1]
+            lo = torch.nn.functional.pad(ids, (0, pad), value=big)
+            hi = torch.nn.functional.pad(ids, (0, pad), value=-big)
+            return lo.view(-1, n, tile).amin(-1), hi.view(-1, n, tile).amax(-1)
+
+        qlo, qhi = span(masks.q_seg, nq, Q_TILE)
+        klo, khi = span(masks.kv_seg, nk, K_GROUP)
+        any_ = ((qlo[:, :, None] <= khi[:, None, :]) & (qhi[:, :, None] >= klo[:, None, :]))[:, None]
+        all_ = ((qlo == qhi)[:, :, None] & (klo == khi)[:, None, :]
+                & (qlo[:, :, None] == klo[:, None, :]))[:, None]
+    if masks.mask is not None:
+        m = masks.mask
+        tiles = (*m.shape[:2], nq, Q_TILE, nk, K_GROUP)
+        if (sq, sk) == (nq * Q_TILE, nk * K_GROUP):  # whole tiles: views of the mask
+            m_any = m.view(tiles).any(dim=5).any(dim=3)
+            m_all = m.view(tiles).all(dim=5).all(dim=3)
+        else:  # a padded copy: out of bounds is dead for "any", live for "all"
+            pad = m.new_zeros(*m.shape[:2], nq * Q_TILE, nk * K_GROUP)
+            pad[..., :sq, :sk] = m
+            m_any = pad.view(tiles).any(dim=5).any(dim=3)
+            pad[..., :sq, :sk] = ~m
+            m_all = ~pad.view(tiles).any(dim=5).any(dim=3)
+        any_ = m_any if any_ is None else any_ & m_any
+        all_ = m_all if all_ is None else all_ & m_all
+    if any_ is None:
+        return None
+    return (any_.to(torch.uint8) + (any_ & all_).to(torch.uint8)).contiguous()
 
 
 def _check(q, k_i8, k_scale, v, v_scale, v_mean):
@@ -119,3 +203,89 @@ def sage_attention_fwd(q, k_i8, k_scale, v, v_scale=None, v_mean=None, *,
 
 
 sage_attention_fwd.launches = 0
+
+
+def broadcast_strides(x: torch.Tensor | None) -> list[int]:
+    """The element strides (b, h, row, col) the masked kernel reads a mask
+    or bias through: 0 along every dim of size 1, which the kernel indexes
+    with the batch, query head, row or column it computes (a dim that
+    ``expand`` did not touch keeps a nonzero stride)."""
+    if x is None:
+        return [0, 0, 0, 0]
+    return [st if n > 1 else 0 for st, n in zip(x.stride(), x.shape)]
+
+
+def window_arg(window: int | None, is_causal: bool) -> int:
+    """The kernels' window argument, 0 for none: a window needs causal and
+    window >= 1."""
+    if window is not None and (not is_causal or window < 1):
+        raise ValueError(f"window={window} needs is_causal=True and window >= 1")
+    return window or 0
+
+
+def check_masks(masks: Masks, b: int, hq: int, sq: int, sk: int, device, is_causal: bool):
+    """The rules the masked kernel holds its operands to: a window with
+    causal and >= 1, ids, ranges and positions in pairs, their dtypes,
+    shapes and device.  ``core`` checks a user's masks with it too."""
+    window_arg(masks.window, is_causal)
+    for pair in (("q_seg", "kv_seg"), ("kv_lo", "kv_hi"), ("q_pos", "kv_pos")):
+        if (getattr(masks, pair[0]) is None) != (getattr(masks, pair[1]) is None):
+            raise ValueError(f"{pair[0]} and {pair[1]} come together")
+    for name in ("q_seg", "kv_seg", "kv_lo", "kv_hi", "q_pos", "kv_pos"):
+        x = getattr(masks, name)
+        want = (b, sk) if name in ("kv_seg", "kv_pos") else (b, sq)
+        if x is not None and (x.dtype != torch.int32 or tuple(x.shape) != want
+                              or x.device != device or not x.is_contiguous()):
+            raise ValueError(f"{name}: want contiguous int32 {want} on {device}, got "
+                             f"{tuple(x.shape)} {x.dtype} on {x.device}")
+    for name, dtypes in (("mask", (torch.bool,)), ("bias", (torch.float32, torch.bfloat16))):
+        x = getattr(masks, name)
+        if x is not None and (x.dtype not in dtypes or x.dim() != 4 or x.shape[0] != b
+                              or x.shape[1] not in (1, hq) or tuple(x.shape[2:]) != (sq, sk)
+                              or x.device != device):
+            raise ValueError(f"{name}: want {dtypes} [{b}, 1 or {hq}, {sq}, {sk}] on {device}, "
+                             f"got {tuple(x.shape)} {x.dtype} on {x.device}")
+
+
+def sage_attention_fwd_masked(q, k_i8, k_scale, v, v_scale=None, v_mean=None, *,
+                              masks: Masks, is_causal: bool, q_fold: float,
+                              return_lse: bool = False):
+    """:func:`sage_attention_fwd` with the ``masks`` (:class:`Masks`) on HND
+    tensors: the masked kernel (``csrc/attention_fwd_masked.cu``).  A row
+    with no live key gives o = 0 and, with ``return_lse``, lse2 = -inf."""
+    b, hq, sq, _ = q.shape
+    sk = k_i8.shape[2]
+    check_masks(masks, b, hq, sq, sk, q.device, is_causal)
+    if q.device.type == "cpu":
+        return sage_attention_plain(q, k_i8, k_scale, v, v_scale, v_mean, is_causal=is_causal,
+                                    q_fold=q_fold, return_lse=return_lse, masks=masks)
+    if q.device.type != "cuda":
+        raise ValueError(f"sage_attention_fwd_masked: tensor on {q.device}")
+    _check(q, k_i8, k_scale, v, v_scale, v_mean)
+    d, hkv = q.shape[3], k_i8.shape[1]
+    live = tile_liveness(masks, sq, sk)
+    o = torch.empty_like(q)
+    lse2 = torch.empty(b, hq, sq, dtype=torch.float32, device=q.device) if return_lse else None
+
+    def ptr(x):
+        return x.data_ptr() if x is not None else None
+
+    live_st = [0, 0] if live is None else broadcast_strides(live)[:2]
+    with torch.cuda.device(q.device):
+        err = _build.lib("attention_fwd_masked").sage_attn_fwd_masked(
+            q.data_ptr(), k_i8.data_ptr(), k_scale.data_ptr(), v.data_ptr(), ptr(v_scale),
+            ptr(v_mean), o.data_ptr(), ptr(lse2), b, hq, hkv, sq, sk, d, int(is_causal),
+            int(q.dtype == torch.float32), V_TYPES.index(v.dtype), int(return_lse), K_GROUP,
+            quant.fold_multiplier(q_fold), torch.cuda.current_stream(q.device).cuda_stream,
+            ptr(masks.q_seg), ptr(masks.kv_seg), ptr(masks.kv_lo), ptr(masks.kv_hi),
+            ptr(masks.q_pos), ptr(masks.kv_pos), ptr(masks.mask), ptr(masks.bias), ptr(live),
+            *broadcast_strides(masks.mask), *broadcast_strides(masks.bias), *live_st,
+            window_arg(masks.window, is_causal),
+            int(masks.bias is not None and masks.bias.dtype == torch.bfloat16),
+        )
+    _build.check(err, "sage_attn_fwd_masked")
+    sage_attention_fwd_masked.launches += 1
+    return (o, lse2) if return_lse else o
+
+
+sage_attention_fwd_masked.launches = 0

@@ -20,6 +20,10 @@ computed, not of a different kernel.
   term ``dQ += dlse * km * sm_scale``.  dV is Pt.dO, straight through the
   V quantizer.
 
+A sliding ``window`` (with causal) is the one mask with a gradient: the
+forward runs the masked kernel with it and the backward kernels apply the
+same band (``attention_bwd_pallas.py:117-143, 274-287``).
+
 Every length is taken: the kernels mask the ragged edge.  (The JAX fused
 backward takes only multiples of 128 and falls back to an exact,
 unquantized recompute elsewhere; ROADMAP records the difference.)  The
@@ -32,6 +36,7 @@ import torch
 
 from sageattention_tpu_torch import core
 from sageattention_tpu_torch.ops import attention_bwd_cuda, quant_cuda
+from sageattention_tpu_torch.ops.attention_cuda import Masks
 
 LOG2E = 1.4426950408889634
 
@@ -71,18 +76,20 @@ def backward_operands(q, k, v, do, *, o, k_i8, km, dlse, sm_scale: float, v_q=No
 
 
 def quantized_attention_vjp(q, k, v, do, *, o, lse2, k_i8, k_scale, km, dlse, is_causal: bool,
-                            sm_scale: float, v_q=None, v_scale=None, v_mean=None):
+                            sm_scale: float, v_q=None, v_scale=None, v_mean=None,
+                            window: int | None = None):
     """(dq, dk, dv) in the dtypes of q, k, v, from the forward's residuals:
     ``o`` (q's dtype), ``lse2`` (base 2), ``k_i8``/``k_scale``/``km`` (the
     forward's K quantization, head dim padded) and, with quantized V,
     ``v_q``/``v_scale``/``v_mean`` (its V quantization, head dim padded).
-    ``dlse`` is the cotangent of the natural-log LSE, or None."""
+    ``dlse`` is the cotangent of the natural-log LSE, or None; ``window``
+    the forward's sliding window (with ``is_causal``), or None."""
     d_og = q.shape[-1]
     ops = backward_operands(q, k, v, do, o=o, k_i8=k_i8, km=km, dlse=dlse, sm_scale=sm_scale,
                             v_q=v_q, v_scale=v_scale, v_mean=v_mean)
     common = dict(q_i8=ops["q_i8"], q_scale=ops["q_scale"], k_i8=k_i8, k_scale=k_scale,
                   v=ops["v"], do=ops["do"], lse2=lse2, dvec=ops["dvec"],
-                  is_causal=is_causal, sm_scale=sm_scale)
+                  is_causal=is_causal, sm_scale=sm_scale, window=window)
     dq = attention_bwd_cuda.sage_attention_bwd_dq(k_sm=ops["k_sm"], **common)
     dk, dv = attention_bwd_cuda.sage_attention_bwd_dkv(q_bf=ops["q_bf"], **common)
     if dlse is not None and km is not None:
@@ -98,18 +105,22 @@ class SageAttnFunction(torch.autograd.Function):
     """``sageattn`` on HND tensors with the fused quantized backward.
 
     ``apply(q, k, v, is_causal, sm_scale, smooth_k, return_lse, pv_dtype,
-    smooth_v)`` returns o, or (o, lse) with ``return_lse``; both are
-    differentiable."""
+    smooth_v, window)`` returns o, or (o, lse) with ``return_lse``; both are
+    differentiable.  ``window`` (None or >= 1, with ``is_causal``) runs the
+    masked forward kernel and the backward kernels' band."""
 
     @staticmethod
-    def forward(ctx, q, k, v, is_causal, sm_scale, smooth_k, return_lse, pv_dtype, smooth_v):
+    def forward(ctx, q, k, v, is_causal, sm_scale, smooth_k, return_lse, pv_dtype, smooth_v,
+                window=None):
         f = core._forward(q, k, v, is_causal=is_causal, sm_scale=sm_scale, smooth_k=smooth_k,
-                          return_lse=True, pv_dtype=pv_dtype, smooth_v=smooth_v)
+                          return_lse=True, pv_dtype=pv_dtype, smooth_v=smooth_v,
+                          masks=None if window is None else Masks(window=window))
         # the V codes only when quantized: bf16 V is rebuilt from v
         v_q = f.v_q if f.v_scale is not None else None
         ctx.save_for_backward(q, k, v, f.o, f.lse2, f.k_i8, f.k_scale, f.km, v_q, f.v_scale,
                               f.v_mean if v_q is not None else None)
         ctx.is_causal, ctx.sm_scale, ctx.return_lse = is_causal, f.sm_scale, return_lse
+        ctx.window = window
         if return_lse:
             return f.o, core._lse_nat(f.lse2, q, f.km, f.sm_scale)
         return f.o
@@ -120,5 +131,5 @@ class SageAttnFunction(torch.autograd.Function):
         dq, dk, dv = quantized_attention_vjp(
             q, k, v, do, o=o, lse2=lse2, k_i8=k_i8, k_scale=k_scale, km=km,
             dlse=dlse if ctx.return_lse else None, is_causal=ctx.is_causal,
-            sm_scale=ctx.sm_scale, v_q=v_q, v_scale=v_scale, v_mean=v_mean)
-        return dq, dk, dv, None, None, None, None, None, None
+            sm_scale=ctx.sm_scale, v_q=v_q, v_scale=v_scale, v_mean=v_mean, window=ctx.window)
+        return dq, dk, dv, None, None, None, None, None, None, None

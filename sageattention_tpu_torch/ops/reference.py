@@ -13,7 +13,11 @@ Both loop over (batch, head) slabs so that one slab's [sq, sk] score
 matrix is the largest temporary: at CogVideoX-2B's 17,776 tokens that is
 1.26 GB in fp32, where all 30 heads at once would not fit on the card.
 Causal masking is top-left aligned (``col <= row``); a sliding ``window``
-keeps the keys ``col > row - window`` (:func:`window_band_mask`).
+keeps the keys ``col > row - window`` (:func:`window_band_mask`).  The
+other masks (:func:`_build_mask`): segment ids (equal ids attend), their
+contiguous range form ``q_kv_lo``/``q_kv_hi`` (varlen), positions
+(``kv_pos <= q_pos``) and a bool mask, each broadcastable to [b, h, sq,
+sk] with a head dim of 1 or hq.
 """
 
 from __future__ import annotations
@@ -33,19 +37,54 @@ def window_band_mask(sq: int, sk: int, window: int, device=None) -> torch.Tensor
     return torch.arange(sk, device=device)[None, :] > row - window
 
 
-def _build_mask(sq: int, sk: int, *, is_causal: bool, device,
-                window: int | None = None) -> torch.Tensor | None:
-    """[sq, sk] bool mask (True = attend): causal and the sliding window."""
+def _build_mask(sq: int, sk: int, *, is_causal: bool, device, window: int | None = None,
+                q_segment_ids=None, kv_segment_ids=None, q_positions=None, kv_positions=None,
+                attn_mask=None, q_kv_lo=None, q_kv_hi=None) -> torch.Tensor | None:
+    """One bool mask (True = attend) broadcastable against [b, h, sq, sk]
+    scores, or None: causal and the sliding window [sq, sk]; positions,
+    segment ids and their range form [b, 1, sq, sk]; a bool ``attn_mask``
+    of 2, 3 or 4 dims.  As in the JAX package, every [b, sq, sk] part gets
+    its own head axis before the parts are combined."""
     if window is not None and not is_causal:
         raise ValueError("window requires is_causal=True")
-    if not is_causal:
-        return None
-    row = torch.arange(sq, device=device)[:, None]
-    col = torch.arange(sk, device=device)[None, :]
-    mask = col <= row
-    if window is not None:
-        mask = mask & window_band_mask(sq, sk, window, device)
+    parts = []
+    if is_causal:
+        row = torch.arange(sq, device=device)[:, None]
+        col = torch.arange(sk, device=device)[None, :]
+        causal = col <= row
+        if window is not None:
+            causal = causal & window_band_mask(sq, sk, window, device)
+        parts.append(causal)
+    if q_positions is not None:
+        parts.append((kv_positions[:, None, :] <= q_positions[:, :, None])[:, None])
+    if q_segment_ids is not None:
+        parts.append((q_segment_ids[:, :, None] == kv_segment_ids[:, None, :])[:, None])
+    if q_kv_lo is not None:
+        col = torch.arange(sk, device=device)
+        parts.append(((col >= q_kv_lo[..., None]) & (col < q_kv_hi[..., None]))[:, None])
+    if attn_mask is not None:
+        if attn_mask.dtype != torch.bool:
+            raise TypeError("a float attn_mask is an additive bias: pass it as attn_bias")
+        parts.append(attn_mask[:, None] if attn_mask.dim() == 3 else attn_mask)
+    mask = None
+    for m in parts:
+        mask = m if mask is None else mask & m
     return mask
+
+
+def _slab(x: torch.Tensor | None, bi: int, h: int) -> torch.Tensor | None:
+    """The [sq, sk] slab of (batch bi, query head h) of a mask or bias of 2
+    dims or 4 (batch and head dims of 1 broadcast)."""
+    if x is None or x.dim() == 2:
+        return x
+    return x[bi if x.shape[0] > 1 else 0, h if x.shape[1] > 1 else 0]
+
+
+def _as_4d(x: torch.Tensor | None) -> torch.Tensor | None:
+    """A 2-D [sq, sk] or 3-D [b, sq, sk] mask or bias as [.., .., sq, sk]."""
+    if x is None or x.dim() == 4:
+        return x
+    return x[None, None] if x.dim() == 2 else x[:, None]
 
 
 def _kv_head(h: int, hq: int, hkv: int) -> int:
@@ -62,24 +101,38 @@ def attention_reference(
     sm_scale: float | None = None,
     return_lse: bool = False,
     window: int | None = None,
+    q_segment_ids: torch.Tensor | None = None,
+    kv_segment_ids: torch.Tensor | None = None,
+    q_positions: torch.Tensor | None = None,
+    kv_positions: torch.Tensor | None = None,
+    attn_bias: torch.Tensor | None = None,
+    attn_mask: torch.Tensor | None = None,
 ):
     """Exact fp32 attention on HND [b, h, s, d] tensors; GQA when k/v have
     fewer heads; ``window`` (with ``is_causal``) keeps each query's last
-    ``window`` keys.  Returns o in q's dtype and, if asked, the natural-log
-    LSE [b, hq, sq] in fp32."""
+    ``window`` keys; the masks of :func:`_build_mask`; ``attn_bias`` is
+    added to the scaled scores before the masks.  A row with no live key
+    averages V uniformly, as the JAX reference does.  Returns o in q's
+    dtype and, if asked, the natural-log LSE [b, hq, sq] in fp32."""
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     if sm_scale is None:
         sm_scale = d**-0.5
-    mask = _build_mask(sq, sk, is_causal=is_causal, device=q.device, window=window)
+    mask = _build_mask(sq, sk, is_causal=is_causal, device=q.device, window=window,
+                       q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+                       q_positions=q_positions, kv_positions=kv_positions,
+                       attn_mask=attn_mask)
+    bias = _as_4d(attn_bias)
     o = torch.empty(b, hq, sq, v.shape[-1], dtype=q.dtype, device=q.device)
     lse = torch.empty(b, hq, sq, dtype=torch.float32, device=q.device)
     for bi in range(b):
         for h in range(hq):
             hk = _kv_head(h, hq, hkv)
             s = (q[bi, h].float() @ k[bi, hk].float().T) * sm_scale
+            if bias is not None:
+                s = s + _slab(bias, bi, h).float()
             if mask is not None:
-                s = torch.where(mask, s, MASK_VALUE)
+                s = torch.where(_slab(mask, bi, h), s, MASK_VALUE)
             m = s.amax(dim=-1, keepdim=True)
             p = torch.exp(s - m)
             l = p.sum(dim=-1, keepdim=True)
@@ -100,6 +153,15 @@ def quantized_attention_reference(
     is_causal: bool = False,
     return_lse: bool = False,
     out_dtype=torch.bfloat16,
+    window: int | None = None,
+    q_segment_ids: torch.Tensor | None = None,
+    kv_segment_ids: torch.Tensor | None = None,
+    q_positions: torch.Tensor | None = None,
+    kv_positions: torch.Tensor | None = None,
+    attn_mask: torch.Tensor | None = None,
+    attn_bias: torch.Tensor | None = None,
+    q_kv_lo: torch.Tensor | None = None,
+    q_kv_hi: torch.Tensor | None = None,
 ):
     """Unfused spec of the fused kernel's arithmetic.
 
@@ -113,10 +175,23 @@ def quantized_attention_reference(
 
     The int8 product runs as an fp32 matmul of the codes, which is exact:
     |sum| <= 127^2 * d < 2^24 for d <= 1024.  P stays fp32 here, where the
-    kernel rounds it to bf16 before P.V."""
+    kernel rounds it to bf16 before P.V.
+
+    The masks are those of :func:`_build_mask`, with ``window`` and the
+    range form ``q_kv_lo``/``q_kv_hi`` [b, sq] (row attends [lo, hi)).
+    ``attn_bias`` follows the fused kernel (``attention_pallas.py:689-705``):
+    ``bias * log2(e)`` joins the dequantized base-2 scores, clamped below
+    at ``MASK_VALUE``.  (The JAX ``quantized_attention_reference`` takes no
+    bias: its XLA path runs a bias through exact attention.)  A row with no
+    live key, masked out or all ``-inf`` bias, gives o = 0 (no v_mean) and
+    lse2 = -inf, as the fused kernel does (``:750-777, 1187-1204``)."""
     b, hq, sq, d = q_i8.shape
     hkv, sk = k_i8.shape[1], k_i8.shape[2]
-    mask = _build_mask(sq, sk, is_causal=is_causal, device=q_i8.device)
+    mask = _build_mask(sq, sk, is_causal=is_causal, device=q_i8.device, window=window,
+                       q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+                       q_positions=q_positions, kv_positions=kv_positions,
+                       attn_mask=attn_mask, q_kv_lo=q_kv_lo, q_kv_hi=q_kv_hi)
+    bias = _as_4d(attn_bias)
     o = torch.empty(b, hq, sq, v.shape[-1], dtype=out_dtype, device=q_i8.device)
     lse2 = torch.empty(b, hq, sq, dtype=torch.float32, device=q_i8.device)
     for bi in range(b):
@@ -124,19 +199,26 @@ def quantized_attention_reference(
             hk = _kv_head(h, hq, hkv)
             s_i = q_i8[bi, h].float() @ k_i8[bi, hk].float().T
             s = s_i * q_scale[bi, h, :, None] * k_scale[bi, hk, None, :]
-            if mask is not None:
-                s = torch.where(mask, s, MASK_VALUE)
+            if bias is not None:
+                s = torch.clamp(s + _slab(bias, bi, h).float() * LOG2E, min=MASK_VALUE)
+            mk = _slab(mask, bi, h)
+            if mk is not None:
+                s = torch.where(mk, s, MASK_VALUE)
             m = s.amax(dim=-1, keepdim=True)
             p = torch.exp2(s - m)
+            if mk is not None:
+                p = torch.where(mk, p, 0.0)
+            if mk is not None or bias is not None:
+                p = torch.where(m > MASK_VALUE, p, 0.0)  # rows with no live key
             l = p.sum(dim=-1, keepdim=True)
             pv = p @ v[bi, hk].float()
             if v_scale is not None:
                 pv = pv * v_scale[bi, hk]
-            oh = pv / l
+            oh = torch.where(l > 0, pv / l, 0.0)
             if v_mean is not None:
-                oh = oh + v_mean[bi, hk]
+                oh = oh + torch.where(l > 0, v_mean[bi, hk], 0.0)
             o[bi, h] = oh.to(out_dtype)
-            lse2[bi, h] = (torch.log2(l) + m)[:, 0]
+            lse2[bi, h] = torch.where(l > 0, torch.log2(l) + m, -torch.inf)[:, 0]
     return (o, lse2) if return_lse else o
 
 
@@ -154,6 +236,7 @@ def quantized_attention_bwd_reference(
     *,
     is_causal: bool,
     sm_scale: float,
+    window: int | None = None,
 ):
     """Unfused spec of the backward kernels: returns (dq, dk, dv) in fp32.
 
@@ -172,10 +255,10 @@ def quantized_attention_bwd_reference(
     TPU kernels put them (``attention_bwd_pallas.py`` ``ds.astype`` and
     ``pt.astype``); products of bf16 values are exact in fp32 and every sum
     is fp32.  ``k_sm=None`` skips dQ and ``q_bf=None`` skips dK (returned
-    as None)."""
+    as None).  ``window`` (with ``is_causal``) masks as the forward does."""
     b, hq, sq, _ = q_i8.shape
     hkv, sk = k_i8.shape[1], k_i8.shape[2]
-    mask = _build_mask(sq, sk, is_causal=is_causal, device=q_i8.device)
+    mask = _build_mask(sq, sk, is_causal=is_causal, device=q_i8.device, window=window)
     f32 = dict(dtype=torch.float32, device=q_i8.device)
     dq = torch.zeros(q_i8.shape, **f32) if k_sm is not None else None
     dk = torch.zeros(k_i8.shape, **f32) if q_bf is not None else None

@@ -20,6 +20,11 @@
   the forward's V codes, scales and mean, at the bf16 tolerances.
 * NHD gives HND's gradients, and the backward reuses the forward's K codes
   and V codes: it quantizes Q once and K and V never.
+* A sliding window: the plain backward with the band against
+  ``sage_attention_bwd(window=W, interpret=True)``, and ``sageattn``'s
+  gradients against ``quantized_attention_vjp(window=W, interpret=True)``
+  fed the windowed forward of ``_sageattn_hnd(impl="xla")``, at the
+  tolerances above (multiples of 128, as the JAX fused backward takes).
 """
 
 import jax
@@ -130,7 +135,8 @@ def test_plain_backward_matches_pallas(name):
 V_CODES = {"int8": jnp.int8, "fp8": jnp.float8_e4m3fn, "fp8_e5m2": jnp.float8_e5m2}
 
 
-def _jax_fused_vjp(q, k, v, do, *, causal, dlse=None, pv_dtype="bf16", smooth_v=False):
+def _jax_fused_vjp(q, k, v, do, *, causal, dlse=None, pv_dtype="bf16", smooth_v=False,
+                   window=None):
     """The JAX fused backward on the forward of ``_sageattn_hnd(impl="xla")``
     with that forward's K quantization and, for V codes, its V quantization
     as residuals."""
@@ -139,7 +145,7 @@ def _jax_fused_vjp(q, k, v, do, *, causal, dlse=None, pv_dtype="bf16", smooth_v=
         jq, jk, jv, None, None, None, None, None, None,
         impl="xla", chunk_k=G, qk_quant_gran="auto", pv_dtype=pv_dtype, smooth_k=True,
         smooth_v=smooth_v, return_lse=True, is_causal=causal, sm_scale=None,
-        block_q=128, block_k=128)
+        block_q=128, block_k=128, window=window)
     km = jnp.mean(jk, axis=-2)
     k_i8, k_scale = jquant.quant_int8_block_scales(jk - km[..., None, :], group=G)
     fwd_res = {"k_i8": k_i8, "k_scale": k_scale, "km": km}
@@ -150,7 +156,7 @@ def _jax_fused_vjp(q, k, v, do, *, causal, dlse=None, pv_dtype="bf16", smooth_v=
     return attention_bwd_pallas.quantized_attention_vjp(
         jq, jk, jv, jnp.asarray(do), is_causal=causal, sm_scale=None, o=o, lse_nat=lse,
         dlse=None if dlse is None else jnp.asarray(dlse), pv_dtype=pv_dtype,
-        smooth_v=smooth_v, fwd_res=fwd_res, interpret=True)
+        smooth_v=smooth_v, fwd_res=fwd_res, window=window, interpret=True)
 
 
 @pytest.mark.parametrize("with_dlse", [False, True])
@@ -312,3 +318,74 @@ def test_bwd_wrappers_refuse_devices_they_have_no_kernel_for():
                                                   is_causal=False, sm_scale=0.125)
     with pytest.raises(ValueError):
         quant_cuda.quant_q_per_token(m(1, 1, 128, 64), scale_fold=1.0)
+
+
+WINDOW_CASES = {
+    # name: (b, hq, hkv, s, d, window)
+    "gqa_w100": (1, 4, 2, 256, 64, 100),
+    "d128_w128": (1, 2, 2, 256, 128, 128),
+    # (window 1 leaves one key a row: dS and dK are round-off around 0)
+    "w2_b2": (2, 2, 1, 128, 64, 2),
+    "w_past_the_sequence": (1, 2, 2, 128, 64, 500),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WINDOW_CASES))
+def test_plain_backward_window_matches_pallas(name):
+    b, hq, hkv, s, d, window = WINDOW_CASES[name]
+    q, k, v, do = _qkv_do(b, hq, hkv, s, s, d, seed=100 + len(name))
+    sm = d**-0.5
+    km = jnp.mean(jnp.asarray(k), axis=-2)
+    k_sm = jnp.asarray(k) - km[..., None, :]
+    q_i8, q_scale = jquant.quant_int8(jnp.asarray(q), granularity="per_token",
+                                      scale_fold=sm * LOG2E)
+    k_i8, k_scale = jquant.quant_int8_block_scales(k_sm, group=G)
+    v_bf, k_bf, q_bf = (jnp.asarray(x).astype(jnp.bfloat16) for x in (v, k_sm, q))
+    o, lse2 = attention_pallas.sage_attention_fused(
+        q_i8, q_scale, k_i8, k_scale, v_bf, is_causal=True, pv_dtype="bf16", window=window,
+        return_lse=True, block_q=128, block_k=128, chunk_k=G, interpret=True)
+    want = attention_bwd_pallas.sage_attention_bwd(
+        q_i8, q_scale, k_i8, k_scale, k_bf, q_bf, v_bf, o, lse2, jnp.asarray(do),
+        is_causal=True, sm_scale=sm, block_q=128, block_k=128, chunk_k=G,
+        scale_group=G, window=window, interpret=True)
+    o_t, do_t = _t(np.asarray(o.astype(jnp.float32))), _t(do)
+    ops = dict(q_i8=torch.from_numpy(np.asarray(q_i8)), q_scale=_t(q_scale),
+               k_i8=torch.from_numpy(np.asarray(k_i8)), k_scale=_t(k_scale), v=_bf16_t(v_bf),
+               do=do_t.to(torch.bfloat16), lse2=_t(lse2), dvec=(do_t * o_t).sum(-1))
+    kw = dict(is_causal=True, sm_scale=sm, window=window)
+    dq = attention_bwd_cuda.sage_attention_bwd_dq(k_sm=_bf16_t(k_bf), **ops, **kw)
+    dk, dv = attention_bwd_cuda.sage_attention_bwd_dkv(q_bf=_bf16_t(q_bf), **ops, **kw)
+    _assert_close_grads((dq, dk, dv), want, cos_min=0.99999, rel_max=1e-3)
+
+
+@pytest.mark.parametrize("with_dlse", [False, True])
+@pytest.mark.parametrize("name", ["gqa_w100", "d128_w128"])
+def test_window_grads_match_jax_fused_vjp(name, with_dlse):
+    b, hq, hkv, s, d, window = WINDOW_CASES[name]
+    q, k, v, do = _qkv_do(b, hq, hkv, s, s, d, seed=120 + len(name))
+    dlse = _rand(9, (b, hq, s)) if with_dlse else None
+    want = _jax_fused_vjp(q, k, v, do, causal=True, dlse=dlse, window=window)
+    assert want is not None
+    qt, kt, vt = (_t(x, True) for x in (q, k, v))
+    out = sageattn(qt, kt, vt, is_causal=True, window=window, return_lse=with_dlse)
+    loss = (out[0] * _t(do)).sum() + (out[1] * _t(dlse)).sum() if with_dlse \
+        else (out * _t(do)).sum()
+    got = torch.autograd.grad(loss, (qt, kt, vt))
+    _assert_close_grads(got, want, cos_min=0.99999, rel_max=2e-3)
+
+
+def test_window_backward_refusals():
+    """The window band needs causal and window >= 1 in the wrappers too."""
+    x = torch.zeros(1, 1, 128, 64)
+    i8, s1 = torch.zeros(1, 1, 128, 64, dtype=torch.int8), torch.zeros(1, 1, 1)
+    row = torch.zeros(1, 1, 128)
+    bf = x.to(torch.bfloat16)
+    for causal, window in ((False, 8), (True, 0)):
+        with pytest.raises(ValueError, match="window"):
+            attention_bwd_cuda.sage_attention_bwd_dq(i8, row, i8, s1, bf, bf, bf, row, row,
+                                                     is_causal=causal, sm_scale=0.125,
+                                                     window=window)
+        with pytest.raises(ValueError, match="window"):
+            attention_bwd_cuda.sage_attention_bwd_dkv(i8, row, bf, i8, s1, bf, bf, row, row,
+                                                      is_causal=causal, sm_scale=0.125,
+                                                      window=window)

@@ -168,23 +168,36 @@ def test_sageattn_close_to_exact_attention(causal):
 
 
 @pytest.mark.parametrize(
-    "kwargs",
+    "kwargs,grad,exc,match",
     [
-        {"smooth_q": True},
-        {"attn_mask": torch.ones(128, 128, dtype=torch.bool)},
-        {"attn_bias": torch.zeros(128, 128)},
-        {"q_segment_ids": torch.zeros(1, 128, dtype=torch.int32)},
-        {"q_positions": torch.arange(128)[None]},
-        {"window": 16},
-        {"qk_bits": 4},
-        {"qk_quant_gran": "per_block"},
+        ({"smooth_q": True}, False, NotImplementedError, "ROADMAP"),
+        # the masks are ported (tests/test_torch_masks.py); what still raises:
+        # a bool mask or an additive bias under grad, a lone side of a pair,
+        # a window without causal or below 1
+        ({"attn_mask": torch.ones(128, 128, dtype=torch.bool)}, True, NotImplementedError,
+         "no gradient"),
+        ({"attn_bias": torch.zeros(128, 128)}, True, NotImplementedError, "ROADMAP"),
+        ({"q_segment_ids": torch.zeros(1, 128, dtype=torch.int32)}, False, ValueError,
+         "together"),
+        ({"kv_segment_ids": torch.zeros(1, 128, dtype=torch.int32)}, False, ValueError,
+         "together"),
+        ({"q_positions": torch.arange(128)[None]}, False, ValueError, "together"),
+        ({"kv_positions": torch.arange(128)[None]}, False, ValueError, "together"),
+        ({"window": 16}, False, ValueError, "is_causal"),
+        ({"window": 0, "is_causal": True}, False, ValueError, ">= 1"),
+        ({"qk_bits": 4}, False, NotImplementedError, "ROADMAP"),
+        ({"qk_quant_gran": "per_block"}, False, NotImplementedError, "ROADMAP"),
     ],
-    ids=lambda kw: next(iter(kw)),
+    ids=["smooth_q", "attn_mask", "attn_bias", "q_segment_ids", "kv_segment_ids",
+         "q_positions", "kv_positions", "window", "window_below_1", "qk_bits",
+         "qk_quant_gran"],
 )
-def test_unsupported_options_raise(kwargs):
+def test_unsupported_options_raise(kwargs, grad, exc, match):
     x = torch.zeros(1, 1, 128, 64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sageattn(x, x, x, **kwargs)
+    kwargs = dict(kwargs)
+    causal = kwargs.pop("is_causal", False)
+    with pytest.raises(exc, match=match):
+        sageattn(x.clone().requires_grad_(grad), x, x, is_causal=causal, **kwargs)
 
 
 def test_gradients_and_large_head_dims_raise():

@@ -6,7 +6,8 @@ of 32, vocab 128) is initialised in flax, carried across with
 ``llm_params_from_jax``, and both run a prompt and 3 teacher-forced decode
 steps over the dense int8, the paged int8 (a scrambled table of 16-token
 pages) and the dense int4 cache; the windowed model prefills in extend
-blocks through the decode kernels.  The JAX prefill attention is the
+blocks through the decode kernels, or in one shot through the windowed
+attention (the masked forward).  The JAX prefill attention is the
 ``"reference"`` backend, or a test-side backend on
 ``core._sageattn_hnd(impl="xla", chunk_k=128)`` (``core._entry`` raises at
 this revision) against the port's ``"sage"``; the JAX decode runs the
@@ -39,12 +40,12 @@ from sageattention_tpu_torch.utils.compare import cosine_similarity
 PROMPT, STEPS, PAGE, MAX_LEN = 16, 3, 16, 64
 
 
-def _xla_sage(q, k, v, *, is_causal, sm_scale, **kw):
+def _xla_sage(q, k, v, *, is_causal, sm_scale, window=None):
     return jcore._sageattn_hnd(
         q, k, v, None, None, None, None, None, None,
         impl="xla", chunk_k=128, qk_quant_gran="auto", pv_dtype="bf16",
         smooth_k=True, smooth_v=False, return_lse=False, is_causal=is_causal,
-        sm_scale=sm_scale, block_q=128, block_k=128,
+        sm_scale=sm_scale, block_q=128, block_k=128, window=window,
     )
 
 
@@ -146,14 +147,26 @@ def test_full_prefill_without_cache_matches_flax():
         _close(tm(torch.tensor(toks)), jm.apply(params, jnp.array(toks)))
 
 
+@pytest.mark.parametrize("cache", ["dense", "paged"])
+def test_windowed_one_shot_prefill_matches_flax(cache):
+    """A sliding window of 8 over a 16-token prompt in one prefill through
+    the windowed attention ("sage": the masked forward with ``window``),
+    then decode steps through the windowed decode kernels."""
+    jm, params, tm, toks = _pair(window=8)
+    jmodels.set_attention_backend("torch_port_xla_sage_llm")
+    models.set_attention_backend("sage")
+    _run(jm, params, tm, toks, cache=cache, bits=8)
+
+
 def test_refusals():
+    """What the model refuses: decoding without caches."""
     _, _, tm, toks = _pair(window=8)
     models.set_attention_backend("sage")
     with torch.inference_mode():
-        with pytest.raises(NotImplementedError, match=r"kernel row 1 slice \(f\)"):
-            tm(torch.tensor(toks))
         with pytest.raises(ValueError, match="decode=True requires caches"):
             tm(torch.tensor(toks[:, :1]), decode=True)
+        # the windowed model's one-shot forward without caches runs
+        assert torch.isfinite(tm(torch.tensor(toks))).all()
 
 
 def test_generate_on_cpu():
