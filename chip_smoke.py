@@ -24,7 +24,16 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    positions, each against its plain version, against exact attention on
    the live rows, and with dead rows exactly 0 and LSE -inf; and the
    windowed backward (window 1024) against its plain version and exact
-   attention's gradients;
+   attention's gradients; the Q/K options: kernels 3 and 4 at 4
+   bits bit-exact with their plain versions at the CogVideoX-2B layer, and
+   the pre-quantized forward for per_token, per_subtile, per_block,
+   smooth_q, int4 and int4 + smooth_q, bf16 and e4m3 V, at the CogVideoX-2B
+   and Wan2.1 layers, the llm-8b-gqa layer (causal, GQA) and varlen's
+   four prompts; the accuracy sweep of ``bench/bench_accuracy.py``'s 11
+   configurations (copied here) on its "normal" and "biased" inputs at
+   both DiT layer shapes against exact attention (held at 0.999 for 8
+   bits, 0.97 for int4 on "normal" and int4 + smooth_q on both; int4 alone
+   on "biased" is printed); the decode kernels at head dim 96 too;
 3. the servers, each answering 2 requests x 2 denoise steps with seeded
    random weights at full width and depth 30; the launch counts of every
    kernel are zeroed just before and read just after, and those of the
@@ -37,6 +46,12 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    c. Wan2.1-T2V-1.3B (seq 33,272, hidden 1536, 12 heads x 128), backend
       "sage_fp8", whose 8.5 MB V slabs take the two-pass V quantizer, and
       two more steps with "sage" for the bf16 step time;
+   d. CogVideoX-2B through ``SageAttnProcessor`` kwargs:
+      ``server_subtile_fp8``, "sage_fp8" with ``qk_quant_gran="per_subtile"``
+      (kernel 5 and the pre-quantized forward, no K kernel), and
+      ``server_int4_sq``, "sage" with ``qk_bits=4, smooth_q=True`` (kernels
+      4, 2-3 at 4 bits and the pre-quantized forward); eps floors 0.999
+      and 0.97;
 4. the trainer: CogVideoX-2B at full width and depth 8 (fp32
    parameters, bf16 compute, AdamW), one warm-up step and 4 timed steps
    on one fixed batch and (t, eps); the counts are zeroed just before the
@@ -44,7 +59,8 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    x steps times; the loss must be finite and fall; the parameter
    gradients with "sage" and with "sage_fp8" are checked against exact
    attention's at depth 2 and a sequence of 4,276, and the fp8 backward
-   must launch no V quantizer;
+   must launch no V quantizer; with ``smooth_q`` (the exact-recompute
+   backward) the gradients too, and its backward launches no kernel;
 5. the llm-8b-gqa decode servers at full width and depth 32 (fp32
    weights, 32 GB), a prefill and 32 greedy decode steps each, timed with
    CUDA events; the counts are zeroed before each phase and read after it
@@ -68,7 +84,10 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    and extend shapes, with the L2 flushed before each call; the masked
    forward at the windowed prefill's layer and at the varlen shape, with
    bounds from the live (row, col) pairs and SDPA with the same bool mask
-   as the library time, and the windowed dQ and dKV.
+   as the library time, and the windowed dQ and dKV; the pre-quantized
+   forward for each Q/K option at both DiT layers beside the default
+   forward and SDPA, the PyTorch ``quantize_qk`` and smooth_q preparation,
+   and kernels 3 and 4 at 4 bits.
 
 It prints one ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside the
@@ -181,11 +200,11 @@ def resource_usage() -> None:
                 fn = m.group(1)
                 continue
             m = re.search(r"REG:(\d+) STACK:(\d+)", line)
-            k = re.search(r"\d((?:sage_|quant|channel)[a-z_]*_kernel)I", fn or "")
+            k = re.search(r"\d((?:sage_|quant|channel)[a-z_]*_kernel(?:_3blocks)?)I", fn or "")
             if m and k:
                 targs = [a or b for a, b in re.findall(r"Li(\d+)E|Lb(\d)E", fn)]
                 dtype = " bf16" if "nv_bfloat16" in fn else ""
-                log(f"resources {k.group(1)}<{','.join(targs)}>{dtype}: {m.group(1)} "
+                log(f"resources {lib} {k.group(1)}<{','.join(targs)}>{dtype}: {m.group(1)} "
                     f"registers, {m.group(2)} bytes of stack")
 
 
@@ -808,6 +827,229 @@ def check_window_backward(gen, results) -> dict:
     return {"shape": [b, hq, hkv, s, d], "window": w, "grad_cos_vs_exact": coss}
 
 
+# --------------------------------------------------------------------------
+# the Q/K options: kernel 1's slices (h), (i), (k) and kernels 2-4 at 4 bits
+# --------------------------------------------------------------------------
+
+# name -> sageattn's options, each a path through the pre-quantized forward
+QOPTS = {
+    "per_token": dict(qk_quant_gran="per_token"),
+    "per_subtile": dict(qk_quant_gran="per_subtile"),
+    "per_block": dict(qk_quant_gran="per_block"),
+    "smooth_q": dict(smooth_q=True),
+    "int4": dict(qk_bits=4),
+    "int4+smooth_q": dict(qk_bits=4, smooth_q=True),
+}
+# bench/bench_accuracy.py's configurations of the JAX package, copied
+SWEEP = [
+    ("int8 default (smooth_k)", dict()),
+    ("int8 + smooth_q", dict(smooth_q=True)),
+    ("int8 + smooth_v", dict(smooth_v=True)),
+    ("int8 no smoothing", dict(smooth_k=False)),
+    ("bf16 PV", dict(pv_dtype="bf16")),
+    ("fp8 PV", dict(pv_dtype="fp8")),
+    ("per-token gran", dict(qk_quant_gran="per_token")),
+    ("per-subtile gran", dict(qk_quant_gran="per_subtile")),
+    ("per-block gran", dict(qk_quant_gran="per_block")),
+    ("int4 QK", dict(qk_bits=4)),
+    ("int4 QK + smooth_q", dict(qk_bits=4, smooth_q=True)),
+]
+# the sweep's floors against exact attention: 0.999 for 8 bits (the verify
+# skill's); 0.97 for int4, the int4 KV cache's floor, on "normal" inputs and
+# with smooth_q on both.  int4 without smooth_q on "biased" inputs is
+# printed, not held: the JAX arithmetic itself gives 0.86-0.93 there
+# (XLA path on the CPU, (1, 2, 2048, 64/128)).
+SWEEP_FLOOR = {8: 0.999, 4: 0.97}
+# bf16 V with smooth_v on bf16 inputs: V - mean is cast back to bf16
+# (``core.py:378-380`` of the JAX package), and where the channel mean is
+# under half a bf16 step of v the cast gives v back, so the epilogue adds
+# the mean to an uncentred V; the error grows with the length as the
+# output shrinks.  That is the JAX arithmetic (tests/test_torch_core.py
+# holds the port to it); this sweep measured it at 0.99871 (CogVideoX-2B)
+# and 0.99783 (Wan2.1) on an H100.  Held at 0.997.
+SWEEP_FLOOR_BY_CONFIG = {"int8 + smooth_v": 0.997}
+
+
+def biased_qk(gen, shape, offset: float = 0.5):
+    """bf16 q, k, v [b, h, s, d] with per-channel offsets on Q and K, the
+    regime smooth_q and smooth_k exist for."""
+    import torch
+
+    b, h, s, d = shape
+    q, k, v = (torch.randn(b, h, s, d, generator=gen, device="cuda") for _ in range(3))
+    q = q + torch.randn(1, 1, 1, d, generator=gen, device="cuda") * offset
+    k = k + torch.randn(1, 1, 1, d, generator=gen, device="cuda") * offset
+    return q.to(torch.bfloat16), k.to(torch.bfloat16), v.to(torch.bfloat16)
+
+
+def check_quant_4bit(gen, results):
+    """Kernels 2-4 at bits=4 against their plain versions at the
+    CogVideoX-2B layer: kernel 3 fed the plain km bit-exact; the whole K
+    prologue (kernel 2's own km) within one code step on at most 1e-4 of
+    the entries; kernel 4 bit-exact on Q and on smooth_q's centred Q."""
+    import torch
+    from sageattention_tpu_torch import core
+    from sageattention_tpu_torch.ops import quant_cuda
+
+    q, k, _ = biased_qk(gen, tuple(COG.values()), offset=3.0)
+    km_ref = quant_cuda.k_channel_mean_plain(k)
+    ki, ks = quant_cuda.quant_k_chunked(k, km_ref, group=128, bits=4)
+    ki_p, ks_p = quant_cuda.quant_k_chunked_plain(k, km_ref, group=128, bits=4)
+    kf, _, _ = quant_cuda.quant_k_fused_mean(k, group=128, bits=4)
+    torch.cuda.synchronize()
+    exact = torch.equal(ki, ki_p) and torch.equal(ks, ks_p)
+    diff = (kf.int() - ki_p.int()).abs()
+    frac = (diff > 0).float().mean().item()
+    log(f"quant_k 4 bits {tuple(k.shape)}: chunked bit-exact {exact}, codes in +-"
+        f"{ki.abs().max().item()}; fused codes off {frac:.2e} (max {diff.max().item()})")
+    require(exact and ki.abs().max().item() == 7, "quant_k_chunked at 4 bits is not the spec")
+    require(diff.max().item() <= 1 and frac <= 1e-4, "quant_k at 4 bits: codes disagree")
+    results["quant_k_chunked"]["bits4"] = {"max_abs_err": 0.0}
+    fold = COG["d"] ** -0.5 * LOG2E
+    for name, x in (("q", q), ("smooth_q's q - qm", core._smooth_q(q)[1])):
+        qi, qs = quant_cuda.quant_q_per_token(x, scale_fold=fold, bits=4)
+        qi_p, qs_p = quant_cuda.quant_q_per_token_plain(x, scale_fold=fold, bits=4)
+        torch.cuda.synchronize()
+        exact = torch.equal(qi, qi_p) and torch.equal(qs, qs_p)
+        log(f"quant_q_per_token 4 bits on {name} {tuple(x.shape)}: bit-exact {exact}")
+        require(exact, f"quant_q_per_token at 4 bits is not bit-exact with the spec ({name})")
+    results["quant_q_per_token"]["bits4"] = {"max_abs_err": 0.0}
+
+
+def preq_operands(q, k, opts: dict):
+    """The pre-quantized kernel's Q and K operands as ``sageattn`` builds
+    them from bf16 q, k: (q_i8, q_scale, k_i8, k_scale, col_bias)."""
+    import torch
+    from sageattention_tpu_torch import core
+
+    d = q.shape[-1]
+    q_i8, q_sc, k_i8, k_sc, _, cb = core._quant_qk(
+        q, k, core.QKOptions(**opts), work=torch.bfloat16, d_pad=core._pad_head_dim(d),
+        sm_scale=d**-0.5, smooth_k=True)
+    return q_i8, q_sc, k_i8, k_sc, cb
+
+
+def compare_preq(name, q, k, v, opts, causal, hs, results, masks=None) -> None:
+    """The pre-quantized kernel against its plain version on the query
+    heads ``hs``, with bf16 V and with e4m3 V codes: o cosine >= 0.9999
+    and max-abs <= 2e-2, lse2 <= 1e-3 (PERF.md section 2's limits)."""
+    import torch
+    from sageattention_tpu_torch.ops import attention_cuda, quant_cuda
+    from sageattention_tpu_torch.utils.compare import cosine_similarity
+
+    hq, hkv = q.shape[1], k.shape[1]
+    kvs = [h // (hq // hkv) for h in hs]
+    q_i8, q_sc, k_i8, k_sc, cb = preq_operands(q, k, opts)
+
+    def sel(x, idx):
+        return x[:, idx].contiguous() if x is not None else None
+
+    v8, v8_sc, _ = quant_cuda.quant_v_per_channel(v, dtype=torch.float8_e4m3fn)
+    for vname, vx, vs in (("bf16", v, None), ("e4m3", v8, v8_sc)):
+        o, l2 = attention_cuda.sage_attention_fwd_preq(
+            q_i8, q_sc, k_i8, k_sc, vx, vs, is_causal=causal, return_lse=True, col_bias=cb,
+            masks=masks)
+        o_p, l2_p = attention_cuda.sage_attention_preq_plain(
+            sel(q_i8, hs), sel(q_sc, hs), sel(k_i8, kvs), sel(k_sc, kvs), sel(vx, kvs),
+            sel(vs, kvs), is_causal=causal, return_lse=True, col_bias=sel(cb, hs),
+            masks=heads_of(masks, hs) if masks is not None else None)
+        torch.cuda.synchronize()
+        o_k, l2_k = o[:, hs].float(), l2[:, hs]
+        live = torch.isfinite(l2_p)
+        cos = cosine_similarity(o_k.cpu(), o_p.float().cpu())
+        err = (o_k - o_p.float()).abs().max().item()
+        lerr = (l2_k[live] - l2_p[live]).abs().max().item()
+        finite = bool(torch.isfinite(o).all())
+        log(f"preq attention {name} {opts} causal={causal} V {vname}: cos {cos:.6f}, max abs "
+            f"{err:.3e}, lse2 max abs {lerr:.3e} (heads {list(hs)}); finite {finite}")
+        require(finite and cos >= 0.9999 and err <= 2e-2 and lerr <= 1e-3,
+                f"preq attention {name} {opts} V {vname} disagrees with its plain version")
+        r = results["sage_attn_fwd_preq"]
+        r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
+
+
+def check_preq(gen, results) -> None:
+    """The pre-quantized forward against its plain version for every option,
+    bf16 and e4m3 V: at the CogVideoX-2B and Wan2.1 layers (non-causal), at
+    the llm-8b-gqa layer (32/8 heads, causal, 4096 tokens: smooth_q's
+    column bias differs between the query heads of a KV group) and over
+    varlen's four packed prompts (the masked instances)."""
+    import torch
+
+    cases = [
+        ("cogvideox layer", tuple(COG.values()), COG["h"], False, (0, 15, 29)),
+        ("wan layer", tuple(WAN.values()), WAN["h"], False, (0, 6, 11)),
+        ("llm layer", (1, LLM_LAYER["hq"], 4096, LLM_LAYER["d"]), LLM_LAYER["hkv"], True,
+         (0, 13, 31)),
+    ]
+    for name, (b, hq, s, d), hkv, causal, hs in cases:
+        q, _, _ = biased_qk(gen, (b, hq, s, d))
+        _, k, v = biased_qk(gen, (b, hkv, s, d))
+        for opts in QOPTS.values():
+            compare_preq(name, q, k, v, opts, causal, hs, results)
+        del q, k, v
+    s = sum(VARLEN_LENS)
+    q, _, _ = biased_qk(gen, (1, LLM_LAYER["hq"], s, LLM_LAYER["d"]))
+    _, k, v = biased_qk(gen, (1, LLM_LAYER["hkv"], s, LLM_LAYER["d"]))
+    _, _, masks = varlen_masks()
+    for opts in QOPTS.values():
+        compare_preq(f"varlen {VARLEN_LENS}", q, k, v, opts, True, (0, 13, 31), results,
+                     masks=masks)
+    del q, k, v
+    torch.cuda.empty_cache()
+
+
+def sweep_inputs(gen, dist: str, shape):
+    """bench/bench_accuracy.py's inputs: standard normal q, k, v, and for
+    "biased" the channel means linspace(-5, 5) on Q and linspace(3, -3) on
+    K; bf16."""
+    import torch
+
+    b, h, s, d = shape
+    q, k, v = (torch.randn(b, h, s, d, generator=gen, device="cuda") for _ in range(3))
+    if dist == "biased":
+        q = q + torch.linspace(-5, 5, d, device="cuda")
+        k = k + torch.linspace(3, -3, d, device="cuda")
+    return q.to(torch.bfloat16), k.to(torch.bfloat16), v.to(torch.bfloat16)
+
+
+def accuracy_sweep(gen) -> dict:
+    """Every configuration of SWEEP at both DiT layer shapes, "normal" and
+    "biased" inputs, against exact fp32 attention: cosine and worst-row
+    cosine, and under "failed" each held row below its floor
+    (SWEEP_FLOOR, SWEEP_FLOOR_BY_CONFIG); ``main`` fails on those after the
+    other phases have run."""
+    import torch
+    from sageattention_tpu_torch import core
+    from sageattention_tpu_torch.ops import reference
+    from sageattention_tpu_torch.utils.compare import cosine_similarity
+
+    out = {"failed": []}
+    for lname, shape in (("cogvideox layer", tuple(COG.values())),
+                         ("wan layer", tuple(WAN.values()))):
+        for dist in ("normal", "biased"):
+            q, k, v = sweep_inputs(gen, dist, shape)
+            o_r = reference.attention_reference(q.float(), k.float(), v.float())
+            for cname, kw in SWEEP:
+                o = core.sageattn(q, k, v, **kw).float()
+                cos = cosine_similarity(o.cpu(), o_r.cpu())
+                a, r = o.reshape(-1, shape[-1]), o_r.reshape(-1, shape[-1])
+                row = ((a * r).sum(-1) / (a.norm(dim=-1) * r.norm(dim=-1)).clamp_min(1e-30))
+                worst = row.min().item()
+                bits = kw.get("qk_bits", 8)
+                held = bits == 8 or dist == "normal" or kw.get("smooth_q", False)
+                floor = SWEEP_FLOOR_BY_CONFIG.get(cname, SWEEP_FLOOR[bits]) if held else None
+                log(f"accuracy {lname} {dist} {cname}: cos {cos:.6f}, worst row {worst:.6f}"
+                    f"{f' (floor {floor})' if held else ' (printed, not held)'}")
+                row = f"{lname} {dist} {cname}"
+                if held and cos < floor:
+                    out["failed"].append(f"{row}: cosine {cos:.6f} below {floor}")
+                out[row] = {"cos": cos, "worst_row_cos": worst, "floor": floor}
+            del q, k, v, o_r
+            torch.cuda.empty_cache()
+    return out
+
+
 def random_cache(gen, lead, S, d, packed):
     """Seeded int8 (or packed) K/V codes and per-token scales on the card."""
     import torch
@@ -928,8 +1170,8 @@ def check_decode(gen, results):
                                                      return_state=True)
         compare_decode(f"paged {name} {tuple(ln)}", res, res_p, results, key)
 
-    # shapes off the LLM path that the kernels take: d 64, GQA 1 and 4,
-    # t_q 5 (20 rows, a padded 64-row tile), a 640-token chunk (a partial
+    # shapes off the LLM path that the kernels take: d 64 and 96, GQA 1 and
+    # 4, t_q 5 (20 rows, a padded 64-row tile), a 640-token chunk (a partial
     # 256-token slab), 48-token pages
     odd = [
         # name, hq, hkv, d, b, t_q, S, page, lengths, window, packed
@@ -938,6 +1180,10 @@ def check_decode(gen, results):
         ("d128 gqa4 t_q 5 page 48", 8, 2, 128, 2, 5, 960, 48, [900, 5], None, False),
         ("d64 gqa4 t_q 1 page 48 window 100 int4", 8, 2, 64, 2, 1, 960, 48, [901, 60], 100,
          True),
+        # head dim 96: computed at 128, the cache read at its own head dim
+        ("d96 gqa4 t_q 1", 8, 2, 96, 2, 1, 1024, None, [1000, 37], None, False),
+        ("d96 gqa4 t_q 4 int4", 8, 2, 96, 2, 4, 1024, None, [1000, 300], None, True),
+        ("d96 gqa4 t_q 1 page 48 window 100", 8, 2, 96, 2, 1, 960, 48, [901, 60], 100, False),
     ]
     for name, hq_, hkv_, d_, b, t_q, S, page, ln, window, packed in odd:
         cache = random_cache(gen, (b, hkv_), S, d_, packed)
@@ -1057,6 +1303,12 @@ def time_decode(gen, results):
 # --------------------------------------------------------------------------
 
 FORWARD = ("k_channel_mean", "quant_k_chunked", "sage_attn_fwd")
+# the Q/K options' servers: int4 + smooth_q runs kernel 4, kernels 2-3 at 4
+# bits and the pre-quantized forward; per_subtile quantizes Q and K in
+# PyTorch, so no K kernel, and with fp8 V kernel 5
+FORWARD_INT4_SQ = ("quant_q_per_token", "k_channel_mean", "quant_k_chunked",
+                   "sage_attn_fwd_preq")
+FORWARD_SUBTILE_FP8 = ("quant_v_per_channel", "sage_attn_fwd_preq")
 # the windowed one-shot prefill: kernels 2-3 and kernel 1's masked instantiation
 FORWARD_MASKED = ("k_channel_mean", "quant_k_chunked", "sage_attn_fwd_masked")
 BACKWARD = ("quant_q_per_token", "sage_attn_bwd_dq", "sage_attn_bwd_dkv")
@@ -1067,7 +1319,7 @@ MAIN_PATH = {**{n: "server" for n in FORWARD}, **{n: "train" for n in BACKWARD},
              "quant_v_apply": "server_wan", "sage_decode": "llm_dense",
              "sage_decode_window": "llm_window_dense", "sage_paged_decode": "llm_paged",
              "sage_paged_decode_window": "llm_window_paged",
-             "sage_attn_fwd_masked": "llm_window_dense"}
+             "sage_attn_fwd_masked": "llm_window_dense", "sage_attn_fwd_preq": "server_int4_sq"}
 
 
 def counters():
@@ -1078,6 +1330,7 @@ def counters():
             "quant_k_chunked": quant_cuda.quant_k_chunked,
             "sage_attn_fwd": attention_cuda.sage_attention_fwd,
             "sage_attn_fwd_masked": attention_cuda.sage_attention_fwd_masked,
+            "sage_attn_fwd_preq": attention_cuda.sage_attention_fwd_preq,
             "quant_q_per_token": quant_cuda.quant_q_per_token,
             "sage_attn_bwd_dq": attention_bwd_cuda.sage_attention_bwd_dq,
             "sage_attn_bwd_dkv": attention_bwd_cuda.sage_attention_bwd_dkv,
@@ -1160,14 +1413,26 @@ def profile_device(fn, out_name: str, what: str) -> dict:
     return out
 
 
+def set_processors(model, backend: str, kwargs: dict | None) -> None:
+    """Each block's attention through ``SageAttnProcessor(backend, kwargs)``,
+    or, with ``kwargs`` None, through the global backend."""
+    from sageattention_tpu_torch import models
+
+    proc = None if kwargs is None else models.SageAttnProcessor(backend=backend, kwargs=kwargs)
+    for blk in model.blocks:
+        blk.attn.processor = proc
+
+
 def run_server(results, profile: bool, *, model: str, backend: str, path: str,
-               launched: tuple, bf16_steps: int = 0) -> dict:
+               launched: tuple, bf16_steps: int = 0, kwargs: dict | None = None,
+               eps_floor: float = 0.999) -> dict:
     """One server cell: ``model`` at full width and depth 30 with
-    ``backend``, 2 requests x 2 denoise steps.  The kernels in
-    ``launched`` must run once a layer a step, every other kernel not at
-    all.  ``bf16_steps`` more steps are then timed with "sage" (bf16 V) on
-    the same model.  One step's eps is held against exact attention at
-    depth 2."""
+    ``backend`` (and with ``kwargs``, the options a ``SageAttnProcessor``
+    passes it), 2 requests x 2 denoise steps.  The kernels in ``launched``
+    must run once a layer a step, every other kernel not at all.
+    ``bf16_steps`` more steps are then timed with "sage" (bf16 V) on the
+    same model.  One step's eps is held against exact attention at depth
+    2, cosine >= ``eps_floor``."""
     import torch
     from sageattention_tpu_torch import models, serve
     from sageattention_tpu_torch.utils.compare import cosine_similarity
@@ -1175,9 +1440,11 @@ def run_server(results, profile: bool, *, model: str, backend: str, path: str,
     depth = SERVER_DEPTH
     cfg = models.MODEL_CONFIGS[model].scaled(depth=depth)
     log(f"server {path}: {cfg.name} seq {cfg.seq_len} hidden {cfg.hidden} heads "
-        f"{cfg.heads}x{cfg.head_dim} depth {cfg.depth} bf16, backend {backend!r}")
+        f"{cfg.heads}x{cfg.head_dim} depth {cfg.depth} bf16, backend {backend!r}"
+        f"{f', processor kwargs {kwargs}' if kwargs else ''}")
     t0 = time.perf_counter()
     model_ = serve.load_model(cfg, device="cuda", seed=0)
+    set_processors(model_, backend, kwargs)
     requests = serve.make_requests(cfg, 2, device="cuda", seed=1)
     models.set_attention_backend(backend)
     # warm-up step (allocator, cuBLAS), not counted
@@ -1206,8 +1473,8 @@ def run_server(results, profile: bool, *, model: str, backend: str, path: str,
     if profile:
         prof[backend] = profile_device(lambda: serve.denoise_step(model_, *requests[0], t),
                                        f"profile_step_{path}.json", f"one {path} step")
-    cell = {"model": model, "backend": backend, "depth": depth, "seq": cfg.seq_len,
-            "step_ms": ms, "median_step_ms": statistics.median(ms)}
+    cell = {"model": model, "backend": backend, "kwargs": kwargs, "depth": depth,
+            "seq": cfg.seq_len, "step_ms": ms, "median_step_ms": statistics.median(ms)}
     if bf16_steps:
         models.set_attention_backend("sage")
         ms16 = serve.serve(model_, requests[:1], bf16_steps)["step_ms"]
@@ -1226,14 +1493,16 @@ def run_server(results, profile: bool, *, model: str, backend: str, path: str,
     lat, txt = serve.make_requests(cfg2, 1, device="cuda", seed=3)[0]
     with torch.no_grad():
         models.set_attention_backend(backend)
+        set_processors(model2, backend, kwargs)
         eps_s = model2(lat, txt, t)
+        set_processors(model2, backend, None)
         models.set_attention_backend("reference")
         eps_r = model2(lat, txt, t)
         models.set_attention_backend("sage")
     cos = cosine_similarity(eps_s.float().cpu(), eps_r.float().cpu())
     log(f"server {path} eps, {backend!r} vs exact attention (depth 2, full width, seq "
         f"{cfg2.seq_len}): cos {cos:.6f}")
-    require(cos >= 0.999, f"server {path}: eps disagrees with exact attention")
+    require(cos >= eps_floor, f"server {path}: eps disagrees with exact attention")
     del model2
     torch.cuda.empty_cache()
     return {**cell, "eps_cosine_vs_exact": cos, "profile": prof or None}
@@ -1438,10 +1707,12 @@ def run_llm(results, profile: bool) -> dict:
 # --------------------------------------------------------------------------
 
 
-def grads_vs_exact(cfg, backend: str = "sage") -> dict:
-    """Parameter gradients of one flow-matching loss with ``backend``
-    against exact attention, same weights, batch and (t, eps); and the V
-    quantizers' launches in ``backend``'s forward and backward."""
+def grads_vs_exact(cfg, backend: str = "sage", kwargs: dict | None = None) -> dict:
+    """Parameter gradients of one flow-matching loss with ``backend`` (and
+    the options ``kwargs`` through a ``SageAttnProcessor``) against exact
+    attention, same weights, batch and (t, eps); the V quantizers'
+    launches in ``backend``'s forward and backward, and every kernel's in
+    its backward."""
     import torch
     from sageattention_tpu_torch import models, serve, train
     from sageattention_tpu_torch.utils.compare import cosine_similarity
@@ -1454,14 +1725,17 @@ def grads_vs_exact(cfg, backend: str = "sage") -> dict:
     grads = {}
     for name in (backend, "reference"):
         models.set_attention_backend(name)
+        set_processors(tr.model, name, kwargs if name == backend else None)
         tr.model.zero_grad(set_to_none=True)
         zero_counts()
         loss = train.flow_loss(tr.model, x0, txt, t, eps)
-        v_fwd = sum(read_counts()[n] for n in V_QUANT)
+        fwd = read_counts()
         loss.backward()
-        v_bwd = sum(read_counts()[n] for n in V_QUANT) - v_fwd
+        bwd = {n: c - fwd[n] for n, c in read_counts().items() if c != fwd[n]}
         if name == backend:
-            v_launches = {"forward": v_fwd, "backward": v_bwd}
+            v_launches = {"forward": sum(fwd[n] for n in V_QUANT),
+                          "backward": sum(bwd.get(n, 0) for n in V_QUANT)}
+            bwd_launches = bwd
         grads[name] = {n: p.grad.float().cpu() for n, p in tr.model.named_parameters()}
     models.set_attention_backend("sage")
     coss, worst = {}, 0.0
@@ -1478,10 +1752,10 @@ def grads_vs_exact(cfg, backend: str = "sage") -> dict:
     name_min = min(coss, key=coss.get)
     del tr
     torch.cuda.empty_cache()
-    return {"backend": backend, "seq": cfg.seq_len, "depth": cfg.depth,
+    return {"backend": backend, "kwargs": kwargs, "seq": cfg.seq_len, "depth": cfg.depth,
             "params": len(grads[backend]), "min_cosine": coss[name_min],
             "min_cosine_param": name_min, "k_norm_bias_over_weight": worst,
-            "v_quant_launches": v_launches}
+            "v_quant_launches": v_launches, "backward_launches": bwd_launches}
 
 
 def run_train(results, profile: bool) -> dict:
@@ -1544,6 +1818,16 @@ def run_train(results, profile: bool) -> dict:
         require(g["k_norm_bias_over_weight"] <= 1e-2, "k_norm.bias gradient is not negligible")
     require(gs["sage_fp8"]["v_quant_launches"] == {"forward": 2, "backward": 0},
             "the fp8 trainer must quantize V once a layer in the forward, never in the backward")
+    # smooth_q: the exact-recompute backward, which launches no kernel of
+    # this repo (its library call is SDPA's backward)
+    g = gs["sage+smooth_q"] = grads_vs_exact(cfg.scaled(depth=2, latent_frames=3), "sage",
+                                             kwargs={"smooth_q": True})
+    log(f"trainer grads, 'sage' with smooth_q (exact recompute) vs exact attention (depth "
+        f"{g['depth']}, seq {g['seq']}): min cosine {g['min_cosine']:.6f} "
+        f"({g['min_cosine_param']}); backward launches {g['backward_launches']}")
+    require(g["min_cosine"] >= 0.999, "trainer gradients with smooth_q disagree with exact")
+    require(g["k_norm_bias_over_weight"] <= 1e-2, "k_norm.bias gradient is not negligible")
+    require(g["backward_launches"] == {}, "the smooth_q backward launched a kernel of the repo")
     return {"depth": depth, "seq": cfg.seq_len, "params": n_params, "losses": losses,
             "step_ms": ms, "median_step_ms": statistics.median(ms), "peak_memory_gb": peak_gb,
             "grads_vs_exact": gs, "profile": prof}
@@ -1630,6 +1914,83 @@ def attention_times(gen, shape, v_types, plain: bool) -> dict:
         out["plain_ms"] = cuda_ms(lambda: attention_cuda.sage_attention_plain(
             q, k_i8, k_sc, v, is_causal=False, q_fold=fold, return_lse=False),
             reps=10, warmup=1)
+    return out
+
+
+def time_qopts(gen, results) -> dict:
+    """The pre-quantized forward for each Q/K option at the CogVideoX-2B and
+    Wan2.1 layers (non-causal, bf16 V), beside the default forward and SDPA
+    on the same inputs; its plain version at the CogVideoX-2B layer; the
+    PyTorch preparation (``quant.quantize_qk`` per_subtile, smooth_q's
+    centring and column bias) per layer; kernels 3 and 4 at 4 bits.  The
+    kernels line reports int4 + smooth_q, server_int4_sq's path."""
+    import torch
+    import torch.nn.functional as F
+    from sageattention_tpu_torch import core, quant
+    from sageattention_tpu_torch.ops import attention_cuda, quant_cuda
+
+    out = {}
+    for lname, shape in (("cogvideox layer", COG), ("wan layer", WAN)):
+        b, h, s, d = shape.values()
+        q, k, v = biased_qk(gen, (b, h, s, d))
+        sm = d**-0.5
+        k_i8, k_sc, km = quant_cuda.quant_k_fused_mean(k, group=128)
+        pairs = b * h * s * s
+        t_ops = (2 * pairs * d / PEAK_INT8_OPS_S + 2 * pairs * d / PEAK_BF16_FLOP_S) * 1e3
+        row = {"default_ms": cuda_ms(lambda: attention_cuda.sage_attention_fwd(
+                   q, k_i8, k_sc, v, is_causal=False, q_fold=sm * LOG2E), reps=20),
+               "sdpa_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), reps=20)}
+        for name, opts in QOPTS.items():
+            q_i8, q_sc, ki, ks, cb = preq_operands(q, k, opts)
+            ms = cuda_ms(lambda: attention_cuda.sage_attention_fwd_preq(
+                q_i8, q_sc, ki, ks, v, is_causal=False, col_bias=cb), reps=20)
+            moved = (q_i8.numel() + q_sc.numel() * 4 + ki.numel() + ks.numel() * 4
+                     + (cb.numel() * 4 if cb is not None else 0) + v.numel() * 2 + q.numel() * 2)
+            t_bytes = moved / PEAK_BYTES_S * 1e3
+            row[name] = {"ms": ms, "bound_ms": max(t_ops, t_bytes),
+                         "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+            log(f"time sage_attn_fwd_preq {name} at {(b, h, s, d)}: {ms:.4f} ms (bound "
+                f"{row[name]['bound_ms']:.4f} ms, {row[name]['bound_by']}; default forward "
+                f"{row['default_ms']:.4f} ms)")
+            if lname == "cogvideox layer" and name == "int4+smooth_q":
+                r = results["sage_attn_fwd_preq"]
+                r.update(ms=ms, bound_ms=row[name]["bound_ms"], bound_by=row[name]["bound_by"],
+                         library_ms=row["sdpa_ms"],
+                         plain_ms=cuda_ms(lambda: attention_cuda.sage_attention_preq_plain(
+                             q_i8, q_sc, ki, ks, v, is_causal=False, return_lse=False,
+                             col_bias=cb), reps=5, warmup=1))
+            del q_i8, q_sc, ki, ks, cb
+        qm, q_c = core._smooth_q(q)
+        row["quantize_qk_per_subtile_ms"] = cuda_ms(lambda: quant.quantize_qk(
+            q, k, sm_scale=sm, granularity="per_subtile"))
+        row["smooth_q_prep_ms"] = cuda_ms(lambda: (core._smooth_q(q), core._score_col_bias(
+            qm, k, km[..., :d], sm)))
+        log(f"time at {(b, h, s, d)}: quantize_qk per_subtile (PyTorch) "
+            f"{row['quantize_qk_per_subtile_ms']:.4f} ms; smooth_q's qm, centred Q and column "
+            f"bias (PyTorch) {row['smooth_q_prep_ms']:.4f} ms; SDPA {row['sdpa_ms']:.4f} ms")
+        out[lname] = row
+        if lname == "cogvideox layer":
+            # kernels 3 and 4 at 4 bits; bounds as at 8 bits (the same bytes)
+            fold = sm * LOG2E
+            r = results["quant_q_per_token"]["bits4"]
+            r.update(ms=cuda_ms(lambda: quant_cuda.quant_q_per_token(q_c, scale_fold=fold,
+                                                                     bits=4)),
+                     plain_ms=cuda_ms(lambda: quant_cuda.quant_q_per_token_plain(
+                         q_c, scale_fold=fold, bits=4)),
+                     bound_ms=(q.numel() * 3 + b * h * s * 4) / PEAK_BYTES_S * 1e3,
+                     bound_by="bytes", library_ms=None)
+            r = results["quant_k_chunked"]["bits4"]
+            r.update(ms=cuda_ms(lambda: quant_cuda.quant_k_chunked(k, km, group=128, bits=4)),
+                     plain_ms=cuda_ms(lambda: quant_cuda.quant_k_chunked_plain(
+                         k, km, group=128, bits=4)),
+                     bound_ms=(k.numel() * 3 + km.numel() * 4 + b * h * -(-s // 128) * 4)
+                     / PEAK_BYTES_S * 1e3, bound_by="bytes", library_ms=None)
+            for name in ("quant_q_per_token", "quant_k_chunked"):
+                r = results[name]["bits4"]
+                log(f"time {name} 4 bits at {(b, h, s, d)}: {r['ms']:.4f} ms (bound "
+                    f"{r['bound_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms")
+        del q, k, v, k_i8, k_sc, km, qm, q_c
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1904,6 +2265,8 @@ def main() -> int:
                           "replaces": "sageattention_tpu/ops/attention_pallas.py:1412"},
         "sage_attn_fwd_masked": {"route": "cuda", "source": src + "attention_fwd_masked.cu",
                                  "replaces": "sageattention_tpu/ops/attention_pallas.py:1412"},
+        "sage_attn_fwd_preq": {"route": "cuda", "source": src + "attention_fwd_preq.cu",
+                               "replaces": "sageattention_tpu/ops/attention_pallas.py:1412"},
         "quant_q_per_token": {"route": "cuda", "source": src + "quant_q.cu",
                               "replaces": "sageattention_tpu/ops/quant_pallas.py:76"},
         "sage_attn_bwd_dq": {"route": "cuda", "source": src + "attention_bwd.cu",
@@ -1936,6 +2299,11 @@ def main() -> int:
     check_backward(gen, results)
     masked = check_masked(gen, results)
     masked["window_backward"] = check_window_backward(gen, results)
+    t_q = time.perf_counter()
+    check_quant_4bit(gen, results)
+    check_preq(gen, results)
+    sweep = accuracy_sweep(gen)
+    log(f"Q/K option checks and accuracy sweep: {time.perf_counter() - t_q:.1f} s")
     check_decode(gen, results)
     log(f"kernel checks: {time.perf_counter() - t_phase:.1f} s")
     servers = {}
@@ -1948,6 +2316,16 @@ def main() -> int:
         servers[path] = run_server(results, args.profile, model=model, backend=backend,
                                    path=path, launched=launched, bf16_steps=bf16_steps)
         log(f"server phase {path}: {time.perf_counter() - t_phase:.1f} s")
+    # the Q/K options through SageAttnProcessor kwargs: upstream SageAttention's
+    # Hopper default (per-thread int8 Q.K^T, fp8 P.V) and SageAttention2's 4 bits
+    for path, backend, launched, kwargs, floor in (
+            ("server_subtile_fp8", "sage_fp8", FORWARD_SUBTILE_FP8,
+             {"qk_quant_gran": "per_subtile"}, 0.999),
+            ("server_int4_sq", "sage", FORWARD_INT4_SQ, {"qk_bits": 4, "smooth_q": True}, 0.97)):
+        t_phase = time.perf_counter()
+        servers[path] = run_server(results, args.profile, model="cogvideox-2b", backend=backend,
+                                   path=path, launched=launched, kwargs=kwargs, eps_floor=floor)
+        log(f"server phase {path}: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     trainer = run_train(results, args.profile)
     log(f"trainer phase: {time.perf_counter() - t_phase:.1f} s")
@@ -1958,6 +2336,7 @@ def main() -> int:
     layer = time_backward(gen, results)
     time_decode(gen, results)
     masked["times"] = time_masked(gen, results)
+    qopts_times = time_qopts(gen, results)
     log(f"timing phase: {time.perf_counter() - t_phase:.1f} s")
 
     kernels = []
@@ -1971,6 +2350,8 @@ def main() -> int:
     log(json.dumps({"train": trainer}))
     log(json.dumps({"layer": layer}))
     log(json.dumps({"masked": masked}))
+    log(json.dumps({"qopts": {"accuracy_sweep": sweep, "times": qopts_times}}))
+    require(not sweep["failed"], f"accuracy sweep: {sweep['failed']}")
     log(json.dumps({"kernels": kernels}))
     log(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -2,11 +2,12 @@
 hand-written CUDA kernels for NVIDIA Hopper (H100, sm_90a).
 
 The port of the JAX package ``sageattention_tpu``, which stays the
-reference.  Importing this package builds nothing and needs no GPU: the
+reference, with its top-level names (``speculative_verify`` is not ported
+yet).  Importing this package builds nothing and needs no GPU: the
 kernels are compiled with ``nvcc`` on their first use on a CUDA tensor.
 """
 
-from sageattention_tpu_torch import models
+from sageattention_tpu_torch import models, quant
 from sageattention_tpu_torch.core import (
     sageattn,
     sageattn_qk_int8_pv_bf16,
@@ -14,6 +15,37 @@ from sageattention_tpu_torch.core import (
     sageattn_qk_int8_pv_int8,
     sageattn_varlen,
 )
+from sageattention_tpu_torch.kvcache import (
+    PagedKVCache,
+    QuantKVCache,
+    append_kv,
+    calibrate,
+    init_kv_cache,
+    init_paged_kv_cache,
+    paged_append,
+    paged_prefill,
+    sageattn_decode,
+    sageattn_paged_decode,
+)
+from sageattention_tpu_torch.ops import reference
 
-__all__ = ["sageattn", "sageattn_qk_int8_pv_bf16", "sageattn_qk_int8_pv_int8",
-           "sageattn_qk_int8_pv_fp8", "sageattn_varlen", "models"]
+__all__ = [
+    "sageattn",
+    "sageattn_varlen",
+    "sageattn_qk_int8_pv_bf16",
+    "sageattn_qk_int8_pv_int8",
+    "sageattn_qk_int8_pv_fp8",
+    "quant",
+    "reference",
+    "QuantKVCache",
+    "PagedKVCache",
+    "init_kv_cache",
+    "init_paged_kv_cache",
+    "append_kv",
+    "paged_append",
+    "paged_prefill",
+    "calibrate",
+    "sageattn_decode",
+    "sageattn_paged_decode",
+    "models",
+]

@@ -14,6 +14,15 @@ goes through ``ops.autodiff.SageAttnFunction``, whose backward is the
 straight-through gradient of the quantized forward (the JAX package's
 fused backward), for q, k and v, and through the LSE with ``return_lse``.
 
+The Q/K quantization options of the JAX ``sageattn``: ``smooth_q`` (Q
+centred by its mean, the mean's product with the smoothed K added back as
+a column bias), ``qk_bits=4`` (+-7 Q and K codes) and ``qk_quant_gran`` =
+"per_token" / "per_subtile" / "per_block" (Q and K quantized in PyTorch
+with per-row scales).  These run the forward on pre-quantized operands
+(``attention_cuda.sage_attention_fwd_preq``) and are differentiated by
+exact recompute (``autodiff.RecomputeFunction``), as the JAX package
+differentiates every option outside its fused backward.
+
 Layouts HND ([b, h, s, d]) and NHD ([b, s, h, d]); GQA (hq a multiple of
 hkv); top-left causal masking; any sq / sk; ``return_lse`` gives the
 natural-log LSE with the smooth-k correction; ``pv_dtype`` bf16 / int8 /
@@ -30,9 +39,9 @@ bool ``attn_mask`` (True = attend), an additive ``attn_bias`` (a non-bool
 (with ``is_causal``).  A row with no live key gives o = 0 and LSE -inf.
 Under grad only ``window`` is differentiable; the others raise
 ``NotImplementedError``, as the JAX package has no gradient for them
-(the bias's is ROADMAP's next slice).  Every other option of the JAX
-``sageattn`` raises ``NotImplementedError`` naming the ROADMAP item that
-ports it.
+(the bias's is ROADMAP's next slice).  Head dims above 128 raise
+``NotImplementedError`` naming their ROADMAP item, and ``block_q`` /
+``block_k`` / ``impl`` too: the port picks its own launch configuration.
 """
 
 from __future__ import annotations
@@ -49,8 +58,8 @@ from sageattention_tpu_torch.ops.attention_cuda import Masks
 LOG2E = 1.4426950408889634
 K_GROUP = attention_cuda.K_GROUP
 
-# option -> ROADMAP item that lifts the restriction
-_LATER = {"smooth_q": "kernel row 1 slice (h), smooth_q"}
+# qk_quant_gran values: "auto" quantizes K per 128-row tile on the card
+_GRANULARITIES = ("auto", *quant.GRANULARITIES)
 
 
 def _to_hnd(x: torch.Tensor, layout: str) -> torch.Tensor:
@@ -81,7 +90,7 @@ class Forward(NamedTuple):
     o: torch.Tensor               # [b,hq,sq,d] in q's dtype
     lse2: torch.Tensor | None     # base-2 LSE [b,hq,sq] fp32, as the kernel gives it
     k_i8: torch.Tensor            # int8 K codes [b,hkv,sk,d_pad]
-    k_scale: torch.Tensor         # fp32 [b,hkv,ceil(sk/K_GROUP)]
+    k_scale: torch.Tensor         # fp32 [b,hkv,ceil(sk/K_GROUP)], or [b,hkv,sk] per row
     km: torch.Tensor | None       # fp32 [b,hkv,d_pad] smooth-k mean, or None
     v_q: torch.Tensor             # the V the kernel read [b,hkv,sk,d_pad]: bf16, or codes
     v_scale: torch.Tensor | None  # fp32 [b,hkv,d_pad] per-channel V scales (codes only)
@@ -159,11 +168,71 @@ def _masks(q, k, *, is_causal: bool, q_segment_ids=None, kv_segment_ids=None, q_
     return masks
 
 
+class QKOptions(NamedTuple):
+    """The Q/K quantization options of ``sageattn``; the defaults take the
+    default kernels."""
+
+    smooth_q: bool = False
+    qk_bits: int = 8
+    qk_quant_gran: str = "auto"
+
+    @property
+    def default(self) -> bool:
+        return not self.smooth_q and self.qk_bits == 8 and self.qk_quant_gran == "auto"
+
+
+def _smooth_q(q: torch.Tensor):
+    """smooth_q's (qm, q - qm): the Q mean over the sequence in fp32 [b,hq,d]
+    and the centred Q cast back to q's dtype (``core.py:276-277`` of the
+    JAX package), which is what is quantized."""
+    qm = q.float().mean(dim=-2)
+    return qm, (q.float() - qm[..., None, :]).to(q.dtype)
+
+
+def _score_col_bias(qm, k, km, sm_scale: float) -> torch.Tensor:
+    """smooth_q's column bias qm . (k - km) * sm_scale * log2(e), fp32
+    [b,hq,sk] (``core.py:279-292`` of the JAX package): a grouped einsum
+    under GQA, so that K is not repeated per query head."""
+    b, hq, d = qm.shape
+    hkv = k.shape[1]
+    k_c = k.float() if km is None else k.float() - km[..., None, :]
+    qm_g = qm.reshape(b, hkv, hq // hkv, d)
+    return torch.einsum("bhgd,bhsd->bhgs", qm_g, k_c).reshape(b, hq, -1) * sm_scale * LOG2E
+
+
+def _quant_qk(q, k, opts: QKOptions, *, work, d_pad: int, sm_scale: float, smooth_k: bool):
+    """The pre-quantized forward's Q and K operands (``core.py:270-347`` of
+    the JAX package): (q_i8, q_scale, k_i8, k_scale, km, col_bias), codes
+    at the padded head dim, km padded too.  ``smooth_q`` quantizes
+    ``q - qm``, cast back to q's dtype, and adds qm's column term back.
+    "auto" quantizes Q per row and K per 128-row tile in the kernels
+    (``quant_q_per_token``, ``k_channel_mean``, ``quant_k_chunked``), a
+    granularity both in PyTorch, K with per-row scales."""
+    bits, d_og = opts.qk_bits, q.shape[-1]
+    qm, q_in = _smooth_q(q) if opts.smooth_q else (None, q)
+    if opts.qk_quant_gran == "auto":
+        q_i8, q_scale = quant_cuda.quant_q_per_token(_pad_d(q_in.to(work), d_pad),
+                                                     scale_fold=sm_scale * LOG2E, bits=bits)
+        k_i8, k_scale, km = quant_cuda.quant_k_fused_mean(_pad_d(k.to(work), d_pad),
+                                                          group=K_GROUP, smooth=smooth_k,
+                                                          bits=bits)
+        km_og = km[..., :d_og] if km is not None else None
+    else:
+        q_i8, q_scale, k_i8, k_scale, km_og = quant.quantize_qk(
+            q_in, k, sm_scale=sm_scale, granularity=opts.qk_quant_gran, smooth_k=smooth_k,
+            bits=bits)
+        q_i8, k_i8 = _pad_d(q_i8, d_pad), _pad_d(k_i8, d_pad)
+        km = _pad_d(km_og, d_pad) if km_og is not None else None
+    col_bias = _score_col_bias(qm, k, km_og, sm_scale) if opts.smooth_q else None
+    return q_i8, q_scale, k_i8, k_scale, km, col_bias
+
+
 def _forward(q, k, v, *, is_causal: bool, sm_scale: float | None, smooth_k: bool,
              return_lse: bool, pv_dtype: str = "bf16", smooth_v: bool = False,
-             masks: Masks | None = None) -> Forward:
+             masks: Masks | None = None, opts: QKOptions = QKOptions()) -> Forward:
     """Quantize K and V, then one fused attention call (the masked kernel
-    when ``masks`` is given), on HND tensors."""
+    when ``masks`` is given), on HND tensors; with a Q/K option of
+    ``opts``, Q and K quantized first and the pre-quantized kernel."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(
             f"q, k, v must be [b,h,s,d] with v shaped like k; got "
@@ -182,9 +251,18 @@ def _forward(q, k, v, *, is_causal: bool, sm_scale: float | None, smooth_k: bool
         )
     work = _work_dtype(q.dtype)
     d_pad = _pad_head_dim(d_og)
+    v_q, v_scale, v_mean = _quant_v(v, pv_dtype=pv_dtype, smooth_v=smooth_v, d_pad=d_pad)
+    if not opts.default:
+        q_i8, q_scale, k_i8, k_scale, km, col_bias = _quant_qk(
+            q, k, opts, work=work, d_pad=d_pad, sm_scale=sm_scale, smooth_k=smooth_k)
+        out = attention_cuda.sage_attention_fwd_preq(
+            q_i8, q_scale, k_i8, k_scale, v_q, v_scale, v_mean, is_causal=is_causal,
+            return_lse=return_lse, out_dtype=work, col_bias=col_bias, masks=masks)
+        o, lse2 = out if return_lse else (out, None)
+        return Forward(o[..., :d_og].to(q.dtype), lse2, k_i8, k_scale, km, v_q, v_scale,
+                       v_mean, sm_scale)
     qp = _pad_d(q.to(work), d_pad)
     kp = _pad_d(k.to(work), d_pad)
-    v_q, v_scale, v_mean = _quant_v(v, pv_dtype=pv_dtype, smooth_v=smooth_v, d_pad=d_pad)
     k_i8, k_scale, km = quant_cuda.quant_k_fused_mean(kp, group=K_GROUP, smooth=smooth_k)
     kw = dict(is_causal=is_causal, q_fold=sm_scale * LOG2E, return_lse=return_lse)
     if masks is None:
@@ -210,37 +288,31 @@ def _lse_nat(lse2, q, km, sm_scale: float):
 
 def _sageattn_hnd(q, k, v, *, is_causal: bool, sm_scale: float | None,
                   smooth_k: bool, return_lse: bool, pv_dtype: str, smooth_v: bool,
-                  masks: Masks | None = None):
-    """The forward alone on HND tensors: o, or (o, lse)."""
+                  masks: Masks | None = None, opts: QKOptions = QKOptions()):
+    """The forward alone on HND tensors: o, or (o, lse).  The LSE's
+    smooth-k term is taken with the caller's q, also under smooth_q
+    (``core.py:348-357`` of the JAX package)."""
     f = _forward(q, k, v, is_causal=is_causal, sm_scale=sm_scale, smooth_k=smooth_k,
-                 return_lse=return_lse, pv_dtype=pv_dtype, smooth_v=smooth_v, masks=masks)
+                 return_lse=return_lse, pv_dtype=pv_dtype, smooth_v=smooth_v, masks=masks,
+                 opts=opts)
     if not return_lse:
         return f.o
     return f.o, _lse_nat(f.lse2, q, f.km, f.sm_scale)
 
 
-def _refuse(kwargs: dict, qk_quant_gran: str, qk_bits: int) -> None:
-    if qk_quant_gran != "auto":
-        raise NotImplementedError(
-            f"qk_quant_gran={qk_quant_gran!r}: only 'auto' is ported (ROADMAP: "
-            f"module 1, qk_quant_gran per_token/per_subtile/per_block)"
-        )
-    if qk_bits != 8:
-        raise NotImplementedError(
-            "qk_bits=4 is not ported (ROADMAP: kernel row 1 slice (i))"
-        )
-    for name, value in kwargs.items():
-        if name in _LATER:
-            if value is None or value is False:
-                continue
-            raise NotImplementedError(
-                f"{name} is not ported yet (ROADMAP: {_LATER[name]})"
-            )
+def _qk_options(kwargs: dict, smooth_q: bool, qk_quant_gran: str, qk_bits: int) -> QKOptions:
+    """The Q/K options, checked; what is left in ``kwargs`` raises: the JAX
+    package's TPU launch options, anything else ``TypeError``."""
+    if qk_quant_gran not in _GRANULARITIES:
+        raise ValueError(f"unknown qk_quant_gran {qk_quant_gran!r}; have {_GRANULARITIES}")
+    quant.qk_qmax(qk_bits)  # 8 or 4
+    for name in kwargs:
         if name in ("block_q", "block_k", "impl"):
             raise NotImplementedError(
                 f"{name}: the port picks its own H100 launch configuration"
             )
         raise TypeError(f"unexpected keyword argument {name!r}")
+    return QKOptions(bool(smooth_q), qk_bits, qk_quant_gran)
 
 
 def _refuse_grad(masks: Masks | None) -> None:
@@ -267,6 +339,7 @@ def sageattn_qk_int8_pv_bf16(
     return_lse: bool = False,
     *,
     smooth_k: bool = True,
+    smooth_q: bool = False,
     smooth_v: bool = False,
     pv_dtype: str = "bf16",
     qk_quant_gran: str = "auto",
@@ -292,8 +365,13 @@ def sageattn_qk_int8_pv_bf16(
     is the fused quantized backward (kernels ``quant_q_per_token``,
     ``sage_attn_bwd_dq``, ``sage_attn_bwd_dkv`` on the card), with the
     ``window`` band.  The masks are those of the module docstring; they
-    are [b, s] (ids, positions) or [.., .., sq, sk] whatever the layout."""
-    _refuse(kwargs, qk_quant_gran, qk_bits)
+    are [b, s] (ids, positions) or [.., .., sq, sk] whatever the layout.
+
+    ``smooth_q``, ``qk_bits=4`` and ``qk_quant_gran`` = "per_token" /
+    "per_subtile" / "per_block" (``block_size`` 32 rows, 128 for
+    per_block) run the pre-quantized forward; under grad their gradient is
+    exact attention's, recomputed (``autodiff.RecomputeFunction``)."""
+    opts = _qk_options(kwargs, smooth_q, qk_quant_gran, qk_bits)
     qh, kh, vh = (_to_hnd(x, tensor_layout) for x in (q, k, v))
     masks = _masks(qh, kh, is_causal=is_causal, q_segment_ids=q_segment_ids,
                    kv_segment_ids=kv_segment_ids, q_positions=q_positions,
@@ -302,12 +380,16 @@ def sageattn_qk_int8_pv_bf16(
     if torch.is_grad_enabled() and any(
             x is not None and x.requires_grad for x in (q, k, v, attn_mask, attn_bias)):
         _refuse_grad(masks)
-        out = autodiff.SageAttnFunction.apply(qh, kh, vh, is_causal, sm_scale,
-                                              smooth_k, return_lse, pv_dtype, smooth_v, window)
+        args = (qh, kh, vh, is_causal, sm_scale, smooth_k, return_lse, pv_dtype, smooth_v,
+                window)
+        if opts.default:
+            out = autodiff.SageAttnFunction.apply(*args)
+        else:
+            out = autodiff.RecomputeFunction.apply(*args, opts)
     else:
         out = _sageattn_hnd(qh, kh, vh, is_causal=is_causal, sm_scale=sm_scale,
                             smooth_k=smooth_k, return_lse=return_lse, pv_dtype=pv_dtype,
-                            smooth_v=smooth_v, masks=masks)
+                            smooth_v=smooth_v, masks=masks, opts=opts)
     if return_lse:
         return _to_hnd(out[0], tensor_layout), out[1]
     return _to_hnd(out, tensor_layout)
@@ -377,17 +459,18 @@ def sageattn_varlen(q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q: int | Non
     reference's); "per_segment", each sequence centred by its own K mean,
     exact because no row attends across sequences (the LSE gets each
     row's own correction).  ``pv_dtype`` defaults to "int8" here, as in
-    the JAX package; ``smooth_v`` and ``qk_quant_gran="auto"`` are taken.
+    the JAX package; ``smooth_v``, ``smooth_q``, ``qk_bits`` and
+    ``qk_quant_gran`` are taken as :func:`sageattn` takes them (smooth_q's
+    Q mean over all packed tokens, as in the JAX package).
     ``max_seqlen_q/k`` are the JAX package's TPU block hints and are not
-    used.  ``smooth_q`` and ``qk_bits=4`` raise ``NotImplementedError``
-    naming their ROADMAP items, ``block_q``/``block_k``/``impl`` too (the
-    port picks its own launch configuration), anything else ``TypeError``.
-    Forward only, as in the JAX package."""
+    used.  ``block_q``/``block_k``/``impl`` raise ``NotImplementedError``
+    (the port picks its own launch configuration), anything else
+    ``TypeError``.  Forward only, as in the JAX package."""
     smooth_k = kwargs.pop("smooth_k", True)
     pv_dtype = kwargs.pop("pv_dtype", "int8")
     smooth_v = kwargs.pop("smooth_v", False)
-    gran, bits = kwargs.pop("qk_quant_gran", "auto"), kwargs.pop("qk_bits", 8)
-    _refuse(kwargs, gran, bits)
+    opts = _qk_options(kwargs, kwargs.pop("smooth_q", False), kwargs.pop("qk_quant_gran", "auto"),
+                       kwargs.pop("qk_bits", 8))
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         raise NotImplementedError(
             "sageattn_varlen has no gradient (nor in the JAX package): call it under "
@@ -429,7 +512,7 @@ def sageattn_varlen(q, k, v, cu_seqlens_q, cu_seqlens_k, max_seqlen_q: int | Non
             lse_corr = torch.einsum("thd,thd->th", q.float(), km_rows).T[None] * sm
     out = _sageattn_hnd(qh, kh, vh, is_causal=is_causal, sm_scale=sm_scale, smooth_k=smooth_k,
                         return_lse=return_lse, pv_dtype=pv_dtype, smooth_v=smooth_v,
-                        masks=Masks(kv_lo=kv_lo[None], kv_hi=kv_hi[None]))
+                        masks=Masks(kv_lo=kv_lo[None], kv_hi=kv_hi[None]), opts=opts)
     if not return_lse:
         return out[0].transpose(0, 1)
     o, lse = out

@@ -18,5 +18,5 @@ extern "C" int sage_attn_fwd(const void* q, const void* k, const void* k_scale,
                              int group, float qs_mul, void* stream) {
   const Args a{q, k, k_scale, v, v_scale, v_mean, o, want_lse ? lse2 : nullptr,
                b, hq, hkv, sq, sk, qs_mul};
-  return launch_fwd<false>(a, NoMask{}, d, causal, q_is_f32, v_kind, group, stream);
+  return launch_fwd<false, false>(a, NoMask{}, NoPreq{}, d, causal, q_is_f32, v_kind, group, stream);
 }

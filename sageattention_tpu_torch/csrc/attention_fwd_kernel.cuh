@@ -1,11 +1,13 @@
 // Fused SageAttention forward for Hopper (sm_90a): int8 Q.K^T, bf16 P.V.
 //
-// The kernel body shared by attention_fwd.cu (no masks: MASKED = false) and
-// attention_fwd_masked.cu (MASKED = true).  Each source instantiates only
-// its own 32 kernels, so the two build in parallel, and the unmasked
-// instantiations compile to the code they had before masks existed: every
-// masked statement sits under `if constexpr (MASKED)` and the masked
-// operands are an empty struct there.
+// The kernels shared by attention_fwd.cu (no masks: MASKED = false),
+// attention_fwd_masked.cu (MASKED = true) and attention_fwd_preq.cu (PREQ =
+// true, both ways of MASKED); their body is attention_fwd_body.cuh.  Each
+// source instantiates only its own 32 kernels, so the three build in
+// parallel, and the unmasked instantiations compile to the code they had
+// before masks existed: every masked statement sits under `if constexpr
+// (MASKED)`, every pre-quantized one under `if constexpr (PREQ)`, and the
+// operands of either are an empty struct where its flag is off.
 //
 // Replaces the TPU kernel attention_pallas.py:sage_attention_fused
 // (_kernel / _kernel_single, bodies _compute_parts, _merge_parts,
@@ -40,6 +42,27 @@
 //      dtype and, if asked, lse2 = log2(l) + m.  Rows >= sq are not
 //      written.  When causal, KV tiles wholly above the diagonal of the Q
 //      tile are skipped.
+//
+// The pre-quantized instantiation (PREQ) is kernel 1's slices (h), (i) and
+// (k) (attention_pallas.py:661-680, 1455-1457, 1837-1845): Q arrives as
+// int8 codes with per-row fp32 scales that hold sm_scale*log2(e) (from
+// csrc/quant_q.cu at 8 or 4 bits, or the qk_quant_gran granularities
+// quantized in PyTorch), so step 1 copies the codes and scales instead of
+// quantizing; K comes with one scale per 128-row tile or one per row, and
+// an optional per-(b, q head) column bias in the base-2 domain (smooth_q's
+// qm . (k - km), indexed by the query head: each head of a GQA group has
+// its own qm).  A score is s * (q_scale[row] * k_scale[tile]) +
+// col_bias[col] with per-tile K scales and (s * q_scale[row]) *
+// k_scale[col] + col_bias[col] with per-row ones, the TPU kernel's orders
+// (attention_pallas.py:661-680), before the masked instantiation's bias and
+// masks.  Per tile, each column pair's K scales (1 where the tile's scale
+// rides in the row factor) and biases (0 without a bias) are staged in
+// shared memory as one float4, which a thread reads once per 8-column
+// n-tile: the dequantization costs one FFMA more per score than the default
+// instantiation's multiply.  The ±7 codes of qk_bits=4
+// run the same int8 MMA: sm_90 has no int4 MMA, and the TPU kernel's int4
+// operand type changes its speed, not its numbers.  The output type (bf16
+// or fp32) is an argument: the codes carry no input type to name it.
 //
 // The masked instantiation adds kernel 1's masking slices (c)-(g)
 // (attention_pallas.py:575-650, 689-705, 750-777): element (row, col) is
@@ -131,6 +154,25 @@ struct NoMask {};
 template <bool MASKED>
 using MaskOf = std::conditional_t<MASKED, MaskArgs, NoMask>;
 
+// the pre-quantized instantiation's operands
+struct PreqArgs {
+  const int8_t* q;        // int8 codes [b, hq, sq, D]
+  const float* q_scale;   // fp32 [b, hq, sq], sm_scale*log2(e) folded in
+  const float* col_bias;  // fp32 [b, hq, sk] in the base-2 domain, or null
+  int ks_per_row;         // k_scale is [b, hkv, sk] (1) or [b, hkv, n_tiles] (0)
+  int o_f32;              // o is fp32 (1) or bf16 (0)
+};
+struct NoPreq {};
+template <bool PREQ>
+using PreqOf = std::conditional_t<PREQ, PreqArgs, NoPreq>;
+
+// dynamic shared memory: the layout, and with PREQ a tile's K scales and
+// column bias, a float4 (scale, scale, bias, bias) a column pair
+template <int D, bool PREQ>
+constexpr int smem_bytes() {
+  return Layout<D>::bytes + (PREQ ? 2 * BN * 4 : 0);
+}
+
 __device__ inline float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ inline float to_f32(float x) { return x; }
 
@@ -202,316 +244,49 @@ __device__ inline float bias_at(const MaskArgs& mk, long long e) {
                       : static_cast<const float*>(mk.bias)[e];
 }
 
+// PREQ: the score of element e of an n-tile, (s * rf) * k_scale + col_bias,
+// rf the row factor, from its column pair's staged (scale, scale, bias, bias)
+__device__ inline float preq_score(int s, float rf, float4 col, int e) {
+  return (float)s * rf * ((e & 1) ? col.y : col.x) + ((e & 1) ? col.w : col.z);
+}
+
+// whether K's scales are per row (PREQ with per-row scales) or per tile
+template <bool PREQ>
+__device__ inline bool ks_per_row(const PreqOf<PREQ>& pq) {
+  if constexpr (PREQ) return pq.ks_per_row;
+  return false;
+}
+
 // whether the row's key range [lo, hi) holds the whole tile [kv0, kv0 + BN)
 __device__ inline bool covers(RowMask rm, int kv0) {
   return rm.lo <= kv0 && kv0 + BN <= rm.hi;
 }
 
-template <int D, bool CAUSAL, typename T, int VK, bool MASKED>
+template <int D, bool CAUSAL, typename T, int VK, bool MASKED, bool PREQ>
 __global__ void __launch_bounds__(NTHREADS)
 sage_attn_fwd_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
                      const float* __restrict__ k_scale, const void* __restrict__ v,
                      const float* __restrict__ v_scale, const float* __restrict__ v_mean,
                      T* __restrict__ o, float* __restrict__ lse2, int hq, int hkv, int sq,
-                     int sk, float qs_mul, const MaskOf<MASKED> mk) {
-  using L = Layout<D>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  int8_t* sQ = reinterpret_cast<int8_t*>(smem + L::q_off);
-  int8_t* sK = reinterpret_cast<int8_t*>(smem + L::k_off);
-  __nv_bfloat16* sV = reinterpret_cast<__nv_bfloat16*>(smem + L::v_off);
-  float* sQs = reinterpret_cast<float*>(smem + L::qs_off);
+                     int sk, float qs_mul, const MaskOf<MASKED> mk, const PreqOf<PREQ> pq) {
+#include "attention_fwd_body.cuh"
+}
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;  // mma groupID, thread in group
-  const int q0 = blockIdx.x * BM;
-  const int h = blockIdx.y, bi = blockIdx.z;
-  const int hk = h / (hq / hkv);
-  const size_t q_base = (((size_t)bi * hq + h) * sq) * D;
-  const size_t kv_base = (((size_t)bi * hkv + hk) * sk) * D;
-  const int n_tiles_all = (sk + BN - 1) / BN;
-  const float* ks_row = k_scale + ((size_t)bi * hkv + hk) * n_tiles_all;
-
-  // ---- 1. per-row int8 Q quantization (each warp its 16 rows) ----------
-  for (int rr = 0; rr < 16; ++rr) {
-    const int row = warp * 16 + rr;
-    const int gr = q0 + row;
-    float x[D / 32];
-    float amax = 0.f;
-#pragma unroll
-    for (int e = 0; e < D / 32; ++e) {
-      x[e] = gr < sq ? to_f32(q[q_base + (size_t)gr * D + lane + 32 * e]) : 0.f;
-      amax = fmaxf(amax, fabsf(x[e]));
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-    const float scale = fmaxf(amax, 1e-30f) * kInvQmax;
-    const float r = 1.0f / scale;
-#pragma unroll
-    for (int e = 0; e < D / 32; ++e)
-      sQ[row * L::QS + lane + 32 * e] = (int8_t)fminf(fmaxf(roundf(x[e] * r), -127.f), 127.f);
-    if (lane == 0) sQs[row] = fmaxf(amax, 1e-30f) * qs_mul;
-  }
-  __syncwarp();
-  const float qs0 = sQs[warp * 16 + g], qs1 = sQs[warp * 16 + g + 8];
-  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;  // this thread's rows
-
-  float m0 = NEG_INIT, m1 = NEG_INIT;  // running max (base 2)
-  float l0 = 0.f, l1 = 0.f;            // this thread's partial row sums
-  float acc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-
-  int j_first = 0;
-  int n_tiles = n_tiles_all;
-  if (CAUSAL) n_tiles = min(n_tiles, (q0 + BM - 1) / BN + 1);
-  // masked: the rows' operands, the bias's row offsets, and the tile range
-  // the window and the varlen ranges leave
-  RowMask rm0{}, rm1{};
-  long long bias_r0 = 0, bias_r1 = 0;
-  if constexpr (MASKED) {
-    const size_t rb = (size_t)bi * sq;
-    rm0 = row_mask(mk, rb + row0, row0 < sq);
-    rm1 = row_mask(mk, rb + row1, row1 < sq);
-    const long long bh = bi * mk.bias_st[0] + h * mk.bias_st[1];
-    bias_r0 = bh + (long long)min(row0, sq - 1) * mk.bias_st[2];  // rows >= sq read row sq-1
-    bias_r1 = bh + (long long)min(row1, sq - 1) * mk.bias_st[2];
-    if (mk.window > 0) j_first = max(0, q0 - mk.window + 1) / BN;
-    if (mk.kv_lo != nullptr) {
-      __shared__ int s_lo, s_hi;
-      if (tid == 0) {
-        s_lo = INT_MAX;
-        s_hi = INT_MIN;
-      }
-      __syncthreads();
-      if (tid < BM && q0 + tid < sq) {
-        atomicMin(&s_lo, mk.kv_lo[rb + q0 + tid]);
-        atomicMax(&s_hi, mk.kv_hi[rb + q0 + tid]);
-      }
-      __syncthreads();
-      if (s_hi > s_lo) {
-        j_first = max(j_first, s_lo / BN);
-        n_tiles = min(n_tiles, (s_hi + BN - 1) / BN);
-      } else {
-        n_tiles = 0;  // no row of the tile has a live key
-      }
-    }
-  }
-
-  for (int j = j_first; j < n_tiles; ++j) {
-    int lv = 2;  // the tile's liveness: 0 dead, 1 some, 2 all (ids and mask)
-    if constexpr (MASKED) {
-      if (mk.live != nullptr) {
-        lv = mk.live[bi * mk.live_bst + h * mk.live_hst + (size_t)blockIdx.x * n_tiles_all + j];
-        if (lv == 0) continue;  // the same for every thread of the CTA
-      }
-    }
-    const int kv0 = j * BN;
-    __syncthreads();  // the previous tile's K/V are no longer read
-    // ---- 2. K and V tiles into shared memory, zero past sk ---------------
-    for (int i = tid; i < BN * (D / 16); i += NTHREADS) {
-      const int r = i / (D / 16), c = i % (D / 16);
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (kv0 + r < sk) val = *reinterpret_cast<const uint4*>(k + kv_base + (size_t)(kv0 + r) * D + c * 16);
-      *reinterpret_cast<uint4*>(sK + r * L::QS + c * 16) = val;
-    }
-    for (int i = tid; i < BN * (D / 8); i += NTHREADS) {
-      const int r = i / (D / 8), c = i % (D / 8);
-      const size_t e = kv_base + (size_t)(kv0 + r) * D + c * 8;  // first element
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if constexpr (VK == kVBf16) {
-        if (kv0 + r < sk) val = *reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(v) + e);
-      } else {
-        uint2 raw = make_uint2(0, 0);  // code 0 is 0 in every type
-        if (kv0 + r < sk) raw = *reinterpret_cast<const uint2*>(static_cast<const uint8_t*>(v) + e);
-        val = codes_to_bf16x8<VK>(raw);
-      }
-      *reinterpret_cast<uint4*>(sV + r * L::VS + c * 8) = val;
-    }
-    __syncthreads();
-
-    // ---- 3a. S = Q.K^T, int8 in, int32 out --------------------------------
-    int s_i[NT][4];
-#pragma unroll
-    for (int n = 0; n < NT; ++n) s_i[n][0] = s_i[n][1] = s_i[n][2] = s_i[n][3] = 0;
-#pragma unroll
-    for (int kk = 0; kk < D / 32; ++kk) {
-      const int8_t* qa = sQ + (warp * 16 + g) * L::QS + kk * 32 + t * 4;
-      uint32_t a[4];
-      a[0] = *reinterpret_cast<const uint32_t*>(qa);
-      a[1] = *reinterpret_cast<const uint32_t*>(qa + 8 * L::QS);
-      a[2] = *reinterpret_cast<const uint32_t*>(qa + 16);
-      a[3] = *reinterpret_cast<const uint32_t*>(qa + 8 * L::QS + 16);
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const int8_t* kb = sK + (n * 8 + g) * L::QS + kk * 32 + t * 4;
-        mma_s8(s_i[n], a, *reinterpret_cast<const uint32_t*>(kb),
-               *reinterpret_cast<const uint32_t*>(kb + 16));
-      }
-    }
-
-    // ---- 3b. dequantize, mask, online softmax (base 2) --------------------
-    const float ks = ks_row[j];
-    const float rs0 = qs0 * ks, rs1 = qs1 * ks;
-    bool need_mask = (kv0 + BN > sk) || (CAUSAL && kv0 + BN - 1 > q0);
-    uint64_t dead = 0;  // masked: bit n * 4 + e set for an element the rule kills
-    if constexpr (MASKED) {
-      // this thread's elements need the rule unless the table says the
-      // tile is wholly live under the ids and the mask, and its rows'
-      // ranges hold the tile
-      const bool rule = (lv != 2 && (mk.q_seg != nullptr || mk.mask != nullptr)) ||
-                        mk.q_pos != nullptr ||
-                        (mk.kv_lo != nullptr && !(covers(rm0, kv0) && covers(rm1, kv0)));
-      if (rule) {
-#pragma unroll 1
-        for (int idx = 0; idx < NT * 4; ++idx) {
-          const bool top = (idx & 3) < 2;
-          const int col = kv0 + (idx >> 2) * 8 + t * 2 + (idx & 1);
-          if (!element_live(mk, top ? rm0 : rm1, bi, h, top ? row0 : row1, col, sq, sk))
-            dead |= 1ull << idx;
-        }
-      }
-      need_mask = need_mask || rule || (mk.window > 0 && kv0 <= q0 + BM - 1 - mk.window);
-    }
-    float s[NT][4];
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-    if constexpr (MASKED) {
-      // dequantize; add the bias; mask (causal, ragged edge, window, rule)
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = (float)s_i[n][e] * (e < 2 ? rs0 : rs1);
-      if (mk.bias != nullptr) {
-#pragma unroll
-        for (int n = 0; n < NT; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int col = min(kv0 + n * 8 + t * 2 + (e & 1), sk - 1);  // cols >= sk masked below
-            s[n][e] += bias_at(mk, (e < 2 ? bias_r0 : bias_r1) + col * mk.bias_st[3]) * kLog2e;
-          }
-      }
-      if (need_mask) {
-#pragma unroll
-        for (int n = 0; n < NT; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int col = kv0 + n * 8 + t * 2 + (e & 1);
-            const int row = e < 2 ? row0 : row1;
-            if (col >= sk || (CAUSAL && col > row) || (mk.window > 0 && col <= row - mk.window) ||
-                ((dead >> (n * 4 + e)) & 1))
-              s[n][e] = -INFINITY;
-          }
-      }
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
-        mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
-      }
-    } else {
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float val = (float)s_i[n][e] * (e < 2 ? rs0 : rs1);
-          if (need_mask) {
-            const int col = kv0 + n * 8 + t * 2 + (e & 1);
-            const int row = e < 2 ? row0 : row1;
-            if (col >= sk || (CAUSAL && col > row)) val = -INFINITY;
-          }
-          s[n][e] = val;
-        }
-        mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
-        mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
-      }
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float al0 = exp2f(m0 - mn0), al1 = exp2f(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      s[n][0] = exp2f(s[n][0] - mn0);
-      s[n][1] = exp2f(s[n][1] - mn0);
-      s[n][2] = exp2f(s[n][2] - mn1);
-      s[n][3] = exp2f(s[n][3] - mn1);
-      sum0 += s[n][0] + s[n][1];
-      sum1 += s[n][2] + s[n][3];
-    }
-    l0 = l0 * al0 + sum0;
-    l1 = l1 * al1 + sum1;
-#pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
-      acc[i][0] *= al0;
-      acc[i][1] *= al0;
-      acc[i][2] *= al1;
-      acc[i][3] *= al1;
-    }
-
-    // ---- 3c. O += P.V, P rounded to bf16, fp32 accumulate -----------------
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const int vr = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-      for (int np = 0; np < D / 16; ++np) {
-        uint32_t b[4];
-        ldsm_x4_trans(b, sV + vr * L::VS + np * 16 + (lane >> 4) * 8);
-        mma_bf16(acc[2 * np], a, b[0], b[1]);
-        mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
-      }
-    }
-  }
-
-  // ---- 4. epilogue: o = (acc / l) * v_scale + v_mean, lse2 = log2(l) + m ---
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-  }
-  const size_t vc = ((size_t)bi * hkv + hk) * D;  // this kv head's channels
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-    const int col = i * 8 + t * 2;
-    float o0[2] = {acc[i][0] / l0, acc[i][1] / l0};
-    float o1[2] = {acc[i][2] / l1, acc[i][3] / l1};
-    if constexpr (MASKED) {  // a row with no live key writes 0
-      if (!(l0 > 0.f)) o0[0] = o0[1] = 0.f;
-      if (!(l1 > 0.f)) o1[0] = o1[1] = 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      if (v_scale != nullptr) {
-        o0[e] *= v_scale[vc + col + e];
-        o1[e] *= v_scale[vc + col + e];
-      }
-      if (v_mean != nullptr) {  // a row with l == 0 keeps 0
-        o0[e] += l0 > 0.f ? v_mean[vc + col + e] : 0.f;
-        o1[e] += l1 > 0.f ? v_mean[vc + col + e] : 0.f;
-      }
-    }
-    if (row0 < sq) store2(o + q_base + (size_t)row0 * D + col, o0[0], o0[1]);
-    if (row1 < sq) store2(o + q_base + (size_t)row1 * D + col, o1[0], o1[1]);
-  }
-  if (lse2 != nullptr && t == 0) {
-    const size_t lbase = ((size_t)bi * hq + h) * sq;
-    float ls0 = log2f(l0) + m0, ls1 = log2f(l1) + m1;
-    if constexpr (MASKED) {  // and its LSE is -inf
-      if (!(l0 > 0.f)) ls0 = -INFINITY;
-      if (!(l1 > 0.f)) ls1 = -INFINITY;
-    }
-    if (row0 < sq) lse2[lbase + row0] = ls0;
-    if (row1 < sq) lse2[lbase + row1] = ls1;
-  }
+// The same body for the d64 unmasked PREQ instances, bounded to 3 blocks an
+// SM: their dequantization takes nvcc past the 170 registers a thread that
+// 3 blocks of 128 threads allow, where the default d64 instances' 167-168
+// fit.  The bound costs a few dozen bytes of stack and is the faster of the
+// two (PERF.md, the kernel table).  A second kernel, not a bound on the first: a
+// minimum of 1 block in `__launch_bounds__` moves the default instances'
+// registers (tools/ab_attention_fwd.py).
+template <int D, bool CAUSAL, typename T, int VK, bool MASKED, bool PREQ>
+__global__ void __launch_bounds__(NTHREADS, 3)
+sage_attn_fwd_kernel_3blocks(const T* __restrict__ q, const int8_t* __restrict__ k,
+                     const float* __restrict__ k_scale, const void* __restrict__ v,
+                     const float* __restrict__ v_scale, const float* __restrict__ v_mean,
+                     T* __restrict__ o, float* __restrict__ lse2, int hq, int hkv, int sq,
+                     int sk, float qs_mul, const MaskOf<MASKED> mk, const PreqOf<PREQ> pq) {
+#include "attention_fwd_body.cuh"
 }
 
 // the launch's operands, as sage_attn_fwd takes them
@@ -522,50 +297,68 @@ struct Args {
   float qs_mul;
 };
 
-template <int D, bool CAUSAL, typename T, int VK, bool MASKED>
-int launch(const Args& a, const MaskOf<MASKED>& mk, cudaStream_t st) {
-  auto kern = sage_attn_fwd_kernel<D, CAUSAL, T, VK, MASKED>;
-  const int smem = Layout<D>::bytes;
+template <int D, bool PREQ, typename T, bool MASKED, typename Kernel>
+int launch_kernel(Kernel kern, const Args& a, const MaskOf<MASKED>& mk, const PreqOf<PREQ>& pq,
+                  cudaStream_t st) {
+  const int smem = smem_bytes<D, PREQ>();
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((a.sq + BM - 1) / BM, a.hq, a.b);
   kern<<<grid, NTHREADS, smem, st>>>((const T*)a.q, (const int8_t*)a.k, (const float*)a.k_scale,
                                      a.v, (const float*)a.v_scale, (const float*)a.v_mean,
                                      (T*)a.o, (float*)a.lse2, a.hq, a.hkv, a.sq, a.sk, a.qs_mul,
-                                     mk);
+                                     mk, pq);
   return (int)cudaGetLastError();
 }
 
-template <int D, bool CAUSAL, typename T, bool MASKED>
-int launch_v(int v_kind, const Args& a, const MaskOf<MASKED>& mk, cudaStream_t st) {
+template <int D, bool CAUSAL, typename T, int VK, bool MASKED, bool PREQ>
+int launch(const Args& a, const MaskOf<MASKED>& mk, const PreqOf<PREQ>& pq, cudaStream_t st) {
+  if constexpr (PREQ && !MASKED && D == 64)
+    return launch_kernel<D, PREQ, T, MASKED>(
+        sage_attn_fwd_kernel_3blocks<D, CAUSAL, T, VK, MASKED, PREQ>, a, mk, pq, st);
+  else
+    return launch_kernel<D, PREQ, T, MASKED>(sage_attn_fwd_kernel<D, CAUSAL, T, VK, MASKED, PREQ>,
+                                             a, mk, pq, st);
+}
+
+template <int D, bool CAUSAL, typename T, bool MASKED, bool PREQ>
+int launch_v(int v_kind, const Args& a, const MaskOf<MASKED>& mk, const PreqOf<PREQ>& pq,
+             cudaStream_t st) {
   switch (v_kind) {
-    case kVBf16: return launch<D, CAUSAL, T, kVBf16, MASKED>(a, mk, st);
-    case kVInt8: return launch<D, CAUSAL, T, kVInt8, MASKED>(a, mk, st);
-    case kVE4M3: return launch<D, CAUSAL, T, kVE4M3, MASKED>(a, mk, st);
-    default: return launch<D, CAUSAL, T, kVE5M2, MASKED>(a, mk, st);
+    case kVBf16: return launch<D, CAUSAL, T, kVBf16, MASKED, PREQ>(a, mk, pq, st);
+    case kVInt8: return launch<D, CAUSAL, T, kVInt8, MASKED, PREQ>(a, mk, pq, st);
+    case kVE4M3: return launch<D, CAUSAL, T, kVE4M3, MASKED, PREQ>(a, mk, pq, st);
+    default: return launch<D, CAUSAL, T, kVE5M2, MASKED, PREQ>(a, mk, pq, st);
   }
 }
 
-template <int D, typename T, bool MASKED>
-int launch_c(bool causal, int v_kind, const Args& a, const MaskOf<MASKED>& mk, cudaStream_t st) {
-  return causal ? launch_v<D, true, T, MASKED>(v_kind, a, mk, st)
-                : launch_v<D, false, T, MASKED>(v_kind, a, mk, st);
+template <int D, typename T, bool MASKED, bool PREQ>
+int launch_c(bool causal, int v_kind, const Args& a, const MaskOf<MASKED>& mk,
+             const PreqOf<PREQ>& pq, cudaStream_t st) {
+  return causal ? launch_v<D, true, T, MASKED, PREQ>(v_kind, a, mk, pq, st)
+                : launch_v<D, false, T, MASKED, PREQ>(v_kind, a, mk, pq, st);
 }
 
-// checks the shape arguments and launches one of the 32 instantiations of
-// MASKED (head dim x causal x q dtype x V kind)
-template <bool MASKED>
-int launch_fwd(const Args& a, const MaskOf<MASKED>& mk, int d, int causal, int q_is_f32,
-               int v_kind, int group, void* stream) {
+// checks the shape arguments and launches one of the instantiations of
+// (MASKED, PREQ): head dim x causal x V kind, and the q dtype without PREQ
+// (32 a source); PREQ's output type is its argument o_f32
+template <bool MASKED, bool PREQ>
+int launch_fwd(const Args& a, const MaskOf<MASKED>& mk, const PreqOf<PREQ>& pq, int d,
+               int causal, int q_is_f32, int v_kind, int group, void* stream) {
   if (group != BN || a.hkv <= 0 || a.hq % a.hkv != 0 || (d != 64 && d != 128) || v_kind < 0 ||
       v_kind > 3)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (d == 64)
-    return q_is_f32 ? launch_c<64, float, MASKED>(causal, v_kind, a, mk, st)
-                    : launch_c<64, __nv_bfloat16, MASKED>(causal, v_kind, a, mk, st);
-  return q_is_f32 ? launch_c<128, float, MASKED>(causal, v_kind, a, mk, st)
-                  : launch_c<128, __nv_bfloat16, MASKED>(causal, v_kind, a, mk, st);
+  if constexpr (PREQ) {
+    return d == 64 ? launch_c<64, __nv_bfloat16, MASKED, PREQ>(causal, v_kind, a, mk, pq, st)
+                   : launch_c<128, __nv_bfloat16, MASKED, PREQ>(causal, v_kind, a, mk, pq, st);
+  } else {
+    if (d == 64)
+      return q_is_f32 ? launch_c<64, float, MASKED, PREQ>(causal, v_kind, a, mk, pq, st)
+                      : launch_c<64, __nv_bfloat16, MASKED, PREQ>(causal, v_kind, a, mk, pq, st);
+    return q_is_f32 ? launch_c<128, float, MASKED, PREQ>(causal, v_kind, a, mk, pq, st)
+                    : launch_c<128, __nv_bfloat16, MASKED, PREQ>(causal, v_kind, a, mk, pq, st);
+  }
 }
 
 }  // namespace

@@ -39,5 +39,5 @@ extern "C" int sage_attn_fwd_masked(
                     (const uint8_t*)mask, bias, (const uint8_t*)live,
                     {mask_sb, mask_sh, mask_sr, mask_sc}, {bias_sb, bias_sh, bias_sr, bias_sc},
                     live_sb, live_sh, window, bias_bf16};
-  return launch_fwd<true>(a, mk, d, causal, q_is_f32, v_kind, group, stream);
+  return launch_fwd<true, false>(a, mk, NoPreq{}, d, causal, q_is_f32, v_kind, group, stream);
 }

@@ -33,22 +33,22 @@ sage_decode_kernel(const float* __restrict__ q, const int8_t* __restrict__ k,
                    const float* __restrict__ vs, const int* __restrict__ lengths,
                    float* __restrict__ o, float* __restrict__ m_out, float* __restrict__ l_out,
                    int hkv, int rows, int t_q, int S, int C, int window, int n_live,
-                   float qs_mul) {
+                   float qs_mul, int ds) {
   const int hk = blockIdx.y, bi = blockIdx.z;
   const size_t bh = (size_t)bi * hkv + hk;
   const int rows_per_chunk = PACKED ? C / 2 : C;  // data rows of one chunk
-  const int8_t* kb = k + bh * (size_t)(PACKED ? S / 2 : S) * D;
-  const int8_t* vb = v + bh * (size_t)(PACKED ? S / 2 : S) * D;
+  const int8_t* kb = k + bh * (size_t)(PACKED ? S / 2 : S) * ds;
+  const int8_t* vb = v + bh * (size_t)(PACKED ? S / 2 : S) * ds;
   const float* ksb = ks + bh * (size_t)S;
   const float* vsb = vs + bh * (size_t)S;
   auto chunk_at = [=](int ci) {
-    const size_t off = (size_t)ci * rows_per_chunk * D;
+    const size_t off = (size_t)ci * rows_per_chunk * ds;
     return Chunk{kb + off, ksb + (size_t)ci * C, vb + off, vsb + (size_t)ci * C};
   };
   decode::decode_cta<D, MW, PACKED, WINDOW>(
-      q + bh * rows * D, o + bh * rows * D, m_out ? m_out + bh * rows : nullptr,
+      q + bh * rows * ds, o + bh * rows * ds, m_out ? m_out + bh * rows : nullptr,
       l_out ? l_out + bh * rows : nullptr, rows, t_q, lengths[bi], C, S / C, window, n_live,
-      qs_mul, chunk_at);
+      qs_mul, ds, chunk_at);
 }
 
 struct Args {
@@ -59,6 +59,7 @@ struct Args {
   float *o, *m, *l;
   int b, hkv, rows, t_q, S, C, window, n_live;
   float qs_mul;
+  int ds;  // the cache's head dim
 };
 
 template <int D, int MW, bool PACKED, bool WINDOW>
@@ -71,7 +72,7 @@ int launch(const Args& a, cudaStream_t st) {
   dim3 grid((a.rows + RT - 1) / RT, a.hkv, a.b);
   kern<<<grid, decode::NTHREADS, smem, st>>>(a.q, a.k, a.ks, a.v, a.vs, a.lengths, a.o, a.m, a.l,
                                              a.hkv, a.rows, a.t_q, a.S, a.C, a.window, a.n_live,
-                                             a.qs_mul);
+                                             a.qs_mul, a.ds);
   return (int)cudaGetLastError();
 }
 
@@ -84,7 +85,7 @@ int launch_rows(const Args& a, cudaStream_t st) {
 
 template <bool WINDOW>
 int dispatch(int d, int packed, const Args& a, cudaStream_t st) {
-  if (d == 64)
+  if (d <= 64)
     return packed ? launch_rows<64, true, WINDOW>(a, st) : launch_rows<64, false, WINDOW>(a, st);
   return packed ? launch_rows<128, true, WINDOW>(a, st) : launch_rows<128, false, WINDOW>(a, st);
 }
@@ -93,13 +94,13 @@ int checked(const void* q, const void* k, const void* ks, const void* v, const v
             const void* lengths, void* o, void* m, void* l, int b, int hkv, int rows, int t_q,
             int S, int d, int packed, int chunk, int window, int n_live, float qs_mul,
             void* stream, bool windowed) {
-  if ((d != 64 && d != 128) || chunk <= 0 || S % chunk != 0 || (packed && chunk % 2 != 0) ||
+  if (d <= 0 || d > 128 || d % 16 != 0 || chunk <= 0 || S % chunk != 0 || (packed && chunk % 2 != 0) ||
       t_q <= 0 || rows <= 0 || (windowed && (window <= 0 || n_live <= 0 || n_live > S / chunk)) ||
       ((m == nullptr) != (l == nullptr)))
     return (int)cudaErrorInvalidValue;
   const Args a{(const float*)q, (const int8_t*)k, (const int8_t*)v, (const float*)ks,
                (const float*)vs, (const int*)lengths, (float*)o, (float*)m, (float*)l,
-               b, hkv, rows, t_q, S, chunk, window, n_live, qs_mul};
+               b, hkv, rows, t_q, S, chunk, window, n_live, qs_mul, d};
   cudaStream_t st = (cudaStream_t)stream;
   return windowed ? dispatch<true>(d, packed, a, st) : dispatch<false>(d, packed, a, st);
 }
@@ -110,7 +111,8 @@ int checked(const void* q, const void* k, const void* ks, const void* v, const v
 // head-major; k, v: int8 [b, hkv, S, d], or token-pair-packed [b, hkv,
 // S/2, d] when packed; ks, vs: fp32 [b, hkv, S]; lengths: int32 [b]; o:
 // fp32 [b, hkv, rows, d]; m, l: fp32 [b, hkv, rows] or both NULL.  All
-// contiguous; d 64 or 128; chunk divides S; qs_mul = f32(1/qmax) *
+// contiguous; d <= 128 a multiple of 16 (the kernels compute at 64 or 128,
+// the lanes past d zero); chunk divides S; qs_mul = f32(1/qmax) *
 // f32(sm_scale * log2(e)), qmax 127, or 119 for the packed cache.
 extern "C" int sage_decode(const void* q, const void* k, const void* ks, const void* v,
                            const void* vs, const void* lengths, void* o, void* m, void* l, int b,

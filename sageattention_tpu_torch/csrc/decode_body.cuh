@@ -32,6 +32,12 @@
 // (32 tokens each), so a shared-memory slab holds 32 * CW tokens.  MW = 1
 // for decode (4 rows at GQA 32/8, t_q 1), MW = 4 for extend blocks.
 //
+// Head dims: the instances compute at D = 64 or 128; a cache of any head
+// dim ds <= D that is a multiple of 16 (the cache keeps the caller's, as
+// the JAX package's does) is read at its own row stride, its lanes ds..D
+// zero-filled as Q and the slabs load, which adds 0 to every product, and
+// only its ds lanes of o are written.
+//
 // Bound: bytes.  Each step reads the live cache once (K and V codes, two
 // fp32 scales a token) and a few bytes of Q and O; the operations are a
 // few hundred per cache byte at most, far under the int8 tensor-core rate.
@@ -130,8 +136,9 @@ __device__ inline void cp_async_wait_all() {
 // unpacked, and V transposed, from the staged copy.  The caller
 // synchronises before reading.
 template <int D, int MW, bool PACKED, bool WITH_V>
-__device__ inline void load_slab(const Chunk& ch, int tok0, int C, int8_t* sK, int8_t* sKraw,
-                                 int8_t* sVraw, int8_t* sVt, float* sKs, float* sVs) {
+__device__ inline void load_slab(const Chunk& ch, int tok0, int C, int ds, int8_t* sK,
+                                 int8_t* sKraw, int8_t* sVraw, int8_t* sVt, float* sKs,
+                                 float* sVs) {
   using L = Shape<D, MW, PACKED>;
   const int tid = threadIdx.x;
   constexpr int CB = D / 16;  // 16-byte blocks of a row
@@ -140,8 +147,8 @@ __device__ inline void load_slab(const Chunk& ch, int tok0, int C, int8_t* sK, i
   int8_t* kdst = PACKED ? sKraw : sK;
   for (int i = tid; i < L::DROWS * CB; i += NTHREADS) {
     const int r = i / CB, cb = i % CB;
-    const bool live = r < drows_live;
-    const size_t src = (size_t)(drow0 + (live ? r : 0)) * D + cb * 16;
+    const bool live = r < drows_live && cb * 16 < ds;  // lanes past ds are zero
+    const size_t src = live ? (size_t)(drow0 + r) * ds + cb * 16 : 0;
     cp_async16(kdst + r * L::QS + cb * 16, ch.k + src, live);
     if constexpr (WITH_V) cp_async16(sVraw + r * L::QS + cb * 16, ch.v + src, live);
   }
@@ -240,15 +247,15 @@ __device__ inline uint32_t slab_scores(float (&sf)[4][4], const int8_t* sQ, cons
   return ok;
 }
 
-// the whole decode of one CTA's rows: q [rows, D] fp32 and o [rows, D] fp32
-// of this (batch, kv head); m_out / l_out [rows] or null; chunk_at(ci) gives
-// chunk ci's operands.  n_total chunks of C tokens; with a window only the
-// n_live chunks from the window's first one.
+// the whole decode of one CTA's rows: q [rows, ds] fp32 and o [rows, ds] fp32
+// of this (batch, kv head), ds <= D the cache's head dim; m_out / l_out
+// [rows] or null; chunk_at(ci) gives chunk ci's operands.  n_total chunks of
+// C tokens; with a window only the n_live chunks from the window's first one.
 template <int D, int MW, bool PACKED, bool WINDOW, typename ChunkAt>
 __device__ void decode_cta(const float* __restrict__ q, float* __restrict__ o,
                            float* __restrict__ m_out, float* __restrict__ l_out, int rows,
                            int t_q, int length, int C, int n_total, int window, int n_live,
-                           float qs_mul, ChunkAt chunk_at) {
+                           float qs_mul, int ds, ChunkAt chunk_at) {
   using L = Shape<D, MW, PACKED>;
   constexpr int RT = L::RT, CW = L::CW;
   constexpr float QMAX = PACKED ? 119.f : 127.f;
@@ -288,7 +295,7 @@ __device__ void decode_cta(const float* __restrict__ q, float* __restrict__ o,
     float amax = 0.f;
 #pragma unroll
     for (int e = 0; e < D / 32; ++e) {
-      x[e] = gr < rows ? q[(size_t)gr * D + lane + 32 * e] : 0.f;
+      x[e] = gr < rows && lane + 32 * e < ds ? q[(size_t)gr * ds + lane + 32 * e] : 0.f;
       amax = fmaxf(amax, fabsf(x[e]));
     }
 #pragma unroll
@@ -336,7 +343,7 @@ __device__ void decode_cta(const float* __restrict__ q, float* __restrict__ o,
     // ---- pass 1: the chunk's row max of sf -------------------------------
     float mx0 = NEG_INIT, mx1 = NEG_INIT;
     for (int tok0 = lo; tok0 < hi; tok0 += L::SLAB) {
-      load_slab<D, MW, PACKED, false>(ch, tok0, C, sK, sKraw, sVraw, sVt, sKs, sVs);
+      load_slab<D, MW, PACKED, false>(ch, tok0, C, ds, sK, sKraw, sVraw, sVt, sKs, sVs);
       __syncthreads();
       slab_scores<D, MW, PACKED>(sf, sQ, sK, sKs, mw, cw, tok0, base, C, qsf0, qsf1, trow0, trow1, mask);
 #pragma unroll
@@ -367,7 +374,7 @@ __device__ void decode_cta(const float* __restrict__ q, float* __restrict__ o,
     // ---- pass 2: l_c and the row max of pe = p * vs ------------------------
     float ls0 = 0.f, ls1 = 0.f, pm0 = 0.f, pm1 = 0.f;
     for (int tok0 = lo; tok0 < hi; tok0 += L::SLAB) {
-      load_slab<D, MW, PACKED, false>(ch, tok0, C, sK, sKraw, sVraw, sVt, sKs, sVs);
+      load_slab<D, MW, PACKED, false>(ch, tok0, C, ds, sK, sKraw, sVraw, sVt, sKs, sVs);
       __syncthreads();
       const uint32_t ok =
           slab_scores<D, MW, PACKED>(sf, sQ, sK, sKs, mw, cw, tok0, base, C, qsf0, qsf1, trow0, trow1, mask);
@@ -421,7 +428,7 @@ __device__ void decode_cta(const float* __restrict__ q, float* __restrict__ o,
 #pragma unroll
     for (int i = 0; i < D / 8; ++i) pacc[i][0] = pacc[i][1] = pacc[i][2] = pacc[i][3] = 0;
     for (int tok0 = lo; tok0 < hi; tok0 += L::SLAB) {
-      load_slab<D, MW, PACKED, true>(ch, tok0, C, sK, sKraw, sVraw, sVt, sKs, sVs);
+      load_slab<D, MW, PACKED, true>(ch, tok0, C, ds, sK, sKraw, sVraw, sVt, sKs, sVs);
       __syncthreads();
       const uint32_t ok =
           slab_scores<D, MW, PACKED>(sf, sQ, sK, sKs, mw, cw, tok0, base, C, qsf0, qsf1, trow0, trow1, mask);
@@ -481,10 +488,10 @@ __device__ void decode_cta(const float* __restrict__ q, float* __restrict__ o,
   // ---- epilogue: o = acc * (1 / l), 0 where l == 0 ---------------------------
   for (int i = tid; i < RT * D; i += NTHREADS) {
     const int r = i / D, gr = row0 + r;
-    if (gr >= rows) continue;
+    if (gr >= rows || i % D >= ds) continue;
     const float l = sL[r];
     const float l_inv = l == 0.f ? 0.f : __fdiv_rn(1.0f, l);
-    o[(size_t)gr * D + i % D] = __fmul_rn(sAcc[i], l_inv);
+    o[(size_t)gr * ds + i % D] = __fmul_rn(sAcc[i], l_inv);
   }
   if (m_out != nullptr) {
     for (int r = tid; r < RT; r += NTHREADS) {

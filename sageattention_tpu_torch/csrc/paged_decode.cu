@@ -33,20 +33,20 @@ sage_paged_decode_kernel(const float* __restrict__ q, const int8_t* __restrict__
                          const int* __restrict__ lengths, float* __restrict__ o,
                          float* __restrict__ m_out, float* __restrict__ l_out, int hkv, int rows,
                          int t_q, int page, int max_pages, int window, int n_live,
-                         float qs_mul) {
+                         float qs_mul, int ds) {
   const int hk = blockIdx.y, bi = blockIdx.z;
   const size_t bh = (size_t)bi * hkv + hk;
   const int page_rows = PACKED ? page / 2 : page;  // data rows of one page
   const int* pt = table + (size_t)bi * max_pages;
   auto chunk_at = [=](int p) {
     const size_t ph = (size_t)pt[p] * hkv + hk;  // the page's (page, kv head) slab
-    return Chunk{pk + ph * page_rows * D, pks + ph * page, pv + ph * page_rows * D,
+    return Chunk{pk + ph * page_rows * ds, pks + ph * page, pv + ph * page_rows * ds,
                  pvs + ph * page};
   };
   decode::decode_cta<D, MW, PACKED, WINDOW>(
-      q + bh * rows * D, o + bh * rows * D, m_out ? m_out + bh * rows : nullptr,
+      q + bh * rows * ds, o + bh * rows * ds, m_out ? m_out + bh * rows : nullptr,
       l_out ? l_out + bh * rows : nullptr, rows, t_q, lengths[bi], page, max_pages, window,
-      n_live, qs_mul, chunk_at);
+      n_live, qs_mul, ds, chunk_at);
 }
 
 struct Args {
@@ -57,6 +57,7 @@ struct Args {
   float *o, *m, *l;
   int b, hkv, rows, t_q, page, max_pages, window, n_live;
   float qs_mul;
+  int ds;  // the cache's head dim
 };
 
 template <int D, int MW, bool PACKED, bool WINDOW>
@@ -69,7 +70,7 @@ int launch(const Args& a, cudaStream_t st) {
   dim3 grid((a.rows + RT - 1) / RT, a.hkv, a.b);
   kern<<<grid, decode::NTHREADS, smem, st>>>(a.q, a.k, a.ks, a.v, a.vs, a.table, a.lengths, a.o,
                                              a.m, a.l, a.hkv, a.rows, a.t_q, a.page, a.max_pages,
-                                             a.window, a.n_live, a.qs_mul);
+                                             a.window, a.n_live, a.qs_mul, a.ds);
   return (int)cudaGetLastError();
 }
 
@@ -80,7 +81,7 @@ int launch_rows(const Args& a, cudaStream_t st) {
 
 template <bool WINDOW>
 int dispatch(int d, int packed, const Args& a, cudaStream_t st) {
-  if (d == 64)
+  if (d <= 64)
     return packed ? launch_rows<64, true, WINDOW>(a, st) : launch_rows<64, false, WINDOW>(a, st);
   return packed ? launch_rows<128, true, WINDOW>(a, st) : launch_rows<128, false, WINDOW>(a, st);
 }
@@ -89,13 +90,13 @@ int checked(const void* q, const void* pk, const void* pks, const void* pv, cons
             const void* table, const void* lengths, void* o, void* m, void* l, int b, int hkv,
             int rows, int t_q, int page, int max_pages, int d, int packed, int window, int n_live,
             float qs_mul, void* stream, bool windowed) {
-  if ((d != 64 && d != 128) || page <= 0 || (packed && page % 2 != 0) || max_pages <= 0 ||
+  if (d <= 0 || d > 128 || d % 16 != 0 || page <= 0 || (packed && page % 2 != 0) || max_pages <= 0 ||
       t_q <= 0 || rows <= 0 || (windowed && (window <= 0 || n_live <= 0 || n_live > max_pages)) ||
       ((m == nullptr) != (l == nullptr)))
     return (int)cudaErrorInvalidValue;
   const Args a{(const float*)q, (const int8_t*)pk, (const int8_t*)pv, (const float*)pks,
                (const float*)pvs, (const int*)table, (const int*)lengths, (float*)o, (float*)m,
-               (float*)l, b, hkv, rows, t_q, page, max_pages, window, n_live, qs_mul};
+               (float*)l, b, hkv, rows, t_q, page, max_pages, window, n_live, qs_mul, d};
   cudaStream_t st = (cudaStream_t)stream;
   return windowed ? dispatch<true>(d, packed, a, st) : dispatch<false>(d, packed, a, st);
 }
@@ -106,8 +107,8 @@ int checked(const void* q, const void* pk, const void* pks, const void* pv, cons
 // the page pool, int8 [P, hkv, page, d] or token-pair-packed [P, hkv,
 // page/2, d]; pks, pvs: fp32 [P, hkv, page]; table: int32 [b, max_pages]
 // physical page ids; lengths: int32 [b]; o: fp32 [b, hkv, rows, d]; m, l:
-// fp32 [b, hkv, rows] or both NULL.  All contiguous; d 64 or 128; qs_mul
-// as sage_decode's.
+// fp32 [b, hkv, rows] or both NULL.  All contiguous; d as sage_decode's;
+// qs_mul as sage_decode's.
 extern "C" int sage_paged_decode(const void* q, const void* pk, const void* pks, const void* pv,
                                  const void* pvs, const void* table, const void* lengths, void* o,
                                  void* m, void* l, int b, int hkv, int rows, int t_q, int page,

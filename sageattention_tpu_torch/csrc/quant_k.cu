@@ -8,9 +8,10 @@
 //                    in fp32, in a fixed order (deterministic).
 //   quant_k_chunked  one CTA per (b,h, group of G rows): x = k - km,
 //                    amax over the LIVE rows of the group (the last group
-//                    may be ragged), scale = max(amax,1e-30) * (1/127),
+//                    may be ragged), scale = max(amax,1e-30) * (1/qmax),
 //                    r = 1/scale, code = roundf(x * r) (half away from
-//                    zero, as the spec's round_half_away).
+//                    zero, as the spec's round_half_away) clipped to
+//                    +-qmax; qmax 127, or 7 for bits=4.
 //
 // Bound: bytes.  The work is a few flops per element; the least time is
 // reading K (bf16) and writing the int8 codes.  The TPU fused both steps
@@ -30,7 +31,6 @@
 
 namespace {
 
-constexpr float kInvQmax = (float)(1.0 / 127.0);  // as the spec: f32(1/qmax)
 constexpr int kMeanThreads = 512;
 constexpr int kQuantThreads = 256;
 
@@ -100,7 +100,7 @@ __global__ void quant_k_kernel(const T* __restrict__ k,
                                const float* __restrict__ km,
                                int8_t* __restrict__ out,
                                float* __restrict__ scales, int s, int d,
-                               int group) {
+                               int group, float qmax, float inv_qmax) {
   __shared__ float red[32];
   __shared__ float mean[128];
   const int c = blockIdx.x, bh = blockIdx.y;
@@ -121,7 +121,7 @@ __global__ void quant_k_kernel(const T* __restrict__ k,
     for (int j = 0; j < 8; ++j) amax = fmaxf(amax, fabsf(x[j] - mean[v * 8 + j]));
   }
   amax = block_max(amax, red);
-  const float scale = fmaxf(amax, 1e-30f) * kInvQmax;
+  const float scale = fmaxf(amax, 1e-30f) * inv_qmax;
   const float r_scale = 1.0f / scale;
   if (threadIdx.x == 0) scales[(size_t)bh * n_groups + c] = scale;
 
@@ -133,7 +133,7 @@ __global__ void quant_k_kernel(const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       float y = roundf((x[j] - mean[v * 8 + j]) * r_scale);
-      q.b[j] = (int8_t)fminf(fmaxf(y, -127.f), 127.f);
+      q.b[j] = (int8_t)fminf(fmaxf(y, -qmax), qmax);
     }
     *reinterpret_cast<uint2*>(out + off + (size_t)r * d + v * 8) = q.u;
   }
@@ -157,18 +157,21 @@ extern "C" int k_channel_mean(const void* k, void* km, int bh, int s, int d,
 }
 
 // k: [bh, s, d]; km: [bh, d] fp32 or NULL (no smoothing); out: int8
-// [bh, s, d]; scales: fp32 [bh, ceil(s/group)].
+// [bh, s, d]; scales: fp32 [bh, ceil(s/group)]; qmax 127 or 7 and
+// inv_qmax = f32(1/qmax).
 extern "C" int quant_k_chunked(const void* k, const void* km, void* out,
                                void* scales, int bh, int s, int d, int group,
-                               int k_is_bf16, void* stream) {
+                               int k_is_bf16, float qmax, float inv_qmax, void* stream) {
   if (d % 8 != 0 || d > 128 || group <= 0) return (int)cudaErrorInvalidValue;
   dim3 grid((s + group - 1) / group, bh);
   cudaStream_t st = (cudaStream_t)stream;
   if (k_is_bf16)
     quant_k_kernel<__nv_bfloat16><<<grid, kQuantThreads, 0, st>>>(
-        (const __nv_bfloat16*)k, (const float*)km, (int8_t*)out, (float*)scales, s, d, group);
+        (const __nv_bfloat16*)k, (const float*)km, (int8_t*)out, (float*)scales, s, d, group,
+        qmax, inv_qmax);
   else
     quant_k_kernel<float><<<grid, kQuantThreads, 0, st>>>(
-        (const float*)k, (const float*)km, (int8_t*)out, (float*)scales, s, d, group);
+        (const float*)k, (const float*)km, (int8_t*)out, (float*)scales, s, d, group, qmax,
+        inv_qmax);
   return (int)cudaGetLastError();
 }

@@ -1,17 +1,21 @@
 // Per-token int8 Q quantizer for Hopper (sm_90a).
 //
 // Replaces the TPU kernel quant_pallas.py:quant_q_per_token
-// (_quant_rows_kernel): per-row amax, scale = max(amax,1e-30)*(1/127),
+// (_quant_rows_kernel): per-row amax, scale = max(amax,1e-30)*(1/qmax),
 // r = 1/scale, code = roundf(x * r) (half away from zero) clipped to
-// [-127, 127], and the row's scale with sm_scale*log2(e) folded in.
+// [-qmax, qmax], and the row's scale with sm_scale*log2(e) folded in.
+// qmax is 127, or 7 for bits=4 (the +-7 codes that sageattn's qk_bits=4
+// feeds the pre-quantized forward, attention_fwd_preq.cu).
 //
 // The backward re-quantizes Q with it, and the forward kernel
 // (attention_fwd.cu) quantized the same rows inside the kernel; the saved
 // base-2 LSE was built from those scales, so P = exp2(l2 - lse2) only
 // normalises if both agree bit for bit.  This kernel therefore repeats the
 // forward's arithmetic exactly: the same fp32 chain for the codes, and the
-// folded scale as max(amax,1e-30) * qs_mul with qs_mul = f32(1/127) *
+// folded scale as max(amax,1e-30) * qs_mul with qs_mul = f32(1/qmax) *
 // f32(sm_scale*log2e), the reassociated form XLA compiles the spec into.
+// The JAX forward quantizes Q inside its kernel with the same chain
+// (attention_pallas.py:475-503), so at qmax 7 these are its codes too.
 // Built without --use_fast_math so that 1/scale is an IEEE divide.
 //
 // Bound: bytes.  A few flops per element; the least time is reading Q and
@@ -25,7 +29,6 @@
 
 namespace {
 
-constexpr float kInvQmax = (float)(1.0 / 127.0);  // as the spec: f32(1/qmax)
 constexpr int kRowsPerCta = 8;
 
 template <typename T, int N>
@@ -44,7 +47,8 @@ __device__ inline float to_f32(float x) { return x; }
 template <int D, typename T>
 __global__ void __launch_bounds__(kRowsPerCta * 32)
 quant_q_kernel(const T* __restrict__ q, int8_t* __restrict__ out,
-               float* __restrict__ scales, long long rows, float qs_mul) {
+               float* __restrict__ scales, long long rows, float qs_mul, float qmax,
+               float inv_qmax) {
   constexpr int E = D / 32;  // elements a lane
   const long long row = (long long)blockIdx.x * kRowsPerCta + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -60,38 +64,38 @@ quant_q_kernel(const T* __restrict__ q, int8_t* __restrict__ out,
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-  const float scale = fmaxf(amax, 1e-30f) * kInvQmax;
+  const float scale = fmaxf(amax, 1e-30f) * inv_qmax;
   const float r = 1.0f / scale;
   Codes<E> c;
 #pragma unroll
   for (int e = 0; e < E; ++e)
-    c.v[e] = (int8_t)fminf(fmaxf(roundf(x[e] * r), -127.f), 127.f);
+    c.v[e] = (int8_t)fminf(fmaxf(roundf(x[e] * r), -qmax), qmax);
   *reinterpret_cast<Codes<E>*>(out + row * D + lane * E) = c;
   if (lane == 0) scales[row] = fmaxf(amax, 1e-30f) * qs_mul;
 }
 
 template <int D, typename T>
-int launch(const void* q, void* out, void* scales, long long rows, float qs_mul,
-           cudaStream_t st) {
+int launch(const void* q, void* out, void* scales, long long rows, float qs_mul, float qmax,
+           float inv_qmax, cudaStream_t st) {
   const long long ctas = (rows + kRowsPerCta - 1) / kRowsPerCta;
   quant_q_kernel<D, T><<<(unsigned)ctas, kRowsPerCta * 32, 0, st>>>(
-      (const T*)q, (int8_t*)out, (float*)scales, rows, qs_mul);
+      (const T*)q, (int8_t*)out, (float*)scales, rows, qs_mul, qmax, inv_qmax);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q: [rows, d] contiguous (bf16 if q_is_f32 == 0, else fp32), d in {64,
-// 128}; out: int8 [rows, d]; scales: fp32 [rows];
-// qs_mul = f32(1/127) * f32(sm_scale * log2(e)).
+// 128}; out: int8 [rows, d]; scales: fp32 [rows]; qmax 127 or 7 and
+// inv_qmax = f32(1/qmax); qs_mul = f32(1/qmax) * f32(sm_scale * log2(e)).
 extern "C" int quant_q_per_token(const void* q, void* out, void* scales,
                                  long long rows, int d, int q_is_f32,
-                                 float qs_mul, void* stream) {
+                                 float qs_mul, float qmax, float inv_qmax, void* stream) {
   if (rows <= 0 || (d != 64 && d != 128)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (d == 64)
-    return q_is_f32 ? launch<64, float>(q, out, scales, rows, qs_mul, st)
-                    : launch<64, __nv_bfloat16>(q, out, scales, rows, qs_mul, st);
-  return q_is_f32 ? launch<128, float>(q, out, scales, rows, qs_mul, st)
-                  : launch<128, __nv_bfloat16>(q, out, scales, rows, qs_mul, st);
+    return q_is_f32 ? launch<64, float>(q, out, scales, rows, qs_mul, qmax, inv_qmax, st)
+                    : launch<64, __nv_bfloat16>(q, out, scales, rows, qs_mul, qmax, inv_qmax, st);
+  return q_is_f32 ? launch<128, float>(q, out, scales, rows, qs_mul, qmax, inv_qmax, st)
+                  : launch<128, __nv_bfloat16>(q, out, scales, rows, qs_mul, qmax, inv_qmax, st);
 }

@@ -34,10 +34,10 @@ P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 SIGNATURES = {
     "quant_k": {
         "k_channel_mean": [P, P, I, I, I, I, P],
-        "quant_k_chunked": [P, P, P, P, I, I, I, I, I, P],
+        "quant_k_chunked": [P, P, P, P, I, I, I, I, I, F, F, P],
     },
     "quant_q": {
-        "quant_q_per_token": [P, P, P, LL, I, I, F, P],
+        "quant_q_per_token": [P, P, P, LL, I, I, F, F, F, P],
     },
     "quant_v": {
         "quant_v_per_channel": [P] * 4 + [I] * 6 + [P],
@@ -51,6 +51,12 @@ SIGNATURES = {
         # sage_attn_fwd's operands, the nine mask pointers, ten strides,
         # the window and the bias type
         "sage_attn_fwd_masked": [P] * 8 + [I] * 11 + [F, P] + [P] * 9 + [LL] * 10 + [I] * 2,
+    },
+    "attention_fwd_preq": {
+        # sage_attn_fwd's operands less q_is_f32 and qs_mul; ks_per_row,
+        # o_f32, q_scale, col_bias, the stream; then `masked` and
+        # sage_attn_fwd_masked's masks
+        "sage_attn_fwd_preq": [P] * 8 + [I] * 12 + [P] * 3 + [I] + [P] * 9 + [LL] * 10 + [I] * 2,
     },
     "attention_bwd": {
         "sage_attn_bwd_dq": [P] * 10 + [I] * 9 + [F, P],

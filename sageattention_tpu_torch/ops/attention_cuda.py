@@ -5,13 +5,16 @@ Replaces the TPU kernel ``sageattention_tpu/ops/attention_pallas.py``:
 for int8 / fp8 V codes with per-channel scales and the smooth-v mean
 (its default ``pv_compute="bf16"``: codes widened to bf16, P.V in bf16),
 and with its masks (:class:`Masks`: segment ids and varlen's range form,
-positions, a bool mask, an additive bias, a sliding window).  Two
-wrappers, two libraries built from one kernel body
-(``csrc/attention_fwd_kernel.cuh``, which says what bounds it and what
-this first version leaves for later): :func:`sage_attention_fwd`
-(``csrc/attention_fwd.cu``, no masks) and :func:`sage_attention_fwd_masked`
-(``csrc/attention_fwd_masked.cu``).  A masked row with no live key gives
-o = 0 and lse2 = -inf, as the TPU kernel does.
+positions, a bool mask, an additive bias, a sliding window), and on
+pre-quantized operands (int8 or +-7 Q codes with per-row scales, K scales
+per tile or per row, smooth-q's column bias).  Three wrappers, three
+libraries built from one kernel body (``csrc/attention_fwd_kernel.cuh``,
+which says what bounds it and what this first version leaves for later):
+:func:`sage_attention_fwd` (``csrc/attention_fwd.cu``, no masks),
+:func:`sage_attention_fwd_masked` (``csrc/attention_fwd_masked.cu``) and
+:func:`sage_attention_fwd_preq` (``csrc/attention_fwd_preq.cu``, with
+masks or without).  A masked row with no live key gives o = 0 and lse2 =
+-inf, as the TPU kernel does.
 
 The H100 launch configuration is fixed: 64 Q rows per CTA, KV tiles of
 ``K_GROUP`` = 128 columns, which is also the K-scale group, so the kernel
@@ -138,32 +141,45 @@ def tile_liveness(masks: Masks, sq: int, sk: int) -> torch.Tensor | None:
     return (any_.to(torch.uint8) + (any_ & all_).to(torch.uint8)).contiguous()
 
 
-def _check(q, k_i8, k_scale, v, v_scale, v_mean):
-    b, hq, sq, d = q.shape
-    hkv, sk = k_i8.shape[1], k_i8.shape[2]
-    want = {
-        "q": (q, (torch.bfloat16, torch.float32), (b, hq, sq, d)),
-        "k_i8": (k_i8, (torch.int8,), (b, hkv, sk, d)),
-        "k_scale": (k_scale, (torch.float32,), (b, hkv, -(-sk // K_GROUP))),
-        "v": (v, V_TYPES, (b, hkv, sk, d)),
-        "v_scale": (v_scale, (torch.float32,), (b, hkv, d)),
-        "v_mean": (v_mean, (torch.float32,), (b, hkv, d)),
-    }
+def _check_operands(device, want: dict, optional: tuple) -> None:
+    """Each operand of ``want`` (name -> (tensor, dtypes, shape)) on
+    ``device``, of one of its dtypes and its shape, contiguous; those named
+    in ``optional`` may be None."""
     for name, (x, dtypes, shape) in want.items():
-        if x is None and name in ("v_scale", "v_mean"):
+        if x is None and name in optional:
             continue
-        if x.device != q.device or x.dtype not in dtypes or tuple(x.shape) != shape:
+        if x.device != device or x.dtype not in dtypes or tuple(x.shape) != shape:
             raise ValueError(
-                f"{name}: want {shape} {dtypes} on {q.device}, got "
+                f"{name}: want {shape} {dtypes} on {device}, got "
                 f"{tuple(x.shape)} {x.dtype} on {x.device}"
             )
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _check_kv(device, q_shape, k_i8, k_scale, v, v_scale, v_mean, ks_cols=None):
+    """The K and V operands of a forward kernel for a Q of ``q_shape``:
+    K scales per tile, or ``ks_cols`` of them a head."""
+    b, hq, sq, d = q_shape
+    hkv, sk = k_i8.shape[1], k_i8.shape[2]
+    f32 = (torch.float32,)
+    _check_operands(device, {
+        "k_i8": (k_i8, (torch.int8,), (b, hkv, sk, d)),
+        "k_scale": (k_scale, f32, (b, hkv, ks_cols or -(-sk // K_GROUP))),
+        "v": (v, V_TYPES, (b, hkv, sk, d)),
+        "v_scale": (v_scale, f32, (b, hkv, d)),
+        "v_mean": (v_mean, f32, (b, hkv, d)),
+    }, ("v_scale", "v_mean"))
     _check_v_scale(v, v_scale)
     if d not in (64, 128):
         raise ValueError(f"head dim {d}: the kernel takes 64 or 128 (pad first)")
     if hq % hkv:
         raise ValueError(f"hq={hq} is not a multiple of hkv={hkv}")
+
+
+def _check(q, k_i8, k_scale, v, v_scale, v_mean):
+    _check_operands(q.device, {"q": (q, (torch.bfloat16, torch.float32), tuple(q.shape))}, ())
+    _check_kv(q.device, q.shape, k_i8, k_scale, v, v_scale, v_mean)
 
 
 def sage_attention_fwd(q, k_i8, k_scale, v, v_scale=None, v_mean=None, *,
@@ -289,3 +305,90 @@ def sage_attention_fwd_masked(q, k_i8, k_scale, v, v_scale=None, v_mean=None, *,
 
 
 sage_attention_fwd_masked.launches = 0
+
+
+def sage_attention_preq_plain(q_i8, q_scale, k_i8, k_scale, v, v_scale=None, v_mean=None, *,
+                              is_causal: bool, return_lse: bool, out_dtype=torch.bfloat16,
+                              col_bias=None, masks: Masks | None = None):
+    """The pre-quantized kernel's function in plain PyTorch: per-tile K
+    scales expanded per row (per-row ones as they are), then
+    :func:`reference.quantized_attention_reference` with the column bias
+    and the ``masks``."""
+    _check_v_scale(v, v_scale)
+    sk = k_i8.shape[2]
+    if k_scale.shape[-1] != sk:
+        k_scale = k_scale.repeat_interleave(K_GROUP, dim=-1)[..., :sk]
+    return reference.quantized_attention_reference(
+        q_i8, q_scale, k_i8, k_scale, v, v_scale, v_mean, is_causal=is_causal,
+        return_lse=return_lse, out_dtype=out_dtype, score_col_bias=col_bias,
+        **(masks.reference_kwargs() if masks is not None else {}),
+    )
+
+
+def _check_preq(q_i8, q_scale, k_i8, k_scale, v, v_scale, v_mean, col_bias, out_dtype):
+    """The pre-quantized kernel's operands: the codes, per-row Q scales and
+    the column bias, then K (per-tile or per-row scales) and V."""
+    b, hq, sq, d = q_i8.shape
+    sk = k_i8.shape[2]
+    f32 = (torch.float32,)
+    _check_operands(q_i8.device, {
+        "q_i8": (q_i8, (torch.int8,), (b, hq, sq, d)),
+        "q_scale": (q_scale, f32, (b, hq, sq)),
+        "col_bias": (col_bias, f32, (b, hq, sk)),
+    }, ("col_bias",))
+    _check_kv(q_i8.device, q_i8.shape, k_i8, k_scale, v, v_scale, v_mean,
+              ks_cols=sk if k_scale.shape[-1] == sk else None)
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"out_dtype must be bf16 or fp32, got {out_dtype}")
+
+
+def sage_attention_fwd_preq(q_i8, q_scale, k_i8, k_scale, v, v_scale=None, v_mean=None, *,
+                            is_causal: bool, return_lse: bool = False,
+                            out_dtype=torch.bfloat16, col_bias=None,
+                            masks: Masks | None = None):
+    """The forward on pre-quantized operands (``csrc/attention_fwd_preq.cu``),
+    HND: q_i8 [b,hq,sq,d] int8 codes (+-127, or +-7 at 4 bits) with
+    q_scale [b,hq,sq] fp32 holding ``sm_scale * log2(e)``; k_i8 with
+    k_scale [b,hkv,ceil(sk/K_GROUP)] per tile or [b,hkv,sk] per row; V as
+    :func:`sage_attention_fwd` takes it; ``col_bias`` [b,hq,sk] fp32 in the
+    base-2 domain (smooth-q) or None; ``masks`` (:class:`Masks`) or None.
+    Returns o [b,hq,sq,d] in ``out_dtype`` (bf16 or fp32) and, with
+    ``return_lse``, the base-2 LSE."""
+    b, hq, sq, d = q_i8.shape
+    hkv, sk = k_i8.shape[1], k_i8.shape[2]
+    if masks is not None:
+        check_masks(masks, b, hq, sq, sk, q_i8.device, is_causal)
+    if q_i8.device.type == "cpu":
+        return sage_attention_preq_plain(q_i8, q_scale, k_i8, k_scale, v, v_scale, v_mean,
+                                         is_causal=is_causal, return_lse=return_lse,
+                                         out_dtype=out_dtype, col_bias=col_bias, masks=masks)
+    if q_i8.device.type != "cuda":
+        raise ValueError(f"sage_attention_fwd_preq: tensor on {q_i8.device}")
+    _check_preq(q_i8, q_scale, k_i8, k_scale, v, v_scale, v_mean, col_bias, out_dtype)
+    o = torch.empty(b, hq, sq, d, dtype=out_dtype, device=q_i8.device)
+    lse2 = torch.empty(b, hq, sq, dtype=torch.float32, device=q_i8.device) if return_lse else None
+    m = masks if masks is not None else Masks()
+    live = tile_liveness(m, sq, sk) if masks is not None else None
+    live_st = [0, 0] if live is None else broadcast_strides(live)[:2]
+
+    def ptr(x):
+        return x.data_ptr() if x is not None else None
+
+    with torch.cuda.device(q_i8.device):
+        err = _build.lib("attention_fwd_preq").sage_attn_fwd_preq(
+            q_i8.data_ptr(), k_i8.data_ptr(), k_scale.data_ptr(), v.data_ptr(), ptr(v_scale),
+            ptr(v_mean), o.data_ptr(), ptr(lse2), b, hq, hkv, sq, sk, d, int(is_causal),
+            V_TYPES.index(v.dtype), int(return_lse), K_GROUP, int(k_scale.shape[-1] == sk),
+            int(out_dtype == torch.float32), q_scale.data_ptr(), ptr(col_bias),
+            torch.cuda.current_stream(q_i8.device).cuda_stream, int(masks is not None),
+            ptr(m.q_seg), ptr(m.kv_seg), ptr(m.kv_lo), ptr(m.kv_hi), ptr(m.q_pos),
+            ptr(m.kv_pos), ptr(m.mask), ptr(m.bias), ptr(live), *broadcast_strides(m.mask),
+            *broadcast_strides(m.bias), *live_st, window_arg(m.window, is_causal),
+            int(m.bias is not None and m.bias.dtype == torch.bfloat16),
+        )
+    _build.check(err, "sage_attn_fwd_preq")
+    sage_attention_fwd_preq.launches += 1
+    return (o, lse2) if return_lse else o
+
+
+sage_attention_fwd_preq.launches = 0

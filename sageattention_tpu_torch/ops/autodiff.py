@@ -28,14 +28,23 @@ Every length is taken: the kernels mask the ragged edge.  (The JAX fused
 backward takes only multiples of 128 and falls back to an exact,
 unquantized recompute elsewhere; ROADMAP records the difference.)  The
 callers pass HND tensors: ``core`` normalises NHD first.
+
+The Q/K options (``smooth_q``, ``qk_bits=4``, ``qk_quant_gran`` other than
+"auto") are outside what the fused backward models (the JAX package's
+``_FUSED_BWD_KWARGS``, ``autodiff.py:106-114``): :class:`RecomputeFunction`
+runs their quantized forward and differentiates exact attention,
+recomputed from the saved q, k and v (:func:`exact_attention_vjp`), as the
+JAX package does (``autodiff.py:173-196``).
 """
 
 from __future__ import annotations
 
 import torch
 
+import torch.nn.functional as F
+
 from sageattention_tpu_torch import core
-from sageattention_tpu_torch.ops import attention_bwd_cuda, quant_cuda
+from sageattention_tpu_torch.ops import attention_bwd_cuda, quant_cuda, reference
 from sageattention_tpu_torch.ops.attention_cuda import Masks
 
 LOG2E = 1.4426950408889634
@@ -133,3 +142,66 @@ class SageAttnFunction(torch.autograd.Function):
             dlse=dlse if ctx.return_lse else None, is_causal=ctx.is_causal,
             sm_scale=ctx.sm_scale, v_q=v_q, v_scale=v_scale, v_mean=v_mean, window=ctx.window)
         return dq, dk, dv, None, None, None, None, None, None, None
+
+
+def exact_attention_vjp(q, k, v, do, dlse, *, is_causal: bool, sm_scale: float | None,
+                        window: int | None = None):
+    """(dq, dk, dv) of exact attention at the saved q, k, v (HND; GQA when k
+    and v have fewer heads), for the cotangents ``do`` of o and ``dlse`` of
+    the natural-log LSE (either may be None).
+
+    With an LSE cotangent or a ``window``, autograd through
+    :func:`reference.attention_reference`, which materializes each head's
+    [sq, sk] scores (``autodiff.py:173-188`` of the JAX package).
+    Otherwise exact attention recomputed under autograd: on the card
+    ``F.scaled_dot_product_attention``, K and V repeated over the GQA group
+    inside the graph so that their gradients sum over it, where the JAX
+    package takes jax's library flash attention on a TPU; on the CPU the
+    reference (``_exact_attention_for_bwd``, ``autodiff.py:43-103``)."""
+    xs = [x.detach().requires_grad_() for x in (q, k, v)]
+    exact = dlse is None and window is None and q.device.type == "cuda"
+    with torch.enable_grad():
+        if exact:
+            rep_ = q.shape[1] // k.shape[1]
+            kr, vr = (x.repeat_interleave(rep_, dim=1) for x in xs[1:])
+            outs = (F.scaled_dot_product_attention(xs[0], kr, vr, is_causal=is_causal,
+                                                   scale=sm_scale),)
+        else:
+            out = reference.attention_reference(*xs, is_causal=is_causal, sm_scale=sm_scale,
+                                                window=window, return_lse=dlse is not None)
+            outs = out if dlse is not None else (out,)
+    if do is None:  # only the LSE is used
+        do = torch.zeros_like(outs[0])
+    cts = (do,) if dlse is None else (do, dlse)
+    return torch.autograd.grad(outs, xs, cts)
+
+
+class RecomputeFunction(torch.autograd.Function):
+    """``sageattn`` on HND tensors with a Q/K option (``core.QKOptions``).
+
+    ``apply(q, k, v, is_causal, sm_scale, smooth_k, return_lse, pv_dtype,
+    smooth_v, window, opts)``: the quantized forward (the pre-quantized
+    kernel), saving q, k and v; the backward is :func:`exact_attention_vjp`.
+    It launches none of the backward's kernels.  An output that is not
+    used gets no cotangent (not a zero one), so an unused LSE keeps the
+    recompute off the materialized-scores path."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, is_causal, sm_scale, smooth_k, return_lse, pv_dtype, smooth_v,
+                window, opts):
+        ctx.set_materialize_grads(False)
+        out = core._sageattn_hnd(q, k, v, is_causal=is_causal, sm_scale=sm_scale,
+                                 smooth_k=smooth_k, return_lse=return_lse, pv_dtype=pv_dtype,
+                                 smooth_v=smooth_v,
+                                 masks=None if window is None else Masks(window=window),
+                                 opts=opts)
+        ctx.save_for_backward(q, k, v)
+        ctx.is_causal, ctx.sm_scale, ctx.window = is_causal, sm_scale, window
+        return out
+
+    @staticmethod
+    def backward(ctx, do, dlse=None):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = exact_attention_vjp(q, k, v, do, dlse, is_causal=ctx.is_causal,
+                                         sm_scale=ctx.sm_scale, window=ctx.window)
+        return dq, dk, dv, None, None, None, None, None, None, None, None

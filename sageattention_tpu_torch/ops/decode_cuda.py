@@ -308,8 +308,11 @@ def _device_args(q, lengths, *tensors):
             raise ValueError(f"tensor on {x.device}, q on {q.device}")
         if not x.is_contiguous():
             raise ValueError("the decode kernels take contiguous tensors")
-    if q.shape[-1] not in (64, 128):
-        raise ValueError(f"head dim {q.shape[-1]}: the kernels take 64 or 128")
+    d = q.shape[-1]
+    if d > 128 or d % 16:
+        # the kernels compute at 64 or 128 and read a cache of the caller's
+        # head dim in 16-byte blocks, the lanes past it zero
+        raise ValueError(f"head dim {d}: the kernels take multiples of 16 up to 128")
     return q.float().contiguous(), lengths.to(device=q.device, dtype=torch.int32).contiguous()
 
 

@@ -8,7 +8,9 @@ says what bounds them (bytes) and why K is read twice on this card;
 which the backward uses to quantize Q again exactly as the forward kernel
 did inside itself; and the per-channel V quantizers ``quant_v_per_channel``
 (``_quant_v_kernel``) and ``_quant_v_blocked`` (``_v_stats_kernel``,
-``_v_apply_kernel``), in ``csrc/quant_v.cu``.
+``_v_apply_kernel``), in ``csrc/quant_v.cu``.  The Q and K quantizers take
+``bits``: 8, or 4 for the +-7 codes of ``sageattn(qk_bits=4)``, as the TPU
+kernels do.
 
 On a CPU tensor every function here runs its plain PyTorch version; on a
 CUDA tensor it launches its kernel or raises.  Each wrapper counts its
@@ -17,6 +19,7 @@ launches in ``<function>.launches``.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -44,25 +47,33 @@ def _check_input(x: torch.Tensor, what: str = "K quantizer") -> None:
         )
 
 
-def quant_q_per_token_plain(q: torch.Tensor, *, scale_fold: float):
-    """The spec: ``quant.quant_int8(q, scale_fold=scale_fold)``."""
-    return quant.quant_int8(q, scale_fold=scale_fold)
+def _qmax_args(bits: int) -> tuple[float, float]:
+    """(qmax, f32(1/qmax)) of the Q / K kernels."""
+    qmax = quant.qk_qmax(bits)
+    return qmax, float(np.float32(1.0 / qmax))
 
 
-def quant_q_per_token(q: torch.Tensor, *, scale_fold: float):
+def quant_q_per_token_plain(q: torch.Tensor, *, scale_fold: float, bits: int = 8):
+    """The spec: ``quant.quant_int8(q, scale_fold=scale_fold, bits=bits)``."""
+    return quant.quant_int8(q, scale_fold=scale_fold, bits=bits)
+
+
+def quant_q_per_token(q: torch.Tensor, *, scale_fold: float, bits: int = 8):
     """[b,h,s,d] -> (int8 [b,h,s,d], f32 scales [b,h,s] with ``scale_fold``
-    folded in), bit for bit the forward kernel's in-kernel Q quantization."""
+    folded in), bit for bit the forward kernel's in-kernel Q quantization
+    (and at ``bits=4`` the TPU kernel's at qmax 7)."""
     if q.device.type == "cpu":
-        return quant_q_per_token_plain(q, scale_fold=scale_fold)
+        return quant_q_per_token_plain(q, scale_fold=scale_fold, bits=bits)
     _check_input(q, "Q quantizer")
+    qmax, inv_qmax = _qmax_args(bits)
     b, h, s, d = q.shape
     out = torch.empty(b, h, s, d, dtype=torch.int8, device=q.device)
     scales = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):  # the launch goes to the current device
         err = _build.lib("quant_q").quant_q_per_token(
             q.data_ptr(), out.data_ptr(), scales.data_ptr(), b * h * s, d,
-            int(q.dtype == torch.float32), quant.fold_multiplier(scale_fold),
-            torch.cuda.current_stream(q.device).cuda_stream,
+            int(q.dtype == torch.float32), quant.fold_multiplier(scale_fold, qmax), qmax,
+            inv_qmax, torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(err, "quant_q_per_token")
     quant_q_per_token.launches += 1
@@ -97,18 +108,19 @@ def k_channel_mean(k: torch.Tensor) -> torch.Tensor:
 k_channel_mean.launches = 0
 
 
-def quant_k_chunked_plain(k, km, *, group: int):
-    """The spec: ``quant_int8_block_scales(k - km, group)``."""
+def quant_k_chunked_plain(k, km, *, group: int, bits: int = 8):
+    """The spec: ``quant_int8_block_scales(k - km, group, bits)``."""
     ks = k.float() - km[..., None, :] if km is not None else k.float()
-    return quant.quant_int8_block_scales(ks, group=group)
+    return quant.quant_int8_block_scales(ks, group=group, bits=bits)
 
 
-def quant_k_chunked(k: torch.Tensor, km: torch.Tensor | None, *, group: int):
+def quant_k_chunked(k: torch.Tensor, km: torch.Tensor | None, *, group: int, bits: int = 8):
     """[b,h,s,d] -> (int8 [b,h,s,d], f32 scales [b,h,ceil(s/group)]),
     subtracting ``km`` [b,h,d] first when it is given."""
     if k.device.type == "cpu":
-        return quant_k_chunked_plain(k, km, group=group)
+        return quant_k_chunked_plain(k, km, group=group, bits=bits)
     _check_input(k)
+    qmax, inv_qmax = _qmax_args(bits)
     b, h, s, d = k.shape
     if km is not None and (
         km.dtype != torch.float32 or km.shape != (b, h, d)
@@ -121,7 +133,7 @@ def quant_k_chunked(k: torch.Tensor, km: torch.Tensor | None, *, group: int):
         err = _build.lib("quant_k").quant_k_chunked(
             k.data_ptr(), km.data_ptr() if km is not None else None,
             out.data_ptr(), scales.data_ptr(), b * h, s, d, group,
-            int(k.dtype == torch.bfloat16),
+            int(k.dtype == torch.bfloat16), qmax, inv_qmax,
             torch.cuda.current_stream(k.device).cuda_stream,
         )
     _build.check(err, "quant_k_chunked")
@@ -132,11 +144,11 @@ def quant_k_chunked(k: torch.Tensor, km: torch.Tensor | None, *, group: int):
 quant_k_chunked.launches = 0
 
 
-def quant_k_fused_mean(k: torch.Tensor, *, group: int, smooth: bool = True):
+def quant_k_fused_mean(k: torch.Tensor, *, group: int, smooth: bool = True, bits: int = 8):
     """The K prologue of the default forward: (int8 K, per-group scales,
     km or None).  On the card: ``k_channel_mean`` then ``quant_k_chunked``."""
     km = k_channel_mean(k) if smooth else None
-    k_i8, scales = quant_k_chunked(k, km, group=group)
+    k_i8, scales = quant_k_chunked(k, km, group=group, bits=bits)
     return k_i8, scales, km
 
 

@@ -162,6 +162,7 @@ def quantized_attention_reference(
     attn_bias: torch.Tensor | None = None,
     q_kv_lo: torch.Tensor | None = None,
     q_kv_hi: torch.Tensor | None = None,
+    score_col_bias: torch.Tensor | None = None,
 ):
     """Unfused spec of the fused kernel's arithmetic.
 
@@ -169,8 +170,10 @@ def quantized_attention_reference(
     scales, with ``sm_scale * log2(e)`` folded into ``q_scale``; ``v`` is
     the bf16 (or fp32) V, or its int8 / fp8 codes with the per-channel
     ``v_scale`` [b,hkv,d]; ``v_mean`` [b,hkv,d], if given, is added back
-    (smooth-v).  The epilogue runs in the JAX order ``(pv * v_scale) / l +
-    v_mean``.  Returns o and, if asked, the base-2 LSE ``log2(l) + m`` as
+    (smooth-v).  ``score_col_bias`` [b,hq,sk] fp32, if given, is added to
+    the dequantized base-2 scores (smooth-q's ``qm . (k - km)`` column
+    term, ``reference.py:214-216`` of the JAX package).  The epilogue runs
+    in the JAX order ``(pv * v_scale) / l + v_mean``.  Returns o and, if asked, the base-2 LSE ``log2(l) + m`` as
     the kernel stores it.
 
     The int8 product runs as an fp32 matmul of the codes, which is exact:
@@ -199,6 +202,8 @@ def quantized_attention_reference(
             hk = _kv_head(h, hq, hkv)
             s_i = q_i8[bi, h].float() @ k_i8[bi, hk].float().T
             s = s_i * q_scale[bi, h, :, None] * k_scale[bi, hk, None, :]
+            if score_col_bias is not None:
+                s = s + score_col_bias[bi, h, None, :].float()
             if bias is not None:
                 s = torch.clamp(s + _slab(bias, bi, h).float() * LOG2E, min=MASK_VALUE)
             mk = _slab(mask, bi, h)

@@ -20,6 +20,7 @@ import torch
 
 LOG2E = 1.4426950408889634
 INT8_QMAX = 127.0
+INT4_QMAX = 7.0
 
 
 def round_half_away(x: torch.Tensor) -> torch.Tensor:
@@ -57,31 +58,63 @@ def fold_multiplier(scale_fold: float, qmax: float = INT8_QMAX) -> float:
     return float(np.float32(1.0 / qmax) * np.float32(scale_fold))
 
 
-def quant_int8(x: torch.Tensor, *, scale_fold: float = 1.0):
-    """Per-row (``per_token``) int8: [b,h,s,d] -> (int8 [b,h,s,d], f32
-    scales [b,h,s] with ``scale_fold`` multiplied in)."""
+def qk_qmax(bits: int) -> float:
+    """The largest Q / K code: 127, or 7 for ``bits=4`` (int4 values kept
+    in int8, ``quant.py:50`` of the JAX package)."""
+    if bits not in (4, 8):
+        raise ValueError(f"qk_bits must be 8 or 4, got {bits!r}")
+    return INT4_QMAX if bits == 4 else INT8_QMAX
+
+
+def _group_amax(x: torch.Tensor, group: int) -> torch.Tensor:
+    """amax over groups of ``group`` rows x head dim, expanded per row to
+    [.., s]; a ragged last group takes its amax over its live rows."""
+    if group <= 1:
+        return x.abs().amax(dim=-1)
+    b, h, s, d = x.shape
+    pad = (-s) % group
+    g = torch.nn.functional.pad(x, (0, 0, 0, pad)).reshape(b, h, -1, group, d)
+    return g.abs().amax(dim=(-1, -2)).repeat_interleave(group, dim=-1)[..., :s]
+
+
+GRANULARITIES = ("per_token", "per_subtile", "per_block")
+
+
+def quant_int8(x: torch.Tensor, *, granularity: str = "per_token", block_size: int = 32,
+               scale_fold: float = 1.0, bits: int = 8):
+    """[b,h,s,d] -> (int8 [b,h,s,d], f32 per-row scales [b,h,s] with
+    ``scale_fold`` multiplied in).  ``granularity``: one scale a row
+    (``per_token``), a group of ``block_size`` rows (``per_subtile``) or of
+    ``max(block_size, 128)`` rows (``per_block``), expanded per row;
+    ``bits=4`` codes to +-7."""
+    if granularity not in GRANULARITIES:
+        raise ValueError(f"unknown granularity {granularity!r}")
+    qmax = qk_qmax(bits)
     x = x.float()
-    amax = x.abs().amax(dim=-1)
-    scale, r = inv_scale(amax, INT8_QMAX)
+    group = {"per_token": 1, "per_subtile": block_size, "per_block": max(block_size, 128)}
+    amax = _group_amax(x, group[granularity])
+    scale, r = inv_scale(amax, qmax)
     q = round_half_away(x * r[..., None])
-    q = q.clamp(-INT8_QMAX, INT8_QMAX).to(torch.int8)
-    folded = torch.clamp_min(amax, 1e-30) * f32_scalar(fold_multiplier(scale_fold), x.device)
+    q = q.clamp(-qmax, qmax).to(torch.int8)
+    folded = torch.clamp_min(amax, 1e-30) * f32_scalar(fold_multiplier(scale_fold, qmax),
+                                                      x.device)
     return q, folded
 
 
-def quant_int8_block_scales(x: torch.Tensor, *, group: int):
+def quant_int8_block_scales(x: torch.Tensor, *, group: int, bits: int = 8):
     """One scale per ``group`` rows: [b,h,s,d] -> (int8 [b,h,s,d], f32
     scales [b,h,ceil(s/group)]).  A ragged last group takes its amax over
     its live rows only (the spec zero-pads, and zeros never raise amax)."""
+    qmax = qk_qmax(bits)
     x = x.float()
     b, h, s, d = x.shape
     pad = (-s) % group
     xp = torch.nn.functional.pad(x, (0, 0, 0, pad))
     g = xp.reshape(b, h, -1, group, d)
     amax = g.abs().amax(dim=(-1, -2))
-    scale, r = inv_scale(amax, INT8_QMAX)
+    scale, r = inv_scale(amax, qmax)
     q = round_half_away(g * r[..., None, None])
-    q = q.clamp(-INT8_QMAX, INT8_QMAX).to(torch.int8)
+    q = q.clamp(-qmax, qmax).to(torch.int8)
     return q.reshape(b, h, s + pad, d)[:, :, :s], scale
 
 
@@ -120,3 +153,17 @@ def per_channel_quant(v: torch.Tensor, *, dtype=torch.int8, smooth: bool = False
     amax = v.abs().amax(dim=-2)
     scale, r = inv_scale(amax, QMAX[dtype])
     return v_codes(v * r[..., None, :], dtype), scale, v_mean
+
+
+def quantize_qk(q: torch.Tensor, k: torch.Tensor, *, sm_scale: float,
+                granularity: str = "per_token", block_size: int = 32, smooth_k: bool = True,
+                bits: int = 8):
+    """Q and K quantized outside the kernel (``quant.py:264-296`` of the JAX
+    package): K smoothed by its mean, Q with ``sm_scale * log2(e)`` folded
+    into its scales.  Returns (q_i8, q_scale [b,hq,sq], k_i8, k_scale
+    [b,hkv,sk], km [b,hkv,d] or None), the scales per row."""
+    k_s, km = sub_mean(k) if smooth_k else (k, None)
+    kw = dict(granularity=granularity, block_size=block_size, bits=bits)
+    q_i8, q_scale = quant_int8(q, scale_fold=sm_scale * LOG2E, **kw)
+    k_i8, k_scale = quant_int8(k_s, **kw)
+    return q_i8, q_scale, k_i8, k_scale, km

@@ -170,7 +170,9 @@ def test_sageattn_close_to_exact_attention(causal):
 @pytest.mark.parametrize(
     "kwargs,grad,exc,match",
     [
-        ({"smooth_q": True}, False, NotImplementedError, "ROADMAP"),
+        # the Q/K options are ported (tests/test_torch_qopts.py); a TPU launch
+        # option beside them still raises, and so do values they do not take
+        ({"smooth_q": True, "block_q": 64}, False, NotImplementedError, "launch configuration"),
         # the masks are ported (tests/test_torch_masks.py); what still raises:
         # a bool mask or an additive bias under grad, a lone side of a pair,
         # a window without causal or below 1
@@ -185,8 +187,8 @@ def test_sageattn_close_to_exact_attention(causal):
         ({"kv_positions": torch.arange(128)[None]}, False, ValueError, "together"),
         ({"window": 16}, False, ValueError, "is_causal"),
         ({"window": 0, "is_causal": True}, False, ValueError, ">= 1"),
-        ({"qk_bits": 4}, False, NotImplementedError, "ROADMAP"),
-        ({"qk_quant_gran": "per_block"}, False, NotImplementedError, "ROADMAP"),
+        ({"qk_bits": 3}, False, ValueError, "qk_bits"),
+        ({"qk_quant_gran": "per_warp"}, False, ValueError, "qk_quant_gran"),
     ],
     ids=["smooth_q", "attn_mask", "attn_bias", "q_segment_ids", "kv_segment_ids",
          "q_positions", "kv_positions", "window", "window_below_1", "qk_bits",
@@ -211,5 +213,8 @@ def test_gradients_and_large_head_dims_raise():
         sageattn(y, y, y)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sageattn(y.clone().requires_grad_(), y, y)
+    for opts in ({"smooth_q": True}, {"qk_bits": 4}, {"qk_quant_gran": "per_block"}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            sageattn(y, y, y, **opts)
     with pytest.raises(TypeError):
         sageattn(y, y, y, not_an_option=1)

@@ -6,8 +6,8 @@ kernels in interpret mode, on the CPU, from the same numpy inputs.
 the same chunk, and ``sage_paged_decode_attention`` (kernels 11 and 12) to
 ``paged_decode_pallas.sage_paged_decode_attention(..., interpret=True)``:
 ragged and out-of-range lengths, GQA, t_q > 1 (the causal tail), the
-sliding window, the packed int4 cache, ``return_state`` and scrambled
-16-token page tables.
+sliding window, the packed int4 cache, ``return_state``, scrambled
+16-token page tables and head dims other than 64 and 128 (32, 96).
 
 Tolerances: the merge state's running max ``m`` is bit-exact (the Q scale,
 the scores and the masks follow the same fp32 chain); ``o`` within 1e-5
@@ -58,6 +58,10 @@ DENSE = [
     (2, 8, 2, 1, 1024, 64, [1000, 37], 4096, 200, False, True),
     (2, 8, 2, 5, 1024, 64, [1000, 600], 256, 300, False, True),
     (1, 8, 2, 2, 2048, 64, [1999], 4096, 1100, True, True),
+    # head dim 96: the kernels compute at 128 and read the cache at its own
+    # head dim, the lanes past it zero
+    (2, 8, 2, 1, 512, 96, [300, 200], 128, None, False, True),
+    (2, 8, 2, 4, 512, 96, [512, 129], 128, 200, True, True),
 ]
 
 
@@ -84,6 +88,7 @@ PAGED = [
     (3, 8, 2, 3, 16, 40, 12, 64, [160, 0, -2], None, True),
     (2, 8, 2, 2, 16, 40, 20, 64, [300, 150], 64, False),
     (2, 4, 1, 1, 16, 40, 20, 32, [320, 99], 40, True),
+    (2, 8, 2, 1, 16, 40, 20, 96, [300, 17], None, False),
 ]
 
 

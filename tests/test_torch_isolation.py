@@ -75,6 +75,40 @@ def test_launches_run_under_their_tensors_device(rel):
     assert not bare, f"{rel}: launches outside torch.cuda.device(...) at lines {bare}"
 
 
+@pytest.mark.parametrize("rel,fn", [
+    ("ops/attention_cuda.py", "sage_attention_fwd"),
+    ("ops/attention_cuda.py", "sage_attention_fwd_masked"),
+    ("ops/attention_cuda.py", "sage_attention_fwd_preq"),
+    ("ops/quant_cuda.py", "quant_q_per_token"),
+    ("ops/quant_cuda.py", "quant_k_chunked"),
+])
+def test_each_wrapper_guards_and_counts_its_launch(rel, fn):
+    """The wrapper holds a launch under its tensors' device guard and counts
+    it in ``<wrapper>.launches``."""
+    tree = ast.parse((PKG / rel).read_text())
+    func = next(n for n in ast.walk(tree) if isinstance(n, ast.FunctionDef) and n.name == fn)
+    guards = [w for w in ast.walk(func) if isinstance(w, ast.With)
+              and any(map(_is_cuda_device_guard, w.items))]
+    assert any(_is_build_lib(n) for w in guards for n in ast.walk(w)), fn
+    counts = [n for n in ast.walk(func) if isinstance(n, ast.AugAssign)
+              and ast.unparse(n.target) == f"{fn}.launches"]
+    assert len(counts) == 1, fn
+
+
+def test_top_level_exports_resolve():
+    """The JAX package's top-level names the port has (``speculative_verify``
+    comes with its module)."""
+    import sageattention_tpu_torch as port
+
+    for name in ("sageattn", "sageattn_varlen", "sageattn_qk_int8_pv_bf16",
+                 "sageattn_qk_int8_pv_int8", "sageattn_qk_int8_pv_fp8", "quant", "reference",
+                 "QuantKVCache", "PagedKVCache", "init_kv_cache", "init_paged_kv_cache",
+                 "append_kv", "paged_append", "paged_prefill", "calibrate", "sageattn_decode",
+                 "sageattn_paged_decode", "models"):
+        assert name in port.__all__ and getattr(port, name) is not None, name
+    assert port.sageattn_decode.__module__ == "sageattention_tpu_torch.kvcache"
+
+
 def test_import_builds_nothing():
     from sageattention_tpu_torch.ops import _build
 

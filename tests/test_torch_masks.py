@@ -249,7 +249,8 @@ def _x(requires_grad=False):
      NotImplementedError, "no gradient"),
     ({"attn_bias": torch.zeros(128, 128)}, True, NotImplementedError, "dBias"),
     ({"attn_mask": torch.zeros(128, 128)}, True, NotImplementedError, "dBias"),
-    ({"smooth_q": True}, False, NotImplementedError, r"slice \(h\)"),
+    # smooth_q is ported (tests/test_torch_qopts.py); the masks beside it are checked
+    ({"smooth_q": True, "window": 16}, False, ValueError, "is_causal"),
 ], ids=["lone_q_seg", "lone_kv_seg", "lone_q_pos", "lone_kv_pos", "window_not_causal",
         "window_0", "mask_heads", "mask_trailing", "bias_batch", "grad_mask", "grad_segments",
         "grad_positions", "grad_bias", "grad_float_mask", "smooth_q"])

@@ -104,9 +104,11 @@ def _args(requires_grad=False):
 
 
 @pytest.mark.parametrize("kwargs,exc,match", [
-    ({"smooth_q": True}, NotImplementedError, r"slice \(h\)"),
-    ({"qk_bits": 4}, NotImplementedError, r"slice \(i\)"),
-    ({"qk_quant_gran": "per_block"}, NotImplementedError, "module 1"),
+    # the Q/K options are taken (tests/test_torch_qopts.py): a TPU launch
+    # option beside them raises, and so do values they do not take
+    ({"smooth_q": True, "impl": "xla"}, NotImplementedError, "launch configuration"),
+    ({"qk_bits": 3}, ValueError, "qk_bits"),
+    ({"qk_quant_gran": "per_warp"}, ValueError, "qk_quant_gran"),
     ({"block_q": 256}, NotImplementedError, "launch configuration"),
     ({"impl": "xla"}, NotImplementedError, "launch configuration"),
     ({"window": 16}, TypeError, "window"),

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""A/B of the port's forward kernel with bf16 V: this tree against another.
+"""A/B of the port's forward kernels with bf16 V: this tree against another.
 
     mkdir -p scratch/other && git archive <rev> | tar -x -C scratch/other
     python3 tools/ab_attention_fwd.py scratch/other
@@ -11,8 +11,10 @@ at the CogVideoX-2B layer shape (1, 30, 17,776, 64) and the
 Wan2.1-T2V-1.3B one (1, 12, 33,272, 128), non-causal, says whether the
 outputs are bit-identical, and times each with CUDA events in the order
 other, this, this, other (median of 20 calls after 3 warm-up calls each).
-It also prints the registers of every forward kernel instance of both
-libraries.  Needs one CUDA card; ends with one JSON line.
+The masked instances (``attention_fwd_masked.cu``) the same way, with a
+causal window of 1024 at (1, 32/8 heads, 4096, 128) and (1, 8/2, 4096,
+64).  It also prints the registers of every forward kernel instance of
+both trees' libraries.  Needs one CUDA card; ends with one JSON line.
 """
 
 from __future__ import annotations
@@ -32,6 +34,9 @@ from concurrent.futures import ThreadPoolExecutor
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 LOG2E = 1.4426950408889634
 SHAPES = {"cogvideox-2b layer": (1, 30, 17776, 64), "wan2.1 layer": (1, 12, 33272, 128)}
+# masked cells: (b, hq, hkv, s, d), causal with a window
+MASKED = {"llm-8b-gqa layer window 1024": (1, 32, 8, 4096, 128, 1024),
+          "d64 gqa layer window 1024": (1, 8, 2, 4096, 64, 1024)}
 
 
 def load_build(tree: pathlib.Path, name: str):
@@ -43,10 +48,10 @@ def load_build(tree: pathlib.Path, name: str):
     return mod
 
 
-def registers(build) -> list[str]:
+def registers(build, lib: str = "attention_fwd") -> list[str]:
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    out = subprocess.run([tool, "-res-usage", str(build._target("attention_fwd"))],
+    out = subprocess.run([tool, "-res-usage", str(build._target(lib))],
                          capture_output=True, text=True, timeout=120).stdout
     rows, fn = [], None
     for line in out.splitlines():
@@ -56,7 +61,7 @@ def registers(build) -> list[str]:
             continue
         m = re.search(r"REG:(\d+) STACK:(\d+)", line)
         if m and fn and "sage_attn_fwd_kernel" in fn:
-            rows.append(f"{fn[:90]}: {m.group(1)} registers, {m.group(2)} bytes of stack")
+            rows.append(f"{lib} {fn[:90]}: {m.group(1)} registers, {m.group(2)} bytes of stack")
     return rows
 
 
@@ -77,6 +82,19 @@ def launch(fn, q, k_i8, k_scale, v, o, fold_mul: float) -> None:
                  128, fold_mul, stream)
     if err:
         raise RuntimeError(f"sage_attn_fwd launch failed: cudaError {err}")
+
+
+def launch_masked(fn, q, k_i8, k_scale, v, o, fold_mul: float, hkv: int, window: int) -> None:
+    """One causal windowed call of the masked kernel (its C signature is
+    the same in every tree that has it)."""
+    import torch
+
+    b, hq, sq, d = q.shape
+    err = fn(q.data_ptr(), k_i8.data_ptr(), k_scale.data_ptr(), v.data_ptr(), None, None,
+             o.data_ptr(), None, b, hq, hkv, sq, sq, d, 1, 0, 0, 0, 128, fold_mul,
+             torch.cuda.current_stream().cuda_stream, *([None] * 9), *([0] * 10), window, 0)
+    if err:
+        raise RuntimeError(f"sage_attn_fwd_masked launch failed: cudaError {err}")
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -110,11 +128,14 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     builds = {"other": load_build(args.other.resolve(), "other_build"),
               "this": load_build(ROOT, "this_build")}
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(4) as pool:
         libs = dict(zip(builds, pool.map(lambda b: b.lib("attention_fwd"), builds.values())))
+        masked = dict(zip(builds, pool.map(lambda b: b.lib("attention_fwd_masked"),
+                                           builds.values())))
     for tree, build in builds.items():
-        for row in registers(build):
-            print(f"resources ({tree}) {row}", flush=True)
+        for lib in ("attention_fwd", "attention_fwd_masked"):
+            for row in registers(build, lib):
+                print(f"resources ({tree}) {row}", flush=True)
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -141,6 +162,30 @@ def main() -> int:
         print(f"{cell} {(b, h, s, d)} bf16 V: other {times['other']} ms, this "
               f"{times['this']} ms; outputs bit-identical {same} (max abs diff {diff:.3e})",
               flush=True)
+        del q, k_i8, k_scale, v, outs
+        torch.cuda.empty_cache()
+    for cell, (b, hq, hkv, s, d, window) in MASKED.items():
+        q = torch.randn(b, hq, s, d, generator=gen, device="cuda").to(torch.bfloat16)
+        k_i8 = torch.randint(-127, 128, (b, hkv, s, d), generator=gen, device="cuda",
+                             dtype=torch.int8)
+        k_scale = torch.full((b, hkv, -(-s // 128)), 2 / 127, device="cuda")
+        v = torch.randn(b, hkv, s, d, generator=gen, device="cuda").to(torch.bfloat16)
+        fold_mul = (torch.tensor(1 / 127, dtype=torch.float32)
+                    * torch.tensor(d**-0.5 * LOG2E, dtype=torch.float32)).item()
+        outs = {t: torch.empty_like(q) for t in masked}
+        calls = {t: (lambda t=t: launch_masked(masked[t].sage_attn_fwd_masked, q, k_i8, k_scale,
+                                               v, outs[t], fold_mul, hkv, window))
+                 for t in masked}
+        times = {t: [] for t in masked}
+        for t in ("other", "this", "this", "other"):
+            times[t].append(cuda_ms(calls[t]))
+        torch.cuda.synchronize()
+        same = torch.equal(outs["other"], outs["this"])
+        result[cell] = {"shape": [b, hq, hkv, s, d], "window": window,
+                        "ms_other": times["other"], "ms_this": times["this"],
+                        "bit_identical": same}
+        print(f"{cell} masked {(b, hq, hkv, s, d)}: other {times['other']} ms, this "
+              f"{times['this']} ms; outputs bit-identical {same}", flush=True)
         del q, k_i8, k_scale, v, outs
         torch.cuda.empty_cache()
     print(json.dumps(result), flush=True)
