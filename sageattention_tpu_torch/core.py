@@ -12,7 +12,11 @@ through their plain versions, which compute the same numbers.
 Differentiable: when grad is enabled and an input requires it, the call
 goes through ``ops.autodiff.SageAttnFunction``, whose backward is the
 straight-through gradient of the quantized forward (the JAX package's
-fused backward), for q, k and v, and through the LSE with ``return_lse``.
+fused backward), for q, k and v, and through the LSE with ``return_lse``;
+and for a lone additive ``attn_bias``, for the bias too (dBias), the
+JAX package's ``differentiable_sageattn_bias``: the fused backward's bias
+instances for a per-head [b, hq, sq, sk] bias without a window or a Q/K
+option, exact recompute (``autodiff.RecomputeFunction``) for the rest.
 
 The Q/K quantization options of the JAX ``sageattn``: ``smooth_q`` (Q
 centred by its mean, the mean's product with the smoothed K added back as
@@ -37,9 +41,10 @@ attend), ``q_positions``/``kv_positions`` [b, s] (``kv_pos <= q_pos``), a
 bool ``attn_mask`` (True = attend), an additive ``attn_bias`` (a non-bool
 ``attn_mask`` is one too, with torch's semantics) and a sliding ``window``
 (with ``is_causal``).  A row with no live key gives o = 0 and LSE -inf.
-Under grad only ``window`` is differentiable; the others raise
-``NotImplementedError``, as the JAX package has no gradient for them
-(the bias's is ROADMAP's next slice).  Head dims above 128 raise
+Under grad ``window`` and a lone ``attn_bias`` are differentiable; ids,
+positions, a bool mask (with a bias or without) and a float
+``attn_mask`` raise ``NotImplementedError``, as the JAX package has no
+gradient for them.  Head dims above 128 raise
 ``NotImplementedError`` naming their ROADMAP item, and ``block_q`` /
 ``block_k`` / ``impl`` too: the port picks its own launch configuration.
 """
@@ -315,18 +320,31 @@ def _qk_options(kwargs: dict, smooth_q: bool, qk_quant_gran: str, qk_bits: int) 
     return QKOptions(bool(smooth_q), qk_bits, qk_quant_gran)
 
 
-def _refuse_grad(masks: Masks | None) -> None:
-    """The masks that have no gradient under grad: all but the window."""
-    if masks is None:
-        return
-    if masks.bias is not None:
+def _refuse_grad(masks: Masks | None, attn_mask) -> None:
+    """The masks that have no gradient under grad: all but the window and a
+    lone additive ``attn_bias``.  As in the JAX package (``core.py:802-831``),
+    any tensor argument beside the bias keeps a call off its differentiable
+    routes, and a float ``attn_mask`` has none."""
+    if attn_mask is not None and attn_mask.dtype != torch.bool:
         raise NotImplementedError(
-            "gradients through attn_bias (or a float attn_mask) are not ported yet (ROADMAP: "
-            "the bias VJP with blockwise dBias in kernels 7-8)")
-    if any(x is not None for x in (masks.q_seg, masks.kv_lo, masks.q_pos, masks.mask)):
+            "a float attn_mask has no gradient (nor in the JAX package, core.py:803-805): pass "
+            "the additive bias as attn_bias, whose gradient (dBias) is taken")
+    if masks is not None and any(x is not None for x in (masks.q_seg, masks.kv_lo,
+                                                         masks.q_pos, masks.mask)):
         raise NotImplementedError(
             "segment ids, positions and bool masks have no gradient (nor in the JAX package, "
-            "core.py:798-800): call sageattn under torch.no_grad() with them")
+            "core.py:798-800), and a bias beside them none either: call sageattn under "
+            "torch.no_grad() with them")
+
+
+def _fused_bias(bias, q: torch.Tensor, k: torch.Tensor, window, opts: QKOptions) -> bool:
+    """Whether the fused backward takes the call: no bias, or a per-head
+    [b, hq, sq, sk] one without a window, and no Q/K option
+    (``attention_bwd_pallas.py:418-427``, ``autodiff.py:106-114`` of the JAX
+    package).  The rest is differentiated by exact recompute."""
+    if not opts.default:
+        return False
+    return bias is None or (window is None and tuple(bias.shape) == (*q.shape[:3], k.shape[2]))
 
 
 def sageattn_qk_int8_pv_bf16(
@@ -364,8 +382,11 @@ def sageattn_qk_int8_pv_bf16(
     it, the call runs through ``autodiff.SageAttnFunction``, whose backward
     is the fused quantized backward (kernels ``quant_q_per_token``,
     ``sage_attn_bwd_dq``, ``sage_attn_bwd_dkv`` on the card), with the
-    ``window`` band.  The masks are those of the module docstring; they
-    are [b, s] (ids, positions) or [.., .., sq, sk] whatever the layout.
+    ``window`` band, and differentiable in a lone ``attn_bias``: a per-head
+    [b, hq, sq, sk] bias without a window takes the kernels' bias instances
+    (dQ writes dBias when the bias requires grad), any other shape exact
+    recompute.  The masks are those of the module docstring; they are [b,
+    s] (ids, positions) or [.., .., sq, sk] whatever the layout.
 
     ``smooth_q``, ``qk_bits=4`` and ``qk_quant_gran`` = "per_token" /
     "per_subtile" / "per_block" (``block_size`` 32 rows, 128 for
@@ -379,10 +400,10 @@ def sageattn_qk_int8_pv_bf16(
                    window=window)
     if torch.is_grad_enabled() and any(
             x is not None and x.requires_grad for x in (q, k, v, attn_mask, attn_bias)):
-        _refuse_grad(masks)
-        args = (qh, kh, vh, is_causal, sm_scale, smooth_k, return_lse, pv_dtype, smooth_v,
-                window)
-        if opts.default:
+        _refuse_grad(masks, attn_mask)
+        args = (qh, kh, vh, attn_bias, is_causal, sm_scale, smooth_k, return_lse, pv_dtype,
+                smooth_v, window)
+        if _fused_bias(attn_bias, qh, kh, window, opts):
             out = autodiff.SageAttnFunction.apply(*args)
         else:
             out = autodiff.RecomputeFunction.apply(*args, opts)

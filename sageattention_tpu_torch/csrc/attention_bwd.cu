@@ -39,6 +39,22 @@
 // A window keeps col > row - window wherever causal keeps col <= row, in
 // instances of its own (WINDOW), so the others keep their registers.
 //
+// An additive bias (BIAS instances, attention_bwd_pallas.py:146-204,
+// 311-316): a per-head [b, hq, sq, sk] fp32 or bf16 tensor, which the
+// forward added to the base-2 logits as bias * log2(e).  Both kernels add it
+// to the recomputed logits too and clamp them at -1e30, and a row whose
+// lse2 is -inf (every key biased to -inf; the forward gave o = 0) takes 0 in
+// its place, so its P is exactly 0 and no NaN arises.  dQ writes dBias = dS
+// = P * (dP - D) in fp32, before the bf16 rounding, in the bias's type
+// (when asked: a fixed bias costs no write), and writes the zeros of every
+// tile its causal loop never visits itself, so the wrapper allocates dBias
+// uninitialised.  dKV reads bias[q row, kv col] straight from device
+// memory for its transposed tile: for one fragment element a warp reads 8
+// consecutive KV columns of each of 4 Q rows, whole 32-byte sectors in fp32,
+// so the bias needs no transposed copy (the TPU launcher's one XLA
+// transpose, :931-940).  A window with a bias is not taken: the JAX package
+// sends it to its exact backward (:423-426), and so does the port.
+//
 // Ragged edges: K/V rows past sk and Q rows past sq are zero-filled in
 // shared memory, their P is set to 0 by a select (no inf - inf and no
 // inf * 0: the exp2 of a masked entry is never used), and no row past
@@ -50,13 +66,20 @@
 // h=30, s=17,776, d=64; 9.48e9 pairs) that is about 3.1 ms for dQ and 4.3 ms
 // for dKV on the H100 SXM's data-sheet peaks; the bytes take well under
 // 0.1 ms, and the two exp2 passes (2 x 9.48e9 MUFU operations) are a second
-// floor of a few ms.  Like the forward, this first version is written to
-// be right: mma.sync, synchronous tile loads, no pipeline.
+// floor of a few ms.  With a bias, bytes: each live pair's bias is read once
+// by each kernel and dQ writes its dBias (and the causal zeros), 8 to 12
+// bytes a pair in fp32 against 6d-10d operations.  At the llm-8b-gqa layer
+// (b=1, hq=32, s=4096, d=128, causal: 268.5 M live pairs) that is about
+// 0.96 ms for dQ with its dBias and 0.32 ms for dKV at 3.35 TB/s, against
+// 0.17 and 0.24 ms of operations.  Like the forward, this first version is
+// written to be right: mma.sync, synchronous tile loads, no pipeline.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "mma_sm90.cuh"
 
@@ -97,6 +120,35 @@ struct BwdArgs {
   int window;  // 0: none (causal only)
 };
 
+// the BIAS instances' operands, a parameter of their own (an empty one
+// elsewhere): the same three fields appended to BwdArgs moved the registers
+// of every instance without a bias
+struct BiasArgs {
+  const void* bias;  // [b, hq, sq, sk], fp32 or bf16 (bias_bf16)
+  void* dbias;       // dS in the bias's type, or null (dQ only)
+  int bias_bf16;
+};
+struct NoBias {};
+template <bool BIAS>
+using BiasOf = std::conditional_t<BIAS, BiasArgs, NoBias>;
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLogitFloor = -1e30f;  // the TPU kernels' clamp of biased logits
+
+// element e of the bias, in fp32
+__device__ inline float bias_at(const void* bias, int bf16, size_t e) {
+  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(bias)[e])
+              : static_cast<const float*>(bias)[e];
+}
+
+// dS (fp32) into element e of dBias, in the bias's type
+__device__ inline void dbias_put(void* dbias, int bf16, size_t e, float x) {
+  if (bf16)
+    static_cast<__nv_bfloat16*>(dbias)[e] = __float2bfloat16(x);
+  else
+    static_cast<float*>(dbias)[e] = x;
+}
+
 // rows [r0, r0 + n) of a [*, D] row-major tensor into shared memory with
 // row stride `stride_bytes`, 16 bytes a thread, zero past row `limit`
 template <int D, int ELEM>
@@ -127,9 +179,9 @@ struct DqLayout {
   static constexpr int bytes = v_off + DQ_BN * C::HS * 2;
 };
 
-template <int D, bool CAUSAL, bool WINDOW>
+template <int D, bool CAUSAL, bool WINDOW, bool BIAS>
 __global__ void __launch_bounds__(NTHREADS)
-sage_attn_bwd_dq_kernel(const BwdArgs a) {
+sage_attn_bwd_dq_kernel(const BwdArgs a, const BiasOf<BIAS> ba) {
   const int8_t* __restrict__ q_i8 = a.q_i8;
   const float* __restrict__ q_scale = a.q_scale;
   const int8_t* __restrict__ k_i8 = a.k_i8;
@@ -172,10 +224,20 @@ sage_attn_bwd_dq_kernel(const BwdArgs a) {
   const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
   const float qs0 = row0 < sq ? q_scale[row_base + row0] : 0.f;
   const float qs1 = row1 < sq ? q_scale[row_base + row1] : 0.f;
-  const float ls0 = row0 < sq ? lse2[row_base + row0] : 0.f;
-  const float ls1 = row1 < sq ? lse2[row_base + row1] : 0.f;
+  float ls0 = row0 < sq ? lse2[row_base + row0] : 0.f;
+  float ls1 = row1 < sq ? lse2[row_base + row1] : 0.f;
   const float dv0 = row0 < sq ? dvec[row_base + row0] : 0.f;
   const float dv1 = row1 < sq ? dvec[row_base + row1] : 0.f;
+  // BIAS: a row biased to -inf everywhere has lse2 -inf; 0 gives it P = 0.
+  // The bias rows of the thread's two rows (rows past sq read the last row,
+  // never stored)
+  size_t brow0 = 0, brow1 = 0;
+  if constexpr (BIAS) {
+    if (ls0 == -INFINITY) ls0 = 0.f;
+    if (ls1 == -INFINITY) ls1 = 0.f;
+    brow0 = (row_base + min(row0, sq - 1)) * (size_t)sk;
+    brow1 = (row_base + min(row1, sq - 1)) * (size_t)sk;
+  }
 
   // the warp's A fragments of Q (int8) and dO (bf16), kept for all tiles
   uint32_t qa[D / 32][4], da[D / 16][4];
@@ -234,13 +296,20 @@ sage_attn_bwd_dq_kernel(const BwdArgs a) {
           mma_bf16(dp[n], da[kk], ld32(vb), ld32(vb + 16));
         }
       }
-      // P = exp2(l2 - lse2), masked; dS = P * (dP - D), kept in dp
+      // P = exp2(l2 - lse2), masked; dS = P * (dP - D), kept in dp.  BIAS:
+      // l2 + bias * log2(e), clamped, and dS in fp32 into dBias when asked
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const bool lo = e < 2;
-          float p = exp2f((float)s_i[n][e] * (lo ? rs0 : rs1) - (lo ? ls0 : ls1));
+          float l2 = (float)s_i[n][e] * (lo ? rs0 : rs1);
+          if constexpr (BIAS) {
+            const int col = min(kv0 + c0 + n * 8 + t * 2 + (e & 1), sk - 1);
+            l2 = fmaxf(l2 + bias_at(ba.bias, ba.bias_bf16, (lo ? brow0 : brow1) + col) * kLog2e,
+                       kLogitFloor);
+          }
+          float p = exp2f(l2 - (lo ? ls0 : ls1));
           if (need_mask) {
             const int col = kv0 + c0 + n * 8 + t * 2 + (e & 1);
             const int row = lo ? row0 : row1;
@@ -248,6 +317,11 @@ sage_attn_bwd_dq_kernel(const BwdArgs a) {
               p = 0.f;
           }
           dp[n][e] = p * (dp[n][e] - (lo ? dv0 : dv1));
+          if constexpr (BIAS) {
+            const int col = kv0 + c0 + n * 8 + t * 2 + (e & 1);
+            if (ba.dbias != nullptr && (lo ? row0 : row1) < sq && col < sk)
+              dbias_put(ba.dbias, ba.bias_bf16, (lo ? brow0 : brow1) + col, dp[n][e]);
+          }
         }
       }
       // dQ += bf16(dS) . K_sm
@@ -257,6 +331,18 @@ sage_attn_bwd_dq_kernel(const BwdArgs a) {
         c_to_a(a, dp[2 * kk], dp[2 * kk + 1]);
         mma_a_rows<D>(acc, a, reinterpret_cast<const __nv_bfloat16*>(sKsm), c0 + kk * 16,
                       C::HS, lane);
+      }
+    }
+  }
+
+  // BIAS, causal: the tiles right of the diagonal read 0 in dBias, a warp a
+  // row, the lanes on consecutive columns
+  if constexpr (BIAS && CAUSAL) {
+    const int c_lo = n_tiles * DQ_BN;
+    if (ba.dbias != nullptr && c_lo < sk) {
+      for (int r = warp; r < DQ_BM && q0 + r < sq; r += NWARPS) {
+        const size_t base = (row_base + q0 + r) * (size_t)sk;
+        for (int c = c_lo + lane; c < sk; c += 32) dbias_put(ba.dbias, ba.bias_bf16, base + c, 0.f);
       }
     }
   }
@@ -292,9 +378,9 @@ struct DkvLayout {
   static constexpr int bytes = dv_off + KV_BQ * 4;
 };
 
-template <int D, bool CAUSAL, bool WINDOW>
+template <int D, bool CAUSAL, bool WINDOW, bool BIAS>
 __global__ void __launch_bounds__(NTHREADS)
-sage_attn_bwd_dkv_kernel(const BwdArgs a) {
+sage_attn_bwd_dkv_kernel(const BwdArgs a, const BiasOf<BIAS> ba) {
   const int8_t* __restrict__ q_i8 = a.q_i8;
   const float* __restrict__ q_scale = a.q_scale;
   const __nv_bfloat16* __restrict__ q_bf = a.q_bf;
@@ -361,6 +447,9 @@ sage_attn_bwd_dkv_kernel(const BwdArgs a) {
         const bool live = q0 + i < sq;
         sQs[i] = live ? q_scale[row_base + q0 + i] : 0.f;
         sLse[i] = live ? lse2[row_base + q0 + i] : 0.f;
+        if constexpr (BIAS) {  // see the dQ kernel
+          if (sLse[i] == -INFINITY) sLse[i] = 0.f;
+        }
         sDv[i] = live ? dvec[row_base + q0 + i] : 0.f;
       }
       __syncthreads();
@@ -393,7 +482,13 @@ sage_attn_bwd_dkv_kernel(const BwdArgs a) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int ql = c0 + n * 8 + t * 2 + (e & 1);  // Q row within the tile
-            float pv = exp2f((float)s_i[n][e] * (sQs[ql] * ks) - sLse[ql]);
+            float l2 = (float)s_i[n][e] * (sQs[ql] * ks);
+            if constexpr (BIAS) {  // bias[q row, kv col]; rows past sq, sk read the last
+              const size_t be = (row_base + min(q0 + ql, sq - 1)) * (size_t)sk +
+                                min(e < 2 ? kr0 : kr1, sk - 1);
+              l2 = fmaxf(l2 + bias_at(ba.bias, ba.bias_bf16, be) * kLog2e, kLogitFloor);
+            }
+            float pv = exp2f(l2 - sLse[ql]);
             if (need_mask) {
               const int qr = q0 + ql, kr = e < 2 ? kr0 : kr1;
               if (qr >= sq || kr >= sk || (CAUSAL && kr > qr) ||
@@ -461,35 +556,71 @@ sage_attn_bwd_dkv_kernel(const BwdArgs a) {
   }
 }
 
-template <typename Kern>
-int launch(Kern kern, int smem, dim3 grid, cudaStream_t st, const BwdArgs& a) {
+template <typename Kern, typename B>
+int launch(Kern kern, int smem, dim3 grid, cudaStream_t st, const BwdArgs& a, const B& ba) {
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  kern<<<grid, NTHREADS, smem, st>>>(a);
+  kern<<<grid, NTHREADS, smem, st>>>(a, ba);
   return (int)cudaGetLastError();
 }
 
-// The instance for (causal, window): the window band has instances of its
-// own, so the causal ones compile to the code they have without it.
-template <int D>
-int launch_dq(int causal, int window, dim3 grid, cudaStream_t st, const BwdArgs& a) {
+// The instance for (causal, window) or, with BIAS, (causal): the window
+// band and the bias have instances of their own, so the others compile to
+// the code they have without them.
+template <int D, bool BIAS>
+int launch_dq(int causal, int window, dim3 grid, cudaStream_t st, const BwdArgs& a,
+              const BiasOf<BIAS>& ba) {
   constexpr int smem = DqLayout<D>::bytes;
-  if (window > 0) return launch(sage_attn_bwd_dq_kernel<D, true, true>, smem, grid, st, a);
-  return causal ? launch(sage_attn_bwd_dq_kernel<D, true, false>, smem, grid, st, a)
-                : launch(sage_attn_bwd_dq_kernel<D, false, false>, smem, grid, st, a);
+  if constexpr (BIAS) {
+    return causal ? launch(sage_attn_bwd_dq_kernel<D, true, false, true>, smem, grid, st, a, ba)
+                  : launch(sage_attn_bwd_dq_kernel<D, false, false, true>, smem, grid, st, a, ba);
+  } else {
+    if (window > 0)
+      return launch(sage_attn_bwd_dq_kernel<D, true, true, false>, smem, grid, st, a, ba);
+    return causal ? launch(sage_attn_bwd_dq_kernel<D, true, false, false>, smem, grid, st, a, ba)
+                  : launch(sage_attn_bwd_dq_kernel<D, false, false, false>, smem, grid, st, a, ba);
+  }
 }
 
-template <int D>
-int launch_dkv(int causal, int window, dim3 grid, cudaStream_t st, const BwdArgs& a) {
+template <int D, bool BIAS>
+int launch_dkv(int causal, int window, dim3 grid, cudaStream_t st, const BwdArgs& a,
+              const BiasOf<BIAS>& ba) {
   constexpr int smem = DkvLayout<D>::bytes;
-  if (window > 0) return launch(sage_attn_bwd_dkv_kernel<D, true, true>, smem, grid, st, a);
-  return causal ? launch(sage_attn_bwd_dkv_kernel<D, true, false>, smem, grid, st, a)
-                : launch(sage_attn_bwd_dkv_kernel<D, false, false>, smem, grid, st, a);
+  if constexpr (BIAS) {
+    return causal ? launch(sage_attn_bwd_dkv_kernel<D, true, false, true>, smem, grid, st, a, ba)
+                  : launch(sage_attn_bwd_dkv_kernel<D, false, false, true>, smem, grid, st, a, ba);
+  } else {
+    if (window > 0)
+      return launch(sage_attn_bwd_dkv_kernel<D, true, true, false>, smem, grid, st, a, ba);
+    return causal ? launch(sage_attn_bwd_dkv_kernel<D, true, false, false>, smem, grid, st, a, ba)
+                  : launch(sage_attn_bwd_dkv_kernel<D, false, false, false>, smem, grid, st, a, ba);
+  }
 }
 
 bool bad_shape(int hq, int hkv, int d, int group, int causal, int window) {
   return group != KGROUP || hkv <= 0 || hq % hkv != 0 || (d != 64 && d != 128) || window < 0 ||
          (window > 0 && !causal);
+}
+
+// The entry points' common body: check, grid, instance
+template <bool BIAS>
+int run_dq(const BwdArgs& a, const BiasOf<BIAS>& ba, int b, int d, int causal, int group,
+           void* stream) {
+  if (bad_shape(a.hq, a.hkv, d, group, causal, a.window)) return (int)cudaErrorInvalidValue;
+  const dim3 grid((a.sq + DQ_BM - 1) / DQ_BM, a.hq, b);
+  cudaStream_t st = (cudaStream_t)stream;
+  return d == 64 ? launch_dq<64, BIAS>(causal, a.window, grid, st, a, ba)
+                 : launch_dq<128, BIAS>(causal, a.window, grid, st, a, ba);
+}
+
+template <bool BIAS>
+int run_dkv(const BwdArgs& a, const BiasOf<BIAS>& ba, int b, int d, int causal, int group,
+            void* stream) {
+  if (bad_shape(a.hq, a.hkv, d, group, causal, a.window)) return (int)cudaErrorInvalidValue;
+  const dim3 grid((a.sk + KV_BM - 1) / KV_BM, a.hkv, b);
+  cudaStream_t st = (cudaStream_t)stream;
+  return d == 64 ? launch_dkv<64, BIAS>(causal, a.window, grid, st, a, ba)
+                 : launch_dkv<128, BIAS>(causal, a.window, grid, st, a, ba);
 }
 
 }  // namespace
@@ -506,15 +637,11 @@ extern "C" int sage_attn_bwd_dq(const void* q_i8, const void* q_scale, const voi
                                 void* dq, int b, int hq, int hkv, int sq, int sk, int d,
                                 int causal, int window, int group, float sm_scale,
                                 void* stream) {
-  if (bad_shape(hq, hkv, d, group, causal, window)) return (int)cudaErrorInvalidValue;
-  BwdArgs a{(const int8_t*)q_i8, (const float*)q_scale, nullptr, (const int8_t*)k_i8,
-            (const float*)k_scale, (const __nv_bfloat16*)k_sm, (const __nv_bfloat16*)v,
-            (const __nv_bfloat16*)dout, (const float*)lse2, (const float*)dvec,
-            (float*)dq, nullptr, nullptr, hq, hkv, sq, sk, sm_scale, window};
-  const dim3 grid((sq + DQ_BM - 1) / DQ_BM, hq, b);
-  cudaStream_t st = (cudaStream_t)stream;
-  return d == 64 ? launch_dq<64>(causal, window, grid, st, a)
-                 : launch_dq<128>(causal, window, grid, st, a);
+  const BwdArgs a{(const int8_t*)q_i8, (const float*)q_scale, nullptr, (const int8_t*)k_i8,
+                  (const float*)k_scale, (const __nv_bfloat16*)k_sm, (const __nv_bfloat16*)v,
+                  (const __nv_bfloat16*)dout, (const float*)lse2, (const float*)dvec,
+                  (float*)dq, nullptr, nullptr, hq, hkv, sq, sk, sm_scale, window};
+  return run_dq<false>(a, NoBias{}, b, d, causal, group, stream);
 }
 
 extern "C" int sage_attn_bwd_dkv(const void* q_i8, const void* q_scale, const void* q_bf,
@@ -523,13 +650,42 @@ extern "C" int sage_attn_bwd_dkv(const void* q_i8, const void* q_scale, const vo
                                  void* dk, void* dv, int b, int hq, int hkv, int sq, int sk,
                                  int d, int causal, int window, int group, float sm_scale,
                                  void* stream) {
-  if (bad_shape(hq, hkv, d, group, causal, window)) return (int)cudaErrorInvalidValue;
-  BwdArgs a{(const int8_t*)q_i8, (const float*)q_scale, (const __nv_bfloat16*)q_bf,
-            (const int8_t*)k_i8, (const float*)k_scale, nullptr, (const __nv_bfloat16*)v,
-            (const __nv_bfloat16*)dout, (const float*)lse2, (const float*)dvec, nullptr,
-            (float*)dk, (float*)dv, hq, hkv, sq, sk, sm_scale, window};
-  const dim3 grid((sk + KV_BM - 1) / KV_BM, hkv, b);
-  cudaStream_t st = (cudaStream_t)stream;
-  return d == 64 ? launch_dkv<64>(causal, window, grid, st, a)
-                 : launch_dkv<128>(causal, window, grid, st, a);
+  const BwdArgs a{(const int8_t*)q_i8, (const float*)q_scale, (const __nv_bfloat16*)q_bf,
+                  (const int8_t*)k_i8, (const float*)k_scale, nullptr, (const __nv_bfloat16*)v,
+                  (const __nv_bfloat16*)dout, (const float*)lse2, (const float*)dvec, nullptr,
+                  (float*)dk, (float*)dv, hq, hkv, sq, sk, sm_scale, window};
+  return run_dkv<false>(a, NoBias{}, b, d, causal, group, stream);
+}
+
+// The bias instances: the operands of sage_attn_bwd_dq / sage_attn_bwd_dkv
+// without the window, and the bias: fp32 or bf16 (bias_bf16) [b,hq,sq,sk],
+// contiguous, indexed by the query head; dbias (dQ only) its shape and type,
+// or null for no dBias.  Every element of dbias is written: dS where the
+// kernel computes it, 0 right of the causal diagonal.
+extern "C" int sage_attn_bwd_dq_bias(const void* q_i8, const void* q_scale, const void* k_i8,
+                                     const void* k_scale, const void* k_sm, const void* v,
+                                     const void* dout, const void* lse2, const void* dvec,
+                                     void* dq, const void* bias, void* dbias, int b, int hq,
+                                     int hkv, int sq, int sk, int d, int causal, int bias_bf16,
+                                     int group, float sm_scale, void* stream) {
+  const BwdArgs a{(const int8_t*)q_i8, (const float*)q_scale, nullptr, (const int8_t*)k_i8,
+                  (const float*)k_scale, (const __nv_bfloat16*)k_sm, (const __nv_bfloat16*)v,
+                  (const __nv_bfloat16*)dout, (const float*)lse2, (const float*)dvec,
+                  (float*)dq, nullptr, nullptr, hq, hkv, sq, sk, sm_scale, 0};
+  if (bias == nullptr) return (int)cudaErrorInvalidValue;
+  return run_dq<true>(a, BiasArgs{bias, dbias, bias_bf16}, b, d, causal, group, stream);
+}
+
+extern "C" int sage_attn_bwd_dkv_bias(const void* q_i8, const void* q_scale, const void* q_bf,
+                                      const void* k_i8, const void* k_scale, const void* v,
+                                      const void* dout, const void* lse2, const void* dvec,
+                                      void* dk, void* dv, const void* bias, int b, int hq,
+                                      int hkv, int sq, int sk, int d, int causal, int bias_bf16,
+                                      int group, float sm_scale, void* stream) {
+  const BwdArgs a{(const int8_t*)q_i8, (const float*)q_scale, (const __nv_bfloat16*)q_bf,
+                  (const int8_t*)k_i8, (const float*)k_scale, nullptr, (const __nv_bfloat16*)v,
+                  (const __nv_bfloat16*)dout, (const float*)lse2, (const float*)dvec, nullptr,
+                  (float*)dk, (float*)dv, hq, hkv, sq, sk, sm_scale, 0};
+  if (bias == nullptr) return (int)cudaErrorInvalidValue;
+  return run_dkv<true>(a, BiasArgs{bias, nullptr, bias_bf16}, b, d, causal, group, stream);
 }

@@ -61,6 +61,10 @@ SIGNATURES = {
     "attention_bwd": {
         "sage_attn_bwd_dq": [P] * 10 + [I] * 9 + [F, P],
         "sage_attn_bwd_dkv": [P] * 11 + [I] * 9 + [F, P],
+        # the operands, the bias and (dQ) dBias; the shape, causal, the bias
+        # type and the group; sm_scale, the stream
+        "sage_attn_bwd_dq_bias": [P] * 12 + [I] * 9 + [F, P],
+        "sage_attn_bwd_dkv_bias": [P] * 12 + [I] * 9 + [F, P],
     },
     "decode": {
         "sage_decode": [P] * 9 + [I] * 10 + [F, P],

@@ -4,7 +4,7 @@ Replaces the TPU kernels ``sageattention_tpu/ops/attention_bwd_pallas.py``:
 ``sage_attention_bwd`` -> ``_dq_kernel`` and ``_dkv_kernel``.  The kernels
 are ``csrc/attention_bwd.cu``; its header gives their layout (a CTA loops
 over KV tiles for dQ, over the GQA group's Q tiles for dK/dV) and their
-bound (tensor-core operations).
+bound (tensor-core operations; bytes with a bias).
 
 Both take the forward's quantized operands and its base-2 LSE: ``q_i8`` /
 ``q_scale`` from :func:`quant_cuda.quant_q_per_token` (bit for bit the
@@ -16,10 +16,18 @@ ported; every length is taken, the ragged edge masked inside the kernels.
 A sliding ``window`` (with causal) is applied as the forward applies it:
 ``col > row - window``, and each kernel's loop covers only the tiles the
 band reaches (the TPU's band grids, ``attention_bwd_pallas.py:756-816``).
+An additive ``bias`` [b, hq, sq, sk] (fp32 or bf16, contiguous; not with
+a window, as in the JAX package) joins the recomputed logits in both
+kernels, and dQ writes dBias (= dS in fp32, cast to the bias's dtype) when
+asked (``has_bias`` / ``emit_dbias``, ``attention_bwd_pallas.py:82-204,
+238-316``), into a tensor it allocates uninitialised: the kernel writes
+every element, the zeros right of the causal diagonal included.
 
 On a CPU tensor a wrapper runs its plain version
 (:func:`reference.quantized_attention_bwd_reference`); on a CUDA tensor it
-launches its kernel or raises.  ``<function>.launches`` counts launches.
+launches its kernel or raises.  ``<function>.launches`` counts the
+launches without a bias, ``<function>.bias_launches`` those of the bias
+instances (``sage_attn_bwd_dq_bias``, ``sage_attn_bwd_dkv_bias``).
 """
 
 from __future__ import annotations
@@ -36,42 +44,49 @@ def _k_rows(k_scale, sk: int):
 
 
 def sage_attention_bwd_dq_plain(q_i8, q_scale, k_i8, k_scale, k_sm, v, do, lse2, dvec, *,
-                                is_causal: bool, sm_scale: float, window: int | None = None):
-    """dQ [b,hq,sq,d] fp32 in plain PyTorch."""
-    return reference.quantized_attention_bwd_reference(
+                                is_causal: bool, sm_scale: float, window: int | None = None,
+                                bias=None, need_dbias: bool = False):
+    """dQ [b,hq,sq,d] fp32 in plain PyTorch, and with ``need_dbias`` (dQ,
+    dBias)."""
+    out = reference.quantized_attention_bwd_reference(
         q_i8, q_scale, k_i8, _k_rows(k_scale, k_i8.shape[2]), k_sm, None, v, do, lse2,
-        dvec, is_causal=is_causal, sm_scale=sm_scale, window=window,
-    )[0]
+        dvec, is_causal=is_causal, sm_scale=sm_scale, window=window, bias=bias,
+        need_dbias=need_dbias,
+    )
+    return (out[0], out[3]) if need_dbias else out[0]
 
 
 def sage_attention_bwd_dkv_plain(q_i8, q_scale, q_bf, k_i8, k_scale, v, do, lse2, dvec, *,
-                                 is_causal: bool, sm_scale: float, window: int | None = None):
+                                 is_causal: bool, sm_scale: float, window: int | None = None,
+                                 bias=None):
     """(dK, dV) [b,hkv,sk,d] fp32 in plain PyTorch."""
     _, dk, dv = reference.quantized_attention_bwd_reference(
         q_i8, q_scale, k_i8, _k_rows(k_scale, k_i8.shape[2]), None, q_bf, v, do, lse2,
-        dvec, is_causal=is_causal, sm_scale=sm_scale, window=window,
+        dvec, is_causal=is_causal, sm_scale=sm_scale, window=window, bias=bias,
     )
     return dk, dv
 
 
-def _check(q_i8, q_scale, k_i8, k_scale, lse2, dvec, **bf16):
+def _check(q_i8, q_scale, k_i8, k_scale, lse2, dvec, bias, **bf16):
     b, hq, sq, d = q_i8.shape
     hkv, sk = k_i8.shape[1], k_i8.shape[2]
     want = {
-        "q_i8": (q_i8, torch.int8, (b, hq, sq, d)),
-        "q_scale": (q_scale, torch.float32, (b, hq, sq)),
-        "k_i8": (k_i8, torch.int8, (b, hkv, sk, d)),
-        "k_scale": (k_scale, torch.float32, (b, hkv, -(-sk // K_GROUP))),
-        "lse2": (lse2, torch.float32, (b, hq, sq)),
-        "dvec": (dvec, torch.float32, (b, hq, sq)),
+        "q_i8": (q_i8, (torch.int8,), (b, hq, sq, d)),
+        "q_scale": (q_scale, (torch.float32,), (b, hq, sq)),
+        "k_i8": (k_i8, (torch.int8,), (b, hkv, sk, d)),
+        "k_scale": (k_scale, (torch.float32,), (b, hkv, -(-sk // K_GROUP))),
+        "lse2": (lse2, (torch.float32,), (b, hq, sq)),
+        "dvec": (dvec, (torch.float32,), (b, hq, sq)),
     }
     for name, x in bf16.items():
-        want[name] = (x, torch.bfloat16, (b, hq, sq, d) if name in ("q_bf", "do")
+        want[name] = (x, (torch.bfloat16,), (b, hq, sq, d) if name in ("q_bf", "do")
                       else (b, hkv, sk, d))
-    for name, (x, dtype, shape) in want.items():
-        if x.device != q_i8.device or x.dtype != dtype or tuple(x.shape) != shape:
+    if bias is not None:
+        want["bias"] = (bias, (torch.float32, torch.bfloat16), (b, hq, sq, sk))
+    for name, (x, dtypes, shape) in want.items():
+        if x.device != q_i8.device or x.dtype not in dtypes or tuple(x.shape) != shape:
             raise ValueError(
-                f"{name}: want {shape} {dtype} on {q_i8.device}, got "
+                f"{name}: want {shape} {' or '.join(map(str, dtypes))} on {q_i8.device}, got "
                 f"{tuple(x.shape)} {x.dtype} on {x.device}"
             )
         if not x.is_contiguous():
@@ -82,62 +97,100 @@ def _check(q_i8, q_scale, k_i8, k_scale, lse2, dvec, **bf16):
         raise ValueError(f"hq={hq} is not a multiple of hkv={hkv}")
 
 
+def _check_bias(bias, window, need_dbias: bool = False) -> None:
+    """A bias comes without a window (the exact backward takes that), and
+    dBias only with a bias."""
+    if bias is not None and window is not None:
+        raise ValueError("a bias with a window has no kernel (the exact backward takes it)")
+    if need_dbias and bias is None:
+        raise ValueError("need_dbias needs the bias")
+
+
 def sage_attention_bwd_dq(q_i8, q_scale, k_i8, k_scale, k_sm, v, do, lse2, dvec, *,
-                          is_causal: bool, sm_scale: float, window: int | None = None):
-    """dQ [b,hq,sq,d] fp32 (``sm_scale`` applied) on HND tensors."""
+                          is_causal: bool, sm_scale: float, window: int | None = None,
+                          bias=None, need_dbias: bool = False):
+    """dQ [b,hq,sq,d] fp32 (``sm_scale`` applied) on HND tensors; with
+    ``bias`` [b,hq,sq,sk] the bias instance, and with ``need_dbias`` (dQ,
+    dBias), dBias in the bias's dtype."""
     win = window_arg(window, is_causal)
+    _check_bias(bias, window, need_dbias)
     if q_i8.device.type == "cpu":
         return sage_attention_bwd_dq_plain(q_i8, q_scale, k_i8, k_scale, k_sm, v, do, lse2,
                                            dvec, is_causal=is_causal, sm_scale=sm_scale,
-                                           window=window)
+                                           window=window, bias=bias, need_dbias=need_dbias)
     if q_i8.device.type != "cuda":
         raise ValueError(f"sage_attention_bwd_dq: tensor on {q_i8.device}")
-    _check(q_i8, q_scale, k_i8, k_scale, lse2, dvec, k_sm=k_sm, v=v, do=do)
+    _check(q_i8, q_scale, k_i8, k_scale, lse2, dvec, bias, k_sm=k_sm, v=v, do=do)
     b, hq, sq, d = q_i8.shape
     hkv, sk = k_i8.shape[1], k_i8.shape[2]
     dq = torch.empty(b, hq, sq, d, dtype=torch.float32, device=q_i8.device)
+    # every element is written by the kernel, the causal zeros included
+    dbias = torch.empty_like(bias) if need_dbias else None
+    ops = (q_i8.data_ptr(), q_scale.data_ptr(), k_i8.data_ptr(), k_scale.data_ptr(),
+           k_sm.data_ptr(), v.data_ptr(), do.data_ptr(), lse2.data_ptr(), dvec.data_ptr(),
+           dq.data_ptr())
+    stream = torch.cuda.current_stream(q_i8.device).cuda_stream
     with torch.cuda.device(q_i8.device):  # the launch goes to the current device
-        err = _build.lib("attention_bwd").sage_attn_bwd_dq(
-            q_i8.data_ptr(), q_scale.data_ptr(), k_i8.data_ptr(), k_scale.data_ptr(),
-            k_sm.data_ptr(), v.data_ptr(), do.data_ptr(), lse2.data_ptr(), dvec.data_ptr(),
-            dq.data_ptr(), b, hq, hkv, sq, sk, d, int(is_causal), win, K_GROUP, sm_scale,
-            torch.cuda.current_stream(q_i8.device).cuda_stream,
-        )
-    _build.check(err, "sage_attn_bwd_dq")
-    sage_attention_bwd_dq.launches += 1
-    return dq
+        if bias is None:
+            err = _build.lib("attention_bwd").sage_attn_bwd_dq(
+                *ops, b, hq, hkv, sq, sk, d, int(is_causal), win, K_GROUP, sm_scale, stream)
+        else:
+            err = _build.lib("attention_bwd").sage_attn_bwd_dq_bias(
+                *ops, bias.data_ptr(), dbias.data_ptr() if need_dbias else None, b, hq, hkv,
+                sq, sk, d, int(is_causal), int(bias.dtype == torch.bfloat16), K_GROUP,
+                sm_scale, stream)
+    if bias is None:
+        _build.check(err, "sage_attn_bwd_dq")
+        sage_attention_bwd_dq.launches += 1
+    else:
+        _build.check(err, "sage_attn_bwd_dq_bias")
+        sage_attention_bwd_dq.bias_launches += 1
+    return (dq, dbias) if need_dbias else dq
 
 
 sage_attention_bwd_dq.launches = 0
+sage_attention_bwd_dq.bias_launches = 0
 
 
 def sage_attention_bwd_dkv(q_i8, q_scale, q_bf, k_i8, k_scale, v, do, lse2, dvec, *,
-                           is_causal: bool, sm_scale: float, window: int | None = None):
+                           is_causal: bool, sm_scale: float, window: int | None = None,
+                           bias=None):
     """(dK, dV) [b,hkv,sk,d] fp32, summed over the GQA group, on HND
-    tensors."""
+    tensors; with ``bias`` [b,hq,sq,sk] the bias instance, each q head
+    reading its own."""
     win = window_arg(window, is_causal)
+    _check_bias(bias, window)
     if q_i8.device.type == "cpu":
         return sage_attention_bwd_dkv_plain(q_i8, q_scale, q_bf, k_i8, k_scale, v, do, lse2,
                                             dvec, is_causal=is_causal, sm_scale=sm_scale,
-                                            window=window)
+                                            window=window, bias=bias)
     if q_i8.device.type != "cuda":
         raise ValueError(f"sage_attention_bwd_dkv: tensor on {q_i8.device}")
-    _check(q_i8, q_scale, k_i8, k_scale, lse2, dvec, q_bf=q_bf, v=v, do=do)
+    _check(q_i8, q_scale, k_i8, k_scale, lse2, dvec, bias, q_bf=q_bf, v=v, do=do)
     b, hq, sq, d = q_i8.shape
     hkv, sk = k_i8.shape[1], k_i8.shape[2]
     dk = torch.empty(b, hkv, sk, d, dtype=torch.float32, device=q_i8.device)
     dv = torch.empty_like(dk)
+    ops = (q_i8.data_ptr(), q_scale.data_ptr(), q_bf.data_ptr(), k_i8.data_ptr(),
+           k_scale.data_ptr(), v.data_ptr(), do.data_ptr(), lse2.data_ptr(), dvec.data_ptr(),
+           dk.data_ptr(), dv.data_ptr())
+    stream = torch.cuda.current_stream(q_i8.device).cuda_stream
     with torch.cuda.device(q_i8.device):  # the launch goes to the current device
-        err = _build.lib("attention_bwd").sage_attn_bwd_dkv(
-            q_i8.data_ptr(), q_scale.data_ptr(), q_bf.data_ptr(), k_i8.data_ptr(),
-            k_scale.data_ptr(), v.data_ptr(), do.data_ptr(), lse2.data_ptr(),
-            dvec.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, hq, hkv, sq, sk, d,
-            int(is_causal), win, K_GROUP, sm_scale,
-            torch.cuda.current_stream(q_i8.device).cuda_stream,
-        )
-    _build.check(err, "sage_attn_bwd_dkv")
-    sage_attention_bwd_dkv.launches += 1
+        if bias is None:
+            err = _build.lib("attention_bwd").sage_attn_bwd_dkv(
+                *ops, b, hq, hkv, sq, sk, d, int(is_causal), win, K_GROUP, sm_scale, stream)
+        else:
+            err = _build.lib("attention_bwd").sage_attn_bwd_dkv_bias(
+                *ops, bias.data_ptr(), b, hq, hkv, sq, sk, d, int(is_causal),
+                int(bias.dtype == torch.bfloat16), K_GROUP, sm_scale, stream)
+    if bias is None:
+        _build.check(err, "sage_attn_bwd_dkv")
+        sage_attention_bwd_dkv.launches += 1
+    else:
+        _build.check(err, "sage_attn_bwd_dkv_bias")
+        sage_attention_bwd_dkv.bias_launches += 1
     return dk, dv
 
 
 sage_attention_bwd_dkv.launches = 0
+sage_attention_bwd_dkv.bias_launches = 0

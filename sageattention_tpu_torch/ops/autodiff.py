@@ -20,9 +20,16 @@ computed, not of a different kernel.
   term ``dQ += dlse * km * sm_scale``.  dV is Pt.dO, straight through the
   V quantizer.
 
-A sliding ``window`` (with causal) is the one mask with a gradient: the
-forward runs the masked kernel with it and the backward kernels apply the
-same band (``attention_bwd_pallas.py:117-143, 274-287``).
+A sliding ``window`` (with causal) and an additive ``attn_bias`` are the
+masks with a gradient.  The forward runs the masked kernel with them; the
+backward kernels apply the same band (``attention_bwd_pallas.py:117-143,
+274-287``) or add the same bias to the recomputed logits, and dQ writes
+dBias = dS blockwise when the bias needs a gradient (the JAX package's
+``differentiable_sageattn_bias``, ``autodiff.py:203-271``).  As there, the
+kernels take a per-head ``[b, hq, sq, sk]`` bias without a window; every
+other bias form, a bias with a window and a bias with a Q/K option take
+:class:`RecomputeFunction`, whose backward differentiates exact attention
+with the bias (:func:`exact_attention_vjp`), [b, hq, sq, sk] scores.
 
 Every length is taken: the kernels mask the ragged edge.  (The JAX fused
 backward takes only multiples of 128 and falls back to an exact,
@@ -45,7 +52,6 @@ import torch.nn.functional as F
 
 from sageattention_tpu_torch import core
 from sageattention_tpu_torch.ops import attention_bwd_cuda, quant_cuda, reference
-from sageattention_tpu_torch.ops.attention_cuda import Masks
 
 LOG2E = 1.4426950408889634
 
@@ -86,90 +92,144 @@ def backward_operands(q, k, v, do, *, o, k_i8, km, dlse, sm_scale: float, v_q=No
 
 def quantized_attention_vjp(q, k, v, do, *, o, lse2, k_i8, k_scale, km, dlse, is_causal: bool,
                             sm_scale: float, v_q=None, v_scale=None, v_mean=None,
-                            window: int | None = None):
+                            window: int | None = None, bias=None, need_dbias: bool = False):
     """(dq, dk, dv) in the dtypes of q, k, v, from the forward's residuals:
     ``o`` (q's dtype), ``lse2`` (base 2), ``k_i8``/``k_scale``/``km`` (the
     forward's K quantization, head dim padded) and, with quantized V,
     ``v_q``/``v_scale``/``v_mean`` (its V quantization, head dim padded).
     ``dlse`` is the cotangent of the natural-log LSE, or None; ``window``
-    the forward's sliding window (with ``is_causal``), or None."""
+    the forward's sliding window (with ``is_causal``), or None; ``bias``
+    the forward's additive bias, contiguous [b, hq, sq, sk] fp32 or bf16,
+    or None.  With ``need_dbias`` the result is (dq, dk, dv, dbias),
+    dbias in the bias's dtype."""
     d_og = q.shape[-1]
     ops = backward_operands(q, k, v, do, o=o, k_i8=k_i8, km=km, dlse=dlse, sm_scale=sm_scale,
                             v_q=v_q, v_scale=v_scale, v_mean=v_mean)
     common = dict(q_i8=ops["q_i8"], q_scale=ops["q_scale"], k_i8=k_i8, k_scale=k_scale,
                   v=ops["v"], do=ops["do"], lse2=lse2, dvec=ops["dvec"],
-                  is_causal=is_causal, sm_scale=sm_scale, window=window)
-    dq = attention_bwd_cuda.sage_attention_bwd_dq(k_sm=ops["k_sm"], **common)
+                  is_causal=is_causal, sm_scale=sm_scale, window=window, bias=bias)
+    dq = attention_bwd_cuda.sage_attention_bwd_dq(k_sm=ops["k_sm"], need_dbias=need_dbias,
+                                                  **common)
+    if need_dbias:
+        dq, dbias = dq
     dk, dv = attention_bwd_cuda.sage_attention_bwd_dkv(q_bf=ops["q_bf"], **common)
     if dlse is not None and km is not None:
         # the smooth-k LSE correction q . km * sm_scale; its km pathway
         # through K cancels in the LSE identity
         km_q = km.repeat_interleave(q.shape[1] // k.shape[1], dim=1)
         dq = dq + dlse[..., None].float() * (km_q[:, :, None, :] * sm_scale)
-    return (dq[..., :d_og].to(q.dtype), dk[..., :d_og].to(k.dtype),
-            dv[..., :d_og].to(v.dtype))
+    grads = (dq[..., :d_og].to(q.dtype), dk[..., :d_og].to(k.dtype),
+             dv[..., :d_og].to(v.dtype))
+    return grads + (dbias,) if need_dbias else grads
 
 
 class SageAttnFunction(torch.autograd.Function):
     """``sageattn`` on HND tensors with the fused quantized backward.
 
-    ``apply(q, k, v, is_causal, sm_scale, smooth_k, return_lse, pv_dtype,
-    smooth_v, window)`` returns o, or (o, lse) with ``return_lse``; both are
-    differentiable.  ``window`` (None or >= 1, with ``is_causal``) runs the
-    masked forward kernel and the backward kernels' band."""
+    ``apply(q, k, v, bias, is_causal, sm_scale, smooth_k, return_lse,
+    pv_dtype, smooth_v, window)`` returns o, or (o, lse) with
+    ``return_lse``; both are differentiable.  ``window`` (None or >= 1,
+    with ``is_causal``) runs the masked forward kernel and the backward
+    kernels' band.  ``bias`` is None or a per-head [b, hq, sq, sk] additive
+    bias (any float dtype, not with a window): the masked forward and the
+    backward kernels' bias instances, with dBias written only when the
+    bias needs a gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, is_causal, sm_scale, smooth_k, return_lse, pv_dtype, smooth_v,
-                window=None):
+    def forward(ctx, q, k, v, bias, is_causal, sm_scale, smooth_k, return_lse, pv_dtype,
+                smooth_v, window=None):
+        masks = core._masks(q, k, is_causal=is_causal, attn_bias=bias, window=window)
         f = core._forward(q, k, v, is_causal=is_causal, sm_scale=sm_scale, smooth_k=smooth_k,
-                          return_lse=True, pv_dtype=pv_dtype, smooth_v=smooth_v,
-                          masks=None if window is None else Masks(window=window))
+                          return_lse=True, pv_dtype=pv_dtype, smooth_v=smooth_v, masks=masks)
         # the V codes only when quantized: bf16 V is rebuilt from v
         v_q = f.v_q if f.v_scale is not None else None
+        # the kernels' bias: fp32 or bf16, contiguous; dBias goes back in the
+        # caller's dtype and device
+        kernel_bias = masks.bias.contiguous() if bias is not None else None
         ctx.save_for_backward(q, k, v, f.o, f.lse2, f.k_i8, f.k_scale, f.km, v_q, f.v_scale,
-                              f.v_mean if v_q is not None else None)
+                              f.v_mean if v_q is not None else None, kernel_bias)
         ctx.is_causal, ctx.sm_scale, ctx.return_lse = is_causal, f.sm_scale, return_lse
         ctx.window = window
+        ctx.bias_to = None if bias is None else dict(dtype=bias.dtype, device=bias.device)
         if return_lse:
             return f.o, core._lse_nat(f.lse2, q, f.km, f.sm_scale)
         return f.o
 
     @staticmethod
     def backward(ctx, do, dlse=None):
-        q, k, v, o, lse2, k_i8, k_scale, km, v_q, v_scale, v_mean = ctx.saved_tensors
-        dq, dk, dv = quantized_attention_vjp(
+        (q, k, v, o, lse2, k_i8, k_scale, km, v_q, v_scale, v_mean,
+         kernel_bias) = ctx.saved_tensors
+        need_dbias = ctx.needs_input_grad[3]
+        grads = quantized_attention_vjp(
             q, k, v, do, o=o, lse2=lse2, k_i8=k_i8, k_scale=k_scale, km=km,
             dlse=dlse if ctx.return_lse else None, is_causal=ctx.is_causal,
-            sm_scale=ctx.sm_scale, v_q=v_q, v_scale=v_scale, v_mean=v_mean, window=ctx.window)
-        return dq, dk, dv, None, None, None, None, None, None, None
+            sm_scale=ctx.sm_scale, v_q=v_q, v_scale=v_scale, v_mean=v_mean, window=ctx.window,
+            bias=kernel_bias, need_dbias=need_dbias)
+        dbias = grads[3].to(**ctx.bias_to) if need_dbias else None
+        return (*grads[:3], dbias, None, None, None, None, None, None, None)
+
+
+def _exact_attention(q, k, v, bias, *, is_causal: bool, sm_scale: float | None,
+                     window: int | None, return_lse: bool):
+    """Exact fp32 attention with an additive bias (None, or any shape that
+    broadcasts to [b, hq, sq, sk], in the user's dtype and device) and the
+    causal window band, by the fused kernel's rule for a row whose every
+    score is -inf (an all -inf bias on its live keys): o = 0 and LSE -inf,
+    where a softmax would give NaN.  Masked scores are -inf too, so such a
+    row takes no weight from them.  It materializes [b, hq, sq, sk]."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    if sm_scale is None:
+        sm_scale = d**-0.5
+    kr, vr = (x.float().repeat_interleave(hq // hkv, dim=1) for x in (k, v))
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr) * sm_scale
+    if bias is not None:
+        s = s + reference._as_4d(bias).to(q.device, torch.float32)
+    mask = reference._build_mask(sq, sk, is_causal=is_causal, device=q.device, window=window)
+    if mask is not None:
+        s = s.masked_fill(~mask, -torch.inf)
+    m = s.amax(dim=-1, keepdim=True).detach()
+    live = m > -torch.inf
+    m = torch.where(live, m, 0.0)
+    p = torch.exp(s - m)  # 0 across a dead row
+    l = torch.where(live, p.sum(dim=-1, keepdim=True), 1.0)
+    o = torch.einsum("bhqk,bhkd->bhqd", p / l, vr).to(q.dtype)
+    if not return_lse:
+        return o
+    return o, torch.where(live, m + torch.log(l), -torch.inf)[..., 0]
 
 
 def exact_attention_vjp(q, k, v, do, dlse, *, is_causal: bool, sm_scale: float | None,
-                        window: int | None = None):
+                        window: int | None = None, bias=None, need_dbias: bool = False):
     """(dq, dk, dv) of exact attention at the saved q, k, v (HND; GQA when k
     and v have fewer heads), for the cotangents ``do`` of o and ``dlse`` of
-    the natural-log LSE (either may be None).
+    the natural-log LSE (either may be None); with ``need_dbias``, (dq,
+    dk, dv, dbias), dbias in the shape, dtype and device of ``bias``.
 
-    With an LSE cotangent or a ``window``, autograd through
-    :func:`reference.attention_reference`, which materializes each head's
-    [sq, sk] scores (``autodiff.py:173-188`` of the JAX package).
-    Otherwise exact attention recomputed under autograd: on the card
-    ``F.scaled_dot_product_attention``, K and V repeated over the GQA group
-    inside the graph so that their gradients sum over it, where the JAX
-    package takes jax's library flash attention on a TPU; on the CPU the
-    reference (``_exact_attention_for_bwd``, ``autodiff.py:43-103``)."""
+    On the card without a bias, an LSE cotangent or a ``window``: exact
+    attention recomputed under autograd by ``F.scaled_dot_product_attention``,
+    K and V repeated over the GQA group inside the graph so that their
+    gradients sum over it, where the JAX package takes jax's library flash
+    attention on a TPU.  Otherwise autograd through :func:`_exact_attention`,
+    the JAX package's exact VJP of ``reference.attention_reference`` with
+    the bias and the window band (``autodiff.py:173-188, 255-268``), a row
+    with no live key given 0."""
     xs = [x.detach().requires_grad_() for x in (q, k, v)]
-    exact = dlse is None and window is None and q.device.type == "cuda"
+    if bias is not None:
+        bias = bias.detach().requires_grad_(need_dbias)
+        if need_dbias:
+            xs.append(bias)
+    lse = dlse is not None
     with torch.enable_grad():
-        if exact:
+        if bias is None and not lse and window is None and q.device.type == "cuda":
             rep_ = q.shape[1] // k.shape[1]
             kr, vr = (x.repeat_interleave(rep_, dim=1) for x in xs[1:])
-            outs = (F.scaled_dot_product_attention(xs[0], kr, vr, is_causal=is_causal,
-                                                   scale=sm_scale),)
+            out = F.scaled_dot_product_attention(xs[0], kr, vr, is_causal=is_causal,
+                                                 scale=sm_scale)
         else:
-            out = reference.attention_reference(*xs, is_causal=is_causal, sm_scale=sm_scale,
-                                                window=window, return_lse=dlse is not None)
-            outs = out if dlse is not None else (out,)
+            out = _exact_attention(*xs[:3], bias, is_causal=is_causal, sm_scale=sm_scale,
+                                   window=window, return_lse=lse)
+    outs = out if lse else (out,)
     if do is None:  # only the LSE is used
         do = torch.zeros_like(outs[0])
     cts = (do,) if dlse is None else (do, dlse)
@@ -177,31 +237,39 @@ def exact_attention_vjp(q, k, v, do, dlse, *, is_causal: bool, sm_scale: float |
 
 
 class RecomputeFunction(torch.autograd.Function):
-    """``sageattn`` on HND tensors with a Q/K option (``core.QKOptions``).
+    """``sageattn`` on HND tensors whose backward is exact recompute: a Q/K
+    option (``core.QKOptions``), or a bias the fused backward does not
+    take (broadcast forms, a bias with a window or an option).
 
-    ``apply(q, k, v, is_causal, sm_scale, smooth_k, return_lse, pv_dtype,
-    smooth_v, window, opts)``: the quantized forward (the pre-quantized
-    kernel), saving q, k and v; the backward is :func:`exact_attention_vjp`.
-    It launches none of the backward's kernels.  An output that is not
-    used gets no cotangent (not a zero one), so an unused LSE keeps the
-    recompute off the materialized-scores path."""
+    ``apply(q, k, v, bias, is_causal, sm_scale, smooth_k, return_lse,
+    pv_dtype, smooth_v, window, opts)``: the quantized forward (with the
+    bias and the window; the pre-quantized kernel with an option), saving
+    q, k, v and the bias; the backward is :func:`exact_attention_vjp`,
+    dBias only when the bias needs a gradient.  It launches none of the
+    backward's kernels.  An output that is not used gets no cotangent (not
+    a zero one), so an unused LSE keeps the recompute off the
+    materialized-scores path."""
 
     @staticmethod
-    def forward(ctx, q, k, v, is_causal, sm_scale, smooth_k, return_lse, pv_dtype, smooth_v,
-                window, opts):
+    def forward(ctx, q, k, v, bias, is_causal, sm_scale, smooth_k, return_lse, pv_dtype,
+                smooth_v, window, opts):
         ctx.set_materialize_grads(False)
         out = core._sageattn_hnd(q, k, v, is_causal=is_causal, sm_scale=sm_scale,
                                  smooth_k=smooth_k, return_lse=return_lse, pv_dtype=pv_dtype,
                                  smooth_v=smooth_v,
-                                 masks=None if window is None else Masks(window=window),
+                                 masks=core._masks(q, k, is_causal=is_causal, attn_bias=bias,
+                                                   window=window),
                                  opts=opts)
-        ctx.save_for_backward(q, k, v)
+        ctx.save_for_backward(q, k, v, bias)
         ctx.is_causal, ctx.sm_scale, ctx.window = is_causal, sm_scale, window
         return out
 
     @staticmethod
     def backward(ctx, do, dlse=None):
-        q, k, v = ctx.saved_tensors
-        dq, dk, dv = exact_attention_vjp(q, k, v, do, dlse, is_causal=ctx.is_causal,
-                                         sm_scale=ctx.sm_scale, window=ctx.window)
-        return dq, dk, dv, None, None, None, None, None, None, None, None
+        q, k, v, bias = ctx.saved_tensors
+        need_dbias = ctx.needs_input_grad[3]
+        grads = exact_attention_vjp(q, k, v, do, dlse, is_causal=ctx.is_causal,
+                                    sm_scale=ctx.sm_scale, window=ctx.window, bias=bias,
+                                    need_dbias=need_dbias)
+        dbias = grads[3] if need_dbias else None
+        return (*grads[:3], dbias, None, None, None, None, None, None, None, None)

@@ -27,6 +27,8 @@ import torch
 LOG2E = 1.4426950408889634
 # finite mask value: exp(MASK_VALUE - m) is 0 without an inf - inf
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
+# the backward's floor of biased base-2 logits (the TPU kernels' clamp)
+LOGIT_FLOOR = -1e30
 
 
 def window_band_mask(sq: int, sk: int, window: int, device=None) -> torch.Tensor:
@@ -242,8 +244,11 @@ def quantized_attention_bwd_reference(
     is_causal: bool,
     sm_scale: float,
     window: int | None = None,
+    bias: torch.Tensor | None = None,
+    need_dbias: bool = False,
 ):
-    """Unfused spec of the backward kernels: returns (dq, dk, dv) in fp32.
+    """Unfused spec of the backward kernels: returns (dq, dk, dv) in fp32,
+    and dBias with ``need_dbias``.
 
     ``q_i8``/``q_scale`` and ``k_i8``/``k_scale`` (per-row scales [b,h,s],
     ``sm_scale * log2(e)`` in ``q_scale``) are the forward's quantized
@@ -260,7 +265,14 @@ def quantized_attention_bwd_reference(
     TPU kernels put them (``attention_bwd_pallas.py`` ``ds.astype`` and
     ``pt.astype``); products of bf16 values are exact in fp32 and every sum
     is fp32.  ``k_sm=None`` skips dQ and ``q_bf=None`` skips dK (returned
-    as None).  ``window`` (with ``is_causal``) masks as the forward does."""
+    as None).  ``window`` (with ``is_causal``) masks as the forward does.
+
+    ``bias`` [b, hq, sq, sk] (fp32 or bf16), the forward's additive bias
+    (``attention_bwd_pallas.py:160-204``): ``bias * log2(e)`` joins l2,
+    clamped below at ``LOGIT_FLOOR``, and a row whose lse2 is -inf (no
+    live key: its o was 0) takes 0 in its place, so its P is 0.  With
+    ``need_dbias``, dBias = P * (dP - dvec) in fp32, before the bf16
+    rounding, in the bias's dtype (0 wherever P is masked)."""
     b, hq, sq, _ = q_i8.shape
     hkv, sk = k_i8.shape[1], k_i8.shape[2]
     mask = _build_mask(sq, sk, is_causal=is_causal, device=q_i8.device, window=window)
@@ -268,26 +280,34 @@ def quantized_attention_bwd_reference(
     dq = torch.zeros(q_i8.shape, **f32) if k_sm is not None else None
     dk = torch.zeros(k_i8.shape, **f32) if q_bf is not None else None
     dv = torch.zeros(k_i8.shape, **f32)
+    dbias = torch.empty_like(bias) if need_dbias else None
     for bi in range(b):
         for h in range(hq):
             hk = _kv_head(h, hq, hkv)
             s_i = q_i8[bi, h].float() @ k_i8[bi, hk].float().T
             # the kernels' operand order: s * (q_scale * k_scale)
             l2 = s_i * (q_scale[bi, h, :, None] * k_scale[bi, hk, None, :])
-            p = torch.exp2(l2 - lse2[bi, h, :, None])
+            lse = lse2[bi, h, :, None]
+            if bias is not None:
+                l2 = torch.clamp(l2 + bias[bi, h].float() * LOG2E, min=LOGIT_FLOOR)
+                lse = torch.where(torch.isneginf(lse), 0.0, lse)
+            p = torch.exp2(l2 - lse)
             if mask is not None:
                 p = torch.where(mask, p, 0.0)
             do_h = do[bi, h].float()
             dv[bi, hk] += p.to(torch.bfloat16).float().T @ do_h
             dp = do_h @ v[bi, hk].float().T
-            ds = (p * (dp - dvec[bi, h, :, None])).to(torch.bfloat16).float()
+            ds = p * (dp - dvec[bi, h, :, None])
+            if dbias is not None:
+                dbias[bi, h] = ds.to(dbias.dtype)
+            ds = ds.to(torch.bfloat16).float()
             if dq is not None:
                 dq[bi, h] = (ds @ k_sm[bi, hk].float()) * sm_scale
             if dk is not None:
                 dk[bi, hk] += ds.T @ q_bf[bi, h].float()
     if dk is not None:
         dk *= sm_scale
-    return dq, dk, dv
+    return (dq, dk, dv, dbias) if need_dbias else (dq, dk, dv)
 
 
 def decode_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

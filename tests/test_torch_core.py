@@ -173,12 +173,14 @@ def test_sageattn_close_to_exact_attention(causal):
         # the Q/K options are ported (tests/test_torch_qopts.py); a TPU launch
         # option beside them still raises, and so do values they do not take
         ({"smooth_q": True, "block_q": 64}, False, NotImplementedError, "launch configuration"),
-        # the masks are ported (tests/test_torch_masks.py); what still raises:
-        # a bool mask or an additive bias under grad, a lone side of a pair,
-        # a window without causal or below 1
+        # the masks are ported (tests/test_torch_masks.py) and a lone bias
+        # has a gradient (tests/test_torch_bias_grad.py); what still raises:
+        # a bool mask, or a bias beside segment ids, under grad, a lone side
+        # of a pair, a window without causal or below 1
         ({"attn_mask": torch.ones(128, 128, dtype=torch.bool)}, True, NotImplementedError,
          "no gradient"),
-        ({"attn_bias": torch.zeros(128, 128)}, True, NotImplementedError, "ROADMAP"),
+        ({"attn_bias": torch.zeros(128, 128), "q_segment_ids": torch.zeros(1, 128),
+          "kv_segment_ids": torch.zeros(1, 128)}, True, NotImplementedError, "no gradient"),
         ({"q_segment_ids": torch.zeros(1, 128, dtype=torch.int32)}, False, ValueError,
          "together"),
         ({"kv_segment_ids": torch.zeros(1, 128, dtype=torch.int32)}, False, ValueError,

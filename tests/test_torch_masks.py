@@ -247,7 +247,11 @@ def _x(requires_grad=False):
      NotImplementedError, "no gradient"),
     ({"q_positions": torch.zeros(1, 128), "kv_positions": torch.zeros(1, 128)}, True,
      NotImplementedError, "no gradient"),
-    ({"attn_bias": torch.zeros(128, 128)}, True, NotImplementedError, "dBias"),
+    # a lone bias has a gradient (tests/test_torch_bias_grad.py), not one
+    # beside a bool mask
+    ({"attn_bias": torch.zeros(128, 128),
+      "attn_mask": torch.ones(128, 128, dtype=torch.bool)}, True, NotImplementedError,
+     "no gradient"),
     ({"attn_mask": torch.zeros(128, 128)}, True, NotImplementedError, "dBias"),
     # smooth_q is ported (tests/test_torch_qopts.py); the masks beside it are checked
     ({"smooth_q": True, "window": 16}, False, ValueError, "is_causal"),
@@ -262,11 +266,16 @@ def test_mask_refusals(kwargs, grad, exc, match):
 
 
 def test_trainable_bias_is_refused_under_grad():
+    """A trainable bias has a gradient alone (tests/test_torch_bias_grad.py),
+    none beside segment ids (nor in the JAX package), and runs under
+    no_grad with them."""
     bias = torch.zeros(128, 128, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="dBias"):
-        sageattn(_x(), _x(), _x(), attn_bias=bias)
+    ids = torch.zeros(1, 128, dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="no gradient"):
+        sageattn(_x(), _x(), _x(), attn_bias=bias, q_segment_ids=ids, kv_segment_ids=ids)
     with torch.no_grad():
-        assert sageattn(_x(), _x(), _x(), attn_bias=bias).shape == (1, 2, 128, 64)
+        assert sageattn(_x(), _x(), _x(), attn_bias=bias, q_segment_ids=ids,
+                        kv_segment_ids=ids).shape == (1, 2, 128, 64)
 
 
 @pytest.mark.parametrize("sq,sk", [(300, 700), (256, 512)], ids=["ragged", "whole_tiles"])
