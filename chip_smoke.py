@@ -110,7 +110,33 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    llm-8b-gqa layer, causal with an fp32 ALiBi bias, beside their byte
    bounds, their plain versions and SDPA's backward with the bias as a
    float mask that requires grad, and the exact route once (a broadcast
-   [1, 32, s, s] bias at b 2).
+   [1, 32, s, s] bias at b 2);
+7. head dims above 128 (the D = 256 instances, every head dim in (128,
+   256] padded to 256), drawing from a generator of their own:
+   a. with the kernel checks of phase 2: kernels 2-6 at 256 bit-exact with
+      their plain versions; the forward at the Gemma-7B prefill layer (4,
+      16/16, 4096, 256), causal, every V type, and at d 192 ragged (1,
+      16/8, 3001); the masked forward at Gemma-2-9B's local layer (1,
+      16/8, 8192, 256, window 4096) and over varlen's four prompts, each
+      op also against exact attention; dQ and dK/dV non-causal, causal and
+      windowed at (1, 16/16, 4096, 256) and (1, 16/8, 4096, 192), and
+      ``sageattn``'s d 192 gradients against exact attention's; kernels
+      9-12 at 256 and 192, int8 and int4, dense and paged, windowed or not;
+   b. after the LLM servers: ``llm_gemma7b_dense`` and
+      ``llm_gemma7b_paged``, the Gemma-7B attention geometry (``GEMMA_7B``:
+      hidden 3072, 16/16 heads of 256, MLP 24576, vocab 256000) at full
+      width and depth 28, fp32 weights, b 4, a 4096-token prompt and 32
+      decode steps over an 8192-token int8 cache (dense, kernel 9; pages
+      of 1024, kernel 11), run as 5a's servers are, peak memory printed;
+   c. the layer trainer: bf16 q, k, v of one Gemma-7B layer (1, 16/16,
+      4096, 256), causal, AdamW towards exact attention, first-step
+      gradients >= 0.999 against fp32 exact attention's, 1 warm-up and 4
+      timed steps, each launching kernels 2-4, 1, 7 and 8 at 256 once;
+   d. with the timings of phase 6: each D = 256 instance beside its bound,
+      plain version and library call (SDPA forward and backward).
+   A D = 256 instance that no path of this run launches (the masked
+   forward, kernels 5-6, 10 and 12) is reported inside its kernel's entry
+   of the ``kernels`` line, as ``hd256``.
 
 It prints one ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside the
@@ -161,6 +187,22 @@ REFEED_FLOOR = {8: 0.998, 4: 0.97}
 LOG2E = 1.4426950408889634
 LLM_LAYER = dict(hq=32, hkv=8, d=128)  # one llm-8b-gqa attention layer
 VARLEN_LENS = (4096, 2048, 1536, 512)  # four causal prompts packed, 8192 tokens
+# Gemma-7B's attention geometry (google/gemma-7b config.json: hidden 3072,
+# 28 layers, 16 query and 16 kv heads of 256, MLP 24576, vocab 256000)
+# under the JAX package's Llama-style block; GeGLU, the embedding scale
+# and the tied head are not modelled (none of them touches attention)
+GEMMA_7B = dict(hidden=3072, heads=16, kv_heads=16, head_dim=256, depth=28, mlp_hidden=24576,
+                vocab=256000)
+HD256_LAYER = dict(hq=16, hkv=16, d=256)  # one Gemma-7B attention layer
+GEMMA2_LOCAL = dict(hq=16, hkv=8, d=256)  # Gemma-2-9B's heads, window 4096 on its local layers
+# the kernels with head-dim-256 instances (or a head-dim-256 call), each
+# counted apart as ``<name>_hd256``
+HD256 = ("k_channel_mean", "quant_k_chunked", "quant_q_per_token", "quant_v_per_channel",
+         "v_channel_stats", "quant_v_apply", "sage_attn_fwd", "sage_attn_fwd_masked",
+         "sage_attn_bwd_dq", "sage_attn_bwd_dkv", "sage_decode", "sage_decode_window",
+         "sage_paged_decode", "sage_paged_decode_window")
+HD256_SOURCE = {"sage_attn_fwd": "attention_fwd_hd256.cu",
+                "sage_attn_fwd_masked": "attention_fwd_masked_hd256.cu"}
 
 
 def log(msg: str) -> None:
@@ -625,7 +667,8 @@ def heads_of(masks, hs):
     return masks._replace(mask=pick(masks.mask), bias=pick(masks.bias))
 
 
-def compare_masked(name, q, k_i8, k_sc, v, masks, causal, hs, results) -> None:
+def compare_masked(name, q, k_i8, k_sc, v, masks, causal, hs, results,
+                   key: str = "sage_attn_fwd_masked") -> None:
     """The masked kernel against its plain version on the query heads
     ``hs`` (the plain version's [s, s] scores one head at a time): o
     cosine >= 0.9999 and max-abs <= 2e-2, lse2 <= 1e-3 on live rows, and
@@ -659,7 +702,7 @@ def compare_masked(name, q, k_i8, k_sc, v, masks, causal, hs, results) -> None:
     require(finite and same_dead and zero, f"masked attention {name}: dead rows or non-finite")
     require(cos >= 0.9999 and err <= 2e-2 and lerr <= 1e-3,
             f"masked attention {name} disagrees with its plain version")
-    r = results["sage_attn_fwd_masked"]
+    r = results[key]
     r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
 
 
@@ -1337,6 +1380,24 @@ def compare_decode(name, res, res_p, results, key):
     r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
 
 
+def decode_case(gen, q, cache, L, page, window, **kw):
+    """Kernels 9-12 on one batch: (the results key of the kernel that runs,
+    its wrapper's call, the plain version's call), over the dense ``cache``
+    or, with ``page``, its tokens in a scrambled page pool; ``kw`` goes to
+    both calls."""
+    from sageattention_tpu_torch.ops import decode_cuda as dc
+
+    if page is None:
+        key = "sage_decode" if window is None else "sage_decode_window"
+        return (key, lambda: dc.sage_decode_attention(q, *cache, L, window=window, **kw),
+                lambda: dc.sage_decode_attention_plain(q, *cache, L, window=window, **kw))
+    key = "sage_paged_decode" if window is None else "sage_paged_decode_window"
+    pool, table = paged_from_dense(gen, cache, page)
+    return (key, lambda: dc.sage_paged_decode_attention(q, *pool, table, L, window=window, **kw),
+            lambda: dc.sage_paged_decode_attention_plain(q, *pool, table, L, window=window,
+                                                         **kw))
+
+
 def check_decode(gen, results):
     """Kernels 9-12 against their plain versions at the LLM servers' shapes
     (GQA 32/8, d 128): int8 and packed int4; t_q 1, 4 and 512; ragged
@@ -1412,20 +1473,8 @@ def check_decode(gen, results):
     for name, hq_, hkv_, d_, b, t_q, S, page, ln, window, packed in odd:
         cache = random_cache(gen, (b, hkv_), S, d_, packed)
         q = torch.randn(b, hq_, t_q, d_, generator=gen, device="cuda").to(torch.bfloat16)
-        L = lens(ln)
-        if page is None:
-            key = "sage_decode" if window is None else "sage_decode_window"
-            res = dc.sage_decode_attention(q, *cache, L, window=window, return_state=True)
-            res_p = dc.sage_decode_attention_plain(q, *cache, L, window=window,
-                                                   return_state=True)
-        else:
-            key = "sage_paged_decode" if window is None else "sage_paged_decode_window"
-            pool, table = paged_from_dense(gen, cache, page)
-            res = dc.sage_paged_decode_attention(q, *pool, table, L, window=window,
-                                                 return_state=True)
-            res_p = dc.sage_paged_decode_attention_plain(q, *pool, table, L, window=window,
-                                                         return_state=True)
-        compare_decode(f"{name} {tuple(ln)}", res, res_p, results, key)
+        key, fn, plain = decode_case(gen, q, cache, lens(ln), page, window, return_state=True)
+        compare_decode(f"{name} {tuple(ln)}", fn(), plain(), results, key)
 
     # one page a chunk: the paged kernel walks the dense kernel's chunks
     for packed in (False, True):
@@ -1466,10 +1515,9 @@ def time_decode(gen, results):
     layer, cold in L2) beside their bounds and plain versions, and kernels
     10 and 12 at the windowed server's 512-token extend blocks.  No PyTorch
     call computes decode over an int8 cache: library_ms is null."""
-    from sageattention_tpu_torch.ops import decode_cuda as dc
+    import torch
 
     hq, hkv, d = 32, 8, 128
-    import torch
 
     def q_of(b, t_q):
         return torch.randn(b, hq, t_q, d, generator=gen, device="cuda").to(torch.bfloat16)
@@ -1489,21 +1537,7 @@ def time_decode(gen, results):
             cache = random_cache(gen, (b, hkv), S, d, packed)
             q = q_of(b, t_q)
             L = torch.full((b,), length, dtype=torch.int32, device="cuda")
-            if page is None:
-                def fn(q=q, cache=cache, L=L, window=window):
-                    return dc.sage_decode_attention(q, *cache, L, window=window)
-
-                def plain(q=q, cache=cache, L=L, window=window):
-                    return dc.sage_decode_attention_plain(q, *cache, L, window=window)
-            else:
-                pool, table = paged_from_dense(gen, cache, page)
-
-                def fn(q=q, pool=pool, table=table, L=L, window=window):
-                    return dc.sage_paged_decode_attention(q, *pool, table, L, window=window)
-
-                def plain(q=q, pool=pool, table=table, L=L, window=window):
-                    return dc.sage_paged_decode_attention_plain(q, *pool, table, L,
-                                                                window=window)
+            _, fn, plain = decode_case(gen, q, cache, L, page, window)
             ms = cuda_ms(fn, reps=20, cold=True)
             plain_ms = cuda_ms(plain, reps=3, warmup=1)
             bound, by = decode_bound([length] * b, hq, hkv, t_q, d, packed, window)
@@ -1548,12 +1582,21 @@ MAIN_PATH = {**{n: "server" for n in FORWARD}, **{n: "train" for n in BACKWARD},
              "sage_decode_window": "llm_window_dense", "sage_paged_decode": "llm_paged",
              "sage_paged_decode_window": "llm_window_paged",
              "sage_attn_fwd_masked": "llm_window_dense", "sage_attn_fwd_preq": "server_int4_sq",
-             "sage_attn_bwd_dq_bias": "bias_train", "sage_attn_bwd_dkv_bias": "bias_train"}
+             "sage_attn_bwd_dq_bias": "bias_train", "sage_attn_bwd_dkv_bias": "bias_train",
+             # the head-dim-256 instances on a path of this run; the others
+             # (the masked forward, kernels 5-6, 10 and 12 at 256) are checked
+             # and timed, and reported inside their kernel's entry
+             **{n + "_hd256": "llm_gemma7b_dense" for n in FORWARD + ("sage_decode",)},
+             "sage_paged_decode_hd256": "llm_gemma7b_paged",
+             **{n + "_hd256": "hd256_train" for n in BACKWARD}}
+FORWARD_HD256 = tuple(n + "_hd256" for n in FORWARD)
+BACKWARD_HD256 = tuple(n + "_hd256" for n in BACKWARD)
 
 
 def counters():
     """Each kernel's (wrapper, counter attribute): the backward wrappers
-    count their bias instances apart."""
+    count their bias instances apart, every wrapper its launches at head
+    dim 256."""
     from sageattention_tpu_torch.ops import (attention_bwd_cuda, attention_cuda, decode_cuda,
                                              quant_cuda)
 
@@ -1575,6 +1618,8 @@ def counters():
     out = {name: (fn, "launches") for name, fn in fns.items()}
     out["sage_attn_bwd_dq_bias"] = (attention_bwd_cuda.sage_attention_bwd_dq, "bias_launches")
     out["sage_attn_bwd_dkv_bias"] = (attention_bwd_cuda.sage_attention_bwd_dkv, "bias_launches")
+    for name in HD256:  # the launches at head dim 256, counted apart
+        out[name + "_hd256"] = (fns[name], "hd256_launches")
     return out
 
 
@@ -1800,7 +1845,8 @@ def run_llm_server(results, model, profile: bool, *, path: str, cache: str, bits
 
     cfg = model.cfg
     depth = cfg.depth
-    kern = DECODE_KERNEL[(cache, cfg.window is not None)]
+    sfx = "_hd256" if cfg.head_dim > 128 else ""  # the head-dim-256 instances' counters
+    kern = DECODE_KERNEL[(cache, cfg.window is not None)] + sfx
     log(f"llm server {path}: {cfg.name} hidden {cfg.hidden} heads {cfg.heads}/{cfg.kv_heads}x"
         f"{cfg.head_dim} depth {depth} vocab {cfg.vocab} window {cfg.window}; {cache} int{bits} "
         f"cache, b {b}, prompt {prompt}{f' in {chunk}-token extend blocks' if chunk else ''}, "
@@ -1823,6 +1869,7 @@ def run_llm_server(results, model, profile: bool, *, path: str, cache: str, bits
         return launches
 
     zero_counts()
+    torch.cuda.reset_peak_memory_stats()
     a, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     a.record()
     logits, caches, lengths = generate.prefill(model, tokens, caches, chunked_prefill=chunk)
@@ -1830,7 +1877,7 @@ def run_llm_server(results, model, profile: bool, *, path: str, cache: str, bits
     e.record()
     e.synchronize()
     prefill_ms = a.elapsed_time(e)
-    fwd = FORWARD_MASKED if cfg.window is not None else FORWARD
+    fwd = tuple(n + sfx for n in (FORWARD_MASKED if cfg.window is not None else FORWARD))
     pre = check("prefill", {kern: depth * (prompt // chunk)} if chunk
                 else {n: depth for n in fwd})
     del logits
@@ -1847,6 +1894,7 @@ def run_llm_server(results, model, profile: bool, *, path: str, cache: str, bits
         step_ms.append(a.elapsed_time(e))
         out.append(cur)
     dec = check("decode", {kern: depth * steps})
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     toks = torch.cat(out, dim=1)
     require(bool(torch.isfinite(logits).all()) and toks.shape == (b, steps + 1)
             and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab,
@@ -1859,7 +1907,8 @@ def run_llm_server(results, model, profile: bool, *, path: str, cache: str, bits
     med = statistics.median(step_ms)
     log(f"llm server {path}: prefill {prefill_ms:.3f} ms ({b * prompt / prefill_ms * 1e3:.1f} "
         f"tokens/s); decode ms per step {[round(x, 3) for x in step_ms]}, median {med:.3f} "
-        f"({b / med * 1e3:.1f} tokens/s); first tokens {toks[0, :8].tolist()}")
+        f"({b / med * 1e3:.1f} tokens/s); peak memory {peak_gb:.2f} GB; first tokens "
+        f"{toks[0, :8].tolist()}")
     prof = None
     if profile:
         prof = profile_device(lambda: generate.decode_step(model, cur, caches, lengths),
@@ -1875,7 +1924,7 @@ def run_llm_server(results, model, profile: bool, *, path: str, cache: str, bits
             "cache": cache, "bits": bits, "b": b, "prompt": prompt, "steps": steps,
             "max_len": max_len, "chunked_prefill": chunk, "prefill_ms": prefill_ms,
             "prefill_tokens_per_s": b * prompt / prefill_ms * 1e3, "step_ms": step_ms,
-            "median_step_ms": med, "decode_tokens_per_s": b / med * 1e3,
+            "median_step_ms": med, "decode_tokens_per_s": b / med * 1e3, "peak_gb": peak_gb,
             "launches": {"prefill": {n: c for n, c in pre.items() if c},
                          "decode": {n: c for n, c in dec.items() if c}},
             "refeed_cosine_depth2": cos, "profile": prof}
@@ -2690,6 +2739,595 @@ def time_bias_backward(results) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 7: head dims above 128 (the D = 256 instances), Gemma-7B's widths
+# --------------------------------------------------------------------------
+
+
+def padded(x, d: int = 256):
+    """x with its head dim zero-padded to ``d``, contiguous."""
+    import torch.nn.functional as F
+
+    return F.pad(x, (0, d - x.shape[-1])).contiguous()
+
+
+def check_hd256_quant(gen, results):
+    """Kernels 2-6 at head dim 256 against their plain versions: K at the
+    Gemma-7B prefill layer (4, 16, 4096, 256), chunked bit-exact with the
+    plain km and the whole prologue within one code step on <= 1e-4; Q at
+    the layer trainer's (1, 16, 4096, 256), 8 and 4 bits, bit-exact; V
+    through kernel 5 at (1, 16, 4096, 256) (a 2 MB slab) and kernel 6 at
+    (1, 8, 16384, 256) (8 MB), each code type bit-exact without smooth-v,
+    and with it the mean within 1e-5 relative and codes a step apart on
+    <= 1e-4."""
+    import torch
+    from sageattention_tpu_torch import quant
+    from sageattention_tpu_torch.ops import quant_cuda as qc
+
+    k = (torch.randn(4, 16, 4096, 256, generator=gen, device="cuda")
+         + torch.randn(4, 16, 1, 256, generator=gen, device="cuda") * 3).to(torch.bfloat16)
+    km, km_p = qc.k_channel_mean(k), qc.k_channel_mean_plain(k)
+    ki, ks = qc.quant_k_chunked(k, km_p, group=128)
+    ki_p, ks_p = qc.quant_k_chunked_plain(k, km_p, group=128)
+    kf, sf, _ = qc.quant_k_fused_mean(k, group=128)
+    torch.cuda.synchronize()
+    km_err = ((km - km_p).abs() / (km_p.abs() + 1e-3)).max().item()
+    exact = torch.equal(ki, ki_p) and torch.equal(ks, ks_p)
+    diff = (kf.int() - ki_p.int()).abs()
+    frac = (diff > 0).float().mean().item()
+    log(f"hd256 quant_k {tuple(k.shape)}: km max rel err {km_err:.3e}; chunked bit-exact "
+        f"{exact}; fused codes off {frac:.2e} (max {diff.max().item()})")
+    require(km_err <= 1e-5 and exact and diff.max().item() <= 1 and frac <= 1e-4,
+            "hd256: the K quantizers disagree with their plain versions")
+    results["k_channel_mean_hd256"]["max_abs_err"] = (km - km_p).abs().max().item()
+    results["quant_k_chunked_hd256"]["max_abs_err"] = float(
+        (ki.int() - ki_p.int()).abs().max().item())
+    del k, ki, ki_p, kf
+
+    q = torch.randn(1, 16, 4096, 256, generator=gen, device="cuda").to(torch.bfloat16) * 3
+    fold = 256**-0.5 * LOG2E
+    for bits in (8, 4):
+        qi, qs = qc.quant_q_per_token(q, scale_fold=fold, bits=bits)
+        qi_p, qs_p = qc.quant_q_per_token_plain(q, scale_fold=fold, bits=bits)
+        torch.cuda.synchronize()
+        exact = torch.equal(qi, qi_p) and torch.equal(qs, qs_p)
+        log(f"hd256 quant_q_per_token {tuple(q.shape)} {bits} bits: bit-exact {exact}")
+        require(exact, f"hd256: quant_q_per_token at {bits} bits is not bit-exact")
+    results["quant_q_per_token_hd256"]["max_abs_err"] = 0.0
+
+    def same(a, b):
+        return torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+    for kernel, shape, plain, keys in (
+            ("kernel 5", (1, 16, 4096, 256), qc.quant_v_per_channel_plain,
+             ("quant_v_per_channel_hd256",)),
+            ("kernel 6", (1, 8, 16384, 256), qc.quant_v_blocked_plain,
+             ("v_channel_stats_hd256", "quant_v_apply_hd256"))):
+        v = random_v(gen, shape)
+        for pv, dtype in quant.V_DTYPES.items():
+            for smooth in (False, True):
+                q_, sc, m = qc.quant_v_per_channel(v, dtype=dtype, smooth=smooth)
+                q_p, sc_p, m_p = plain(v, dtype=dtype, smooth=smooth)
+                torch.cuda.synchronize()
+                off = q_.view(torch.uint8) != q_p.view(torch.uint8)
+                frac = off.float().mean().item()
+                line = f"hd256 quant_v {kernel} {shape} {pv} smooth={smooth}: codes off {frac:.2e}"
+                if not smooth:
+                    ok = same(q_, q_p) and torch.equal(sc, sc_p)
+                    log(line + f"; bit-exact {ok}")
+                    require(ok, f"hd256 {kernel} {pv}: not bit-exact with the plain version")
+                    continue
+                m_rel = ((m - m_p).abs() / (m_p.abs() + 1e-3)).max().item()
+                s_rel = ((sc - sc_p).abs() / sc_p).max().item()
+                log(line + f", mean max rel {m_rel:.2e}, scales max rel {s_rel:.2e}")
+                require(m_rel <= 1e-5 and s_rel <= 1e-5 and frac <= 1e-4,
+                        f"hd256 {kernel} {pv} smooth-v disagrees with the plain version")
+                if dtype == torch.int8:
+                    require((q_.int() - q_p.int()).abs().max().item() <= 1,
+                            f"hd256 {kernel}: int8 codes more than a step apart")
+                for key in keys:
+                    r = results[key]
+                    r["max_abs_err"] = max(r.get("max_abs_err", 0.0), (m - m_p).abs().max().item())
+        del v
+    torch.cuda.empty_cache()
+
+
+def check_hd256_attention(gen, results):
+    """Kernel 1's D = 256 instances against the plain version: at the
+    Gemma-7B prefill layer (4, 16/16, 4096, 256), causal, every V type with
+    and without the smooth-v mean (query heads 0, 7 and 15 of each batch);
+    d 192 padded to 256, ragged (1, 16/8, 3001, 192), causal, bf16 V, and
+    ``sageattn`` there against exact fp32 attention; the masked instances
+    at Gemma-2-9B's local layer (1, 16/8, 8192, 256, window 4096) and over
+    varlen's four packed causal prompts at 256, each also as
+    ``sageattn`` / ``sageattn_varlen`` against exact attention."""
+    import torch
+    from sageattention_tpu_torch.ops import attention_cuda, quant_cuda
+    from sageattention_tpu_torch.ops.attention_cuda import Masks
+    from sageattention_tpu_torch.utils.compare import cosine_similarity
+
+    out = {}
+    cases = [
+        # name, b, hq, hkv, s, d (the caller's), compared heads, V types
+        ("gemma-7b layer", 4, 16, 16, 4096, 256, (0, 7, 15), None),
+        ("d192 ragged", 1, 16, 8, 3001, 192, (0, 9, 15), ("bf16",)),
+    ]
+    for name, b, hq, hkv, s, d, hs, vtypes in cases:
+        q = torch.randn(b, hq, s, d, generator=gen, device="cuda").to(torch.bfloat16)
+        k = (torch.randn(b, hkv, s, d, generator=gen, device="cuda") + 0.5).to(torch.bfloat16)
+        v = torch.randn(b, hkv, s, d, generator=gen, device="cuda").to(torch.bfloat16)
+        qp, kp, vp = padded(q), padded(k), padded(v)
+        k_i8, k_sc, _ = quant_cuda.quant_k_fused_mean(kp, group=128)
+        fold = d**-0.5 * LOG2E
+        kvs = [h // (hq // hkv) for h in hs]
+
+        def kv_heads(x):
+            return x[:, kvs].contiguous() if x is not None else None
+
+        for vname, vx, vs, vm in v_operands(vp):
+            if vtypes is not None and vname not in vtypes:
+                continue
+            o, l2 = attention_cuda.sage_attention_fwd(qp, k_i8, k_sc, vx, vs, vm,
+                                                      is_causal=True, q_fold=fold,
+                                                      return_lse=True)
+            o_p, l2_p = attention_cuda.sage_attention_plain(
+                qp[:, hs].contiguous(), kv_heads(k_i8), kv_heads(k_sc), kv_heads(vx),
+                kv_heads(vs), kv_heads(vm), is_causal=True, q_fold=fold, return_lse=True)
+            torch.cuda.synchronize()
+            o_k, l2_k = o[:, hs].float(), l2[:, hs]
+            cos = cosine_similarity(o_k.cpu(), o_p.float().cpu())
+            err = (o_k - o_p.float()).abs().max().item()
+            lerr = (l2_k - l2_p).abs().max().item()
+            finite = bool(torch.isfinite(o).all()) and bool(torch.isfinite(l2).all())
+            pad0 = bool((o[..., d:] == 0).all())
+            log(f"hd256 attention {name} {(b, hq, hkv, s, d)} causal V {vname}: cos {cos:.6f}, "
+                f"max abs {err:.3e}, lse2 max abs {lerr:.3e} (heads {hs}); finite {finite}; "
+                f"pad lanes 0 {pad0}")
+            require(finite and pad0, f"hd256 attention {name} V {vname}: non-finite or pad lanes")
+            require(cos >= 0.9999 and err <= 2e-2 and lerr <= 1e-3,
+                    f"hd256 attention {name} V {vname} disagrees with its plain version")
+            r = results["sage_attn_fwd_hd256"]
+            r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
+        if d == 192:
+            out["d192 ragged vs exact"] = op_vs_exact("sageattn d192 ragged", q, k, v, True, {})
+        del q, k, v, qp, kp, vp, k_i8, k_sc
+        torch.cuda.empty_cache()
+
+    hq, hkv, d = GEMMA2_LOCAL.values()
+    hs = (0, 8, 15)
+    b, s, w = 1, 8192, 4096
+    q, k, v, k_i8, k_sc = layer_operands(gen, b, s, hq=hq, hkv=hkv, d=d)
+    compare_masked(f"hd256 window {w} at {(b, hq, hkv, s, d)}", q, k_i8, k_sc, v,
+                   Masks(window=w), True, hs, results, key="sage_attn_fwd_masked_hd256")
+    del q, k, v, k_i8, k_sc
+    s = sum(VARLEN_LENS)
+    q, k, v, k_i8, k_sc = layer_operands(gen, 1, s, hq=hq, hkv=hkv, d=d)
+    cu, _, masks = varlen_masks()
+    compare_masked(f"hd256 varlen {VARLEN_LENS}", q, k_i8, k_sc, v, masks, True, hs, results,
+                   key="sage_attn_fwd_masked_hd256")
+    out["varlen vs exact"] = op_vs_exact("hd256 sageattn_varlen (per_segment, bf16 V)", q, k, v,
+                                         True, dict(smooth_k_mode="per_segment",
+                                                    pv_dtype="bf16"), varlen_cu=cu)
+    del q, k, v, k_i8, k_sc
+    b, s, w = 1, 3001, 1000  # exact fp32 scores of the 16 heads fit at this size
+    q, k, v, _, _ = layer_operands(gen, b, s, hq=hq, hkv=hkv, d=d)
+    out[f"window {w} at {s} vs exact"] = op_vs_exact(f"hd256 sageattn window {w} at {(b, s)}",
+                                                     q, k, v, True, dict(window=w))
+    del q, k, v
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_hd256_backward(gen, results) -> dict:
+    """Kernels 7-8's D = 256 instances (dQ with its fragments read from
+    shared memory, dK/dV in two passes) against their plain versions,
+    every head: non-causal, causal and windowed (1024) at the layer
+    trainer's (1, 16/16, 4096, 256) and at d 192 padded, GQA (1, 16/8,
+    4096, 192); then ``sageattn``'s gradients at d 192, causal, against
+    exact fp32 attention's."""
+    import torch
+    from sageattention_tpu_torch import core
+    from sageattention_tpu_torch.ops import attention_bwd_cuda as bwd
+    from sageattention_tpu_torch.ops import reference
+    from sageattention_tpu_torch.utils.compare import cosine_similarity
+
+    for (hq, hkv, d) in ((16, 16, 256), (16, 8, 192)):
+        for causal, window in ((False, None), (True, None), (True, 1024)):
+            ops, sm = backward_case(gen, 1, hq, hkv, 4096, 4096, d, causal, window=window)
+            kw = dict(is_causal=causal, sm_scale=sm, window=window)
+            got = (bwd.sage_attention_bwd_dq(*dq_args(ops), **kw),
+                   *bwd.sage_attention_bwd_dkv(*dkv_args(ops), **kw))
+            want = (bwd.sage_attention_bwd_dq_plain(*dq_args(ops), **kw),
+                    *bwd.sage_attention_bwd_dkv_plain(*dkv_args(ops), **kw))
+            torch.cuda.synchronize()
+            for gname, g, gp, key in zip(("dq", "dk", "dv"), got, want,
+                                         ("sage_attn_bwd_dq_hd256", "sage_attn_bwd_dkv_hd256",
+                                          "sage_attn_bwd_dkv_hd256")):
+                cos, rel, err = agreement(g, gp)
+                finite = bool(torch.isfinite(g).all())
+                pad0 = bool((g[..., d:] == 0).all())
+                log(f"hd256 backward {(1, hq, hkv, 4096, d)} causal={causal} window={window} "
+                    f"{gname}: cos {cos:.7f}, max abs / max|g| {rel:.3e}, finite {finite}, "
+                    f"pad lanes 0 {pad0}")
+                require(finite and pad0 and cos >= 0.9999 and rel <= 1e-2,
+                        f"hd256 backward: {gname} kernel disagrees with its plain version")
+                r = results[key]
+                r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
+            del ops, got, want
+            torch.cuda.empty_cache()
+    b, hq, hkv, s, d = 1, 16, 8, 2048, 192
+    q, k, v = (torch.randn(b, h, s, d, generator=gen, device="cuda").to(torch.bfloat16)
+               for h in (hq, hkv, hkv))
+    do = torch.randn(b, hq, s, d, generator=gen, device="cuda")
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+    g_s = torch.autograd.grad((core.sageattn(*xs, is_causal=True).float() * do).sum(), xs)
+    xr = [x.float().detach().requires_grad_() for x in (q, k, v)]
+    g_r = torch.autograd.grad((reference.attention_reference(*xr, is_causal=True) * do).sum(), xr)
+    coss = [cosine_similarity(a.float().cpu(), r.cpu()) for a, r in zip(g_s, g_r)]
+    log(f"hd256 sageattn grads at d192 vs exact fp32 (GQA 16/8, causal, {s}): cos dq "
+        f"{coss[0]:.6f} dk {coss[1]:.6f} dv {coss[2]:.6f}")
+    require(min(coss) >= 0.999, "hd256: d192 gradients vs exact attention: cosine < 0.999")
+    del xs, xr, g_s, g_r
+    torch.cuda.empty_cache()
+    return {"d192_grad_cos_vs_exact": coss}
+
+
+def check_hd256_decode(gen, results):
+    """Kernels 9-12's D = 256 instances against their plain versions at the
+    Gemma-7B decode shapes (16/16 heads, so one row a kv head at t_q 1):
+    int8 and int4, t_q 1 and 4, ragged lengths, window 4096, pages of 16
+    and 1024 through scrambled tables, and d 192 (computed at 256, the
+    cache read at its own head dim)."""
+    import torch
+
+    def lens(x):
+        return torch.tensor(x, dtype=torch.int32, device="cuda")
+
+    cases = [
+        # name, hq, hkv, d, b, t_q, S, page, lengths, window, packed
+        ("int8 t_q 1", 16, 16, 256, 4, 1, 8192, None, [0, 1, 4123, 8192], None, False),
+        ("int4 t_q 1", 16, 16, 256, 4, 1, 8192, None, [0, 1, 4123, 8192], None, True),
+        ("int8 t_q 4 gqa 16/8", 16, 8, 256, 4, 4, 8192, None, [4, 4103, 8192, 300], None, False),
+        ("int8 window 4096", 16, 16, 256, 2, 1, 9216, None, [8200, 1], 4096, False),
+        ("int4 window 4096 gqa 16/8", 16, 8, 256, 2, 1, 9216, None, [8200, 5000], 4096, True),
+        ("page 1024 int8", 16, 16, 256, 4, 1, 8192, 1024, [0, 1, 4123, 8192], None, False),
+        ("page 1024 int4", 16, 16, 256, 4, 1, 8192, 1024, [0, 1, 4123, 8192], None, True),
+        ("page 16 int8 t_q 4", 16, 16, 256, 4, 4, 8192, 16, [4, 17, 4123, 8192], None, False),
+        ("page 1024 int8 window 4096", 16, 8, 256, 2, 1, 9216, 1024, [8200, 3], 4096, False),
+        ("page 16 int4 window 4096", 16, 16, 256, 2, 1, 9216, 16, [8200, 4100], 4096, True),
+        ("d192 int8 t_q 1", 16, 8, 192, 2, 1, 4096, None, [4000, 37], None, False),
+        ("d192 page 48 int4 window 100", 16, 8, 192, 2, 1, 960, 48, [901, 60], 100, True),
+    ]
+    for name, hq, hkv, d, b, t_q, S, page, ln, window, packed in cases:
+        cache = random_cache(gen, (b, hkv), S, d, packed)
+        q = torch.randn(b, hq, t_q, d, generator=gen, device="cuda").to(torch.bfloat16)
+        key, fn, plain = decode_case(gen, q, cache, lens(ln), page, window, return_state=True)
+        compare_decode(f"hd256 {name} {tuple(ln)}", fn(), plain(), results, key + "_hd256")
+
+
+def run_gemma(results, profile: bool) -> dict:
+    """Phase 7b: the two Gemma-7B-geometry servers at full width and depth
+    28 (fp32 weights, about 37 GB; ``GEMMA_7B``), b 4, a 4096-token prompt
+    and 32 greedy decode steps over an 8192-token int8 cache: dense (kernel
+    9 at D = 256) and paged through a scrambled table of 1024-token pages
+    (kernel 11).  The prefill runs kernels 1-3 at 256 once a layer."""
+    import torch
+    from sageattention_tpu_torch import generate, models
+
+    models.set_attention_backend("sage")
+    cfg = models.MODEL_CONFIGS["llm-8b-gqa"].scaled(**GEMMA_7B)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(23)
+    t0 = time.perf_counter()
+    model = generate.load_llm(cfg, device="cuda", seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    warm = torch.randint(0, cfg.vocab, (4, 1024), generator=gen, device="cuda")
+    generate.generate(model, warm, 2, max_len=2048)
+    torch.cuda.synchronize()
+    log(f"gemma-7b geometry set-up + warm-up: {time.perf_counter() - t0:.1f} s, "
+        f"{n_params / 1e9:.3f} B parameters")
+    servers = {}
+    table = torch.randperm(4 * 8, generator=gen, device="cuda").reshape(4, 8).int()
+    for path, cache, pt in (("llm_gemma7b_dense", "dense", None),
+                            ("llm_gemma7b_paged", "paged", table)):
+        t_phase = time.perf_counter()
+        servers[path] = run_llm_server(results, model, profile, path=path, cache=cache, bits=8,
+                                       page_table=pt, b=4, prompt=4096, steps=LLM_STEPS,
+                                       max_len=8192)
+        servers[path]["params_b"] = n_params / 1e9
+        log(f"llm server phase {path}: {time.perf_counter() - t_phase:.1f} s")
+    del model
+    torch.cuda.empty_cache()
+    return servers
+
+
+def run_hd256_train(results) -> dict:
+    """Phase 7c, the layer trainer at head dim 256, a kernel check and not
+    a cell: bf16 q, k, v of one Gemma-7B attention layer (1, 16/16, 4096,
+    256), causal, trained with AdamW towards exact attention of another
+    seeded q, k, v (MSE).  Each step runs kernels 2-3, 1, 4, 7 and 8 at D =
+    256 once and no other kernel; the first step's gradients are held at
+    >= 0.999 against the autograd of fp32 exact attention; one warm-up
+    step and 4 timed ones, whose loss must be finite and fall."""
+    import torch
+    import torch.nn.functional as F
+    from sageattention_tpu_torch import core
+    from sageattention_tpu_torch.ops import reference
+
+    b, s = 1, 4096
+    hq, hkv, d = HD256_LAYER.values()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(22)
+
+    def qkv():
+        return [torch.randn(b, h, s, d, generator=gen, device="cuda").to(torch.bfloat16)
+                for h in (hq, hkv, hkv)]
+
+    q0, k0, v0 = qkv()
+    with torch.no_grad():
+        target = reference.attention_reference(*(x.float() for x in qkv()), is_causal=True)
+    q, k, v = (x.clone().requires_grad_() for x in (q0, k0, v0))
+
+    def sage(q, k, v):
+        o = core.sageattn(q, k, v, is_causal=True)
+        require(type(o.grad_fn).__name__ == "SageAttnFunctionBackward",
+                "hd256 trainer: sageattn did not take the fused route")
+        return o
+
+    def exact(q, k, v):
+        return reference.attention_reference(q.float(), k.float(), v.float(), is_causal=True)
+
+    grads = {name: torch.autograd.grad(F.mse_loss(attn(q, k, v).float(), target), [q, k, v])
+             for name, attn in (("sage", sage), ("exact", exact))}
+    first = {n: agreement(g, r)[0] for n, g, r in zip("qkv", grads["sage"], grads["exact"])}
+    log(f"hd256 trainer first-step gradients vs fp32 exact attention: "
+        f"{ {n: round(c, 6) for n, c in first.items()} }")
+    require(min(first.values()) >= 0.999, "hd256 trainer: gradients disagree with exact")
+    del grads
+
+    opt = torch.optim.AdamW([q, k, v], lr=1e-2, weight_decay=0.0)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = F.mse_loss(sage(q, k, v).float(), target)
+        loss.backward()
+        opt.step()
+        return loss
+
+    losses = [step().item()]  # warm-up, not counted
+    zero_counts()
+    ms = []
+    for _ in range(TRAIN_STEPS):
+        a, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        loss = step()
+        e.record()
+        e.synchronize()
+        ms.append(a.elapsed_time(e))
+        losses.append(loss.item())
+    launches = read_counts()
+    log(f"hd256 trainer: losses {[round(x, 8) for x in losses]}; ms per step "
+        f"{[round(x, 3) for x in ms]}, median {statistics.median(ms):.3f}; launches "
+        f"{ {n: c for n, c in launches.items() if c} }")
+    for name, n in launches.items():
+        want = TRAIN_STEPS if name in FORWARD_HD256 + BACKWARD_HD256 else 0
+        require(n == want, f"hd256 trainer: {name} launched {n} times, want {want}")
+        results[name]["launches_by_path"]["hd256_train"] = n
+    require(all(map(math.isfinite, losses)), "hd256 trainer: a loss is not finite")
+    require(losses[-1] < losses[0], "hd256 trainer: the loss did not fall")
+    del q, k, v, target, opt
+    torch.cuda.empty_cache()
+    return {"shape": [b, hq, hkv, s, d], "causal": True, "losses": losses, "step_ms": ms,
+            "median_step_ms": statistics.median(ms), "first_step_grad_cos_vs_exact": first}
+
+
+def time_hd256(gen, results) -> dict:
+    """Phase 7d: the D = 256 instances' times (CUDA events, median) beside
+    their bounds, plain versions and, where one PyTorch call computes the
+    same function, that call: kernels 2-3 and the forward (every V type;
+    SDPA causal as the library) at the Gemma-7B prefill layer (4, 16/16,
+    4096, 256), causal; kernel 4, dQ and dK/dV at the layer trainer's
+    (1, 16/16, 4096, 256), causal (SDPA's backward, fwd + bwd - fwd, as the
+    library of 7 + 8), and one layer's fwd + bwd against SDPA's; the masked
+    forward at Gemma-2-9B's local layer (1, 16/8, 8192, 256, window 4096;
+    SDPA with the band mask); kernels 5 and 6 at their check shapes;
+    kernels 9-12 at the Gemma-7B servers' mid-decode step (b 4, 16/16,
+    prompt + 16 tokens; window 4096 at b 2), L2 cold."""
+    import torch
+    import torch.nn.functional as F
+    from sageattention_tpu_torch import core, quant
+    from sageattention_tpu_torch.ops import attention_bwd_cuda as bwd
+    from sageattention_tpu_torch.ops import attention_cuda, quant_cuda, reference
+    from sageattention_tpu_torch.ops.attention_cuda import Masks
+
+    out = {}
+    hq, hkv, d = HD256_LAYER.values()
+
+    def log_time(name, r, what):
+        log(f"time {name} {what}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms, "
+            f"{r['bound_by']}), plain {r['plain_ms']:.4f} ms, library {r['library_ms']} ms")
+
+    # kernels 2-3 and 1 at the prefill layer
+    b, s = 4, 4096
+    q, k, v = (torch.randn(b, h, s, d, generator=gen, device="cuda").to(torch.bfloat16)
+               for h in (hq, hkv, hkv))
+    km = quant_cuda.k_channel_mean(k)
+    ng = -(-s // 128)
+    r = results["k_channel_mean_hd256"]
+    r.update(ms=cuda_ms(lambda: quant_cuda.k_channel_mean(k)),
+             plain_ms=cuda_ms(lambda: quant_cuda.k_channel_mean_plain(k)),
+             library_ms=cuda_ms(lambda: torch.mean(k, dim=-2, dtype=torch.float32)),
+             bound_ms=(k.numel() * 2 + km.numel() * 4) / PEAK_BYTES_S * 1e3, bound_by="bytes")
+    log_time("k_channel_mean_hd256", r, f"at {tuple(k.shape)}")
+    r = results["quant_k_chunked_hd256"]
+    r.update(ms=cuda_ms(lambda: quant_cuda.quant_k_chunked(k, km, group=128)),
+             plain_ms=cuda_ms(lambda: quant_cuda.quant_k_chunked_plain(k, km, group=128)),
+             library_ms=None, bound_by="bytes",
+             bound_ms=(k.numel() * 3 + km.numel() * 4 + b * hkv * ng * 4) / PEAK_BYTES_S * 1e3)
+    log_time("quant_k_chunked_hd256", r, f"at {tuple(k.shape)}")
+    k_i8, k_sc, _ = quant_cuda.quant_k_fused_mean(k, group=128)
+    fold = d**-0.5 * LOG2E
+    pairs = b * hq * s * (s + 1) // 2
+    t_ops = (2 * pairs * d / PEAK_INT8_OPS_S + 2 * pairs * d / PEAK_BF16_FLOP_S) * 1e3
+    r = results["sage_attn_fwd_hd256"]
+    by_v = {}
+    for pv in ("bf16", *quant.V_DTYPES):
+        if pv == "bf16":
+            vq, vs = v, None
+        else:
+            vq, vs, _ = quant_cuda.quant_v_per_channel(v, dtype=quant.V_DTYPES[pv])
+        ms = cuda_ms(lambda vq=vq, vs=vs: attention_cuda.sage_attention_fwd(
+            q, k_i8, k_sc, vq, vs, is_causal=True, q_fold=fold), reps=10)
+        t_bytes = (q.numel() * 4 + k_i8.numel() + k_sc.numel() * 4
+                   + vq.numel() * vq.element_size()) / PEAK_BYTES_S * 1e3
+        by_v[pv] = {"ms": ms, "bound_ms": max(t_ops, t_bytes),
+                    "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    r.update(ms=by_v["bf16"]["ms"], bound_ms=by_v["bf16"]["bound_ms"],
+             bound_by=by_v["bf16"]["bound_by"], ms_by_v_type={n: x["ms"] for n, x in by_v.items()},
+             plain_ms=cuda_ms(lambda: attention_cuda.sage_attention_plain(
+                 q, k_i8, k_sc, v, is_causal=True, q_fold=fold, return_lse=False),
+                 reps=2, warmup=1),
+             library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+                                reps=10),
+             shape={"b": b, "hq": hq, "hkv": hkv, "s": s, "d": d, "causal": True})
+    log_time("sage_attn_fwd_hd256", r, f"at {(b, hq, hkv, s, d)} causal, bf16 V (by V type "
+             f"{ {n: round(x['ms'], 4) for n, x in by_v.items()} })")
+    del q, k, v, km, k_i8, k_sc
+    torch.cuda.empty_cache()
+
+    # kernels 4, 7, 8 at the trainer's layer, and one layer's fwd + bwd
+    b, s = 1, 4096
+    ops, sm = backward_case(gen, b, hq, hkv, s, s, d, True)
+    kw = dict(is_causal=True, sm_scale=sm)
+    q = ops["q_bf"]
+    r = results["quant_q_per_token_hd256"]
+    r.update(ms=cuda_ms(lambda: quant_cuda.quant_q_per_token(q, scale_fold=sm * LOG2E)),
+             plain_ms=cuda_ms(lambda: quant_cuda.quant_q_per_token_plain(q,
+                                                                         scale_fold=sm * LOG2E)),
+             library_ms=None, bound_ms=(q.numel() * 3 + b * hq * s * 4) / PEAK_BYTES_S * 1e3,
+             bound_by="bytes")
+    log_time("quant_q_per_token_hd256", r, f"at {tuple(q.shape)}")
+    k = torch.randn(b, hkv, s, d, generator=gen, device="cuda").to(torch.bfloat16)
+    xs = [x.clone().requires_grad_() for x in (q, k, ops["v"])]
+    sdpa_f = cuda_ms(lambda: F.scaled_dot_product_attention(*xs, is_causal=True), reps=10)
+    sdpa_fb = cuda_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(*xs, is_causal=True), xs, ops["do"]), reps=10)
+    sage_fb = cuda_ms(lambda: torch.autograd.grad(core.sageattn(*xs, is_causal=True), xs,
+                                                  ops["do"]), reps=5)
+    pairs = b * hq * s * (s + 1) // 2
+    common_bytes = (ops["q_i8"].numel() + ops["k_i8"].numel() + ops["k_scale"].numel() * 4
+                    + 3 * b * hq * s * 4 + ops["v"].numel() * 2 + ops["do"].numel() * 2)
+    for name, n_bf16, extra_in, out_elems in (
+            ("sage_attn_bwd_dq", 4, ops["k_sm"].numel() * 2, b * hq * s * d),
+            ("sage_attn_bwd_dkv", 6, q.numel() * 2, 2 * b * hkv * s * d)):
+        dq = name.endswith("dq")
+        fn, plain = ((bwd.sage_attention_bwd_dq, bwd.sage_attention_bwd_dq_plain) if dq
+                     else (bwd.sage_attention_bwd_dkv, bwd.sage_attention_bwd_dkv_plain))
+        args = dq_args(ops) if dq else dkv_args(ops)
+        t_ops = (2 * pairs * d / PEAK_INT8_OPS_S + n_bf16 * pairs * d / PEAK_BF16_FLOP_S) * 1e3
+        t_bytes = (common_bytes + extra_in + out_elems * 4) / PEAK_BYTES_S * 1e3
+        r = results[name + "_hd256"]
+        r.update(ms=cuda_ms(lambda: fn(*args, **kw), reps=10),
+                 plain_ms=cuda_ms(lambda: plain(*args, **kw), reps=2, warmup=1),
+                 bound_ms=max(t_ops, t_bytes),
+                 bound_by="operations" if t_ops >= t_bytes else "bytes",
+                 library_ms=sdpa_fb - sdpa_f,
+                 shape={"b": b, "hq": hq, "hkv": hkv, "s": s, "d": d, "causal": True})
+        log_time(name + "_hd256", r, f"at {(b, hq, hkv, s, d)} causal (library: SDPA's "
+                 f"backward, 7 + 8 together)")
+    out["layer"] = {"shape": [b, hq, hkv, s, d], "causal": True, "sage_fwd_bwd_ms": sage_fb,
+                    "sdpa_fwd_bwd_ms": sdpa_fb, "sdpa_fwd_ms": sdpa_f,
+                    "sdpa_bwd_ms": sdpa_fb - sdpa_f}
+    log(f"one d256 layer's attention at {(b, hq, hkv, s, d)} causal: sage fwd+bwd "
+        f"{sage_fb:.3f} ms, SDPA fwd+bwd {sdpa_fb:.3f} ms (fwd {sdpa_f:.3f}, bwd "
+        f"{sdpa_fb - sdpa_f:.3f})")
+    del ops, xs, q, k
+    torch.cuda.empty_cache()
+
+    # the masked forward at Gemma-2-9B's local layer
+    hq2, hkv2, _ = GEMMA2_LOCAL.values()
+    b, s, w = 1, 8192, 4096
+    q, k, v, k_i8, k_sc = layer_operands(gen, b, s, hq=hq2, hkv=hkv2, d=d)
+    masks = Masks(window=w)
+    pairs = live_pairs(masks, b, s, s, True, hq2)
+    bound, by = masked_bound(pairs, d, q.numel() * 4 + k_i8.numel() + k_sc.numel() * 4
+                             + v.numel() * 2)
+    band = reference._build_mask(s, s, is_causal=True, device="cuda", window=w)
+    kr, vr = (x.repeat_interleave(hq2 // hkv2, dim=1) for x in (k, v))
+    r = results["sage_attn_fwd_masked_hd256"]
+    r.update(ms=cuda_ms(lambda: attention_cuda.sage_attention_fwd_masked(
+                 q, k_i8, k_sc, v, masks=masks, is_causal=True, q_fold=fold), reps=10),
+             plain_ms=cuda_ms(lambda: attention_cuda.sage_attention_plain(
+                 q, k_i8, k_sc, v, is_causal=True, q_fold=fold, return_lse=False,
+                 masks=masks), reps=2, warmup=1),
+             library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, kr, vr,
+                                                                       attn_mask=band), reps=5),
+             bound_ms=bound, bound_by=by,
+             shape={"b": b, "hq": hq2, "hkv": hkv2, "s": s, "d": d, "window": w,
+                    "live_pairs_per_head": pairs // (b * hq2)})
+    log_time("sage_attn_fwd_masked_hd256", r, f"window {w} at {(b, hq2, hkv2, s, d)} (library: "
+             f"SDPA with the band mask)")
+    del q, k, v, k_i8, k_sc, band, kr, vr
+    torch.cuda.empty_cache()
+
+    # kernels 5 and 6
+    for shape, names in (((1, 16, 4096, 256), ("quant_v_per_channel",)),
+                         ((1, 8, 16384, 256), ("v_channel_stats", "quant_v_apply"))):
+        v = random_v(gen, shape)
+        moved = v.numel() * 2 + v.numel() + shape[0] * shape[1] * shape[3] * 4
+        if len(names) == 1:
+            r = results[names[0] + "_hd256"]
+            r.update(ms=cuda_ms(lambda: quant_cuda.quant_v_per_channel(v, dtype=torch.int8)),
+                     plain_ms=cuda_ms(lambda: quant_cuda.quant_v_per_channel_plain(
+                         v, dtype=torch.int8, smooth=False)),
+                     library_ms=None, bound_ms=moved / PEAK_BYTES_S * 1e3, bound_by="bytes")
+            log_time(names[0] + "_hd256", r, f"int8 at {shape}")
+            continue
+        gmax, gmin, mean = quant_cuda.v_channel_stats(v, smooth=False)
+        _, rr = quant_cuda.v_scale_from_stats(gmax, gmin, mean, torch.int8)
+        stats_bytes = v.numel() * 2 + 3 * shape[0] * shape[1] * shape[3] * 4
+        for name, fn, plain, moved_ in (
+                ("v_channel_stats", lambda: quant_cuda.v_channel_stats(v, smooth=False),
+                 lambda: quant_cuda.v_channel_stats_plain(v, smooth=False), stats_bytes),
+                ("quant_v_apply", lambda: quant_cuda.quant_v_apply(v, rr, None, dtype=torch.int8),
+                 lambda: quant_cuda.quant_v_apply_plain(v, rr, None, dtype=torch.int8), moved)):
+            r = results[name + "_hd256"]
+            r.update(ms=cuda_ms(fn), plain_ms=cuda_ms(plain), library_ms=None,
+                     bound_ms=moved_ / PEAK_BYTES_S * 1e3, bound_by="bytes")
+            log_time(name + "_hd256", r, f"int8 at {shape}")
+        del v
+    torch.cuda.empty_cache()
+
+    # kernels 9-12 at the servers' mid-decode step
+    cells = [
+        # kernel, b, hkv, S, page, length, window
+        ("sage_decode", 4, 16, 8192, None, 4096 + 16, None),
+        ("sage_paged_decode", 4, 16, 8192, 1024, 4096 + 16, None),
+        ("sage_decode_window", 2, 16, 9216, None, 8192 + 16, 4096),
+        ("sage_paged_decode_window", 2, 16, 9216, 1024, 8192 + 16, 4096),
+    ]
+    for name, b, hkv_, S, page, length, window in cells:
+        for packed in (False, True):
+            cache = random_cache(gen, (b, hkv_), S, d, packed)
+            q = torch.randn(b, hq, 1, d, generator=gen, device="cuda").to(torch.bfloat16)
+            L = torch.full((b,), length, dtype=torch.int32, device="cuda")
+            _, fn, plain = decode_case(gen, q, cache, L, page, window)
+            ms = cuda_ms(fn, reps=20, cold=True)
+            plain_ms = cuda_ms(plain, reps=3, warmup=1)
+            bound, by = decode_bound([length] * b, hq, hkv_, 1, d, packed, window)
+            log(f"time {name}_hd256 {'int4' if packed else 'int8'} at b {b}, {hq}/{hkv_} heads "
+                f"of {d}, length {length}, S {S}{'' if page is None else f', page {page}'}: "
+                f"{ms:.4f} ms (bound {bound:.4f} ms, {by}), plain {plain_ms:.4f} ms")
+            r = results[name + "_hd256"]
+            if not packed:
+                r.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
+                         shape={"b": b, "hq": hq, "hkv": hkv_, "t_q": 1, "d": d, "S": S,
+                                "length": length, "page": page, "window": window})
+            else:
+                r["int4"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2759,8 +3397,16 @@ def main() -> int:
             "route": "cuda", "source": src + "paged_decode.cu",
             "replaces": "sageattention_tpu/ops/paged_decode_pallas.py:116"},
     }
+    for name in HD256:  # the head-dim-256 instances, reported apart
+        results[name + "_hd256"] = {
+            **results[name], "source": src + HD256_SOURCE.get(name, results[name]["source"]
+                                                              .rsplit("/", 1)[1])}
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
+    # the head-dim-256 phases draw from a generator of their own, so that
+    # the earlier phases' inputs stay as they were
+    gen256 = torch.Generator(device="cuda")
+    gen256.manual_seed(8)
     t_phase = time.perf_counter()
     check_quant(gen, results)
     check_quant_v(gen, results)
@@ -2779,6 +3425,12 @@ def main() -> int:
     sweep["seed_spread"] = sweep_seed_spread(sweep["failed"])
     log(f"Q/K option checks and accuracy sweep: {time.perf_counter() - t_q:.1f} s")
     check_decode(gen, results)
+    t_h = time.perf_counter()
+    check_hd256_quant(gen256, results)
+    hd256 = {"attention": check_hd256_attention(gen256, results),
+             "backward": check_hd256_backward(gen256, results)}
+    check_hd256_decode(gen256, results)
+    log(f"head dim 256 checks: {time.perf_counter() - t_h:.1f} s")
     log(f"kernel checks: {time.perf_counter() - t_phase:.1f} s")
     servers = {}
     for path, model, backend, launched, bf16_steps in (
@@ -2808,6 +3460,12 @@ def main() -> int:
     log(f"bias trainer phase: {time.perf_counter() - t_phase:.1f} s")
     llm = run_llm(results, args.profile)
     t_phase = time.perf_counter()
+    llm.update(run_gemma(results, args.profile))
+    log(f"gemma-7b geometry servers: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    hd256["trainer"] = run_hd256_train(results)
+    log(f"head dim 256 trainer phase: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
     time_kernels(gen, results)
     time_quant_v(gen, results)
     layer = time_backward(gen, results)
@@ -2815,8 +3473,14 @@ def main() -> int:
     masked["times"] = time_masked(gen, results)
     bias["times"] = time_bias_backward(results)
     qopts_times = time_qopts(gen, results)
+    hd256["times"] = time_hd256(gen256, results)
     log(f"timing phase: {time.perf_counter() - t_phase:.1f} s")
 
+    # a head-dim-256 instance that no path of this run launches (it is
+    # checked and timed only) goes inside its kernel's entry
+    for name in [n for n in results if n not in MAIN_PATH]:
+        r = results.pop(name)
+        results[name.removesuffix("_hd256")]["hd256"] = {**r, "main_path": None}
     kernels = []
     for name, r in results.items():
         # each kernel's launches on the main path that runs it (MAIN_PATH);
@@ -2830,6 +3494,7 @@ def main() -> int:
     log(json.dumps({"masked": masked}))
     log(json.dumps({"bias": bias}))
     log(json.dumps({"qopts": {"accuracy_sweep": sweep, "times": qopts_times}}))
+    log(json.dumps({"hd256": hd256}))
     require(not sweep["failed"], f"accuracy sweep: {sweep['failed']}")
     log(json.dumps({"kernels": kernels}))
     log(f"card: {card}")

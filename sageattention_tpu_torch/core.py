@@ -31,9 +31,9 @@ Layouts HND ([b, h, s, d]) and NHD ([b, s, h, d]); GQA (hq a multiple of
 hkv); top-left causal masking; any sq / sk; ``return_lse`` gives the
 natural-log LSE with the smooth-k correction; ``pv_dtype`` bf16 / int8 /
 fp8 / fp8_e5m2 and ``smooth_v``.  V is quantized from the caller's V,
-before any head-dim padding, as in the JAX package.  Head dims below 64,
-or between 64 and 128, are zero-padded to 64 or 128; above 128 they
-raise.
+before any head-dim padding, as in the JAX package.  Head dims are
+zero-padded to 64, 128 or 256, as the JAX package pads them up to 256
+(``core.py:70-75``: 64, or a multiple of 128); above 256 they raise.
 
 Masks, normalised as the JAX package does (:func:`_masks`), run in the
 masked kernel: ``q_segment_ids``/``kv_segment_ids`` [b, s] (equal ids
@@ -44,9 +44,11 @@ bool ``attn_mask`` (True = attend), an additive ``attn_bias`` (a non-bool
 Under grad ``window`` and a lone ``attn_bias`` are differentiable; ids,
 positions, a bool mask (with a bias or without) and a float
 ``attn_mask`` raise ``NotImplementedError``, as the JAX package has no
-gradient for them.  Head dims above 128 raise
-``NotImplementedError`` naming their ROADMAP item, and ``block_q`` /
-``block_k`` / ``impl`` too: the port picks its own launch configuration.
+gradient for them.  Head dims above 256, and the Q/K options above 128,
+raise ``NotImplementedError`` naming their ROADMAP item; under grad a
+bias at head dims above 128 takes exact recompute.  ``block_q`` /
+``block_k`` / ``impl`` raise too: the port picks its own launch
+configuration.
 """
 
 from __future__ import annotations
@@ -75,9 +77,16 @@ def _to_hnd(x: torch.Tensor, layout: str) -> torch.Tensor:
     raise ValueError(f"tensor_layout must be 'HND' or 'NHD', got {layout!r}")
 
 
+# the largest head dim the kernels take, padded; the Q/K options' (the
+# pre-quantized forward's)
+MAX_HEAD_DIM = 256
+MAX_HEAD_DIM_QK_OPTIONS = 128
+
+
 def _pad_head_dim(d: int) -> int:
-    """The kernel's head dim for d <= 128: 64 or 128."""
-    return 64 if d <= 64 else 128
+    """The kernel's head dim for d <= 256: 64, 128 or 256 (the JAX rule,
+    64 or a multiple of 128, up to 256)."""
+    return 64 if d <= 64 else 128 if d <= 128 else 256
 
 
 def _pad_d(x: torch.Tensor, d_pad: int) -> torch.Tensor:
@@ -249,10 +258,16 @@ def _forward(q, k, v, *, is_causal: bool, sm_scale: float | None, smooth_k: bool
         raise ValueError(f"incompatible q {tuple(q.shape)} and k {tuple(k.shape)}")
     if sm_scale is None:
         sm_scale = d_og**-0.5
-    if d_og > 128:
+    if d_og > MAX_HEAD_DIM:
         raise NotImplementedError(
-            f"head_dim {d_og} > 128 is not ported (ROADMAP: kernel row 1, "
-            f"head dims above 128)"
+            f"head_dim {d_og} > {MAX_HEAD_DIM} is not ported (ROADMAP: limits, head dims "
+            f"above 256; the JAX package pads them to 384 and 512)"
+        )
+    if not opts.default and d_og > MAX_HEAD_DIM_QK_OPTIONS:
+        raise NotImplementedError(
+            f"smooth_q, qk_bits=4 and qk_quant_gran at head_dim {d_og} > "
+            f"{MAX_HEAD_DIM_QK_OPTIONS} are not ported (ROADMAP: kernel item 1, the PREQ "
+            f"instances at d 256)"
         )
     work = _work_dtype(q.dtype)
     d_pad = _pad_head_dim(d_og)
@@ -339,12 +354,14 @@ def _refuse_grad(masks: Masks | None, attn_mask) -> None:
 
 def _fused_bias(bias, q: torch.Tensor, k: torch.Tensor, window, opts: QKOptions) -> bool:
     """Whether the fused backward takes the call: no bias, or a per-head
-    [b, hq, sq, sk] one without a window, and no Q/K option
+    [b, hq, sq, sk] one without a window at a head dim up to 128 (the
+    backward's bias instances have none at 256), and no Q/K option
     (``attention_bwd_pallas.py:418-427``, ``autodiff.py:106-114`` of the JAX
     package).  The rest is differentiated by exact recompute."""
     if not opts.default:
         return False
-    return bias is None or (window is None and tuple(bias.shape) == (*q.shape[:3], k.shape[2]))
+    return bias is None or (window is None and q.shape[-1] <= 128
+                            and tuple(bias.shape) == (*q.shape[:3], k.shape[2]))
 
 
 def sageattn_qk_int8_pv_bf16(

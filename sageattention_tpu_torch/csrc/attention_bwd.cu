@@ -19,7 +19,7 @@
 //   k_scale a tile) as the forward does; this loop replaces the TPU's
 //   sequential n_kv grid axis and its VMEM accumulator, and dQ accumulates
 //   in registers.  Each tile is computed in column chunks (64 at d=64, 32
-//   at d=128) to bound the live S/dP registers.  Causal: stops at the
+//   at d=128 and 256) to bound the live S/dP registers.  Causal: stops at the
 //   diagonal tile; with a sliding window (causal only) it starts at the
 //   window's first tile, (q0 - window + 1) / 128, the counterpart of the
 //   TPU's band grid (attention_bwd_pallas.py:117-143).
@@ -38,6 +38,18 @@
 //
 // A window keeps col > row - window wherever causal keeps col <= row, in
 // instances of its own (WINDOW), so the others keep their registers.
+//
+// Head dim 256 (every head dim in (128, 256], padded; not with a bias).  dQ
+// keeps its fp32 accumulator of 16 x 256 / 32 = 128 registers a thread and
+// reads Q's and dO's A fragments from shared memory for each chunk, where
+// the smaller head dims hold them (96 registers more at 256); its layout
+// takes 221 KB of shared memory, so one CTA runs on an SM.  dKV's two
+// accumulators would take 256 registers a thread, more than a thread may
+// hold, so it runs in two launches of instances that each keep one: PART
+// kDV (S, P, dV; V is not read) and then kDK (S and P again, dP, dS, dK),
+// 137 KB of shared memory each.  The second pass repeats Q.K^T's 2d int8
+// operations a pair, against 8d int8 and bf16 operations of the two.
+// Every (causal, window) combination has both parts.
 //
 // An additive bias (BIAS instances, attention_bwd_pallas.py:146-204,
 // 311-316): a per-head [b, hq, sq, sk] fp32 or bf16 tensor, which the
@@ -97,7 +109,7 @@ template <int D>
 struct Cfg {
   static constexpr int QS = D + 16;  // int8 row stride (bytes)
   static constexpr int HS = D + 8;   // bf16 row stride (elements)
-  static constexpr int CH = D == 128 ? 32 : 64;  // score columns a chunk
+  static constexpr int CH = D == 64 ? 64 : 32;  // score columns a chunk
 };
 
 // the operands of both kernels (shapes at the extern "C" entry points)
@@ -240,13 +252,20 @@ sage_attn_bwd_dq_kernel(const BwdArgs a, const BiasOf<BIAS> ba) {
   }
 
   // the warp's A fragments of Q (int8) and dO (bf16), kept for all tiles
-  uint32_t qa[D / 32][4], da[D / 16][4];
+  // where they fit: at D = 256 they would take 96 registers beside dQ's 128,
+  // so each chunk reads them from shared memory (HOLD false)
+  constexpr bool HOLD = D <= 128;
+  const unsigned char* qa_row = sQ + (warp * 16 + g) * C::QS + t * 4;
+  const unsigned char* da_row = sDo + (warp * 16 + g) * C::HS * 2 + t * 4;
+  uint32_t qa[HOLD ? D / 32 : 1][4], da[HOLD ? D / 16 : 1][4];
+  if constexpr (HOLD) {
 #pragma unroll
-  for (int kk = 0; kk < D / 32; ++kk)
-    load_a(qa[kk], sQ + (warp * 16 + g) * C::QS + kk * 32 + t * 4, C::QS);
+    for (int kk = 0; kk < D / 32; ++kk)
+      load_a(qa[kk], sQ + (warp * 16 + g) * C::QS + kk * 32 + t * 4, C::QS);
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    load_a(da[kk], sDo + (warp * 16 + g) * C::HS * 2 + (kk * 16 + t * 2) * 2, C::HS * 2);
+    for (int kk = 0; kk < D / 16; ++kk)
+      load_a(da[kk], sDo + (warp * 16 + g) * C::HS * 2 + (kk * 16 + t * 2) * 2, C::HS * 2);
+  }
 
   float acc[D / 8][4];
 #pragma unroll
@@ -278,10 +297,16 @@ sage_attn_bwd_dq_kernel(const BwdArgs a, const BiasOf<BIAS> ba) {
       for (int n = 0; n < NT; ++n) s_i[n][0] = s_i[n][1] = s_i[n][2] = s_i[n][3] = 0;
 #pragma unroll
       for (int kk = 0; kk < D / 32; ++kk) {
+        const uint32_t* qf = qa[HOLD ? kk : 0];
+        uint32_t q_ld[4];
+        if constexpr (!HOLD) {
+          load_a(q_ld, qa_row + kk * 32, C::QS);
+          qf = q_ld;
+        }
 #pragma unroll
         for (int n = 0; n < NT; ++n) {
           const unsigned char* kb = sK + (c0 + n * 8 + g) * C::QS + kk * 32 + t * 4;
-          mma_s8(s_i[n], qa[kk], ld32(kb), ld32(kb + 16));
+          mma_s8(s_i[n], qf, ld32(kb), ld32(kb + 16));
         }
       }
       // dP = dO.V^T (bf16 -> fp32)
@@ -290,10 +315,16 @@ sage_attn_bwd_dq_kernel(const BwdArgs a, const BiasOf<BIAS> ba) {
       for (int n = 0; n < NT; ++n) dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t* df = da[HOLD ? kk : 0];
+        uint32_t d_ld[4];
+        if constexpr (!HOLD) {
+          load_a(d_ld, da_row + kk * 32, C::HS * 2);
+          df = d_ld;
+        }
 #pragma unroll
         for (int n = 0; n < NT; ++n) {
           const unsigned char* vb = sV + (c0 + n * 8 + g) * C::HS * 2 + (kk * 16 + t * 2) * 2;
-          mma_bf16(dp[n], da[kk], ld32(vb), ld32(vb + 16));
+          mma_bf16(dp[n], df, ld32(vb), ld32(vb + 16));
         }
       }
       // P = exp2(l2 - lse2), masked; dS = P * (dP - D), kept in dp.  BIAS:
@@ -378,9 +409,14 @@ struct DkvLayout {
   static constexpr int bytes = dv_off + KV_BQ * 4;
 };
 
-template <int D, bool CAUSAL, bool WINDOW, bool BIAS>
+// which of dK and dV a dKV instance computes: both (D <= 128), or at D = 256
+// one of them, in two launches
+enum DkvPart { kDV = 1, kDK = 2, kDKV = 3 };
+
+template <int D, bool CAUSAL, bool WINDOW, bool BIAS, int PART = kDKV>
 __global__ void __launch_bounds__(NTHREADS)
 sage_attn_bwd_dkv_kernel(const BwdArgs a, const BiasOf<BIAS> ba) {
+  constexpr bool WANT_V = PART & kDV, WANT_K = PART & kDK;
   const int8_t* __restrict__ q_i8 = a.q_i8;
   const float* __restrict__ q_scale = a.q_scale;
   const __nv_bfloat16* __restrict__ q_bf = a.q_bf;
@@ -418,17 +454,21 @@ sage_attn_bwd_dkv_kernel(const BwdArgs a, const BiasOf<BIAS> ba) {
   const float ks = k_scale[((size_t)bi * hkv + hk) * n_groups + kv0 / KGROUP];
 
   load_rows<D, 1>(sK, (const unsigned char*)(k_i8 + kv_row_base * D), kv0, KV_BM, sk, C::QS);
-  load_rows<D, 2>(sV, (const unsigned char*)(v + kv_row_base * D), kv0, KV_BM, sk, C::HS * 2);
+  if constexpr (WANT_K)  // V enters dP, which only dK needs
+    load_rows<D, 2>(sV, (const unsigned char*)(v + kv_row_base * D), kv0, KV_BM, sk, C::HS * 2);
 
   const int kr0 = kv0 + warp * 16 + g, kr1 = kr0 + 8;  // this thread's KV rows
   const unsigned char* ka_row = sK + (warp * 16 + g) * C::QS + t * 4;
   const unsigned char* va_row = sV + (warp * 16 + g) * C::HS * 2 + t * 4;
 
-  float acc_k[D / 8][4], acc_v[D / 8][4];
+  float acc_k[WANT_K ? D / 8 : 1][4], acc_v[WANT_V ? D / 8 : 1][4];
 #pragma unroll
   for (int i = 0; i < D / 8; ++i)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc_k[i][e] = acc_v[i][e] = 0.f;
+    for (int e = 0; e < 4; ++e) {
+      if constexpr (WANT_K) acc_k[i][e] = 0.f;
+      if constexpr (WANT_V) acc_v[i][e] = 0.f;
+    }
 
   int n_qt = (sq + KV_BQ - 1) / KV_BQ;
   const int qt0 = CAUSAL ? kv0 / KV_BQ : 0;  // causal: from the diagonal
@@ -441,7 +481,8 @@ sage_attn_bwd_dkv_kernel(const BwdArgs a, const BiasOf<BIAS> ba) {
       const int q0 = qt * KV_BQ;
       __syncthreads();  // the previous Q tile is no longer read
       load_rows<D, 1>(sQ, (const unsigned char*)q_i8 + row_base * D, q0, KV_BQ, sq, C::QS);
-      load_rows<D, 2>(sQb, (const unsigned char*)(q_bf + row_base * D), q0, KV_BQ, sq, C::HS * 2);
+      if constexpr (WANT_K)
+        load_rows<D, 2>(sQb, (const unsigned char*)(q_bf + row_base * D), q0, KV_BQ, sq, C::HS * 2);
       load_rows<D, 2>(sDo, (const unsigned char*)(dout + row_base * D), q0, KV_BQ, sq, C::HS * 2);
       for (int i = tid; i < KV_BQ; i += NTHREADS) {
         const bool live = q0 + i < sq;
@@ -499,41 +540,45 @@ sage_attn_bwd_dkv_kernel(const BwdArgs a, const BiasOf<BIAS> ba) {
           }
         }
         // dV += bf16(P^T) . dO
+        if constexpr (WANT_V) {
 #pragma unroll
-        for (int kk = 0; kk < CH / 16; ++kk) {
-          uint32_t a[4];
-          c_to_a(a, p[2 * kk], p[2 * kk + 1]);
-          mma_a_rows<D>(acc_v, a, reinterpret_cast<const __nv_bfloat16*>(sDo), c0 + kk * 16,
-                        C::HS, lane);
-        }
-        // dP^T = V.dO^T (bf16 -> fp32)
-        float dp[NT][4];
-#pragma unroll
-        for (int n = 0; n < NT; ++n) dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          uint32_t a[4];
-          load_a(a, va_row + kk * 32, C::HS * 2);
-#pragma unroll
-          for (int n = 0; n < NT; ++n) {
-            const unsigned char* ob = sDo + (c0 + n * 8 + g) * C::HS * 2 + (kk * 16 + t * 2) * 2;
-            mma_bf16(dp[n], a, ld32(ob), ld32(ob + 16));
+          for (int kk = 0; kk < CH / 16; ++kk) {
+            uint32_t a[4];
+            c_to_a(a, p[2 * kk], p[2 * kk + 1]);
+            mma_a_rows<D>(acc_v, a, reinterpret_cast<const __nv_bfloat16*>(sDo), c0 + kk * 16,
+                          C::HS, lane);
           }
         }
-        // dS^T = P^T * (dP^T - D), kept in dp
+        if constexpr (WANT_K) {  // dK: dP, dS and dS^T.Q
+          // dP^T = V.dO^T (bf16 -> fp32)
+          float dp[NT][4];
 #pragma unroll
-        for (int n = 0; n < NT; ++n) {
+          for (int n = 0; n < NT; ++n) dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            dp[n][e] = p[n][e] * (dp[n][e] - sDv[c0 + n * 8 + t * 2 + (e & 1)]);
-        }
-        // dK += bf16(dS^T) . Q
+          for (int kk = 0; kk < D / 16; ++kk) {
+            uint32_t a[4];
+            load_a(a, va_row + kk * 32, C::HS * 2);
 #pragma unroll
-        for (int kk = 0; kk < CH / 16; ++kk) {
-          uint32_t a[4];
-          c_to_a(a, dp[2 * kk], dp[2 * kk + 1]);
-          mma_a_rows<D>(acc_k, a, reinterpret_cast<const __nv_bfloat16*>(sQb), c0 + kk * 16,
-                        C::HS, lane);
+            for (int n = 0; n < NT; ++n) {
+              const unsigned char* ob = sDo + (c0 + n * 8 + g) * C::HS * 2 + (kk * 16 + t * 2) * 2;
+              mma_bf16(dp[n], a, ld32(ob), ld32(ob + 16));
+            }
+          }
+          // dS^T = P^T * (dP^T - D), kept in dp
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              dp[n][e] = p[n][e] * (dp[n][e] - sDv[c0 + n * 8 + t * 2 + (e & 1)]);
+          }
+          // dK += bf16(dS^T) . Q
+#pragma unroll
+          for (int kk = 0; kk < CH / 16; ++kk) {
+            uint32_t a[4];
+            c_to_a(a, dp[2 * kk], dp[2 * kk + 1]);
+            mma_a_rows<D>(acc_k, a, reinterpret_cast<const __nv_bfloat16*>(sQb), c0 + kk * 16,
+                          C::HS, lane);
+          }
         }
       }
     }
@@ -545,13 +590,17 @@ sage_attn_bwd_dkv_kernel(const BwdArgs a, const BiasOf<BIAS> ba) {
     const int col = i * 8 + t * 2;
     if (kr0 < sk) {
       const size_t o = (kv_row_base + kr0) * D + col;
-      *reinterpret_cast<float2*>(dk + o) = make_float2(acc_k[i][0] * sm_scale, acc_k[i][1] * sm_scale);
-      *reinterpret_cast<float2*>(dv + o) = make_float2(acc_v[i][0], acc_v[i][1]);
+      if constexpr (WANT_K)
+        *reinterpret_cast<float2*>(dk + o) = make_float2(acc_k[i][0] * sm_scale, acc_k[i][1] * sm_scale);
+      if constexpr (WANT_V)
+        *reinterpret_cast<float2*>(dv + o) = make_float2(acc_v[i][0], acc_v[i][1]);
     }
     if (kr1 < sk) {
       const size_t o = (kv_row_base + kr1) * D + col;
-      *reinterpret_cast<float2*>(dk + o) = make_float2(acc_k[i][2] * sm_scale, acc_k[i][3] * sm_scale);
-      *reinterpret_cast<float2*>(dv + o) = make_float2(acc_v[i][2], acc_v[i][3]);
+      if constexpr (WANT_K)
+        *reinterpret_cast<float2*>(dk + o) = make_float2(acc_k[i][2] * sm_scale, acc_k[i][3] * sm_scale);
+      if constexpr (WANT_V)
+        *reinterpret_cast<float2*>(dv + o) = make_float2(acc_v[i][2], acc_v[i][3]);
     }
   }
 }
@@ -582,6 +631,17 @@ int launch_dq(int causal, int window, dim3 grid, cudaStream_t st, const BwdArgs&
   }
 }
 
+// the dKV instance of PART for (causal, window), without a bias
+template <int D, int PART>
+int launch_dkv_part(int causal, int window, dim3 grid, cudaStream_t st, const BwdArgs& a) {
+  constexpr int smem = DkvLayout<D>::bytes;
+  if (window > 0)
+    return launch(sage_attn_bwd_dkv_kernel<D, true, true, false, PART>, smem, grid, st, a, NoBias{});
+  return causal
+             ? launch(sage_attn_bwd_dkv_kernel<D, true, false, false, PART>, smem, grid, st, a, NoBias{})
+             : launch(sage_attn_bwd_dkv_kernel<D, false, false, false, PART>, smem, grid, st, a, NoBias{});
+}
+
 template <int D, bool BIAS>
 int launch_dkv(int causal, int window, dim3 grid, cudaStream_t st, const BwdArgs& a,
               const BiasOf<BIAS>& ba) {
@@ -589,43 +649,50 @@ int launch_dkv(int causal, int window, dim3 grid, cudaStream_t st, const BwdArgs
   if constexpr (BIAS) {
     return causal ? launch(sage_attn_bwd_dkv_kernel<D, true, false, true>, smem, grid, st, a, ba)
                   : launch(sage_attn_bwd_dkv_kernel<D, false, false, true>, smem, grid, st, a, ba);
+  } else if constexpr (D == 256) {
+    // dV, then dK: the two fp32 accumulators together would take 256
+    // registers a thread; the dK launch computes S and P again
+    const int e = launch_dkv_part<D, kDV>(causal, window, grid, st, a);
+    return e != 0 ? e : launch_dkv_part<D, kDK>(causal, window, grid, st, a);
   } else {
-    if (window > 0)
-      return launch(sage_attn_bwd_dkv_kernel<D, true, true, false>, smem, grid, st, a, ba);
-    return causal ? launch(sage_attn_bwd_dkv_kernel<D, true, false, false>, smem, grid, st, a, ba)
-                  : launch(sage_attn_bwd_dkv_kernel<D, false, false, false>, smem, grid, st, a, ba);
+    return launch_dkv_part<D, kDKV>(causal, window, grid, st, a);
   }
 }
 
-bool bad_shape(int hq, int hkv, int d, int group, int causal, int window) {
-  return group != KGROUP || hkv <= 0 || hq % hkv != 0 || (d != 64 && d != 128) || window < 0 ||
-         (window > 0 && !causal);
+// head dims 64, 128 and, without a bias, 256
+bool bad_shape(int hq, int hkv, int d, int group, int causal, int window, bool bias) {
+  return group != KGROUP || hkv <= 0 || hq % hkv != 0 ||
+         (d != 64 && d != 128 && (d != 256 || bias)) || window < 0 || (window > 0 && !causal);
 }
 
 // The entry points' common body: check, grid, instance
 template <bool BIAS>
 int run_dq(const BwdArgs& a, const BiasOf<BIAS>& ba, int b, int d, int causal, int group,
            void* stream) {
-  if (bad_shape(a.hq, a.hkv, d, group, causal, a.window)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(a.hq, a.hkv, d, group, causal, a.window, BIAS)) return (int)cudaErrorInvalidValue;
   const dim3 grid((a.sq + DQ_BM - 1) / DQ_BM, a.hq, b);
   cudaStream_t st = (cudaStream_t)stream;
-  return d == 64 ? launch_dq<64, BIAS>(causal, a.window, grid, st, a, ba)
-                 : launch_dq<128, BIAS>(causal, a.window, grid, st, a, ba);
+  if (d == 64) return launch_dq<64, BIAS>(causal, a.window, grid, st, a, ba);
+  if constexpr (!BIAS)
+    if (d == 256) return launch_dq<256, BIAS>(causal, a.window, grid, st, a, ba);
+  return launch_dq<128, BIAS>(causal, a.window, grid, st, a, ba);
 }
 
 template <bool BIAS>
 int run_dkv(const BwdArgs& a, const BiasOf<BIAS>& ba, int b, int d, int causal, int group,
             void* stream) {
-  if (bad_shape(a.hq, a.hkv, d, group, causal, a.window)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(a.hq, a.hkv, d, group, causal, a.window, BIAS)) return (int)cudaErrorInvalidValue;
   const dim3 grid((a.sk + KV_BM - 1) / KV_BM, a.hkv, b);
   cudaStream_t st = (cudaStream_t)stream;
-  return d == 64 ? launch_dkv<64, BIAS>(causal, a.window, grid, st, a, ba)
-                 : launch_dkv<128, BIAS>(causal, a.window, grid, st, a, ba);
+  if (d == 64) return launch_dkv<64, BIAS>(causal, a.window, grid, st, a, ba);
+  if constexpr (!BIAS)
+    if (d == 256) return launch_dkv<256, BIAS>(causal, a.window, grid, st, a, ba);
+  return launch_dkv<128, BIAS>(causal, a.window, grid, st, a, ba);
 }
 
 }  // namespace
 
-// Shapes (all contiguous, d in {64, 128}, hq a multiple of hkv):
+// Shapes (all contiguous, d in {64, 128, 256}, hq a multiple of hkv):
 //   q_i8 int8 [b,hq,sq,d]; q_scale fp32 [b,hq,sq] (sm_scale*log2e folded);
 //   k_i8 int8 [b,hkv,sk,d]; k_scale fp32 [b,hkv,ceil(sk/group)], group 128;
 //   k_sm, v bf16 [b,hkv,sk,d]; q_bf, dout bf16 [b,hq,sq,d];
@@ -658,7 +725,7 @@ extern "C" int sage_attn_bwd_dkv(const void* q_i8, const void* q_scale, const vo
 }
 
 // The bias instances: the operands of sage_attn_bwd_dq / sage_attn_bwd_dkv
-// without the window, and the bias: fp32 or bf16 (bias_bf16) [b,hq,sq,sk],
+// without the window, d 64 or 128, and the bias: fp32 or bf16 (bias_bf16) [b,hq,sq,sk],
 // contiguous, indexed by the query head; dbias (dQ only) its shape and type,
 // or null for no dBias.  Every element of dbias is written: dS where the
 // kernel computes it, 0 right of the causal diagonal.

@@ -4,6 +4,8 @@
 // reads the kernels' parameters and template arguments; the design notes
 // are in attention_fwd_kernel.cuh.  Not a header of its own.
   using L = Layout<D>;
+  constexpr int KT = kKvTile<D>;  // KV columns a tile
+  constexpr int NT = KT / 8;      // 8-column n-tiles of S per warp
   extern __shared__ __align__(16) unsigned char smem[];
   int8_t* sQ = reinterpret_cast<int8_t*>(smem + L::q_off);
   int8_t* sK = reinterpret_cast<int8_t*>(smem + L::k_off);
@@ -17,8 +19,9 @@
   const int hk = h / (hq / hkv);
   const size_t q_base = (((size_t)bi * hq + h) * sq) * D;
   const size_t kv_base = (((size_t)bi * hkv + hk) * sk) * D;
-  const int n_tiles_all = (sk + BN - 1) / BN;
-  const float* ks_row = k_scale + ((size_t)bi * hkv + hk) * n_tiles_all;
+  const int n_groups = (sk + BN - 1) / BN;  // K-scale groups, the liveness table's columns
+  const int n_tiles_all = (sk + KT - 1) / KT;
+  const float* ks_row = k_scale + ((size_t)bi * hkv + hk) * n_groups;
 
   // ---- 1. per-row int8 Q quantization (each warp its 16 rows) ----------
   if constexpr (PREQ) {
@@ -67,7 +70,7 @@
 
   int j_first = 0;
   int n_tiles = n_tiles_all;
-  if (CAUSAL) n_tiles = min(n_tiles, (q0 + BM - 1) / BN + 1);
+  if (CAUSAL) n_tiles = min(n_tiles, (q0 + BM - 1) / KT + 1);
   // masked: the rows' operands, the bias's row offsets, and the tile range
   // the window and the varlen ranges leave
   RowMask rm0{}, rm1{};
@@ -79,7 +82,7 @@
     const long long bh = bi * mk.bias_st[0] + h * mk.bias_st[1];
     bias_r0 = bh + (long long)min(row0, sq - 1) * mk.bias_st[2];  // rows >= sq read row sq-1
     bias_r1 = bh + (long long)min(row1, sq - 1) * mk.bias_st[2];
-    if (mk.window > 0) j_first = max(0, q0 - mk.window + 1) / BN;
+    if (mk.window > 0) j_first = max(0, q0 - mk.window + 1) / KT;
     if (mk.kv_lo != nullptr) {
       __shared__ int s_lo, s_hi;
       if (tid == 0) {
@@ -93,8 +96,8 @@
       }
       __syncthreads();
       if (s_hi > s_lo) {
-        j_first = max(j_first, s_lo / BN);
-        n_tiles = min(n_tiles, (s_hi + BN - 1) / BN);
+        j_first = max(j_first, s_lo / KT);
+        n_tiles = min(n_tiles, (s_hi + KT - 1) / KT);
       } else {
         n_tiles = 0;  // no row of the tile has a live key
       }
@@ -105,20 +108,20 @@
     int lv = 2;  // the tile's liveness: 0 dead, 1 some, 2 all (ids and mask)
     if constexpr (MASKED) {
       if (mk.live != nullptr) {
-        lv = mk.live[bi * mk.live_bst + h * mk.live_hst + (size_t)blockIdx.x * n_tiles_all + j];
+        lv = mk.live[bi * mk.live_bst + h * mk.live_hst + (size_t)blockIdx.x * n_groups + j / (BN / KT)];
         if (lv == 0) continue;  // the same for every thread of the CTA
       }
     }
-    const int kv0 = j * BN;
+    const int kv0 = j * KT;
     __syncthreads();  // the previous tile's K/V are no longer read
     // ---- 2. K and V tiles into shared memory, zero past sk ---------------
-    for (int i = tid; i < BN * (D / 16); i += NTHREADS) {
+    for (int i = tid; i < KT * (D / 16); i += NTHREADS) {
       const int r = i / (D / 16), c = i % (D / 16);
       uint4 val = make_uint4(0, 0, 0, 0);
       if (kv0 + r < sk) val = *reinterpret_cast<const uint4*>(k + kv_base + (size_t)(kv0 + r) * D + c * 16);
       *reinterpret_cast<uint4*>(sK + r * L::QS + c * 16) = val;
     }
-    for (int i = tid; i < BN * (D / 8); i += NTHREADS) {
+    for (int i = tid; i < KT * (D / 8); i += NTHREADS) {
       const int r = i / (D / 8), c = i % (D / 8);
       const size_t e = kv_base + (size_t)(kv0 + r) * D + c * 8;  // first element
       uint4 val = make_uint4(0, 0, 0, 0);
@@ -136,7 +139,7 @@
       // scales, or 1 with the tile's in the row factor; the bias or 0; 0
       // past sk
       float4* sCol = reinterpret_cast<float4*>(smem + Layout<D>::bytes);
-      for (int i = tid; i < BN / 2; i += NTHREADS) {
+      for (int i = tid; i < KT / 2; i += NTHREADS) {
         float c4[4];
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
@@ -172,10 +175,10 @@
     }
 
     // ---- 3b. dequantize, mask, online softmax (base 2) --------------------
-    const float ks = ks_per_row<PREQ>(pq) ? 1.f : ks_row[j];
+    const float ks = ks_per_row<PREQ>(pq) ? 1.f : ks_row[j / (BN / KT)];
     const float rs0 = qs0 * ks, rs1 = qs1 * ks;
     const float4* sCol = reinterpret_cast<const float4*>(smem + Layout<D>::bytes);  // PREQ
-    bool need_mask = (kv0 + BN > sk) || (CAUSAL && kv0 + BN - 1 > q0);
+    bool need_mask = (kv0 + KT > sk) || (CAUSAL && kv0 + KT - 1 > q0);
     uint64_t dead = 0;  // masked: bit n * 4 + e set for an element the rule kills
     if constexpr (MASKED) {
       // this thread's elements need the rule unless the table says the
@@ -183,7 +186,7 @@
       // ranges hold the tile
       const bool rule = (lv != 2 && (mk.q_seg != nullptr || mk.mask != nullptr)) ||
                         mk.q_pos != nullptr ||
-                        (mk.kv_lo != nullptr && !(covers(rm0, kv0) && covers(rm1, kv0)));
+                        (mk.kv_lo != nullptr && !(covers<KT>(rm0, kv0) && covers<KT>(rm1, kv0)));
       if (rule) {
 #pragma unroll 1
         for (int idx = 0; idx < NT * 4; ++idx) {
@@ -283,7 +286,7 @@
 
     // ---- 3c. O += P.V, P rounded to bf16, fp32 accumulate -----------------
 #pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
+    for (int kk = 0; kk < KT / 16; ++kk) {
       uint32_t a[4];
       a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
       a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);

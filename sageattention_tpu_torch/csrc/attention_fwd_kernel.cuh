@@ -2,8 +2,10 @@
 //
 // The kernels shared by attention_fwd.cu (no masks: MASKED = false),
 // attention_fwd_masked.cu (MASKED = true) and attention_fwd_preq.cu (PREQ =
-// true, both ways of MASKED); their body is attention_fwd_body.cuh.  Each
-// source instantiates only its own 32 kernels, so the three build in
+// true, both ways of MASKED), at head dims 64 and 128, and by
+// attention_fwd_hd256.cu and attention_fwd_masked_hd256.cu at 256 (16
+// instances each, no PREQ); their body is attention_fwd_body.cuh.  Each
+// source instantiates only its own kernels, so the five build in
 // parallel, and the unmasked instantiations compile to the code they had
 // before masks existed: every masked statement sits under `if constexpr
 // (MASKED)`, every pre-quantized one under `if constexpr (PREQ)`, and the
@@ -29,7 +31,8 @@
 //      max(amax,1e-30) * qs_mul, qs_mul = f32(1/127) * f32(sm_scale*log2e)
 //      (the form XLA compiles the spec's fold into);
 //   2. loops over KV tiles of 128 columns, which is also the K-scale group
-//      (one k_scale per tile).  K rows >= sk are zero-filled in shared
+//      (one k_scale per tile); at D = 256 over tiles of 64 (kKvTile), two
+//      to a group, each reading its group's scale.  K rows >= sk are zero-filled in shared
 //      memory and their columns masked;
 //   3. per tile: S = Q.K^T on the int8 tensor cores
 //      (mma.sync.m16n8k32.s32.s8.s8.s32, K's rows are the "col" operand),
@@ -115,13 +118,18 @@ namespace {
 enum VKind { kVBf16 = 0, kVInt8 = 1, kVE4M3 = 2, kVE5M2 = 3 };
 
 constexpr int BM = 64;    // Q rows per CTA
-constexpr int BN = 128;   // KV columns per tile == K-scale group
+constexpr int BN = 128;   // the K-scale group: one k_scale a 128-column group
 constexpr int NWARPS = 4;
 constexpr int NTHREADS = NWARPS * 32;
-constexpr int NT = BN / 8;  // 8-column n-tiles of S per warp
 constexpr float NEG_INIT = -1e30f;
 constexpr float kInvQmax = (float)(1.0 / 127.0);
 constexpr float kLog2e = 1.4426950408889634f;
+
+// KV columns a tile: the K-scale group, or half of it at D = 256, where a
+// warp's fp32 O accumulator alone takes 128 registers a thread and a
+// 128-column S tile (64 more) would leave nothing for the rest
+template <int D>
+constexpr int kKvTile = D == 256 ? BN / 2 : BN;
 
 template <int D>
 struct Layout {
@@ -129,8 +137,8 @@ struct Layout {
   static constexpr int VS = D + 8;   // bf16 row stride of V (elements)
   static constexpr int q_off = 0;
   static constexpr int k_off = q_off + BM * QS;
-  static constexpr int v_off = k_off + BN * QS;
-  static constexpr int qs_off = v_off + BN * VS * 2;
+  static constexpr int v_off = k_off + kKvTile<D> * QS;
+  static constexpr int qs_off = v_off + kKvTile<D> * VS * 2;
   static constexpr int bytes = qs_off + BM * 4;
 };
 
@@ -257,9 +265,10 @@ __device__ inline bool ks_per_row(const PreqOf<PREQ>& pq) {
   return false;
 }
 
-// whether the row's key range [lo, hi) holds the whole tile [kv0, kv0 + BN)
+// whether the row's key range [lo, hi) holds the whole tile [kv0, kv0 + KT)
+template <int KT>
 __device__ inline bool covers(RowMask rm, int kv0) {
-  return rm.lo <= kv0 && kv0 + BN <= rm.hi;
+  return rm.lo <= kv0 && kv0 + KT <= rm.hi;
 }
 
 template <int D, bool CAUSAL, typename T, int VK, bool MASKED, bool PREQ>
@@ -339,26 +348,60 @@ int launch_c(bool causal, int v_kind, const Args& a, const MaskOf<MASKED>& mk,
                 : launch_v<D, false, T, MASKED, PREQ>(v_kind, a, mk, pq, st);
 }
 
+// the instances of the one head dim D, without PREQ: causal x V kind x q
+// dtype (16 of them); checks the shape arguments first
+template <int D, bool MASKED>
+int launch_fwd_d(const Args& a, const MaskOf<MASKED>& mk, int d, int causal, int q_is_f32,
+                 int v_kind, int group, void* stream) {
+  if (group != BN || a.hkv <= 0 || a.hq % a.hkv != 0 || d != D || v_kind < 0 || v_kind > 3)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  return q_is_f32 ? launch_c<D, float, MASKED, false>(causal, v_kind, a, mk, NoPreq{}, st)
+                  : launch_c<D, __nv_bfloat16, MASKED, false>(causal, v_kind, a, mk, NoPreq{}, st);
+}
+
 // checks the shape arguments and launches one of the instantiations of
-// (MASKED, PREQ): head dim x causal x V kind, and the q dtype without PREQ
-// (32 a source); PREQ's output type is its argument o_f32
+// (MASKED, PREQ) at head dim 64 or 128: causal x V kind, and the q dtype
+// without PREQ (32 a source); PREQ's output type is its argument o_f32.
+// The D = 256 instances are sources of their own (attention_fwd_hd256.cu,
+// attention_fwd_masked_hd256.cu, through launch_fwd_d), which build beside
+// these in parallel
 template <bool MASKED, bool PREQ>
 int launch_fwd(const Args& a, const MaskOf<MASKED>& mk, const PreqOf<PREQ>& pq, int d,
                int causal, int q_is_f32, int v_kind, int group, void* stream) {
-  if (group != BN || a.hkv <= 0 || a.hq % a.hkv != 0 || (d != 64 && d != 128) || v_kind < 0 ||
-      v_kind > 3)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if constexpr (PREQ) {
+  if constexpr (!PREQ) {
+    return d == 64 ? launch_fwd_d<64, MASKED>(a, mk, d, causal, q_is_f32, v_kind, group, stream)
+                   : launch_fwd_d<128, MASKED>(a, mk, d, causal, q_is_f32, v_kind, group, stream);
+  } else {
+    if (group != BN || a.hkv <= 0 || a.hq % a.hkv != 0 || (d != 64 && d != 128) ||
+        v_kind < 0 || v_kind > 3)
+      return (int)cudaErrorInvalidValue;
+    cudaStream_t st = (cudaStream_t)stream;
     return d == 64 ? launch_c<64, __nv_bfloat16, MASKED, PREQ>(causal, v_kind, a, mk, pq, st)
                    : launch_c<128, __nv_bfloat16, MASKED, PREQ>(causal, v_kind, a, mk, pq, st);
-  } else {
-    if (d == 64)
-      return q_is_f32 ? launch_c<64, float, MASKED, PREQ>(causal, v_kind, a, mk, pq, st)
-                      : launch_c<64, __nv_bfloat16, MASKED, PREQ>(causal, v_kind, a, mk, pq, st);
-    return q_is_f32 ? launch_c<128, float, MASKED, PREQ>(causal, v_kind, a, mk, pq, st)
-                    : launch_c<128, __nv_bfloat16, MASKED, PREQ>(causal, v_kind, a, mk, pq, st);
   }
+}
+
+// the masked entry points' mask operands into *out, from their arguments in
+// sage_attn_fwd_masked's order (attention_fwd_masked.cu); false where these
+// break its rules: a window >= 0, and > 0 only with causal; ids, ranges and
+// positions in pairs
+inline bool mask_args(MaskArgs* out, int causal, const void* q_seg, const void* kv_seg,
+                      const void* kv_lo, const void* kv_hi, const void* q_pos,
+                      const void* kv_pos, const void* mask, const void* bias,
+                      const void* live, long long mask_sb, long long mask_sh,
+                      long long mask_sr, long long mask_sc, long long bias_sb,
+                      long long bias_sh, long long bias_sr, long long bias_sc,
+                      long long live_sb, long long live_sh, int window, int bias_bf16) {
+  if (window < 0 || (window > 0 && !causal) || (q_seg == nullptr) != (kv_seg == nullptr) ||
+      (kv_lo == nullptr) != (kv_hi == nullptr) || (q_pos == nullptr) != (kv_pos == nullptr))
+    return false;
+  *out = MaskArgs{(const int*)q_seg, (const int*)kv_seg, (const int*)kv_lo,
+                  (const int*)kv_hi, (const int*)q_pos, (const int*)kv_pos,
+                  (const uint8_t*)mask, bias, (const uint8_t*)live,
+                  {mask_sb, mask_sh, mask_sr, mask_sc}, {bias_sb, bias_sh, bias_sr, bias_sc},
+                  live_sb, live_sh, window, bias_bf16};
+  return true;
 }
 
 }  // namespace

@@ -29,15 +29,12 @@ extern "C" int sage_attn_fwd_masked(
     const void* live, long long mask_sb, long long mask_sh, long long mask_sr,
     long long mask_sc, long long bias_sb, long long bias_sh, long long bias_sr,
     long long bias_sc, long long live_sb, long long live_sh, int window, int bias_bf16) {
-  if (window < 0 || (window > 0 && !causal) || (q_seg == nullptr) != (kv_seg == nullptr) ||
-      (kv_lo == nullptr) != (kv_hi == nullptr) || (q_pos == nullptr) != (kv_pos == nullptr))
+  MaskArgs mk;
+  if (!mask_args(&mk, causal, q_seg, kv_seg, kv_lo, kv_hi, q_pos, kv_pos, mask, bias, live,
+                 mask_sb, mask_sh, mask_sr, mask_sc, bias_sb, bias_sh, bias_sr, bias_sc, live_sb,
+                 live_sh, window, bias_bf16))
     return (int)cudaErrorInvalidValue;
   const Args a{q, k, k_scale, v, v_scale, v_mean, o, want_lse ? lse2 : nullptr,
                b, hq, hkv, sq, sk, qs_mul};
-  const MaskArgs mk{(const int*)q_seg, (const int*)kv_seg, (const int*)kv_lo,
-                    (const int*)kv_hi, (const int*)q_pos, (const int*)kv_pos,
-                    (const uint8_t*)mask, bias, (const uint8_t*)live,
-                    {mask_sb, mask_sh, mask_sr, mask_sc}, {bias_sb, bias_sh, bias_sr, bias_sc},
-                    live_sb, live_sh, window, bias_bf16};
   return launch_fwd<true, false>(a, mk, NoPreq{}, d, causal, q_is_f32, v_kind, group, stream);
 }

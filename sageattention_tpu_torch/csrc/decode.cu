@@ -80,21 +80,26 @@ int launch(const Args& a, cudaStream_t st) {
 // extend blocks
 template <int D, bool PACKED, bool WINDOW>
 int launch_rows(const Args& a, cudaStream_t st) {
-  return a.rows <= 16 ? launch<D, 1, PACKED, WINDOW>(a, st) : launch<D, 4, PACKED, WINDOW>(a, st);
+  if constexpr (D == 256)  // two row warps at least (decode_body.cuh, "Warps")
+    return a.rows <= 32 ? launch<D, 2, PACKED, WINDOW>(a, st) : launch<D, 4, PACKED, WINDOW>(a, st);
+  else
+    return a.rows <= 16 ? launch<D, 1, PACKED, WINDOW>(a, st) : launch<D, 4, PACKED, WINDOW>(a, st);
 }
 
 template <bool WINDOW>
 int dispatch(int d, int packed, const Args& a, cudaStream_t st) {
   if (d <= 64)
     return packed ? launch_rows<64, true, WINDOW>(a, st) : launch_rows<64, false, WINDOW>(a, st);
-  return packed ? launch_rows<128, true, WINDOW>(a, st) : launch_rows<128, false, WINDOW>(a, st);
+  if (d <= 128)
+    return packed ? launch_rows<128, true, WINDOW>(a, st) : launch_rows<128, false, WINDOW>(a, st);
+  return packed ? launch_rows<256, true, WINDOW>(a, st) : launch_rows<256, false, WINDOW>(a, st);
 }
 
 int checked(const void* q, const void* k, const void* ks, const void* v, const void* vs,
             const void* lengths, void* o, void* m, void* l, int b, int hkv, int rows, int t_q,
             int S, int d, int packed, int chunk, int window, int n_live, float qs_mul,
             void* stream, bool windowed) {
-  if (d <= 0 || d > 128 || d % 16 != 0 || chunk <= 0 || S % chunk != 0 || (packed && chunk % 2 != 0) ||
+  if (d <= 0 || d > 256 || d % 16 != 0 || chunk <= 0 || S % chunk != 0 || (packed && chunk % 2 != 0) ||
       t_q <= 0 || rows <= 0 || (windowed && (window <= 0 || n_live <= 0 || n_live > S / chunk)) ||
       ((m == nullptr) != (l == nullptr)))
     return (int)cudaErrorInvalidValue;
@@ -111,7 +116,7 @@ int checked(const void* q, const void* k, const void* ks, const void* v, const v
 // head-major; k, v: int8 [b, hkv, S, d], or token-pair-packed [b, hkv,
 // S/2, d] when packed; ks, vs: fp32 [b, hkv, S]; lengths: int32 [b]; o:
 // fp32 [b, hkv, rows, d]; m, l: fp32 [b, hkv, rows] or both NULL.  All
-// contiguous; d <= 128 a multiple of 16 (the kernels compute at 64 or 128,
+// contiguous; d <= 256 a multiple of 16 (the kernels compute at 64, 128 or 256,
 // the lanes past d zero); chunk divides S; qs_mul = f32(1/qmax) *
 // f32(sm_scale * log2(e)), qmax 127, or 119 for the packed cache.
 extern "C" int sage_decode(const void* q, const void* k, const void* ks, const void* v,

@@ -30,10 +30,14 @@
 //
 // Warps: MW along the rows (16 rows each), CW = 8 / MW along the tokens
 // (32 tokens each), so a shared-memory slab holds 32 * CW tokens.  MW = 1
-// for decode (4 rows at GQA 32/8, t_q 1), MW = 4 for extend blocks.
+// for decode (4 rows at GQA 32/8, t_q 1), MW = 4 for extend blocks.  At
+// D = 256, MW = 2 for decode: a 256-token slab's K, V and V^T rows of D + 16
+// bytes with MW = 1 would take 248 KB of shared memory, over the 227 KB a
+// block may have; a 128-token one takes 184 KB.  The second row warp has
+// no live row below GQA 32 x t_q 1 and adds its MMAs, not bytes.
 //
-// Head dims: the instances compute at D = 64 or 128; a cache of any head
-// dim ds <= D that is a multiple of 16 (the cache keeps the caller's, as
+// Head dims: the instances compute at D = 64, 128 or 256; a cache of any
+// head dim ds <= D that is a multiple of 16 (the cache keeps the caller's, as
 // the JAX package's does) is read at its own row stride, its lanes ds..D
 // zero-filled as Q and the slabs load, which adds 0 to every product, and
 // only its ds lanes of o are written.

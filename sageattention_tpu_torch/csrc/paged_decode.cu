@@ -76,21 +76,26 @@ int launch(const Args& a, cudaStream_t st) {
 
 template <int D, bool PACKED, bool WINDOW>
 int launch_rows(const Args& a, cudaStream_t st) {
-  return a.rows <= 16 ? launch<D, 1, PACKED, WINDOW>(a, st) : launch<D, 4, PACKED, WINDOW>(a, st);
+  if constexpr (D == 256)  // two row warps at least (decode_body.cuh, "Warps")
+    return a.rows <= 32 ? launch<D, 2, PACKED, WINDOW>(a, st) : launch<D, 4, PACKED, WINDOW>(a, st);
+  else
+    return a.rows <= 16 ? launch<D, 1, PACKED, WINDOW>(a, st) : launch<D, 4, PACKED, WINDOW>(a, st);
 }
 
 template <bool WINDOW>
 int dispatch(int d, int packed, const Args& a, cudaStream_t st) {
   if (d <= 64)
     return packed ? launch_rows<64, true, WINDOW>(a, st) : launch_rows<64, false, WINDOW>(a, st);
-  return packed ? launch_rows<128, true, WINDOW>(a, st) : launch_rows<128, false, WINDOW>(a, st);
+  if (d <= 128)
+    return packed ? launch_rows<128, true, WINDOW>(a, st) : launch_rows<128, false, WINDOW>(a, st);
+  return packed ? launch_rows<256, true, WINDOW>(a, st) : launch_rows<256, false, WINDOW>(a, st);
 }
 
 int checked(const void* q, const void* pk, const void* pks, const void* pv, const void* pvs,
             const void* table, const void* lengths, void* o, void* m, void* l, int b, int hkv,
             int rows, int t_q, int page, int max_pages, int d, int packed, int window, int n_live,
             float qs_mul, void* stream, bool windowed) {
-  if (d <= 0 || d > 128 || d % 16 != 0 || page <= 0 || (packed && page % 2 != 0) || max_pages <= 0 ||
+  if (d <= 0 || d > 256 || d % 16 != 0 || page <= 0 || (packed && page % 2 != 0) || max_pages <= 0 ||
       t_q <= 0 || rows <= 0 || (windowed && (window <= 0 || n_live <= 0 || n_live > max_pages)) ||
       ((m == nullptr) != (l == nullptr)))
     return (int)cudaErrorInvalidValue;

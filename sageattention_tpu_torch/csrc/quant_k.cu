@@ -102,7 +102,7 @@ __global__ void quant_k_kernel(const T* __restrict__ k,
                                float* __restrict__ scales, int s, int d,
                                int group, float qmax, float inv_qmax) {
   __shared__ float red[32];
-  __shared__ float mean[128];
+  __shared__ float mean[256];
   const int c = blockIdx.x, bh = blockIdx.y;
   const int n_groups = gridDim.x;
   const int row0 = c * group;
@@ -141,11 +141,12 @@ __global__ void quant_k_kernel(const T* __restrict__ k,
 
 }  // namespace
 
-// k: [bh, s, d] (bf16 if k_is_bf16 else fp32), contiguous, d in {64, 128}.
+// k: [bh, s, d] (bf16 if k_is_bf16 else fp32), contiguous, d a multiple of 8
+// up to 256 (64, 128 and 256 from the wrappers).
 // km: [bh, d] fp32 out.
 extern "C" int k_channel_mean(const void* k, void* km, int bh, int s, int d,
                               int k_is_bf16, void* stream) {
-  if (d % 8 != 0 || d > 128 || kMeanThreads % (d / 8) != 0) return (int)cudaErrorInvalidValue;
+  if (d % 8 != 0 || d > 256 || kMeanThreads % (d / 8) != 0) return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * (kMeanThreads / (d / 8)) * d;
   cudaStream_t st = (cudaStream_t)stream;
   if (k_is_bf16)
@@ -162,7 +163,7 @@ extern "C" int k_channel_mean(const void* k, void* km, int bh, int s, int d,
 extern "C" int quant_k_chunked(const void* k, const void* km, void* out,
                                void* scales, int bh, int s, int d, int group,
                                int k_is_bf16, float qmax, float inv_qmax, void* stream) {
-  if (d % 8 != 0 || d > 128 || group <= 0) return (int)cudaErrorInvalidValue;
+  if (d % 8 != 0 || d > 256 || group <= 0) return (int)cudaErrorInvalidValue;
   dim3 grid((s + group - 1) / group, bh);
   cudaStream_t st = (cudaStream_t)stream;
   if (k_is_bf16)

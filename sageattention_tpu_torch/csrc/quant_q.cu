@@ -86,16 +86,19 @@ int launch(const void* q, void* out, void* scales, long long rows, float qs_mul,
 }  // namespace
 
 // q: [rows, d] contiguous (bf16 if q_is_f32 == 0, else fp32), d in {64,
-// 128}; out: int8 [rows, d]; scales: fp32 [rows]; qmax 127 or 7 and
+// 128, 256}; out: int8 [rows, d]; scales: fp32 [rows]; qmax 127 or 7 and
 // inv_qmax = f32(1/qmax); qs_mul = f32(1/qmax) * f32(sm_scale * log2(e)).
 extern "C" int quant_q_per_token(const void* q, void* out, void* scales,
                                  long long rows, int d, int q_is_f32,
                                  float qs_mul, float qmax, float inv_qmax, void* stream) {
-  if (rows <= 0 || (d != 64 && d != 128)) return (int)cudaErrorInvalidValue;
+  if (rows <= 0 || (d != 64 && d != 128 && d != 256)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (d == 64)
     return q_is_f32 ? launch<64, float>(q, out, scales, rows, qs_mul, qmax, inv_qmax, st)
                     : launch<64, __nv_bfloat16>(q, out, scales, rows, qs_mul, qmax, inv_qmax, st);
-  return q_is_f32 ? launch<128, float>(q, out, scales, rows, qs_mul, qmax, inv_qmax, st)
-                  : launch<128, __nv_bfloat16>(q, out, scales, rows, qs_mul, qmax, inv_qmax, st);
+  if (d == 128)
+    return q_is_f32 ? launch<128, float>(q, out, scales, rows, qs_mul, qmax, inv_qmax, st)
+                    : launch<128, __nv_bfloat16>(q, out, scales, rows, qs_mul, qmax, inv_qmax, st);
+  return q_is_f32 ? launch<256, float>(q, out, scales, rows, qs_mul, qmax, inv_qmax, st)
+                  : launch<256, __nv_bfloat16>(q, out, scales, rows, qs_mul, qmax, inv_qmax, st);
 }

@@ -224,7 +224,7 @@ __global__ void __launch_bounds__(kThreads)
 quant_v_stats_kernel(const T* __restrict__ v, float* __restrict__ pmax,
                      float* __restrict__ pmin, float* __restrict__ psum, int s, int d,
                      int block_s) {
-  __shared__ float red[3][kWarps][128];
+  __shared__ float red[3][kWarps][256];
   const int blk = blockIdx.x, bh = blockIdx.y, n_blocks = gridDim.x;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int nv = d / 8;  // 8-channel vectors a row; divides 32
@@ -264,7 +264,7 @@ __global__ void __launch_bounds__(kThreads)
 quant_v_apply_kernel(const T* __restrict__ v, const float* __restrict__ r,
                      const float* __restrict__ mean, uint8_t* __restrict__ out, int s,
                      int d, int block_s) {
-  __shared__ float sr[128], sm[128];
+  __shared__ float sr[256], sm[256];
   const int blk = blockIdx.x, bh = blockIdx.y;
   if (threadIdx.x < d) {
     sr[threadIdx.x] = r[(size_t)bh * d + threadIdx.x];
@@ -283,7 +283,7 @@ quant_v_apply_kernel(const T* __restrict__ v, const float* __restrict__ r,
 }
 
 bool bad_shape(int bh, int s, int d) {
-  return bh <= 0 || bh > 65535 || s <= 0 || (d != 64 && d != 128);
+  return bh <= 0 || bh > 65535 || s <= 0 || (d != 64 && d != 128 && d != 256);
 }
 
 template <typename T>
@@ -320,7 +320,7 @@ int launch_apply(const void* v, const void* r, const void* mean, void* out, int 
 
 }  // namespace
 
-// v: [bh, s, d] (bf16 if v_is_bf16 else fp32), contiguous, d in {64, 128};
+// v: [bh, s, d] (bf16 if v_is_bf16 else fp32), contiguous, d in {64, 128, 256};
 // out: [bh, s, d] codes (kind 0 int8, 1 fp8 e4m3, 2 fp8 e5m2); scale:
 // fp32 [bh, d]; mean: fp32 [bh, d], written when smooth (may be NULL
 // otherwise).

@@ -52,6 +52,13 @@ SIGNATURES = {
         # the window and the bias type
         "sage_attn_fwd_masked": [P] * 8 + [I] * 11 + [F, P] + [P] * 9 + [LL] * 10 + [I] * 2,
     },
+    # the forward's D = 256 instances, with the operands of the two above
+    "attention_fwd_hd256": {
+        "sage_attn_fwd_hd256": [P] * 8 + [I] * 11 + [F, P],
+    },
+    "attention_fwd_masked_hd256": {
+        "sage_attn_fwd_masked_hd256": [P] * 8 + [I] * 11 + [F, P] + [P] * 9 + [LL] * 10 + [I] * 2,
+    },
     "attention_fwd_preq": {
         # sage_attn_fwd's operands less q_is_f32 and qs_mul; ks_per_row,
         # o_f32, q_scale, col_bias, the stream; then `masked` and

@@ -23,10 +23,16 @@ asked (``has_bias`` / ``emit_dbias``, ``attention_bwd_pallas.py:82-204,
 238-316``), into a tensor it allocates uninitialised: the kernel writes
 every element, the zeros right of the causal diagonal included.
 
+Head dims 64, 128 and, without a bias, 256 (the D = 256 instances: dQ
+reads its Q and dO fragments from shared memory, dK/dV run in two
+launches, dV then dK; ``csrc/attention_bwd.cu``).
+
 On a CPU tensor a wrapper runs its plain version
 (:func:`reference.quantized_attention_bwd_reference`); on a CUDA tensor it
 launches its kernel or raises.  ``<function>.launches`` counts the
-launches without a bias, ``<function>.bias_launches`` those of the bias
+launches without a bias at head dims 64 and 128,
+``<function>.hd256_launches`` those at 256 (one a call, the two dK/dV
+passes together), ``<function>.bias_launches`` those of the bias
 instances (``sage_attn_bwd_dq_bias``, ``sage_attn_bwd_dkv_bias``).
 """
 
@@ -91,8 +97,11 @@ def _check(q_i8, q_scale, k_i8, k_scale, lse2, dvec, bias, **bf16):
             )
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if d not in (64, 128):
-        raise ValueError(f"head dim {d}: the kernels take 64 or 128 (pad first)")
+    if d not in (64, 128, 256):
+        raise ValueError(f"head dim {d}: the kernels take 64, 128 or 256 (pad first)")
+    if d == 256 and bias is not None:
+        raise ValueError("head dim 256 with a bias: no kernel instance (ROADMAP: the BIAS "
+                         "instances at d 256; sageattn takes the exact route)")
     if hq % hkv:
         raise ValueError(f"hq={hq} is not a multiple of hkv={hkv}")
 
@@ -141,7 +150,10 @@ def sage_attention_bwd_dq(q_i8, q_scale, k_i8, k_scale, k_sm, v, do, lse2, dvec,
                 sm_scale, stream)
     if bias is None:
         _build.check(err, "sage_attn_bwd_dq")
-        sage_attention_bwd_dq.launches += 1
+        if d == 256:
+            sage_attention_bwd_dq.hd256_launches += 1
+        else:
+            sage_attention_bwd_dq.launches += 1
     else:
         _build.check(err, "sage_attn_bwd_dq_bias")
         sage_attention_bwd_dq.bias_launches += 1
@@ -149,6 +161,7 @@ def sage_attention_bwd_dq(q_i8, q_scale, k_i8, k_scale, k_sm, v, do, lse2, dvec,
 
 
 sage_attention_bwd_dq.launches = 0
+sage_attention_bwd_dq.hd256_launches = 0
 sage_attention_bwd_dq.bias_launches = 0
 
 
@@ -185,7 +198,10 @@ def sage_attention_bwd_dkv(q_i8, q_scale, q_bf, k_i8, k_scale, v, do, lse2, dvec
                 int(bias.dtype == torch.bfloat16), K_GROUP, sm_scale, stream)
     if bias is None:
         _build.check(err, "sage_attn_bwd_dkv")
-        sage_attention_bwd_dkv.launches += 1
+        if d == 256:
+            sage_attention_bwd_dkv.hd256_launches += 1
+        else:
+            sage_attention_bwd_dkv.launches += 1
     else:
         _build.check(err, "sage_attn_bwd_dkv_bias")
         sage_attention_bwd_dkv.bias_launches += 1
@@ -193,4 +209,5 @@ def sage_attention_bwd_dkv(q_i8, q_scale, q_bf, k_i8, k_scale, v, do, lse2, dvec
 
 
 sage_attention_bwd_dkv.launches = 0
+sage_attention_bwd_dkv.hd256_launches = 0
 sage_attention_bwd_dkv.bias_launches = 0

@@ -7,23 +7,28 @@ for int8 / fp8 V codes with per-channel scales and the smooth-v mean
 and with its masks (:class:`Masks`: segment ids and varlen's range form,
 positions, a bool mask, an additive bias, a sliding window), and on
 pre-quantized operands (int8 or +-7 Q codes with per-row scales, K scales
-per tile or per row, smooth-q's column bias).  Three wrappers, three
+per tile or per row, smooth-q's column bias).  Three wrappers over
 libraries built from one kernel body (``csrc/attention_fwd_kernel.cuh``,
 which says what bounds it and what this first version leaves for later):
 :func:`sage_attention_fwd` (``csrc/attention_fwd.cu``, no masks),
 :func:`sage_attention_fwd_masked` (``csrc/attention_fwd_masked.cu``) and
 :func:`sage_attention_fwd_preq` (``csrc/attention_fwd_preq.cu``, with
-masks or without).  A masked row with no live key gives o = 0 and lse2 =
--inf, as the TPU kernel does.
+masks or without), at head dims 64 and 128.  At 256 the first two launch
+the instances of ``csrc/attention_fwd_hd256.cu`` and
+``csrc/attention_fwd_masked_hd256.cu`` and count them apart, in
+``<wrapper>.hd256_launches``; the pre-quantized kernel has no D = 256
+instances (ROADMAP).  A masked row with no live key gives o = 0 and lse2
+= -inf, as the TPU kernel does.
 
 The H100 launch configuration is fixed: 64 Q rows per CTA, KV tiles of
-``K_GROUP`` = 128 columns, which is also the K-scale group, so the kernel
-reads one K scale per tile.  It replaces the TPU's ``default_config`` and
-tuned table, which hold TPU block sizes only.
+``K_GROUP`` = 128 columns (64 at head dim 256, two to a group), and
+``K_GROUP`` is also the K-scale group, so a tile reads one K scale.  It
+replaces the TPU's ``default_config`` and tuned table, which hold TPU
+block sizes only.
 
 On a CPU tensor a wrapper runs the plain version; on a CUDA tensor it
 launches its kernel or raises.  ``<wrapper>.launches`` counts the
-launches.
+launches at head dims 64 and 128.
 """
 
 from __future__ import annotations
@@ -41,6 +46,8 @@ K_GROUP = 128
 Q_TILE = 64
 # the V storage types the kernel reads; the position of each is its code
 V_TYPES = (torch.bfloat16, *quant.V_CODE_TYPES)
+# the kernels' head dims; 256 has sources of its own
+HEAD_DIMS = (64, 128, 256)
 
 
 def _check_v_scale(v, v_scale) -> None:
@@ -171,8 +178,8 @@ def _check_kv(device, q_shape, k_i8, k_scale, v, v_scale, v_mean, ks_cols=None):
         "v_mean": (v_mean, f32, (b, hkv, d)),
     }, ("v_scale", "v_mean"))
     _check_v_scale(v, v_scale)
-    if d not in (64, 128):
-        raise ValueError(f"head dim {d}: the kernel takes 64 or 128 (pad first)")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d}: the kernel takes {HEAD_DIMS} (pad first)")
     if hq % hkv:
         raise ValueError(f"hq={hq} is not a multiple of hkv={hkv}")
 
@@ -202,9 +209,11 @@ def sage_attention_fwd(q, k_i8, k_scale, v, v_scale=None, v_mean=None, *,
     hkv, sk = k_i8.shape[1], k_i8.shape[2]
     o = torch.empty_like(q)
     lse2 = torch.empty(b, hq, sq, dtype=torch.float32, device=q.device) if return_lse else None
+    hd256 = d == 256
     # the launch goes to the current device: make it the tensors' own
     with torch.cuda.device(q.device):
-        err = _build.lib("attention_fwd").sage_attn_fwd(
+        lib = _build.lib("attention_fwd_hd256" if hd256 else "attention_fwd")
+        err = (lib.sage_attn_fwd_hd256 if hd256 else lib.sage_attn_fwd)(
             q.data_ptr(), k_i8.data_ptr(), k_scale.data_ptr(), v.data_ptr(),
             v_scale.data_ptr() if v_scale is not None else None,
             v_mean.data_ptr() if v_mean is not None else None,
@@ -213,12 +222,16 @@ def sage_attention_fwd(q, k_i8, k_scale, v, v_scale=None, v_mean=None, *,
             V_TYPES.index(v.dtype), int(return_lse), K_GROUP, quant.fold_multiplier(q_fold),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
-    _build.check(err, "sage_attn_fwd")
-    sage_attention_fwd.launches += 1
+    _build.check(err, "sage_attn_fwd_hd256" if hd256 else "sage_attn_fwd")
+    if hd256:
+        sage_attention_fwd.hd256_launches += 1
+    else:
+        sage_attention_fwd.launches += 1
     return (o, lse2) if return_lse else o
 
 
 sage_attention_fwd.launches = 0
+sage_attention_fwd.hd256_launches = 0
 
 
 def broadcast_strides(x: torch.Tensor | None) -> list[int]:
@@ -287,8 +300,10 @@ def sage_attention_fwd_masked(q, k_i8, k_scale, v, v_scale=None, v_mean=None, *,
         return x.data_ptr() if x is not None else None
 
     live_st = [0, 0] if live is None else broadcast_strides(live)[:2]
+    hd256 = d == 256
     with torch.cuda.device(q.device):
-        err = _build.lib("attention_fwd_masked").sage_attn_fwd_masked(
+        lib = _build.lib("attention_fwd_masked_hd256" if hd256 else "attention_fwd_masked")
+        err = (lib.sage_attn_fwd_masked_hd256 if hd256 else lib.sage_attn_fwd_masked)(
             q.data_ptr(), k_i8.data_ptr(), k_scale.data_ptr(), v.data_ptr(), ptr(v_scale),
             ptr(v_mean), o.data_ptr(), ptr(lse2), b, hq, hkv, sq, sk, d, int(is_causal),
             int(q.dtype == torch.float32), V_TYPES.index(v.dtype), int(return_lse), K_GROUP,
@@ -299,12 +314,16 @@ def sage_attention_fwd_masked(q, k_i8, k_scale, v, v_scale=None, v_mean=None, *,
             window_arg(masks.window, is_causal),
             int(masks.bias is not None and masks.bias.dtype == torch.bfloat16),
         )
-    _build.check(err, "sage_attn_fwd_masked")
-    sage_attention_fwd_masked.launches += 1
+    _build.check(err, "sage_attn_fwd_masked_hd256" if hd256 else "sage_attn_fwd_masked")
+    if hd256:
+        sage_attention_fwd_masked.hd256_launches += 1
+    else:
+        sage_attention_fwd_masked.launches += 1
     return (o, lse2) if return_lse else o
 
 
 sage_attention_fwd_masked.launches = 0
+sage_attention_fwd_masked.hd256_launches = 0
 
 
 def sage_attention_preq_plain(q_i8, q_scale, k_i8, k_scale, v, v_scale=None, v_mean=None, *,
@@ -338,6 +357,9 @@ def _check_preq(q_i8, q_scale, k_i8, k_scale, v, v_scale, v_mean, col_bias, out_
     }, ("col_bias",))
     _check_kv(q_i8.device, q_i8.shape, k_i8, k_scale, v, v_scale, v_mean,
               ks_cols=sk if k_scale.shape[-1] == sk else None)
+    if d == 256:
+        raise ValueError("head dim 256: the pre-quantized kernel takes 64 or 128 (ROADMAP: "
+                         "the PREQ instances at d 256)")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"out_dtype must be bf16 or fp32, got {out_dtype}")
 

@@ -26,7 +26,8 @@ so the host rules are the JAX package's, copied exactly.  On a CPU tensor
 the wrappers run the plain versions; on a CUDA tensor they launch the
 kernels or raise.  ``decode_kernel``, ``decode_window_kernel``,
 ``paged_kernel`` and ``paged_window_kernel`` launch kernels 9-12 and count
-their launches in ``.launches``.
+their launches in ``.launches``, and those at head dims above 128 (the
+D = 256 instances) in ``.hd256_launches``.
 """
 
 from __future__ import annotations
@@ -309,10 +310,10 @@ def _device_args(q, lengths, *tensors):
         if not x.is_contiguous():
             raise ValueError("the decode kernels take contiguous tensors")
     d = q.shape[-1]
-    if d > 128 or d % 16:
-        # the kernels compute at 64 or 128 and read a cache of the caller's
-        # head dim in 16-byte blocks, the lanes past it zero
-        raise ValueError(f"head dim {d}: the kernels take multiples of 16 up to 128")
+    if d > 256 or d % 16:
+        # the kernels compute at 64, 128 or 256 and read a cache of the
+        # caller's head dim in 16-byte blocks, the lanes past it zero
+        raise ValueError(f"head dim {d}: the kernels take multiples of 16 up to 256")
     return q.float().contiguous(), lengths.to(device=q.device, dtype=torch.int32).contiguous()
 
 
@@ -352,7 +353,10 @@ def decode_kernel(q, k_i8, k_scale, v_i8, v_scale, lengths, *, chunk, qs_mul,
     out = _launch_dense("sage_decode", q, k_i8, k_scale, v_i8, v_scale, lengths,
                         chunk=chunk, window=None, n_live=None, qs_mul=qs_mul,
                         return_state=return_state)
-    decode_kernel.launches += 1
+    if q.shape[-1] > 128:
+        decode_kernel.hd256_launches += 1
+    else:
+        decode_kernel.launches += 1
     return out
 
 
@@ -362,7 +366,10 @@ def decode_window_kernel(q, k_i8, k_scale, v_i8, v_scale, lengths, *, chunk, win
     out = _launch_dense("sage_decode_window", q, k_i8, k_scale, v_i8, v_scale, lengths,
                         chunk=chunk, window=window, n_live=n_live, qs_mul=qs_mul,
                         return_state=return_state)
-    decode_window_kernel.launches += 1
+    if q.shape[-1] > 128:
+        decode_window_kernel.hd256_launches += 1
+    else:
+        decode_window_kernel.launches += 1
     return out
 
 
@@ -392,7 +399,10 @@ def paged_kernel(q, pages_k, pages_k_scale, pages_v, pages_v_scale, page_table, 
     out = _launch_paged("sage_paged_decode", q, pages_k, pages_k_scale, pages_v,
                         pages_v_scale, page_table, lengths, window=None, n_live=None,
                         qs_mul=qs_mul, return_state=return_state)
-    paged_kernel.launches += 1
+    if q.shape[-1] > 128:
+        paged_kernel.hd256_launches += 1
+    else:
+        paged_kernel.launches += 1
     return out
 
 
@@ -402,12 +412,15 @@ def paged_window_kernel(q, pages_k, pages_k_scale, pages_v, pages_v_scale, page_
     out = _launch_paged("sage_paged_decode_window", q, pages_k, pages_k_scale, pages_v,
                         pages_v_scale, page_table, lengths, window=window, n_live=n_live,
                         qs_mul=qs_mul, return_state=return_state)
-    paged_window_kernel.launches += 1
+    if q.shape[-1] > 128:
+        paged_window_kernel.hd256_launches += 1
+    else:
+        paged_window_kernel.launches += 1
     return out
 
 
 for _fn in (decode_kernel, decode_window_kernel, paged_kernel, paged_window_kernel):
-    _fn.launches = 0
+    _fn.launches = _fn.hd256_launches = 0
 
 
 def _finish(res, q, out_dtype, return_state):

@@ -207,14 +207,23 @@ def test_unsupported_options_raise(kwargs, grad, exc, match):
 def test_gradients_and_large_head_dims_raise():
     """Gradients are ported (tests/test_torch_autodiff.py): an input that
     requires grad gives a differentiable output, and what the forward
-    refuses the differentiable path refuses too."""
+    refuses the differentiable path refuses too.  Head dims up to 256 run,
+    forward and backward (padded to 256, tests/test_torch_hd256.py); above
+    256 they raise, and the Q/K options above 128, naming ROADMAP."""
     x = torch.zeros(1, 1, 128, 64, requires_grad=True)
     assert sageattn(x, x, x).requires_grad
-    y = torch.zeros(1, 1, 128, 192)
+    for d in (192, 256):
+        y = torch.randn(1, 1, 128, d, generator=torch.Generator().manual_seed(d))
+        assert sageattn(y, y, y).shape == y.shape
+        yg = y.clone().requires_grad_()
+        (g,) = torch.autograd.grad(sageattn(yg, y, y).sum(), yg)
+        assert g.shape == y.shape and bool(torch.isfinite(g).all())
+    y = torch.zeros(1, 1, 128, 320)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sageattn(y, y, y)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sageattn(y.clone().requires_grad_(), y, y)
+    y = torch.zeros(1, 1, 128, 256)
     for opts in ({"smooth_q": True}, {"qk_bits": 4}, {"qk_quant_gran": "per_block"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             sageattn(y, y, y, **opts)
