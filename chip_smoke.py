@@ -136,7 +136,38 @@ Phases, each of which raises (and so exits non-zero) when it fails:
       plain version and library call (SDPA forward and backward).
    A D = 256 instance that no path of this run launches (the masked
    forward, kernels 5-6, 10 and 12) is reported inside its kernel's entry
-   of the ``kernels`` line, as ``hd256``.
+   of the ``kernels`` line, as ``hd256``;
+8. the parallel slice, drawing from generators of their own:
+   a. with the kernel checks of phase 2: kernels 11-12 with the ``owned``
+      page mask on each of 4 shards of a scrambled pool (each shard's pages
+      a tensor of their own, a forward-filled local table) against their
+      plain versions, at d 64, 128 and 256, int8 and int4, t_q 1 and 4,
+      with and without window 4096; the shards merged against the kernel
+      on the whole pool (<= 1e-4), and shards that own no live page of a
+      row giving exactly 0 with l = 0;
+   b. after the head-dim-256 trainer, each with its launch counts zeroed
+      before and read after: ``sharded_paged`` (llm-8b-gqa's attention at
+      b 1 x 131,072 tokens, 32 layers of paged int8 caches, 4 SP shards of
+      1024-token pages run one after another by ``generate.serve_shards``,
+      the loop ``sharded_serve`` runs on a mesh: ``paged_prefill(pool_start)``,
+      32 steps of append and kernel 11 with ``owned``; the pools
+      bit-identical to an unsharded pool's, the merged outputs within 1e-4
+      of its decode; each shard's launch at the last step's inputs against
+      its plain version, and timed beside the whole pool's, L2 cold);
+      ``sharded_dense`` (the same geometry, TP 2 x SP 2 dense caches,
+      kernel 9 at the shards' chunk); ``ring`` (a world of 4's KV ring, its
+      ranks and steps one after another: the CogVideoX-2B layer, 16 steps,
+      and the llm-8b-gqa prefill layer at 32,768 tokens causal, 4 aligned
+      and 6 full steps, 6 skipped; against ``sageattn`` of the whole
+      sequence and exact attention, timed against the one op);
+      ``server_parallel`` (a world of one over NCCL, a ``FileStore`` and no
+      port: ``make_mesh(1, 1, 1)``, the CogVideoX-2B server through
+      "sage_parallel" with its eps against "sage", then the four sharded
+      factories through the group, ``generate.sharded_serve``, paged and
+      dense, 32 layers, 4 steps).
+   Kernel 11's owned launches (``sharded_paged``) and kernel 12's (checked
+   and timed only) sit in their kernel's entry of the ``kernels`` line, as
+   ``owned``.
 
 It prints one ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside the
@@ -245,32 +276,37 @@ def require(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def resource_usage() -> None:
-    """Registers a thread and spill (stack) bytes of every built kernel, as
-    ``cuobjdump -res-usage`` reads them from the libraries."""
-    from sageattention_tpu_torch.ops import _build
-
+def kernel_registers(build, lib: str) -> list:
+    """(kernel<template args>, registers, stack bytes) of every kernel in a
+    built library, as ``cuobjdump -res-usage`` reads them."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.exists(tool):
-        log("resource usage: cuobjdump not found")
-        return
+        return []
+    out = subprocess.run([tool, "-res-usage", str(build._target(lib))],
+                         capture_output=True, text=True, timeout=120)
+    rows, fn = [], None
+    for line in out.stdout.splitlines():
+        m = re.search(r"Function (\S+):", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"REG:(\d+) STACK:(\d+)", line)
+        k = re.search(r"\d((?:sage_|quant|channel)[a-z_]*_kernel(?:_3blocks)?)I", fn or "")
+        if m and k:
+            targs = [a or b for a, b in re.findall(r"Li(\d+)E|Lb(\d)E", fn)]
+            dtype = " bf16" if "nv_bfloat16" in fn else ""
+            rows.append((f"{k.group(1)}<{','.join(targs)}>{dtype}", m.group(1), m.group(2)))
+    return rows
+
+
+def resource_usage() -> None:
+    """Registers a thread and spill (stack) bytes of every built kernel."""
+    from sageattention_tpu_torch.ops import _build
+
     for lib in _build.SIGNATURES:
-        out = subprocess.run([tool, "-res-usage", str(_build._target(lib))],
-                             capture_output=True, text=True, timeout=120)
-        fn = None
-        for line in out.stdout.splitlines():
-            m = re.search(r"Function (\S+):", line)
-            if m:
-                fn = m.group(1)
-                continue
-            m = re.search(r"REG:(\d+) STACK:(\d+)", line)
-            k = re.search(r"\d((?:sage_|quant|channel)[a-z_]*_kernel(?:_3blocks)?)I", fn or "")
-            if m and k:
-                targs = [a or b for a, b in re.findall(r"Li(\d+)E|Lb(\d)E", fn)]
-                dtype = " bf16" if "nv_bfloat16" in fn else ""
-                log(f"resources {lib} {k.group(1)}<{','.join(targs)}>{dtype}: {m.group(1)} "
-                    f"registers, {m.group(2)} bytes of stack")
+        for kern, regs, stack in kernel_registers(_build, lib):
+            log(f"resources {lib} {kern}: {regs} registers, {stack} bytes of stack")
 
 
 # --------------------------------------------------------------------------
@@ -1588,7 +1624,10 @@ MAIN_PATH = {**{n: "server" for n in FORWARD}, **{n: "train" for n in BACKWARD},
              # and timed, and reported inside their kernel's entry
              **{n + "_hd256": "llm_gemma7b_dense" for n in FORWARD + ("sage_decode",)},
              "sage_paged_decode_hd256": "llm_gemma7b_paged",
-             **{n + "_hd256": "hd256_train" for n in BACKWARD}}
+             **{n + "_hd256": "hd256_train" for n in BACKWARD},
+             # kernel 11's launches with the owned page mask (kernel 12's has no
+             # path: it is checked and timed, and both sit in their kernel's entry)
+             "sage_paged_decode_owned": "sharded_paged"}
 FORWARD_HD256 = tuple(n + "_hd256" for n in FORWARD)
 BACKWARD_HD256 = tuple(n + "_hd256" for n in BACKWARD)
 
@@ -1620,6 +1659,8 @@ def counters():
     out["sage_attn_bwd_dkv_bias"] = (attention_bwd_cuda.sage_attention_bwd_dkv, "bias_launches")
     for name in HD256:  # the launches at head dim 256, counted apart
         out[name + "_hd256"] = (fns[name], "hd256_launches")
+    for name in OWNED:  # the launches over a shard of a sharded pool, counted apart
+        out[name + "_owned"] = (fns[name], "owned_launches")
     return out
 
 
@@ -3328,6 +3369,457 @@ def time_hd256(gen, results) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 8: the parallel slice: kernels 11-12 with the owned page mask,
+# sharded serving, the KV ring (a world of four run rank after rank on the
+# card), and the parallel entry points in a world of one over NCCL
+# --------------------------------------------------------------------------
+
+SP = 4  # the sequence-parallel degree whose ranks the card runs one after another
+SHARD_CTX = 131072  # Llama-3.1-8B's context length
+SHARD_STEPS = 32
+SHARD_PAGE = 1024
+SHARD_LAYER = dict(hq=32, hkv=8, d=128)  # llm-8b-gqa's attention (Llama-3-8B widths)
+# the ring's two layers: (name, b, hq, hkv, s, d, causal, steps that run
+# kernels 1-3: 16 of 16 non-causal; 4 aligned + 6 full, 6 skipped causal)
+RING_LAYERS = (("cogvideox-2b layer", 1, 30, 30, 17776, 64, False, 16),
+               ("llm-8b-gqa prefill layer", 1, 32, 8, 32768, 128, True, 10))
+# the owned launches are counted apart, inside kernels 11-12's entries
+OWNED = ("sage_paged_decode", "sage_paged_decode_window")
+
+
+def owned_bound(table, lengths, owned, page, hkv, hq, t_q, d, packed, window=None):
+    """(bound_ms, bound_by) of one shard's launch: the live tokens of the
+    pages it owns, read once (codes and two fp32 scales), Q in and O out."""
+    code = d // 2 if packed else d
+    tokens = 0
+    for bi, length in enumerate(lengths):
+        lo = 0 if window is None else max(length - t_q - window + 1, 0)
+        for j, own in enumerate(owned[bi]):
+            if own:
+                tokens += max(min(length, (j + 1) * page) - max(j * page, lo), 0)
+    moved = tokens * hkv * (2 * code + 8) + 2 * len(lengths) * hq * t_q * d * 2
+    return moved / PEAK_BYTES_S * 1e3, "bytes"
+
+
+def shard_pool(pool, s: int, n: int):
+    """Pages [s*pp, (s+1)*pp) of a pool, each a tensor of its own."""
+    pp = pool[0].shape[0] // n
+    return [x[s * pp:(s + 1) * pp].contiguous() for x in pool]
+
+
+def check_owned(gen, results) -> dict:
+    """Kernels 11-12 with ``owned`` on each of 4 shards of a scrambled pool of
+    16 pages of 1024 (b 2, lengths 8189 and 1000), against their plain
+    versions (the decode limits), at d 64 (8/2 heads), 128 (32/8) and 256
+    (16/16), int8 and int4, t_q 1 and 4, with and without window 4096; the
+    four shards merged (fp32 partials) against the kernel on the whole pool,
+    max-abs <= 1e-4 (the JAX tests' tolerance for the merge's fp32 sums);
+    and a shard that owns no live page of batch 1 giving exactly 0, l = 0
+    and m = NEG_INIT there."""
+    import torch
+    from sageattention_tpu_torch.ops import decode_cuda as dc
+    from sageattention_tpu_torch.parallel.decode import owned_pages
+
+    b, S, page, L = 2, 8192, 1024, [8189, 1000]
+    lens = torch.tensor(L, dtype=torch.int32, device="cuda")
+    merged_err, empty_rows = 0.0, 0
+    for d, hq, hkv in ((64, 8, 2), (128, 32, 8), (256, 16, 16)):
+        for packed, t_q, window in itertools.product((False, True), (1, 4), (None, 4096)):
+            name = (f"d{d} {hq}/{hkv} {'int4' if packed else 'int8'} t_q {t_q}"
+                    f"{'' if window is None else f' window {window}'}")
+            pool, table = paged_from_dense(gen, random_cache(gen, (b, hkv), S, d, packed), page)
+            q = torch.randn(b, hq, t_q, d, generator=gen, device="cuda").to(torch.bfloat16)
+            kw = dict(window=window, return_state=True, out_dtype=torch.float32)
+            whole = dc.sage_paged_decode_attention(q, *pool, table, lens, **kw)
+            key = ("sage_paged_decode" if window is None else "sage_paged_decode_window") + "_owned"
+            parts = []
+            for s in range(SP):
+                owned, local = owned_pages(table, s, pool[0].shape[0] // SP)
+                shard = shard_pool(pool, s, SP)
+                res = dc.sage_paged_decode_attention(q, *shard, local, lens, owned=owned, **kw)
+                res_p = dc.sage_paged_decode_attention_plain(q, *shard, local, lens, owned=owned,
+                                                             **kw)
+                compare_decode(f"owned {name} shard {s}", res, res_p, results, key)
+                if not bool(owned[1, 0]):  # batch 1's one live page lies elsewhere
+                    o, m, l = res
+                    require(bool((o[1] == 0).all() and (l[1] == 0).all()
+                                 and (m[1] == dc.NEG_INIT).all()),
+                            f"owned {name} shard {s}: a row with no owned live page is not 0")
+                    empty_rows += 1
+                parts.append(res)
+            o_m = dc.merge_decode_partials(*(torch.stack(x) for x in zip(*parts)))
+            err = (o_m - whole[0]).abs().max().item()
+            merged_err = max(merged_err, err)
+            log(f"owned {name}: 4 shards merged vs the whole pool, max abs {err:.3e}")
+            require(err <= 1e-4, f"owned {name}: the merged shards disagree with the whole pool")
+    log(f"owned: {empty_rows} shards without a live page of batch 1 gave exactly 0")
+    require(empty_rows > 0, "owned: no shard without a live page was checked")
+    return {"merged_vs_whole_max_abs": merged_err, "empty_shards_checked": empty_rows}
+
+
+def serving_inputs(layer: int, step: int, shapes):
+    from sageattention_tpu_torch import generate
+
+    return generate.serving_draw(9, layer, step, shapes, "cuda")
+
+
+def sharded_launch_check(phase: str, want: dict) -> dict:
+    launches = read_counts()
+    log(f"{phase} launches: { {n: c for n, c in launches.items() if c} }")
+    for name, n in launches.items():
+        require(n == want.get(name, 0),
+                f"{phase}: {name} launched {n} times, want {want.get(name, 0)}")
+    return launches
+
+
+def serve_sharded(phase: str, tp: int, sp: int, paged: bool, want) -> tuple:
+    """``generate.serve_shards`` at the sharded geometry (llm-8b-gqa's
+    attention, b 1 x 131,072 tokens, 32 layers of int8 caches, 32 steps),
+    the TP ``tp`` x SP ``sp`` shards' local bodies in turn (each kernel
+    launch counted against ``want(launches a step)``), then the same loop
+    over one unsharded cache: the shards' caches bit-identical to its
+    slices, the merged fp32 outputs within 1e-4 of its decode's (a dense
+    decode at the shards' chunk).  Returns (the sharded run, the unsharded
+    run, the launches, a summary)."""
+    import dataclasses
+
+    import torch
+    from sageattention_tpu_torch import generate
+    from sageattention_tpu_torch.parallel.decode import dense_shard, paged_shard
+
+    kw = dict(b=1, **SHARD_LAYER, context=SHARD_CTX, gen=SHARD_STEPS, depth=LLM_DEPTH,
+              paged=paged, page_size=SHARD_PAGE, seed=9, device="cuda")
+    shards = [generate.local_shard_ops(head=t, seq=s, n_seq=sp, paged=paged)
+              for t in range(tp) for s in range(sp)]
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    r = generate.serve_shards(shards, tp=tp, sp=sp, **kw)
+    launches = sharded_launch_check(phase, want(LLM_DEPTH * SHARD_STEPS))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    w = generate.serve_shards([generate.local_shard_ops(n_seq=sp, paged=paged, sharded=False)],
+                              **kw)
+    worst = max((o.float() - o_w.float()).abs().max().item()
+                for os_, ows in zip(r["outputs"], w["outputs"]) for o, o_w in zip(os_, ows))
+    cut = paged_shard if paged else dense_shard
+    same = all(torch.equal(x, getattr(want_c, f))
+               for sh, layers in zip(shards, r["caches"])
+               for c, whole in zip(layers, w["caches"][0])
+               for want_c in [cut(whole, shard=sh.seq, n_shards=sp, head_shard=sh.head,
+                                  n_head_shards=tp)]
+               for f, x in dataclasses.asdict(c).items())
+    med, med_w = statistics.median(r["step_ms"]), statistics.median(w["step_ms"])
+    log(f"{phase}: TP {tp} x SP {sp}, prompt prefilled in {r['prefill_ms']:.1f} ms; ms a step "
+        f"(the {tp * sp} shards in turn) {[round(x, 3) for x in r['step_ms']]}, median "
+        f"{med:.3f}; unsharded {med_w:.3f}; merged vs unsharded max abs {worst:.3e}; caches "
+        f"bit-identical {same}; peak {peak:.2f} GB")
+    require(same, f"{phase}: the shards' caches differ from the unsharded cache")
+    require(worst <= 1e-4, f"{phase}: the merged decode disagrees with the unsharded one")
+    summary = {"tp": tp, "sp": sp, "depth": LLM_DEPTH, "context": SHARD_CTX,
+               "prompt": int(r["lengths"][0]) - SHARD_STEPS, "prefill_ms": r["prefill_ms"],
+               "step_ms": r["step_ms"], "median_step_ms": med, "unsharded_median_step_ms": med_w,
+               "merged_max_abs": worst, "peak_gb": peak,
+               "launches": {n: c for n, c in launches.items() if c}}
+    return r, w, launches, summary
+
+
+def run_sharded_paged(results) -> dict:
+    """``sharded_paged``: the serving loop over a paged pool of 1024-token
+    pages (a scrambled table) split into 4 shards of pages: each step each
+    shard's ``paged_append(pool_start)`` and ``local_paged_shard_decode``
+    (kernel 11 with ``owned``), merged (``serve_sharded``).  Then kernel 11
+    (12 with window 4096) with ``owned`` on each shard at the last step's
+    inputs, held against its plain version, and timed (L2 cold) beside the
+    whole pool's launch."""
+    import torch
+    from sageattention_tpu_torch.ops import decode_cuda as dc
+    from sageattention_tpu_torch.parallel.decode import owned_pages
+
+    hq, hkv, d = SHARD_LAYER["hq"], SHARD_LAYER["hkv"], SHARD_LAYER["d"]
+    r, w, launches, out = serve_sharded(
+        "sharded_paged", 1, SP, True,
+        lambda n: {"sage_paged_decode": SP * n, "sage_paged_decode_owned": SP * n})
+    for name in ("sage_paged_decode", "sage_paged_decode_owned"):
+        results[name].setdefault("launches_by_path", {})["sharded_paged"] = launches[name]
+    table, glen = r["table"], r["lengths"]
+    pp = table.numel() // SP
+    q = serving_inputs(0, SHARD_STEPS, [(1, hq, 1, d)])[0]
+    L = glen.tolist()
+    times = {}
+    for window, name in ((None, "sage_paged_decode"), (4096, "sage_paged_decode_window")):
+        c = w["caches"][0][0]
+        whole_ms = cuda_ms(lambda: dc.sage_paged_decode_attention(
+            q, c.pages_k, c.pages_k_scale, c.pages_v, c.pages_v_scale, table, glen,
+            window=window), reps=20, cold=True)
+        shard_ms, bounds, plain = [], [], []
+        for s in range(SP):
+            owned, local = owned_pages(table, s, pp)
+            args = (q, *(getattr(r["caches"][s][0], f) for f in
+                         ("pages_k", "pages_k_scale", "pages_v", "pages_v_scale")), local, glen)
+            kw = dict(owned=owned, window=window, return_state=True, out_dtype=torch.float32)
+            compare_decode(f"owned sharded_paged window {window} shard {s}",
+                           dc.sage_paged_decode_attention(*args, **kw),
+                           dc.sage_paged_decode_attention_plain(*args, **kw), results,
+                           name + "_owned")
+            shard_ms.append(cuda_ms(lambda: dc.sage_paged_decode_attention(*args, **kw), reps=20,
+                                    cold=True))
+            bounds.append(owned_bound(table.tolist(), L, owned.tolist(), SHARD_PAGE, hkv, hq, 1,
+                                      d, False, window)[0])
+            plain.append(cuda_ms(lambda: dc.sage_paged_decode_attention_plain(*args, **kw),
+                                 reps=3, warmup=1))
+        wb, _ = decode_bound(L, hq, hkv, 1, d, False, window)
+        log(f"time {name} owned at b 1, 32/8, length {L[0]}, window {window}: shards "
+            f"{[round(x, 4) for x in shard_ms]} ms (bounds {[round(x, 4) for x in bounds]}, "
+            f"bytes; plain {[round(x, 3) for x in plain]}), the whole pool {whole_ms:.4f} ms "
+            f"(bound {wb:.4f})")
+        res = results[name + "_owned"]
+        res.update(ms=statistics.median(shard_ms), plain_ms=statistics.median(plain),
+                   bound_ms=statistics.median(bounds), bound_by="bytes", library_ms=None,
+                   shard_ms=shard_ms, shard_bound_ms=bounds, whole_pool_ms=whole_ms,
+                   whole_pool_bound_ms=wb,
+                   shape={"b": 1, "hq": hq, "hkv": hkv, "d": d, "pages": table.numel(),
+                          "page": SHARD_PAGE, "shards": SP, "length": L[0], "window": window})
+        times[name] = {"shard_ms": shard_ms, "whole_pool_ms": whole_ms}
+    del r, w
+    torch.cuda.empty_cache()
+    return {**out, "shards": SP, "pages_per_shard": pp, "kernel_times": times}
+
+
+def run_sharded_dense(results) -> dict:
+    """``sharded_dense``: the serving loop over dense caches split TP 2 (4 kv
+    heads a shard) x SP 2 (65,536 tokens a shard): each step each shard's
+    ``local_shard_append`` and ``local_shard_decode`` (kernel 9), merged
+    over SP and joined over TP (``serve_sharded``).  Then kernel 9 on each
+    shard and on the unsharded cache, timed L2 cold."""
+    import torch
+    from sageattention_tpu_torch.ops import decode_cuda as dc
+
+    hq, hkv, d = SHARD_LAYER["hq"], SHARD_LAYER["hkv"], SHARD_LAYER["d"]
+    tp, sp = 2, 2
+    s_local = SHARD_CTX // sp
+    r, w, launches, out = serve_sharded("sharded_dense", tp, sp, False,
+                                        lambda n: {"sage_decode": tp * sp * n})
+    results["sage_decode"].setdefault("launches_by_path", {})["sharded_dense"] = \
+        launches["sage_decode"]
+    glen = r["lengths"]
+    chunk = dc.dense_plan(s_local, hq // hkv, 1, 4096, None)[0]
+    qh = [slice(t * hq // tp, (t + 1) * hq // tp) for t in range(tp)]
+    q = serving_inputs(0, SHARD_STEPS, [(1, hq, 1, d)])[0]
+
+    def kernel(q, c, length):
+        return lambda: dc.sage_decode_attention(q, c.k_i8, c.k_scale, c.v_i8, c.v_scale, length,
+                                                chunk=chunk, return_state=True)
+
+    shard_ms = [cuda_ms(kernel(q[:, qh[t]], r["caches"][t * sp + s][0], glen - s * s_local),
+                        reps=20, cold=True) for t in range(tp) for s in range(sp)]
+    whole_ms = cuda_ms(kernel(q, w["caches"][0][0], glen), reps=20, cold=True)
+    bound, _ = decode_bound([s_local], hq // tp, hkv // tp, 1, d, False, None)
+    log(f"time sage_decode at a dense shard (b 1, 16/4 heads, {s_local} tokens): "
+        f"{[round(x, 4) for x in shard_ms]} ms (bound {bound:.4f}, bytes); the unsharded "
+        f"cache (32/8, {int(glen)} tokens) {whole_ms:.4f} ms")
+    del r, w
+    torch.cuda.empty_cache()
+    return {**out, "shard_kernel_ms": shard_ms, "shard_bound_ms": bound,
+            "unsharded_kernel_ms": whole_ms}
+
+
+def ring_world(q, k, v, causal: bool, n: int = SP):
+    """A world of ``n``'s ring run on one card, rank after rank and step after
+    step (``ring_step``, ``_merge``): the global (o, LSE) and the kinds of
+    steps taken."""
+    import torch
+    from sageattention_tpu_torch.parallel import ring
+
+    sl = q.shape[2] // n
+    blk = [slice(i * sl, (i + 1) * sl) for i in range(n)]
+    outs, lses, kinds = [], [], {"full": 0, "aligned": 0, "skipped": 0}
+    for idx in range(n):
+        qi = q[:, :, blk[idx]].contiguous()
+        o_acc, lse_acc = ring.init_state(qi)
+        for step in range(n):
+            src = (idx - step) % n
+            part = ring.ring_step(qi, k[:, :, blk[src]].contiguous(), v[:, :, blk[src]].contiguous(),
+                                  src=src, idx=idx, is_causal=causal)
+            kinds["skipped" if part is None else "aligned" if causal and src == idx
+                  else "full"] += 1
+            if part is not None:
+                o_acc, lse_acc = ring._merge(o_acc, lse_acc, part[0], part[1])
+        o, lse = ring.finish(o_acc, lse_acc, q.dtype, True)
+        outs.append(o)
+        lses.append(lse)
+    return torch.cat(outs, dim=2), torch.cat(lses, dim=2), kinds
+
+
+def run_ring(results) -> dict:
+    """``ring``: a world of 4's KV ring, its ranks and steps one after another
+    on the card, at the CogVideoX-2B layer (non-causal: 16 steps, each
+    kernels 2, 3 and 1 once) and the llm-8b-gqa prefill layer (1, 32/8,
+    32768, 128, causal: 4 aligned and 6 full steps, 6 skipped).  Held
+    against exact attention (>= 0.999, and no more than 1e-4 below the
+    cosine of ``sageattn`` of the whole sequence against it: the ring loses
+    no accuracy the whole op keeps) and against that whole op (>= 0.9999:
+    the two quantize the same attention independently, each block's K with
+    its own mean and scales, so they differ by about as much as either
+    differs from exact attention); its LSE against the whole op's within
+    0.1: the
+    blocks' K are quantized with their own means and scales, which moves a
+    score by a few hundredths where a causal row sees few keys, while an
+    LSE placed at another row or block is off by the log of a ratio of key
+    counts, O(1).  The same two ops through the plain versions on q heads
+    0-1 (on the host), the kernels' held to them at the kernel limit
+    (cosine >= 0.9999; ``tests/test_torch_ring_witness.py`` reads the JAX
+    ring's gap on the CPU).  Timed against the one ``sageattn``."""
+    import torch
+    from sageattention_tpu_torch import core
+    from sageattention_tpu_torch.ops import reference
+    from sageattention_tpu_torch.utils.compare import cosine_similarity
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(31)
+    out = {}
+    for name, b, hq, hkv, s, d, causal, steps in RING_LAYERS:
+        q = torch.randn(b, hq, s, d, generator=gen, device="cuda").to(torch.bfloat16)
+        k = (torch.randn(b, hkv, s, d, generator=gen, device="cuda") + 0.5).to(torch.bfloat16)
+        v = torch.randn(b, hkv, s, d, generator=gen, device="cuda").to(torch.bfloat16)
+        zero_counts()
+        o, lse, kinds = ring_world(q, k, v, causal)
+        torch.cuda.synchronize()
+        launches = sharded_launch_check(f"ring {name}", {n: steps for n in FORWARD})
+        for n in FORWARD:
+            results[n].setdefault("launches_by_path", {})[f"ring {name}"] = launches[n]
+        o_w, lse_w = core.sageattn(q, k, v, is_causal=causal, return_lse=True)
+        ex = reference.attention_reference(q, k, v, is_causal=causal)
+        of, exf = o.float().cpu(), ex.float().cpu()
+        cos_w = cosine_similarity(of, o_w.float().cpu())
+        cos_x = cosine_similarity(of, exf)
+        cos_wx = cosine_similarity(o_w.float().cpu(), exf)
+        lse_diff = (lse - lse_w).abs()
+        lse_err, lse_mean = lse_diff.max().item(), lse_diff.mean().item()
+        # the same two ops through the plain versions (CPU tensors) on q heads 0-1:
+        # the kernels' ring and whole op against them (the kernel limit, 0.9999),
+        # and how far the quantized arithmetic itself puts the ring from the whole op
+        h2 = (slice(0, 2), slice(0, max(1, 2 * hkv // hq)))
+        q2, k2, v2 = q[:, h2[0]].cpu(), k[:, h2[1]].cpu(), v[:, h2[1]].cpu()
+        o_p, o_wp = ring_world(q2, k2, v2, causal)[0].float(), core.sageattn(
+            q2, k2, v2, is_causal=causal).float()
+        ex2 = exf[:, h2[0]]
+        plain = {"ring_vs_whole": cosine_similarity(o_p, o_wp),
+                 "ring_vs_exact": cosine_similarity(o_p, ex2),
+                 "whole_vs_exact": cosine_similarity(o_wp, ex2),
+                 "kernel_ring_vs_plain_ring": cosine_similarity(of[:, h2[0]], o_p),
+                 "kernel_whole_vs_plain_whole": cosine_similarity(o_w[:, h2[0]].float().cpu(),
+                                                                  o_wp),
+                 "kernel_whole_vs_exact": cosine_similarity(o_w[:, h2[0]].float().cpu(), ex2)}
+        log(f"ring {name}, q heads 0-1 through the plain versions: " +
+            ", ".join(f"{n} {c:.7f}" for n, c in plain.items()))
+        ring_ms = cuda_ms(lambda: ring_world(q, k, v, causal), reps=5, warmup=1)
+        whole_ms = cuda_ms(lambda: core.sageattn(q, k, v, is_causal=causal), reps=5, warmup=1)
+        log(f"ring {name} ({b}, {hq}/{hkv}, {s}, {d}, causal {causal}): steps {kinds}; vs the "
+            f"whole sageattn cos {cos_w:.7f}, LSE max abs {lse_err:.3e} (mean {lse_mean:.3e}); "
+            f"vs exact cos {cos_x:.6f} (the whole sageattn's {cos_wx:.6f}); the world's steps "
+            f"in turn {ring_ms:.3f} ms, one sageattn "
+            f"{whole_ms:.3f} ms ({ring_ms / whole_ms:.3f}x)")
+        require(plain["kernel_ring_vs_plain_ring"] >= 0.9999
+                and plain["kernel_whole_vs_plain_whole"] >= 0.9999,
+                f"ring {name}: the kernels disagree with the plain versions")
+        require(kinds["full"] + kinds["aligned"] == steps
+                and kinds["skipped"] == SP * SP - steps, f"ring {name}: steps {kinds}")
+        require(cos_w >= 0.9999 and lse_err <= 0.1 and cos_x >= 0.999
+                and cos_x >= cos_wx - 1e-4,
+                f"ring {name}: the ring disagrees with the whole op or exact attention")
+        out[name] = {"shape": [b, hq, hkv, s, d], "causal": causal, "steps": kinds,
+                     "cos_vs_sageattn": cos_w, "lse_max_abs_vs_sageattn": lse_err,
+                     "lse_mean_abs_vs_sageattn": lse_mean,
+                     "cos_vs_exact": cos_x, "sageattn_cos_vs_exact": cos_wx, "plain": plain,
+                     "world_ms": ring_ms, "sageattn_ms": whole_ms,
+                     "launches": {n: c for n, c in launches.items() if c}}
+        del q, k, v, o, o_w, ex, of, exf
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_server_parallel(results, server_ms: float) -> dict:
+    """``server_parallel``: a world of one over NCCL (a ``FileStore`` in a
+    temporary directory, no port), ``make_mesh(1, 1, 1)``: the CogVideoX-2B
+    server through "sage_parallel" (``serve.serve_parallel``, 2 requests x
+    2 steps, kernels 1-3 once a layer a step) with its eps against "sage"
+    (cosine >= 0.9999), then the four sharded factories through the group
+    (``generate.sharded_serve``) at the ``sharded_paged`` geometry, paged
+    and dense, 32 layers, 4 steps."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from sageattention_tpu_torch import generate, models, serve
+    from sageattention_tpu_torch.parallel import make_mesh
+    from sageattention_tpu_torch.parallel.mesh import initialize_multihost
+    from sageattention_tpu_torch.utils.compare import cosine_similarity
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        initialize_multihost(world_size=1, rank=0, store=dist.FileStore(os.path.join(tmp, "store"), 1))
+        mesh = make_mesh(1, 1, 1)
+        x = torch.full((4,), 3.0, device="cuda")
+        dist.all_reduce(x, group=mesh.get_group("seq"))
+        torch.cuda.synchronize()
+        require(bool((x == 3.0).all()), "server_parallel: an NCCL all_reduce in a world of one")
+        log(f"server_parallel: backend {dist.get_backend()}, world {dist.get_world_size()}, mesh "
+            f"{mesh}")
+        cfg = serve.parallel_config(models.MODEL_CONFIGS["cogvideox-2b"].scaled(depth=SERVER_DEPTH),
+                                    mesh)
+        model = serve.load_model(cfg, device="cuda", seed=0)
+        requests = serve.make_requests(cfg, 2, device="cuda", seed=1)
+        serve.serve_parallel(model, requests[:1], 1, mesh)  # warm-up, not counted
+        zero_counts()
+        res = serve.serve_parallel(model, requests, 2, mesh)
+        launches = sharded_launch_check("server_parallel",
+                                        {n: SERVER_DEPTH * 4 for n in FORWARD})
+        for n in FORWARD:
+            results[n].setdefault("launches_by_path", {})["server_parallel"] = launches[n]
+        lat, txt = requests[0]
+        t = torch.tensor([500], device="cuda")
+        with torch.no_grad():
+            models.set_mesh(mesh)
+            models.set_attention_backend("sage_parallel")
+            eps_p = model(lat, txt, t)
+            models.set_attention_backend("sage")
+            models.set_mesh(None)
+            eps_s = model(lat, txt, t)
+        cos = cosine_similarity(eps_p.float().cpu(), eps_s.float().cpu())
+        med = statistics.median(res["step_ms"])
+        log(f"server_parallel: ms per step {[round(x, 3) for x in res['step_ms']]}, median "
+            f"{med:.3f} (server with 'sage' {server_ms:.3f}); eps vs 'sage' cos {cos:.7f}")
+        require(cos >= 0.9999 and all(bool(torch.isfinite(o).all()) for o in res["outputs"]),
+                "server_parallel: the 'sage_parallel' eps disagree with 'sage'")
+        out["server"] = {"step_ms": res["step_ms"], "median_step_ms": med,
+                         "server_median_step_ms": server_ms, "eps_cos_vs_sage": cos}
+        del model
+        torch.cuda.empty_cache()
+        for paged in (True, False):
+            path = f"sharded_serve_{'paged' if paged else 'dense'}"
+            zero_counts()
+            r = generate.sharded_serve(mesh, axis="seq", head_axis="heads", b=1, **SHARD_LAYER,
+                                       context=SHARD_CTX, gen=4, depth=LLM_DEPTH, paged=paged,
+                                       page_size=SHARD_PAGE, seed=5)
+            n = LLM_DEPTH * 4
+            want = ({"sage_paged_decode": n, "sage_paged_decode_owned": n} if paged
+                    else {"sage_decode": n})
+            launches = sharded_launch_check(f"server_parallel {path}", want)
+            require(all(bool(torch.isfinite(o).all()) for outs in r["outputs"] for o in outs)
+                    and r["lengths"].tolist() == [(SHARD_CTX - 4) // (SHARD_PAGE if paged else 1)
+                                                  * (SHARD_PAGE if paged else 1) + 4],
+                    f"server_parallel {path}: outputs not finite or lengths wrong")
+            log(f"server_parallel {path}: prefill {r['prefill_ms']:.3f} ms, ms per step "
+                f"{[round(x, 3) for x in r['step_ms']]}, cache {r['cache_bytes'] / 1e9:.2f} GB")
+            out[path] = {"prefill_ms": r["prefill_ms"], "step_ms": r["step_ms"],
+                         "cache_gb": r["cache_bytes"] / 1e9,
+                         "launches": {k: c for k, c in launches.items() if c}}
+            del r
+            torch.cuda.empty_cache()
+        dist.destroy_process_group()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -3401,6 +3893,8 @@ def main() -> int:
         results[name + "_hd256"] = {
             **results[name], "source": src + HD256_SOURCE.get(name, results[name]["source"]
                                                               .rsplit("/", 1)[1])}
+    for name in OWNED:  # kernels 11-12 over a shard of a sharded pool
+        results[name + "_owned"] = dict(results[name])
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     # the head-dim-256 phases draw from a generator of their own, so that
@@ -3425,6 +3919,12 @@ def main() -> int:
     sweep["seed_spread"] = sweep_seed_spread(sweep["failed"])
     log(f"Q/K option checks and accuracy sweep: {time.perf_counter() - t_q:.1f} s")
     check_decode(gen, results)
+    # the parallel slice's kernel check draws from a generator of its own
+    gen_par = torch.Generator(device="cuda")
+    gen_par.manual_seed(9)
+    t_o = time.perf_counter()
+    parallel = {"owned": check_owned(gen_par, results)}
+    log(f"owned checks: {time.perf_counter() - t_o:.1f} s")
     t_h = time.perf_counter()
     check_hd256_quant(gen256, results)
     hd256 = {"attention": check_hd256_attention(gen256, results),
@@ -3465,6 +3965,14 @@ def main() -> int:
     t_phase = time.perf_counter()
     hd256["trainer"] = run_hd256_train(results)
     log(f"head dim 256 trainer phase: {time.perf_counter() - t_phase:.1f} s")
+    for name, fn in (("sharded_paged", run_sharded_paged), ("sharded_dense", run_sharded_dense),
+                     ("ring", run_ring)):
+        t_phase = time.perf_counter()
+        parallel[name] = fn(results)
+        log(f"{name} phase: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    parallel["server_parallel"] = run_server_parallel(results, servers["server"]["median_step_ms"])
+    log(f"server_parallel phase: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     time_kernels(gen, results)
     time_quant_v(gen, results)
@@ -3476,17 +3984,22 @@ def main() -> int:
     hd256["times"] = time_hd256(gen256, results)
     log(f"timing phase: {time.perf_counter() - t_phase:.1f} s")
 
-    # a head-dim-256 instance that no path of this run launches (it is
-    # checked and timed only) goes inside its kernel's entry
+    # a head-dim-256 instance, or kernel 12 with owned, that no path of this
+    # run launches (it is checked and timed only) goes inside its kernel's entry
+    nested = {"_hd256": "hd256", "_owned": "owned"}
     for name in [n for n in results if n not in MAIN_PATH]:
         r = results.pop(name)
-        results[name.removesuffix("_hd256")]["hd256"] = {**r, "main_path": None}
-    kernels = []
+        sfx = next(x for x in nested if name.endswith(x))
+        results[name.removesuffix(sfx)][nested[sfx]] = {**r, "main_path": None}
     for name, r in results.items():
         # each kernel's launches on the main path that runs it (MAIN_PATH);
         # launches_by_path has every path's
         r["launches"] = r["launches_by_path"][MAIN_PATH[name]]
-        kernels.append({"name": name, **r, "max_err": r["max_abs_err"]})
+    # kernel 11's owned launches (sharded_paged) sit in its entry too
+    for name in [n for n in results if n.endswith("_owned")]:
+        r = results.pop(name)
+        results[name.removesuffix("_owned")]["owned"] = {**r, "main_path": MAIN_PATH[name]}
+    kernels = [{"name": name, **r, "max_err": r["max_abs_err"]} for name, r in results.items()]
     log(json.dumps({"servers": servers}))
     log(json.dumps({"llm_servers": llm}))
     log(json.dumps({"train": trainer}))
@@ -3495,6 +4008,7 @@ def main() -> int:
     log(json.dumps({"bias": bias}))
     log(json.dumps({"qopts": {"accuracy_sweep": sweep, "times": qopts_times}}))
     log(json.dumps({"hd256": hd256}))
+    log(json.dumps({"parallel": parallel}))
     require(not sweep["failed"], f"accuracy sweep: {sweep['failed']}")
     log(json.dumps({"kernels": kernels}))
     log(f"card: {card}")

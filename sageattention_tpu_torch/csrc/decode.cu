@@ -48,7 +48,7 @@ sage_decode_kernel(const float* __restrict__ q, const int8_t* __restrict__ k,
   decode::decode_cta<D, MW, PACKED, WINDOW>(
       q + bh * rows * ds, o + bh * rows * ds, m_out ? m_out + bh * rows : nullptr,
       l_out ? l_out + bh * rows : nullptr, rows, t_q, lengths[bi], C, S / C, window, n_live,
-      qs_mul, ds, chunk_at);
+      qs_mul, ds, chunk_at, [](int) { return true; });
 }
 
 struct Args {

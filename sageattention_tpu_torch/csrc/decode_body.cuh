@@ -255,11 +255,14 @@ __device__ inline uint32_t slab_scores(float (&sf)[4][4], const int8_t* sQ, cons
 // of this (batch, kv head), ds <= D the cache's head dim; m_out / l_out
 // [rows] or null; chunk_at(ci) gives chunk ci's operands.  n_total chunks of
 // C tokens; with a window only the n_live chunks from the window's first one.
-template <int D, int MW, bool PACKED, bool WINDOW, typename ChunkAt>
+// live_at(ci) false skips chunk ci before anything of it is read (a page
+// another shard of a sharded pool owns); the dense kernels pass a functor
+// that is always true.
+template <int D, int MW, bool PACKED, bool WINDOW, typename ChunkAt, typename LiveAt>
 __device__ void decode_cta(const float* __restrict__ q, float* __restrict__ o,
                            float* __restrict__ m_out, float* __restrict__ l_out, int rows,
                            int t_q, int length, int C, int n_total, int window, int n_live,
-                           float qs_mul, int ds, ChunkAt chunk_at) {
+                           float qs_mul, int ds, ChunkAt chunk_at, LiveAt live_at) {
   using L = Shape<D, MW, PACKED>;
   constexpr int RT = L::RT, CW = L::CW;
   constexpr float QMAX = PACKED ? 119.f : 127.f;
@@ -334,6 +337,7 @@ __device__ void decode_cta(const float* __restrict__ q, float* __restrict__ o,
   for (int gi = 0; gi < count; ++gi) {
     const int ci = start + gi;
     if ((long long)ci * C >= length) break;  // chunks past the length are never read
+    if (!live_at(ci)) continue;              // nor are chunks the caller masks out
     const int base = ci * C;
     const Chunk ch = chunk_at(ci);
     // the slabs that hold a visible key: below the length and, with a

@@ -9,7 +9,17 @@
 // as scalars ahead of the grid, each block here reads its own length and
 // its pages' ids from device memory.  The TPU's pairing of two pages per
 // grid step (`pair`) tunes its step overhead and changes no number; it has
-// no counterpart here.  The sharded-pool mask (`owned`) is not ported.
+// no counterpart here.
+//
+// The sharded pool (`owned`, paged_decode_pallas.py:99-100, :151-152): a
+// shard of a pool split over ranks passes an int32 [b, max_pages] mask of
+// the logical pages it holds and asks for the (m, l) merge state.  A page
+// whose mask is 0 is skipped before its table entry is read, so it costs
+// neither bytes nor compute; a row with no owned live page ends with o = 0,
+// m = NEG_INIT and l = 0, and weighs nothing in the merge.  The TPU's
+// forward-filled local table exists to let its pipeline elide the DMAs of
+// unowned grid steps; here the skip alone does that.  The lengths stay
+// global: owned pages are global logical pages.
 //
 // Grid: (row tiles, kv heads, batch).  Pages past the length are neither
 // read nor computed; entries of the table past it may hold any valid id.
@@ -30,7 +40,8 @@ __global__ void __launch_bounds__(decode::NTHREADS)
 sage_paged_decode_kernel(const float* __restrict__ q, const int8_t* __restrict__ pk,
                          const float* __restrict__ pks, const int8_t* __restrict__ pv,
                          const float* __restrict__ pvs, const int* __restrict__ table,
-                         const int* __restrict__ lengths, float* __restrict__ o,
+                         const int* __restrict__ owned, const int* __restrict__ lengths,
+                         float* __restrict__ o,
                          float* __restrict__ m_out, float* __restrict__ l_out, int hkv, int rows,
                          int t_q, int page, int max_pages, int window, int n_live,
                          float qs_mul, int ds) {
@@ -38,6 +49,7 @@ sage_paged_decode_kernel(const float* __restrict__ q, const int8_t* __restrict__
   const size_t bh = (size_t)bi * hkv + hk;
   const int page_rows = PACKED ? page / 2 : page;  // data rows of one page
   const int* pt = table + (size_t)bi * max_pages;
+  const int* own = owned == nullptr ? nullptr : owned + (size_t)bi * max_pages;
   auto chunk_at = [=](int p) {
     const size_t ph = (size_t)pt[p] * hkv + hk;  // the page's (page, kv head) slab
     return Chunk{pk + ph * page_rows * ds, pks + ph * page, pv + ph * page_rows * ds,
@@ -46,14 +58,14 @@ sage_paged_decode_kernel(const float* __restrict__ q, const int8_t* __restrict__
   decode::decode_cta<D, MW, PACKED, WINDOW>(
       q + bh * rows * ds, o + bh * rows * ds, m_out ? m_out + bh * rows : nullptr,
       l_out ? l_out + bh * rows : nullptr, rows, t_q, lengths[bi], page, max_pages, window,
-      n_live, qs_mul, ds, chunk_at);
+      n_live, qs_mul, ds, chunk_at, [=](int p) { return own == nullptr || own[p] != 0; });
 }
 
 struct Args {
   const float* q;
   const int8_t *k, *v;
   const float *ks, *vs;
-  const int *table, *lengths;
+  const int *table, *owned, *lengths;
   float *o, *m, *l;
   int b, hkv, rows, t_q, page, max_pages, window, n_live;
   float qs_mul;
@@ -68,9 +80,10 @@ int launch(const Args& a, cudaStream_t st) {
   if (e != 0) return e;
   constexpr int RT = decode::Shape<D, MW, PACKED>::RT;
   dim3 grid((a.rows + RT - 1) / RT, a.hkv, a.b);
-  kern<<<grid, decode::NTHREADS, smem, st>>>(a.q, a.k, a.ks, a.v, a.vs, a.table, a.lengths, a.o,
-                                             a.m, a.l, a.hkv, a.rows, a.t_q, a.page, a.max_pages,
-                                             a.window, a.n_live, a.qs_mul, a.ds);
+  kern<<<grid, decode::NTHREADS, smem, st>>>(a.q, a.k, a.ks, a.v, a.vs, a.table, a.owned,
+                                             a.lengths, a.o, a.m, a.l, a.hkv, a.rows, a.t_q,
+                                             a.page, a.max_pages, a.window, a.n_live, a.qs_mul,
+                                             a.ds);
   return (int)cudaGetLastError();
 }
 
@@ -92,16 +105,18 @@ int dispatch(int d, int packed, const Args& a, cudaStream_t st) {
 }
 
 int checked(const void* q, const void* pk, const void* pks, const void* pv, const void* pvs,
-            const void* table, const void* lengths, void* o, void* m, void* l, int b, int hkv,
-            int rows, int t_q, int page, int max_pages, int d, int packed, int window, int n_live,
-            float qs_mul, void* stream, bool windowed) {
+            const void* table, const void* owned, const void* lengths, void* o, void* m, void* l,
+            int b, int hkv, int rows, int t_q, int page, int max_pages, int d, int packed,
+            int window, int n_live, float qs_mul, void* stream, bool windowed) {
+  // a shard's partial (owned) is only meaningful with its merge state
   if (d <= 0 || d > 256 || d % 16 != 0 || page <= 0 || (packed && page % 2 != 0) || max_pages <= 0 ||
       t_q <= 0 || rows <= 0 || (windowed && (window <= 0 || n_live <= 0 || n_live > max_pages)) ||
-      ((m == nullptr) != (l == nullptr)))
+      ((m == nullptr) != (l == nullptr)) || (owned != nullptr && m == nullptr))
     return (int)cudaErrorInvalidValue;
   const Args a{(const float*)q, (const int8_t*)pk, (const int8_t*)pv, (const float*)pks,
-               (const float*)pvs, (const int*)table, (const int*)lengths, (float*)o, (float*)m,
-               (float*)l, b, hkv, rows, t_q, page, max_pages, window, n_live, qs_mul, d};
+               (const float*)pvs, (const int*)table, (const int*)owned, (const int*)lengths,
+               (float*)o, (float*)m, (float*)l, b, hkv, rows, t_q, page, max_pages, window,
+               n_live, qs_mul, d};
   cudaStream_t st = (cudaStream_t)stream;
   return windowed ? dispatch<true>(d, packed, a, st) : dispatch<false>(d, packed, a, st);
 }
@@ -111,25 +126,26 @@ int checked(const void* q, const void* pk, const void* pks, const void* pv, cons
 // q: fp32 [b, hkv, rows, d] (rows = GQA group x t_q, head-major); pk, pv:
 // the page pool, int8 [P, hkv, page, d] or token-pair-packed [P, hkv,
 // page/2, d]; pks, pvs: fp32 [P, hkv, page]; table: int32 [b, max_pages]
-// physical page ids; lengths: int32 [b]; o: fp32 [b, hkv, rows, d]; m, l:
-// fp32 [b, hkv, rows] or both NULL.  All contiguous; d as sage_decode's;
-// qs_mul as sage_decode's.
+// physical page ids; owned: int32 [b, max_pages] (0: a page this shard does
+// not hold) or NULL (every page); lengths: int32 [b]; o: fp32 [b, hkv, rows,
+// d]; m, l: fp32 [b, hkv, rows] or both NULL (not with owned).  All
+// contiguous; d as sage_decode's; qs_mul as sage_decode's.
 extern "C" int sage_paged_decode(const void* q, const void* pk, const void* pks, const void* pv,
-                                 const void* pvs, const void* table, const void* lengths, void* o,
-                                 void* m, void* l, int b, int hkv, int rows, int t_q, int page,
-                                 int max_pages, int d, int packed, int window, int n_live,
-                                 float qs_mul, void* stream) {
-  return checked(q, pk, pks, pv, pvs, table, lengths, o, m, l, b, hkv, rows, t_q, page, max_pages,
-                 d, packed, 0, 0, qs_mul, stream, false);
+                                 const void* pvs, const void* table, const void* owned,
+                                 const void* lengths, void* o, void* m, void* l, int b, int hkv,
+                                 int rows, int t_q, int page, int max_pages, int d, int packed,
+                                 int window, int n_live, float qs_mul, void* stream) {
+  return checked(q, pk, pks, pv, pvs, table, owned, lengths, o, m, l, b, hkv, rows, t_q, page,
+                 max_pages, d, packed, 0, 0, qs_mul, stream, false);
 }
 
 // as sage_paged_decode, over only the n_live pages the window reaches
 extern "C" int sage_paged_decode_window(const void* q, const void* pk, const void* pks,
                                         const void* pv, const void* pvs, const void* table,
-                                        const void* lengths, void* o, void* m, void* l, int b,
-                                        int hkv, int rows, int t_q, int page, int max_pages, int d,
-                                        int packed, int window, int n_live, float qs_mul,
-                                        void* stream) {
-  return checked(q, pk, pks, pv, pvs, table, lengths, o, m, l, b, hkv, rows, t_q, page, max_pages,
-                 d, packed, window, n_live, qs_mul, stream, true);
+                                        const void* owned, const void* lengths, void* o, void* m,
+                                        void* l, int b, int hkv, int rows, int t_q, int page,
+                                        int max_pages, int d, int packed, int window, int n_live,
+                                        float qs_mul, void* stream) {
+  return checked(q, pk, pks, pv, pvs, table, owned, lengths, o, m, l, b, hkv, rows, t_q, page,
+                 max_pages, d, packed, window, n_live, qs_mul, stream, true);
 }

@@ -6,7 +6,10 @@ takes converted ones), ``prefill`` writes a prompt into the quantized
 caches (one shot, or in extend blocks through the decode path),
 ``decode_step`` feeds one token a sequence, and ``generate`` runs greedy
 generation over a dense or a paged cache, timing each phase with CUDA
-events on the card (the host clock on the CPU).  Everything runs under
+events on the card (the host clock on the CPU).  ``serve_shards`` is the
+loop of ``examples/sharded_serving.py``: the caches of a model's layers
+sharded TP x SP (``parallel.decode``), over a mesh (``sharded_serve``) or
+every shard in turn in one process.  Everything runs under
 ``torch.inference_mode()``.
 
 Entry points that build state default to ``device="cuda"`` and raise when
@@ -15,7 +18,10 @@ no GPU is present, unless the caller passes ``device="cpu"``.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import time
+from typing import Callable
 
 import torch
 
@@ -131,3 +137,193 @@ def generate(model: CausalLM, tokens: torch.Tensor, gen: int, *, cache: str = "d
     return {"tokens": torch.cat(out, dim=1), "prefill_ms": prefill_ms, "step_ms": step_ms,
             "tokens_per_s": b * gen / (sum(step_ms) / 1e3) if gen else 0.0,
             "logits": logits, "device": name}
+
+
+def serving_draw(seed: int, layer: int, step: int, shapes, device, dtype=torch.bfloat16):
+    """The seeded global tensors of :func:`sharded_serve`: one normal tensor
+    of each shape in ``shapes`` for (layer, step), step -1 being the prompt.
+    Every rank draws the same ones."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed * 1_000_003 + layer * 10_007 + step + 1)
+    return [torch.randn(sh, generator=g, device=device).to(dtype) for sh in shapes]
+
+
+@dataclasses.dataclass
+class ShardOps:
+    """One (kv-head, sequence) shard of :func:`serve_shards`' caches and the
+    functions that write and read it: ``prefill`` and ``append`` are
+    ``(cache, lengths, k, v) -> (cache, lengths)``, ``decode`` is ``(q,
+    cache, lengths)`` -> o, or the shard's partial (o, m, l) for
+    :func:`serve_shards` to merge."""
+
+    head: int
+    seq: int
+    prefill: Callable
+    append: Callable
+    decode: Callable
+
+
+def local_shard_ops(*, head: int = 0, seq: int = 0, n_seq: int = 1, paged: bool = False,
+                    window: int | None = None, sharded: bool = True) -> ShardOps:
+    """The ops of shard (``head``, ``seq``) of ``n_seq`` sequence shards for
+    a process that runs many shards itself: ``parallel.decode``'s local
+    bodies, whose partials :func:`serve_shards` merges.  ``sharded=False``:
+    the unsharded cache (one shard) through the plain appends and decode
+    entry points, its output fp32 as a merge gives it, a dense decode at
+    the chunk of ``n_seq`` shards (the merge equals an unsharded decode
+    only at the same chunk)."""
+    from sageattention_tpu_torch import kvcache
+    from sageattention_tpu_torch.ops.decode_cuda import dense_plan
+    from sageattention_tpu_torch.parallel import decode as pd
+
+    f32 = torch.float32
+    if not sharded:
+        if paged:
+            return ShardOps(0, 0, lambda c, n, k, v: kvcache.paged_prefill(c, k, v),
+                            kvcache.paged_append,
+                            lambda q, c, n: kvcache.sageattn_paged_decode(
+                                q, c, n, window=window, out_dtype=f32))
+
+        def chunk(q, c):  # the chunk of ``n_seq`` shards': a merge equals this decode
+            t_q = q.shape[2]
+            rows = q.shape[1] // c.k_i8.shape[1] * t_q
+            return dense_plan(c.max_len // n_seq, rows, t_q, 4096, window)[0]
+
+        return ShardOps(0, 0, kvcache.append_kv, kvcache.append_kv,
+                        lambda q, c, n: kvcache.sageattn_decode(
+                            q, c, n, window=window, chunk=chunk(q, c), out_dtype=f32))
+    if paged:
+        def start(c):
+            return seq * c.pages_k.shape[0]
+
+        return ShardOps(head, seq,
+                        lambda c, n, k, v: kvcache.paged_prefill(c, k, v, pool_start=start(c)),
+                        lambda c, n, k, v: kvcache.paged_append(c, n, k, v,
+                                                                pool_start=start(c)),
+                        lambda q, c, n: pd.local_paged_shard_decode(q, c, n, shard=seq,
+                                                                    window=window))
+    write = functools.partial(pd.local_shard_append, shard=seq, n_shards=n_seq)
+    return ShardOps(head, seq, write, write,
+                    lambda q, c, n: pd.local_shard_decode(q, c, n, shard=seq, window=window))
+
+
+def _join(shards, outs):
+    """The shards' decode outputs as one tensor: partials (o, m, l) merged
+    over the sequence shards, joined over the kv-head shards."""
+    from sageattention_tpu_torch.ops.decode_cuda import merge_decode_partials
+
+    cols = []
+    for h in sorted({s.head for s in shards}):
+        parts = [o for s, o in zip(shards, outs) if s.head == h]
+        if isinstance(parts[0], tuple):
+            cols.append(merge_decode_partials(*(torch.stack(x) for x in zip(*parts))))
+        else:
+            cols.append(parts[0])
+    return torch.cat(cols, dim=1)
+
+
+@torch.inference_mode()
+def serve_shards(shards: list[ShardOps], *, tp: int = 1, sp: int = 1, b: int = 1,
+                 hq: int = 8, hkv: int = 4, d: int = 128, context: int = 8192, gen: int = 8,
+                 depth: int = 1, bits: int = 8, paged: bool = False, page_size: int = 256,
+                 seed: int = 0, device="cuda") -> dict:
+    """The serving loop over ``depth`` independent attention layers whose
+    quantized caches are split TP ``tp`` (kv heads) x SP ``sp`` (sequence,
+    or the page pool), this process holding ``shards``: one on a mesh
+    (:func:`sharded_serve`), or every shard in turn on one card.  A prompt of
+    ``context - gen`` tokens (whole pages when ``paged``) is written by each
+    shard's ``prefill``, then each of ``gen`` steps appends one token and
+    decodes one query a layer.  The inputs are :func:`serving_draw`'s, the
+    same for every shard, cut to its heads; the page table is a seeded
+    permutation.
+
+    Returns {"outputs": [step][layer] decode outputs of this process's query
+    heads, "caches": [shard][layer], "table" (paged), "lengths",
+    "prefill_ms", "step_ms", "cache_bytes" (the shards' code bytes),
+    "device"}."""
+    from sageattention_tpu_torch import kvcache
+
+    dev = resolve_device(device)
+    if hkv % tp or context % sp:
+        raise ValueError(f"kv heads {hkv} / context {context} must divide by tp {tp} / sp {sp}")
+
+    def heads(n, t):
+        return slice(t * n // tp, (t + 1) * n // tp)
+
+    prompt = context - gen
+    table = None
+    if paged:
+        prompt = prompt // page_size * page_size
+        n_pg = b * (context // page_size)
+        if context % page_size or n_pg % sp:
+            raise ValueError(f"{n_pg} pages of {page_size} do not split {sp} ways")
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        table = torch.randperm(n_pg, generator=g, device=dev).reshape(b, -1).int()
+    zeros = torch.zeros(b, dtype=torch.int32, device=dev)
+    clock = _Clock(dev)
+    caches, prefill_ms = [[] for _ in shards], 0.0
+    for layer in range(depth):
+        k, v = serving_draw(seed, layer, -1, [(b, hkv, prompt, d)] * 2, dev)
+        for sh, layers in zip(shards, caches):
+            ks, vs = k[:, heads(hkv, sh.head)], v[:, heads(hkv, sh.head)]
+            if paged:
+                cache = kvcache.init_paged_kv_cache(n_pg // sp, hkv // tp, d, table,
+                                                    page_size=page_size, bits=bits, device=dev)
+            else:
+                cache = kvcache.init_kv_cache(b, hkv // tp, context // sp, d, bits=bits,
+                                              device=dev)
+            if bits == 4:
+                cache = kvcache.calibrate(cache, ks, vs)
+            t0 = clock.start()
+            cache, lengths = sh.prefill(cache, zeros, ks, vs)
+            prefill_ms += clock.ms(t0)
+            layers.append(cache)
+    step_ms, outputs = [], []
+    for step in range(gen):
+        t0 = clock.start()
+        outs = []
+        for layer in range(depth):
+            q, k_new, v_new = serving_draw(seed, layer, step, [(b, hq, 1, d), (b, hkv, 1, d),
+                                                               (b, hkv, 1, d)], dev)
+            for sh, layers in zip(shards, caches):
+                kh = heads(hkv, sh.head)
+                layers[layer], new_len = sh.append(layers[layer], lengths, k_new[:, kh],
+                                                   v_new[:, kh])
+            outs.append(_join(shards, [sh.decode(q[:, heads(hq, sh.head)], layers[layer],
+                                                 new_len)
+                                       for sh, layers in zip(shards, caches)]))
+        lengths = new_len
+        step_ms.append(clock.ms(t0))
+        outputs.append(outs)
+    code = "pages_k" if paged else "k_i8"
+    return {"outputs": outputs, "caches": caches, "table": table, "lengths": lengths,
+            "prefill_ms": prefill_ms, "step_ms": step_ms,
+            "cache_bytes": sum(2 * getattr(c, code).numel() for ls in caches for c in ls),
+            "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"}
+
+
+def sharded_serve(mesh, *, axis: str = "seq", head_axis: str | None = "heads",
+                  window: int | None = None, paged: bool = False, **kw) -> dict:
+    """:func:`serve_shards` on ``mesh``: the sequence (or the page pool)
+    split over ``axis``, the kv heads over ``head_axis``; this rank holds
+    its own shard, written and read through the four sharded factories
+    (``parallel.make_sharded_*``), and gets the merged output of its query
+    heads.  The tensors live on the mesh's device type."""
+    from sageattention_tpu_torch import parallel
+    from sageattention_tpu_torch.parallel.mesh import axis_info
+
+    _, tp, ti = axis_info(mesh, head_axis)
+    _, sp, si = axis_info(mesh, axis)
+    axes = dict(axis=axis, head_axis=head_axis)
+    if paged:
+        ops = ShardOps(ti, si, parallel.make_sharded_paged_append(mesh, **axes, prefill=True),
+                       parallel.make_sharded_paged_append(mesh, **axes),
+                       parallel.make_sharded_paged_decode(mesh, **axes, window=window))
+    else:
+        append = parallel.make_sharded_append(mesh, **axes)
+        ops = ShardOps(ti, si, append, append,
+                       parallel.make_sharded_decode(mesh, **axes, window=window))
+    device = (torch.device("cuda", torch.cuda.current_device()) if mesh.device_type == "cuda"
+              else "cpu")
+    return serve_shards([ops], tp=tp, sp=sp, paged=paged, device=device, **kw)

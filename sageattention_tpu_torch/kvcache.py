@@ -183,14 +183,17 @@ def append_kv(cache: QuantKVCache, lengths: torch.Tensor, k_new: torch.Tensor,
 
 def sageattn_decode(q: torch.Tensor, cache: QuantKVCache, lengths: torch.Tensor, *,
                     sm_scale: float | None = None, chunk: int = 4096,
-                    window: int | None = None, return_state: bool = False):
+                    window: int | None = None, return_state: bool = False,
+                    out_dtype: torch.dtype | None = None):
     """Decode attention of q [b, hq, t_q, d] against the cache, ``lengths``
     counting the new tokens (append them first).  t_q > 1 gets the causal
     tail; ``window`` reads only the chunks the sliding window reaches.
-    ``return_state`` adds the (m, l) merge state."""
+    ``return_state`` adds the (m, l) merge state.  o is in ``out_dtype``
+    (default q's)."""
     res = decode_cuda.sage_decode_attention(
         q, cache.k_i8, cache.k_scale, cache.v_i8, cache.v_scale, lengths,
         sm_scale=sm_scale, chunk=chunk, window=window, return_state=return_state,
+        out_dtype=out_dtype,
     )
     o = res[0] if return_state else res
     o = _vmean_addback(o, lengths, cache.v_mean)
@@ -243,22 +246,47 @@ def init_paged_kv_cache(num_pages: int, h_kv: int, head_dim: int, page_table: to
     )
 
 
+def _owned_rows(phys: torch.Tensor, n_pool: int, pool_start: int | None):
+    """Pool-local page ids and, for a shard of a pool split over ranks
+    (``pool_start`` its first global page id), the mask of the rows whose
+    page it holds.  Torch indexing wraps a negative index and has no
+    "drop" mode, so a shard writes the masked rows only."""
+    if pool_start is None:
+        return phys, None
+    phys = phys - pool_start
+    return phys, (phys >= 0) & (phys < n_pool)
+
+
+def _put(pool: torch.Tensor, idx: tuple, rows: torch.Tensor, keep) -> None:
+    """``pool[idx] = rows``, or only the rows ``keep`` marks."""
+    if keep is None:
+        pool[idx] = rows
+    else:
+        pool[tuple(i if isinstance(i, slice) else i[keep] for i in idx)] = rows[keep]
+
+
 def paged_append(cache: PagedKVCache, lengths: torch.Tensor, k_new: torch.Tensor,
-                 v_new: torch.Tensor):
+                 v_new: torch.Tensor, pool_start: int | None = None):
     """Quantize and write t tokens a sequence at ``lengths``, following the
     page table across page boundaries, in place.  Appends past the table's
     span clamp to its end and overwrite the tail, as in JAX.  Returns
-    (cache, lengths + t).  The table's entries must be valid page ids."""
+    (cache, lengths + t).  The table's entries must be valid page ids.
+
+    ``pool_start``: when the pool is one shard of a pool split over ranks
+    (``parallel.decode``), its first global page id.  The table keeps global
+    ids; a row whose page another shard holds is dropped, so every token
+    lands on exactly one shard, bit-identically to the global pool."""
     page = cache.page_size
     k_q, k_s = quant_calibrated(k_new, cache.k_mean, cache.bits)
     v_q, v_s = quant_calibrated(v_new, cache.v_mean, cache.bits)
     b, h, t, d = k_q.shape
     dev = k_new.device
     table = cache.page_table.to(torch.int64)
+    n_pool = cache.pages_k.shape[0]
     span = table.shape[1] * page
     start = lengths.to(torch.int64).clamp_max(span - t)
     pos = start[:, None] + torch.arange(t, device=dev)             # [b, t]
-    phys = torch.gather(table, 1, pos // page)                     # [b, t]
+    phys, keep = _owned_rows(torch.gather(table, 1, pos // page), n_pool, pool_start)
     off = pos % page
 
     if cache.bits == 4:
@@ -267,36 +295,41 @@ def paged_append(cache: PagedKVCache, lengths: torch.Tensor, k_new: torch.Tensor
         nb = min(t // 2 + 1, span // 2)
         b0 = (start // 2).clamp(0, span // 2 - nb)                 # [b]
         tok0 = 2 * (b0[:, None] + torch.arange(nb, device=dev))    # [b, nb]
-        bphys = torch.gather(table, 1, tok0 // page)
+        bphys, bkeep = _owned_rows(torch.gather(table, 1, tok0 // page), n_pool, pool_start)
+        gphys = bphys.clamp(0, n_pool - 1)  # the bytes another shard holds are read, not kept
         brow = (tok0 % page) // 2
         gpos = (tok0[:, :, None] + torch.arange(2, device=dev)).reshape(b, 2 * nb)
         j = gpos - start[:, None]
         use = (j >= 0) & (j < t)
         for pool, rows in ((cache.pages_k, k_q), (cache.pages_v, v_q)):
-            old = pool[bphys, :, brow].permute(0, 2, 1, 3)         # [b, h, nb, d]
+            old = pool[gphys, :, brow].permute(0, 2, 1, 3)         # [b, h, nb, d]
             toks = unpack_token_pairs(old)
             new = torch.gather(rows, 2, j.clamp(0, t - 1)[:, None, :, None].expand(b, h, 2 * nb, d))
             merged = torch.where(use[:, None, :, None], new, toks)
-            pool[bphys, :, brow] = pack_token_pairs(merged).permute(0, 2, 1, 3)
+            _put(pool, (bphys, slice(None), brow), pack_token_pairs(merged).permute(0, 2, 1, 3),
+                 bkeep)
     else:
-        cache.pages_k[phys, :, off] = k_q.permute(0, 2, 1, 3)
-        cache.pages_v[phys, :, off] = v_q.permute(0, 2, 1, 3)
-    cache.pages_k_scale[phys, :, off] = k_s.permute(0, 2, 1)
-    cache.pages_v_scale[phys, :, off] = v_s.permute(0, 2, 1)
+        _put(cache.pages_k, (phys, slice(None), off), k_q.permute(0, 2, 1, 3), keep)
+        _put(cache.pages_v, (phys, slice(None), off), v_q.permute(0, 2, 1, 3), keep)
+    _put(cache.pages_k_scale, (phys, slice(None), off), k_s.permute(0, 2, 1), keep)
+    _put(cache.pages_v_scale, (phys, slice(None), off), v_s.permute(0, 2, 1), keep)
     return cache, lengths + t
 
 
-def paged_prefill(cache: PagedKVCache, k: torch.Tensor, v: torch.Tensor):
+def paged_prefill(cache: PagedKVCache, k: torch.Tensor, v: torch.Tensor,
+                  pool_start: int | None = None):
     """Bulk-load empty sequences page by page through the table, in place:
     t (a multiple of the page size) tokens a sequence.  Returns (cache,
-    lengths = t)."""
+    lengths = t).  ``pool_start`` as in :func:`paged_append`: a shard writes
+    only the pages it holds."""
     page = cache.page_size
     b, h, t, _ = k.shape
     assert t % page == 0, (t, page)
     n_used = t // page
     k_q, k_s = quant_calibrated(k, cache.k_mean, cache.bits)
     v_q, v_s = quant_calibrated(v, cache.v_mean, cache.bits)
-    ids = cache.page_table[:, :n_used].reshape(-1).to(torch.int64)
+    ids, keep = _owned_rows(cache.page_table[:, :n_used].reshape(-1).to(torch.int64),
+                            cache.pages_k.shape[0], pool_start)
 
     def pages(rows):
         # [b, h, n_used * rpp, (d)] -> [b * n_used, h, rpp, (d)]
@@ -304,23 +337,26 @@ def paged_prefill(cache: PagedKVCache, k: torch.Tensor, v: torch.Tensor):
         return r.transpose(1, 2).reshape(b * n_used, h, *r.shape[3:])
 
     packed = pack_token_pairs if cache.bits == 4 else (lambda x: x)
-    cache.pages_k[ids] = pages(packed(k_q))
-    cache.pages_v[ids] = pages(packed(v_q))
-    cache.pages_k_scale[ids] = pages(k_s)
-    cache.pages_v_scale[ids] = pages(v_s)
+    _put(cache.pages_k, (ids,), pages(packed(k_q)), keep)
+    _put(cache.pages_v, (ids,), pages(packed(v_q)), keep)
+    _put(cache.pages_k_scale, (ids,), pages(k_s), keep)
+    _put(cache.pages_v_scale, (ids,), pages(v_s), keep)
     return cache, torch.full((b,), t, dtype=torch.int32, device=k.device)
 
 
 def sageattn_paged_decode(q: torch.Tensor, cache: PagedKVCache, lengths: torch.Tensor, *,
-                          owned=None, sm_scale: float | None = None,
-                          window: int | None = None, return_state: bool = False):
+                          owned: torch.Tensor | None = None,
+                          sm_scale: float | None = None, window: int | None = None,
+                          return_state: bool = False, out_dtype: torch.dtype | None = None):
     """Decode attention through the page table: the query semantics of
-    :func:`sageattn_decode`, one page a chunk.  ``owned`` (the sharded
-    pool) raises NotImplementedError."""
+    :func:`sageattn_decode`, one page a chunk.  ``owned``: for a shard of a
+    pool split over ranks (``parallel.decode``), the [b, max_pages] mask of
+    the logical pages it contributes (with ``return_state=True``, for the
+    exact merge)."""
     res = decode_cuda.sage_paged_decode_attention(
         q, cache.pages_k, cache.pages_k_scale, cache.pages_v, cache.pages_v_scale,
         cache.page_table, lengths, owned=owned,
-        sm_scale=sm_scale, window=window, return_state=return_state,
+        sm_scale=sm_scale, window=window, return_state=return_state, out_dtype=out_dtype,
     )
     o = res[0] if return_state else res
     o = _vmean_addback(o, lengths, cache.v_mean)

@@ -6,6 +6,7 @@ from sageattention_tpu_torch.models.attention import (
     get_attention_backend,
     register_backend,
     set_attention_backend,
+    set_mesh,
 )
 from sageattention_tpu_torch.models.configs import MODEL_CONFIGS, DiTConfig, LLMConfig
 from sageattention_tpu_torch.models.dit import VideoDiT
@@ -16,6 +17,7 @@ __all__ = [
     "register_backend",
     "set_attention_backend",
     "get_attention_backend",
+    "set_mesh",
     "SageAttnProcessor",
     "MODEL_CONFIGS",
     "DiTConfig",

@@ -9,6 +9,8 @@ Backends (HND [b, h, s, d] tensors):
   "sage_bf16"  -- ``sageattn_qk_int8_pv_bf16``, the same kernels
   "sage_fp8"   -- ``sageattn_qk_int8_pv_fp8``: fp8 e4m3 V codes with
                   per-channel scales (the V quantizer, then the same kernel)
+  "sage_parallel" -- ``parallel.make_parallel_sageattn`` over the mesh
+                  :func:`set_mesh` bound: data x ring x Ulysses, forward only
   "reference"  -- exact fp32 attention (``ops.reference``)
 
 The registry is process-wide state, as in the JAX package: tests that
@@ -76,6 +78,39 @@ register_backend(
         q, k, v, is_causal=is_causal, sm_scale=sm_scale, **kw
     ),
 )
+
+
+# --- the mesh-aware parallel backend -----------------------------------------
+_MESH = None
+_MESH_AXES = ("data", "seq", "heads")
+_PARALLEL_CACHE: dict = {}
+
+
+def set_mesh(mesh, data_axis="data", ring_axis="seq", ulysses_axis="heads") -> None:
+    """Bind a device mesh (``parallel.make_mesh``, or None to unbind): the
+    "sage_parallel" backend then runs every attention as data x ring x
+    Ulysses over it, each rank passing and getting the global tensors."""
+    global _MESH, _MESH_AXES
+    _MESH = mesh
+    _MESH_AXES = (data_axis, ring_axis, ulysses_axis)
+    _PARALLEL_CACHE.clear()
+
+
+def _sage_parallel(q, k, v, *, is_causal, sm_scale, **kw):
+    if _MESH is None:
+        raise RuntimeError("call models.set_mesh(mesh) before using the 'sage_parallel' backend")
+    from sageattention_tpu_torch.parallel.api import make_parallel_sageattn
+
+    key = (is_causal, sm_scale, tuple(sorted(kw.items())))
+    if key not in _PARALLEL_CACHE:
+        data_axis, ring_axis, ulysses_axis = _MESH_AXES
+        _PARALLEL_CACHE[key] = make_parallel_sageattn(
+            _MESH, data_axis=data_axis, ring_axis=ring_axis, ulysses_axis=ulysses_axis,
+            is_causal=is_causal, sm_scale=sm_scale, **kw)
+    return _PARALLEL_CACHE[key](q, k, v)
+
+
+register_backend("sage_parallel", _sage_parallel)
 
 
 @dataclasses.dataclass

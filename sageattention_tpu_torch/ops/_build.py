@@ -78,8 +78,9 @@ SIGNATURES = {
         "sage_decode_window": [P] * 9 + [I] * 10 + [F, P],
     },
     "paged_decode": {
-        "sage_paged_decode": [P] * 10 + [I] * 10 + [F, P],
-        "sage_paged_decode_window": [P] * 10 + [I] * 10 + [F, P],
+        # decode's operands with the page table and the owned mask (or NULL)
+        "sage_paged_decode": [P] * 11 + [I] * 10 + [F, P],
+        "sage_paged_decode_window": [P] * 11 + [I] * 10 + [F, P],
     },
 }
 

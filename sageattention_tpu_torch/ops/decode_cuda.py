@@ -27,7 +27,8 @@ the wrappers run the plain versions; on a CUDA tensor they launch the
 kernels or raise.  ``decode_kernel``, ``decode_window_kernel``,
 ``paged_kernel`` and ``paged_window_kernel`` launch kernels 9-12 and count
 their launches in ``.launches``, and those at head dims above 128 (the
-D = 256 instances) in ``.hd256_launches``.
+D = 256 instances) in ``.hd256_launches``; kernels 11-12 also count their
+launches over a shard of a sharded pool (``owned``) in ``.owned_launches``.
 """
 
 from __future__ import annotations
@@ -257,15 +258,17 @@ def sage_decode_attention_plain(q, k_i8, k_scale, v_i8, v_scale, lengths, *,
 
 
 def sage_paged_decode_attention_plain(q, pages_k, pages_k_scale, pages_v, pages_v_scale,
-                                      page_table, lengths, *, sm_scale=None, window=None,
-                                      out_dtype=None, return_state: bool = False):
+                                      page_table, lengths, *, owned=None, sm_scale=None,
+                                      window=None, out_dtype=None, return_state: bool = False):
     """Kernels 11 and 12 in plain PyTorch (see
     :func:`sage_paged_decode_attention`)."""
+    _check_owned(owned, page_table, return_state)
     b, hq, t_q, d = q.shape
     hkv, page, packed = _check_cache(q, pages_k, pages_k_scale, pages_v, pages_v_scale)
     max_pages = page_table.shape[1]
     n_live = paged_plan(page, max_pages, hq // hkv * t_q, hq // hkv, t_q, window)
     table = page_table.tolist()
+    own = None if owned is None else owned.tolist()
 
     def chunks_of(bi, length):
         start, count = 0, max_pages
@@ -275,12 +278,29 @@ def sage_paged_decode_attention_plain(q, pages_k, pages_k_scale, pages_v, pages_
         for pi in range(start, start + count):
             if pi * page >= length:
                 break
+            if own is not None and not own[bi][pi]:
+                continue  # another shard's page: its table entry is not read
             ph = table[bi][pi]
             yield (pi * page, pages_k[ph], pages_k_scale[ph], pages_v[ph], pages_v_scale[ph])
 
     return _decode_plain(q, chunks_of, lengths, packed=packed, sm_scale=sm_scale,
                          window=window, out_dtype=out_dtype, return_state=return_state,
                          hkv=hkv)
+
+
+def _check_owned(owned, page_table, return_state: bool) -> None:
+    if owned is None:
+        return
+    if not return_state:
+        # a shard's normalized partial looks like a whole decode's output
+        raise ValueError(
+            "owned= runs a PARTIAL decode over a shard of the page pool; it requires "
+            "return_state=True so that the caller can merge the partials "
+            "(merge_decode_partials)"
+        )
+    if tuple(owned.shape) != tuple(page_table.shape):
+        raise ValueError(f"owned {tuple(owned.shape)} must match the page table "
+                         f"{tuple(page_table.shape)}")
 
 
 def merge_decode_partials(o_parts, m_parts, l_parts, out_dtype=None):
@@ -374,17 +394,18 @@ def decode_window_kernel(q, k_i8, k_scale, v_i8, v_scale, lengths, *, chunk, win
 
 
 def _launch_paged(fn_name, q, pages_k, pages_k_scale, pages_v, pages_v_scale, page_table,
-                  lengths, *, window, n_live, qs_mul, return_state):
+                  owned, lengths, *, window, n_live, qs_mul, return_state):
     b, hq, t_q, d = q.shape
     hkv, page = pages_k.shape[1], pages_k_scale.shape[2]
     rows = hq // hkv * t_q
     table = page_table.to(device=q.device, dtype=torch.int32).contiguous()
+    own = None if owned is None else owned.to(device=q.device, dtype=torch.int32).contiguous()
     qf, lens = _device_args(q, lengths, pages_k, pages_k_scale, pages_v, pages_v_scale)
     o, m, l = _outputs(q, (b, hkv, rows), return_state)
     with torch.cuda.device(q.device):
         err = getattr(_build.lib("paged_decode"), fn_name)(
             qf.data_ptr(), pages_k.data_ptr(), pages_k_scale.data_ptr(), pages_v.data_ptr(),
-            pages_v_scale.data_ptr(), table.data_ptr(), lens.data_ptr(), o.data_ptr(),
+            pages_v_scale.data_ptr(), table.data_ptr(), _ptr(own), lens.data_ptr(), o.data_ptr(),
             _ptr(m), _ptr(l), b, hkv, rows, t_q, page, table.shape[1], d,
             int(pages_k.shape[2] != page), window or 0, n_live or 0, qs_mul,
             torch.cuda.current_stream(q.device).cuda_stream,
@@ -393,34 +414,41 @@ def _launch_paged(fn_name, q, pages_k, pages_k_scale, pages_v, pages_v_scale, pa
     return o, m, l
 
 
-def paged_kernel(q, pages_k, pages_k_scale, pages_v, pages_v_scale, page_table, lengths, *,
-                 qs_mul, return_state):
-    """Launch kernel 11 (paged cache, every page below the length)."""
-    out = _launch_paged("sage_paged_decode", q, pages_k, pages_k_scale, pages_v,
-                        pages_v_scale, page_table, lengths, window=None, n_live=None,
-                        qs_mul=qs_mul, return_state=return_state)
+def _count_paged(fn, q, owned) -> None:
     if q.shape[-1] > 128:
-        paged_kernel.hd256_launches += 1
+        fn.hd256_launches += 1
     else:
-        paged_kernel.launches += 1
+        fn.launches += 1
+    if owned is not None:
+        fn.owned_launches += 1  # of those, the launches over a pool shard
+
+
+def paged_kernel(q, pages_k, pages_k_scale, pages_v, pages_v_scale, page_table, lengths, *,
+                 qs_mul, return_state, owned=None):
+    """Launch kernel 11 (paged cache, every page below the length; with
+    ``owned`` only the pages it marks)."""
+    out = _launch_paged("sage_paged_decode", q, pages_k, pages_k_scale, pages_v,
+                        pages_v_scale, page_table, owned, lengths, window=None, n_live=None,
+                        qs_mul=qs_mul, return_state=return_state)
+    _count_paged(paged_kernel, q, owned)
     return out
 
 
 def paged_window_kernel(q, pages_k, pages_k_scale, pages_v, pages_v_scale, page_table,
-                        lengths, *, window, n_live, qs_mul, return_state):
-    """Launch kernel 12 (paged cache, the ``n_live`` pages the window reaches)."""
+                        lengths, *, window, n_live, qs_mul, return_state, owned=None):
+    """Launch kernel 12 (paged cache, the ``n_live`` pages the window reaches;
+    with ``owned`` only the pages it marks)."""
     out = _launch_paged("sage_paged_decode_window", q, pages_k, pages_k_scale, pages_v,
-                        pages_v_scale, page_table, lengths, window=window, n_live=n_live,
-                        qs_mul=qs_mul, return_state=return_state)
-    if q.shape[-1] > 128:
-        paged_window_kernel.hd256_launches += 1
-    else:
-        paged_window_kernel.launches += 1
+                        pages_v_scale, page_table, owned, lengths, window=window,
+                        n_live=n_live, qs_mul=qs_mul, return_state=return_state)
+    _count_paged(paged_window_kernel, q, owned)
     return out
 
 
 for _fn in (decode_kernel, decode_window_kernel, paged_kernel, paged_window_kernel):
     _fn.launches = _fn.hd256_launches = 0
+for _fn in (paged_kernel, paged_window_kernel):
+    _fn.owned_launches = 0
 
 
 def _finish(res, q, out_dtype, return_state):
@@ -478,16 +506,20 @@ def sage_paged_decode_attention(q, pages_k, pages_k_scale, pages_v, pages_v_scal
     [P, hkv, page, d] int8 or [P, hkv, page/2, d] packed; scales [P, hkv,
     page]).  Entries past the live length may hold any valid page id.  Same
     query semantics and outputs as :func:`sage_decode_attention`, one page
-    per chunk."""
-    if owned is not None:
-        raise NotImplementedError(
-            "owned= (the sharded page pool) is not ported yet (ROADMAP: "
-            "parallelism, sharded decode)"
-        )
+    per chunk.
+
+    ``owned`` (int32 [b, max_pages], with ``return_state=True``) runs a
+    partial decode over one shard of a pool split over ranks: only the
+    logical pages it marks contribute, and the table entries of the others
+    are never read.  ``lengths`` stay global.  A row with no owned live page
+    gives o = 0, m = NEG_INIT and l = 0; the shards' partials merge exactly
+    with :func:`merge_decode_partials`."""
+    _check_owned(owned, page_table, return_state)
     if q.device.type == "cpu":
         return sage_paged_decode_attention_plain(
             q, pages_k, pages_k_scale, pages_v, pages_v_scale, page_table, lengths,
-            sm_scale=sm_scale, window=window, out_dtype=out_dtype, return_state=return_state)
+            owned=owned, sm_scale=sm_scale, window=window, out_dtype=out_dtype,
+            return_state=return_state)
     if q.device.type != "cuda":
         raise ValueError(f"sage_paged_decode_attention: tensor on {q.device}")
     b, hq, t_q, d = q.shape
@@ -498,8 +530,8 @@ def sage_paged_decode_attention(q, pages_k, pages_k_scale, pages_v, pages_v_scal
                                     _q_qmax(packed))
     args = (q, pages_k, pages_k_scale, pages_v, pages_v_scale, page_table, lengths)
     if window is None:
-        res = paged_kernel(*args, qs_mul=qs_mul, return_state=return_state)
+        res = paged_kernel(*args, qs_mul=qs_mul, return_state=return_state, owned=owned)
     else:
         res = paged_window_kernel(*args, window=window, n_live=n_live, qs_mul=qs_mul,
-                                  return_state=return_state)
+                                  return_state=return_state, owned=owned)
     return _finish(res, q, out_dtype, return_state)

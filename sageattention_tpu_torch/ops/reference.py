@@ -8,6 +8,8 @@
   backward kernels, the straight-through gradient of the quantized forward.
 * :func:`decode_reference`: exact fp32 decode of a few query tokens
   against unquantized K/V, the accuracy target of the decode kernels.
+* :func:`merge_attention_partials`: the LSE merge of partial attentions
+  over disjoint KV shards (the ring's merge).
 
 Both loop over (batch, head) slabs so that one slab's [sq, sk] score
 matrix is the largest temporary: at CogVideoX-2B's 17,776 tokens that is
@@ -336,3 +338,16 @@ def decode_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         s = torch.where(mask, s, MASK_VALUE)
         out[bi] = torch.einsum("hqk,hkd->hqd", torch.softmax(s, dim=-1), vb)
     return out
+
+
+def merge_attention_partials(o_parts, lse_parts):
+    """Merge partial attention outputs over disjoint KV shards through their
+    natural-log LSEs [b, h, sq]: the ring's merge, all shards at once.
+    Returns (o in the first part's dtype, the merged LSE)."""
+    lse = torch.stack(list(lse_parts), dim=0)  # [n, b, h, sq]
+    m = lse.amax(dim=0)
+    w = torch.exp(lse - m[None])
+    denom = w.sum(dim=0)
+    o = torch.stack([x.float() for x in o_parts], dim=0)
+    o_merged = (o * w[..., None]).sum(dim=0) / denom[..., None]
+    return o_merged.to(o_parts[0].dtype), m + torch.log(denom)

@@ -70,16 +70,17 @@ def load_model(cfg: DiTConfig, *, device="cuda", dtype=torch.bfloat16,
 
 
 def make_requests(cfg: DiTConfig, n: int, *, device="cuda", seed: int = 0,
-                  dtype=torch.bfloat16):
-    """``n`` seeded (latents [1,F,H,W,16], text [1,Lt,512]) requests."""
+                  dtype=torch.bfloat16, batch: int = 1):
+    """``n`` seeded (latents [batch,F,H,W,16], text [batch,Lt,512]) requests
+    (``batch=2``: a classifier-free-guidance pair)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    shape = (1, cfg.latent_frames, cfg.latent_height, cfg.latent_width,
+    shape = (batch, cfg.latent_frames, cfg.latent_height, cfg.latent_width,
              LATENT_CHANNELS)
     return [
         (torch.randn(shape, generator=gen, device=dev).to(dtype),
-         torch.randn(1, cfg.text_len, TEXT_DIM, generator=gen, device=dev).to(dtype))
+         torch.randn(batch, cfg.text_len, TEXT_DIM, generator=gen, device=dev).to(dtype))
         for _ in range(n)
     ]
 
@@ -125,3 +126,39 @@ def serve(model: VideoDiT, requests, steps: int) -> dict:
         outputs.append(lat)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     return {"outputs": outputs, "step_ms": step_ms, "device": name}
+
+
+def parallel_config(cfg: DiTConfig, mesh, *, ring_axis: str = "seq",
+                    ulysses_axis: str = "heads") -> DiTConfig:
+    """``cfg`` fitted to the mesh: the heads must divide by the Ulysses degree,
+    and the text length is padded so that the sequence divides by the
+    sequence-parallel degree (ring x Ulysses), as the JAX example pads it."""
+    from sageattention_tpu_torch.parallel.mesh import axis_info
+
+    _, rn, _ = axis_info(mesh, ring_axis)
+    _, un, _ = axis_info(mesh, ulysses_axis)
+    if cfg.heads % un:
+        raise ValueError(f"heads ({cfg.heads}) must divide by the Ulysses degree {un}")
+    return cfg.scaled(text_len=cfg.text_len + (-cfg.seq_len) % (rn * un))
+
+
+@torch.no_grad()
+def serve_parallel(model: VideoDiT, requests, steps: int, mesh, *, data_axis: str = "data",
+                   ring_axis: str = "seq", ulysses_axis: str = "heads") -> dict:
+    """:func:`serve` with every attention of the model through the
+    "sage_parallel" backend over ``mesh``: the loop of the JAX package's
+    ``examples/parallel_video.py``.  Each rank runs the model on the whole
+    requests (a CFG pair is ``make_requests(..., batch=2)``, split over the
+    "data" dim) and attention on its blocks; every rank ends with the same
+    outputs.  The model's config must fit the mesh (:func:`parallel_config`).
+    The backend and mesh are set back when it returns."""
+    from sageattention_tpu_torch import models
+
+    prev = models.get_attention_backend()
+    models.set_mesh(mesh, data_axis, ring_axis, ulysses_axis)
+    models.set_attention_backend("sage_parallel")
+    try:
+        return serve(model, requests, steps)
+    finally:
+        models.set_attention_backend(prev)
+        models.set_mesh(None)

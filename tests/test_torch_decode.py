@@ -167,14 +167,23 @@ def test_host_rules_match_the_jax_package():
 
 
 def test_owned_is_not_ported():
-    q = torch.zeros(1, 2, 1, 32)
-    pool = torch.zeros(2, 1, 16, 32, dtype=torch.int8)
-    sc = torch.ones(2, 1, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP: parallelism"):
-        decode_cuda.sage_paged_decode_attention(q, pool, sc, pool, sc, torch.zeros(1, 2, dtype=torch.int32),
-                                                torch.ones(1, dtype=torch.int32),
-                                                owned=torch.ones(1, 2, dtype=torch.int32),
-                                                return_state=True)
+    """The sharded pool's ``owned`` mask is ported now (the test keeps its
+    name): a partial decode needs ``return_state``, and a mask that owns
+    every page gives the whole decode's numbers."""
+    rng = np.random.default_rng(10)
+    q = torch.tensor(rng.standard_normal((1, 2, 1, 32)).astype(np.float32))
+    k, ks, v, vs = (torch.tensor(x) for x in _cache(rng, (2, 1), 16, 32, False))
+    table = torch.tensor([[1, 0]], dtype=torch.int32)
+    lengths = torch.tensor([27], dtype=torch.int32)
+    owned = torch.ones(1, 2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="return_state"):
+        decode_cuda.sage_paged_decode_attention(q, k, ks, v, vs, table, lengths, owned=owned)
+    res = decode_cuda.sage_paged_decode_attention(q, k, ks, v, vs, table, lengths, owned=owned,
+                                                  return_state=True)
+    ref = decode_cuda.sage_paged_decode_attention(q, k, ks, v, vs, table, lengths,
+                                                  return_state=True)
+    for x, y in zip(res, ref):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
 
 
 def test_merge_decode_partials_matches_jax():

@@ -20,7 +20,8 @@ FORBIDDEN = ("jax", "flax", "sageattention_tpu")
 WRAPPERS = ("ops/quant_cuda.py", "ops/attention_cuda.py", "ops/attention_bwd_cuda.py",
             "ops/decode_cuda.py")
 NO_TRY = ("ops/_build.py", *WRAPPERS, "ops/autodiff.py", "core.py", "train.py", "kvcache.py",
-          "generate.py")
+          "generate.py", "parallel/mesh.py", "parallel/decode.py", "parallel/ring.py",
+          "parallel/ulysses.py", "parallel/api.py")
 
 
 def _port_files():
@@ -107,6 +108,21 @@ def test_top_level_exports_resolve():
                  "sageattn_paged_decode", "models"):
         assert name in port.__all__ and getattr(port, name) is not None, name
     assert port.sageattn_decode.__module__ == "sageattention_tpu_torch.kvcache"
+
+
+def test_parallel_exports_resolve():
+    """The names of the JAX ``parallel`` package resolve in the port's, and
+    its modules import neither JAX nor the JAX package (checked with the
+    other files above)."""
+    from sageattention_tpu import parallel as jpar
+
+    import sageattention_tpu_torch.parallel as tpar
+
+    assert sorted(tpar.__all__) == sorted(jpar.__all__)
+    for name in jpar.__all__:
+        assert callable(getattr(tpar, name)), name
+    assert {p.name for p in (PKG / "parallel").glob("*.py")} >= {
+        "__init__.py", "mesh.py", "decode.py", "ring.py", "ulysses.py", "api.py"}
 
 
 def test_import_builds_nothing():
