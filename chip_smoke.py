@@ -122,6 +122,14 @@ Phases, each of which raises (and so exits non-zero) when it fails:
       windowed at (1, 16/16, 4096, 256) and (1, 16/8, 4096, 192), and
       ``sageattn``'s d 192 gradients against exact attention's; kernels
       9-12 at 256 and 192, int8 and int4, dense and paged, windowed or not;
+      the pre-quantized forward's D = 256 instances for every Q/K
+      option with bf16 and e4m3 V at the Gemma-7B layer, d 192 ragged,
+      Gemma-2-9B's local layer and varlen, each option as ``sageattn``
+      against exact attention (0.999 for 8 bits, 0.97 for int4) at d 192
+      and with a window at 256; the backward's bias instances at 256 (dQ
+      with dBias, dK/dV) at (1, 16/16, 4096, 256) causal with fp32 and bf16
+      ALiBi and at (1, 16/8, 4000, 192) with a random bias, each with a row
+      biased to -inf whose dq and dBias must be exactly 0;
    b. after the LLM servers: ``llm_gemma7b_dense`` and
       ``llm_gemma7b_paged``, the Gemma-7B attention geometry (``GEMMA_7B``:
       hidden 3072, 16/16 heads of 256, MLP 24576, vocab 256000) at full
@@ -133,7 +141,15 @@ Phases, each of which raises (and so exits non-zero) when it fails:
       gradients >= 0.999 against fp32 exact attention's, 1 warm-up and 4
       timed steps, each launching kernels 2-4, 1, 7 and 8 at 256 once;
    d. with the timings of phase 6: each D = 256 instance beside its bound,
-      plain version and library call (SDPA forward and backward).
+      plain version and library call (SDPA forward and backward); the
+      pre-quantized instances for every option beside the default D = 256
+      forward and SDPA; the bias instances beside their byte bounds, plain
+      versions and SDPA's backward with the bias as a float mask;
+   e. after the layer trainer, the d256 bias trainer, a kernel check and
+      not a cell: 4b's trainer at the Gemma-7B layer (1, 16/16, 4096, 256)
+      through the fused route, each step launching kernels 2-4, the masked
+      forward and the bias instances at 256 once, and one step of the exact
+      route at the same shape timed beside it.
    A D = 256 instance that no path of this run launches (the masked
    forward, kernels 5-6, 10 and 12) is reported inside its kernel's entry
    of the ``kernels`` line, as ``hd256``;
@@ -167,7 +183,15 @@ Phases, each of which raises (and so exits non-zero) when it fails:
       dense, 32 layers, 4 steps).
    Kernel 11's owned launches (``sharded_paged``) and kernel 12's (checked
    and timed only) sit in their kernel's entry of the ``kernels`` line, as
-   ``owned``.
+   ``owned``;
+9. kernel 13, the rate probe (``sageattention_tpu_torch/utils/probe_mma.py``,
+   the port of tools/probe_mxu.py): each probe kernel (int8 Q.K^T at
+   contraction 64/128/256 and P.V in bf16, e4m3 and int8 at widths
+   64/128/256, by mma.sync and by wgmma; the softmax chain's passes; a
+   device-memory read and copy) against its plain chain, its SASS's
+   tensor-core instruction count, its rate beside its peak (above 105 %
+   fails) and the library rows (cuBLAS at 8192^3, sum and copy), with the
+   card's clock before and after.
 
 It prints one ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside the
@@ -230,10 +254,12 @@ GEMMA2_LOCAL = dict(hq=16, hkv=8, d=256)  # Gemma-2-9B's heads, window 4096 on i
 # counted apart as ``<name>_hd256``
 HD256 = ("k_channel_mean", "quant_k_chunked", "quant_q_per_token", "quant_v_per_channel",
          "v_channel_stats", "quant_v_apply", "sage_attn_fwd", "sage_attn_fwd_masked",
-         "sage_attn_bwd_dq", "sage_attn_bwd_dkv", "sage_decode", "sage_decode_window",
-         "sage_paged_decode", "sage_paged_decode_window")
+         "sage_attn_fwd_preq", "sage_attn_bwd_dq", "sage_attn_bwd_dkv", "sage_attn_bwd_dq_bias",
+         "sage_attn_bwd_dkv_bias", "sage_decode", "sage_decode_window", "sage_paged_decode",
+         "sage_paged_decode_window")
 HD256_SOURCE = {"sage_attn_fwd": "attention_fwd_hd256.cu",
-                "sage_attn_fwd_masked": "attention_fwd_masked_hd256.cu"}
+                "sage_attn_fwd_masked": "attention_fwd_masked_hd256.cu",
+                "sage_attn_fwd_preq": "attention_fwd_preq_hd256.cu"}
 
 
 def log(msg: str) -> None:
@@ -742,11 +768,11 @@ def compare_masked(name, q, k_i8, k_sc, v, masks, causal, hs, results,
     r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
 
 
-def op_vs_exact(name, q, k, v, causal, kwargs, *, varlen_cu=None) -> float:
+def op_vs_exact(name, q, k, v, causal, kwargs, *, varlen_cu=None, floor: float = 0.999) -> float:
     """``sageattn`` (or ``sageattn_varlen`` with ``varlen_cu``) with the masks
-    against exact fp32 attention with the same masks, on the rows with a
-    live key (cosine >= 0.999); its dead rows must be exactly 0 with LSE
-    -inf.  Returns the cosine."""
+    (or the Q/K options) against exact fp32 attention with the same masks,
+    on the rows with a live key (cosine >= ``floor``); its dead rows must
+    be exactly 0 with LSE -inf.  Returns the cosine."""
     import torch
     from sageattention_tpu_torch import core
     from sageattention_tpu_torch.ops import reference
@@ -760,14 +786,15 @@ def op_vs_exact(name, q, k, v, causal, kwargs, *, varlen_cu=None) -> float:
         o, lse = o.transpose(0, 1)[None], lse[None]
         seg = core.varlen_rows(varlen_cu, varlen_cu, q.shape[2], q.shape[2])[0][None]
         kwargs = dict(q_segment_ids=seg, kv_segment_ids=seg)
-    ref = {n: x for n, x in kwargs.items() if n not in ("pv_dtype", "smooth_k_mode")}
+    ref = {n: x for n, x in kwargs.items()
+           if n not in ("pv_dtype", "smooth_k_mode", "smooth_q", "qk_bits", "qk_quant_gran")}
     o_r = reference.attention_reference(q, k, v, is_causal=causal, **ref)
     live = torch.isfinite(lse)
     cos = cosine_similarity(o.float()[live].cpu(), o_r.float()[live].cpu())
     dead_ok = bool((o[~live] == 0).all()) and bool(torch.isneginf(lse[~live]).all())
     log(f"{name} vs exact fp32 attention on the {int(live.sum())} live rows: cos {cos:.6f}; "
         f"{int((~live).sum())} dead rows exactly 0 with LSE -inf {dead_ok}")
-    require(cos >= 0.999 and dead_ok, f"{name}: disagrees with exact attention")
+    require(cos >= floor and dead_ok, f"{name}: disagrees with exact attention")
     return cos
 
 
@@ -968,9 +995,18 @@ BIAS_CASES = (
     ("d64, random bias, a dead row", (30, 30, 64), 4000, False, "float32", (17, 2222)),
     ("d64, bf16 random bias, a dead row", (30, 30, 64), 3001, True, "bfloat16", (3, 2999)),
 )
+# the D = 256 instances (phase 7a): the Gemma-7B layer's 16/16 heads of 256,
+# causal ALiBi in fp32 and bf16, and d 192 (padded) at 16/8 heads, a
+# ragged 4000 tokens, non-causal, a random per-head bias; each with a row
+# biased to -inf on every key
+BIAS_CASES_HD256 = (
+    ("d256 ALiBi, a dead row", (16, 16, 256), 4096, True, "float32", (3, 777)),
+    ("d256 bf16 ALiBi, a dead row", (16, 16, 256), 4096, True, "bfloat16", (9, 4095)),
+    ("d192, random bias, a dead row", (16, 8, 192), 4000, False, "float32", (5, 1234)),
+)
 
 
-def check_bias_backward(results) -> dict:
+def check_bias_backward(results, cases=BIAS_CASES, seed: int = 17, suffix: str = "") -> dict:
     """Kernels 7-8's bias instances against their plain versions, dBias
     included (BIAS_CASES): at the llm-8b-gqa layer (1, 32/8, s, 128) causal
     with the ALiBi bias at 4096 tokens in fp32 and in bf16, and non-causal
@@ -981,14 +1017,16 @@ def check_bias_backward(results) -> dict:
     must be exactly 0 on both sides.  Held to the backward agreement of
     PERF.md section 2: cosine >= 0.9999 and max-abs <= 1e-2 of the largest
     entry.  Its inputs come from a generator of its own, so the phases after
-    it see the inputs they saw before it was added."""
+    it see the inputs they saw before it was added.  ``cases``, ``seed`` and
+    the counters' ``suffix`` serve the D = 256 instances too (phase 7a,
+    BIAS_CASES_HD256)."""
     import torch
     from sageattention_tpu_torch.ops import attention_bwd_cuda as bwd
 
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(17)
+    gen.manual_seed(seed)
     out = {}
-    for name, (hq, hkv, d), s, causal, dtype, dead in BIAS_CASES:
+    for name, (hq, hkv, d), s, causal, dtype, dead in cases:
         if name.endswith("ALiBi"):
             bias = alibi(hq, s)
         else:
@@ -1012,11 +1050,12 @@ def check_bias_backward(results) -> dict:
             cos, rel, err = agreement(g, gp)
             finite = bool(torch.isfinite(g).all())
             row[gname] = {"cos": cos, "max_abs_over_max": rel}
+            pad0 = gname == "dbias" or bool((g[..., d:] == 0).all())
             log(f"bias backward {name} {shape} causal={causal} {dtype} {gname}: cos "
-                f"{cos:.7f}, max abs / max|g| {rel:.3e}, finite {finite}")
-            require(finite and cos >= 0.9999 and rel <= 1e-2,
+                f"{cos:.7f}, max abs / max|g| {rel:.3e}, finite {finite}, pad lanes 0 {pad0}")
+            require(finite and pad0 and cos >= 0.9999 and rel <= 1e-2,
                     f"bias backward {name}: {gname} kernel disagrees with its plain version")
-            r = results[key]
+            r = results[key + suffix]
             r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
         if dead is not None:
             h, i = dead
@@ -1145,10 +1184,13 @@ def preq_operands(q, k, opts: dict):
     return q_i8, q_sc, k_i8, k_sc, cb
 
 
-def compare_preq(name, q, k, v, opts, causal, hs, results, masks=None) -> None:
+def compare_preq(name, q, k, v, opts, causal, hs, results, masks=None,
+                 key: str = "sage_attn_fwd_preq") -> None:
     """The pre-quantized kernel against its plain version on the query
     heads ``hs``, with bf16 V and with e4m3 V codes: o cosine >= 0.9999
-    and max-abs <= 2e-2, lse2 <= 1e-3 (PERF.md section 2's limits)."""
+    and max-abs <= 2e-2, lse2 <= 1e-3 (PERF.md section 2's limits); its
+    error goes into the entry ``key``.  V comes at the kernel's head dim
+    (padded), q and k at the caller's."""
     import torch
     from sageattention_tpu_torch.ops import attention_cuda, quant_cuda
     from sageattention_tpu_torch.utils.compare import cosine_similarity
@@ -1180,7 +1222,7 @@ def compare_preq(name, q, k, v, opts, causal, hs, results, masks=None) -> None:
             f"{err:.3e}, lse2 max abs {lerr:.3e} (heads {list(hs)}); finite {finite}")
         require(finite and cos >= 0.9999 and err <= 2e-2 and lerr <= 1e-3,
                 f"preq attention {name} {opts} V {vname} disagrees with its plain version")
-        r = results["sage_attn_fwd_preq"]
+        r = results[key]
         r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
 
 
@@ -1625,11 +1667,17 @@ MAIN_PATH = {**{n: "server" for n in FORWARD}, **{n: "train" for n in BACKWARD},
              **{n + "_hd256": "llm_gemma7b_dense" for n in FORWARD + ("sage_decode",)},
              "sage_paged_decode_hd256": "llm_gemma7b_paged",
              **{n + "_hd256": "hd256_train" for n in BACKWARD},
+             # the bias instances at 256: the d256 bias trainer
+             "sage_attn_bwd_dq_bias_hd256": "bias_hd256_train",
+             "sage_attn_bwd_dkv_bias_hd256": "bias_hd256_train",
              # kernel 11's launches with the owned page mask (kernel 12's has no
              # path: it is checked and timed, and both sit in their kernel's entry)
-             "sage_paged_decode_owned": "sharded_paged"}
+             "sage_paged_decode_owned": "sharded_paged",
+             # kernel 13, the rate probe: its own run
+             "probe_mma": "probe"}
 FORWARD_HD256 = tuple(n + "_hd256" for n in FORWARD)
 BACKWARD_HD256 = tuple(n + "_hd256" for n in BACKWARD)
+BIAS_TRAIN_HD256 = tuple(n + "_hd256" for n in BIAS_TRAIN)
 
 
 def counters():
@@ -1638,6 +1686,7 @@ def counters():
     dim 256."""
     from sageattention_tpu_torch.ops import (attention_bwd_cuda, attention_cuda, decode_cuda,
                                              quant_cuda)
+    from sageattention_tpu_torch.utils import probe_mma
 
     fns = {"k_channel_mean": quant_cuda.k_channel_mean,
            "quant_k_chunked": quant_cuda.quant_k_chunked,
@@ -1654,11 +1703,15 @@ def counters():
            "sage_decode_window": decode_cuda.decode_window_kernel,
            "sage_paged_decode": decode_cuda.paged_kernel,
            "sage_paged_decode_window": decode_cuda.paged_window_kernel}
+    fns["probe_mma"] = probe_mma.chain
     out = {name: (fn, "launches") for name, fn in fns.items()}
     out["sage_attn_bwd_dq_bias"] = (attention_bwd_cuda.sage_attention_bwd_dq, "bias_launches")
     out["sage_attn_bwd_dkv_bias"] = (attention_bwd_cuda.sage_attention_bwd_dkv, "bias_launches")
     for name in HD256:  # the launches at head dim 256, counted apart
-        out[name + "_hd256"] = (fns[name], "hd256_launches")
+        if name.endswith("_bias"):
+            out[name + "_hd256"] = (out[name][0], "bias_hd256_launches")
+        else:
+            out[name + "_hd256"] = (fns[name], "hd256_launches")
     for name in OWNED:  # the launches over a shard of a sharded pool, counted apart
         out[name + "_owned"] = (fns[name], "owned_launches")
     return out
@@ -2158,10 +2211,31 @@ def run_train(results, profile: bool) -> dict:
             "grads_vs_exact": gs, "profile": prof}
 
 
-def run_bias_train(results) -> dict:
+def bias_train_inputs(layer: dict, seed: int):
+    """The bias trainer's leaves and target at ``layer``'s heads (b 1, 4096
+    tokens, causal): bf16 q, k, v, the ALiBi slopes at twice the standard
+    ones, and exact fp32 attention with the standard slopes."""
+    import torch
+    from sageattention_tpu_torch.ops import reference
+
+    s = 4096
+    hq, hkv, d = layer.values()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    q, k, v = (torch.randn(1, h, s, d, generator=gen, device="cuda").to(torch.bfloat16)
+               for h in (hq, hkv, hkv))
+    with torch.no_grad():
+        target = reference.attention_reference(q.float(), k.float(), v.float(), is_causal=True,
+                                               attn_bias=alibi(hq, s))
+    return q, k, v, (2 * alibi_slopes(hq)).requires_grad_(), target
+
+
+def run_bias_train(results, layer: dict = LLM_LAYER, seed: int = 21) -> dict:
     """Phase 4b, the bias trainer, a kernel check and not a cell: one
     llm-8b-gqa attention layer at full width (b 1, 4096 tokens, 32 query and
-    8 KV heads of 128, causal) whose trainable tensors are per-head ALiBi
+    8 KV heads of 128, causal; phase 7e gives Gemma-7B's 16/16 heads of 256,
+    whose path is ``bias_hd256_train`` and whose launches are the D = 256
+    instances) whose trainable tensors are per-head ALiBi
     slopes (fp32, started at twice the standard ones) and q, k, v (bf16
     leaves).  The bias -slope * |i - j| is built in autograd at [1, 32, s,
     s] fp32, so ``sageattn`` takes the fused route; the target is exact
@@ -2181,11 +2255,11 @@ def run_bias_train(results) -> dict:
     from sageattention_tpu_torch.ops import autodiff, reference
 
     b, s = 1, 4096
-    hq, hkv, d = LLM_LAYER.values()
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(21)
-    q0, k0, v0 = (torch.randn(b, h, s, d, generator=gen, device="cuda").to(torch.bfloat16)
-                  for h in (hq, hkv, hkv))
+    hq, hkv, d = layer.values()
+    path = "bias_hd256_train" if d == 256 else "bias_train"
+    launched = BIAS_TRAIN_HD256 if d == 256 else BIAS_TRAIN
+    dq_bias, dkv_bias = launched[-2:]  # the backward's bias instances
+    q0, k0, v0, slopes, target = bias_train_inputs(layer, seed)
 
     def exact(q, k, v, bias):
         return reference.attention_reference(q.float(), k.float(), v.float(), is_causal=True,
@@ -2197,9 +2271,6 @@ def run_bias_train(results) -> dict:
                 "bias trainer: sageattn did not take the fused bias route")
         return o
 
-    with torch.no_grad():
-        target = exact(q0, k0, v0, alibi(hq, s))
-    slopes = (2 * alibi_slopes(hq)).requires_grad_()
     q, k, v = (x.clone().requires_grad_() for x in (q0, k0, v0))
 
     def loss_of(attn, bias):
@@ -2212,9 +2283,9 @@ def run_bias_train(results) -> dict:
         bias = alibi_bias(slopes, s)
         grads[name] = torch.autograd.grad(loss_of(attn, bias), [q, k, v, slopes, bias])
     first = {n: agreement(g, r)[0] for n, g, r in zip(names, grads["sage"], grads["exact"])}
-    log(f"bias trainer first-step gradients vs fp32 exact attention: "
+    log(f"{path} first-step gradients vs fp32 exact attention: "
         f"{ {n: round(c, 6) for n, c in first.items()} }")
-    require(min(first.values()) >= 0.999, "bias trainer: gradients disagree with exact")
+    require(min(first.values()) >= 0.999, f"{path}: gradients disagree with exact")
 
     # the same step with the bias fixed (ALiBi while q, k, v train): no
     # dBias asked, the trainable bias's q, k, v gradients bit for bit, and
@@ -2236,11 +2307,10 @@ def run_bias_train(results) -> dict:
     fixed_launches = {n: c for n, c in read_counts().items() if c}
     g_r = torch.autograd.grad(loss_of(exact, fixed), [q, k, v])
     fixed_cos = {n: agreement(a_, r_)[0] for n, a_, r_ in zip("qkv", g_s, g_r)}
-    log(f"bias trainer, the first step with the bias fixed: dBias asked {asked}; launches "
+    log(f"{path}, the first step with the bias fixed: dBias asked {asked}; launches "
         f"{fixed_launches}; q, k, v gradients vs exact {fixed_cos}")
     require(asked == [False], "bias trainer: a fixed bias asked the kernels for dBias")
-    require(fixed_launches.get("sage_attn_bwd_dq_bias") == 1
-            and fixed_launches.get("sage_attn_bwd_dkv_bias") == 1,
+    require(fixed_launches.get(dq_bias) == 1 and fixed_launches.get(dkv_bias) == 1,
             "bias trainer: the fixed bias did not launch the bias instances")
     require(min(fixed_cos.values()) >= 0.999, "bias trainer: fixed-bias gradients disagree")
     same = all(torch.equal(a_, t_) for a_, t_ in zip(g_s, grads["sage"][:3]))
@@ -2269,23 +2339,57 @@ def run_bias_train(results) -> dict:
         ms.append(a.elapsed_time(e))
         losses.append(loss.item())
     launches = read_counts()
-    log(f"bias trainer: losses {[round(x, 8) for x in losses]}; ms per step "
+    log(f"{path}: losses {[round(x, 8) for x in losses]}; ms per step "
         f"{[round(x, 3) for x in ms]}, median {statistics.median(ms):.3f}; launches "
         f"{ {n: c for n, c in launches.items() if c} }")
     for name, n in launches.items():
-        want = TRAIN_STEPS if name in BIAS_TRAIN else 0
-        require(n == want, f"bias trainer: {name} launched {n} times, want {want}")
-        results[name]["launches_by_path"]["bias_train"] = n
-    require(all(map(math.isfinite, losses)), "bias trainer: a loss is not finite")
-    require(losses[-1] < losses[0], "bias trainer: the loss did not fall")
-
+        want = TRAIN_STEPS if name in launched else 0
+        require(n == want, f"{path}: {name} launched {n} times, want {want}")
+        results[name]["launches_by_path"][path] = n
+    require(all(map(math.isfinite, losses)), f"{path}: a loss is not finite")
+    require(losses[-1] < losses[0], f"{path}: the loss did not fall")
+    out = {"shape": [b, hq, hkv, s, d], "losses": losses, "step_ms": ms,
+           "median_step_ms": statistics.median(ms), "first_step_grad_cos_vs_exact": first,
+           "slopes_after": slopes.detach().cpu().tolist(),
+           "fixed_bias": {"dbias_asked": asked, "launches": fixed_launches,
+                          "grad_cos_vs_exact": fixed_cos}}
     del q, k, v, target, opt
     torch.cuda.empty_cache()
-    return {"shape": [b, hq, hkv, s, d], "losses": losses, "step_ms": ms,
-            "median_step_ms": statistics.median(ms), "first_step_grad_cos_vs_exact": first,
-            "slopes_after": slopes.detach().cpu().tolist(),
-            "fixed_bias": {"dbias_asked": asked, "launches": fixed_launches,
-                           "grad_cos_vs_exact": fixed_cos}}
+    return out
+
+
+def time_bias_exact_step(layer: dict, seed: int) -> float:
+    """Phase 7e: one step of the bias trainer by the exact route, on the
+    trainer's inputs at ``layer``: the same quantized forward, the backward
+    by autograd of exact fp32 attention ([b, hq, s, s] scores), and AdamW.
+    No backward kernel may launch.  Returns the median of 2 steps, in ms."""
+    import torch
+    import torch.nn.functional as F
+    from sageattention_tpu_torch import core
+    from sageattention_tpu_torch.ops import autodiff
+
+    q, k, v, slopes, target = bias_train_inputs(layer, seed)
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    opt = torch.optim.AdamW([{"params": [q, k, v], "lr": 1e-2},
+                             {"params": [slopes], "lr": 2e-2}], weight_decay=0.0)
+    s = q.shape[2]
+
+    def exact_step():
+        opt.zero_grad(set_to_none=True)
+        o = autodiff.RecomputeFunction.apply(q, k, v, alibi_bias(slopes, s), True, None, True,
+                                             False, "bf16", False, None, core.QKOptions())
+        F.mse_loss(o.float(), target).backward()
+        opt.step()
+
+    zero_counts()
+    ms = cuda_ms(exact_step, reps=2, warmup=1)
+    bwd_launches = {n: c for n, c in read_counts().items()
+                    if c and n.startswith("sage_attn_bwd")}
+    require(not bwd_launches, f"the bias trainer's exact route launched {bwd_launches}")
+    log(f"one bias trainer step of the exact route at {tuple(q.shape)}: {ms:.3f} ms")
+    del q, k, v, target, opt
+    torch.cuda.empty_cache()
+    return ms
 
 
 # --------------------------------------------------------------------------
@@ -2680,16 +2784,17 @@ def time_masked(gen, results) -> dict:
     return out
 
 
-def time_bias_backward(results) -> dict:
+def time_bias_backward(results, layer: dict = LLM_LAYER, seed: int = 23) -> dict:
     """Kernels 7-8's bias instances at the llm-8b-gqa layer (1, 32/8, 4096,
     128), causal, with the fp32 ALiBi bias and dBias, beside their bounds
     over the live pairs (bytes: the bias read once, dBias written whole,
     the causal zeros included), their plain versions and SDPA's backward
     (fwd + bwd - fwd) with the bias as a float ``attn_mask`` that requires
     grad (bf16, q's dtype, the causal mask folded in as -inf; K and V
-    repeated to 32 heads); ``sageattn``'s fwd + bwd beside SDPA's; and the
-    exact route once, for a broadcast [1, 32, s, s] bias at b 2.  Inputs
-    from a generator of its own, as in :func:`check_bias_backward`."""
+    repeated to 32 heads); ``sageattn``'s fwd + bwd beside SDPA's.  Inputs
+    from a generator of its own, as in :func:`check_bias_backward`.  Phase
+    7d gives Gemma-7B's 16/16 heads of 256, whose results go to the
+    ``_hd256`` instances."""
     import torch
     import torch.nn.functional as F
     from sageattention_tpu_torch import core
@@ -2698,9 +2803,10 @@ def time_bias_backward(results) -> dict:
     from sageattention_tpu_torch.ops.attention_cuda import Masks
 
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(23)
+    gen.manual_seed(seed)
     b, s = 1, 4096
-    hq, hkv, d = LLM_LAYER.values()
+    hq, hkv, d = layer.values()
+    suffix = "_hd256" if d == 256 else ""
     bias = alibi(hq, s)
     ops, sm = backward_case(gen, b, hq, hkv, s, s, d, True, bias=bias)
     kw = dict(is_causal=True, sm_scale=sm, bias=bias)
@@ -2733,15 +2839,17 @@ def time_bias_backward(results) -> dict:
         kw_ = dict(kw, need_dbias=True) if dq else kw
         t_ops = (2 * pairs * d / PEAK_INT8_OPS_S + n_bf16 * pairs * d / PEAK_BF16_FLOP_S) * 1e3
         t_bytes = (common_bytes + extra_in + out_bytes) / PEAK_BYTES_S * 1e3
-        r = results[name]
+        r = results[name + suffix]
         r.update(ms=cuda_ms(lambda: fn(*args, **kw_), reps=10),
                  plain_ms=cuda_ms(lambda: plain(*args, **kw_), reps=2, warmup=1),
                  bound_ms=max(t_ops, t_bytes),
                  bound_by="operations" if t_ops >= t_bytes else "bytes",
                  library_ms=sdpa_fb - sdpa_f,
                  shape={"b": b, "hq": hq, "hkv": hkv, "s": s, "d": d, "causal": True,
-                        "bias": "fp32 [1, 32, s, s]", "live_pairs_per_head": pairs // (b * hq)})
-        log(f"time {name} at {(b, hq, hkv, s, d)} causal, fp32 ALiBi bias: {r['ms']:.4f} ms "
+                        "bias": f"fp32 [1, {hq}, s, s]",
+                        "live_pairs_per_head": pairs // (b * hq)})
+        log(f"time {name + suffix} at {(b, hq, hkv, s, d)} causal, fp32 ALiBi bias: "
+            f"{r['ms']:.4f} ms "
             f"(bound {r['bound_ms']:.4f} ms, {r['bound_by']}; operations {t_ops:.4f} ms, bytes "
             f"{t_bytes:.4f} ms), plain {r['plain_ms']:.4f} ms, SDPA bwd with the bias as a float "
             f"mask (7 + 8) {r['library_ms']:.4f} ms")
@@ -2750,11 +2858,23 @@ def time_bias_backward(results) -> dict:
     log(f"one layer's attention with a trainable fp32 bias at {(b, hq, hkv, s, d)} causal: sage "
         f"fwd+bwd {sage_fb:.3f} ms, SDPA fwd+bwd with the bias as a float mask {sdpa_fb:.3f} ms "
         f"(fwd {sdpa_f:.3f})")
-    del ops, xs, lib_mask, sq_, sk_, sv_, bias_rg, causal
+    del ops, xs, lib_mask, sq_, sk_, sv_, bias_rg, causal, bias
     torch.cuda.empty_cache()
+    return out
 
-    # the exact route: a broadcast [1, 32, s, s] bias at b 2
-    b = 2
+
+def time_bias_exact_route(seed: int = 30) -> float:
+    """Phase 6: ``sageattn``'s fwd + bwd by the exact route, for a broadcast
+    [1, 32, s, s] fp32 ALiBi bias at b 2 of the llm-8b-gqa layer (4096
+    tokens, causal); no backward kernel may launch.  Returns ms."""
+    import torch
+    from sageattention_tpu_torch import core
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    b, s = 2, 4096
+    hq, hkv, d = LLM_LAYER.values()
+    bias = alibi(hq, s)
     q, k, v = (torch.randn(b, h, s, d, generator=gen, device="cuda").to(torch.bfloat16)
                .requires_grad_() for h in (hq, hkv, hkv))
     do = torch.randn(b, hq, s, d, generator=gen, device="cuda").to(torch.bfloat16)
@@ -2774,10 +2894,9 @@ def time_bias_backward(results) -> dict:
         f"at {(b, hq, hkv, s, d)} causal: {exact_ms:.3f} ms; backward kernel launches "
         f"{bwd_launches}")
     require(not bwd_launches, "the exact route launched a backward kernel")
-    out["exact_route_b2_ms"] = exact_ms
     del q, k, v, do, bias_rg, bias
     torch.cuda.empty_cache()
-    return out
+    return exact_ms
 
 
 # --------------------------------------------------------------------------
@@ -3369,6 +3488,177 @@ def time_hd256(gen, results) -> dict:
     return out
 
 
+def check_hd256_preq(results) -> dict:
+    """Phase 7a, the pre-quantized forward's D = 256 instances
+    (``attention_fwd_preq_hd256.cu``) against their plain version, every
+    Q/K option (QOPTS) with bf16 and e4m3 V, through :func:`compare_preq`
+    (o cosine >= 0.9999, max-abs <= 2e-2, lse2 <= 1e-3): at the Gemma-7B
+    prefill layer (4, 16/16, 4096, 256), causal; at d 192 (padded) ragged
+    (1, 16/8, 3001), causal; masked, at Gemma-2-9B's local layer (1, 16/8,
+    8192, 256, window 4096) and over varlen's four packed prompts.  Then
+    each option as ``sageattn`` against exact fp32 attention at d 192
+    ragged and with window 1000 at (1, 16/8, 3001, 256), at the floors the
+    options have at 64 and 128: 0.999 for 8 bits, 0.97 for int4.  Inputs
+    from a generator of its own."""
+    import torch
+    from sageattention_tpu_torch.ops.attention_cuda import Masks
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(24)
+    key = "sage_attn_fwd_preq_hd256"
+
+    def operands(b, hq, hkv, s, d):
+        q, _, _ = biased_qk(gen, (b, hq, s, d))
+        _, k, v = biased_qk(gen, (b, hkv, s, d))
+        return q, k, v
+
+    cases = [("gemma-7b layer", (4, 16, 16, 4096, 256), True, (0, 7, 15), None),
+             ("d192 ragged", (1, 16, 8, 3001, 192), True, (0, 9, 15), None),
+             ("gemma-2-9b local layer, window 4096", (1, 16, 8, 8192, 256), True, (0, 8, 15),
+              Masks(window=4096)),
+             (f"varlen {VARLEN_LENS}", (1, 16, 8, sum(VARLEN_LENS), 256), True, (0, 8, 15),
+              varlen_masks()[2])]
+    for name, shape, causal, hs, masks in cases:
+        q, k, v = operands(*shape)
+        for opts in QOPTS.values():
+            compare_preq(f"hd256 {name}", q, k, padded(v), opts, causal, hs, results,
+                         masks=masks, key=key)
+        del q, k, v
+        torch.cuda.empty_cache()
+    out = {}
+    for name, d, kw in (("d192 ragged", 192, {}), ("window 1000", 256, {"window": 1000})):
+        q = torch.randn(1, 16, 3001, d, generator=gen, device="cuda").to(torch.bfloat16)
+        k, v = (torch.randn(1, 8, 3001, d, generator=gen, device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+        for oname, opts in QOPTS.items():
+            floor = SWEEP_FLOOR[opts.get("qk_bits", 8)]
+            out[f"{name} {oname} vs exact"] = op_vs_exact(
+                f"hd256 sageattn {name} {oname} at {(1, 16, 8, 3001, d)}", q, k, v, True,
+                {**kw, **opts}, floor=floor)
+        del q, k, v
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_hd256_preq(results) -> dict:
+    """Phase 7d, the pre-quantized D = 256 instances' times at the Gemma-7B
+    prefill layer (4, 16/16, 4096, 256), causal, bf16 V, every option,
+    beside the default D = 256 forward on the same layer, SDPA and the
+    bound of the default forward (the same operations); the plain
+    version of one option."""
+    import torch
+    import torch.nn.functional as F
+    from sageattention_tpu_torch.ops import attention_cuda, quant_cuda
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(26)
+    b, s = 4, 4096
+    hq, hkv, d = HD256_LAYER.values()
+    q, _, _ = biased_qk(gen, (b, hq, s, d))
+    _, k, v = biased_qk(gen, (b, hkv, s, d))
+    k_i8, k_sc, _ = quant_cuda.quant_k_fused_mean(k, group=128)
+    default_ms = cuda_ms(lambda: attention_cuda.sage_attention_fwd(
+        q, k_i8, k_sc, v, is_causal=True, q_fold=d**-0.5 * LOG2E), reps=10)
+    pairs = b * hq * s * (s + 1) // 2
+    t_ops = (2 * pairs * d / PEAK_INT8_OPS_S + 2 * pairs * d / PEAK_BF16_FLOP_S) * 1e3
+    by_opt = {}
+    for oname, opts in QOPTS.items():
+        q_i8, q_sc, k_q, k_qs, cb = preq_operands(q, k, opts)
+        by_opt[oname] = cuda_ms(lambda: attention_cuda.sage_attention_fwd_preq(
+            q_i8, q_sc, k_q, k_qs, v, is_causal=True, col_bias=cb), reps=10)
+        t_bytes = (q_i8.numel() + q_sc.numel() * 4 + k_q.numel() + k_qs.numel() * 4
+                   + v.numel() * 2 + q.numel() * 2) / PEAK_BYTES_S * 1e3
+        if oname == "int4+smooth_q":  # SageAttention2's setting carries the entry
+            plain_ms = cuda_ms(lambda: attention_cuda.sage_attention_preq_plain(
+                q_i8, q_sc, k_q, k_qs, v, is_causal=True, return_lse=False, col_bias=cb),
+                reps=2, warmup=1)
+            entry = dict(bound_ms=max(t_ops, t_bytes),
+                         bound_by="operations" if t_ops >= t_bytes else "bytes")
+        del q_i8, q_sc, k_q, k_qs, cb
+    sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), reps=10)
+    r = results["sage_attn_fwd_preq_hd256"]
+    r.update(ms=by_opt["int4+smooth_q"], plain_ms=plain_ms, library_ms=sdpa, **entry,
+             ms_by_option=by_opt, default_forward_ms=default_ms,
+             shape={"b": b, "hq": hq, "hkv": hkv, "s": s, "d": d, "causal": True,
+                    "option": "int4+smooth_q"})
+    log(f"time sage_attn_fwd_preq_hd256 at {(b, hq, hkv, s, d)} causal, bf16 V, by option "
+        f"{ {n: round(x, 4) for n, x in by_opt.items()} } ms; the default forward "
+        f"{default_ms:.4f} ms, SDPA {sdpa:.4f} ms, bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']}), plain (int4+smooth_q) {plain_ms:.4f} ms")
+    del q, k, v, k_i8, k_sc
+    torch.cuda.empty_cache()
+    return {"shape": [b, hq, hkv, s, d], "ms_by_option": by_opt, "default_forward_ms": default_ms,
+            "sdpa_ms": sdpa}
+
+
+# --------------------------------------------------------------------------
+# phase 9: kernel 13, the rate probe
+# --------------------------------------------------------------------------
+
+# the probe row that carries kernel 13's entry of the kernels line: the
+# instruction the port's attention kernels issue, at the d128 contraction
+PROBE_ENTRY_ROW = "qk s8 d128 mma.sync"
+PROBE_ENTRY_REPS = 256
+
+
+def run_probe(results) -> dict:
+    """Phase 9: ``utils/probe_mma.run``, the port of tools/probe_mxu.py.
+    Every probe row's kernel against its plain chain at 5 reps over the
+    rate's grid (int32 bit-exact, fp32 within 1e-3), its SASS's
+    tensor-core instructions counted against a rep's (``cuobjdump
+    -sass``), its rate at full occupancy from the slope between two rep
+    counts beside its peak (above 105 % fails), then the library rows; the
+    card's name, power limit and SM clock before and after.  The counts
+    are zeroed after the checks, just before the rates, and read just
+    after: only the probe launches.  Kernel 13's entry carries
+    PROBE_ENTRY_ROW at the rates' grid and PROBE_ENTRY_REPS reps: its
+    output against the plain chain's on the same inputs (int32, bit for
+    bit), the kernel's time, the plain chain's, and the operations bound
+    (no one PyTorch call computes the perturbed chain)."""
+    import torch
+    from sageattention_tpu_torch.utils import probe_mma
+
+    table = probe_mma.run(log=log, before_rates=zero_counts)
+    launches = read_counts()
+    log(f"probe launches: { {n: c for n, c in launches.items() if c} }")
+    for name, n in launches.items():
+        want = n if name == "probe_mma" else 0
+        require(n == want and (name != "probe_mma" or n > 0),
+                f"probe: {name} launched {n} times")
+        results[name].setdefault("launches_by_path", {})["probe"] = n
+    row = next(r for r in probe_mma.ROWS if r.name == PROBE_ENTRY_ROW)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    m = probe_mma.grid_rows(row, sms)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(27)
+    x, y = probe_mma.inputs(row, m, gen)
+    reps = PROBE_ENTRY_REPS
+    got = probe_mma.chain(row, x, y, reps)
+    want = probe_mma.plain_chain(x, y, reps)
+    err = (got.long() - want.long()).abs().max().item()
+    log(f"probe_mma ({row.name}, {m} rows, {reps} reps) vs its plain chain: max-abs {err}, "
+        f"{(got != want).sum().item()} of {got.numel()} int32 results differ")
+    require(got.dtype == want.dtype == torch.int32 and torch.equal(got, want),
+            "probe_mma: the kernel's chain differs from the plain chain at the entry's inputs")
+    del got, want
+    ops = probe_mma.ops_per_rep(row, m) * reps
+    moved = x.numel() + y.numel() + m * row.n * 4
+    t_ops, t_bytes = ops / PEAK_INT8_OPS_S * 1e3, moved / PEAK_BYTES_S * 1e3
+    r = results["probe_mma"]
+    r.update(ms=cuda_ms(lambda: probe_mma.chain(row, x, y, reps), reps=5),
+             plain_ms=cuda_ms(lambda: probe_mma.plain_chain(x, y, reps), reps=1, warmup=1),
+             bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+             library_ms=None, max_abs_err=float(err),
+             shape={"row": row.name, "m": m, "n": row.n, "k": row.k, "reps": reps},
+             rates={t["row"]: {"rate": t["rate"], "unit": t["unit"],
+                               "share_of_peak": t["share_of_peak"]} for t in table["rows"]})
+    log(f"time probe_mma ({row.name}, {m} rows, {reps} reps): {r['ms']:.4f} ms (bound "
+        f"{r['bound_ms']:.4f} ms, {r['bound_by']}), plain chain {r['plain_ms']:.4f} ms")
+    del x, y
+    torch.cuda.empty_cache()
+    return table
+
+
 # --------------------------------------------------------------------------
 # phase 8: the parallel slice: kernels 11-12 with the owned page mask,
 # sharded serving, the KV ring (a world of four run rank after rank on the
@@ -3888,6 +4178,8 @@ def main() -> int:
         "sage_paged_decode_window": {
             "route": "cuda", "source": src + "paged_decode.cu",
             "replaces": "sageattention_tpu/ops/paged_decode_pallas.py:116"},
+        "probe_mma": {"route": "cuda", "source": src + "probe_mma.cu",
+                      "replaces": "tools/probe_mxu.py:68"},
     }
     for name in HD256:  # the head-dim-256 instances, reported apart
         results[name + "_hd256"] = {
@@ -3930,6 +4222,10 @@ def main() -> int:
     hd256 = {"attention": check_hd256_attention(gen256, results),
              "backward": check_hd256_backward(gen256, results)}
     check_hd256_decode(gen256, results)
+    # the Q/K options and the trainable bias at 256, each from a generator of its own
+    hd256["preq"] = check_hd256_preq(results)
+    hd256["bias_backward"] = check_bias_backward(results, BIAS_CASES_HD256, seed=25,
+                                                 suffix="_hd256")
     log(f"head dim 256 checks: {time.perf_counter() - t_h:.1f} s")
     log(f"kernel checks: {time.perf_counter() - t_phase:.1f} s")
     servers = {}
@@ -3965,6 +4261,10 @@ def main() -> int:
     t_phase = time.perf_counter()
     hd256["trainer"] = run_hd256_train(results)
     log(f"head dim 256 trainer phase: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    hd256["bias_trainer"] = run_bias_train(results, HD256_LAYER, seed=28)
+    hd256["bias_trainer"]["exact_route_step_ms"] = time_bias_exact_step(HD256_LAYER, seed=28)
+    log(f"head dim 256 bias trainer phase: {time.perf_counter() - t_phase:.1f} s")
     for name, fn in (("sharded_paged", run_sharded_paged), ("sharded_dense", run_sharded_dense),
                      ("ring", run_ring)):
         t_phase = time.perf_counter()
@@ -3980,9 +4280,15 @@ def main() -> int:
     time_decode(gen, results)
     masked["times"] = time_masked(gen, results)
     bias["times"] = time_bias_backward(results)
+    bias["times"]["exact_route_b2_ms"] = time_bias_exact_route()
     qopts_times = time_qopts(gen, results)
     hd256["times"] = time_hd256(gen256, results)
+    hd256["preq_times"] = time_hd256_preq(results)
+    hd256["bias_times"] = time_bias_backward(results, HD256_LAYER, seed=29)
     log(f"timing phase: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    probe = run_probe(results)
+    log(f"probe phase: {time.perf_counter() - t_phase:.1f} s")
 
     # a head-dim-256 instance, or kernel 12 with owned, that no path of this
     # run launches (it is checked and timed only) goes inside its kernel's entry
@@ -3990,7 +4296,7 @@ def main() -> int:
     for name in [n for n in results if n not in MAIN_PATH]:
         r = results.pop(name)
         sfx = next(x for x in nested if name.endswith(x))
-        results[name.removesuffix(sfx)][nested[sfx]] = {**r, "main_path": None}
+        results[name.removesuffix(sfx)][nested[sfx]] = {**r, "name": name, "main_path": None}
     for name, r in results.items():
         # each kernel's launches on the main path that runs it (MAIN_PATH);
         # launches_by_path has every path's
@@ -4009,6 +4315,7 @@ def main() -> int:
     log(json.dumps({"qopts": {"accuracy_sweep": sweep, "times": qopts_times}}))
     log(json.dumps({"hd256": hd256}))
     log(json.dumps({"parallel": parallel}))
+    log(json.dumps({"probe": probe}))
     require(not sweep["failed"], f"accuracy sweep: {sweep['failed']}")
     log(json.dumps({"kernels": kernels}))
     log(f"card: {card}")

@@ -44,11 +44,10 @@ bool ``attn_mask`` (True = attend), an additive ``attn_bias`` (a non-bool
 Under grad ``window`` and a lone ``attn_bias`` are differentiable; ids,
 positions, a bool mask (with a bias or without) and a float
 ``attn_mask`` raise ``NotImplementedError``, as the JAX package has no
-gradient for them.  Head dims above 256, and the Q/K options above 128,
-raise ``NotImplementedError`` naming their ROADMAP item; under grad a
-bias at head dims above 128 takes exact recompute.  ``block_q`` /
-``block_k`` / ``impl`` raise too: the port picks its own launch
-configuration.
+gradient for them.  Head dims above 256 raise ``NotImplementedError``
+naming their ROADMAP item; every option runs at every head dim up to 256.
+``block_q`` / ``block_k`` / ``impl`` raise too: the port picks its own
+launch configuration.
 """
 
 from __future__ import annotations
@@ -77,10 +76,8 @@ def _to_hnd(x: torch.Tensor, layout: str) -> torch.Tensor:
     raise ValueError(f"tensor_layout must be 'HND' or 'NHD', got {layout!r}")
 
 
-# the largest head dim the kernels take, padded; the Q/K options' (the
-# pre-quantized forward's)
+# the largest head dim the kernels take, padded
 MAX_HEAD_DIM = 256
-MAX_HEAD_DIM_QK_OPTIONS = 128
 
 
 def _pad_head_dim(d: int) -> int:
@@ -263,12 +260,6 @@ def _forward(q, k, v, *, is_causal: bool, sm_scale: float | None, smooth_k: bool
             f"head_dim {d_og} > {MAX_HEAD_DIM} is not ported (ROADMAP: limits, head dims "
             f"above 256; the JAX package pads them to 384 and 512)"
         )
-    if not opts.default and d_og > MAX_HEAD_DIM_QK_OPTIONS:
-        raise NotImplementedError(
-            f"smooth_q, qk_bits=4 and qk_quant_gran at head_dim {d_og} > "
-            f"{MAX_HEAD_DIM_QK_OPTIONS} are not ported (ROADMAP: kernel item 1, the PREQ "
-            f"instances at d 256)"
-        )
     work = _work_dtype(q.dtype)
     d_pad = _pad_head_dim(d_og)
     v_q, v_scale, v_mean = _quant_v(v, pv_dtype=pv_dtype, smooth_v=smooth_v, d_pad=d_pad)
@@ -354,13 +345,13 @@ def _refuse_grad(masks: Masks | None, attn_mask) -> None:
 
 def _fused_bias(bias, q: torch.Tensor, k: torch.Tensor, window, opts: QKOptions) -> bool:
     """Whether the fused backward takes the call: no bias, or a per-head
-    [b, hq, sq, sk] one without a window at a head dim up to 128 (the
-    backward's bias instances have none at 256), and no Q/K option
-    (``attention_bwd_pallas.py:418-427``, ``autodiff.py:106-114`` of the JAX
-    package).  The rest is differentiated by exact recompute."""
+    [b, hq, sq, sk] one without a window, at every head dim up to 256, and
+    no Q/K option (``attention_bwd_pallas.py:418-427, 486``,
+    ``autodiff.py:106-114`` of the JAX package).  The rest is
+    differentiated by exact recompute."""
     if not opts.default:
         return False
-    return bias is None or (window is None and q.shape[-1] <= 128
+    return bias is None or (window is None
                             and tuple(bias.shape) == (*q.shape[:3], k.shape[2]))
 
 

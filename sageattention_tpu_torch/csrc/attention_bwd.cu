@@ -39,7 +39,7 @@
 // A window keeps col > row - window wherever causal keeps col <= row, in
 // instances of its own (WINDOW), so the others keep their registers.
 //
-// Head dim 256 (every head dim in (128, 256], padded; not with a bias).  dQ
+// Head dim 256 (every head dim in (128, 256], padded; with a bias too).  dQ
 // keeps its fp32 accumulator of 16 x 256 / 32 = 128 registers a thread and
 // reads Q's and dO's A fragments from shared memory for each chunk, where
 // the smaller head dims hold them (96 registers more at 256); its layout
@@ -49,7 +49,8 @@
 // kDV (S, P, dV; V is not read) and then kDK (S and P again, dP, dS, dK),
 // 137 KB of shared memory each.  The second pass repeats Q.K^T's 2d int8
 // operations a pair, against 8d int8 and bf16 operations of the two.
-// Every (causal, window) combination has both parts.
+// Every (causal, window) combination has both parts, and so has each causal
+// flag of the bias instances.
 //
 // An additive bias (BIAS instances, attention_bwd_pallas.py:146-204,
 // 311-316): a per-head [b, hq, sq, sk] fp32 or bf16 tensor, which the
@@ -65,7 +66,11 @@
 // consecutive KV columns of each of 4 Q rows, whole 32-byte sectors in fp32,
 // so the bias needs no transposed copy (the TPU launcher's one XLA
 // transpose, :931-940).  A window with a bias is not taken: the JAX package
-// sends it to its exact backward (:423-426), and so does the port.
+// sends it to its exact backward (:423-426), and so does the port.  At D =
+// 256 the bias instances keep this design: dQ (fragments from shared memory)
+// writes dBias as at 64 and 128, so the backward has one interface at every
+// head dim, and each of the two dK/dV passes reads the bias for its P: the
+// bias is read three times (dQ, dV, dK) and dBias written once, by dQ.
 //
 // Ragged edges: K/V rows past sk and Q rows past sq are zero-filled in
 // shared memory, their P is set to 0 by a select (no inf - inf and no
@@ -631,62 +636,63 @@ int launch_dq(int causal, int window, dim3 grid, cudaStream_t st, const BwdArgs&
   }
 }
 
-// the dKV instance of PART for (causal, window), without a bias
-template <int D, int PART>
-int launch_dkv_part(int causal, int window, dim3 grid, cudaStream_t st, const BwdArgs& a) {
+// the dKV instance of PART for (causal, window) or, with BIAS, (causal)
+template <int D, bool BIAS, int PART>
+int launch_dkv_part(int causal, int window, dim3 grid, cudaStream_t st, const BwdArgs& a,
+                    const BiasOf<BIAS>& ba) {
   constexpr int smem = DkvLayout<D>::bytes;
-  if (window > 0)
-    return launch(sage_attn_bwd_dkv_kernel<D, true, true, false, PART>, smem, grid, st, a, NoBias{});
-  return causal
-             ? launch(sage_attn_bwd_dkv_kernel<D, true, false, false, PART>, smem, grid, st, a, NoBias{})
-             : launch(sage_attn_bwd_dkv_kernel<D, false, false, false, PART>, smem, grid, st, a, NoBias{});
+  if constexpr (BIAS) {
+    return causal
+               ? launch(sage_attn_bwd_dkv_kernel<D, true, false, true, PART>, smem, grid, st, a, ba)
+               : launch(sage_attn_bwd_dkv_kernel<D, false, false, true, PART>, smem, grid, st, a, ba);
+  } else {
+    if (window > 0)
+      return launch(sage_attn_bwd_dkv_kernel<D, true, true, false, PART>, smem, grid, st, a, ba);
+    return causal
+               ? launch(sage_attn_bwd_dkv_kernel<D, true, false, false, PART>, smem, grid, st, a, ba)
+               : launch(sage_attn_bwd_dkv_kernel<D, false, false, false, PART>, smem, grid, st, a, ba);
+  }
 }
 
 template <int D, bool BIAS>
 int launch_dkv(int causal, int window, dim3 grid, cudaStream_t st, const BwdArgs& a,
               const BiasOf<BIAS>& ba) {
-  constexpr int smem = DkvLayout<D>::bytes;
-  if constexpr (BIAS) {
-    return causal ? launch(sage_attn_bwd_dkv_kernel<D, true, false, true>, smem, grid, st, a, ba)
-                  : launch(sage_attn_bwd_dkv_kernel<D, false, false, true>, smem, grid, st, a, ba);
-  } else if constexpr (D == 256) {
+  if constexpr (D == 256) {
     // dV, then dK: the two fp32 accumulators together would take 256
     // registers a thread; the dK launch computes S and P again
-    const int e = launch_dkv_part<D, kDV>(causal, window, grid, st, a);
-    return e != 0 ? e : launch_dkv_part<D, kDK>(causal, window, grid, st, a);
+    const int e = launch_dkv_part<D, BIAS, kDV>(causal, window, grid, st, a, ba);
+    return e != 0 ? e : launch_dkv_part<D, BIAS, kDK>(causal, window, grid, st, a, ba);
   } else {
-    return launch_dkv_part<D, kDKV>(causal, window, grid, st, a);
+    return launch_dkv_part<D, BIAS, kDKV>(causal, window, grid, st, a, ba);
   }
 }
 
-// head dims 64, 128 and, without a bias, 256
-bool bad_shape(int hq, int hkv, int d, int group, int causal, int window, bool bias) {
-  return group != KGROUP || hkv <= 0 || hq % hkv != 0 ||
-         (d != 64 && d != 128 && (d != 256 || bias)) || window < 0 || (window > 0 && !causal);
+// head dims 64, 128 and 256, with a bias or without
+bool bad_shape(int hq, int hkv, int d, int group, int causal, int window) {
+  return group != KGROUP || hkv <= 0 || hq % hkv != 0 || (d != 64 && d != 128 && d != 256) ||
+         window < 0 || (window > 0 && !causal);
 }
 
 // The entry points' common body: check, grid, instance
 template <bool BIAS>
 int run_dq(const BwdArgs& a, const BiasOf<BIAS>& ba, int b, int d, int causal, int group,
            void* stream) {
-  if (bad_shape(a.hq, a.hkv, d, group, causal, a.window, BIAS)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(a.hq, a.hkv, d, group, causal, a.window)) return (int)cudaErrorInvalidValue;
   const dim3 grid((a.sq + DQ_BM - 1) / DQ_BM, a.hq, b);
   cudaStream_t st = (cudaStream_t)stream;
   if (d == 64) return launch_dq<64, BIAS>(causal, a.window, grid, st, a, ba);
-  if constexpr (!BIAS)
-    if (d == 256) return launch_dq<256, BIAS>(causal, a.window, grid, st, a, ba);
+  if (d == 256) return launch_dq<256, BIAS>(causal, a.window, grid, st, a, ba);
   return launch_dq<128, BIAS>(causal, a.window, grid, st, a, ba);
 }
 
 template <bool BIAS>
 int run_dkv(const BwdArgs& a, const BiasOf<BIAS>& ba, int b, int d, int causal, int group,
             void* stream) {
-  if (bad_shape(a.hq, a.hkv, d, group, causal, a.window, BIAS)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(a.hq, a.hkv, d, group, causal, a.window)) return (int)cudaErrorInvalidValue;
   const dim3 grid((a.sk + KV_BM - 1) / KV_BM, a.hkv, b);
   cudaStream_t st = (cudaStream_t)stream;
   if (d == 64) return launch_dkv<64, BIAS>(causal, a.window, grid, st, a, ba);
-  if constexpr (!BIAS)
-    if (d == 256) return launch_dkv<256, BIAS>(causal, a.window, grid, st, a, ba);
+  if (d == 256) return launch_dkv<256, BIAS>(causal, a.window, grid, st, a, ba);
   return launch_dkv<128, BIAS>(causal, a.window, grid, st, a, ba);
 }
 
@@ -725,7 +731,7 @@ extern "C" int sage_attn_bwd_dkv(const void* q_i8, const void* q_scale, const vo
 }
 
 // The bias instances: the operands of sage_attn_bwd_dq / sage_attn_bwd_dkv
-// without the window, d 64 or 128, and the bias: fp32 or bf16 (bias_bf16) [b,hq,sq,sk],
+// without the window, d 64, 128 or 256, and the bias: fp32 or bf16 (bias_bf16) [b,hq,sq,sk],
 // contiguous, indexed by the query head; dbias (dQ only) its shape and type,
 // or null for no dBias.  Every element of dbias is written: dS where the
 // kernel computes it, 0 right of the causal diagonal.

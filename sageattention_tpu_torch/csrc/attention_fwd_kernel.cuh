@@ -3,9 +3,10 @@
 // The kernels shared by attention_fwd.cu (no masks: MASKED = false),
 // attention_fwd_masked.cu (MASKED = true) and attention_fwd_preq.cu (PREQ =
 // true, both ways of MASKED), at head dims 64 and 128, and by
-// attention_fwd_hd256.cu and attention_fwd_masked_hd256.cu at 256 (16
-// instances each, no PREQ); their body is attention_fwd_body.cuh.  Each
-// source instantiates only its own kernels, so the five build in
+// attention_fwd_hd256.cu, attention_fwd_masked_hd256.cu and
+// attention_fwd_preq_hd256.cu (PREQ, both ways of MASKED) at 256, 16
+// instances each; their body is attention_fwd_body.cuh.  Each source
+// instantiates only its own kernels, so the six build in
 // parallel, and the unmasked instantiations compile to the code they had
 // before masks existed: every masked statement sits under `if constexpr
 // (MASKED)`, every pre-quantized one under `if constexpr (PREQ)`, and the
@@ -360,11 +361,22 @@ int launch_fwd_d(const Args& a, const MaskOf<MASKED>& mk, int d, int causal, int
                   : launch_c<D, __nv_bfloat16, MASKED, false>(causal, v_kind, a, mk, NoPreq{}, st);
 }
 
+// the PREQ instances of the one head dim D: causal x V kind (8 of them; the
+// output type is pq.o_f32); checks the shape arguments first
+template <int D, bool MASKED>
+int launch_fwd_preq_d(const Args& a, const MaskOf<MASKED>& mk, const PreqArgs& pq, int d,
+                      int causal, int v_kind, int group, void* stream) {
+  if (group != BN || a.hkv <= 0 || a.hq % a.hkv != 0 || d != D || v_kind < 0 || v_kind > 3)
+    return (int)cudaErrorInvalidValue;
+  return launch_c<D, __nv_bfloat16, MASKED, true>(causal, v_kind, a, mk, pq, (cudaStream_t)stream);
+}
+
 // checks the shape arguments and launches one of the instantiations of
 // (MASKED, PREQ) at head dim 64 or 128: causal x V kind, and the q dtype
 // without PREQ (32 a source); PREQ's output type is its argument o_f32.
 // The D = 256 instances are sources of their own (attention_fwd_hd256.cu,
-// attention_fwd_masked_hd256.cu, through launch_fwd_d), which build beside
+// attention_fwd_masked_hd256.cu through launch_fwd_d, and
+// attention_fwd_preq_hd256.cu through launch_fwd_preq_d), which build beside
 // these in parallel
 template <bool MASKED, bool PREQ>
 int launch_fwd(const Args& a, const MaskOf<MASKED>& mk, const PreqOf<PREQ>& pq, int d,
@@ -373,12 +385,8 @@ int launch_fwd(const Args& a, const MaskOf<MASKED>& mk, const PreqOf<PREQ>& pq, 
     return d == 64 ? launch_fwd_d<64, MASKED>(a, mk, d, causal, q_is_f32, v_kind, group, stream)
                    : launch_fwd_d<128, MASKED>(a, mk, d, causal, q_is_f32, v_kind, group, stream);
   } else {
-    if (group != BN || a.hkv <= 0 || a.hq % a.hkv != 0 || (d != 64 && d != 128) ||
-        v_kind < 0 || v_kind > 3)
-      return (int)cudaErrorInvalidValue;
-    cudaStream_t st = (cudaStream_t)stream;
-    return d == 64 ? launch_c<64, __nv_bfloat16, MASKED, PREQ>(causal, v_kind, a, mk, pq, st)
-                   : launch_c<128, __nv_bfloat16, MASKED, PREQ>(causal, v_kind, a, mk, pq, st);
+    return d == 64 ? launch_fwd_preq_d<64, MASKED>(a, mk, pq, d, causal, v_kind, group, stream)
+                   : launch_fwd_preq_d<128, MASKED>(a, mk, pq, d, causal, v_kind, group, stream);
   }
 }
 

@@ -65,6 +65,11 @@ SIGNATURES = {
         # sage_attn_fwd_masked's masks
         "sage_attn_fwd_preq": [P] * 8 + [I] * 12 + [P] * 3 + [I] + [P] * 9 + [LL] * 10 + [I] * 2,
     },
+    # the pre-quantized forward's D = 256 instances, with its operands
+    "attention_fwd_preq_hd256": {
+        "sage_attn_fwd_preq_hd256": [P] * 8 + [I] * 12 + [P] * 3 + [I] + [P] * 9 + [LL] * 10
+        + [I] * 2,
+    },
     "attention_bwd": {
         "sage_attn_bwd_dq": [P] * 10 + [I] * 9 + [F, P],
         "sage_attn_bwd_dkv": [P] * 11 + [I] * 9 + [F, P],
@@ -72,6 +77,14 @@ SIGNATURES = {
         # type and the group; sm_scale, the stream
         "sage_attn_bwd_dq_bias": [P] * 12 + [I] * 9 + [F, P],
         "sage_attn_bwd_dkv_bias": [P] * 12 + [I] * 9 + [F, P],
+    },
+    "probe_mma": {
+        # wg, op, n, ks; x, y, out; reps, grid; blocks_per_sm (or NULL), the stream
+        "probe_mma": [I] * 4 + [P] * 3 + [I] * 2 + [P] * 2,
+        # body; x, out; reps, grid; blocks_per_sm (or NULL), the stream
+        "probe_elem": [I, P, P, I, I, P, P],
+        # copy; src, dst (or the partial sums); n16, reps, grid, the stream
+        "probe_hbm": [I, P, P, LL, I, I, P],
     },
     "decode": {
         "sage_decode": [P] * 9 + [I] * 10 + [F, P],

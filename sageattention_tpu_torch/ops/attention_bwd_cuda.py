@@ -23,9 +23,9 @@ asked (``has_bias`` / ``emit_dbias``, ``attention_bwd_pallas.py:82-204,
 238-316``), into a tensor it allocates uninitialised: the kernel writes
 every element, the zeros right of the causal diagonal included.
 
-Head dims 64, 128 and, without a bias, 256 (the D = 256 instances: dQ
-reads its Q and dO fragments from shared memory, dK/dV run in two
-launches, dV then dK; ``csrc/attention_bwd.cu``).
+Head dims 64, 128 and 256, with a bias or without (the D = 256 instances:
+dQ reads its Q and dO fragments from shared memory, dK/dV run in two
+launches, dV then dK, each reading the bias; ``csrc/attention_bwd.cu``).
 
 On a CPU tensor a wrapper runs its plain version
 (:func:`reference.quantized_attention_bwd_reference`); on a CUDA tensor it
@@ -33,7 +33,8 @@ launches its kernel or raises.  ``<function>.launches`` counts the
 launches without a bias at head dims 64 and 128,
 ``<function>.hd256_launches`` those at 256 (one a call, the two dK/dV
 passes together), ``<function>.bias_launches`` those of the bias
-instances (``sage_attn_bwd_dq_bias``, ``sage_attn_bwd_dkv_bias``).
+instances (``sage_attn_bwd_dq_bias``, ``sage_attn_bwd_dkv_bias``) at 64
+and 128, ``<function>.bias_hd256_launches`` theirs at 256.
 """
 
 from __future__ import annotations
@@ -99,9 +100,6 @@ def _check(q_i8, q_scale, k_i8, k_scale, lse2, dvec, bias, **bf16):
             raise ValueError(f"{name} must be contiguous")
     if d not in (64, 128, 256):
         raise ValueError(f"head dim {d}: the kernels take 64, 128 or 256 (pad first)")
-    if d == 256 and bias is not None:
-        raise ValueError("head dim 256 with a bias: no kernel instance (ROADMAP: the BIAS "
-                         "instances at d 256; sageattn takes the exact route)")
     if hq % hkv:
         raise ValueError(f"hq={hq} is not a multiple of hkv={hkv}")
 
@@ -156,13 +154,17 @@ def sage_attention_bwd_dq(q_i8, q_scale, k_i8, k_scale, k_sm, v, do, lse2, dvec,
             sage_attention_bwd_dq.launches += 1
     else:
         _build.check(err, "sage_attn_bwd_dq_bias")
-        sage_attention_bwd_dq.bias_launches += 1
+        if d == 256:
+            sage_attention_bwd_dq.bias_hd256_launches += 1
+        else:
+            sage_attention_bwd_dq.bias_launches += 1
     return (dq, dbias) if need_dbias else dq
 
 
 sage_attention_bwd_dq.launches = 0
 sage_attention_bwd_dq.hd256_launches = 0
 sage_attention_bwd_dq.bias_launches = 0
+sage_attention_bwd_dq.bias_hd256_launches = 0
 
 
 def sage_attention_bwd_dkv(q_i8, q_scale, q_bf, k_i8, k_scale, v, do, lse2, dvec, *,
@@ -204,10 +206,14 @@ def sage_attention_bwd_dkv(q_i8, q_scale, q_bf, k_i8, k_scale, v, do, lse2, dvec
             sage_attention_bwd_dkv.launches += 1
     else:
         _build.check(err, "sage_attn_bwd_dkv_bias")
-        sage_attention_bwd_dkv.bias_launches += 1
+        if d == 256:
+            sage_attention_bwd_dkv.bias_hd256_launches += 1
+        else:
+            sage_attention_bwd_dkv.bias_launches += 1
     return dk, dv
 
 
 sage_attention_bwd_dkv.launches = 0
 sage_attention_bwd_dkv.hd256_launches = 0
 sage_attention_bwd_dkv.bias_launches = 0
+sage_attention_bwd_dkv.bias_hd256_launches = 0

@@ -13,12 +13,12 @@ which says what bounds it and what this first version leaves for later):
 :func:`sage_attention_fwd` (``csrc/attention_fwd.cu``, no masks),
 :func:`sage_attention_fwd_masked` (``csrc/attention_fwd_masked.cu``) and
 :func:`sage_attention_fwd_preq` (``csrc/attention_fwd_preq.cu``, with
-masks or without), at head dims 64 and 128.  At 256 the first two launch
-the instances of ``csrc/attention_fwd_hd256.cu`` and
-``csrc/attention_fwd_masked_hd256.cu`` and count them apart, in
-``<wrapper>.hd256_launches``; the pre-quantized kernel has no D = 256
-instances (ROADMAP).  A masked row with no live key gives o = 0 and lse2
-= -inf, as the TPU kernel does.
+masks or without), at head dims 64 and 128.  At 256 they launch the
+instances of ``csrc/attention_fwd_hd256.cu``,
+``csrc/attention_fwd_masked_hd256.cu`` and
+``csrc/attention_fwd_preq_hd256.cu`` and count them apart, in
+``<wrapper>.hd256_launches``.  A masked row with no live key gives o = 0
+and lse2 = -inf, as the TPU kernel does.
 
 The H100 launch configuration is fixed: 64 Q rows per CTA, KV tiles of
 ``K_GROUP`` = 128 columns (64 at head dim 256, two to a group), and
@@ -357,9 +357,6 @@ def _check_preq(q_i8, q_scale, k_i8, k_scale, v, v_scale, v_mean, col_bias, out_
     }, ("col_bias",))
     _check_kv(q_i8.device, q_i8.shape, k_i8, k_scale, v, v_scale, v_mean,
               ks_cols=sk if k_scale.shape[-1] == sk else None)
-    if d == 256:
-        raise ValueError("head dim 256: the pre-quantized kernel takes 64 or 128 (ROADMAP: "
-                         "the PREQ instances at d 256)")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"out_dtype must be bf16 or fp32, got {out_dtype}")
 
@@ -368,8 +365,8 @@ def sage_attention_fwd_preq(q_i8, q_scale, k_i8, k_scale, v, v_scale=None, v_mea
                             is_causal: bool, return_lse: bool = False,
                             out_dtype=torch.bfloat16, col_bias=None,
                             masks: Masks | None = None):
-    """The forward on pre-quantized operands (``csrc/attention_fwd_preq.cu``),
-    HND: q_i8 [b,hq,sq,d] int8 codes (+-127, or +-7 at 4 bits) with
+    """The forward on pre-quantized operands (``csrc/attention_fwd_preq.cu``;
+    at head dim 256 ``csrc/attention_fwd_preq_hd256.cu``), HND: q_i8 [b,hq,sq,d] int8 codes (+-127, or +-7 at 4 bits) with
     q_scale [b,hq,sq] fp32 holding ``sm_scale * log2(e)``; k_i8 with
     k_scale [b,hkv,ceil(sk/K_GROUP)] per tile or [b,hkv,sk] per row; V as
     :func:`sage_attention_fwd` takes it; ``col_bias`` [b,hq,sk] fp32 in the
@@ -396,8 +393,10 @@ def sage_attention_fwd_preq(q_i8, q_scale, k_i8, k_scale, v, v_scale=None, v_mea
     def ptr(x):
         return x.data_ptr() if x is not None else None
 
+    hd256 = d == 256
     with torch.cuda.device(q_i8.device):
-        err = _build.lib("attention_fwd_preq").sage_attn_fwd_preq(
+        lib = _build.lib("attention_fwd_preq_hd256" if hd256 else "attention_fwd_preq")
+        err = (lib.sage_attn_fwd_preq_hd256 if hd256 else lib.sage_attn_fwd_preq)(
             q_i8.data_ptr(), k_i8.data_ptr(), k_scale.data_ptr(), v.data_ptr(), ptr(v_scale),
             ptr(v_mean), o.data_ptr(), ptr(lse2), b, hq, hkv, sq, sk, d, int(is_causal),
             V_TYPES.index(v.dtype), int(return_lse), K_GROUP, int(k_scale.shape[-1] == sk),
@@ -408,9 +407,13 @@ def sage_attention_fwd_preq(q_i8, q_scale, k_i8, k_scale, v, v_scale=None, v_mea
             *broadcast_strides(m.bias), *live_st, window_arg(m.window, is_causal),
             int(m.bias is not None and m.bias.dtype == torch.bfloat16),
         )
-    _build.check(err, "sage_attn_fwd_preq")
-    sage_attention_fwd_preq.launches += 1
+    _build.check(err, "sage_attn_fwd_preq_hd256" if hd256 else "sage_attn_fwd_preq")
+    if hd256:
+        sage_attention_fwd_preq.hd256_launches += 1
+    else:
+        sage_attention_fwd_preq.launches += 1
     return (o, lse2) if return_lse else o
 
 
 sage_attention_fwd_preq.launches = 0
+sage_attention_fwd_preq.hd256_launches = 0

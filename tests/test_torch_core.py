@@ -209,7 +209,8 @@ def test_gradients_and_large_head_dims_raise():
     requires grad gives a differentiable output, and what the forward
     refuses the differentiable path refuses too.  Head dims up to 256 run,
     forward and backward (padded to 256, tests/test_torch_hd256.py); above
-    256 they raise, and the Q/K options above 128, naming ROADMAP."""
+    256 they raise naming ROADMAP; the Q/K options run up to 256
+    (tests/test_torch_preq_hd256.py)."""
     x = torch.zeros(1, 1, 128, 64, requires_grad=True)
     assert sageattn(x, x, x).requires_grad
     for d in (192, 256):
@@ -223,9 +224,10 @@ def test_gradients_and_large_head_dims_raise():
         sageattn(y, y, y)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sageattn(y.clone().requires_grad_(), y, y)
-    y = torch.zeros(1, 1, 128, 256)
+    y = torch.randn(1, 1, 128, 256, generator=torch.Generator().manual_seed(5))
     for opts in ({"smooth_q": True}, {"qk_bits": 4}, {"qk_quant_gran": "per_block"}):
+        assert sageattn(y, y, y, **opts).shape == y.shape
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            sageattn(y, y, y, **opts)
+            sageattn(*[torch.zeros(1, 1, 128, 320)] * 3, **opts)
     with pytest.raises(TypeError):
         sageattn(y, y, y, not_an_option=1)

@@ -36,8 +36,14 @@ numpy inputs.  The JAX package pads a head dim in (128, 256] to 256
   converted weights, fp32, over a prompt and 3 teacher-forced decode steps
   through the dense and the paged int8 cache: cosine >= 0.99999, max-abs
   <= 5e-3 of the largest logit (``tests/test_torch_llm.py``'s fp32 bound).
-* The limits: head dims above 256, and the Q/K options above 128, raise
-  naming ROADMAP; a trainable bias at 256 takes exact recompute.
+* A trainable per-head bias at 256 takes the fused route (the backward's
+  bias instances at 256) and agrees with the JAX fused bias VJP
+  (``tests/test_torch_bias_grad.py``'s ``_jax_fused_bias_vjp``, Pallas in
+  interpret mode) at sq = sk = 256: cosine >= 0.99999 on dq, dk, dv and
+  dBias; with a window it takes exact recompute, held to exact attention.
+* The limits: head dims above 256 raise naming ROADMAP; the Q/K options
+  run at 256 (``tests/test_torch_preq_hd256.py`` holds them to the JAX
+  package).
 """
 
 import zlib
@@ -386,22 +392,45 @@ def test_grads_where_jax_falls_back_match_exact_vjp(d, s):
 
 
 def test_bias_at_hd256_takes_exact_recompute():
-    """A trainable per-head bias at 256 has no fused instance: exact
-    recompute, whose gradients are exact attention's with the bias."""
-    s, d = 130, 256
+    """A trainable per-head bias with a window at 256 (the JAX package sends
+    a bias with a window to its exact VJP, and so does the port): exact
+    recompute, whose gradients are exact attention's with the bias and the
+    band."""
+    s, d, w = 130, 256, 50
     q, k, v, do = (_rand(1, (1, 2, s, d)), _rand(2, (1, 2, s, d)), _rand(3, (1, 2, s, d)),
                    _rand(4, (1, 2, s, d)))
     bias = _rand(5, (1, 2, s, s), scale=0.5)
     xs = [_t(x, True) for x in (q, k, v, bias)]
-    out = sageattn(*xs[:3], attn_bias=xs[3])
+    out = sageattn(*xs[:3], attn_bias=xs[3], is_causal=True, window=w)
     assert "RecomputeFunction" in type(out.grad_fn).__name__
     got = torch.autograd.grad(out, xs, _t(do))
     xr = [_t(x, True) for x in (q, k, v, bias)]
-    o_r = autodiff._exact_attention(*xr, is_causal=False, sm_scale=None, window=None,
+    o_r = autodiff._exact_attention(*xr, is_causal=True, sm_scale=None, window=w,
                                     return_lse=False)
     want = torch.autograd.grad(o_r, xr, _t(do))
-    for g, w in zip(got, want):
-        assert cosine_similarity(g, w) >= 0.99999
+    for g, w_ in zip(got, want):
+        assert cosine_similarity(g, w_) >= 0.99999
+
+
+@pytest.mark.parametrize("d,causal", [(256, True), (256, False), (192, True)])
+def test_bias_at_hd256_takes_the_fused_route(d, causal):
+    """A trainable per-head [b, hq, sq, sk] bias at 256 (and 192, padded)
+    takes ``SageAttnFunction`` and the backward's bias instances at 256; its
+    four gradients against the JAX fused bias VJP (Pallas in interpret
+    mode) on the forward of ``_sageattn_hnd(impl="pallas")``, whole 128
+    tiles as that backward takes: cosine >= 0.99999 and max-abs <= 5e-3 of
+    the largest entry (``tests/test_torch_bias_grad.py``'s bound), with a
+    row biased to -inf on every key giving 0 in its dq and dBias."""
+    from test_torch_bias_grad import _assert_close, _grads, _inputs, _jax_fused_bias_vjp
+
+    q, k, v, do, bias = _inputs(1, 2, 1, 256, 256, d, seed=d + causal)
+    bias[0, 1, 9] = -np.inf
+    want = _jax_fused_bias_vjp(q, k, v, do, bias, causal=causal)
+    assert want is not None
+    got, fn = _grads(q, k, v, do, bias, is_causal=causal)
+    assert fn == "SageAttnFunctionBackward"
+    _assert_close(got, want, cos_min=0.99999, rel_max=5e-3)
+    assert (got[0][0, 1, 9] == 0).all() and (got[3][0, 1, 9] == 0).all()
 
 
 # --------------------------------------------------------------------------
@@ -537,14 +566,21 @@ def test_generate_hd256_on_cpu():
 
 
 def test_limits_above_256_and_qk_options_above_128_raise():
+    """Head dims above 256 raise naming ROADMAP, with the Q/K options too;
+    the options run at 256, forward and (exact recompute) backward."""
     x = torch.zeros(1, 1, 128, 320)
     for grad in (False, True):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             sageattn(x.clone().requires_grad_(grad), x, x)
-    y = torch.zeros(1, 1, 128, 256)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            sageattn(x.clone().requires_grad_(grad), x, x, smooth_q=True)
+    y = torch.randn(1, 1, 128, 256, generator=torch.Generator().manual_seed(3))
     for opts in ({"smooth_q": True}, {"qk_bits": 4}, {"qk_quant_gran": "per_block"}):
-        for grad in (False, True):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                sageattn(y.clone().requires_grad_(grad), y, y, **opts)
+        assert sageattn(y, y, y, **opts).shape == y.shape
+        yg = y.clone().requires_grad_()
+        out = sageattn(yg, y, y, **opts)
+        assert type(out.grad_fn).__name__ == "RecomputeFunctionBackward"
+        (g,) = torch.autograd.grad(out.sum(), yg)
+        assert g.shape == y.shape and bool(torch.isfinite(g).all())
     with pytest.raises(ValueError, match="multiples of 16 up to 256"):
         decode_cuda._device_args(torch.zeros(1, 1, 1, 272), torch.zeros(1))

@@ -14,7 +14,15 @@ other, this, this, other (median of 20 calls after 3 warm-up calls each).
 The masked instances (``attention_fwd_masked.cu``) the same way, with a
 causal window of 1024 at (1, 32/8 heads, 4096, 128) and (1, 8/2, 4096,
 64).  It also prints the registers of every forward kernel instance of
-both trees' libraries.  Needs one CUDA card; ends with one JSON line.
+both trees' libraries.  Then it builds every attention library the two
+trees share (the pre-quantized forward, the D = 256 sources, the
+backward), compares each kernel instance's registers and stack between
+the trees, and checks through the C entry points that the
+pre-quantized forward at d 64 and 128 (per-tile and per-row K scales, a
+column bias, causal) and dQ, dK/dV at d 64, 128 and 256 (causal and not,
+without a bias; with one at 64 and 128) give bit-identical outputs on the
+same operands.  Needs one CUDA card; ends with one JSON line, and exits
+1 if any of those outputs differ.
 """
 
 from __future__ import annotations
@@ -46,6 +54,26 @@ def load_build(tree: pathlib.Path, name: str):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def instance_registers(build, lib: str) -> dict:
+    """{kernel instance (mangled name): (registers, stack bytes)} of a
+    built library."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    out = subprocess.run([tool, "-res-usage", str(build._target(lib))],
+                         capture_output=True, text=True, timeout=120).stdout
+    rows, fn = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function (\S+):", line)
+        if m:
+            # the anonymous namespace's name holds hashes of the source's path
+            fn = re.sub(r"\d*_GLOBAL__N__[0-9a-f]+_\d+_\w*?_cu_[0-9a-f]{8}", "NS", m.group(1))
+            continue
+        m = re.search(r"REG:(\d+) STACK:(\d+)", line)
+        if m and fn:
+            rows[fn] = (int(m.group(1)), int(m.group(2)))
+    return rows
 
 
 def registers(build, lib: str = "attention_fwd") -> list[str]:
@@ -95,6 +123,113 @@ def launch_masked(fn, q, k_i8, k_scale, v, o, fold_mul: float, hkv: int, window:
              torch.cuda.current_stream().cuda_stream, *([None] * 9), *([0] * 10), window, 0)
     if err:
         raise RuntimeError(f"sage_attn_fwd_masked launch failed: cudaError {err}")
+
+
+def ab_all(builds: dict, gen) -> dict:
+    """Registers of every shared attention library's instances, and the
+    pre-quantized forward (d 64, 128) and the backward (d 64, 128, 256;
+    with a bias at 64, 128) bit for bit, through the C entry points."""
+    import torch
+
+    out = {"registers": {}, "outputs": {}}
+    libs = [lib for lib in ("attention_fwd", "attention_fwd_masked", "attention_fwd_preq",
+                            "attention_fwd_hd256", "attention_fwd_masked_hd256",
+                            "attention_bwd")
+            if all(lib in b.SIGNATURES for b in builds.values())]
+    with ThreadPoolExecutor(2 * len(libs)) as pool:  # one nvcc a (tree, source), at once
+        list(pool.map(lambda tl: builds[tl[0]].lib(tl[1]),
+                      [(t, lib) for t in builds for lib in libs]))
+    for lib in libs:
+        regs = {t: instance_registers(b, lib) for t, b in builds.items()}
+        common = sorted(set(regs["this"]) & set(regs["other"]))
+        moved = [f"{fn[:80]}: {regs['other'][fn]} -> {regs['this'][fn]}" for fn in common
+                 if regs["this"][fn] != regs["other"][fn]]
+        out["registers"][lib] = {"common": len(common), "moved": moved,
+                                 "only_this": len(set(regs["this"]) - set(regs["other"]))}
+        print(f"registers {lib}: {len(common)} instances in both trees, {len(moved)} moved "
+              f"{moved}; {out['registers'][lib]['only_this']} only in this tree", flush=True)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def same(name, call):
+        res = {t: call(builds[t]) for t in ("other", "this")}
+        torch.cuda.synchronize()
+        ok = all(torch.equal(a, b) for a, b in zip(res["other"], res["this"]))
+        out["outputs"][name] = ok
+        print(f"outputs {name}: bit-identical {ok}", flush=True)
+
+    def i8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+
+    def bf(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def pos(*shape, lo=0.5):
+        return torch.rand(*shape, generator=gen, device="cuda") + lo
+
+    b, hq, hkv, s = 1, 8, 2, 1000
+    for d in (64, 128):
+        for per_row, col in ((False, False), (True, True)):
+            q_i8, k_i8, v = i8(b, hq, s, d), i8(b, hkv, s, d), bf(b, hkv, s, d)
+            q_sc = pos(b, hq, s) * 1e-3
+            k_sc = pos(b, hkv, s if per_row else -(-s // 128)) * 1e-2
+            cb = torch.randn(b, hq, s, generator=gen, device="cuda") if col else None
+
+            def preq(build, q_i8=q_i8, k_i8=k_i8, v=v, q_sc=q_sc, k_sc=k_sc, cb=cb, d=d,
+                     per_row=per_row):
+                o = torch.empty(b, hq, s, d, device="cuda", dtype=torch.bfloat16)
+                lse = torch.empty(b, hq, s, device="cuda")
+                err = build.lib("attention_fwd_preq").sage_attn_fwd_preq(
+                    q_i8.data_ptr(), k_i8.data_ptr(), k_sc.data_ptr(), v.data_ptr(), None,
+                    None, o.data_ptr(), lse.data_ptr(), b, hq, hkv, s, s, d, 1, 0, 1, 128,
+                    int(per_row), 0, q_sc.data_ptr(), cb.data_ptr() if cb is not None else None,
+                    stream, 0, *([None] * 9), *([0] * 10), 0, 0)
+                if err:
+                    raise RuntimeError(f"sage_attn_fwd_preq failed: cudaError {err}")
+                return o, lse
+
+            same(f"preq d{d} per_row={per_row} col_bias={col}", preq)
+    for d in (64, 128, 256):
+        for causal in (0, 1):
+            for bias_dtype in (None, torch.float32) if d < 256 else (None,):
+                ops = dict(q_i8=i8(b, hq, s, d), q_scale=pos(b, hq, s) * 1e-3,
+                           q_bf=bf(b, hq, s, d), k_i8=i8(b, hkv, s, d),
+                           k_scale=pos(b, hkv, -(-s // 128)) * 1e-2, k_sm=bf(b, hkv, s, d),
+                           v=bf(b, hkv, s, d), do=bf(b, hq, s, d),
+                           lse2=torch.randn(b, hq, s, generator=gen, device="cuda") + 12,
+                           dvec=torch.randn(b, hq, s, generator=gen, device="cuda") * 1e-2)
+                bias = (None if bias_dtype is None else
+                        torch.randn(b, hq, s, s, generator=gen, device="cuda"))
+
+                def bwd(build, ops=ops, d=d, causal=causal, bias=bias):
+                    lib = build.lib("attention_bwd")
+                    dq = torch.empty(b, hq, s, d, device="cuda")
+                    dk, dv = (torch.empty(b, hkv, s, d, device="cuda") for _ in range(2))
+                    p = {n: x.data_ptr() for n, x in ops.items()}
+                    dq_in = [p[n] for n in ("q_i8", "q_scale", "k_i8", "k_scale", "k_sm", "v",
+                                            "do", "lse2", "dvec")]
+                    kv_in = [p[n] for n in ("q_i8", "q_scale", "q_bf", "k_i8", "k_scale", "v",
+                                            "do", "lse2", "dvec")]
+                    outs = [dq, dk, dv]
+                    if bias is None:
+                        e1 = lib.sage_attn_bwd_dq(*dq_in, dq.data_ptr(), b, hq, hkv, s, s, d,
+                                                  causal, 0, 128, d**-0.5, stream)
+                        e2 = lib.sage_attn_bwd_dkv(*kv_in, dk.data_ptr(), dv.data_ptr(), b, hq,
+                                                   hkv, s, s, d, causal, 0, 128, d**-0.5, stream)
+                    else:
+                        dbias = torch.empty_like(bias)
+                        outs.append(dbias)
+                        e1 = lib.sage_attn_bwd_dq_bias(*dq_in, dq.data_ptr(), bias.data_ptr(),
+                                                       dbias.data_ptr(), b, hq, hkv, s, s, d,
+                                                       causal, 0, 128, d**-0.5, stream)
+                        e2 = lib.sage_attn_bwd_dkv_bias(*kv_in, dk.data_ptr(), dv.data_ptr(),
+                                                        bias.data_ptr(), b, hq, hkv, s, s, d,
+                                                        causal, 0, 128, d**-0.5, stream)
+                    if e1 or e2:
+                        raise RuntimeError(f"backward launch failed: cudaError {e1} {e2}")
+                    return outs
+
+                same(f"backward d{d} causal={causal} bias={bias is not None}", bwd)
+    return out
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -188,8 +323,9 @@ def main() -> int:
               f"{times['this']} ms; outputs bit-identical {same}", flush=True)
         del q, k_i8, k_scale, v, outs
         torch.cuda.empty_cache()
+    result["all"] = ab_all(builds, gen)
     print(json.dumps(result), flush=True)
-    return 0
+    return 0 if all(result["all"]["outputs"].values()) else 1
 
 
 if __name__ == "__main__":
