@@ -37,7 +37,8 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    printed), and its 8-bit rows on "biased" inputs at the
    Wan2.1 layer on five more seeds, each held to its floor, with the
    plain version of three of them beside the kernel on three heads; the
-   decode kernels at head dim 96 too; the backward's bias instances (dQ
+   decode kernels at head dims 96, 40 and 72 too (40 and 72, not multiples
+   of 16, through the RAGGED instances); the backward's bias instances (dQ
    with dBias, dK/dV) against their plain versions at the llm-8b-gqa layer
    (d128: causal with ALiBi at 4096 tokens in fp32 and bf16, non-causal
    with a random per-head bias at 4000 tokens) and at CogVideoX-2B's 30
@@ -191,7 +192,32 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    device-memory read and copy) against its plain chain, its SASS's
    tensor-core instruction count, its rate beside its peak (above 105 %
    fails) and the library rows (cuBLAS at 8192^3, sum and copy), with the
-   card's clock before and after.
+   card's clock before and after;
+10. head dims above 256 (the D = 384 and 512 instances, every head dim in
+   (256, 512] padded to the next multiple of 128), each part from a
+   generator of its own: kernels 2-6 at 384 and 512 bit-exact with their
+   plain versions; kernels 9-12 at 512, 384 and 320, int8 and int4, t_q 1
+   and 4, window 4096, pages of 16 and 1024, and kernel 11 with ``owned``;
+   kernel 1 (``attention_fwd_wide.cu``: O split by columns over a grid
+   axis) at (4, 16/16, 4096, d) for d 320, 384 and 512, causal and not,
+   bf16 and e4m3 V, against its plain version and exact fp32 attention,
+   and the main paths ``wide_prefill_hd384`` / ``_hd512`` (``sageattn`` and
+   the fp8 variant); the masked instances at (1, 16/8, 8192, 512) with
+   window 4096, over varlen's four prompts and at d 320 with window 1000,
+   and the path ``wide_masked_hd512`` (a window with fp8 V, through kernel
+   6, and ``sageattn_varlen``); the pre-quantized instances for every Q/K
+   option at (4, 16/16, 4096, 512) and at d 320 with a window, and the path
+   ``wide_preq_hd512`` (int4 + smooth_q); the gradient at (1, 16/16, 4096,
+   320), causal, which takes exact recompute and launches no backward
+   kernel; decode serving at d 512 (``wide_serve_*``: b 4 prompts of 4096
+   tokens, 16/16 heads, 4 layers of caches, 32 steps; dense int8 and int4,
+   int8 with window 4096, paged int8 and int4 with pages of 1024 and 16,
+   paged with window 4096), each path's decode kernel exactly layers x
+   steps times; each instance's time beside its bound, plain version and
+   library call (SDPA, naming the backend it took), its registers, and the
+   forward's products at phase 9's measured rates.  A wide instance that
+   no path launches sits inside its kernel's entry, as ``hd384`` /
+   ``hd512``.
 
 It prints one ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside the
@@ -212,6 +238,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 # H100 SXM data-sheet peaks (dense)
@@ -1176,10 +1203,11 @@ def preq_operands(q, k, opts: dict):
     them from bf16 q, k: (q_i8, q_scale, k_i8, k_scale, col_bias)."""
     import torch
     from sageattention_tpu_torch import core
+    from sageattention_tpu_torch.ops import _build
 
     d = q.shape[-1]
     q_i8, q_sc, k_i8, k_sc, _, cb = core._quant_qk(
-        q, k, core.QKOptions(**opts), work=torch.bfloat16, d_pad=core._pad_head_dim(d),
+        q, k, core.QKOptions(**opts), work=torch.bfloat16, d_pad=_build.pad_head_dim(d),
         sm_scale=d**-0.5, smooth_k=True)
     return q_i8, q_sc, k_i8, k_sc, cb
 
@@ -1480,8 +1508,9 @@ def check_decode(gen, results):
     """Kernels 9-12 against their plain versions at the LLM servers' shapes
     (GQA 32/8, d 128): int8 and packed int4; t_q 1, 4 and 512; ragged
     lengths 0, 1, one off the chunk grid and S; return_state; window 4096;
-    pages of 16 and 1024 through scrambled tables; and the paged kernel
-    with page = chunk against the dense kernel on the same tokens."""
+    pages of 16 and 1024 through scrambled tables; head dims off that path
+    (64, 96, and 40 and 72, which are not multiples of 16); and the paged
+    kernel with page = chunk against the dense kernel on the same tokens."""
     import torch
     from sageattention_tpu_torch.ops import decode_cuda as dc
 
@@ -1553,6 +1582,26 @@ def check_decode(gen, results):
         q = torch.randn(b, hq_, t_q, d_, generator=gen, device="cuda").to(torch.bfloat16)
         key, fn, plain = decode_case(gen, q, cache, lens(ln), page, window, return_state=True)
         compare_decode(f"{name} {tuple(ln)}", fn(), plain(), results, key)
+
+    # head dims 40 and 72, not multiples of 16: the cache rows are off
+    # 16-byte alignment and the RAGGED instances read them byte by byte;
+    # from a generator of their own, so that the later phases' inputs stay
+    ragged_gen = torch.Generator(device="cuda")
+    ragged_gen.manual_seed(38)
+    for d_ in (40, 72):
+        for packed in (False, True):
+            for name, hq_, hkv_, b, t_q, S, page, ln, window in (
+                    ("gqa4 t_q 1", 32, 8, 4, 1, 8192, None, [0, 1, 4123, 8192], None),
+                    ("gqa4 t_q 4 window 4096", 32, 8, 2, 4, 9216, None, [8200, 300], 4096),
+                    ("page 16 t_q 1", 32, 8, 4, 1, 8192, 16, [0, 17, 4123, 8192], None),
+                    ("page 1024 window 4096", 32, 8, 2, 1, 9216, 1024, [8200, 5000], 4096)):
+                cache = random_cache(ragged_gen, (b, hkv_), S, d_, packed)
+                q = torch.randn(b, hq_, t_q, d_, generator=ragged_gen,
+                                device="cuda").to(torch.bfloat16)
+                key, fn, plain = decode_case(ragged_gen, q, cache, lens(ln), page, window,
+                                             return_state=True)
+                compare_decode(f"d{d_} {'int4' if packed else 'int8'} {name} {tuple(ln)}", fn(),
+                               plain(), results, key)
 
     # one page a chunk: the paged kernel walks the dense kernel's chunks
     for packed in (False, True):
@@ -1674,7 +1723,21 @@ MAIN_PATH = {**{n: "server" for n in FORWARD}, **{n: "train" for n in BACKWARD},
              # path: it is checked and timed, and both sit in their kernel's entry)
              "sage_paged_decode_owned": "sharded_paged",
              # kernel 13, the rate probe: its own run
-             "probe_mma": "probe"}
+             "probe_mma": "probe",
+             # the wide instances on phase 10's paths; the others (the masked
+             # and pre-quantized forwards, kernels 4-6 and 9-12 at 384) are
+             # checked and timed, and reported inside their kernel's entry
+             **{f"{n}_hd{d}": f"wide_prefill_hd{d}" for d in (384, 512)
+                for n in FORWARD + ("quant_v_per_channel",)},
+             "sage_attn_fwd_masked_hd512": "wide_masked_hd512",
+             "v_channel_stats_hd512": "wide_masked_hd512",
+             "quant_v_apply_hd512": "wide_masked_hd512",
+             "sage_attn_fwd_preq_hd512": "wide_preq_hd512",
+             "quant_q_per_token_hd512": "wide_preq_hd512",
+             "sage_decode_hd512": "wide_serve_dense",
+             "sage_decode_window_hd512": "wide_serve_dense_window",
+             "sage_paged_decode_hd512": "wide_serve_paged",
+             "sage_paged_decode_window_hd512": "wide_serve_paged_window"}
 FORWARD_HD256 = tuple(n + "_hd256" for n in FORWARD)
 BACKWARD_HD256 = tuple(n + "_hd256" for n in BACKWARD)
 BIAS_TRAIN_HD256 = tuple(n + "_hd256" for n in BIAS_TRAIN)
@@ -1714,6 +1777,9 @@ def counters():
             out[name + "_hd256"] = (fns[name], "hd256_launches")
     for name in OWNED:  # the launches over a shard of a sharded pool, counted apart
         out[name + "_owned"] = (fns[name], "owned_launches")
+    for name in WIDE:  # the launches at head dims 384 and 512, counted apart
+        for d in WIDE_DIMS:
+            out[f"{name}_hd{d}"] = (fns[name], f"hd{d}_launches")
     return out
 
 
@@ -2911,21 +2977,23 @@ def padded(x, d: int = 256):
     return F.pad(x, (0, d - x.shape[-1])).contiguous()
 
 
-def check_hd256_quant(gen, results):
-    """Kernels 2-6 at head dim 256 against their plain versions: K at the
-    Gemma-7B prefill layer (4, 16, 4096, 256), chunked bit-exact with the
-    plain km and the whole prologue within one code step on <= 1e-4; Q at
-    the layer trainer's (1, 16, 4096, 256), 8 and 4 bits, bit-exact; V
-    through kernel 5 at (1, 16, 4096, 256) (a 2 MB slab) and kernel 6 at
-    (1, 8, 16384, 256) (8 MB), each code type bit-exact without smooth-v,
-    and with it the mean within 1e-5 relative and codes a step apart on
-    <= 1e-4."""
+def check_hd256_quant(gen, results, d: int = 256):
+    """Kernels 2-6 at head dim ``d`` (256, or 384 and 512 in phase 10)
+    against their plain versions: K at the Gemma-7B prefill layer (4, 16,
+    4096, d), chunked bit-exact with the plain km and the whole prologue
+    within one code step on <= 1e-4; Q at the layer trainer's (1, 16, 4096,
+    d), 8 and 4 bits, bit-exact; V through kernel 5 at (1, 16, 4096, d) (a
+    2-4 MB slab) and kernel 6 at (1, 8, 16384, d) (8-16 MB), each code type
+    bit-exact without smooth-v, and with it the mean within 1e-5 relative
+    and codes a step apart on <= 1e-4.  Errors go to the ``_hd<d>``
+    entries."""
     import torch
     from sageattention_tpu_torch import quant
     from sageattention_tpu_torch.ops import quant_cuda as qc
 
-    k = (torch.randn(4, 16, 4096, 256, generator=gen, device="cuda")
-         + torch.randn(4, 16, 1, 256, generator=gen, device="cuda") * 3).to(torch.bfloat16)
+    tag, sfx = f"hd{d}", f"_hd{d}"
+    k = (torch.randn(4, 16, 4096, d, generator=gen, device="cuda")
+         + torch.randn(4, 16, 1, d, generator=gen, device="cuda") * 3).to(torch.bfloat16)
     km, km_p = qc.k_channel_mean(k), qc.k_channel_mean_plain(k)
     ki, ks = qc.quant_k_chunked(k, km_p, group=128)
     ki_p, ks_p = qc.quant_k_chunked_plain(k, km_p, group=128)
@@ -2935,34 +3003,34 @@ def check_hd256_quant(gen, results):
     exact = torch.equal(ki, ki_p) and torch.equal(ks, ks_p)
     diff = (kf.int() - ki_p.int()).abs()
     frac = (diff > 0).float().mean().item()
-    log(f"hd256 quant_k {tuple(k.shape)}: km max rel err {km_err:.3e}; chunked bit-exact "
+    log(f"{tag} quant_k {tuple(k.shape)}: km max rel err {km_err:.3e}; chunked bit-exact "
         f"{exact}; fused codes off {frac:.2e} (max {diff.max().item()})")
     require(km_err <= 1e-5 and exact and diff.max().item() <= 1 and frac <= 1e-4,
-            "hd256: the K quantizers disagree with their plain versions")
-    results["k_channel_mean_hd256"]["max_abs_err"] = (km - km_p).abs().max().item()
-    results["quant_k_chunked_hd256"]["max_abs_err"] = float(
+            f"{tag}: the K quantizers disagree with their plain versions")
+    results["k_channel_mean" + sfx]["max_abs_err"] = (km - km_p).abs().max().item()
+    results["quant_k_chunked" + sfx]["max_abs_err"] = float(
         (ki.int() - ki_p.int()).abs().max().item())
     del k, ki, ki_p, kf
 
-    q = torch.randn(1, 16, 4096, 256, generator=gen, device="cuda").to(torch.bfloat16) * 3
-    fold = 256**-0.5 * LOG2E
+    q = torch.randn(1, 16, 4096, d, generator=gen, device="cuda").to(torch.bfloat16) * 3
+    fold = d**-0.5 * LOG2E
     for bits in (8, 4):
         qi, qs = qc.quant_q_per_token(q, scale_fold=fold, bits=bits)
         qi_p, qs_p = qc.quant_q_per_token_plain(q, scale_fold=fold, bits=bits)
         torch.cuda.synchronize()
         exact = torch.equal(qi, qi_p) and torch.equal(qs, qs_p)
-        log(f"hd256 quant_q_per_token {tuple(q.shape)} {bits} bits: bit-exact {exact}")
-        require(exact, f"hd256: quant_q_per_token at {bits} bits is not bit-exact")
-    results["quant_q_per_token_hd256"]["max_abs_err"] = 0.0
+        log(f"{tag} quant_q_per_token {tuple(q.shape)} {bits} bits: bit-exact {exact}")
+        require(exact, f"{tag}: quant_q_per_token at {bits} bits is not bit-exact")
+    results["quant_q_per_token" + sfx]["max_abs_err"] = 0.0
 
     def same(a, b):
         return torch.equal(a.view(torch.uint8), b.view(torch.uint8))
 
     for kernel, shape, plain, keys in (
-            ("kernel 5", (1, 16, 4096, 256), qc.quant_v_per_channel_plain,
-             ("quant_v_per_channel_hd256",)),
-            ("kernel 6", (1, 8, 16384, 256), qc.quant_v_blocked_plain,
-             ("v_channel_stats_hd256", "quant_v_apply_hd256"))):
+            ("kernel 5", (1, 16, 4096, d), qc.quant_v_per_channel_plain,
+             ("quant_v_per_channel" + sfx,)),
+            ("kernel 6", (1, 8, 16384, d), qc.quant_v_blocked_plain,
+             ("v_channel_stats" + sfx, "quant_v_apply" + sfx))):
         v = random_v(gen, shape)
         for pv, dtype in quant.V_DTYPES.items():
             for smooth in (False, True):
@@ -2971,20 +3039,20 @@ def check_hd256_quant(gen, results):
                 torch.cuda.synchronize()
                 off = q_.view(torch.uint8) != q_p.view(torch.uint8)
                 frac = off.float().mean().item()
-                line = f"hd256 quant_v {kernel} {shape} {pv} smooth={smooth}: codes off {frac:.2e}"
+                line = f"{tag} quant_v {kernel} {shape} {pv} smooth={smooth}: codes off {frac:.2e}"
                 if not smooth:
                     ok = same(q_, q_p) and torch.equal(sc, sc_p)
                     log(line + f"; bit-exact {ok}")
-                    require(ok, f"hd256 {kernel} {pv}: not bit-exact with the plain version")
+                    require(ok, f"{tag} {kernel} {pv}: not bit-exact with the plain version")
                     continue
                 m_rel = ((m - m_p).abs() / (m_p.abs() + 1e-3)).max().item()
                 s_rel = ((sc - sc_p).abs() / sc_p).max().item()
                 log(line + f", mean max rel {m_rel:.2e}, scales max rel {s_rel:.2e}")
                 require(m_rel <= 1e-5 and s_rel <= 1e-5 and frac <= 1e-4,
-                        f"hd256 {kernel} {pv} smooth-v disagrees with the plain version")
+                        f"{tag} {kernel} {pv} smooth-v disagrees with the plain version")
                 if dtype == torch.int8:
                     require((q_.int() - q_p.int()).abs().max().item() <= 1,
-                            f"hd256 {kernel}: int8 codes more than a step apart")
+                            f"{tag} {kernel}: int8 codes more than a step apart")
                 for key in keys:
                     r = results[key]
                     r["max_abs_err"] = max(r.get("max_abs_err", 0.0), (m - m_p).abs().max().item())
@@ -4110,36 +4178,781 @@ def run_server_parallel(results, server_ms: float) -> dict:
     return out
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--profile", action="store_true",
-                    help="also profile one step of each server and one training step "
-                         "into chiprun_out/")
-    args = ap.parse_args()
+# --------------------------------------------------------------------------
+# phase 10: head dims above 256 (d_pad 384 and 512)
+# --------------------------------------------------------------------------
 
+WIDE_DIMS = (384, 512)
+# the kernels with instances at head dims 384 and 512, each counted apart as
+# ``<name>_hd384`` / ``<name>_hd512``
+WIDE = ("k_channel_mean", "quant_k_chunked", "quant_q_per_token", "quant_v_per_channel",
+        "v_channel_stats", "quant_v_apply", "sage_attn_fwd", "sage_attn_fwd_masked",
+        "sage_attn_fwd_preq", "sage_decode", "sage_decode_window", "sage_paged_decode",
+        "sage_paged_decode_window")
+WIDE_SOURCE = {"sage_attn_fwd": "attention_fwd_wide.cu",
+               "sage_attn_fwd_masked": "attention_fwd_masked_wide.cu",
+               "sage_attn_fwd_preq": "attention_fwd_preq_wide.cu",
+               "sage_decode": "decode_wide.cu", "sage_decode_window": "decode_wide.cu",
+               "sage_paged_decode": "paged_decode_wide.cu",
+               "sage_paged_decode_window": "paged_decode_wide.cu"}
+# Gemma-7B's attention geometry (HD256_LAYER: b 4 x 4096, 16/16 heads) with
+# the head dim widened; no model of models/configs.py has such a head dim,
+# so the paths below are the public op and cache entry points at this size
+WIDE_LAYER = dict(b=4, hq=16, hkv=16, s=4096)
+WIDE_HEADS = (0, 7, 15)  # the query heads compared with plain and exact versions
+# the decode serving paths at d 512: attention layers (the depth cut: no
+# model to take it from) and decode steps
+WIDE_SERVE_LAYERS = 4
+WIDE_SERVE_STEPS = 32
+
+
+def drive(results, path: str, want: dict, fn):
+    """A main path: every count zeroed just before ``fn`` runs and read just
+    after; each kernel of ``want`` must have launched exactly that many
+    times (at least once) and every other kernel none.  Returns ``fn``'s
+    result."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; nothing is run", file=sys.stderr)
-        return 1
+    zero_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    got = read_counts()
+    log(f"path {path} launches: { {n: c for n, c in got.items() if c} }")
+    for name, n in got.items():
+        require(n == want.get(name, 0), f"{path}: {name} launched {n} times, want "
+                                        f"{want.get(name, 0)}")
+    for name in want:
+        require(want[name] > 0, f"{path}: {name} is not on the path")
+        results[name].setdefault("launches_by_path", {})[path] = got[name]
+    return out
+
+
+def fill(results, name: str, what: str, **entry) -> None:
+    """Put a kernel's times (ms, plain_ms, bound_ms, bound_by, library_ms
+    and any other fields) into its entry and log them."""
+    r = results[name]
+    r.update(entry)
+    log(f"time {name} {what}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms, {r['bound_by']}), "
+        f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']} ms")
+
+
+def sdpa_backend(q, k, v, causal: bool) -> tuple[str, float]:
+    """(backend, ms) of ``F.scaled_dot_product_attention`` on these inputs:
+    the first of flash, cuDNN, memory-efficient and math that takes them
+    (flash stops at head dim 256).  A backend that refuses the inputs
+    raises before it launches anything."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    for be in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+               SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        with sdpa_kernel([be]), warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # each refusal warns why, then raises
+            try:
+                F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+                torch.cuda.synchronize()
+            except RuntimeError:
+                continue
+            return be.name.lower(), cuda_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal), reps=5)
+    raise AssertionError("no SDPA backend takes these inputs")
+
+
+def wide_registers(lib: str) -> dict:
+    """{"D": (fewest, most registers, most stack bytes)} over the kernel
+    instances of a built library, by their first template argument."""
     from sageattention_tpu_torch.ops import _build
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    card = card_line()
-    log(f"card: {card}")
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    out = {}
+    for kern, regs, stack in kernel_registers(_build, lib):
+        dd = kern.split("<", 1)[1].split(",", 1)[0]
+        lo, hi, st = out.get(dd, (999, 0, 0))
+        out[dd] = (min(lo, int(regs)), max(hi, int(regs)), max(st, int(stack)))
+    return out
+
+
+def exact_heads(q, k, v, causal: bool, hs, **masks):
+    """Exact fp32 attention of the query heads ``hs`` (their kv heads)."""
+    from sageattention_tpu_torch.ops import reference
+
+    kvs = [h // (q.shape[1] // k.shape[1]) for h in hs]
+    return reference.attention_reference(q[:, hs].float(), k[:, kvs].float(),
+                                         v[:, kvs].float(), is_causal=causal, **masks)
+
+
+def check_wide_attention(results) -> dict:
+    """Phase 10b: kernel 1's wide instances (``attention_fwd_wide.cu``) at
+    the Gemma-7B layer widened, (4, 16/16, 4096, d) for d 320 (padded to
+    384), 384 and 512, causal and not, bf16 and e4m3 V: the kernel against
+    its plain version (o cosine >= 0.9999, max-abs <= 2e-2, lse2 <= 1e-3)
+    and against exact fp32 attention (>= 0.999) on WIDE_HEADS; the main
+    paths ``wide_prefill_hd384`` / ``_hd512``: ``sageattn`` and
+    ``sageattn_qk_int8_pv_fp8`` on the layer, causal (kernels 2-3 and 1
+    twice, kernel 5 once), each against exact attention; then each
+    instance's time, its bound, its plain version's, SDPA's (naming the
+    backend it took) and its registers."""
+    import torch
+    from sageattention_tpu_torch import core
+    from sageattention_tpu_torch.ops import _build, attention_cuda, quant_cuda
+    from sageattention_tpu_torch.utils.compare import cosine_similarity
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(31)
+    b, hq, hkv, s = WIDE_LAYER.values()
+    hs = WIDE_HEADS
+    regs = wide_registers("attention_fwd_wide")
+    out = {}
+    for d in (320, 384, 512):
+        dp = _build.pad_head_dim(d)
+        q, k, v = (torch.randn(b, h, s, d, generator=gen, device="cuda").to(torch.bfloat16)
+                   for h in (hq, hkv, hkv))
+        k = k + 0.5
+        qp, kp, vp = padded(q, dp), padded(k, dp), padded(v, dp)
+        k_i8, k_sc, _ = quant_cuda.quant_k_fused_mean(kp, group=128)
+        v8, v8_sc, _ = quant_cuda.quant_v_per_channel(vp, dtype=torch.float8_e4m3fn)
+        fold = d**-0.5 * LOG2E
+        cell, ms = {}, {}
+        for causal in (True, False):
+            o_x = exact_heads(q, k, v, causal, hs)
+            for vname, vx, vs in (("bf16", vp, None), ("e4m3", v8, v8_sc)):
+                o, l2 = attention_cuda.sage_attention_fwd(qp, k_i8, k_sc, vx, vs,
+                                                          is_causal=causal, q_fold=fold,
+                                                          return_lse=True)
+                o_p, l2_p = attention_cuda.sage_attention_plain(
+                    qp[:, hs].contiguous(), k_i8[:, hs].contiguous(), k_sc[:, hs].contiguous(),
+                    vx[:, hs].contiguous(), vs[:, hs].contiguous() if vs is not None else None,
+                    is_causal=causal, q_fold=fold, return_lse=True)
+                torch.cuda.synchronize()
+                o_k = o[:, hs].float()
+                cos = cosine_similarity(o_k.cpu(), o_p.float().cpu())
+                err = (o_k - o_p.float()).abs().max().item()
+                lerr = (l2[:, hs] - l2_p).abs().max().item()
+                cos_x = cosine_similarity(o_k[..., :d].cpu(), o_x.cpu())
+                finite = bool(torch.isfinite(o).all()) and bool(torch.isfinite(l2).all())
+                pad0 = bool((o[..., d:] == 0).all())
+                log(f"wide attention d{d} (pad {dp}) {(b, hq, hkv, s)} causal={causal} V {vname}: "
+                    f"vs plain cos {cos:.6f}, max abs {err:.3e}, lse2 max abs {lerr:.3e}; vs exact "
+                    f"cos {cos_x:.6f} (heads {list(hs)}); finite {finite}; pad lanes 0 {pad0}")
+                require(finite and pad0 and cos >= 0.9999 and err <= 2e-2 and lerr <= 1e-3,
+                        f"wide attention d{d} V {vname}: disagrees with its plain version")
+                require(cos_x >= 0.999, f"wide attention d{d} V {vname}: disagrees with exact")
+                r = results[f"sage_attn_fwd_hd{dp}"]
+                r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
+                cell[f"causal={causal} V {vname}"] = {"cos_plain": cos, "max_abs": err,
+                                                     "cos_exact": cos_x}
+                ms[f"causal={causal} V {vname}"] = cuda_ms(
+                    lambda vx=vx, vs=vs, causal=causal: attention_cuda.sage_attention_fwd(
+                        qp, k_i8, k_sc, vx, vs, is_causal=causal, q_fold=fold), reps=10)
+                del o, l2, o_p, l2_p
+            del o_x
+        if d == dp:  # the main path: the op, twice, on the layer
+            ops = drive(results, f"wide_prefill_hd{dp}",
+                        {f"k_channel_mean_hd{dp}": 2, f"quant_k_chunked_hd{dp}": 2,
+                         f"sage_attn_fwd_hd{dp}": 2, f"quant_v_per_channel_hd{dp}": 1},
+                        lambda: (core.sageattn(q, k, v, is_causal=True),
+                                 core.sageattn_qk_int8_pv_fp8(q, k, v, is_causal=True)))
+            o_x = exact_heads(q, k, v, True, hs)
+            for oname, o in zip(("sageattn", "sageattn_qk_int8_pv_fp8"), ops):
+                c = cosine_similarity(o[:, hs].float().cpu(), o_x.cpu())
+                log(f"wide_prefill_hd{dp} {oname} at {(b, hq, hkv, s, d)} causal vs exact fp32 "
+                    f"attention (heads {list(hs)}): cos {c:.6f}; finite "
+                    f"{bool(torch.isfinite(o).all())}")
+                require(c >= 0.999 and bool(torch.isfinite(o).all()),
+                        f"wide_prefill_hd{dp}: {oname} disagrees with exact attention")
+                cell[f"op {oname} vs exact"] = c
+            del ops, o_x
+        pairs = b * hq * s * (s + 1) // 2
+        # at the caller's d: bf16 Q in and O out, the K codes and scales, bf16 V
+        moved = q.numel() * 2 * 2 + k.numel() + k_sc.numel() * 4 + v.numel() * 2
+        bound, by = masked_bound(pairs, d, moved)
+        plain_ms = cuda_ms(lambda: attention_cuda.sage_attention_plain(
+            qp, k_i8, k_sc, vp, is_causal=True, q_fold=fold, return_lse=False), reps=2, warmup=1)
+        backend, sdpa_ms = sdpa_backend(q, k, v, True)
+        reg = regs.get(str(dp))
+        out[f"d{d}"] = {"shape": [b, hq, hkv, s, d], "d_pad": dp, "checks": cell, "ms": ms,
+                        "bound_ms": bound, "bound_by": by, "plain_ms": plain_ms,
+                        "sdpa_ms": sdpa_ms, "sdpa_backend": backend, "registers": reg,
+                        "live_pairs": pairs}
+        log(f"time wide forward d{d} (pad {dp}) at {(b, hq, hkv, s)}: "
+            f"{ {n: round(x, 4) for n, x in ms.items()} } ms; bound {bound:.4f} ms ({by}, "
+            f"{pairs} live pairs causal); plain {plain_ms:.4f} ms; SDPA ({backend}) "
+            f"{sdpa_ms:.4f} ms; registers (fewest, most, stack bytes) {reg}")
+        if d == dp:
+            fill(results, f"sage_attn_fwd_hd{dp}", f"at {(b, hq, hkv, s, d)} causal, bf16 V",
+                 ms=ms["causal=True V bf16"], plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                 library_ms=sdpa_ms, library=f"SDPA ({backend})", ms_by_case=ms,
+                 registers=reg, shape={"b": b, "hq": hq, "hkv": hkv, "s": s, "d": d,
+                                       "causal": True, "live_pairs": pairs})
+        del q, k, v, qp, kp, vp, k_i8, k_sc, v8, v8_sc
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_wide_masked(results) -> dict:
+    """Phase 10c: the masked wide instances (``attention_fwd_masked_wide.cu``)
+    against their plain version (:func:`compare_masked`) at (1, 16/8, 8192,
+    512) with window 4096 and over varlen's four packed prompts at 512, and
+    at (1, 16/8, 3001, 320) (padded to 384) with window 1000; the main path
+    ``wide_masked_hd512``: ``sageattn`` with window 4096 and fp8 V (an 8
+    MB V slab: kernel 6) and ``sageattn_varlen`` over the four prompts
+    (int8 V, per-segment K means), each against exact attention; the
+    instances' times beside the live pairs' bound, the plain version and
+    SDPA with the band mask."""
+    import torch
+    import torch.nn.functional as F
+    from sageattention_tpu_torch import core
+    from sageattention_tpu_torch.ops import attention_cuda, quant_cuda, reference
+    from sageattention_tpu_torch.ops.attention_cuda import Masks
+    from sageattention_tpu_torch.utils.compare import cosine_similarity
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(32)
+    out = {}
+    hq, hkv, hs = 16, 8, (0, 8, 15)
+    b, s, w, d = 1, 8192, 4096, 512
+    q, k, v, k_i8, k_sc = layer_operands(gen, b, s, hq=hq, hkv=hkv, d=d)
+    masks = Masks(window=w)
+    compare_masked(f"hd512 window {w} at {(b, hq, hkv, s, d)}", q, k_i8, k_sc, v, masks, True,
+                   hs, results, key="sage_attn_fwd_masked_hd512")
+    cu, _, vmasks = varlen_masks()
+    compare_masked(f"hd512 varlen {VARLEN_LENS}", q, k_i8, k_sc, v, vmasks, True, hs, results,
+                   key="sage_attn_fwd_masked_hd512")
+    xs = [x[0].transpose(0, 1) for x in (q, k, v)]
+    o_w, o_v = drive(results, "wide_masked_hd512",
+                     {"k_channel_mean_hd512": 1, "quant_k_chunked_hd512": 2,
+                      "sage_attn_fwd_masked_hd512": 2, "v_channel_stats_hd512": 2,
+                      "quant_v_apply_hd512": 2},
+                     lambda: (core.sageattn(q, k, v, is_causal=True, window=w, pv_dtype="fp8"),
+                              core.sageattn_varlen(*xs, cu, cu, is_causal=True,
+                                                   smooth_k_mode="per_segment")))
+    seg = core.varlen_rows(cu, cu, s, s)[0][None]
+    for name, o, kw in (("window 4096, fp8 V", o_w, dict(window=w)),
+                        (f"varlen {VARLEN_LENS}, int8 V", o_v.transpose(0, 1)[None],
+                         dict(q_segment_ids=seg, kv_segment_ids=seg))):
+        o_x = exact_heads(q, k, v, True, hs, **kw)
+        c = cosine_similarity(o[:, hs].float().cpu(), o_x.cpu())
+        log(f"wide_masked_hd512 {name} at {(b, hq, hkv, s, d)} vs exact fp32 attention (heads "
+            f"{list(hs)}): cos {c:.6f}")
+        require(c >= 0.999 and bool(torch.isfinite(o).all()),
+                f"wide_masked_hd512 {name}: disagrees with exact attention")
+        out[f"op {name} vs exact"] = c
+        del o_x
+    del o_w, o_v, xs
+    pairs = live_pairs(masks, b, s, s, True, hq)
+    fold = d**-0.5 * LOG2E
+    bound, by = masked_bound(pairs, d, q.numel() * 2 * 2 + k_i8.numel() + k_sc.numel() * 4
+                             + v.numel() * 2)
+    band = reference._build_mask(s, s, is_causal=True, device="cuda", window=w)
+    kr, vr = (x.repeat_interleave(hq // hkv, dim=1) for x in (k, v))
+    fill(results, "sage_attn_fwd_masked_hd512", f"window {w} at {(b, hq, hkv, s, d)} (library: "
+         f"SDPA with the band mask)",
+         ms=cuda_ms(lambda: attention_cuda.sage_attention_fwd_masked(
+             q, k_i8, k_sc, v, masks=masks, is_causal=True, q_fold=fold), reps=10),
+         plain_ms=cuda_ms(lambda: attention_cuda.sage_attention_plain(
+             q, k_i8, k_sc, v, is_causal=True, q_fold=fold, return_lse=False, masks=masks),
+             reps=2, warmup=1),
+         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, kr, vr, attn_mask=band),
+                            reps=3),
+         bound_ms=bound, bound_by=by,
+         shape={"b": b, "hq": hq, "hkv": hkv, "s": s, "d": d, "window": w,
+                "live_pairs_per_head": pairs // (b * hq)})
+    out["registers"] = wide_registers("attention_fwd_masked_wide")
+    log(f"attention_fwd_masked_wide registers (fewest, most, stack bytes): {out['registers']}")
+    del q, k, v, k_i8, k_sc, band, kr, vr
+    torch.cuda.empty_cache()
+    b, s, w, d = 1, 3001, 1000, 320
+    q, k, v = (torch.randn(b, h, s, d, generator=gen, device="cuda").to(torch.bfloat16)
+               for h in (hq, hkv, hkv))
+    k = k + 0.5
+    qp, kp, vp = (padded(x, 384) for x in (q, k, v))
+    k_i8, k_sc, _ = quant_cuda.quant_k_fused_mean(kp, group=128)
+    masks = Masks(window=w)
+    compare_masked(f"hd384 window {w} at {(b, hq, hkv, s, d)}", qp, k_i8, k_sc, vp, masks, True,
+                   hs, results, key="sage_attn_fwd_masked_hd384")
+    out[f"d320 window {w} vs exact"] = op_vs_exact(f"hd384 sageattn d320 window {w}", q, k, v,
+                                                   True, dict(window=w))
+    pairs = live_pairs(masks, b, s, s, True, hq)
+    fold = d**-0.5 * LOG2E
+    # the work at the caller's d 320: bf16 Q in and O out, K codes, bf16 V
+    bound, by = masked_bound(pairs, d, q.numel() * 2 * 2 + k.numel() + k_sc.numel() * 4
+                             + v.numel() * 2)
+    band = reference._build_mask(s, s, is_causal=True, device="cuda", window=w)
+    kr, vr = (x.repeat_interleave(hq // hkv, dim=1) for x in (k, v))
+    fill(results, "sage_attn_fwd_masked_hd384", f"window {w} at {(b, hq, hkv, s, d)}",
+         ms=cuda_ms(lambda: attention_cuda.sage_attention_fwd_masked(
+             qp, k_i8, k_sc, vp, masks=masks, is_causal=True, q_fold=fold), reps=10),
+         plain_ms=cuda_ms(lambda: attention_cuda.sage_attention_plain(
+             qp, k_i8, k_sc, vp, is_causal=True, q_fold=fold, return_lse=False, masks=masks),
+             reps=2, warmup=1),
+         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, kr, vr, attn_mask=band),
+                            reps=3),
+         bound_ms=bound, bound_by=by,
+         shape={"b": b, "hq": hq, "hkv": hkv, "s": s, "d": d, "window": w,
+                "live_pairs_per_head": pairs // (b * hq)})
+    del q, k, v, qp, kp, vp, k_i8, k_sc, band, kr, vr
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_wide_preq(results) -> dict:
+    """Phase 10d: the pre-quantized wide instances
+    (``attention_fwd_preq_wide.cu``) against their plain version for every
+    Q/K option (QOPTS) with bf16 and e4m3 V (:func:`compare_preq`) at
+    (4, 16/16, 4096, 512), causal, and at (1, 16/8, 3001, 320) (padded to
+    384) with window 1000; the main path ``wide_preq_hd512``: ``sageattn``
+    with int4 + smooth_q on the layer (kernels 4, 2-3 and the pre-quantized
+    forward), against exact attention at the int4 floor 0.97, and each
+    other option as the op against exact at its floor (0.999 for 8 bits,
+    0.97 for int4), on normal inputs; the times by option."""
+    import torch
+    from sageattention_tpu_torch import core
+    from sageattention_tpu_torch.ops import attention_cuda
+    from sageattention_tpu_torch.ops.attention_cuda import Masks
+    from sageattention_tpu_torch.utils.compare import cosine_similarity
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(33)
+    out = {}
+    b, hq, hkv, s = WIDE_LAYER.values()
+    d, hs = 512, WIDE_HEADS
+    q, _, _ = biased_qk(gen, (b, hq, s, d))
+    _, k, v = biased_qk(gen, (b, hkv, s, d))
+    for opts in QOPTS.values():
+        compare_preq(f"hd512 {(b, hq, hkv, s, d)}", q, k, v, opts, True, hs, results,
+                     key="sage_attn_fwd_preq_hd512")
+    # the op against exact attention on normal inputs (the accuracy sweep
+    # holds int4 alone only there)
+    qn, kn, vn = (torch.randn(b, hq, s, d, generator=gen, device="cuda").to(torch.bfloat16)
+                  for _ in range(3))
+    o_path = drive(results, "wide_preq_hd512",
+                   {"quant_q_per_token_hd512": 1, "k_channel_mean_hd512": 1,
+                    "quant_k_chunked_hd512": 1, "sage_attn_fwd_preq_hd512": 1},
+                   lambda: core.sageattn(qn, kn, vn, is_causal=True, qk_bits=4, smooth_q=True))
+    o_x = exact_heads(qn, kn, vn, True, hs)
+    for oname, opts in QOPTS.items():
+        o = o_path if oname == "int4+smooth_q" else core.sageattn(qn, kn, vn, is_causal=True,
+                                                                  **opts)
+        c = cosine_similarity(o[:, hs].float().cpu(), o_x.cpu())
+        floor = SWEEP_FLOOR[opts.get("qk_bits", 8)]
+        log(f"wide preq sageattn {oname} at {(b, hq, hkv, s, d)} causal vs exact fp32 attention "
+            f"(heads {list(hs)}): cos {c:.6f} (floor {floor})")
+        require(c >= floor and bool(torch.isfinite(o).all()),
+                f"wide preq {oname}: disagrees with exact attention")
+        out[f"{oname} vs exact"] = c
+    del o, o_path, o_x, qn, kn, vn
+    by_opt = {}
+    for oname, opts in QOPTS.items():
+        q_i8, q_sc, k_q, k_qs, cb = preq_operands(q, k, opts)
+        by_opt[oname] = cuda_ms(lambda: attention_cuda.sage_attention_fwd_preq(
+            q_i8, q_sc, k_q, k_qs, v, is_causal=True, col_bias=cb), reps=10)
+        if oname == "int4+smooth_q":  # SageAttention2's setting carries the entry
+            plain_ms = cuda_ms(lambda: attention_cuda.sage_attention_preq_plain(
+                q_i8, q_sc, k_q, k_qs, v, is_causal=True, return_lse=False, col_bias=cb),
+                reps=2, warmup=1)
+            pairs = b * hq * s * (s + 1) // 2
+            bound, by = masked_bound(pairs, d, q_i8.numel() + q_sc.numel() * 4 + k_q.numel()
+                                     + k_qs.numel() * 4 + v.numel() * 2 + q.numel() * 2)
+        del q_i8, q_sc, k_q, k_qs, cb
+    backend, sdpa_ms = sdpa_backend(q, k, v, True)
+    out["registers"] = wide_registers("attention_fwd_preq_wide")
+    fill(results, "sage_attn_fwd_preq_hd512", f"at {(b, hq, hkv, s, d)} causal, bf16 V, "
+         f"int4+smooth_q (by option { {n: round(x, 4) for n, x in by_opt.items()} })",
+         ms=by_opt["int4+smooth_q"], plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+         library_ms=sdpa_ms, library=f"SDPA ({backend})", ms_by_option=by_opt,
+         registers=out["registers"].get("512"),
+         shape={"b": b, "hq": hq, "hkv": hkv, "s": s, "d": d, "causal": True,
+                "option": "int4+smooth_q"})
+    out["ms_by_option"] = by_opt
+    del q, k, v
+    torch.cuda.empty_cache()
+    b, hq, hkv, s, d, w = 1, 16, 8, 3001, 320, 1000
+    q, _, _ = biased_qk(gen, (b, hq, s, d))
+    _, k, v = biased_qk(gen, (b, hkv, s, d))
+    for oname, opts in QOPTS.items():
+        compare_preq(f"hd384 d320 window {w} {(b, hq, hkv, s)}", q, k, padded(v, 384), opts,
+                     True, (0, 8, 15), results, masks=Masks(window=w),
+                     key="sage_attn_fwd_preq_hd384")
+    q_i8, q_sc, k_q, k_qs, cb = preq_operands(q, k, QOPTS["int4+smooth_q"])
+    vp = padded(v, 384)
+    pairs = b * hq * s * (s + 1) // 2
+    # the work at the caller's d 320: Q and K codes (a byte each) and
+    # scales, bf16 V in and O out
+    bound, by = masked_bound(pairs, d, q.numel() + k.numel() + q_sc.numel() * 4
+                             + k_qs.numel() * 4 + v.numel() * 2 + q.numel() * 2)
+    fill(results, "sage_attn_fwd_preq_hd384", f"at {(b, hq, hkv, s, d)} causal, bf16 V, "
+         f"int4+smooth_q",
+         ms=cuda_ms(lambda: attention_cuda.sage_attention_fwd_preq(
+             q_i8, q_sc, k_q, k_qs, vp, is_causal=True, col_bias=cb), reps=10),
+         plain_ms=cuda_ms(lambda: attention_cuda.sage_attention_preq_plain(
+             q_i8, q_sc, k_q, k_qs, vp, is_causal=True, return_lse=False, col_bias=cb),
+             reps=2, warmup=1),
+         library_ms=sdpa_backend(q, k.repeat_interleave(2, dim=1),
+                                 v.repeat_interleave(2, dim=1), True)[1],
+         bound_ms=bound, bound_by=by,
+         shape={"b": b, "hq": hq, "hkv": hkv, "s": s, "d": d, "causal": True,
+                "option": "int4+smooth_q"})
+    del q, k, v, vp, q_i8, q_sc, k_q, k_qs, cb
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_wide_grad(results) -> dict:
+    """Phase 10e: the gradient through ``sageattn`` at (1, 16/16, 4096, 320),
+    causal: it takes exact recompute (kernels 7-8 have no instance above
+    256, and the JAX fused backward declines d > 256), so no backward
+    kernel launches, the forward's d384 instances once each; q, k and v
+    gradients against exact fp32 attention's at cosine >= 0.999; the
+    fwd + bwd time."""
+    import torch
+    from sageattention_tpu_torch import core
+    from sageattention_tpu_torch.ops import reference
+    from sageattention_tpu_torch.utils.compare import cosine_similarity
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(34)
+    b, hq, hkv, s, d = 1, 16, 16, 4096, 320
+    q, k, v = (torch.randn(b, h, s, d, generator=gen, device="cuda").to(torch.bfloat16)
+               for h in (hq, hkv, hkv))
+    do = torch.randn(b, hq, s, d, generator=gen, device="cuda")
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+
+    def fwd_bwd():
+        o = core.sageattn(*xs, is_causal=True)
+        require(type(o.grad_fn).__name__ == "RecomputeFunctionBackward",
+                "wide grad: sageattn at d 320 did not take exact recompute")
+        return torch.autograd.grad((o.float() * do).sum(), xs)
+
+    g_s = drive(results, "wide_grad_hd384",
+                {"k_channel_mean_hd384": 1, "quant_k_chunked_hd384": 1,
+                 "sage_attn_fwd_hd384": 1}, fwd_bwd)
+    xr = [x.float().detach().requires_grad_() for x in (q, k, v)]
+    g_r = torch.autograd.grad((reference.attention_reference(*xr, is_causal=True) * do).sum(), xr)
+    coss = [cosine_similarity(a.float().cpu(), r.cpu()) for a, r in zip(g_s, g_r)]
+    ms = cuda_ms(fwd_bwd, reps=5)
+    log(f"wide grad at {(b, hq, hkv, s, d)} causal: exact recompute, no backward kernel; vs exact "
+        f"fp32 cos dq {coss[0]:.6f} dk {coss[1]:.6f} dv {coss[2]:.6f}; fwd+bwd {ms:.3f} ms")
+    require(min(coss) >= 0.999, "wide grad: gradients disagree with exact attention")
+    del xs, xr, g_s, g_r
+    torch.cuda.empty_cache()
+    return {"shape": [b, hq, hkv, s, d], "grad_cos_vs_exact": coss, "fwd_bwd_ms": ms}
+
+
+def check_wide_decode(results):
+    """Phase 10a: kernels 9-12's wide instances against their plain versions
+    at the widened Gemma-7B decode shapes (16/16 heads, and GQA 16/8):
+    int8 and int4, t_q 1 and 4, ragged lengths, window 4096, pages of 16
+    and 1024 through scrambled tables, d 384, 512 and 320 (computed at
+    384, read at its own head dim), and kernel 11 with the ``owned`` page
+    mask (half the pages of a scrambled pool) at 384 and 512."""
+    import torch
+    from sageattention_tpu_torch.ops import _build
+    from sageattention_tpu_torch.ops import decode_cuda as dc
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(35)
+
+    def lens(x):
+        return torch.tensor(x, dtype=torch.int32, device="cuda")
+
+    cases = [
+        # name, hq, hkv, d, b, t_q, S, page, lengths, window, packed
+        ("int8 t_q 1", 16, 16, 512, 4, 1, 8192, None, [0, 1, 4123, 8192], None, False),
+        ("int4 t_q 1", 16, 16, 512, 4, 1, 8192, None, [0, 1, 4123, 8192], None, True),
+        ("int8 t_q 4 gqa 16/8", 16, 8, 512, 4, 4, 8192, None, [4, 4103, 8192, 300], None, False),
+        ("int8 window 4096", 16, 16, 512, 2, 1, 9216, None, [8200, 1], 4096, False),
+        ("int4 window 4096 gqa 16/8", 16, 8, 512, 2, 1, 9216, None, [8200, 5000], 4096, True),
+        ("page 1024 int8", 16, 16, 512, 4, 1, 8192, 1024, [0, 1, 4123, 8192], None, False),
+        ("page 16 int4 t_q 4", 16, 16, 512, 4, 4, 8192, 16, [4, 17, 4123, 8192], None, True),
+        ("page 1024 int8 window 4096", 16, 8, 512, 2, 1, 9216, 1024, [8200, 3], 4096, False),
+        ("page 16 int4 window 4096", 16, 16, 512, 2, 1, 9216, 16, [8200, 4100], 4096, True),
+        ("d384 int8 t_q 1", 16, 16, 384, 4, 1, 8192, None, [0, 1, 4123, 8192], None, False),
+        ("d384 int4 window 4096", 16, 8, 384, 2, 1, 9216, None, [8200, 5000], 4096, True),
+        ("d384 page 16 int8 t_q 4", 16, 16, 384, 4, 4, 8192, 16, [4, 17, 4123, 8192], None,
+         False),
+        ("d384 page 1024 int4 window 4096", 16, 8, 384, 2, 1, 9216, 1024, [8200, 3], 4096, True),
+        ("d320 int8 t_q 1", 16, 8, 320, 2, 1, 4096, None, [4000, 37], None, False),
+        ("d320 page 48 int4 window 100", 16, 8, 320, 2, 1, 960, 48, [901, 60], 100, True),
+    ]
+    for name, hq, hkv, d, b, t_q, S, page, ln, window, packed in cases:
+        cache = random_cache(gen, (b, hkv), S, d, packed)
+        q = torch.randn(b, hq, t_q, d, generator=gen, device="cuda").to(torch.bfloat16)
+        key, fn, plain = decode_case(gen, q, cache, lens(ln), page, window, return_state=True)
+        dp = _build.pad_head_dim(d)
+        compare_decode(f"hd{dp} {name} d{d} {tuple(ln)}", fn(), plain(), results,
+                       f"{key}_hd{dp}")
+    for d in WIDE_DIMS:
+        for packed in (False, True):
+            cache = random_cache(gen, (2, 8), 8192, d, packed)
+            pool, table = paged_from_dense(gen, cache, 1024)
+            own = (torch.rand(table.shape, generator=gen, device="cuda") < 0.5).int()
+            q = torch.randn(2, 16, 1, d, generator=gen, device="cuda").to(torch.bfloat16)
+            L = lens([8000, 3000])
+            res = dc.sage_paged_decode_attention(q, *pool, table, L, owned=own,
+                                                 return_state=True)
+            res_p = dc.sage_paged_decode_attention_plain(q, *pool, table, L, owned=own,
+                                                         return_state=True)
+            compare_decode(f"hd{d} owned (half the pages) {'int4' if packed else 'int8'}", res,
+                           res_p, results, f"sage_paged_decode_hd{d}")
+    torch.cuda.empty_cache()
+
+
+def run_wide_serving(results) -> dict:
+    """Phase 10f: decode serving at d 512 through the public cache entry
+    points (``kvcache``), the widened Gemma-7B layer's attention: b 4
+    prompts of 4096 tokens, 16/16 heads, WIDE_SERVE_LAYERS layers of
+    caches, each prefilled from seeded K/V (``append_kv`` or
+    ``paged_prefill``), then WIDE_SERVE_STEPS decode steps of one token a
+    layer (append, then ``sageattn_decode`` / ``sageattn_paged_decode``):
+    dense int8 and int4 caches without a window and int8 with window 4096,
+    paged int8 and int4 caches of 1024-token and 16-token pages through
+    scrambled tables, and paged int8 with window 4096.  The counts are
+    zeroed before the prefill (no kernel: the writes are tensor code) and
+    before the steps (the path's decode kernel layers x steps times, no
+    other).  The last step's layer 0 against the plain decode; each
+    cell's ms a step (CUDA events, median), and its kernel's time on the
+    last step's cache, L2 cold, beside its byte bound."""
+    import torch
+    from sageattention_tpu_torch import kvcache
+    from sageattention_tpu_torch.ops import decode_cuda as dc
+
+    b, hq, hkv, prompt, d = 4, 16, 16, 4096, 512
+    layers, steps = WIDE_SERVE_LAYERS, WIDE_SERVE_STEPS
+    max_len = 8192
+    cells = [
+        # path, cache, bits, page, window
+        ("wide_serve_dense", "dense", 8, None, None),
+        ("wide_serve_dense_int4", "dense", 4, None, None),
+        ("wide_serve_dense_window", "dense", 8, None, 4096),
+        ("wide_serve_paged", "paged", 8, 1024, None),
+        ("wide_serve_paged_int4", "paged", 4, 1024, None),
+        ("wide_serve_paged_16", "paged", 8, 16, None),
+        ("wide_serve_paged_16_int4", "paged", 4, 16, None),
+        ("wide_serve_paged_window", "paged", 8, 1024, 4096),
+    ]
+    out = {}
+    for path, cache_kind, bits, page, window in cells:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(36)
+        paged = cache_kind == "paged"
+        kern = ("sage_paged_decode" if paged else "sage_decode") + ("_window" if window else "")
+        kern += "_hd512"
+
+        def new_cache():
+            if not paged:
+                return kvcache.init_kv_cache(b, hkv, max_len, d, bits=bits)
+            n = max_len // page
+            table = torch.randperm(b * n, generator=gen, device="cuda").reshape(b, n).int()
+            return kvcache.init_paged_kv_cache(b * n, hkv, d, table, page_size=page, bits=bits)
+
+        caches = [new_cache() for _ in range(layers)]
+        L0 = torch.zeros(b, dtype=torch.int32, device="cuda")
+
+        def prefill():
+            for c in caches:
+                k, v = (torch.randn(b, hkv, prompt, d, generator=gen, device="cuda")
+                        .to(torch.bfloat16) for _ in range(2))
+                if paged:
+                    kvcache.paged_prefill(c, k, v)
+                else:
+                    kvcache.append_kv(c, L0, k, v)
+                del k, v
+
+        drive(results, path + " prefill", {}, prefill)
+        inputs = [[tuple(torch.randn(b, h, 1, d, generator=gen, device="cuda").to(torch.bfloat16)
+                         for h in (hq, hkv, hkv)) for _ in range(layers)] for _ in range(steps)]
+        L = torch.full((b,), prompt, dtype=torch.int32, device="cuda")
+        append = kvcache.paged_append if paged else kvcache.append_kv
+        decode = kvcache.sageattn_paged_decode if paged else kvcache.sageattn_decode
+        step_ms = []
+
+        def serve():
+            nonlocal L
+            for st in range(steps):
+                a, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                for li, c in enumerate(caches):
+                    q, kn, vn = inputs[st][li]
+                    append(c, L, kn, vn)
+                    o = decode(q, c, L + 1, window=window)
+                L = L + 1
+                e.record()
+                e.synchronize()
+                step_ms.append(a.elapsed_time(e))
+            return o
+
+        o = drive(results, path, {kern: layers * steps}, serve)
+        require(bool(torch.isfinite(o).all()) and L.tolist() == [prompt + steps] * b,
+                f"{path}: outputs not finite or lengths wrong")
+        c = caches[0]
+        q = inputs[-1][0][0]
+        if paged:
+            ops = (c.pages_k, c.pages_k_scale, c.pages_v, c.pages_v_scale, c.page_table, L)
+            fn = lambda: dc.sage_paged_decode_attention(q, *ops, window=window,  # noqa: E731
+                                                        return_state=True)
+            plain = lambda: dc.sage_paged_decode_attention_plain(  # noqa: E731
+                q, *ops, window=window, return_state=True)
+        else:
+            ops = (c.k_i8, c.k_scale, c.v_i8, c.v_scale, L)
+            fn = lambda: dc.sage_decode_attention(q, *ops, window=window,  # noqa: E731
+                                                  return_state=True)
+            plain = lambda: dc.sage_decode_attention_plain(q, *ops, window=window,  # noqa: E731
+                                                           return_state=True)
+        res, res_p = fn(), plain()
+        compare_decode(f"{path} last step, layer 0", res, res_p, results, kern)
+        err = (res[0].float() - res_p[0].float()).abs().max().item()
+        ms = cuda_ms(fn, reps=10, cold=True)
+        plain_ms = cuda_ms(plain, reps=2, warmup=1)
+        bound, by = decode_bound([prompt + steps] * b, hq, hkv, 1, d, bits == 4, window)
+        med = statistics.median(step_ms)
+        log(f"{path}: d {d}, {layers} layers of {cache_kind} int{bits} caches"
+            f"{'' if page is None else f' (pages of {page})'}, window {window}, b {b} x "
+            f"{prompt} + {steps}: ms a step {[round(x, 3) for x in step_ms]}, median {med:.3f} "
+            f"({b / med * 1e3:.1f} tokens/s); {kern} {ms:.4f} ms a launch (bound {bound:.4f} ms, "
+            f"{by}), plain {plain_ms:.4f} ms; max-abs vs plain {err:.3e}")
+        out[path] = {"cache": cache_kind, "bits": bits, "page": page, "window": window,
+                     "layers": layers, "steps": steps, "b": b, "prompt": prompt, "d": d,
+                     "step_ms": step_ms, "median_step_ms": med, "kernel": kern,
+                     "kernel_ms": ms, "bound_ms": bound, "bound_by": by, "plain_ms": plain_ms,
+                     "max_abs_vs_plain": err}
+        r = results[kern]
+        if bits == 8 and page in (None, 1024):  # the int8 cell of 1024-token pages carries it
+            r.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
+                     shape={"b": b, "hq": hq, "hkv": hkv, "t_q": 1, "d": d, "S": max_len,
+                            "length": prompt + steps, "page": page, "window": window})
+        else:
+            r.setdefault("other_cells", []).append(
+                {"path": path, "bits": bits, "page": page, "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": bound, "bound_by": by})
+        del caches, inputs, res, res_p, o
+        torch.cuda.empty_cache()
+    return out
+
+
+def time_wide(results) -> None:
+    """Phase 10g: the wide instances no check above times: kernels 2-6 at
+    384 and 512 (K at (4, 16, 4096, d), Q at (1, 16, 4096, d), V kernel 5
+    at (1, 16, 4096, d) and kernel 6 at (1, 8, 16384, d)), and kernels
+    9-12 at 384 on the serving cells' last step (b 4, 16/16, 4128 tokens
+    of 8192; the windows at b 2, 8208 of 9216), L2 cold, beside their
+    byte bounds and plain versions."""
+    import torch
+    from sageattention_tpu_torch.ops import quant_cuda
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(37)
+    for d in WIDE_DIMS:
+        sfx = f"_hd{d}"
+        b, hq, s = 4, 16, 4096
+        k = torch.randn(b, hq, s, d, generator=gen, device="cuda").to(torch.bfloat16)
+        km = quant_cuda.k_channel_mean(k)
+        ng = -(-s // 128)
+        fill(results, "k_channel_mean" + sfx, f"at {tuple(k.shape)}",
+             ms=cuda_ms(lambda: quant_cuda.k_channel_mean(k)),
+             plain_ms=cuda_ms(lambda: quant_cuda.k_channel_mean_plain(k)),
+             library_ms=cuda_ms(lambda: torch.mean(k, dim=-2, dtype=torch.float32)),
+             bound_ms=(k.numel() * 2 + km.numel() * 4) / PEAK_BYTES_S * 1e3, bound_by="bytes")
+        fill(results, "quant_k_chunked" + sfx, f"at {tuple(k.shape)}",
+             ms=cuda_ms(lambda: quant_cuda.quant_k_chunked(k, km, group=128)),
+             plain_ms=cuda_ms(lambda: quant_cuda.quant_k_chunked_plain(k, km, group=128)),
+             library_ms=None, bound_by="bytes",
+             bound_ms=(k.numel() * 3 + km.numel() * 4 + b * hq * ng * 4) / PEAK_BYTES_S * 1e3)
+        q = k[:1]
+        fold = d**-0.5 * LOG2E
+        fill(results, "quant_q_per_token" + sfx, f"at {tuple(q.shape)}",
+             ms=cuda_ms(lambda: quant_cuda.quant_q_per_token(q, scale_fold=fold)),
+             plain_ms=cuda_ms(lambda: quant_cuda.quant_q_per_token_plain(q, scale_fold=fold)),
+             library_ms=None, bound_ms=(q.numel() * 3 + q.shape[1] * s * 4) / PEAK_BYTES_S * 1e3,
+             bound_by="bytes")
+        del k, km, q
+        for shape, names in (((1, 16, 4096, d), ("quant_v_per_channel",)),
+                             ((1, 8, 16384, d), ("v_channel_stats", "quant_v_apply"))):
+            v = random_v(gen, shape)
+            moved = v.numel() * 2 + v.numel() + shape[1] * d * 4
+            if len(names) == 1:
+                fill(results, names[0] + sfx, f"int8 at {shape}",
+                     ms=cuda_ms(lambda: quant_cuda.quant_v_per_channel(v, dtype=torch.int8)),
+                     plain_ms=cuda_ms(lambda: quant_cuda.quant_v_per_channel_plain(
+                         v, dtype=torch.int8, smooth=False)),
+                     library_ms=None, bound_ms=moved / PEAK_BYTES_S * 1e3, bound_by="bytes")
+                continue
+            gmax, gmin, mean = quant_cuda.v_channel_stats(v, smooth=False)
+            _, rr = quant_cuda.v_scale_from_stats(gmax, gmin, mean, torch.int8)
+            stats_bytes = v.numel() * 2 + 3 * shape[1] * d * 4
+            fill(results, "v_channel_stats" + sfx, f"at {shape}",
+                 ms=cuda_ms(lambda: quant_cuda.v_channel_stats(v, smooth=False)),
+                 plain_ms=cuda_ms(lambda: quant_cuda.v_channel_stats_plain(v, smooth=False)),
+                 library_ms=None, bound_ms=stats_bytes / PEAK_BYTES_S * 1e3, bound_by="bytes")
+            fill(results, "quant_v_apply" + sfx, f"int8 at {shape}",
+                 ms=cuda_ms(lambda: quant_cuda.quant_v_apply(v, rr, None, dtype=torch.int8)),
+                 plain_ms=cuda_ms(lambda: quant_cuda.quant_v_apply_plain(v, rr, None,
+                                                                        dtype=torch.int8)),
+                 library_ms=None, bound_ms=moved / PEAK_BYTES_S * 1e3, bound_by="bytes")
+            del v
+        torch.cuda.empty_cache()
+    d, hq = 384, 16
+    for name, b, S, page, length, window in (
+            ("sage_decode", 4, 8192, None, 4096 + WIDE_SERVE_STEPS, None),
+            ("sage_paged_decode", 4, 8192, 1024, 4096 + WIDE_SERVE_STEPS, None),
+            ("sage_decode_window", 2, 9216, None, 8192 + 16, 4096),
+            ("sage_paged_decode_window", 2, 9216, 1024, 8192 + 16, 4096)):
+        cache = random_cache(gen, (b, hq), S, d, False)
+        q = torch.randn(b, hq, 1, d, generator=gen, device="cuda").to(torch.bfloat16)
+        L = torch.full((b,), length, dtype=torch.int32, device="cuda")
+        _, fn, plain = decode_case(gen, q, cache, L, page, window)
+        bound, by = decode_bound([length] * b, hq, hq, 1, d, False, window)
+        fill(results, name + "_hd384", f"int8 at b {b}, {hq}/{hq} heads of {d}, length {length}, "
+             f"S {S}{'' if page is None else f', page {page}'}",
+             ms=cuda_ms(fn, reps=20, cold=True), plain_ms=cuda_ms(plain, reps=3, warmup=1),
+             bound_ms=bound, bound_by=by, library_ms=None,
+             shape={"b": b, "hq": hq, "hkv": hq, "t_q": 1, "d": d, "S": S, "length": length,
+                    "page": page, "window": window})
+    torch.cuda.empty_cache()
+
+
+def run_wide(results) -> dict:
+    """Phase 10, head dims above 256, each part from a generator of its own."""
+    import torch
+
     t0 = time.perf_counter()
-    def build(name):  # seconds from the start until this source is loaded
-        _build.lib(name)
-        return name, round(time.perf_counter() - t0, 1)
+    for d in WIDE_DIMS:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(30 + d)
+        check_hd256_quant(gen, results, d)
+    check_wide_decode(results)
+    out = {"attention": check_wide_attention(results), "masked": check_wide_masked(results),
+           "preq": check_wide_preq(results), "grad": check_wide_grad(results),
+           "serving": run_wide_serving(results)}
+    time_wide(results)
+    for name in ("attention_fwd_wide", "attention_fwd_masked_wide", "attention_fwd_preq_wide",
+                 "decode_wide", "paged_decode_wide"):
+        out.setdefault("registers", {})[name] = wide_registers(name)
+    log(f"head dims above 256: {time.perf_counter() - t0:.1f} s")
+    return out
 
-    # one nvcc per source, all started together
-    with ThreadPoolExecutor(len(_build.SIGNATURES)) as pool:
-        done = dict(pool.map(build, _build.SIGNATURES))
-    log(f"build: {done} s, {time.perf_counter() - t0:.1f} s wall, into {_build.build_dir()}")
-    resource_usage()
 
+def measured_rate_floor(results, probe: dict) -> None:
+    """Beside each wide forward's data-sheet bound, the time its products
+    take at this run's measured ``mma.sync`` rates (phase 9: int8 Q.K^T at
+    d 256, bf16 P.V at dv 256), Q.K^T counted once a column slice (twice:
+    the split recomputes it)."""
+    rate = {t["row"]: t["rate"] for t in probe["rows"]}
+    qk, pv = rate["qk s8 d256 mma.sync"], rate["pv bf16 dv256 mma.sync"]
+    for dp in WIDE_DIMS:
+        r = results[f"sage_attn_fwd_hd{dp}"]
+        if "shape" not in r:
+            continue
+        ops = 2 * r["shape"]["live_pairs"] * dp
+        r["mma_sync_floor_ms"] = (2 * ops / qk + ops / pv) * 1e3
+        log(f"sage_attn_fwd_hd{dp}: {r['ms']:.4f} ms; its products at the measured mma.sync "
+            f"rates (Q.K^T twice) {r['mma_sync_floor_ms']:.4f} ms; data-sheet bound "
+            f"{r['bound_ms']:.4f} ms")
+
+
+def kernel_entries() -> dict:
+    """Each kernel's entry of the ``kernels`` line, before any number: its
+    route, source and the TPU kernel it replaces; the head-dim-256, -384
+    and -512 instances and kernels 11-12 with ``owned`` apart."""
     src = "sageattention_tpu_torch/csrc/"
     results = {
         "k_channel_mean": {"route": "cuda", "source": src + "quant_k.cu",
@@ -4187,6 +5000,45 @@ def main() -> int:
                                                               .rsplit("/", 1)[1])}
     for name in OWNED:  # kernels 11-12 over a shard of a sharded pool
         results[name + "_owned"] = dict(results[name])
+    for name in WIDE:  # the head-dim-384 and -512 instances, reported apart
+        for d in WIDE_DIMS:
+            results[f"{name}_hd{d}"] = {
+                **results[name], "source": src + WIDE_SOURCE.get(name, results[name]["source"]
+                                                                  .rsplit("/", 1)[1])}
+    return results
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--profile", action="store_true",
+                    help="also profile one step of each server and one training step "
+                         "into chiprun_out/")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing is run", file=sys.stderr)
+        return 1
+    from sageattention_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    log(f"card: {card}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    t0 = time.perf_counter()
+    def build(name):  # seconds from the start until this source is loaded
+        _build.lib(name)
+        return name, round(time.perf_counter() - t0, 1)
+
+    # one nvcc per source, all started together
+    with ThreadPoolExecutor(len(_build.SIGNATURES)) as pool:
+        done = dict(pool.map(build, _build.SIGNATURES))
+    log(f"build: {done} s, {time.perf_counter() - t0:.1f} s wall, into {_build.build_dir()}")
+    resource_usage()
+
+    results = kernel_entries()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     # the head-dim-256 phases draw from a generator of their own, so that
@@ -4289,10 +5141,12 @@ def main() -> int:
     t_phase = time.perf_counter()
     probe = run_probe(results)
     log(f"probe phase: {time.perf_counter() - t_phase:.1f} s")
+    wide = run_wide(results)
+    measured_rate_floor(results, probe)
 
     # a head-dim-256 instance, or kernel 12 with owned, that no path of this
     # run launches (it is checked and timed only) goes inside its kernel's entry
-    nested = {"_hd256": "hd256", "_owned": "owned"}
+    nested = {"_hd256": "hd256", "_hd384": "hd384", "_hd512": "hd512", "_owned": "owned"}
     for name in [n for n in results if n not in MAIN_PATH]:
         r = results.pop(name)
         sfx = next(x for x in nested if name.endswith(x))
@@ -4316,6 +5170,7 @@ def main() -> int:
     log(json.dumps({"hd256": hd256}))
     log(json.dumps({"parallel": parallel}))
     log(json.dumps({"probe": probe}))
+    log(json.dumps({"wide": wide}))
     require(not sweep["failed"], f"accuracy sweep: {sweep['failed']}")
     log(json.dumps({"kernels": kernels}))
     log(f"card: {card}")

@@ -32,8 +32,8 @@ hkv); top-left causal masking; any sq / sk; ``return_lse`` gives the
 natural-log LSE with the smooth-k correction; ``pv_dtype`` bf16 / int8 /
 fp8 / fp8_e5m2 and ``smooth_v``.  V is quantized from the caller's V,
 before any head-dim padding, as in the JAX package.  Head dims are
-zero-padded to 64, 128 or 256, as the JAX package pads them up to 256
-(``core.py:70-75``: 64, or a multiple of 128); above 256 they raise.
+zero-padded to 64, 128, 256, 384 or 512, as the JAX package pads them
+(``core.py:70-75``: 64, or the next multiple of 128); above 512 they raise.
 
 Masks, normalised as the JAX package does (:func:`_masks`), run in the
 masked kernel: ``q_segment_ids``/``kv_segment_ids`` [b, s] (equal ids
@@ -44,8 +44,10 @@ bool ``attn_mask`` (True = attend), an additive ``attn_bias`` (a non-bool
 Under grad ``window`` and a lone ``attn_bias`` are differentiable; ids,
 positions, a bool mask (with a bias or without) and a float
 ``attn_mask`` raise ``NotImplementedError``, as the JAX package has no
-gradient for them.  Head dims above 256 raise ``NotImplementedError``
-naming their ROADMAP item; every option runs at every head dim up to 256.
+gradient for them.  Head dims above 512 raise ``NotImplementedError``
+naming their ROADMAP limits row; every option runs at every head dim up
+to 512.  Above 256 the gradient is exact recompute, as the JAX fused
+backward declines d > 256 (``attention_bwd_pallas.py:486``).
 ``block_q`` / ``block_k`` / ``impl`` raise too: the port picks its own
 launch configuration.
 """
@@ -59,6 +61,7 @@ import torch.nn.functional as F
 
 from sageattention_tpu_torch import quant
 from sageattention_tpu_torch.ops import attention_cuda, autodiff, quant_cuda
+from sageattention_tpu_torch.ops._build import MAX_HEAD_DIM, pad_head_dim
 from sageattention_tpu_torch.ops.attention_cuda import Masks
 
 LOG2E = 1.4426950408889634
@@ -76,14 +79,8 @@ def _to_hnd(x: torch.Tensor, layout: str) -> torch.Tensor:
     raise ValueError(f"tensor_layout must be 'HND' or 'NHD', got {layout!r}")
 
 
-# the largest head dim the kernels take, padded
-MAX_HEAD_DIM = 256
-
-
-def _pad_head_dim(d: int) -> int:
-    """The kernel's head dim for d <= 256: 64, 128 or 256 (the JAX rule,
-    64 or a multiple of 128, up to 256)."""
-    return 64 if d <= 64 else 128 if d <= 128 else 256
+# the largest padded head dim the fused backward (kernels 7-8) takes
+MAX_FUSED_BWD_HEAD_DIM = 256
 
 
 def _pad_d(x: torch.Tensor, d_pad: int) -> torch.Tensor:
@@ -258,10 +255,11 @@ def _forward(q, k, v, *, is_causal: bool, sm_scale: float | None, smooth_k: bool
     if d_og > MAX_HEAD_DIM:
         raise NotImplementedError(
             f"head_dim {d_og} > {MAX_HEAD_DIM} is not ported (ROADMAP: limits, head dims "
-            f"above 256; the JAX package pads them to 384 and 512)"
+            f"above 512; the JAX package pads every head dim above 64 to the next multiple "
+            f"of 128)"
         )
     work = _work_dtype(q.dtype)
-    d_pad = _pad_head_dim(d_og)
+    d_pad = pad_head_dim(d_og)
     v_q, v_scale, v_mean = _quant_v(v, pv_dtype=pv_dtype, smooth_v=smooth_v, d_pad=d_pad)
     if not opts.default:
         q_i8, q_scale, k_i8, k_scale, km, col_bias = _quant_qk(
@@ -344,12 +342,13 @@ def _refuse_grad(masks: Masks | None, attn_mask) -> None:
 
 
 def _fused_bias(bias, q: torch.Tensor, k: torch.Tensor, window, opts: QKOptions) -> bool:
-    """Whether the fused backward takes the call: no bias, or a per-head
-    [b, hq, sq, sk] one without a window, at every head dim up to 256, and
-    no Q/K option (``attention_bwd_pallas.py:418-427, 486``,
+    """Whether the fused backward takes the call: a head dim padded to 256
+    or less, no bias or a per-head [b, hq, sq, sk] one without a window,
+    and no Q/K option (``attention_bwd_pallas.py:418-427, 486``,
     ``autodiff.py:106-114`` of the JAX package).  The rest is
-    differentiated by exact recompute."""
-    if not opts.default:
+    differentiated by exact recompute; above 256 the JAX fused backward
+    declines the call too, and kernels 7-8 have no instance."""
+    if not opts.default or pad_head_dim(q.shape[-1]) > MAX_FUSED_BWD_HEAD_DIM:
         return False
     return bias is None or (window is None
                             and tuple(bias.shape) == (*q.shape[:3], k.shape[2]))

@@ -6,6 +6,8 @@
   using L = Layout<D>;
   constexpr int KT = kKvTile<D>;  // KV columns a tile
   constexpr int NT = KT / 8;      // 8-column n-tiles of S per warp
+  constexpr int DV = kDv<D>;      // O columns of this CTA
+  constexpr int NS = D / DV;      // O's column slices, a CTA each
   extern __shared__ __align__(16) unsigned char smem[];
   int8_t* sQ = reinterpret_cast<int8_t*>(smem + L::q_off);
   int8_t* sK = reinterpret_cast<int8_t*>(smem + L::k_off);
@@ -14,7 +16,12 @@
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;  // mma groupID, thread in group
-  const int q0 = blockIdx.x * BM;
+  // the Q tile, and the first O (and V) column of this CTA's slice; every
+  // slice computes S over the whole D by the same instructions, so m, l and
+  // lse2 are the same bit for bit in each, and slice 0 writes lse2
+  const unsigned qt = NS == 1 ? blockIdx.x : blockIdx.x / NS;
+  const int c_v = NS == 1 ? 0 : (int)(blockIdx.x % NS) * DV;
+  const int q0 = qt * BM;
   const int h = blockIdx.y, bi = blockIdx.z;
   const int hk = h / (hq / hkv);
   const size_t q_base = (((size_t)bi * hq + h) * sq) * D;
@@ -64,9 +71,9 @@
 
   float m0 = NEG_INIT, m1 = NEG_INIT;  // running max (base 2)
   float l0 = 0.f, l1 = 0.f;            // this thread's partial row sums
-  float acc[D / 8][4];
+  float acc[DV / 8][4];
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  for (int i = 0; i < DV / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
 
   int j_first = 0;
   int n_tiles = n_tiles_all;
@@ -108,7 +115,7 @@
     int lv = 2;  // the tile's liveness: 0 dead, 1 some, 2 all (ids and mask)
     if constexpr (MASKED) {
       if (mk.live != nullptr) {
-        lv = mk.live[bi * mk.live_bst + h * mk.live_hst + (size_t)blockIdx.x * n_groups + j / (BN / KT)];
+        lv = mk.live[bi * mk.live_bst + h * mk.live_hst + (size_t)qt * n_groups + j / (BN / KT)];
         if (lv == 0) continue;  // the same for every thread of the CTA
       }
     }
@@ -121,9 +128,9 @@
       if (kv0 + r < sk) val = *reinterpret_cast<const uint4*>(k + kv_base + (size_t)(kv0 + r) * D + c * 16);
       *reinterpret_cast<uint4*>(sK + r * L::QS + c * 16) = val;
     }
-    for (int i = tid; i < KT * (D / 8); i += NTHREADS) {
-      const int r = i / (D / 8), c = i % (D / 8);
-      const size_t e = kv_base + (size_t)(kv0 + r) * D + c * 8;  // first element
+    for (int i = tid; i < KT * (DV / 8); i += NTHREADS) {
+      const int r = i / (DV / 8), c = i % (DV / 8);
+      const size_t e = kv_base + (size_t)(kv0 + r) * D + c_v + c * 8;  // first element
       uint4 val = make_uint4(0, 0, 0, 0);
       if constexpr (VK == kVBf16) {
         if (kv0 + r < sk) val = *reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(v) + e);
@@ -277,7 +284,7 @@
     l0 = l0 * al0 + sum0;
     l1 = l1 * al1 + sum1;
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
+    for (int i = 0; i < DV / 8; ++i) {
       acc[i][0] *= al0;
       acc[i][1] *= al0;
       acc[i][2] *= al1;
@@ -294,7 +301,7 @@
       a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
       const int vr = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
 #pragma unroll
-      for (int np = 0; np < D / 16; ++np) {
+      for (int np = 0; np < DV / 16; ++np) {
         uint32_t b[4];
         ldsm_x4_trans(b, sV + vr * L::VS + np * 16 + (lane >> 4) * 8);
         mma_bf16(acc[2 * np], a, b[0], b[1]);
@@ -311,8 +318,8 @@
   }
   const size_t vc = ((size_t)bi * hkv + hk) * D;  // this kv head's channels
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-    const int col = i * 8 + t * 2;
+  for (int i = 0; i < DV / 8; ++i) {
+    const int col = c_v + i * 8 + t * 2;
     float o0[2] = {acc[i][0] / l0, acc[i][1] / l0};
     float o1[2] = {acc[i][2] / l1, acc[i][3] / l1};
     if constexpr (MASKED) {  // a row with no live key writes 0
@@ -341,7 +348,7 @@
     if (row0 < sq) store2(o + q_base + (size_t)row0 * D + col, o0[0], o0[1]);
     if (row1 < sq) store2(o + q_base + (size_t)row1 * D + col, o1[0], o1[1]);
   }
-  if (lse2 != nullptr && t == 0) {
+  if (lse2 != nullptr && t == 0 && (NS == 1 || c_v == 0)) {
     const size_t lbase = ((size_t)bi * hq + h) * sq;
     float ls0 = log2f(l0) + m0, ls1 = log2f(l1) + m1;
     if constexpr (MASKED) {  // and its LSE is -inf

@@ -2,11 +2,13 @@
 //
 // The kernels shared by attention_fwd.cu (no masks: MASKED = false),
 // attention_fwd_masked.cu (MASKED = true) and attention_fwd_preq.cu (PREQ =
-// true, both ways of MASKED), at head dims 64 and 128, and by
+// true, both ways of MASKED), at head dims 64 and 128, by
 // attention_fwd_hd256.cu, attention_fwd_masked_hd256.cu and
 // attention_fwd_preq_hd256.cu (PREQ, both ways of MASKED) at 256, 16
-// instances each; their body is attention_fwd_body.cuh.  Each source
-// instantiates only its own kernels, so the six build in
+// instances each, and by attention_fwd_wide.cu, attention_fwd_masked_wide.cu
+// and attention_fwd_preq_wide.cu at 384 and 512 (O split by columns, kDv);
+// their body is attention_fwd_body.cuh.  Each source instantiates only its
+// own kernels, so the nine build in
 // parallel, and the unmasked instantiations compile to the code they had
 // before masks existed: every masked statement sits under `if constexpr
 // (MASKED)`, every pre-quantized one under `if constexpr (PREQ)`, and the
@@ -32,8 +34,8 @@
 //      max(amax,1e-30) * qs_mul, qs_mul = f32(1/127) * f32(sm_scale*log2e)
 //      (the form XLA compiles the spec's fold into);
 //   2. loops over KV tiles of 128 columns, which is also the K-scale group
-//      (one k_scale per tile); at D = 256 over tiles of 64 (kKvTile), two
-//      to a group, each reading its group's scale.  K rows >= sk are zero-filled in shared
+//      (one k_scale per tile); from D = 256 on over tiles of 64 (kKvTile),
+//      two to a group, each reading its group's scale.  K rows >= sk are zero-filled in shared
 //      memory and their columns masked;
 //   3. per tile: S = Q.K^T on the int8 tensor cores
 //      (mma.sync.m16n8k32.s32.s8.s8.s32, K's rows are the "col" operand),
@@ -46,6 +48,11 @@
 //      dtype and, if asked, lse2 = log2(l) + m.  Rows >= sq are not
 //      written.  When causal, KV tiles wholly above the diagonal of the Q
 //      tile are skipped.
+// Above D = 256 a CTA computes one column slice of O, kDv<D> = D / 2
+// columns, and the grid's x axis walks each Q tile's two slices; every
+// slice runs steps 1-3a over the whole D by the same instructions (so m, l
+// and lse2 agree bit for bit), steps 3c-4 over its own V and O columns, and
+// slice 0 writes lse2 (attention_fwd_wide.cu says why and what it costs).
 //
 // The pre-quantized instantiation (PREQ) is kernel 1's slices (h), (i) and
 // (k) (attention_pallas.py:661-680, 1455-1457, 1837-1845): Q arrives as
@@ -126,16 +133,22 @@ constexpr float NEG_INIT = -1e30f;
 constexpr float kInvQmax = (float)(1.0 / 127.0);
 constexpr float kLog2e = 1.4426950408889634f;
 
-// KV columns a tile: the K-scale group, or half of it at D = 256, where a
-// warp's fp32 O accumulator alone takes 128 registers a thread and a
+// KV columns a tile: the K-scale group, or half of it from D = 256 on,
+// where a warp's fp32 O accumulator alone takes 128 registers a thread and a
 // 128-column S tile (64 more) would leave nothing for the rest
 template <int D>
-constexpr int kKvTile = D == 256 ? BN / 2 : BN;
+constexpr int kKvTile = D >= 256 ? BN / 2 : BN;
+
+// O columns a CTA computes: all D up to 256; above, half of them (192 at
+// D = 384, 256 at 512), a grid axis over the column slices, so that a
+// warp's O accumulator stays at D = 256's 128 registers a thread or under
+template <int D>
+constexpr int kDv = D > 256 ? D / 2 : D;
 
 template <int D>
 struct Layout {
-  static constexpr int QS = D + 16;  // int8 row stride of Q and K (bytes)
-  static constexpr int VS = D + 8;   // bf16 row stride of V (elements)
+  static constexpr int QS = D + 16;         // int8 row stride of Q and K (bytes)
+  static constexpr int VS = kDv<D> + 8;     // bf16 row stride of V's column slice (elements)
   static constexpr int q_off = 0;
   static constexpr int k_off = q_off + BM * QS;
   static constexpr int v_off = k_off + kKvTile<D> * QS;
@@ -313,7 +326,9 @@ int launch_kernel(Kernel kern, const Args& a, const MaskOf<MASKED>& mk, const Pr
   const int smem = smem_bytes<D, PREQ>();
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((a.sq + BM - 1) / BM, a.hq, a.b);
+  // above D = 256 the x axis also walks O's column slices, a Q tile's
+  // slices side by side (they read the same Q and K tiles)
+  dim3 grid((a.sq + BM - 1) / BM * (D / kDv<D>), a.hq, a.b);
   kern<<<grid, NTHREADS, smem, st>>>((const T*)a.q, (const int8_t*)a.k, (const float*)a.k_scale,
                                      a.v, (const float*)a.v_scale, (const float*)a.v_mean,
                                      (T*)a.o, (float*)a.lse2, a.hq, a.hkv, a.sq, a.sk, a.qs_mul,

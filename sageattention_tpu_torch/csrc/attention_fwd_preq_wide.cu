@@ -1,0 +1,48 @@
+// Fused SageAttention forward for Hopper (sm_90a) on pre-quantized Q at head
+// dims 384 and 512: the PREQ instances of attention_fwd_kernel.cuh at
+// D = 384 and 512, without masks and with them (8 each a head dim: causal x
+// V kind; the output type is an argument), kernel 1's slices (h)
+// score_col_bias, (i) qk_int4 and (k) pre-quantized operands of
+// attention_pallas.py:sage_attention_fused for every head dim in (256, 512].
+// sageattn's smooth_q, qk_bits=4 and qk_quant_gran run here at those head
+// dims.  A source of its own, for the reasons attention_fwd_wide.cu gives.
+//
+// The tiling is attention_fwd_wide.cu's: O's column slices, a CTA each, and
+// 64-column KV tiles, two to a 128-row K-scale group.  Every slice reads the
+// same Q codes and scales and stages the same column pairs' K scales and
+// smooth_q's column bias, so its scores are the other slice's bit for bit.
+// The +-7 codes of qk_bits=4 run the same int8 MMA: a sum of 512 products of
+// +-7 stays under 2^15.
+//
+// Bound: operations, as the default wide forward.
+
+#include "attention_fwd_kernel.cuh"
+
+// The operands of sage_attn_fwd_preq (attention_fwd_preq.cu), with d 384 or
+// 512.
+extern "C" int sage_attn_fwd_preq_wide(
+    const void* q, const void* k, const void* k_scale, const void* v, const void* v_scale,
+    const void* v_mean, void* o, void* lse2, int b, int hq, int hkv, int sq, int sk, int d,
+    int causal, int v_kind, int want_lse, int group, int ks_per_row, int o_f32,
+    const void* q_scale, const void* col_bias, void* stream, int masked, const void* q_seg,
+    const void* kv_seg, const void* kv_lo, const void* kv_hi, const void* q_pos,
+    const void* kv_pos, const void* mask, const void* bias, const void* live,
+    long long mask_sb, long long mask_sh, long long mask_sr, long long mask_sc,
+    long long bias_sb, long long bias_sh, long long bias_sr, long long bias_sc,
+    long long live_sb, long long live_sh, int window, int bias_bf16) {
+  if (q_scale == nullptr) return (int)cudaErrorInvalidValue;
+  const Args a{nullptr, k, k_scale, v, v_scale, v_mean, o, want_lse ? lse2 : nullptr,
+               b, hq, hkv, sq, sk, 0.f};
+  const PreqArgs pq{(const int8_t*)q, (const float*)q_scale, (const float*)col_bias, ks_per_row,
+                    o_f32};
+  MaskArgs mk;
+  if (!mask_args(&mk, causal, q_seg, kv_seg, kv_lo, kv_hi, q_pos, kv_pos, mask, bias, live,
+                 mask_sb, mask_sh, mask_sr, mask_sc, bias_sb, bias_sh, bias_sr, bias_sc, live_sb,
+                 live_sh, window, bias_bf16))
+    return (int)cudaErrorInvalidValue;
+  if (d == 384)
+    return masked ? launch_fwd_preq_d<384, true>(a, mk, pq, d, causal, v_kind, group, stream)
+                  : launch_fwd_preq_d<384, false>(a, NoMask{}, pq, d, causal, v_kind, group, stream);
+  return masked ? launch_fwd_preq_d<512, true>(a, mk, pq, d, causal, v_kind, group, stream)
+                : launch_fwd_preq_d<512, false>(a, NoMask{}, pq, d, causal, v_kind, group, stream);
+}

@@ -36,11 +36,28 @@
 // block may have; a 128-token one takes 184 KB.  The second row warp has
 // no live row below GQA 32 x t_q 1 and adds its MMAs, not bytes.
 //
-// Head dims: the instances compute at D = 64, 128 or 256; a cache of any
-// head dim ds <= D that is a multiple of 16 (the cache keeps the caller's, as
-// the JAX package's does) is read at its own row stride, its lanes ds..D
+// Wide (D = 384 and 512): MW = 2 and CW = 4 at every row count, and P.V is
+// split by columns, not tokens.  At D = 256 the int32 P.V partial pacc[D /
+// 8][4] already takes 128 registers a thread (the instances use 250-255),
+// and the [RT][D] int32 sums and fp32 accumulator in shared memory, 2 x 64
+// KB at RT 32 and D 512, do not fit beside a slab.  So after each slab's P
+// codes are in shared memory, warp (mw, cw) multiplies its 16 rows' P over
+// all of the slab's 128 tokens by its DW = D / 4 columns of V^T (128 at
+// 512, 96 at 384) and keeps the chunk's int32 sums in registers (DW / 2 a
+// thread, exact); the online merge and the output accumulator are in
+// registers too, the same fp32 operations on the same values, element by
+// element, as the shared-memory merge.  V goes from global memory straight
+// into V^T (no staged copy).  Shared memory at 512: 162 KB for the int8
+// cache, 195 KB packed.  S and its three passes are unchanged.
+//
+// Head dims: the instances compute at D = 64, 128, 256, 384 or 512; a cache
+// of any head dim ds <= D (the cache keeps the caller's, as the JAX
+// package's does) is read at its own row stride, its lanes ds..D
 // zero-filled as Q and the slabs load, which adds 0 to every product, and
-// only its ds lanes of o are written.
+// only its ds lanes of o are written.  A ds that is not a multiple of 16
+// leaves the rows off 16-byte alignment: the RAGGED instances read them
+// byte by byte with ordinary loads (no cp.async), the last block of a row
+// zero past ds.
 //
 // Bound: bytes.  Each step reads the live cache once (K and V codes, two
 // fp32 scales a token) and a few bytes of Q and O; the operations are a
@@ -79,26 +96,31 @@ struct Chunk {
 
 template <int D, int MW, bool PACKED>
 struct Shape {
+  static constexpr bool WIDE = D > 256;    // P.V split by columns (see "Wide")
   static constexpr int CW = NWARPS / MW;   // warps along the tokens
   static constexpr int RT = 16 * MW;       // rows a CTA owns
   static constexpr int SLAB = 32 * CW;     // tokens a shared-memory slab holds
   static constexpr int DROWS = PACKED ? SLAB / 2 : SLAB;  // data rows of a slab
+  static constexpr int DW = D / CW;        // wide: O columns a warp's P.V computes
   static constexpr int QS = D + 16;        // byte stride of the Q, K and staged rows
   static constexpr int TS = SLAB + 16;     // byte stride of the V^T and P rows
   static constexpr int NROW = 9;           // per-row fp32 arrays
   static constexpr int q_off = 0;
   static constexpr int k_off = q_off + RT * QS;
   static constexpr int kraw_off = k_off + SLAB * QS;              // packed K as read
-  static constexpr int vraw_off = kraw_off + (PACKED ? DROWS * QS : 0);  // V as read
-  static constexpr int vt_off = vraw_off + DROWS * QS;
+  // V as read (wide: none, V goes from global memory straight into V^T)
+  static constexpr int vraw_off = kraw_off + (PACKED ? DROWS * QS : 0);
+  static constexpr int vt_off = vraw_off + (WIDE ? 0 : DROWS * QS);
   static constexpr int p_off = vt_off + D * TS;
   static constexpr int ks_off = p_off + RT * TS;
   static constexpr int vs_off = ks_off + SLAB * 4;
   static constexpr int red_off = vs_off + SLAB * 4;  // [2][CW][RT] fp32
   static constexpr int row_off = red_off + 2 * CW * RT * 4;
-  static constexpr int pv_off = row_off + NROW * RT * 4;  // int32 [RT][D]
-  static constexpr int acc_off = pv_off + RT * D * 4;     // fp32 [RT][D]
-  static constexpr int bytes = acc_off + RT * D * 4;
+  // the P.V sums (int32 [RT][D]) and the output accumulator (fp32 [RT][D]);
+  // wide: in registers instead
+  static constexpr int pv_off = row_off + NROW * RT * 4;
+  static constexpr int acc_off = pv_off + (WIDE ? 0 : RT * D * 4);
+  static constexpr int bytes = acc_off + (WIDE ? 0 : RT * D * 4);
 };
 
 __device__ inline int floor_div(int a, int b) {
@@ -134,12 +156,55 @@ __device__ inline void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
 }
 
+// bytes c0 .. c0 + 15 of a cache row of ds bytes, byte by byte (a row of a
+// head dim that is not a multiple of 16 is not 16-byte aligned), zero past ds
+__device__ inline uint4 load16_ragged(const int8_t* row, int c0, int ds) {
+  uint4 out;
+  int8_t* b = reinterpret_cast<int8_t*>(&out);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) b[j] = c0 + j < ds ? row[c0 + j] : 0;
+  return out;
+}
+
+// 16-byte block cb of data row r of the chunk's codes `x` (row stride ds),
+// zero where the row is not live or the block lies past ds
+template <bool RAGGED>
+__device__ inline uint4 load16(const int8_t* x, int r, int cb, bool live, int ds) {
+  if (!live) return make_uint4(0, 0, 0, 0);
+  if constexpr (RAGGED) return load16_ragged(x + (size_t)r * ds, cb * 16, ds);
+  return *reinterpret_cast<const uint4*>(x + (size_t)r * ds + cb * 16);
+}
+
+// one 16-byte block of V codes (data row r, channels cb * 16 ..) into V^T:
+// unpacked from token pairs when packed
+template <int TS, bool PACKED>
+__device__ inline void store_vt(int8_t* sVt, uint4 raw, int r, int cb) {
+  if constexpr (PACKED) {
+    uint4 lo, hi;
+    unpack16(raw, lo, hi);
+    const int8_t* bl = reinterpret_cast<const int8_t*>(&lo);
+    const int8_t* bh = reinterpret_cast<const int8_t*>(&hi);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      sVt[(cb * 16 + j) * TS + 2 * r] = bl[j];
+      sVt[(cb * 16 + j) * TS + 2 * r + 1] = bh[j];
+    }
+  } else {
+    const int8_t* bv = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) sVt[(cb * 16 + j) * TS + r] = bv[j];
+  }
+}
+
 // tokens [tok0, tok0 + SLAB) of the chunk's K (and with V, V^T) and scales
 // into shared memory; tokens past the chunk's C are zero.  Every global
 // load of the slab is in flight at once (cp.async); packed codes are then
-// unpacked, and V transposed, from the staged copy.  The caller
-// synchronises before reading.
-template <int D, int MW, bool PACKED, bool WITH_V>
+// unpacked, and V transposed, from the staged copy.  RAGGED (a head dim
+// ds that is not a multiple of 16): the rows are read byte by byte with
+// ordinary loads, their last block zero-filled past ds.  Wide: V is read
+// from global memory into registers and transposed from there.  The
+// caller synchronises before reading.
+template <int D, int MW, bool PACKED, bool WITH_V, bool RAGGED>
 __device__ inline void load_slab(const Chunk& ch, int tok0, int C, int ds, int8_t* sK,
                                  int8_t* sKraw, int8_t* sVraw, int8_t* sVt, float* sKs,
                                  float* sVs) {
@@ -149,12 +214,32 @@ __device__ inline void load_slab(const Chunk& ch, int tok0, int C, int ds, int8_
   const int drow0 = PACKED ? tok0 / 2 : tok0;
   const int drows_live = PACKED ? (C - tok0) / 2 : C - tok0;  // C is even when packed
   int8_t* kdst = PACKED ? sKraw : sK;
-  for (int i = tid; i < L::DROWS * CB; i += NTHREADS) {
-    const int r = i / CB, cb = i % CB;
-    const bool live = r < drows_live && cb * 16 < ds;  // lanes past ds are zero
-    const size_t src = live ? (size_t)(drow0 + r) * ds + cb * 16 : 0;
-    cp_async16(kdst + r * L::QS + cb * 16, ch.k + src, live);
-    if constexpr (WITH_V) cp_async16(sVraw + r * L::QS + cb * 16, ch.v + src, live);
+  if constexpr (RAGGED) {
+    for (int i = tid; i < L::DROWS * CB; i += NTHREADS) {
+      const int r = i / CB, cb = i % CB;
+      const bool live = r < drows_live && cb * 16 < ds;
+      *reinterpret_cast<uint4*>(kdst + r * L::QS + cb * 16) =
+          load16<true>(ch.k, drow0 + r, cb, live, ds);
+      if constexpr (WITH_V && !L::WIDE)
+        *reinterpret_cast<uint4*>(sVraw + r * L::QS + cb * 16) =
+            load16<true>(ch.v, drow0 + r, cb, live, ds);
+    }
+  } else {
+    for (int i = tid; i < L::DROWS * CB; i += NTHREADS) {
+      const int r = i / CB, cb = i % CB;
+      const bool live = r < drows_live && cb * 16 < ds;  // lanes past ds are zero
+      const size_t src = live ? (size_t)(drow0 + r) * ds + cb * 16 : 0;
+      cp_async16(kdst + r * L::QS + cb * 16, ch.k + src, live);
+      if constexpr (WITH_V && !L::WIDE) cp_async16(sVraw + r * L::QS + cb * 16, ch.v + src, live);
+    }
+  }
+  if constexpr (WITH_V && L::WIDE) {
+    // straight from global memory, rows as the staged path below takes them
+    for (int i = tid; i < L::DROWS * CB; i += NTHREADS) {
+      const int r = i % L::DROWS, cb = i / L::DROWS;
+      const bool live = r < drows_live && cb * 16 < ds;
+      store_vt<L::TS, PACKED>(sVt, load16<RAGGED>(ch.v, drow0 + r, cb, live, ds), r, cb);
+    }
   }
   for (int i = tid; i < L::SLAB; i += NTHREADS) {
     const bool live = tok0 + i < C;
@@ -173,27 +258,13 @@ __device__ inline void load_slab(const Chunk& ch, int tok0, int C, int ds, int8_
       *reinterpret_cast<uint4*>(sK + (2 * r + 1) * L::QS + cb * 16) = hi;
     }
   }
-  if constexpr (WITH_V) {
+  if constexpr (WITH_V && !L::WIDE) {
     // consecutive threads take consecutive rows, so a warp's byte stores
     // into a V^T row are contiguous
     for (int i = tid; i < L::DROWS * CB; i += NTHREADS) {
       const int r = i % L::DROWS, cb = i / L::DROWS;
-      const uint4 raw = *reinterpret_cast<const uint4*>(sVraw + r * L::QS + cb * 16);
-      if constexpr (PACKED) {
-        uint4 lo, hi;
-        unpack16(raw, lo, hi);
-        const int8_t* bl = reinterpret_cast<const int8_t*>(&lo);
-        const int8_t* bh = reinterpret_cast<const int8_t*>(&hi);
-#pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          sVt[(cb * 16 + j) * L::TS + 2 * r] = bl[j];
-          sVt[(cb * 16 + j) * L::TS + 2 * r + 1] = bh[j];
-        }
-      } else {
-        const int8_t* bv = reinterpret_cast<const int8_t*>(&raw);
-#pragma unroll
-        for (int j = 0; j < 16; ++j) sVt[(cb * 16 + j) * L::TS + r] = bv[j];
-      }
+      store_vt<L::TS, PACKED>(sVt, *reinterpret_cast<const uint4*>(sVraw + r * L::QS + cb * 16),
+                              r, cb);
     }
   }
 }
@@ -258,7 +329,8 @@ __device__ inline uint32_t slab_scores(float (&sf)[4][4], const int8_t* sQ, cons
 // live_at(ci) false skips chunk ci before anything of it is read (a page
 // another shard of a sharded pool owns); the dense kernels pass a functor
 // that is always true.
-template <int D, int MW, bool PACKED, bool WINDOW, typename ChunkAt, typename LiveAt>
+template <int D, int MW, bool PACKED, bool WINDOW, bool RAGGED, typename ChunkAt,
+          typename LiveAt>
 __device__ void decode_cta(const float* __restrict__ q, float* __restrict__ o,
                            float* __restrict__ m_out, float* __restrict__ l_out, int rows,
                            int t_q, int length, int C, int n_total, int window, int n_live,
@@ -318,11 +390,21 @@ __device__ void decode_cta(const float* __restrict__ q, float* __restrict__ o,
       sL[r] = 0.f;
     }
   }
-  for (int i = tid; i < RT * D; i += NTHREADS) {
-    sAcc[i] = 0.f;
-    sPV[i] = 0;
+  if constexpr (!L::WIDE) {
+    for (int i = tid; i < RT * D; i += NTHREADS) {
+      sAcc[i] = 0.f;
+      sPV[i] = 0;
+    }
   }
   __syncthreads();
+  // wide: this thread's share of the output accumulator, rows ra and rb
+  // (below) by the columns [cw * DW, (cw + 1) * DW) of its warp's P.V
+  constexpr int NP = L::WIDE ? L::DW / 8 : D / 8;  // 8-column n-tiles of a warp's P.V
+  float acc_w[L::WIDE ? NP : 1][4];
+  if constexpr (L::WIDE) {
+#pragma unroll
+    for (int i = 0; i < NP; ++i) acc_w[i][0] = acc_w[i][1] = acc_w[i][2] = acc_w[i][3] = 0.f;
+  }
 
   const int ra = mw * 16 + g, rb = ra + 8;  // this thread's rows in the tile
   const int trow0 = (row0 + ra) % t_q, trow1 = (row0 + rb) % t_q;
@@ -351,7 +433,7 @@ __device__ void decode_cta(const float* __restrict__ q, float* __restrict__ o,
     // ---- pass 1: the chunk's row max of sf -------------------------------
     float mx0 = NEG_INIT, mx1 = NEG_INIT;
     for (int tok0 = lo; tok0 < hi; tok0 += L::SLAB) {
-      load_slab<D, MW, PACKED, false>(ch, tok0, C, ds, sK, sKraw, sVraw, sVt, sKs, sVs);
+      load_slab<D, MW, PACKED, false, RAGGED>(ch, tok0, C, ds, sK, sKraw, sVraw, sVt, sKs, sVs);
       __syncthreads();
       slab_scores<D, MW, PACKED>(sf, sQ, sK, sKs, mw, cw, tok0, base, C, qsf0, qsf1, trow0, trow1, mask);
 #pragma unroll
@@ -382,7 +464,7 @@ __device__ void decode_cta(const float* __restrict__ q, float* __restrict__ o,
     // ---- pass 2: l_c and the row max of pe = p * vs ------------------------
     float ls0 = 0.f, ls1 = 0.f, pm0 = 0.f, pm1 = 0.f;
     for (int tok0 = lo; tok0 < hi; tok0 += L::SLAB) {
-      load_slab<D, MW, PACKED, false>(ch, tok0, C, ds, sK, sKraw, sVraw, sVt, sKs, sVs);
+      load_slab<D, MW, PACKED, false, RAGGED>(ch, tok0, C, ds, sK, sKraw, sVraw, sVt, sKs, sVs);
       __syncthreads();
       const uint32_t ok =
           slab_scores<D, MW, PACKED>(sf, sQ, sK, sKs, mw, cw, tok0, base, C, qsf0, qsf1, trow0, trow1, mask);
@@ -432,11 +514,11 @@ __device__ void decode_cta(const float* __restrict__ q, float* __restrict__ o,
     const float pr0 = sPr[ra], pr1 = sPr[rb];
 
     // ---- pass 3: P codes and the integer P.V -----------------------------
-    int pacc[D / 8][4];
+    int pacc[NP][4];
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i) pacc[i][0] = pacc[i][1] = pacc[i][2] = pacc[i][3] = 0;
+    for (int i = 0; i < NP; ++i) pacc[i][0] = pacc[i][1] = pacc[i][2] = pacc[i][3] = 0;
     for (int tok0 = lo; tok0 < hi; tok0 += L::SLAB) {
-      load_slab<D, MW, PACKED, true>(ch, tok0, C, ds, sK, sKraw, sVraw, sVt, sKs, sVs);
+      load_slab<D, MW, PACKED, true, RAGGED>(ch, tok0, C, ds, sK, sKraw, sVraw, sVt, sKs, sVs);
       __syncthreads();
       const uint32_t ok =
           slab_scores<D, MW, PACKED>(sf, sQ, sK, sKs, mw, cw, tok0, base, C, qsf0, qsf1, trow0, trow1, mask);
@@ -451,24 +533,43 @@ __device__ void decode_cta(const float* __restrict__ q, float* __restrict__ o,
           sP[(e < 2 ? ra : rb) * L::TS + ts] = (int8_t)code;
         }
       }
-      __syncwarp();
-      uint32_t a[4];
-      load_a(a, reinterpret_cast<const unsigned char*>(sP) + ra * L::TS + cw * 32 + t * 4, L::TS);
+      if constexpr (L::WIDE) {
+        // the slab's every token against this warp's DW columns of V^T,
+        // int32 summed over the chunk in registers (exact)
+        __syncthreads();  // every token warp's P codes
 #pragma unroll
-      for (int nt = 0; nt < D / 8; ++nt) {
-        const int8_t* vb = sVt + (nt * 8 + g) * L::TS + cw * 32 + t * 4;
-        mma_s8(pacc[nt], a, ld32(vb), ld32(vb + 16));
+        for (int kk = 0; kk < L::SLAB / 32; ++kk) {
+          uint32_t a[4];
+          load_a(a, reinterpret_cast<const unsigned char*>(sP) + ra * L::TS + kk * 32 + t * 4,
+                 L::TS);
+#pragma unroll
+          for (int nt = 0; nt < NP; ++nt) {
+            const int8_t* vb = sVt + (cw * L::DW + nt * 8 + g) * L::TS + kk * 32 + t * 4;
+            mma_s8(pacc[nt], a, ld32(vb), ld32(vb + 16));
+          }
+        }
+      } else {
+        __syncwarp();
+        uint32_t a[4];
+        load_a(a, reinterpret_cast<const unsigned char*>(sP) + ra * L::TS + cw * 32 + t * 4, L::TS);
+#pragma unroll
+        for (int nt = 0; nt < D / 8; ++nt) {
+          const int8_t* vb = sVt + (nt * 8 + g) * L::TS + cw * 32 + t * 4;
+          mma_s8(pacc[nt], a, ld32(vb), ld32(vb + 16));
+        }
       }
       __syncthreads();
     }
-    // the int32 partials of the CW token warps, summed exactly
+    if constexpr (!L::WIDE) {
+      // the int32 partials of the CW token warps, summed exactly
 #pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt) {
-      const int c0 = nt * 8 + 2 * t;
-      atomicAdd(&sPV[ra * D + c0], pacc[nt][0]);
-      atomicAdd(&sPV[ra * D + c0 + 1], pacc[nt][1]);
-      atomicAdd(&sPV[rb * D + c0], pacc[nt][2]);
-      atomicAdd(&sPV[rb * D + c0 + 1], pacc[nt][3]);
+      for (int nt = 0; nt < D / 8; ++nt) {
+        const int c0 = nt * 8 + 2 * t;
+        atomicAdd(&sPV[ra * D + c0], pacc[nt][0]);
+        atomicAdd(&sPV[ra * D + c0 + 1], pacc[nt][1]);
+        atomicAdd(&sPV[rb * D + c0], pacc[nt][2]);
+        atomicAdd(&sPV[rb * D + c0 + 1], pacc[nt][3]);
+      }
     }
     __syncthreads();
 
@@ -484,22 +585,49 @@ __device__ void decode_cta(const float* __restrict__ q, float* __restrict__ o,
       sW[r] = w;
     }
     __syncthreads();
-    for (int i = tid; i < RT * D; i += NTHREADS) {
-      const int r = i / D;
-      const float pv = __fmul_rn((float)sPV[i], sPsc[r]);
-      sAcc[i] = __fadd_rn(__fmul_rn(sAcc[i], sAlpha[r]), __fmul_rn(pv, sW[r]));
-      sPV[i] = 0;
+    if constexpr (L::WIDE) {
+#pragma unroll
+      for (int nt = 0; nt < NP; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e < 2 ? ra : rb;
+          const float pv = __fmul_rn((float)pacc[nt][e], sPsc[r]);
+          acc_w[nt][e] = __fadd_rn(__fmul_rn(acc_w[nt][e], sAlpha[r]), __fmul_rn(pv, sW[r]));
+        }
+      }
+    } else {
+      for (int i = tid; i < RT * D; i += NTHREADS) {
+        const int r = i / D;
+        const float pv = __fmul_rn((float)sPV[i], sPsc[r]);
+        sAcc[i] = __fadd_rn(__fmul_rn(sAcc[i], sAlpha[r]), __fmul_rn(pv, sW[r]));
+        sPV[i] = 0;
+      }
     }
     __syncthreads();
   }
 
   // ---- epilogue: o = acc * (1 / l), 0 where l == 0 ---------------------------
-  for (int i = tid; i < RT * D; i += NTHREADS) {
-    const int r = i / D, gr = row0 + r;
-    if (gr >= rows || i % D >= ds) continue;
-    const float l = sL[r];
-    const float l_inv = l == 0.f ? 0.f : __fdiv_rn(1.0f, l);
-    o[(size_t)gr * ds + i % D] = __fmul_rn(sAcc[i], l_inv);
+  if constexpr (L::WIDE) {
+#pragma unroll
+    for (int nt = 0; nt < NP; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e < 2 ? ra : rb, gr = row0 + r;
+        const int col = cw * L::DW + nt * 8 + 2 * t + (e & 1);
+        if (gr >= rows || col >= ds) continue;
+        const float l = sL[r];
+        const float l_inv = l == 0.f ? 0.f : __fdiv_rn(1.0f, l);
+        o[(size_t)gr * ds + col] = __fmul_rn(acc_w[nt][e], l_inv);
+      }
+    }
+  } else {
+    for (int i = tid; i < RT * D; i += NTHREADS) {
+      const int r = i / D, gr = row0 + r;
+      if (gr >= rows || i % D >= ds) continue;
+      const float l = sL[r];
+      const float l_inv = l == 0.f ? 0.f : __fdiv_rn(1.0f, l);
+      o[(size_t)gr * ds + i % D] = __fmul_rn(sAcc[i], l_inv);
+    }
   }
   if (m_out != nullptr) {
     for (int r = tid; r < RT; r += NTHREADS) {

@@ -33,6 +33,7 @@ namespace {
 
 constexpr int kMeanThreads = 512;
 constexpr int kQuantThreads = 256;
+constexpr int kMaxD = 512;  // the widest head dim (the kernels' 512)
 
 // eight consecutive elements of a row as fp32
 __device__ inline void load8(const __nv_bfloat16* p, float* x) {
@@ -53,6 +54,10 @@ __device__ inline void load8(const float* p, float* x) {
   x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
 }
 
+// Thread i sums vector i % nv of the rows i / nv, i / nv + rows_per_iter,
+// ...; where nv does not divide the block (d 384: 48 vectors) the last
+// kMeanThreads % nv threads sum nothing.  The partial sums are added in row
+// order, so the mean does not depend on the schedule.
 template <typename T>
 __global__ void channel_mean_kernel(const T* __restrict__ k,
                                     float* __restrict__ km, int s, int d) {
@@ -63,14 +68,16 @@ __global__ void channel_mean_kernel(const T* __restrict__ k,
   const int r0 = threadIdx.x / nv;
   const T* base = k + (size_t)blockIdx.x * s * d;
   float acc[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-  for (int r = r0; r < s; r += rows_per_iter) {
+  for (int r = r0; r < s && r0 < rows_per_iter; r += rows_per_iter) {
     float x[8];
     load8(base + (size_t)r * d + v * 8, x);
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[j] += x[j];
   }
+  if (r0 < rows_per_iter) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j) part[r0 * d + v * 8 + j] = acc[j];
+    for (int j = 0; j < 8; ++j) part[r0 * d + v * 8 + j] = acc[j];
+  }
   __syncthreads();
   if (threadIdx.x < d) {
     float sum = 0.f;
@@ -102,14 +109,14 @@ __global__ void quant_k_kernel(const T* __restrict__ k,
                                float* __restrict__ scales, int s, int d,
                                int group, float qmax, float inv_qmax) {
   __shared__ float red[32];
-  __shared__ float mean[256];
+  __shared__ float mean[kMaxD];
   const int c = blockIdx.x, bh = blockIdx.y;
   const int n_groups = gridDim.x;
   const int row0 = c * group;
   const int rows = min(group, s - row0);  // live rows of this group
   const int nv = d / 8;
   const size_t off = ((size_t)bh * s + row0) * d;
-  if (threadIdx.x < d) mean[threadIdx.x] = km ? km[(size_t)bh * d + threadIdx.x] : 0.f;
+  for (int c = threadIdx.x; c < d; c += blockDim.x) mean[c] = km ? km[(size_t)bh * d + c] : 0.f;
   __syncthreads();
 
   float amax = 0.f;
@@ -142,11 +149,11 @@ __global__ void quant_k_kernel(const T* __restrict__ k,
 }  // namespace
 
 // k: [bh, s, d] (bf16 if k_is_bf16 else fp32), contiguous, d a multiple of 8
-// up to 256 (64, 128 and 256 from the wrappers).
+// up to 512 (64, 128, 256, 384 and 512 from the wrappers).
 // km: [bh, d] fp32 out.
 extern "C" int k_channel_mean(const void* k, void* km, int bh, int s, int d,
                               int k_is_bf16, void* stream) {
-  if (d % 8 != 0 || d > 256 || kMeanThreads % (d / 8) != 0) return (int)cudaErrorInvalidValue;
+  if (d <= 0 || d % 8 != 0 || d > kMaxD) return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * (kMeanThreads / (d / 8)) * d;
   cudaStream_t st = (cudaStream_t)stream;
   if (k_is_bf16)
@@ -163,7 +170,7 @@ extern "C" int k_channel_mean(const void* k, void* km, int bh, int s, int d,
 extern "C" int quant_k_chunked(const void* k, const void* km, void* out,
                                void* scales, int bh, int s, int d, int group,
                                int k_is_bf16, float qmax, float inv_qmax, void* stream) {
-  if (d % 8 != 0 || d > 256 || group <= 0) return (int)cudaErrorInvalidValue;
+  if (d <= 0 || d % 8 != 0 || d > kMaxD || group <= 0) return (int)cudaErrorInvalidValue;
   dim3 grid((s + group - 1) / group, bh);
   cudaStream_t st = (cudaStream_t)stream;
   if (k_is_bf16)

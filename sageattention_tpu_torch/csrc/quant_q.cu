@@ -31,13 +31,18 @@ namespace {
 
 constexpr int kRowsPerCta = 8;
 
+// the largest power of two that divides n bytes: a lane's vector of D / 32
+// elements is aligned to it (at D = 384, 12 elements: 24 bytes of bf16 on
+// 8, 48 of fp32 on 16, 12 codes on 4)
+constexpr int align_of(int n) { return n & -n; }
+
 template <typename T, int N>
-struct alignas(sizeof(T) * N) Vec {
+struct alignas(align_of(sizeof(T) * N)) Vec {
   T v[N];
 };
 
 template <int N>
-struct alignas(N) Codes {
+struct alignas(align_of(N)) Codes {
   int8_t v[N];
 };
 
@@ -83,22 +88,31 @@ int launch(const void* q, void* out, void* scales, long long rows, float qs_mul,
   return (int)cudaGetLastError();
 }
 
+// the instances of the one head dim D
+template <int D>
+int launch_d(const void* q, void* out, void* scales, long long rows, int q_is_f32, float qs_mul,
+             float qmax, float inv_qmax, cudaStream_t st) {
+  return q_is_f32 ? launch<D, float>(q, out, scales, rows, qs_mul, qmax, inv_qmax, st)
+                  : launch<D, __nv_bfloat16>(q, out, scales, rows, qs_mul, qmax, inv_qmax, st);
+}
+
 }  // namespace
 
 // q: [rows, d] contiguous (bf16 if q_is_f32 == 0, else fp32), d in {64,
-// 128, 256}; out: int8 [rows, d]; scales: fp32 [rows]; qmax 127 or 7 and
-// inv_qmax = f32(1/qmax); qs_mul = f32(1/qmax) * f32(sm_scale * log2(e)).
+// 128, 256, 384, 512}; out: int8 [rows, d]; scales: fp32 [rows]; qmax 127
+// or 7 and inv_qmax = f32(1/qmax); qs_mul = f32(1/qmax) * f32(sm_scale *
+// log2(e)).
 extern "C" int quant_q_per_token(const void* q, void* out, void* scales,
                                  long long rows, int d, int q_is_f32,
                                  float qs_mul, float qmax, float inv_qmax, void* stream) {
-  if (rows <= 0 || (d != 64 && d != 128 && d != 256)) return (int)cudaErrorInvalidValue;
+  if (rows <= 0 || (d != 64 && d != 128 && d != 256 && d != 384 && d != 512))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (d == 64)
-    return q_is_f32 ? launch<64, float>(q, out, scales, rows, qs_mul, qmax, inv_qmax, st)
-                    : launch<64, __nv_bfloat16>(q, out, scales, rows, qs_mul, qmax, inv_qmax, st);
-  if (d == 128)
-    return q_is_f32 ? launch<128, float>(q, out, scales, rows, qs_mul, qmax, inv_qmax, st)
-                    : launch<128, __nv_bfloat16>(q, out, scales, rows, qs_mul, qmax, inv_qmax, st);
-  return q_is_f32 ? launch<256, float>(q, out, scales, rows, qs_mul, qmax, inv_qmax, st)
-                  : launch<256, __nv_bfloat16>(q, out, scales, rows, qs_mul, qmax, inv_qmax, st);
+  switch (d) {
+    case 64: return launch_d<64>(q, out, scales, rows, q_is_f32, qs_mul, qmax, inv_qmax, st);
+    case 128: return launch_d<128>(q, out, scales, rows, q_is_f32, qs_mul, qmax, inv_qmax, st);
+    case 256: return launch_d<256>(q, out, scales, rows, q_is_f32, qs_mul, qmax, inv_qmax, st);
+    case 384: return launch_d<384>(q, out, scales, rows, q_is_f32, qs_mul, qmax, inv_qmax, st);
+    default: return launch_d<512>(q, out, scales, rows, q_is_f32, qs_mul, qmax, inv_qmax, st);
+  }
 }

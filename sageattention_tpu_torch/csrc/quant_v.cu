@@ -17,7 +17,9 @@
 //                        CogVideoX-2B), no reduction across CTAs.
 //   quant_v_stats        kernel 6, pass 1.  One CTA per (b,h, block of
 //                        rows): the block's per-channel max, min and sum
-//                        into a [bh, n_blocks, d] scratch.  The TPU grid
+//                        into a [bh, n_blocks, d] scratch (above d 256,
+//                        where a row has more 8-channel vectors than a
+//                        warp has lanes, quant_v_stats_wide_kernel).  The TPU grid
 //                        carried these across its sequence axis in VMEM;
 //                        blocks here run in no order, so the wrapper
 //                        combines them in PyTorch, as the JAX package
@@ -50,6 +52,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kUnroll = 4;  // rows a thread has in flight
+constexpr int kMaxD = 512;  // the widest head dim (the kernels' 512)
 
 enum CodeKind { kInt8 = 0, kE4M3 = 1, kE5M2 = 2 };
 
@@ -259,16 +262,60 @@ quant_v_stats_kernel(const T* __restrict__ v, float* __restrict__ pmax,
   }
 }
 
+// quant_v_stats_kernel for rows of more than 32 eight-channel vectors (d 384
+// and 512), where a warp holds less than a row: thread i takes vector i %
+// nv of every (kThreads / nv)-th row from row i / nv (the last kThreads %
+// nv threads none), and the row groups' statistics are combined through
+// shared memory ([3][groups][d] fp32, 24 KB at 512) in group order.  It
+// computes every d, but at 64-256 the warp-shuffle kernel above stays: in
+// its place there this one took 1.075x its time at the Wan2.1 layer (1,
+// 12, 33272, 128) and 1.083x at (1, 8, 16384, 256), and the same at d 64
+// and 128 (tools/ab_quant_v.py, H100 80GB HBM3 at 700 W).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+quant_v_stats_wide_kernel(const T* __restrict__ v, float* __restrict__ pmax,
+                          float* __restrict__ pmin, float* __restrict__ psum, int s, int d,
+                          int block_s) {
+  extern __shared__ float red[];  // [3][groups][d]
+  const int blk = blockIdx.x, bh = blockIdx.y, n_blocks = gridDim.x;
+  const int nv = d / 8, groups = kThreads / nv;
+  const int vi = threadIdx.x % nv, grp = threadIdx.x / nv;
+  const int row0 = blk * block_s, end = min(s, row0 + block_s);
+  if (grp < groups) {
+    float mx[8], mn[8], sm[8];
+    column_stats(v + (size_t)bh * s * d + vi * 8, row0 + grp, end, groups, d, mx, mn, sm);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      red[(0 * groups + grp) * d + vi * 8 + j] = mx[j];
+      red[(1 * groups + grp) * d + vi * 8 + j] = mn[j];
+      red[(2 * groups + grp) * d + vi * 8 + j] = sm[j];
+    }
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < d; c += kThreads) {
+    float gmax = red[c], gmin = red[groups * d + c], gsum = red[2 * groups * d + c];
+    for (int g = 1; g < groups; ++g) {
+      gmax = fmaxf(gmax, red[g * d + c]);
+      gmin = fminf(gmin, red[(groups + g) * d + c]);
+      gsum += red[(2 * groups + g) * d + c];
+    }
+    const size_t o = ((size_t)bh * n_blocks + blk) * d + c;
+    pmax[o] = gmax;
+    pmin[o] = gmin;
+    psum[o] = gsum;
+  }
+}
+
 template <typename T, int KIND>
 __global__ void __launch_bounds__(kThreads)
 quant_v_apply_kernel(const T* __restrict__ v, const float* __restrict__ r,
                      const float* __restrict__ mean, uint8_t* __restrict__ out, int s,
                      int d, int block_s) {
-  __shared__ float sr[256], sm[256];
+  __shared__ float sr[kMaxD], sm[kMaxD];
   const int blk = blockIdx.x, bh = blockIdx.y;
-  if (threadIdx.x < d) {
-    sr[threadIdx.x] = r[(size_t)bh * d + threadIdx.x];
-    sm[threadIdx.x] = mean ? mean[(size_t)bh * d + threadIdx.x] : 0.f;
+  for (int c = threadIdx.x; c < d; c += kThreads) {
+    sr[c] = r[(size_t)bh * d + c];
+    sm[c] = mean ? mean[(size_t)bh * d + c] : 0.f;
   }
   __syncthreads();
   const int nv = d / 8;
@@ -283,7 +330,8 @@ quant_v_apply_kernel(const T* __restrict__ v, const float* __restrict__ r,
 }
 
 bool bad_shape(int bh, int s, int d) {
-  return bh <= 0 || bh > 65535 || s <= 0 || (d != 64 && d != 128 && d != 256);
+  return bh <= 0 || bh > 65535 || s <= 0 ||
+         (d != 64 && d != 128 && d != 256 && d != 384 && d != 512);
 }
 
 template <typename T>
@@ -320,7 +368,8 @@ int launch_apply(const void* v, const void* r, const void* mean, void* out, int 
 
 }  // namespace
 
-// v: [bh, s, d] (bf16 if v_is_bf16 else fp32), contiguous, d in {64, 128, 256};
+// v: [bh, s, d] (bf16 if v_is_bf16 else fp32), contiguous, d in {64, 128, 256,
+// 384, 512};
 // out: [bh, s, d] codes (kind 0 int8, 1 fp8 e4m3, 2 fp8 e5m2); scale:
 // fp32 [bh, d]; mean: fp32 [bh, d], written when smooth (may be NULL
 // otherwise).
@@ -342,6 +391,17 @@ extern "C" int quant_v_stats(const void* v, void* pmax, void* pmin, void* psum, 
   if (bad_shape(bh, s, d) || block_s <= 0) return (int)cudaErrorInvalidValue;
   dim3 grid((s + block_s - 1) / block_s, bh);
   cudaStream_t st = (cudaStream_t)stream;
+  if (d > 256) {  // more than a warp's 32 vectors a row
+    const int groups = kThreads / (d / 8);
+    const size_t smem = sizeof(float) * 3 * groups * d;
+    if (v_is_bf16)
+      quant_v_stats_wide_kernel<__nv_bfloat16><<<grid, kThreads, smem, st>>>(
+          (const __nv_bfloat16*)v, (float*)pmax, (float*)pmin, (float*)psum, s, d, block_s);
+    else
+      quant_v_stats_wide_kernel<float><<<grid, kThreads, smem, st>>>(
+          (const float*)v, (float*)pmax, (float*)pmin, (float*)psum, s, d, block_s);
+    return (int)cudaGetLastError();
+  }
   if (v_is_bf16)
     quant_v_stats_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
         (const __nv_bfloat16*)v, (float*)pmax, (float*)pmin, (float*)psum, s, d, block_s);

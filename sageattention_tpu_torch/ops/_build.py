@@ -22,6 +22,18 @@ import shutil
 import subprocess
 import threading
 
+# the head dims the kernels compute at; a caller's head dim is padded up
+# to one of them by the JAX rule (pad_head_dim)
+HEAD_DIMS = (64, 128, 256, 384, 512)
+MAX_HEAD_DIM = HEAD_DIMS[-1]
+
+
+def pad_head_dim(d: int) -> int:
+    """The kernels' head dim for d <= 512: 64, 128, 256, 384 or 512 (the
+    JAX rule: 64, or the next multiple of 128)."""
+    return 64 if d <= 64 else -(-d // 128) * 128
+
+
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 FLAGS = (
@@ -70,6 +82,18 @@ SIGNATURES = {
         "sage_attn_fwd_preq_hd256": [P] * 8 + [I] * 12 + [P] * 3 + [I] + [P] * 9 + [LL] * 10
         + [I] * 2,
     },
+    # the forward's D = 384 and 512 instances (O split by columns), with the
+    # operands of the default, masked and pre-quantized forwards
+    "attention_fwd_wide": {
+        "sage_attn_fwd_wide": [P] * 8 + [I] * 11 + [F, P],
+    },
+    "attention_fwd_masked_wide": {
+        "sage_attn_fwd_masked_wide": [P] * 8 + [I] * 11 + [F, P] + [P] * 9 + [LL] * 10 + [I] * 2,
+    },
+    "attention_fwd_preq_wide": {
+        "sage_attn_fwd_preq_wide": [P] * 8 + [I] * 12 + [P] * 3 + [I] + [P] * 9 + [LL] * 10
+        + [I] * 2,
+    },
     "attention_bwd": {
         "sage_attn_bwd_dq": [P] * 10 + [I] * 9 + [F, P],
         "sage_attn_bwd_dkv": [P] * 11 + [I] * 9 + [F, P],
@@ -94,6 +118,16 @@ SIGNATURES = {
         # decode's operands with the page table and the owned mask (or NULL)
         "sage_paged_decode": [P] * 11 + [I] * 10 + [F, P],
         "sage_paged_decode_window": [P] * 11 + [I] * 10 + [F, P],
+    },
+    # the decode kernels' instances at head dims in (256, 512], with the
+    # operands of the two above
+    "decode_wide": {
+        "sage_decode_wide": [P] * 9 + [I] * 10 + [F, P],
+        "sage_decode_window_wide": [P] * 9 + [I] * 10 + [F, P],
+    },
+    "paged_decode_wide": {
+        "sage_paged_decode_wide": [P] * 11 + [I] * 10 + [F, P],
+        "sage_paged_decode_window_wide": [P] * 11 + [I] * 10 + [F, P],
     },
 }
 
@@ -160,6 +194,20 @@ def lib(name: str) -> ctypes.CDLL:
                 getattr(so, fn).restype = ctypes.c_int
             _LIBS[name] = so
         return _LIBS[name]
+
+
+def count_launch(fn, d: int) -> None:
+    """One more launch on wrapper ``fn``'s counter for head dim ``d``: the
+    instances at 64 and 128 in ``fn.launches``, those at 256, 384 and 512
+    apart, in ``fn.hd<d>_launches``."""
+    attr = "launches" if d <= 128 else f"hd{d}_launches"
+    setattr(fn, attr, getattr(fn, attr) + 1)
+
+
+def zero_counters(*fns) -> None:
+    """Every head dim's launch counter of each wrapper in ``fns``, at 0."""
+    for fn in fns:
+        fn.launches = fn.hd256_launches = fn.hd384_launches = fn.hd512_launches = 0
 
 
 def check(err: int, what: str) -> None:

@@ -16,12 +16,16 @@ which says what bounds it and what this first version leaves for later):
 masks or without), at head dims 64 and 128.  At 256 they launch the
 instances of ``csrc/attention_fwd_hd256.cu``,
 ``csrc/attention_fwd_masked_hd256.cu`` and
-``csrc/attention_fwd_preq_hd256.cu`` and count them apart, in
-``<wrapper>.hd256_launches``.  A masked row with no live key gives o = 0
-and lse2 = -inf, as the TPU kernel does.
+``csrc/attention_fwd_preq_hd256.cu``, and at 384 and 512 those of
+``csrc/attention_fwd_wide.cu``, ``csrc/attention_fwd_masked_wide.cu`` and
+``csrc/attention_fwd_preq_wide.cu`` (O split by columns over a grid
+axis, S recomputed in each column slice), and count them apart, in
+``<wrapper>.hd256_launches``, ``.hd384_launches`` and
+``.hd512_launches``.  A masked row with no live key gives o = 0 and
+lse2 = -inf, as the TPU kernel does.
 
 The H100 launch configuration is fixed: 64 Q rows per CTA, KV tiles of
-``K_GROUP`` = 128 columns (64 at head dim 256, two to a group), and
+``K_GROUP`` = 128 columns (64 from head dim 256 on, two to a group), and
 ``K_GROUP`` is also the K-scale group, so a tile reads one K scale.  It
 replaces the TPU's ``default_config`` and tuned table, which hold TPU
 block sizes only.
@@ -46,8 +50,14 @@ K_GROUP = 128
 Q_TILE = 64
 # the V storage types the kernel reads; the position of each is its code
 V_TYPES = (torch.bfloat16, *quant.V_CODE_TYPES)
-# the kernels' head dims; 256 has sources of its own
-HEAD_DIMS = (64, 128, 256)
+# the kernels' head dims; 256, and 384 with 512, have sources of their own
+HEAD_DIMS = _build.HEAD_DIMS
+
+
+def instances(d: int) -> str:
+    """The suffix of the library and entry point that hold the instances at
+    head dim ``d`` (``attention_fwd`` + it, ``sage_attn_fwd`` + it)."""
+    return "_hd256" if d == 256 else "_wide" if d > 256 else ""
 
 
 def _check_v_scale(v, v_scale) -> None:
@@ -209,11 +219,10 @@ def sage_attention_fwd(q, k_i8, k_scale, v, v_scale=None, v_mean=None, *,
     hkv, sk = k_i8.shape[1], k_i8.shape[2]
     o = torch.empty_like(q)
     lse2 = torch.empty(b, hq, sq, dtype=torch.float32, device=q.device) if return_lse else None
-    hd256 = d == 256
+    entry = "sage_attn_fwd" + instances(d)
     # the launch goes to the current device: make it the tensors' own
     with torch.cuda.device(q.device):
-        lib = _build.lib("attention_fwd_hd256" if hd256 else "attention_fwd")
-        err = (lib.sage_attn_fwd_hd256 if hd256 else lib.sage_attn_fwd)(
+        err = getattr(_build.lib("attention_fwd" + instances(d)), entry)(
             q.data_ptr(), k_i8.data_ptr(), k_scale.data_ptr(), v.data_ptr(),
             v_scale.data_ptr() if v_scale is not None else None,
             v_mean.data_ptr() if v_mean is not None else None,
@@ -222,16 +231,9 @@ def sage_attention_fwd(q, k_i8, k_scale, v, v_scale=None, v_mean=None, *,
             V_TYPES.index(v.dtype), int(return_lse), K_GROUP, quant.fold_multiplier(q_fold),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
-    _build.check(err, "sage_attn_fwd_hd256" if hd256 else "sage_attn_fwd")
-    if hd256:
-        sage_attention_fwd.hd256_launches += 1
-    else:
-        sage_attention_fwd.launches += 1
+    _build.check(err, entry)
+    _build.count_launch(sage_attention_fwd, d)
     return (o, lse2) if return_lse else o
-
-
-sage_attention_fwd.launches = 0
-sage_attention_fwd.hd256_launches = 0
 
 
 def broadcast_strides(x: torch.Tensor | None) -> list[int]:
@@ -300,10 +302,9 @@ def sage_attention_fwd_masked(q, k_i8, k_scale, v, v_scale=None, v_mean=None, *,
         return x.data_ptr() if x is not None else None
 
     live_st = [0, 0] if live is None else broadcast_strides(live)[:2]
-    hd256 = d == 256
+    entry = "sage_attn_fwd_masked" + instances(d)
     with torch.cuda.device(q.device):
-        lib = _build.lib("attention_fwd_masked_hd256" if hd256 else "attention_fwd_masked")
-        err = (lib.sage_attn_fwd_masked_hd256 if hd256 else lib.sage_attn_fwd_masked)(
+        err = getattr(_build.lib("attention_fwd_masked" + instances(d)), entry)(
             q.data_ptr(), k_i8.data_ptr(), k_scale.data_ptr(), v.data_ptr(), ptr(v_scale),
             ptr(v_mean), o.data_ptr(), ptr(lse2), b, hq, hkv, sq, sk, d, int(is_causal),
             int(q.dtype == torch.float32), V_TYPES.index(v.dtype), int(return_lse), K_GROUP,
@@ -314,16 +315,9 @@ def sage_attention_fwd_masked(q, k_i8, k_scale, v, v_scale=None, v_mean=None, *,
             window_arg(masks.window, is_causal),
             int(masks.bias is not None and masks.bias.dtype == torch.bfloat16),
         )
-    _build.check(err, "sage_attn_fwd_masked_hd256" if hd256 else "sage_attn_fwd_masked")
-    if hd256:
-        sage_attention_fwd_masked.hd256_launches += 1
-    else:
-        sage_attention_fwd_masked.launches += 1
+    _build.check(err, entry)
+    _build.count_launch(sage_attention_fwd_masked, d)
     return (o, lse2) if return_lse else o
-
-
-sage_attention_fwd_masked.launches = 0
-sage_attention_fwd_masked.hd256_launches = 0
 
 
 def sage_attention_preq_plain(q_i8, q_scale, k_i8, k_scale, v, v_scale=None, v_mean=None, *,
@@ -366,8 +360,9 @@ def sage_attention_fwd_preq(q_i8, q_scale, k_i8, k_scale, v, v_scale=None, v_mea
                             out_dtype=torch.bfloat16, col_bias=None,
                             masks: Masks | None = None):
     """The forward on pre-quantized operands (``csrc/attention_fwd_preq.cu``;
-    at head dim 256 ``csrc/attention_fwd_preq_hd256.cu``), HND: q_i8 [b,hq,sq,d] int8 codes (+-127, or +-7 at 4 bits) with
-    q_scale [b,hq,sq] fp32 holding ``sm_scale * log2(e)``; k_i8 with
+    at head dim 256 ``csrc/attention_fwd_preq_hd256.cu``, at 384 and 512
+    ``csrc/attention_fwd_preq_wide.cu``), HND: q_i8 [b,hq,sq,d] int8 codes
+    (+-127, or +-7 at 4 bits) with q_scale [b,hq,sq] fp32 holding ``sm_scale * log2(e)``; k_i8 with
     k_scale [b,hkv,ceil(sk/K_GROUP)] per tile or [b,hkv,sk] per row; V as
     :func:`sage_attention_fwd` takes it; ``col_bias`` [b,hq,sk] fp32 in the
     base-2 domain (smooth-q) or None; ``masks`` (:class:`Masks`) or None.
@@ -393,10 +388,9 @@ def sage_attention_fwd_preq(q_i8, q_scale, k_i8, k_scale, v, v_scale=None, v_mea
     def ptr(x):
         return x.data_ptr() if x is not None else None
 
-    hd256 = d == 256
+    entry = "sage_attn_fwd_preq" + instances(d)
     with torch.cuda.device(q_i8.device):
-        lib = _build.lib("attention_fwd_preq_hd256" if hd256 else "attention_fwd_preq")
-        err = (lib.sage_attn_fwd_preq_hd256 if hd256 else lib.sage_attn_fwd_preq)(
+        err = getattr(_build.lib("attention_fwd_preq" + instances(d)), entry)(
             q_i8.data_ptr(), k_i8.data_ptr(), k_scale.data_ptr(), v.data_ptr(), ptr(v_scale),
             ptr(v_mean), o.data_ptr(), ptr(lse2), b, hq, hkv, sq, sk, d, int(is_causal),
             V_TYPES.index(v.dtype), int(return_lse), K_GROUP, int(k_scale.shape[-1] == sk),
@@ -407,13 +401,9 @@ def sage_attention_fwd_preq(q_i8, q_scale, k_i8, k_scale, v, v_scale=None, v_mea
             *broadcast_strides(m.bias), *live_st, window_arg(m.window, is_causal),
             int(m.bias is not None and m.bias.dtype == torch.bfloat16),
         )
-    _build.check(err, "sage_attn_fwd_preq_hd256" if hd256 else "sage_attn_fwd_preq")
-    if hd256:
-        sage_attention_fwd_preq.hd256_launches += 1
-    else:
-        sage_attention_fwd_preq.launches += 1
+    _build.check(err, entry)
+    _build.count_launch(sage_attention_fwd_preq, d)
     return (o, lse2) if return_lse else o
 
 
-sage_attention_fwd_preq.launches = 0
-sage_attention_fwd_preq.hd256_launches = 0
+_build.zero_counters(sage_attention_fwd, sage_attention_fwd_masked, sage_attention_fwd_preq)

@@ -41,7 +41,8 @@ The Q/K options (``smooth_q``, ``qk_bits=4``, ``qk_quant_gran`` other than
 ``_FUSED_BWD_KWARGS``, ``autodiff.py:106-114``): :class:`RecomputeFunction`
 runs their quantized forward and differentiates exact attention,
 recomputed from the saved q, k and v (:func:`exact_attention_vjp`), as the
-JAX package does (``autodiff.py:173-196``).
+JAX package does (``autodiff.py:173-196``).  So are head dims above 256
+(``core._fused_bias`` routes them), which the JAX fused backward declines.
 """
 
 from __future__ import annotations
@@ -238,8 +239,10 @@ def exact_attention_vjp(q, k, v, do, dlse, *, is_causal: bool, sm_scale: float |
 
 class RecomputeFunction(torch.autograd.Function):
     """``sageattn`` on HND tensors whose backward is exact recompute: a Q/K
-    option (``core.QKOptions``), or a bias the fused backward does not
-    take (broadcast forms, a bias with a window or an option).
+    option (``core.QKOptions``), a bias the fused backward does not take
+    (broadcast forms, a bias with a window or an option), or a head dim
+    padded above 256 (384, 512), which the JAX fused backward declines
+    (``attention_bwd_pallas.py:486``) and kernels 7-8 have no instance of.
 
     ``apply(q, k, v, bias, is_causal, sm_scale, smooth_k, return_lse,
     pv_dtype, smooth_v, window, opts)``: the quantized forward (with the

@@ -5,8 +5,10 @@ Replaces the TPU kernels of ``sageattention_tpu/ops/decode_pallas.py``
 ``sageattention_tpu/ops/paged_decode_pallas.py`` (``_paged_kernel``,
 ``_paged_kernel_window``), which share one chunk body,
 ``decode_step_body``.  The kernels are ``csrc/decode.cu`` and
-``csrc/paged_decode.cu`` on the shared ``csrc/decode_body.cuh``; their
-headers say what bounds them and how they are laid out.
+``csrc/paged_decode.cu`` (head dims up to 256) and ``csrc/decode_wide.cu``
+and ``csrc/paged_decode_wide.cu`` (head dims in (256, 512]) on the shared
+``csrc/decode_body.cuh``; their headers say what bounds them and how they
+are laid out.
 
 What every version computes, chunk by chunk (a chunk of the dense cache
 comes from the host rules below, a chunk of the paged cache is a page):
@@ -26,9 +28,14 @@ so the host rules are the JAX package's, copied exactly.  On a CPU tensor
 the wrappers run the plain versions; on a CUDA tensor they launch the
 kernels or raise.  ``decode_kernel``, ``decode_window_kernel``,
 ``paged_kernel`` and ``paged_window_kernel`` launch kernels 9-12 and count
-their launches in ``.launches``, and those at head dims above 128 (the
-D = 256 instances) in ``.hd256_launches``; kernels 11-12 also count their
-launches over a shard of a sharded pool (``owned``) in ``.owned_launches``.
+their launches in ``.launches``, and those at head dims above 128 by the
+instances' head dim, in ``.hd256_launches`` (d in (128, 256]),
+``.hd384_launches`` and ``.hd512_launches``; kernels 11-12 also count
+their launches over a shard of a sharded pool (``owned``) in
+``.owned_launches``.  The kernels take every head dim up to
+``_build.MAX_HEAD_DIM`` = 512, computed at 64, 128, 256, 384 or 512: a cache of
+another head dim is read at its own row stride, byte by byte where that
+is not a multiple of 16 bytes.
 """
 
 from __future__ import annotations
@@ -330,11 +337,18 @@ def _device_args(q, lengths, *tensors):
         if not x.is_contiguous():
             raise ValueError("the decode kernels take contiguous tensors")
     d = q.shape[-1]
-    if d > 256 or d % 16:
-        # the kernels compute at 64, 128 or 256 and read a cache of the
-        # caller's head dim in 16-byte blocks, the lanes past it zero
-        raise ValueError(f"head dim {d}: the kernels take multiples of 16 up to 256")
+    if d > _build.MAX_HEAD_DIM:
+        raise NotImplementedError(
+            f"head dim {d} > {_build.MAX_HEAD_DIM}: the decode kernels compute at 64, 128, 256, 384 "
+            f"or 512 (ROADMAP: limits, head dims above 512)")
     return q.float().contiguous(), lengths.to(device=q.device, dtype=torch.int32).contiguous()
+
+
+def _wide(d: int) -> str:
+    """The suffix of the library and entry point of the instances at head
+    dim ``d``: those above 256 are sources of their own
+    (``csrc/decode_wide.cu``, ``csrc/paged_decode_wide.cu``)."""
+    return "_wide" if d > 256 else ""
 
 
 def _outputs(q, rows_shape, return_state):
@@ -356,14 +370,15 @@ def _launch_dense(fn_name, q, k_i8, k_scale, v_i8, v_scale, lengths, *, chunk, w
     rows = hq // hkv * t_q
     qf, lens = _device_args(q, lengths, k_i8, k_scale, v_i8, v_scale)
     o, m, l = _outputs(q, (b, hkv, rows), return_state)
+    sfx = _wide(d)
     with torch.cuda.device(q.device):
-        err = getattr(_build.lib("decode"), fn_name)(
+        err = getattr(_build.lib("decode" + sfx), fn_name + sfx)(
             qf.data_ptr(), k_i8.data_ptr(), k_scale.data_ptr(), v_i8.data_ptr(),
             v_scale.data_ptr(), lens.data_ptr(), o.data_ptr(), _ptr(m), _ptr(l),
             b, hkv, rows, t_q, S, d, int(k_i8.shape[2] != S), chunk, window or 0,
             n_live or 0, qs_mul, torch.cuda.current_stream(q.device).cuda_stream,
         )
-    _build.check(err, fn_name)
+    _build.check(err, fn_name + sfx)
     return o, m, l
 
 
@@ -373,10 +388,7 @@ def decode_kernel(q, k_i8, k_scale, v_i8, v_scale, lengths, *, chunk, qs_mul,
     out = _launch_dense("sage_decode", q, k_i8, k_scale, v_i8, v_scale, lengths,
                         chunk=chunk, window=None, n_live=None, qs_mul=qs_mul,
                         return_state=return_state)
-    if q.shape[-1] > 128:
-        decode_kernel.hd256_launches += 1
-    else:
-        decode_kernel.launches += 1
+    _build.count_launch(decode_kernel, _build.pad_head_dim(q.shape[-1]))
     return out
 
 
@@ -386,10 +398,7 @@ def decode_window_kernel(q, k_i8, k_scale, v_i8, v_scale, lengths, *, chunk, win
     out = _launch_dense("sage_decode_window", q, k_i8, k_scale, v_i8, v_scale, lengths,
                         chunk=chunk, window=window, n_live=n_live, qs_mul=qs_mul,
                         return_state=return_state)
-    if q.shape[-1] > 128:
-        decode_window_kernel.hd256_launches += 1
-    else:
-        decode_window_kernel.launches += 1
+    _build.count_launch(decode_window_kernel, _build.pad_head_dim(q.shape[-1]))
     return out
 
 
@@ -402,23 +411,21 @@ def _launch_paged(fn_name, q, pages_k, pages_k_scale, pages_v, pages_v_scale, pa
     own = None if owned is None else owned.to(device=q.device, dtype=torch.int32).contiguous()
     qf, lens = _device_args(q, lengths, pages_k, pages_k_scale, pages_v, pages_v_scale)
     o, m, l = _outputs(q, (b, hkv, rows), return_state)
+    sfx = _wide(d)
     with torch.cuda.device(q.device):
-        err = getattr(_build.lib("paged_decode"), fn_name)(
+        err = getattr(_build.lib("paged_decode" + sfx), fn_name + sfx)(
             qf.data_ptr(), pages_k.data_ptr(), pages_k_scale.data_ptr(), pages_v.data_ptr(),
             pages_v_scale.data_ptr(), table.data_ptr(), _ptr(own), lens.data_ptr(), o.data_ptr(),
             _ptr(m), _ptr(l), b, hkv, rows, t_q, page, table.shape[1], d,
             int(pages_k.shape[2] != page), window or 0, n_live or 0, qs_mul,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
-    _build.check(err, fn_name)
+    _build.check(err, fn_name + sfx)
     return o, m, l
 
 
 def _count_paged(fn, q, owned) -> None:
-    if q.shape[-1] > 128:
-        fn.hd256_launches += 1
-    else:
-        fn.launches += 1
+    _build.count_launch(fn, _build.pad_head_dim(q.shape[-1]))
     if owned is not None:
         fn.owned_launches += 1  # of those, the launches over a pool shard
 
@@ -445,8 +452,7 @@ def paged_window_kernel(q, pages_k, pages_k_scale, pages_v, pages_v_scale, page_
     return out
 
 
-for _fn in (decode_kernel, decode_window_kernel, paged_kernel, paged_window_kernel):
-    _fn.launches = _fn.hd256_launches = 0
+_build.zero_counters(decode_kernel, decode_window_kernel, paged_kernel, paged_window_kernel)
 for _fn in (paged_kernel, paged_window_kernel):
     _fn.owned_launches = 0
 

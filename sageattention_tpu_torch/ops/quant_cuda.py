@@ -14,9 +14,10 @@ kernels do.
 
 On a CPU tensor every function here runs its plain PyTorch version; on a
 CUDA tensor it launches its kernel or raises.  Each wrapper counts its
-launches in ``<function>.launches``, and those at head dim 256 apart, in
-``<function>.hd256_launches`` (the Q quantizer has instances of its own
-there; the K and V kernels take the width as an argument).
+launches in ``<function>.launches``, and those at head dims 256, 384 and
+512 apart, in ``<function>.hd256_launches``, ``.hd384_launches`` and
+``.hd512_launches`` (the Q quantizer has instances of its own there; the
+K and V kernels take the width as an argument).
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ _KDTYPES = (torch.bfloat16, torch.float32)
 V_SINGLE_PASS_BYTES = 4 * 2**20
 # rows of one CTA of the two-pass V kernels
 V_BLOCK_ROWS = 512
+HEAD_DIMS = _build.HEAD_DIMS
 
 
 def _check_input(x: torch.Tensor, what: str = "K quantizer") -> None:
@@ -42,9 +44,9 @@ def _check_input(x: torch.Tensor, what: str = "K quantizer") -> None:
         raise ValueError(f"{what}: tensor on {x.device}, want cpu or cuda")
     if x.dtype not in _KDTYPES:
         raise TypeError(f"{what} takes bf16 or fp32 input, got {x.dtype}")
-    if x.dim() != 4 or x.shape[-1] not in (64, 128, 256) or not x.is_contiguous():
+    if x.dim() != 4 or x.shape[-1] not in HEAD_DIMS or not x.is_contiguous():
         raise ValueError(
-            f"{what} takes contiguous [b,h,s,d] with d in (64, 128, 256), "
+            f"{what} takes contiguous [b,h,s,d] with d in {HEAD_DIMS}, "
             f"got {tuple(x.shape)} contiguous={x.is_contiguous()}"
         )
 
@@ -78,15 +80,9 @@ def quant_q_per_token(q: torch.Tensor, *, scale_fold: float, bits: int = 8):
             inv_qmax, torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(err, "quant_q_per_token")
-    if q.shape[-1] == 256:
-        quant_q_per_token.hd256_launches += 1
-    else:
-        quant_q_per_token.launches += 1
+    _build.count_launch(quant_q_per_token, q.shape[-1])
     return out, scales
 
-
-quant_q_per_token.launches = 0
-quant_q_per_token.hd256_launches = 0
 
 
 def k_channel_mean_plain(k: torch.Tensor) -> torch.Tensor:
@@ -107,15 +103,9 @@ def k_channel_mean(k: torch.Tensor) -> torch.Tensor:
             torch.cuda.current_stream(k.device).cuda_stream,
         )
     _build.check(err, "k_channel_mean")
-    if k.shape[-1] == 256:
-        k_channel_mean.hd256_launches += 1
-    else:
-        k_channel_mean.launches += 1
+    _build.count_launch(k_channel_mean, k.shape[-1])
     return km
 
-
-k_channel_mean.launches = 0
-k_channel_mean.hd256_launches = 0
 
 
 def quant_k_chunked_plain(k, km, *, group: int, bits: int = 8):
@@ -147,15 +137,9 @@ def quant_k_chunked(k: torch.Tensor, km: torch.Tensor | None, *, group: int, bit
             torch.cuda.current_stream(k.device).cuda_stream,
         )
     _build.check(err, "quant_k_chunked")
-    if k.shape[-1] == 256:
-        quant_k_chunked.hd256_launches += 1
-    else:
-        quant_k_chunked.launches += 1
+    _build.count_launch(quant_k_chunked, k.shape[-1])
     return out, scales
 
-
-quant_k_chunked.launches = 0
-quant_k_chunked.hd256_launches = 0
 
 
 def quant_k_fused_mean(k: torch.Tensor, *, group: int, smooth: bool = True, bits: int = 8):
@@ -181,7 +165,7 @@ def quant_v_per_channel(v: torch.Tensor, *, dtype: torch.dtype, smooth: bool = F
     """Per-channel V quantization: (codes [b,h,s,d_pad] in ``dtype``,
     scales [b,h,d_pad] fp32, the smooth-v mean [b,h,d_pad] fp32 or None).
     V is zero-padded to ``d_pad`` channels (default its own d; the kernels
-    take 64, 128 or 256), and pad channels get code 0 and mean 0.
+    take 64, 128, 256, 384 or 512), and pad channels get code 0 and mean 0.
 
     ``v`` is the caller's [b,h,s,d].  A (b,h) slab of more than
     ``V_SINGLE_PASS_BYTES`` (s * d * its itemsize) goes to the two-pass
@@ -208,15 +192,9 @@ def quant_v_per_channel(v: torch.Tensor, *, dtype: torch.dtype, smooth: bool = F
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check(err, "quant_v_per_channel")
-    if x.shape[-1] == 256:
-        quant_v_per_channel.hd256_launches += 1
-    else:
-        quant_v_per_channel.launches += 1
+    _build.count_launch(quant_v_per_channel, x.shape[-1])
     return out, scale, mean
 
-
-quant_v_per_channel.launches = 0
-quant_v_per_channel.hd256_launches = 0
 
 
 def v_channel_stats_plain(v: torch.Tensor, *, smooth: bool):
@@ -243,16 +221,10 @@ def v_channel_stats(v: torch.Tensor, *, smooth: bool):
             torch.cuda.current_stream(v.device).cuda_stream,
         )
     _build.check(err, "quant_v_stats")
-    if v.shape[-1] == 256:
-        v_channel_stats.hd256_launches += 1
-    else:
-        v_channel_stats.launches += 1
+    _build.count_launch(v_channel_stats, v.shape[-1])
     gmax, gmin, gsum = (x.reshape(b, h, -1, d) for x in parts)
     return gmax.amax(dim=2), gmin.amin(dim=2), gsum.sum(dim=2) / s if smooth else None
 
-
-v_channel_stats.launches = 0
-v_channel_stats.hd256_launches = 0
 
 
 def v_scale_from_stats(gmax: torch.Tensor, gmin: torch.Tensor, mean: torch.Tensor | None,
@@ -300,15 +272,9 @@ def quant_v_apply(v: torch.Tensor, r: torch.Tensor, mean: torch.Tensor | None, *
             quant.V_CODE_TYPES.index(dtype), torch.cuda.current_stream(v.device).cuda_stream,
         )
     _build.check(err, "quant_v_apply")
-    if v.shape[-1] == 256:
-        quant_v_apply.hd256_launches += 1
-    else:
-        quant_v_apply.launches += 1
+    _build.count_launch(quant_v_apply, v.shape[-1])
     return out
 
-
-quant_v_apply.launches = 0
-quant_v_apply.hd256_launches = 0
 
 
 def quant_v_blocked_plain(v: torch.Tensor, *, dtype: torch.dtype, smooth: bool):
@@ -320,9 +286,13 @@ def quant_v_blocked_plain(v: torch.Tensor, *, dtype: torch.dtype, smooth: bool):
 
 def quant_v_blocked(v: torch.Tensor, *, dtype: torch.dtype, smooth: bool):
     """The two-pass V quantizer (``_quant_v_blocked``) on [b,h,s,d], d in
-    (64, 128, 256): ``v_channel_stats``, the scales in PyTorch (the JAX
+    ``HEAD_DIMS``: ``v_channel_stats``, the scales in PyTorch (the JAX
     package's XLA combine), ``quant_v_apply``.  Returns (codes, scales,
     mean or None)."""
     gmax, gmin, mean = v_channel_stats(v, smooth=smooth)
     scale, r = v_scale_from_stats(gmax, gmin, mean, dtype)
     return quant_v_apply(v, r, mean, dtype=dtype), scale, mean
+
+
+_build.zero_counters(quant_q_per_token, k_channel_mean, quant_k_chunked, quant_v_per_channel,
+                    v_channel_stats, quant_v_apply)

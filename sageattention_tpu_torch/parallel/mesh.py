@@ -106,7 +106,7 @@ def refuse_grad(*tensors) -> None:
         raise NotImplementedError(
             "the parallel entry points are forward-only: gradients through the ring, "
             "Ulysses and make_parallel_sageattn (and DP training) are ROADMAP module "
-            "item 4; call them under torch.no_grad()"
+            "item 1; call them under torch.no_grad()"
         )
 
 

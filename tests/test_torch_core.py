@@ -207,27 +207,33 @@ def test_unsupported_options_raise(kwargs, grad, exc, match):
 def test_gradients_and_large_head_dims_raise():
     """Gradients are ported (tests/test_torch_autodiff.py): an input that
     requires grad gives a differentiable output, and what the forward
-    refuses the differentiable path refuses too.  Head dims up to 256 run,
-    forward and backward (padded to 256, tests/test_torch_hd256.py); above
-    256 they raise naming ROADMAP; the Q/K options run up to 256
-    (tests/test_torch_preq_hd256.py)."""
+    refuses the differentiable path refuses too.  Head dims up to 512 run,
+    forward and backward (padded to 256, tests/test_torch_hd256.py, or to
+    384 and 512, tests/test_torch_hd512.py, whose gradient is exact
+    recompute); above 512 they raise naming ROADMAP; the Q/K options run up
+    to 512 (tests/test_torch_preq_hd256.py, tests/test_torch_hd512.py)."""
     x = torch.zeros(1, 1, 128, 64, requires_grad=True)
     assert sageattn(x, x, x).requires_grad
-    for d in (192, 256):
+    for d in (192, 256, 320):
         y = torch.randn(1, 1, 128, d, generator=torch.Generator().manual_seed(d))
         assert sageattn(y, y, y).shape == y.shape
         yg = y.clone().requires_grad_()
         (g,) = torch.autograd.grad(sageattn(yg, y, y).sum(), yg)
         assert g.shape == y.shape and bool(torch.isfinite(g).all())
-    y = torch.zeros(1, 1, 128, 320)
+    y = torch.zeros(1, 1, 128, 640)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sageattn(y, y, y)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sageattn(y.clone().requires_grad_(), y, y)
     y = torch.randn(1, 1, 128, 256, generator=torch.Generator().manual_seed(5))
+    y320 = torch.randn(1, 1, 128, 320, generator=torch.Generator().manual_seed(6))
     for opts in ({"smooth_q": True}, {"qk_bits": 4}, {"qk_quant_gran": "per_block"}):
         assert sageattn(y, y, y, **opts).shape == y.shape
+        assert sageattn(y320, y320, y320, **opts).shape == y320.shape
+        yg = y320.clone().requires_grad_()
+        (g,) = torch.autograd.grad(sageattn(yg, y320, y320, **opts).sum(), yg)
+        assert g.shape == y320.shape and bool(torch.isfinite(g).all())
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            sageattn(*[torch.zeros(1, 1, 128, 320)] * 3, **opts)
+            sageattn(*[torch.zeros(1, 1, 128, 640)] * 3, **opts)
     with pytest.raises(TypeError):
         sageattn(y, y, y, not_an_option=1)

@@ -7,7 +7,8 @@ the same chunk, and ``sage_paged_decode_attention`` (kernels 11 and 12) to
 ``paged_decode_pallas.sage_paged_decode_attention(..., interpret=True)``:
 ragged and out-of-range lengths, GQA, t_q > 1 (the causal tail), the
 sliding window, the packed int4 cache, ``return_state``, scrambled
-16-token page tables and head dims other than 64 and 128 (32, 96).
+16-token page tables and head dims other than 64 and 128 (32, 96, and 40
+and 72, which are not multiples of 16).
 
 Tolerances: the merge state's running max ``m`` is bit-exact (the Q scale,
 the scores and the masks follow the same fp32 chain); ``o`` within 1e-5
@@ -62,6 +63,12 @@ DENSE = [
     # head dim, the lanes past it zero
     (2, 8, 2, 1, 512, 96, [300, 200], 128, None, False, True),
     (2, 8, 2, 4, 512, 96, [512, 129], 128, 200, True, True),
+    # head dims 40 and 72: not multiples of 16, so the cache rows are off
+    # 16-byte alignment (the kernels read them byte by byte)
+    (2, 8, 2, 1, 512, 40, [300, 200], 128, None, False, True),
+    (2, 8, 2, 4, 512, 40, [512, 129], 128, 200, True, True),
+    (2, 8, 2, 1, 512, 72, [300, 200], 128, None, False, True),
+    (2, 8, 2, 3, 512, 72, [400, 129], 128, 200, True, True),
 ]
 
 
@@ -89,6 +96,9 @@ PAGED = [
     (2, 8, 2, 2, 16, 40, 20, 64, [300, 150], 64, False),
     (2, 4, 1, 1, 16, 40, 20, 32, [320, 99], 40, True),
     (2, 8, 2, 1, 16, 40, 20, 96, [300, 17], None, False),
+    (2, 8, 2, 1, 16, 40, 20, 40, [300, 17], None, True),
+    (2, 8, 2, 2, 16, 40, 20, 72, [300, 150], 64, False),
+    (2, 8, 2, 1, 16, 40, 20, 72, [300, 17], None, True),
 ]
 
 

@@ -41,7 +41,8 @@ numpy inputs.  The JAX package pads a head dim in (128, 256] to 256
   (``tests/test_torch_bias_grad.py``'s ``_jax_fused_bias_vjp``, Pallas in
   interpret mode) at sq = sk = 256: cosine >= 0.99999 on dq, dk, dv and
   dBias; with a window it takes exact recompute, held to exact attention.
-* The limits: head dims above 256 raise naming ROADMAP; the Q/K options
+* The limits: head dims above 512 raise naming ROADMAP (d 320 computes,
+  ``tests/test_torch_hd512.py``); the Q/K options
   run at 256 (``tests/test_torch_preq_hd256.py`` holds them to the JAX
   package).
 """
@@ -64,7 +65,7 @@ from sageattention_tpu.ops import reference as jreference
 from sageattention_tpu_torch import core, generate, models, sageattn, sageattn_qk_int8_pv_fp8
 from sageattention_tpu_torch import sageattn_varlen
 from sageattention_tpu_torch.models.convert import llm_params_from_jax
-from sageattention_tpu_torch.ops import (attention_bwd_cuda, attention_cuda, autodiff,
+from sageattention_tpu_torch.ops import (_build, attention_bwd_cuda, attention_cuda, autodiff,
                                          decode_cuda, quant_cuda)
 from sageattention_tpu_torch.utils.compare import cosine_similarity
 
@@ -96,7 +97,7 @@ def _eq(t, j) -> None:
 def test_pad_head_dim_follows_the_jax_rule():
     """64, a multiple of 128 above it, up to 256."""
     for d in (16, 64, 65, 96, 128, 129, 160, 192, 255, 256):
-        assert core._pad_head_dim(d) == jcore._pad_head_dim(d), d
+        assert _build.pad_head_dim(d) == jcore._pad_head_dim(d), d
 
 
 # --------------------------------------------------------------------------
@@ -566,21 +567,28 @@ def test_generate_hd256_on_cpu():
 
 
 def test_limits_above_256_and_qk_options_above_128_raise():
-    """Head dims above 256 raise naming ROADMAP, with the Q/K options too;
-    the options run at 256, forward and (exact recompute) backward."""
-    x = torch.zeros(1, 1, 128, 320)
+    """Head dims above 512 raise naming ROADMAP, with the Q/K options too
+    (above 256 they compute since the wide instances, tests/test_torch_hd512.py:
+    d 320 runs forward and, by exact recompute, backward); the options run
+    at 256, forward and (exact recompute) backward.  Decode takes every head
+    dim up to 512 (272 too, which is not a multiple of 16) and refuses
+    those above naming ROADMAP."""
+    x = torch.zeros(1, 1, 128, 640)
     for grad in (False, True):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             sageattn(x.clone().requires_grad_(grad), x, x)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             sageattn(x.clone().requires_grad_(grad), x, x, smooth_q=True)
-    y = torch.randn(1, 1, 128, 256, generator=torch.Generator().manual_seed(3))
-    for opts in ({"smooth_q": True}, {"qk_bits": 4}, {"qk_quant_gran": "per_block"}):
-        assert sageattn(y, y, y, **opts).shape == y.shape
-        yg = y.clone().requires_grad_()
-        out = sageattn(yg, y, y, **opts)
-        assert type(out.grad_fn).__name__ == "RecomputeFunctionBackward"
-        (g,) = torch.autograd.grad(out.sum(), yg)
-        assert g.shape == y.shape and bool(torch.isfinite(g).all())
-    with pytest.raises(ValueError, match="multiples of 16 up to 256"):
-        decode_cuda._device_args(torch.zeros(1, 1, 1, 272), torch.zeros(1))
+    for d in (256, 320):
+        y = torch.randn(1, 1, 128, d, generator=torch.Generator().manual_seed(3))
+        for opts in ({"smooth_q": True}, {"qk_bits": 4}, {"qk_quant_gran": "per_block"}):
+            assert sageattn(y, y, y, **opts).shape == y.shape
+            yg = y.clone().requires_grad_()
+            out = sageattn(yg, y, y, **opts)
+            assert type(out.grad_fn).__name__ == "RecomputeFunctionBackward"
+            (g,) = torch.autograd.grad(out.sum(), yg)
+            assert g.shape == y.shape and bool(torch.isfinite(g).all())
+    qf, _ = decode_cuda._device_args(torch.zeros(1, 1, 1, 272), torch.zeros(1))
+    assert qf.shape == (1, 1, 1, 272)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        decode_cuda._device_args(torch.zeros(1, 1, 1, 640), torch.zeros(1))

@@ -85,15 +85,33 @@ def test_launches_run_under_their_tensors_device(rel):
 ])
 def test_each_wrapper_guards_and_counts_its_launch(rel, fn):
     """The wrapper holds a launch under its tensors' device guard and counts
-    it in ``<wrapper>.launches``."""
+    it once on its own counters, through ``_build.count_launch(<wrapper>,
+    d)`` (``<wrapper>.launches`` or ``.hd<d>_launches`` by head dim)."""
     tree = ast.parse((PKG / rel).read_text())
     func = next(n for n in ast.walk(tree) if isinstance(n, ast.FunctionDef) and n.name == fn)
     guards = [w for w in ast.walk(func) if isinstance(w, ast.With)
               and any(map(_is_cuda_device_guard, w.items))]
     assert any(_is_build_lib(n) for w in guards for n in ast.walk(w)), fn
-    counts = [n for n in ast.walk(func) if isinstance(n, ast.AugAssign)
-              and ast.unparse(n.target) == f"{fn}.launches"]
+    counts = [n for n in ast.walk(func) if isinstance(n, ast.Call)
+              and ast.unparse(n.func) == "_build.count_launch"
+              and ast.unparse(n.args[0]) == fn]
     assert len(counts) == 1, fn
+
+
+@pytest.mark.parametrize("d,attr", [(64, "launches"), (128, "launches"),
+                                    (256, "hd256_launches"), (384, "hd384_launches"),
+                                    (512, "hd512_launches")])
+def test_count_launch_picks_the_head_dims_counter(d, attr):
+    """``count_launch`` adds one to the counter of head dim ``d`` alone."""
+    from sageattention_tpu_torch.ops import _build
+
+    def wrapper():
+        pass
+
+    _build.zero_counters(wrapper)
+    _build.count_launch(wrapper, d)
+    names = ("launches", "hd256_launches", "hd384_launches", "hd512_launches")
+    assert {n: getattr(wrapper, n) for n in names} == {n: int(n == attr) for n in names}
 
 
 def test_top_level_exports_resolve():

@@ -17,12 +17,14 @@ causal window of 1024 at (1, 32/8 heads, 4096, 128) and (1, 8/2, 4096,
 both trees' libraries.  Then it builds every attention library the two
 trees share (the pre-quantized forward, the D = 256 sources, the
 backward), compares each kernel instance's registers and stack between
-the trees, and checks through the C entry points that the
-pre-quantized forward at d 64 and 128 (per-tile and per-row K scales, a
-column bias, causal) and dQ, dK/dV at d 64, 128 and 256 (causal and not,
-without a bias; with one at 64 and 128) give bit-identical outputs on the
-same operands.  Needs one CUDA card; ends with one JSON line, and exits
-1 if any of those outputs differ.
+the trees, and checks through the C entry points that the D = 256
+forward (causal and not) and its masked instance (a window), the
+pre-quantized forward at d 64, 128 and 256 (per-tile and per-row K
+scales, a column bias, causal) and dQ, dK/dV at d 64, 128 and 256
+(causal and not, without a bias; with one at 64 and 128) give
+bit-identical outputs on the same operands.  Needs one CUDA card; ends
+with one JSON line, and exits 1 if any of those outputs differ or any
+shared instance's registers or stack moved.
 """
 
 from __future__ import annotations
@@ -134,7 +136,7 @@ def ab_all(builds: dict, gen) -> dict:
     out = {"registers": {}, "outputs": {}}
     libs = [lib for lib in ("attention_fwd", "attention_fwd_masked", "attention_fwd_preq",
                             "attention_fwd_hd256", "attention_fwd_masked_hd256",
-                            "attention_bwd")
+                            "attention_fwd_preq_hd256", "attention_bwd")
             if all(lib in b.SIGNATURES for b in builds.values())]
     with ThreadPoolExecutor(2 * len(libs)) as pool:  # one nvcc a (tree, source), at once
         list(pool.map(lambda tl: builds[tl[0]].lib(tl[1]),
@@ -167,7 +169,31 @@ def ab_all(builds: dict, gen) -> dict:
         return torch.rand(*shape, generator=gen, device="cuda") + lo
 
     b, hq, hkv, s = 1, 8, 2, 1000
-    for d in (64, 128):
+    fold_mul = 1 / 127 * 256**-0.5 * LOG2E
+    q, k_i8, v = bf(b, hq, s, 256), i8(b, hkv, s, 256), bf(b, hkv, s, 256)
+    k_sc = pos(b, hkv, -(-s // 128)) * 1e-2
+    for causal in (0, 1):
+        def fwd256(build, causal=causal):
+            o = torch.empty_like(q)
+            lse = torch.empty(b, hq, s, device="cuda")
+            err = build.lib("attention_fwd_hd256").sage_attn_fwd_hd256(
+                q.data_ptr(), k_i8.data_ptr(), k_sc.data_ptr(), v.data_ptr(), None, None,
+                o.data_ptr(), lse.data_ptr(), b, hq, hkv, s, s, 256, causal, 0, 0, 1, 128,
+                fold_mul, stream)
+            if err:
+                raise RuntimeError(f"sage_attn_fwd_hd256 failed: cudaError {err}")
+            return o, lse
+
+        same(f"forward d256 causal={causal}", fwd256)
+
+    def masked256(build):
+        o = torch.empty_like(q)
+        launch_masked(build.lib("attention_fwd_masked_hd256").sage_attn_fwd_masked_hd256, q,
+                      k_i8, k_sc, v, o, fold_mul, hkv, 300)
+        return (o,)
+
+    same("masked d256 window 300", masked256)
+    for d in (64, 128, 256):
         for per_row, col in ((False, False), (True, True)):
             q_i8, k_i8, v = i8(b, hq, s, d), i8(b, hkv, s, d), bf(b, hkv, s, d)
             q_sc = pos(b, hq, s) * 1e-3
@@ -178,7 +204,8 @@ def ab_all(builds: dict, gen) -> dict:
                      per_row=per_row):
                 o = torch.empty(b, hq, s, d, device="cuda", dtype=torch.bfloat16)
                 lse = torch.empty(b, hq, s, device="cuda")
-                err = build.lib("attention_fwd_preq").sage_attn_fwd_preq(
+                sfx = "_hd256" if d == 256 else ""  # D = 256 has a source of its own
+                err = getattr(build.lib("attention_fwd_preq" + sfx), "sage_attn_fwd_preq" + sfx)(
                     q_i8.data_ptr(), k_i8.data_ptr(), k_sc.data_ptr(), v.data_ptr(), None,
                     None, o.data_ptr(), lse.data_ptr(), b, hq, hkv, s, s, d, 1, 0, 1, 128,
                     int(per_row), 0, q_sc.data_ptr(), cb.data_ptr() if cb is not None else None,
@@ -325,7 +352,8 @@ def main() -> int:
         torch.cuda.empty_cache()
     result["all"] = ab_all(builds, gen)
     print(json.dumps(result), flush=True)
-    return 0 if all(result["all"]["outputs"].values()) else 1
+    moved = any(r["moved"] for r in result["all"]["registers"].values())
+    return 0 if all(result["all"]["outputs"].values()) and not moved else 1
 
 
 if __name__ == "__main__":
