@@ -38,7 +38,10 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    Wan2.1 layer on five more seeds, each held to its floor, with the
    plain version of three of them beside the kernel on three heads; the
    decode kernels at head dims 96, 40 and 72 too (40 and 72, not multiples
-   of 16, through the RAGGED instances); the backward's bias instances (dQ
+   of 16, through the RAGGED instances); dQ and dK/dV without a bias (TMA
+   and ``wgmma``; no stack bytes in any instance) at GQA rep 4, d 128,
+   1000 tokens, causal with a window of 300, and at (1, 16/8, 3001, 256)
+   causal, whose last Q tile ends inside a stage; the backward's bias instances (dQ
    with dBias, dK/dV) against their plain versions at the llm-8b-gqa layer
    (d128: causal with ALiBi at 4096 tokens in fp32 and bf16, non-causal
    with a random per-head bias at 4000 tokens) and at CogVideoX-2B's 30
@@ -104,7 +107,11 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    and extend shapes, with the L2 flushed before each call; the masked
    forward at the windowed prefill's layer and at the varlen shape, with
    bounds from the live (row, col) pairs and SDPA with the same bool mask
-   as the library time, and the windowed dQ and dKV; the pre-quantized
+   as the library time, and the windowed dQ and dKV; dQ and dK/dV without
+   a bias at the llm-8b-gqa layer, causal (1, 32/8, 4096, 128), beside
+   their bounds and SDPA's backward there, and every timed backward
+   instance's products at phase 9's measured ``wgmma`` and ``mma.sync``
+   rates; the pre-quantized
    forward for each Q/K option at both DiT layers beside the default
    forward and SDPA, the PyTorch ``quantize_qk`` and smooth_q preparation,
    and kernels 3 and 4 at 4 bits; the backward's bias instances at the
@@ -354,12 +361,17 @@ def kernel_registers(build, lib: str) -> list:
 
 
 def resource_usage() -> None:
-    """Registers a thread and spill (stack) bytes of every built kernel."""
+    """Registers a thread and spill (stack) bytes of every built kernel; the
+    backward's TMA instances (kernels 7-8 without a bias) may hold no stack.
+    Their registers are the count at entry: ``setmaxnreg`` then gives a
+    consumer warpgroup 240 (160 with three) and the producer 24."""
     from sageattention_tpu_torch.ops import _build
 
     for lib in _build.SIGNATURES:
         for kern, regs, stack in kernel_registers(_build, lib):
             log(f"resources {lib} {kern}: {regs} registers, {stack} bytes of stack")
+            require(not ("_tma_kernel" in kern and int(stack)),
+                    f"{kern} spills {stack} bytes of stack")
 
 
 # --------------------------------------------------------------------------
@@ -687,6 +699,32 @@ def check_backward(gen, results):
             results["sage_attn_bwd_dq"]["max_abs_err"] = errs[0][3]
             results["sage_attn_bwd_dkv"]["max_abs_err"] = max(errs[1][3], errs[2][3])
         del ops, dq, dk, dv, dq_p, dk_p, dv_p
+        torch.cuda.empty_cache()
+
+    # cases the tiling and CTA order of the instances without a bias must get
+    # right, from a generator of their own (the later phases' inputs stay as
+    # they were): GQA rep 4 at d 128, ragged, causal with a window of 300 (a
+    # dQ CTA's two warpgroups see different KV ranges, a dK/dV CTA walks four
+    # heads); at d 256 a length that ends inside a pipeline stage
+    gen_t = torch.Generator(device="cuda")
+    gen_t.manual_seed(13)
+    for name, hq, hkv, s, d, window in (("gqa4 ragged window", 32, 8, 1000, 128, 300),
+                                        ("d256 ragged causal", 16, 8, 3001, 256, None)):
+        ops, sm = backward_case(gen_t, 1, hq, hkv, s, s, d, True, window=window)
+        kw = dict(is_causal=True, sm_scale=sm, window=window)
+        got = (bwd.sage_attention_bwd_dq(*dq_args(ops), **kw),
+               *bwd.sage_attention_bwd_dkv(*dkv_args(ops), **kw))
+        want = (bwd.sage_attention_bwd_dq_plain(*dq_args(ops), **kw),
+                *bwd.sage_attention_bwd_dkv_plain(*dkv_args(ops), **kw))
+        torch.cuda.synchronize()
+        for gname, g, gp in zip(("dq", "dk", "dv"), got, want):
+            cos, rel, _ = agreement(g, gp)
+            finite = bool(torch.isfinite(g).all())
+            log(f"backward {name} {(1, hq, hkv, s, d)} causal window={window} {gname}: cos "
+                f"{cos:.7f}, max abs / max|g| {rel:.3e}, finite {finite}")
+            require(finite and cos >= 0.9999 and rel <= 1e-2,
+                    f"backward {name}: {gname} kernel disagrees with its plain version")
+        del ops, got, want
         torch.cuda.empty_cache()
 
     # the op's gradients (through the LSE too) against exact fp32 attention's
@@ -2717,6 +2755,7 @@ def time_backward(gen, results) -> dict:
         t_bytes = (common_bytes + extra_in + out_elems * 4) / PEAK_BYTES_S * 1e3
         r["bound_ms"] = max(t_ops, t_bytes)
         r["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        r.update(pairs=pairs, d=d, bf16_ops_per_pair=n_bf16 * d)
     layer = {"shape": list(COG.values()), "sage_fwd_bwd_ms": sage_fb,
              "sdpa_fwd_bwd_ms": sdpa_fb, "sdpa_fwd_ms": sdpa_f, "sdpa_bwd_ms": sdpa_bwd}
     log(f"one layer's attention at {tuple(COG.values())}: sage fwd+bwd {sage_fb:.3f} ms, "
@@ -2727,6 +2766,57 @@ def time_backward(gen, results) -> dict:
             f"{r['bound_ms']:.4f} ms, {r['bound_by']}), plain {r['plain_ms']:.4f} ms, "
             f"library {r['library_ms']} ms")
     return layer
+
+
+def time_backward_gqa(results, seed: int = 14) -> dict:
+    """Kernels 7 and 8 without a bias at the llm-8b-gqa layer (1, 32/8, 4096,
+    128), causal: each beside its bound over the live pairs, its plain
+    version and SDPA's backward at the same shape (fwd + bwd - fwd, bf16,
+    ``enable_gqa``), into the kernels' ``gqa_causal`` entries.  Inputs from
+    a generator of their own."""
+    import torch
+    import torch.nn.functional as F
+    from sageattention_tpu_torch.ops import attention_bwd_cuda as bwd
+    from sageattention_tpu_torch.ops.attention_cuda import Masks
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    b, s = 1, 4096
+    hq, hkv, d = LLM_LAYER.values()
+    ops, sm = backward_case(gen, b, hq, hkv, s, s, d, True)
+    kw = dict(is_causal=True, sm_scale=sm)
+    pairs = live_pairs(Masks(), b, s, s, True, hq)
+    xs = [x.clone().requires_grad_() for x in (ops["q_bf"], ops["k_sm"], ops["v"])]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(*xs, is_causal=True, enable_gqa=True)
+
+    sdpa_f = cuda_ms(sdpa, reps=10)
+    sdpa_fb = cuda_ms(lambda: torch.autograd.grad(sdpa(), xs, ops["do"]), reps=10)
+    common_bytes = (ops["q_i8"].numel() + ops["k_i8"].numel() + ops["k_scale"].numel() * 4
+                    + 3 * b * hq * s * 4 + ops["v"].numel() * 2 + ops["do"].numel() * 2)
+    out = {"shape": [b, hq, hkv, s, d], "causal": True, "sdpa_fwd_bwd_ms": sdpa_fb,
+           "sdpa_fwd_ms": sdpa_f}
+    for name, n_bf16, extra_in, out_elems in (
+            ("sage_attn_bwd_dq", 4, ops["k_sm"].numel() * 2, b * hq * s * d),
+            ("sage_attn_bwd_dkv", 6, ops["q_bf"].numel() * 2, 2 * b * hkv * s * d)):
+        dq = name.endswith("dq")
+        fn, plain = ((bwd.sage_attention_bwd_dq, bwd.sage_attention_bwd_dq_plain) if dq
+                     else (bwd.sage_attention_bwd_dkv, bwd.sage_attention_bwd_dkv_plain))
+        args = dq_args(ops) if dq else dkv_args(ops)
+        t_ops = (2 * pairs * d / PEAK_INT8_OPS_S + n_bf16 * pairs * d / PEAK_BF16_FLOP_S) * 1e3
+        t_bytes = (common_bytes + extra_in + out_elems * 4) / PEAK_BYTES_S * 1e3
+        r = results[name]["gqa_causal"] = dict(
+            ms=cuda_ms(lambda: fn(*args, **kw), reps=10),
+            plain_ms=cuda_ms(lambda: plain(*args, **kw), reps=3, warmup=1),
+            bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+            library_ms=sdpa_fb - sdpa_f, pairs=pairs, d=d, bf16_ops_per_pair=n_bf16 * d)
+        log(f"time {name} at {(b, hq, hkv, s, d)} causal: {r['ms']:.4f} ms (bound "
+            f"{r['bound_ms']:.4f} ms, {r['bound_by']}), plain {r['plain_ms']:.4f} ms, SDPA bwd "
+            f"(7 + 8) {r['library_ms']:.4f} ms")
+    del ops, xs
+    torch.cuda.empty_cache()
+    return out
 
 
 def time_masked(gen, results) -> dict:
@@ -3459,7 +3549,7 @@ def time_hd256(gen, results) -> dict:
                  plain_ms=cuda_ms(lambda: plain(*args, **kw), reps=2, warmup=1),
                  bound_ms=max(t_ops, t_bytes),
                  bound_by="operations" if t_ops >= t_bytes else "bytes",
-                 library_ms=sdpa_fb - sdpa_f,
+                 library_ms=sdpa_fb - sdpa_f, pairs=pairs, d=d, bf16_ops_per_pair=n_bf16 * d,
                  shape={"b": b, "hq": hq, "hkv": hkv, "s": s, "d": d, "causal": True})
         log_time(name + "_hd256", r, f"at {(b, hq, hkv, s, d)} causal (library: SDPA's "
                  f"backward, 7 + 8 together)")
@@ -4935,8 +5025,22 @@ def measured_rate_floor(results, probe: dict) -> None:
     """Beside each wide forward's data-sheet bound, the time its products
     take at this run's measured ``mma.sync`` rates (phase 9: int8 Q.K^T at
     d 256, bf16 P.V at dv 256), Q.K^T counted once a column slice (twice:
-    the split recomputes it)."""
+    the split recomputes it); beside each timed backward kernel's, the time
+    its products take at the measured ``wgmma`` and ``mma.sync`` rates at
+    its head dim (int8 Q.K^T, 2d a pair, and bf16 P.V for the rest)."""
     rate = {t["row"]: t["rate"] for t in probe["rows"]}
+    for name in ("sage_attn_bwd_dq", "sage_attn_bwd_dkv"):
+        for r in (results[name], results[name].get("gqa_causal"), results[name + "_hd256"]):
+            if not r or "pairs" not in r:
+                continue
+            for kind in ("wgmma", "mma.sync"):
+                r[kind.replace(".", "_") + "_floor_ms"] = (
+                    2 * r["pairs"] * r["d"] / rate[f"qk s8 d{r['d']} {kind}"]
+                    + r["pairs"] * r["bf16_ops_per_pair"] / rate[f"pv bf16 dv{r['d']} {kind}"]
+                ) * 1e3
+            log(f"{name} d{r['d']}: {r['ms']:.4f} ms; its products at the measured rates: wgmma "
+                f"{r['wgmma_floor_ms']:.4f} ms, mma.sync {r['mma_sync_floor_ms']:.4f} ms; "
+                f"data-sheet bound {r['bound_ms']:.4f} ms")
     qk, pv = rate["qk s8 d256 mma.sync"], rate["pv bf16 dv256 mma.sync"]
     for dp in WIDE_DIMS:
         r = results[f"sage_attn_fwd_hd{dp}"]
@@ -5129,6 +5233,7 @@ def main() -> int:
     time_kernels(gen, results)
     time_quant_v(gen, results)
     layer = time_backward(gen, results)
+    layer["gqa_causal"] = time_backward_gqa(results)
     time_decode(gen, results)
     masked["times"] = time_masked(gen, results)
     bias["times"] = time_bias_backward(results)

@@ -14,63 +14,50 @@
 // rounded to bf16 where the TPU kernels round (P before P^T.dO, dS before
 // both products; dO, V, K_sm = bf16(K - km) and Q in bf16), fp32 sums.
 //
-// sage_attn_bwd_dq: one CTA of 4 warps per (b, hq, 64-row Q tile), 16 rows a
-//   warp.  It loops over KV tiles of 128 columns (the K-scale group, one
-//   k_scale a tile) as the forward does; this loop replaces the TPU's
-//   sequential n_kv grid axis and its VMEM accumulator, and dQ accumulates
-//   in registers.  Each tile is computed in column chunks (64 at d=64, 32
-//   at d=128 and 256) to bound the live S/dP registers.  Causal: stops at the
+// sage_attn_bwd_dq: a CTA owns Q rows and loops over 64-column KV tiles;
+//   this loop replaces the TPU's sequential n_kv grid axis and its VMEM
+//   accumulator, and dQ accumulates in registers.  Causal: it stops at the
 //   diagonal tile; with a sliding window (causal only) it starts at the
-//   window's first tile, (q0 - window + 1) / 128, the counterpart of the
-//   TPU's band grid (attention_bwd_pallas.py:117-143).
-// sage_attn_bwd_dkv: one CTA of 4 warps per (b, hkv, 64-row KV tile), 16 KV
-//   rows a warp.  It loops over every q head of its GQA group and every
-//   64-row Q tile (causal: from the diagonal; with a window, up to the
-//   last Q row that sees the tile, kv0 + 63 + window - 1,
-//   attention_bwd_pallas.py:274-287), so dK and dV sum over the
-//   group in registers, with no atomics and no repeat of K/V: the port's
-//   form of the TPU's rep*n_q fourth grid axis.  It works on the transposed
-//   scores S^T = K.Q^T so that a KV row is an MMA row.  64 KV rows, not
-//   128: the fp32 dK and dV accumulators of 16 rows a warp take 2*D/2 = D
-//   registers a thread (128 at d=128), and 32 rows a warp would not fit
-//   beside the score chunk in 255 registers.  A 64-row KV tile lies inside
-//   one 128-row K-scale group, so it reads one k_scale.
+//   window's first tile, the counterpart of the TPU's band grid
+//   (attention_bwd_pallas.py:117-143).
+// sage_attn_bwd_dkv: a CTA owns KV rows and loops over every q head of its
+//   GQA group and every 64-row Q tile (causal: from the diagonal; with a
+//   window, up to the last Q row that sees the tile,
+//   attention_bwd_pallas.py:274-287), so dK and dV sum over the group in
+//   registers, with no atomics and no repeat of K/V: the port's form of
+//   the TPU's rep*n_q fourth grid axis.  It works on the transposed scores
+//   S^T = K.Q^T so that a KV row is a product's row.  A KV tile of 64 rows
+//   lies inside one 128-row K-scale group, so it reads one k_scale.
 //
-// A window keeps col > row - window wherever causal keeps col <= row, in
-// instances of its own (WINDOW), so the others keep their registers.
+// The instances without a bias (every sageattn gradient) are Hopper
+// kernels: TMA loads through a ring of shared-memory stages, one producer
+// warp, wgmma for all five products (their section below has the design).
+// A sliding window keeps col > row - window wherever causal keeps
+// col <= row, in instances of its own (WINDOW).
 //
-// Head dim 256 (every head dim in (128, 256], padded; with a bias too).  dQ
-// keeps its fp32 accumulator of 16 x 256 / 32 = 128 registers a thread and
-// reads Q's and dO's A fragments from shared memory for each chunk, where
-// the smaller head dims hold them (96 registers more at 256); its layout
-// takes 221 KB of shared memory, so one CTA runs on an SM.  dKV's two
-// accumulators would take 256 registers a thread, more than a thread may
-// hold, so it runs in two launches of instances that each keep one: PART
-// kDV (S, P, dV; V is not read) and then kDK (S and P again, dP, dS, dK),
-// 137 KB of shared memory each.  The second pass repeats Q.K^T's 2d int8
-// operations a pair, against 8d int8 and bf16 operations of the two.
-// Every (causal, window) combination has both parts, and so has each causal
-// flag of the bias instances.
-//
-// An additive bias (BIAS instances, attention_bwd_pallas.py:146-204,
-// 311-316): a per-head [b, hq, sq, sk] fp32 or bf16 tensor, which the
-// forward added to the base-2 logits as bias * log2(e).  Both kernels add it
-// to the recomputed logits too and clamp them at -1e30, and a row whose
-// lse2 is -inf (every key biased to -inf; the forward gave o = 0) takes 0 in
-// its place, so its P is exactly 0 and no NaN arises.  dQ writes dBias = dS
-// = P * (dP - D) in fp32, before the bf16 rounding, in the bias's type
-// (when asked: a fixed bias costs no write), and writes the zeros of every
-// tile its causal loop never visits itself, so the wrapper allocates dBias
-// uninitialised.  dKV reads bias[q row, kv col] straight from device
-// memory for its transposed tile: for one fragment element a warp reads 8
-// consecutive KV columns of each of 4 Q rows, whole 32-byte sectors in fp32,
-// so the bias needs no transposed copy (the TPU launcher's one XLA
-// transpose, :931-940).  A window with a bias is not taken: the JAX package
-// sends it to its exact backward (:423-426), and so does the port.  At D =
-// 256 the bias instances keep this design: dQ (fragments from shared memory)
-// writes dBias as at 64 and 128, so the backward has one interface at every
-// head dim, and each of the two dK/dV passes reads the bias for its P: the
-// bias is read three times (dQ, dV, dK) and dBias written once, by dQ.
+// The bias instances (BIAS, attention_bwd_pallas.py:146-204, 311-316) are
+// the first design: mma.sync, synchronous tile loads, no pipeline; 64-row
+// Q tiles a CTA of 4 warps, 16 rows a warp, 128-column KV tiles in column
+// chunks (64 at d=64, 32 at d=128 and 256) for dQ; 64 KV rows a CTA for
+// dK/dV.  A bias is a per-head [b, hq, sq, sk] fp32 or bf16 tensor, which
+// the forward added to the base-2 logits as bias * log2(e).  Both kernels
+// add it to the recomputed logits too and clamp them at -1e30, and a row
+// whose lse2 is -inf (every key biased to -inf; the forward gave o = 0)
+// takes 0 in its place, so its P is exactly 0 and no NaN arises.  dQ
+// writes dBias = dS = P * (dP - D) in fp32, before the bf16 rounding, in
+// the bias's type (when asked: a fixed bias costs no write), and writes
+// the zeros of every tile its causal loop never visits itself, so the
+// wrapper allocates dBias uninitialised.  dKV reads bias[q row, kv col]
+// straight from device memory for its transposed tile: for one fragment
+// element a warp reads 8 consecutive KV columns of each of 4 Q rows, whole
+// 32-byte sectors in fp32, so the bias needs no transposed copy (the TPU
+// launcher's one XLA transpose, :931-940).  A window with a bias is not
+// taken: the JAX package sends it to its exact backward (:423-426), and so
+// does the port.  At D = 256 dQ reads Q's and dO's A fragments from
+// shared memory for each chunk (they would take 96 registers beside dQ's
+// 128), and dK/dV runs in two launches, dV (PART kDV) then dK (kDK), each
+// reading the bias: it is read three times (dQ, dV, dK) and dBias written
+// once, by dQ.
 //
 // Ragged edges: K/V rows past sk and Q rows past sq are zero-filled in
 // shared memory, their P is set to 0 by a select (no inf - inf and no
@@ -78,7 +65,7 @@
 // sq (dQ) or sk (dK, dV) is stored.  No padding of the sequence in memory.
 //
 // Bound: operations.  Per score pair dQ does one int8 Q.K^T (2d ops) and
-// three bf16 products' worth of 4d FLOP (dO.V^T, dS.K), dKV 2d int8 and 6d
+// two bf16 products' worth of 4d FLOP (dO.V^T, dS.K), dKV 2d int8 and 6d
 // bf16 (dO.V^T, P^T.dO, dS^T.Q).  At the CogVideoX-2B layer shape (b=1,
 // h=30, s=17,776, d=64; 9.48e9 pairs) that is about 3.1 ms for dQ and 4.3 ms
 // for dKV on the H100 SXM's data-sheet peaks; the bytes take well under
@@ -88,8 +75,7 @@
 // bytes a pair in fp32 against 6d-10d operations.  At the llm-8b-gqa layer
 // (b=1, hq=32, s=4096, d=128, causal: 268.5 M live pairs) that is about
 // 0.96 ms for dQ with its dBias and 0.32 ms for dKV at 3.35 TB/s, against
-// 0.17 and 0.24 ms of operations.  Like the forward, this first version is
-// written to be right: mma.sync, synchronous tile loads, no pipeline.
+// 0.17 and 0.24 ms of operations.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -99,6 +85,7 @@
 #include <type_traits>
 
 #include "mma_sm90.cuh"
+#include "wgmma_sm90.cuh"
 
 namespace {
 
@@ -610,6 +597,565 @@ sage_attn_bwd_dkv_kernel(const BwdArgs a, const BiasOf<BIAS> ba) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// The instances without a bias: TMA-fed wgmma, one producer warp
+// ---------------------------------------------------------------------------
+//
+// A CTA is NWG consumer warpgroups and one producer warpgroup, of which one
+// thread issues every load.  What a CTA keeps (dQ: its Q codes and dO;
+// dK/dV: its K codes and V) lands once; what it walks over (dQ: the K
+// codes, K_sm and V of each 64-column KV tile; dK/dV: the Q codes, bf16 Q
+// and dO of each 64-row Q tile with their rows of q_scale, lse2 and dvec)
+// streams through a ring of STAGES buffers: the producer waits for a
+// buffer to be released (`empty`), posts its bytes on `full` and issues
+// the TMA loads; a consumer waits on `full`, computes and arrives on
+// `empty`.  Every tile is [64 rows][D] in panels of up to 128 bytes a row,
+// swizzled as wgmma reads it; rows past the sequence land as zeros (a
+// 3-D map [b h, s, d], so no box reads the next head's rows).
+//
+// Products, each a warpgroup's 64 rows:
+//   dQ:   S = Q.K^T (int8, both from shared memory, K-major), dP = dO.V^T
+//         (bf16, the same), then dQ += bf16(dS) . K_sm with dS from
+//         registers and K_sm read MN-major;
+//   dKV:  S^T = K.Q^T, dP^T = V.dO^T, then dV += bf16(P^T) . dO and
+//         dK += bf16(dS^T) . Q, dO and Q read MN-major from the tile that
+//         dP^T read K-major.
+// The consumers hold their rows' q_scale, lse2 and dvec (dQ) in registers
+// or read a Q tile's from the stage, a fragment's two columns at a time
+// (dK/dV).  Registers: the producer warpgroup gives its own up (setmaxnreg,
+// to 24) so that a consumer thread holds 240 beside one other consumer
+// warpgroup, 160 beside two.  dQ runs three consumer warpgroups at d 64
+// (192 Q rows share each streamed KV tile), two at 128 and one at 256,
+// where its 64 x 256 fp32 accumulator takes 128 registers a thread.  dK/dV
+// runs three at d 64 and two at 128, a 64-row KV slice each, keeping dK and
+// dV (D registers a thread), and two at 256 on one slice, one keeping dV
+// and one dK (one launch; Q, dO and the row vectors read once, S^T
+// computed by both).  Except at 256 with a causal mask, a Q tile goes
+// through dK/dV in two passes of 32 Q rows, so that S^T and dP^T take 16
+// registers each beside the accumulators.
+//
+// The grid's fastest axis is the tile, so that the CTAs of a wave share one
+// head's K and V (dQ) or Q and dO (dK/dV) in L2; along it the longest work
+// comes first: causal dQ from the last Q tile, causal dK/dV from the first
+// KV tile.  A causal launch of at most two waves puts the tile on the
+// slowest axis instead (heads_first), so that every head's longest tiles
+// start in the first wave (llm-8b-gqa's causal dK/dV: 256 CTAs, each
+// walking 4 heads).
+
+constexpr int WG = 128;  // threads a warpgroup
+constexpr int TILE = 64;  // rows of a staged tile; KV columns a dQ step, Q rows a dK/dV step
+// A Q tile's rows of q_scale, lse2 or dvec, as dK/dV stages them: a TMA box
+// starts 16-byte aligned in device memory (a box at another element faults),
+// so each vector lands from its first row rounded down to a multiple of 4,
+// VEC values, in a slot of VSLOT bytes (128-byte aligned, as TMA writes)
+constexpr int VEC = TILE + 4;
+constexpr int VSLOT = 384;
+
+// a [TILE][D] tile of ELEM-byte elements as TMA lays it out
+template <int D, int ELEM>
+struct Tile {
+  static constexpr int ROWB = D * ELEM < 128 ? D * ELEM : 128;  // bytes a panel row
+  static constexpr int COLS = ROWB / ELEM;                       // columns a panel (a box)
+  static constexpr int PANELS = D * ELEM / ROWB;
+  static constexpr int BYTES = TILE * D * ELEM;
+};
+template <int D>
+using TI8 = Tile<D, 1>;
+template <int D>
+using TBF = Tile<D, 2>;
+
+// registers a thread of a consumer warpgroup beside a producer one at 24
+template <int NWG>
+constexpr int kConsumerRegs = NWG == 2 ? 240 : 160;  // (65536 - 24 x 128) / (128 NWG)
+
+// rows [row0, row0 + TILE) of plane `plane` into dst, one box a panel
+template <typename T>
+__device__ inline void load_tile(unsigned char* dst, const CUtensorMap* map, uint64_t* bar,
+                                 int row0, int plane) {
+#pragma unroll
+  for (int p = 0; p < T::PANELS; ++p)
+    tma_load_3d(dst + p * TILE * T::ROWB, map, bar, p * T::COLS, row0, plane);
+}
+
+__device__ inline unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+// heads_first: the grid is (heads, b, tiles), not (tiles, heads, b) (see
+// grid_of)
+struct DqMaps {
+  CUtensorMap q, dout, k, k_sm, v;
+  int heads_first;
+};
+
+struct DkvMaps {
+  CUtensorMap k, v, q, q_bf, dout, q_scale, lse2, dvec;
+  int shift[3];  // offset of element 0 in the three 1-D maps (tensor_map_f32)
+  int heads_first;
+};
+
+// this CTA's (tile, head, batch) and the tiles a head
+struct GridPos {
+  int tile, n_tiles, h, bi;
+};
+__device__ inline GridPos grid_pos(int heads_first) {
+  return heads_first ? GridPos{(int)blockIdx.z, (int)gridDim.z, (int)blockIdx.x, (int)blockIdx.y}
+                     : GridPos{(int)blockIdx.x, (int)gridDim.x, (int)blockIdx.y, (int)blockIdx.z};
+}
+
+template <int D, int NWG, int STAGES>
+struct DqTma {
+  static constexpr int q = 0;                          // NWG x int8 [64][D]
+  static constexpr int dout = q + NWG * TI8<D>::BYTES;  // NWG x bf16 [64][D]
+  static constexpr int ring = dout + NWG * TBF<D>::BYTES;
+  static constexpr int k = 0, k_sm = TI8<D>::BYTES, v = k_sm + TBF<D>::BYTES;  // in a stage
+  static constexpr int stage = v + TBF<D>::BYTES;       // also the bytes a stage posts
+  static constexpr int bars = ring + STAGES * stage;    // full[STAGES], empty[STAGES], rows
+  static constexpr int bytes = bars + (2 * STAGES + 1) * 8 + 1024;  // + the base's alignment
+};
+
+template <int D, int NWG, int STAGES, bool CAUSAL, bool WINDOW>
+__global__ void __launch_bounds__(WG*(NWG + 1), 1)
+sage_attn_bwd_dq_tma_kernel(const BwdArgs a, const __grid_constant__ DqMaps m) {
+  using L = DqTma<D, NWG, STAGES>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* empty = full + STAGES;
+  uint64_t* rows_bar = empty + STAGES;
+
+  const int hq = a.hq, sq = a.sq, sk = a.sk;
+  const int window = WINDOW ? a.window : 0;
+  const GridPos gp = grid_pos(m.heads_first);
+  const int h = gp.h, bi = gp.bi;
+  const int qt = CAUSAL ? gp.n_tiles - 1 - gp.tile : gp.tile;
+  const int q0 = qt * TILE * NWG;
+  const int plane_q = bi * hq + h, plane_kv = bi * a.hkv + h / (hq / a.hkv);
+  int j_end = (sk + TILE - 1) / TILE;
+  if (CAUSAL) j_end = min(j_end, (q0 + TILE * NWG - 1) / TILE + 1);
+  const int j_first = window > 0 ? max(0, q0 - window + 1) / TILE : 0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NWG * WG);
+    }
+    mbar_init(rows_bar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / WG;
+  if (wg == NWG) {  // the producer
+    if constexpr (NWG > 1) regs_dec<24>();
+    if (threadIdx.x % WG == 0) {
+      int live = 0;  // warpgroups with a row below sq
+      for (int w = 0; w < NWG; ++w) live += q0 + w * TILE < sq;
+      mbar_expect_tx(rows_bar, live * (TI8<D>::BYTES + TBF<D>::BYTES));
+      for (int w = 0; w < live; ++w) {
+        load_tile<TI8<D>>(smem + L::q + w * TI8<D>::BYTES, &m.q, rows_bar, q0 + w * TILE, plane_q);
+        load_tile<TBF<D>>(smem + L::dout + w * TBF<D>::BYTES, &m.dout, rows_bar, q0 + w * TILE,
+                          plane_q);
+      }
+      int s = 0, ph = 0;
+      for (int j = j_first; j < j_end; ++j) {
+        mbar_wait(&empty[s], ph ^ 1);
+        unsigned char* st = smem + L::ring + s * L::stage;
+        mbar_expect_tx(&full[s], L::stage);
+        load_tile<TI8<D>>(st + L::k, &m.k, &full[s], j * TILE, plane_kv);
+        load_tile<TBF<D>>(st + L::k_sm, &m.k_sm, &full[s], j * TILE, plane_kv);
+        load_tile<TBF<D>>(st + L::v, &m.v, &full[s], j * TILE, plane_kv);
+        if (++s == STAGES) s = 0, ph ^= 1;
+      }
+    }
+    return;
+  }
+  if constexpr (NWG > 1) regs_inc<kConsumerRegs<NWG>>();
+
+  // a consumer: rows [q0w, q0w + 64), 16 a warp, two a thread
+  const int tid = threadIdx.x % WG, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int q0w = q0 + wg * TILE;
+  const size_t row_base = (size_t)plane_q * sq;
+  const int row0 = q0w + warp * 16 + g, row1 = row0 + 8;
+  // rows past sq: P = 1 there, but dO = 0 makes their dS 0, and they are never stored
+  const float qs0 = row0 < sq ? a.q_scale[row_base + row0] : 0.f;
+  const float qs1 = row1 < sq ? a.q_scale[row_base + row1] : 0.f;
+  const float ls0 = row0 < sq ? a.lse2[row_base + row0] : 0.f;
+  const float ls1 = row1 < sq ? a.lse2[row_base + row1] : 0.f;
+  const float dv0 = row0 < sq ? a.dvec[row_base + row0] : 0.f;
+  const float dv1 = row1 < sq ? a.dvec[row_base + row1] : 0.f;
+  const float* ks_row = a.k_scale + (size_t)plane_kv * ((sk + KGROUP - 1) / KGROUP);
+  const uint32_t sQ = smem_u32(smem + L::q + wg * TI8<D>::BYTES);
+  const uint32_t sDo = smem_u32(smem + L::dout + wg * TBF<D>::BYTES);
+
+  float acc[D / 2];  // dQ: acc[4i + e] is column group i's C fragment
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  const bool live = q0w < sq;
+  if (live) mbar_wait(rows_bar, 0);
+  // tile j sits in stage (j - j_first) % STAGES; a tile right of this
+  // warpgroup's causal diagonal or left of its window is only waited for
+  // and released
+  auto skip = [&](int j) {
+    const int kv0 = j * TILE;
+    return !live || (CAUSAL && kv0 > q0w + TILE - 1) ||
+           (window > 0 && kv0 + TILE - 1 <= q0w - window);
+  };
+  auto stage = [&](int j) {
+    return smem_u32(smem + L::ring + ((j - j_first) % STAGES) * L::stage);
+  };
+  // S = Q.K^T (int8) and dP = dO.V^T (bf16) of tile j, issued
+  auto issue = [&](int j, int (&s_i)[32], float (&dp)[32]) {
+    const int i = j - j_first;
+    mbar_wait(&full[i % STAGES], (i / STAGES) & 1);
+    if (skip(j)) return;
+    const uint32_t st = stage(j);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 32; ++kk)
+      wgmma_s8_ss<64>(s_i, desc_kmajor<TILE, TI8<D>::ROWB>(sQ, kk),
+                      desc_kmajor<TILE, TI8<D>::ROWB>(st + L::k, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_bf16_ss<64>(dp, desc_kmajor<TILE, 128>(sDo, kk), desc_kmajor<TILE, 128>(st + L::v, kk),
+                        kk > 0);
+    wgmma_commit();
+  };
+  // tile j's S and dP complete: P = exp2(l2 - lse2), masked, dS = P * (dP -
+  // D) a column group at a time into bf16 A fragments, and dQ += bf16(dS) .
+  // K_sm issued
+  auto finish = [&](int j, int (&s_i)[32], float (&dp)[32]) {
+    if (skip(j)) return;
+    const int kv0 = j * TILE;
+    const float ks = ks_row[kv0 / KGROUP];
+    const float rs0 = qs0 * ks, rs1 = qs1 * ks;  // the forward's order
+    const bool need_mask = (kv0 + TILE > sk) || (CAUSAL && kv0 + TILE - 1 > q0w) ||
+                           (window > 0 && kv0 <= q0w + TILE - 1 - window);
+    uint32_t af[4][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool lo = e < 2;
+        float p = exp2f((float)s_i[4 * n + e] * (lo ? rs0 : rs1) - (lo ? ls0 : ls1));
+        if (need_mask) {
+          const int col = kv0 + n * 8 + t * 2 + (e & 1);
+          const int row = lo ? row0 : row1;
+          if (col >= sk || (CAUSAL && col > row) || (window > 0 && col <= row - window)) p = 0.f;
+        }
+        ds[e] = p * (dp[4 * n + e] - (lo ? dv0 : dv1));
+      }
+      // column group n is half (n & 1) of the A fragment of K step n / 2
+      af[n / 2][2 * (n & 1)] = pack_bf16(ds[0], ds[1]);
+      af[n / 2][2 * (n & 1) + 1] = pack_bf16(ds[2], ds[3]);
+    }
+    const uint32_t st = stage(j);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_bf16_rs_mn<D>(acc, af[kk], desc_mnmajor<TILE>(st + L::k_sm, kk));
+    wgmma_commit();
+  };
+  // (the same loop with the tile's work written in place ran the causal
+  // instances at d 128 and 256 1.46-1.52x slower on an H100 80GB HBM3 at
+  // 700 W, tools/ab_attention_bwd.py, with no cause the source shows)
+  int s_i[32];
+  float dp[32];
+  for (int j = j_first; j < j_end; ++j) {
+    issue(j, s_i, dp);
+    wgmma_wait<0>();
+    reg_fence(s_i, 32);
+    reg_fence(dp, 32);
+    finish(j, s_i, dp);
+    wgmma_wait<0>();
+    mbar_arrive(&empty[(j - j_first) % STAGES]);
+  }
+  reg_fence(acc, D / 2);
+
+  // epilogue: dq = acc * sm_scale, rows < sq
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    const int col = i * 8 + t * 2;
+    if (row0 < sq)
+      *reinterpret_cast<float2*>(a.dq + (row_base + row0) * D + col) =
+          make_float2(acc[4 * i] * a.sm_scale, acc[4 * i + 1] * a.sm_scale);
+    if (row1 < sq)
+      *reinterpret_cast<float2*>(a.dq + (row_base + row1) * D + col) =
+          make_float2(acc[4 * i + 2] * a.sm_scale, acc[4 * i + 3] * a.sm_scale);
+  }
+}
+
+// dK/dV: KV = the 64-row KV slices a CTA owns, one a consumer warpgroup, or
+// at D = 256 one shared by the dV and the dK warpgroup
+template <int D, int STAGES>
+struct DkvTma {
+  static constexpr int KV = D == 256 ? 1 : D == 64 ? 3 : 2;
+  static constexpr int NWG = D == 256 ? 2 : KV;  // consumer warpgroups
+  static constexpr int k = 0;                           // KV x int8 [64][D]
+  static constexpr int v = k + KV * TI8<D>::BYTES;       // KV x bf16 [64][D]
+  static constexpr int ring = v + KV * TBF<D>::BYTES;
+  // in a stage: int8 Q, bf16 Q, dO, then q_scale, lse2, dvec [VEC] fp32
+  static constexpr int q = 0, q_bf = TI8<D>::BYTES, dout = q_bf + TBF<D>::BYTES;
+  static constexpr int vec = dout + TBF<D>::BYTES;
+  static constexpr int posted = vec + 3 * VEC * 4;       // the bytes a stage posts
+  static constexpr int stage = vec + 3 * VSLOT + 896;    // 1024-byte aligned stages
+  static constexpr int bars = ring + STAGES * stage;
+  static constexpr int bytes = bars + (2 * STAGES + 1) * 8 + 1024;
+};
+
+// One consumer warpgroup's dK/dV work for KV rows [kvs, kvs + 64): PART
+// kDV, kDK or both
+template <int D, int STAGES, bool CAUSAL, bool WINDOW, int PART>
+__device__ __forceinline__ void dkv_consumer(const BwdArgs& a, unsigned char* smem, uint64_t* full,
+                                    uint64_t* empty, uint64_t* rows_bar, const int* shift,
+                                    int hk, int bi, int slice, int kv0, int qt0, int n_qt) {
+  using L = DkvTma<D, STAGES>;
+  constexpr bool WANT_V = PART & kDV, WANT_K = PART & kDK;
+  // Q rows a pass over a Q tile: 64 where one pass holds no stack (causal
+  // and windowed at 256), else two passes of 32, so that S^T and dP^T take
+  // 16 registers each (one pass spilled 8-40 bytes at 128 and at 256
+  // without a mask; three warpgroups at d 64 hold 160 registers a thread)
+  constexpr int NQ = D == 256 && CAUSAL ? TILE : TILE / 2;
+  const int hq = a.hq, hkv = a.hkv, sq = a.sq, sk = a.sk;
+  const int window = WINDOW ? a.window : 0;
+  const int tid = threadIdx.x % WG, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int rep = hq / hkv;
+  const int kvs = kv0 + slice * TILE;
+  const int kr0 = kvs + warp * 16 + g, kr1 = kr0 + 8;  // this thread's KV rows
+  const size_t kv_row_base = ((size_t)bi * hkv + hk) * sk;
+  const float ks = a.k_scale[((size_t)bi * hkv + hk) * ((sk + KGROUP - 1) / KGROUP) + kvs / KGROUP];
+  const uint32_t sK = smem_u32(smem + L::k + slice * TI8<D>::BYTES);
+  const uint32_t sV = smem_u32(smem + L::v + slice * TBF<D>::BYTES);
+
+  float acc_v[WANT_V ? D / 2 : 1], acc_k[WANT_K ? D / 2 : 1];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) {
+    if constexpr (WANT_V) acc_v[i] = 0.f;
+    if constexpr (WANT_K) acc_k[i] = 0.f;
+  }
+
+  const bool live = kvs < sk;
+  if (live) mbar_wait(rows_bar, 0);
+  // this thread's KV rows past sk (masked), and its rows relative to
+  // column 2t of a Q tile (the causal and window masks)
+  const bool kr0_out = kr0 >= sk, kr1_out = kr1 >= sk;
+  const int nq = n_qt - qt0;  // Q tiles a head
+  int s = 0, ph = 0;
+  for (int it = 0; it < rep * nq; ++it) {  // every q head of the group, every Q tile
+    const int q0 = (qt0 + it % nq) * TILE;
+    mbar_wait(&full[s], ph);
+    const bool skip = !live || (CAUSAL && q0 + TILE - 1 < kvs) ||
+                      (window > 0 && kvs + TILE - 1 <= q0 - window);
+    if (!skip) {
+      unsigned char* stp = smem + L::ring + s * L::stage;
+      const uint32_t st = smem_u32(stp);
+      // the tile's row vectors, q_scale, lse2 and dvec of Q row q0 + i at
+      // [i] (each landed from the 16-byte aligned element at or before row q0)
+      const int r = (bi * hq + hk * rep + it / nq) * sq + q0;
+      const float* vqs = reinterpret_cast<const float*>(stp + L::vec) + ((r + shift[0]) & 3);
+      const float* vls =
+          reinterpret_cast<const float*>(stp + L::vec + VSLOT) + ((r + shift[1]) & 3);
+      const float* vdv =
+          reinterpret_cast<const float*>(stp + L::vec + 2 * VSLOT) + ((r + shift[2]) & 3);
+      const bool need_mask = (q0 + TILE > sq) || (kvs + TILE > sk) ||
+                             (CAUSAL && kvs + TILE - 1 > q0) ||
+                             (window > 0 && kvs <= q0 + TILE - 1 - window);
+      // for element (n, e) of a pass: Q row q0 + c0 + 2t + 8n + (e & 1), KV
+      // row kr0 or kr1
+      const int q_left = sq - q0 - 2 * t;  // Q rows past sq: c0 + 8n + (e & 1) >= q_left
+      const int rel = kr0 - q0 - 2 * t;    // kr - qr = rel + 8 (e >= 2) - c0 - 8n - (e & 1)
+#pragma unroll
+      for (int c0 = 0; c0 < TILE; c0 += NQ) {  // the tile's Q rows, NQ a pass
+        int s_i[NQ / 2];
+        float dp[WANT_K ? NQ / 2 : 1];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 32; ++kk)  // S^T = K.Q^T
+          wgmma_s8_ss<NQ>(s_i, desc_kmajor<TILE, TI8<D>::ROWB>(sK, kk),
+                          desc_kmajor<TILE, TI8<D>::ROWB>(st + L::q + c0 * TI8<D>::ROWB, kk),
+                          kk > 0);
+        if constexpr (WANT_K) {
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk)  // dP^T = V.dO^T
+            wgmma_bf16_ss<NQ>(dp, desc_kmajor<TILE, 128>(sV, kk),
+                              desc_kmajor<TILE, 128>(st + L::dout + c0 * 128, kk), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(s_i, NQ / 2);
+        if constexpr (WANT_K) reg_fence(dp, NQ / 2);
+        // P^T = exp2(l2 - lse2), masked, and dS^T = P^T * (dP^T - D), a
+        // column group at a time (so P^T never takes a whole tile of fp32
+        // registers), into bf16 A fragments; the Q tile's row vectors as
+        // float2 pairs of the fragment's two columns
+        uint32_t pa[WANT_V ? NQ / 16 : 1][4], da[WANT_K ? NQ / 16 : 1][4];
+#pragma unroll
+        for (int n = 0; n < NQ / 8; ++n) {
+          const int c = c0 + n * 8 + t * 2;  // Q row within the tile
+          const float2 qs2 = make_float2(vqs[c], vqs[c + 1]);
+          const float2 ls2 = make_float2(vls[c], vls[c + 1]);
+          float p[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool odd = e & 1;
+            float pv = exp2f((float)s_i[4 * n + e] * ((odd ? qs2.y : qs2.x) * ks) -
+                             (odd ? ls2.y : ls2.x));
+            if (need_mask) {
+              const int d_kq = rel + (e < 2 ? 0 : 8) - c0 - 8 * n - odd;  // kr - qr
+              if (c0 + 8 * n + odd >= q_left || (e < 2 ? kr0_out : kr1_out) ||
+                  (CAUSAL && d_kq > 0) || (window > 0 && d_kq <= -window))
+                pv = 0.f;
+            }
+            p[e] = pv;
+          }
+          // column group n is half (n & 1) of the A fragment of K step n / 2
+          if constexpr (WANT_V) {
+            pa[n / 2][2 * (n & 1)] = pack_bf16(p[0], p[1]);
+            pa[n / 2][2 * (n & 1) + 1] = pack_bf16(p[2], p[3]);
+          }
+          if constexpr (WANT_K) {
+            const float2 dv2 = make_float2(vdv[c], vdv[c + 1]);
+            float ds[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              ds[e] = p[e] * (dp[4 * n + e] - ((e & 1) ? dv2.y : dv2.x));
+            da[n / 2][2 * (n & 1)] = pack_bf16(ds[0], ds[1]);
+            da[n / 2][2 * (n & 1) + 1] = pack_bf16(ds[2], ds[3]);
+          }
+        }
+        // dV += bf16(P^T) . dO, dK += bf16(dS^T) . Q over the pass's Q rows
+        wgmma_fence();
+        if constexpr (WANT_V) {
+#pragma unroll
+          for (int kk = 0; kk < NQ / 16; ++kk)
+            wgmma_bf16_rs_mn<D>(acc_v, pa[kk], desc_mnmajor<TILE>(st + L::dout, c0 / 16 + kk));
+        }
+        if constexpr (WANT_K) {
+#pragma unroll
+          for (int kk = 0; kk < NQ / 16; ++kk)
+            wgmma_bf16_rs_mn<D>(acc_k, da[kk], desc_mnmajor<TILE>(st + L::q_bf, c0 / 16 + kk));
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+      }
+      if constexpr (WANT_V) reg_fence(acc_v, D / 2);
+      if constexpr (WANT_K) reg_fence(acc_k, D / 2);
+    }
+    mbar_arrive(&empty[s]);
+    if (++s == STAGES) s = 0, ph ^= 1;
+  }
+
+  // epilogue: dk = acc_k * sm_scale, dv = acc_v, rows < sk
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    const int col = i * 8 + t * 2;
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int kr = hi ? kr1 : kr0;
+      if (kr >= sk) continue;
+      const size_t o = (kv_row_base + kr) * D + col;
+      if constexpr (WANT_K)
+        *reinterpret_cast<float2*>(a.dk + o) =
+            make_float2(acc_k[4 * i + 2 * hi] * a.sm_scale, acc_k[4 * i + 2 * hi + 1] * a.sm_scale);
+      if constexpr (WANT_V)
+        *reinterpret_cast<float2*>(a.dv + o) = make_float2(acc_v[4 * i + 2 * hi], acc_v[4 * i + 2 * hi + 1]);
+    }
+  }
+}
+
+template <int D, int STAGES, bool CAUSAL, bool WINDOW>
+__global__ void __launch_bounds__(WG*(DkvTma<D, STAGES>::NWG + 1), 1)
+sage_attn_bwd_dkv_tma_kernel(const BwdArgs a, const __grid_constant__ DkvMaps m) {
+  using L = DkvTma<D, STAGES>;
+  constexpr int KV = L::KV;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* empty = full + STAGES;
+  uint64_t* rows_bar = empty + STAGES;
+
+  const int hq = a.hq, hkv = a.hkv, sq = a.sq, sk = a.sk;
+  const int window = WINDOW ? a.window : 0;
+  const GridPos gp = grid_pos(m.heads_first);
+  const int hk = gp.h, bi = gp.bi, rep = hq / hkv;
+  const int kv0 = gp.tile * TILE * KV;  // causal: the longest columns first
+  const int qt0 = CAUSAL ? kv0 / TILE : 0;
+  int n_qt = (sq + TILE - 1) / TILE;
+  if (window > 0)  // up to the last Q row whose window reaches this tile
+    n_qt = min(n_qt, (kv0 + TILE * KV - 1 + window - 1) / TILE + 1);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], L::NWG * WG);
+    }
+    mbar_init(rows_bar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / WG;
+  if (wg == L::NWG) {  // the producer
+    regs_dec<24>();
+    if (threadIdx.x % WG == 0) {
+      const int plane_kv = bi * hkv + hk;
+      int live = 0;  // KV slices with a row below sk
+      for (int x = 0; x < KV; ++x) live += kv0 + x * TILE < sk;
+      mbar_expect_tx(rows_bar, live * (TI8<D>::BYTES + TBF<D>::BYTES));
+      for (int x = 0; x < live; ++x) {
+        load_tile<TI8<D>>(smem + L::k + x * TI8<D>::BYTES, &m.k, rows_bar, kv0 + x * TILE, plane_kv);
+        load_tile<TBF<D>>(smem + L::v + x * TBF<D>::BYTES, &m.v, rows_bar, kv0 + x * TILE, plane_kv);
+      }
+      int s = 0, ph = 0;
+      for (int hh = 0; hh < rep; ++hh) {
+        const int plane = bi * hq + hk * rep + hh;
+        for (int qt = qt0; qt < n_qt; ++qt) {
+          mbar_wait(&empty[s], ph ^ 1);
+          unsigned char* st = smem + L::ring + s * L::stage;
+          mbar_expect_tx(&full[s], L::posted);
+          load_tile<TI8<D>>(st + L::q, &m.q, &full[s], qt * TILE, plane);
+          load_tile<TBF<D>>(st + L::q_bf, &m.q_bf, &full[s], qt * TILE, plane);
+          load_tile<TBF<D>>(st + L::dout, &m.dout, &full[s], qt * TILE, plane);
+          const int r = plane * sq + qt * TILE;
+          tma_load_1d(st + L::vec, &m.q_scale, &full[s], (r + m.shift[0]) & ~3);
+          tma_load_1d(st + L::vec + VSLOT, &m.lse2, &full[s], (r + m.shift[1]) & ~3);
+          tma_load_1d(st + L::vec + 2 * VSLOT, &m.dvec, &full[s], (r + m.shift[2]) & ~3);
+          if (++s == STAGES) s = 0, ph ^= 1;
+        }
+      }
+    }
+    return;
+  }
+  regs_inc<kConsumerRegs<L::NWG>>();
+  if constexpr (KV == 1) {  // D = 256: warpgroup 0 keeps dV, warpgroup 1 dK
+    if (wg == 0)
+      dkv_consumer<D, STAGES, CAUSAL, WINDOW, kDV>(a, smem, full, empty, rows_bar, m.shift, hk, bi, 0, kv0, qt0, n_qt);
+    else
+      dkv_consumer<D, STAGES, CAUSAL, WINDOW, kDK>(a, smem, full, empty, rows_bar, m.shift, hk, bi, 0, kv0, qt0, n_qt);
+  } else {
+    dkv_consumer<D, STAGES, CAUSAL, WINDOW, kDKV>(a, smem, full, empty, rows_bar, m.shift, hk,
+                                                  bi, wg, kv0, qt0, n_qt);
+  }
+}
+
+template <int D>
+constexpr int dq_nwg() { return D == 256 ? 1 : D == 64 ? 3 : 2; }
+template <int D>
+constexpr int dq_stages() { return D == 256 ? 2 : 4; }
+template <int D>
+constexpr int dkv_stages() { return D == 256 ? 2 : 4; }
+
+// the tensor maps of a [planes, rows, D] operand, in the boxes of its tile
+template <int D, int ELEM>
+bool tile_map(CUtensorMap* map, const void* p, long long planes, int rows) {
+  return tensor_map_3d(map, p, ELEM == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                       ELEM, planes, rows, D, TILE, Tile<D, ELEM>::COLS);
+}
+
 template <typename Kern, typename B>
 int launch(Kern kern, int smem, dim3 grid, cudaStream_t st, const BwdArgs& a, const B& ba) {
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -618,53 +1164,100 @@ int launch(Kern kern, int smem, dim3 grid, cudaStream_t st, const BwdArgs& a, co
   return (int)cudaGetLastError();
 }
 
-// The instance for (causal, window) or, with BIAS, (causal): the window
-// band and the bias have instances of their own, so the others compile to
-// the code they have without them.
-template <int D, bool BIAS>
-int launch_dq(int causal, int window, dim3 grid, cudaStream_t st, const BwdArgs& a,
-              const BiasOf<BIAS>& ba) {
+// The bias instances (mma.sync): (causal) picks the instance
+template <int D>
+int launch_dq_bias(int causal, dim3 grid, cudaStream_t st, const BwdArgs& a, const BiasArgs& ba) {
   constexpr int smem = DqLayout<D>::bytes;
-  if constexpr (BIAS) {
-    return causal ? launch(sage_attn_bwd_dq_kernel<D, true, false, true>, smem, grid, st, a, ba)
-                  : launch(sage_attn_bwd_dq_kernel<D, false, false, true>, smem, grid, st, a, ba);
-  } else {
-    if (window > 0)
-      return launch(sage_attn_bwd_dq_kernel<D, true, true, false>, smem, grid, st, a, ba);
-    return causal ? launch(sage_attn_bwd_dq_kernel<D, true, false, false>, smem, grid, st, a, ba)
-                  : launch(sage_attn_bwd_dq_kernel<D, false, false, false>, smem, grid, st, a, ba);
-  }
+  return causal ? launch(sage_attn_bwd_dq_kernel<D, true, false, true>, smem, grid, st, a, ba)
+                : launch(sage_attn_bwd_dq_kernel<D, false, false, true>, smem, grid, st, a, ba);
 }
 
-// the dKV instance of PART for (causal, window) or, with BIAS, (causal)
-template <int D, bool BIAS, int PART>
-int launch_dkv_part(int causal, int window, dim3 grid, cudaStream_t st, const BwdArgs& a,
-                    const BiasOf<BIAS>& ba) {
+// the bias dKV instance of PART
+template <int D, int PART>
+int launch_dkv_part(int causal, dim3 grid, cudaStream_t st, const BwdArgs& a, const BiasArgs& ba) {
   constexpr int smem = DkvLayout<D>::bytes;
-  if constexpr (BIAS) {
-    return causal
-               ? launch(sage_attn_bwd_dkv_kernel<D, true, false, true, PART>, smem, grid, st, a, ba)
-               : launch(sage_attn_bwd_dkv_kernel<D, false, false, true, PART>, smem, grid, st, a, ba);
-  } else {
-    if (window > 0)
-      return launch(sage_attn_bwd_dkv_kernel<D, true, true, false, PART>, smem, grid, st, a, ba);
-    return causal
-               ? launch(sage_attn_bwd_dkv_kernel<D, true, false, false, PART>, smem, grid, st, a, ba)
-               : launch(sage_attn_bwd_dkv_kernel<D, false, false, false, PART>, smem, grid, st, a, ba);
-  }
+  return causal
+             ? launch(sage_attn_bwd_dkv_kernel<D, true, false, true, PART>, smem, grid, st, a, ba)
+             : launch(sage_attn_bwd_dkv_kernel<D, false, false, true, PART>, smem, grid, st, a, ba);
 }
 
-template <int D, bool BIAS>
-int launch_dkv(int causal, int window, dim3 grid, cudaStream_t st, const BwdArgs& a,
-              const BiasOf<BIAS>& ba) {
+template <int D>
+int launch_dkv_bias(int causal, dim3 grid, cudaStream_t st, const BwdArgs& a, const BiasArgs& ba) {
   if constexpr (D == 256) {
     // dV, then dK: the two fp32 accumulators together would take 256
     // registers a thread; the dK launch computes S and P again
-    const int e = launch_dkv_part<D, BIAS, kDV>(causal, window, grid, st, a, ba);
-    return e != 0 ? e : launch_dkv_part<D, BIAS, kDK>(causal, window, grid, st, a, ba);
+    const int e = launch_dkv_part<D, kDV>(causal, grid, st, a, ba);
+    return e != 0 ? e : launch_dkv_part<D, kDK>(causal, grid, st, a, ba);
   } else {
-    return launch_dkv_part<D, BIAS, kDKV>(causal, window, grid, st, a, ba);
+    return launch_dkv_part<D, kDKV>(causal, grid, st, a, ba);
   }
+}
+
+// The launch grid of n_tiles tiles x heads x b, with the tile on the
+// fastest axis, or on the slowest (*heads_first) for a causal launch without
+// a window that fills at most two waves of one CTA an SM
+inline dim3 grid_of(int n_tiles, int heads, int b, bool causal_band, int* heads_first) {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  *heads_first = causal_band && (long long)n_tiles * heads * b <= 2LL * sms;
+  return *heads_first ? dim3(heads, b, n_tiles) : dim3(n_tiles, heads, b);
+}
+
+// The instances without a bias: (causal, window) picks the instance
+template <typename Kern, typename M>
+int launch_tma(Kern kern, int smem, dim3 grid, int threads, cudaStream_t st, const BwdArgs& a,
+               const M& m) {
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<grid, threads, smem, st>>>(a, m);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dq_tma(int b, int causal, cudaStream_t st, const BwdArgs& a) {
+  constexpr int NWG = dq_nwg<D>(), STAGES = dq_stages<D>();
+  constexpr int smem = DqTma<D, NWG, STAGES>::bytes;
+  const long long pq = (long long)b * a.hq, pk = (long long)b * a.hkv;
+  DqMaps m;
+  if (!tile_map<D, 1>(&m.q, a.q_i8, pq, a.sq) || !tile_map<D, 2>(&m.dout, a.dout, pq, a.sq) ||
+      !tile_map<D, 1>(&m.k, a.k_i8, pk, a.sk) || !tile_map<D, 2>(&m.k_sm, a.k_sm, pk, a.sk) ||
+      !tile_map<D, 2>(&m.v, a.v, pk, a.sk))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid = grid_of((a.sq + TILE * NWG - 1) / (TILE * NWG), a.hq, b,
+                            causal && a.window == 0, &m.heads_first);
+  const int threads = WG * (NWG + 1);
+  if (a.window > 0)
+    return launch_tma(sage_attn_bwd_dq_tma_kernel<D, NWG, STAGES, true, true>, smem, grid, threads,
+                      st, a, m);
+  return causal ? launch_tma(sage_attn_bwd_dq_tma_kernel<D, NWG, STAGES, true, false>, smem, grid,
+                             threads, st, a, m)
+                : launch_tma(sage_attn_bwd_dq_tma_kernel<D, NWG, STAGES, false, false>, smem, grid,
+                             threads, st, a, m);
+}
+
+template <int D>
+int launch_dkv_tma(int b, int causal, cudaStream_t st, const BwdArgs& a) {
+  constexpr int STAGES = dkv_stages<D>();
+  using L = DkvTma<D, STAGES>;
+  const long long pq = (long long)b * a.hq, pk = (long long)b * a.hkv;
+  DkvMaps m;
+  if (!tile_map<D, 1>(&m.k, a.k_i8, pk, a.sk) || !tile_map<D, 2>(&m.v, a.v, pk, a.sk) ||
+      !tile_map<D, 1>(&m.q, a.q_i8, pq, a.sq) || !tile_map<D, 2>(&m.q_bf, a.q_bf, pq, a.sq) ||
+      !tile_map<D, 2>(&m.dout, a.dout, pq, a.sq) ||
+      !tensor_map_f32(&m.q_scale, a.q_scale, pq * a.sq, VEC, &m.shift[0]) ||
+      !tensor_map_f32(&m.lse2, a.lse2, pq * a.sq, VEC, &m.shift[1]) ||
+      !tensor_map_f32(&m.dvec, a.dvec, pq * a.sq, VEC, &m.shift[2]))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid = grid_of((a.sk + TILE * L::KV - 1) / (TILE * L::KV), a.hkv, b,
+                            causal && a.window == 0, &m.heads_first);
+  if (a.window > 0)
+    return launch_tma(sage_attn_bwd_dkv_tma_kernel<D, STAGES, true, true>, L::bytes, grid, WG * (L::NWG + 1),
+                      st, a, m);
+  return causal ? launch_tma(sage_attn_bwd_dkv_tma_kernel<D, STAGES, true, false>, L::bytes, grid,
+                             WG * (L::NWG + 1), st, a, m)
+                : launch_tma(sage_attn_bwd_dkv_tma_kernel<D, STAGES, false, false>, L::bytes, grid,
+                             WG * (L::NWG + 1), st, a, m);
 }
 
 // head dims 64, 128 and 256, with a bias or without
@@ -678,22 +1271,34 @@ template <bool BIAS>
 int run_dq(const BwdArgs& a, const BiasOf<BIAS>& ba, int b, int d, int causal, int group,
            void* stream) {
   if (bad_shape(a.hq, a.hkv, d, group, causal, a.window)) return (int)cudaErrorInvalidValue;
-  const dim3 grid((a.sq + DQ_BM - 1) / DQ_BM, a.hq, b);
   cudaStream_t st = (cudaStream_t)stream;
-  if (d == 64) return launch_dq<64, BIAS>(causal, a.window, grid, st, a, ba);
-  if (d == 256) return launch_dq<256, BIAS>(causal, a.window, grid, st, a, ba);
-  return launch_dq<128, BIAS>(causal, a.window, grid, st, a, ba);
+  if constexpr (BIAS) {
+    const dim3 grid((a.sq + DQ_BM - 1) / DQ_BM, a.hq, b);
+    if (d == 64) return launch_dq_bias<64>(causal, grid, st, a, ba);
+    if (d == 256) return launch_dq_bias<256>(causal, grid, st, a, ba);
+    return launch_dq_bias<128>(causal, grid, st, a, ba);
+  } else {
+    if (d == 64) return launch_dq_tma<64>(b, causal, st, a);
+    if (d == 256) return launch_dq_tma<256>(b, causal, st, a);
+    return launch_dq_tma<128>(b, causal, st, a);
+  }
 }
 
 template <bool BIAS>
 int run_dkv(const BwdArgs& a, const BiasOf<BIAS>& ba, int b, int d, int causal, int group,
             void* stream) {
   if (bad_shape(a.hq, a.hkv, d, group, causal, a.window)) return (int)cudaErrorInvalidValue;
-  const dim3 grid((a.sk + KV_BM - 1) / KV_BM, a.hkv, b);
   cudaStream_t st = (cudaStream_t)stream;
-  if (d == 64) return launch_dkv<64, BIAS>(causal, a.window, grid, st, a, ba);
-  if (d == 256) return launch_dkv<256, BIAS>(causal, a.window, grid, st, a, ba);
-  return launch_dkv<128, BIAS>(causal, a.window, grid, st, a, ba);
+  if constexpr (BIAS) {
+    const dim3 grid((a.sk + KV_BM - 1) / KV_BM, a.hkv, b);
+    if (d == 64) return launch_dkv_bias<64>(causal, grid, st, a, ba);
+    if (d == 256) return launch_dkv_bias<256>(causal, grid, st, a, ba);
+    return launch_dkv_bias<128>(causal, grid, st, a, ba);
+  } else {
+    if (d == 64) return launch_dkv_tma<64>(b, causal, st, a);
+    if (d == 256) return launch_dkv_tma<256>(b, causal, st, a);
+    return launch_dkv_tma<128>(b, causal, st, a);
+  }
 }
 
 }  // namespace

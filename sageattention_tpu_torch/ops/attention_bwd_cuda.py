@@ -4,7 +4,10 @@ Replaces the TPU kernels ``sageattention_tpu/ops/attention_bwd_pallas.py``:
 ``sage_attention_bwd`` -> ``_dq_kernel`` and ``_dkv_kernel``.  The kernels
 are ``csrc/attention_bwd.cu``; its header gives their layout (a CTA loops
 over KV tiles for dQ, over the GQA group's Q tiles for dK/dV) and their
-bound (tensor-core operations; bytes with a bias).
+bound (tensor-core operations; bytes with a bias).  Without a bias they
+are Hopper kernels (TMA loads through a pipeline of shared-memory stages,
+``wgmma``; ``csrc/wgmma_sm90.cuh``), with one the first ``mma.sync``
+design.
 
 Both take the forward's quantized operands and its base-2 LSE: ``q_i8`` /
 ``q_scale`` from :func:`quant_cuda.quant_q_per_token` (bit for bit the
@@ -23,18 +26,19 @@ asked (``has_bias`` / ``emit_dbias``, ``attention_bwd_pallas.py:82-204,
 238-316``), into a tensor it allocates uninitialised: the kernel writes
 every element, the zeros right of the causal diagonal included.
 
-Head dims 64, 128 and 256, with a bias or without (the D = 256 instances:
-dQ reads its Q and dO fragments from shared memory, dK/dV run in two
-launches, dV then dK, each reading the bias; ``csrc/attention_bwd.cu``).
+Head dims 64, 128 and 256, with a bias or without.  At D = 256 dK/dV is
+one launch without a bias (one warpgroup keeps dV, another dK) and two
+with one (dV then dK, each reading the bias; ``csrc/attention_bwd.cu``).
 
 On a CPU tensor a wrapper runs its plain version
 (:func:`reference.quantized_attention_bwd_reference`); on a CUDA tensor it
 launches its kernel or raises.  ``<function>.launches`` counts the
 launches without a bias at head dims 64 and 128,
-``<function>.hd256_launches`` those at 256 (one a call, the two dK/dV
-passes together), ``<function>.bias_launches`` those of the bias
+``<function>.hd256_launches`` those at 256 (one a call),
+``<function>.bias_launches`` those of the bias
 instances (``sage_attn_bwd_dq_bias``, ``sage_attn_bwd_dkv_bias``) at 64
-and 128, ``<function>.bias_hd256_launches`` theirs at 256.
+and 128, ``<function>.bias_hd256_launches`` theirs at 256 (one a call,
+the two dK/dV passes together).
 """
 
 from __future__ import annotations
