@@ -10,11 +10,17 @@ Phases, each of which raises (and so exits non-zero) when it fails:
 
 1. card and build: the card's name and power limit, the torch and CUDA
    versions, and every kernel built from ``sageattention_tpu_torch/csrc``
-   (one ``nvcc`` per source, all at once) into ``build/``;
+   (one ``nvcc`` per source, all at once) into ``build/``; every
+   instance's registers and stack, none in the TMA-fed ``wgmma`` ones, and
+   the forward's ``wgmma`` instances (kernel 1 unmasked at head dims 64,
+   128 and 256) holding warpgroup MMA and no ``mma.sync`` in their SASS;
 2. each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it (the V quantizers for int8, e4m3 and
    e5m2 codes, the forward kernel for every V type with and without the
-   smooth-v mean; the decode kernels 9-12 for int8 and int4 caches, t_q
+   smooth-v mean, and its ``wgmma`` instances where TMA is likeliest to
+   break: sk 513 and 3001 with sq 1000 at head dims 64-256, causal and not,
+   every V type, and the pre-quantized ones at 3001 with per-row K scales
+   and a column bias; the decode kernels 9-12 for int8 and int4 caches, t_q
    1, 4 and 512, ragged lengths, window 4096, pages of 16 and 1024), and
    the ops' outputs and gradients against exact fp32 attention; then the
    masked forward kernel at the llm-8b-gqa layer (32/8 heads of 128):
@@ -111,7 +117,8 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    a bias at the llm-8b-gqa layer, causal (1, 32/8, 4096, 128), beside
    their bounds and SDPA's backward there, and every timed backward
    instance's products at phase 9's measured ``wgmma`` and ``mma.sync``
-   rates; the pre-quantized
+   rates, every timed ``wgmma`` forward instance's at the measured
+   ``wgmma`` rates and its exp2 at the measured ``exp2f`` rate; the pre-quantized
    forward for each Q/K option at both DiT layers beside the default
    forward and SDPA, the PyTorch ``quantize_qk`` and smooth_q preparation,
    and kernels 3 and 4 at 4 bits; the backward's bias instances at the
@@ -352,7 +359,7 @@ def kernel_registers(build, lib: str) -> list:
             fn = m.group(1)
             continue
         m = re.search(r"REG:(\d+) STACK:(\d+)", line)
-        k = re.search(r"\d((?:sage_|quant|channel)[a-z_]*_kernel(?:_3blocks)?)I", fn or "")
+        k = re.search(r"\d((?:sage_|quant|channel)[a-z0-9_]*_kernel)I", fn or "")
         if m and k:
             targs = [a or b for a, b in re.findall(r"Li(\d+)E|Lb(\d)E", fn)]
             dtype = " bf16" if "nv_bfloat16" in fn else ""
@@ -360,18 +367,58 @@ def kernel_registers(build, lib: str) -> list:
     return rows
 
 
+# the sources of kernel 1's TMA-fed wgmma instances (the unmasked forward
+# at head dims 64, 128 and 256)
+FWD_SM90_LIBS = ("attention_fwd", "attention_fwd_hd256", "attention_fwd_preq",
+                 "attention_fwd_preq_hd256")
+
+
+def sass_mma(build, lib: str, kernel: str) -> dict:
+    """{instance: {family: count}} of the tensor-core instructions (IMMA,
+    HMMA, IGMMA, HGMMA, ...) in the SASS (``cuobjdump -sass``) of every
+    instance of ``kernel`` in a built library."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(build._target(lib))], capture_output=True,
+                         text=True, check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if kernel in m.group(1) else None
+            if fn:
+                counts[fn] = {}
+            continue
+        if fn:
+            for fam in re.findall(r"\b([A-Z]*MMA)\b", line):
+                counts[fn][fam] = counts[fn].get(fam, 0) + 1
+    return counts
+
+
 def resource_usage() -> None:
     """Registers a thread and spill (stack) bytes of every built kernel; the
-    backward's TMA instances (kernels 7-8 without a bias) may hold no stack.
-    Their registers are the count at entry: ``setmaxnreg`` then gives a
-    consumer warpgroup 240 (160 with three) and the producer 24."""
+    TMA-fed wgmma instances (kernels 7-8 without a bias, kernel 1 without
+    masks at head dims 64-256) may hold no stack.  Their registers are the
+    count at entry: ``setmaxnreg`` then gives a backward consumer warpgroup
+    240 (160 with three) and the producer 24, a forward consumer 240 and
+    the producer 24.  The forward's wgmma instances must run their products
+    as warpgroup MMA (``*GMMA`` in their SASS) and hold no ``mma.sync``
+    (HMMA, IMMA)."""
     from sageattention_tpu_torch.ops import _build
 
     for lib in _build.SIGNATURES:
         for kern, regs, stack in kernel_registers(_build, lib):
             log(f"resources {lib} {kern}: {regs} registers, {stack} bytes of stack")
-            require(not ("_tma_kernel" in kern and int(stack)),
+            require(not (("_tma_kernel" in kern or "_sm90_kernel" in kern) and int(stack)),
                     f"{kern} spills {stack} bytes of stack")
+    for lib in FWD_SM90_LIBS:
+        counts = sass_mma(_build, lib, "sage_attn_fwd_sm90_kernel")
+        fams = sorted({f for c in counts.values() for f in c})
+        log(f"sass {lib}: {len(counts)} wgmma forward instances, tensor-core instructions "
+            f"{ {f: sorted({c.get(f, 0) for c in counts.values()}) for f in fams} }")
+        require(counts and all(any(f.endswith("GMMA") for f in c) and not
+                               {"HMMA", "IMMA"} & set(c) for c in counts.values()),
+                f"{lib}: a wgmma forward instance without GMMA or with HMMA / IMMA")
 
 
 # --------------------------------------------------------------------------
@@ -603,6 +650,123 @@ def check_attention(gen, results):
             f"{cos:.6f}, lse max abs {lerr:.3e}")
         require(cos > 0.999, f"{op.__name__} vs exact attention: cosine <= 0.999")
         require(lerr < 5e-2, f"{op.__name__} LSE vs exact attention")
+
+
+def check_fwd_sm90(results) -> None:
+    """Kernel 1's TMA-fed wgmma instances where TMA is likeliest to break,
+    against the plain version, from a generator of their own (the later
+    phases' inputs stay as they were): sk 513 and 3001 (boxes that end
+    inside a KV tile, rows past sk landing as zeros) with sq 1000 (the last
+    128-row CTA ends inside its second warpgroup), (1, 4/2) heads, every V
+    type with and without the smooth-v mean, causal and not, at head dims
+    64, 128 and 256 (513 at 256 only); the pre-quantized instances at 3001
+    with per-tile and with per-row K scales and a column bias, bf16 and
+    e4m3 V, bf16 and fp32 output.  Limits as every forward check's: cosine
+    >= 0.9999, max-abs <= 2e-2, lse2 <= 1e-3.  First, every int8, e4m3 and
+    e5m2 code at each head dim through one key: the fp32 output must be the
+    code's value exactly; and the V-code widening that runs before these
+    instances (``widen_v_codes``) bit for bit with its plain version on
+    every code and on a CogVideoX-2B layer's codes."""
+    import torch
+    from sageattention_tpu_torch import quant
+    from sageattention_tpu_torch.ops import attention_cuda, quant_cuda
+    from sageattention_tpu_torch.utils.compare import cosine_similarity
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(31)
+    # every V code the quantizers write (NaN and inf codes aside), widened
+    # before the launch (widen_v_codes): with one key (sk 1) and Q = 0,
+    # P = 1 and the fp32 output is each code's value exactly
+    for d in (64, 128, 256):
+        h = 256 // d
+        for vdt in quant.V_CODE_TYPES:
+            codes = torch.arange(256, dtype=torch.int32)
+            finite = torch.isfinite(codes.to(torch.uint8).view(vdt).float())
+            codes = torch.where(finite, codes, 0).to(torch.uint8).view(vdt)
+            vx = codes.reshape(1, h, 1, d).cuda()
+            kw = dict(is_causal=False, q_fold=d**-0.5 * LOG2E, return_lse=False)
+            args = (torch.zeros(1, h, 1, d, device="cuda"), torch.zeros(1, h, 1, d, device="cuda",
+                    dtype=torch.int8), torch.ones(1, h, 1, device="cuda"), vx,
+                    torch.ones(1, h, d, device="cuda"))
+            o = attention_cuda.sage_attention_fwd(*args, **kw)
+            o_p = attention_cuda.sage_attention_plain(*args, **kw)
+            torch.cuda.synchronize()
+            same = torch.equal(o, o_p) and torch.equal(o_p.flatten().cpu(), vx.float().flatten().cpu())
+            log(f"attention sm90 every {vdt} code at d {d} (sk 1): exact {same}")
+            require(same, f"attention sm90: a {vdt} code widens to another value at d {d}")
+    # the widening alone (csrc/widen_v.cu), bit for bit with its plain
+    # version: every code, and the codes of a CogVideoX-2B layer's V
+    v = random_v(gen, (1, 30, 17776, 64))
+    for pv, vdt in quant.V_DTYPES.items():
+        every = torch.arange(256, dtype=torch.int32).to(torch.uint8).view(vdt)
+        every = torch.where(torch.isfinite(every.float()), every.view(torch.uint8), 0)
+        for vx in (every.view(vdt).cuda(), quant_cuda.quant_v_per_channel(v, dtype=vdt)[0]):
+            got = attention_cuda.widen_v_codes(vx)
+            torch.cuda.synchronize()
+            same = torch.equal(got.view(torch.int16), attention_cuda.widen_v_codes_plain(vx)
+                               .view(torch.int16))
+            log(f"widen_v_codes {pv} {tuple(vx.shape)}: bit-exact {same}")
+            require(same, f"widen_v_codes {pv} differs from its plain version")
+    results["widen_v_codes"]["max_abs_err"] = 0.0
+    del v
+    b, hq, hkv, sq = 1, 4, 2, 1000
+
+    def agree(name, key, got, want):
+        (o, l2), (o_p, l2_p) = got, want
+        torch.cuda.synchronize()
+        cos = cosine_similarity(o.float().cpu(), o_p.float().cpu())
+        err = (o.float() - o_p.float()).abs().max().item()
+        lerr = (l2 - l2_p).abs().max().item()
+        finite = bool(torch.isfinite(o).all()) and bool(torch.isfinite(l2).all())
+        log(f"attention sm90 {name}: cos {cos:.6f}, max abs {err:.3e}, lse2 max abs "
+            f"{lerr:.3e}; finite {finite}")
+        require(finite and cos >= 0.9999 and err <= 2e-2 and lerr <= 1e-3,
+                f"attention sm90 {name} disagrees with its plain version")
+        results[key]["max_abs_err"] = max(results[key].get("max_abs_err", 0.0), err)
+
+    for d, sk in ((64, 3001), (128, 3001), (256, 3001), (256, 513)):
+        sfx = "_hd256" if d == 256 else ""
+        q = torch.randn(b, hq, sq, d, generator=gen, device="cuda").to(torch.bfloat16)
+        k = (torch.randn(b, hkv, sk, d, generator=gen, device="cuda") + 0.5).to(torch.bfloat16)
+        v = torch.randn(b, hkv, sk, d, generator=gen, device="cuda").to(torch.bfloat16)
+        k_i8, k_sc, _ = quant_cuda.quant_k_fused_mean(k, group=128)
+        fold = d**-0.5 * LOG2E
+        for causal in (False, True):
+            for vname, vx, vs, vm in v_operands(v):
+                kw = dict(is_causal=causal, q_fold=fold, return_lse=True)
+                agree(f"{(b, hq, hkv, sq, sk, d)} causal={causal} V {vname}",
+                      "sage_attn_fwd" + sfx,
+                      attention_cuda.sage_attention_fwd(q, k_i8, k_sc, vx, vs, vm, **kw),
+                      attention_cuda.sage_attention_plain(q, k_i8, k_sc, vx, vs, vm, **kw))
+        if sk == 3001:
+            q_i8 = torch.randint(-127, 128, (b, hq, sk, d), generator=gen, device="cuda",
+                                 dtype=torch.int8)
+            k_p = torch.randint(-127, 128, (b, hkv, sk, d), generator=gen, device="cuda",
+                                dtype=torch.int8)
+            q_sc = (torch.rand(b, hq, sk, generator=gen, device="cuda") + 0.5) * 2e-3 * fold
+            v3 = torch.randn(b, hkv, sk, d, generator=gen, device="cuda").to(torch.bfloat16)
+            vq, vqs, vqm = quant_cuda.quant_v_per_channel(v3, dtype=torch.float8_e4m3fn,
+                                                          smooth=True)
+            for per_row in (False, True):
+                ks = (torch.rand(b, hkv, sk if per_row else -(-sk // 128), generator=gen,
+                                 device="cuda") + 0.5) * 2e-2
+                cb = (torch.randn(b, hq, sk, generator=gen, device="cuda") if per_row
+                      else None)
+                for causal in (False, True):
+                    for vname, vx, vs, vm in (("bf16", v3, None, None), ("fp8+mean", vq, vqs,
+                                                                         vqm)):
+                        for out_dtype in (torch.bfloat16, torch.float32):
+                            kw = dict(is_causal=causal, return_lse=True, out_dtype=out_dtype,
+                                      col_bias=cb)
+                            agree(f"preq {(b, hq, hkv, sk, sk, d)} causal={causal} per-row "
+                                  f"K scales {per_row} column bias {cb is not None} V {vname} "
+                                  f"o {out_dtype}", "sage_attn_fwd_preq" + sfx,
+                                  attention_cuda.sage_attention_fwd_preq(
+                                      q_i8, q_sc, k_p, ks, vx, vs, vm, **kw),
+                                  attention_cuda.sage_attention_preq_plain(
+                                      q_i8, q_sc, k_p, ks, vx, vs, vm, **kw))
+        del q, k, v, k_i8, k_sc
+        torch.cuda.empty_cache()
 
 
 def check_quant_q(gen, results):
@@ -1731,7 +1895,9 @@ FORWARD = ("k_channel_mean", "quant_k_chunked", "sage_attn_fwd")
 # PyTorch, so no K kernel, and with fp8 V kernel 5
 FORWARD_INT4_SQ = ("quant_q_per_token", "k_channel_mean", "quant_k_chunked",
                    "sage_attn_fwd_preq")
-FORWARD_SUBTILE_FP8 = ("quant_v_per_channel", "sage_attn_fwd_preq")
+FORWARD_SUBTILE_FP8 = ("quant_v_per_channel", "widen_v_codes", "sage_attn_fwd_preq")
+# V codes before the wgmma forward (head dims 64-256, no masks): widened to bf16
+WIDEN = ("widen_v_codes",)
 # the windowed one-shot prefill: kernels 2-3 and kernel 1's masked instantiation
 FORWARD_MASKED = ("k_channel_mean", "quant_k_chunked", "sage_attn_fwd_masked")
 BACKWARD = ("quant_q_per_token", "sage_attn_bwd_dq", "sage_attn_bwd_dkv")
@@ -1742,7 +1908,8 @@ BIAS_TRAIN = ("k_channel_mean", "quant_k_chunked", "sage_attn_fwd_masked", "quan
 V_QUANT = ("quant_v_per_channel", "v_channel_stats", "quant_v_apply")
 # the main path whose launches the kernels line reports for each kernel
 MAIN_PATH = {**{n: "server" for n in FORWARD}, **{n: "train" for n in BACKWARD},
-             "quant_v_per_channel": "server_fp8", "v_channel_stats": "server_wan",
+             "quant_v_per_channel": "server_fp8", "widen_v_codes": "server_fp8",
+             "v_channel_stats": "server_wan",
              "quant_v_apply": "server_wan", "sage_decode": "llm_dense",
              "sage_decode_window": "llm_window_dense", "sage_paged_decode": "llm_paged",
              "sage_paged_decode_window": "llm_window_paged",
@@ -1798,6 +1965,7 @@ def counters():
            "sage_attn_bwd_dq": attention_bwd_cuda.sage_attention_bwd_dq,
            "sage_attn_bwd_dkv": attention_bwd_cuda.sage_attention_bwd_dkv,
            "quant_v_per_channel": quant_cuda.quant_v_per_channel,
+           "widen_v_codes": attention_cuda.widen_v_codes,
            "v_channel_stats": quant_cuda.v_channel_stats,
            "quant_v_apply": quant_cuda.quant_v_apply,
            "sage_decode": decode_cuda.decode_kernel,
@@ -2527,15 +2695,32 @@ def time_kernels(gen, results):
     r["bound_ms"] = (k.numel() * 3 + km.numel() * 4 + b * h * ng * 4) / PEAK_BYTES_S * 1e3
     r["bound_by"] = "bytes"
 
+    # the V-code widening before the wgmma forward, e4m3 codes (server_fp8's)
+    from sageattention_tpu_torch.ops import attention_cuda
+
+    vq = quant_cuda.quant_v_per_channel(v, dtype=quant.V_DTYPES["fp8"])[0]
+    r = results["widen_v_codes"]
+    r["ms"] = cuda_ms(lambda: attention_cuda.widen_v_codes(vq))
+    r["plain_ms"] = cuda_ms(lambda: attention_cuda.widen_v_codes_plain(vq))
+    r["library_ms"] = cuda_ms(lambda: vq.to(torch.bfloat16))  # the plain version is this call
+    r["bound_ms"] = vq.numel() * 3 / PEAK_BYTES_S * 1e3
+    r["bound_by"] = "bytes"
+    log(f"time widen_v_codes at {tuple(vq.shape)} e4m3: {r['ms']:.4f} ms (bound "
+        f"{r['bound_ms']:.4f} ms, bytes), plain {r['plain_ms']:.4f} ms")
+    del vq
+
     r = results["sage_attn_fwd"]
     cog = attention_times(gen, (b, h, s, d), ("bf16", *quant.V_DTYPES), plain=True)
     r.update(ms=cog["bf16"]["ms"], plain_ms=cog["plain_ms"], library_ms=cog["sdpa_ms"],
              bound_ms=cog["bf16"]["bound_ms"], bound_by=cog["bf16"]["bound_by"])
     r["ms_by_v_type"] = {pv: cog[pv]["ms"] for pv in ("bf16", *quant.V_DTYPES)}
+    r.update(pairs=b * h * s * s, d=d)  # for the floors at the measured rates (phase 9)
     wan = attention_times(gen, tuple(WAN.values()), ("bf16", "fp8"), plain=False)
     r["wan_layer"] = {"shape": list(WAN.values()), "ms_bf16": wan["bf16"]["ms"],
                       "ms_fp8": wan["fp8"]["ms"], "sdpa_ms": wan["sdpa_ms"],
-                      "bound_ms": wan["bf16"]["bound_ms"], "bound_by": wan["bf16"]["bound_by"]}
+                      "bound_ms": wan["bf16"]["bound_ms"], "bound_by": wan["bf16"]["bound_by"],
+                      "ms": wan["bf16"]["ms"], "pairs": WAN["b"] * WAN["h"] * WAN["s"] ** 2,
+                      "d": WAN["d"]}
     for shape, t in ((COG, cog), (WAN, wan)):
         for pv, x in t.items():
             if isinstance(x, dict):
@@ -2618,7 +2803,7 @@ def time_qopts(gen, results) -> dict:
             if lname == "cogvideox layer" and name == "int4+smooth_q":
                 r = results["sage_attn_fwd_preq"]
                 r.update(ms=ms, bound_ms=row[name]["bound_ms"], bound_by=row[name]["bound_by"],
-                         library_ms=row["sdpa_ms"],
+                         library_ms=row["sdpa_ms"], pairs=pairs, d=d,
                          plain_ms=cuda_ms(lambda: attention_cuda.sage_attention_preq_plain(
                              q_i8, q_sc, ki, ks, v, is_causal=False, return_lse=False,
                              col_bias=cb), reps=5, warmup=1))
@@ -3506,7 +3691,7 @@ def time_hd256(gen, results) -> dict:
                  q, k_i8, k_sc, v, is_causal=True, q_fold=fold, return_lse=False),
                  reps=2, warmup=1),
              library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
-                                reps=10),
+                                reps=10), pairs=pairs, d=d,
              shape={"b": b, "hq": hq, "hkv": hkv, "s": s, "d": d, "causal": True})
     log_time("sage_attn_fwd_hd256", r, f"at {(b, hq, hkv, s, d)} causal, bf16 V (by V type "
              f"{ {n: round(x['ms'], 4) for n, x in by_v.items()} })")
@@ -3736,7 +3921,7 @@ def time_hd256_preq(results) -> dict:
     sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), reps=10)
     r = results["sage_attn_fwd_preq_hd256"]
     r.update(ms=by_opt["int4+smooth_q"], plain_ms=plain_ms, library_ms=sdpa, **entry,
-             ms_by_option=by_opt, default_forward_ms=default_ms,
+             ms_by_option=by_opt, default_forward_ms=default_ms, pairs=pairs, d=d,
              shape={"b": b, "hq": hq, "hkv": hkv, "s": s, "d": d, "causal": True,
                     "option": "int4+smooth_q"})
     log(f"time sage_attn_fwd_preq_hd256 at {(b, hq, hkv, s, d)} causal, bf16 V, by option "
@@ -5022,7 +5207,11 @@ def run_wide(results) -> dict:
 
 
 def measured_rate_floor(results, probe: dict) -> None:
-    """Beside each wide forward's data-sheet bound, the time its products
+    """Beside each timed wgmma forward instance's data-sheet bound (the
+    CogVideoX-2B and Wan2.1 layers, the Gemma-7B layer at 256, the
+    pre-quantized forward at both), the time its products take at this
+    run's measured ``wgmma`` rates and its exp2 at the measured ``exp2f``
+    rate; beside each wide forward's, the time its products
     take at this run's measured ``mma.sync`` rates (phase 9: int8 Q.K^T at
     d 256, bf16 P.V at dv 256), Q.K^T counted once a column slice (twice:
     the split recomputes it); beside each timed backward kernel's, the time
@@ -5041,6 +5230,21 @@ def measured_rate_floor(results, probe: dict) -> None:
             log(f"{name} d{r['d']}: {r['ms']:.4f} ms; its products at the measured rates: wgmma "
                 f"{r['wgmma_floor_ms']:.4f} ms, mma.sync {r['mma_sync_floor_ms']:.4f} ms; "
                 f"data-sheet bound {r['bound_ms']:.4f} ms")
+    # kernel 1's wgmma instances: their int8 Q.K^T and bf16 P.V at the
+    # measured wgmma rates, and the softmax's exp2 (one a score) at the
+    # measured exp2f rate (the "pass exp2f" row), each its own floor
+    for r in (results["sage_attn_fwd"], results["sage_attn_fwd"]["wan_layer"],
+              results["sage_attn_fwd_hd256"], results["sage_attn_fwd_preq"],
+              results["sage_attn_fwd_preq_hd256"]):
+        if "pairs" not in r:
+            continue
+        ops = 2 * r["pairs"] * r["d"]
+        r["wgmma_floor_ms"] = (ops / rate[f"qk s8 d{r['d']} wgmma"]
+                               + ops / rate[f"pv bf16 dv{r['d']} wgmma"]) * 1e3
+        r["exp2_floor_ms"] = r["pairs"] / rate["pass exp2f"] * 1e3
+        log(f"forward d{r['d']} ({r['pairs']} scores): {r['ms']:.4f} ms; its products at the "
+            f"measured wgmma rates {r['wgmma_floor_ms']:.4f} ms, its exp2 at the measured "
+            f"exp2f rate {r['exp2_floor_ms']:.4f} ms; data-sheet bound {r['bound_ms']:.4f} ms")
     qk, pv = rate["qk s8 d256 mma.sync"], rate["pv bf16 dv256 mma.sync"]
     for dp in WIDE_DIMS:
         r = results[f"sage_attn_fwd_hd{dp}"]
@@ -5082,6 +5286,10 @@ def kernel_entries() -> dict:
             "replaces": "sageattention_tpu/ops/attention_bwd_pallas.py:238"},
         "quant_v_per_channel": {"route": "cuda", "source": src + "quant_v.cu",
                                 "replaces": "sageattention_tpu/ops/quant_pallas.py:512"},
+        # kernel 1's V-code widening (attention_pallas.py:807, inside
+        # sage_attention_fused), a pass of its own before the wgmma forward
+        "widen_v_codes": {"route": "cuda", "source": src + "widen_v.cu",
+                          "replaces": "sageattention_tpu/ops/attention_pallas.py:1412"},
         "v_channel_stats": {"route": "cuda", "source": src + "quant_v.cu",
                             "replaces": "sageattention_tpu/ops/quant_pallas.py:429"},
         "quant_v_apply": {"route": "cuda", "source": src + "quant_v.cu",
@@ -5153,6 +5361,7 @@ def main() -> int:
     check_quant(gen, results)
     check_quant_v(gen, results)
     check_attention(gen, results)
+    check_fwd_sm90(results)
     check_quant_q(gen, results)
     check_backward(gen, results)
     masked = check_masked(gen, results)
@@ -5187,9 +5396,10 @@ def main() -> int:
     servers = {}
     for path, model, backend, launched, bf16_steps in (
             ("server", "cogvideox-2b", "sage", FORWARD, 0),
-            ("server_fp8", "cogvideox-2b", "sage_fp8", FORWARD + ("quant_v_per_channel",), 0),
+            ("server_fp8", "cogvideox-2b", "sage_fp8", FORWARD + ("quant_v_per_channel",) + WIDEN,
+             0),
             ("server_wan", "wan2.1-t2v-1.3b", "sage_fp8",
-             FORWARD + ("v_channel_stats", "quant_v_apply"), 2)):
+             FORWARD + ("v_channel_stats", "quant_v_apply") + WIDEN, 2)):
         t_phase = time.perf_counter()
         servers[path] = run_server(results, args.profile, model=model, backend=backend,
                                    path=path, launched=launched, bf16_steps=bf16_steps)

@@ -1,8 +1,7 @@
-// The body of the forward kernels of attention_fwd_kernel.cuh, which
-// includes it inside each kernel's braces: sage_attn_fwd_kernel and
-// sage_attn_fwd_kernel_3blocks, the same code under two launch bounds.  It
-// reads the kernels' parameters and template arguments; the design notes
-// are in attention_fwd_kernel.cuh.  Not a header of its own.
+// The body of the forward kernel of attention_fwd_kernel.cuh,
+// sage_attn_fwd_kernel, which includes it inside its braces.  It reads the
+// kernel's parameters and template arguments; the design notes are in
+// attention_fwd_kernel.cuh.  Not a header of its own.
   using L = Layout<D>;
   constexpr int KT = kKvTile<D>;  // KV columns a tile
   constexpr int NT = KT / 8;      // 8-column n-tiles of S per warp

@@ -1,18 +1,18 @@
 // Fused SageAttention forward for Hopper (sm_90a): int8 Q.K^T, bf16 P.V.
 //
-// The kernels shared by attention_fwd.cu (no masks: MASKED = false),
-// attention_fwd_masked.cu (MASKED = true) and attention_fwd_preq.cu (PREQ =
-// true, both ways of MASKED), at head dims 64 and 128, by
-// attention_fwd_hd256.cu, attention_fwd_masked_hd256.cu and
-// attention_fwd_preq_hd256.cu (PREQ, both ways of MASKED) at 256, 16
-// instances each, and by attention_fwd_wide.cu, attention_fwd_masked_wide.cu
-// and attention_fwd_preq_wide.cu at 384 and 512 (O split by columns, kDv);
-// their body is attention_fwd_body.cuh.  Each source instantiates only its
-// own kernels, so the nine build in
-// parallel, and the unmasked instantiations compile to the code they had
-// before masks existed: every masked statement sits under `if constexpr
-// (MASKED)`, every pre-quantized one under `if constexpr (PREQ)`, and the
-// operands of either are an empty struct where its flag is off.
+// The kernels of attention_fwd_masked.cu (MASKED = true) and the masked
+// instances of attention_fwd_preq.cu (PREQ = true) at head dims 64 and
+// 128, of attention_fwd_masked_hd256.cu and attention_fwd_preq_hd256.cu
+// (masked, PREQ) at 256, and of attention_fwd_wide.cu,
+// attention_fwd_masked_wide.cu and attention_fwd_preq_wide.cu at 384 and
+// 512 (O split by columns, kDv, both ways of MASKED); their body is
+// attention_fwd_body.cuh.  The unmasked instances at 64, 128 and 256 are
+// attention_fwd_sm90.cuh's TMA-fed wgmma kernel, which computes the same
+// and uses this header's operand types and helpers.  Each source
+// instantiates only its own kernels, so the sources build in parallel:
+// every masked statement sits under `if constexpr (MASKED)`, every
+// pre-quantized one under `if constexpr (PREQ)`, and the operands of
+// either are an empty struct where its flag is off.
 //
 // Replaces the TPU kernel attention_pallas.py:sage_attention_fused
 // (_kernel / _kernel_single, bodies _compute_parts, _merge_parts,
@@ -102,9 +102,10 @@
 // (b=1, h=30, s=17,776, d=64) Q.K^T is 1.21e12 int8 ops and P.V 1.21e12
 // bf16 FLOP, about 1.84 ms on an H100 SXM's data-sheet peaks, while the
 // bytes (Q, K, V, O once each) take about 0.03 ms.  With masks the live
-// (row, col) pairs set the work.  This first kernel is written to be
-// right: mma.sync (not wgmma), plain synchronous tile loads (no TMA, no
-// cp.async pipeline) and no warp specialisation; those are later work.
+// (row, col) pairs set the work.  This body is written to be right:
+// mma.sync (not wgmma), plain synchronous tile loads (no TMA, no cp.async
+// pipeline) and no warp specialisation; attention_fwd_sm90.cuh has all
+// three for the unmasked instances.
 
 #pragma once
 
@@ -295,23 +296,6 @@ sage_attn_fwd_kernel(const T* __restrict__ q, const int8_t* __restrict__ k,
 #include "attention_fwd_body.cuh"
 }
 
-// The same body for the d64 unmasked PREQ instances, bounded to 3 blocks an
-// SM: their dequantization takes nvcc past the 170 registers a thread that
-// 3 blocks of 128 threads allow, where the default d64 instances' 167-168
-// fit.  The bound costs a few dozen bytes of stack and is the faster of the
-// two (PERF.md, the kernel table).  A second kernel, not a bound on the first: a
-// minimum of 1 block in `__launch_bounds__` moves the default instances'
-// registers (tools/ab_attention_fwd.py).
-template <int D, bool CAUSAL, typename T, int VK, bool MASKED, bool PREQ>
-__global__ void __launch_bounds__(NTHREADS, 3)
-sage_attn_fwd_kernel_3blocks(const T* __restrict__ q, const int8_t* __restrict__ k,
-                     const float* __restrict__ k_scale, const void* __restrict__ v,
-                     const float* __restrict__ v_scale, const float* __restrict__ v_mean,
-                     T* __restrict__ o, float* __restrict__ lse2, int hq, int hkv, int sq,
-                     int sk, float qs_mul, const MaskOf<MASKED> mk, const PreqOf<PREQ> pq) {
-#include "attention_fwd_body.cuh"
-}
-
 // the launch's operands, as sage_attn_fwd takes them
 struct Args {
   const void *q, *k, *k_scale, *v, *v_scale, *v_mean;
@@ -338,12 +322,8 @@ int launch_kernel(Kernel kern, const Args& a, const MaskOf<MASKED>& mk, const Pr
 
 template <int D, bool CAUSAL, typename T, int VK, bool MASKED, bool PREQ>
 int launch(const Args& a, const MaskOf<MASKED>& mk, const PreqOf<PREQ>& pq, cudaStream_t st) {
-  if constexpr (PREQ && !MASKED && D == 64)
-    return launch_kernel<D, PREQ, T, MASKED>(
-        sage_attn_fwd_kernel_3blocks<D, CAUSAL, T, VK, MASKED, PREQ>, a, mk, pq, st);
-  else
-    return launch_kernel<D, PREQ, T, MASKED>(sage_attn_fwd_kernel<D, CAUSAL, T, VK, MASKED, PREQ>,
-                                             a, mk, pq, st);
+  return launch_kernel<D, PREQ, T, MASKED>(sage_attn_fwd_kernel<D, CAUSAL, T, VK, MASKED, PREQ>,
+                                           a, mk, pq, st);
 }
 
 template <int D, bool CAUSAL, typename T, bool MASKED, bool PREQ>

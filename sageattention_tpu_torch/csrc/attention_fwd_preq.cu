@@ -4,18 +4,19 @@
 // smooth_q, qk_bits=4 and qk_quant_gran = per_token / per_subtile /
 // per_block run here: int8 Q codes (+-127, or +-7 at 4 bits) with per-row
 // scales, K scales per 128-row tile or per row, and smooth_q's column bias.
-// The kernel and its design notes are in attention_fwd_kernel.cuh; this
-// source instantiates it with PREQ = true, without masks and with them (16
-// instances each: head dim x causal x V kind; the output type is an
-// argument), and builds beside attention_fwd.cu and attention_fwd_masked.cu,
-// whose instances keep their code.
+// Without masks the instances are attention_fwd_sm90.cuh's kernel (TMA-fed
+// wgmma; its helper warps stage the column pairs' K scales and bias a
+// stage; 4 instances, head dim x causal, V codes widened to bf16 before the
+// launch), with masks attention_fwd_kernel.cuh's (mma.sync; 16, head dim x
+// causal x V kind), each with PREQ = true (the output type an argument);
+// the source builds beside attention_fwd.cu and attention_fwd_masked.cu.
 //
 // Bound: operations, as the default forward's (the same int8 Q.K^T and
 // bf16 P.V); it reads int8 Q and one fp32 scale a row where the default
 // forward reads bf16 Q, plus the K scales and the column bias once a Q
 // tile (a few bytes a column).
 
-#include "attention_fwd_kernel.cuh"
+#include "attention_fwd_sm90.cuh"
 
 // The operands of sage_attn_fwd (attention_fwd.cu), with q the int8 codes
 // [b,hq,sq,d] and k_scale fp32 [b,hkv,ceil(sk/group)] (ks_per_row = 0) or
@@ -44,6 +45,13 @@ extern "C" int sage_attn_fwd_preq(
                  mask_sb, mask_sh, mask_sr, mask_sc, bias_sb, bias_sh, bias_sr, bias_sc, live_sb,
                  live_sh, window, bias_bf16))
     return (int)cudaErrorInvalidValue;
-  if (!masked) return launch_fwd<false, true>(a, NoMask{}, pq, d, causal, 0, v_kind, group, stream);
+  if (!masked) {
+    const FwdSm90Args u{q, (const float*)q_scale, (const float*)k_scale, (const float*)col_bias,
+                        (const float*)v_scale, (const float*)v_mean, o,
+                        want_lse ? (float*)lse2 : nullptr, hq, hkv, sq, sk, 0.f, ks_per_row,
+                        o_f32};
+    return d == 64 ? launch_fwd_sm90<64, true>(u, k, v, b, d, causal, 0, v_kind, group, stream)
+                   : launch_fwd_sm90<128, true>(u, k, v, b, d, causal, 0, v_kind, group, stream);
+  }
   return launch_fwd<true, true>(a, mk, pq, d, causal, 0, v_kind, group, stream);
 }

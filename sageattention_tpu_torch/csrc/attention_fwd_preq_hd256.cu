@@ -1,7 +1,8 @@
 // Fused SageAttention forward for Hopper (sm_90a) on pre-quantized Q at
-// head dim 256: the PREQ instances of attention_fwd_kernel.cuh at D = 256,
-// without masks and with them (8 each: causal x V kind; the output type is
-// an argument), kernel 1's slices (h) score_col_bias, (i) qk_int4 and (k)
+// head dim 256: the PREQ instances at D = 256, without masks those of
+// attention_fwd_sm90.cuh (TMA-fed wgmma; 2, causal or not, V codes widened
+// to bf16 before the launch), with masks those of attention_fwd_kernel.cuh
+// (8: causal x V kind; the output type is an argument), kernel 1's slices (h) score_col_bias, (i) qk_int4 and (k)
 // pre-quantized operands of attention_pallas.py:sage_attention_fused for
 // every head dim in (128, 256], padded to 256 (core.py:70-75 of the JAX
 // package).  sageattn's smooth_q, qk_bits=4 and qk_quant_gran run here at
@@ -15,16 +16,16 @@
 // per_block K) is the row's own.  Q's int8 codes sit in shared memory and
 // are read for each KV tile, as the default D = 256 instances read the Q
 // they quantize.  The column pairs' K scales and smooth_q's column bias
-// take 32 float4 a tile in the slot smem_bytes<D, PREQ> adds (1 KB beside
-// the 68 KB layout), so the dequantization holds no more registers than a
-// float4 a thread per 8-column n-tile.  The +-7 codes of qk_bits=4 run the
+// take 32 float4 a tile (a slot a stage in the unmasked kernel; in the
+// masked one the slot smem_bytes<D, PREQ> adds), so the dequantization
+// holds no more registers than a float4 a thread per 8-column n-tile.  The +-7 codes of qk_bits=4 run the
 // same int8 MMA: a sum of 256 products of +-7 stays under 2^15.
 //
 // Bound: operations, as the default D = 256 forward (the same int8 Q.K^T
 // and bf16 P.V); it reads int8 Q and a fp32 scale a row where that one
 // reads bf16 Q, plus the K scales and the column bias once a Q tile.
 
-#include "attention_fwd_kernel.cuh"
+#include "attention_fwd_sm90.cuh"
 
 // The operands of sage_attn_fwd_preq (attention_fwd_preq.cu), with d 256.
 extern "C" int sage_attn_fwd_preq_hd256(
@@ -47,6 +48,12 @@ extern "C" int sage_attn_fwd_preq_hd256(
                  mask_sb, mask_sh, mask_sr, mask_sc, bias_sb, bias_sh, bias_sr, bias_sc, live_sb,
                  live_sh, window, bias_bf16))
     return (int)cudaErrorInvalidValue;
-  if (!masked) return launch_fwd_preq_d<256, false>(a, NoMask{}, pq, d, causal, v_kind, group, stream);
+  if (!masked) {
+    const FwdSm90Args u{q, (const float*)q_scale, (const float*)k_scale, (const float*)col_bias,
+                        (const float*)v_scale, (const float*)v_mean, o,
+                        want_lse ? (float*)lse2 : nullptr, hq, hkv, sq, sk, 0.f, ks_per_row,
+                        o_f32};
+    return launch_fwd_sm90<256, true>(u, k, v, b, d, causal, 0, v_kind, group, stream);
+  }
   return launch_fwd_preq_d<256, true>(a, mk, pq, d, causal, v_kind, group, stream);
 }

@@ -4,8 +4,13 @@
 // (_quant_k_fused_kernel) and quant_pallas.py:quant_k_chunked
 // (_quant_k_kernel).  Two launches:
 //
-//   k_channel_mean   one CTA per (b,h): km[d] = sum_s float(k[s,d]) / s,
-//                    in fp32, in a fixed order (deterministic).
+//   k_channel_mean   km[d] = sum_s float(k[s,d]) / s in fp32: one CTA per
+//                    (chunk of rows, b h), enough chunks to fill the card
+//                    (the wrapper's plan, quant_cuda.mean_chunk_rows); each
+//                    writes its chunk's sums, and the last CTA of a (b,h) to
+//                    finish (a counter after a fence) adds the chunks' sums
+//                    in chunk order, so the mean does not depend on the
+//                    schedule (deterministic).
 //   quant_k_chunked  one CTA per (b,h, group of G rows): x = k - km,
 //                    amax over the LIVE rows of the group (the last group
 //                    may be ragged), scale = max(amax,1e-30) * (1/qmax),
@@ -54,21 +59,38 @@ __device__ inline void load8(const float* p, float* x) {
   x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
 }
 
-// Thread i sums vector i % nv of the rows i / nv, i / nv + rows_per_iter,
-// ...; where nv does not divide the block (d 384: 48 vectors) the last
+// CTA (c, bh) sums rows [c chunk, (c + 1) chunk) of (b,h) bh: thread i sums
+// vector i % nv of the rows i / nv, i / nv + rows_per_iter, ... of the
+// chunk; where nv does not divide the block (d 384: 48 vectors) the last
 // kMeanThreads % nv threads sum nothing.  The partial sums are added in row
-// order, so the mean does not depend on the schedule.
+// order into part[bh, c, :].  The CTA that finds itself the last of its
+// (b,h) (count[bh], zero at the launch, reaches n_chunks) adds the chunks'
+// sums in chunk order, writes km[bh, :] = sum / s and sets count[bh] back
+// to zero, so the counters serve the stream's next launch as they are.
 template <typename T>
-__global__ void channel_mean_kernel(const T* __restrict__ k,
-                                    float* __restrict__ km, int s, int d) {
-  extern __shared__ float part[];  // [rows_per_iter][d]
-  const int nv = d / 8;            // 8-element vectors per row
+__global__ void channel_mean_kernel(const T* __restrict__ k, float* __restrict__ part,
+                                    int* __restrict__ count, float* __restrict__ km, int s,
+                                    int d, int chunk) {
+  extern __shared__ float rows_sum[];  // [rows_per_iter][d]
+  __shared__ bool last;
+  const int nv = d / 8;                // 8-element vectors per row
   const int rows_per_iter = kMeanThreads / nv;
   const int v = threadIdx.x % nv;
   const int r0 = threadIdx.x / nv;
-  const T* base = k + (size_t)blockIdx.x * s * d;
+  const int c = blockIdx.x, n_chunks = gridDim.x, bh = blockIdx.y;
+  const int row_end = min(s, (c + 1) * chunk);
+  const T* base = k + (size_t)bh * s * d;
   float acc[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-  for (int r = r0; r < s && r0 < rows_per_iter; r += rows_per_iter) {
+  // two rows' loads in flight at a time, added in row order
+  int r = c * chunk + r0;
+  for (; r + rows_per_iter < row_end && r0 < rows_per_iter; r += 2 * rows_per_iter) {
+    float x[8], y[8];
+    load8(base + (size_t)r * d + v * 8, x);
+    load8(base + (size_t)(r + rows_per_iter) * d + v * 8, y);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[j] = (acc[j] + x[j]) + y[j];
+  }
+  if (r < row_end && r0 < rows_per_iter) {
     float x[8];
     load8(base + (size_t)r * d + v * 8, x);
 #pragma unroll
@@ -76,13 +98,27 @@ __global__ void channel_mean_kernel(const T* __restrict__ k,
   }
   if (r0 < rows_per_iter) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) part[r0 * d + v * 8 + j] = acc[j];
+    for (int j = 0; j < 8; ++j) rows_sum[r0 * d + v * 8 + j] = acc[j];
   }
   __syncthreads();
+  float* mine = part + ((size_t)bh * n_chunks + c) * d;
   if (threadIdx.x < d) {
     float sum = 0.f;
-    for (int r = 0; r < rows_per_iter; ++r) sum += part[r * d + threadIdx.x];
-    km[(size_t)blockIdx.x * d + threadIdx.x] = sum / (float)s;
+    for (int r = 0; r < rows_per_iter; ++r) sum += rows_sum[r * d + threadIdx.x];
+    mine[threadIdx.x] = sum;
+  }
+  __threadfence();  // this chunk's sums reach device memory before the count
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(&count[bh], 1) == n_chunks - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  if (threadIdx.x == 0) count[bh] = 0;  // zero again for the next launch
+  if (threadIdx.x < d) {
+    const float* sums = part + (size_t)bh * n_chunks * d + threadIdx.x;
+    float sum = 0.f;
+    for (int i = 0; i < n_chunks; ++i) sum += __ldcg(sums + (size_t)i * d);  // from L2
+    km[(size_t)bh * d + threadIdx.x] = sum / (float)s;
   }
 }
 
@@ -149,18 +185,23 @@ __global__ void quant_k_kernel(const T* __restrict__ k,
 }  // namespace
 
 // k: [bh, s, d] (bf16 if k_is_bf16 else fp32), contiguous, d a multiple of 8
-// up to 512 (64, 128, 256, 384 and 512 from the wrappers).
+// up to 512 (64, 128, 256, 384 and 512 from the wrappers).  part: fp32
+// [bh, ceil(s / chunk), d], the chunks' sums; count: int32 [bh], zero, and
+// zero again when the launch ends; chunk: rows a CTA, a multiple of 64.
 // km: [bh, d] fp32 out.
-extern "C" int k_channel_mean(const void* k, void* km, int bh, int s, int d,
-                              int k_is_bf16, void* stream) {
-  if (d <= 0 || d % 8 != 0 || d > kMaxD) return (int)cudaErrorInvalidValue;
+extern "C" int k_channel_mean(const void* k, void* part, void* count, void* km, int bh, int s,
+                              int d, int chunk, int k_is_bf16, void* stream) {
+  if (d <= 0 || d % 8 != 0 || d > kMaxD || s <= 0 || chunk <= 0 || chunk % 64 != 0)
+    return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * (kMeanThreads / (d / 8)) * d;
+  const dim3 grid((s + chunk - 1) / chunk, bh);
   cudaStream_t st = (cudaStream_t)stream;
   if (k_is_bf16)
-    channel_mean_kernel<__nv_bfloat16><<<bh, kMeanThreads, smem, st>>>(
-        (const __nv_bfloat16*)k, (float*)km, s, d);
+    channel_mean_kernel<__nv_bfloat16><<<grid, kMeanThreads, smem, st>>>(
+        (const __nv_bfloat16*)k, (float*)part, (int*)count, (float*)km, s, d, chunk);
   else
-    channel_mean_kernel<float><<<bh, kMeanThreads, smem, st>>>((const float*)k, (float*)km, s, d);
+    channel_mean_kernel<float><<<grid, kMeanThreads, smem, st>>>(
+        (const float*)k, (float*)part, (int*)count, (float*)km, s, d, chunk);
   return (int)cudaGetLastError();
 }
 

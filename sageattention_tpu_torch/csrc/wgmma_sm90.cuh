@@ -1,5 +1,6 @@
-// Hopper (sm_90a) building blocks shared by the rate probe (probe_mma.cu)
-// and the backward (attention_bwd.cu), written as PTX, no CUTLASS:
+// Hopper (sm_90a) building blocks shared by the rate probe (probe_mma.cu),
+// the backward (attention_bwd.cu) and the unmasked forward
+// (attention_fwd_sm90.cuh), written as PTX, no CUTLASS:
 //
 //   wgmma.mma_async   m64nNk32 s8 and e4m3, m64nNk16 bf16: A from registers
 //                     (the probe's; the backward's P, P^T and dS) or from
@@ -103,6 +104,14 @@ template <>
 __device__ inline void wgmma_s8<256>(int* d, const uint32_t* a, uint64_t desc) {
   WG_ASM("m64n256k32.s32.s8.s8", WG_D128, "{%128, %129, %130, %131}, %132, p", "%133",
          WG_OUT128("+r", d), "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// m64n128k32 with the scale-d flag (0: d = a . B), for the forward's S =
+// Q.K^T with Q's codes in registers
+__device__ inline void wgmma_s8_rs128(int* d, const uint32_t* a, uint64_t desc, int scale_d) {
+  WG_ASM("m64n128k32.s32.s8.s8", WG_D64, "{%64, %65, %66, %67}, %68, p", "%69",
+         WG_OUT64("+r", d), "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+         "r"(scale_d));
 }
 
 template <int N>
@@ -328,6 +337,17 @@ __device__ inline void tma_load_1d(void* dst, const CUtensorMap* map, uint64_t* 
       "[%0], [%1, {%3}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0)
       : "memory");
+}
+
+// Shared-memory writes of this thread made visible to the async proxy
+// (wgmma reads a tile that threads, not TMA, wrote)
+__device__ inline void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// named barrier `id` (1-15; 0 is __syncthreads) over n threads
+__device__ inline void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 // a warpgroup's registers a thread, from here on (a multiple of 8 in [24, 256])

@@ -45,7 +45,8 @@ FLAGS = (
 P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 SIGNATURES = {
     "quant_k": {
-        "k_channel_mean": [P, P, I, I, I, I, P],
+        # k, the chunks' sums, the counters, km; bh, s, d, chunk rows, bf16; the stream
+        "k_channel_mean": [P] * 4 + [I] * 5 + [P],
         "quant_k_chunked": [P, P, P, P, I, I, I, I, I, F, F, P],
     },
     "quant_q": {
@@ -58,6 +59,10 @@ SIGNATURES = {
     },
     "attention_fwd": {
         "sage_attn_fwd": [P] * 8 + [I] * 11 + [F, P],
+    },
+    # V codes -> bf16 before the wgmma forward: src, dst, n, the V kind, the stream
+    "widen_v": {
+        "widen_v_codes": [P, P, LL, I, P],
     },
     "attention_fwd_masked": {
         # sage_attn_fwd's operands, the nine mask pointers, ten strides,

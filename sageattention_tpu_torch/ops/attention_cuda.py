@@ -8,8 +8,14 @@ and with its masks (:class:`Masks`: segment ids and varlen's range form,
 positions, a bool mask, an additive bias, a sliding window), and on
 pre-quantized operands (int8 or +-7 Q codes with per-row scales, K scales
 per tile or per row, smooth-q's column bias).  Three wrappers over
-libraries built from one kernel body (``csrc/attention_fwd_kernel.cuh``,
-which says what bounds it and what this first version leaves for later):
+libraries built from two kernels that compute the same function: the
+unmasked instances at head dims 64, 128 and 256 are a TMA-fed ``wgmma``
+kernel (``csrc/attention_fwd_sm90.cuh``: a producer warpgroup, two
+consumer warpgroups in ping-pong), the masked ones and those above 256
+the ``mma.sync`` body of ``csrc/attention_fwd_kernel.cuh`` (:func:`route`
+says which a call takes; each source says what bounds it).  Before the
+``wgmma`` kernel, V codes are widened to bf16 by :func:`widen_v_codes`
+(``csrc/widen_v.cu``), which counts its own launches:
 :func:`sage_attention_fwd` (``csrc/attention_fwd.cu``, no masks),
 :func:`sage_attention_fwd_masked` (``csrc/attention_fwd_masked.cu``) and
 :func:`sage_attention_fwd_preq` (``csrc/attention_fwd_preq.cu``, with
@@ -24,11 +30,12 @@ axis, S recomputed in each column slice), and count them apart, in
 ``.hd512_launches``.  A masked row with no live key gives o = 0 and
 lse2 = -inf, as the TPU kernel does.
 
-The H100 launch configuration is fixed: 64 Q rows per CTA, KV tiles of
-``K_GROUP`` = 128 columns (64 from head dim 256 on, two to a group), and
-``K_GROUP`` is also the K-scale group, so a tile reads one K scale.  It
-replaces the TPU's ``default_config`` and tuned table, which hold TPU
-block sizes only.
+The H100 launch configuration is fixed: 128 Q rows per CTA (64 a
+consumer warpgroup) in the ``wgmma`` kernel and 64 in the ``mma.sync``
+one, KV tiles of ``K_GROUP`` = 128 columns (64 from head dim 256 on, two
+to a group), and ``K_GROUP`` is also the K-scale group, so a tile reads
+one K scale.  It replaces the TPU's ``default_config`` and tuned table,
+which hold TPU block sizes only.
 
 On a CPU tensor a wrapper runs the plain version; on a CUDA tensor it
 launches its kernel or raises.  ``<wrapper>.launches`` counts the
@@ -58,6 +65,19 @@ def instances(d: int) -> str:
     """The suffix of the library and entry point that hold the instances at
     head dim ``d`` (``attention_fwd`` + it, ``sage_attn_fwd`` + it)."""
     return "_hd256" if d == 256 else "_wide" if d > 256 else ""
+
+
+def route(d: int, *, masked: bool, preq: bool) -> tuple[str, str, str]:
+    """(library, entry point, kernel) of a forward call at head dim ``d``:
+    the library ``attention_fwd[_masked|_preq]`` + :func:`instances`, its
+    entry ``sage_attn_fwd[_masked|_preq]`` + the same, and the kernel it
+    launches, ``"wgmma"`` (``csrc/attention_fwd_sm90.cuh``) for an unmasked
+    call at 64, 128 or 256, else ``"mma.sync"``
+    (``csrc/attention_fwd_kernel.cuh``).  The pre-quantized library holds
+    both ways of ``masked``."""
+    kind = "_preq" if preq else "_masked" if masked else ""
+    kernel = "wgmma" if d <= 256 and not masked else "mma.sync"
+    return "attention_fwd" + kind + instances(d), "sage_attn_fwd" + kind + instances(d), kernel
 
 
 def _check_v_scale(v, v_scale) -> None:
@@ -219,10 +239,12 @@ def sage_attention_fwd(q, k_i8, k_scale, v, v_scale=None, v_mean=None, *,
     hkv, sk = k_i8.shape[1], k_i8.shape[2]
     o = torch.empty_like(q)
     lse2 = torch.empty(b, hq, sq, dtype=torch.float32, device=q.device) if return_lse else None
-    entry = "sage_attn_fwd" + instances(d)
+    lib, entry, kernel = route(d, masked=False, preq=False)
+    if kernel == "wgmma" and v.dtype != torch.bfloat16:
+        v = widen_v_codes(v)
     # the launch goes to the current device: make it the tensors' own
     with torch.cuda.device(q.device):
-        err = getattr(_build.lib("attention_fwd" + instances(d)), entry)(
+        err = getattr(_build.lib(lib), entry)(
             q.data_ptr(), k_i8.data_ptr(), k_scale.data_ptr(), v.data_ptr(),
             v_scale.data_ptr() if v_scale is not None else None,
             v_mean.data_ptr() if v_mean is not None else None,
@@ -234,6 +256,33 @@ def sage_attention_fwd(q, k_i8, k_scale, v, v_scale=None, v_mean=None, *,
     _build.check(err, entry)
     _build.count_launch(sage_attention_fwd, d)
     return (o, lse2) if return_lse else o
+
+
+def widen_v_codes_plain(v: torch.Tensor) -> torch.Tensor:
+    """V codes as bf16 values (exact: bf16 holds every int8, e4m3 and e5m2
+    value)."""
+    return v.to(torch.bfloat16)
+
+
+def widen_v_codes(v: torch.Tensor) -> torch.Tensor:
+    """V codes (int8, fp8 e4m3 or e5m2; contiguous) widened to bf16, the
+    step of kernel 1's P.V that the ``wgmma`` forward takes before its
+    launch (``csrc/widen_v.cu``; TMA cannot widen)."""
+    if v.device.type == "cpu":
+        return widen_v_codes_plain(v)
+    if v.device.type != "cuda":
+        raise ValueError(f"widen_v_codes: tensor on {v.device}")
+    if v.dtype not in quant.V_CODE_TYPES or not v.is_contiguous() or v.numel() % 16:
+        raise ValueError(f"widen_v_codes takes contiguous codes of {quant.V_CODE_TYPES} in "
+                         f"a multiple of 16, got {v.dtype} {tuple(v.shape)}")
+    out = torch.empty(v.shape, dtype=torch.bfloat16, device=v.device)
+    with torch.cuda.device(v.device):
+        err = _build.lib("widen_v").widen_v_codes(
+            v.data_ptr(), out.data_ptr(), v.numel(), V_TYPES.index(v.dtype),
+            torch.cuda.current_stream(v.device).cuda_stream)
+    _build.check(err, "widen_v_codes")
+    _build.count_launch(widen_v_codes, v.shape[-1])
+    return out
 
 
 def broadcast_strides(x: torch.Tensor | None) -> list[int]:
@@ -302,9 +351,9 @@ def sage_attention_fwd_masked(q, k_i8, k_scale, v, v_scale=None, v_mean=None, *,
         return x.data_ptr() if x is not None else None
 
     live_st = [0, 0] if live is None else broadcast_strides(live)[:2]
-    entry = "sage_attn_fwd_masked" + instances(d)
+    lib, entry, _ = route(d, masked=True, preq=False)
     with torch.cuda.device(q.device):
-        err = getattr(_build.lib("attention_fwd_masked" + instances(d)), entry)(
+        err = getattr(_build.lib(lib), entry)(
             q.data_ptr(), k_i8.data_ptr(), k_scale.data_ptr(), v.data_ptr(), ptr(v_scale),
             ptr(v_mean), o.data_ptr(), ptr(lse2), b, hq, hkv, sq, sk, d, int(is_causal),
             int(q.dtype == torch.float32), V_TYPES.index(v.dtype), int(return_lse), K_GROUP,
@@ -388,9 +437,11 @@ def sage_attention_fwd_preq(q_i8, q_scale, k_i8, k_scale, v, v_scale=None, v_mea
     def ptr(x):
         return x.data_ptr() if x is not None else None
 
-    entry = "sage_attn_fwd_preq" + instances(d)
+    lib, entry, kernel = route(d, masked=masks is not None, preq=True)
+    if kernel == "wgmma" and v.dtype != torch.bfloat16:
+        v = widen_v_codes(v)
     with torch.cuda.device(q_i8.device):
-        err = getattr(_build.lib("attention_fwd_preq" + instances(d)), entry)(
+        err = getattr(_build.lib(lib), entry)(
             q_i8.data_ptr(), k_i8.data_ptr(), k_scale.data_ptr(), v.data_ptr(), ptr(v_scale),
             ptr(v_mean), o.data_ptr(), ptr(lse2), b, hq, hkv, sq, sk, d, int(is_causal),
             V_TYPES.index(v.dtype), int(return_lse), K_GROUP, int(k_scale.shape[-1] == sk),
@@ -406,4 +457,5 @@ def sage_attention_fwd_preq(q_i8, q_scale, k_i8, k_scale, v, v_scale=None, v_mea
     return (o, lse2) if return_lse else o
 
 
-_build.zero_counters(sage_attention_fwd, sage_attention_fwd_masked, sage_attention_fwd_preq)
+_build.zero_counters(sage_attention_fwd, sage_attention_fwd_masked, sage_attention_fwd_preq,
+                     widen_v_codes)

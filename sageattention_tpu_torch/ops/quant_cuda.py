@@ -22,6 +22,8 @@ K and V kernels take the width as an argument).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -36,6 +38,10 @@ _KDTYPES = (torch.bfloat16, torch.float32)
 V_SINGLE_PASS_BYTES = 4 * 2**20
 # rows of one CTA of the two-pass V kernels
 V_BLOCK_ROWS = 512
+# the K mean's plan: CTAs of 512 threads, four resident an SM, each summing
+# a chunk of a multiple of 64 rows
+MEAN_CTAS_PER_SM = 4
+MEAN_ROW_STEP = 64
 HEAD_DIMS = _build.HEAD_DIMS
 
 
@@ -90,17 +96,58 @@ def k_channel_mean_plain(k: torch.Tensor) -> torch.Tensor:
     return k.float().mean(dim=-2)
 
 
+def mean_chunk_rows(s: int, bh: int, sms: int) -> int:
+    """Rows a CTA of the K mean sums: a multiple of ``MEAN_ROW_STEP``, as
+    few as give each of the ``bh`` (b, h) slabs enough chunks that
+    ``MEAN_CTAS_PER_SM`` CTAs fill each of the card's ``sms`` SMs."""
+    want = max(1, min(-(-MEAN_CTAS_PER_SM * sms // bh), -(-s // MEAN_ROW_STEP)))
+    return -(-(-(-s // want)) // MEAN_ROW_STEP) * MEAN_ROW_STEP
+
+
+def mean_chunks(s: int, rows: int) -> list[range]:
+    """The row ranges of a slab's chunks, in the order the kernel adds their
+    sums."""
+    return [range(r, min(s, r + rows)) for r in range(0, s, rows)]
+
+
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# the K mean's per-(b,h) arrival counters, one zeroed int32 buffer a stream
+# (the kernel's last CTA of each (b,h) zeroes its counter again), grown as
+# launches need
+_COUNTERS: dict[tuple, torch.Tensor] = {}
+
+
+def _mean_counters(stream: torch.cuda.Stream, n: int) -> torch.Tensor:
+    key = (stream.device, stream.cuda_stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        with torch.cuda.stream(stream):
+            buf = _COUNTERS[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                               device=stream.device)
+    return buf
+
+
 def k_channel_mean(k: torch.Tensor) -> torch.Tensor:
-    """km [b,h,d] fp32 (the smooth-k channel mean)."""
+    """km [b,h,d] fp32 (the smooth-k channel mean): one launch, a CTA per
+    (chunk of :func:`mean_chunk_rows` rows, b h), the chunks' sums added in
+    chunk order."""
     if k.device.type == "cpu":
         return k_channel_mean_plain(k)
     _check_input(k)
     b, h, s, d = k.shape
+    stream = torch.cuda.current_stream(k.device)
+    rows = mean_chunk_rows(s, b * h, _sm_count(k.device))
     km = torch.empty(b, h, d, dtype=torch.float32, device=k.device)
+    part = torch.empty(b * h, -(-s // rows), d, dtype=torch.float32, device=k.device)
     with torch.cuda.device(k.device):  # the launch goes to the current device
         err = _build.lib("quant_k").k_channel_mean(
-            k.data_ptr(), km.data_ptr(), b * h, s, d, int(k.dtype == torch.bfloat16),
-            torch.cuda.current_stream(k.device).cuda_stream,
+            k.data_ptr(), part.data_ptr(), _mean_counters(stream, b * h).data_ptr(),
+            km.data_ptr(), b * h, s, d, rows, int(k.dtype == torch.bfloat16),
+            stream.cuda_stream,
         )
     _build.check(err, "k_channel_mean")
     _build.count_launch(k_channel_mean, k.shape[-1])

@@ -1,0 +1,145 @@
+"""The Python side of kernel 1's TMA-fed ``wgmma`` forward and of kernel 2's
+chunked K mean, on the CPU.
+
+* :func:`attention_cuda.route` for every head dim of ``HEAD_DIMS``, with
+  and without masks, default and pre-quantized Q: the library and entry
+  point each wrapper calls, both in ``_build.SIGNATURES``, and the kernel
+  it launches: the ``wgmma`` kernel (``csrc/attention_fwd_sm90.cuh``) for
+  an unmasked call at 64, 128 or 256, whose source includes that header,
+  and the ``mma.sync`` body (``csrc/attention_fwd_kernel.cuh``) for a
+  masked call or one above 256.
+* :func:`attention_cuda.widen_v_codes`, which widens V codes to bf16
+  before the ``wgmma`` forward: on the CPU its plain version, every finite
+  int8, e4m3 and e5m2 code against the TPU kernel's ``astype(bfloat16)``,
+  bit for bit.
+* The K mean's chunk plan (:func:`quant_cuda.mean_chunk_rows` and
+  :func:`quant_cuda.mean_chunks`) at ``s`` in {1, 129, 1000, 4100}: every
+  row in exactly one chunk, the chunks in row order, each a multiple of 64
+  rows but the last, and enough CTAs to fill the card where the rows
+  allow.
+* The kernel's arithmetic order, as plain fp32 sums: each chunk's rows
+  summed, the chunks' sums added in chunk order, divided by ``s``, against
+  the JAX package's K mean within fp32 round-off (1e-6 relative, 1e-7
+  absolute: the two sums run in other orders): the Pallas
+  ``quant_pallas.quant_k_fused_mean`` (interpret mode, as the JAX tests run
+  it on the CPU) where ``core`` runs it (s a multiple of 128), with its
+  codes within +-1 on at most 1e-4 of entries through ``quant_k_chunked``'s
+  plain version, and ``core``'s ``jnp.mean`` at the ragged lengths.  The
+  kernels themselves run only on the card (``chip_smoke.py``,
+  ``tools/ab_attention_fwd.py``).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sageattention_tpu.ops import quant_pallas
+from sageattention_tpu_torch import quant as tq
+from sageattention_tpu_torch.ops import _build, attention_cuda, quant_cuda
+
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("preq", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("d", _build.HEAD_DIMS)
+def test_route(d, masked, preq):
+    lib, entry, kernel = attention_cuda.route(d, masked=masked, preq=preq)
+    kind = "_preq" if preq else "_masked" if masked else ""
+    sfx = "_hd256" if d == 256 else "_wide" if d > 256 else ""
+    assert (lib, entry) == ("attention_fwd" + kind + sfx, "sage_attn_fwd" + kind + sfx)
+    assert entry in _build.SIGNATURES[lib]
+    assert kernel == ("wgmma" if d <= 256 and not masked else "mma.sync")
+    source = (_build.CSRC / f"{lib}.cu").read_text()
+    # an unmasked call at 64-256 reaches the wgmma kernel's header; the
+    # masked-only and wide sources never include it
+    if kernel == "wgmma":
+        assert '#include "attention_fwd_sm90.cuh"' in source
+    elif not preq:
+        assert "attention_fwd_sm90.cuh" not in source
+
+
+@pytest.mark.parametrize("name", ["int8", "fp8", "fp8_e5m2"])
+def test_widen_v_codes_plain_matches_jax(name):
+    """Every finite V code widened to bf16 as the TPU kernel widens a V
+    tile (``attention_pallas.py:807``, ``v.astype(jnp.bfloat16)``): bit for
+    bit."""
+    dtype = tq.V_DTYPES[name]
+    codes = torch.arange(256, dtype=torch.int32).to(torch.uint8).view(dtype)
+    codes = codes[torch.isfinite(codes.float())]
+    got = attention_cuda.widen_v_codes(codes)  # the CPU path: the plain version
+    jdt = {torch.int8: jnp.int8, torch.float8_e4m3fn: jnp.float8_e4m3fn,
+           torch.float8_e5m2: jnp.float8_e5m2}[dtype]
+    want = jnp.asarray(codes.view(torch.uint8).numpy()).view(jdt).astype(jnp.bfloat16)
+    assert got.dtype == torch.bfloat16 and len(got) == (256 if name == "int8" else
+                                                       254 if name == "fp8" else 248)
+    np.testing.assert_array_equal(got.view(torch.int16).numpy(),
+                                  np.asarray(want).view(np.int16))
+
+
+def test_sm90_header_keeps_masked_body_apart():
+    """The masked sources build the mma.sync body alone; the wgmma kernel
+    lives in a header of its own, beside the old body and not inside it."""
+    body = (_build.CSRC / "attention_fwd_body.cuh").read_text()
+    kernel = (_build.CSRC / "attention_fwd_kernel.cuh").read_text()
+    sm90 = (_build.CSRC / "attention_fwd_sm90.cuh").read_text()
+    assert "wgmma" not in body and "attention_fwd_sm90" not in kernel.split("#pragma once")[1]
+    assert "sage_attn_fwd_sm90_kernel" in sm90 and "_3blocks" not in kernel
+
+
+@pytest.mark.parametrize("bh", [1, 30, 64])
+@pytest.mark.parametrize("s", [1, 129, 1000, 4100])
+def test_mean_chunk_plan(s, bh):
+    rows = quant_cuda.mean_chunk_rows(s, bh, H100_SMS)
+    chunks = quant_cuda.mean_chunks(s, rows)
+    assert rows % quant_cuda.MEAN_ROW_STEP == 0 and rows > 0
+    # every row once, the chunks in row order
+    assert [r for c in chunks for r in c] == list(range(s))
+    assert all(len(c) == rows for c in chunks[:-1]) and 0 < len(chunks[-1]) <= rows
+    # a CTA on every SM, unless the rows run out first
+    assert bh * len(chunks) >= min(H100_SMS, bh * -(-s // quant_cuda.MEAN_ROW_STEP))
+    # and no more chunks than the card holds CTAs at once
+    assert len(chunks) <= max(1, -(-quant_cuda.MEAN_CTAS_PER_SM * H100_SMS // bh))
+
+
+def _chunk_ordered_mean(k: torch.Tensor, rows: int) -> torch.Tensor:
+    """The kernel's order: each chunk's fp32 sums, then the chunks' sums
+    added in chunk order, divided by s."""
+    s = k.shape[-2]
+    total = torch.zeros(*k.shape[:-2], k.shape[-1], dtype=torch.float32)
+    for c in quant_cuda.mean_chunks(s, rows):
+        total = total + k[..., c.start:c.stop, :].float().sum(dim=-2)
+    return total / s
+
+
+def _jax_mean_and_codes(k_j, s: int):
+    """The JAX package's K mean (and codes where it has them): the Pallas
+    ``quant_k_fused_mean`` where ``core`` runs it (``k_fused_eligible``: s a
+    multiple of the group), else ``core``'s own ``jnp.mean`` over the
+    sequence (``core.py:267-268``)."""
+    if quant_pallas.k_fused_eligible(s, k_j.shape[-1], 128):
+        q_j, _, km_j = quant_pallas.quant_k_fused_mean(k_j, group=128, interpret=True)
+        return np.asarray(km_j), np.asarray(q_j)
+    return np.asarray(jnp.mean(k_j.astype(jnp.float32), axis=-2)), None
+
+
+@pytest.mark.parametrize("s", [1, 129, 1000, 4100, 128, 4096])
+def test_chunk_ordered_mean_matches_jax(s):
+    b, h, d = 1, 2, 64
+    x = (np.random.default_rng(s).standard_normal((b, h, s, d)) + 0.5).astype(np.float32)
+    k_t = torch.from_numpy(x).to(torch.bfloat16)
+    k_j = jnp.asarray(k_t.float().numpy()).astype(jnp.bfloat16)
+    km_j, q_j = _jax_mean_and_codes(k_j, s)
+    rows = quant_cuda.mean_chunk_rows(s, b * h, H100_SMS)
+    assert len(quant_cuda.mean_chunks(s, rows)) == -(-s // 64)  # one chunk of 64 rows a CTA
+    km = _chunk_ordered_mean(k_t, rows)
+    np.testing.assert_allclose(km.numpy(), km_j, rtol=1e-6, atol=1e-7)
+    if q_j is not None:
+        # the codes the chunk-ordered mean gives, through the chunked quantizer
+        q_t, _ = quant_cuda.quant_k_chunked_plain(k_t, km, group=128)
+        diff = np.abs(q_t.numpy().astype(np.int32) - q_j.astype(np.int32))
+        assert diff.max() <= 1 and (diff > 0).mean() <= 1e-4
+    # and the port's plain mean, which the CPU path runs
+    np.testing.assert_allclose(km.numpy(), quant_cuda.k_channel_mean(k_t).numpy(), rtol=1e-6,
+                               atol=1e-7)
