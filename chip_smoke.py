@@ -50,10 +50,11 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    causal, whose last Q tile ends inside a stage; the backward's bias instances (dQ
    with dBias, dK/dV) against their plain versions at the llm-8b-gqa layer
    (d128: causal with ALiBi at 4096 tokens in fp32 and bf16, non-causal
-   with a random per-head bias at 4000 tokens) and at CogVideoX-2B's 30
-   heads of 64 (non-causal at 4000 tokens, fp32; causal at 3001, bf16),
-   three of them with a query row biased to -inf, whose dq and dBias must
-   be exactly 0;
+   with a random per-head bias at 4000 tokens, causal with a bf16 random
+   one at 3001) and at CogVideoX-2B's 30 heads of 64 (non-causal at 4000
+   tokens, fp32; causal at 3001, bf16), four of them with a query row
+   biased to -inf, whose dq and dBias must be exactly 0 (at 3001 tokens
+   each thread loads the bias, elsewhere the producer stages it by TMA);
 3. the servers, each answering 2 requests x 2 denoise steps with seeded
    random weights at full width and depth 30; the launch counts of every
    kernel are zeroed just before and read just after, and those of the
@@ -143,8 +144,9 @@ Phases, each of which raises (and so exits non-zero) when it fails:
       against exact attention (0.999 for 8 bits, 0.97 for int4) at d 192
       and with a window at 256; the backward's bias instances at 256 (dQ
       with dBias, dK/dV) at (1, 16/16, 4096, 256) causal with fp32 and bf16
-      ALiBi and at (1, 16/8, 4000, 192) with a random bias, each with a row
-      biased to -inf whose dq and dBias must be exactly 0;
+      ALiBi and a ragged 3001 with a bf16 random bias, and at (1, 16/8,
+      4000, 192) with a random bias, each with a row biased to -inf whose
+      dq and dBias must be exactly 0;
    b. after the LLM servers: ``llm_gemma7b_dense`` and
       ``llm_gemma7b_paged``, the Gemma-7B attention geometry (``GEMMA_7B``:
       hidden 3072, 16/16 heads of 256, MLP 24576, vocab 256000) at full
@@ -361,7 +363,9 @@ def kernel_registers(build, lib: str) -> list:
         m = re.search(r"REG:(\d+) STACK:(\d+)", line)
         k = re.search(r"\d((?:sage_|quant|channel)[a-z0-9_]*_kernel)I", fn or "")
         if m and k:
-            targs = [a or b for a, b in re.findall(r"Li(\d+)E|Lb(\d)E", fn)]
+            # the kernel's own template arguments (a parameter's mangled
+            # type may hold literals too: BiasOf's std::conditional)
+            targs = [a or b for a, b in re.findall(r"Li(\d+)E|Lb(\d)E", fn.split("EEv")[0])]
             dtype = " bf16" if "nv_bfloat16" in fn else ""
             rows.append((f"{k.group(1)}<{','.join(targs)}>{dtype}", m.group(1), m.group(2)))
     return rows
@@ -411,6 +415,11 @@ def resource_usage() -> None:
             log(f"resources {lib} {kern}: {regs} registers, {stack} bytes of stack")
             require(not (("_tma_kernel" in kern or "_sm90_kernel" in kern) and int(stack)),
                     f"{kern} spills {stack} bytes of stack")
+    # kernels 7-8's BIAS instances (the last template argument: 1 the
+    # threads load the bias, 2 the producer stages it by TMA)
+    for kern, regs, stack in kernel_registers(_build, "attention_bwd"):
+        if not kern.split(">")[0].endswith(",0"):
+            log(f"bias instance {kern}: {regs} registers, {stack} bytes of stack")
     for lib in FWD_SM90_LIBS:
         counts = sass_mma(_build, lib, "sage_attn_fwd_sm90_kernel")
         fams = sorted({f for c in counts.values() for f in c})
@@ -1216,32 +1225,40 @@ def agreement(g, gp) -> tuple[float, float, float]:
 
 # check_bias_backward's cases: name, (hq, hkv, d), s, causal, bias dtype,
 # the (head, row) biased to -inf on every key or None.  The llm-8b-gqa layer
-# runs the d128 instances, CogVideoX-2B's 30 heads of 64 the d64 ones.
+# runs the d128 instances, CogVideoX-2B's 30 heads of 64 the d64 ones; the
+# kernels read a bias by TMA where a row is a multiple of 16 bytes, and a
+# bf16 bias at 3001 tokens (6002 bytes a row) by each thread's loads.
 BIAS_CASES = (
     ("ALiBi", (32, 8, 128), 4096, True, "float32", None),
     ("random bias, a dead row", (32, 8, 128), 4000, False, "float32", (5, 1234)),
     ("bf16 ALiBi", (32, 8, 128), 4096, True, "bfloat16", None),
     ("d64, random bias, a dead row", (30, 30, 64), 4000, False, "float32", (17, 2222)),
     ("d64, bf16 random bias, a dead row", (30, 30, 64), 3001, True, "bfloat16", (3, 2999)),
+    ("bf16 random bias, ragged 3001, a dead row", (32, 8, 128), 3001, True, "bfloat16",
+     (7, 2000)),
 )
 # the D = 256 instances (phase 7a): the Gemma-7B layer's 16/16 heads of 256,
 # causal ALiBi in fp32 and bf16, and d 192 (padded) at 16/8 heads, a
-# ragged 4000 tokens, non-causal, a random per-head bias; each with a row
-# biased to -inf on every key
+# ragged 4000 tokens, non-causal, a random per-head bias, and a bf16 random
+# bias at a ragged 3001 (dQ's loads; dK/dV loads it at 256 either way);
+# each with a row biased to -inf on every key
 BIAS_CASES_HD256 = (
     ("d256 ALiBi, a dead row", (16, 16, 256), 4096, True, "float32", (3, 777)),
     ("d256 bf16 ALiBi, a dead row", (16, 16, 256), 4096, True, "bfloat16", (9, 4095)),
     ("d192, random bias, a dead row", (16, 8, 192), 4000, False, "float32", (5, 1234)),
+    ("d256 bf16 random bias, ragged 3001, a dead row", (16, 16, 256), 3001, True, "bfloat16",
+     (2, 3000)),
 )
 
 
 def check_bias_backward(results, cases=BIAS_CASES, seed: int = 17, suffix: str = "") -> dict:
     """Kernels 7-8's bias instances against their plain versions, dBias
     included (BIAS_CASES): at the llm-8b-gqa layer (1, 32/8, s, 128) causal
-    with the ALiBi bias at 4096 tokens in fp32 and in bf16, and non-causal
+    with the ALiBi bias at 4096 tokens in fp32 and in bf16, non-causal
     with a seeded per-head random bias at 4000 tokens (off the 64-row and
-    128-column tiles); at CogVideoX-2B's heads (1, 30, s, 64) non-causal at
-    4000 tokens (fp32) and causal at a ragged 3001 (bf16).  A case with a
+    128-column tiles), and causal with a bf16 random one at a ragged 3001;
+    at CogVideoX-2B's heads (1, 30, s, 64) non-causal at 4000 tokens (fp32)
+    and causal at a ragged 3001 (bf16).  A case with a
     dead row biases one query row to -inf on every key: its dq and dBias
     must be exactly 0 on both sides.  Held to the backward agreement of
     PERF.md section 2: cosine >= 0.9999 and max-abs <= 1e-2 of the largest
@@ -3185,7 +3202,7 @@ def time_bias_backward(results, layer: dict = LLM_LAYER, seed: int = 23) -> dict
                  plain_ms=cuda_ms(lambda: plain(*args, **kw_), reps=2, warmup=1),
                  bound_ms=max(t_ops, t_bytes),
                  bound_by="operations" if t_ops >= t_bytes else "bytes",
-                 library_ms=sdpa_fb - sdpa_f,
+                 library_ms=sdpa_fb - sdpa_f, pairs=pairs, d=d, bf16_ops_per_pair=n_bf16 * d,
                  shape={"b": b, "hq": hq, "hkv": hkv, "s": s, "d": d, "causal": True,
                         "bias": f"fp32 [1, {hq}, s, s]",
                         "live_pairs_per_head": pairs // (b * hq)})
@@ -5216,9 +5233,11 @@ def measured_rate_floor(results, probe: dict) -> None:
     d 256, bf16 P.V at dv 256), Q.K^T counted once a column slice (twice:
     the split recomputes it); beside each timed backward kernel's, the time
     its products take at the measured ``wgmma`` and ``mma.sync`` rates at
-    its head dim (int8 Q.K^T, 2d a pair, and bf16 P.V for the rest)."""
+    its head dim (int8 Q.K^T, 2d a pair, and bf16 P.V for the rest), the
+    bias instances' too."""
     rate = {t["row"]: t["rate"] for t in probe["rows"]}
-    for name in ("sage_attn_bwd_dq", "sage_attn_bwd_dkv"):
+    for name in ("sage_attn_bwd_dq", "sage_attn_bwd_dkv", "sage_attn_bwd_dq_bias",
+                 "sage_attn_bwd_dkv_bias"):
         for r in (results[name], results[name].get("gqa_causal"), results[name + "_hd256"]):
             if not r or "pairs" not in r:
                 continue

@@ -29,40 +29,57 @@
 //   S^T = K.Q^T so that a KV row is a product's row.  A KV tile of 64 rows
 //   lies inside one 128-row K-scale group, so it reads one k_scale.
 //
-// The instances without a bias (every sageattn gradient) are Hopper
-// kernels: TMA loads through a ring of shared-memory stages, one producer
-// warp, wgmma for all five products (their section below has the design).
-// A sliding window keeps col > row - window wherever causal keeps
-// col <= row, in instances of its own (WINDOW).
+// Every instance is a Hopper kernel: TMA loads through a ring of
+// shared-memory stages, one producer warp, wgmma for all five products
+// (their section below has the design).  A sliding window keeps col > row -
+// window wherever causal keeps col <= row, in instances of its own
+// (WINDOW).
 //
-// The bias instances (BIAS, attention_bwd_pallas.py:146-204, 311-316) are
-// the first design: mma.sync, synchronous tile loads, no pipeline; 64-row
-// Q tiles a CTA of 4 warps, 16 rows a warp, 128-column KV tiles in column
-// chunks (64 at d=64, 32 at d=128 and 256) for dQ; 64 KV rows a CTA for
-// dK/dV.  A bias is a per-head [b, hq, sq, sk] fp32 or bf16 tensor, which
-// the forward added to the base-2 logits as bias * log2(e).  Both kernels
-// add it to the recomputed logits too and clamp them at -1e30, and a row
-// whose lse2 is -inf (every key biased to -inf; the forward gave o = 0)
-// takes 0 in its place, so its P is exactly 0 and no NaN arises.  dQ
-// writes dBias = dS = P * (dP - D) in fp32, before the bf16 rounding, in
-// the bias's type (when asked: a fixed bias costs no write), and writes
-// the zeros of every tile its causal loop never visits itself, so the
-// wrapper allocates dBias uninitialised.  dKV reads bias[q row, kv col]
-// straight from device memory for its transposed tile: for one fragment
-// element a warp reads 8 consecutive KV columns of each of 4 Q rows, whole
-// 32-byte sectors in fp32, so the bias needs no transposed copy (the TPU
-// launcher's one XLA transpose, :931-940).  A window with a bias is not
-// taken: the JAX package sends it to its exact backward (:423-426), and so
-// does the port.  At D = 256 dQ reads Q's and dO's A fragments from
-// shared memory for each chunk (they would take 96 registers beside dQ's
-// 128), and dK/dV runs in two launches, dV (PART kDV) then dK (kDK), each
-// reading the bias: it is read three times (dQ, dV, dK) and dBias written
-// once, by dQ.
+// A bias (the BIAS instances, attention_bwd_pallas.py:146-204, 311-316) is
+// a per-head [b, hq, sq, sk] fp32 or bf16 tensor, which the forward added
+// to the base-2 logits as bias * log2(e).  Both kernels add it to the
+// recomputed logits too and clamp them at -1e30, and a row whose lse2 is
+// -inf (every key biased to -inf; the forward gave o = 0) takes 0 in its
+// place, so its P is exactly 0 and no NaN arises.  dQ writes dBias = dS =
+// P * (dP - D) in fp32, before the bf16 rounding, in the bias's type (when
+// asked: a fixed bias costs no write), a fragment's column pair in one
+// store (a quad's stores cover 32 consecutive bytes in fp32), and writes
+// the zeros right of each warpgroup's causal diagonal itself, in 16-byte
+// stores, so the wrapper allocates dBias uninitialised.  A window with a
+// bias is not taken: the JAX package sends it to its exact backward
+// (:423-426), and so does the port.
 //
-// Ragged edges: K/V rows past sk and Q rows past sq are zero-filled in
-// shared memory, their P is set to 0 by a select (no inf - inf and no
-// inf * 0: the exp2 of a masked entry is never used), and no row past
-// sq (dQ) or sk (dK, dV) is stored.  No padding of the sequence in memory.
+// How the bias reaches the registers, against a shared-memory budget that
+// the bias-free rings already fill (dQ 119-214 KB, dK/dV 218-222 KB of the
+// H100's 227 KB a block):
+//   kBiasTma (where a TMA map of the bias exists: a row of sk elements a
+//     multiple of 16 bytes, a 16-byte aligned base): the producer stages it
+//     in a ring of its own, beside the K/V ring (dQ: each consumer
+//     warpgroup's [64 Q rows][64 KV columns] tile) or the Q ring (dK/dV: a
+//     Q tile's rows x the CTA's 128 or 192 KV columns), in 128-byte
+//     swizzled panels, so that a fragment's reads meet no bank conflict.
+//     dQ: 2 stages at d 64 and 128 (K/V 4 and 2), 1 at 256 (K/V 2). dK/dV:
+//     2 stages at d 64 (Q 4) and 128 (Q 2); at 256 no fp32 tile fits;
+//   kBiasLoads (any sk, and dK/dV at 256): each consumer thread loads its
+//     fragment's bias from device memory.  dQ: at d 128 into registers right
+//     after the tile's S and dP products are issued, at 64 and 256 after
+//     them (no registers to spare: 160 a thread beside three warpgroups at
+//     64, dQ's 128-register accumulator at 256), with the next tile's rows
+//     prefetched into L2.  dK/dV: bias[q row, kv row] of its transposed
+//     fragment after the pass's products (for one element a warp reads 8
+//     consecutive KV columns of each of 4 Q rows, whole 32-byte sectors in
+//     fp32; held across the products they spilled), so the bias needs no
+//     transposed copy (the TPU launcher's one XLA transpose, :931-940).  At
+//     D = 256 the one launch's dV and dK warpgroups both load it, the second
+//     from L2.
+// The caller picks the form (the bias_kind argument), as
+// ops/attention_bwd_cuda.py's bias_reads rules.  tools/ab_attention_bwd.py
+// times both forms against each other.
+//
+// Ragged edges: K/V rows past sk and Q rows past sq land as zeros, their P
+// is set to 0 by a select (no inf - inf and no inf * 0: the exp2 of a
+// masked entry is never used), and no row past sq (dQ) or sk (dK, dV) is
+// stored.  No padding of the sequence in memory.
 //
 // Bound: operations.  Per score pair dQ does one int8 Q.K^T (2d ops) and
 // two bf16 products' worth of 4d FLOP (dO.V^T, dS.K), dKV 2d int8 and 6d
@@ -84,25 +101,12 @@
 
 #include <type_traits>
 
-#include "mma_sm90.cuh"
+#include "mma_sm90.cuh"  // pack_bf16
 #include "wgmma_sm90.cuh"
 
 namespace {
 
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
 constexpr int KGROUP = 128;  // K-scale group
-constexpr int DQ_BM = 64;    // dq: Q rows per CTA
-constexpr int DQ_BN = 128;   // dq: KV columns per tile (== KGROUP)
-constexpr int KV_BM = 64;    // dkv: KV rows per CTA
-constexpr int KV_BQ = 64;    // dkv: Q rows per tile
-
-template <int D>
-struct Cfg {
-  static constexpr int QS = D + 16;  // int8 row stride (bytes)
-  static constexpr int HS = D + 8;   // bf16 row stride (elements)
-  static constexpr int CH = D == 64 ? 64 : 32;  // score columns a chunk
-};
 
 // the operands of both kernels (shapes at the extern "C" entry points)
 struct BwdArgs {
@@ -124,481 +128,156 @@ struct BwdArgs {
   int window;  // 0: none (causal only)
 };
 
+// how an instance reads a bias (its BIAS template argument; see the header)
+constexpr int kNoBias = 0;
+constexpr int kBiasLoads = 1;  // each consumer thread from device memory
+constexpr int kBiasTma = 2;    // dQ: staged by the producer's TMA
+
 // the BIAS instances' operands, a parameter of their own (an empty one
 // elsewhere): the same three fields appended to BwdArgs moved the registers
 // of every instance without a bias
 struct BiasArgs {
-  const void* bias;  // [b, hq, sq, sk], fp32 or bf16 (bias_bf16)
+  CUtensorMap map;   // [b hq, sq, sk] in boxes of [64 rows][128 bytes] (kBiasTma)
+  const void* bias;  // [b, hq, sq, sk], fp32 or bf16 (bf16)
   void* dbias;       // dS in the bias's type, or null (dQ only)
-  int bias_bf16;
+  int bf16;
+  int shift;  // log2 of the element's bytes (2 fp32, 1 bf16): one address path for both
+  int pairs;  // sk even and the bases aligned: a column pair is one load or store
 };
 struct NoBias {};
-template <bool BIAS>
-using BiasOf = std::conditional_t<BIAS, BiasArgs, NoBias>;
+template <int BIAS>
+using BiasOf = std::conditional_t<BIAS != kNoBias, BiasArgs, NoBias>;
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLogitFloor = -1e30f;  // the TPU kernels' clamp of biased logits
 
-// element e of the bias, in fp32
-__device__ inline float bias_at(const void* bias, int bf16, size_t e) {
-  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(bias)[e])
-              : static_cast<const float*>(bias)[e];
+// a row's lse2: with a bias, -inf (no live key) becomes 0, so its P is 0
+template <int BIAS>
+__device__ inline float live_lse(float x) {
+  if constexpr (BIAS != kNoBias) return x == -INFINITY ? 0.f : x;
+  return x;
 }
 
-// dS (fp32) into element e of dBias, in the bias's type
-__device__ inline void dbias_put(void* dbias, int bf16, size_t e, float x) {
-  if (bf16)
-    static_cast<__nv_bfloat16*>(dbias)[e] = __float2bfloat16(x);
-  else
-    static_cast<float*>(dbias)[e] = x;
+// P of a biased logit: exp2(max(l2 + bias log2(e), floor) - lse2)
+__device__ inline float biased_p(float l2, float bias, float lse) {
+  return exp2f(fmaxf(l2 + bias * kLog2e, kLogitFloor) - lse);
 }
 
-// rows [r0, r0 + n) of a [*, D] row-major tensor into shared memory with
-// row stride `stride_bytes`, 16 bytes a thread, zero past row `limit`
-template <int D, int ELEM>
-__device__ inline void load_rows(unsigned char* dst, const unsigned char* src, int r0,
-                                 int n, int limit, int stride_bytes) {
-  constexpr int VECS = D * ELEM / 16;  // 16-byte vectors a row
-  for (int i = threadIdx.x; i < n * VECS; i += NTHREADS) {
-    const int r = i / VECS, c = i % VECS;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r0 + r < limit)
-      val = *reinterpret_cast<const uint4*>(src + ((size_t)(r0 + r) * D) * ELEM + c * 16);
-    *reinterpret_cast<uint4*>(dst + r * stride_bytes + c * 16) = val;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// dQ
-// ---------------------------------------------------------------------------
-
-template <int D>
-struct DqLayout {
-  using C = Cfg<D>;
-  static constexpr int q_off = 0;                                // int8 [BM][QS]
-  static constexpr int do_off = q_off + DQ_BM * C::QS;           // bf16 [BM][HS]
-  static constexpr int k_off = do_off + DQ_BM * C::HS * 2;       // int8 [BN][QS]
-  static constexpr int ksm_off = k_off + DQ_BN * C::QS;          // bf16 [BN][HS]
-  static constexpr int v_off = ksm_off + DQ_BN * C::HS * 2;      // bf16 [BN][HS]
-  static constexpr int bytes = v_off + DQ_BN * C::HS * 2;
-};
-
-template <int D, bool CAUSAL, bool WINDOW, bool BIAS>
-__global__ void __launch_bounds__(NTHREADS)
-sage_attn_bwd_dq_kernel(const BwdArgs a, const BiasOf<BIAS> ba) {
-  const int8_t* __restrict__ q_i8 = a.q_i8;
-  const float* __restrict__ q_scale = a.q_scale;
-  const int8_t* __restrict__ k_i8 = a.k_i8;
-  const float* __restrict__ k_scale = a.k_scale;
-  const __nv_bfloat16* __restrict__ k_sm = a.k_sm;
-  const __nv_bfloat16* __restrict__ v = a.v;
-  const __nv_bfloat16* __restrict__ dout = a.dout;
-  const float* __restrict__ lse2 = a.lse2;
-  const float* __restrict__ dvec = a.dvec;
-  float* __restrict__ dq = a.dq;
-  const int hq = a.hq, hkv = a.hkv, sq = a.sq, sk = a.sk;
-  const float sm_scale = a.sm_scale;
-  const int window = WINDOW ? a.window : 0;
-  using C = Cfg<D>;
-  using L = DqLayout<D>;
-  constexpr int CH = C::CH, NT = CH / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  unsigned char* sQ = smem + L::q_off;
-  unsigned char* sDo = smem + L::do_off;
-  unsigned char* sK = smem + L::k_off;
-  unsigned char* sKsm = smem + L::ksm_off;
-  unsigned char* sV = smem + L::v_off;
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int q0 = blockIdx.x * DQ_BM;
-  const int h = blockIdx.y, bi = blockIdx.z;
-  const int hk = h / (hq / hkv);
-  const size_t row_base = ((size_t)bi * hq + h) * sq;
-  const size_t kv_base = (((size_t)bi * hkv + hk) * sk) * D;
-  const int n_tiles_all = (sk + DQ_BN - 1) / DQ_BN;
-  const float* ks_row = k_scale + ((size_t)bi * hkv + hk) * n_tiles_all;
-
-  load_rows<D, 1>(sQ, (const unsigned char*)q_i8 + row_base * D, q0, DQ_BM, sq, C::QS);
-  load_rows<D, 2>(sDo, (const unsigned char*)(dout + row_base * D), q0, DQ_BM, sq, C::HS * 2);
-  __syncthreads();
-
-  // this thread's two rows; rows past sq get neutral values (P = 1 there,
-  // but dO = 0 makes their dS 0, and they are never stored)
-  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
-  const float qs0 = row0 < sq ? q_scale[row_base + row0] : 0.f;
-  const float qs1 = row1 < sq ? q_scale[row_base + row1] : 0.f;
-  float ls0 = row0 < sq ? lse2[row_base + row0] : 0.f;
-  float ls1 = row1 < sq ? lse2[row_base + row1] : 0.f;
-  const float dv0 = row0 < sq ? dvec[row_base + row0] : 0.f;
-  const float dv1 = row1 < sq ? dvec[row_base + row1] : 0.f;
-  // BIAS: a row biased to -inf everywhere has lse2 -inf; 0 gives it P = 0.
-  // The bias rows of the thread's two rows (rows past sq read the last row,
-  // never stored)
-  size_t brow0 = 0, brow1 = 0;
-  if constexpr (BIAS) {
-    if (ls0 == -INFINITY) ls0 = 0.f;
-    if (ls1 == -INFINITY) ls1 = 0.f;
-    brow0 = (row_base + min(row0, sq - 1)) * (size_t)sk;
-    brow1 = (row_base + min(row1, sq - 1)) * (size_t)sk;
-  }
-
-  // the warp's A fragments of Q (int8) and dO (bf16), kept for all tiles
-  // where they fit: at D = 256 they would take 96 registers beside dQ's 128,
-  // so each chunk reads them from shared memory (HOLD false)
-  constexpr bool HOLD = D <= 128;
-  const unsigned char* qa_row = sQ + (warp * 16 + g) * C::QS + t * 4;
-  const unsigned char* da_row = sDo + (warp * 16 + g) * C::HS * 2 + t * 4;
-  uint32_t qa[HOLD ? D / 32 : 1][4], da[HOLD ? D / 16 : 1][4];
-  if constexpr (HOLD) {
-#pragma unroll
-    for (int kk = 0; kk < D / 32; ++kk)
-      load_a(qa[kk], sQ + (warp * 16 + g) * C::QS + kk * 32 + t * 4, C::QS);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      load_a(da[kk], sDo + (warp * 16 + g) * C::HS * 2 + (kk * 16 + t * 2) * 2, C::HS * 2);
-  }
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-
-  int n_tiles = n_tiles_all;
-  if (CAUSAL) n_tiles = min(n_tiles, (q0 + DQ_BM - 1) / DQ_BN + 1);
-  const int j_first = window > 0 ? max(0, q0 - window + 1) / DQ_BN : 0;
-
-  for (int j = j_first; j < n_tiles; ++j) {
-    const int kv0 = j * DQ_BN;
-    __syncthreads();  // the previous tile is no longer read
-    load_rows<D, 1>(sK, (const unsigned char*)(k_i8 + kv_base), kv0, DQ_BN, sk, C::QS);
-    load_rows<D, 2>(sKsm, (const unsigned char*)(k_sm + kv_base), kv0, DQ_BN, sk, C::HS * 2);
-    load_rows<D, 2>(sV, (const unsigned char*)(v + kv_base), kv0, DQ_BN, sk, C::HS * 2);
-    __syncthreads();
-
-    const float ks = ks_row[j];
-    const float rs0 = qs0 * ks, rs1 = qs1 * ks;  // the forward's order
-    const bool need_mask = (kv0 + DQ_BN > sk) || (CAUSAL && kv0 + DQ_BN - 1 > q0) ||
-                           (window > 0 && kv0 <= q0 + DQ_BM - 1 - window);
-
-#pragma unroll
-    for (int c = 0; c < DQ_BN / CH; ++c) {
-      const int c0 = c * CH;  // first column of the chunk within the tile
-      // S = Q.K^T (int8 -> int32)
-      int s_i[NT][4];
-#pragma unroll
-      for (int n = 0; n < NT; ++n) s_i[n][0] = s_i[n][1] = s_i[n][2] = s_i[n][3] = 0;
-#pragma unroll
-      for (int kk = 0; kk < D / 32; ++kk) {
-        const uint32_t* qf = qa[HOLD ? kk : 0];
-        uint32_t q_ld[4];
-        if constexpr (!HOLD) {
-          load_a(q_ld, qa_row + kk * 32, C::QS);
-          qf = q_ld;
-        }
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          const unsigned char* kb = sK + (c0 + n * 8 + g) * C::QS + kk * 32 + t * 4;
-          mma_s8(s_i[n], qf, ld32(kb), ld32(kb + 16));
-        }
-      }
-      // dP = dO.V^T (bf16 -> fp32)
-      float dp[NT][4];
-#pragma unroll
-      for (int n = 0; n < NT; ++n) dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t* df = da[HOLD ? kk : 0];
-        uint32_t d_ld[4];
-        if constexpr (!HOLD) {
-          load_a(d_ld, da_row + kk * 32, C::HS * 2);
-          df = d_ld;
-        }
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          const unsigned char* vb = sV + (c0 + n * 8 + g) * C::HS * 2 + (kk * 16 + t * 2) * 2;
-          mma_bf16(dp[n], df, ld32(vb), ld32(vb + 16));
-        }
-      }
-      // P = exp2(l2 - lse2), masked; dS = P * (dP - D), kept in dp.  BIAS:
-      // l2 + bias * log2(e), clamped, and dS in fp32 into dBias when asked
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const bool lo = e < 2;
-          float l2 = (float)s_i[n][e] * (lo ? rs0 : rs1);
-          if constexpr (BIAS) {
-            const int col = min(kv0 + c0 + n * 8 + t * 2 + (e & 1), sk - 1);
-            l2 = fmaxf(l2 + bias_at(ba.bias, ba.bias_bf16, (lo ? brow0 : brow1) + col) * kLog2e,
-                       kLogitFloor);
-          }
-          float p = exp2f(l2 - (lo ? ls0 : ls1));
-          if (need_mask) {
-            const int col = kv0 + c0 + n * 8 + t * 2 + (e & 1);
-            const int row = lo ? row0 : row1;
-            if (col >= sk || (CAUSAL && col > row) || (window > 0 && col <= row - window))
-              p = 0.f;
-          }
-          dp[n][e] = p * (dp[n][e] - (lo ? dv0 : dv1));
-          if constexpr (BIAS) {
-            const int col = kv0 + c0 + n * 8 + t * 2 + (e & 1);
-            if (ba.dbias != nullptr && (lo ? row0 : row1) < sq && col < sk)
-              dbias_put(ba.dbias, ba.bias_bf16, (lo ? brow0 : brow1) + col, dp[n][e]);
-          }
-        }
-      }
-      // dQ += bf16(dS) . K_sm
-#pragma unroll
-      for (int kk = 0; kk < CH / 16; ++kk) {
-        uint32_t a[4];
-        c_to_a(a, dp[2 * kk], dp[2 * kk + 1]);
-        mma_a_rows<D>(acc, a, reinterpret_cast<const __nv_bfloat16*>(sKsm), c0 + kk * 16,
-                      C::HS, lane);
-      }
+// The bias at columns c and c + 1 (c even) of the row that starts at
+// element `row`, columns past sk reading the row's last ones (never used):
+// fp32 bits in x0 and x1, or a bf16 pair in x0; one load where ba.pairs
+__device__ inline void bias_pair(const BiasArgs& ba, size_t row, int c, int sk, uint32_t& x0,
+                                 uint32_t& x1) {
+  const unsigned char* b = static_cast<const unsigned char*>(ba.bias);
+  if (ba.pairs) {
+    const unsigned char* p = b + ((row + min(c, sk - 2)) << ba.shift);
+    if (ba.bf16) {
+      x0 = __ldg(reinterpret_cast<const unsigned int*>(p));
+      x1 = 0;
+    } else {
+      const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+      x0 = v.x;
+      x1 = v.y;
     }
-  }
-
-  // BIAS, causal: the tiles right of the diagonal read 0 in dBias, a warp a
-  // row, the lanes on consecutive columns
-  if constexpr (BIAS && CAUSAL) {
-    const int c_lo = n_tiles * DQ_BN;
-    if (ba.dbias != nullptr && c_lo < sk) {
-      for (int r = warp; r < DQ_BM && q0 + r < sq; r += NWARPS) {
-        const size_t base = (row_base + q0 + r) * (size_t)sk;
-        for (int c = c_lo + lane; c < sk; c += 32) dbias_put(ba.dbias, ba.bias_bf16, base + c, 0.f);
-      }
-    }
-  }
-
-  // epilogue: dq = acc * sm_scale, rows < sq
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-    const int col = i * 8 + t * 2;
-    if (row0 < sq)
-      *reinterpret_cast<float2*>(dq + (row_base + row0) * D + col) =
-          make_float2(acc[i][0] * sm_scale, acc[i][1] * sm_scale);
-    if (row1 < sq)
-      *reinterpret_cast<float2*>(dq + (row_base + row1) * D + col) =
-          make_float2(acc[i][2] * sm_scale, acc[i][3] * sm_scale);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// dK, dV
-// ---------------------------------------------------------------------------
-
-template <int D>
-struct DkvLayout {
-  using C = Cfg<D>;
-  static constexpr int k_off = 0;                               // int8 [KV_BM][QS]
-  static constexpr int v_off = k_off + KV_BM * C::QS;           // bf16 [KV_BM][HS]
-  static constexpr int q_off = v_off + KV_BM * C::HS * 2;       // int8 [KV_BQ][QS]
-  static constexpr int qb_off = q_off + KV_BQ * C::QS;          // bf16 [KV_BQ][HS]
-  static constexpr int do_off = qb_off + KV_BQ * C::HS * 2;     // bf16 [KV_BQ][HS]
-  static constexpr int qs_off = do_off + KV_BQ * C::HS * 2;     // fp32 [KV_BQ]
-  static constexpr int lse_off = qs_off + KV_BQ * 4;            // fp32 [KV_BQ]
-  static constexpr int dv_off = lse_off + KV_BQ * 4;            // fp32 [KV_BQ]
-  static constexpr int bytes = dv_off + KV_BQ * 4;
-};
-
-// which of dK and dV a dKV instance computes: both (D <= 128), or at D = 256
-// one of them, in two launches
-enum DkvPart { kDV = 1, kDK = 2, kDKV = 3 };
-
-template <int D, bool CAUSAL, bool WINDOW, bool BIAS, int PART = kDKV>
-__global__ void __launch_bounds__(NTHREADS)
-sage_attn_bwd_dkv_kernel(const BwdArgs a, const BiasOf<BIAS> ba) {
-  constexpr bool WANT_V = PART & kDV, WANT_K = PART & kDK;
-  const int8_t* __restrict__ q_i8 = a.q_i8;
-  const float* __restrict__ q_scale = a.q_scale;
-  const __nv_bfloat16* __restrict__ q_bf = a.q_bf;
-  const int8_t* __restrict__ k_i8 = a.k_i8;
-  const float* __restrict__ k_scale = a.k_scale;
-  const __nv_bfloat16* __restrict__ v = a.v;
-  const __nv_bfloat16* __restrict__ dout = a.dout;
-  const float* __restrict__ lse2 = a.lse2;
-  const float* __restrict__ dvec = a.dvec;
-  float* __restrict__ dk = a.dk;
-  float* __restrict__ dv = a.dv;
-  const int hq = a.hq, hkv = a.hkv, sq = a.sq, sk = a.sk;
-  const float sm_scale = a.sm_scale;
-  const int window = WINDOW ? a.window : 0;
-  using C = Cfg<D>;
-  using L = DkvLayout<D>;
-  constexpr int CH = C::CH, NT = CH / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  unsigned char* sK = smem + L::k_off;
-  unsigned char* sV = smem + L::v_off;
-  unsigned char* sQ = smem + L::q_off;
-  unsigned char* sQb = smem + L::qb_off;
-  unsigned char* sDo = smem + L::do_off;
-  float* sQs = reinterpret_cast<float*>(smem + L::qs_off);
-  float* sLse = reinterpret_cast<float*>(smem + L::lse_off);
-  float* sDv = reinterpret_cast<float*>(smem + L::dv_off);
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int kv0 = blockIdx.x * KV_BM;
-  const int hk = blockIdx.y, bi = blockIdx.z;
-  const int rep = hq / hkv;
-  const size_t kv_row_base = ((size_t)bi * hkv + hk) * sk;
-  const int n_groups = (sk + KGROUP - 1) / KGROUP;
-  const float ks = k_scale[((size_t)bi * hkv + hk) * n_groups + kv0 / KGROUP];
-
-  load_rows<D, 1>(sK, (const unsigned char*)(k_i8 + kv_row_base * D), kv0, KV_BM, sk, C::QS);
-  if constexpr (WANT_K)  // V enters dP, which only dK needs
-    load_rows<D, 2>(sV, (const unsigned char*)(v + kv_row_base * D), kv0, KV_BM, sk, C::HS * 2);
-
-  const int kr0 = kv0 + warp * 16 + g, kr1 = kr0 + 8;  // this thread's KV rows
-  const unsigned char* ka_row = sK + (warp * 16 + g) * C::QS + t * 4;
-  const unsigned char* va_row = sV + (warp * 16 + g) * C::HS * 2 + t * 4;
-
-  float acc_k[WANT_K ? D / 8 : 1][4], acc_v[WANT_V ? D / 8 : 1][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if constexpr (WANT_K) acc_k[i][e] = 0.f;
-      if constexpr (WANT_V) acc_v[i][e] = 0.f;
-    }
-
-  int n_qt = (sq + KV_BQ - 1) / KV_BQ;
-  const int qt0 = CAUSAL ? kv0 / KV_BQ : 0;  // causal: from the diagonal
-  if (window > 0)  // up to the last Q row whose window reaches this tile
-    n_qt = min(n_qt, (kv0 + KV_BM - 1 + window - 1) / KV_BQ + 1);
-
-  for (int hh = 0; hh < rep; ++hh) {
-    const size_t row_base = ((size_t)bi * hq + hk * rep + hh) * sq;
-    for (int qt = qt0; qt < n_qt; ++qt) {
-      const int q0 = qt * KV_BQ;
-      __syncthreads();  // the previous Q tile is no longer read
-      load_rows<D, 1>(sQ, (const unsigned char*)q_i8 + row_base * D, q0, KV_BQ, sq, C::QS);
-      if constexpr (WANT_K)
-        load_rows<D, 2>(sQb, (const unsigned char*)(q_bf + row_base * D), q0, KV_BQ, sq, C::HS * 2);
-      load_rows<D, 2>(sDo, (const unsigned char*)(dout + row_base * D), q0, KV_BQ, sq, C::HS * 2);
-      for (int i = tid; i < KV_BQ; i += NTHREADS) {
-        const bool live = q0 + i < sq;
-        sQs[i] = live ? q_scale[row_base + q0 + i] : 0.f;
-        sLse[i] = live ? lse2[row_base + q0 + i] : 0.f;
-        if constexpr (BIAS) {  // see the dQ kernel
-          if (sLse[i] == -INFINITY) sLse[i] = 0.f;
-        }
-        sDv[i] = live ? dvec[row_base + q0 + i] : 0.f;
-      }
-      __syncthreads();
-
-      const bool need_mask = (q0 + KV_BQ > sq) || (kv0 + KV_BM > sk) ||
-                             (CAUSAL && kv0 + KV_BM - 1 > q0) ||
-                             (window > 0 && kv0 <= q0 + KV_BQ - 1 - window);
-
-#pragma unroll
-      for (int c = 0; c < KV_BQ / CH; ++c) {
-        const int c0 = c * CH;  // first Q row of the chunk within the tile
-        // S^T = K.Q^T (int8 -> int32): rows are KV rows, columns Q rows
-        int s_i[NT][4];
-#pragma unroll
-        for (int n = 0; n < NT; ++n) s_i[n][0] = s_i[n][1] = s_i[n][2] = s_i[n][3] = 0;
-#pragma unroll
-        for (int kk = 0; kk < D / 32; ++kk) {
-          uint32_t a[4];
-          load_a(a, ka_row + kk * 32, C::QS);
-#pragma unroll
-          for (int n = 0; n < NT; ++n) {
-            const unsigned char* qb = sQ + (c0 + n * 8 + g) * C::QS + kk * 32 + t * 4;
-            mma_s8(s_i[n], a, ld32(qb), ld32(qb + 16));
-          }
-        }
-        // P^T = exp2(l2 - lse2), masked, in fp32
-        float p[NT][4];
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int ql = c0 + n * 8 + t * 2 + (e & 1);  // Q row within the tile
-            float l2 = (float)s_i[n][e] * (sQs[ql] * ks);
-            if constexpr (BIAS) {  // bias[q row, kv col]; rows past sq, sk read the last
-              const size_t be = (row_base + min(q0 + ql, sq - 1)) * (size_t)sk +
-                                min(e < 2 ? kr0 : kr1, sk - 1);
-              l2 = fmaxf(l2 + bias_at(ba.bias, ba.bias_bf16, be) * kLog2e, kLogitFloor);
-            }
-            float pv = exp2f(l2 - sLse[ql]);
-            if (need_mask) {
-              const int qr = q0 + ql, kr = e < 2 ? kr0 : kr1;
-              if (qr >= sq || kr >= sk || (CAUSAL && kr > qr) ||
-                  (window > 0 && kr <= qr - window))
-                pv = 0.f;
-            }
-            p[n][e] = pv;
-          }
-        }
-        // dV += bf16(P^T) . dO
-        if constexpr (WANT_V) {
-#pragma unroll
-          for (int kk = 0; kk < CH / 16; ++kk) {
-            uint32_t a[4];
-            c_to_a(a, p[2 * kk], p[2 * kk + 1]);
-            mma_a_rows<D>(acc_v, a, reinterpret_cast<const __nv_bfloat16*>(sDo), c0 + kk * 16,
-                          C::HS, lane);
-          }
-        }
-        if constexpr (WANT_K) {  // dK: dP, dS and dS^T.Q
-          // dP^T = V.dO^T (bf16 -> fp32)
-          float dp[NT][4];
-#pragma unroll
-          for (int n = 0; n < NT; ++n) dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
-#pragma unroll
-          for (int kk = 0; kk < D / 16; ++kk) {
-            uint32_t a[4];
-            load_a(a, va_row + kk * 32, C::HS * 2);
-#pragma unroll
-            for (int n = 0; n < NT; ++n) {
-              const unsigned char* ob = sDo + (c0 + n * 8 + g) * C::HS * 2 + (kk * 16 + t * 2) * 2;
-              mma_bf16(dp[n], a, ld32(ob), ld32(ob + 16));
-            }
-          }
-          // dS^T = P^T * (dP^T - D), kept in dp
-#pragma unroll
-          for (int n = 0; n < NT; ++n) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              dp[n][e] = p[n][e] * (dp[n][e] - sDv[c0 + n * 8 + t * 2 + (e & 1)]);
-          }
-          // dK += bf16(dS^T) . Q
-#pragma unroll
-          for (int kk = 0; kk < CH / 16; ++kk) {
-            uint32_t a[4];
-            c_to_a(a, dp[2 * kk], dp[2 * kk + 1]);
-            mma_a_rows<D>(acc_k, a, reinterpret_cast<const __nv_bfloat16*>(sQb), c0 + kk * 16,
-                          C::HS, lane);
-          }
-        }
-      }
-    }
-  }
-
-  // epilogue: dk = acc_k * sm_scale, dv = acc_v, rows < sk
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-    const int col = i * 8 + t * 2;
-    if (kr0 < sk) {
-      const size_t o = (kv_row_base + kr0) * D + col;
-      if constexpr (WANT_K)
-        *reinterpret_cast<float2*>(dk + o) = make_float2(acc_k[i][0] * sm_scale, acc_k[i][1] * sm_scale);
-      if constexpr (WANT_V)
-        *reinterpret_cast<float2*>(dv + o) = make_float2(acc_v[i][0], acc_v[i][1]);
-    }
-    if (kr1 < sk) {
-      const size_t o = (kv_row_base + kr1) * D + col;
-      if constexpr (WANT_K)
-        *reinterpret_cast<float2*>(dk + o) = make_float2(acc_k[i][2] * sm_scale, acc_k[i][3] * sm_scale);
-      if constexpr (WANT_V)
-        *reinterpret_cast<float2*>(dv + o) = make_float2(acc_v[i][2], acc_v[i][3]);
+  } else {
+    const unsigned char* p0 = b + ((row + min(c, sk - 1)) << ba.shift);
+    const unsigned char* p1 = b + ((row + min(c + 1, sk - 1)) << ba.shift);
+    if (ba.bf16) {
+      x0 = (uint32_t)__ldg(reinterpret_cast<const unsigned short*>(p0)) |
+           ((uint32_t)__ldg(reinterpret_cast<const unsigned short*>(p1)) << 16);
+      x1 = 0;
+    } else {
+      x0 = __ldg(reinterpret_cast<const unsigned int*>(p0));
+      x1 = __ldg(reinterpret_cast<const unsigned int*>(p1));
     }
   }
 }
 
+// value `odd` (0, 1) of a pair that bias_pair loaded, in fp32
+__device__ inline float pair_value(int bf16, uint32_t x0, uint32_t x1, int odd) {
+  return __uint_as_float(bf16 ? (odd ? x0 & 0xffff0000u : x0 << 16) : odd ? x1 : x0);
+}
+
+// one bias element that a dK/dV thread loaded: fp32 bits, or bf16 bits
+__device__ inline uint32_t bias_one(const BiasArgs& ba, size_t e) {
+  const unsigned char* p = static_cast<const unsigned char*>(ba.bias) + (e << ba.shift);
+  return ba.bf16 ? (uint32_t)__ldg(reinterpret_cast<const unsigned short*>(p))
+                 : __ldg(reinterpret_cast<const unsigned int*>(p));
+}
+__device__ inline float one_value(int bf16, uint32_t x) {
+  return __uint_as_float(bf16 ? x << 16 : x);
+}
+
+// dS of columns c and c + 1 (c even) into the dBias row that starts at
+// element `row`, in the bias's type, the columns below sk only; one
+// streaming store where ba.pairs
+__device__ inline void dbias_pair(const BiasArgs& ba, size_t row, int c, int sk, float x0,
+                                  float x1) {
+  if (c >= sk) return;
+  unsigned char* p = static_cast<unsigned char*>(ba.dbias) + ((row + c) << ba.shift);
+  if (ba.bf16) {
+    unsigned short* h = reinterpret_cast<unsigned short*>(p);
+    if (ba.pairs) {
+      __stcs(reinterpret_cast<unsigned int*>(h), pack_bf16(x0, x1));
+    } else {
+      __stcs(h, __bfloat16_as_ushort(__float2bfloat16(x0)));
+      if (c + 1 < sk) __stcs(h + 1, __bfloat16_as_ushort(__float2bfloat16(x1)));
+    }
+  } else {
+    float* f = reinterpret_cast<float*>(p);
+    if (ba.pairs) {
+      __stcs(reinterpret_cast<float2*>(f), make_float2(x0, x1));
+    } else {
+      __stcs(f, x0);
+      if (c + 1 < sk) __stcs(f + 1, x1);
+    }
+  }
+}
+
+// zeros into columns [c, sk) of the dBias row that starts at element `row`,
+// by the 32 lanes of a warp: 16-byte stores between a head and a tail of
+// single elements
+__device__ inline void dbias_zeros(const BiasArgs& ba, size_t row, int c, int sk, int lane) {
+  const int es = ba.bf16 ? 2 : 4, per = 16 / es;
+  unsigned char* p = static_cast<unsigned char*>(ba.dbias) + row * es;
+  auto zero1 = [&](int col) {
+    if (ba.bf16)
+      __stcs(reinterpret_cast<unsigned short*>(p + (size_t)col * 2), (unsigned short)0);
+    else
+      __stcs(reinterpret_cast<float*>(p + (size_t)col * 4), 0.f);
+  };
+  const int mis = (int)((reinterpret_cast<uintptr_t>(p + (size_t)c * es) & 15) / es);
+  const int head = min(mis ? per - mis : 0, sk - c);
+  if (lane < head) zero1(c + lane);
+  c += head;
+  const int nv = (sk - c) / per;
+  uint4* v = reinterpret_cast<uint4*>(p + (size_t)c * es);
+  for (int i = lane; i < nv; i += 32) __stcs(v + i, make_uint4(0, 0, 0, 0));
+  c += nv * per;
+  if (lane < sk - c) zero1(c + lane);
+}
+
+// bring the line at p into L2 (no registers, no completion to wait for)
+__device__ inline void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+
+__device__ inline uint32_t lds16(uint32_t addr) {
+  uint16_t x;
+  asm volatile("ld.shared.u16 %0, [%1];\n" : "=h"(x) : "r"(addr));
+  return x;
+}
+__device__ inline uint32_t lds32(uint32_t addr) {
+  uint32_t x;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(x) : "r"(addr));
+  return x;
+}
+__device__ inline void lds64(uint32_t addr, uint32_t& x0, uint32_t& x1) {
+  asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n" : "=r"(x0), "=r"(x1) : "r"(addr));
+}
+
 // ---------------------------------------------------------------------------
-// The instances without a bias: TMA-fed wgmma, one producer warp
+// The kernels: TMA-fed wgmma, one producer warp
 // ---------------------------------------------------------------------------
 //
 // A CTA is NWG consumer warpgroups and one producer warpgroup, of which one
@@ -611,7 +290,9 @@ sage_attn_bwd_dkv_kernel(const BwdArgs a, const BiasOf<BIAS> ba) {
 // the TMA loads; a consumer waits on `full`, computes and arrives on
 // `empty`.  Every tile is [64 rows][D] in panels of up to 128 bytes a row,
 // swizzled as wgmma reads it; rows past the sequence land as zeros (a
-// 3-D map [b h, s, d], so no box reads the next head's rows).
+// 3-D map [b h, s, d], so no box reads the next head's rows).  The bias
+// tiles (kBiasTma) stream through a second ring of BST stages (`bfull`,
+// `bempty`) in the same way.
 //
 // Products, each a warpgroup's 64 rows:
 //   dQ:   S = Q.K^T (int8, both from shared memory, K-major), dP = dO.V^T
@@ -630,9 +311,9 @@ sage_attn_bwd_dkv_kernel(const BwdArgs a, const BiasOf<BIAS> ba) {
 // runs three at d 64 and two at 128, a 64-row KV slice each, keeping dK and
 // dV (D registers a thread), and two at 256 on one slice, one keeping dV
 // and one dK (one launch; Q, dO and the row vectors read once, S^T
-// computed by both).  Except at 256 with a causal mask, a Q tile goes
-// through dK/dV in two passes of 32 Q rows, so that S^T and dP^T take 16
-// registers each beside the accumulators.
+// computed by both).  Except at 256 with a causal mask and no bias, a Q
+// tile goes through dK/dV in two passes of 32 Q rows, so that S^T and dP^T
+// (and a bias's 16 values) take 16 registers each beside the accumulators.
 //
 // The grid's fastest axis is the tile, so that the CTAs of a wave share one
 // head's K and V (dQ) or Q and dO (dK/dV) in L2; along it the longest work
@@ -703,26 +384,50 @@ __device__ inline GridPos grid_pos(int heads_first) {
                      : GridPos{(int)blockIdx.x, (int)gridDim.x, (int)blockIdx.y, (int)blockIdx.z};
 }
 
-template <int D, int NWG, int STAGES>
+template <int D>
+constexpr int dq_nwg() { return D == 256 ? 1 : D == 64 ? 3 : 2; }
+// the K/V ring's stages; kBiasTma gives d 128 two of its four to the bias
+template <int D, int BIAS = kNoBias>
+constexpr int dq_stages() { return D == 256 || (D == 128 && BIAS == kBiasTma) ? 2 : 4; }
+// kBiasTma: the bias ring's stages (a variable: the kernel reads it too)
+template <int D>
+constexpr int kDqBiasStages = D == 256 ? 1 : 2;
+// the Q ring's stages; kBiasTma gives d 128 two of its four to the bias
+template <int D, int BIAS = kNoBias>
+constexpr int dkv_stages() { return D == 256 || (D == 128 && BIAS == kBiasTma) ? 2 : 4; }
+// kBiasTma (d 64 and 128): the bias ring's stages
+template <int D>
+constexpr int kDkvBiasStages = 2;
+
+template <int D, int NWG, int STAGES, int BST = 0>
 struct DqTma {
   static constexpr int q = 0;                          // NWG x int8 [64][D]
   static constexpr int dout = q + NWG * TI8<D>::BYTES;  // NWG x bf16 [64][D]
   static constexpr int ring = dout + NWG * TBF<D>::BYTES;
   static constexpr int k = 0, k_sm = TI8<D>::BYTES, v = k_sm + TBF<D>::BYTES;  // in a stage
   static constexpr int stage = v + TBF<D>::BYTES;       // also the bytes a stage posts
-  static constexpr int bars = ring + STAGES * stage;    // full[STAGES], empty[STAGES], rows
-  static constexpr int bytes = bars + (2 * STAGES + 1) * 8 + 1024;  // + the base's alignment
+  // kBiasTma: BST stages of NWG bias tiles [64][64], the tile of warpgroup
+  // w at w x 64 x 64 x the element's bytes, fp32 in two 32-column panels,
+  // bf16 in one
+  static constexpr int bias = ring + STAGES * stage;
+  static constexpr int bstage = NWG * TILE * TILE * 4;
+  static constexpr int bars = bias + BST * bstage;  // full, empty [STAGES], rows, bfull, bempty [BST]
+  static constexpr int bytes = bars + (2 * STAGES + 1 + 2 * BST) * 8 + 1024;  // + the base's alignment
 };
 
-template <int D, int NWG, int STAGES, bool CAUSAL, bool WINDOW>
+template <int D, int NWG, int STAGES, bool CAUSAL, bool WINDOW, int BIAS>
 __global__ void __launch_bounds__(WG*(NWG + 1), 1)
-sage_attn_bwd_dq_tma_kernel(const BwdArgs a, const __grid_constant__ DqMaps m) {
-  using L = DqTma<D, NWG, STAGES>;
+sage_attn_bwd_dq_tma_kernel(const BwdArgs a, const __grid_constant__ DqMaps m,
+                            const __grid_constant__ BiasOf<BIAS> ba) {
+  constexpr int BST = BIAS == kBiasTma ? kDqBiasStages<D> : 0;
+  using L = DqTma<D, NWG, STAGES, BST>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bars);
   uint64_t* empty = full + STAGES;
   uint64_t* rows_bar = empty + STAGES;
+  uint64_t* bfull = rows_bar + 1;
+  uint64_t* bempty = bfull + BST;
 
   const int hq = a.hq, sq = a.sq, sk = a.sk;
   const int window = WINDOW ? a.window : 0;
@@ -741,6 +446,10 @@ sage_attn_bwd_dq_tma_kernel(const BwdArgs a, const __grid_constant__ DqMaps m) {
       mbar_init(&empty[s], NWG * WG);
     }
     mbar_init(rows_bar, 1);
+    for (int s = 0; s < BST; ++s) {
+      mbar_init(&bfull[s], 1);
+      mbar_init(&bempty[s], NWG * WG);
+    }
     mbar_init_fence();
   }
   __syncthreads();
@@ -758,6 +467,7 @@ sage_attn_bwd_dq_tma_kernel(const BwdArgs a, const __grid_constant__ DqMaps m) {
                           plane_q);
       }
       int s = 0, ph = 0;
+      [[maybe_unused]] int bs = 0, bph = 0;
       for (int j = j_first; j < j_end; ++j) {
         mbar_wait(&empty[s], ph ^ 1);
         unsigned char* st = smem + L::ring + s * L::stage;
@@ -766,6 +476,26 @@ sage_attn_bwd_dq_tma_kernel(const BwdArgs a, const __grid_constant__ DqMaps m) {
         load_tile<TBF<D>>(st + L::k_sm, &m.k_sm, &full[s], j * TILE, plane_kv);
         load_tile<TBF<D>>(st + L::v, &m.v, &full[s], j * TILE, plane_kv);
         if (++s == STAGES) s = 0, ph ^= 1;
+        if constexpr (BST > 0) {
+          // the bias tile of each warpgroup that computes tile j (live, and
+          // not right of its causal diagonal), 128 bytes of each row a box
+          const int es = ba.bf16 ? 2 : 4, tile_b = TILE * TILE * es;
+          auto wants = [&](int w) {
+            return q0 + w * TILE < sq && !(CAUSAL && j * TILE > q0 + w * TILE + TILE - 1);
+          };
+          int n = 0;
+          for (int w = 0; w < NWG; ++w) n += wants(w);
+          mbar_wait(&bempty[bs], bph ^ 1);
+          mbar_expect_tx(&bfull[bs], n * tile_b);
+          unsigned char* bt = smem + L::bias + bs * L::bstage;
+          for (int w = 0; w < NWG; ++w) {
+            if (!wants(w)) continue;
+            for (int p = 0; p < es / 2; ++p)  // fp32: two 32-column panels
+              tma_load_3d(bt + w * tile_b + p * TILE * 128, &ba.map, &bfull[bs],
+                          j * TILE + p * (128 / es), q0 + w * TILE, plane_q);
+          }
+          if (++bs == BST) bs = 0, bph ^= 1;
+        }
       }
     }
     return;
@@ -781,8 +511,8 @@ sage_attn_bwd_dq_tma_kernel(const BwdArgs a, const __grid_constant__ DqMaps m) {
   // rows past sq: P = 1 there, but dO = 0 makes their dS 0, and they are never stored
   const float qs0 = row0 < sq ? a.q_scale[row_base + row0] : 0.f;
   const float qs1 = row1 < sq ? a.q_scale[row_base + row1] : 0.f;
-  const float ls0 = row0 < sq ? a.lse2[row_base + row0] : 0.f;
-  const float ls1 = row1 < sq ? a.lse2[row_base + row1] : 0.f;
+  const float ls0 = row0 < sq ? live_lse<BIAS>(a.lse2[row_base + row0]) : 0.f;
+  const float ls1 = row1 < sq ? live_lse<BIAS>(a.lse2[row_base + row1]) : 0.f;
   const float dv0 = row0 < sq ? a.dvec[row_base + row0] : 0.f;
   const float dv1 = row1 < sq ? a.dvec[row_base + row1] : 0.f;
   const float* ks_row = a.k_scale + (size_t)plane_kv * ((sk + KGROUP - 1) / KGROUP);
@@ -864,14 +594,133 @@ sage_attn_bwd_dq_tma_kernel(const BwdArgs a, const __grid_constant__ DqMaps m) {
   // 700 W, tools/ab_attention_bwd.py, with no cause the source shows)
   int s_i[32];
   float dp[32];
-  for (int j = j_first; j < j_end; ++j) {
-    issue(j, s_i, dp);
-    wgmma_wait<0>();
-    reg_fence(s_i, 32);
-    reg_fence(dp, 32);
-    finish(j, s_i, dp);
-    wgmma_wait<0>();
-    mbar_arrive(&empty[(j - j_first) % STAGES]);
+  if constexpr (BIAS == kNoBias) {
+    for (int j = j_first; j < j_end; ++j) {
+      issue(j, s_i, dp);
+      wgmma_wait<0>();
+      reg_fence(s_i, 32);
+      reg_fence(dp, 32);
+      finish(j, s_i, dp);
+      wgmma_wait<0>();
+      mbar_arrive(&empty[(j - j_first) % STAGES]);
+    }
+  } else {
+    // The bias rows of the thread's two rows (rows past sq read the last
+    // row, never stored), and at d 128 with kBiasLoads the tile's bias,
+    // loaded while its S and dP run: column group n's pairs of row0 at bv[4n],
+    // bv[4n + 1], of row1 at bv[4n + 2], bv[4n + 3] (bias_pair's x0, x1)
+    constexpr bool HOLD = BIAS == kBiasLoads && D == 128;
+    const size_t brow0 = (row_base + min(row0, sq - 1)) * (size_t)sk;
+    // row1's: 8 rows on, or row0's where row1 is past sq (never stored)
+    const size_t brow1 = brow0 + (row1 < sq ? 8 * sk : 0);
+    auto load_bias = [&](int j, uint32_t (&bv)[HOLD ? 32 : 1]) {
+      if constexpr (HOLD) {
+        if (skip(j)) return;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const int col = j * TILE + n * 8 + t * 2;
+          bias_pair(ba, brow0, col, sk, bv[4 * n], bv[4 * n + 1]);
+          bias_pair(ba, brow1, col, sk, bv[4 * n + 2], bv[4 * n + 3]);
+        }
+      }
+    };
+    // finish with the bias: l2 + bias log2(e), clamped, and dS in fp32 into
+    // dBias when asked; the bias from the bias ring (kBiasTma), from bv
+    // (HOLD) or loaded here
+    auto finish_bias = [&](int j, int (&s_i)[32], float (&dp)[32], uint32_t (&bv)[HOLD ? 32 : 1]) {
+      [[maybe_unused]] const int bslot = (j - j_first) % (BST > 0 ? BST : 1);
+      if constexpr (BST > 0) mbar_wait(&bfull[bslot], ((j - j_first) / BST) & 1);
+      if (skip(j)) {
+        if constexpr (BST > 0) mbar_arrive(&bempty[bslot]);
+        return;
+      }
+      const int kv0 = j * TILE;
+      const float ks = ks_row[kv0 / KGROUP];
+      const float rs0 = qs0 * ks, rs1 = qs1 * ks;  // the forward's order
+      const bool need_mask = (kv0 + TILE > sk) || (CAUSAL && kv0 + TILE - 1 > q0w);
+      // kBiasTma: this warpgroup's tile; rows r and r + 8 of the fragment
+      // (r = 16 warp + g) in 128-byte swizzled rows (chunk c of row r at c ^ g)
+      [[maybe_unused]] const uint32_t bt =
+          smem_u32(smem + L::bias + bslot * L::bstage + wg * TILE * TILE * (ba.bf16 ? 2 : 4)) +
+          (warp * 16 + g) * 128;
+      uint32_t af[4][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int col = kv0 + n * 8 + t * 2;
+        uint32_t b[4];  // row0's pair in b[0], b[1], row1's in b[2], b[3]
+        if constexpr (BST > 0) {
+          if (ba.bf16) {
+            const uint32_t o = ((n ^ g) << 4) + t * 4;
+            b[0] = lds32(bt + o);
+            b[2] = lds32(bt + 8 * 128 + o);
+            b[1] = b[3] = 0;
+          } else {
+            const uint32_t o =
+                (n >> 2) * TILE * 128 + (((2 * (n & 3) + (t >> 1)) ^ g) << 4) + (t & 1) * 8;
+            lds64(bt + o, b[0], b[1]);
+            lds64(bt + 8 * 128 + o, b[2], b[3]);
+          }
+        } else if constexpr (HOLD) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) b[e] = bv[4 * n + e];
+        } else {
+          bias_pair(ba, brow0, col, sk, b[0], b[1]);
+          bias_pair(ba, brow1, col, sk, b[2], b[3]);
+        }
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool lo = e < 2;
+          const float bias = pair_value(ba.bf16, b[lo ? 0 : 2], b[lo ? 1 : 3], e & 1);
+          float p = biased_p((float)s_i[4 * n + e] * (lo ? rs0 : rs1), bias, lo ? ls0 : ls1);
+          if (need_mask) {
+            const int c = col + (e & 1);
+            if (c >= sk || (CAUSAL && c > (lo ? row0 : row1))) p = 0.f;
+          }
+          ds[e] = p * (dp[4 * n + e] - (lo ? dv0 : dv1));
+        }
+        if (ba.dbias != nullptr) {
+          if (row0 < sq) dbias_pair(ba, brow0, col, sk, ds[0], ds[1]);
+          if (row1 < sq) dbias_pair(ba, brow1, col, sk, ds[2], ds[3]);
+        }
+        af[n / 2][2 * (n & 1)] = pack_bf16(ds[0], ds[1]);
+        af[n / 2][2 * (n & 1) + 1] = pack_bf16(ds[2], ds[3]);
+      }
+      if constexpr (BST > 0) mbar_arrive(&bempty[bslot]);
+      const uint32_t st = stage(j);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_bf16_rs_mn<D>(acc, af[kk], desc_mnmajor<TILE>(st + L::k_sm, kk));
+      wgmma_commit();
+    };
+    uint32_t bv[HOLD ? 32 : 1];
+    for (int j = j_first; j < j_end; ++j) {
+      if constexpr (BIAS == kBiasLoads) {
+        // the next tile's bias of this warp's 16 rows into L2, a 32-column
+        // half row a lane
+        if (live && j + 1 < j_end && !skip(j + 1))
+          prefetch_l2(static_cast<const unsigned char*>(ba.bias) +
+                      (((row_base + min(q0w + warp * 16 + (lane >> 1), sq - 1)) * sk +
+                        min((j + 1) * TILE + (lane & 1) * 32, sk - 1)) << ba.shift));
+      }
+      issue(j, s_i, dp);
+      load_bias(j, bv);
+      wgmma_wait<0>();
+      reg_fence(s_i, 32);
+      reg_fence(dp, 32);
+      finish_bias(j, s_i, dp, bv);
+      wgmma_wait<0>();
+      mbar_arrive(&empty[(j - j_first) % STAGES]);
+    }
+    // causal: the columns right of this warpgroup's diagonal tile read 0 in
+    // dBias, a warp a row
+    if constexpr (CAUSAL) {
+      if (ba.dbias != nullptr && live && q0w + TILE < sk) {
+        for (int r = warp; r < TILE && q0w + r < sq; r += 4)
+          dbias_zeros(ba, (row_base + q0w + r) * (size_t)sk, q0w + TILE, sk, lane);
+      }
+    }
   }
   reg_fence(acc, D / 2);
 
@@ -890,7 +739,7 @@ sage_attn_bwd_dq_tma_kernel(const BwdArgs a, const __grid_constant__ DqMaps m) {
 
 // dK/dV: KV = the 64-row KV slices a CTA owns, one a consumer warpgroup, or
 // at D = 256 one shared by the dV and the dK warpgroup
-template <int D, int STAGES>
+template <int D, int STAGES, int BST = 0>
 struct DkvTma {
   static constexpr int KV = D == 256 ? 1 : D == 64 ? 3 : 2;
   static constexpr int NWG = D == 256 ? 2 : KV;  // consumer warpgroups
@@ -902,23 +751,37 @@ struct DkvTma {
   static constexpr int vec = dout + TBF<D>::BYTES;
   static constexpr int posted = vec + 3 * VEC * 4;       // the bytes a stage posts
   static constexpr int stage = vec + 3 * VSLOT + 896;    // 1024-byte aligned stages
-  static constexpr int bars = ring + STAGES * stage;
-  static constexpr int bytes = bars + (2 * STAGES + 1) * 8 + 1024;
+  // kBiasTma: BST stages of the bias at a Q tile's rows and the CTA's KV
+  // columns, slice x's [64][64] at x x 64 x 64 x the element's bytes, fp32
+  // in two 32-column panels, bf16 in one
+  static constexpr int bias = ring + STAGES * stage;
+  static constexpr int bstage = KV * TILE * TILE * 4;
+  static constexpr int bars = bias + BST * bstage;  // full, empty [STAGES], rows, bfull, bempty [BST]
+  static constexpr int bytes = bars + (2 * STAGES + 1 + 2 * BST) * 8 + 1024;
 };
+
+// which of dK and dV a consumer warpgroup keeps: both (D <= 128), or at
+// D = 256 one of them
+enum DkvPart { kDV = 1, kDK = 2, kDKV = 3 };
 
 // One consumer warpgroup's dK/dV work for KV rows [kvs, kvs + 64): PART
 // kDV, kDK or both
-template <int D, int STAGES, bool CAUSAL, bool WINDOW, int PART>
-__device__ __forceinline__ void dkv_consumer(const BwdArgs& a, unsigned char* smem, uint64_t* full,
-                                    uint64_t* empty, uint64_t* rows_bar, const int* shift,
-                                    int hk, int bi, int slice, int kv0, int qt0, int n_qt) {
-  using L = DkvTma<D, STAGES>;
+template <int D, int STAGES, bool CAUSAL, bool WINDOW, int PART, int BIAS>
+__device__ __forceinline__ void dkv_consumer(const BwdArgs& a, const BiasOf<BIAS>& ba,
+                                    unsigned char* smem, uint64_t* full,
+                                    uint64_t* empty, uint64_t* rows_bar, uint64_t* bfull,
+                                    const int* shift, int hk, int bi, int slice, int kv0,
+                                    int qt0, int n_qt) {
+  constexpr int BST = BIAS == kBiasTma ? kDkvBiasStages<D> : 0;
+  using L = DkvTma<D, STAGES, BST>;
+  [[maybe_unused]] uint64_t* bempty = bfull + BST;
   constexpr bool WANT_V = PART & kDV, WANT_K = PART & kDK;
   // Q rows a pass over a Q tile: 64 where one pass holds no stack (causal
-  // and windowed at 256), else two passes of 32, so that S^T and dP^T take
-  // 16 registers each (one pass spilled 8-40 bytes at 128 and at 256
-  // without a mask; three warpgroups at d 64 hold 160 registers a thread)
-  constexpr int NQ = D == 256 && CAUSAL ? TILE : TILE / 2;
+  // and windowed at 256 without a bias; a bias keeps two), else 32, so that
+  // S^T and dP^T take 16 registers each (one pass spilled 8-40 bytes at 128
+  // and at 256 without a mask; three warpgroups at d 64 hold 160 registers
+  // a thread)
+  constexpr int NQ = D == 256 && CAUSAL && BIAS == kNoBias ? TILE : TILE / 2;
   const int hq = a.hq, hkv = a.hkv, sq = a.sq, sk = a.sk;
   const int window = WINDOW ? a.window : 0;
   const int tid = threadIdx.x % WG, warp = tid / 32, lane = tid % 32;
@@ -948,11 +811,19 @@ __device__ __forceinline__ void dkv_consumer(const BwdArgs& a, unsigned char* sm
   for (int it = 0; it < rep * nq; ++it) {  // every q head of the group, every Q tile
     const int q0 = (qt0 + it % nq) * TILE;
     mbar_wait(&full[s], ph);
+    // kBiasTma: the tile's bias lands in stage it % BST of the bias ring
+    [[maybe_unused]] const int bslot = it % (BST > 0 ? BST : 1);
+    if constexpr (BST > 0) mbar_wait(&bfull[bslot], (it / BST) & 1);
     const bool skip = !live || (CAUSAL && q0 + TILE - 1 < kvs) ||
                       (window > 0 && kvs + TILE - 1 <= q0 - window);
     if (!skip) {
       unsigned char* stp = smem + L::ring + s * L::stage;
       const uint32_t st = smem_u32(stp);
+      // kBiasTma: this slice's tile, Q row q at byte 128 q of each panel,
+      // swizzled (chunk c of row q at c ^ (q & 7))
+      [[maybe_unused]] uint32_t bt = 0;
+      if constexpr (BST > 0)
+        bt = smem_u32(smem + L::bias + bslot * L::bstage) + slice * TILE * TILE * (ba.bf16 ? 2 : 4);
       // the tile's row vectors, q_scale, lse2 and dvec of Q row q0 + i at
       // [i] (each landed from the 16-byte aligned element at or before row q0)
       const int r = (bi * hq + hk * rep + it / nq) * sq + q0;
@@ -998,12 +869,36 @@ __device__ __forceinline__ void dkv_consumer(const BwdArgs& a, unsigned char* sm
           const int c = c0 + n * 8 + t * 2;  // Q row within the tile
           const float2 qs2 = make_float2(vqs[c], vqs[c + 1]);
           const float2 ls2 = make_float2(vls[c], vls[c + 1]);
+          // BIAS: bias[q row, kv row] of the group's elements (rows past sq,
+          // sk read the last ones), offsets from the tile's first bias row
+          uint32_t bv[BIAS != kNoBias ? 4 : 1];
+          if constexpr (BIAS == kBiasTma) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int q = c + (e & 1), kvl = warp * 16 + g + (e < 2 ? 0 : 8);
+              bv[e] = ba.bf16 ? lds16(bt + q * 128 + ((((kvl >> 3) ^ (q & 7)) << 4) | ((kvl & 7) << 1)))
+                              : lds32(bt + (kvl >> 5) * TILE * 128 + q * 128 +
+                                      ((((kvl & 31) >> 2) ^ (q & 7)) << 4) + ((kvl & 3) << 2));
+            }
+          } else if constexpr (BIAS == kBiasLoads) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              bv[e] = bias_one(ba, (size_t)r * sk + min(c + (e & 1), sq - 1 - q0) * sk +
+                                       min(e < 2 ? kr0 : kr1, sk - 1));
+          }
           float p[4];
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const bool odd = e & 1;
-            float pv = exp2f((float)s_i[4 * n + e] * ((odd ? qs2.y : qs2.x) * ks) -
-                             (odd ? ls2.y : ls2.x));
+            float pv;
+            if constexpr (BIAS != kNoBias) {
+              pv = biased_p((float)s_i[4 * n + e] * ((odd ? qs2.y : qs2.x) * ks),
+                            one_value(ba.bf16, bv[e]),
+                            live_lse<BIAS>(odd ? ls2.y : ls2.x));
+            } else {
+              pv = exp2f((float)s_i[4 * n + e] * ((odd ? qs2.y : qs2.x) * ks) -
+                         (odd ? ls2.y : ls2.x));
+            }
             if (need_mask) {
               const int d_kq = rel + (e < 2 ? 0 : 8) - c0 - 8 * n - odd;  // kr - qr
               if (c0 + 8 * n + odd >= q_left || (e < 2 ? kr0_out : kr1_out) ||
@@ -1045,6 +940,7 @@ __device__ __forceinline__ void dkv_consumer(const BwdArgs& a, unsigned char* sm
       if constexpr (WANT_V) reg_fence(acc_v, D / 2);
       if constexpr (WANT_K) reg_fence(acc_k, D / 2);
     }
+    if constexpr (BST > 0) mbar_arrive(&bempty[bslot]);
     mbar_arrive(&empty[s]);
     if (++s == STAGES) s = 0, ph ^= 1;
   }
@@ -1067,16 +963,20 @@ __device__ __forceinline__ void dkv_consumer(const BwdArgs& a, unsigned char* sm
   }
 }
 
-template <int D, int STAGES, bool CAUSAL, bool WINDOW>
+template <int D, int STAGES, bool CAUSAL, bool WINDOW, int BIAS>
 __global__ void __launch_bounds__(WG*(DkvTma<D, STAGES>::NWG + 1), 1)
-sage_attn_bwd_dkv_tma_kernel(const BwdArgs a, const __grid_constant__ DkvMaps m) {
-  using L = DkvTma<D, STAGES>;
+sage_attn_bwd_dkv_tma_kernel(const BwdArgs a, const __grid_constant__ DkvMaps m,
+                             const __grid_constant__ BiasOf<BIAS> ba) {
+  constexpr int BST = BIAS == kBiasTma ? kDkvBiasStages<D> : 0;
+  using L = DkvTma<D, STAGES, BST>;
   constexpr int KV = L::KV;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bars);
   uint64_t* empty = full + STAGES;
   uint64_t* rows_bar = empty + STAGES;
+  uint64_t* bfull = rows_bar + 1;
+  uint64_t* bempty = bfull + BST;
 
   const int hq = a.hq, hkv = a.hkv, sq = a.sq, sk = a.sk;
   const int window = WINDOW ? a.window : 0;
@@ -1094,6 +994,10 @@ sage_attn_bwd_dkv_tma_kernel(const BwdArgs a, const __grid_constant__ DkvMaps m)
       mbar_init(&empty[s], L::NWG * WG);
     }
     mbar_init(rows_bar, 1);
+    for (int s = 0; s < BST; ++s) {
+      mbar_init(&bfull[s], 1);
+      mbar_init(&bempty[s], L::NWG * WG);
+    }
     mbar_init_fence();
   }
   __syncthreads();
@@ -1111,6 +1015,7 @@ sage_attn_bwd_dkv_tma_kernel(const BwdArgs a, const __grid_constant__ DkvMaps m)
         load_tile<TBF<D>>(smem + L::v + x * TBF<D>::BYTES, &m.v, rows_bar, kv0 + x * TILE, plane_kv);
       }
       int s = 0, ph = 0;
+      [[maybe_unused]] int bs = 0, bph = 0;
       for (int hh = 0; hh < rep; ++hh) {
         const int plane = bi * hq + hk * rep + hh;
         for (int qt = qt0; qt < n_qt; ++qt) {
@@ -1125,6 +1030,26 @@ sage_attn_bwd_dkv_tma_kernel(const BwdArgs a, const __grid_constant__ DkvMaps m)
           tma_load_1d(st + L::vec + VSLOT, &m.lse2, &full[s], (r + m.shift[1]) & ~3);
           tma_load_1d(st + L::vec + 2 * VSLOT, &m.dvec, &full[s], (r + m.shift[2]) & ~3);
           if (++s == STAGES) s = 0, ph ^= 1;
+          if constexpr (BST > 0) {
+            // the bias at the tile's Q rows and each KV slice that computes
+            // the tile (live, and not above its causal diagonal)
+            const int es = ba.bf16 ? 2 : 4, tile_b = TILE * TILE * es;
+            auto wants = [&](int x) {
+              return kv0 + x * TILE < sk && !(CAUSAL && qt * TILE + TILE - 1 < kv0 + x * TILE);
+            };
+            int n = 0;
+            for (int x = 0; x < KV; ++x) n += wants(x);
+            mbar_wait(&bempty[bs], bph ^ 1);
+            mbar_expect_tx(&bfull[bs], n * tile_b);
+            unsigned char* bt = smem + L::bias + bs * L::bstage;
+            for (int x = 0; x < KV; ++x) {
+              if (!wants(x)) continue;
+              for (int p = 0; p < es / 2; ++p)  // fp32: two 32-column panels
+                tma_load_3d(bt + x * tile_b + p * TILE * 128, &ba.map, &bfull[bs],
+                            kv0 + x * TILE + p * (128 / es), qt * TILE, plane);
+            }
+            if (++bs == BST) bs = 0, bph ^= 1;
+          }
         }
       }
     }
@@ -1133,64 +1058,25 @@ sage_attn_bwd_dkv_tma_kernel(const BwdArgs a, const __grid_constant__ DkvMaps m)
   regs_inc<kConsumerRegs<L::NWG>>();
   if constexpr (KV == 1) {  // D = 256: warpgroup 0 keeps dV, warpgroup 1 dK
     if (wg == 0)
-      dkv_consumer<D, STAGES, CAUSAL, WINDOW, kDV>(a, smem, full, empty, rows_bar, m.shift, hk, bi, 0, kv0, qt0, n_qt);
+      dkv_consumer<D, STAGES, CAUSAL, WINDOW, kDV, BIAS>(a, ba, smem, full, empty, rows_bar,
+                                                         bfull, m.shift, hk, bi, 0, kv0, qt0,
+                                                         n_qt);
     else
-      dkv_consumer<D, STAGES, CAUSAL, WINDOW, kDK>(a, smem, full, empty, rows_bar, m.shift, hk, bi, 0, kv0, qt0, n_qt);
+      dkv_consumer<D, STAGES, CAUSAL, WINDOW, kDK, BIAS>(a, ba, smem, full, empty, rows_bar,
+                                                         bfull, m.shift, hk, bi, 0, kv0, qt0,
+                                                         n_qt);
   } else {
-    dkv_consumer<D, STAGES, CAUSAL, WINDOW, kDKV>(a, smem, full, empty, rows_bar, m.shift, hk,
-                                                  bi, wg, kv0, qt0, n_qt);
+    dkv_consumer<D, STAGES, CAUSAL, WINDOW, kDKV, BIAS>(a, ba, smem, full, empty, rows_bar,
+                                                        bfull, m.shift, hk, bi, wg, kv0, qt0,
+                                                        n_qt);
   }
 }
-
-template <int D>
-constexpr int dq_nwg() { return D == 256 ? 1 : D == 64 ? 3 : 2; }
-template <int D>
-constexpr int dq_stages() { return D == 256 ? 2 : 4; }
-template <int D>
-constexpr int dkv_stages() { return D == 256 ? 2 : 4; }
 
 // the tensor maps of a [planes, rows, D] operand, in the boxes of its tile
 template <int D, int ELEM>
 bool tile_map(CUtensorMap* map, const void* p, long long planes, int rows) {
   return tensor_map_3d(map, p, ELEM == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
                        ELEM, planes, rows, D, TILE, Tile<D, ELEM>::COLS);
-}
-
-template <typename Kern, typename B>
-int launch(Kern kern, int smem, dim3 grid, cudaStream_t st, const BwdArgs& a, const B& ba) {
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  kern<<<grid, NTHREADS, smem, st>>>(a, ba);
-  return (int)cudaGetLastError();
-}
-
-// The bias instances (mma.sync): (causal) picks the instance
-template <int D>
-int launch_dq_bias(int causal, dim3 grid, cudaStream_t st, const BwdArgs& a, const BiasArgs& ba) {
-  constexpr int smem = DqLayout<D>::bytes;
-  return causal ? launch(sage_attn_bwd_dq_kernel<D, true, false, true>, smem, grid, st, a, ba)
-                : launch(sage_attn_bwd_dq_kernel<D, false, false, true>, smem, grid, st, a, ba);
-}
-
-// the bias dKV instance of PART
-template <int D, int PART>
-int launch_dkv_part(int causal, dim3 grid, cudaStream_t st, const BwdArgs& a, const BiasArgs& ba) {
-  constexpr int smem = DkvLayout<D>::bytes;
-  return causal
-             ? launch(sage_attn_bwd_dkv_kernel<D, true, false, true, PART>, smem, grid, st, a, ba)
-             : launch(sage_attn_bwd_dkv_kernel<D, false, false, true, PART>, smem, grid, st, a, ba);
-}
-
-template <int D>
-int launch_dkv_bias(int causal, dim3 grid, cudaStream_t st, const BwdArgs& a, const BiasArgs& ba) {
-  if constexpr (D == 256) {
-    // dV, then dK: the two fp32 accumulators together would take 256
-    // registers a thread; the dK launch computes S and P again
-    const int e = launch_dkv_part<D, kDV>(causal, grid, st, a, ba);
-    return e != 0 ? e : launch_dkv_part<D, kDK>(causal, grid, st, a, ba);
-  } else {
-    return launch_dkv_part<D, kDKV>(causal, grid, st, a, ba);
-  }
 }
 
 // The launch grid of n_tiles tiles x heads x b, with the tile on the
@@ -1204,20 +1090,20 @@ inline dim3 grid_of(int n_tiles, int heads, int b, bool causal_band, int* heads_
   return *heads_first ? dim3(heads, b, n_tiles) : dim3(n_tiles, heads, b);
 }
 
-// The instances without a bias: (causal, window) picks the instance
-template <typename Kern, typename M>
+template <typename Kern, typename M, typename B>
 int launch_tma(Kern kern, int smem, dim3 grid, int threads, cudaStream_t st, const BwdArgs& a,
-               const M& m) {
+               const M& m, const B& ba) {
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  kern<<<grid, threads, smem, st>>>(a, m);
+  kern<<<grid, threads, smem, st>>>(a, m, ba);
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch_dq_tma(int b, int causal, cudaStream_t st, const BwdArgs& a) {
-  constexpr int NWG = dq_nwg<D>(), STAGES = dq_stages<D>();
-  constexpr int smem = DqTma<D, NWG, STAGES>::bytes;
+// (causal, window) picks the instance; a bias comes without a window
+template <int D, int BIAS>
+int launch_dq_tma(int b, int causal, cudaStream_t st, const BwdArgs& a, const BiasOf<BIAS>& ba) {
+  constexpr int NWG = dq_nwg<D>(), STAGES = dq_stages<D, BIAS>();
+  constexpr int smem = DqTma<D, NWG, STAGES, BIAS == kBiasTma ? kDqBiasStages<D> : 0>::bytes;
   const long long pq = (long long)b * a.hq, pk = (long long)b * a.hkv;
   DqMaps m;
   if (!tile_map<D, 1>(&m.q, a.q_i8, pq, a.sq) || !tile_map<D, 2>(&m.dout, a.dout, pq, a.sq) ||
@@ -1227,19 +1113,21 @@ int launch_dq_tma(int b, int causal, cudaStream_t st, const BwdArgs& a) {
   const dim3 grid = grid_of((a.sq + TILE * NWG - 1) / (TILE * NWG), a.hq, b,
                             causal && a.window == 0, &m.heads_first);
   const int threads = WG * (NWG + 1);
-  if (a.window > 0)
-    return launch_tma(sage_attn_bwd_dq_tma_kernel<D, NWG, STAGES, true, true>, smem, grid, threads,
-                      st, a, m);
-  return causal ? launch_tma(sage_attn_bwd_dq_tma_kernel<D, NWG, STAGES, true, false>, smem, grid,
-                             threads, st, a, m)
-                : launch_tma(sage_attn_bwd_dq_tma_kernel<D, NWG, STAGES, false, false>, smem, grid,
-                             threads, st, a, m);
+  if constexpr (BIAS == kNoBias) {
+    if (a.window > 0)
+      return launch_tma(sage_attn_bwd_dq_tma_kernel<D, NWG, STAGES, true, true, BIAS>, smem, grid,
+                        threads, st, a, m, ba);
+  }
+  return causal ? launch_tma(sage_attn_bwd_dq_tma_kernel<D, NWG, STAGES, true, false, BIAS>, smem,
+                             grid, threads, st, a, m, ba)
+                : launch_tma(sage_attn_bwd_dq_tma_kernel<D, NWG, STAGES, false, false, BIAS>, smem,
+                             grid, threads, st, a, m, ba);
 }
 
-template <int D>
-int launch_dkv_tma(int b, int causal, cudaStream_t st, const BwdArgs& a) {
-  constexpr int STAGES = dkv_stages<D>();
-  using L = DkvTma<D, STAGES>;
+template <int D, int BIAS>
+int launch_dkv_tma(int b, int causal, cudaStream_t st, const BwdArgs& a, const BiasOf<BIAS>& ba) {
+  constexpr int STAGES = dkv_stages<D, BIAS>();
+  using L = DkvTma<D, STAGES, BIAS == kBiasTma ? kDkvBiasStages<D> : 0>;
   const long long pq = (long long)b * a.hq, pk = (long long)b * a.hkv;
   DkvMaps m;
   if (!tile_map<D, 1>(&m.k, a.k_i8, pk, a.sk) || !tile_map<D, 2>(&m.v, a.v, pk, a.sk) ||
@@ -1251,13 +1139,16 @@ int launch_dkv_tma(int b, int causal, cudaStream_t st, const BwdArgs& a) {
     return (int)cudaErrorInvalidValue;
   const dim3 grid = grid_of((a.sk + TILE * L::KV - 1) / (TILE * L::KV), a.hkv, b,
                             causal && a.window == 0, &m.heads_first);
-  if (a.window > 0)
-    return launch_tma(sage_attn_bwd_dkv_tma_kernel<D, STAGES, true, true>, L::bytes, grid, WG * (L::NWG + 1),
-                      st, a, m);
-  return causal ? launch_tma(sage_attn_bwd_dkv_tma_kernel<D, STAGES, true, false>, L::bytes, grid,
-                             WG * (L::NWG + 1), st, a, m)
-                : launch_tma(sage_attn_bwd_dkv_tma_kernel<D, STAGES, false, false>, L::bytes, grid,
-                             WG * (L::NWG + 1), st, a, m);
+  const int threads = WG * (L::NWG + 1);
+  if constexpr (BIAS == kNoBias) {
+    if (a.window > 0)
+      return launch_tma(sage_attn_bwd_dkv_tma_kernel<D, STAGES, true, true, BIAS>, L::bytes, grid,
+                        threads, st, a, m, ba);
+  }
+  return causal ? launch_tma(sage_attn_bwd_dkv_tma_kernel<D, STAGES, true, false, BIAS>, L::bytes,
+                             grid, threads, st, a, m, ba)
+                : launch_tma(sage_attn_bwd_dkv_tma_kernel<D, STAGES, false, false, BIAS>, L::bytes,
+                             grid, threads, st, a, m, ba);
 }
 
 // head dims 64, 128 and 256, with a bias or without
@@ -1266,39 +1157,46 @@ bool bad_shape(int hq, int hkv, int d, int group, int causal, int window) {
          window < 0 || (window > 0 && !causal);
 }
 
-// The entry points' common body: check, grid, instance
-template <bool BIAS>
+// The entry points' common body: check, head dim, instance
+template <int BIAS>
 int run_dq(const BwdArgs& a, const BiasOf<BIAS>& ba, int b, int d, int causal, int group,
            void* stream) {
   if (bad_shape(a.hq, a.hkv, d, group, causal, a.window)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if constexpr (BIAS) {
-    const dim3 grid((a.sq + DQ_BM - 1) / DQ_BM, a.hq, b);
-    if (d == 64) return launch_dq_bias<64>(causal, grid, st, a, ba);
-    if (d == 256) return launch_dq_bias<256>(causal, grid, st, a, ba);
-    return launch_dq_bias<128>(causal, grid, st, a, ba);
-  } else {
-    if (d == 64) return launch_dq_tma<64>(b, causal, st, a);
-    if (d == 256) return launch_dq_tma<256>(b, causal, st, a);
-    return launch_dq_tma<128>(b, causal, st, a);
-  }
+  if (d == 64) return launch_dq_tma<64, BIAS>(b, causal, st, a, ba);
+  if (d == 256) return launch_dq_tma<256, BIAS>(b, causal, st, a, ba);
+  return launch_dq_tma<128, BIAS>(b, causal, st, a, ba);
 }
 
-template <bool BIAS>
+template <int BIAS>
 int run_dkv(const BwdArgs& a, const BiasOf<BIAS>& ba, int b, int d, int causal, int group,
             void* stream) {
   if (bad_shape(a.hq, a.hkv, d, group, causal, a.window)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if constexpr (BIAS) {
-    const dim3 grid((a.sk + KV_BM - 1) / KV_BM, a.hkv, b);
-    if (d == 64) return launch_dkv_bias<64>(causal, grid, st, a, ba);
-    if (d == 256) return launch_dkv_bias<256>(causal, grid, st, a, ba);
-    return launch_dkv_bias<128>(causal, grid, st, a, ba);
-  } else {
-    if (d == 64) return launch_dkv_tma<64>(b, causal, st, a);
-    if (d == 256) return launch_dkv_tma<256>(b, causal, st, a);
-    return launch_dkv_tma<128>(b, causal, st, a);
+  if (d == 64) return launch_dkv_tma<64, BIAS>(b, causal, st, a, ba);
+  if (d == 256) {
+    // a bias tile beside the d 256 ring does not fit: the threads load it
+    if constexpr (BIAS == kBiasTma) return (int)cudaErrorInvalidValue;
+    else return launch_dkv_tma<256, BIAS>(b, causal, st, a, ba);
   }
+  return launch_dkv_tma<128, BIAS>(b, causal, st, a, ba);
+}
+
+// The bias operands of an entry point; kBiasTma also encodes the bias's
+// tensor map (false if the bias cannot be mapped: a row of sk elements is
+// not a multiple of 16 bytes, or the base is not 16-byte aligned)
+bool bias_args(BiasArgs* ba, const void* bias, void* dbias, int bf16, long long planes, int sq,
+               int sk, bool tma) {
+  const int es = bf16 ? 2 : 4;
+  auto aligned = [&](const void* p) { return (reinterpret_cast<uintptr_t>(p) % (2 * es)) == 0; };
+  ba->bias = bias;
+  ba->dbias = dbias;
+  ba->bf16 = bf16;
+  ba->shift = bf16 ? 1 : 2;
+  ba->pairs = sk % 2 == 0 && aligned(bias) && (dbias == nullptr || aligned(dbias));
+  return !tma || tensor_map_3d(&ba->map, bias, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                                    : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                               es, planes, sq, sk, TILE, 128 / es);
 }
 
 }  // namespace
@@ -1319,7 +1217,7 @@ extern "C" int sage_attn_bwd_dq(const void* q_i8, const void* q_scale, const voi
                   (const float*)k_scale, (const __nv_bfloat16*)k_sm, (const __nv_bfloat16*)v,
                   (const __nv_bfloat16*)dout, (const float*)lse2, (const float*)dvec,
                   (float*)dq, nullptr, nullptr, hq, hkv, sq, sk, sm_scale, window};
-  return run_dq<false>(a, NoBias{}, b, d, causal, group, stream);
+  return run_dq<kNoBias>(a, NoBias{}, b, d, causal, group, stream);
 }
 
 extern "C" int sage_attn_bwd_dkv(const void* q_i8, const void* q_scale, const void* q_bf,
@@ -1332,38 +1230,51 @@ extern "C" int sage_attn_bwd_dkv(const void* q_i8, const void* q_scale, const vo
                   (const int8_t*)k_i8, (const float*)k_scale, nullptr, (const __nv_bfloat16*)v,
                   (const __nv_bfloat16*)dout, (const float*)lse2, (const float*)dvec, nullptr,
                   (float*)dk, (float*)dv, hq, hkv, sq, sk, sm_scale, window};
-  return run_dkv<false>(a, NoBias{}, b, d, causal, group, stream);
+  return run_dkv<kNoBias>(a, NoBias{}, b, d, causal, group, stream);
 }
 
 // The bias instances: the operands of sage_attn_bwd_dq / sage_attn_bwd_dkv
-// without the window, d 64, 128 or 256, and the bias: fp32 or bf16 (bias_bf16) [b,hq,sq,sk],
+// without the window, d 64, 128 or 256, and the bias [b,hq,sq,sk],
 // contiguous, indexed by the query head; dbias (dQ only) its shape and type,
 // or null for no dBias.  Every element of dbias is written: dS where the
-// kernel computes it, 0 right of the causal diagonal.
+// kernel computes it, 0 right of the causal diagonal.  bias_kind: bit 0 the
+// bias is bf16 (else fp32); bit 1 each thread loads its bias from device
+// memory (kBiasLoads, any sk), else the producer stages it by TMA
+// (kBiasTma: sk a multiple of 16 bytes and a 16-byte aligned bias, or
+// cudaErrorInvalidValue); dK/dV at d 256 loads it either way.
 extern "C" int sage_attn_bwd_dq_bias(const void* q_i8, const void* q_scale, const void* k_i8,
                                      const void* k_scale, const void* k_sm, const void* v,
                                      const void* dout, const void* lse2, const void* dvec,
                                      void* dq, const void* bias, void* dbias, int b, int hq,
-                                     int hkv, int sq, int sk, int d, int causal, int bias_bf16,
+                                     int hkv, int sq, int sk, int d, int causal, int bias_kind,
                                      int group, float sm_scale, void* stream) {
   const BwdArgs a{(const int8_t*)q_i8, (const float*)q_scale, nullptr, (const int8_t*)k_i8,
                   (const float*)k_scale, (const __nv_bfloat16*)k_sm, (const __nv_bfloat16*)v,
                   (const __nv_bfloat16*)dout, (const float*)lse2, (const float*)dvec,
                   (float*)dq, nullptr, nullptr, hq, hkv, sq, sk, sm_scale, 0};
-  if (bias == nullptr) return (int)cudaErrorInvalidValue;
-  return run_dq<true>(a, BiasArgs{bias, dbias, bias_bf16}, b, d, causal, group, stream);
+  const bool tma = !(bias_kind & 2);
+  BiasArgs ba;
+  if (bias == nullptr || !bias_args(&ba, bias, dbias, bias_kind & 1, (long long)b * hq, sq, sk, tma))
+    return (int)cudaErrorInvalidValue;
+  return tma ? run_dq<kBiasTma>(a, ba, b, d, causal, group, stream)
+             : run_dq<kBiasLoads>(a, ba, b, d, causal, group, stream);
 }
 
 extern "C" int sage_attn_bwd_dkv_bias(const void* q_i8, const void* q_scale, const void* q_bf,
                                       const void* k_i8, const void* k_scale, const void* v,
                                       const void* dout, const void* lse2, const void* dvec,
                                       void* dk, void* dv, const void* bias, int b, int hq,
-                                      int hkv, int sq, int sk, int d, int causal, int bias_bf16,
+                                      int hkv, int sq, int sk, int d, int causal, int bias_kind,
                                       int group, float sm_scale, void* stream) {
   const BwdArgs a{(const int8_t*)q_i8, (const float*)q_scale, (const __nv_bfloat16*)q_bf,
                   (const int8_t*)k_i8, (const float*)k_scale, nullptr, (const __nv_bfloat16*)v,
                   (const __nv_bfloat16*)dout, (const float*)lse2, (const float*)dvec, nullptr,
                   (float*)dk, (float*)dv, hq, hkv, sq, sk, sm_scale, 0};
-  if (bias == nullptr) return (int)cudaErrorInvalidValue;
-  return run_dkv<true>(a, BiasArgs{bias, nullptr, bias_bf16}, b, d, causal, group, stream);
+  const bool tma = !(bias_kind & 2) && d != 256;
+  BiasArgs ba;
+  if (bias == nullptr || !bias_args(&ba, bias, nullptr, bias_kind & 1, (long long)b * hq, sq, sk,
+                                    tma))
+    return (int)cudaErrorInvalidValue;
+  return tma ? run_dkv<kBiasTma>(a, ba, b, d, causal, group, stream)
+             : run_dkv<kBiasLoads>(a, ba, b, d, causal, group, stream);
 }

@@ -103,7 +103,7 @@ SIGNATURES = {
         "sage_attn_bwd_dq": [P] * 10 + [I] * 9 + [F, P],
         "sage_attn_bwd_dkv": [P] * 11 + [I] * 9 + [F, P],
         # the operands, the bias and (dQ) dBias; the shape, causal, the bias
-        # type and the group; sm_scale, the stream
+        # kind (bit 0 bf16, bit 1 the loads) and the group; sm_scale, the stream
         "sage_attn_bwd_dq_bias": [P] * 12 + [I] * 9 + [F, P],
         "sage_attn_bwd_dkv_bias": [P] * 12 + [I] * 9 + [F, P],
     },

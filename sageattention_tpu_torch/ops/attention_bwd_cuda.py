@@ -4,10 +4,9 @@ Replaces the TPU kernels ``sageattention_tpu/ops/attention_bwd_pallas.py``:
 ``sage_attention_bwd`` -> ``_dq_kernel`` and ``_dkv_kernel``.  The kernels
 are ``csrc/attention_bwd.cu``; its header gives their layout (a CTA loops
 over KV tiles for dQ, over the GQA group's Q tiles for dK/dV) and their
-bound (tensor-core operations; bytes with a bias).  Without a bias they
-are Hopper kernels (TMA loads through a pipeline of shared-memory stages,
-``wgmma``; ``csrc/wgmma_sm90.cuh``), with one the first ``mma.sync``
-design.
+bound (tensor-core operations; bytes with a bias).  Every instance is a
+Hopper kernel (TMA loads through a pipeline of shared-memory stages,
+``wgmma``; ``csrc/wgmma_sm90.cuh``), with a bias or without (:func:`route`).
 
 Both take the forward's quantized operands and its base-2 LSE: ``q_i8`` /
 ``q_scale`` from :func:`quant_cuda.quant_q_per_token` (bit for bit the
@@ -24,21 +23,22 @@ a window, as in the JAX package) joins the recomputed logits in both
 kernels, and dQ writes dBias (= dS in fp32, cast to the bias's dtype) when
 asked (``has_bias`` / ``emit_dbias``, ``attention_bwd_pallas.py:82-204,
 238-316``), into a tensor it allocates uninitialised: the kernel writes
-every element, the zeros right of the causal diagonal included.
+every element, the zeros right of the causal diagonal included.  The
+kernels read the bias by TMA where a row of it is a multiple of 16 bytes,
+else each thread loads its own (:func:`bias_reads`).
 
-Head dims 64, 128 and 256, with a bias or without.  At D = 256 dK/dV is
-one launch without a bias (one warpgroup keeps dV, another dK) and two
-with one (dV then dK, each reading the bias; ``csrc/attention_bwd.cu``).
+Head dims 64, 128 and 256, with a bias or without; at D = 256 dK/dV is one
+launch (one warpgroup keeps dV, another dK).
 
 On a CPU tensor a wrapper runs its plain version
 (:func:`reference.quantized_attention_bwd_reference`); on a CUDA tensor it
 launches its kernel or raises.  ``<function>.launches`` counts the
 launches without a bias at head dims 64 and 128,
-``<function>.hd256_launches`` those at 256 (one a call),
+``<function>.hd256_launches`` those at 256,
 ``<function>.bias_launches`` those of the bias
 instances (``sage_attn_bwd_dq_bias``, ``sage_attn_bwd_dkv_bias``) at 64
-and 128, ``<function>.bias_hd256_launches`` theirs at 256 (one a call,
-the two dK/dV passes together).
+and 128, ``<function>.bias_hd256_launches`` theirs at 256 (one a call
+each).
 """
 
 from __future__ import annotations
@@ -47,6 +47,38 @@ import torch
 
 from sageattention_tpu_torch.ops import _build, reference
 from sageattention_tpu_torch.ops.attention_cuda import K_GROUP, window_arg
+
+
+def route(d: int, bias_dtype=None) -> tuple[str, str, str, str]:
+    """(library, dQ entry point, dK/dV entry point, kernel) of a backward
+    call at head dim ``d`` (64, 128 or 256) with a bias of ``bias_dtype``
+    (None, ``torch.float32`` or ``torch.bfloat16``): the ``BIAS`` instances
+    of the same TMA-fed ``wgmma`` kernels for a bias, else the instances
+    without one."""
+    if d not in (64, 128, 256):
+        raise ValueError(f"head dim {d}: the kernels take 64, 128 or 256 (pad first)")
+    if bias_dtype not in (None, torch.float32, torch.bfloat16):
+        raise ValueError(f"bias dtype {bias_dtype}: fp32 or bf16")
+    sfx = "" if bias_dtype is None else "_bias"
+    return "attention_bwd", "sage_attn_bwd_dq" + sfx, "sage_attn_bwd_dkv" + sfx, "wgmma"
+
+
+def bias_reads(sk: int, dtype, data_ptr: int = 0) -> str:
+    """How the kernels read a bias of ``sk`` columns at address
+    ``data_ptr``: ``"tma"`` (the producer stages its tiles by TMA in a ring
+    of their own) where a row is a multiple of 16 bytes and the base 16-byte
+    aligned, as a TMA map needs, else ``"loads"`` (each thread loads its
+    fragment's values).  dK/dV at head dim 256 always loads it: no bias
+    tile fits beside its ring."""
+    size = torch.empty((), dtype=dtype).element_size()
+    return "tma" if (sk * size) % 16 == 0 and data_ptr % 16 == 0 else "loads"
+
+
+def _bias_kind(bias) -> int:
+    """The entry points' ``bias_kind``: bit 0 a bf16 bias, bit 1 the loads
+    (:func:`bias_reads`)."""
+    loads = bias_reads(bias.shape[-1], bias.dtype, bias.data_ptr()) == "loads"
+    return int(bias.dtype == torch.bfloat16) | (2 if loads else 0)
 
 
 def _k_rows(k_scale, sk: int):
@@ -141,23 +173,21 @@ def sage_attention_bwd_dq(q_i8, q_scale, k_i8, k_scale, k_sm, v, do, lse2, dvec,
            k_sm.data_ptr(), v.data_ptr(), do.data_ptr(), lse2.data_ptr(), dvec.data_ptr(),
            dq.data_ptr())
     stream = torch.cuda.current_stream(q_i8.device).cuda_stream
+    lib, entry, _, _ = route(d, None if bias is None else bias.dtype)
     with torch.cuda.device(q_i8.device):  # the launch goes to the current device
+        fn = getattr(_build.lib(lib), entry)
         if bias is None:
-            err = _build.lib("attention_bwd").sage_attn_bwd_dq(
-                *ops, b, hq, hkv, sq, sk, d, int(is_causal), win, K_GROUP, sm_scale, stream)
+            err = fn(*ops, b, hq, hkv, sq, sk, d, int(is_causal), win, K_GROUP, sm_scale, stream)
         else:
-            err = _build.lib("attention_bwd").sage_attn_bwd_dq_bias(
-                *ops, bias.data_ptr(), dbias.data_ptr() if need_dbias else None, b, hq, hkv,
-                sq, sk, d, int(is_causal), int(bias.dtype == torch.bfloat16), K_GROUP,
-                sm_scale, stream)
+            err = fn(*ops, bias.data_ptr(), dbias.data_ptr() if need_dbias else None, b, hq, hkv,
+                     sq, sk, d, int(is_causal), _bias_kind(bias), K_GROUP, sm_scale, stream)
+    _build.check(err, entry)
     if bias is None:
-        _build.check(err, "sage_attn_bwd_dq")
         if d == 256:
             sage_attention_bwd_dq.hd256_launches += 1
         else:
             sage_attention_bwd_dq.launches += 1
     else:
-        _build.check(err, "sage_attn_bwd_dq_bias")
         if d == 256:
             sage_attention_bwd_dq.bias_hd256_launches += 1
         else:
@@ -194,22 +224,21 @@ def sage_attention_bwd_dkv(q_i8, q_scale, q_bf, k_i8, k_scale, v, do, lse2, dvec
            k_scale.data_ptr(), v.data_ptr(), do.data_ptr(), lse2.data_ptr(), dvec.data_ptr(),
            dk.data_ptr(), dv.data_ptr())
     stream = torch.cuda.current_stream(q_i8.device).cuda_stream
+    lib, _, entry, _ = route(d, None if bias is None else bias.dtype)
     with torch.cuda.device(q_i8.device):  # the launch goes to the current device
+        fn = getattr(_build.lib(lib), entry)
         if bias is None:
-            err = _build.lib("attention_bwd").sage_attn_bwd_dkv(
-                *ops, b, hq, hkv, sq, sk, d, int(is_causal), win, K_GROUP, sm_scale, stream)
+            err = fn(*ops, b, hq, hkv, sq, sk, d, int(is_causal), win, K_GROUP, sm_scale, stream)
         else:
-            err = _build.lib("attention_bwd").sage_attn_bwd_dkv_bias(
-                *ops, bias.data_ptr(), b, hq, hkv, sq, sk, d, int(is_causal),
-                int(bias.dtype == torch.bfloat16), K_GROUP, sm_scale, stream)
+            err = fn(*ops, bias.data_ptr(), b, hq, hkv, sq, sk, d, int(is_causal),
+                     _bias_kind(bias), K_GROUP, sm_scale, stream)
+    _build.check(err, entry)
     if bias is None:
-        _build.check(err, "sage_attn_bwd_dkv")
         if d == 256:
             sage_attention_bwd_dkv.hd256_launches += 1
         else:
             sage_attention_bwd_dkv.launches += 1
     else:
-        _build.check(err, "sage_attn_bwd_dkv_bias")
         if d == 256:
             sage_attention_bwd_dkv.bias_hd256_launches += 1
         else:

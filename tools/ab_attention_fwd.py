@@ -21,18 +21,17 @@ the C entry points:
   (per-tile and per-row K scales, a column bias, causal) held to its plain
   version the same way;
 - the instances this tree keeps (the masked ones, the wide ones at 384
-  and 512, the backward's bias instances, and the masked pre-quantized
-  ones): bit-identical outputs on the same operands (the masked forward
-  with a causal window of 1,024 at (1, 32/8, 4096, 128) and (1, 8/2, 4096,
-  64), also timed; the masked forward at d 256 with a window; the masked
-  pre-quantized forward at d 64, 128 and 256; the wide forward, masked and
-  pre-quantized at d 384 and 512; dQ and dK/dV with a bias at d 64, 128
-  and 256), and every kernel instance both trees have keeps its registers
-  and stack (``cuobjdump``).
+  and 512, and the masked pre-quantized ones): bit-identical outputs on
+  the same operands (the masked forward with a causal window of 1,024 at
+  (1, 32/8, 4096, 128) and (1, 8/2, 4096, 64), also timed; the masked
+  forward at d 256 with a window; the masked pre-quantized forward at d
+  64, 128 and 256; the wide forward, masked and pre-quantized at d 384 and
+  512), and every kernel instance both trees have keeps its registers and
+  stack (``cuobjdump``).
 
 It prints the registers of every forward kernel instance of both trees.
-The backward's instances without a bias are held to their plain versions
-by ``tools/ab_attention_bwd.py``.  Needs one CUDA card; ends with one JSON
+The backward (dQ and dK/dV, with a bias and without) is A/B'd by
+``tools/ab_attention_bwd.py``.  Needs one CUDA card; ends with one JSON
 line, and exits 1 if a kept instance's outputs differ or its registers or
 stack moved, or if a redesigned instance disagrees with its plain version.
 """
@@ -155,9 +154,9 @@ def agree(got, want) -> tuple[float, float]:
 
 
 def ab_all(builds: dict, gen) -> dict:
-    """Registers of every shared attention library's instances; the kept
-    instances (masked, wide, masked pre-quantized, the backward's bias
-    instances) bit for bit through the C entry points; the redesigned
+    """Registers of every shared forward library's instances; the kept
+    instances (masked, wide, masked pre-quantized) bit for bit through the
+    C entry points; the redesigned
     unmasked ones at a ragged length (d 256 forward, pre-quantized d 64,
     128 and 256) against the plain versions."""
     import torch
@@ -167,8 +166,7 @@ def ab_all(builds: dict, gen) -> dict:
     libs = [lib for lib in ("attention_fwd", "attention_fwd_masked", "attention_fwd_preq",
                             "attention_fwd_hd256", "attention_fwd_masked_hd256",
                             "attention_fwd_preq_hd256", "attention_fwd_wide",
-                            "attention_fwd_masked_wide", "attention_fwd_preq_wide",
-                            "attention_bwd")
+                            "attention_fwd_masked_wide", "attention_fwd_preq_wide")
             if all(lib in b.SIGNATURES for b in builds.values())]
     with ThreadPoolExecutor(2 * len(libs)) as pool:  # one nvcc a (tree, source), at once
         list(pool.map(lambda tl: builds[tl[0]].lib(tl[1]),
@@ -295,39 +293,6 @@ def ab_all(builds: dict, gen) -> dict:
                                  col_bias=cb))
                 else:
                     same(name + (" window 300" if masked else ""), preq)
-    # the backward's bias instances; those without a bias were redesigned
-    # (TMA and wgmma) and are held to the plain versions by ab_attention_bwd.py
-    for d in (64, 128, 256):
-        for causal in (0, 1):
-            ops = dict(q_i8=i8(b, hq, s, d), q_scale=pos(b, hq, s) * 1e-3,
-                       q_bf=bf(b, hq, s, d), k_i8=i8(b, hkv, s, d),
-                       k_scale=pos(b, hkv, -(-s // 128)) * 1e-2, k_sm=bf(b, hkv, s, d),
-                       v=bf(b, hkv, s, d), do=bf(b, hq, s, d),
-                       lse2=torch.randn(b, hq, s, generator=gen, device="cuda") + 12,
-                       dvec=torch.randn(b, hq, s, generator=gen, device="cuda") * 1e-2)
-            bias = torch.randn(b, hq, s, s, generator=gen, device="cuda")
-
-            def bwd(build, ops=ops, d=d, causal=causal, bias=bias):
-                lib = build.lib("attention_bwd")
-                dq = torch.empty(b, hq, s, d, device="cuda")
-                dk, dv = (torch.empty(b, hkv, s, d, device="cuda") for _ in range(2))
-                dbias = torch.empty_like(bias)
-                p = {n: x.data_ptr() for n, x in ops.items()}
-                dq_in = [p[n] for n in ("q_i8", "q_scale", "k_i8", "k_scale", "k_sm", "v",
-                                        "do", "lse2", "dvec")]
-                kv_in = [p[n] for n in ("q_i8", "q_scale", "q_bf", "k_i8", "k_scale", "v",
-                                        "do", "lse2", "dvec")]
-                e1 = lib.sage_attn_bwd_dq_bias(*dq_in, dq.data_ptr(), bias.data_ptr(),
-                                               dbias.data_ptr(), b, hq, hkv, s, s, d, causal, 0,
-                                               128, d**-0.5, stream)
-                e2 = lib.sage_attn_bwd_dkv_bias(*kv_in, dk.data_ptr(), dv.data_ptr(),
-                                                bias.data_ptr(), b, hq, hkv, s, s, d, causal, 0,
-                                                128, d**-0.5, stream)
-                if e1 or e2:
-                    raise RuntimeError(f"backward launch failed: cudaError {e1} {e2}")
-                return dq, dk, dv, dbias
-
-            same(f"backward d{d} causal={causal} bias=True", bwd)
     return out
 
 
