@@ -214,15 +214,19 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    generator of its own: kernels 2-6 at 384 and 512 bit-exact with their
    plain versions; kernels 9-12 at 512, 384 and 320, int8 and int4, t_q 1
    and 4, window 4096, pages of 16 and 1024, and kernel 11 with ``owned``;
-   kernel 1 (``attention_fwd_wide.cu``: O split by columns over a grid
-   axis) at (4, 16/16, 4096, d) for d 320, 384 and 512, causal and not,
-   bf16 and e4m3 V, against its plain version and exact fp32 attention,
-   and the main paths ``wide_prefill_hd384`` / ``_hd512`` (``sageattn`` and
-   the fp8 variant); the masked instances at (1, 16/8, 8192, 512) with
+   kernel 1 (``attention_fwd_wide.cu``: the TMA-fed wgmma kernel, one CTA
+   a 64-row Q tile with O's columns split between its two consumer
+   warpgroups; phase 2 holds it at ragged lengths too) at (4, 16/16, 4096,
+   d) for d 320, 384 and 512, causal and not, bf16 and e4m3 V, against its
+   plain version and exact fp32 attention, and the main paths
+   ``wide_prefill_hd384`` / ``_hd512`` (``sageattn`` and the fp8 variant,
+   whose V codes ``widen_v_codes`` widens first); the masked instances (O
+   split by columns over a grid axis) at (1, 16/8, 8192, 512) with
    window 4096, over varlen's four prompts and at d 320 with window 1000,
    and the path ``wide_masked_hd512`` (a window with fp8 V, through kernel
    6, and ``sageattn_varlen``); the pre-quantized instances for every Q/K
-   option at (4, 16/16, 4096, 512) and at d 320 with a window, and the path
+   option at (4, 16/16, 4096, 512) and at d 320, causal and not, and at d
+   320 with a window, and the path
    ``wide_preq_hd512`` (int4 + smooth_q); the gradient at (1, 16/16, 4096,
    320), causal, which takes exact recompute and launches no backward
    kernel; decode serving at d 512 (``wide_serve_*``: b 4 prompts of 4096
@@ -231,7 +235,7 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    paged with window 4096), each path's decode kernel exactly layers x
    steps times; each instance's time beside its bound, plain version and
    library call (SDPA, naming the backend it took), its registers, and the
-   forward's products at phase 9's measured rates.  A wide instance that
+   forward's products at phase 9's measured ``wgmma`` rates.  A wide instance that
    no path launches sits inside its kernel's entry, as ``hd384`` /
    ``hd512``.
 
@@ -372,9 +376,14 @@ def kernel_registers(build, lib: str) -> list:
 
 
 # the sources of kernel 1's TMA-fed wgmma instances (the unmasked forward
-# at head dims 64, 128 and 256)
-FWD_SM90_LIBS = ("attention_fwd", "attention_fwd_hd256", "attention_fwd_preq",
-                 "attention_fwd_preq_hd256")
+# at head dims 64, 128 and 256; at 384 and 512 the wide kernel, O's columns
+# split between two warpgroups), with their kernel's name
+FWD_SM90_LIBS = {"attention_fwd": "sage_attn_fwd_sm90_kernel",
+                 "attention_fwd_hd256": "sage_attn_fwd_sm90_kernel",
+                 "attention_fwd_preq": "sage_attn_fwd_sm90_kernel",
+                 "attention_fwd_preq_hd256": "sage_attn_fwd_sm90_kernel",
+                 "attention_fwd_wide": "sage_attn_fwd_wide_kernel",
+                 "attention_fwd_preq_wide": "sage_attn_fwd_wide_kernel"}
 
 
 def sass_mma(build, lib: str, kernel: str) -> dict:
@@ -401,8 +410,8 @@ def sass_mma(build, lib: str, kernel: str) -> dict:
 
 def resource_usage() -> None:
     """Registers a thread and spill (stack) bytes of every built kernel; the
-    TMA-fed wgmma instances (kernels 7-8 without a bias, kernel 1 without
-    masks at head dims 64-256) may hold no stack.  Their registers are the
+    TMA-fed wgmma instances (kernels 7-8, kernel 1 without masks) may hold
+    no stack.  Their registers are the
     count at entry: ``setmaxnreg`` then gives a backward consumer warpgroup
     240 (160 with three) and the producer 24, a forward consumer 240 and
     the producer 24.  The forward's wgmma instances must run their products
@@ -413,15 +422,16 @@ def resource_usage() -> None:
     for lib in _build.SIGNATURES:
         for kern, regs, stack in kernel_registers(_build, lib):
             log(f"resources {lib} {kern}: {regs} registers, {stack} bytes of stack")
-            require(not (("_tma_kernel" in kern or "_sm90_kernel" in kern) and int(stack)),
+            require(not (("_tma_kernel" in kern or "_sm90_kernel" in kern
+                          or "_wide_kernel" in kern) and int(stack)),
                     f"{kern} spills {stack} bytes of stack")
     # kernels 7-8's BIAS instances (the last template argument: 1 the
     # threads load the bias, 2 the producer stages it by TMA)
     for kern, regs, stack in kernel_registers(_build, "attention_bwd"):
         if not kern.split(">")[0].endswith(",0"):
             log(f"bias instance {kern}: {regs} registers, {stack} bytes of stack")
-    for lib in FWD_SM90_LIBS:
-        counts = sass_mma(_build, lib, "sage_attn_fwd_sm90_kernel")
+    for lib, kernel in FWD_SM90_LIBS.items():
+        counts = sass_mma(_build, lib, kernel)
         fams = sorted({f for c in counts.values() for f in c})
         log(f"sass {lib}: {len(counts)} wgmma forward instances, tensor-core instructions "
             f"{ {f: sorted({c.get(f, 0) for c in counts.values()}) for f in fams} }")
@@ -666,11 +676,13 @@ def check_fwd_sm90(results) -> None:
     against the plain version, from a generator of their own (the later
     phases' inputs stay as they were): sk 513 and 3001 (boxes that end
     inside a KV tile, rows past sk landing as zeros) with sq 1000 (the last
-    128-row CTA ends inside its second warpgroup), (1, 4/2) heads, every V
-    type with and without the smooth-v mean, causal and not, at head dims
-    64, 128 and 256 (513 at 256 only); the pre-quantized instances at 3001
-    with per-tile and with per-row K scales and a column bias, bf16 and
-    e4m3 V, bf16 and fp32 output.  Limits as every forward check's: cosine
+    128-row CTA ends inside its second warpgroup; above 256 a 64-row CTA
+    inside its tile), (1, 4/2) heads, every V type with and without the
+    smooth-v mean, causal and not, at head dims 64, 128, 256, 384 and 512
+    (513 at 256 and 512 only; above 256 q bf16 and fp32, the wide kernel's
+    two q types); the pre-quantized instances at 3001 with per-tile and
+    with per-row K scales and a column bias, bf16 and e4m3 V, bf16 and fp32
+    output.  Limits as every forward check's: cosine
     >= 0.9999, max-abs <= 2e-2, lse2 <= 1e-3.  First, every int8, e4m3 and
     e5m2 code at each head dim through one key: the fp32 output must be the
     code's value exactly; and the V-code widening that runs before these
@@ -686,13 +698,14 @@ def check_fwd_sm90(results) -> None:
     # every V code the quantizers write (NaN and inf codes aside), widened
     # before the launch (widen_v_codes): with one key (sk 1) and Q = 0,
     # P = 1 and the fp32 output is each code's value exactly
-    for d in (64, 128, 256):
-        h = 256 // d
+    for d in (64, 128, 256, 384, 512):
+        h = max(256 // d, 1)
         for vdt in quant.V_CODE_TYPES:
             codes = torch.arange(256, dtype=torch.int32)
             finite = torch.isfinite(codes.to(torch.uint8).view(vdt).float())
             codes = torch.where(finite, codes, 0).to(torch.uint8).view(vdt)
-            vx = codes.reshape(1, h, 1, d).cuda()
+            # above 256 one head holds every code, then the first ones again
+            vx = codes.view(torch.uint8).repeat(2)[:h * d].view(vdt).reshape(1, h, 1, d).cuda()
             kw = dict(is_causal=False, q_fold=d**-0.5 * LOG2E, return_lse=False)
             args = (torch.zeros(1, h, 1, d, device="cuda"), torch.zeros(1, h, 1, d, device="cuda",
                     dtype=torch.int8), torch.ones(1, h, 1, device="cuda"), vx,
@@ -733,20 +746,22 @@ def check_fwd_sm90(results) -> None:
                 f"attention sm90 {name} disagrees with its plain version")
         results[key]["max_abs_err"] = max(results[key].get("max_abs_err", 0.0), err)
 
-    for d, sk in ((64, 3001), (128, 3001), (256, 3001), (256, 513)):
-        sfx = "_hd256" if d == 256 else ""
+    for d, sk in ((64, 3001), (128, 3001), (256, 3001), (256, 513), (384, 3001), (512, 3001),
+                  (512, 513)):
+        sfx = "" if d <= 128 else f"_hd{d}"
         q = torch.randn(b, hq, sq, d, generator=gen, device="cuda").to(torch.bfloat16)
         k = (torch.randn(b, hkv, sk, d, generator=gen, device="cuda") + 0.5).to(torch.bfloat16)
         v = torch.randn(b, hkv, sk, d, generator=gen, device="cuda").to(torch.bfloat16)
         k_i8, k_sc, _ = quant_cuda.quant_k_fused_mean(k, group=128)
         fold = d**-0.5 * LOG2E
         for causal in (False, True):
-            for vname, vx, vs, vm in v_operands(v):
-                kw = dict(is_causal=causal, q_fold=fold, return_lse=True)
-                agree(f"{(b, hq, hkv, sq, sk, d)} causal={causal} V {vname}",
-                      "sage_attn_fwd" + sfx,
-                      attention_cuda.sage_attention_fwd(q, k_i8, k_sc, vx, vs, vm, **kw),
-                      attention_cuda.sage_attention_plain(q, k_i8, k_sc, vx, vs, vm, **kw))
+            for qx in ((q, q.float()) if d > 256 else (q,)):
+                for vname, vx, vs, vm in v_operands(v):
+                    kw = dict(is_causal=causal, q_fold=fold, return_lse=True)
+                    agree(f"{(b, hq, hkv, sq, sk, d)} causal={causal} q {qx.dtype} V {vname}",
+                          "sage_attn_fwd" + sfx,
+                          attention_cuda.sage_attention_fwd(qx, k_i8, k_sc, vx, vs, vm, **kw),
+                          attention_cuda.sage_attention_plain(qx, k_i8, k_sc, vx, vs, vm, **kw))
         if sk == 3001:
             q_i8 = torch.randint(-127, 128, (b, hq, sk, d), generator=gen, device="cuda",
                                  dtype=torch.int8)
@@ -1913,7 +1928,7 @@ FORWARD = ("k_channel_mean", "quant_k_chunked", "sage_attn_fwd")
 FORWARD_INT4_SQ = ("quant_q_per_token", "k_channel_mean", "quant_k_chunked",
                    "sage_attn_fwd_preq")
 FORWARD_SUBTILE_FP8 = ("quant_v_per_channel", "widen_v_codes", "sage_attn_fwd_preq")
-# V codes before the wgmma forward (head dims 64-256, no masks): widened to bf16
+# V codes before the wgmma forward (no masks): widened to bf16
 WIDEN = ("widen_v_codes",)
 # the windowed one-shot prefill: kernels 2-3 and kernel 1's masked instantiation
 FORWARD_MASKED = ("k_channel_mean", "quant_k_chunked", "sage_attn_fwd_masked")
@@ -1950,7 +1965,7 @@ MAIN_PATH = {**{n: "server" for n in FORWARD}, **{n: "train" for n in BACKWARD},
              # and pre-quantized forwards, kernels 4-6 and 9-12 at 384) are
              # checked and timed, and reported inside their kernel's entry
              **{f"{n}_hd{d}": f"wide_prefill_hd{d}" for d in (384, 512)
-                for n in FORWARD + ("quant_v_per_channel",)},
+                for n in FORWARD + ("quant_v_per_channel",) + WIDEN},
              "sage_attn_fwd_masked_hd512": "wide_masked_hd512",
              "v_channel_stats_hd512": "wide_masked_hd512",
              "quant_v_apply_hd512": "wide_masked_hd512",
@@ -4478,9 +4493,9 @@ WIDE_DIMS = (384, 512)
 # the kernels with instances at head dims 384 and 512, each counted apart as
 # ``<name>_hd384`` / ``<name>_hd512``
 WIDE = ("k_channel_mean", "quant_k_chunked", "quant_q_per_token", "quant_v_per_channel",
-        "v_channel_stats", "quant_v_apply", "sage_attn_fwd", "sage_attn_fwd_masked",
-        "sage_attn_fwd_preq", "sage_decode", "sage_decode_window", "sage_paged_decode",
-        "sage_paged_decode_window")
+        "v_channel_stats", "quant_v_apply", "widen_v_codes", "sage_attn_fwd",
+        "sage_attn_fwd_masked", "sage_attn_fwd_preq", "sage_decode", "sage_decode_window",
+        "sage_paged_decode", "sage_paged_decode_window")
 WIDE_SOURCE = {"sage_attn_fwd": "attention_fwd_wide.cu",
                "sage_attn_fwd_masked": "attention_fwd_masked_wide.cu",
                "sage_attn_fwd_preq": "attention_fwd_preq_wide.cu",
@@ -4553,12 +4568,16 @@ def sdpa_backend(q, k, v, causal: bool) -> tuple[str, float]:
 
 def wide_registers(lib: str) -> dict:
     """{"D": (fewest, most registers, most stack bytes)} over the kernel
-    instances of a built library, by their first template argument."""
+    instances of a built library, by their first template argument; the
+    TMA-fed wgmma instances apart, as "D wgmma" (their registers at entry:
+    setmaxnreg then gives a consumer thread 240)."""
     from sageattention_tpu_torch.ops import _build
 
     out = {}
     for kern, regs, stack in kernel_registers(_build, lib):
         dd = kern.split("<", 1)[1].split(",", 1)[0]
+        if kern.startswith("sage_attn_fwd_wide_kernel"):
+            dd += " wgmma"
         lo, hi, st = out.get(dd, (999, 0, 0))
         out[dd] = (min(lo, int(regs)), max(hi, int(regs)), max(st, int(stack)))
     return out
@@ -4574,16 +4593,19 @@ def exact_heads(q, k, v, causal: bool, hs, **masks):
 
 
 def check_wide_attention(results) -> dict:
-    """Phase 10b: kernel 1's wide instances (``attention_fwd_wide.cu``) at
-    the Gemma-7B layer widened, (4, 16/16, 4096, d) for d 320 (padded to
-    384), 384 and 512, causal and not, bf16 and e4m3 V: the kernel against
-    its plain version (o cosine >= 0.9999, max-abs <= 2e-2, lse2 <= 1e-3)
-    and against exact fp32 attention (>= 0.999) on WIDE_HEADS; the main
-    paths ``wide_prefill_hd384`` / ``_hd512``: ``sageattn`` and
+    """Phase 10b: kernel 1's wide instances (``attention_fwd_wide.cu``, the
+    TMA-fed wgmma kernel with O's columns split between two warpgroups; e4m3
+    V widened to bf16 first) at the Gemma-7B layer widened, (4, 16/16, 4096,
+    d) for d 320 (padded to 384), 384 and 512, causal and not, bf16 and e4m3
+    V, and q fp32 with bf16 V: the kernel against its plain version (o
+    cosine >= 0.9999, max-abs <= 2e-2, lse2 <= 1e-3) and against exact fp32
+    attention (>= 0.999) on WIDE_HEADS; the main paths
+    ``wide_prefill_hd384`` / ``_hd512``: ``sageattn`` and
     ``sageattn_qk_int8_pv_fp8`` on the layer, causal (kernels 2-3 and 1
-    twice, kernel 5 once), each against exact attention; then each
-    instance's time, its bound, its plain version's, SDPA's (naming the
-    backend it took) and its registers."""
+    twice, kernel 5 and the V widening once), each against exact attention;
+    then each instance's time, its bound, its plain version's, SDPA's
+    (naming the backend it took) and its registers, and the V widening's
+    time at the layer."""
     import torch
     from sageattention_tpu_torch import core
     from sageattention_tpu_torch.ops import _build, attention_cuda, quant_cuda
@@ -4607,12 +4629,13 @@ def check_wide_attention(results) -> dict:
         cell, ms = {}, {}
         for causal in (True, False):
             o_x = exact_heads(q, k, v, causal, hs)
-            for vname, vx, vs in (("bf16", vp, None), ("e4m3", v8, v8_sc)):
-                o, l2 = attention_cuda.sage_attention_fwd(qp, k_i8, k_sc, vx, vs,
+            for vname, vx, vs, qx in (("bf16", vp, None, qp), ("e4m3", v8, v8_sc, qp),
+                                      ("bf16, q fp32", vp, None, qp.float())):
+                o, l2 = attention_cuda.sage_attention_fwd(qx, k_i8, k_sc, vx, vs,
                                                           is_causal=causal, q_fold=fold,
                                                           return_lse=True)
                 o_p, l2_p = attention_cuda.sage_attention_plain(
-                    qp[:, hs].contiguous(), k_i8[:, hs].contiguous(), k_sc[:, hs].contiguous(),
+                    qx[:, hs].contiguous(), k_i8[:, hs].contiguous(), k_sc[:, hs].contiguous(),
                     vx[:, hs].contiguous(), vs[:, hs].contiguous() if vs is not None else None,
                     is_causal=causal, q_fold=fold, return_lse=True)
                 torch.cuda.synchronize()
@@ -4634,14 +4657,16 @@ def check_wide_attention(results) -> dict:
                 cell[f"causal={causal} V {vname}"] = {"cos_plain": cos, "max_abs": err,
                                                      "cos_exact": cos_x}
                 ms[f"causal={causal} V {vname}"] = cuda_ms(
-                    lambda vx=vx, vs=vs, causal=causal: attention_cuda.sage_attention_fwd(
-                        qp, k_i8, k_sc, vx, vs, is_causal=causal, q_fold=fold), reps=10)
-                del o, l2, o_p, l2_p
+                    lambda vx=vx, vs=vs, qx=qx, causal=causal:
+                    attention_cuda.sage_attention_fwd(qx, k_i8, k_sc, vx, vs, is_causal=causal,
+                                                      q_fold=fold), reps=10)
+                del o, l2, o_p, l2_p, qx
             del o_x
         if d == dp:  # the main path: the op, twice, on the layer
             ops = drive(results, f"wide_prefill_hd{dp}",
                         {f"k_channel_mean_hd{dp}": 2, f"quant_k_chunked_hd{dp}": 2,
-                         f"sage_attn_fwd_hd{dp}": 2, f"quant_v_per_channel_hd{dp}": 1},
+                         f"sage_attn_fwd_hd{dp}": 2, f"quant_v_per_channel_hd{dp}": 1,
+                         f"widen_v_codes_hd{dp}": 1},
                         lambda: (core.sageattn(q, k, v, is_causal=True),
                                  core.sageattn_qk_int8_pv_fp8(q, k, v, is_causal=True)))
             o_x = exact_heads(q, k, v, True, hs)
@@ -4661,7 +4686,7 @@ def check_wide_attention(results) -> dict:
         plain_ms = cuda_ms(lambda: attention_cuda.sage_attention_plain(
             qp, k_i8, k_sc, vp, is_causal=True, q_fold=fold, return_lse=False), reps=2, warmup=1)
         backend, sdpa_ms = sdpa_backend(q, k, v, True)
-        reg = regs.get(str(dp))
+        reg = regs.get(f"{dp} wgmma")
         out[f"d{d}"] = {"shape": [b, hq, hkv, s, d], "d_pad": dp, "checks": cell, "ms": ms,
                         "bound_ms": bound, "bound_by": by, "plain_ms": plain_ms,
                         "sdpa_ms": sdpa_ms, "sdpa_backend": backend, "registers": reg,
@@ -4675,7 +4700,19 @@ def check_wide_attention(results) -> dict:
                  ms=ms["causal=True V bf16"], plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                  library_ms=sdpa_ms, library=f"SDPA ({backend})", ms_by_case=ms,
                  registers=reg, shape={"b": b, "hq": hq, "hkv": hkv, "s": s, "d": d,
-                                       "causal": True, "live_pairs": pairs})
+                                       "causal": True, "live_pairs": pairs},
+                 pairs=pairs, d=d)  # for the floors at the measured rates (phase 9)
+            # the V widening the fp8 op runs before the wgmma kernel, on its codes
+            fill(results, f"widen_v_codes_hd{dp}", f"at {tuple(v8.shape)} e4m3",
+                 ms=cuda_ms(lambda: attention_cuda.widen_v_codes(v8)),
+                 plain_ms=cuda_ms(lambda: attention_cuda.widen_v_codes_plain(v8)),
+                 library_ms=cuda_ms(lambda: v8.to(torch.bfloat16)),  # the plain version's call
+                 bound_ms=v8.numel() * 3 / PEAK_BYTES_S * 1e3, bound_by="bytes",
+                 max_abs_err=0.0 if torch.equal(
+                     attention_cuda.widen_v_codes(v8).view(torch.int16),
+                     attention_cuda.widen_v_codes_plain(v8).view(torch.int16)) else None)
+            require(results[f"widen_v_codes_hd{dp}"]["max_abs_err"] == 0.0,
+                    f"widen_v_codes at d {dp} differs from its plain version")
         del q, k, v, qp, kp, vp, k_i8, k_sc, v8, v8_sc
         torch.cuda.empty_cache()
     return out
@@ -4789,11 +4826,12 @@ def check_wide_masked(results) -> dict:
 
 def check_wide_preq(results) -> dict:
     """Phase 10d: the pre-quantized wide instances
-    (``attention_fwd_preq_wide.cu``) against their plain version for every
-    Q/K option (QOPTS) with bf16 and e4m3 V (:func:`compare_preq`) at
-    (4, 16/16, 4096, 512), causal, and at (1, 16/8, 3001, 320) (padded to
-    384) with window 1000; the main path ``wide_preq_hd512``: ``sageattn``
-    with int4 + smooth_q on the layer (kernels 4, 2-3 and the pre-quantized
+    (``attention_fwd_preq_wide.cu``; unmasked the TMA-fed wgmma kernel)
+    against their plain version for every Q/K option (QOPTS) with bf16 and
+    e4m3 V (:func:`compare_preq`) at (4, 16/16, 4096, 512), causal and not,
+    and at (1, 16/8, 3001, 320) (padded to 384), causal and not, and with
+    window 1000 (the masked instances); the main path ``wide_preq_hd512``:
+    ``sageattn`` with int4 + smooth_q on the layer (kernels 4, 2-3 and the pre-quantized
     forward), against exact attention at the int4 floor 0.97, and each
     other option as the op against exact at its floor (0.999 for 8 bits,
     0.97 for int4), on normal inputs; the times by option."""
@@ -4811,8 +4849,9 @@ def check_wide_preq(results) -> dict:
     q, _, _ = biased_qk(gen, (b, hq, s, d))
     _, k, v = biased_qk(gen, (b, hkv, s, d))
     for opts in QOPTS.values():
-        compare_preq(f"hd512 {(b, hq, hkv, s, d)}", q, k, v, opts, True, hs, results,
-                     key="sage_attn_fwd_preq_hd512")
+        for causal in (True, False):
+            compare_preq(f"hd512 {(b, hq, hkv, s, d)}", q, k, v, opts, causal, hs, results,
+                         key="sage_attn_fwd_preq_hd512")
     # the op against exact attention on normal inputs (the accuracy sweep
     # holds int4 alone only there)
     qn, kn, vn = (torch.randn(b, hq, s, d, generator=gen, device="cuda").to(torch.bfloat16)
@@ -4852,7 +4891,7 @@ def check_wide_preq(results) -> dict:
          f"int4+smooth_q (by option { {n: round(x, 4) for n, x in by_opt.items()} })",
          ms=by_opt["int4+smooth_q"], plain_ms=plain_ms, bound_ms=bound, bound_by=by,
          library_ms=sdpa_ms, library=f"SDPA ({backend})", ms_by_option=by_opt,
-         registers=out["registers"].get("512"),
+         registers=out["registers"].get("512 wgmma"), pairs=pairs, d=d,
          shape={"b": b, "hq": hq, "hkv": hkv, "s": s, "d": d, "causal": True,
                 "option": "int4+smooth_q"})
     out["ms_by_option"] = by_opt
@@ -4865,6 +4904,9 @@ def check_wide_preq(results) -> dict:
         compare_preq(f"hd384 d320 window {w} {(b, hq, hkv, s)}", q, k, padded(v, 384), opts,
                      True, (0, 8, 15), results, masks=Masks(window=w),
                      key="sage_attn_fwd_preq_hd384")
+        for causal in (True, False):
+            compare_preq(f"hd384 d320 {(b, hq, hkv, s)}", q, k, padded(v, 384), opts, causal,
+                         (0, 8, 15), results, key="sage_attn_fwd_preq_hd384")
     q_i8, q_sc, k_q, k_qs, cb = preq_operands(q, k, QOPTS["int4+smooth_q"])
     vp = padded(v, 384)
     pairs = b * hq * s * (s + 1) // 2
@@ -4881,7 +4923,8 @@ def check_wide_preq(results) -> dict:
              reps=2, warmup=1),
          library_ms=sdpa_backend(q, k.repeat_interleave(2, dim=1),
                                  v.repeat_interleave(2, dim=1), True)[1],
-         bound_ms=bound, bound_by=by,
+         bound_ms=bound, bound_by=by, pairs=pairs, d=d,
+         registers=wide_registers("attention_fwd_preq_wide").get("384 wgmma"),
          shape={"b": b, "hq": hq, "hkv": hkv, "s": s, "d": d, "causal": True,
                 "option": "int4+smooth_q"})
     del q, k, v, vp, q_i8, q_sc, k_q, k_qs, cb
@@ -5226,13 +5269,12 @@ def run_wide(results) -> dict:
 def measured_rate_floor(results, probe: dict) -> None:
     """Beside each timed wgmma forward instance's data-sheet bound (the
     CogVideoX-2B and Wan2.1 layers, the Gemma-7B layer at 256, the
-    pre-quantized forward at both), the time its products take at this
-    run's measured ``wgmma`` rates and its exp2 at the measured ``exp2f``
-    rate; beside each wide forward's, the time its products
-    take at this run's measured ``mma.sync`` rates (phase 9: int8 Q.K^T at
-    d 256, bf16 P.V at dv 256), Q.K^T counted once a column slice (twice:
-    the split recomputes it); beside each timed backward kernel's, the time
-    its products take at the measured ``wgmma`` and ``mma.sync`` rates at
+    pre-quantized forward at both, the wide instances at 384 and 512), the
+    time its products take at this run's measured ``wgmma`` rates (above
+    256 phase 9's d 256 rows: int8 Q.K^T at d 256, bf16 P.V at dv 256) and
+    its exp2 at the measured ``exp2f`` rate; beside each timed backward
+    kernel's, the time its products take at the measured ``wgmma`` and
+    ``mma.sync`` rates at
     its head dim (int8 Q.K^T, 2d a pair, and bf16 P.V for the rest), the
     bias instances' too."""
     rate = {t["row"]: t["rate"] for t in probe["rows"]}
@@ -5254,26 +5296,19 @@ def measured_rate_floor(results, probe: dict) -> None:
     # measured exp2f rate (the "pass exp2f" row), each its own floor
     for r in (results["sage_attn_fwd"], results["sage_attn_fwd"]["wan_layer"],
               results["sage_attn_fwd_hd256"], results["sage_attn_fwd_preq"],
-              results["sage_attn_fwd_preq_hd256"]):
+              results["sage_attn_fwd_preq_hd256"],
+              *(results[f"{n}_hd{dp}"] for n in ("sage_attn_fwd", "sage_attn_fwd_preq")
+                for dp in WIDE_DIMS)):
         if "pairs" not in r:
             continue
         ops = 2 * r["pairs"] * r["d"]
-        r["wgmma_floor_ms"] = (ops / rate[f"qk s8 d{r['d']} wgmma"]
-                               + ops / rate[f"pv bf16 dv{r['d']} wgmma"]) * 1e3
+        dr = min(r["d"], 256)  # the probe's widest rows
+        r["wgmma_floor_ms"] = (ops / rate[f"qk s8 d{dr} wgmma"]
+                               + ops / rate[f"pv bf16 dv{dr} wgmma"]) * 1e3
         r["exp2_floor_ms"] = r["pairs"] / rate["pass exp2f"] * 1e3
         log(f"forward d{r['d']} ({r['pairs']} scores): {r['ms']:.4f} ms; its products at the "
             f"measured wgmma rates {r['wgmma_floor_ms']:.4f} ms, its exp2 at the measured "
             f"exp2f rate {r['exp2_floor_ms']:.4f} ms; data-sheet bound {r['bound_ms']:.4f} ms")
-    qk, pv = rate["qk s8 d256 mma.sync"], rate["pv bf16 dv256 mma.sync"]
-    for dp in WIDE_DIMS:
-        r = results[f"sage_attn_fwd_hd{dp}"]
-        if "shape" not in r:
-            continue
-        ops = 2 * r["shape"]["live_pairs"] * dp
-        r["mma_sync_floor_ms"] = (2 * ops / qk + ops / pv) * 1e3
-        log(f"sage_attn_fwd_hd{dp}: {r['ms']:.4f} ms; its products at the measured mma.sync "
-            f"rates (Q.K^T twice) {r['mma_sync_floor_ms']:.4f} ms; data-sheet bound "
-            f"{r['bound_ms']:.4f} ms")
 
 
 def kernel_entries() -> dict:

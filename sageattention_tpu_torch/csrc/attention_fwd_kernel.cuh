@@ -3,12 +3,13 @@
 // The kernels of attention_fwd_masked.cu (MASKED = true) and the masked
 // instances of attention_fwd_preq.cu (PREQ = true) at head dims 64 and
 // 128, of attention_fwd_masked_hd256.cu and attention_fwd_preq_hd256.cu
-// (masked, PREQ) at 256, and of attention_fwd_wide.cu,
-// attention_fwd_masked_wide.cu and attention_fwd_preq_wide.cu at 384 and
-// 512 (O split by columns, kDv, both ways of MASKED); their body is
-// attention_fwd_body.cuh.  The unmasked instances at 64, 128 and 256 are
-// attention_fwd_sm90.cuh's TMA-fed wgmma kernel, which computes the same
-// and uses this header's operand types and helpers.  Each source
+// (masked, PREQ) at 256, and of attention_fwd_masked_wide.cu and the
+// masked ones of attention_fwd_preq_wide.cu at 384 and 512 (O split by
+// columns over CTAs, kDv); their body is attention_fwd_body.cuh.  Every
+// unmasked instance is a TMA-fed wgmma kernel that computes the same and
+// uses this header's operand types and helpers: attention_fwd_sm90.cuh's
+// at 64, 128 and 256, attention_fwd_sm90_wide.cuh's (O's columns split
+// between two warpgroups of one CTA) at 384 and 512.  Each source
 // instantiates only its own kernels, so the sources build in parallel:
 // every masked statement sits under `if constexpr (MASKED)`, every
 // pre-quantized one under `if constexpr (PREQ)`, and the operands of
@@ -48,11 +49,16 @@
 //      dtype and, if asked, lse2 = log2(l) + m.  Rows >= sq are not
 //      written.  When causal, KV tiles wholly above the diagonal of the Q
 //      tile are skipped.
-// Above D = 256 a CTA computes one column slice of O, kDv<D> = D / 2
-// columns, and the grid's x axis walks each Q tile's two slices; every
-// slice runs steps 1-3a over the whole D by the same instructions (so m, l
-// and lse2 agree bit for bit), steps 3c-4 over its own V and O columns, and
-// slice 0 writes lse2 (attention_fwd_wide.cu says why and what it costs).
+// Above D = 256 (the masked instances only) a CTA computes one column
+// slice of O, kDv<D> = D / 2 columns, and the grid's x axis walks each Q
+// tile's two slices; every slice runs steps 1-3a over the whole D by the
+// same instructions (so m, l and lse2 agree bit for bit), steps 3c-4 over
+// its own V and O columns, and slice 0 writes lse2.  A warp's fp32 O
+// accumulator over the whole D would take D / 2 registers a thread, 192 at
+// 384 and 256 at 512; the split keeps it at 96 or 128, and costs Q.K^T
+// (with Q's quantization and the masks) done in both slices: of the int8
+// Q.K^T and bf16 P.V work Q.K^T is half, so the products take 1.5x their
+// single-pass count.
 //
 // The pre-quantized instantiation (PREQ) is kernel 1's slices (h), (i) and
 // (k) (attention_pallas.py:661-680, 1455-1457, 1837-1845): Q arrives as
@@ -140,9 +146,10 @@ constexpr float kLog2e = 1.4426950408889634f;
 template <int D>
 constexpr int kKvTile = D >= 256 ? BN / 2 : BN;
 
-// O columns a CTA computes: all D up to 256; above, half of them (192 at
-// D = 384, 256 at 512), a grid axis over the column slices, so that a
-// warp's O accumulator stays at D = 256's 128 registers a thread or under
+// O columns a CTA of this body computes: all D up to 256; above (the masked
+// instances), half of them (192 at D = 384, 256 at 512), a grid axis over
+// the column slices, so that a warp's O accumulator stays at D = 256's 128
+// registers a thread or under
 template <int D>
 constexpr int kDv = D > 256 ? D / 2 : D;
 

@@ -3,10 +3,12 @@
 // (MASKED = true), kernel 1's slices (c)-(g) for head dims in (256, 512].
 // A source of its own beside attention_fwd_masked.cu and
 // attention_fwd_masked_hd256.cu, for the reasons attention_fwd_wide.cu
-// gives; O's column slices (a CTA each, S recomputed in every slice) are
-// described there.  Each slice applies the masks, the bias and the tile
-// skipping to its own S, by the same rule, so the slices agree on every
-// dead element and on the rows with no live key (o = 0, lse2 = -inf).
+// gives.  O is split by columns over a grid axis, a CTA a column slice
+// with S recomputed in each (attention_fwd_kernel.cuh says why and what it
+// costs; the unmasked instances split O inside one CTA instead).  Each
+// slice applies the masks, the bias and the tile skipping to its own S,
+// by the same rule, so the slices agree on every dead element and on the
+// rows with no live key (o = 0, lse2 = -inf).
 //
 // Bound: operations over the live (row, col) pairs, as attention_fwd_masked.cu.
 

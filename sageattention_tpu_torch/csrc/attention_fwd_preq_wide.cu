@@ -1,22 +1,25 @@
 // Fused SageAttention forward for Hopper (sm_90a) on pre-quantized Q at head
-// dims 384 and 512: the PREQ instances of attention_fwd_kernel.cuh at
-// D = 384 and 512, without masks and with them (8 each a head dim: causal x
-// V kind; the output type is an argument), kernel 1's slices (h)
-// score_col_bias, (i) qk_int4 and (k) pre-quantized operands of
-// attention_pallas.py:sage_attention_fused for every head dim in (256, 512].
+// dims 384 and 512, kernel 1's slices (h) score_col_bias, (i) qk_int4 and
+// (k) pre-quantized operands of attention_pallas.py:sage_attention_fused
+// for every head dim in (256, 512]: without masks the PREQ instances of
+// attention_fwd_sm90_wide.cuh (TMA-fed wgmma, O's columns split between
+// two consumer warpgroups; causal or not, V codes widened to bf16 before
+// the launch), with masks those of attention_fwd_kernel.cuh at D = 384 and
+// 512 (8 each a head dim: causal x V kind; O split by columns over a grid
+// axis, each slice reading the same Q codes and scales and staging the
+// same column pairs' K scales and smooth_q's column bias, so its scores are
+// the other slice's bit for bit).  The output type is an argument.
 // sageattn's smooth_q, qk_bits=4 and qk_quant_gran run here at those head
 // dims.  A source of its own, for the reasons attention_fwd_wide.cu gives.
 //
-// The tiling is attention_fwd_wide.cu's: O's column slices, a CTA each, and
-// 64-column KV tiles, two to a 128-row K-scale group.  Every slice reads the
-// same Q codes and scales and stages the same column pairs' K scales and
-// smooth_q's column bias, so its scores are the other slice's bit for bit.
-// The +-7 codes of qk_bits=4 run the same int8 MMA: a sum of 512 products of
-// +-7 stays under 2^15.
+// The +-7 codes of qk_bits=4 run the same int8 MMA: a sum of 512 products
+// of +-7 stays under 2^15.  Per-tile K scales are read as group kv0 / 128
+// of a KV tile (64 columns; 32 at 512 without masks), per-row ones as the
+// row's own, staged by TMA with the column bias.
 //
 // Bound: operations, as the default wide forward.
 
-#include "attention_fwd_kernel.cuh"
+#include "attention_fwd_sm90_wide.cuh"
 
 // The operands of sage_attn_fwd_preq (attention_fwd_preq.cu), with d 384 or
 // 512.
@@ -40,9 +43,15 @@ extern "C" int sage_attn_fwd_preq_wide(
                  mask_sb, mask_sh, mask_sr, mask_sc, bias_sb, bias_sh, bias_sr, bias_sc, live_sb,
                  live_sh, window, bias_bf16))
     return (int)cudaErrorInvalidValue;
-  if (d == 384)
-    return masked ? launch_fwd_preq_d<384, true>(a, mk, pq, d, causal, v_kind, group, stream)
-                  : launch_fwd_preq_d<384, false>(a, NoMask{}, pq, d, causal, v_kind, group, stream);
-  return masked ? launch_fwd_preq_d<512, true>(a, mk, pq, d, causal, v_kind, group, stream)
-                : launch_fwd_preq_d<512, false>(a, NoMask{}, pq, d, causal, v_kind, group, stream);
+  if (!masked) {
+    const FwdSm90Args u{q, (const float*)q_scale, (const float*)k_scale, (const float*)col_bias,
+                        (const float*)v_scale, (const float*)v_mean, o,
+                        want_lse ? (float*)lse2 : nullptr, hq, hkv, sq, sk, 0.f, ks_per_row,
+                        o_f32};
+    return d == 384
+               ? launch_fwd_wide<384, true>(u, k, v, b, d, causal, 0, v_kind, group, stream)
+               : launch_fwd_wide<512, true>(u, k, v, b, d, causal, 0, v_kind, group, stream);
+  }
+  return d == 384 ? launch_fwd_preq_d<384, true>(a, mk, pq, d, causal, v_kind, group, stream)
+                  : launch_fwd_preq_d<512, true>(a, mk, pq, d, causal, v_kind, group, stream);
 }

@@ -3,11 +3,14 @@
 // The instances of attention_fwd.cu (head dims 64 and 128),
 // attention_fwd_hd256.cu (256) and the unmasked ones of attention_fwd_preq.cu
 // and attention_fwd_preq_hd256.cu (pre-quantized Q): causal x q dtype
-// (PREQ: causal; its output type is an argument).  The masked instances and the head dims above 256 keep the
-// mma.sync body of attention_fwd_kernel.cuh, whose notes say what kernel 1
-// computes; this kernel computes the same, in the same order a score at a
-// time (its exp2 is ex2.approx.ftz, exp2f's instruction without the
-// denormal fix-up: a p under 2^-126 is 0):
+// (PREQ: causal; its output type is an argument).  At 384 and 512 the
+// unmasked instances are attention_fwd_sm90_wide.cuh's kernel, built on this
+// header's pieces with O's columns split between the two consumer
+// warpgroups of one CTA; only the masked instances keep the mma.sync body of
+// attention_fwd_kernel.cuh (O split over CTAs above 256), whose notes say
+// what kernel 1 computes.  This kernel computes the same, in the same order
+// a score at a time (its exp2 is ex2.approx.ftz, exp2f's instruction
+// without the denormal fix-up: a p under 2^-126 is 0):
 //   - Q quantized per row in the kernel (max(amax, 1e-30) / 127, roundf,
 //     clipped), sm_scale * log2(e) folded into the row scale as qs_mul, or
 //     with PREQ the caller's codes and scales;

@@ -49,6 +49,15 @@
   "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
   "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63" \
   "}"
+#define WG_D96 \
+  "{" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, " \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95" \
+  "}"
 #define WG_D128 \
   "{" \
   "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
@@ -67,6 +76,8 @@
 #define WG_OUT32(C, d) WG_OUT8(C, d, 0), WG_OUT8(C, d, 8), WG_OUT8(C, d, 16), WG_OUT8(C, d, 24)
 #define WG_OUT64(C, d) \
   WG_OUT32(C, d), WG_OUT8(C, d, 32), WG_OUT8(C, d, 40), WG_OUT8(C, d, 48), WG_OUT8(C, d, 56)
+#define WG_OUT96(C, d) \
+  WG_OUT64(C, d), WG_OUT8(C, d, 64), WG_OUT8(C, d, 72), WG_OUT8(C, d, 80), WG_OUT8(C, d, 88)
 #define WG_OUT128(C, d) \
   WG_OUT64(C, d), WG_OUT8(C, d, 64), WG_OUT8(C, d, 72), WG_OUT8(C, d, 80), WG_OUT8(C, d, 88), \
       WG_OUT8(C, d, 96), WG_OUT8(C, d, 104), WG_OUT8(C, d, 112), WG_OUT8(C, d, 120)
@@ -162,8 +173,10 @@ __device__ inline void wgmma_e4m3<256>(float* d, const uint32_t* a, uint64_t des
 // The backward's products.  S-shaped tiles (N = 32 or 64 columns) from two
 // shared descriptors, both K-major: d = A . B^T, or d += A . B^T with
 // scale_d 1.
-// The accumulating products (dQ, dK, dV) take A (P, P^T, dS) from registers
-// and B = a row-major [k][n] bf16 tile read MN-major (tnspB 1): d += a . B.
+// The accumulating products (dQ, dK, dV; the forward's P.V) take A (P,
+// P^T, dS) from registers and B = a row-major [k][n] bf16 tile read
+// MN-major (tnspB 1): d += a . B.  N 192 is the wide forward's half of O at
+// head dim 384.
 // ---------------------------------------------------------------------------
 
 template <int N>
@@ -198,8 +211,11 @@ __device__ inline void wgmma_bf16_rs_mn(float* d, const uint32_t* a, uint64_t db
   } else if constexpr (N == 128) {
     WG_ASM("m64n128k16.f32.bf16.bf16", WG_D64, "{%64, %65, %66, %67}, %68, p, 1, 1, 1", "%69",
            WG_OUT64("+f", d), "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else if constexpr (N == 192) {
+    WG_ASM("m64n192k16.f32.bf16.bf16", WG_D96, "{%96, %97, %98, %99}, %100, p, 1, 1, 1", "%101",
+           WG_OUT96("+f", d), "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
   } else {
-    static_assert(N == 256, "wgmma_bf16_rs_mn: N is 64, 128 or 256");
+    static_assert(N == 256, "wgmma_bf16_rs_mn: N is 64, 128, 192 or 256");
     WG_ASM("m64n256k16.f32.bf16.bf16", WG_D128, "{%128, %129, %130, %131}, %132, p, 1, 1, 1",
            "%133", WG_OUT128("+f", d), "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
            "r"(1));

@@ -87,8 +87,10 @@ SIGNATURES = {
         "sage_attn_fwd_preq_hd256": [P] * 8 + [I] * 12 + [P] * 3 + [I] + [P] * 9 + [LL] * 10
         + [I] * 2,
     },
-    # the forward's D = 384 and 512 instances (O split by columns), with the
-    # operands of the default, masked and pre-quantized forwards
+    # the forward's D = 384 and 512 instances, with the operands of the
+    # default, masked and pre-quantized forwards; the unmasked ones are one
+    # CTA a Q tile with O's columns split between two warpgroups, the masked
+    # ones split O over CTAs
     "attention_fwd_wide": {
         "sage_attn_fwd_wide": [P] * 8 + [I] * 11 + [F, P],
     },

@@ -8,14 +8,17 @@ and with its masks (:class:`Masks`: segment ids and varlen's range form,
 positions, a bool mask, an additive bias, a sliding window), and on
 pre-quantized operands (int8 or +-7 Q codes with per-row scales, K scales
 per tile or per row, smooth-q's column bias).  Three wrappers over
-libraries built from two kernels that compute the same function: the
-unmasked instances at head dims 64, 128 and 256 are a TMA-fed ``wgmma``
-kernel (``csrc/attention_fwd_sm90.cuh``: a producer warpgroup, two
-consumer warpgroups in ping-pong), the masked ones and those above 256
-the ``mma.sync`` body of ``csrc/attention_fwd_kernel.cuh`` (:func:`route`
-says which a call takes; each source says what bounds it).  Before the
-``wgmma`` kernel, V codes are widened to bf16 by :func:`widen_v_codes`
-(``csrc/widen_v.cu``), which counts its own launches:
+libraries built from two kernels that compute the same function: every
+unmasked instance is a TMA-fed ``wgmma`` kernel
+(``csrc/attention_fwd_sm90.cuh`` at head dims 64, 128 and 256: a producer
+warpgroup and two consumer warpgroups of 64 Q rows each;
+``csrc/attention_fwd_sm90_wide.cuh`` at 384 and 512: one 64-row Q tile a
+CTA, O's columns split between the two consumer warpgroups), the masked
+ones the ``mma.sync`` body of ``csrc/attention_fwd_kernel.cuh``
+(:func:`route` says which a call takes; each source says what bounds
+it).  Before the ``wgmma`` kernels, V codes are widened to bf16 by
+:func:`widen_v_codes` (``csrc/widen_v.cu``), which counts its own
+launches:
 :func:`sage_attention_fwd` (``csrc/attention_fwd.cu``, no masks),
 :func:`sage_attention_fwd_masked` (``csrc/attention_fwd_masked.cu``) and
 :func:`sage_attention_fwd_preq` (``csrc/attention_fwd_preq.cu``, with
@@ -24,18 +27,19 @@ instances of ``csrc/attention_fwd_hd256.cu``,
 ``csrc/attention_fwd_masked_hd256.cu`` and
 ``csrc/attention_fwd_preq_hd256.cu``, and at 384 and 512 those of
 ``csrc/attention_fwd_wide.cu``, ``csrc/attention_fwd_masked_wide.cu`` and
-``csrc/attention_fwd_preq_wide.cu`` (O split by columns over a grid
-axis, S recomputed in each column slice), and count them apart, in
-``<wrapper>.hd256_launches``, ``.hd384_launches`` and
+``csrc/attention_fwd_preq_wide.cu`` (the masked ones with O split by
+columns over a grid axis, S recomputed in each column slice), and count
+them apart, in ``<wrapper>.hd256_launches``, ``.hd384_launches`` and
 ``.hd512_launches``.  A masked row with no live key gives o = 0 and
 lse2 = -inf, as the TPU kernel does.
 
 The H100 launch configuration is fixed: 128 Q rows per CTA (64 a
-consumer warpgroup) in the ``wgmma`` kernel and 64 in the ``mma.sync``
-one, KV tiles of ``K_GROUP`` = 128 columns (64 from head dim 256 on, two
-to a group), and ``K_GROUP`` is also the K-scale group, so a tile reads
-one K scale.  It replaces the TPU's ``default_config`` and tuned table,
-which hold TPU block sizes only.
+consumer warpgroup) in the ``wgmma`` kernel up to head dim 256, 64 above
+it and in the ``mma.sync`` one, KV tiles of ``K_GROUP`` = 128 columns (64
+from head dim 256 on, two to a group; 32 in the pre-quantized unmasked
+kernel at 512, four to a group), and ``K_GROUP`` is also the K-scale
+group, so a tile reads one K scale.  It replaces the TPU's
+``default_config`` and tuned table, which hold TPU block sizes only.
 
 On a CPU tensor a wrapper runs the plain version; on a CUDA tensor it
 launches its kernel or raises.  ``<wrapper>.launches`` counts the
@@ -71,12 +75,12 @@ def route(d: int, *, masked: bool, preq: bool) -> tuple[str, str, str]:
     """(library, entry point, kernel) of a forward call at head dim ``d``:
     the library ``attention_fwd[_masked|_preq]`` + :func:`instances`, its
     entry ``sage_attn_fwd[_masked|_preq]`` + the same, and the kernel it
-    launches, ``"wgmma"`` (``csrc/attention_fwd_sm90.cuh``) for an unmasked
-    call at 64, 128 or 256, else ``"mma.sync"``
-    (``csrc/attention_fwd_kernel.cuh``).  The pre-quantized library holds
-    both ways of ``masked``."""
+    launches, ``"wgmma"`` for an unmasked call (``csrc/attention_fwd_sm90.cuh``
+    at 64, 128 and 256, ``csrc/attention_fwd_sm90_wide.cuh`` at 384 and
+    512), else ``"mma.sync"`` (``csrc/attention_fwd_kernel.cuh``).  The
+    pre-quantized library holds both ways of ``masked``."""
     kind = "_preq" if preq else "_masked" if masked else ""
-    kernel = "wgmma" if d <= 256 and not masked else "mma.sync"
+    kernel = "mma.sync" if masked else "wgmma"
     return "attention_fwd" + kind + instances(d), "sage_attn_fwd" + kind + instances(d), kernel
 
 
@@ -266,7 +270,7 @@ def widen_v_codes_plain(v: torch.Tensor) -> torch.Tensor:
 
 def widen_v_codes(v: torch.Tensor) -> torch.Tensor:
     """V codes (int8, fp8 e4m3 or e5m2; contiguous) widened to bf16, the
-    step of kernel 1's P.V that the ``wgmma`` forward takes before its
+    step of kernel 1's P.V that the ``wgmma`` forwards take before their
     launch (``csrc/widen_v.cu``; TMA cannot widen)."""
     if v.device.type == "cpu":
         return widen_v_codes_plain(v)

@@ -4,10 +4,10 @@ chunked K mean, on the CPU.
 * :func:`attention_cuda.route` for every head dim of ``HEAD_DIMS``, with
   and without masks, default and pre-quantized Q: the library and entry
   point each wrapper calls, both in ``_build.SIGNATURES``, and the kernel
-  it launches: the ``wgmma`` kernel (``csrc/attention_fwd_sm90.cuh``) for
-  an unmasked call at 64, 128 or 256, whose source includes that header,
-  and the ``mma.sync`` body (``csrc/attention_fwd_kernel.cuh``) for a
-  masked call or one above 256.
+  it launches: a ``wgmma`` kernel for every unmasked call, whose source
+  includes its header (``csrc/attention_fwd_sm90.cuh`` at 64, 128 or 256,
+  ``csrc/attention_fwd_sm90_wide.cuh`` at 384 and 512), and the
+  ``mma.sync`` body (``csrc/attention_fwd_kernel.cuh``) for a masked call.
 * :func:`attention_cuda.widen_v_codes`, which widens V codes to bf16
   before the ``wgmma`` forward: on the CPU its plain version, every finite
   int8, e4m3 and e5m2 code against the TPU kernel's ``astype(bfloat16)``,
@@ -50,14 +50,16 @@ def test_route(d, masked, preq):
     sfx = "_hd256" if d == 256 else "_wide" if d > 256 else ""
     assert (lib, entry) == ("attention_fwd" + kind + sfx, "sage_attn_fwd" + kind + sfx)
     assert entry in _build.SIGNATURES[lib]
-    assert kernel == ("wgmma" if d <= 256 and not masked else "mma.sync")
+    assert kernel == ("mma.sync" if masked else "wgmma")
     source = (_build.CSRC / f"{lib}.cu").read_text()
-    # an unmasked call at 64-256 reaches the wgmma kernel's header; the
-    # masked-only and wide sources never include it
+    # an unmasked call reaches a wgmma kernel's header (at 384 and 512 the
+    # wide one, O's columns split between two warpgroups); the masked-only
+    # sources never include either
     if kernel == "wgmma":
-        assert '#include "attention_fwd_sm90.cuh"' in source
+        header = "attention_fwd_sm90_wide.cuh" if d > 256 else "attention_fwd_sm90.cuh"
+        assert f'#include "{header}"' in source
     elif not preq:
-        assert "attention_fwd_sm90.cuh" not in source
+        assert "attention_fwd_sm90" not in source
 
 
 @pytest.mark.parametrize("name", ["int8", "fp8", "fp8_e5m2"])

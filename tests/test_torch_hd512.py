@@ -14,6 +14,10 @@ multiple of 128 (``core.py:70-75``), and so does the port, up to 512.
   pre-quantized one with smooth_q's column bias and +-7 codes at 512 the
   same way (the Pallas ``qk_int4`` operand type has no CPU path; its
   numbers are those of the same +-7 codes in the int8 product).
+* The plain versions at d 384 and 512 at ragged lengths (sq 200 / sk
+  129), causal and not: bf16 V and e4m3 codes, and the pre-quantized one
+  with per-row K scales and a column bias, against the Pallas kernel in
+  interpret mode at the tolerance above.
 * ``sageattn`` at d 320 and 512 against ``core._sageattn_hnd(impl="xla",
   chunk_k=128)`` (fp32 inputs; with K smoothing a K code may move a step,
   the two means summed in other orders: cosine >= 0.99999, max-abs <=
@@ -253,6 +257,80 @@ def test_preq_plain_matches_pallas_hd512(bits, window):
         torch.from_numpy(k_i8), torch.from_numpy(k_sc), v_t, is_causal=True, return_lse=True,
         out_dtype=torch.float32, col_bias=torch.from_numpy(cb),
         masks=Masks(window=window) if window else None)
+    _close_kernel(o_t, l_t, o_j, l_j)
+
+
+# ragged lengths at the wide head dims: sq not a multiple of the wide kernel's
+# 64-row Q tile, sk not one of its KV tiles, sq > sk
+RAGGED_SHAPE = (1, 2, 1, 200, 129)  # b, hq, hkv, sq, sk
+
+
+def _ragged_operands(d, seed, pv):
+    """Q, K codes with per-tile scales and V (bf16 or e4m3 codes) at
+    RAGGED_SHAPE and head dim d."""
+    b, hq, hkv, sq, sk = RAGGED_SHAPE
+    rng = np.random.default_rng(seed)
+    q = _rand(seed, (b, hq, sq, d))
+    k_i8 = rng.integers(-127, 128, (b, hkv, sk, d), dtype=np.int8)
+    k_scale = (rng.random((b, hkv, -(-sk // G))) + 0.5).astype(np.float32) * 2e-2
+    return q, k_i8, k_scale, _v_operands(_rand(seed + 1, (b, hkv, sk, d)), pv)
+
+
+def _pad_rows(x, n, axis=2, value=0):
+    pad = [(0, 0)] * np.ndim(x)
+    pad[axis] = (0, n - np.shape(x)[axis])
+    return np.pad(np.asarray(x), pad, constant_values=value)
+
+
+def _fused_ragged(q, q_scale, k_i8, k_scale, v_j, extra, *, causal, pv, **kw):
+    """The Pallas kernel at RAGGED_SHAPE's lengths: Q and K/V padded to one
+    256-row block each, the padded keys masked by ``kv_live`` (one KV
+    step), the padded rows cropped."""
+    sq, sk, n = RAGGED_SHAPE[3], RAGGED_SHAPE[4], 256
+    v_pad = jnp.pad(v_j, ((0, 0), (0, 0), (0, n - sk), (0, 0)))
+    o, lse = attention_pallas.sage_attention_fused(
+        jnp.asarray(_pad_rows(q, n)), None if q_scale is None else jnp.asarray(_pad_rows(
+            q_scale, n, value=1.0)), jnp.asarray(_pad_rows(k_i8, n)),
+        jnp.asarray(k_scale), v_pad, *extra, is_causal=causal, pv_dtype=pv, return_lse=True,
+        block_q=128, block_k=n, sub_q=128, chunk_k=G, kv_live=sk, out_dtype=jnp.float32,
+        interpret=True, **kw)
+    return o[:, :, :sq], lse[:, :, :sq]
+
+
+@pytest.mark.parametrize("pv", ["bf16", "fp8"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [384, 512])
+def test_ragged_plain_matches_pallas_wide(d, causal, pv):
+    """The forward's plain version at RAGGED_SHAPE agrees with the Pallas
+    kernel (interpret mode) at ``test_plain_attention_matches_pallas_wide``'s
+    tolerance."""
+    q, k_i8, k_scale, (v_j, extra, v_t, vs_t) = _ragged_operands(d, d + causal, pv)
+    fold = d**-0.5 * LOG2E
+    o_t, l_t = attention_cuda.sage_attention_fwd(
+        torch.from_numpy(q), torch.from_numpy(k_i8), torch.from_numpy(k_scale), v_t, vs_t,
+        is_causal=causal, q_fold=fold, return_lse=True)
+    o_j, l_j = _fused_ragged(q, None, k_i8, k_scale, v_j, extra, causal=causal, pv=pv,
+                             q_fold=fold)
+    _close_kernel(o_t, l_t, o_j, l_j)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [384, 512])
+def test_ragged_preq_plain_matches_pallas_wide(d, causal):
+    """The same for the pre-quantized forward, with per-row K scales and
+    smooth_q's column bias."""
+    b, hq, hkv, sq, sk = RAGGED_SHAPE
+    q, k_i8, _, (v_j, extra, v_t, _) = _ragged_operands(d, d + 7 + causal, "bf16")
+    q_i8, q_sc = jquant.quant_int8(jnp.asarray(q), scale_fold=d**-0.5 * LOG2E)
+    ks = (np.random.default_rng(d).random((b, hkv, sk)) + 0.5).astype(np.float32) * 2e-2
+    cb = _rand(d + 9, (b, hq, sk), scale=0.5)
+    o_t, l_t = attention_cuda.sage_attention_fwd_preq(
+        torch.from_numpy(np.array(q_i8)), torch.from_numpy(np.array(q_sc)),
+        torch.from_numpy(k_i8), torch.from_numpy(ks), v_t, is_causal=causal, return_lse=True,
+        out_dtype=torch.float32, col_bias=torch.from_numpy(cb))
+    o_j, l_j = _fused_ragged(q_i8, q_sc, k_i8, jnp.asarray(_pad_rows(ks, 256, value=1.0)), v_j,
+                             extra, causal=causal, pv="bf16",
+                             score_col_bias=jnp.asarray(_pad_rows(cb, 256)))
     _close_kernel(o_t, l_t, o_j, l_j)
 
 
