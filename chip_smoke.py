@@ -1690,17 +1690,19 @@ def paged_from_dense(gen, cache, page):
         rpp = x.shape[2] // n  # rows a page (page/2 packed)
         pages = x.reshape(b, hkv, n, rpp, *x.shape[3:]).transpose(1, 2).reshape(
             b * n, hkv, rpp, *x.shape[3:])
-        out = torch.empty_like(pages)
+        # contiguous: at b 1 the reshape above is a strided view, and
+        # empty_like would keep its strides
+        out = torch.empty(pages.shape, dtype=pages.dtype, device=pages.device)
         out[table.reshape(-1).long()] = pages
         pool.append(out)
     return pool, table
 
 
-def compare_decode(name, res, res_p, results, key):
-    """A decode kernel's (o, m, l) against its plain version's: o cosine >=
-    0.9999 and max-abs <= 2e-2 (the forward's limits); m, a max of scores
-    both compute by the same fp32 chain, within 1e-5; l within 1e-4
-    relative (the kernel sums p in another order)."""
+def decode_agreement(res, res_p):
+    """(agrees, the readings, o's max-abs) of two decodes' (o, m, l): o
+    cosine >= 0.9999 and max-abs <= 2e-2 (the forward's limits); m, a max
+    of scores both compute by the same fp32 chain, within 1e-5; l within
+    1e-4 relative (the two sum p in other orders)."""
     import torch
     from sageattention_tpu_torch.utils.compare import cosine_similarity
 
@@ -1712,10 +1714,17 @@ def compare_decode(name, res, res_p, results, key):
     merr = (m - m_p).abs().max().item()
     lrel = ((l - l_p).abs() / l_p.abs().clamp_min(1e-30)).max().item()
     finite = bool(torch.isfinite(o).all())
-    log(f"decode {name}: o cos {cos:.7f}, max abs {err:.3e}; m max abs {merr:.3e}; l max rel "
-        f"{lrel:.3e}; finite {finite}")
-    require(finite and cos >= 0.9999 and err <= 2e-2 and merr <= 1e-5 and lrel <= 1e-4,
-            f"decode {name}: the kernel disagrees with its plain version")
+    ok = finite and cos >= 0.9999 and err <= 2e-2 and merr <= 1e-5 and lrel <= 1e-4
+    return ok, (f"o cos {cos:.7f}, max abs {err:.3e}; m max abs {merr:.3e}; l max rel "
+                f"{lrel:.3e}; finite {finite}"), err
+
+
+def compare_decode(name, res, res_p, results, key):
+    """A decode kernel's (o, m, l) against its plain version's, within
+    ``decode_agreement``'s limits."""
+    ok, what, err = decode_agreement(res, res_p)
+    log(f"decode {name}: {what}")
+    require(ok, f"decode {name}: the kernel disagrees with its plain version")
     r = results[key]
     r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
 
@@ -1849,6 +1858,144 @@ def check_decode(gen, results):
         log(f"decode paged (page 4096) vs dense (chunk 4096) {'int4' if packed else 'int8'} on "
             f"the same tokens: bit-identical {same}")
         require(same, "the paged kernel with page = chunk disagrees with the dense kernel")
+    check_decode_split(results)
+
+
+def decode_plan(q, cache, page):
+    """(cl, splits) the wrapper of kernel 9 (``page`` None) or 11 plans for
+    ``q`` over the dense ``cache`` or a pool of its tokens in pages of
+    ``page``."""
+    from sageattention_tpu_torch.ops import decode_cuda as dc
+
+    b, hq, t_q, _ = q.shape
+    hkv, S = cache[0].shape[1], cache[1].shape[2]
+    if page is None:
+        C = dc.dense_plan(S, hq // hkv * t_q, t_q, 4096, None)[0]
+        return dc.dense_split_plan(q.shape, hkv, S, C)
+    return dc.paged_split_plan(q.shape, hkv, page, S // page)
+
+
+# the kernels (and copies and sets) one call of each timed decode wrapper
+# path puts on the card, counted in phase 2 (check_decode_split): in a whole
+# run on the H100 the profiler runs of the later phases recorded no
+# device events
+DECODE_OPS: dict = {}
+
+
+def device_ops(fn) -> int:
+    """The kernels (and copies and sets) one call of ``fn`` puts on the card,
+    counted by ``torch.profiler`` after a warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation)
+
+
+def check_decode_split(results):
+    """The split walk of kernels 9 and 11 where it splits most: few
+    (batch, kv head) pairs, so the plan takes many splits and wide clusters,
+    at the lengths -5, 0, 1, C - 1, C, C + 1 and S around a chunk (or page)
+    of C; int8 and int4, t_q 1 and 4; dense in chunks of 1024, 4096 and
+    8192, pages of 1024, 8192 and (at d 512) of 16; a sharded pool's
+    ``owned`` shard whose first splits hold no owned page.  Each against its plain version
+    (compare_decode's limits), and two calls bit-identical in (o, m, l).
+    From a generator of its own, so that the later phases' inputs stay."""
+    import torch
+    from sageattention_tpu_torch.ops import _build
+    from sageattention_tpu_torch.ops import decode_cuda as dc
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(61)
+    cases = [
+        # name, hq, hkv, d, S, C (chunk or page), paged, t_q, packed
+        ("dense chunk 1024", 8, 2, 128, 8192, 1024, False, 1, False),
+        ("dense chunk 1024 int4 t_q 4", 8, 2, 128, 8192, 1024, False, 4, True),
+        ("dense chunk 4096", 4, 1, 128, 16384, 4096, False, 1, False),
+        ("dense chunk 4096 int4 t_q 4", 4, 1, 128, 16384, 4096, False, 4, True),
+        ("page 1024", 8, 2, 128, 8192, 1024, True, 1, False),
+        ("page 1024 int4 t_q 4", 8, 2, 128, 8192, 1024, True, 4, True),
+        ("d256 dense chunk 4096", 4, 1, 256, 8192, 4096, False, 1, False),
+        ("d512 page 16", 4, 2, 512, 4096, 16, True, 1, False),
+        ("d512 page 16 int4 t_q 4", 4, 2, 512, 4096, 16, True, 4, True),
+        ("d40 dense chunk 1024 ragged", 8, 2, 40, 8192, 1024, False, 1, False),
+        # a chunk (page) above 8 x 512 tokens: a CTA's share is walked in
+        # groups of 512 tokens, K read again for the second and third steps
+        ("dense chunk 8192 (groups)", 4, 1, 128, 16384, 8192, False, 1, False),
+        ("page 8192 int4 (groups)", 4, 1, 128, 16384, 8192, True, 1, True),
+    ]
+    out = {}
+    for name, hq, hkv, d, S, C, paged, t_q, packed in cases:
+        ln = [-5, 0, 1, C - 1, C, C + 1, S]
+        b = len(ln)
+        cache = random_cache(gen, (b, hkv), S, d, packed)
+        q = torch.randn(b, hq, t_q, d, generator=gen, device="cuda").to(torch.bfloat16)
+        L = torch.tensor(ln, dtype=torch.int32, device="cuda")
+        kw = dict(return_state=True)
+        if paged:
+            pool, table = paged_from_dense(gen, cache, C)
+            key = "sage_paged_decode"
+            plan = dc.paged_split_plan(q.shape, hkv, C, table.shape[1])
+            fn = lambda: dc.sage_paged_decode_attention(q, *pool, table, L, **kw)  # noqa: E731
+            plain = lambda: dc.sage_paged_decode_attention_plain(q, *pool, table, L, **kw)  # noqa: E731,E501
+        else:
+            key = "sage_decode"
+            plan = dc.dense_split_plan(q.shape, hkv, S, C)
+            fn = lambda: dc.sage_decode_attention(q, *cache, L, chunk=C, **kw)  # noqa: E731
+            plain = lambda: dc.sage_decode_attention_plain(q, *cache, L, chunk=C, **kw)  # noqa: E731,E501
+        dp = _build.pad_head_dim(d)
+        if dp > 128:
+            key += f"_hd{dp}"
+        res = fn()
+        compare_decode(f"split {name} (cl, splits) {plan} {tuple(ln)}", res, plain(), results, key)
+        again = fn()
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(res, again))
+        log(f"decode split {name}: two calls bit-identical {same}")
+        require(same, f"decode split {name}: two calls differ")
+        out[name] = {"plan": list(plan), "deterministic": same}
+    # a shard of a pool whose first splits own no page: their partials are
+    # empty and read nothing
+    cache = random_cache(gen, (2, 8), 16384, 128, False)
+    pool, table = paged_from_dense(gen, cache, 1024)
+    q = torch.randn(2, 32, 1, 128, generator=gen, device="cuda").to(torch.bfloat16)
+    plan = dc.paged_split_plan(q.shape, 8, 1024, table.shape[1])
+    ranges = dc.split_ranges(table.shape[1], plan[1])
+    own = (torch.rand(table.shape, generator=gen, device="cuda") < 0.5).int()
+    own[:, :ranges[len(ranges) // 2][0]] = 0
+    L = torch.tensor([16000, 9000], dtype=torch.int32, device="cuda")
+    kw = dict(owned=own, return_state=True)
+    res = dc.sage_paged_decode_attention(q, *pool, table, L, **kw)
+    compare_decode(f"split owned, splits {ranges[:len(ranges) // 2]} of {plan} own no page", res,
+                   dc.sage_paged_decode_attention_plain(q, *pool, table, L, **kw), results,
+                   "sage_paged_decode_owned")
+    again = dc.sage_paged_decode_attention(q, *pool, table, L, **kw)
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(res, again))
+    require(same, "decode split owned: two calls differ")
+    out["owned, empty first splits"] = {"plan": list(plan), "deterministic": same}
+    log(f"decode split: {len(out)} cases, every one deterministic")
+    # the timed wrapper paths' launches a call, with their dtypes and options
+    # (bf16 q; the sharded phases' return_state, and fp32 out with owned)
+    own_kw = dict(owned=own, return_state=True, out_dtype=torch.float32)
+    paths = {
+        "sage_decode": lambda: dc.sage_decode_attention(q, *cache, L),
+        "sage_decode_state": lambda: dc.sage_decode_attention(q, *cache, L, return_state=True),
+        "sage_paged_decode": lambda: dc.sage_paged_decode_attention(q, *pool, table, L),
+        "sage_paged_decode_owned": lambda: dc.sage_paged_decode_attention(q, *pool, table, L,
+                                                                           **own_kw),
+        "sage_decode_window": lambda: dc.sage_decode_attention(q, *cache, L, window=4096),
+        "sage_paged_decode_window": lambda: dc.sage_paged_decode_attention(q, *pool, table, L,
+                                                                            window=4096)}
+    DECODE_OPS.update({name: device_ops(fn) for name, fn in paths.items()})
+    log(f"decode: CUDA launches a call by wrapper path {DECODE_OPS}")
+    out["launches_a_call"] = dict(DECODE_OPS)
+    return out
 
 
 def decode_bound(lengths, hq, hkv, t_q, d, packed, window):
@@ -1902,19 +2049,24 @@ def time_decode(gen, results):
             ms = cuda_ms(fn, reps=20, cold=True)
             plain_ms = cuda_ms(plain, reps=3, warmup=1)
             bound, by = decode_bound([length] * b, hq, hkv, t_q, d, packed, window)
+            ops = DECODE_OPS.get(name)
+            # kernels 9 and 11: the split walk's plan (kernels 10 and 12 have none)
+            plan = None if window is not None else list(decode_plan(q, cache, page))
             what = f"t_q {t_q} {'int4' if packed else 'int8'}"
             log(f"time {name} {what} at b {b}, length {length}, S {S}"
                 f"{'' if page is None else f', page {page}'}: {ms:.4f} ms (bound {bound:.4f} ms, "
-                f"{by}), plain {plain_ms:.4f} ms")
+                f"{by}), plain {plain_ms:.4f} ms; (cl, splits) {plan}; {ops} CUDA launches a call "
+                f"(counted in phase 2)")
             r = results[name]
             if t_q == 1 and not packed:
                 r.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
                          shape={"b": b, "hq": hq, "hkv": hkv, "t_q": 1, "d": d, "S": S,
-                                "length": length, "page": page, "window": window})
+                                "length": length, "page": page, "window": window},
+                         plan=plan, device_ops_a_call=ops)
             else:
                 r.setdefault("other_shapes", []).append(
                     {"t_q": t_q, "bits": 4 if packed else 8, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound, "bound_by": by})
+                     "bound_ms": bound, "bound_by": by, "plan": plan, "device_ops_a_call": ops})
 
 
 # --------------------------------------------------------------------------
@@ -2070,7 +2222,7 @@ def profile_device(fn, out_name: str, what: str) -> dict:
             groups["sage_attn_fwd"] += ms
         elif "sage_attn_bwd" in low:
             groups["sage_attn_bwd"] += ms
-        elif "decode_kernel" in low:  # kernels 9-12
+        elif "decode_kernel" in low or "decode_split_kernel" in low:  # kernels 9-12
             groups["sage_decode"] += ms
         elif "quant" in low or "channel_mean" in low:  # K, Q and V quantizers
             groups["quant"] += ms
@@ -4228,6 +4380,9 @@ def run_sharded_paged(results) -> dict:
                            name + "_owned")
             shard_ms.append(cuda_ms(lambda: dc.sage_paged_decode_attention(*args, **kw), reps=20,
                                     cold=True))
+            if s == 0 and window is None:
+                plan = dc.paged_split_plan(q.shape, hkv, SHARD_PAGE, local.shape[1])
+                ops = DECODE_OPS.get("sage_paged_decode_owned")
             bounds.append(owned_bound(table.tolist(), L, owned.tolist(), SHARD_PAGE, hkv, hq, 1,
                                       d, False, window)[0])
             plain.append(cuda_ms(lambda: dc.sage_paged_decode_attention_plain(*args, **kw),
@@ -4236,12 +4391,17 @@ def run_sharded_paged(results) -> dict:
         log(f"time {name} owned at b 1, 32/8, length {L[0]}, window {window}: shards "
             f"{[round(x, 4) for x in shard_ms]} ms (bounds {[round(x, 4) for x in bounds]}, "
             f"bytes; plain {[round(x, 3) for x in plain]}), the whole pool {whole_ms:.4f} ms "
-            f"(bound {wb:.4f})")
+            f"(bound {wb:.4f})"
+            + ("" if window is not None else
+               f"; a shard's (cl, splits) {plan}, {ops} CUDA launches a call (counted in "
+               f"phase 2)"))
         res = results[name + "_owned"]
         res.update(ms=statistics.median(shard_ms), plain_ms=statistics.median(plain),
                    bound_ms=statistics.median(bounds), bound_by="bytes", library_ms=None,
                    shard_ms=shard_ms, shard_bound_ms=bounds, whole_pool_ms=whole_ms,
                    whole_pool_bound_ms=wb,
+                   **({} if window is not None else {"plan": list(plan),
+                                                     "device_ops_a_call": ops}),
                    shape={"b": 1, "hq": hq, "hkv": hkv, "d": d, "pages": table.numel(),
                           "page": SHARD_PAGE, "shards": SP, "length": L[0], "window": window})
         times[name] = {"shard_ms": shard_ms, "whole_pool_ms": whole_ms}
@@ -4279,13 +4439,18 @@ def run_sharded_dense(results) -> dict:
                         reps=20, cold=True) for t in range(tp) for s in range(sp)]
     whole_ms = cuda_ms(kernel(q, w["caches"][0][0], glen), reps=20, cold=True)
     bound, _ = decode_bound([s_local], hq // tp, hkv // tp, 1, d, False, None)
+    plan = dc.dense_split_plan((1, hq // tp, 1, d), hkv // tp, s_local, chunk)
+    ops = DECODE_OPS.get("sage_decode_state")
     log(f"time sage_decode at a dense shard (b 1, 16/4 heads, {s_local} tokens): "
-        f"{[round(x, 4) for x in shard_ms]} ms (bound {bound:.4f}, bytes); the unsharded "
-        f"cache (32/8, {int(glen)} tokens) {whole_ms:.4f} ms")
+        f"{[round(x, 4) for x in shard_ms]} ms (bound {bound:.4f}, bytes; (cl, splits) {plan}, "
+        f"{ops} CUDA launches a call, counted in phase 2); the unsharded cache (32/8, "
+        f"{int(glen)} tokens) "
+        f"{whole_ms:.4f} ms")
     del r, w
     torch.cuda.empty_cache()
     return {**out, "shard_kernel_ms": shard_ms, "shard_bound_ms": bound,
-            "unsharded_kernel_ms": whole_ms}
+            "unsharded_kernel_ms": whole_ms, "shard_plan": list(plan),
+            "shard_device_ops_a_call": ops}
 
 
 def ring_world(q, k, v, causal: bool, n: int = SP):

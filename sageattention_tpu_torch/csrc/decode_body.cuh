@@ -1,6 +1,11 @@
-// The shared body of the decode kernels (csrc/decode.cu, csrc/paged_decode.cu)
-// for Hopper (sm_90a): decode attention of a few query tokens against a
-// per-token-scaled int8 or token-pair-packed int4 KV cache.
+// The body of the windowed decode kernels (kernel 10, sage_decode_window in
+// csrc/decode.cu and csrc/decode_wide.cu; kernel 12,
+// sage_paged_decode_window in csrc/paged_decode.cu and
+// csrc/paged_decode_wide.cu) for Hopper (sm_90a): decode attention of a few
+// query tokens against a per-token-scaled int8 or token-pair-packed int4 KV
+// cache.  Kernels 9 and 11 (no window) run the split walk of
+// decode_split_sm90.cuh, which reuses this file's numbers and helpers
+// (Chunk, Mask, the loads and the int4 unpacking).
 //
 // The counterpart of decode_pallas.py:decode_step_body, which the TPU's
 // dense and paged kernels share: one copy of the numerics, two sources of
@@ -62,14 +67,13 @@
 // Bound: bytes.  Each step reads the live cache once (K and V codes, two
 // fp32 scales a token) and a few bytes of Q and O; the operations are a
 // few hundred per cache byte at most, far under the int8 tensor-core rate.
-// This first version is written to be right: one CTA per (b, kv head, row
-// tile) with the chunk loop inside, synchronous 16-byte loads (no TMA, no
-// cp.async pipeline), K read three times per chunk (the second and third
-// time from L2).  A slab's loads are issued together (cp.async) but not
-// overlapped with the previous slab's compute.  Slabs wholly past the
-// length or before the window are skipped (they are fully masked, so this
-// changes no number).  Splitting the chunk loop over CTAs and a pipelined
-// single pass are later work.
+// This walk is the first version, written to be right: one CTA per (b, kv
+// head, row tile) with the chunk loop inside, K read three times per chunk
+// (the second and third time from L2), a slab's loads issued together
+// (cp.async) but not overlapped with the previous slab's compute.  Slabs
+// wholly past the length or before the window are skipped (they are fully
+// masked, so this changes no number).  The windowed kernels keep it: they
+// visit only the n_live chunks the window reaches.
 
 #pragma once
 

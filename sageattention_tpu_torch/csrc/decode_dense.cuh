@@ -1,16 +1,49 @@
-// The dense decode kernel and its host side, shared by csrc/decode.cu
+// The dense decode kernels and their host side, shared by csrc/decode.cu
 // (head dims up to 256) and csrc/decode_wide.cu (head dims in (256, 512]),
 // which build apart and in parallel: each source instantiates only its own
-// instances (checked<WIDE>).  The design notes are in csrc/decode.cu and
-// decode_body.cuh.
+// instances (checked<WIDE>).  Kernel 9 (no window) runs the split walk of
+// decode_split_sm90.cuh, kernel 10 (the window) decode_body.cuh's one-CTA
+// walk.  The design notes are in csrc/decode.cu and those headers.
 
 #pragma once
 
 #include "decode_body.cuh"
+#include "decode_split_sm90.cuh"
 
 namespace {
 
 using decode::Chunk;
+
+template <int D, bool PACKED, bool RAGGED>
+__global__ void __launch_bounds__(dsplit::NTHREADS, dsplit::Shape<D, PACKED>::MIN_BLOCKS)
+sage_decode_split_kernel(const float* __restrict__ q, const int8_t* __restrict__ k,
+                         const float* __restrict__ ks, const int8_t* __restrict__ v,
+                         const float* __restrict__ vs, const int* __restrict__ lengths,
+                         float* __restrict__ o, float* __restrict__ m_out,
+                         float* __restrict__ l_out, int hkv, int rows, int t_q, int S, int C,
+                         float qs_mul, int ds, int cl, int splits, float* work, int* tickets) {
+  const int tiles = gridDim.x / cl, tile = blockIdx.x / cl, rank = blockIdx.x % cl;
+  const int hk = blockIdx.y, bi = blockIdx.z / splits, split = blockIdx.z % splits;
+  const size_t bh = (size_t)bi * hkv + hk;
+  const int rows_per_chunk = PACKED ? C / 2 : C;  // data rows of one chunk
+  const int8_t* kb = k + bh * (size_t)(PACKED ? S / 2 : S) * ds;
+  const int8_t* vb = v + bh * (size_t)(PACKED ? S / 2 : S) * ds;
+  const float* ksb = ks + bh * (size_t)S;
+  const float* vsb = vs + bh * (size_t)S;
+  auto chunk_at = [=](int ci) {
+    const size_t off = (size_t)ci * rows_per_chunk * ds;
+    return Chunk{kb + off, ksb + (size_t)ci * C, vb + off, vsb + (size_t)ci * C};
+  };
+  const int n_chunks = S / C, per = (n_chunks + splits - 1) / splits;
+  const int slot = (int)((bh * tiles + tile) * cl + rank);
+  const dsplit::Where w{rows, t_q, lengths[bi], C, split * per, min(n_chunks, (split + 1) * per),
+                        ds, qs_mul, splits, split, work,
+                        tickets == nullptr ? nullptr : tickets + slot, slot};
+  dsplit::split_cta<D, PACKED, RAGGED>(q + bh * rows * ds, o + bh * rows * ds,
+                                       m_out ? m_out + bh * rows : nullptr,
+                                       l_out ? l_out + bh * rows : nullptr, tile * dsplit::RT, w,
+                                       chunk_at, [](int) { return true; });
+}
 
 template <int D, int MW, bool PACKED, bool WINDOW, bool RAGGED>
 __global__ void __launch_bounds__(decode::NTHREADS)
@@ -46,7 +79,20 @@ struct Args {
   int b, hkv, rows, t_q, S, C, window, n_live;
   float qs_mul;
   int ds;  // the cache's head dim
+  // the split walk's plan (ops/decode_cuda.py:split_plan) and workspace
+  int cl, splits;
+  float* work;
+  int* tickets;
 };
+
+template <int D, bool PACKED, bool RAGGED>
+int launch_split(const Args& a, cudaStream_t st) {
+  const int tiles = (a.rows + dsplit::RT - 1) / dsplit::RT;
+  return dsplit::launch<D, PACKED>(sage_decode_split_kernel<D, PACKED, RAGGED>, tiles, a.hkv,
+                                   a.b, a.cl, a.splits, st, a.q, a.k, a.ks, a.v, a.vs, a.lengths,
+                                   a.o, a.m, a.l, a.hkv, a.rows, a.t_q, a.S, a.C, a.qs_mul, a.ds,
+                                   a.cl, a.splits, a.work, a.tickets);
+}
 
 template <int D, int MW, bool PACKED, bool WINDOW, bool RAGGED>
 int launch(const Args& a, cudaStream_t st) {
@@ -78,14 +124,21 @@ int launch_rows(const Args& a, cudaStream_t st) {
                         : launch<D, 4, PACKED, WINDOW, RAGGED>(a, st);
 }
 
-// the instances of the one head dim D (packed or not, ragged or not)
+// the instances of the one head dim D (packed or not, ragged or not): the
+// window's on decode_body.cuh, the others' the split walk
 template <int D, bool WINDOW>
 int launch_d(int d, int packed, const Args& a, cudaStream_t st) {
-  if (d % 16 != 0)  // rows off 16-byte alignment: read byte by byte
-    return packed ? launch_rows<D, true, WINDOW, true>(a, st)
-                  : launch_rows<D, false, WINDOW, true>(a, st);
-  return packed ? launch_rows<D, true, WINDOW, false>(a, st)
-                : launch_rows<D, false, WINDOW, false>(a, st);
+  if constexpr (WINDOW) {
+    if (d % 16 != 0)  // rows off 16-byte alignment: read byte by byte
+      return packed ? launch_rows<D, true, WINDOW, true>(a, st)
+                    : launch_rows<D, false, WINDOW, true>(a, st);
+    return packed ? launch_rows<D, true, WINDOW, false>(a, st)
+                  : launch_rows<D, false, WINDOW, false>(a, st);
+  } else {
+    if (d % 16 != 0)
+      return packed ? launch_split<D, true, true>(a, st) : launch_split<D, false, true>(a, st);
+    return packed ? launch_split<D, true, false>(a, st) : launch_split<D, false, false>(a, st);
+  }
 }
 
 // the instances of one source: head dims up to 256 (computed at 64, 128 or
@@ -106,15 +159,18 @@ template <bool WIDE>
 int checked(const void* q, const void* k, const void* ks, const void* v, const void* vs,
             const void* lengths, void* o, void* m, void* l, int b, int hkv, int rows, int t_q,
             int S, int d, int packed, int chunk, int window, int n_live, float qs_mul,
-            void* stream, bool windowed) {
+            void* stream, bool windowed, int cl = 1, int splits = 1, void* work = nullptr,
+            void* tickets = nullptr) {
   if (d <= (WIDE ? 256 : 0) || d > (WIDE ? 512 : 256) || chunk <= 0 || S % chunk != 0 ||
       (packed && chunk % 2 != 0) || t_q <= 0 || rows <= 0 ||
       (windowed && (window <= 0 || n_live <= 0 || n_live > S / chunk)) ||
+      (!windowed && !dsplit::plan_ok(cl, splits, S / chunk, work, tickets)) ||
       ((m == nullptr) != (l == nullptr)))
     return (int)cudaErrorInvalidValue;
   const Args a{(const float*)q, (const int8_t*)k, (const int8_t*)v, (const float*)ks,
                (const float*)vs, (const int*)lengths, (float*)o, (float*)m, (float*)l,
-               b, hkv, rows, t_q, S, chunk, window, n_live, qs_mul, d};
+               b, hkv, rows, t_q, S, chunk, window, n_live, qs_mul, d,
+               cl, splits, (float*)work, (int*)tickets};
   cudaStream_t st = (cudaStream_t)stream;
   return windowed ? dispatch<true, WIDE>(d, packed, a, st)
                   : dispatch<false, WIDE>(d, packed, a, st);

@@ -21,13 +21,22 @@
 // unowned grid steps; here the skip alone does that.  The lengths stay
 // global: owned pages are global logical pages.
 //
-// Grid: (row tiles, kv heads, batch).  Pages past the length are neither
-// read nor computed; entries of the table past it may hold any valid id.
+// Kernel 11 (sage_paged_decode) is the split walk of
+// decode_split_sm90.cuh, as kernel 9's (csrc/decode.cu): a cluster shares
+// each page, the grid splits the pages into consecutive ranges, the last
+// range to finish merges the partials in the launch; a range with no
+// owned page reads nothing but its table's owned mask.  A page of C tokens
+// takes the plan of a dense chunk of C, so the two give bit-identical
+// numbers.  Kernel 12 (sage_paged_decode_window) keeps decode_body.cuh's
+// one CTA per (row tile, kv head, batch).  Pages past the length are
+// neither read nor computed; entries of the table past it may hold any
+// valid id.
 //
 // Bound: bytes, as csrc/decode.cu: the live pages' K and V codes and their
 // scales once per step, plus the table.  Pages of 16 tokens (vLLM's size)
-// leave most of a 256-token shared-memory slab empty and run far from it;
-// pages of 1024 (the JAX default, the main path's) fill four slabs.
+// fill an eighth of a 128-token slab (a quarter of a 64-token one at 256
+// and above) and cost a chunk's three barriers each; pages of 1024 (the
+// JAX default, the main path's) fill eight slabs.
 
 #include "decode_paged.cuh"
 
@@ -38,14 +47,17 @@
 // not hold) or NULL (every page); lengths: int32 [b]; o: fp32 [b, hkv, rows,
 // d]; m, l: fp32 [b, hkv, rows] or both NULL (not with owned).  All
 // contiguous; d as sage_decode's (csrc/paged_decode_wide.cu takes d in
-// (256, 512]); qs_mul as sage_decode's.
+// (256, 512]); qs_mul, cl, splits, work and tickets as sage_decode's, with
+// max_pages in place of S / chunk.
 extern "C" int sage_paged_decode(const void* q, const void* pk, const void* pks, const void* pv,
                                  const void* pvs, const void* table, const void* owned,
                                  const void* lengths, void* o, void* m, void* l, int b, int hkv,
                                  int rows, int t_q, int page, int max_pages, int d, int packed,
-                                 int window, int n_live, float qs_mul, void* stream) {
+                                 int window, int n_live, float qs_mul, void* stream, int cl,
+                                 int splits, void* work, void* tickets) {
   return checked<false>(q, pk, pks, pv, pvs, table, owned, lengths, o, m, l, b, hkv, rows, t_q,
-                        page, max_pages, d, packed, 0, 0, qs_mul, stream, false);
+                        page, max_pages, d, packed, 0, 0, qs_mul, stream, false, cl, splits, work,
+                        tickets);
 }
 
 // as sage_paged_decode, over only the n_live pages the window reaches

@@ -36,6 +36,13 @@ their launches over a shard of a sharded pool (``owned``) in
 ``_build.MAX_HEAD_DIM`` = 512, computed at 64, 128, 256, 384 or 512: a cache of
 another head dim is read at its own row stride, byte by byte where that
 is not a multiple of 16 bytes.
+
+Kernels 9 and 11 (no window) split the chunk walk (``csrc/decode_split_sm90.cuh``):
+a cluster of ``cl`` CTAs shares each chunk, ``splits`` ranges of chunks run
+side by side, and the last range to finish merges the partials in the
+launch.  :func:`split_plan` chooses both on the host from the shapes alone
+(never the lengths on the card); the partials' workspace and tickets are
+the wrapper's, one per device and stream (:func:`split_workspace`).
 """
 
 from __future__ import annotations
@@ -119,6 +126,117 @@ def paged_plan(page: int, max_pages: int, rows: int, group: int, t_q: int,
 def window_start(length: int, span: int, chunk: int, n_total: int, n_live: int) -> int:
     """First chunk (or page) the window reaches, as each block computes it."""
     return min(max((length - span) // chunk, 0), n_total - n_live)
+
+
+# --------------------------------------------------------------------------
+# the split walk of kernels 9 and 11 (csrc/decode_split_sm90.cuh)
+# --------------------------------------------------------------------------
+
+SPLIT_RT = 16     # rows a CTA owns
+SPLIT_KEEP = 512  # tokens of S a CTA keeps on chip
+CL_MAX = 8        # the portable cluster size
+SPLITS_MAX = 256
+# the plan aims at about two waves of CTAs: two CTAs on each of the H100's
+# 132 SMs (up to head dim 256; at 384 and 512 a CTA takes an SM, and the
+# same plan, four waves there, measured no slower on pages of 16)
+_WAVE = 2 * 132
+
+
+def split_slab(d: int) -> int:
+    """Tokens of one shared-memory slab at head dim ``d`` (padded as the
+    kernels compute it): 128 up to 128, 64 above."""
+    return 128 if _build.pad_head_dim(d) <= 128 else 64
+
+
+def split_plan(n_chunks: int, chunk: int, d: int, rows: int, b: int, hkv: int):
+    """(cl, splits) of kernel 9 or 11 over ``n_chunks`` chunks (pages) of
+    ``chunk`` tokens: the cluster that shares one chunk, at least enough
+    CTAs that each keeps its share's S on chip (512 tokens; 1 where a chunk
+    holds one slab), and the ranges of chunks the grid runs side by side,
+    enough for about two waves of CTAs (two an SM) over the (row tile, kv
+    head, batch) clusters (1 where those already fill the card, as extend
+    blocks do).  Where every range is one chunk and the CTAs would not fill
+    one wave, the cluster widens, down to one slab a CTA.  No range is
+    empty."""
+    slabs = -(-chunk // split_slab(d))
+    cl = 1
+    while cl < CL_MAX and cl * SPLIT_KEEP < chunk:
+        cl *= 2
+    base = -(-rows // SPLIT_RT) * hkv * b
+    target = 2 * _WAVE
+    splits = min(n_chunks, SPLITS_MAX, -(-target // (base * cl)))
+    while splits == n_chunks and 2 * base * cl * splits <= target and 2 * cl <= min(CL_MAX, slabs):
+        cl *= 2
+    per = -(-n_chunks // splits)
+    return cl, -(-n_chunks // per)
+
+
+def dense_split_plan(q_shape, hkv: int, S: int, chunk: int):
+    """(cl, splits) of kernel 9 for q of ``q_shape`` over a cache of ``S``
+    tokens in chunks of ``chunk`` (the kernel's, from :func:`dense_plan`)."""
+    b, hq, t_q, d = q_shape
+    return split_plan(S // chunk, chunk, d, hq // hkv * t_q, b, hkv)
+
+
+def paged_split_plan(q_shape, hkv: int, page: int, max_pages: int):
+    """(cl, splits) of kernel 11: a page is a chunk, so pages of C give the
+    plan of a dense cache in chunks of C."""
+    b, hq, t_q, d = q_shape
+    return split_plan(max_pages, page, d, hq // hkv * t_q, b, hkv)
+
+
+def split_ranges(n_chunks: int, splits: int):
+    """The consecutive chunk ranges [c0, c1) of the ``splits`` splits."""
+    per = -(-n_chunks // splits)
+    return [(s * per, min(n_chunks, (s + 1) * per)) for s in range(splits)]
+
+
+def split_shares(cl: int, splits: int, n_chunks: int, chunk: int, d: int, length: int):
+    """{(split, rank): [(chunk, slab), ...]}: the slabs each CTA of a
+    cluster reads, as the kernel deals them: each chunk below ``length``
+    in its split's range, its live slabs cut into ``cl`` contiguous shares."""
+    slab = split_slab(d)
+    out = {}
+    for s, (c0, c1) in enumerate(split_ranges(n_chunks, splits)):
+        for r in range(cl):
+            got = out.setdefault((s, r), [])
+            for ci in range(c0, c1):
+                if ci * chunk >= length:
+                    break
+                nsl = -(-min(chunk, length - ci * chunk) // slab)
+                per = -(-nsl // cl)
+                got += [(ci, j) for j in range(r * per, min(nsl, (r + 1) * per))]
+    return out
+
+
+def split_workspace_size(plan, b: int, hkv: int, rows: int, d: int):
+    """(tickets, fp32 partial floats) of one launch under ``plan``."""
+    cl, splits = plan
+    slots = -(-rows // SPLIT_RT) * hkv * b * cl
+    D = _build.pad_head_dim(d)
+    return slots, slots * splits * (SPLIT_RT * D // cl + 2 * SPLIT_RT)
+
+
+_WORKSPACES: dict = {}
+
+
+def split_workspace(device, stream: int, plan, b: int, hkv: int, rows: int, d: int):
+    """(partials, tickets) data pointers for a launch under ``plan`` on
+    ``stream``, or (None, None) with one split.  One fp32 workspace and one
+    int32 ticket array per (device, stream), grown as calls need; the
+    kernel leaves every ticket at 0 for the next call."""
+    if plan[1] == 1:
+        return None, None
+    n_tickets, floats = split_workspace_size(plan, b, hkv, rows, d)
+    key = (str(device), stream)
+    work, tickets = _WORKSPACES.get(key, (None, None))
+    if work is None or work.numel() < floats or tickets.numel() < n_tickets:
+        floats = max(floats, 0 if work is None else work.numel())
+        n_tickets = max(n_tickets, 0 if tickets is None else tickets.numel())
+        work = torch.empty(floats, dtype=torch.float32, device=device)
+        tickets = torch.zeros(n_tickets, dtype=torch.int32, device=device)
+        _WORKSPACES[key] = (work, tickets)
+    return work.data_ptr(), tickets.data_ptr()
 
 
 # --------------------------------------------------------------------------
@@ -363,6 +481,12 @@ def _ptr(x):
     return x.data_ptr() if x is not None else None
 
 
+def _split_args(q, stream: int, plan, hkv: int):
+    """The split walk's trailing arguments: cl, splits, partials, tickets."""
+    b, hq, t_q, d = q.shape
+    return (*plan, *split_workspace(q.device, stream, plan, b, hkv, hq // hkv * t_q, d))
+
+
 def _launch_dense(fn_name, q, k_i8, k_scale, v_i8, v_scale, lengths, *, chunk, window,
                   n_live, qs_mul, return_state):
     b, hq, t_q, d = q.shape
@@ -372,11 +496,14 @@ def _launch_dense(fn_name, q, k_i8, k_scale, v_i8, v_scale, lengths, *, chunk, w
     o, m, l = _outputs(q, (b, hkv, rows), return_state)
     sfx = _wide(d)
     with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        split = () if window else _split_args(q, stream, dense_split_plan(q.shape, hkv, S, chunk),
+                                              hkv)
         err = getattr(_build.lib("decode" + sfx), fn_name + sfx)(
             qf.data_ptr(), k_i8.data_ptr(), k_scale.data_ptr(), v_i8.data_ptr(),
             v_scale.data_ptr(), lens.data_ptr(), o.data_ptr(), _ptr(m), _ptr(l),
             b, hkv, rows, t_q, S, d, int(k_i8.shape[2] != S), chunk, window or 0,
-            n_live or 0, qs_mul, torch.cuda.current_stream(q.device).cuda_stream,
+            n_live or 0, qs_mul, stream, *split,
         )
     _build.check(err, fn_name + sfx)
     return o, m, l
@@ -413,12 +540,14 @@ def _launch_paged(fn_name, q, pages_k, pages_k_scale, pages_v, pages_v_scale, pa
     o, m, l = _outputs(q, (b, hkv, rows), return_state)
     sfx = _wide(d)
     with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        split = () if window else _split_args(
+            q, stream, paged_split_plan(q.shape, hkv, page, table.shape[1]), hkv)
         err = getattr(_build.lib("paged_decode" + sfx), fn_name + sfx)(
             qf.data_ptr(), pages_k.data_ptr(), pages_k_scale.data_ptr(), pages_v.data_ptr(),
             pages_v_scale.data_ptr(), table.data_ptr(), _ptr(own), lens.data_ptr(), o.data_ptr(),
             _ptr(m), _ptr(l), b, hkv, rows, t_q, page, table.shape[1], d,
-            int(pages_k.shape[2] != page), window or 0, n_live or 0, qs_mul,
-            torch.cuda.current_stream(q.device).cuda_stream,
+            int(pages_k.shape[2] != page), window or 0, n_live or 0, qs_mul, stream, *split,
         )
     _build.check(err, fn_name + sfx)
     return o, m, l
