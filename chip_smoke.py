@@ -1861,18 +1861,24 @@ def check_decode(gen, results):
     check_decode_split(results)
 
 
-def decode_plan(q, cache, page):
-    """(cl, splits) the wrapper of kernel 9 (``page`` None) or 11 plans for
-    ``q`` over the dense ``cache`` or a pool of its tokens in pages of
-    ``page``."""
+def decode_plan(q, cache, page, window=None, chunk=4096):
+    """(cl, splits) the wrapper of kernel 9 (``page`` None) or 11, or with a
+    ``window`` 10 or 12, plans for ``q`` over the dense ``cache`` in chunks
+    from ``chunk`` or a pool of its tokens in pages of ``page``."""
     from sageattention_tpu_torch.ops import decode_cuda as dc
 
-    b, hq, t_q, _ = q.shape
+    b, hq, t_q, d = q.shape
     hkv, S = cache[0].shape[1], cache[1].shape[2]
+    rows = hq // hkv * t_q
     if page is None:
-        C = dc.dense_plan(S, hq // hkv * t_q, t_q, 4096, None)[0]
-        return dc.dense_split_plan(q.shape, hkv, S, C)
-    return dc.paged_split_plan(q.shape, hkv, page, S // page)
+        C, n_kv, n_live = dc.dense_plan(S, rows, t_q, chunk, window)
+        if window is None:
+            return dc.dense_split_plan(q.shape, hkv, S, C)
+        return dc.window_split_plan(q.shape, hkv, C, n_live)
+    if window is None:
+        return dc.paged_split_plan(q.shape, hkv, page, S // page)
+    n_live = dc.paged_plan(page, S // page, rows, hq // hkv, t_q, window)
+    return dc.window_split_plan(q.shape, hkv, page, n_live)
 
 
 # the kernels (and copies and sets) one call of each timed decode wrapper
@@ -1898,14 +1904,17 @@ def device_ops(fn) -> int:
 
 
 def check_decode_split(results):
-    """The split walk of kernels 9 and 11 where it splits most: few
-    (batch, kv head) pairs, so the plan takes many splits and wide clusters,
-    at the lengths -5, 0, 1, C - 1, C, C + 1 and S around a chunk (or page)
-    of C; int8 and int4, t_q 1 and 4; dense in chunks of 1024, 4096 and
-    8192, pages of 1024, 8192 and (at d 512) of 16; a sharded pool's
-    ``owned`` shard whose first splits hold no owned page.  Each against its plain version
-    (compare_decode's limits), and two calls bit-identical in (o, m, l).
-    From a generator of its own, so that the later phases' inputs stay."""
+    """The split walk of kernels 9-12 where it splits most: few (batch, kv
+    head) pairs, so the plan takes many splits and wide clusters, at the
+    lengths -5, 0, 1, C - 1, C, C + 1 and S around a chunk (or page) of C,
+    and with a window at -5, 0, 1, about the window's first key, a chunk
+    edge, S and past S; int8 and int4, t_q 1 and 4 and (with the window)
+    extend blocks of 64-512 tokens; dense in chunks of 1024, 4096 and
+    8192, pages of 1024, 8192 and (at d 512) of 16; d 40 (ragged) and 256;
+    a sharded pool's ``owned`` shard whose first splits hold no owned page,
+    and one with a window.  Each against its plain version (compare_decode's
+    limits), and two calls bit-identical in (o, m, l).  From a generator of
+    its own, so that the later phases' inputs stay."""
     import torch
     from sageattention_tpu_torch.ops import _build
     from sageattention_tpu_torch.ops import decode_cuda as dc
@@ -1913,46 +1922,68 @@ def check_decode_split(results):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(61)
     cases = [
-        # name, hq, hkv, d, S, C (chunk or page), paged, t_q, packed
-        ("dense chunk 1024", 8, 2, 128, 8192, 1024, False, 1, False),
-        ("dense chunk 1024 int4 t_q 4", 8, 2, 128, 8192, 1024, False, 4, True),
-        ("dense chunk 4096", 4, 1, 128, 16384, 4096, False, 1, False),
-        ("dense chunk 4096 int4 t_q 4", 4, 1, 128, 16384, 4096, False, 4, True),
-        ("page 1024", 8, 2, 128, 8192, 1024, True, 1, False),
-        ("page 1024 int4 t_q 4", 8, 2, 128, 8192, 1024, True, 4, True),
-        ("d256 dense chunk 4096", 4, 1, 256, 8192, 4096, False, 1, False),
-        ("d512 page 16", 4, 2, 512, 4096, 16, True, 1, False),
-        ("d512 page 16 int4 t_q 4", 4, 2, 512, 4096, 16, True, 4, True),
-        ("d40 dense chunk 1024 ragged", 8, 2, 40, 8192, 1024, False, 1, False),
+        # name, hq, hkv, d, S, C (chunk or page), paged, t_q, packed, window
+        ("dense chunk 1024", 8, 2, 128, 8192, 1024, False, 1, False, None),
+        ("dense chunk 1024 int4 t_q 4", 8, 2, 128, 8192, 1024, False, 4, True, None),
+        ("dense chunk 4096", 4, 1, 128, 16384, 4096, False, 1, False, None),
+        ("dense chunk 4096 int4 t_q 4", 4, 1, 128, 16384, 4096, False, 4, True, None),
+        ("page 1024", 8, 2, 128, 8192, 1024, True, 1, False, None),
+        ("page 1024 int4 t_q 4", 8, 2, 128, 8192, 1024, True, 4, True, None),
+        ("d256 dense chunk 4096", 4, 1, 256, 8192, 4096, False, 1, False, None),
+        ("d512 page 16", 4, 2, 512, 4096, 16, True, 1, False, None),
+        ("d512 page 16 int4 t_q 4", 4, 2, 512, 4096, 16, True, 4, True, None),
+        ("d40 dense chunk 1024 ragged", 8, 2, 40, 8192, 1024, False, 1, False, None),
         # a chunk (page) above 8 x 512 tokens: a CTA's share is walked in
         # groups of 512 tokens, K read again for the second and third steps
-        ("dense chunk 8192 (groups)", 4, 1, 128, 16384, 8192, False, 1, False),
-        ("page 8192 int4 (groups)", 4, 1, 128, 16384, 8192, True, 1, True),
+        ("dense chunk 8192 (groups)", 4, 1, 128, 16384, 8192, False, 1, False, None),
+        ("page 8192 int4 (groups)", 4, 1, 128, 16384, 8192, True, 1, True, None),
+        # the window (kernels 10 and 12): its n_live chunks split, each row
+        # tile's slabs from its own keys
+        ("window 4096 dense chunk 1024", 8, 2, 128, 16384, 1024, False, 1, False, 4096),
+        ("window 4096 dense chunk 1024 int4 t_q 4", 8, 2, 128, 16384, 1024, False, 4, True,
+         4096),
+        ("window 4096 dense t_q 512 extend", 8, 2, 128, 9216, 4096, False, 512, False, 4096),
+        ("window 4096 page 1024", 8, 2, 128, 16384, 1024, True, 1, False, 4096),
+        ("window 4096 page 1024 int4 t_q 4", 8, 2, 128, 16384, 1024, True, 4, True, 4096),
+        ("window 4096 page 1024 t_q 512 extend", 8, 2, 128, 9216, 1024, True, 512, False, 4096),
+        ("window 4096 page 1024 int4 t_q 512 extend", 8, 2, 128, 9216, 1024, True, 512, True,
+         4096),
+        ("window 1000 d40 dense chunk 1024 ragged", 8, 2, 40, 8192, 1024, False, 1, False, 1000),
+        ("window 1000 d40 page 1024 ragged t_q 64 extend", 8, 2, 40, 8192, 1024, True, 64,
+         True, 1000),
+        ("window 1000 d256 page 1024 t_q 128 extend", 4, 2, 256, 8192, 1024, True, 128, False,
+         1000),
+        ("window 1000 d512 page 16", 4, 2, 512, 4096, 16, True, 1, False, 1000),
+        ("window 1000 d512 page 16 int4 t_q 4", 4, 2, 512, 4096, 16, True, 4, True, 1000),
     ]
     out = {}
-    for name, hq, hkv, d, S, C, paged, t_q, packed in cases:
-        ln = [-5, 0, 1, C - 1, C, C + 1, S]
+    for name, hq, hkv, d, S, C, paged, t_q, packed, window in cases:
+        if window is None:
+            ln = [-5, 0, 1, C - 1, C, C + 1, S]
+        else:
+            ln = [-5, 0, 1, window - 1, window + t_q, 3 * C + 1, S, S + 3]
         b = len(ln)
         cache = random_cache(gen, (b, hkv), S, d, packed)
         q = torch.randn(b, hq, t_q, d, generator=gen, device="cuda").to(torch.bfloat16)
         L = torch.tensor(ln, dtype=torch.int32, device="cuda")
-        kw = dict(return_state=True)
+        kw = dict(return_state=True, window=window)
         if paged:
             pool, table = paged_from_dense(gen, cache, C)
-            key = "sage_paged_decode"
-            plan = dc.paged_split_plan(q.shape, hkv, C, table.shape[1])
+            key = "sage_paged_decode" if window is None else "sage_paged_decode_window"
+            plan = decode_plan(q, cache, C, window)
             fn = lambda: dc.sage_paged_decode_attention(q, *pool, table, L, **kw)  # noqa: E731
             plain = lambda: dc.sage_paged_decode_attention_plain(q, *pool, table, L, **kw)  # noqa: E731,E501
         else:
-            key = "sage_decode"
-            plan = dc.dense_split_plan(q.shape, hkv, S, C)
+            key = "sage_decode" if window is None else "sage_decode_window"
+            plan = decode_plan(q, cache, None, window, C)
             fn = lambda: dc.sage_decode_attention(q, *cache, L, chunk=C, **kw)  # noqa: E731
             plain = lambda: dc.sage_decode_attention_plain(q, *cache, L, chunk=C, **kw)  # noqa: E731,E501
         dp = _build.pad_head_dim(d)
         if dp > 128:
             key += f"_hd{dp}"
         res = fn()
-        compare_decode(f"split {name} (cl, splits) {plan} {tuple(ln)}", res, plain(), results, key)
+        compare_decode(f"split {name} (cl, splits) {plan} {tuple(ln)}", res, plain(),
+                       results, key)
         again = fn()
         torch.cuda.synchronize()
         same = all(torch.equal(x, y) for x, y in zip(res, again))
@@ -1964,7 +1995,7 @@ def check_decode_split(results):
     cache = random_cache(gen, (2, 8), 16384, 128, False)
     pool, table = paged_from_dense(gen, cache, 1024)
     q = torch.randn(2, 32, 1, 128, generator=gen, device="cuda").to(torch.bfloat16)
-    plan = dc.paged_split_plan(q.shape, 8, 1024, table.shape[1])
+    plan = decode_plan(q, cache, 1024)
     ranges = dc.split_ranges(table.shape[1], plan[1])
     own = (torch.rand(table.shape, generator=gen, device="cuda") < 0.5).int()
     own[:, :ranges[len(ranges) // 2][0]] = 0
@@ -1979,6 +2010,19 @@ def check_decode_split(results):
     same = all(torch.equal(x, y) for x, y in zip(res, again))
     require(same, "decode split owned: two calls differ")
     out["owned, empty first splits"] = {"plan": list(plan), "deterministic": same}
+    # the same shard with a window 4096 (kernel 12 with owned): half its
+    # pages owned, so that some splits of the window's pages own none
+    kw_w = dict(owned=own, return_state=True, window=4096)
+    plan_w = decode_plan(q, cache, 1024, 4096)
+    res = dc.sage_paged_decode_attention(q, *pool, table, L, **kw_w)
+    compare_decode(f"split owned window 4096, (cl, splits) {plan_w}", res,
+                   dc.sage_paged_decode_attention_plain(q, *pool, table, L, **kw_w), results,
+                   "sage_paged_decode_window_owned")
+    again = dc.sage_paged_decode_attention(q, *pool, table, L, **kw_w)
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(res, again))
+    require(same, "decode split owned window: two calls differ")
+    out["owned, window 4096"] = {"plan": list(plan_w), "deterministic": same}
     log(f"decode split: {len(out)} cases, every one deterministic")
     # the timed wrapper paths' launches a call, with their dtypes and options
     # (bf16 q; the sharded phases' return_state, and fp32 out with owned)
@@ -2050,8 +2094,8 @@ def time_decode(gen, results):
             plain_ms = cuda_ms(plain, reps=3, warmup=1)
             bound, by = decode_bound([length] * b, hq, hkv, t_q, d, packed, window)
             ops = DECODE_OPS.get(name)
-            # kernels 9 and 11: the split walk's plan (kernels 10 and 12 have none)
-            plan = None if window is not None else list(decode_plan(q, cache, page))
+            # the split walk's plan: (cl, splits)
+            plan = list(decode_plan(q, cache, page, window))
             what = f"t_q {t_q} {'int4' if packed else 'int8'}"
             log(f"time {name} {what} at b {b}, length {length}, S {S}"
                 f"{'' if page is None else f', page {page}'}: {ms:.4f} ms (bound {bound:.4f} ms, "
@@ -2222,7 +2266,7 @@ def profile_device(fn, out_name: str, what: str) -> dict:
             groups["sage_attn_fwd"] += ms
         elif "sage_attn_bwd" in low:
             groups["sage_attn_bwd"] += ms
-        elif "decode_kernel" in low or "decode_split_kernel" in low:  # kernels 9-12
+        elif "decode_kernel" in low:  # kernels 9-12
             groups["sage_decode"] += ms
         elif "quant" in low or "channel_mean" in low:  # K, Q and V quantizers
             groups["quant"] += ms

@@ -1,13 +1,13 @@
 // The dense decode kernels and their host side, shared by csrc/decode.cu
 // (head dims up to 256) and csrc/decode_wide.cu (head dims in (256, 512]),
 // which build apart and in parallel: each source instantiates only its own
-// instances (checked<WIDE>).  Kernel 9 (no window) runs the split walk of
-// decode_split_sm90.cuh, kernel 10 (the window) decode_body.cuh's one-CTA
-// walk.  The design notes are in csrc/decode.cu and those headers.
+// instances (checked<WIDE>).  Kernels 9 (no window) and 10 (the window) are
+// one kernel body, the split walk of decode_split_sm90.cuh: the window sets
+// the walked chunks, the mask and each row tile's slabs.  The design notes
+// are in csrc/decode.cu and that header.
 
 #pragma once
 
-#include "decode_body.cuh"
 #include "decode_split_sm90.cuh"
 
 namespace {
@@ -16,12 +16,12 @@ using decode::Chunk;
 
 template <int D, bool PACKED, bool RAGGED>
 __global__ void __launch_bounds__(dsplit::NTHREADS, dsplit::Shape<D, PACKED>::MIN_BLOCKS)
-sage_decode_split_kernel(const float* __restrict__ q, const int8_t* __restrict__ k,
-                         const float* __restrict__ ks, const int8_t* __restrict__ v,
-                         const float* __restrict__ vs, const int* __restrict__ lengths,
-                         float* __restrict__ o, float* __restrict__ m_out,
-                         float* __restrict__ l_out, int hkv, int rows, int t_q, int S, int C,
-                         float qs_mul, int ds, int cl, int splits, float* work, int* tickets) {
+sage_decode_kernel(const float* __restrict__ q, const int8_t* __restrict__ k,
+                   const float* __restrict__ ks, const int8_t* __restrict__ v,
+                   const float* __restrict__ vs, const int* __restrict__ lengths,
+                   float* __restrict__ o, float* __restrict__ m_out, float* __restrict__ l_out,
+                   int hkv, int rows, int t_q, int S, int C, int window, int n_live, float qs_mul,
+                   int ds, int cl, int splits, float* work, int* tickets) {
   const int tiles = gridDim.x / cl, tile = blockIdx.x / cl, rank = blockIdx.x % cl;
   const int hk = blockIdx.y, bi = blockIdx.z / splits, split = blockIdx.z % splits;
   const size_t bh = (size_t)bi * hkv + hk;
@@ -34,40 +34,16 @@ sage_decode_split_kernel(const float* __restrict__ q, const int8_t* __restrict__
     const size_t off = (size_t)ci * rows_per_chunk * ds;
     return Chunk{kb + off, ksb + (size_t)ci * C, vb + off, vsb + (size_t)ci * C};
   };
-  const int n_chunks = S / C, per = (n_chunks + splits - 1) / splits;
+  const int length = lengths[bi];
+  int c0, c1;
+  dsplit::chunk_range(length, t_q, C, S / C, window, n_live, splits, split, c0, c1);
   const int slot = (int)((bh * tiles + tile) * cl + rank);
-  const dsplit::Where w{rows, t_q, lengths[bi], C, split * per, min(n_chunks, (split + 1) * per),
-                        ds, qs_mul, splits, split, work,
+  const dsplit::Where w{rows, t_q, length, C, c0, c1, window, ds, qs_mul, splits, split, work,
                         tickets == nullptr ? nullptr : tickets + slot, slot};
-  dsplit::split_cta<D, PACKED, RAGGED>(q + bh * rows * ds, o + bh * rows * ds,
-                                       m_out ? m_out + bh * rows : nullptr,
-                                       l_out ? l_out + bh * rows : nullptr, tile * dsplit::RT, w,
-                                       chunk_at, [](int) { return true; });
-}
-
-template <int D, int MW, bool PACKED, bool WINDOW, bool RAGGED>
-__global__ void __launch_bounds__(decode::NTHREADS)
-sage_decode_kernel(const float* __restrict__ q, const int8_t* __restrict__ k,
-                   const float* __restrict__ ks, const int8_t* __restrict__ v,
-                   const float* __restrict__ vs, const int* __restrict__ lengths,
-                   float* __restrict__ o, float* __restrict__ m_out, float* __restrict__ l_out,
-                   int hkv, int rows, int t_q, int S, int C, int window, int n_live,
-                   float qs_mul, int ds) {
-  const int hk = blockIdx.y, bi = blockIdx.z;
-  const size_t bh = (size_t)bi * hkv + hk;
-  const int rows_per_chunk = PACKED ? C / 2 : C;  // data rows of one chunk
-  const int8_t* kb = k + bh * (size_t)(PACKED ? S / 2 : S) * ds;
-  const int8_t* vb = v + bh * (size_t)(PACKED ? S / 2 : S) * ds;
-  const float* ksb = ks + bh * (size_t)S;
-  const float* vsb = vs + bh * (size_t)S;
-  auto chunk_at = [=](int ci) {
-    const size_t off = (size_t)ci * rows_per_chunk * ds;
-    return Chunk{kb + off, ksb + (size_t)ci * C, vb + off, vsb + (size_t)ci * C};
-  };
-  decode::decode_cta<D, MW, PACKED, WINDOW, RAGGED>(
+  dsplit::split_cta<D, PACKED, RAGGED>(
       q + bh * rows * ds, o + bh * rows * ds, m_out ? m_out + bh * rows : nullptr,
-      l_out ? l_out + bh * rows : nullptr, rows, t_q, lengths[bi], C, S / C, window, n_live,
-      qs_mul, ds, chunk_at, [](int) { return true; });
+      l_out ? l_out + bh * rows : nullptr, tile * dsplit::RT, w, chunk_at,
+      [](int) { return true; });
 }
 
 struct Args {
@@ -76,7 +52,7 @@ struct Args {
   const float *ks, *vs;
   const int* lengths;
   float *o, *m, *l;
-  int b, hkv, rows, t_q, S, C, window, n_live;
+  int b, hkv, rows, t_q, S, C, window, n_live;  // window 0: none
   float qs_mul;
   int ds;  // the cache's head dim
   // the split walk's plan (ops/decode_cuda.py:split_plan) and workspace
@@ -86,72 +62,33 @@ struct Args {
 };
 
 template <int D, bool PACKED, bool RAGGED>
-int launch_split(const Args& a, cudaStream_t st) {
-  const int tiles = (a.rows + dsplit::RT - 1) / dsplit::RT;
-  return dsplit::launch<D, PACKED>(sage_decode_split_kernel<D, PACKED, RAGGED>, tiles, a.hkv,
-                                   a.b, a.cl, a.splits, st, a.q, a.k, a.ks, a.v, a.vs, a.lengths,
-                                   a.o, a.m, a.l, a.hkv, a.rows, a.t_q, a.S, a.C, a.qs_mul, a.ds,
-                                   a.cl, a.splits, a.work, a.tickets);
-}
-
-template <int D, int MW, bool PACKED, bool WINDOW, bool RAGGED>
 int launch(const Args& a, cudaStream_t st) {
-  auto kern = sage_decode_kernel<D, MW, PACKED, WINDOW, RAGGED>;
-  int smem = 0;
-  const int e = decode::prepare<D, MW, PACKED>(kern, smem);
-  if (e != 0) return e;
-  constexpr int RT = decode::Shape<D, MW, PACKED>::RT;
-  dim3 grid((a.rows + RT - 1) / RT, a.hkv, a.b);
-  kern<<<grid, decode::NTHREADS, smem, st>>>(a.q, a.k, a.ks, a.v, a.vs, a.lengths, a.o, a.m, a.l,
-                                             a.hkv, a.rows, a.t_q, a.S, a.C, a.window, a.n_live,
-                                             a.qs_mul, a.ds);
-  return (int)cudaGetLastError();
+  return dsplit::launch<D, PACKED>(sage_decode_kernel<D, PACKED, RAGGED>,
+                                   (a.rows + dsplit::RT - 1) / dsplit::RT, a.hkv, a.b, a.cl,
+                                   a.splits, st, a.q, a.k, a.ks, a.v, a.vs, a.lengths, a.o, a.m,
+                                   a.l, a.hkv, a.rows, a.t_q, a.S, a.C, a.window, a.n_live,
+                                   a.qs_mul, a.ds, a.cl, a.splits, a.work, a.tickets);
 }
 
-// the row tiling: 16 rows a block for decode, 64 (four row warps) for
-// extend blocks
-template <int D, bool PACKED, bool WINDOW, bool RAGGED>
-int launch_rows(const Args& a, cudaStream_t st) {
-  if constexpr (D > 256)  // two row warps and four token warps (decode_body.cuh, "Wide")
-    return launch<D, 2, PACKED, WINDOW, RAGGED>(a, st);
-  else if constexpr (RAGGED)  // one row tiling at every row count: four row warps
-    return launch<D, 4, PACKED, WINDOW, RAGGED>(a, st);
-  else if constexpr (D == 256)  // two row warps at least (decode_body.cuh, "Warps")
-    return a.rows <= 32 ? launch<D, 2, PACKED, WINDOW, RAGGED>(a, st)
-                        : launch<D, 4, PACKED, WINDOW, RAGGED>(a, st);
-  else
-    return a.rows <= 16 ? launch<D, 1, PACKED, WINDOW, RAGGED>(a, st)
-                        : launch<D, 4, PACKED, WINDOW, RAGGED>(a, st);
-}
-
-// the instances of the one head dim D (packed or not, ragged or not): the
-// window's on decode_body.cuh, the others' the split walk
-template <int D, bool WINDOW>
+// the instances of one head dim D: packed or not, ragged (rows off 16-byte
+// alignment, read byte by byte) or not
+template <int D>
 int launch_d(int d, int packed, const Args& a, cudaStream_t st) {
-  if constexpr (WINDOW) {
-    if (d % 16 != 0)  // rows off 16-byte alignment: read byte by byte
-      return packed ? launch_rows<D, true, WINDOW, true>(a, st)
-                    : launch_rows<D, false, WINDOW, true>(a, st);
-    return packed ? launch_rows<D, true, WINDOW, false>(a, st)
-                  : launch_rows<D, false, WINDOW, false>(a, st);
-  } else {
-    if (d % 16 != 0)
-      return packed ? launch_split<D, true, true>(a, st) : launch_split<D, false, true>(a, st);
-    return packed ? launch_split<D, true, false>(a, st) : launch_split<D, false, false>(a, st);
-  }
+  if (d % 16 != 0)
+    return packed ? launch<D, true, true>(a, st) : launch<D, false, true>(a, st);
+  return packed ? launch<D, true, false>(a, st) : launch<D, false, false>(a, st);
 }
 
 // the instances of one source: head dims up to 256 (computed at 64, 128 or
 // 256), or with WIDE those in (256, 512] (384 or 512), which build apart
-template <bool WINDOW, bool WIDE>
+template <bool WIDE>
 int dispatch(int d, int packed, const Args& a, cudaStream_t st) {
   if constexpr (WIDE) {
-    return d <= 384 ? launch_d<384, WINDOW>(d, packed, a, st)
-                    : launch_d<512, WINDOW>(d, packed, a, st);
+    return d <= 384 ? launch_d<384>(d, packed, a, st) : launch_d<512>(d, packed, a, st);
   } else {
-    if (d <= 64) return launch_d<64, WINDOW>(d, packed, a, st);
-    if (d <= 128) return launch_d<128, WINDOW>(d, packed, a, st);
-    return launch_d<256, WINDOW>(d, packed, a, st);
+    if (d <= 64) return launch_d<64>(d, packed, a, st);
+    if (d <= 128) return launch_d<128>(d, packed, a, st);
+    return launch_d<256>(d, packed, a, st);
   }
 }
 
@@ -159,21 +96,18 @@ template <bool WIDE>
 int checked(const void* q, const void* k, const void* ks, const void* v, const void* vs,
             const void* lengths, void* o, void* m, void* l, int b, int hkv, int rows, int t_q,
             int S, int d, int packed, int chunk, int window, int n_live, float qs_mul,
-            void* stream, bool windowed, int cl = 1, int splits = 1, void* work = nullptr,
-            void* tickets = nullptr) {
+            void* stream, bool windowed, int cl, int splits, void* work, void* tickets) {
   if (d <= (WIDE ? 256 : 0) || d > (WIDE ? 512 : 256) || chunk <= 0 || S % chunk != 0 ||
       (packed && chunk % 2 != 0) || t_q <= 0 || rows <= 0 ||
       (windowed && (window <= 0 || n_live <= 0 || n_live > S / chunk)) ||
-      (!windowed && !dsplit::plan_ok(cl, splits, S / chunk, work, tickets)) ||
+      !dsplit::plan_ok(cl, splits, windowed ? n_live : S / chunk, work, tickets) ||
       ((m == nullptr) != (l == nullptr)))
     return (int)cudaErrorInvalidValue;
   const Args a{(const float*)q, (const int8_t*)k, (const int8_t*)v, (const float*)ks,
                (const float*)vs, (const int*)lengths, (float*)o, (float*)m, (float*)l,
-               b, hkv, rows, t_q, S, chunk, window, n_live, qs_mul, d,
-               cl, splits, (float*)work, (int*)tickets};
-  cudaStream_t st = (cudaStream_t)stream;
-  return windowed ? dispatch<true, WIDE>(d, packed, a, st)
-                  : dispatch<false, WIDE>(d, packed, a, st);
+               b, hkv, rows, t_q, S, chunk, windowed ? window : 0, windowed ? n_live : 0,
+               qs_mul, d, cl, splits, (float*)work, (int*)tickets};
+  return dispatch<WIDE>(d, packed, a, (cudaStream_t)stream);
 }
 
 }  // namespace

@@ -1,9 +1,9 @@
-// The body of the non-windowed decode kernels (kernel 9, csrc/decode.cu and
-// csrc/decode_wide.cu; kernel 11, csrc/paged_decode.cu and
+// The body of every decode kernel (kernels 9 and 10, csrc/decode.cu and
+// csrc/decode_wide.cu; kernels 11 and 12, csrc/paged_decode.cu and
 // csrc/paged_decode_wide.cu) for Hopper (sm_90a): the chunk walk of
 // decode_pallas.py:decode_step_body split over a thread-block cluster and
 // over the grid, each K byte read once, the partials merged in the launch.
-// The windowed kernels 10 and 12 keep decode_body.cuh's one-CTA walk.
+// The windowed kernels (10, 12) walk the same body over the window's chunks.
 //
 // The numbers are decode_body.cuh's (its header gives the chain): per
 // chunk the row max m_c of sf, l_c = sum p, the P scale psc from the row
@@ -29,38 +29,58 @@
 // * A share longer than KEEP tokens (a chunk above 8 x 512 tokens: only a
 //   caller's chunk or page above 4096) is walked in groups of KEEP tokens
 //   whose K is read again in the second and third steps.
-// * The grid's z axis splits the chunks: split s of `splits` takes a
-//   contiguous range.  A range wholly past the length, or (kernel 11 with
-//   `owned`) with no owned page, reads nothing and leaves an empty partial
-//   (m = NEG_INIT, l = 0, o = 0).  With splits > 1 each CTA writes its
-//   normalized partial o, m and l to a workspace, raises a ticket after a
-//   __threadfence(), and the last of the splits to finish merges them in
-//   split order with merge_decode_partials' formula (ops/decode_cuda.py):
-//   w_i = l_i * 2^(m_i - max m), o = sum w_i o_i / sum w_i (1 where that
-//   is 0), m = max m, l = sum w_i; it resets its ticket for the next call.
-//   The workspace and tickets belong to the wrapper (allocated once per
-//   device and stream); the kernel allocates nothing.
+// * The walked chunks: every chunk of the cache, or with a window the n_live
+//   chunks from the first one it reaches, which each CTA computes from its
+//   own length (decode_pallas.py's start[b]; no host sync, and lengths
+//   outside [0, S] keep working).  The grid's z axis splits them: split s of
+//   `splits` takes a contiguous range (chunk_range).  A range that holds no
+//   key the tile sees, or (kernels 11-12 with `owned`) no owned page, reads
+//   nothing and leaves an empty partial (m = NEG_INIT, l = 0, o = 0).  With
+//   splits > 1 each CTA writes its normalized partial o, m and l to a
+//   workspace, raises a ticket after a __threadfence(), and the last of the
+//   splits to finish merges them in split order with
+//   merge_decode_partials' formula (ops/decode_cuda.py): w_i = l_i * 2^(m_i
+//   - max m), o = sum w_i o_i / sum w_i (1 where that is 0), m = max m, l =
+//   sum w_i; it resets its ticket for the next call.  The workspace and
+//   tickets belong to the wrapper (allocated once per device and stream);
+//   the kernel allocates nothing.
+// * The slabs of a row tile: only those that meet the keys its live rows
+//   can see, [length - t_q + tmin - window + 1, length - t_q + tmax + 1) cut
+//   to [0, length), tmin and tmax the least and largest query token among
+//   them (no lower end without a window).  A slab or chunk outside holds no
+//   live (row, key) pair of the tile: it would leave m_c, l_c, pmax and the
+//   P.V sums as they are, and merge with weight 0 (or 1 with l = 0 and o =
+//   0 before any live chunk), so skipping it changes no number.  At t_q 1
+//   this is the whole window (or every key below the length); in an extend
+//   block a 16-row tile sees window + 15 keys where the block spans window
+//   + t_q - 1.
 // * Loads overlap compute: a two-stage cp.async ring of slabs, K then V
 //   of each share, one barrier an item; the next item's loads (across the
 //   cluster barriers and into the next chunk) are in flight while the
 //   current one is computed.  RAGGED rows (a head dim that is not a
-//   multiple of 16) are read byte by byte as decode_body.cuh reads them,
-//   and are not overlapped.
+//   multiple of 16) are read byte by byte and are not overlapped.
 // * Occupancy: up to head dim 256 a CTA takes at most 115 KB of shared
 //   memory and 128 registers a thread (__launch_bounds__ with two blocks),
 //   so two CTAs share an SM and one's barriers hide behind the other's
 //   loads; that beat deeper rings or S kept in registers at one CTA an SM,
-//   and 255 registers without spills (PERF.md).  At 384 and 512 a
-//   CTA takes an SM.
+//   and 255 registers without spills (PERF.md).  At 384 and 512 a CTA takes
+//   an SM.  A 64-row tile (four 16-row groups over one staged slab, 128
+//   tokens of S kept, one CTA an SM at 252-255 registers) read the window's
+//   K and V from L2 a quarter as often in extend blocks, yet ran 1.4-2.4x
+//   slower than the 16-row tile at every cluster size (PERF.md).
 //
 // Warps: 8, all on the tile's 16 rows (RT = 16; extend blocks take more
 // row tiles).  S of a slab: warp w takes 8 * NT of its tokens (NT n-tiles
 // of m16n8k32 int8 mma.sync); P.V of a slab: warp w takes D / 8 columns
-// over all of its tokens, the int32 sums in registers over the share.
+// over all of its tokens, the int32 sums in registers over the share.  The
+// mma fragments come by ldmatrix, V^T is stored a word (four tokens) at a
+// time and sf, p and the P codes two tokens at a time: a CTA's time goes
+// mostly to shared-memory and cp.async instructions and cluster barriers,
+// not to the tensor cores (PERF.md, in-kernel clocks).
 //
-// Bound: bytes.  Each live K and V byte and scale is read once from
-// device memory; S, p and the codes stay on chip.  The tensor-core work is
-// 4 * rows * d operations a token, far under the int8 mma.sync rate.
+// Bound: bytes at the decode step: each live K and V byte and scale is read
+// once from device memory; S, p and the codes stay on chip.  Operations in
+// an extend block (4 * rows * d a visible key, on the int8 mma.sync).
 
 #pragma once
 
@@ -143,9 +163,62 @@ __device__ inline void st_cluster(uint32_t a, int x, int y) {
   asm volatile("st.shared::cluster.v2.s32 [%0], {%1, %2};\n" ::"r"(a), "r"(x), "r"(y) : "memory");
 }
 
+// The mma.sync fragments by ldmatrix: the int8 m16n8k32 A and B fragments
+// are, byte for byte, the b16 m16n8k16 ones, four 8 x 16-byte matrices (A:
+// rows 0-7 and 8-15 of each 16-byte half of k; B: each n-tile's two halves).
+// `p` points at the first row's k block; rows are `stride` bytes apart.
+__device__ inline void ldsm(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))));
+}
+__device__ inline void ldsm(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))));
+}
+// the A fragment of 16 rows (load_a's registers)
+__device__ inline void frag_a(uint32_t (&a)[4], const int8_t* p, int stride, int lane) {
+  ldsm(a, p + (lane % 16) * stride + lane / 16 * 16);
+}
+// the B fragments (b0, b1) of N n-tiles of 8 rows each: pairs by four
+// matrices, an odd last one by two
+template <int N>
+__device__ inline void frag_b(uint32_t (&b)[N][2], const int8_t* p, int stride, int lane) {
+  const int half = lane / 8 % 2 * 16;
+#pragma unroll
+  for (int i = 0; i + 1 < N; i += 2) {
+    uint32_t r[4];
+    ldsm(r, p + ((i + lane / 16) * 8 + lane % 8) * stride + half);
+    b[i][0] = r[0], b[i][1] = r[1], b[i + 1][0] = r[2], b[i + 1][1] = r[3];
+  }
+  if constexpr (N % 2 != 0) {
+    uint32_t r[2];
+    ldsm(r, p + ((N - 1) * 8 + lane % 8) * stride + half);
+    b[N - 1][0] = r[0], b[N - 1][1] = r[1];
+  }
+}
+
+// chunks [c0, c1) of split `split` of `splits`: consecutive ranges of the
+// walked chunks, every chunk of the cache (n_total) or, with a window, the
+// n_live from the first one the window reaches (decode_pallas.py's
+// start[b], clamped to [0, n_total - n_live])
+__device__ inline void chunk_range(int length, int t_q, int C, int n_total, int window,
+                                   int n_live, int splits, int split, int& c0, int& c1) {
+  int start = 0, n = n_total;
+  if (window > 0) {
+    start = min(max(decode::floor_div(length - (window + t_q - 1), C), 0), n_total - n_live);
+    n = n_live;
+  }
+  const int per = (n + splits - 1) / splits;
+  c0 = start + split * per;
+  c1 = start + min(n, (split + 1) * per);
+}
+
 // where this CTA's chunks and partial go
 struct Where {
   int rows, t_q, length, C, c0, c1;  // chunks [c0, c1) of C tokens
+  int window;                         // 0: none
   int ds;                             // the cache's head dim
   float qs_mul;
   int splits, split;
@@ -259,8 +332,21 @@ __device__ void split_cta(const float* __restrict__ q, float* __restrict__ o,
   }
   __syncthreads();
   const float qsf0 = sQsf[g], qsf1 = sQsf[g + 8];
+  const Mask mask{w.length, w.t_q, w.window};
+  // the keys [lo, hi) this thread's rows g and g + 8 see
   const int trow0 = (row0 + g) % w.t_q, trow1 = (row0 + g + 8) % w.t_q;
-  const Mask mask{w.length, w.t_q, 0};
+  const int lo0 = mask.lo(trow0), hi0 = mask.hi(trow0);
+  const int lo1 = mask.lo(trow1), hi1 = mask.hi(trow1);
+  // the keys the tile's live rows see, [klo, khi), from their least and
+  // largest query token, and the walked chunks that hold them
+  int tmin = row0 % w.t_q, tmax = tmin + min(RT, w.rows - row0) - 1;
+  if (tmax >= w.t_q) {  // every query token
+    tmin = 0;
+    tmax = w.t_q - 1;
+  }
+  const int klo = mask.lo(tmin), khi = mask.hi(tmax);
+  const int c0 = max(w.c0, klo / w.C);
+  const int c1 = khi <= 0 ? c0 : min(w.c1, (int)(((long long)khi + w.C - 1) / w.C));
   float acc[L::NACC];  // O elements e = tid + k * NTHREADS < RT * DC
 #pragma unroll
   for (int k = 0; k < L::NACC; ++k) acc[k] = 0.f;
@@ -268,27 +354,25 @@ __device__ void split_cta(const float* __restrict__ q, float* __restrict__ o,
   // ---- the chunks: each visited chunk's share of slabs ---------------------
   struct Share {
     Chunk ch;
-    int base, hi, s_lo, n;  // the chunk's first token, live tokens, my slabs
+    int base, hi, s_lo, n;  // the chunk's first token, tokens below khi, my slabs
   };
   auto share_of = [&](int ci) {
     Share s;
     s.ch = chunk_at(ci);
     s.base = ci * w.C;
-    s.hi = min(w.C, w.length - s.base);
-    const int nsl = (s.hi + L::SLAB - 1) / L::SLAB;
+    s.hi = min(w.C, khi - s.base);
+    const int first = max(0, klo - s.base) / L::SLAB;  // the slabs that meet [klo, khi)
+    const int nsl = (s.hi + L::SLAB - 1) / L::SLAB - first;
     const int per = (nsl + CL - 1) / CL;
-    s.s_lo = rank * per;
-    s.n = max(0, min(per, nsl - s.s_lo));
+    s.s_lo = first + rank * per;
+    s.n = max(0, min(per, nsl - rank * per));
     return s;
   };
-  // the chunks are visited in order up to the length, less those live_at skips
-  auto visited = [&](int ci) { return (long long)ci * w.C < w.length && live_at(ci); };
+  // the chunks are visited in order, less those live_at skips
   auto next_visited = [&](int ci) {
-    for (++ci; ci < w.c1; ++ci) {
-      if ((long long)ci * w.C >= w.length) return w.c1;
+    for (++ci; ci < c1; ++ci)
       if (live_at(ci)) return ci;
-    }
-    return w.c1;
+    return c1;
   };
   // item i of a share: keep mode (n <= NSL) K(0..n), V(0..n); else (groups
   // of NSL) K(0..n) for m_c, K(0..n) for l_c, then each group's K and V
@@ -335,7 +419,7 @@ __device__ void split_cta(const float* __restrict__ q, float* __restrict__ o,
     __syncthreads();
     const int upto = i + L::NSTAGE;  // items [0, upto) of this share, then the next's
     while (cur_issued < min(items(s), upto)) issue(s, cur_issued++);
-    if (ci_next < w.c1)
+    if (ci_next < c1)
       while (nxt_issued < min(items(nxt), upto - items(s))) issue(nxt, nxt_issued++);
     return sStage + ((consumed++) % L::NSTAGE) * L::STAGE;
   };
@@ -367,27 +451,30 @@ __device__ void split_cta(const float* __restrict__ q, float* __restrict__ o,
     for (int n = 0; n < L::NT; ++n) a32[n][0] = a32[n][1] = a32[n][2] = a32[n][3] = 0;
 #pragma unroll
     for (int kk = 0; kk < D / 32; ++kk) {
-      uint32_t a[4];
-      load_a(a, reinterpret_cast<const unsigned char*>(sQ) + g * L::QS + kk * 32 + t * 4, L::QS);
+      uint32_t a[4], b[L::NT][2];
+      frag_a(a, sQ + kk * 32, L::QS, lane);
+      frag_b<L::NT>(b, kr + warp * 8 * L::NT * L::QS + kk * 32, L::QS, lane);
 #pragma unroll
-      for (int n = 0; n < L::NT; ++n) {
-        const int8_t* kb = kr + (warp * 8 * L::NT + n * 8 + g) * L::QS + kk * 32 + t * 4;
-        mma_s8(a32[n], a, ld32(kb), ld32(kb + 16));
-      }
+      for (int n = 0; n < L::NT; ++n) mma_s8(a32[n], a, b[n][0], b[n][1]);
     }
+    // the mma C layout: a32[n][2h + i] is row g + 8h, token ts + i of the slab
 #pragma unroll
     for (int n = 0; n < L::NT; ++n) {
+      const int ts = warp * 8 * L::NT + n * 8 + 2 * t;  // the pair's first token in the slab
+      const int tc = tok0 + ts, col = s.base + tc;      // in the chunk, in the cache
+      const float2 ksp = *reinterpret_cast<const float2*>(ks + ts);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int ts = warp * 8 * L::NT + n * 8 + 2 * t + (e & 1);  // token in the slab
-        const int tc = tok0 + ts;                                   // token in the chunk
-        const bool live = tc < w.C && mask.ok(s.base + tc, e < 2 ? trow0 : trow1);
-        const float v = __fmul_rn(__fmul_rn((float)a32[n][e], e < 2 ? qsf0 : qsf1), ks[ts]);
-        sSf[(e < 2 ? g : g + 8) * L::SFS + j * L::SLAB + ts] = live ? v : -INFINITY;
-        if (e < 2)
-          mx0 = fmaxf(mx0, live ? v : NEG_INIT);
-        else
-          mx1 = fmaxf(mx1, live ? v : NEG_INIT);
+      for (int h = 0; h < 2; ++h) {
+        const int lo = h ? lo1 : lo0, hi = h ? hi1 : hi0;
+        const float qsf = h ? qsf1 : qsf0;
+        const bool live0 = tc < w.C && col >= lo && col < hi;
+        const bool live1 = tc + 1 < w.C && col + 1 >= lo && col + 1 < hi;
+        const float v0 = __fmul_rn(__fmul_rn((float)a32[n][2 * h], qsf), ksp.x);
+        const float v1 = __fmul_rn(__fmul_rn((float)a32[n][2 * h + 1], qsf), ksp.y);
+        *reinterpret_cast<float2*>(sSf + (g + 8 * h) * L::SFS + j * L::SLAB + ts) =
+            make_float2(live0 ? v0 : -INFINITY, live1 ? v1 : -INFINITY);
+        float& mx = h ? mx1 : mx0;
+        mx = fmaxf(fmaxf(mx, live0 ? v0 : NEG_INIT), live1 ? v1 : NEG_INIT);
       }
     }
   };
@@ -421,12 +508,12 @@ __device__ void split_cta(const float* __restrict__ q, float* __restrict__ o,
     }
   };
 
-  int ci = w.c0;
-  if (ci < w.c1 && !visited(ci)) ci = next_visited(ci);
-  if (ci < w.c1) {
+  int ci = c0;
+  if (ci < c1 && !live_at(ci)) ci = next_visited(ci);
+  if (ci < c1) {
     Share cur = share_of(ci);
     ci_next = next_visited(ci);
-    if (ci_next < w.c1) nxt = share_of(ci_next);
+    if (ci_next < c1) nxt = share_of(ci_next);
     for (;;) {
       const Share s = cur;
       const int groups = (s.n + L::NSL - 1) / L::NSL;
@@ -464,19 +551,17 @@ __device__ void split_cta(const float* __restrict__ q, float* __restrict__ o,
         for (int j = 0; j < cnt; ++j) {
 #pragma unroll
           for (int n = 0; n < L::NT; ++n) {
+            const int ts = j * L::SLAB + warp * 8 * L::NT + n * 8 + 2 * t;
+            const float2 vsp = *reinterpret_cast<const float2*>(sVs + ts);
 #pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int ts = j * L::SLAB + warp * 8 * L::NT + n * 8 + 2 * t + (e & 1);
-              const float sf = sSf[(e < 2 ? g : g + 8) * L::SFS + ts];
-              const float p = exp2f(__fsub_rn(sf, e < 2 ? mc0 : mc1));  // 0 where -inf
-              const float pe = __fmul_rn(p, sVs[ts]);
-              if (e < 2) {
-                ls0 = __fadd_rn(ls0, p);
-                pm0 = fmaxf(pm0, pe);
-              } else {
-                ls1 = __fadd_rn(ls1, p);
-                pm1 = fmaxf(pm1, pe);
-              }
+            for (int h = 0; h < 2; ++h) {
+              const float2 sf = *reinterpret_cast<const float2*>(sSf + (g + 8 * h) * L::SFS + ts);
+              const float mc = h ? mc1 : mc0;
+              const float p0 = exp2f(__fsub_rn(sf.x, mc)), p1 = exp2f(__fsub_rn(sf.y, mc));
+              float& ls = h ? ls1 : ls0;
+              float& pm = h ? pm1 : pm0;
+              ls = __fadd_rn(__fadd_rn(ls, p0), p1);  // 0 where -inf
+              pm = fmaxf(fmaxf(pm, __fmul_rn(p0, vsp.x)), __fmul_rn(p1, vsp.y));
             }
           }
         }
@@ -526,35 +611,48 @@ __device__ void split_cta(const float* __restrict__ q, float* __restrict__ o,
           const unsigned char* st = step(s, it++);
 #pragma unroll
           for (int n = 0; n < L::NT; ++n) {
+            const int ts = warp * 8 * L::NT + n * 8 + 2 * t;
+            const float2 vsp = *reinterpret_cast<const float2*>(sVs + j * L::SLAB + ts);
 #pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int ts = warp * 8 * L::NT + n * 8 + 2 * t + (e & 1);
-              const float sf = sSf[(e < 2 ? g : g + 8) * L::SFS + j * L::SLAB + ts];
-              const float p = exp2f(__fsub_rn(sf, e < 2 ? mc0 : mc1));
-              const float pe = __fmul_rn(p, sVs[j * L::SLAB + ts]);
-              const float code = fminf(roundf(__fmul_rn(pe, e < 2 ? pr0 : pr1)), QMAX);
-              sP[(e < 2 ? g : g + 8) * L::TS + ts] = (int8_t)code;
+            for (int h = 0; h < 2; ++h) {
+              const float2 sf =
+                  *reinterpret_cast<const float2*>(sSf + (g + 8 * h) * L::SFS + j * L::SLAB + ts);
+              const float mc = h ? mc1 : mc0, pr = h ? pr1 : pr0;
+              const float pe0 = __fmul_rn(exp2f(__fsub_rn(sf.x, mc)), vsp.x);
+              const float pe1 = __fmul_rn(exp2f(__fsub_rn(sf.y, mc)), vsp.y);
+              const int code0 = (int)fminf(roundf(__fmul_rn(pe0, pr)), QMAX);
+              const int code1 = (int)fminf(roundf(__fmul_rn(pe1, pr)), QMAX);
+              *reinterpret_cast<uint16_t*>(sP + (g + 8 * h) * L::TS + ts) =
+                  (uint16_t)((code0 & 0xFF) | (code1 & 0xFF) << 8);
             }
           }
-          // V^T (unpacked from token pairs when packed); consecutive threads
-          // take consecutive rows, so a warp's byte stores are contiguous
-          constexpr int CB = D / 16;
-          for (int x = tid; x < L::DROWS * CB; x += NTHREADS) {
-            const int r = x % L::DROWS, cb = x / L::DROWS;
-            decode::store_vt<L::TS, PACKED>(
-                sVt, *reinterpret_cast<const uint4*>(st + r * L::QS + cb * 16), r, cb);
+          // V^T (unpacked from token pairs when packed), four tokens by 16
+          // channels a thread; consecutive threads take consecutive tokens,
+          // so a warp's word stores into a V^T row are contiguous
+          constexpr int CB = D / 16, NQ = L::SLAB / 4;
+          for (int x = tid; x < NQ * CB; x += NTHREADS) {
+            const int qd = x % NQ, cb = x / NQ;
+            uint4 v[4];
+            if constexpr (PACKED) {  // data rows 2 qd and 2 qd + 1 hold tokens 4 qd .. 4 qd + 3
+              decode::unpack16(*reinterpret_cast<const uint4*>(st + (2 * qd) * L::QS + cb * 16),
+                               v[0], v[1]);
+              decode::unpack16(*reinterpret_cast<const uint4*>(st + (2 * qd + 1) * L::QS + cb * 16),
+                               v[2], v[3]);
+            } else {
+#pragma unroll
+              for (int i = 0; i < 4; ++i)
+                v[i] = *reinterpret_cast<const uint4*>(st + (4 * qd + i) * L::QS + cb * 16);
+            }
+            decode::store_vt4<L::TS>(sVt, v, qd, cb);
           }
           __syncthreads();
 #pragma unroll
           for (int kk = 0; kk < L::SLAB / 32; ++kk) {
-            uint32_t a[4];
-            load_a(a, reinterpret_cast<const unsigned char*>(sP) + g * L::TS + kk * 32 + t * 4,
-                   L::TS);
+            uint32_t a[4], b[L::DW / 8][2];
+            frag_a(a, sP + kk * 32, L::TS, lane);
+            frag_b<L::DW / 8>(b, sVt + warp * L::DW * L::TS + kk * 32, L::TS, lane);
 #pragma unroll
-            for (int nt = 0; nt < L::DW / 8; ++nt) {
-              const int8_t* vb = sVt + (warp * L::DW + nt * 8 + g) * L::TS + kk * 32 + t * 4;
-              mma_s8(pacc[nt], a, ld32(vb), ld32(vb + 16));
-            }
+            for (int nt = 0; nt < L::DW / 8; ++nt) mma_s8(pacc[nt], a, b[nt][0], b[nt][1]);
           }
         }
       }
@@ -584,13 +682,13 @@ __device__ void split_cta(const float* __restrict__ q, float* __restrict__ o,
           acc[k] = __fadd_rn(__fmul_rn(acc[k], sAlpha[r]), __fmul_rn(pv, sW[r]));
         }
       }
-      if (ci_next >= w.c1) break;
+      if (ci_next >= c1) break;
       ci = ci_next;
       cur = nxt;
       cur_issued = nxt_issued;
       nxt_issued = 0;
       ci_next = next_visited(ci);
-      if (ci_next < w.c1) nxt = share_of(ci_next);
+      if (ci_next < c1) nxt = share_of(ci_next);
     }
   }
   cluster_sync();  // no CTA leaves while another reads its shared memory
@@ -702,9 +800,10 @@ int launch(Kernel kern, int tiles, int hkv, int b, int cl, int splits, cudaStrea
   return (int)cudaGetLastError();
 }
 
-// the plan's limits: CL 1, 2, 4 or 8; a workspace and tickets with splits > 1
-inline bool plan_ok(int cl, int splits, int n_chunks, const void* work, const void* tickets) {
-  return (cl == 1 || cl == 2 || cl == 4 || cl == 8) && splits >= 1 && splits <= n_chunks &&
+// the plan's limits: CL 1, 2, 4 or 8; 1 to n_walked splits (the chunks the
+// walk visits), at most SPLITS_MAX; a workspace and tickets with splits > 1
+inline bool plan_ok(int cl, int splits, int n_walked, const void* work, const void* tickets) {
+  return (cl == 1 || cl == 2 || cl == 4 || cl == 8) && splits >= 1 && splits <= n_walked &&
          splits <= SPLITS_MAX && (splits == 1 || (work != nullptr && tickets != nullptr));
 }
 

@@ -6,13 +6,10 @@
 // (decode_dense.cuh), so that these instances build in parallel with the
 // others and those keep their code.
 //
-// Kernel 9 is the split walk of decode_split_sm90.cuh at 64-token slabs,
-// its S kept in shared memory, one CTA an SM.  Kernel 10 is decode_body.cuh's
-// wide body ("Wide"): two row warps and four token warps, P.V split by
-// columns over the token warps, each warp's P.V sums and output
-// accumulator in registers; V straight from global memory into V^T.  The
-// ragged instances (a head dim that is not a multiple of 16) read the rows
-// byte by byte.
+// Both kernels are the split walk of decode_split_sm90.cuh at 64-token
+// slabs, its S kept in shared memory, one CTA an SM.  The ragged
+// instances (a head dim that is not a multiple of 16) read the rows byte by
+// byte.
 //
 // Bound: bytes, as csrc/decode.cu: the live K and V codes (d bytes a token
 // each, d/2 packed) and their two fp32 scales once per step.
@@ -34,7 +31,8 @@ extern "C" int sage_decode_window_wide(const void* q, const void* k, const void*
                                        const void* v, const void* vs, const void* lengths,
                                        void* o, void* m, void* l, int b, int hkv, int rows,
                                        int t_q, int S, int d, int packed, int chunk, int window,
-                                       int n_live, float qs_mul, void* stream) {
+                                       int n_live, float qs_mul, void* stream, int cl,
+                                       int splits, void* work, void* tickets) {
   return checked<true>(q, k, ks, v, vs, lengths, o, m, l, b, hkv, rows, t_q, S, d, packed, chunk,
-                       window, n_live, qs_mul, stream, true);
+                       window, n_live, qs_mul, stream, true, cl, splits, work, tickets);
 }

@@ -117,26 +117,26 @@ SIGNATURES = {
         # copy; src, dst (or the partial sums); n16, reps, grid, the stream
         "probe_hbm": [I, P, P, LL, I, I, P],
     },
-    # kernel 9 takes the split walk's plan (cl, splits) and its workspace
+    # kernels 9-12 take the split walk's plan (cl, splits) and its workspace
     # (partials, tickets; NULL with one split) after the stream
     "decode": {
         "sage_decode": [P] * 9 + [I] * 10 + [F, P] + [I, I, P, P],
-        "sage_decode_window": [P] * 9 + [I] * 10 + [F, P],
+        "sage_decode_window": [P] * 9 + [I] * 10 + [F, P] + [I, I, P, P],
     },
     "paged_decode": {
         # decode's operands with the page table and the owned mask (or NULL)
         "sage_paged_decode": [P] * 11 + [I] * 10 + [F, P] + [I, I, P, P],
-        "sage_paged_decode_window": [P] * 11 + [I] * 10 + [F, P],
+        "sage_paged_decode_window": [P] * 11 + [I] * 10 + [F, P] + [I, I, P, P],
     },
     # the decode kernels' instances at head dims in (256, 512], with the
     # operands of the two above
     "decode_wide": {
         "sage_decode_wide": [P] * 9 + [I] * 10 + [F, P] + [I, I, P, P],
-        "sage_decode_window_wide": [P] * 9 + [I] * 10 + [F, P],
+        "sage_decode_window_wide": [P] * 9 + [I] * 10 + [F, P] + [I, I, P, P],
     },
     "paged_decode_wide": {
         "sage_paged_decode_wide": [P] * 11 + [I] * 10 + [F, P] + [I, I, P, P],
-        "sage_paged_decode_window_wide": [P] * 11 + [I] * 10 + [F, P],
+        "sage_paged_decode_window_wide": [P] * 11 + [I] * 10 + [F, P] + [I, I, P, P],
     },
 }
 

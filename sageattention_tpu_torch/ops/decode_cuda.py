@@ -6,8 +6,9 @@ Replaces the TPU kernels of ``sageattention_tpu/ops/decode_pallas.py``
 ``_paged_kernel_window``), which share one chunk body,
 ``decode_step_body``.  The kernels are ``csrc/decode.cu`` and
 ``csrc/paged_decode.cu`` (head dims up to 256) and ``csrc/decode_wide.cu``
-and ``csrc/paged_decode_wide.cu`` (head dims in (256, 512]) on the shared
-``csrc/decode_body.cuh``; their headers say what bounds them and how they
+and ``csrc/paged_decode_wide.cu`` (head dims in (256, 512]), one body for
+all four (``csrc/decode_split_sm90.cuh``, its numbers and helpers in
+``csrc/decode_body.cuh``); their headers say what bounds them and how they
 are laid out.
 
 What every version computes, chunk by chunk (a chunk of the dense cache
@@ -37,12 +38,15 @@ their launches over a shard of a sharded pool (``owned``) in
 another head dim is read at its own row stride, byte by byte where that
 is not a multiple of 16 bytes.
 
-Kernels 9 and 11 (no window) split the chunk walk (``csrc/decode_split_sm90.cuh``):
-a cluster of ``cl`` CTAs shares each chunk, ``splits`` ranges of chunks run
-side by side, and the last range to finish merges the partials in the
-launch.  :func:`split_plan` chooses both on the host from the shapes alone
-(never the lengths on the card); the partials' workspace and tickets are
-the wrapper's, one per device and stream (:func:`split_workspace`).
+Every kernel splits the chunk walk (``csrc/decode_split_sm90.cuh``): a
+cluster of ``cl`` CTAs shares each chunk, ``splits`` ranges of the walked
+chunks (every chunk, or with a window the ``n_live`` from the first one it
+reaches) run side by side, and the last range to finish merges the
+partials in the launch; a row tile of 16 rows reads only the slabs that
+hold a key its rows see.  :func:`split_plan` chooses ``cl`` and ``splits``
+on the host from the shapes alone (never the lengths on the card); the
+partials' workspace and tickets are the wrapper's, one per device and
+stream (:func:`split_workspace`).
 """
 
 from __future__ import annotations
@@ -129,7 +133,7 @@ def window_start(length: int, span: int, chunk: int, n_total: int, n_live: int) 
 
 
 # --------------------------------------------------------------------------
-# the split walk of kernels 9 and 11 (csrc/decode_split_sm90.cuh)
+# the split walk of kernels 9-12 (csrc/decode_split_sm90.cuh)
 # --------------------------------------------------------------------------
 
 SPLIT_RT = 16     # rows a CTA owns
@@ -149,15 +153,15 @@ def split_slab(d: int) -> int:
 
 
 def split_plan(n_chunks: int, chunk: int, d: int, rows: int, b: int, hkv: int):
-    """(cl, splits) of kernel 9 or 11 over ``n_chunks`` chunks (pages) of
-    ``chunk`` tokens: the cluster that shares one chunk, at least enough
-    CTAs that each keeps its share's S on chip (512 tokens; 1 where a chunk
-    holds one slab), and the ranges of chunks the grid runs side by side,
-    enough for about two waves of CTAs (two an SM) over the (row tile, kv
-    head, batch) clusters (1 where those already fill the card, as extend
-    blocks do).  Where every range is one chunk and the CTAs would not fill
-    one wave, the cluster widens, down to one slab a CTA.  No range is
-    empty."""
+    """(cl, splits) of a decode kernel over ``n_chunks`` walked chunks
+    (pages) of ``chunk`` tokens: the cluster that shares one chunk, at least
+    enough CTAs that each keeps its share's S on chip (512 tokens; 1 where a
+    chunk holds one slab), and the ranges of chunks the grid runs side by
+    side, enough for about two waves of CTAs (two an SM) over the (row
+    tile, kv head, batch) clusters (1 where those already fill the card, as
+    extend blocks do).  Where every range is one chunk and the CTAs would
+    not fill one wave, the cluster widens, down to one slab a CTA.  No range
+    is empty."""
     slabs = -(-chunk // split_slab(d))
     cl = 1
     while cl < CL_MAX and cl * SPLIT_KEEP < chunk:
@@ -185,27 +189,66 @@ def paged_split_plan(q_shape, hkv: int, page: int, max_pages: int):
     return split_plan(max_pages, page, d, hq // hkv * t_q, b, hkv)
 
 
+def window_split_plan(q_shape, hkv: int, chunk: int, n_live: int):
+    """(cl, splits) of kernel 10 or 12: the plan over the ``n_live`` chunks
+    (pages) of ``chunk`` tokens that the window walks."""
+    b, hq, t_q, d = q_shape
+    return split_plan(n_live, chunk, d, hq // hkv * t_q, b, hkv)
+
+
 def split_ranges(n_chunks: int, splits: int):
     """The consecutive chunk ranges [c0, c1) of the ``splits`` splits."""
     per = -(-n_chunks // splits)
     return [(s * per, min(n_chunks, (s + 1) * per)) for s in range(splits)]
 
 
-def split_shares(cl: int, splits: int, n_chunks: int, chunk: int, d: int, length: int):
+def tile_tokens(row0: int, rows: int, t_q: int):
+    """(tmin, tmax): the least and largest query token among the live rows
+    [row0, min(row0 + 16, rows)) of a row tile, as the kernel takes them
+    (every token where the rows wrap past the last one)."""
+    tmin = row0 % t_q
+    tmax = tmin + min(SPLIT_RT, rows - row0) - 1
+    return (0, t_q - 1) if tmax >= t_q else (tmin, tmax)
+
+
+def tile_keys(length: int, t_q: int, window, tokens):
+    """[klo, khi): the keys a row tile whose query tokens span ``tokens``
+    (:func:`tile_tokens`) can see: below the causal end of its largest
+    token and, with a window, from the oldest key of its least one."""
+    tmin, tmax = tokens
+    klo = 0 if window is None else max(0, length - t_q + tmin - window + 1)
+    return klo, length - t_q + tmax + 1
+
+
+def walked_chunks(length: int, t_q: int, chunk: int, n_chunks: int, window, n_live):
+    """(start, count) of the chunks the kernel walks: every chunk, or with a
+    window the ``n_live`` from the first one it reaches."""
+    if window is None:
+        return 0, n_chunks
+    return window_start(length, window + t_q - 1, chunk, n_chunks, n_live), n_live
+
+
+def split_shares(cl: int, splits: int, n_chunks: int, chunk: int, d: int, length: int, *,
+                 t_q: int = 1, window=None, n_live=None, tokens=None):
     """{(split, rank): [(chunk, slab), ...]}: the slabs each CTA of a
-    cluster reads, as the kernel deals them: each chunk below ``length``
-    in its split's range, its live slabs cut into ``cl`` contiguous shares."""
+    cluster reads for one row tile (its query tokens ``tokens``, default
+    all of them), as the kernel deals them: each walked chunk of its
+    split's range that holds a key the tile sees (:func:`tile_keys`), the
+    chunk's slabs that meet those keys cut into ``cl`` contiguous shares."""
     slab = split_slab(d)
+    start, count = walked_chunks(length, t_q, chunk, n_chunks, window, n_live)
+    klo, khi = tile_keys(length, t_q, window, tokens or (0, t_q - 1))
     out = {}
-    for s, (c0, c1) in enumerate(split_ranges(n_chunks, splits)):
+    for s, (c0, c1) in enumerate(split_ranges(count, splits)):
+        c0 = max(start + c0, klo // chunk)
+        c1 = c0 if khi <= 0 else min(start + c1, -(-khi // chunk))
         for r in range(cl):
             got = out.setdefault((s, r), [])
             for ci in range(c0, c1):
-                if ci * chunk >= length:
-                    break
-                nsl = -(-min(chunk, length - ci * chunk) // slab)
+                first = max(0, klo - ci * chunk) // slab
+                nsl = -(-min(chunk, khi - ci * chunk) // slab) - first
                 per = -(-nsl // cl)
-                got += [(ci, j) for j in range(r * per, min(nsl, (r + 1) * per))]
+                got += [(ci, j) for j in range(first + r * per, first + min(nsl, (r + 1) * per))]
     return out
 
 
@@ -497,13 +540,13 @@ def _launch_dense(fn_name, q, k_i8, k_scale, v_i8, v_scale, lengths, *, chunk, w
     sfx = _wide(d)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        split = () if window else _split_args(q, stream, dense_split_plan(q.shape, hkv, S, chunk),
-                                              hkv)
+        plan = (dense_split_plan(q.shape, hkv, S, chunk) if window is None
+                else window_split_plan(q.shape, hkv, chunk, n_live))
         err = getattr(_build.lib("decode" + sfx), fn_name + sfx)(
             qf.data_ptr(), k_i8.data_ptr(), k_scale.data_ptr(), v_i8.data_ptr(),
             v_scale.data_ptr(), lens.data_ptr(), o.data_ptr(), _ptr(m), _ptr(l),
             b, hkv, rows, t_q, S, d, int(k_i8.shape[2] != S), chunk, window or 0,
-            n_live or 0, qs_mul, stream, *split,
+            n_live or 0, qs_mul, stream, *_split_args(q, stream, plan, hkv),
         )
     _build.check(err, fn_name + sfx)
     return o, m, l
@@ -541,13 +584,14 @@ def _launch_paged(fn_name, q, pages_k, pages_k_scale, pages_v, pages_v_scale, pa
     sfx = _wide(d)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        split = () if window else _split_args(
-            q, stream, paged_split_plan(q.shape, hkv, page, table.shape[1]), hkv)
+        plan = (paged_split_plan(q.shape, hkv, page, table.shape[1]) if window is None
+                else window_split_plan(q.shape, hkv, page, n_live))
         err = getattr(_build.lib("paged_decode" + sfx), fn_name + sfx)(
             qf.data_ptr(), pages_k.data_ptr(), pages_k_scale.data_ptr(), pages_v.data_ptr(),
             pages_v_scale.data_ptr(), table.data_ptr(), _ptr(own), lens.data_ptr(), o.data_ptr(),
             _ptr(m), _ptr(l), b, hkv, rows, t_q, page, table.shape[1], d,
-            int(pages_k.shape[2] != page), window or 0, n_live or 0, qs_mul, stream, *split,
+            int(pages_k.shape[2] != page), window or 0, n_live or 0, qs_mul, stream,
+            *_split_args(q, stream, plan, hkv),
         )
     _build.check(err, fn_name + sfx)
     return o, m, l
