@@ -12,8 +12,9 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    versions, and every kernel built from ``sageattention_tpu_torch/csrc``
    (one ``nvcc`` per source, all at once) into ``build/``; every
    instance's registers and stack, none in the TMA-fed ``wgmma`` ones, and
-   the forward's ``wgmma`` instances (kernel 1 unmasked at head dims 64,
-   128 and 256) holding warpgroup MMA and no ``mma.sync`` in their SASS;
+   every forward instance (kernel 1 at head dims 64-512, with masks and
+   without, default and pre-quantized Q: all ``wgmma``) holding warpgroup
+   MMA and no ``mma.sync`` in their SASS;
 2. each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it (the V quantizers for int8, e4m3 and
    e5m2 codes, the forward kernel for every V type with and without the
@@ -114,7 +115,9 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    and extend shapes, with the L2 flushed before each call; the masked
    forward at the windowed prefill's layer and at the varlen shape, with
    bounds from the live (row, col) pairs and SDPA with the same bool mask
-   as the library time, and the windowed dQ and dKV; dQ and dK/dV without
+   as the library time, the masked pre-quantized forward over varlen's
+   prompts, the masked forward with the fp32 ALiBi bias (causal, SDPA with
+   the bias beside it) and ``tile_liveness``, and the windowed dQ and dKV; dQ and dK/dV without
    a bias at the llm-8b-gqa layer, causal (1, 32/8, 4096, 128), beside
    their bounds and SDPA's backward there, and every timed backward
    instance's products at phase 9's measured ``wgmma`` and ``mma.sync``
@@ -220,11 +223,11 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    d) for d 320, 384 and 512, causal and not, bf16 and e4m3 V, against its
    plain version and exact fp32 attention, and the main paths
    ``wide_prefill_hd384`` / ``_hd512`` (``sageattn`` and the fp8 variant,
-   whose V codes ``widen_v_codes`` widens first); the masked instances (O
-   split by columns over a grid axis) at (1, 16/8, 8192, 512) with
-   window 4096, over varlen's four prompts and at d 320 with window 1000,
-   and the path ``wide_masked_hd512`` (a window with fp8 V, through kernel
-   6, and ``sageattn_varlen``); the pre-quantized instances for every Q/K
+   whose V codes ``widen_v_codes`` widens first); the masked instances
+   (the same kernel with the masks) at (1, 16/8, 8192, 512) with window
+   4096, over varlen's four prompts and at d 320 with window 1000, and the
+   path ``wide_masked_hd512`` (a window with fp8 V, through kernel 6, and
+   ``sageattn_varlen``, each V widened first); the pre-quantized instances for every Q/K
    option at (4, 16/16, 4096, 512) and at d 320, causal and not, and at d
    320 with a window, and the path
    ``wide_preq_hd512`` (int4 + smooth_q); the gradient at (1, 16/16, 4096,
@@ -375,14 +378,17 @@ def kernel_registers(build, lib: str) -> list:
     return rows
 
 
-# the sources of kernel 1's TMA-fed wgmma instances (the unmasked forward
-# at head dims 64, 128 and 256; at 384 and 512 the wide kernel, O's columns
-# split between two warpgroups), with their kernel's name
+# the sources of kernel 1's TMA-fed wgmma instances (the forward at head
+# dims 64, 128 and 256, with masks and without; at 384 and 512 the wide
+# kernel, O's columns split between two warpgroups), with their kernel's name
 FWD_SM90_LIBS = {"attention_fwd": "sage_attn_fwd_sm90_kernel",
                  "attention_fwd_hd256": "sage_attn_fwd_sm90_kernel",
+                 "attention_fwd_masked": "sage_attn_fwd_sm90_kernel",
+                 "attention_fwd_masked_hd256": "sage_attn_fwd_sm90_kernel",
                  "attention_fwd_preq": "sage_attn_fwd_sm90_kernel",
                  "attention_fwd_preq_hd256": "sage_attn_fwd_sm90_kernel",
                  "attention_fwd_wide": "sage_attn_fwd_wide_kernel",
+                 "attention_fwd_masked_wide": "sage_attn_fwd_wide_kernel",
                  "attention_fwd_preq_wide": "sage_attn_fwd_wide_kernel"}
 
 
@@ -410,8 +416,8 @@ def sass_mma(build, lib: str, kernel: str) -> dict:
 
 def resource_usage() -> None:
     """Registers a thread and spill (stack) bytes of every built kernel; the
-    TMA-fed wgmma instances (kernels 7-8, kernel 1 without masks) may hold
-    no stack.  Their registers are the
+    TMA-fed wgmma instances (kernels 7-8, every instance of kernel 1) may
+    hold no stack.  Their registers are the
     count at entry: ``setmaxnreg`` then gives a backward consumer warpgroup
     240 (160 with three) and the producer 24, a forward consumer 240 and
     the producer 24.  The forward's wgmma instances must run their products
@@ -1169,7 +1175,13 @@ def check_masked(gen, results) -> dict:
         compare_masked(name, q, k_i8, k_sc, v, masks, causal, hs, results)
         out[f"{name} causal={causal} vs exact"] = op_vs_exact(
             f"sageattn {name} causal={causal}", q, k, v, causal, kwargs)
-    del q, k, v, k_i8, k_sc, bias
+    # a bias whose rows start off a column pair's alignment (a view with an
+    # odd row stride): the threads load it, where the contiguous one above
+    # is staged by cp.async
+    odd = alibi(LLM_LAYER["hq"], s + 1)[..., :s, :s]
+    compare_masked("ALiBi bias [1,32,s,s] with an odd row stride", q, k_i8, k_sc, v,
+                   Masks(bias=odd), True, hs, results)
+    del q, k, v, k_i8, k_sc, bias, odd
     torch.cuda.empty_cache()
     return out
 
@@ -3238,8 +3250,12 @@ def time_masked(gen, results) -> dict:
     each beside its bound over the live pairs, its plain version and SDPA
     with the equivalent bool mask (K and V repeated to 32 heads); the
     varlen call beside its four sequences' causal calls and one unskipped
-    causal call over all 8192 tokens; and the windowed dQ and dK/dV at (1,
-    32/8, 4096, 128, window 1024)."""
+    causal call over all 8192 tokens; the masked pre-quantized forward
+    (int4 + smooth_q) over the same prompts; the masked forward with the fp32
+    ALiBi bias at (1, 32/8, 4096, 128), causal, beside its bound (the bias
+    read over the live pairs) and SDPA with that bias; ``tile_liveness``
+    on the padding mask and the segment ids at 4096 tokens; and the
+    windowed dQ and dK/dV at (1, 32/8, 4096, 128, window 1024)."""
     import torch
     import torch.nn.functional as F
     from sageattention_tpu_torch.ops import attention_bwd_cuda as bwd
@@ -3313,7 +3329,59 @@ def time_masked(gen, results) -> dict:
         f"sequences' causal calls {[round(x, 4) for x in seq_ms]} sum {sum(seq_ms):.4f} ms; one "
         f"unskipped causal call over {s} tokens {full_ms:.4f} ms; SDPA with the block-diagonal "
         f"mask {lib:.4f} ms")
-    del q, k, v, k_i8, k_sc, block_diag
+    # the masked pre-quantized forward over the same prompts (sageattn_varlen
+    # with a Q/K option): int4 codes with smooth_q's column bias
+    q_i8, q_sc, kq_i8, kq_sc, cb = preq_operands(q, k, QOPTS["int4+smooth_q"])
+    # Q codes and scales, the column bias, K codes and scales, bf16 V in;
+    # bf16 O out; the rows' key ranges
+    moved_q = (q_i8.numel() * 3 + q_sc.numel() * 4 + cb.numel() * 4 + kq_i8.numel()
+               + kq_sc.numel() * 4 + v.numel() * 2 + 2 * s * 4)
+    bound_q, by_q = masked_bound(pairs, d, moved_q)
+    ms_q = cuda_ms(lambda: attention_cuda.sage_attention_fwd_preq(
+        q_i8, q_sc, kq_i8, kq_sc, v, is_causal=True, col_bias=cb, masks=masks), reps=20)
+    plain_q = cuda_ms(lambda: attention_cuda.sage_attention_preq_plain(
+        q_i8, q_sc, kq_i8, kq_sc, v, is_causal=True, return_lse=False, col_bias=cb, masks=masks),
+        reps=2, warmup=1)
+    out["varlen_preq"] = {"options": "int4+smooth_q", "ms": ms_q, "plain_ms": plain_q,
+                          "bound_ms": bound_q, "bound_by": by_q, "sdpa_block_diagonal_ms": lib}
+    log(f"time sage_attn_fwd_preq with masks, varlen {VARLEN_LENS} at {(1, hq, hkv, s, d)}, "
+        f"int4 + smooth_q: {ms_q:.4f} ms (bound {bound_q:.4f} ms, {by_q}), plain {plain_q:.4f} "
+        f"ms; SDPA with the block-diagonal mask {lib:.4f} ms")
+    del q, k, v, k_i8, k_sc, block_diag, q_i8, q_sc, kq_i8, kq_sc, cb
+
+    # the biased forward: the fp32 ALiBi bias [1, 32, s, s], causal (inputs
+    # from a generator of its own, so that the later phases' stay as they were)
+    s = 4096
+    g_bias = torch.Generator(device="cuda")
+    g_bias.manual_seed(33)
+    q, k, v, k_i8, k_sc = layer_operands(g_bias, 1, s)
+    bias = alibi(hq, s)
+    masks = Masks(bias=bias)
+    pairs = live_pairs(masks, 1, s, s, True, hq)
+    bound, by = masked_bound(pairs, d, moved(q, k_i8, k_sc, v) + pairs * 4)
+    ms = cuda_ms(lambda: attention_cuda.sage_attention_fwd_masked(
+        q, k_i8, k_sc, v, masks=masks, is_causal=True, q_fold=fold), reps=10)
+    kr, vr = (x.repeat_interleave(hq // hkv, dim=1) for x in (k, v))
+    causal_bias = bias.masked_fill(~reference._build_mask(s, s, is_causal=True, device="cuda"),
+                                   float("-inf"))
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, kr, vr, attn_mask=causal_bias),
+                  reps=5)
+    out["alibi"] = {"shape": [1, hq, hkv, s, d], "ms": ms, "bound_ms": bound, "bound_by": by,
+                    "sdpa_with_the_bias_ms": lib}
+    log(f"time sage_attn_fwd_masked, fp32 ALiBi bias causal at {(1, hq, hkv, s, d)}: {ms:.4f} "
+        f"ms (bound {bound:.4f} ms, {by}: the bias read over {pairs // hq} live pairs a head); "
+        f"SDPA with the bias {lib:.4f} ms")
+    # the liveness table the masked wrapper builds on every call with ids or a mask
+    idx = torch.arange(s, device="cuda")
+    pad = ((idx[None, :] < 3500) & (idx[:, None] < 4000))[None, None]
+    ids = ((idx // 512) % 3).int()[None]
+    out["tile_liveness_ms"] = {
+        "padding mask [1,1,s,s]": cuda_ms(lambda: attention_cuda.tile_liveness(
+            Masks(mask=pad), s, s)),
+        "segment ids": cuda_ms(lambda: attention_cuda.tile_liveness(
+            Masks(q_seg=ids, kv_seg=ids), s, s))}
+    log(f"time tile_liveness at {s} tokens: {out['tile_liveness_ms']} ms")
+    del q, k, v, k_i8, k_sc, bias, kr, vr, causal_bias, pad
 
     # the windowed backward
     b, s, w = 1, 4096, 1024
@@ -4934,7 +5002,8 @@ def check_wide_masked(results) -> dict:
     at (1, 16/8, 3001, 320) (padded to 384) with window 1000; the main path
     ``wide_masked_hd512``: ``sageattn`` with window 4096 and fp8 V (an 8
     MB V slab: kernel 6) and ``sageattn_varlen`` over the four prompts
-    (int8 V, per-segment K means), each against exact attention; the
+    (int8 V, per-segment K means), each V widened to bf16 before the masked
+    launch, each against exact attention; the
     instances' times beside the live pairs' bound, the plain version and
     SDPA with the band mask."""
     import torch
@@ -4960,7 +5029,7 @@ def check_wide_masked(results) -> dict:
     o_w, o_v = drive(results, "wide_masked_hd512",
                      {"k_channel_mean_hd512": 1, "quant_k_chunked_hd512": 2,
                       "sage_attn_fwd_masked_hd512": 2, "v_channel_stats_hd512": 2,
-                      "quant_v_apply_hd512": 2},
+                      "quant_v_apply_hd512": 2, "widen_v_codes_hd512": 2},
                      lambda: (core.sageattn(q, k, v, is_causal=True, window=w, pv_dtype="fp8"),
                               core.sageattn_varlen(*xs, cu, cu, is_causal=True,
                                                    smooth_k_mode="per_segment")))

@@ -1,6 +1,6 @@
 // Fused SageAttention forward for Hopper (sm_90a) at head dim 256, without
-// masks: the D = 256 instances of attention_fwd_kernel.cuh (MASKED =
-// false), which kernel 1 (attention_pallas.py:sage_attention_fused) runs
+// masks: the D = 256 instances of attention_fwd_sm90.cuh's kernel, which
+// kernel 1 (attention_pallas.py:sage_attention_fused) runs
 // for every head dim in (128, 256], padded to 256 (core.py:70-75 of the JAX
 // package).  A source of its own, so that these 4 instances (causal x q
 // dtype; V codes widened to bf16 before the launch) build beside

@@ -1,16 +1,18 @@
 // Fused SageAttention forward for Hopper (sm_90a) with masks: kernel 1's
 // slices (c)-(g) of attention_pallas.py:sage_attention_fused (segment ids
 // and varlen's range form, bool masks, the additive bias, the sliding
-// window, positions).  The kernel and its design notes are in
-// attention_fwd_kernel.cuh; this source instantiates it with MASKED = true
-// and builds beside attention_fwd.cu, so the unmasked kernels keep their
-// code and the two sources compile in parallel.
+// window, positions) at head dims 64 and 128.  The kernel is
+// attention_fwd_sm90.cuh's TMA-fed wgmma kernel with MASKED (16 instances:
+// head dim x causal x q dtype x a staged bias or not); the masks' pieces
+// and what they compute are in attention_fwd_kernel.cuh.  V codes reach it
+// widened to bf16 (widen_v.cu).  A source of its own beside
+// attention_fwd.cu, so the two compile in parallel.
 //
 // Bound: operations over the live (row, col) pairs, whose count the
 // masks set; the mask and bias bytes, where given, are read once per
 // query head that does not broadcast them.
 
-#include "attention_fwd_kernel.cuh"
+#include "attention_fwd_sm90.cuh"
 
 // The operands of sage_attn_fwd (attention_fwd.cu), then the masks, each
 // NULL when absent: q_seg, kv_seg int32 [b,sq], [b,sk]; kv_lo, kv_hi
@@ -34,7 +36,11 @@ extern "C" int sage_attn_fwd_masked(
                  mask_sb, mask_sh, mask_sr, mask_sc, bias_sb, bias_sh, bias_sr, bias_sc, live_sb,
                  live_sh, window, bias_bf16))
     return (int)cudaErrorInvalidValue;
-  const Args a{q, k, k_scale, v, v_scale, v_mean, o, want_lse ? lse2 : nullptr,
-               b, hq, hkv, sq, sk, qs_mul};
-  return launch_fwd<true, false>(a, mk, NoPreq{}, d, causal, q_is_f32, v_kind, group, stream);
+  const FwdSm90Args a{q, nullptr, (const float*)k_scale, nullptr, (const float*)v_scale,
+                      (const float*)v_mean, o, want_lse ? (float*)lse2 : nullptr,
+                      hq, hkv, sq, sk, qs_mul, 0, 0};
+  return d == 64 ? launch_fwd_sm90<64, false, true>(a, k, v, b, d, causal, q_is_f32, v_kind,
+                                                    group, stream, mk)
+                 : launch_fwd_sm90<128, false, true>(a, k, v, b, d, causal, q_is_f32, v_kind,
+                                                     group, stream, mk);
 }

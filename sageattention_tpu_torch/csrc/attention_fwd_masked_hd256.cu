@@ -1,14 +1,15 @@
 // Fused SageAttention forward for Hopper (sm_90a) at head dim 256, with
-// masks: the D = 256 instances of attention_fwd_kernel.cuh (MASKED = true),
-// kernel 1's slices (c)-(g) for head dims in (128, 256].  A source of its
-// own beside attention_fwd_masked.cu, for the reasons attention_fwd_hd256.cu
-// gives; the tiling at D = 256 (64-column KV tiles) is described there.
-// The liveness table keeps its 128-column tiles: a 64-column tile reads
-// the entry of the tile that holds it.
+// masks: the D = 256 instances of attention_fwd_sm90.cuh's TMA-fed wgmma
+// kernel with MASKED (8: causal x q dtype x a staged bias or not), kernel
+// 1's slices (c)-(g) for head dims in (128, 256].  A source of its own
+// beside attention_fwd_masked.cu, for the reasons attention_fwd_hd256.cu gives;
+// the tiling at D = 256 (64-column KV tiles) is described there.  The
+// liveness table keeps its 128-column groups: a 64-column tile reads the
+// entry of the group that holds it.
 //
 // Bound: operations over the live (row, col) pairs, as attention_fwd_masked.cu.
 
-#include "attention_fwd_kernel.cuh"
+#include "attention_fwd_sm90.cuh"
 
 // The operands of sage_attn_fwd_masked (attention_fwd_masked.cu), with d 256.
 extern "C" int sage_attn_fwd_masked_hd256(
@@ -25,7 +26,9 @@ extern "C" int sage_attn_fwd_masked_hd256(
                  mask_sb, mask_sh, mask_sr, mask_sc, bias_sb, bias_sh, bias_sr, bias_sc, live_sb,
                  live_sh, window, bias_bf16))
     return (int)cudaErrorInvalidValue;
-  const Args a{q, k, k_scale, v, v_scale, v_mean, o, want_lse ? lse2 : nullptr,
-               b, hq, hkv, sq, sk, qs_mul};
-  return launch_fwd_d<256, true>(a, mk, d, causal, q_is_f32, v_kind, group, stream);
+  const FwdSm90Args a{q, nullptr, (const float*)k_scale, nullptr, (const float*)v_scale,
+                      (const float*)v_mean, o, want_lse ? (float*)lse2 : nullptr,
+                      hq, hkv, sq, sk, qs_mul, 0, 0};
+  return launch_fwd_sm90<256, false, true>(a, k, v, b, d, causal, q_is_f32, v_kind, group,
+                                          stream, mk);
 }

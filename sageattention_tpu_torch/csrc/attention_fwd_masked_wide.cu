@@ -1,18 +1,18 @@
 // Fused SageAttention forward for Hopper (sm_90a) at head dims 384 and 512,
-// with masks: the D = 384 and D = 512 instances of attention_fwd_kernel.cuh
-// (MASKED = true), kernel 1's slices (c)-(g) for head dims in (256, 512].
-// A source of its own beside attention_fwd_masked.cu and
-// attention_fwd_masked_hd256.cu, for the reasons attention_fwd_wide.cu
-// gives.  O is split by columns over a grid axis, a CTA a column slice
-// with S recomputed in each (attention_fwd_kernel.cuh says why and what it
-// costs; the unmasked instances split O inside one CTA instead).  Each
-// slice applies the masks, the bias and the tile skipping to its own S,
-// by the same rule, so the slices agree on every dead element and on the
-// rows with no live key (o = 0, lse2 = -inf).
+// with masks: the instances of attention_fwd_sm90_wide.cuh's TMA-fed wgmma
+// kernel with MASKED (8: head dim x causal x q dtype), kernel 1's slices
+// (c)-(g) for head dims in (256, 512].  A source of its own beside
+// attention_fwd_masked.cu and attention_fwd_masked_hd256.cu, for the
+// reasons attention_fwd_wide.cu gives.  One CTA a 64-row Q tile, O's
+// columns split between its two consumer warpgroups; each warpgroup
+// computes the whole S and applies the masks, the bias and the tile skips
+// to it by the same rule on the same operands, so the two agree on every
+// dead element, on m, l and lse2, and on the rows with no live key (o = 0,
+// lse2 = -inf).
 //
 // Bound: operations over the live (row, col) pairs, as attention_fwd_masked.cu.
 
-#include "attention_fwd_kernel.cuh"
+#include "attention_fwd_sm90_wide.cuh"
 
 // The operands of sage_attn_fwd_masked (attention_fwd_masked.cu), with d 384
 // or 512.
@@ -30,8 +30,11 @@ extern "C" int sage_attn_fwd_masked_wide(
                  mask_sb, mask_sh, mask_sr, mask_sc, bias_sb, bias_sh, bias_sr, bias_sc, live_sb,
                  live_sh, window, bias_bf16))
     return (int)cudaErrorInvalidValue;
-  const Args a{q, k, k_scale, v, v_scale, v_mean, o, want_lse ? lse2 : nullptr,
-               b, hq, hkv, sq, sk, qs_mul};
-  return d == 384 ? launch_fwd_d<384, true>(a, mk, d, causal, q_is_f32, v_kind, group, stream)
-                  : launch_fwd_d<512, true>(a, mk, d, causal, q_is_f32, v_kind, group, stream);
+  const FwdSm90Args a{q, nullptr, (const float*)k_scale, nullptr, (const float*)v_scale,
+                      (const float*)v_mean, o, want_lse ? (float*)lse2 : nullptr,
+                      hq, hkv, sq, sk, qs_mul, 0, 0};
+  return d == 384 ? launch_fwd_wide<384, false, true>(a, k, v, b, d, causal, q_is_f32, v_kind,
+                                                     group, stream, mk)
+                  : launch_fwd_wide<512, false, true>(a, k, v, b, d, causal, q_is_f32, v_kind,
+                                                      group, stream, mk);
 }

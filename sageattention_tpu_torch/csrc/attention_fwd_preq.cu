@@ -4,12 +4,13 @@
 // smooth_q, qk_bits=4 and qk_quant_gran = per_token / per_subtile /
 // per_block run here: int8 Q codes (+-127, or +-7 at 4 bits) with per-row
 // scales, K scales per 128-row tile or per row, and smooth_q's column bias.
-// Without masks the instances are attention_fwd_sm90.cuh's kernel (TMA-fed
-// wgmma; its helper warps stage the column pairs' K scales and bias a
-// stage; 4 instances, head dim x causal, V codes widened to bf16 before the
-// launch), with masks attention_fwd_kernel.cuh's (mma.sync; 16, head dim x
-// causal x V kind), each with PREQ = true (the output type an argument);
-// the source builds beside attention_fwd.cu and attention_fwd_masked.cu.
+// The instances are attention_fwd_sm90.cuh's kernel (TMA-fed wgmma; the
+// producer stages the K scales and column bias of a tile by TMA) with PREQ,
+// without masks and with them (MASKED, attention_fwd_kernel.cuh's pieces):
+// 12 instances, head dim x causal x (unmasked, masked, masked with a staged
+// bias), V codes widened to bf16 before
+// the launch, the output type an argument; the source builds beside
+// attention_fwd.cu and attention_fwd_masked.cu.
 //
 // Bound: operations, as the default forward's (the same int8 Q.K^T and
 // bf16 P.V); it reads int8 Q and one fp32 scale a row where the default
@@ -36,22 +37,20 @@ extern "C" int sage_attn_fwd_preq(
     long long bias_sb, long long bias_sh, long long bias_sr, long long bias_sc,
     long long live_sb, long long live_sh, int window, int bias_bf16) {
   if (q_scale == nullptr) return (int)cudaErrorInvalidValue;
-  const Args a{nullptr, k, k_scale, v, v_scale, v_mean, o, want_lse ? lse2 : nullptr,
-               b, hq, hkv, sq, sk, 0.f};
-  const PreqArgs pq{(const int8_t*)q, (const float*)q_scale, (const float*)col_bias, ks_per_row,
-                    o_f32};
   MaskArgs mk;
   if (!mask_args(&mk, causal, q_seg, kv_seg, kv_lo, kv_hi, q_pos, kv_pos, mask, bias, live,
                  mask_sb, mask_sh, mask_sr, mask_sc, bias_sb, bias_sh, bias_sr, bias_sc, live_sb,
                  live_sh, window, bias_bf16))
     return (int)cudaErrorInvalidValue;
+  const FwdSm90Args u{q, (const float*)q_scale, (const float*)k_scale, (const float*)col_bias,
+                      (const float*)v_scale, (const float*)v_mean, o,
+                      want_lse ? (float*)lse2 : nullptr, hq, hkv, sq, sk, 0.f, ks_per_row, o_f32};
   if (!masked) {
-    const FwdSm90Args u{q, (const float*)q_scale, (const float*)k_scale, (const float*)col_bias,
-                        (const float*)v_scale, (const float*)v_mean, o,
-                        want_lse ? (float*)lse2 : nullptr, hq, hkv, sq, sk, 0.f, ks_per_row,
-                        o_f32};
     return d == 64 ? launch_fwd_sm90<64, true>(u, k, v, b, d, causal, 0, v_kind, group, stream)
                    : launch_fwd_sm90<128, true>(u, k, v, b, d, causal, 0, v_kind, group, stream);
   }
-  return launch_fwd<true, true>(a, mk, pq, d, causal, 0, v_kind, group, stream);
+  return d == 64 ? launch_fwd_sm90<64, true, true>(u, k, v, b, d, causal, 0, v_kind, group,
+                                                   stream, mk)
+                 : launch_fwd_sm90<128, true, true>(u, k, v, b, d, causal, 0, v_kind, group,
+                                                    stream, mk);
 }

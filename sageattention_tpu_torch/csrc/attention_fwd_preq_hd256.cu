@@ -1,8 +1,9 @@
 // Fused SageAttention forward for Hopper (sm_90a) on pre-quantized Q at
-// head dim 256: the PREQ instances at D = 256, without masks those of
-// attention_fwd_sm90.cuh (TMA-fed wgmma; 2, causal or not, V codes widened
-// to bf16 before the launch), with masks those of attention_fwd_kernel.cuh
-// (8: causal x V kind; the output type is an argument), kernel 1's slices (h) score_col_bias, (i) qk_int4 and (k)
+// head dim 256: the PREQ instances at D = 256 of attention_fwd_sm90.cuh's
+// kernel (TMA-fed wgmma; 6, causal x (unmasked, masked, masked with a
+// staged bias), V codes widened to bf16 before
+// the launch, the output type an argument), kernel 1's slices (h)
+// score_col_bias, (i) qk_int4 and (k)
 // pre-quantized operands of attention_pallas.py:sage_attention_fused for
 // every head dim in (128, 256], padded to 256 (core.py:70-75 of the JAX
 // package).  sageattn's smooth_q, qk_bits=4 and qk_quant_gran run here at
@@ -39,21 +40,17 @@ extern "C" int sage_attn_fwd_preq_hd256(
     long long bias_sb, long long bias_sh, long long bias_sr, long long bias_sc,
     long long live_sb, long long live_sh, int window, int bias_bf16) {
   if (q_scale == nullptr) return (int)cudaErrorInvalidValue;
-  const Args a{nullptr, k, k_scale, v, v_scale, v_mean, o, want_lse ? lse2 : nullptr,
-               b, hq, hkv, sq, sk, 0.f};
-  const PreqArgs pq{(const int8_t*)q, (const float*)q_scale, (const float*)col_bias, ks_per_row,
-                    o_f32};
   MaskArgs mk;
   if (!mask_args(&mk, causal, q_seg, kv_seg, kv_lo, kv_hi, q_pos, kv_pos, mask, bias, live,
                  mask_sb, mask_sh, mask_sr, mask_sc, bias_sb, bias_sh, bias_sr, bias_sc, live_sb,
                  live_sh, window, bias_bf16))
     return (int)cudaErrorInvalidValue;
+  const FwdSm90Args u{q, (const float*)q_scale, (const float*)k_scale, (const float*)col_bias,
+                      (const float*)v_scale, (const float*)v_mean, o,
+                      want_lse ? (float*)lse2 : nullptr, hq, hkv, sq, sk, 0.f, ks_per_row, o_f32};
   if (!masked) {
-    const FwdSm90Args u{q, (const float*)q_scale, (const float*)k_scale, (const float*)col_bias,
-                        (const float*)v_scale, (const float*)v_mean, o,
-                        want_lse ? (float*)lse2 : nullptr, hq, hkv, sq, sk, 0.f, ks_per_row,
-                        o_f32};
     return launch_fwd_sm90<256, true>(u, k, v, b, d, causal, 0, v_kind, group, stream);
   }
-  return launch_fwd_preq_d<256, true>(a, mk, pq, d, causal, v_kind, group, stream);
+  return launch_fwd_sm90<256, true, true>(u, k, v, b, d, causal, 0, v_kind, group, stream,
+                                         mk);
 }

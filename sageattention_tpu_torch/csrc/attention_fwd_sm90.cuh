@@ -1,16 +1,18 @@
-// Kernel 1's unmasked forward for Hopper (sm_90a): TMA-fed wgmma.
+// Kernel 1's forward for Hopper (sm_90a) at head dims 64, 128 and 256:
+// TMA-fed wgmma.
 //
 // The instances of attention_fwd.cu (head dims 64 and 128),
-// attention_fwd_hd256.cu (256) and the unmasked ones of attention_fwd_preq.cu
-// and attention_fwd_preq_hd256.cu (pre-quantized Q): causal x q dtype
-// (PREQ: causal; its output type is an argument).  At 384 and 512 the
-// unmasked instances are attention_fwd_sm90_wide.cuh's kernel, built on this
-// header's pieces with O's columns split between the two consumer
-// warpgroups of one CTA; only the masked instances keep the mma.sync body of
-// attention_fwd_kernel.cuh (O split over CTAs above 256), whose notes say
-// what kernel 1 computes.  This kernel computes the same, in the same order
-// a score at a time (its exp2 is ex2.approx.ftz, exp2f's instruction
-// without the denormal fix-up: a p under 2^-126 is 0):
+// attention_fwd_hd256.cu (256), attention_fwd_masked.cu and
+// attention_fwd_masked_hd256.cu (the same with MASKED), and
+// attention_fwd_preq.cu and attention_fwd_preq_hd256.cu (pre-quantized Q,
+// with masks or without): causal x q dtype (PREQ: causal; its output type
+// is an argument).  At 384 and 512 the instances are
+// attention_fwd_sm90_wide.cuh's kernel, built on this header's pieces with
+// O's columns split between the two consumer warpgroups of one CTA.
+// attention_fwd_kernel.cuh says what kernel 1 computes, the masks
+// included, and holds the masks' pieces.  This kernel computes it a score
+// at a time (its exp2 is ex2.approx.ftz, exp2f's instruction without the
+// denormal fix-up: a p under 2^-126 is 0):
 //   - Q quantized per row in the kernel (max(amax, 1e-30) / 127, roundf,
 //     clipped), sm_scale * log2(e) folded into the row scale as qs_mul, or
 //     with PREQ the caller's codes and scales;
@@ -45,8 +47,9 @@
 //     bytes landed) and `empty` (both consumers are done);
 //   - a consumer stages its 64 rows of Q codes in shared memory (quantized
 //     by its own threads, or PREQ's copied), then loops over the KV tiles:
-//     S = Q.K^T by wgmma (Q's codes in registers at D <= 128, the same
-//     fragment as mma.sync's; read from shared memory at 256, where O's
+//     S = Q.K^T by wgmma (Q's codes in registers at D <= 128, the A
+//     fragment of a K step, but with MASKED at 128; read from shared
+//     memory at 256, where O's
 //     accumulator alone takes 128 registers a thread), the softmax in
 //     registers, and O += P.V by wgmma with P from registers and V read
 //     MN-major.
@@ -70,8 +73,9 @@
 // the call has not is 1s or 0s written once, so that a consumer reads both
 // without a choice, which spilled.)
 //
-// KV tiles are the K-scale group (128 columns), or from D = 256 on half of
-// it (kKvTile), two tiles reading the group's one scale.  The grid's
+// KV tiles are the K-scale group (128 columns), or from D = 256 on (and for
+// the masked pre-quantized instances at 128) half of it (kKvTile), two
+// tiles reading the group's one scale.  The grid's
 // fastest axis is the Q tile, so the CTAs of a wave share a head's K and V
 // in L2, the longest causal tiles first; a causal launch of at most two
 // waves puts the tile on the slowest axis (heads_first) so that every
@@ -79,6 +83,17 @@
 // range is computed by both warpgroups (a row past sq, or a tile right of
 // a row's diagonal, masks to 0): at D <= 128 both need every tile, and at
 // 256 the first warpgroup computes one fully masked tile more.
+//
+// With MASKED every thread of the CTA first works out its KV tiles (a
+// window's first, the range form's span over the CTA's 128 rows, the
+// causal last) and the walk over those the liveness table lists (a tile
+// dead for both warpgroups' table rows is skipped), before the roles part:
+// the producer loads the listed tiles only, the i-th into stage i %
+// STAGES, and both consumers compute every listed tile and release its
+// stage.  A consumer whose own table row marks a tile dead takes it as
+// -inf whole (P = 0).  The masks act on S in registers after its product
+// (mask_scores), so no wgmma sits on a path that part of a warpgroup
+// takes.  The unmasked instances take the same walk over every tile.
 
 #pragma once
 
@@ -87,7 +102,7 @@
 
 namespace {
 
-constexpr int kFwdWG = 128;                       // threads a warpgroup
+constexpr int kFwdWG = kWarpgroup;                // threads a warpgroup
 constexpr int kFwdConsumers = 2;                  // consumer warpgroups
 constexpr int kFwdRows = 64 * kFwdConsumers;      // Q rows a CTA
 constexpr int kFwdThreads = kFwdWG * (kFwdConsumers + 1);
@@ -127,10 +142,12 @@ __device__ inline int tile_off(int r, int x) {
 // shared memory: the consumers' Q codes and row scales, then the ring, each
 // stage K's codes and bf16 V; with PREQ a stage's row vectors (the K scales
 // and the column bias of its KT columns: VEC values from the 16-byte
-// aligned element at or below the first, in a VSLOT each); the barriers
-template <int D, bool PREQ>
+// aligned element at or below the first, in a VSLOT each); with SBIAS each
+// consumer warpgroup's staged bias (kBiasStageBytes, which leaves room for
+// 3 stages at 128 and 256); the barriers
+template <int D, bool PREQ, bool MASKED = false, bool SBIAS = false>
 struct FwdSm90 {
-  static constexpr int KT = kKvTile<D>;
+  static constexpr int KT = kKvTile<D, PREQ, MASKED>;
   using TQ = FwdTile<64, D, 1>;
   using TK = FwdTile<KT, D, 1>;
   using TV = FwdTile<KT, D, 2>;
@@ -142,10 +159,12 @@ struct FwdSm90 {
   static constexpr int k = 0, v = TK::BYTES;  // in a stage
   static constexpr int stage = v + TV::BYTES;  // also the bytes a stage's tiles post
   static constexpr int vec_bytes = PREQ ? 2 * VSLOT : 0;  // K scales, column bias
-  static constexpr int FIT = (kSmemOptin - 1024 - ring) / (stage + vec_bytes + 16);
+  static constexpr int bias_bytes = SBIAS ? kFwdConsumers * kBiasStageBytes<KT> : 0;
+  static constexpr int FIT = (kSmemOptin - 1024 - ring - bias_bytes) / (stage + vec_bytes + 16);
   static constexpr int STAGES = FIT < 4 ? FIT : 4;
   static constexpr int vecs = ring + STAGES * stage;
-  static constexpr int bars = vecs + STAGES * vec_bytes;  // loaded, empty [STAGES]
+  static constexpr int sbias = vecs + STAGES * vec_bytes;
+  static constexpr int bars = sbias + bias_bytes;  // loaded, empty [STAGES]
   static constexpr int bytes = bars + 2 * STAGES * 8 + 1024;  // + the base's alignment
   static_assert(STAGES >= 2 && bytes <= kSmemOptin, "the forward's ring does not fit");
 };
@@ -185,10 +204,11 @@ __device__ inline void fwd_load_tile(unsigned char* dst, const CUtensorMap* map,
     tma_load_3d(dst + p * ROWS * TT::ROWB, map, bar, p * TT::COLS, row0, plane);
 }
 
-template <int D, bool CAUSAL, typename T, bool PREQ>
+template <int D, bool CAUSAL, typename T, bool PREQ, bool MASKED, bool SBIAS>
 __global__ void __launch_bounds__(kFwdThreads, 1)
-sage_attn_fwd_sm90_kernel(const FwdSm90Args a, const __grid_constant__ FwdMaps m) {
-  using L = FwdSm90<D, PREQ>;
+sage_attn_fwd_sm90_kernel(const FwdSm90Args a, const __grid_constant__ FwdMaps m,
+                          const __grid_constant__ MaskOf<MASKED> mk) {
+  using L = FwdSm90<D, PREQ, MASKED, SBIAS>;
   using TQ = typename L::TQ;
   constexpr int KT = L::KT, STAGES = L::STAGES;
   extern __shared__ unsigned char smem_raw[];
@@ -227,6 +247,16 @@ sage_attn_fwd_sm90_kernel(const FwdSm90Args a, const __grid_constant__ FwdMaps m
     }
   }
   __syncthreads();
+  // the CTA's KV tiles [j_first, j_end) and the walk over the listed ones
+  // (with MASKED; else every tile), the same in the producer and in both
+  // consumers
+  int j_first = 0, j_end = n_j;
+  TileWalk<KT> walk{};
+  if constexpr (MASKED) {
+    __shared__ int s_range[2];
+    mask_range<KT, CAUSAL>(mk, bi, q0, kFwdRows, sq, sk, s_range, &j_first, &j_end);
+    walk = TileWalk<KT>(mk, bi, h, q0, kFwdRows, sq, sk, j_end);
+  }
 
   const int wg = threadIdx.x / kFwdWG;
   if (wg == kFwdConsumers) {  // the producer warpgroup
@@ -234,9 +264,10 @@ sage_attn_fwd_sm90_kernel(const FwdSm90Args a, const __grid_constant__ FwdMaps m
     if (threadIdx.x % kFwdWG == 0) {
       const bool ks_rows = PREQ && a.ks_per_row, cbias = PREQ && a.col_bias != nullptr;
       const uint32_t posted = L::stage + (ks_rows + cbias) * L::VEC * 4;
-      for (int j = 0; j < n_j; ++j) {
-        const int s = j % STAGES;
-        mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);
+      // the i-th loaded tile, KV tile j, into stage i % STAGES
+      auto load = [&](int i, int j) {
+        const int s = i % STAGES;
+        mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
         unsigned char* st = smem + L::ring + s * L::stage;
         mbar_expect_tx(&loaded[s], posted);
         fwd_load_tile<typename L::TK, KT>(st + L::k, &m.k, &loaded[s], j * KT, plane_kv);
@@ -252,7 +283,8 @@ sage_attn_fwd_sm90_kernel(const FwdSm90Args a, const __grid_constant__ FwdMaps m
             tma_load_1d(vs + L::VSLOT, &m.cb, &loaded[s],
                         (int)((((long long)bi * hq + h) * sk + j * KT + m.shift_cb) & ~3LL));
         }
-      }
+      };
+      for (int i = 0, j = walk.next(j_first); j < j_end; ++i, j = walk.next(j + 1)) load(i, j);
     }
     return;
   }
@@ -306,9 +338,13 @@ sage_attn_fwd_sm90_kernel(const FwdSm90Args a, const __grid_constant__ FwdMaps m
   named_sync(1 + wg, kFwdWG);
   const float qs0 = sQs[warp * 16 + g], qs1 = sQs[warp * 16 + g + 8];
   const int row0 = q0w + warp * 16 + g, row1 = row0 + 8;  // this thread's rows
-  // at D <= 128 the A fragments of Q's K steps, held for every tile
-  uint32_t qa[D <= 128 ? D / 32 : 1][4];
-  if constexpr (D <= 128) {
+  // Q's codes in registers (QREG) or read from shared memory by the
+  // product: the masked instances at 128 read them (the 16 registers they
+  // hold go to the masks' pass), as every instance at 256 does
+  constexpr bool QREG = D == 64 || (D == 128 && !MASKED);
+  // with QREG the A fragments of Q's K steps, held for every tile
+  uint32_t qa[QREG ? D / 32 : 1][4];
+  if constexpr (QREG) {
 #pragma unroll
     for (int kk = 0; kk < D / 32; ++kk) {
       const int r = warp * 16 + g, x = kk * 32 + 4 * t;
@@ -325,6 +361,10 @@ sage_attn_fwd_sm90_kernel(const FwdSm90Args a, const __grid_constant__ FwdMaps m
   const int oks = (int)(((long long)plane_kv * sk + m.shift_ks) & 3);
   const int ocb = (int)((((long long)bi * hq + h) * sk + m.shift_cb) & 3);
   const uint32_t ring = smem_u32(smem + L::ring), sQa = smem_u32(sQ);
+  // SBIAS: this thread's slots of its warpgroup's staged bias
+  uint32_t sb = 0;
+  if constexpr (SBIAS)
+    sb = smem_u32(smem + L::sbias + wg * kBiasStageBytes<KT>) + tid * (mk.bias_bf16 ? 4 : 8);
 
   float m0 = NEG_INIT, m1 = NEG_INIT;  // running max (base 2)
   float l0 = 0.f, l1 = 0.f;            // this thread's partial row sums
@@ -372,15 +412,16 @@ sage_attn_fwd_sm90_kernel(const FwdSm90Args a, const __grid_constant__ FwdMaps m
   // P.V runs; O is rescaled and P repacked once P.V is done too.  The first
   // step has no P.V and the last no S: every wgmma below sits on a path that
   // all of the warpgroup takes.
-  auto step = [&](auto pv, auto sc, int j) {
+  // i counts the CTA's tiles (its stage and phase), j is the KV tile
+  auto step = [&](auto pv, auto sc, int i, int j) {
     constexpr bool PV = decltype(pv)::value, SC = decltype(sc)::value;
-    const int s = j % STAGES;
+    const int s = i % STAGES;
     if constexpr (SC) {
-      mbar_wait(&loaded[s], (j / STAGES) & 1);
+      mbar_wait(&loaded[s], (i / STAGES) & 1);
     }
     wgmma_fence();
     auto issue_pv = [&] {
-      const uint32_t vt = ring + ((j + STAGES - 1) % STAGES) * L::stage + L::v;
+      const uint32_t vt = ring + ((i + STAGES - 1) % STAGES) * L::stage + L::v;
 #pragma unroll
       for (int kk = 0; kk < KT / 16; ++kk)
         wgmma_bf16_rs_mn<D>(acc, pf[kk], desc_mnmajor<KT>(vt, kk));
@@ -389,7 +430,7 @@ sage_attn_fwd_sm90_kernel(const FwdSm90Args a, const __grid_constant__ FwdMaps m
       const uint32_t kt = ring + s * L::stage + L::k;
 #pragma unroll
       for (int kk = 0; kk < D / 32; ++kk) {
-        if constexpr (D <= 128)
+        if constexpr (QREG)
           wgmma_s8_rs128(s_i, qa[kk], desc_kmajor<KT, L::TK::ROWB>(kt, kk), kk > 0);
         else
           wgmma_s8_ss<KT>(s_i, desc_kmajor<64, TQ::ROWB>(sQa, kk),
@@ -406,10 +447,17 @@ sage_attn_fwd_sm90_kernel(const FwdSm90Args a, const __grid_constant__ FwdMaps m
       // ---- tile j: dequantize, mask, online softmax (base 2) ------------
       const int kv0 = j * KT;
       float mx0 = -INFINITY, mx1 = -INFINITY;
-      if ((kv0 + KT > sk) || (CAUSAL && kv0 + KT - 1 > q0w))
+      const bool edge = (kv0 + KT > sk) || (CAUSAL && kv0 + KT - 1 > q0w);
+      if constexpr (MASKED) {
+        float u0 = -INFINITY, u1 = -INFINITY;  // the unmasked maxima, not read
+        scores(std::false_type{}, j, s, u0, u1);
+        mask_scores<KT, CAUSAL, SBIAS>(sf, mk, bi, h, row0, row1, t, kv0, sq, sk,
+                                       walk.state(j, wg), edge, mx0, mx1, sb);
+      } else if (edge) {
         scores(std::true_type{}, j, s, mx0, mx1);
-      else
+      } else {
         scores(std::false_type{}, j, s, mx0, mx1);
+      }
 #pragma unroll
       for (int off = 1; off < 4; off <<= 1) {
         mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
@@ -435,7 +483,7 @@ sage_attn_fwd_sm90_kernel(const FwdSm90Args a, const __grid_constant__ FwdMaps m
     }
     wgmma_wait<0>();
     reg_fence(acc, D / 2);
-    if constexpr (PV) mbar_arrive(&empty[(j + STAGES - 1) % STAGES]);
+    if constexpr (PV) mbar_arrive(&empty[(i + STAGES - 1) % STAGES]);
     if constexpr (SC) {
 #pragma unroll
       for (int i = 0; i < D / 8; ++i) {
@@ -452,11 +500,24 @@ sage_attn_fwd_sm90_kernel(const FwdSm90Args a, const __grid_constant__ FwdMaps m
         pf[kk][2] = pack_bf16(sf[8 * kk + 4], sf[8 * kk + 5]);
         pf[kk][3] = pack_bf16(sf[8 * kk + 6], sf[8 * kk + 7]);
       }
+      if constexpr (SBIAS) {
+        // the next listed tile's bias, in flight while its S is computed
+        // (issued here, where S and the scores hold no registers: issued
+        // after the scores, one instance spilled)
+        const int jn = walk.next(j + 1);
+        if (jn < j_end) bias_stage<KT>(mk, sb, bi, h, row0, row1, t, jn * KT, sq, sk);
+      }
     }
   };
-  step(std::false_type{}, std::true_type{}, 0);
-  for (int j = 1; j < n_j; ++j) step(std::true_type{}, std::true_type{}, j);
-  step(std::true_type{}, std::false_type{}, n_j);
+  int j = walk.next(j_first);
+  if (j < j_end) {  // the same in every thread of the CTA
+    if constexpr (SBIAS) bias_stage<KT>(mk, sb, bi, h, row0, row1, t, j * KT, sq, sk);
+    step(std::false_type{}, std::true_type{}, 0, j);
+    int i = 1;
+    for (j = walk.next(j + 1); j < j_end; j = walk.next(j + 1), ++i)
+      step(std::true_type{}, std::true_type{}, i, j);
+    step(std::true_type{}, std::false_type{}, i, 0);
+  }
 
   // ---- epilogue: o = (acc / l) * v_scale + v_mean, lse2 = log2(l) + m -----
 #pragma unroll
@@ -470,6 +531,10 @@ sage_attn_fwd_sm90_kernel(const FwdSm90Args a, const __grid_constant__ FwdMaps m
     const int cl = i * 8 + t * 2;
     float o0[2] = {acc[4 * i] / l0, acc[4 * i + 1] / l0};
     float o1[2] = {acc[4 * i + 2] / l1, acc[4 * i + 3] / l1};
+    if constexpr (MASKED) {  // a row with no live key writes 0
+      if (!(l0 > 0.f)) o0[0] = o0[1] = 0.f;
+      if (!(l1 > 0.f)) o1[0] = o1[1] = 0.f;
+    }
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       if (a.v_scale != nullptr) {
@@ -494,8 +559,13 @@ sage_attn_fwd_sm90_kernel(const FwdSm90Args a, const __grid_constant__ FwdMaps m
   }
   if (a.lse2 != nullptr && t == 0) {
     const size_t lbase = ((size_t)bi * hq + h) * sq;
-    if (row0 < sq) a.lse2[lbase + row0] = log2f(l0) + m0;
-    if (row1 < sq) a.lse2[lbase + row1] = log2f(l1) + m1;
+    float ls0 = log2f(l0) + m0, ls1 = log2f(l1) + m1;
+    if constexpr (MASKED) {  // and its LSE is -inf
+      if (!(l0 > 0.f)) ls0 = -INFINITY;
+      if (!(l1 > 0.f)) ls1 = -INFINITY;
+    }
+    if (row0 < sq) a.lse2[lbase + row0] = ls0;
+    if (row1 < sq) a.lse2[lbase + row1] = ls1;
   }
 }
 
@@ -510,25 +580,48 @@ inline dim3 fwd_grid(int n_tiles, int heads, int b, bool causal, int* heads_firs
   return *heads_first ? dim3(heads, b, n_tiles) : dim3(n_tiles, heads, b);
 }
 
-template <int D, bool CAUSAL, typename T, bool PREQ>
-int fwd_sm90_launch(const FwdSm90Args& a, const FwdMaps& m, dim3 grid, cudaStream_t st) {
-  auto kern = sage_attn_fwd_sm90_kernel<D, CAUSAL, T, PREQ>;
-  constexpr int smem = FwdSm90<D, PREQ>::bytes;
+template <int D, bool CAUSAL, typename T, bool PREQ, bool MASKED, bool SBIAS>
+int fwd_sm90_launch_one(const FwdSm90Args& a, const FwdMaps& m, const MaskOf<MASKED>& mk,
+                        dim3 grid, cudaStream_t st) {
+  auto kern = sage_attn_fwd_sm90_kernel<D, CAUSAL, T, PREQ, MASKED, SBIAS>;
+  constexpr int smem = FwdSm90<D, PREQ, MASKED, SBIAS>::bytes;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  kern<<<grid, kFwdThreads, smem, st>>>(a, m);
+  kern<<<grid, kFwdThreads, smem, st>>>(a, m, mk);
   return (int)cudaGetLastError();
 }
 
+// whether the masks' bias is staged by cp.async (SBIAS): its column pairs
+// contiguous and aligned in every row (unit column stride, even other
+// strides, a base aligned to a pair)
+inline bool bias_stageable(const MaskArgs& mk) {
+  const long long* st = mk.bias_st;
+  return mk.bias != nullptr && st[3] == 1 && st[0] % 2 == 0 && st[1] % 2 == 0 &&
+         st[2] % 2 == 0 && (reinterpret_cast<uintptr_t>(mk.bias) & (mk.bias_bf16 ? 3 : 7)) == 0;
+}
+
+// the instance of (D, CAUSAL, T, PREQ, MASKED); with masks, the one that
+// stages the bias where the bias allows it
+template <int D, bool CAUSAL, typename T, bool PREQ, bool MASKED>
+int fwd_sm90_launch(const FwdSm90Args& a, const FwdMaps& m, const MaskOf<MASKED>& mk, dim3 grid,
+                    cudaStream_t st) {
+  if constexpr (MASKED) {
+    if (bias_stageable(mk))
+      return fwd_sm90_launch_one<D, CAUSAL, T, PREQ, true, true>(a, m, mk, grid, st);
+  }
+  return fwd_sm90_launch_one<D, CAUSAL, T, PREQ, MASKED, false>(a, m, mk, grid, st);
+}
+
 // The instances of head dim D (PREQ: causal, the output type an argument;
-// else causal x q dtype): checks the shape arguments, builds the tensor
-// maps of K and V and launches.  k, v: the codes and bf16 V of the entry
-// points, [b, hkv, sk, D]; V codes are widened to bf16 before the call
-// (widen_v.cu), so v_kind must be bf16 (0)
-template <int D, bool PREQ>
+// else causal x q dtype), with the masks mk or without (NoMask): checks
+// the shape arguments, builds the tensor maps of K and V and launches.  k,
+// v: the codes and bf16 V of the entry points, [b, hkv, sk, D]; V codes are
+// widened to bf16 before the call (widen_v.cu), so v_kind must be bf16 (0)
+template <int D, bool PREQ, bool MASKED = false>
 int launch_fwd_sm90(const FwdSm90Args& a, const void* k, const void* v, int b, int d,
-                    int causal, int q_is_f32, int v_kind, int group, void* stream) {
-  using L = FwdSm90<D, PREQ>;
+                    int causal, int q_is_f32, int v_kind, int group, void* stream,
+                    const MaskOf<MASKED>& mk = {}) {
+  using L = FwdSm90<D, PREQ, MASKED>;
   if (group != BN || a.hkv <= 0 || a.hq % a.hkv != 0 || d != D || v_kind != kVBf16 ||
       a.sq <= 0 || a.sk <= 0 || b <= 0)
     return (int)cudaErrorInvalidValue;
@@ -548,14 +641,14 @@ int launch_fwd_sm90(const FwdSm90Args& a, const void* k, const void* v, int b, i
   const dim3 grid = fwd_grid((a.sq + kFwdRows - 1) / kFwdRows, a.hq, b, causal, &m.heads_first);
   cudaStream_t st = (cudaStream_t)stream;
   if constexpr (PREQ) {
-    return causal ? fwd_sm90_launch<D, true, __nv_bfloat16, true>(a, m, grid, st)
-                  : fwd_sm90_launch<D, false, __nv_bfloat16, true>(a, m, grid, st);
+    return causal ? fwd_sm90_launch<D, true, __nv_bfloat16, true, MASKED>(a, m, mk, grid, st)
+                  : fwd_sm90_launch<D, false, __nv_bfloat16, true, MASKED>(a, m, mk, grid, st);
   } else {
     if (q_is_f32)
-      return causal ? fwd_sm90_launch<D, true, float, false>(a, m, grid, st)
-                    : fwd_sm90_launch<D, false, float, false>(a, m, grid, st);
-    return causal ? fwd_sm90_launch<D, true, __nv_bfloat16, false>(a, m, grid, st)
-                  : fwd_sm90_launch<D, false, __nv_bfloat16, false>(a, m, grid, st);
+      return causal ? fwd_sm90_launch<D, true, float, false, MASKED>(a, m, mk, grid, st)
+                    : fwd_sm90_launch<D, false, float, false, MASKED>(a, m, mk, grid, st);
+    return causal ? fwd_sm90_launch<D, true, __nv_bfloat16, false, MASKED>(a, m, mk, grid, st)
+                  : fwd_sm90_launch<D, false, __nv_bfloat16, false, MASKED>(a, m, mk, grid, st);
   }
 }
 

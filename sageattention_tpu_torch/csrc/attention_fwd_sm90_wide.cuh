@@ -1,10 +1,11 @@
-// Kernel 1's unmasked forward at head dims 384 and 512 for Hopper
-// (sm_90a): TMA-fed wgmma, O's columns split between the two consumer
-// warpgroups of one CTA.
+// Kernel 1's forward at head dims 384 and 512 for Hopper (sm_90a):
+// TMA-fed wgmma, O's columns split between the two consumer warpgroups of
+// one CTA.
 //
-// The unmasked instances of attention_fwd_wide.cu (causal x q dtype) and
-// of attention_fwd_preq_wide.cu (pre-quantized Q: causal; the output type
-// an argument), which kernel 1 (attention_pallas.py:sage_attention_fused,
+// The instances of attention_fwd_wide.cu (causal x q dtype),
+// attention_fwd_masked_wide.cu (the same with MASKED) and
+// attention_fwd_preq_wide.cu (pre-quantized Q: causal x masked; the output
+// type an argument), which kernel 1 (attention_pallas.py:sage_attention_fused,
 // _kernel :918, _kernel_single :1207) runs for every head dim in (256,
 // 512], padded to 384 or 512 (core.py:70-75 of the JAX package).  It
 // computes what attention_fwd_sm90.cuh computes at 64-256, in the same
@@ -12,9 +13,10 @@
 // qs_mul folded in (or PREQ's codes and scales), S = int8 Q.K^T to int32
 // dequantized once, a base-2 online softmax, P rounded to bf16, P.V in
 // bf16 with fp32 accumulation, o = (acc / l) * v_scale + v_mean and lse2;
-// V codes are widened to bf16 before the launch (widen_v.cu).  The masked
-// wide instances keep the mma.sync body of attention_fwd_kernel.cuh, with
-// O split by columns over a grid axis.
+// V codes are widened to bf16 before the launch (widen_v.cu).  With MASKED
+// both warpgroups walk the CTA's listed KV tiles and run the masks' pass
+// (attention_fwd_kernel.cuh) on the same S, so m, l and lse2 still agree
+// bit for bit.
 //
 // Why the split: a consumer thread's fp32 O accumulator over a 64-row tile
 // is 64 D / 128 registers, 192 at 384 and 256 at 512, more than a thread
@@ -48,7 +50,8 @@
 // Shared memory sets the KV tile (kKvWide): Q's codes 64 x D, the rings,
 // with PREQ each K stage's row vectors, Q's row scales.  64 columns in two
 // stages at 384 (173,376 bytes; PREQ 174,912) and 512 (230,720); PREQ at
-// 512 takes 32 columns in three (183,136), as 64 spilled.  A 32-column
+// 512 takes 32 columns in three (183,136), as 64 spilled, and MASKED at 512
+// 32 columns in four.  A 32-column
 // tile is a quarter of a 128-column K-scale group and reads its scale.
 // The rest follows attention_fwd_sm90.cuh: a producer warpgroup, setmaxnreg
 // 24 / 240, the grid of fwd_grid with the Q tile on the fastest axis.
@@ -104,18 +107,21 @@ struct FwdWideAt {
 };
 
 // the KV tile: 64 columns where two stages of them fit, else 32; 32 for the
-// pre-quantized instances at 512 too, whose row vectors beside 64-column
-// S, P and O tiles spilled (24 bytes of stack)
-template <int D, bool PREQ>
-constexpr int kKvWide = FwdWideAt<D, PREQ, 64>::fits && !(PREQ && D == 512) ? 64 : 32;
+// pre-quantized and the masked instances at 512 too, whose row vectors or
+// masks' pass beside 64-column S, P and O tiles spilled (16-24 bytes of
+// stack)
+template <int D, bool PREQ, bool MASKED>
+constexpr int kKvWide =
+    FwdWideAt<D, PREQ, 64>::fits && !((PREQ || MASKED) && D == 512) ? 64 : 32;
 
-template <int D, bool PREQ>
-using FwdWide = FwdWideAt<D, PREQ, kKvWide<D, PREQ>>;
+template <int D, bool PREQ, bool MASKED = false>
+using FwdWide = FwdWideAt<D, PREQ, kKvWide<D, PREQ, MASKED>>;
 
-template <int D, bool CAUSAL, typename T, bool PREQ>
+template <int D, bool CAUSAL, typename T, bool PREQ, bool MASKED>
 __global__ void __launch_bounds__(kFwdThreads, 1)
-sage_attn_fwd_wide_kernel(const FwdSm90Args a, const __grid_constant__ FwdMaps m) {
-  using L = FwdWide<D, PREQ>;
+sage_attn_fwd_wide_kernel(const FwdSm90Args a, const __grid_constant__ FwdMaps m,
+                          const __grid_constant__ MaskOf<MASKED> mk) {
+  using L = FwdWide<D, PREQ, MASKED>;
   using TQ = typename L::TQ;
   constexpr int KT = L::KT, STAGES = L::STAGES, DH = D / 2;
   static_assert(L::fits, "the wide forward's ring does not fit");
@@ -161,25 +167,39 @@ sage_attn_fwd_wide_kernel(const FwdSm90Args a, const __grid_constant__ FwdMaps m
     }
   }
   __syncthreads();
+  // the CTA's KV tiles [j_first, j_end) and the walk over the listed ones
+  // (with MASKED; else every tile), the same in both producer threads and
+  // both consumers
+  int j_first = 0, j_end = n_j;
+  TileWalk<KT> walk{};
+  if constexpr (MASKED) {
+    __shared__ int s_range[2];
+    mask_range<KT, CAUSAL>(mk, bi, q0, kWideRows, sq, sk, s_range, &j_first, &j_end);
+    walk = TileWalk<KT>(mk, bi, h, q0, kWideRows, sq, sk, j_end);
+  }
+  // every loaded tile by `load(i, j)`: the i-th, KV tile j, into stage i % STAGES
+  auto walk_tiles = [&](auto load) {
+    for (int i = 0, j = walk.next(j_first); j < j_end; ++i, j = walk.next(j + 1)) load(i, j);
+  };
 
   const int wg = threadIdx.x / kFwdWG;
   if (wg == kFwdConsumers) {  // the producer warpgroup: K by one thread, V by another
     regs_dec<kFwdProducerRegs>();
     if (threadIdx.x % kFwdWG == 32) {
-      for (int j = 0; j < n_j; ++j) {
-        const int s = j % STAGES;
-        mbar_wait(&vfree[s], ((j / STAGES) & 1) ^ 1);
+      walk_tiles([&](int i, int j) {
+        const int s = i % STAGES;
+        mbar_wait(&vfree[s], ((i / STAGES) & 1) ^ 1);
         mbar_expect_tx(&vfull[s], L::TV::BYTES);
         fwd_load_tile<typename L::TV, KT>(smem + L::vring + s * L::TV::BYTES, &m.v, &vfull[s],
                                           j * KT, plane_kv);
-      }
+      });
     }
     if (threadIdx.x % kFwdWG == 0) {
       const bool ks_rows = PREQ && a.ks_per_row, cbias = PREQ && a.col_bias != nullptr;
       const uint32_t posted = L::TK::BYTES + (ks_rows + cbias) * L::VEC * 4;
-      for (int j = 0; j < n_j; ++j) {
-        const int s = j % STAGES;
-        mbar_wait(&kfree[s], ((j / STAGES) & 1) ^ 1);
+      walk_tiles([&](int i, int j) {
+        const int s = i % STAGES;
+        mbar_wait(&kfree[s], ((i / STAGES) & 1) ^ 1);
         mbar_expect_tx(&kfull[s], posted);
         fwd_load_tile<typename L::TK, KT>(smem + L::kring + s * L::TK::BYTES, &m.k, &kfull[s],
                                           j * KT, plane_kv);
@@ -194,7 +214,7 @@ sage_attn_fwd_wide_kernel(const FwdSm90Args a, const __grid_constant__ FwdMaps m
             tma_load_1d(vs + L::VSLOT, &m.cb, &kfull[s],
                         (int)((((long long)bi * hq + h) * sk + j * KT + m.shift_cb) & ~3LL));
         }
-      }
+      });
     }
     return;
   }
@@ -310,11 +330,12 @@ sage_attn_fwd_wide_kernel(const FwdSm90Args a, const __grid_constant__ FwdMaps m
   // while P.V runs; O is rescaled and P repacked once P.V is done too.
   // The first step has no P.V and the last no S: every wgmma below
   // sits on a path that all of the warpgroup takes.
-  auto step = [&](auto pv, auto sc, int j) {
+  // i counts the CTA's tiles (its stages and phases), j is the KV tile
+  auto step = [&](auto pv, auto sc, int i, int j) {
     constexpr bool PV = decltype(pv)::value, SC = decltype(sc)::value;
-    const int s = j % STAGES, sp = (j + STAGES - 1) % STAGES;  // tile j's, tile j - 1's
-    if constexpr (SC) mbar_wait(&kfull[s], (j / STAGES) & 1);
-    if constexpr (PV) mbar_wait(&vfull[sp], ((j - 1) / STAGES) & 1);
+    const int s = i % STAGES, sp = (i + STAGES - 1) % STAGES;  // tile i's, tile i - 1's
+    if constexpr (SC) mbar_wait(&kfull[s], (i / STAGES) & 1);
+    if constexpr (PV) mbar_wait(&vfull[sp], ((i - 1) / STAGES) & 1);
     wgmma_fence();
     auto issue_pv = [&] {
       // this warpgroup's DH / 64 panels of the V tile
@@ -340,10 +361,18 @@ sage_attn_fwd_wide_kernel(const FwdSm90Args a, const __grid_constant__ FwdMaps m
       // ---- tile j: dequantize, mask, online softmax (base 2) ------------
       const int kv0 = j * KT;
       float mx0 = -INFINITY, mx1 = -INFINITY;
-      if ((kv0 + KT > sk) || (CAUSAL && kv0 + KT - 1 > q0))
+      const bool edge = (kv0 + KT > sk) || (CAUSAL && kv0 + KT - 1 > q0);
+      if constexpr (MASKED) {
+        // both warpgroups run the same rule on the same operands
+        float u0 = -INFINITY, u1 = -INFINITY;  // the unmasked maxima, not read
+        scores(std::false_type{}, j, s, u0, u1);
+        mask_scores<KT, CAUSAL>(sf, mk, bi, h, row0, row1, t, kv0, sq, sk, walk.state(j, 0),
+                                edge, mx0, mx1);
+      } else if (edge) {
         scores(std::true_type{}, j, s, mx0, mx1);
-      else
+      } else {
         scores(std::false_type{}, j, s, mx0, mx1);
+      }
       release(&kfree[s]);  // S and the row vectors read
 #pragma unroll
       for (int off = 1; off < 4; off <<= 1) {
@@ -391,9 +420,14 @@ sage_attn_fwd_wide_kernel(const FwdSm90Args a, const __grid_constant__ FwdMaps m
       }
     }
   };
-  step(std::false_type{}, std::true_type{}, 0);
-  for (int j = 1; j < n_j; ++j) step(std::true_type{}, std::true_type{}, j);
-  step(std::true_type{}, std::false_type{}, n_j);
+  int j = walk.next(j_first);
+  if (j < j_end) {  // the same in every thread of the CTA
+    step(std::false_type{}, std::true_type{}, 0, j);
+    int i = 1;
+    for (j = walk.next(j + 1); j < j_end; j = walk.next(j + 1), ++i)
+      step(std::true_type{}, std::true_type{}, i, j);
+    step(std::true_type{}, std::false_type{}, i, 0);
+  }
 
   // ---- epilogue: o = (acc / l) * v_scale + v_mean, lse2 = log2(l) + m -----
 #pragma unroll
@@ -407,6 +441,10 @@ sage_attn_fwd_wide_kernel(const FwdSm90Args a, const __grid_constant__ FwdMaps m
     const int cl = wg * DH + i * 8 + t * 2;
     float o0[2] = {acc[4 * i] / l0, acc[4 * i + 1] / l0};
     float o1[2] = {acc[4 * i + 2] / l1, acc[4 * i + 3] / l1};
+    if constexpr (MASKED) {  // a row with no live key writes 0
+      if (!(l0 > 0.f)) o0[0] = o0[1] = 0.f;
+      if (!(l1 > 0.f)) o1[0] = o1[1] = 0.f;
+    }
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       if (a.v_scale != nullptr) {
@@ -431,30 +469,37 @@ sage_attn_fwd_wide_kernel(const FwdSm90Args a, const __grid_constant__ FwdMaps m
   }
   if (a.lse2 != nullptr && wg == 0 && t == 0) {  // both warpgroups hold the same m and l
     const size_t lbase = ((size_t)bi * hq + h) * sq;
-    if (row0 < sq) a.lse2[lbase + row0] = log2f(l0) + m0;
-    if (row1 < sq) a.lse2[lbase + row1] = log2f(l1) + m1;
+    float ls0 = log2f(l0) + m0, ls1 = log2f(l1) + m1;
+    if constexpr (MASKED) {  // and its LSE is -inf
+      if (!(l0 > 0.f)) ls0 = -INFINITY;
+      if (!(l1 > 0.f)) ls1 = -INFINITY;
+    }
+    if (row0 < sq) a.lse2[lbase + row0] = ls0;
+    if (row1 < sq) a.lse2[lbase + row1] = ls1;
   }
 }
 
-template <int D, bool CAUSAL, typename T, bool PREQ>
-int fwd_wide_launch(const FwdSm90Args& a, const FwdMaps& m, dim3 grid, cudaStream_t st) {
-  auto kern = sage_attn_fwd_wide_kernel<D, CAUSAL, T, PREQ>;
-  constexpr int smem = FwdWide<D, PREQ>::bytes;
+template <int D, bool CAUSAL, typename T, bool PREQ, bool MASKED>
+int fwd_wide_launch(const FwdSm90Args& a, const FwdMaps& m, const MaskOf<MASKED>& mk, dim3 grid,
+                    cudaStream_t st) {
+  auto kern = sage_attn_fwd_wide_kernel<D, CAUSAL, T, PREQ, MASKED>;
+  constexpr int smem = FwdWide<D, PREQ, MASKED>::bytes;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  kern<<<grid, kFwdThreads, smem, st>>>(a, m);
+  kern<<<grid, kFwdThreads, smem, st>>>(a, m, mk);
   return (int)cudaGetLastError();
 }
 
 // The instances of head dim D (PREQ: causal, the output type an argument;
-// else causal x q dtype): checks the shape arguments, builds the tensor
-// maps of K and V and launches.  k, v: the codes and bf16 V of the entry
-// points, [b, hkv, sk, D]; V codes are widened to bf16 before the call
-// (widen_v.cu), so v_kind must be bf16 (0)
-template <int D, bool PREQ>
+// else causal x q dtype), with the masks mk or without (NoMask): checks
+// the shape arguments, builds the tensor maps of K and V and launches.  k,
+// v: the codes and bf16 V of the entry points, [b, hkv, sk, D]; V codes are
+// widened to bf16 before the call (widen_v.cu), so v_kind must be bf16 (0)
+template <int D, bool PREQ, bool MASKED = false>
 int launch_fwd_wide(const FwdSm90Args& a, const void* k, const void* v, int b, int d,
-                    int causal, int q_is_f32, int v_kind, int group, void* stream) {
-  using L = FwdWide<D, PREQ>;
+                    int causal, int q_is_f32, int v_kind, int group, void* stream,
+                    const MaskOf<MASKED>& mk = {}) {
+  using L = FwdWide<D, PREQ, MASKED>;
   if (group != BN || a.hkv <= 0 || a.hq % a.hkv != 0 || d != D || v_kind != kVBf16 ||
       a.sq <= 0 || a.sk <= 0 || b <= 0)
     return (int)cudaErrorInvalidValue;
@@ -474,14 +519,14 @@ int launch_fwd_wide(const FwdSm90Args& a, const void* k, const void* v, int b, i
   const dim3 grid = fwd_grid((a.sq + kWideRows - 1) / kWideRows, a.hq, b, causal, &m.heads_first);
   cudaStream_t st = (cudaStream_t)stream;
   if constexpr (PREQ) {
-    return causal ? fwd_wide_launch<D, true, __nv_bfloat16, true>(a, m, grid, st)
-                  : fwd_wide_launch<D, false, __nv_bfloat16, true>(a, m, grid, st);
+    return causal ? fwd_wide_launch<D, true, __nv_bfloat16, true, MASKED>(a, m, mk, grid, st)
+                  : fwd_wide_launch<D, false, __nv_bfloat16, true, MASKED>(a, m, mk, grid, st);
   } else {
     if (q_is_f32)
-      return causal ? fwd_wide_launch<D, true, float, false>(a, m, grid, st)
-                    : fwd_wide_launch<D, false, float, false>(a, m, grid, st);
-    return causal ? fwd_wide_launch<D, true, __nv_bfloat16, false>(a, m, grid, st)
-                  : fwd_wide_launch<D, false, __nv_bfloat16, false>(a, m, grid, st);
+      return causal ? fwd_wide_launch<D, true, float, false, MASKED>(a, m, mk, grid, st)
+                    : fwd_wide_launch<D, false, float, false, MASKED>(a, m, mk, grid, st);
+    return causal ? fwd_wide_launch<D, true, __nv_bfloat16, false, MASKED>(a, m, mk, grid, st)
+                  : fwd_wide_launch<D, false, __nv_bfloat16, false, MASKED>(a, m, mk, grid, st);
   }
 }
 

@@ -11,10 +11,9 @@
 // consumer warpgroups (D / 2 each: a thread's O accumulator is 96 registers
 // at 384 and 128 at 512), each warpgroup computing the whole S = Q.K^T
 // itself (the header says why that beat one S split over the head dim and
-// exchanged, and what the KV tile is).  Only the masked wide instances
+// exchanged, and what the KV tile is).  The masked wide instances
 // (attention_fwd_masked_wide.cu and the masked ones of
-// attention_fwd_preq_wide.cu) still split O over CTAs, on the mma.sync body
-// of attention_fwd_kernel.cuh.
+// attention_fwd_preq_wide.cu) are the same kernel with MASKED.
 //
 // Bound: operations, as at 256.  At (4, 16/16, 4096, d) causal (537 M live
 // pairs) Q.K^T is 2 x 537e6 x d int8 ops and P.V as many bf16 FLOP: 0.63 ms

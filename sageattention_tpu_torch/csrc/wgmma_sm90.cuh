@@ -170,9 +170,9 @@ __device__ inline void wgmma_e4m3<256>(float* d, const uint32_t* a, uint64_t des
 }
 
 // ---------------------------------------------------------------------------
-// The backward's products.  S-shaped tiles (N = 32 or 64 columns) from two
-// shared descriptors, both K-major: d = A . B^T, or d += A . B^T with
-// scale_d 1.
+// The backward's products.  S-shaped tiles (N = 32 or 64 columns; 128 for
+// the masked forward's S at head dim 128) from two shared descriptors, both
+// K-major: d = A . B^T, or d += A . B^T with scale_d 1.
 // The accumulating products (dQ, dK, dV; the forward's P.V) take A (P,
 // P^T, dS) from registers and B = a row-major [k][n] bf16 tile read
 // MN-major (tnspB 1): d += a . B.  N 192 is the wide forward's half of O at
@@ -184,9 +184,12 @@ __device__ inline void wgmma_s8_ss(int* d, uint64_t da, uint64_t db, int scale_d
   if constexpr (N == 32) {
     WG_ASM("m64n32k32.s32.s8.s8", WG_D16, "%16, %17, p", "%18", WG_OUT16("+r", d), "l"(da),
            "l"(db), "r"(scale_d));
-  } else {
-    static_assert(N == 64, "wgmma_s8_ss: N is 32 or 64");
+  } else if constexpr (N == 64) {
     WG_ASM("m64n64k32.s32.s8.s8", WG_D32, "%32, %33, p", "%34", WG_OUT32("+r", d), "l"(da),
+           "l"(db), "r"(scale_d));
+  } else {
+    static_assert(N == 128, "wgmma_s8_ss: N is 32, 64 or 128");
+    WG_ASM("m64n128k32.s32.s8.s8", WG_D64, "%64, %65, p", "%66", WG_OUT64("+r", d), "l"(da),
            "l"(db), "r"(scale_d));
   }
 }

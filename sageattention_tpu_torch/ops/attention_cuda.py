@@ -8,17 +8,15 @@ and with its masks (:class:`Masks`: segment ids and varlen's range form,
 positions, a bool mask, an additive bias, a sliding window), and on
 pre-quantized operands (int8 or +-7 Q codes with per-row scales, K scales
 per tile or per row, smooth-q's column bias).  Three wrappers over
-libraries built from two kernels that compute the same function: every
-unmasked instance is a TMA-fed ``wgmma`` kernel
+libraries of TMA-fed ``wgmma`` kernels, with masks and without
 (``csrc/attention_fwd_sm90.cuh`` at head dims 64, 128 and 256: a producer
 warpgroup and two consumer warpgroups of 64 Q rows each;
 ``csrc/attention_fwd_sm90_wide.cuh`` at 384 and 512: one 64-row Q tile a
-CTA, O's columns split between the two consumer warpgroups), the masked
-ones the ``mma.sync`` body of ``csrc/attention_fwd_kernel.cuh``
-(:func:`route` says which a call takes; each source says what bounds
-it).  Before the ``wgmma`` kernels, V codes are widened to bf16 by
-:func:`widen_v_codes` (``csrc/widen_v.cu``), which counts its own
-launches:
+CTA, O's columns split between the two consumer warpgroups; the masks'
+pieces in ``csrc/attention_fwd_kernel.cuh``; :func:`route` names a call's
+library; each source says what bounds it).  Before every launch, V codes
+are widened to bf16 by :func:`widen_v_codes` (``csrc/widen_v.cu``), which
+counts its own launches:
 :func:`sage_attention_fwd` (``csrc/attention_fwd.cu``, no masks),
 :func:`sage_attention_fwd_masked` (``csrc/attention_fwd_masked.cu``) and
 :func:`sage_attention_fwd_preq` (``csrc/attention_fwd_preq.cu``, with
@@ -27,18 +25,16 @@ instances of ``csrc/attention_fwd_hd256.cu``,
 ``csrc/attention_fwd_masked_hd256.cu`` and
 ``csrc/attention_fwd_preq_hd256.cu``, and at 384 and 512 those of
 ``csrc/attention_fwd_wide.cu``, ``csrc/attention_fwd_masked_wide.cu`` and
-``csrc/attention_fwd_preq_wide.cu`` (the masked ones with O split by
-columns over a grid axis, S recomputed in each column slice), and count
-them apart, in ``<wrapper>.hd256_launches``, ``.hd384_launches`` and
+``csrc/attention_fwd_preq_wide.cu``, and count them apart, in ``<wrapper>.hd256_launches``, ``.hd384_launches`` and
 ``.hd512_launches``.  A masked row with no live key gives o = 0 and
 lse2 = -inf, as the TPU kernel does.
 
 The H100 launch configuration is fixed: 128 Q rows per CTA (64 a
-consumer warpgroup) in the ``wgmma`` kernel up to head dim 256, 64 above
-it and in the ``mma.sync`` one, KV tiles of ``K_GROUP`` = 128 columns (64
-from head dim 256 on, two to a group; 32 in the pre-quantized unmasked
-kernel at 512, four to a group), and ``K_GROUP`` is also the K-scale
-group, so a tile reads one K scale.  It replaces the TPU's
+consumer warpgroup) up to head dim 256, 64 above it, KV tiles of
+``K_GROUP`` = 128 columns (64 from head dim 256 on, two to a group; 32 in
+the pre-quantized kernel at 512, four to a group), and ``K_GROUP`` is also
+the K-scale group, so a tile reads one K scale.  :func:`cta_tiles` gives
+the KV tiles a masked CTA visits.  It replaces the TPU's
 ``default_config`` and tuned table, which hold TPU block sizes only.
 
 On a CPU tensor a wrapper runs the plain version; on a CUDA tensor it
@@ -75,13 +71,12 @@ def route(d: int, *, masked: bool, preq: bool) -> tuple[str, str, str]:
     """(library, entry point, kernel) of a forward call at head dim ``d``:
     the library ``attention_fwd[_masked|_preq]`` + :func:`instances`, its
     entry ``sage_attn_fwd[_masked|_preq]`` + the same, and the kernel it
-    launches, ``"wgmma"`` for an unmasked call (``csrc/attention_fwd_sm90.cuh``
+    launches, ``"wgmma"`` for every call (``csrc/attention_fwd_sm90.cuh``
     at 64, 128 and 256, ``csrc/attention_fwd_sm90_wide.cuh`` at 384 and
-    512), else ``"mma.sync"`` (``csrc/attention_fwd_kernel.cuh``).  The
-    pre-quantized library holds both ways of ``masked``."""
+    512, with masks or without).  The pre-quantized library holds both ways
+    of ``masked``."""
     kind = "_preq" if preq else "_masked" if masked else ""
-    kernel = "mma.sync" if masked else "wgmma"
-    return "attention_fwd" + kind + instances(d), "sage_attn_fwd" + kind + instances(d), kernel
+    return "attention_fwd" + kind + instances(d), "sage_attn_fwd" + kind + instances(d), "wgmma"
 
 
 def _check_v_scale(v, v_scale) -> None:
@@ -182,6 +177,40 @@ def tile_liveness(masks: Masks, sq: int, sk: int) -> torch.Tensor | None:
     return (any_.to(torch.uint8) + (any_ & all_).to(torch.uint8)).contiguous()
 
 
+def cta_tiles(masks: Masks, live: torch.Tensor | None, bi: int, h: int, q0: int, rows: int,
+              sq: int, sk: int, kt: int, is_causal: bool) -> list[int]:
+    """The KV tiles of ``kt`` columns that the masked kernel's CTA of
+    ``rows`` Q rows from ``q0`` (batch ``bi``, query head ``h``) visits, in
+    its order; ``live`` is :func:`tile_liveness`'s table or None.  A CTA is
+    128 rows up to head dim 256 and 64 above; a tile is 128 columns up to
+    128 (64 for the masked pre-quantized instances at 128), 64 above (32
+    for the masked instances at 512).  The kernel's formulas
+    (``csrc/attention_fwd_kernel.cuh:193-220`` ``mask_range`` for the span,
+    ``:226-259`` ``TileWalk`` for the listing): causal ends at the tile of
+    the CTA's last row, a window starts at the tile of ``q0 - window + 1``,
+    the range form keeps [min kv_lo, max kv_hi) over the CTA's rows below
+    ``sq`` (nothing where no row has a key), and a tile is listed unless
+    each table row of the CTA (one a 64 rows below ``sq``) marks its
+    128-column group dead."""
+    first, end = 0, -(-sk // kt)
+    if is_causal:
+        end = min(end, (q0 + rows - 1) // kt + 1)
+    if masks.window:
+        first = max(0, q0 - masks.window + 1) // kt
+    if masks.kv_lo is not None:
+        span = slice(q0, min(q0 + rows, sq))
+        lo, hi = int(masks.kv_lo[bi, span].min()), int(masks.kv_hi[bi, span].max())
+        if hi > lo:
+            first, end = max(first, lo // kt), min(end, -(-hi // kt))
+        else:
+            end = first
+    if live is None:
+        return list(range(first, end))
+    table = live[bi, h if live.shape[1] > 1 else 0]
+    trows = [table[(q0 + r) // Q_TILE] for r in range(0, rows, Q_TILE) if q0 + r < sq]
+    return [j for j in range(first, end) if any(int(t[j * kt // K_GROUP]) for t in trows)]
+
+
 def _check_operands(device, want: dict, optional: tuple) -> None:
     """Each operand of ``want`` (name -> (tensor, dtypes, shape)) on
     ``device``, of one of its dtypes and its shape, contiguous; those named
@@ -243,8 +272,8 @@ def sage_attention_fwd(q, k_i8, k_scale, v, v_scale=None, v_mean=None, *,
     hkv, sk = k_i8.shape[1], k_i8.shape[2]
     o = torch.empty_like(q)
     lse2 = torch.empty(b, hq, sq, dtype=torch.float32, device=q.device) if return_lse else None
-    lib, entry, kernel = route(d, masked=False, preq=False)
-    if kernel == "wgmma" and v.dtype != torch.bfloat16:
+    lib, entry, _ = route(d, masked=False, preq=False)
+    if v.dtype != torch.bfloat16:
         v = widen_v_codes(v)
     # the launch goes to the current device: make it the tensors' own
     with torch.cuda.device(q.device):
@@ -335,7 +364,7 @@ def sage_attention_fwd_masked(q, k_i8, k_scale, v, v_scale=None, v_mean=None, *,
                               masks: Masks, is_causal: bool, q_fold: float,
                               return_lse: bool = False):
     """:func:`sage_attention_fwd` with the ``masks`` (:class:`Masks`) on HND
-    tensors: the masked kernel (``csrc/attention_fwd_masked.cu``).  A row
+    tensors: the masked instances (``csrc/attention_fwd_masked.cu``).  A row
     with no live key gives o = 0 and, with ``return_lse``, lse2 = -inf."""
     b, hq, sq, _ = q.shape
     sk = k_i8.shape[2]
@@ -356,6 +385,8 @@ def sage_attention_fwd_masked(q, k_i8, k_scale, v, v_scale=None, v_mean=None, *,
 
     live_st = [0, 0] if live is None else broadcast_strides(live)[:2]
     lib, entry, _ = route(d, masked=True, preq=False)
+    if v.dtype != torch.bfloat16:
+        v = widen_v_codes(v)
     with torch.cuda.device(q.device):
         err = getattr(_build.lib(lib), entry)(
             q.data_ptr(), k_i8.data_ptr(), k_scale.data_ptr(), v.data_ptr(), ptr(v_scale),
@@ -441,8 +472,8 @@ def sage_attention_fwd_preq(q_i8, q_scale, k_i8, k_scale, v, v_scale=None, v_mea
     def ptr(x):
         return x.data_ptr() if x is not None else None
 
-    lib, entry, kernel = route(d, masked=masks is not None, preq=True)
-    if kernel == "wgmma" and v.dtype != torch.bfloat16:
+    lib, entry, _ = route(d, masked=masks is not None, preq=True)
+    if v.dtype != torch.bfloat16:
         v = widen_v_codes(v)
     with torch.cuda.device(q_i8.device):
         err = getattr(_build.lib(lib), entry)(

@@ -58,6 +58,17 @@ from sageattention_tpu_torch.ops import _build
 
 LOG2E = quant.LOG2E
 NEG_INIT = -1e30
+# f32(ln 2): XLA compiles exp2(x) as exp(f32(0.693147182) * x)
+LN2_F32 = 0.693147182
+
+
+def xla_exp2(x: torch.Tensor) -> torch.Tensor:
+    """2^x as XLA compiles ``jnp.exp2`` for fp32: ``exp(x * f32(ln 2))``.
+    ``torch.exp2`` differs from it by up to 17 ulp on [-40, 0], enough to
+    move a P code at a rounding tie; this form stays within 1 ulp."""
+    return torch.exp(x * LN2_F32)
+
+
 # the score-tile budget of the extend-block rule (bytes of a fp32 [rows, chunk] tile)
 _TILE_BUDGET = 8 * 2**20
 
@@ -335,7 +346,7 @@ def _chunk_body(state, q_int, qsf, k, ks, v, vs, *, base_col: int, length: int,
         valid = valid & (col > length - 1 - window)
     sf = torch.where(valid, sf, NEG_INIT)
     m_c = sf.amax(dim=-1, keepdim=True)
-    p = torch.where(valid, torch.exp2(sf - m_c), 0.0)
+    p = torch.where(valid, xla_exp2(sf - m_c), 0.0)
     l_c = p.sum(dim=-1, keepdim=True)
     pe = p * vs[:, None, :]
     pmax = pe.amax(dim=-1, keepdim=True)
@@ -346,8 +357,8 @@ def _chunk_body(state, q_int, qsf, k, ks, v, vs, *, base_col: int, length: int,
     pv = torch.matmul(p_int.double(), v.double()).float() * psc
     m_prev, l_prev, acc = state
     m_next = torch.maximum(m_prev, m_c)
-    alpha = torch.exp2(m_prev - m_next)
-    w = torch.exp2(m_c - m_next)
+    alpha = xla_exp2(m_prev - m_next)
+    w = xla_exp2(m_c - m_next)
     state[0] = m_next
     state[1] = alpha * l_prev + w * l_c
     state[2] = acc * alpha + pv * w
@@ -478,7 +489,7 @@ def merge_decode_partials(o_parts, m_parts, l_parts, out_dtype=None):
     Empty shards (m = NEG_INIT, l = 0) weigh 0; a row empty everywhere is 0."""
     out_dtype = out_dtype or o_parts.dtype
     m_g = m_parts.amax(dim=0)
-    w = l_parts * torch.exp2(m_parts - m_g)
+    w = l_parts * xla_exp2(m_parts - m_g)
     den = w.sum(dim=0)
     den = torch.where(den == 0.0, 1.0, den)
     num = (w[..., None] * o_parts.float()).sum(dim=0)

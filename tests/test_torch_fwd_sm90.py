@@ -4,10 +4,16 @@ chunked K mean, on the CPU.
 * :func:`attention_cuda.route` for every head dim of ``HEAD_DIMS``, with
   and without masks, default and pre-quantized Q: the library and entry
   point each wrapper calls, both in ``_build.SIGNATURES``, and the kernel
-  it launches: a ``wgmma`` kernel for every unmasked call, whose source
-  includes its header (``csrc/attention_fwd_sm90.cuh`` at 64, 128 or 256,
-  ``csrc/attention_fwd_sm90_wide.cuh`` at 384 and 512), and the
-  ``mma.sync`` body (``csrc/attention_fwd_kernel.cuh``) for a masked call.
+  it launches: a ``wgmma`` kernel for every call, whose source includes
+  its header (``csrc/attention_fwd_sm90.cuh`` at 64, 128 or 256,
+  ``csrc/attention_fwd_sm90_wide.cuh`` at 384 and 512).  No forward source
+  holds ``mma.sync`` or includes the old body.
+* :func:`attention_cuda.cta_tiles`, the KV tiles a masked CTA visits (the
+  kernel's formulas), at 64- and 128-row CTAs and 128- and 64-column
+  tiles, against the JAX package's masks (``reference._build_mask``,
+  ``window_band_mask``, varlen's segment ids): every live element lies in
+  a listed tile, and no tile that the liveness table marks dead for each
+  of the CTA's table rows is listed.
 * :func:`attention_cuda.widen_v_codes`, which widens V codes to bf16
   before the ``wgmma`` forward: on the CPU its plain version, every finite
   int8, e4m3 and e5m2 code against the TPU kernel's ``astype(bfloat16)``,
@@ -29,12 +35,17 @@ chunked K mean, on the CPU.
   ``tools/ab_attention_fwd.py``).
 """
 
+import itertools
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from sageattention_tpu.ops import quant_pallas
+from sageattention_tpu.ops import reference as jreference
+from sageattention_tpu_torch import core
 from sageattention_tpu_torch import quant as tq
 from sageattention_tpu_torch.ops import _build, attention_cuda, quant_cuda
 
@@ -50,16 +61,12 @@ def test_route(d, masked, preq):
     sfx = "_hd256" if d == 256 else "_wide" if d > 256 else ""
     assert (lib, entry) == ("attention_fwd" + kind + sfx, "sage_attn_fwd" + kind + sfx)
     assert entry in _build.SIGNATURES[lib]
-    assert kernel == ("mma.sync" if masked else "wgmma")
+    assert kernel == "wgmma"
     source = (_build.CSRC / f"{lib}.cu").read_text()
-    # an unmasked call reaches a wgmma kernel's header (at 384 and 512 the
-    # wide one, O's columns split between two warpgroups); the masked-only
-    # sources never include either
-    if kernel == "wgmma":
-        header = "attention_fwd_sm90_wide.cuh" if d > 256 else "attention_fwd_sm90.cuh"
-        assert f'#include "{header}"' in source
-    elif not preq:
-        assert "attention_fwd_sm90" not in source
+    # every call reaches a wgmma kernel's header (at 384 and 512 the wide
+    # one, O's columns split between two warpgroups)
+    header = "attention_fwd_sm90_wide.cuh" if d > 256 else "attention_fwd_sm90.cuh"
+    assert f'#include "{header}"' in source
 
 
 @pytest.mark.parametrize("name", ["int8", "fp8", "fp8_e5m2"])
@@ -80,14 +87,92 @@ def test_widen_v_codes_plain_matches_jax(name):
                                   np.asarray(want).view(np.int16))
 
 
-def test_sm90_header_keeps_masked_body_apart():
-    """The masked sources build the mma.sync body alone; the wgmma kernel
-    lives in a header of its own, beside the old body and not inside it."""
-    body = (_build.CSRC / "attention_fwd_body.cuh").read_text()
-    kernel = (_build.CSRC / "attention_fwd_kernel.cuh").read_text()
-    sm90 = (_build.CSRC / "attention_fwd_sm90.cuh").read_text()
-    assert "wgmma" not in body and "attention_fwd_sm90" not in kernel.split("#pragma once")[1]
-    assert "sage_attn_fwd_sm90_kernel" in sm90 and "_3blocks" not in kernel
+FWD_SOURCES = sorted(p.name for p in _build.CSRC.glob("attention_fwd*.cu*"))
+
+
+@pytest.mark.parametrize("name", FWD_SOURCES)
+def test_no_mma_sync_in_the_forward(name):
+    """Kernel 1's mma.sync body is gone: no forward source or header holds
+    an mma.sync product or names the old body, and the body's file is
+    gone."""
+    source = (_build.CSRC / name).read_text()
+    assert "mma.sync" not in source and "attention_fwd_body.cuh" not in source
+    assert not re.search(r"\b(mma_s8|mma_bf16|mma_a_rows|ldsm_x4_trans)\s*\(", source)
+    assert not re.search(r"\bsage_attn_fwd_kernel\b", source)
+    assert not (_build.CSRC / "attention_fwd_body.cuh").exists()
+
+
+def _varlen(lens):
+    """The JAX varlen's segment ids of packed sequences (``core.py``'s
+    searchsorted over cu_seqlens) and the port's per-row key ranges
+    (``core.varlen_rows``)."""
+    cu = np.array([0, *itertools.accumulate(lens)], np.int32)
+    s = int(cu[-1])
+    seg = np.asarray(jnp.searchsorted(jnp.asarray(cu), jnp.arange(s), side="right"))[None]
+    _, _, lo, hi = core.varlen_rows(torch.from_numpy(cu), torch.from_numpy(cu), s, s)
+    return seg.astype(np.int32), lo[None].int().contiguous(), hi[None].int().contiguous()
+
+
+def _cta_cases():
+    """name -> (b, h, sq, sk, causal, the port's Masks, the JAX package's
+    element mask [b, 1 or h, sq, sk])."""
+    rng = np.random.default_rng(21)
+    out = {}
+    sq, w = 700, 150
+    band = np.asarray(jreference.window_band_mask(sq, sq, w)
+                      & jreference._build_mask(sq, sq, is_causal=True, q_segment_ids=None,
+                                               kv_segment_ids=None, attn_mask=None))
+    out["window"] = (1, 1, sq, sq, True, attention_cuda.Masks(window=w), band)
+    seg, lo, hi = _varlen((300, 129, 64, 250))
+    elem = jreference._build_mask(743, 743, is_causal=True, q_segment_ids=jnp.asarray(seg),
+                                  kv_segment_ids=jnp.asarray(seg), attn_mask=None)
+    out["varlen_ranges"] = (1, 1, 743, 743, True, attention_cuda.Masks(kv_lo=lo, kv_hi=hi),
+                            np.asarray(elem))
+    for name, ids in (("ids_sorted", np.sort(rng.integers(0, 5, (2, 600)), -1)),
+                      # unsorted: two ids shuffled inside each run of 200
+                      ("ids_unsorted", np.arange(600) // 200 * 2 + rng.integers(0, 2, (2, 600)))):
+        ids = ids.astype(np.int32)
+        elem = jreference._build_mask(600, 600, is_causal=False, q_segment_ids=jnp.asarray(ids),
+                                      kv_segment_ids=jnp.asarray(ids), attn_mask=None)
+        t = torch.from_numpy(ids)
+        out[name] = (2, 1, 600, 600, False, attention_cuda.Masks(q_seg=t, kv_seg=t),
+                     np.asarray(elem))
+    mask = rng.random((1, 2, 500, 900)) > 0.995  # sparse: most tiles hold no live key
+    mask[0, 0, 64:200] = False                   # dead rows, a whole table row among them
+    mask[0, 1, :, 300:700] = False
+    elem = jreference._build_mask(500, 900, is_causal=False, q_segment_ids=None,
+                                  kv_segment_ids=None, attn_mask=jnp.asarray(mask))
+    out["bool_mask_dead_rows"] = (1, 2, 500, 900, False,
+                                  attention_cuda.Masks(mask=torch.from_numpy(mask)),
+                                  np.asarray(elem))
+    return out
+
+
+CTA_CASES = _cta_cases()
+
+
+@pytest.mark.parametrize("kt", [128, 64])
+@pytest.mark.parametrize("rows", [128, 64])
+@pytest.mark.parametrize("name", list(CTA_CASES))
+def test_cta_tiles_cover_the_jax_masks(name, rows, kt):
+    b, h, sq, sk, causal, masks, elem = CTA_CASES[name]
+    elem = np.broadcast_to(elem, (b, h, sq, sk))
+    live = attention_cuda.tile_liveness(masks, sq, sk)
+    n_tiles, skipped = -(-sk // kt), 0
+    for bi, hh, q0 in itertools.product(range(b), range(h), range(0, sq, rows)):
+        listed = attention_cuda.cta_tiles(masks, live, bi, hh, q0, rows, sq, sk, kt, causal)
+        assert listed == sorted(set(listed))
+        cols = np.flatnonzero(elem[bi, hh, q0:q0 + rows].any(0))
+        assert set(cols // kt) <= set(listed), (bi, hh, q0)  # every live element's tile
+        if live is not None:
+            table = live[bi, hh if live.shape[1] > 1 else 0]
+            trows = [table[(q0 + r) // 64] for r in range(0, rows, 64) if q0 + r < sq]
+            dead = [j for j in range(n_tiles) if all(int(t[j * kt // 128]) == 0 for t in trows)]
+            assert not set(dead) & set(listed), (bi, hh, q0)
+            skipped += len(dead)
+        else:
+            skipped += n_tiles - len(listed)
+    assert skipped > 0  # the masks leave tiles to skip
 
 
 @pytest.mark.parametrize("bh", [1, 30, 64])
