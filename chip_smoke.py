@@ -17,7 +17,12 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    MMA and no ``mma.sync`` in their SASS;
 2. each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it (the V quantizers for int8, e4m3 and
-   e5m2 codes, the forward kernel for every V type with and without the
+   e5m2 codes, kernel 5's smooth-v mean also against the sum in its
+   plan's order, bit for bit; then, each from a generator of its own,
+   kernel 3 at d 64-512, bf16 and fp32 K, 8 and 4 bits, with km and
+   without, at a ragged (4, 16, 4001, d) and fp32 at the CogVideoX-2B
+   layer, and kernel 5 on fp32 V, at d 384 and 512 and on slabs of exactly
+   4 MB, two smooth-v calls bit-identical; the forward kernel for every V type with and without the
    smooth-v mean, and its ``wgmma`` instances where TMA is likeliest to
    break: sk 513 and 3001 with sq 1000 at head dims 64-256, causal and not,
    every V type, and the pre-quantized ones at 3001 with per-row K scales
@@ -240,7 +245,11 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    library call (SDPA, naming the backend it took), its registers, and the
    forward's products at phase 9's measured ``wgmma`` rates.  A wide instance that
    no path launches sits inside its kernel's entry, as ``hd384`` /
-   ``hd512``.
+   ``hd512``;
+11. kernels 2-6 through their C entry points (``centry_ms`` in their
+   entries: outputs allocated once, many calls back to back) at the kernel
+   table's shapes, beside the wrapper times (``ms``) of phases 6, 7d and
+   10.
 
 It prints one ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside the
@@ -493,6 +502,23 @@ def random_v(gen, shape):
     return (v + torch.randn(b, h, 1, d, generator=gen, device="cuda") * 3).to(torch.bfloat16)
 
 
+def k5_plan(v):
+    """Kernel 5's plan for bf16 or fp32 V [b,h,s,d] on this card, as the
+    wrapper makes it (``quant_cuda.quant_v_args``)."""
+    from sageattention_tpu_torch.ops import quant_cuda as qc
+
+    return qc.quant_v_device_plan(v)
+
+
+def k5_mean_in_plan_order(v, m) -> bool:
+    """Whether kernel 5's smooth-v mean ``m`` is the sum of V in its plan's
+    order over s (``quant_cuda.v_partition_mean``), bit for bit."""
+    import torch
+    from sageattention_tpu_torch.ops import quant_cuda as qc
+
+    return bool(torch.equal(m, qc.v_partition_mean(v, k5_plan(v))))
+
+
 def check_quant_v(gen, results):
     """Kernels 5 and 6 against their plain versions, for each code type.
     Without smooth-v: codes and scales bit-exact.  With it: the mean to
@@ -511,6 +537,11 @@ def check_quant_v(gen, results):
 
     errs = {"quant_v_per_channel": 0.0, "v_channel_stats": 0.0, "quant_v_apply": 0.0}
     cog = random_v(gen, tuple(COG.values()))
+    # the cluster size kernel 5 takes here, and how many slabs run at once
+    plan = k5_plan(cog)
+    results["quant_v_per_channel"]["plan"] = plan._asdict()
+    log(f"quant_v kernel 5 at {tuple(cog.shape)}: plan {plan} (clusters of {plan.cl} CTAs, "
+        f"{plan.clusters} at once: the card's room for them)")
     for kernel, v, plain in (("kernel 5", cog, qc.quant_v_per_channel_plain),
                              ("kernel 6", random_v(gen, tuple(WAN.values())),
                               qc.quant_v_blocked_plain)):
@@ -543,7 +574,10 @@ def check_quant_v(gen, results):
                     q_m, sc_m, _ = plain(v.float() - m[..., None, :], dtype=dtype, smooth=False)
                     exact = same(q, q_m) and torch.equal(sc, sc_m)
                     require(exact, f"{what}: not bit-exact given the kernel's mean")
-                    line += f"; given the kernel's mean bit-exact {exact}"
+                    ordered = k5_mean_in_plan_order(v, m)
+                    require(ordered, f"{what}: the mean is not the sum in the plan's order")
+                    line += (f"; given the kernel's mean bit-exact {exact}; the mean the "
+                             f"plan-order sum bit for bit {ordered}")
                     errs["quant_v_per_channel"] = max(errs["quant_v_per_channel"],
                                                       (m - m_p).abs().max().item())
                 else:
@@ -566,6 +600,202 @@ def check_quant_v(gen, results):
         require(exact, f"kernel 6 and kernel 5 disagree on the CogVideoX slab ({pv})")
     for name, e in errs.items():
         results[name]["max_abs_err"] = e
+
+
+# kernel 3's cases beyond the main paths': every head dim, bf16 and fp32 K,
+# 8 and 4 bits, with the smooth-k mean and without, at a ragged length
+# (4001 = 31 x 128 + 33) and enough (b h, group) tiles that each CTA of
+# the persistent grid walks several
+K_CASE_SHAPE = (4, 16, 4001)
+
+
+def check_quant_k_cases(results) -> None:
+    """Kernel 3 bit-exact with ``quant_k_chunked_plain`` given the same km
+    at d 64-512, bf16 and fp32 K, 8 and 4 bits, with km and without, at
+    ``K_CASE_SHAPE``, and with fp32 K at the CogVideoX-2B layer; from a
+    generator of its own."""
+    import torch
+    from sageattention_tpu_torch.ops import quant_cuda as qc
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(41)
+    cases = [(tuple(COG.values()), torch.float32)]
+    cases += [((*K_CASE_SHAPE, d), dt) for d in (64, 128, 256, 384, 512)
+              for dt in (torch.bfloat16, torch.float32)]
+    n = 0
+    for shape, dt in cases:
+        k = (torch.randn(*shape, generator=gen, device="cuda")
+             + torch.randn(*shape[:2], 1, shape[3], generator=gen, device="cuda") * 3).to(dt)
+        km = qc.k_channel_mean_plain(k)
+        for bits in (8, 4):
+            for m in (km, None):
+                ki, ks = qc.quant_k_chunked(k, m, group=128, bits=bits)
+                ki_p, ks_p = qc.quant_k_chunked_plain(k, m, group=128, bits=bits)
+                torch.cuda.synchronize()
+                exact = torch.equal(ki, ki_p) and torch.equal(ks, ks_p)
+                what = (f"quant_k_chunked {shape} {str(dt)[6:]} {bits} bits "
+                        f"{'with km' if m is not None else 'no smoothing'}")
+                require(exact, f"{what}: not bit-exact with its plain version")
+                n += 1
+        log(f"quant_k cases {shape} {str(dt)[6:]}: 8 and 4 bits, with km and without, "
+            "bit-exact")
+        del k, km, ki, ks, ki_p, ks_p
+    torch.cuda.empty_cache()
+    results["quant_k_chunked"]["cases_bit_exact"] = n
+
+
+# kernel 5's cases beyond the main paths': (shape, V dtype, the plan the
+# case is for: "columns", the column split; "clusters", a cluster a slab
+# whose CTAs stage all their rows; "re-read", one whose CTAs read the rows
+# past their stage twice).  The last three are slabs of exactly
+# quant_cuda.V_SINGLE_PASS_BYTES, the largest that kernel 5 takes.
+V_CASES = (((1, 8, 4096, 64), "float32", "columns"),
+           ((1, 30, 1024, 384), "bfloat16", "clusters"),
+           ((1, 30, 768, 512), "bfloat16", "clusters"),
+           ((1, 30, 512, 384), "float32", "clusters"),
+           ((1, 30, 1500, 512), "float32", "re-read"),
+           ((1, 16, 32768, 64), "bfloat16", "re-read"),
+           ((1, 30, 16384, 128), "bfloat16", "re-read"),
+           ((1, 30, 2048, 512), "float32", "re-read"))
+
+
+def k5_route(plan) -> str:
+    """Which of ``V_CASES``' plans kernel 5's ``plan`` is."""
+    if plan.cl == 0:
+        return "columns"
+    return "re-read" if plan.rows_per_cta > plan.stage_rows else "clusters"
+
+
+def check_quant_v_cases(results) -> None:
+    """Kernel 5 beyond the main paths (``V_CASES``: fp32 V, d 384 and 512,
+    slabs of exactly 4 MB), from a generator of its own, for each code
+    type: without smooth-v codes and scales bit-exact with the plain
+    version; with it the mean within 1e-5 relative, codes and scales
+    bit-exact given the kernel's own mean, and two calls bit-identical.
+    Each call must launch kernel 5 (not the two-pass kernel 6) on the plan
+    the case is for."""
+    import torch
+    from sageattention_tpu_torch import quant
+    from sageattention_tpu_torch.ops import quant_cuda as qc
+
+    def same(a, b):
+        return torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(42)
+    for shape, dt, want in V_CASES:
+        v = random_v(gen, shape).to(getattr(torch, dt))
+        slab = shape[2] * shape[3] * v.element_size()
+        plan = k5_plan(v)
+        require(k5_route(plan) == want,
+                f"quant_v kernel 5 {shape} {dt}: plan {plan} is {k5_route(plan)}, not {want}")
+        for pv, dtype in quant.V_DTYPES.items():
+            for smooth in (False, True):
+                what = f"quant_v kernel 5 {shape} {dt} ({slab} B a slab) {pv} smooth={smooth}"
+                before = qc.quant_v_per_channel.launches + sum(
+                    getattr(qc.quant_v_per_channel, f"hd{x}_launches") for x in (256, 384, 512))
+                q, sc, m = qc.quant_v_per_channel(v, dtype=dtype, smooth=smooth)
+                after = qc.quant_v_per_channel.launches + sum(
+                    getattr(qc.quant_v_per_channel, f"hd{x}_launches") for x in (256, 384, 512))
+                require(after == before + 1, f"{what}: kernel 5 was not launched")
+                q_p, sc_p, m_p = qc.quant_v_per_channel_plain(v, dtype=dtype, smooth=smooth)
+                torch.cuda.synchronize()
+                if not smooth:
+                    require(same(q, q_p) and torch.equal(sc, sc_p),
+                            f"{what}: not bit-exact with the plain version")
+                    continue
+                m_rel = ((m - m_p).abs() / (m_p.abs() + 1e-3)).max().item()
+                require(m_rel <= 1e-5, f"{what}: the mean is {m_rel:.2e} off the plain version")
+                q_m, sc_m, _ = qc.quant_v_per_channel_plain(v.float() - m[..., None, :],
+                                                             dtype=dtype, smooth=False)
+                require(same(q, q_m) and torch.equal(sc, sc_m),
+                        f"{what}: not bit-exact given the kernel's mean")
+                q2, sc2, m2 = qc.quant_v_per_channel(v, dtype=dtype, smooth=True)
+                require(same(q, q2) and torch.equal(sc, sc2) and torch.equal(m, m2),
+                        f"{what}: two calls differ")
+                require(k5_mean_in_plan_order(v, m),
+                        f"{what}: the mean is not the sum in the plan's order")
+        log(f"quant_v cases {shape} {dt} ({slab} B a slab, plan {plan}, {want}): int8, e4m3, "
+            "e5m2 bit-exact without smooth-v; with it the mean within 1e-5 and the plan-order "
+            "sum bit for bit, bit-exact given it, two calls bit-identical")
+        del v
+    torch.cuda.empty_cache()
+
+
+def time_quant_entries(results) -> None:
+    """Phase 11: kernels 2-6 through their C entry points (with the
+    ``*_args`` functions of ``ops/quant_cuda.py``: outputs allocated once,
+    no wrapper)
+    at the kernel table's shapes, beside the wrapper times above: K and Q
+    (8 and 4 bits) at the CogVideoX-2B layer, kernel 5 there and kernel 6
+    at the Wan2.1 layer (e4m3), and at head dims 256, 384 and 512 K at (4,
+    16, 4096, d), Q and kernel 5 at (1, 16, 4096, d), kernel 6 at (1, 8,
+    16384, d) (int8); from a generator of its own."""
+    import torch
+    from sageattention_tpu_torch.ops import _build
+    from sageattention_tpu_torch.ops import quant_cuda as qc
+    from sageattention_tpu_torch.utils.timing import queued_ms
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(43)
+    e4m3 = torch.float8_e4m3fn
+    lib_k, lib_q, lib_v = (_build.lib(n) for n in ("quant_k", "quant_q", "quant_v"))
+
+    def put(r, what, fn):
+        r["centry_ms"] = queued_ms(fn)
+        log(f"time {what} C entry: {r['centry_ms']:.4f} ms (through the wrapper "
+            f"{r.get('ms')} ms)")
+
+    for d in (64, 256, 384, 512):
+        sfx = "" if d == 64 else f"_hd{d}"
+        shape = tuple(COG.values()) if d == 64 else (4, 16, 4096, d)
+        b, h, s, _ = shape
+        k = random_v(gen, shape)
+        km = torch.empty(b, h, d, device="cuda")
+        args, part = qc.k_mean_args(k, km)
+        put(results["k_channel_mean" + sfx], f"k_channel_mean at {shape}",
+            lambda: lib_k.k_channel_mean(*args))
+        out = torch.empty(shape, dtype=torch.int8, device="cuda")
+        sc = torch.empty(b, h, -(-s // 128), device="cuda")
+        for bits in (8, 4) if d == 64 else (8,):
+            r = results["quant_k_chunked" + sfx]
+            args = qc.quant_k_args(k, km, out, sc, group=128, bits=bits)
+            put(r if bits == 8 else r["bits4"], f"quant_k_chunked {bits} bits at {shape}",
+                lambda: lib_k.quant_k_chunked(*args))
+        del k, km, part, out, sc
+        shape = tuple(COG.values()) if d == 64 else (1, 16, 4096, d)
+        q = random_v(gen, shape)
+        out = torch.empty(shape, dtype=torch.int8, device="cuda")
+        sc = torch.empty(shape[:3], device="cuda")
+        for bits in (8, 4) if d == 64 else (8,):
+            r = results["quant_q_per_token" + sfx]
+            args = qc.quant_q_args(q, out, sc, scale_fold=d**-0.5 * LOG2E, bits=bits)
+            put(r if bits == 8 else r["bits4"], f"quant_q_per_token {bits} bits at {shape}",
+                lambda: lib_q.quant_q_per_token(*args))
+        dtype = e4m3 if d == 64 else torch.int8
+        v = q
+        out = torch.empty(shape, dtype=dtype, device="cuda")
+        sc = torch.empty(shape[0], shape[1], d, device="cuda")
+        args = qc.quant_v_args(v, out, sc, None)
+        put(results["quant_v_per_channel" + sfx], f"quant_v_per_channel {dtype} at {shape}",
+            lambda: lib_v.quant_v_per_channel(*args))
+        del q, v, out, sc
+        shape = tuple(WAN.values()) if d == 64 else (1, 8, 16384, d)
+        sfx6 = "" if shape[3] <= 128 else sfx
+        v = random_v(gen, shape)
+        parts = torch.empty(3, shape[0] * shape[1], -(-shape[2] // qc.V_BLOCK_ROWS), shape[3],
+                            device="cuda")
+        args = qc.v_stats_args(v, parts)
+        put(results["v_channel_stats" + sfx6], f"v_channel_stats at {shape}",
+            lambda: lib_v.quant_v_stats(*args))
+        gmax, gmin, _ = qc.v_channel_stats(v, smooth=False)
+        _, rr = qc.v_scale_from_stats(gmax, gmin, None, dtype)
+        out = torch.empty(shape, dtype=dtype, device="cuda")
+        args = qc.v_apply_args(v, rr, None, out)
+        put(results["quant_v_apply" + sfx6], f"quant_v_apply {dtype} at {shape}",
+            lambda: lib_v.quant_v_apply(*args))
+        del v, parts, gmax, gmin, rr, out
+        torch.cuda.empty_cache()
 
 
 def v_operands(v):
@@ -2272,7 +2502,8 @@ def profile_device(fn, out_name: str, what: str) -> dict:
             end = b
     groups = {"sage_attn_fwd": 0.0, "sage_attn_bwd": 0.0, "sage_decode": 0.0, "quant": 0.0,
               "gemm": 0.0, "other": 0.0}
-    for name, ms, _ in rows:
+    quant_kernels = {}  # the quant group by kernel: (ms, launches)
+    for name, ms, n in rows:
         low = name.lower()
         if "sage_attn_fwd" in low:
             groups["sage_attn_fwd"] += ms
@@ -2282,12 +2513,14 @@ def profile_device(fn, out_name: str, what: str) -> dict:
             groups["sage_decode"] += ms
         elif "quant" in low or "channel_mean" in low:  # K, Q and V quantizers
             groups["quant"] += ms
+            quant_kernels[name[:120]] = {"ms": ms, "count": n}
         elif any(w in low for w in ("gemm", "cutlass", "nvjet", "sm90_xmma")):
             groups["gemm"] += ms
         else:
             groups["other"] += ms
     out = {"wall_ms": wall_ms, "device_busy_ms": busy,
            "idle_share": max(0.0, 1 - busy / wall_ms), "groups_ms": groups,
+           "quant_kernels": quant_kernels,
            "top": [{"kernel": n[:120], "ms": ms, "count": c} for n, ms, c in rows[:20]]}
     path = pathlib.Path("chiprun_out")
     path.mkdir(exist_ok=True)
@@ -2296,6 +2529,8 @@ def profile_device(fn, out_name: str, what: str) -> dict:
         f"idle share {out['idle_share']:.4f}, by group {json.dumps(groups)}")
     for r in out["top"][:10]:
         log(f"  {r['ms']:9.3f} ms x{r['count']:4d}  {r['kernel']}")
+    for name, r in quant_kernels.items():
+        log(f"  quant {r['ms']:9.3f} ms x{r['count']:4d}  {name}")
     return out
 
 
@@ -5692,6 +5927,8 @@ def main() -> int:
     t_phase = time.perf_counter()
     check_quant(gen, results)
     check_quant_v(gen, results)
+    check_quant_k_cases(results)
+    check_quant_v_cases(results)
     check_attention(gen, results)
     check_fwd_sm90(results)
     check_quant_q(gen, results)
@@ -5789,6 +6026,9 @@ def main() -> int:
     probe = run_probe(results)
     log(f"probe phase: {time.perf_counter() - t_phase:.1f} s")
     wide = run_wide(results)
+    t_phase = time.perf_counter()
+    time_quant_entries(results)
+    log(f"C-entry timing phase: {time.perf_counter() - t_phase:.1f} s")
     measured_rate_floor(results, probe)
 
     # a head-dim-256 instance, or kernel 12 with owned, that no path of this

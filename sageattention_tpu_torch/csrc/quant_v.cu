@@ -7,14 +7,31 @@
 // quant_pallas.py:_quant_v_blocked (_v_stats_kernel, an XLA combine and
 // _v_apply_kernel: the two-pass form for slabs over 4 MB).  Three launches:
 //
-//   quant_v_per_channel  kernel 5.  One CTA per (b,h, group of 8 channels)
-//                        over the whole sequence: pass 1 takes the group's
-//                        max, min and sum, pass 2 writes the codes.  A
-//                        2.3 MB slab does not fit 227 KB of shared memory,
-//                        so the slab is read twice; the CTAs of one slab's
-//                        channel groups run side by side and share its
-//                        lines in L2.  b*h*(d/8) CTAs (240 at
-//                        CogVideoX-2B), no reduction across CTAs.
+//   quant_v_per_channel  kernel 5, on slabs of at most 4 MB (the JAX rule,
+//                        quant_cuda.V_SINGLE_PASS_BYTES).  A thread-block
+//                        cluster of cl CTAs (1-16; 16 is a non-portable
+//                        size) takes a (b,h) slab, the CTAs splitting its
+//                        rows; as many clusters as the card holds walk
+//                        the slabs (quant_cuda.quant_v_plan).  Each CTA
+//                        stages its rows in shared memory (each thread
+//                        copies by cp.async the chunks it reads itself, in
+//                        eight pieces) and takes their per-channel max,
+//                        min and sum as the pieces land; the CTAs exchange
+//                        these over distributed shared memory and each
+//                        combines them in rank order, so every CTA holds
+//                        the same mean, scale and r; rank 0 writes scale
+//                        and mean; the codes come from the staged rows,
+//                        and each piece, as its codes leave, takes the
+//                        cluster's next slab.  V is read from device
+//                        memory once.  Rows beyond a CTA's room (a 4 MB
+//                        slab over 16 CTAs) are read for the statistics
+//                        and again, from the L2 the cluster just filled,
+//                        for the codes.  The plan's other candidate, the
+//                        column split, launches a CTA per (b,h, 8
+//                        channels) that reads its columns twice, without
+//                        a cluster's launch cost; the plan takes whichever
+//                        of these its time model, fitted to an H100's
+//                        times of each, predicts the faster.
 //   quant_v_stats        kernel 6, pass 1.  One CTA per (b,h, block of
 //                        rows): the block's per-channel max, min and sum
 //                        into a [bh, n_blocks, d] scratch (above d 256,
@@ -29,7 +46,8 @@
 //                        per-channel mean and r = 1/scale.
 //
 // Numerics, as quant.py:per_channel_quant: x in fp32; with smooth-v the
-// mean is sum/s in the port's own summation order; amax =
+// mean is sum/s in the port's own summation order (kernel 5's:
+// quant_cuda.v_partition_sum); amax =
 // max(gmax - mean, mean - gmin) (without smoothing max(gmax, -gmin)),
 // which equals max|x - mean| exactly because a rounded subtraction is
 // monotone; scale = max(amax, 1e-30) * f32(1/qmax), r = 1/scale (an IEEE
@@ -47,12 +65,23 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <cooperative_groups.h>
+
+#include "quant_sm90.cuh"
+
+namespace cg = cooperative_groups;
+
 namespace {
+
+using qsm90::load8;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kUnroll = 4;  // rows a thread has in flight
 constexpr int kMaxD = 512;  // the widest head dim (the kernels' 512)
+constexpr int kStageBytes = 192 * 1024;  // kernel 5's staged rows a CTA (quant_cuda.V_STAGE_BYTES)
+constexpr int kPieces = 8;               // kernel 5's pieces a CTA
+constexpr int kMaxCluster = 16;
 
 enum CodeKind { kInt8 = 0, kE4M3 = 1, kE5M2 = 2 };
 
@@ -60,25 +89,6 @@ enum CodeKind { kInt8 = 0, kE4M3 = 1, kE5M2 = 2 };
 __device__ inline float inv_qmax(int kind) {
   return kind == kInt8 ? (float)(1.0 / 127.0)
                        : kind == kE4M3 ? (float)(1.0 / 448.0) : (float)(1.0 / 57344.0);
-}
-
-// eight consecutive elements of a row as fp32
-__device__ inline void load8(const __nv_bfloat16* p, float* x) {
-  uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    float2 f = __bfloat1622float2(h[j]);
-    x[2 * j] = f.x;
-    x[2 * j + 1] = f.y;
-  }
-}
-
-__device__ inline void load8(const float* p, float* x) {
-  float4 a = *reinterpret_cast<const float4*>(p);
-  float4 b = *reinterpret_cast<const float4*>(p + 4);
-  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
-  x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
 }
 
 template <int KIND>
@@ -156,11 +166,173 @@ __device__ inline void channel_scale(float gmax, float gmin, float gsum, int s, 
   *mean = m;
 }
 
+// Kernel 5's shared memory: the staged rows (stage_rows x d elements), the
+// row groups' statistics [3][kThreads * 8] fp32, the CTA's partials [3][d],
+// mean and r [2][d]
+inline size_t v_smem_bytes(int stage_rows, int d, int elem) {
+  return ((size_t)stage_rows * d * elem + 15) / 16 * 16 + sizeof(float) * (3 * kThreads * 8) +
+         sizeof(float) * 5 * d;
+}
+
+// Kernel 5.  gridDim.x / cl clusters walk the bh slabs, cluster c taking
+// slabs c, c + n_clusters, ...  CTA `rank` takes the rows [rank rpc, (rank +
+// 1) rpc) of each slab (rpc = rows_per_cta), stages the first stage_rows of
+// them in up to kPieces pieces, and reads the rest from device memory.
+// Thread i takes the 8 channels 8 (i % nv) of the rows i / nv, i / nv + n,
+// ... of its CTA's rows (nv = d / 8, n = kThreads / nv; at d 384 the last 16
+// threads none), and stages exactly those chunks itself by cp.async, a
+// commit group a piece, so it waits for its own copies alone; as it writes
+// a piece's codes it copies its chunks of the next slab into the piece.  It
+// sums its rows in row order from 0; the row groups' sums are added in
+// group order, the CTAs' in rank order (quant_cuda.v_partition_sum
+// computes the same sum in PyTorch).  The cluster barrier is split: a CTA
+// arrives when it has read the others' partials and waits before it
+// writes its next partials.
 template <typename T, int KIND>
 __global__ void __launch_bounds__(kThreads)
-quant_v_kernel(const T* __restrict__ v, uint8_t* __restrict__ out,
-               float* __restrict__ scale, float* __restrict__ mean, int s, int d,
-               int smooth) {
+quant_v_kernel(const T* __restrict__ v, uint8_t* __restrict__ out, float* __restrict__ scale,
+               float* __restrict__ mean, int bh_total, int s, int d, int smooth,
+               int rows_per_cta, int stage_rows) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cl = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int n_clusters = gridDim.x / cl, tid = threadIdx.x;
+  const int r0 = min(s, rank * rows_per_cta), rows = min(s, r0 + rows_per_cta) - r0;
+  const int staged = min(rows, stage_rows);
+  T* stage = reinterpret_cast<T*>(smem);
+  float* grp = reinterpret_cast<float*>(smem + ((size_t)stage_rows * d * sizeof(T) + 15) / 16 * 16);
+  float* part = grp + 3 * kThreads * 8;  // [3][d]: max, min, sum
+  float* mr = part + 3 * d;              // [2][d]: mean, r
+  const int pr = (staged + kPieces - 1) / kPieces;  // rows a piece
+  const int np = staged > 0 ? (staged + pr - 1) / pr : 0;
+  const int nv = d / 8, n = kThreads / nv, vi = tid % nv, g = tid / nv;
+  const bool active = g < n;
+  T* mine = stage + vi * 8;  // this thread's chunks: row r at mine + r d
+  // this thread's chunks of piece p of slab bh, one commit group
+  auto load_piece = [&](int bh, int p) {
+    if (active) {
+      const T* src = v + ((size_t)bh * s + r0) * d + vi * 8;
+      for (int r = qsm90::first_row(p * pr, g, n); r < min(staged, (p + 1) * pr); r += n)
+        qsm90::cp_async8(mine + (size_t)r * d, src + (size_t)r * d);
+    }
+    qsm90::cp_async_commit();
+  };
+  const int first = blockIdx.x / cl;
+  for (int p = 0; p < np; ++p) load_piece(first, p);
+
+  int k = 0;  // this CTA's slab count
+  for (int bh = first; bh < bh_total; bh += n_clusters, ++k) {
+    const size_t row0 = (size_t)bh * s + r0;
+    const T* src = v + row0 * d + vi * 8;
+    const int next = bh + n_clusters < bh_total ? bh + n_clusters : -1;
+
+    // ---- the CTA's max, min and sum of each channel ----------------------
+    float mx[8], mn[8], sm[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      mx[j] = -INFINITY;
+      mn[j] = INFINITY;
+      sm[j] = 0.f;
+    }
+    auto take = [&](const float* x, int) { accumulate8(x, mx, mn, sm); };
+    for (int p = 0; p < np; ++p) {
+      qsm90::cp_async_wait(np - p - 1);
+      if (active) qsm90::for_rows(mine, p * pr, min(staged, (p + 1) * pr), g, n, d, take);
+    }
+    if (active) {
+      qsm90::for_rows(src, staged, rows, g, n, d, take);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        grp[g * d + vi * 8 + j] = mx[j];
+        grp[kThreads * 8 + g * d + vi * 8 + j] = mn[j];
+        grp[2 * kThreads * 8 + g * d + vi * 8 + j] = sm[j];
+      }
+    }
+    __syncthreads();
+    // every CTA has read this CTA's partials of the last slab
+    if (k > 0) asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+    for (int c = tid; c < d; c += kThreads) {
+      float gmax = grp[c], gmin = grp[kThreads * 8 + c], gsum = grp[2 * kThreads * 8 + c];
+#pragma unroll 8
+      for (int q = 1; q < n; ++q) {
+        gmax = fmaxf(gmax, grp[q * d + c]);
+        gmin = fminf(gmin, grp[kThreads * 8 + q * d + c]);
+        gsum += grp[2 * kThreads * 8 + q * d + c];
+      }
+      part[c] = gmax;
+      part[d + c] = gmin;
+      part[2 * d + c] = gsum;
+    }
+    cluster.sync();  // every CTA's partials, visible to the cluster
+
+    // ---- the cluster's statistics, in rank order; mean, scale, r ---------
+    for (int c = tid; c < d; c += kThreads) {
+      float qx[kMaxCluster], qn[kMaxCluster], qs[kMaxCluster];
+#pragma unroll
+      for (int q = 0; q < kMaxCluster; ++q) {  // every rank's loads first
+        if (q < cl) {
+          const float* pq = cluster.map_shared_rank(part, q);
+          qx[q] = pq[c];
+          qn[q] = pq[d + c];
+          qs[q] = pq[2 * d + c];
+        }
+      }
+      float gmax = qx[0], gmin = qn[0], gsum = qs[0];
+#pragma unroll
+      for (int q = 1; q < kMaxCluster; ++q) {
+        if (q < cl) {
+          gmax = fmaxf(gmax, qx[q]);
+          gmin = fminf(gmin, qn[q]);
+          gsum += qs[q];
+        }
+      }
+      float m, r, sc;
+      channel_scale(gmax, gmin, gsum, s, smooth, KIND, &m, &r, &sc);
+      mr[c] = m;
+      mr[d + c] = r;
+      if (rank == 0) {
+        scale[(size_t)bh * d + c] = sc;
+        if (smooth) mean[(size_t)bh * d + c] = m;
+      }
+    }
+    // this CTA has read the others' partials
+    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+    __syncthreads();
+
+    // ---- the codes, from the staged rows; each piece then takes this
+    // thread's chunks of the next slab -------------------------------------
+    float m8[8], r8[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      m8[j] = active ? mr[vi * 8 + j] : 0.f;
+      r8[j] = active ? mr[d + vi * 8 + j] : 0.f;
+    }
+    uint8_t* dst = out + row0 * d + vi * 8;
+    auto code = [&](const float* x, int r) { encode8<KIND>(x, m8, r8, dst + (size_t)r * d); };
+    for (int p = 0; p < np; ++p) {
+      if (active) qsm90::for_rows(mine, p * pr, min(staged, (p + 1) * pr), g, n, d, code);
+      if (next >= 0) load_piece(next, p);
+    }
+    if (active) qsm90::for_rows(src, staged, rows, g, n, d, code);
+  }
+  // no CTA leaves while another reads its partials
+  if (k > 0) asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Kernel 5's column split (the plan's cl 0, where quant_cuda.quant_v_plan
+// predicts it faster than any cluster, as where all of V is small and its
+// second read comes from L2): one CTA per (b,h, group of 8 channels) over
+// the whole sequence, no cluster; pass 1 takes the group's max, min and sum
+// (thread i its rows i, i + 256, ... in row order from 0, the lanes' sums by
+// a butterfly over xor 1, 2, ..., 16, the warps' in warp order), pass 2
+// reads the rows again and writes the codes.  At (1, 16, 4096, 64) the
+// clusters took 1.27x its time, about 8 us of theirs outside their CTAs
+// (the cluster launch, PERF.md).
+template <typename T, int KIND>
+__global__ void __launch_bounds__(kThreads)
+quant_v_columns_kernel(const T* __restrict__ v, uint8_t* __restrict__ out,
+                       float* __restrict__ scale, float* __restrict__ mean, int s, int d,
+                       int smooth) {
   __shared__ float red[3][kWarps][8];
   __shared__ float stat[2][8];  // mean, r of the group's channels
   const int c0 = blockIdx.x * 8, bh = blockIdx.y;
@@ -168,7 +340,6 @@ quant_v_kernel(const T* __restrict__ v, uint8_t* __restrict__ out,
   const size_t slab = (size_t)bh * s * d;
   const T* base = v + slab + c0;
 
-  // ---- pass 1: max, min, sum of the 8 channels over the sequence ---------
   float mx[8], mn[8], sm[8];
   column_stats(base, threadIdx.x, s, kThreads, d, mx, mn, sm);
   warp_stats(mx, mn, sm, 1);
@@ -198,7 +369,6 @@ quant_v_kernel(const T* __restrict__ v, uint8_t* __restrict__ out,
   }
   __syncthreads();
 
-  // ---- pass 2: the codes --------------------------------------------------
   float m8[8], r8[8];
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
@@ -334,19 +504,77 @@ bool bad_shape(int bh, int s, int d) {
          (d != 64 && d != 128 && d != 256 && d != 384 && d != 512);
 }
 
+// kernel 5's instance for V's type and the code kind, with its record of
+// the devices its attributes are set on
+template <typename T>
+void* quant_v_instance(int kind, bool** ready) {
+  static bool done[3][qsm90::kMaxDevices];
+  *ready = done[kind];
+  return kind == kInt8   ? (void*)quant_v_kernel<T, kInt8>
+         : kind == kE4M3 ? (void*)quant_v_kernel<T, kE4M3>
+                         : (void*)quant_v_kernel<T, kE5M2>;
+}
+
+// the largest shared memory a CTA of kernel 5 takes (v_smem_bytes at
+// kStageBytes of rows, head dim 512)
+constexpr int kMaxSmem = kStageBytes + sizeof(float) * (3 * kThreads * 8 + 5 * kMaxD);
+
+static_assert(kMaxSmem <= 232448, "kernel 5's shared memory exceeds a CTA's 227 KB");
+
+// the launch configuration of kernel 5 (n clusters of cl CTAs), with its
+// instance's attributes set once a device (its shared memory, clusters
+// above 8 CTAs)
+cudaError_t quant_v_config(const void* kern, bool* ready, int n, int cl, size_t smem,
+                           cudaStream_t st, cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
+  const cudaError_t e = qsm90::set_once(kern, kMaxSmem, true, ready);
+  *cfg = {};
+  cfg->gridDim = dim3(n * cl);
+  cfg->blockDim = dim3(kThreads);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cl;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return e;
+}
+
+template <typename T>
+int launch_columns(const T* v, uint8_t* out, float* scale, float* mean, int bh, int s, int d,
+                   int kind, int smooth, cudaStream_t st) {
+  const dim3 grid(d / 8, bh);
+  if (kind == kInt8)
+    quant_v_columns_kernel<T, kInt8>
+        <<<grid, kThreads, 0, st>>>(v, out, scale, mean, s, d, smooth);
+  else if (kind == kE4M3)
+    quant_v_columns_kernel<T, kE4M3>
+        <<<grid, kThreads, 0, st>>>(v, out, scale, mean, s, d, smooth);
+  else
+    quant_v_columns_kernel<T, kE5M2>
+        <<<grid, kThreads, 0, st>>>(v, out, scale, mean, s, d, smooth);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_quant_v(const void* v, void* out, void* scale, void* mean, int bh, int s, int d,
-                   int kind, int smooth, cudaStream_t st) {
-  dim3 grid(d / 8, bh);
-  const T* x = (const T*)v;
-  uint8_t* o = (uint8_t*)out;
-  float *sc = (float*)scale, *mn = (float*)mean;
-  if (kind == kInt8)
-    quant_v_kernel<T, kInt8><<<grid, kThreads, 0, st>>>(x, o, sc, mn, s, d, smooth);
-  else if (kind == kE4M3)
-    quant_v_kernel<T, kE4M3><<<grid, kThreads, 0, st>>>(x, o, sc, mn, s, d, smooth);
-  else
-    quant_v_kernel<T, kE5M2><<<grid, kThreads, 0, st>>>(x, o, sc, mn, s, d, smooth);
+                   int kind, int smooth, int cl, int rows_per_cta, int stage_rows, int clusters,
+                   cudaStream_t st) {
+  if (cl == 0)
+    return launch_columns((const T*)v, (uint8_t*)out, (float*)scale, (float*)mean, bh, s, d, kind,
+                          smooth, st);
+  bool* ready;
+  const void* kern = quant_v_instance<T>(kind, &ready);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t e = quant_v_config(kern, ready, clusters, cl,
+                                 v_smem_bytes(stage_rows, d, sizeof(T)), st, &cfg, &attr);
+  if (e != cudaSuccess) return (int)e;
+  void* args[] = {(void*)&v, &out,  &scale,        &mean,      &bh, &s,
+                  &d,        &smooth, &rows_per_cta, &stage_rows};
+  e = cudaLaunchKernelExC(&cfg, kern, args);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
@@ -368,20 +596,48 @@ int launch_apply(const void* v, const void* r, const void* mean, void* out, int 
 
 }  // namespace
 
-// v: [bh, s, d] (bf16 if v_is_bf16 else fp32), contiguous, d in {64, 128, 256,
-// 384, 512};
-// out: [bh, s, d] codes (kind 0 int8, 1 fp8 e4m3, 2 fp8 e5m2); scale:
-// fp32 [bh, d]; mean: fp32 [bh, d], written when smooth (may be NULL
-// otherwise).
+// v: [bh, s, d] (bf16 if v_is_bf16 else fp32), contiguous and 16-byte
+// aligned, d in {64, 128, 256, 384, 512}; out: [bh, s, d] codes (kind 0
+// int8, 1 fp8 e4m3, 2 fp8 e5m2); scale: fp32 [bh, d]; mean: fp32 [bh, d],
+// written when smooth (may be NULL otherwise).  The plan
+// (quant_cuda.quant_v_plan): clusters of cl CTAs (1, 2, 4, 8 or 16), each
+// CTA rows_per_cta rows (cl rows_per_cta >= s), at most stage_rows of them
+// staged; `clusters` clusters (1 to bh) walk the slabs.  cl 0: the column
+// split (quant_v_columns_kernel; the other plan fields unused).
 extern "C" int quant_v_per_channel(const void* v, void* out, void* scale, void* mean, int bh,
-                                   int s, int d, int v_is_bf16, int kind, int smooth,
+                                   int s, int d, int v_is_bf16, int kind, int smooth, int cl,
+                                   int rows_per_cta, int stage_rows, int clusters,
                                    void* stream) {
-  if (bad_shape(bh, s, d) || kind < 0 || kind > 2 || (smooth && mean == nullptr))
+  const int elem = v_is_bf16 ? 2 : 4;
+  if (bad_shape(bh, s, d) || kind < 0 || kind > 2 || (smooth && mean == nullptr) ||
+      ((reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  if (cl != 0 && ((cl != 1 && cl != 2 && cl != 4 && cl != 8 && cl != 16) || rows_per_cta <= 0 ||
+                  (long long)rows_per_cta * cl < s || stage_rows < 0 ||
+                  (long long)stage_rows * d * elem > kStageBytes || clusters < 1 ||
+                  clusters > bh))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  return v_is_bf16
-             ? launch_quant_v<__nv_bfloat16>(v, out, scale, mean, bh, s, d, kind, smooth, st)
-             : launch_quant_v<float>(v, out, scale, mean, bh, s, d, kind, smooth, st);
+  return v_is_bf16 ? launch_quant_v<__nv_bfloat16>(v, out, scale, mean, bh, s, d, kind, smooth,
+                                                   cl, rows_per_cta, stage_rows, clusters, st)
+                   : launch_quant_v<float>(v, out, scale, mean, bh, s, d, kind, smooth, cl,
+                                           rows_per_cta, stage_rows, clusters, st);
+}
+
+// How many clusters of cl CTAs of kernel 5 (bf16 or fp32 V), each CTA with
+// `smem` bytes of shared memory (quant_cuda.v_smem_bytes), the card holds
+// at once, into *active (cudaOccupancyMaxActiveClusters); 0 where it cannot
+// place one.
+extern "C" int quant_v_cluster_room(int cl, int smem, int v_is_bf16, int* active) {
+  if (cl < 1 || cl > kMaxCluster || smem < 0 || smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  bool* ready;
+  const void* kern = v_is_bf16 ? quant_v_instance<__nv_bfloat16>(kInt8, &ready)
+                               : quant_v_instance<float>(kInt8, &ready);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t e = quant_v_config(kern, ready, 1, cl, smem, nullptr, &cfg, &attr);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(active, kern, &cfg);
+  return (int)e;
 }
 
 // v: as above; pmax/pmin/psum: fp32 [bh, ceil(s/block_s), d], each block's

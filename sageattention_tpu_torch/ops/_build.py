@@ -47,13 +47,20 @@ SIGNATURES = {
     "quant_k": {
         # k, the chunks' sums, the counters, km; bh, s, d, chunk rows, bf16; the stream
         "k_channel_mean": [P] * 4 + [I] * 5 + [P],
-        "quant_k_chunked": [P, P, P, P, I, I, I, I, I, F, F, P],
+        # k, km, out, scales; bh, s, d, group, bf16; qmax, 1/qmax; the plan
+        # (unit rows, stages, staged rows, grid); the stream
+        "quant_k_chunked": [P, P, P, P, I, I, I, I, I, F, F, I, I, I, I, P],
     },
     "quant_q": {
         "quant_q_per_token": [P, P, P, LL, I, I, F, F, F, P],
     },
     "quant_v": {
-        "quant_v_per_channel": [P] * 4 + [I] * 6 + [P],
+        # v, out, scale, mean; bh, s, d, bf16, kind, smooth; the plan (cluster
+        # size, rows a CTA, rows it stages, clusters); the stream
+        "quant_v_per_channel": [P] * 4 + [I] * 10 + [P],
+        # cluster size, shared memory a CTA, bf16; out: the clusters the card
+        # holds at once
+        "quant_v_cluster_room": [I, I, I, P],
         "quant_v_stats": [P] * 4 + [I] * 5 + [P],
         "quant_v_apply": [P] * 4 + [I] * 6 + [P],
     },
