@@ -37,7 +37,12 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    the live rows, and with dead rows exactly 0 and LSE -inf; and the
    windowed backward (window 1024) against its plain version and exact
    attention's gradients; the Q/K options: kernels 3 and 4 at 4
-   bits bit-exact with their plain versions at the CogVideoX-2B layer, and
+   bits bit-exact with their plain versions at the CogVideoX-2B layer,
+   kernel 4 (the row-group quantizer of every option) at 8 and 4 bits at
+   groups of 1, 32 and 128 rows, on x, on x less kernel 2's mean and on
+   that cast back to the 16-bit type, bit-exact with its plain version at
+   the CogVideoX-2B and Wan2.1 layers, at d 256 / 384 / 512, ragged at
+   every head dim in fp32 and on fp16 q's values, and
    the pre-quantized forward for per_token, per_subtile, per_block,
    smooth_q, int4 and int4 + smooth_q, bf16 and e4m3 V, at the CogVideoX-2B
    and Wan2.1 layers, the llm-8b-gqa layer (causal, GQA) and varlen's
@@ -75,10 +80,11 @@ Phases, each of which raises (and so exits non-zero) when it fails:
       two more steps with "sage" for the bf16 step time;
    d. CogVideoX-2B through ``SageAttnProcessor`` kwargs:
       ``server_subtile_fp8``, "sage_fp8" with ``qk_quant_gran="per_subtile"``
-      (kernel 5 and the pre-quantized forward, no K kernel), and
-      ``server_int4_sq``, "sage" with ``qk_bits=4, smooth_q=True`` (kernels
-      4, 2-3 at 4 bits and the pre-quantized forward); eps floors 0.999
-      and 0.97;
+      (kernel 2 on K, kernel 4 on Q and on K, kernel 5 and the
+      pre-quantized forward), and ``server_int4_sq``, "sage" with
+      ``qk_bits=4, smooth_q=True`` (kernel 2 on Q and on K, kernel 4 on
+      the centred Q, kernel 3 at 4 bits and the pre-quantized forward);
+      eps floors 0.999 and 0.97;
 4. the trainer: CogVideoX-2B at full width and depth 8 (fp32
    parameters, bf16 compute, AdamW), one warm-up step and 4 timed steps
    on one fixed batch and (t, eps); the counts are zeroed just before the
@@ -129,8 +135,9 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    rates, every timed ``wgmma`` forward instance's at the measured
    ``wgmma`` rates and its exp2 at the measured ``exp2f`` rate; the pre-quantized
    forward for each Q/K option at both DiT layers beside the default
-   forward and SDPA, the PyTorch ``quantize_qk`` and smooth_q preparation,
-   and kernels 3 and 4 at 4 bits; the backward's bias instances at the
+   forward and SDPA, the PyTorch ``quantize_qk`` and smooth_q preparation
+   beside the op's own through kernels 2-4 for each option, and kernels 3
+   and 4 at 4 bits; the backward's bias instances at the
    llm-8b-gqa layer, causal with an fp32 ALiBi bias, beside their byte
    bounds, their plain versions and SDPA's backward with the bias as a
    float mask that requires grad, and the exact route once (a broadcast
@@ -249,7 +256,9 @@ Phases, each of which raises (and so exits non-zero) when it fails:
 11. kernels 2-6 through their C entry points (``centry_ms`` in their
    entries: outputs allocated once, many calls back to back) at the kernel
    table's shapes, beside the wrapper times (``ms``) of phases 6, 7d and
-   10.
+   10; kernel 4 at every group and form too (``rows_centry_ms``), and a
+   per_subtile layer's Q/K preparation, its three C-entry calls queued
+   together (``per_subtile_prep_centry_ms``).
 
 It prints one ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside the
@@ -730,10 +739,15 @@ def time_quant_entries(results) -> None:
     (8 and 4 bits) at the CogVideoX-2B layer, kernel 5 there and kernel 6
     at the Wan2.1 layer (e4m3), and at head dims 256, 384 and 512 K at (4,
     16, 4096, d), Q and kernel 5 at (1, 16, 4096, d), kernel 6 at (1, 8,
-    16384, d) (int8); from a generator of its own."""
+    16384, d) (int8); kernel 4 also at every group and form of
+    ``rows_cases`` on the same Q (and above 128 on it in fp32), and a
+    per_subtile layer's Q/K preparation at the C entries, its three calls
+    (kernel 2 on K, kernel 4 on Q and on K less that mean) queued together
+    on one CogVideoX-2B layer's Q and K; from generators of their own."""
     import torch
     from sageattention_tpu_torch.ops import _build
     from sageattention_tpu_torch.ops import quant_cuda as qc
+    from sageattention_tpu_torch.utils.ab_common import offset_rows, rows_cases
     from sageattention_tpu_torch.utils.timing import queued_ms
 
     gen = torch.Generator(device="cuda")
@@ -767,11 +781,53 @@ def time_quant_entries(results) -> None:
         q = random_v(gen, shape)
         out = torch.empty(shape, dtype=torch.int8, device="cuda")
         sc = torch.empty(shape[:3], device="cuda")
+        fold = d**-0.5 * LOG2E
+        r = results["quant_q_per_token" + sfx]
         for bits in (8, 4) if d == 64 else (8,):
-            r = results["quant_q_per_token" + sfx]
-            args = qc.quant_q_args(q, out, sc, scale_fold=d**-0.5 * LOG2E, bits=bits)
+            args = qc.quant_q_args(q, out, sc, scale_fold=fold, bits=bits)
             put(r if bits == 8 else r["bits4"], f"quant_q_per_token {bits} bits at {shape}",
-                lambda: lib_q.quant_q_per_token(*args))
+                lambda: lib_q.quant_rows(*args))
+        # kernel 4 at every group and form
+        rows = r["rows_centry_ms"] = {}
+        mean = qc.k_channel_mean(q)
+        for x in (q, q.float()):
+            b, h, s, _ = x.shape
+            for group, form, m, c in rows_cases(x, mean):
+                if x.dtype == torch.float32 and (form != "x" or d == 64):
+                    continue
+                for bits in (8, 4) if d == 64 and x is q else (8,):
+                    key = f"{str(x.dtype)[6:]} group {group} {form} {bits} bits"
+                    args = qc.quant_q_args(x, out, sc, scale_fold=fold, bits=bits, mean=m,
+                                           group=group, cast=c)
+                    rows[key] = queued_ms(lambda: lib_q.quant_rows(*args))
+                    plan = qc.quant_q_plan(b * h, s, d, x.element_size(), group,
+                                           mean=m is not None)
+                    log(f"time quant_q_per_token {key} at {shape} C entry: {rows[key]:.4f} ms "
+                        f"(plan {tuple(plan)})")
+        if d == 64:
+            # a per_subtile layer's Q and K at the C entries, queued together
+            # as the op issues them: K's mean, Q, and K less its mean, each
+            # 32 rows a scale (K from a generator of its own)
+            gen_k = torch.Generator(device="cuda")
+            gen_k.manual_seed(46)
+            k = offset_rows(gen_k, shape, "bf16")
+            km = torch.empty(shape[0], shape[1], d, device="cuda")
+            k_out, k_sc = torch.empty_like(out), torch.empty_like(sc)
+            a_mean, part = qc.k_mean_args(k, km)
+            a_q = qc.quant_q_args(q, out, sc, scale_fold=fold, group=32)
+            a_k = qc.quant_q_args(k, k_out, k_sc, scale_fold=1.0, mean=km, group=32)
+
+            def prep():
+                lib_k.k_channel_mean(*a_mean)
+                lib_q.quant_rows(*a_q)
+                lib_q.quant_rows(*a_k)
+
+            r["per_subtile_prep_centry_ms"] = queued_ms(prep)
+            log(f"time a per_subtile layer's Q/K preparation at the C entries (kernel 2 on K, "
+                f"kernel 4 on Q and on K - km, queued together) at {shape}: "
+                f"{r['per_subtile_prep_centry_ms']:.4f} ms")
+            del k, km, k_out, k_sc, part
+        del mean
         dtype = e4m3 if d == 64 else torch.int8
         v = q
         out = torch.empty(shape, dtype=dtype, device="cuda")
@@ -1030,6 +1086,9 @@ def check_fwd_sm90(results) -> None:
 
 
 def check_quant_q(gen, results):
+    """Kernel 4's per-token form at the backward's shapes, then every
+    instance (``check_rows``) at ``ROWS_SHAPES``, 8 bits, bit-exact with the
+    plain version."""
     import torch
     from sageattention_tpu_torch.ops import quant_cuda
 
@@ -1048,6 +1107,47 @@ def check_quant_q(gen, results):
         if (b, h, s, d) == (1, 30, 17776, 64):
             results["quant_q_per_token"]["max_abs_err"] = float(
                 (qi.int() - qi_p.int()).abs().max().item())
+    # every instance of kernel 4, from a generator of its own
+    from sageattention_tpu_torch.utils.ab_common import offset_rows
+
+    gen_r = torch.Generator(device="cuda")
+    gen_r.manual_seed(44)
+    for shape, dtype in ROWS_SHAPES:
+        check_rows(offset_rows(gen_r, shape, dtype), 8)
+
+
+# kernel 4's checked shapes: the CogVideoX-2B and Wan2.1 layers, (1, 16,
+# 4096, d) above 128, ragged fp32 at every head dim, and fp16 q's values
+# (widened to fp32, smooth_q's cast back to fp16) at a ragged d 128
+ROWS_SHAPES = ((tuple(COG.values()), "bf16"), (tuple(WAN.values()), "bf16"),
+               *(((1, 16, 4096, d), "bf16") for d in (256, 384, 512)),
+               *(((2, 5, 4001, d), "fp32") for d in (64, 128, 256, 384, 512)),
+               ((1, 8, 4001, 128), "fp16"))
+
+
+def check_rows(x, bits: int) -> None:
+    """Kernel 4 at every group and form (``ab_common.rows_cases``, the mean
+    kernel 2's) against its plain version given the same mean, bit for
+    bit."""
+    import torch
+    from sageattention_tpu_torch.ops import quant_cuda as qc
+    from sageattention_tpu_torch.utils.ab_common import rows_cases
+
+    b, h, s, d = x.shape
+    fold = d**-0.5 * LOG2E
+    mean = qc.k_channel_mean(x)
+    for group, form, m, c in rows_cases(x, mean):
+        kw = dict(group=group, cast=c, scale_fold=fold, bits=bits)
+        qi, qs = qc.quant_q_per_token(x, m, **kw)
+        qi_p, qs_p = qc.quant_q_per_token_plain(x, m, **kw)
+        exact = torch.equal(qi, qi_p) and torch.equal(qs, qs_p)
+        plan = qc.quant_q_plan(b * h, s, d, x.element_size(), group, mean=m is not None)
+        what = (f"quant_q_per_token {tuple(x.shape)} {x.dtype} group {group} {form} {bits} bits, "
+                f"plan {tuple(plan)}")
+        torch.cuda.synchronize()
+        log(f"{what}: bit-exact {exact}")
+        require(exact, f"{what}: not bit-exact with the plain version")
+        del qi, qs, qi_p, qs_p
 
 
 def backward_case(gen, b, hq, hkv, sq, sk, d, causal, window=None, bias=None):
@@ -1644,7 +1744,8 @@ def check_quant_4bit(gen, results):
     """Kernels 2-4 at bits=4 against their plain versions at the
     CogVideoX-2B layer: kernel 3 fed the plain km bit-exact; the whole K
     prologue (kernel 2's own km) within one code step on at most 1e-4 of
-    the entries; kernel 4 bit-exact on Q and on smooth_q's centred Q."""
+    the entries; kernel 4 bit-exact on Q and on smooth_q's centred Q, and
+    at every group and form (``check_rows``) at ``ROWS_SHAPES``."""
     import torch
     from sageattention_tpu_torch import core
     from sageattention_tpu_torch.ops import quant_cuda
@@ -1672,6 +1773,13 @@ def check_quant_4bit(gen, results):
         log(f"quant_q_per_token 4 bits on {name} {tuple(x.shape)}: bit-exact {exact}")
         require(exact, f"quant_q_per_token at 4 bits is not bit-exact with the spec ({name})")
     results["quant_q_per_token"]["bits4"] = {"max_abs_err": 0.0}
+    # every instance of kernel 4 at 4 bits, from a generator of its own
+    from sageattention_tpu_torch.utils.ab_common import offset_rows
+
+    gen_r = torch.Generator(device="cuda")
+    gen_r.manual_seed(45)
+    for shape, dtype in ROWS_SHAPES:
+        check_rows(offset_rows(gen_r, shape, dtype), 4)
 
 
 def preq_operands(q, k, opts: dict):
@@ -2360,12 +2468,15 @@ def time_decode(gen, results):
 # --------------------------------------------------------------------------
 
 FORWARD = ("k_channel_mean", "quant_k_chunked", "sage_attn_fwd")
-# the Q/K options' servers: int4 + smooth_q runs kernel 4, kernels 2-3 at 4
-# bits and the pre-quantized forward; per_subtile quantizes Q and K in
-# PyTorch, so no K kernel, and with fp8 V kernel 5
-FORWARD_INT4_SQ = ("quant_q_per_token", "k_channel_mean", "quant_k_chunked",
+# the Q/K options' servers, a kernel named as often as a layer launches it:
+# int4 + smooth_q runs kernel 2 on Q (smooth_q's mean) and on K, kernel 4 on
+# the centred Q, kernel 3 at 4 bits and the pre-quantized forward;
+# per_subtile runs kernel 4 on Q and on K (kernel 2's mean off), and with
+# fp8 V kernel 5
+FORWARD_INT4_SQ = ("k_channel_mean", "k_channel_mean", "quant_q_per_token", "quant_k_chunked",
                    "sage_attn_fwd_preq")
-FORWARD_SUBTILE_FP8 = ("quant_v_per_channel", "widen_v_codes", "sage_attn_fwd_preq")
+FORWARD_SUBTILE_FP8 = ("quant_q_per_token", "quant_q_per_token", "k_channel_mean",
+                       "quant_v_per_channel", "widen_v_codes", "sage_attn_fwd_preq")
 # V codes before the wgmma forward (no masks): widened to bf16
 WIDEN = ("widen_v_codes",)
 # the windowed one-shot prefill: kernels 2-3 and kernel 1's masked instantiation
@@ -2549,8 +2660,9 @@ def run_server(results, profile: bool, *, model: str, backend: str, path: str,
                eps_floor: float = 0.999) -> dict:
     """One server cell: ``model`` at full width and depth 30 with
     ``backend`` (and with ``kwargs``, the options a ``SageAttnProcessor``
-    passes it), 2 requests x 2 denoise steps.  The kernels in ``launched``
-    must run once a layer a step, every other kernel not at all.
+    passes it), 2 requests x 2 denoise steps.  Each kernel in ``launched``
+    must run as often a layer a step as ``launched`` names it, every other
+    kernel not at all.
     ``bf16_steps`` more steps are then timed with "sage" (bf16 V) on the
     same model.  One step's eps is held against exact attention at depth
     2, cosine >= ``eps_floor``."""
@@ -2586,7 +2698,7 @@ def run_server(results, profile: bool, *, model: str, backend: str, path: str,
         f"{[round(x, 3) for x in ms]}, median {statistics.median(ms):.3f}")
     log(f"server {path} launches: {launches} (layers x steps = {depth * n_steps})")
     for name, n in launches.items():
-        want = depth * n_steps if name in launched else 0
+        want = depth * n_steps * launched.count(name)
         require(n == want, f"server {path}: {name} launched {n} times, want {want}")
         results[name].setdefault("launches_by_path", {})[path] = n
     t = torch.tensor([500], device="cuda")
@@ -3245,7 +3357,8 @@ def time_qopts(gen, results) -> dict:
     Wan2.1 layers (non-causal, bf16 V), beside the default forward and SDPA
     on the same inputs; its plain version at the CogVideoX-2B layer; the
     PyTorch preparation (``quant.quantize_qk`` per_subtile, smooth_q's
-    centring and column bias) per layer; kernels 3 and 4 at 4 bits.  The
+    centring and column bias) per layer beside the op's own through kernels
+    2-4 (``core._quant_qk``) for each option; kernels 3 and 4 at 4 bits.  The
     kernels line reports int4 + smooth_q, server_int4_sq's path."""
     import torch
     import torch.nn.functional as F
@@ -3291,6 +3404,13 @@ def time_qopts(gen, results) -> dict:
         log(f"time at {(b, h, s, d)}: quantize_qk per_subtile (PyTorch) "
             f"{row['quantize_qk_per_subtile_ms']:.4f} ms; smooth_q's qm, centred Q and column "
             f"bias (PyTorch) {row['smooth_q_prep_ms']:.4f} ms; SDPA {row['sdpa_ms']:.4f} ms")
+        # the preparation the op runs (core._quant_qk: kernels 2-4, and the
+        # column bias in PyTorch), each option's Q and K operands whole
+        row["quant_qk_ms"] = {name: cuda_ms(lambda: core._quant_qk(
+            q, k, core.QKOptions(**opts), work=torch.bfloat16, d_pad=d, sm_scale=sm,
+            smooth_k=True)) for name, opts in QOPTS.items()}
+        log(f"time at {(b, h, s, d)}: the op's Q/K preparation through the kernels (ms) "
+            f"{ {n: round(x, 4) for n, x in row['quant_qk_ms'].items()} }")
         out[lname] = row
         if lname == "cogvideox layer":
             # kernels 3 and 4 at 4 bits; bounds as at 8 bits (the same bytes)
@@ -5370,7 +5490,7 @@ def check_wide_preq(results) -> dict:
     qn, kn, vn = (torch.randn(b, hq, s, d, generator=gen, device="cuda").to(torch.bfloat16)
                   for _ in range(3))
     o_path = drive(results, "wide_preq_hd512",
-                   {"quant_q_per_token_hd512": 1, "k_channel_mean_hd512": 1,
+                   {"quant_q_per_token_hd512": 1, "k_channel_mean_hd512": 2,
                     "quant_k_chunked_hd512": 1, "sage_attn_fwd_preq_hd512": 1},
                    lambda: core.sageattn(qn, kn, vn, is_causal=True, qk_bits=4, smooth_q=True))
     o_x = exact_heads(qn, kn, vn, True, hs)

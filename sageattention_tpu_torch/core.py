@@ -21,7 +21,7 @@ option, exact recompute (``autodiff.RecomputeFunction``) for the rest.
 The Q/K quantization options of the JAX ``sageattn``: ``smooth_q`` (Q
 centred by its mean, the mean's product with the smoothed K added back as
 a column bias), ``qk_bits=4`` (+-7 Q and K codes) and ``qk_quant_gran`` =
-"per_token" / "per_subtile" / "per_block" (Q and K quantized in PyTorch
+"per_token" / "per_subtile" / "per_block" (Q and K quantized by kernel 4
 with per-row scales).  These run the forward on pre-quantized operands
 (``attention_cuda.sage_attention_fwd_preq``) and are differentiated by
 exact recompute (``autodiff.RecomputeFunction``), as the JAX package
@@ -192,7 +192,8 @@ class QKOptions(NamedTuple):
 def _smooth_q(q: torch.Tensor):
     """smooth_q's (qm, q - qm): the Q mean over the sequence in fp32 [b,hq,d]
     and the centred Q cast back to q's dtype (``core.py:276-277`` of the
-    JAX package), which is what is quantized."""
+    JAX package), which is what is quantized.  The spec of what
+    :func:`_quant_qk` computes with kernels 2 and 4."""
     qm = q.float().mean(dim=-2)
     return qm, (q.float() - qm[..., None, :]).to(q.dtype)
 
@@ -211,27 +212,33 @@ def _score_col_bias(qm, k, km, sm_scale: float) -> torch.Tensor:
 def _quant_qk(q, k, opts: QKOptions, *, work, d_pad: int, sm_scale: float, smooth_k: bool):
     """The pre-quantized forward's Q and K operands (``core.py:270-347`` of
     the JAX package): (q_i8, q_scale, k_i8, k_scale, km, col_bias), codes
-    at the padded head dim, km padded too.  ``smooth_q`` quantizes
-    ``q - qm``, cast back to q's dtype, and adds qm's column term back.
-    "auto" quantizes Q per row and K per 128-row tile in the kernels
-    (``quant_q_per_token``, ``k_channel_mean``, ``quant_k_chunked``), a
-    granularity both in PyTorch, K with per-row scales."""
+    at the padded head dim, km padded too.  Every option through the
+    kernels (``quant.quantize_qk`` and :func:`_smooth_q` are their spec):
+    ``smooth_q``'s qm is kernel 2's mean of Q, and kernel 4 quantizes ``q -
+    qm`` cast back to q's dtype, qm's column term added back; Q by kernel 4
+    at the option's group; K per 128-row tile by kernels 2-3 under "auto",
+    else by kernel 4 at the option's group with kernel 2's km, per-row
+    scales."""
     bits, d_og = opts.qk_bits, q.shape[-1]
-    qm, q_in = _smooth_q(q) if opts.smooth_q else (None, q)
-    if opts.qk_quant_gran == "auto":
-        q_i8, q_scale = quant_cuda.quant_q_per_token(_pad_d(q_in.to(work), d_pad),
-                                                     scale_fold=sm_scale * LOG2E, bits=bits)
-        k_i8, k_scale, km = quant_cuda.quant_k_fused_mean(_pad_d(k.to(work), d_pad),
-                                                          group=K_GROUP, smooth=smooth_k,
+    gran = opts.qk_quant_gran
+    group = 1 if gran == "auto" else quant.group_rows(gran)
+    qp, kp = _pad_d(q.to(work), d_pad), _pad_d(k.to(work), d_pad)
+    qm = quant_cuda.k_channel_mean(qp) if opts.smooth_q else None
+    # smooth_q's centred Q is rounded back to the caller's 16-bit type
+    cast = q.dtype if qm is not None and q.dtype in (torch.bfloat16, torch.float16) else None
+    q_i8, q_scale = quant_cuda.quant_q_per_token(qp, qm, scale_fold=sm_scale * LOG2E, bits=bits,
+                                                 group=group, cast=cast)
+    if gran == "auto":
+        k_i8, k_scale, km = quant_cuda.quant_k_fused_mean(kp, group=K_GROUP, smooth=smooth_k,
                                                           bits=bits)
-        km_og = km[..., :d_og] if km is not None else None
     else:
-        q_i8, q_scale, k_i8, k_scale, km_og = quant.quantize_qk(
-            q_in, k, sm_scale=sm_scale, granularity=opts.qk_quant_gran, smooth_k=smooth_k,
-            bits=bits)
-        q_i8, k_i8 = _pad_d(q_i8, d_pad), _pad_d(k_i8, d_pad)
-        km = _pad_d(km_og, d_pad) if km_og is not None else None
-    col_bias = _score_col_bias(qm, k, km_og, sm_scale) if opts.smooth_q else None
+        km = quant_cuda.k_channel_mean(kp) if smooth_k else None
+        k_i8, k_scale = quant_cuda.quant_q_per_token(kp, km, scale_fold=1.0, bits=bits,
+                                                     group=group)
+    col_bias = None
+    if qm is not None:
+        col_bias = _score_col_bias(qm[..., :d_og], k, km[..., :d_og] if km is not None else None,
+                                   sm_scale)
     return q_i8, q_scale, k_i8, k_scale, km, col_bias
 
 

@@ -49,6 +49,28 @@ __device__ inline void unpack(const Raw8<float>& r, float* x) {
   x[4] = r.b.x; x[5] = r.b.y; x[6] = r.b.z; x[7] = r.b.w;
 }
 
+// the inverse of unpack: eight fp32 values, each exact in T, back into a Raw8
+__device__ inline void pack(const float* x, Raw8<__nv_bfloat16>& r) {
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&r.v);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) h[j] = __floats2bfloat162_rn(x[2 * j], x[2 * j + 1]);
+}
+__device__ inline void pack(const float* x, Raw8<float>& r) {
+  r.a = make_float4(x[0], x[1], x[2], x[3]);
+  r.b = make_float4(x[4], x[5], x[6], x[7]);
+}
+
+// an empty asm the compiler must take to rewrite r: values computed from r
+// before it are computed again from r after it, so r's registers stay live
+// across, not the (for bf16, twice as many) fp32 values derived from them
+__device__ inline void pin(Raw8<__nv_bfloat16>& r) {
+  asm volatile("" : "+r"(r.v.x), "+r"(r.v.y), "+r"(r.v.z), "+r"(r.v.w));
+}
+__device__ inline void pin(Raw8<float>& r) {
+  asm volatile("" : "+f"(r.a.x), "+f"(r.a.y), "+f"(r.a.z), "+f"(r.a.w), "+f"(r.b.x),
+               "+f"(r.b.y), "+f"(r.b.z), "+f"(r.b.w));
+}
+
 template <typename T>
 __device__ inline void load8(const T* p, float* x) {
   Raw8<T> r;

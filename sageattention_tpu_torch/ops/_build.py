@@ -52,7 +52,9 @@ SIGNATURES = {
         "quant_k_chunked": [P, P, P, P, I, I, I, I, I, F, F, I, I, I, I, P],
     },
     "quant_q": {
-        "quant_q_per_token": [P, P, P, LL, I, I, F, F, F, P],
+        # x, mean, out, scales; bh, s, d, x_is_f32, group, cast; qs_mul, qmax,
+        # 1/qmax; the plan (slots, cluster size, tiles a slab); the stream
+        "quant_rows": [P] * 4 + [I] * 6 + [F] * 3 + [I] * 3 + [P],
     },
     "quant_v": {
         # v, out, scale, mean; bh, s, d, bf16, kind, smooth; the plan (cluster

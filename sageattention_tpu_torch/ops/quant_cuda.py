@@ -4,16 +4,20 @@ Replaces the TPU kernels ``sageattention_tpu/ops/quant_pallas.py``:
 ``quant_k_fused_mean`` (``_quant_k_fused_kernel``) and
 ``quant_k_chunked`` (``_quant_k_kernel``), in ``csrc/quant_k.cu``;
 ``quant_q_per_token`` (``_quant_rows_kernel``), in ``csrc/quant_q.cu``,
-which the backward uses to quantize Q again exactly as the forward kernel
-did inside itself; and the per-channel V quantizers ``quant_v_per_channel``
+the row-group quantizer of every Q/K option (one row, 32 or 128 a scale, a
+mean taken off first, smooth_q's cast back), whose per-token form the
+backward uses to quantize Q again exactly as the forward kernel did inside
+itself; and the per-channel V quantizers ``quant_v_per_channel``
 (``_quant_v_kernel``) and ``_quant_v_blocked`` (``_v_stats_kernel``,
 ``_v_apply_kernel``), in ``csrc/quant_v.cu``.  Each source says what
 bounds its kernels (bytes) and how they meet it.  The Q and K quantizers
 take ``bits``: 8, or 4 for the +-7 codes of ``sageattn(qk_bits=4)``, as
 the TPU kernels do.
 
-Kernels 3 and 5 read K and V from device memory once by plans made here,
-on the host, and passed to the kernel: ``quant_k_plan`` (at head dims up
+Kernels 3-5 read K, Q and V from device memory once by plans made here,
+on the host, and passed to the kernel: ``quant_q_plan`` (rows held in
+registers, several a thread, a group too large for a CTA split over a
+cluster), ``quant_k_plan`` (at head dims up
 to 128 a tile a CTA, held in its threads' registers; above, a persistent
 grid over the (b h, group) tiles, each tile staged in a shared-memory ring
 by each thread's ``cp.async`` of the chunks it reads) and ``quant_v_plan``
@@ -28,7 +32,7 @@ On a CPU tensor every function here runs its plain PyTorch version; on a
 CUDA tensor it launches its kernel or raises.  Each wrapper counts its
 launches in ``<function>.launches``, and those at head dims 256, 384 and
 512 apart, in ``<function>.hd256_launches``, ``.hd384_launches`` and
-``.hd512_launches`` (the Q quantizer has instances of its own there; the
+``.hd512_launches`` (the Q/K quantizer has instances of its own there; the
 K and V kernels take the width as an argument).
 """
 
@@ -95,6 +99,19 @@ V_COLUMN_US = (3.422, 0.295, 0.2664, 0.721, 1.283)
 # device memory; a MB of the round's traffic (V, rows read twice, codes)
 V_CLUSTER_US = (11.55, 0.1456, 0.1289, 0.008585, 3.883, 0.4741)
 H100_SMS = 132
+# kernel 4's plan (csrc/quant_q.cu, whose slots_of mirrors it): groups of
+# Q_GROUPS rows, 256-thread CTAs, each thread holding Q_SLOTS rows' chunks
+# at once, at most Q_HELD_BYTES of x (64 registers): Q_TOKEN_ELEMS of x a
+# thread at one row a group, at least Q_GROUP_SLOTS rows at more (the
+# fastest of every slot count on an H100, PERF.md); a group no CTA holds is
+# split over a cluster of at most Q_MAX_CLUSTER CTAs
+Q_GROUPS = (1, 32, 128)
+Q_THREADS = 256
+Q_SLOTS = (1, 2, 4, 8, 16)
+Q_TOKEN_ELEMS = 16
+Q_GROUP_SLOTS = 4
+Q_HELD_BYTES = 256
+Q_MAX_CLUSTER = 8
 
 
 class KPlan(NamedTuple):
@@ -322,41 +339,126 @@ def _qmax_args(bits: int) -> tuple[float, float]:
     return qmax, float(np.float32(1.0 / qmax))
 
 
-def quant_q_per_token_plain(q: torch.Tensor, *, scale_fold: float, bits: int = 8):
-    """The spec: ``quant.quant_int8(q, scale_fold=scale_fold, bits=bits)``."""
-    return quant.quant_int8(q, scale_fold=scale_fold, bits=bits)
+class QPlan(NamedTuple):
+    """Kernel 4's plan: each thread holds ``slots`` rows at once, clusters
+    of ``cl`` CTAs share a group's amax, each (b, h) slab is ``tiles``
+    clusters' rows, ``grid`` CTAs."""
+    slots: int
+    cl: int
+    tiles: int
+    grid: int
 
 
-def quant_q_args(q, out, scales, *, scale_fold: float, bits: int = 8) -> tuple:
-    """The arguments of the C entry point ``quant_q_per_token`` writing into
-    ``out`` and ``scales``; each wrapper here has such a function, with
-    which ``chip_smoke.py`` and the A/B tools time the entry point without
-    the wrapper."""
+def q_row_lanes(d: int) -> tuple[int, int, int]:
+    """Kernel 4's row layout at head dim ``d``: (lanes a row, rows a warp
+    holds side by side, 8-column chunks a lane).  A row takes as many of a
+    warp's lanes as divide its d / 8 chunks, at most 32."""
+    nv = d // 8
+    lanes = min(32, nv & -nv)
+    return lanes, 32 // lanes, nv // lanes
+
+
+def quant_q_plan(bh: int, s: int, d: int, itemsize: int, group: int,
+                 mean: bool = False) -> QPlan:
+    """Kernel 4's plan for x [bh, s, d] of ``itemsize`` bytes in groups of
+    ``group`` rows (one of ``Q_GROUPS``; ``mean``: a mean is taken off).
+    Each thread holds at most ``Q_HELD_BYTES`` of x.  One row a group:
+    ``Q_TOKEN_ELEMS`` of a row's elements a thread, twice as many with a
+    mean (two slots at d <= 256, one above; four and two with a mean).
+    Else the fewest slots of ``Q_SLOTS``, at least ``Q_GROUP_SLOTS``, with
+    which a CTA holds a group; where none does, ``Q_GROUP_SLOTS`` (or fewer,
+    as many as a thread holds), and the group split over a cluster of
+    CTAs."""
+    if group not in Q_GROUPS:
+        raise ValueError(f"kernel 4 takes groups of {Q_GROUPS} rows, got {group}")
+    _, w, c = q_row_lanes(d)
+    held = [r for r in Q_SLOTS if r * c * 8 * itemsize <= Q_HELD_BYTES]
+    rows = Q_THREADS // 32 * w  # a CTA's rows a slot
+    if group == 1:
+        slots = max(1, Q_TOKEN_ELEMS * (2 if mean else 1) // (c * 8))
+    else:
+        fits = [r for r in held if r >= Q_GROUP_SLOTS and rows * r >= group]
+        slots = fits[0] if fits else min(Q_GROUP_SLOTS, held[-1])
+    cl = 1 if group <= rows * slots else group // (rows * slots)
+    if cl > Q_MAX_CLUSTER:
+        raise ValueError(f"kernel 4: a group of {group} rows at d {d} needs {cl} CTAs")
+    tiles = -(-s // (rows * slots * cl))
+    return QPlan(slots, cl, tiles, bh * tiles * cl)
+
+
+def quant_q_per_token_plain(x: torch.Tensor, mean: torch.Tensor | None = None, *,
+                            scale_fold: float, bits: int = 8, group: int = 1,
+                            cast: torch.dtype | None = None):
+    """The spec: ``quant.quant_int8`` of x' at groups of ``group`` rows, x'
+    x itself, ``f32(x) - mean`` or ``(f32(x) - mean).to(cast)``."""
+    xs = x.float() if mean is None else x.float() - mean[..., None, :]
+    if cast is not None:
+        xs = xs.to(cast)
+    gran = "per_token" if group == 1 else "per_subtile"
+    return quant.quant_int8(xs, granularity=gran, block_size=group, scale_fold=scale_fold,
+                            bits=bits)
+
+
+def _cast_code(x: torch.Tensor, mean, cast: torch.dtype | None) -> int:
+    """The C entry's ``cast``: 0, or 1 to round x - mean to bf16 (bf16 x)
+    or fp16 (fp32 x, an fp16 caller's, widened exactly)."""
+    if cast is None:
+        return 0
+    if mean is None:
+        raise ValueError("kernel 4 casts x - mean back, and no mean was given")
+    if (x.dtype, cast) not in ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.float16)):
+        raise ValueError(f"kernel 4 casts bf16 x to bf16 and fp32 x to fp16, not {x.dtype} "
+                         f"to {cast}")
+    return 1
+
+
+def quant_q_args(x, out, scales, *, scale_fold: float, bits: int = 8, mean=None, group: int = 1,
+                 cast=None, plan: QPlan | None = None) -> tuple:
+    """The arguments of the C entry point ``quant_rows`` (with kernel 4's
+    plan, or ``plan``) writing into ``out`` and ``scales``; each wrapper
+    here has such a function, with which ``chip_smoke.py`` and the A/B tools
+    time the entry point without the wrapper."""
     qmax, inv_qmax = _qmax_args(bits)
-    b, h, s, d = q.shape
+    b, h, s, d = x.shape
+    plan = plan or quant_q_plan(b * h, s, d, x.element_size(), group, mean=mean is not None)
     return (
-        q.data_ptr(), out.data_ptr(), scales.data_ptr(), b * h * s, d,
-        int(q.dtype == torch.float32), quant.fold_multiplier(scale_fold, qmax), qmax, inv_qmax,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        x.data_ptr(), mean.data_ptr() if mean is not None else None, out.data_ptr(),
+        scales.data_ptr(), b * h, s, d, int(x.dtype == torch.float32), group,
+        _cast_code(x, mean, cast), quant.fold_multiplier(scale_fold, qmax), qmax, inv_qmax,
+        *plan[:3], torch.cuda.current_stream(x.device).cuda_stream)
 
 
-def quant_q_per_token(q: torch.Tensor, *, scale_fold: float, bits: int = 8):
-    """[b,h,s,d] -> (int8 [b,h,s,d], f32 scales [b,h,s] with ``scale_fold``
-    folded in), bit for bit the forward kernel's in-kernel Q quantization
-    (and at ``bits=4`` the TPU kernel's at qmax 7)."""
-    if q.device.type == "cpu":
-        return quant_q_per_token_plain(q, scale_fold=scale_fold, bits=bits)
-    _check_input(q, "Q quantizer")
-    b, h, s, d = q.shape
-    out = torch.empty(b, h, s, d, dtype=torch.int8, device=q.device)
-    scales = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
-    args = quant_q_args(q, out, scales, scale_fold=scale_fold, bits=bits)
-    with torch.cuda.device(q.device):  # the launch goes to the current device
-        err = _build.lib("quant_q").quant_q_per_token(*args)
-    _build.check(err, "quant_q_per_token")
-    _build.count_launch(quant_q_per_token, q.shape[-1])
+def quant_q_per_token(x: torch.Tensor, mean: torch.Tensor | None = None, *, scale_fold: float,
+                      bits: int = 8, group: int = 1, cast: torch.dtype | None = None):
+    """Kernel 4, the row-group quantizer of Q and K: x [b,h,s,d] (bf16 or
+    fp32; d in ``HEAD_DIMS``) -> (int8 [b,h,s,d], f32 scales [b,h,s] with
+    ``scale_fold`` folded in), the codes of x', which is x, ``f32(x) -
+    mean`` (``mean`` [b,h,d] fp32) or that rounded to ``cast`` (bf16 for
+    bf16 x, fp16 for fp32 x: smooth_q's centred Q), at one scale a group of
+    ``group`` rows (1, 32 or 128), ``quant_q_per_token_plain`` bit for bit.
+    Its default, Q at one row a scale, is the TPU kernel's function, bit
+    for bit the forward kernel's in-kernel Q quantization (and at ``bits=4``
+    the TPU kernel's at qmax 7).  Its launches count on its own counters,
+    whatever it quantizes."""
+    if x.device.type == "cpu":
+        return quant_q_per_token_plain(x, mean, scale_fold=scale_fold, bits=bits, group=group,
+                                       cast=cast)
+    _check_input(x, "Q/K quantizer")
+    b, h, s, d = x.shape
+    if mean is not None and (
+        mean.dtype != torch.float32 or mean.shape != (b, h, d)
+        or not mean.is_contiguous() or mean.device != x.device
+    ):
+        raise ValueError(f"mean must be contiguous fp32 {(b, h, d)} on {x.device}")
+    out = torch.empty(b, h, s, d, dtype=torch.int8, device=x.device)
+    scales = torch.empty(b, h, s, dtype=torch.float32, device=x.device)
+    args = quant_q_args(x, out, scales, scale_fold=scale_fold, bits=bits, mean=mean, group=group,
+                        cast=cast)
+    with torch.cuda.device(x.device):  # the launch goes to the current device
+        err = _build.lib("quant_q").quant_rows(*args)
+    _build.check(err, "quant_rows")
+    _build.count_launch(quant_q_per_token, d)
     return out, scales
-
 
 
 def k_channel_mean_plain(k: torch.Tensor) -> torch.Tensor:

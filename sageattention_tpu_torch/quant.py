@@ -80,6 +80,16 @@ def _group_amax(x: torch.Tensor, group: int) -> torch.Tensor:
 GRANULARITIES = ("per_token", "per_subtile", "per_block")
 
 
+def group_rows(granularity: str, block_size: int = 32) -> int:
+    """The rows that share a scale at ``granularity``: one (``per_token``),
+    ``block_size`` (``per_subtile``) or ``max(block_size, 128)``
+    (``per_block``)."""
+    if granularity not in GRANULARITIES:
+        raise ValueError(f"unknown granularity {granularity!r}")
+    return {"per_token": 1, "per_subtile": block_size,
+            "per_block": max(block_size, 128)}[granularity]
+
+
 def quant_int8(x: torch.Tensor, *, granularity: str = "per_token", block_size: int = 32,
                scale_fold: float = 1.0, bits: int = 8):
     """[b,h,s,d] -> (int8 [b,h,s,d], f32 per-row scales [b,h,s] with
@@ -87,12 +97,10 @@ def quant_int8(x: torch.Tensor, *, granularity: str = "per_token", block_size: i
     (``per_token``), a group of ``block_size`` rows (``per_subtile``) or of
     ``max(block_size, 128)`` rows (``per_block``), expanded per row;
     ``bits=4`` codes to +-7."""
-    if granularity not in GRANULARITIES:
-        raise ValueError(f"unknown granularity {granularity!r}")
+    group = group_rows(granularity, block_size)
     qmax = qk_qmax(bits)
     x = x.float()
-    group = {"per_token": 1, "per_subtile": block_size, "per_block": max(block_size, 128)}
-    amax = _group_amax(x, group[granularity])
+    amax = _group_amax(x, group)
     scale, r = inv_scale(amax, qmax)
     q = round_half_away(x * r[..., None])
     q = q.clamp(-qmax, qmax).to(torch.int8)

@@ -426,9 +426,14 @@ WRAPPERS = ((quant_cuda, "k_channel_mean"), (quant_cuda, "quant_k_chunked"),
     ({}, [("k_channel_mean", None), ("quant_k_chunked", 8), ("sage_attention_fwd", None)]),
     ({"qk_bits": 4}, [("quant_q_per_token", 4), ("k_channel_mean", None),
                       ("quant_k_chunked", 4), ("sage_attention_fwd_preq", None)]),
-    ({"smooth_q": True}, [("quant_q_per_token", 8), ("k_channel_mean", None),
-                          ("quant_k_chunked", 8), ("sage_attention_fwd_preq", None)]),
-    ({"qk_quant_gran": "per_subtile"}, [("sage_attention_fwd_preq", None)]),
+    # smooth_q's qm is kernel 2's mean of Q, its centring fused into kernel 4
+    ({"smooth_q": True}, [("k_channel_mean", None), ("quant_q_per_token", 8),
+                          ("k_channel_mean", None), ("quant_k_chunked", 8),
+                          ("sage_attention_fwd_preq", None)]),
+    # Q and K by kernel 4 at 32 rows a scale, K's mean by kernel 2
+    ({"qk_quant_gran": "per_subtile"}, [("quant_q_per_token", 8), ("k_channel_mean", None),
+                                        ("quant_q_per_token", 8),
+                                        ("sage_attention_fwd_preq", None)]),
 ], ids=["default", "int4", "smooth_q", "per_subtile"])
 def test_options_take_the_pre_quantized_kernel(monkeypatch, opts, want):
     calls = []
