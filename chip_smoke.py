@@ -208,11 +208,23 @@ Phases, each of which raises (and so exits non-zero) when it fails:
       and the llm-8b-gqa prefill layer at 32,768 tokens causal, 4 aligned
       and 6 full steps, 6 skipped; against ``sageattn`` of the whole
       sequence and exact attention, timed against the one op);
-      ``server_parallel`` (a world of one over NCCL, a ``FileStore`` and no
-      port: ``make_mesh(1, 1, 1)``, the CogVideoX-2B server through
-      "sage_parallel" with its eps against "sage", then the four sharded
-      factories through the group, ``generate.sharded_serve``, paged and
-      dense, 32 layers, 4 steps).
+      ``ring_grad`` (the same world forward and backward at both layers,
+      ``ring.ring_partials`` / ``merge_cotangents`` / ``ring_step_vjp``,
+      the code ``ring.RingFunction`` runs: kernels 2, 3 and 1 once a step
+      that ran, 4, 7 and 8 once in its backward; dq, dk and dv of the loss
+      sum(o do) + sum(lse dlse) against exact fp32 attention's, one q head
+      at a time, and against one ``sageattn``'s over the whole sequence;
+      the world on q heads 0-1 through the kernels against the plain
+      versions on the host; timed against one ``sageattn`` forward and
+      backward); ``server_parallel`` (a world of one over NCCL, a
+      ``FileStore`` and no port: ``make_mesh(1, 1, 1)``, the CogVideoX-2B
+      server through "sage_parallel" with its eps against "sage";
+      ``trainer_parallel``, the trainer cell's geometry through
+      "sage_parallel" with the gradients averaged over "data", its
+      gradients against the "sage" trainer's from the same weights and
+      (t, eps), 1 warm-up and 3 timed steps, one checkpoint round trip;
+      then the four sharded factories through the group,
+      ``generate.sharded_serve``, paged and dense, 32 layers, 4 steps).
    Kernel 11's owned launches (``sharded_paged``) and kernel 12's (checked
    and timed only) sit in their kernel's entry of the ``kernels`` line, as
    ``owned``;
@@ -3031,9 +3043,7 @@ def run_train(results, profile: bool) -> dict:
     require(losses[-1] < losses[0], "trainer: the loss did not fall")
     prof = None
     if profile:
-        gen = torch.Generator(device="cuda")
-        gen.manual_seed(6)
-        t, eps = train.draw_t_eps(x0, gen)
+        t, eps = train.step_noise(x0, 6, 0)
         prof = profile_device(lambda: train.train_step(tr, x0, txt, t, eps),
                               "profile_train_step.json", "one training step")
     del tr
@@ -4920,27 +4930,34 @@ def run_sharded_dense(results) -> dict:
             "shard_device_ops_a_call": ops}
 
 
+def world_blocks(k, v, idx: int, n: int = SP):
+    """Rank ``idx``'s (src, K block, V block) of a world of ``n`` in the order
+    the ring hands them to it."""
+    sl = k.shape[2] // n
+    return [(src, k[:, :, src * sl:(src + 1) * sl], v[:, :, src * sl:(src + 1) * sl])
+            for src in ((idx - step) % n for step in range(n))]
+
+
+def step_kind(src: int, idx: int, causal: bool, ran: bool) -> str:
+    """A ring step's kind, as the launch counts expect them."""
+    return "skipped" if not ran else "aligned" if causal and src == idx else "full"
+
+
 def ring_world(q, k, v, causal: bool, n: int = SP):
     """A world of ``n``'s ring run on one card, rank after rank and step after
-    step (``ring_step``, ``_merge``): the global (o, LSE) and the kinds of
-    steps taken."""
+    step (``ring.ring_partials``, the ring's own forward): the global (o,
+    LSE) and the kinds of steps taken."""
     import torch
     from sageattention_tpu_torch.parallel import ring
 
     sl = q.shape[2] // n
-    blk = [slice(i * sl, (i + 1) * sl) for i in range(n)]
     outs, lses, kinds = [], [], {"full": 0, "aligned": 0, "skipped": 0}
     for idx in range(n):
-        qi = q[:, :, blk[idx]].contiguous()
-        o_acc, lse_acc = ring.init_state(qi)
-        for step in range(n):
-            src = (idx - step) % n
-            part = ring.ring_step(qi, k[:, :, blk[src]].contiguous(), v[:, :, blk[src]].contiguous(),
-                                  src=src, idx=idx, is_causal=causal)
-            kinds["skipped" if part is None else "aligned" if causal and src == idx
-                  else "full"] += 1
-            if part is not None:
-                o_acc, lse_acc = ring._merge(o_acc, lse_acc, part[0], part[1])
+        blocks = world_blocks(k, v, idx, n)
+        o_acc, lse_acc, steps = ring.ring_partials(q[:, :, idx * sl:(idx + 1) * sl], blocks,
+                                                   idx=idx, is_causal=causal)
+        for (src, _, _), step in zip(blocks, steps):
+            kinds[step_kind(src, idx, causal, step is not None)] += 1
         o, lse = ring.finish(o_acc, lse_acc, q.dtype, True)
         outs.append(o)
         lses.append(lse)
@@ -5035,12 +5052,269 @@ def run_ring(results) -> dict:
     return out
 
 
-def run_server_parallel(results, server_ms: float) -> dict:
+def ring_grad_world(q, k, v, do, dlse, causal: bool, n: int = SP):
+    """A world of ``n``'s ring forward and backward on one card, rank after
+    rank (``ring_partials``, ``merge_cotangents``, ``ring_step_vjp``: the
+    code ``RingFunction`` runs): dq, dk and dv (fp32) of sum(o do) +
+    sum(lse dlse), and the kinds of steps.  Each step's dK/dV partial goes
+    into its block's owner's slice, where the backward's hops carry it."""
+    import torch
+    from sageattention_tpu_torch.parallel import ring
+
+    sl = q.shape[2] // n
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk, dv = (torch.zeros(k.shape, dtype=torch.float32, device=k.device) for _ in range(2))
+    kinds = {"full": 0, "aligned": 0, "skipped": 0}
+    for idx in range(n):
+        mine = slice(idx * sl, (idx + 1) * sl)
+        blocks = world_blocks(k, v, idx, n)
+        o_acc, lse_acc, steps = ring.ring_partials(q[:, :, mine], blocks, idx=idx,
+                                                   is_causal=causal, grad=True)
+        cts = ring.merge_cotangents(steps, o_acc, lse_acc, do[:, :, mine], dlse[:, :, mine])
+        for (src, _, _), step, ct in zip(blocks, steps, cts):
+            kinds[step_kind(src, idx, causal, step is not None)] += 1
+            if step is None:
+                continue
+            gq, gk, gv = ring.ring_step_vjp(step, *ct)
+            dq[:, :, mine] += gq
+            dk[:, :, src * sl:(src + 1) * sl] += gk
+            dv[:, :, src * sl:(src + 1) * sl] += gv
+        del steps, cts
+    return dq, dk, dv, kinds
+
+
+def exact_grads_by_head(q, k, v, do, dlse, causal: bool):
+    """Exact fp32 attention's dq, dk and dv of sum(o do) + sum(lse dlse),
+    through ``reference.attention_reference`` and ``torch.autograd`` one q
+    head at a time (all heads' [s, s] scores at once would not fit), dk and
+    dv summed over each kv head's group."""
+    import torch
+    from sageattention_tpu_torch.ops import reference
+
+    hq, hkv = q.shape[1], k.shape[1]
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk, dv = (torch.zeros(k.shape, dtype=torch.float32, device=k.device) for _ in range(2))
+    for h in range(hq):
+        kh = h // (hq // hkv)
+        xs = [x[:, i:i + 1].float().requires_grad_() for x, i in ((q, h), (k, kh), (v, kh))]
+        with torch.enable_grad():
+            o, lse = reference.attention_reference(*xs, is_causal=causal, return_lse=True)
+        g = torch.autograd.grad((o, lse), xs, (do[:, h:h + 1].float(), dlse[:, h:h + 1]))
+        dq[:, h:h + 1] = g[0]
+        dk[:, kh:kh + 1] += g[1]
+        dv[:, kh:kh + 1] += g[2]
+    return dq, dk, dv
+
+
+def sageattn_grads(q, k, v, do, dlse, causal: bool):
+    """One ``sageattn`` over the whole sequence, forward and backward: its
+    dq, dk and dv of sum(o do) + sum(lse dlse)."""
+    import torch
+    from sageattention_tpu_torch import core
+
+    xs = [x.detach().requires_grad_() for x in (q, k, v)]
+    with torch.enable_grad():
+        o, lse = core.sageattn(*xs, is_causal=causal, return_lse=True)
+    return torch.autograd.grad((o, lse), xs, (do, dlse))
+
+
+def grad_agreement(got, want) -> dict:
+    """dq, dk, dv: cosine and max-abs over the largest |entry| of ``want``,
+    on the host."""
+    from sageattention_tpu_torch.utils.compare import cosine_similarity
+
+    out = {}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        g, w = g.float().cpu(), w.float().cpu()
+        out[name] = {"cos": cosine_similarity(g, w),
+                     "rel_max_abs": float((g - w).abs().max() / w.abs().max())}
+    return out
+
+
+def run_ring_grad(results) -> dict:
+    """``ring_grad``: a world of 4's KV ring forward and backward, its ranks
+    and steps one after another on the card (:func:`ring_grad_world`), at
+    both ``RING_LAYERS``: the CogVideoX-2B layer (16 steps) and the
+    llm-8b-gqa prefill layer (causal: 4 aligned and 6 full steps, 6
+    skipped).  Seeded bf16 q, k, v, do and fp32 dlse; the loss sum(o do)
+    + sum(lse dlse).  Kernels 2, 3 and 1 launch once a step that ran in
+    the forward, 4, 7 and 8 once in its backward: the forward keeps each
+    step's K codes, so the backward quantizes only Q.  dq, dk and dv
+    against exact fp32 attention's (>= 0.999, and no more than 1e-4 below
+    one ``sageattn``'s over the whole sequence, which is printed beside),
+    the ring against that one op; on q heads 0-1 (and their kv heads) the
+    world through the kernels against the plain versions on the host, the
+    backward's kernel agreement limit (cosine >= 0.9999, max-abs <= 1e-2
+    of the largest entry).  Timed against one ``sageattn`` forward and
+    backward."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(32)
+    out = {}
+    for name, b, hq, hkv, s, d, causal, steps in RING_LAYERS:
+        q = torch.randn(b, hq, s, d, generator=gen, device="cuda").to(torch.bfloat16)
+        k = (torch.randn(b, hkv, s, d, generator=gen, device="cuda") + 0.5).to(torch.bfloat16)
+        v = torch.randn(b, hkv, s, d, generator=gen, device="cuda").to(torch.bfloat16)
+        do = torch.randn(b, hq, s, d, generator=gen, device="cuda").to(torch.bfloat16)
+        dlse = torch.randn(b, hq, s, generator=gen, device="cuda")
+        zero_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        *g_ring, kinds = ring_grad_world(q, k, v, do, dlse, causal)
+        torch.cuda.synchronize()
+        # above the inputs: the three gradients, one rank's residuals at a
+        # time and the temporaries
+        world_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        launches = sharded_launch_check(f"ring_grad {name}",
+                                        {n: steps for n in FORWARD + BACKWARD})
+        for n in FORWARD + BACKWARD:
+            results[n].setdefault("launches_by_path", {})[f"ring_grad {name}"] = launches[n]
+        require(kinds["full"] + kinds["aligned"] == steps
+                and kinds["skipped"] == SP * SP - steps, f"ring_grad {name}: steps {kinds}")
+        g_whole = sageattn_grads(q, k, v, do, dlse, causal)
+        vs_whole = grad_agreement(g_ring, g_whole)
+        g_exact = exact_grads_by_head(q, k, v, do, dlse, causal)
+        vs_exact = grad_agreement(g_ring, g_exact)
+        whole_vs_exact = grad_agreement(g_whole, g_exact)
+        del g_exact
+        # q heads 0-1 and their kv heads: the world through the kernels and
+        # through the plain versions (CPU tensors) on the same inputs
+        hs = (slice(0, 2), slice(0, max(1, 2 * hkv // hq)))
+        q2, do2, dlse2 = (x[:, hs[0]] for x in (q, do, dlse))
+        k2, v2 = k[:, hs[1]], v[:, hs[1]]
+        g_k2 = ring_grad_world(q2, k2, v2, do2, dlse2, causal)[:3]
+        t_p = time.perf_counter()
+        g_p2 = ring_grad_world(*(x.cpu() for x in (q2, k2, v2, do2, dlse2)), causal)[:3]
+        plain_s = time.perf_counter() - t_p
+        plain = grad_agreement(g_k2, g_p2)
+
+        def world():
+            ring_grad_world(q, k, v, do, dlse, causal)
+
+        def whole():
+            sageattn_grads(q, k, v, do, dlse, causal)
+
+        world_ms = cuda_ms(world, reps=3, warmup=1)
+        whole_ms = cuda_ms(whole, reps=3, warmup=1)
+        log(f"ring_grad {name} ({b}, {hq}/{hkv}, {s}, {d}, causal {causal}): steps {kinds}; "
+            f"vs exact {json.dumps(vs_exact)}; the whole sageattn vs exact "
+            f"{json.dumps(whole_vs_exact)}; vs the whole sageattn {json.dumps(vs_whole)}; "
+            f"kernels vs plain on q heads 0-1 {json.dumps(plain)} (plain world {plain_s:.1f} s "
+            f"on the host); the world's forward+backward in turn {world_ms:.3f} ms, one "
+            f"sageattn forward+backward {whole_ms:.3f} ms ({world_ms / whole_ms:.3f}x); the "
+            f"world's peak memory above its inputs {world_gb:.3f} GB")
+        require(all(r["cos"] >= 0.9999 and r["rel_max_abs"] <= 1e-2 for r in plain.values()),
+                f"ring_grad {name}: the kernels disagree with the plain versions")
+        require(all(vs_exact[g]["cos"] >= 0.999
+                    and vs_exact[g]["cos"] >= whole_vs_exact[g]["cos"] - 1e-4
+                    for g in vs_exact),
+                f"ring_grad {name}: the ring's gradients disagree with exact attention's")
+        out[name] = {"shape": [b, hq, hkv, s, d], "causal": causal, "steps": kinds,
+                     "vs_exact": vs_exact, "sageattn_vs_exact": whole_vs_exact,
+                     "vs_sageattn": vs_whole, "plain": plain, "plain_world_s": plain_s,
+                     "world_ms": world_ms, "sageattn_fwd_bwd_ms": whole_ms,
+                     "world_peak_gb_above_inputs": world_gb,
+                     "launches": {n: c for n, c in launches.items() if c}}
+        del q, k, v, do, dlse, g_ring, g_whole
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_trainer_parallel(results, mesh, train_ms: float) -> dict:
+    """``trainer_parallel``, inside ``server_parallel``'s world of one: the
+    CogVideoX-2B trainer at the ``trainer`` cell's geometry (depth 8, b 1,
+    seeded weights) through "sage_parallel" on ``mesh``, its gradients
+    averaged over "data" (``train.train(..., data=mesh)``).  One
+    flow-matching loss's parameter gradients against the "sage" trainer's
+    from the same weights and (t, eps) (cosine >= 0.99999; the key norm's
+    bias, 0 in exact arithmetic, held negligible beside its scale's); 1
+    warm-up and 3 timed steps (kernels 1-3 and 4, 7, 8 once a layer a
+    step); one ``save_checkpoint`` / ``restore_latest`` round trip into a
+    trainer of other weights, its parameters and AdamW state bit for bit
+    the saved ones."""
+    import tempfile
+
+    import torch
+    from sageattention_tpu_torch import models, serve, train
+    from sageattention_tpu_torch.utils.compare import cosine_similarity
+
+    cfg = serve.parallel_config(models.MODEL_CONFIGS["cogvideox-2b"].scaled(depth=TRAIN_DEPTH),
+                                mesh)
+    tr = train.load_trainer(cfg, device="cuda", seed=0, data=mesh)
+    x0, txt = serve.make_requests(cfg, 1, device="cuda", seed=5)[0]
+    t, eps = train.step_noise(x0, 6, 0)
+    grads = {}
+    try:
+        for backend in ("sage", "sage_parallel"):
+            models.set_mesh(mesh if backend == "sage_parallel" else None)
+            models.set_attention_backend(backend)
+            tr.model.zero_grad(set_to_none=True)
+            train.flow_loss(tr.model, x0, txt, t, eps).backward()
+            grads[backend] = {n: p.grad.detach().clone() for n, p in tr.model.named_parameters()}
+        tr.model.zero_grad(set_to_none=True)
+        coss, k_norm_bias = {}, 0.0
+        for name, g in grads["sage_parallel"].items():
+            ref = grads["sage"][name]
+            if name.endswith("k_norm.bias"):
+                scale = grads["sage"][name.replace("bias", "weight")].norm().item()
+                k_norm_bias = max(k_norm_bias, max(g.norm().item(), ref.norm().item()) / scale)
+                continue
+            coss[name] = cosine_similarity(g.float().cpu(), ref.float().cpu())
+        worst = min(coss, key=coss.get)
+        del grads
+        train.train(tr, x0, txt, 1, seed=6, data=mesh)  # warm-up, not counted
+        zero_counts()
+        res = train.train(tr, x0, txt, 3, seed=6, start=1, data=mesh)
+        launches = sharded_launch_check("trainer_parallel",
+                                        {n: TRAIN_DEPTH * 3 for n in FORWARD + BACKWARD})
+    finally:
+        models.set_attention_backend("sage")
+        models.set_mesh(None)
+    for n in FORWARD + BACKWARD:
+        results[n].setdefault("launches_by_path", {})["trainer_parallel"] = launches[n]
+    med = statistics.median(res["step_ms"])
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        t_c = time.perf_counter()
+        train.save_checkpoint(tr, ckpt_dir, 3)
+        other = train.load_trainer(cfg, device="cuda", seed=1)
+        start = train.restore_latest(other, ckpt_dir)
+        ckpt_s = time.perf_counter() - t_c
+        same_params = all(torch.equal(p, p_o) for p, p_o in zip(tr.model.parameters(),
+                                                                other.model.parameters()))
+        same_opt = all(torch.equal(st[key], st_o[key])
+                       for st, st_o in zip(tr.opt.state.values(), other.opt.state.values())
+                       for key in st)
+        ckpt_gb = sum(os.path.getsize(os.path.join(ckpt_dir, f))
+                      for f in os.listdir(ckpt_dir)) / 1e9
+    log(f"trainer_parallel: grads 'sage_parallel' vs 'sage' min cosine {coss[worst]:.7f} "
+        f"({worst}), k_norm.bias |g| / |g(k_norm.weight)| {k_norm_bias:.2e}; losses "
+        f"{[round(x, 6) for x in res['losses']]}, ms per step "
+        f"{[round(x, 3) for x in res['step_ms']]}, median {med:.3f} (trainer with 'sage' "
+        f"{train_ms:.3f}); checkpoint {ckpt_gb:.2f} GB saved and restored in {ckpt_s:.1f} s, "
+        f"resumes at step {start}, parameters equal {same_params}, AdamW state equal {same_opt}")
+    require(coss[worst] >= 0.99999 and k_norm_bias <= 1e-2,
+            "trainer_parallel: the 'sage_parallel' gradients disagree with 'sage'")
+    require(all(map(math.isfinite, res["losses"])), "trainer_parallel: a loss is not finite")
+    require(start == 4 and same_params and same_opt,
+            "trainer_parallel: the checkpoint round trip is not exact")
+    del tr, other
+    torch.cuda.empty_cache()
+    return {"grads_min_cosine_vs_sage": coss[worst], "min_cosine_param": worst,
+            "k_norm_bias_over_weight": k_norm_bias, "losses": res["losses"],
+            "step_ms": res["step_ms"], "median_step_ms": med, "trainer_median_step_ms": train_ms,
+            "checkpoint_gb": ckpt_gb, "checkpoint_round_trip_s": ckpt_s,
+            "launches": {n: c for n, c in launches.items() if c}}
+
+
+def run_server_parallel(results, server_ms: float, train_ms: float) -> dict:
     """``server_parallel``: a world of one over NCCL (a ``FileStore`` in a
     temporary directory, no port), ``make_mesh(1, 1, 1)``: the CogVideoX-2B
     server through "sage_parallel" (``serve.serve_parallel``, 2 requests x
     2 steps, kernels 1-3 once a layer a step) with its eps against "sage"
-    (cosine >= 0.9999), then the four sharded factories through the group
+    (cosine >= 0.9999), the trainer through it (:func:`run_trainer_parallel`),
+    then the four sharded factories through the group
     (``generate.sharded_serve``) at the ``sharded_paged`` geometry, paged
     and dense, 32 layers, 4 steps."""
     import tempfile
@@ -5055,65 +5329,70 @@ def run_server_parallel(results, server_ms: float) -> dict:
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         initialize_multihost(world_size=1, rank=0, store=dist.FileStore(os.path.join(tmp, "store"), 1))
-        mesh = make_mesh(1, 1, 1)
-        x = torch.full((4,), 3.0, device="cuda")
-        dist.all_reduce(x, group=mesh.get_group("seq"))
-        torch.cuda.synchronize()
-        require(bool((x == 3.0).all()), "server_parallel: an NCCL all_reduce in a world of one")
-        log(f"server_parallel: backend {dist.get_backend()}, world {dist.get_world_size()}, mesh "
-            f"{mesh}")
-        cfg = serve.parallel_config(models.MODEL_CONFIGS["cogvideox-2b"].scaled(depth=SERVER_DEPTH),
-                                    mesh)
-        model = serve.load_model(cfg, device="cuda", seed=0)
-        requests = serve.make_requests(cfg, 2, device="cuda", seed=1)
-        serve.serve_parallel(model, requests[:1], 1, mesh)  # warm-up, not counted
-        zero_counts()
-        res = serve.serve_parallel(model, requests, 2, mesh)
-        launches = sharded_launch_check("server_parallel",
-                                        {n: SERVER_DEPTH * 4 for n in FORWARD})
-        for n in FORWARD:
-            results[n].setdefault("launches_by_path", {})["server_parallel"] = launches[n]
-        lat, txt = requests[0]
-        t = torch.tensor([500], device="cuda")
-        with torch.no_grad():
-            models.set_mesh(mesh)
-            models.set_attention_backend("sage_parallel")
-            eps_p = model(lat, txt, t)
-            models.set_attention_backend("sage")
-            models.set_mesh(None)
-            eps_s = model(lat, txt, t)
-        cos = cosine_similarity(eps_p.float().cpu(), eps_s.float().cpu())
-        med = statistics.median(res["step_ms"])
-        log(f"server_parallel: ms per step {[round(x, 3) for x in res['step_ms']]}, median "
-            f"{med:.3f} (server with 'sage' {server_ms:.3f}); eps vs 'sage' cos {cos:.7f}")
-        require(cos >= 0.9999 and all(bool(torch.isfinite(o).all()) for o in res["outputs"]),
-                "server_parallel: the 'sage_parallel' eps disagree with 'sage'")
-        out["server"] = {"step_ms": res["step_ms"], "median_step_ms": med,
-                         "server_median_step_ms": server_ms, "eps_cos_vs_sage": cos}
-        del model
-        torch.cuda.empty_cache()
-        for paged in (True, False):
-            path = f"sharded_serve_{'paged' if paged else 'dense'}"
+        try:
+            mesh = make_mesh(1, 1, 1)
+            x = torch.full((4,), 3.0, device="cuda")
+            dist.all_reduce(x, group=mesh.get_group("seq"))
+            torch.cuda.synchronize()
+            require(bool((x == 3.0).all()), "server_parallel: an NCCL all_reduce in a world of one")
+            log(f"server_parallel: backend {dist.get_backend()}, world "
+                f"{dist.get_world_size()}, mesh {mesh}")
+            cfg = serve.parallel_config(
+                models.MODEL_CONFIGS["cogvideox-2b"].scaled(depth=SERVER_DEPTH), mesh)
+            model = serve.load_model(cfg, device="cuda", seed=0)
+            requests = serve.make_requests(cfg, 2, device="cuda", seed=1)
+            serve.serve_parallel(model, requests[:1], 1, mesh)  # warm-up, not counted
             zero_counts()
-            r = generate.sharded_serve(mesh, axis="seq", head_axis="heads", b=1, **SHARD_LAYER,
-                                       context=SHARD_CTX, gen=4, depth=LLM_DEPTH, paged=paged,
-                                       page_size=SHARD_PAGE, seed=5)
-            n = LLM_DEPTH * 4
-            want = ({"sage_paged_decode": n, "sage_paged_decode_owned": n} if paged
-                    else {"sage_decode": n})
-            launches = sharded_launch_check(f"server_parallel {path}", want)
-            require(all(bool(torch.isfinite(o).all()) for outs in r["outputs"] for o in outs)
-                    and r["lengths"].tolist() == [(SHARD_CTX - 4) // (SHARD_PAGE if paged else 1)
-                                                  * (SHARD_PAGE if paged else 1) + 4],
-                    f"server_parallel {path}: outputs not finite or lengths wrong")
-            log(f"server_parallel {path}: prefill {r['prefill_ms']:.3f} ms, ms per step "
-                f"{[round(x, 3) for x in r['step_ms']]}, cache {r['cache_bytes'] / 1e9:.2f} GB")
-            out[path] = {"prefill_ms": r["prefill_ms"], "step_ms": r["step_ms"],
-                         "cache_gb": r["cache_bytes"] / 1e9,
-                         "launches": {k: c for k, c in launches.items() if c}}
-            del r
+            res = serve.serve_parallel(model, requests, 2, mesh)
+            launches = sharded_launch_check("server_parallel",
+                                            {n: SERVER_DEPTH * 4 for n in FORWARD})
+            for n in FORWARD:
+                results[n].setdefault("launches_by_path", {})["server_parallel"] = launches[n]
+            lat, txt = requests[0]
+            t = torch.tensor([500], device="cuda")
+            with torch.no_grad():
+                models.set_mesh(mesh)
+                models.set_attention_backend("sage_parallel")
+                eps_p = model(lat, txt, t)
+                models.set_attention_backend("sage")
+                models.set_mesh(None)
+                eps_s = model(lat, txt, t)
+            cos = cosine_similarity(eps_p.float().cpu(), eps_s.float().cpu())
+            med = statistics.median(res["step_ms"])
+            log(f"server_parallel: ms per step {[round(x, 3) for x in res['step_ms']]}, median "
+                f"{med:.3f} (server with 'sage' {server_ms:.3f}); eps vs 'sage' cos {cos:.7f}")
+            require(cos >= 0.9999 and all(bool(torch.isfinite(o).all()) for o in res["outputs"]),
+                    "server_parallel: the 'sage_parallel' eps disagree with 'sage'")
+            out["server"] = {"step_ms": res["step_ms"], "median_step_ms": med,
+                             "server_median_step_ms": server_ms, "eps_cos_vs_sage": cos}
+            del model
             torch.cuda.empty_cache()
-        dist.destroy_process_group()
+            t_phase = time.perf_counter()
+            out["trainer"] = run_trainer_parallel(results, mesh, train_ms)
+            log(f"trainer_parallel phase: {time.perf_counter() - t_phase:.1f} s")
+            for paged in (True, False):
+                path = f"sharded_serve_{'paged' if paged else 'dense'}"
+                zero_counts()
+                r = generate.sharded_serve(mesh, axis="seq", head_axis="heads", b=1, **SHARD_LAYER,
+                                           context=SHARD_CTX, gen=4, depth=LLM_DEPTH, paged=paged,
+                                           page_size=SHARD_PAGE, seed=5)
+                n = LLM_DEPTH * 4
+                want = ({"sage_paged_decode": n, "sage_paged_decode_owned": n} if paged
+                        else {"sage_decode": n})
+                launches = sharded_launch_check(f"server_parallel {path}", want)
+                unit = SHARD_PAGE if paged else 1
+                require(all(bool(torch.isfinite(o).all()) for outs in r["outputs"] for o in outs)
+                        and r["lengths"].tolist() == [(SHARD_CTX - 4) // unit * unit + 4],
+                        f"server_parallel {path}: outputs not finite or lengths wrong")
+                log(f"server_parallel {path}: prefill {r['prefill_ms']:.3f} ms, ms per step "
+                    f"{[round(x, 3) for x in r['step_ms']]}, cache {r['cache_bytes'] / 1e9:.2f} GB")
+                out[path] = {"prefill_ms": r["prefill_ms"], "step_ms": r["step_ms"],
+                             "cache_gb": r["cache_bytes"] / 1e9,
+                             "launches": {k: c for k, c in launches.items() if c}}
+                del r
+                torch.cuda.empty_cache()
+        finally:  # a failed phase must not leave NCCL's threads holding the process
+            dist.destroy_process_group()
     return out
 
 
@@ -6121,12 +6400,13 @@ def main() -> int:
     hd256["bias_trainer"]["exact_route_step_ms"] = time_bias_exact_step(HD256_LAYER, seed=28)
     log(f"head dim 256 bias trainer phase: {time.perf_counter() - t_phase:.1f} s")
     for name, fn in (("sharded_paged", run_sharded_paged), ("sharded_dense", run_sharded_dense),
-                     ("ring", run_ring)):
+                     ("ring", run_ring), ("ring_grad", run_ring_grad)):
         t_phase = time.perf_counter()
         parallel[name] = fn(results)
         log(f"{name} phase: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
-    parallel["server_parallel"] = run_server_parallel(results, servers["server"]["median_step_ms"])
+    parallel["server_parallel"] = run_server_parallel(results, servers["server"]["median_step_ms"],
+                                                      trainer["median_step_ms"])
     log(f"server_parallel phase: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     time_kernels(gen, results)

@@ -10,7 +10,9 @@ Backends (HND [b, h, s, d] tensors):
   "sage_fp8"   -- ``sageattn_qk_int8_pv_fp8``: fp8 e4m3 V codes with
                   per-channel scales (the V quantizer, then the same kernel)
   "sage_parallel" -- ``parallel.make_parallel_sageattn`` over the mesh
-                  :func:`set_mesh` bound: data x ring x Ulysses, forward only
+                  :func:`set_mesh` bound: data x ring x Ulysses, differentiable
+                  (every rank runs the replicated model on the global view, so
+                  its parameter gradients come out the same on every rank)
   "reference"  -- exact fp32 attention (``ops.reference``)
 
 The registry is process-wide state, as in the JAX package: tests that

@@ -3,7 +3,7 @@ counterpart of the JAX package's ``parallel`` (the same names).
 
 ``make_mesh`` names the ("data", "seq", "heads") dims of a device mesh over
 the process group; ``ring``, ``ulysses`` and ``make_parallel_sageattn``
-split attention over it (forward only in the port); ``decode`` shards the
+split attention over it, differentiable end to end; ``decode`` shards the
 quantized KV cache for serving.  Importing it starts nothing.
 """
 

@@ -10,13 +10,21 @@ coordinate and its sequence block by its ("seq", "heads") coordinate,
 seq-major as the JAX spec ``P(data, None, (seq, heads), None)`` lays it
 out; runs Ulysses over "heads" with the ring over "seq" as its inner
 attention (or either alone); and all-gathers the blocks back.  Axes of
-size 1, or that the mesh lacks, compose away.  Forward only in the port.
+size 1, or that the mesh lacks, compose away.
+
+Differentiable end to end, as the JAX function is ("a training step can
+jax.grad straight through this function"): the leaves are ``sageattn``'s
+differentiable op or the ring's (:class:`ring.RingFunction`), Ulysses'
+all-to-alls transpose to the inverse all-to-alls, and the global view's
+cut and all-gather to each other (``mesh.global_view``), so each rank's
+gradient of q, k, v is the whole global gradient, identical on every rank.
+Every rank must call backward.
 """
 
 from __future__ import annotations
 
 from sageattention_tpu_torch import core
-from sageattention_tpu_torch.parallel.mesh import axis_info, global_view, refuse_grad
+from sageattention_tpu_torch.parallel.mesh import axis_info, global_view
 from sageattention_tpu_torch.parallel.ring import ring_sageattn
 from sageattention_tpu_torch.parallel.ulysses import ulysses_sageattn
 
@@ -45,7 +53,6 @@ def make_parallel_sageattn(mesh, *, data_axis: str | None = "data",
                              return_lse=return_lse, **attn_kwargs)
 
     def fn(q, k, v):
-        refuse_grad(q, k, v)
         if tensor_layout == "NHD":
             q, k, v = (x.transpose(1, 2) for x in (q, k, v))
         ql, kl, vl = take(q), take(k), take(v)

@@ -48,7 +48,19 @@ import torch
 import torch.distributed as dist
 
 from sageattention_tpu_torch import kvcache
-from sageattention_tpu_torch.parallel.mesh import axis_info, refuse_grad, require_axis
+from sageattention_tpu_torch.parallel.mesh import axis_info, require_axis
+
+
+def refuse_grad(*tensors) -> None:
+    """The sharded decoders have no gradient: under grad with an input that
+    requires one they raise, as ``jax.grad`` cannot pass the JAX package's
+    decode kernels."""
+    if torch.is_grad_enabled() and any(x is not None and x.requires_grad for x in tensors):
+        raise NotImplementedError(
+            "the sharded decoders have no gradient: the JAX package's decode kernels "
+            "define no VJP (ROADMAP limits, 'gradients through the sharded decoders'); "
+            "call them under torch.no_grad()"
+        )
 
 
 def merge_over_group(o, m, l, group, out_dtype=None):

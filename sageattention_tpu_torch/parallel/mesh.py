@@ -100,16 +100,6 @@ def require_axis(mesh: DeviceMesh, name: str) -> None:
         raise ValueError(f"mesh has no axis {name!r} (axes: {mesh.mesh_dim_names})")
 
 
-def refuse_grad(*tensors) -> None:
-    """The parallel entry points are forward-only in the port."""
-    if torch.is_grad_enabled() and any(x is not None and x.requires_grad for x in tensors):
-        raise NotImplementedError(
-            "the parallel entry points are forward-only: gradients through the ring, "
-            "Ulysses and make_parallel_sageattn (and DP training) are ROADMAP module "
-            "item 1; call them under torch.no_grad()"
-        )
-
-
 def take_shard(x: torch.Tensor, dim: int, n: int, i: int) -> torch.Tensor:
     """Block ``i`` of ``n`` equal blocks of ``x`` along ``dim``."""
     if n == 1:
@@ -126,22 +116,49 @@ def global_view(mesh, data_axis: str | None, seq_axes):
     its ``data_axis`` coordinate, the sequence by its coordinates on
     ``seq_axes``, the first the slowest (JAX's ``P(data, None, seq_axes)``);
     ``give(x)`` all-gathers every rank's blocks back into the global
-    tensor."""
+    tensor.
+
+    Both are differentiable and each is the other's transpose.  Every rank
+    holds the same replicated global tensors, so ``give``'s cotangent is
+    the same on every rank and goes back as this rank's own block of it,
+    with no sum; ``take``'s goes back as the all-gather of every rank's
+    block.  Each rank's gradient of a global input is then the whole
+    global gradient, what ``jax.grad`` of the shard_mapped function gives,
+    and not n times it (``torch.distributed.nn``'s all-gather transposes
+    to a reduce-scatter sum, which would)."""
     dgroup, dn, di = axis_info(mesh, data_axis)
     seq = [axis_info(mesh, a) for a in seq_axes]
     n, i = 1, 0
     for _, an, ai in seq:
         n, i = n * an, i * an + ai
 
-    def take(x):
+    def cut(x):
         return take_shard(take_shard(x, 0, dn, di), 2, n, i).contiguous()
 
-    def give(x):
+    def gather(x):
         for group, an, _ in reversed(seq):  # the fastest axis first
             x = gather_shards(x, 2, group, an)
         return gather_shards(x, 0, dgroup, dn)
 
-    return take, give
+    return (lambda x: with_transpose(x, cut, gather),
+            lambda x: with_transpose(x, gather, cut))
+
+
+def with_transpose(x: torch.Tensor, fn, transpose) -> torch.Tensor:
+    """``fn(x)``, differentiable with ``transpose(g)`` as its backward: a
+    collective whose transpose is another one."""
+    return _Transposed.apply(x, fn, transpose)
+
+
+class _Transposed(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, fn, transpose):
+        ctx.transpose = transpose
+        return fn(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.transpose(g), None, None
 
 
 def gather_shards(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
@@ -153,3 +170,25 @@ def gather_shards(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
     parts = [torch.empty_like(x) for _ in range(n)]
     dist.all_gather(parts, x, group=group)
     return torch.cat(parts, dim=dim)
+
+
+def sum_shards(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+    """The reduce-scatter that transposes :func:`gather_shards`: block i of
+    ``x`` along ``dim`` summed over the ranks of ``group`` lands on rank i
+    (one all-to-all, the blocks added in rank order)."""
+    if n == 1:
+        return x
+    blocks = x.movedim(dim, 0)
+    blocks = blocks.reshape(n, blocks.shape[0] // n, *blocks.shape[1:]).contiguous()
+    out = torch.empty_like(blocks)
+    dist.all_to_all_single(out, blocks, group=group)
+    return out.sum(dim=0).movedim(0, dim)
+
+
+def gather_blocks(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+    """:func:`gather_shards` of blocks that differ from rank to rank (an
+    all-gather context's K/V), differentiable: each rank's cotangent of
+    the gathered tensor is its own, and block i of their sum is rank i's
+    gradient (``lax.all_gather``'s transpose, a reduce-scatter)."""
+    return with_transpose(x, lambda t: gather_shards(t, dim, group, n),
+                          lambda g: sum_shards(g, dim, group, n))

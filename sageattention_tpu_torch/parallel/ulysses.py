@@ -6,7 +6,13 @@ dim from the sequence to the heads, so that each rank runs whole-sequence
 attention on a subset of the heads, and a second swaps back.  Because each
 rank sees the whole sequence, every single-card option (causal, masks,
 the Q/K options) applies unchanged.  Heads and kv heads must divide by the
-group's size.  Forward only in the port.
+group's size.
+
+Differentiable, as in the JAX package: the local attention is
+``sageattn``'s differentiable op (or the ring, which is), and each
+all-to-all's transpose is the inverse all-to-all (:func:`seq_to_heads` and
+:func:`heads_to_seq` are each other's backward).  Every rank of the group
+must call backward.
 """
 
 from __future__ import annotations
@@ -15,8 +21,8 @@ import torch
 import torch.distributed as dist
 
 from sageattention_tpu_torch import core
-from sageattention_tpu_torch.parallel.mesh import (axis_info, global_view, refuse_grad,
-                                                    require_axis)
+from sageattention_tpu_torch.parallel.mesh import (axis_info, global_view, require_axis,
+                                                    with_transpose)
 
 
 def _local_attention(q, k, v, *, is_causal, sm_scale, return_lse, **attn_kwargs):
@@ -35,20 +41,32 @@ def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
-def seq_to_heads(x: torch.Tensor, group, n: int) -> torch.Tensor:
-    """[b, h, s/n, ...] sequence blocks -> [b, h/n, s, ...] head blocks."""
+def _seq_to_heads(x: torch.Tensor, group, n: int) -> torch.Tensor:
     b, h, s = x.shape[:3]
     rest = x.shape[3:]
     y = _all_to_all(x.reshape(b, n, h // n, s, *rest).movedim(1, 0), group)  # [n(src), b, h/n, s, ..]
     return y.movedim(0, 2).reshape(b, h // n, n * s, *rest)
 
 
-def heads_to_seq(x: torch.Tensor, group, n: int) -> torch.Tensor:
-    """[b, h/n, s, ...] head blocks -> [b, h, s/n, ...] sequence blocks."""
+def _heads_to_seq(x: torch.Tensor, group, n: int) -> torch.Tensor:
     b, hn, s = x.shape[:3]
     rest = x.shape[3:]
     y = _all_to_all(x.reshape(b, hn, n, s // n, *rest).movedim(2, 0), group)  # [n(src), b, ..]
     return y.movedim(0, 1).reshape(b, n * hn, s // n, *rest)
+
+
+def seq_to_heads(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    """[b, h, s/n, ...] sequence blocks -> [b, h/n, s, ...] head blocks;
+    differentiable, its backward :func:`heads_to_seq`."""
+    return with_transpose(x, lambda t: _seq_to_heads(t, group, n),
+                          lambda g: _heads_to_seq(g, group, n))
+
+
+def heads_to_seq(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    """[b, h/n, s, ...] head blocks -> [b, h, s/n, ...] sequence blocks;
+    differentiable, its backward :func:`seq_to_heads`."""
+    return with_transpose(x, lambda t: _heads_to_seq(t, group, n),
+                          lambda g: _seq_to_heads(g, group, n))
 
 
 def ulysses_sageattn(q, k, v, group=None, *, is_causal: bool = False, sm_scale=None,
@@ -58,7 +76,6 @@ def ulysses_sageattn(q, k, v, group=None, *, is_causal: bool = False, sm_scale=N
     ``group``.  ``inner(qg, kg, vg)`` runs the attention of the swapped
     [b, h/n, S, d] blocks (default the local ``sageattn``; the API passes
     the ring); it must honour ``return_lse`` with an LSE [b, h/n, S]."""
-    refuse_grad(q, k, v)
     n = dist.get_world_size(group)
     hq, hkv = q.shape[1], k.shape[1]
     if hq % n or hkv % n:
@@ -89,7 +106,6 @@ def make_ulysses_attention(mesh, axis_name: str = "heads", *, is_causal: bool = 
     return_lse = bool(attn_kwargs.pop("return_lse", False))
 
     def fn(q, k, v):
-        refuse_grad(q, k, v)
         out = ulysses_sageattn(take(q), take(k), take(v), group, is_causal=is_causal,
                                return_lse=return_lse, **attn_kwargs)
         return tuple(map(give, out)) if return_lse else give(out)

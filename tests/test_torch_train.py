@@ -18,9 +18,15 @@ key norm's bias, whose exact gradient is 0.  AdamW is
 held to optax ``adamw`` on the same parameters and the same numpy
 gradients, so that Adam's first step, close to lr * sign(g), does not turn
 gradient round-off into differences of 2 lr: within 1e-6.
+
+Checkpoint and resume (``train.save_checkpoint`` / ``restore_latest``,
+``examples/train_dit.py``'s ``--ckpt_dir`` / ``--ckpt_every``) on the
+port alone: a resumed run's losses and parameters equal an uninterrupted
+one's bit for bit; only the two newest checkpoints stay.
 """
 
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -202,6 +208,55 @@ def test_train_steps_on_cpu():
     assert runs[True][2] < runs[True][1] < runs[True][0]
     # a new draw every step after the first, from the same generator
     assert runs[False][0] == runs[True][0] and runs[False][1:] != runs[True][1:]
+
+
+def _trainer(seed: int = 0):
+    return train.load_trainer(_tiny(models.MODEL_CONFIGS), device="cpu", dtype=torch.float32,
+                              seed=seed)
+
+
+def test_resume_from_checkpoint_is_bit_exact(tmp_path):
+    """4 uninterrupted steps equal 2 steps, ``save_checkpoint``, a new
+    trainer (other weights), ``restore_latest`` and 2 more: the same losses
+    and parameters bit for bit (each step draws its (t, eps) from the seed
+    and the step, so the resumed run draws what the whole one did)."""
+    x0, txt, _, _ = (torch.from_numpy(a) for a in _batch())
+    models.set_attention_backend("sage")
+    whole = _trainer()
+    full = train.train(whole, x0, txt, 4, seed=1)
+    first = _trainer()
+    head = train.train(first, x0, txt, 2, seed=1)
+    train.save_checkpoint(first, tmp_path, 1)
+    resumed = _trainer(seed=9)
+    start = train.restore_latest(resumed, tmp_path)
+    assert start == 2
+    tail = train.train(resumed, x0, txt, 2, seed=1, start=start)
+    assert head["losses"] + tail["losses"] == full["losses"]
+    for (name, p), (_, p_r) in zip(whole.model.named_parameters(),
+                                   resumed.model.named_parameters()):
+        assert torch.equal(p, p_r), name
+    for st, st_r in zip(whole.opt.state.values(), resumed.opt.state.values()):
+        assert all(torch.equal(st[k], st_r[k]) for k in st)
+
+
+def test_checkpoints_keep_the_two_newest(tmp_path):
+    """``train(ckpt_dir=, ckpt_every=)`` saves after every ``ckpt_every``-th
+    step and the last, and only the two newest stay (orbax's
+    ``max_to_keep=2``); ``restore_latest`` goes on after the newest."""
+    x0, txt, _, _ = (torch.from_numpy(a) for a in _batch())
+    models.set_attention_backend("sage")
+    tr = _trainer()
+    train.train(tr, x0, txt, 5, seed=1, ckpt_dir=tmp_path, ckpt_every=2)
+    assert sorted(os.listdir(tmp_path)) == ["step_00000003.pt", "step_00000004.pt"]
+    assert train.restore_latest(_trainer(), tmp_path) == 5
+
+
+def test_restore_from_an_empty_directory_starts_at_zero(tmp_path):
+    tr = _trainer()
+    before = {n: p.detach().clone() for n, p in tr.model.named_parameters()}
+    assert train.restore_latest(tr, tmp_path) == 0
+    assert train.restore_latest(tr, tmp_path / "missing") == 0
+    assert all(torch.equal(p, before[n]) for n, p in tr.model.named_parameters())
 
 
 def test_load_trainer_without_gpu_raises():
