@@ -270,7 +270,27 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    table's shapes, beside the wrapper times (``ms``) of phases 6, 7d and
    10; kernel 4 at every group and form too (``rows_centry_ms``), and a
    per_subtile layer's Q/K preparation, its three C-entry calls queued
-   together (``per_subtile_prep_centry_ms``).
+   together (``per_subtile_prep_centry_ms``);
+12. the dual-stream and cross-attention DiTs, speculative decoding and the
+   SDPA patch, each path with its counts zeroed just before and read just
+   after: with phase 2's checks, kernel 1 at HunyuanVideo's joint attention
+   (1, 24, 119,056, 128; 2 heads, the plain version on 3,072 rows), at
+   Wan2.1's cross-attention (32,760 queries x 512 text keys) and its
+   self-attention (32,760 tokens), bf16 and e4m3 V, and kernels 9 and 11
+   at the verify step's t_q = 5; after the servers of phase 3,
+   ``server_dual`` (``DualStreamVideoDiT`` at HunyuanVideo's widths, depth
+   40 cut to 4: 1 request x 2 steps with "sage", 1 with "sdpa") and
+   ``server_cross`` (``CrossAttnVideoDiT`` at Wan2.1's widths and depth 30:
+   2 requests x 2 steps with "sage", 1 each with "sage_fp8" and "sdpa"),
+   eps against "sdpa" >= 0.999, and ``patched_sdpa`` (CogVideoX-2B on the
+   "sdpa" backend under ``interop.patch_torch_sdpa``: kernels 2, 3, 1 once
+   a layer and eps bit for bit the "sage" backend's; after ``undo()`` none
+   of them); with the LLM servers of phase 5, ``llm_speculate`` /
+   ``_paged`` (b 1, a 4,096-token prompt, K = 4, 64 tokens) beside plain
+   greedy decoding (``llm_greedy`` / ``_paged``), drafts accepted >= 0.75
+   and the t_q = 5 extend blocks against exact attention at depth 2; with
+   phase 6's timings, each new layer through ``sageattn`` and kernel 1
+   alone beside SDPA (PyTorch's pick of backend, and the flash backend).
 
 It prints one ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside the
@@ -2903,7 +2923,8 @@ def run_llm(results, profile: bool) -> dict:
     window 4096), b 2, an 8192-token prompt and 32 decode steps: over the
     dense cache after one windowed prefill (the JAX model's own), over the
     paged cache after 512-token extend blocks, which keep kernel 12's
-    extend path on a server."""
+    extend path on a server.  Speculative decoding (:func:`run_speculate`)
+    runs on (a)-(c)'s model."""
     import torch
     from sageattention_tpu_torch import generate, models
 
@@ -2930,6 +2951,9 @@ def run_llm(results, profile: bool) -> dict:
         servers[path] = run_llm_server(results, model, profile, path=path, cache=cache,
                                        bits=bits, page_table=pt, **common)
         log(f"llm server phase {path}: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    servers["llm_speculate"] = run_speculate(results, model)
+    log(f"llm_speculate phase: {time.perf_counter() - t_phase:.1f} s")
     del model
     torch.cuda.empty_cache()
 
@@ -5424,17 +5448,19 @@ WIDE_SERVE_LAYERS = 4
 WIDE_SERVE_STEPS = 32
 
 
-def drive(results, path: str, want: dict, fn):
+def drive(results, path: str, want, fn):
     """A main path: every count zeroed just before ``fn`` runs and read just
-    after; each kernel of ``want`` must have launched exactly that many
-    times (at least once) and every other kernel none.  Returns ``fn``'s
-    result."""
+    after; each kernel of ``want`` (a dict, or a function of ``fn``'s
+    result that gives it) must have launched exactly that many times (at
+    least once) and every other kernel none.  Returns ``fn``'s result."""
     import torch
 
     zero_counts()
     out = fn()
     torch.cuda.synchronize()
     got = read_counts()
+    if callable(want):
+        want = want(out)
     log(f"path {path} launches: { {n: c for n, c in got.items() if c} }")
     for name, n in got.items():
         require(n == want.get(name, 0), f"{path}: {name} launched {n} times, want "
@@ -6178,6 +6204,400 @@ def run_wide(results) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 12: the dual-stream and cross-attention DiTs, speculative decoding,
+# the SDPA patch
+# --------------------------------------------------------------------------
+
+HUNYUAN_CUT = 4  # HunyuanVideo's 40 dual-stream layers, cut to 4 for time
+SPEC_K = 4  # draft tokens a round
+SPEC_PROMPT = 4096
+SPEC_GEN = 64
+# the caches' rows: the prompt, the tokens and a round's K + 1 rows past the
+# last, rounded up to whole pages (a dense cache above 4,096 rows takes a
+# multiple of 128)
+SPEC_MAX_LEN = 5120
+# each video model's V quantizers with fp8 V: Wan2.1's self-attention V (an
+# 8.4 MB slab a head) takes the two-pass kernels, its 512 text tokens' V
+# the single-pass kernel
+CROSS_FP8 = FORWARD + FORWARD + ("v_channel_stats", "quant_v_apply", "quant_v_per_channel") \
+    + WIDEN + WIDEN
+
+
+def per_layer(kernels: tuple, n: int) -> dict:
+    """{kernel: n times as often as ``kernels`` names it}."""
+    return {k: n * kernels.count(k) for k in set(kernels)}
+
+
+def compare_fwd_rows(name, q, k, v, hs, rows, vnames, results) -> dict:
+    """Kernel 1 at a model's attention shape against its plain version on
+    the query heads ``hs`` and the query ``rows`` (None: all): the kernel
+    runs on every row of those heads, the plain version on the given rows
+    alone, which it computes row by row as the kernel does (per-token Q
+    scales, the whole K); ``vnames`` picks the V types of ``v_operands``."""
+    import torch
+    from sageattention_tpu_torch import core
+    from sageattention_tpu_torch.ops import attention_cuda, quant_cuda
+    from sageattention_tpu_torch.utils.compare import cosine_similarity
+
+    q, k, v = (x[:, list(hs)].contiguous() for x in (q, k, v))
+    k_i8, k_sc, _ = quant_cuda.quant_k_fused_mean(k, group=128)
+    fold = q.shape[-1] ** -0.5 * core.LOG2E
+    qr = q if rows is None else q[:, :, rows].contiguous()
+    out = {}
+    for vname, vx, vs, vm in v_operands(v):
+        if vname not in vnames:
+            continue
+        o, l2 = attention_cuda.sage_attention_fwd(q, k_i8, k_sc, vx, vs, vm, is_causal=False,
+                                                  q_fold=fold, return_lse=True)
+        o_p, l2_p = attention_cuda.sage_attention_plain(qr, k_i8, k_sc, vx, vs, vm,
+                                                        is_causal=False, q_fold=fold,
+                                                        return_lse=True)
+        torch.cuda.synchronize()
+        if rows is not None:
+            o, l2 = o[:, :, rows], l2[:, :, rows]
+        cos = cosine_similarity(o.float().cpu(), o_p.float().cpu())
+        err = (o.float() - o_p.float()).abs().max().item()
+        lerr = (l2 - l2_p).abs().max().item()
+        finite = bool(torch.isfinite(o).all()) and bool(torch.isfinite(l2).all())
+        log(f"attention {name} {tuple(q.shape)} x {tuple(k.shape)} V {vname}: cos {cos:.7f}, "
+            f"max abs {err:.3e}, lse2 max abs {lerr:.3e} (heads {tuple(hs)}, "
+            f"{'all rows' if rows is None else f'{qr.shape[2]} rows'}); finite {finite}")
+        require(finite and cos >= 0.9999 and err <= 2e-2 and lerr <= 1e-3,
+                f"attention {name} V {vname} disagrees with its plain version")
+        out[vname] = {"cos": cos, "max_abs_err": err, "lse2_max_abs": lerr}
+        r = results["sage_attn_fwd"].setdefault("model_shapes", {})
+        r[f"{name} {vname}"] = out[vname]
+    return out
+
+
+def check_video_attention(results) -> dict:
+    """Kernel 1 at the new video models' shapes, from a generator of its own:
+    HunyuanVideo's joint attention (1, 24, 119,056, 128) on 2 heads, the
+    plain version on 3,072 rows (its [rows, 119,056] scores; all of them
+    would be 57 GB a head) at the start, the middle and the ragged end;
+    Wan2.1's cross-attention, 32,760 video queries against 512 text keys,
+    and its self-attention over the 32,760 video tokens, each with bf16 V
+    and the e4m3 codes of "sage_fp8"."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(22)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    s = 256 + 118800
+    rows = torch.cat([torch.arange(0, 1024), torch.arange(s // 2 - 512, s // 2 + 512),
+                      torch.arange(s - 1024, s)]).cuda()
+    out = {"dual": compare_fwd_rows("hunyuanvideo joint", randn(1, 2, s, 128),
+                                    randn(1, 2, s, 128), randn(1, 2, s, 128), (0, 1), rows,
+                                    ("bf16",), results)}
+    q = randn(1, 12, 32760, 128)
+    out["cross"] = compare_fwd_rows("wan2.1 cross", q, randn(1, 12, 512, 128),
+                                    randn(1, 12, 512, 128), (0, 6, 11), None,
+                                    ("bf16", "fp8"), results)
+    out["self"] = compare_fwd_rows("wan2.1 self", q, randn(1, 12, 32760, 128),
+                                   randn(1, 12, 32760, 128), (0, 11), None, ("bf16", "fp8"),
+                                   results)
+    return out
+
+
+def check_spec_decode(results) -> None:
+    """Kernels 9 and 11 at speculation's verify step: t_q = K + 1 query rows
+    of llm-8b-gqa (b 1, 32/8 heads of 128) over the int8 cache of a 4,096-
+    token prompt, dense and in a scrambled pool of 1,024-token pages, at a
+    round's first and last lengths, from a generator of their own."""
+    import torch
+    from sageattention_tpu_torch.ops import decode_cuda as dc
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(23)
+    t_q, S = SPEC_K + 1, SPEC_MAX_LEN
+    for ln in (SPEC_PROMPT + t_q, SPEC_PROMPT + SPEC_GEN + SPEC_K):
+        cache = random_cache(gen, (1, 8), S, 128, False)
+        q = torch.randn(1, 32, t_q, 128, generator=gen, device="cuda").to(torch.bfloat16)
+        L = torch.tensor([ln], dtype=torch.int32, device="cuda")
+        res = dc.sage_decode_attention(q, *cache, L, return_state=True)
+        res_p = dc.sage_decode_attention_plain(q, *cache, L, return_state=True)
+        compare_decode(f"speculation verify dense t_q {t_q} ({ln},)", res, res_p, results,
+                       "sage_decode")
+        pool, table = paged_from_dense(gen, cache, LLM_PAGE)
+        res = dc.sage_paged_decode_attention(q, *pool, table, L, return_state=True)
+        res_p = dc.sage_paged_decode_attention_plain(q, *pool, table, L, return_state=True)
+        compare_decode(f"speculation verify paged t_q {t_q} ({ln},)", res, res_p, results,
+                       "sage_paged_decode")
+
+
+def step_eps(model, lat, txt, t, backend: str):
+    """eps of one forward with ``backend``, and its time (CUDA events)."""
+    import torch
+    from sageattention_tpu_torch import models
+
+    models.set_attention_backend(backend)
+    a, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with torch.no_grad():
+        a.record()
+        eps = model(lat, txt, t)
+        e.record()
+    e.synchronize()
+    models.set_attention_backend("sage")
+    return eps, a.elapsed_time(e)
+
+
+def run_video_server(results, *, path: str, model: str, cls: str, depth: int, n_req: int,
+                     steps: dict, launched: dict) -> dict:
+    """A server of a dual-stream or cross-attention DiT at full width: the
+    model at ``depth`` with seeded weights, ``n_req`` requests, then for
+    each (backend, steps) of ``steps`` that many denoise steps of the first
+    ``n_req`` requests (one request for all but the first backend), each
+    backend's run a path of its own (``<path>`` for the first, then
+    ``<path>_<backend>``) launching per layer-step the kernels of
+    ``launched[backend]``.  eps of every backend against "sdpa" on one
+    step: cosine >= 0.999."""
+    import torch
+    from sageattention_tpu_torch import models, serve
+    from sageattention_tpu_torch.utils.compare import cosine_similarity
+
+    cfg = models.MODEL_CONFIGS[model]
+    full = cfg.depth
+    cfg = cfg.scaled(depth=depth)
+    log(f"server {path}: {cls} {cfg.name} seq {cfg.seq_len} ({cfg.text_len} text + "
+        f"{cfg.video_tokens} video tokens) hidden {cfg.hidden} heads {cfg.heads}x{cfg.head_dim} "
+        f"depth {depth} of {full}{' (cut for time)' if depth < full else ''}, bf16")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    mdl = serve.load_model(cfg, device="cuda", seed=0, model_cls=getattr(models, cls))
+    requests = serve.make_requests(cfg, n_req, device="cuda", seed=1)
+    t999 = torch.tensor([999], device="cuda")
+    for backend in steps:  # warm-up (allocator, cuBLAS, SDPA), not counted
+        step_eps(mdl, *requests[0], t999, backend)
+    torch.cuda.synchronize()
+    log(f"server {path} set-up + warm-up: {time.perf_counter() - t0:.1f} s")
+    cell = {"model": model, "class": cls, "depth": depth, "full_depth": full,
+            "seq": cfg.seq_len, "backends": {}}
+    for i, (backend, n) in enumerate(steps.items()):
+        p = path if i == 0 else f"{path}_{backend}"
+        reqs = requests if i == 0 else requests[:1]
+        models.set_attention_backend(backend)
+        torch.cuda.reset_peak_memory_stats()
+        out = drive(results, p, per_layer(launched[backend], depth * len(reqs) * n),
+                    lambda: serve.serve(mdl, reqs, n))
+        models.set_attention_backend("sage")
+        for lat in out["outputs"]:
+            require(lat.shape == reqs[0][0].shape and bool(torch.isfinite(lat).all()),
+                    f"server {p}: output is not finite or has the wrong shape")
+        ms = out["step_ms"]
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        log(f"server {p}: {len(reqs)} requests x {n} steps with {backend!r}, ms per step "
+            f"{[round(x, 3) for x in ms]}, median {statistics.median(ms):.3f}; peak memory "
+            f"{peak:.2f} GB")
+        cell["backends"][backend] = {"path": p, "step_ms": ms,
+                                     "median_step_ms": statistics.median(ms), "peak_gb": peak}
+    t = torch.tensor([500], device="cuda")
+    eps_r, _ = step_eps(mdl, *requests[0], t, "sdpa")
+    for backend in steps:
+        if backend == "sdpa":
+            continue
+        eps, _ = step_eps(mdl, *requests[0], t, backend)
+        cos = cosine_similarity(eps.float().cpu(), eps_r.float().cpu())
+        log(f"server {path} eps, {backend!r} vs 'sdpa' (depth {depth}, full width): cos "
+            f"{cos:.6f}")
+        require(cos >= 0.999, f"server {path}: {backend!r} eps disagrees with 'sdpa'")
+        cell["backends"][backend]["eps_cosine_vs_sdpa"] = cos
+    b = cell["backends"]
+    cell["sage_over_sdpa"] = b["sage"]["median_step_ms"] / b["sdpa"]["median_step_ms"]
+    log(f"server {path}: 'sage' / 'sdpa' ms per step {cell['sage_over_sdpa']:.4f}")
+    del mdl, requests
+    torch.cuda.empty_cache()
+    return cell
+
+
+def run_server_dual(results) -> dict:
+    """HunyuanVideo (hidden 3072, 24 heads x 128, 256 text + 118,800 video
+    tokens) as ``DualStreamVideoDiT``, depth 40 cut to 4: 1 request x 2
+    steps with "sage" (kernels 2, 3, 1 once a layer-step on the joint
+    sequence), then 1 step with "sdpa" (none of them)."""
+    return run_video_server(results, path="server_dual", model="hunyuanvideo",
+                            cls="DualStreamVideoDiT", depth=HUNYUAN_CUT, n_req=1,
+                            steps={"sage": 2, "sdpa": 1}, launched={"sage": FORWARD, "sdpa": ()})
+
+
+def run_server_cross(results) -> dict:
+    """Wan2.1-T2V-1.3B (hidden 1536, 12 heads x 128, 30 layers, 32,760 video
+    tokens, cross-attention to 512 text tokens) as ``CrossAttnVideoDiT`` at
+    full depth: 2 requests x 2 steps with "sage" (kernels 2, 3, 1 twice a
+    layer-step), then 1 step each with "sage_fp8" and "sdpa"."""
+    return run_video_server(results, path="server_cross", model="wan2.1-t2v-1.3b",
+                            cls="CrossAttnVideoDiT", depth=SERVER_DEPTH, n_req=2,
+                            steps={"sage": 2, "sage_fp8": 1, "sdpa": 1},
+                            launched={"sage": FORWARD + FORWARD, "sage_fp8": CROSS_FP8,
+                                      "sdpa": ()})
+
+
+def run_speculate(results, model) -> dict:
+    """Speculative decoding on the llm-8b-gqa server's model (depth 32, fp32
+    weights): b 1, a 4,096-token prompt, K = 4 self-drafted tokens a round,
+    64 generated tokens, on the dense int8 cache (``llm_speculate``) and
+    the paged one (``llm_speculate_paged``), each beside plain greedy
+    ``generate`` from the same prompt (``llm_greedy`` / ``_paged``).  A
+    speculative run launches kernels 1-3 once a layer in its prefill and
+    the cache's decode kernel once a layer a draft step and a verify step;
+    a greedy run once a layer a step.  The drafts must be accepted at >=
+    0.75 (a self-draft that the verify step rejected would be a broken
+    extend step or rollback); the verify step's arithmetic (t_q = K + 1
+    extend blocks) is held against exact attention at depth 2."""
+    import torch
+    from sageattention_tpu_torch import generate
+
+    cfg, depth = model.cfg, model.cfg.depth
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(24)
+    prompt = torch.randint(0, cfg.vocab, (1, SPEC_PROMPT), generator=gen, device="cuda")
+    max_len = SPEC_MAX_LEN
+    generate.speculate(model, prompt[:, :1024], 8, k=SPEC_K)  # warm-up at b 1
+    out = {}
+    for cache in ("dense", "paged"):
+        kern = DECODE_KERNEL[(cache, False)]
+        sfx = "" if cache == "dense" else "_paged"
+        kw = dict(cache=cache, page_size=LLM_PAGE, max_len=max_len)
+        torch.cuda.reset_peak_memory_stats()
+        spec = drive(results, "llm_speculate" + sfx,
+                     lambda r: {**per_layer(FORWARD, depth),
+                                kern: depth * len(r["n_accepted"]) * (SPEC_K + 1)},
+                     lambda: generate.speculate(model, prompt, SPEC_GEN, k=SPEC_K, **kw))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        greedy = drive(results, "llm_greedy" + sfx,
+                       {**per_layer(FORWARD, depth), kern: depth * SPEC_GEN},
+                       lambda: generate.generate(model, prompt, SPEC_GEN, **kw))
+        toks, ref = spec["tokens"], greedy["tokens"]
+        require(toks.shape == ref.shape == (1, SPEC_GEN + 1) and int(toks.min()) >= 0
+                and int(toks.max()) < cfg.vocab, f"llm_speculate{sfx}: tokens")
+        same = (toks == ref)[0].tolist()
+        agree = same.index(False) if False in same else len(same)
+        draft, verify = statistics.median(spec["draft_ms"]), statistics.median(spec["verify_ms"])
+        log(f"llm_speculate{sfx}: K {SPEC_K}, {len(spec['n_accepted'])} rounds, accepted "
+            f"{spec['accepted']}/{spec['drafted']} ({spec['acceptance']:.4f}), "
+            f"n_accepted {spec['n_accepted']}; draft {draft:.3f} ms a round ({SPEC_K} steps), "
+            f"verify {verify:.3f} ms; {spec['tokens_per_s']:.2f} tokens/s against plain greedy "
+            f"{greedy['tokens_per_s']:.2f} (median step {statistics.median(greedy['step_ms']):.3f}"
+            f" ms); prefill {spec['prefill_ms']:.3f} ms; peak memory {peak:.2f} GB; tokens "
+            f"equal to greedy's for the first {agree} of {SPEC_GEN + 1}")
+        require(spec["acceptance"] >= 0.75, f"llm_speculate{sfx}: acceptance "
+                                            f"{spec['acceptance']:.4f} < 0.75")
+        out[cache] = {"k": SPEC_K, "rounds": len(spec["n_accepted"]),
+                      "n_accepted": spec["n_accepted"], "acceptance": spec["acceptance"],
+                      "draft_ms": spec["draft_ms"], "verify_ms": spec["verify_ms"],
+                      "median_draft_round_ms": draft, "median_verify_ms": verify,
+                      "tokens_per_s": spec["tokens_per_s"],
+                      "greedy_tokens_per_s": greedy["tokens_per_s"],
+                      "greedy_median_step_ms": statistics.median(greedy["step_ms"]),
+                      "prefill_ms": spec["prefill_ms"], "peak_gb": peak,
+                      "tokens_equal_to_greedy_for": agree}
+    torch.cuda.empty_cache()
+    for cache in ("dense", "paged"):
+        # the verify step's arithmetic: a 4,100-token prompt in t_q = 5 extend
+        # blocks through the decode kernel, then 4 decode steps, vs exact
+        cos = llm_refeed_cosine(cfg, cache=cache, bits=8, b=1, prompt=820 * (SPEC_K + 1),
+                                steps=4, max_len=max_len, page_table=None,
+                                chunk=SPEC_K + 1)
+        log(f"llm_speculate {cache}: logits through t_q {SPEC_K + 1} extend blocks vs a one-shot "
+            f"exact-attention refeed (depth 2, full width): cos {cos:.6f}")
+        require(cos >= REFEED_FLOOR[8], f"llm_speculate {cache}: extend-block logits disagree")
+        out[cache]["refeed_cosine_depth2"] = cos
+    return out
+
+
+def run_patched_sdpa(results) -> dict:
+    """CogVideoX-2B (depth 30) on the "sdpa" backend under
+    ``patch_torch_sdpa()``: every layer's SDPA call runs ``sageattn``
+    (kernels 2, 3, 1 once a layer), eps bit for bit the "sage" backend's;
+    after ``undo()`` the same backend launches none of them.  The patch is
+    undone in a ``finally`` before anything else runs: no library time is
+    taken under it."""
+    import torch
+    from sageattention_tpu_torch import models, serve
+    from sageattention_tpu_torch.interop import patch_torch_sdpa
+    from sageattention_tpu_torch.utils.compare import cosine_similarity
+
+    cfg = models.MODEL_CONFIGS["cogvideox-2b"].scaled(depth=SERVER_DEPTH)
+    mdl = serve.load_model(cfg, device="cuda", seed=0)
+    lat, txt = serve.make_requests(cfg, 1, device="cuda", seed=1)[0]
+    t = torch.tensor([999], device="cuda")
+    step_eps(mdl, lat, txt, t, "sage")  # warm-up
+    step_eps(mdl, lat, txt, t, "sdpa")
+    torch.cuda.reset_peak_memory_stats()
+    eps_sage, sage_ms = drive(results, "patched_sdpa_sage", per_layer(FORWARD, cfg.depth),
+                              lambda: step_eps(mdl, lat, txt, t, "sage"))
+    undo = patch_torch_sdpa()
+    try:
+        eps_p, patched_ms = drive(results, "patched_sdpa", per_layer(FORWARD, cfg.depth),
+                                  lambda: step_eps(mdl, lat, txt, t, "sdpa"))
+    finally:
+        undo()
+    eps_sdpa, sdpa_ms = drive(results, "patched_sdpa_undone", {},
+                              lambda: step_eps(mdl, lat, txt, t, "sdpa"))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    same = torch.equal(eps_p, eps_sage)
+    cos = cosine_similarity(eps_p.float().cpu(), eps_sdpa.float().cpu())
+    log(f"patched_sdpa: CogVideoX-2B depth {cfg.depth}, one forward: 'sdpa' under the patch "
+        f"{patched_ms:.3f} ms, 'sage' {sage_ms:.3f} ms, 'sdpa' after undo {sdpa_ms:.3f} ms "
+        f"(patched / SDPA {patched_ms / sdpa_ms:.4f}); peak memory {peak:.2f} GB; eps under the "
+        f"patch bit-identical to 'sage': {same}; vs SDPA's cos {cos:.6f}")
+    require(same, "patched_sdpa: eps under the patch differs from the 'sage' backend's")
+    require(cos >= 0.999, "patched_sdpa: eps disagrees with SDPA's")
+    del mdl
+    torch.cuda.empty_cache()
+    return {"patched_ms": patched_ms, "sage_ms": sage_ms, "sdpa_ms": sdpa_ms, "peak_gb": peak,
+            "bit_identical_to_sage": same, "eps_cosine_vs_sdpa": cos}
+
+
+def time_video_layers(results) -> dict:
+    """One attention layer of each new model: the op (``sageattn``: kernels
+    2, 3, 1), kernel 1 alone on the op's K codes, SDPA as PyTorch picks its
+    backend (the "sdpa" model backend) and SDPA on the flash backend
+    (``baselines.flash``, FA2): HunyuanVideo's joint layer (1, 24, 119,056,
+    128) and Wan2.1's cross- (1, 12, 32,760 x 512, 128) and self-attention,
+    each beside the data sheet's bound of its two products."""
+    import torch
+    from sageattention_tpu_torch import baselines, core
+    from sageattention_tpu_torch.ops import attention_cuda, quant_cuda
+    from torch.nn.attention import SDPBackend
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(26)
+    out = {}
+    for name, h, sq, sk in (("hunyuanvideo joint", 24, 256 + 118800, 256 + 118800),
+                            ("wan2.1 cross", 12, 32760, 512), ("wan2.1 self", 12, 32760, 32760)):
+        q = torch.randn(1, h, sq, 128, generator=gen, device="cuda").to(torch.bfloat16)
+        k, v = (torch.randn(1, h, sk, 128, generator=gen, device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+        k_i8, k_sc, _ = quant_cuda.quant_k_fused_mean(k, group=128)
+        fold = 128 ** -0.5 * core.LOG2E
+        reps = 3 if sq * sk > 1e10 else 20
+        choice = torch._fused_sdp_choice(q, k, v, None, 0.0, False)
+        t = {"op": cuda_ms(lambda: core.sageattn(q, k, v), reps=reps, warmup=1),
+             "kernel": cuda_ms(lambda: attention_cuda.sage_attention_fwd(
+                 q, k_i8, k_sc, v, None, None, is_causal=False, q_fold=fold), reps=reps,
+                 warmup=1),
+             "sdpa": cuda_ms(lambda: baselines.sdpa(q, k, v), reps=reps, warmup=1),
+             "flash": cuda_ms(lambda: baselines.flash(q, k, v), reps=reps, warmup=1)}
+        ops = 2 * h * sq * sk * 128
+        moved = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, k, v read, o written
+        bound = max(ops / PEAK_INT8_OPS_S + ops / PEAK_BF16_FLOP_S, moved / PEAK_BYTES_S) * 1e3
+        be = SDPBackend(choice).name.lower()
+        log(f"time {name} layer {(1, h, sq, sk, 128)}: sageattn {t['op']:.3f} ms (kernel 1 "
+            f"{t['kernel']:.3f}), SDPA ({be}, PyTorch's pick) {t['sdpa']:.3f} ms, SDPA on "
+            f"flash {t['flash']:.3f} ms; sageattn / SDPA {t['op'] / t['sdpa']:.4f}; bound "
+            f"{bound:.3f} ms (operations)")
+        out[name] = {"shape": [1, h, sq, sk, 128], "sageattn_ms": t["op"],
+                     "kernel_ms": t["kernel"], "sdpa_ms": t["sdpa"], "sdpa_backend": be,
+                     "flash_ms": t["flash"], "bound_ms": bound}
+        del q, k, v, k_i8
+    torch.cuda.empty_cache()
+    return out
+
+
 def measured_rate_floor(results, probe: dict) -> None:
     """Beside each timed wgmma forward instance's data-sheet bound (the
     CogVideoX-2B and Wan2.1 layers, the Gemma-7B layer at 256, the
@@ -6344,6 +6764,12 @@ def main() -> int:
     sweep["seed_spread"] = sweep_seed_spread(sweep["failed"])
     log(f"Q/K option checks and accuracy sweep: {time.perf_counter() - t_q:.1f} s")
     check_decode(gen, results)
+    # the video variants' and speculation's kernel checks, each from a
+    # generator of its own
+    t_v = time.perf_counter()
+    video = {"attention_checks": check_video_attention(results)}
+    check_spec_decode(results)
+    log(f"video model and speculation kernel checks: {time.perf_counter() - t_v:.1f} s")
     # the parallel slice's kernel check draws from a generator of its own
     gen_par = torch.Generator(device="cuda")
     gen_par.manual_seed(9)
@@ -6382,6 +6808,11 @@ def main() -> int:
         servers[path] = run_server(results, args.profile, model="cogvideox-2b", backend=backend,
                                    path=path, launched=launched, kwargs=kwargs, eps_floor=floor)
         log(f"server phase {path}: {time.perf_counter() - t_phase:.1f} s")
+    for path, fn in (("server_dual", run_server_dual), ("server_cross", run_server_cross),
+                     ("patched_sdpa", run_patched_sdpa)):
+        t_phase = time.perf_counter()
+        video[path] = fn(results)
+        log(f"{path} phase: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     trainer = run_train(results, args.profile)
     log(f"trainer phase: {time.perf_counter() - t_phase:.1f} s")
@@ -6421,6 +6852,7 @@ def main() -> int:
     hd256["times"] = time_hd256(gen256, results)
     hd256["preq_times"] = time_hd256_preq(results)
     hd256["bias_times"] = time_bias_backward(results, HD256_LAYER, seed=29)
+    video["layer_times"] = time_video_layers(results)
     log(f"timing phase: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     probe = run_probe(results)
@@ -6458,6 +6890,7 @@ def main() -> int:
     log(json.dumps({"parallel": parallel}))
     log(json.dumps({"probe": probe}))
     log(json.dumps({"wide": wide}))
+    log(json.dumps({"video_variants": video}))
     require(not sweep["failed"], f"accuracy sweep: {sweep['failed']}")
     log(json.dumps({"kernels": kernels}))
     log(f"card: {card}")

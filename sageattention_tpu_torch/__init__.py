@@ -2,8 +2,7 @@
 hand-written CUDA kernels for NVIDIA Hopper (H100, sm_90a).
 
 The port of the JAX package ``sageattention_tpu``, which stays the
-reference, with its top-level names (``speculative_verify`` is not ported
-yet).  Importing this package builds nothing and needs no GPU: the
+reference, with its top-level names.  Importing this package builds nothing and needs no GPU: the
 kernels are compiled with ``nvcc`` on their first use on a CUDA tensor.
 """
 
@@ -28,6 +27,9 @@ from sageattention_tpu_torch.kvcache import (
     sageattn_paged_decode,
 )
 from sageattention_tpu_torch.ops import reference
+from sageattention_tpu_torch.speculative import speculative_verify
+
+__version__ = "0.1.0"
 
 __all__ = [
     "sageattn",
@@ -47,5 +49,7 @@ __all__ = [
     "calibrate",
     "sageattn_decode",
     "sageattn_paged_decode",
+    "speculative_verify",
     "models",
+    "__version__",
 ]

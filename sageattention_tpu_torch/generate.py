@@ -6,10 +6,12 @@ takes converted ones), ``prefill`` writes a prompt into the quantized
 caches (one shot, or in extend blocks through the decode path),
 ``decode_step`` feeds one token a sequence, and ``generate`` runs greedy
 generation over a dense or a paged cache, timing each phase with CUDA
-events on the card (the host clock on the CPU).  ``serve_shards`` is the
-loop of ``examples/sharded_serving.py``: the caches of a model's layers
-sharded TP x SP (``parallel.decode``), over a mesh (``sharded_serve``) or
-every shard in turn in one process.  Everything runs under
+events on the card (the host clock on the CPU).  ``speculate`` is the
+speculative loop of ``examples/llm_decode.py --speculate``: greedy tokens
+drafted by the model itself and verified in one extend step.
+``serve_shards`` is the loop of ``examples/sharded_serving.py``: the
+caches of a model's layers sharded TP x SP (``parallel.decode``), over a
+mesh (``sharded_serve``) or every shard in turn in one process.  Everything runs under
 ``torch.inference_mode()``.
 
 Entry points that build state default to ``device="cuda"`` and raise when
@@ -28,6 +30,7 @@ import torch
 from sageattention_tpu_torch.models.configs import LLMConfig
 from sageattention_tpu_torch.models.llm import CausalLM
 from sageattention_tpu_torch.serve import init_weights, resolve_device
+from sageattention_tpu_torch.speculative import speculative_verify
 
 
 def load_llm(cfg: LLMConfig, *, device="cuda", seed: int = 0, dtype=torch.bfloat16,
@@ -137,6 +140,74 @@ def generate(model: CausalLM, tokens: torch.Tensor, gen: int, *, cache: str = "d
     return {"tokens": torch.cat(out, dim=1), "prefill_ms": prefill_ms, "step_ms": step_ms,
             "tokens_per_s": b * gen / (sum(step_ms) / 1e3) if gen else 0.0,
             "logits": logits, "device": name}
+
+
+@torch.inference_mode()
+def speculate(model: CausalLM, tokens: torch.Tensor, gen: int, *, k: int = 4,
+              cache: str = "dense", max_len: int | None = None, page_size: int = 1024,
+              page_table: torch.Tensor | None = None, bits: int = 8,
+              chunked_prefill: int = 0) -> dict:
+    """Greedy speculative decoding of ``gen`` tokens after the prompt [1, s].
+
+    Each round drafts ``k`` tokens with ``k`` decode steps (t_q 1), then
+    verifies them with the model in one extend step of t_q = k + 1 (the
+    decode kernels' causal tail), which also writes the block's K and V:
+    ``speculative_verify`` keeps the matching prefix and the target's next
+    token, and the rejected tail rolls back by the lengths alone
+    (``lengths = base + 1 + n_accepted``; the caches are written in place
+    and the next round overwrites the stale rows).  A round can write k + 1
+    rows past the last token, so the caches hold ``max_len`` >= s + gen + k
+    rows; the default is that, rounded up to a multiple of 128 (a dense
+    cache of more than 4,096 rows needs one).  One token stream: b must be
+    1.
+
+    Returns {"tokens": [1, gen + 1] as ``generate`` gives them,
+    "n_accepted": each round's, "accepted", "drafted", "acceptance",
+    "prefill_ms", "draft_ms" and "verify_ms" (each round's), "tokens_per_s"
+    (the tokens the rounds produced over their time), "device"}."""
+    b, s = tokens.shape
+    if b != 1:
+        raise ValueError(f"speculative decoding keeps one token stream: b must be 1, got {b}")
+    max_len = max_len or -(-(s + gen + k) // 128) * 128
+    if max_len < s + gen + k:
+        raise ValueError(f"max_len {max_len} leaves no room for a round's {k + 1} rows past "
+                         f"{s + gen - 1} tokens: give at least {s + gen + k}")
+    dev = tokens.device
+    caches = make_caches(model, b, max_len, cache=cache, page_size=page_size,
+                         page_table=page_table, bits=bits)
+    clock = _Clock(dev)
+    t0 = clock.start()
+    logits, caches, lengths = prefill(model, tokens, caches, chunked_prefill=chunked_prefill)
+    cur = logits[:, -1:].argmax(dim=-1)
+    prefill_ms = clock.ms(t0)
+    out, n_accepted, draft_ms, verify_ms = [cur], [], [], []
+    while len(out) - 1 < gen:
+        t0 = clock.start()
+        dlen, dcur, drafts = lengths, cur, []
+        for _ in range(k):
+            dl, caches, dlen = decode_step(model, dcur, caches, dlen)
+            dcur = dl[:, -1:].argmax(dim=-1)
+            drafts.append(dcur)
+        draft_ms.append(clock.ms(t0))
+        t0 = clock.start()
+        logits, caches, _ = decode_step(model, torch.cat([cur] + drafts, dim=1), caches,
+                                        lengths)
+        n_acc, nxt = speculative_verify(torch.cat(drafts, dim=1), logits)
+        na = int(n_acc[0])
+        verify_ms.append(clock.ms(t0))
+        cur = nxt[:, None].long()
+        out.extend(drafts[:na] + [cur])
+        n_accepted.append(na)
+        lengths = lengths + 1 + na
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    accepted, drafted = sum(n_accepted), k * len(n_accepted)
+    return {"tokens": torch.cat(out, dim=1)[:, :gen + 1], "n_accepted": n_accepted,
+            "accepted": accepted, "drafted": drafted,
+            "acceptance": accepted / drafted if drafted else 0.0,
+            "prefill_ms": prefill_ms, "draft_ms": draft_ms, "verify_ms": verify_ms,
+            "tokens_per_s": (len(out) - 1) / ((sum(draft_ms) + sum(verify_ms)) / 1e3)
+            if n_accepted else 0.0,
+            "device": name}
 
 
 def serving_draw(seed: int, layer: int, step: int, shapes, device, dtype=torch.bfloat16):

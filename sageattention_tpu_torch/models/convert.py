@@ -1,8 +1,9 @@
-"""Carry the JAX package's VideoDiT and CausalLM parameters across to the port.
+"""Carry the JAX package's video DiT and CausalLM parameters across to the port.
 
 ``params_from_jax`` takes the flax parameter tree as nested dicts of numpy
 arrays (``{"params": {...}}`` or the inner dict) and returns a state dict
-for :class:`models.dit.VideoDiT`:
+for :class:`models.dit.VideoDiT`, :class:`models.mmdit.DualStreamVideoDiT`
+or :class:`models.mmdit.CrossAttnVideoDiT`:
 
 * a flax ``Dense`` kernel [in, out] becomes a Linear ``weight`` [out, in];
 * a flax ``LayerNorm`` ``scale`` becomes ``weight``;
@@ -20,6 +21,17 @@ counterparts:
     block_i/adaln                                     blocks.i.adaln
     block_i/attn/{qkv, q_norm, k_norm, out}           blocks.i.attn.*
     block_i/Dense_0, block_i/Dense_1                  blocks.i.mlp.0, .2
+
+and the mmdit models' blocks, whose torch modules carry the flax names
+(``block_i/<name>`` -> ``blocks.i.<name>``, a norm's ``scale`` ->
+``weight``), over the same trunk:
+
+    DualStreamBlock  adaln, qkv_text, qkv_video, q_norm, k_norm, out_text,
+                     out_video, mlp_text_up, mlp_text_down, mlp_video_up,
+                     mlp_video_down
+    CrossAttnBlock   adaln, self_qkv, q_norm, k_norm, self_out, cross_q,
+                     cross_k, cross_v, cross_q_norm, cross_k_norm, cross_out,
+                     mlp_up, mlp_down
 
 ``llm_params_from_jax`` does the same for :class:`models.llm.CausalLM`,
 whose flax names (from a real ``CausalLM.init`` tree) map as:
@@ -55,7 +67,8 @@ def _torch_name(path: list[str], rename=_RENAME) -> str:
 
 
 def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
-    """flax VideoDiT parameters (numpy leaves) -> torch state dict (fp32)."""
+    """flax VideoDiT, DualStreamVideoDiT or CrossAttnVideoDiT parameters
+    (numpy leaves) -> torch state dict (fp32)."""
     return _from_jax(tree, _RENAME)
 
 

@@ -177,7 +177,13 @@ class VideoDiT(nn.Module):
 
     forward(latents [b, F, H, W, C], text_emb [b, Lt, text_dim], t [b])
       -> predicted noise [b, F, H, W, C] fp32
+
+    The trunk (patch, positional, text and timestep embeddings, final norm,
+    unpatchify) is shared with ``models.mmdit``'s models, which set their
+    own ``block`` class and forward.
     """
+
+    block = DiTBlock
 
     def __init__(self, cfg: DiTConfig, *, latent_channels: int = 16,
                  text_dim: int = 512, dtype=torch.bfloat16,
@@ -193,7 +199,7 @@ class VideoDiT(nn.Module):
         self.text_embed = Dense(text_dim, c.hidden, dtype, device=device)
         self.t_embed = TimestepEmbed(c.hidden, device=device)
         self.blocks = nn.ModuleList(
-            DiTBlock(c, dtype, processor, device) for _ in range(c.depth)
+            self.block(c, dtype, processor, device) for _ in range(c.depth)
         )
         self.final_norm = LayerNorm(c.hidden, device=device)
         self.unpatchify = nn.Linear(c.hidden, patch_dim, device=device)

@@ -55,6 +55,10 @@ from sageattention_tpu_torch import core
 from sageattention_tpu_torch.ops import attention_bwd_cuda, quant_cuda, reference
 
 LOG2E = 1.4426950408889634
+# SDPA as PyTorch defines it, bound at import: ``interop.patch_torch_sdpa``
+# replaces the module attribute with ``sageattn``, whose exact-recompute
+# backward must not run through itself
+_SDPA = F.scaled_dot_product_attention
 
 
 def effective_v(v, v_q, v_scale, v_mean, d_pad: int) -> torch.Tensor:
@@ -200,6 +204,11 @@ def _exact_attention(q, k, v, bias, *, is_causal: bool, sm_scale: float | None,
     return o, torch.where(live, m + torch.log(l), -torch.inf)[..., 0]
 
 
+def _sdpa_route(q: torch.Tensor) -> bool:
+    """Whether the exact recompute takes PyTorch's SDPA (on the card)."""
+    return q.device.type == "cuda"
+
+
 def exact_attention_vjp(q, k, v, do, dlse, *, is_causal: bool, sm_scale: float | None,
                         window: int | None = None, bias=None, need_dbias: bool = False):
     """(dq, dk, dv) of exact attention at the saved q, k, v (HND; GQA when k
@@ -208,7 +217,8 @@ def exact_attention_vjp(q, k, v, do, dlse, *, is_causal: bool, sm_scale: float |
     dk, dv, dbias), dbias in the shape, dtype and device of ``bias``.
 
     On the card without a bias, an LSE cotangent or a ``window``: exact
-    attention recomputed under autograd by ``F.scaled_dot_product_attention``,
+    attention recomputed under autograd by ``F.scaled_dot_product_attention``
+    (bound at import, so that ``patch_torch_sdpa`` does not reach it),
     K and V repeated over the GQA group inside the graph so that their
     gradients sum over it, where the JAX package takes jax's library flash
     attention on a TPU.  Otherwise autograd through :func:`_exact_attention`,
@@ -222,11 +232,10 @@ def exact_attention_vjp(q, k, v, do, dlse, *, is_causal: bool, sm_scale: float |
             xs.append(bias)
     lse = dlse is not None
     with torch.enable_grad():
-        if bias is None and not lse and window is None and q.device.type == "cuda":
+        if bias is None and not lse and window is None and _sdpa_route(q):
             rep_ = q.shape[1] // k.shape[1]
             kr, vr = (x.repeat_interleave(rep_, dim=1) for x in xs[1:])
-            out = F.scaled_dot_product_attention(xs[0], kr, vr, is_causal=is_causal,
-                                                 scale=sm_scale)
+            out = _SDPA(xs[0], kr, vr, is_causal=is_causal, scale=sm_scale)
         else:
             out = _exact_attention(*xs[:3], bias, is_causal=is_causal, sm_scale=sm_scale,
                                    window=window, return_lse=lse)

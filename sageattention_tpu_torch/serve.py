@@ -1,7 +1,8 @@
 """Denoise server for the video DiT: the counterpart of the JAX package's
 ``examples/common.py`` run loop.
 
-``load_model`` builds a :class:`models.VideoDiT` with seeded random
+``load_model`` builds a :class:`models.VideoDiT` (or, with ``model_cls``,
+a ``DualStreamVideoDiT`` or ``CrossAttnVideoDiT``) with seeded random
 weights (or takes converted ones), ``denoise_step`` is one Euler step of
 the mock flow ``x <- x - (1/50) * eps(x, t)``, and ``serve`` answers a
 list of requests, each a (latents, text embedding) pair, timing every
@@ -56,12 +57,14 @@ def init_weights(model: torch.nn.Module, seed: int) -> None:
 
 
 def load_model(cfg: DiTConfig, *, device="cuda", dtype=torch.bfloat16,
-               seed: int = 0, state_dict: dict | None = None) -> VideoDiT:
-    """A VideoDiT on ``device`` in eval mode, with seeded random weights
-    or the given (converted) ``state_dict``."""
+               seed: int = 0, state_dict: dict | None = None,
+               model_cls: type[VideoDiT] = VideoDiT) -> VideoDiT:
+    """A ``model_cls`` (VideoDiT, DualStreamVideoDiT or CrossAttnVideoDiT)
+    on ``device`` in eval mode, with seeded random weights or the given
+    (converted) ``state_dict``."""
     dev = resolve_device(device)
-    model = VideoDiT(cfg, latent_channels=LATENT_CHANNELS, text_dim=TEXT_DIM,
-                     dtype=dtype, device=dev)
+    model = model_cls(cfg, latent_channels=LATENT_CHANNELS, text_dim=TEXT_DIM,
+                      dtype=dtype, device=dev)
     if state_dict is None:
         init_weights(model, seed)
     else:

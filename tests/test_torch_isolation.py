@@ -21,7 +21,8 @@ WRAPPERS = ("ops/quant_cuda.py", "ops/attention_cuda.py", "ops/attention_bwd_cud
             "ops/decode_cuda.py")
 NO_TRY = ("ops/_build.py", *WRAPPERS, "ops/autodiff.py", "core.py", "train.py", "kvcache.py",
           "generate.py", "parallel/mesh.py", "parallel/decode.py", "parallel/ring.py",
-          "parallel/ulysses.py", "parallel/api.py")
+          "parallel/ulysses.py", "parallel/api.py", "speculative.py", "baselines.py",
+          "interop/__init__.py", "interop/torch_adapter.py", "models/mmdit.py")
 
 
 def _port_files():
@@ -115,17 +116,32 @@ def test_count_launch_picks_the_head_dims_counter(d, attr):
 
 
 def test_top_level_exports_resolve():
-    """The JAX package's top-level names the port has (``speculative_verify``
-    comes with its module)."""
+    """Every top-level name of the JAX package is the port's too."""
+    import sageattention_tpu as jpkg
+
     import sageattention_tpu_torch as port
 
     for name in ("sageattn", "sageattn_varlen", "sageattn_qk_int8_pv_bf16",
                  "sageattn_qk_int8_pv_int8", "sageattn_qk_int8_pv_fp8", "quant", "reference",
                  "QuantKVCache", "PagedKVCache", "init_kv_cache", "init_paged_kv_cache",
                  "append_kv", "paged_append", "paged_prefill", "calibrate", "sageattn_decode",
-                 "sageattn_paged_decode", "models"):
+                 "sageattn_paged_decode", "models", "speculative_verify", "__version__"):
         assert name in port.__all__ and getattr(port, name) is not None, name
+    assert set(jpkg.__all__) <= set(port.__all__)
+    assert port.__version__ == jpkg.__version__
     assert port.sageattn_decode.__module__ == "sageattention_tpu_torch.kvcache"
+    assert port.speculative_verify.__module__ == "sageattention_tpu_torch.speculative"
+
+
+def test_model_exports_resolve():
+    """Every name of the JAX ``models`` package is the port's too."""
+    from sageattention_tpu import models as jmodels
+
+    from sageattention_tpu_torch import models as tmodels
+
+    assert set(jmodels.__all__) <= set(tmodels.__all__)
+    for name in jmodels.__all__:
+        assert getattr(tmodels, name) is not None, name
 
 
 def test_parallel_exports_resolve():
