@@ -290,7 +290,24 @@ Phases, each of which raises (and so exits non-zero) when it fails:
    greedy decoding (``llm_greedy`` / ``_paged``), drafts accepted >= 0.75
    and the t_q = 5 extend blocks against exact attention at depth 2; with
    phase 6's timings, each new layer through ``sageattn`` and kernel 1
-   alone beside SDPA (PyTorch's pick of backend, and the flash backend).
+   alone beside SDPA (PyTorch's pick of backend, and the flash backend);
+13. the CLIs (``sageattention_tpu_torch/examples``), in-process through
+   their ``main``, each a path with its counts zeroed just before and read
+   just after, the models freed between them: ``cogvideox_2b`` at full
+   geometry (``--scale 1.0 --steps 2 --compare --profile``: 5 forwards
+   through kernels 2, 3, 1; eps against "sdpa" >= 0.999; the trace names
+   kernel 1), ``wan`` with "sage_fp8" at ``--scale 1.0`` (kernel 6 on the
+   video's V, 5 on the text's), ``train_dit`` on CogVideoX-2B's geometry
+   cut to depth 2 (3 steps whose loss falls, a checkpoint, a resume to
+   step 4), ``llm_decode --scale 1.0 --paged --bits 4 --speculate 4 --gen
+   16`` (llm-7b at its own widths: kernels 2, 3, 1 in the prefill, 11 in
+   every draft and verify step), ``sharded_serving --tp 2 --sp 4 --window
+   1024`` (kernel 10, the shards in turn, on the CLI's own one layer of
+   8/4 heads of 128, the JAX script's) and a varlen batch of the llm-8b-gqa layer (32,768 tokens in 8
+   ragged prompts packed on the host by ``native.pack_ragged``, then
+   ``sageattn_varlen``: kernel 3 and the masked kernel 1) against one
+   ``sageattn`` a sequence (>= 0.9999 on the same K codes), with the pack
+   and unpack host times beside ``torch.cat`` and ``torch.split``.
 
 It prints one ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside the
@@ -6643,6 +6660,221 @@ def measured_rate_floor(results, probe: dict) -> None:
             f"exp2f rate {r['exp2_floor_ms']:.4f} ms; data-sheet bound {r['bound_ms']:.4f} ms")
 
 
+# --------------------------------------------------------------------------
+# phase 13: the CLIs (sageattention_tpu_torch/examples), in-process
+# --------------------------------------------------------------------------
+
+# ragged prompts of the llm-8b-gqa layer packed on the host: 32,768 tokens,
+# each a multiple of the 128-row K-scale group, so that per_segment's codes
+# are those of one sageattn a sequence
+CLI_VARLEN_LENS = (12288, 7168, 5120, 4096, 2048, 1024, 896, 128)
+CLI_SHARDS = (2, 4)  # sharded_serving's TP x SP
+CLI_LLM_GEN = 16  # llm_decode's tokens at llm-7b's widths
+
+
+def cli_cogvideox(results, tmp: str) -> dict:
+    """``cogvideox_2b.main`` at full geometry (seq 17,776, depth 30) with
+    "sage", 2 timed steps, ``--compare`` and ``--profile``: kernels 2, 3 and
+    1 once a layer in each of its 5 forwards (the first step, the profiled
+    one, 2 timed ones and the compared one); eps against "sdpa" >= 0.999;
+    the trace file names kernel 1."""
+    from sageattention_tpu_torch.examples import cogvideox_2b
+
+    prof = os.path.join(tmp, "profile")
+    out = drive(results, "cli_cogvideox_2b", per_layer(FORWARD, SERVER_DEPTH * 5),
+                lambda: cogvideox_2b.main(["--scale", "1.0", "--steps", "2", "--compare",
+                                           "--profile", prof]))
+    lat = out.pop("latents")
+    trace_text = open(out["profile"]).read()
+    out["trace_bytes"] = len(trace_text)
+    out["trace_names_kernel_1"] = "sage_attn_fwd" in trace_text
+    log(f"cli cogvideox_2b: seq {out['seq_len']} depth {out['depth']}, first step "
+        f"{out['first_step_s']:.2f} s, ms a step {[round(x, 3) for x in out['step_ms']]} "
+        f"(mean {out['avg_step_ms']:.3f}), eps vs 'sdpa' cos {out['cosine_vs_sdpa']:.6f}, "
+        f"peak {out['peak_gib']:.2f} GiB; trace {out['trace_bytes']} bytes, names kernel 1: "
+        f"{out['trace_names_kernel_1']}")
+    require(out["seq_len"] == 17776 and out["depth"] == SERVER_DEPTH, "cli cogvideox_2b: geometry")
+    require(tuple(lat.shape) == (1, 13, 60, 90, 16) and bool(lat.isfinite().all()),
+            "cli cogvideox_2b: latents not finite or of the wrong shape")
+    require(out["cosine_vs_sdpa"] >= 0.999, "cli cogvideox_2b: eps disagrees with 'sdpa'")
+    require(out["trace_names_kernel_1"], "cli cogvideox_2b: the trace does not name kernel 1")
+    return out
+
+
+def cli_wan(results) -> dict:
+    """``wan.main`` with "sage_fp8" at --scale 1.0 (a V slab of 33,272 x 128
+    bf16 takes kernel 6; at --scale 0.25 it would be 0.15 MB, kernel 5's),
+    1 timed step and ``--compare``: 3 "sage_fp8" forwards, each layer's
+    self- and cross-attention through kernels 2, 3, the V quantizers (6 for
+    the video, 5 for the text) and kernel 1; eps against "sdpa" >= 0.999."""
+    from sageattention_tpu_torch.examples import wan
+
+    out = drive(results, "cli_wan", per_layer(CROSS_FP8, SERVER_DEPTH * 3),
+                lambda: wan.main(["--scale", "1.0", "--attention_type", "sage_fp8", "--steps",
+                                  "1", "--compare"]))
+    lat = out.pop("latents")
+    log(f"cli wan: {out['class']} seq {out['seq_len']} depth {out['depth']}, 'sage_fp8', ms a "
+        f"step {[round(x, 3) for x in out['step_ms']]}, eps vs 'sdpa' cos "
+        f"{out['cosine_vs_sdpa']:.6f}, peak {out['peak_gib']:.2f} GiB")
+    require(bool(lat.isfinite().all()) and out["cosine_vs_sdpa"] >= 0.999,
+            "cli wan: latents not finite or eps disagrees with 'sdpa'")
+    return out
+
+
+def cli_train(results, tmp: str) -> dict:
+    """``train_dit.main`` on CogVideoX-2B's full geometry cut to depth 2
+    (the ``cfg`` keyword), "sage": 3 steps with a checkpoint after the
+    last, whose loss must fall (the CLI's own check), then a resume to step
+    4 from it; every step launches kernels 2, 3, 1, 4, 7 and 8 once a layer."""
+    from sageattention_tpu_torch import models
+    from sageattention_tpu_torch.examples import train_dit
+
+    cfg = models.MODEL_CONFIGS["cogvideox-2b"].scaled(depth=2)
+    ckpt = ["--ckpt_dir", os.path.join(tmp, "ckpt")]
+    first = drive(results, "cli_train_dit", per_layer(FORWARD + BACKWARD, 2 * 3),
+                  lambda: train_dit.main(["--steps", "3"] + ckpt, cfg=cfg))
+    resumed = drive(results, "cli_train_dit_resume", per_layer(FORWARD + BACKWARD, 2),
+                    lambda: train_dit.main(["--steps", "4"] + ckpt, cfg=cfg))
+    log(f"cli train_dit: seq {first['seq']} depth {first['depth']}, {first['params']} "
+        f"parameters; losses {[round(x, 6) for x in first['losses']]}, ms a step "
+        f"{[round(x, 3) for x in first['step_ms']]}; resumed at step {resumed['start']}: loss "
+        f"{resumed['losses']}")
+    require(resumed["start"] == 3 and len(resumed["losses"]) == 1
+            and math.isfinite(resumed["losses"][0]), "cli train_dit: the resume")
+    return {"first": first, "resumed": resumed}
+
+
+def cli_llm_decode(results) -> dict:
+    """``llm_decode.main`` at ``--scale 1.0``: llm-7b at its own widths
+    (depth 32, hidden 4,096, 32/32 heads of 128), a 512-token prompt and
+    ``CLI_LLM_GEN`` tokens from a paged int4 cache, speculating 4 tokens a
+    round: the one-shot prefill runs kernels 2, 3, 1 once a layer, every
+    draft and verify step kernel 11 once a layer."""
+    from sageattention_tpu_torch.examples import llm_decode
+
+    out = drive(results, "cli_llm_decode",
+                lambda r: {**per_layer(FORWARD, r["config"]["depth"]),
+                           "sage_paged_decode": r["config"]["depth"] * r["rounds"] * 5},
+                lambda: llm_decode.main(["--scale", "1.0", "--paged", "--bits", "4",
+                                         "--speculate", "4", "--gen", str(CLI_LLM_GEN)]))
+    log(f"cli llm_decode: {out['config']}, {out['cache']}, prefill {out['prefill_ms']:.3f} ms, "
+        f"{out['rounds']} rounds, accepted {out['accepted']}/{out['drafted']}, "
+        f"{out['decode_tokens']} tokens after the first round in {out['decode_ms']:.3f} ms")
+    require(out["config"] == {"depth": 32, "hidden": 4096, "heads": 32, "kv_heads": 32,
+                              "head_dim": 128}, "cli llm_decode: llm-7b's widths")
+    # a broken extend step or rollback rejects nearly every draft; int4 caches
+    # quantize the draft and verify steps' P differently, so the floor sits
+    # under llm_speculate's int8 0.75
+    require(len(out["tokens"]) == CLI_LLM_GEN + 1 and out["acceptance"] >= 0.5,
+            "cli llm_decode: tokens or acceptance")
+    return out
+
+
+def cli_sharded(results) -> dict:
+    """``sharded_serving.main`` TP 2 x SP 4 with window 1024 (8,192 tokens,
+    8 steps), the 8 shards in turn: kernel 10 once a shard a step."""
+    from sageattention_tpu_torch.examples import sharded_serving
+
+    tp, sp = CLI_SHARDS
+    out = drive(results, "cli_sharded_serving", {"sage_decode_window": tp * sp * 8},
+                lambda: sharded_serving.main(["--tp", str(tp), "--sp", str(sp), "--window",
+                                              "1024"]))
+    o = out.pop("output")
+    log(f"cli sharded_serving: {out['shards']} shards, prompt {out['prompt']}, ms a step "
+        f"{[round(x, 3) for x in out['step_ms']]}, output norm {out['output_norm']:.6f}")
+    require(bool(o.isfinite().all()) and out["context"] == 8192, "cli sharded_serving: output")
+    return out
+
+
+def cli_varlen(results) -> dict:
+    """A varlen batch of the llm-8b-gqa layer (32/8 heads of 128, bf16):
+    ``CLI_VARLEN_LENS`` packed on the host by ``native.pack_ragged``, on the
+    card through ``sageattn_varlen`` (causal, per_segment, bf16 V: kernel 3
+    and the masked kernel 1 once), back through ``unpack_ragged``; each
+    sequence against one ``sageattn`` on per_segment's centred bf16 K (the
+    same codes: >= 0.9999) and on its own K (>= 0.999).  Pack and unpack
+    host times beside ``torch.cat`` and ``torch.split`` + ``clone``."""
+    import torch
+    from sageattention_tpu_torch import core, native
+    from sageattention_tpu_torch.utils.compare import cosine_similarity
+
+    hq, hkv, d = LLM_LAYER["hq"], LLM_LAYER["hkv"], LLM_LAYER["d"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(31)
+    seqs = [[torch.randn(n, h, d, generator=gen, device="cuda").to(torch.bfloat16).cpu()
+             for n in CLI_VARLEN_LENS] for h in (hq, hkv, hkv)]
+
+    def host_ms(fn, reps=5):
+        fn()
+        t = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            t.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(t)
+
+    pack_ms = host_ms(lambda: native.pack_ragged(seqs[0]))
+    cat_ms = host_ms(lambda: torch.cat(seqs[0]))
+    packed = [native.pack_ragged(x) for x in seqs]
+    cu = packed[0][1]
+    require(all(torch.equal(c, cu) for _, c in packed)
+            and torch.equal(packed[0][0], torch.cat(seqs[0])), "cli varlen: pack_ragged")
+    q, k, v = (p.cuda() for p, _ in packed)
+    kw = dict(is_causal=True, smooth_k_mode="per_segment", pv_dtype="bf16")
+    with torch.no_grad():
+        o = drive(results, "cli_varlen", {"quant_k_chunked": 1, "sage_attn_fwd_masked": 1},
+                  lambda: core.sageattn_varlen(q, k, v, cu.cuda(), cu.cuda(), **kw))
+    o_host = o.cpu()
+    unpack_ms = host_ms(lambda: native.unpack_ragged(o_host, cu))
+    split_ms = host_ms(lambda: [x.clone() for x in torch.split(o_host, CLI_VARLEN_LENS)])
+    outs = native.unpack_ragged(o_host, cu)
+    same, own = [], []
+    for i, n in enumerate(CLI_VARLEN_LENS):
+        qi, ki, vi = (x[i].cuda()[None] for x in seqs)
+        k_c = (ki.float() - ki.float().mean(dim=1, keepdim=True)).to(ki.dtype)
+        for cos, kk, smooth in ((same, k_c, False), (own, ki, True)):
+            o_i = core.sageattn(qi, kk, vi, tensor_layout="NHD", is_causal=True, smooth_k=smooth)
+            cos.append(cosine_similarity(outs[i].float(), o_i[0].float().cpu()))
+    log(f"cli varlen: {len(CLI_VARLEN_LENS)} prompts, {sum(CLI_VARLEN_LENS)} tokens, 32/8 heads "
+        f"of 128; vs one sageattn a sequence on per_segment's K cos "
+        f"{[round(c, 7) for c in same]}, on its own K {[round(c, 7) for c in own]}; host ms: "
+        f"pack_ragged {pack_ms:.3f} (torch.cat {cat_ms:.3f}), unpack_ragged {unpack_ms:.3f} "
+        f"(torch.split + clone {split_ms:.3f}) for {o_host.numel() * 2 / 1e6:.1f} MB")
+    require([x.shape[0] for x in outs] == list(CLI_VARLEN_LENS), "cli varlen: unpack_ragged")
+    require(min(same) >= 0.9999 and min(own) >= 0.999,
+            "cli varlen: sageattn_varlen disagrees with the per-sequence calls")
+    return {"lens": list(CLI_VARLEN_LENS), "cos_same_k": same, "cos_own_k": own,
+            "pack_ms": pack_ms, "cat_ms": cat_ms, "unpack_ms": unpack_ms,
+            "split_clone_ms": split_ms}
+
+
+def run_clis(results) -> dict:
+    """Phase 13: the CLIs in-process through their ``main``, each a path of
+    its own (counts zeroed just before, read just after), the models freed
+    between them; the profile and the checkpoints in a temporary directory
+    under the build directory."""
+    import tempfile
+
+    import torch
+    from sageattention_tpu_torch.ops import _build
+
+    out = {}
+    os.makedirs(_build.build_dir(), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.build_dir()) as tmp:
+        for name, fn in (("cogvideox_2b", lambda: cli_cogvideox(results, tmp)),
+                         ("wan", lambda: cli_wan(results)),
+                         ("train_dit", lambda: cli_train(results, tmp)),
+                         ("llm_decode", lambda: cli_llm_decode(results)),
+                         ("sharded_serving", lambda: cli_sharded(results)),
+                         ("varlen", lambda: cli_varlen(results))):
+            t0 = time.perf_counter()
+            out[name] = fn()
+            out[name]["phase_s"] = time.perf_counter() - t0
+            log(f"cli phase {name}: {out[name]['phase_s']:.1f} s")
+            torch.cuda.empty_cache()
+    return out
+
+
 def kernel_entries() -> dict:
     """Each kernel's entry of the ``kernels`` line, before any number: its
     route, source and the TPU kernel it replaces; the head-dim-256, -384
@@ -6731,8 +6963,10 @@ def main() -> int:
         return name, round(time.perf_counter() - t0, 1)
 
     # one nvcc per source, all started together
-    with ThreadPoolExecutor(len(_build.SIGNATURES)) as pool:
-        done = dict(pool.map(build, _build.SIGNATURES))
+    # and the host library (csrc/host) beside them
+    libs = (*_build.SIGNATURES, *_build.HOST_SIGNATURES)
+    with ThreadPoolExecutor(len(libs)) as pool:
+        done = dict(pool.map(build, libs))
     log(f"build: {done} s, {time.perf_counter() - t0:.1f} s wall, into {_build.build_dir()}")
     resource_usage()
 
@@ -6862,6 +7096,9 @@ def main() -> int:
     time_quant_entries(results)
     log(f"C-entry timing phase: {time.perf_counter() - t_phase:.1f} s")
     measured_rate_floor(results, probe)
+    t_phase = time.perf_counter()
+    clis = run_clis(results)
+    log(f"CLI phase: {time.perf_counter() - t_phase:.1f} s")
 
     # a head-dim-256 instance, or kernel 12 with owned, that no path of this
     # run launches (it is checked and timed only) goes inside its kernel's entry
@@ -6891,6 +7128,7 @@ def main() -> int:
     log(json.dumps({"probe": probe}))
     log(json.dumps({"wide": wide}))
     log(json.dumps({"video_variants": video}))
+    log(json.dumps({"clis": clis}))
     require(not sweep["failed"], f"accuracy sweep: {sweep['failed']}")
     log(json.dumps({"kernels": kernels}))
     log(f"card: {card}")

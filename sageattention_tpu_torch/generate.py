@@ -86,7 +86,7 @@ def decode_step(model: CausalLM, cur: torch.Tensor, caches, lengths):
     return logits, caches, lengths + cur.shape[1]
 
 
-class _Clock:
+class Clock:
     """Phase times from CUDA events on the card, the host clock on the CPU."""
 
     def __init__(self, dev: torch.device):
@@ -124,7 +124,7 @@ def generate(model: CausalLM, tokens: torch.Tensor, gen: int, *, cache: str = "d
     max_len = max_len or s + gen
     caches = make_caches(model, b, max_len, cache=cache, page_size=page_size,
                          page_table=page_table, bits=bits)
-    clock = _Clock(dev)
+    clock = Clock(dev)
     t0 = clock.start()
     logits, caches, lengths = prefill(model, tokens, caches, chunked_prefill=chunked_prefill)
     cur = logits[:, -1:].argmax(dim=-1)
@@ -175,7 +175,7 @@ def speculate(model: CausalLM, tokens: torch.Tensor, gen: int, *, k: int = 4,
     dev = tokens.device
     caches = make_caches(model, b, max_len, cache=cache, page_size=page_size,
                          page_table=page_table, bits=bits)
-    clock = _Clock(dev)
+    clock = Clock(dev)
     t0 = clock.start()
     logits, caches, lengths = prefill(model, tokens, caches, chunked_prefill=chunked_prefill)
     cur = logits[:, -1:].argmax(dim=-1)
@@ -332,7 +332,7 @@ def serve_shards(shards: list[ShardOps], *, tp: int = 1, sp: int = 1, b: int = 1
         g.manual_seed(seed)
         table = torch.randperm(n_pg, generator=g, device=dev).reshape(b, -1).int()
     zeros = torch.zeros(b, dtype=torch.int32, device=dev)
-    clock = _Clock(dev)
+    clock = Clock(dev)
     caches, prefill_ms = [[] for _ in shards], 0.0
     for layer in range(depth):
         k, v = serving_draw(seed, layer, -1, [(b, hkv, prompt, d)] * 2, dev)

@@ -4,7 +4,9 @@ Each ``csrc/<name>.cu`` becomes ``build/lib<name>-<hash>.so`` at the repo
 root (``$SAGEATTN_TORCH_BUILD`` overrides the directory), compiled by
 ``nvcc`` for ``sm_90a`` with a plain C interface and loaded with
 ``ctypes``.  The hash covers the sources and the flags, so an edited
-kernel is rebuilt and a built one is reused.
+kernel is rebuilt and a built one is reused.  The host libraries
+(``csrc/host/<name>.cpp``, plain C++ for the host side of the varlen
+pipeline) go the same way through :func:`lib`, compiled by ``g++``.
 
 No ``--use_fast_math``: it turns ``1/scale`` into an approximate divide
 and flushes denormals, and the quantizers must match the spec bit for
@@ -149,10 +151,27 @@ SIGNATURES = {
     },
 }
 
+# the host libraries: each ``csrc/host/<name>.cpp`` becomes
+# ``build/lib<name>-<hash>.so`` beside the kernels, built by g++ (a plain C
+# interface, no Python headers), its functions returning nothing
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+HOST_LIBS = ("-lpthread",)
+P32, P64, I32 = ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int64), ctypes.c_int32
+HOST_SIGNATURES = {
+    "varlen_pack": {
+        # the sources, their lengths, n_seq, row bytes; dst, cu_seqlens; threads
+        "sage_pack_ragged": [ctypes.POINTER(P), P64, LL, LL, P, P32, I32],
+        # src, cu_seqlens, n_seq, row bytes, the destinations; threads
+        "sage_unpack_ragged": [P, P32, LL, LL, ctypes.POINTER(P), I32],
+        # cu_seqlens, n_seq, total; segment ids, positions; threads
+        "sage_expand_cu_seqlens": [P32, LL, LL, P32, P32, I32],
+    },
+}
+
 _LIBS: dict[str, ctypes.CDLL] = {}
 # one lock per library, so that threads loading different libraries
 # compile them in parallel
-_LOCKS = {name: threading.Lock() for name in SIGNATURES}
+_LOCKS = {name: threading.Lock() for name in (*SIGNATURES, *HOST_SIGNATURES)}
 
 
 def build_dir() -> pathlib.Path:
@@ -174,42 +193,51 @@ def _nvcc() -> str:
     )
 
 
+def _recipe(name: str):
+    """How library ``name`` is built and bound: (its source, the compiler
+    and flags before the source, the libraries after it, the sources its
+    hash covers, its functions' signatures and return type)."""
+    if name in HOST_SIGNATURES:
+        src = CSRC / "host" / f"{name}.cpp"
+        return (src, ["g++", *HOST_FLAGS], list(HOST_LIBS), [src], HOST_SIGNATURES[name],
+                None)
+    # headers are shared, so every kernel library hashes all of them
+    hashed = [f for f in sorted(CSRC.glob("*.cu*")) if f.suffix == ".cuh" or f.stem == name]
+    return (CSRC / f"{name}.cu", [_nvcc(), *FLAGS], [], hashed, SIGNATURES[name], ctypes.c_int)
+
+
 def _target(name: str) -> pathlib.Path:
-    h = hashlib.sha256(" ".join(FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu*")):
-        # headers are shared, so every library hashes all of them
-        if src.suffix == ".cuh" or src.stem == name:
-            h.update(src.name.encode())
-            h.update(src.read_bytes())
+    _, cmd, libs, hashed, _, _ = _recipe(name)
+    h = hashlib.sha256(" ".join(cmd[1:] + libs).encode())
+    for src in hashed:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
     return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def _compile(name: str) -> None:
-    out = _target(name)
-    if out.exists():
-        return
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed for csrc/{name}.cu:\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
-
-
 def lib(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library for ``csrc/<name>.cu`` or ``csrc/host/<name>.cpp``,
+    built first if needed; a failed build raises with the compiler's
+    message."""
     with _LOCKS[name]:
         if name not in _LIBS:
-            _compile(name)
-            so = ctypes.CDLL(str(_target(name)))
-            for fn, argtypes in SIGNATURES[name].items():
+            src, cmd, libs, _, signatures, restype = _recipe(name)
+            out = _target(name)
+            if not out.exists():
+                out.parent.mkdir(parents=True, exist_ok=True)
+                # a per-process temp name, so that concurrent builds never
+                # publish a half-written file
+                tmp = out.with_suffix(f".{os.getpid()}.tmp")
+                proc = subprocess.run([*cmd, str(src), *libs, "-o", str(tmp)],
+                                      capture_output=True, text=True)
+                if proc.returncode != 0:
+                    raise RuntimeError(f"{cmd[0]} failed for {src.relative_to(_PKG)}:\n"
+                                       f"{proc.stdout}\n{proc.stderr}")
+                os.replace(tmp, out)
+            so = ctypes.CDLL(str(out))
+            for fn, argtypes in signatures.items():
                 getattr(so, fn).argtypes = argtypes
-                getattr(so, fn).restype = ctypes.c_int
+                getattr(so, fn).restype = restype
             _LIBS[name] = so
         return _LIBS[name]
 

@@ -58,13 +58,14 @@ def init_weights(model: torch.nn.Module, seed: int) -> None:
 
 def load_model(cfg: DiTConfig, *, device="cuda", dtype=torch.bfloat16,
                seed: int = 0, state_dict: dict | None = None,
-               model_cls: type[VideoDiT] = VideoDiT) -> VideoDiT:
+               model_cls: type[VideoDiT] = VideoDiT, processor=None) -> VideoDiT:
     """A ``model_cls`` (VideoDiT, DualStreamVideoDiT or CrossAttnVideoDiT)
     on ``device`` in eval mode, with seeded random weights or the given
-    (converted) ``state_dict``."""
+    (converted) ``state_dict``; with ``processor`` (a ``SageAttnProcessor``)
+    every attention layer runs through it instead of the global backend."""
     dev = resolve_device(device)
     model = model_cls(cfg, latent_channels=LATENT_CHANNELS, text_dim=TEXT_DIM,
-                      dtype=dtype, device=dev)
+                      dtype=dtype, processor=processor, device=dev)
     if state_dict is None:
         init_weights(model, seed)
     else:

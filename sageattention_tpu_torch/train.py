@@ -72,11 +72,11 @@ def data_info(data):
 
 
 def load_trainer(cfg: DiTConfig, *, device="cuda", seed: int = 0, dtype=torch.bfloat16,
-                 state_dict: dict | None = None, data=None) -> Trainer:
+                 state_dict: dict | None = None, data=None, lr: float = 1e-4) -> Trainer:
     """A VideoDiT in train mode (fp32 parameters, ``dtype`` compute) with
     seeded random weights or the given (converted) ``state_dict``, and its
-    AdamW optimizer.  With ``data``, the replicas start from the weights of
-    the group's rank 0 (broadcast)."""
+    AdamW optimizer at learning rate ``lr``.  With ``data``, the replicas
+    start from the weights of the group's rank 0 (broadcast)."""
     model = serve.load_model(cfg, device=device, dtype=dtype, seed=seed,
                              state_dict=state_dict).train()
     group, n, _ = data_info(data)
@@ -84,7 +84,7 @@ def load_trainer(cfg: DiTConfig, *, device="cuda", seed: int = 0, dtype=torch.bf
         src = dist.get_global_rank(group, 0)
         for x in model.state_dict().values():
             dist.broadcast(x, src=src, group=group)
-    opt = torch.optim.AdamW(model.parameters(), lr=1e-4, betas=(0.9, 0.999), eps=1e-8,
+    opt = torch.optim.AdamW(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8,
                             weight_decay=0.01)
     return Trainer(model, opt)
 

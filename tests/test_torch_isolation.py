@@ -22,7 +22,12 @@ WRAPPERS = ("ops/quant_cuda.py", "ops/attention_cuda.py", "ops/attention_bwd_cud
 NO_TRY = ("ops/_build.py", *WRAPPERS, "ops/autodiff.py", "core.py", "train.py", "kvcache.py",
           "generate.py", "parallel/mesh.py", "parallel/decode.py", "parallel/ring.py",
           "parallel/ulysses.py", "parallel/api.py", "speculative.py", "baselines.py",
-          "interop/__init__.py", "interop/torch_adapter.py", "models/mmdit.py")
+          "interop/__init__.py", "interop/torch_adapter.py", "models/mmdit.py", "native.py",
+          "utils/dump.py", "utils/profiling.py", "examples/common.py",
+          *(f"examples/{m}.py" for m in ("cogvideox_2b", "cogvideox1_5_5b", "hunyuanvideo",
+                                          "mochi", "wan", "modify_model", "llm_prefill",
+                                          "llm_decode", "train_dit", "sharded_serving",
+                                          "parallel_video")))
 
 
 def _port_files():
@@ -157,6 +162,21 @@ def test_parallel_exports_resolve():
         assert callable(getattr(tpar, name)), name
     assert {p.name for p in (PKG / "parallel").glob("*.py")} >= {
         "__init__.py", "mesh.py", "decode.py", "ring.py", "ulysses.py", "api.py"}
+
+
+def test_utils_exports_resolve():
+    """Every name the JAX ``utils`` package exports is the port's too, with
+    the port's own ``max_abs_err``."""
+    from sageattention_tpu import utils as jutils
+
+    from sageattention_tpu_torch import utils as tutils
+
+    names = [n for n in vars(jutils) if not n.startswith("_")
+             and n not in ("compare", "dump", "profiling")]
+    assert {"compare_report", "StageDumper", "StageTimer", "trace"} <= set(names)
+    for name in names + ["max_abs_err"]:
+        assert callable(getattr(tutils, name)), name
+        assert getattr(tutils, name).__module__.startswith("sageattention_tpu_torch."), name
 
 
 def test_import_builds_nothing():
